@@ -1,0 +1,94 @@
+"""Carry weights from the JAX package's parameter pytrees to the port.
+
+The input is a JAX ``init_params`` (or trained) pytree already converted
+to numpy arrays — nested dicts and lists of ``np.ndarray`` — so this
+module never imports jax.
+
+U-Net mapping (``repro/models/unet.py`` -> ``repro_torch.models.unet``):
+  * conv kernels HWIO (kh, kw, cin, cout) -> OIHW (cout, cin, kh, kw);
+  * dense matrices (in, out) -> ``nn.Linear.weight`` (out, in): the port
+    uses ``nn.Linear``, which multiplies by the transpose;
+  * ``*_s`` / ``*_b`` GroupNorm leaves -> ``gn*.weight`` / ``gn*.bias``;
+    ``time_b*`` -> the matching Linear's ``bias``.
+Any leaf it cannot map, any shape that disagrees with the port's module,
+and any port parameter left unfilled raises.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models.unet import UNet, UNetConfig
+
+_CONV = "conv"
+_DENSE = "dense"
+_PLAIN = "plain"
+
+# JAX leaf name -> (port parameter suffix, conversion)
+_UNET_LEAVES = {
+    "time_w1": ("time_w1.weight", _DENSE), "time_b1": ("time_w1.bias", _PLAIN),
+    "time_w2": ("time_w2.weight", _DENSE), "time_b2": ("time_w2.bias", _PLAIN),
+    "time_w": ("time.weight", _DENSE), "time_b": ("time.bias", _PLAIN),
+    "wq": ("wq.weight", _DENSE), "wk": ("wk.weight", _DENSE),
+    "wv": ("wv.weight", _DENSE), "wo": ("wo.weight", _DENSE),
+    "gn1_s": ("gn1.weight", _PLAIN), "gn1_b": ("gn1.bias", _PLAIN),
+    "gn2_s": ("gn2.weight", _PLAIN), "gn2_b": ("gn2.bias", _PLAIN),
+    "gn_s": ("gn.weight", _PLAIN), "gn_b": ("gn.bias", _PLAIN),
+    "gn_out_s": ("gn_out.weight", _PLAIN),
+    "gn_out_b": ("gn_out.bias", _PLAIN),
+    "conv_in": ("conv_in.weight", _CONV), "conv1": ("conv1.weight", _CONV),
+    "conv2": ("conv2.weight", _CONV), "skip": ("skip.weight", _CONV),
+    "down": ("down.weight", _CONV), "up": ("up.weight", _CONV),
+    "conv_out": ("conv_out.weight", _CONV),
+}
+
+
+def _leaves(tree, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...],
+                                                              np.ndarray]]:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (str(i),))
+    else:
+        yield path, np.asarray(tree)
+
+
+def _convert(a: np.ndarray, kind: str) -> np.ndarray:
+    if kind == _CONV:
+        if a.ndim != 4:
+            raise ValueError(f"conv kernel must be HWIO, got shape {a.shape}")
+        return a.transpose(3, 2, 0, 1)
+    if kind == _DENSE:
+        if a.ndim != 2:
+            raise ValueError(f"dense matrix must be 2-D, got {a.shape}")
+        return a.T
+    return a
+
+
+def unet_params_from_jax(tree, cfg: UNetConfig) -> Dict[str, torch.Tensor]:
+    """JAX U-Net pytree (numpy leaves) -> the port's float32 state_dict."""
+    expected = {k: tuple(v.shape)
+                for k, v in UNet(cfg, device="meta").state_dict().items()}
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _leaves(tree):
+        name = path[-1]
+        if name not in _UNET_LEAVES:
+            raise KeyError(f"unmapped JAX U-Net leaf {'/'.join(path)}")
+        suffix, kind = _UNET_LEAVES[name]
+        key = ".".join(path[:-1] + (suffix,))
+        if key not in expected:
+            raise KeyError(f"JAX leaf {'/'.join(path)} maps to {key!r}, "
+                           "which the port's UNet does not have")
+        arr = np.ascontiguousarray(_convert(leaf, kind), np.float32)
+        if arr.shape != expected[key]:
+            raise ValueError(f"{key}: converted shape {arr.shape} != port "
+                             f"shape {expected[key]}")
+        out[key] = torch.from_numpy(arr.copy())
+    missing = sorted(set(expected) - set(out))
+    if missing:
+        raise KeyError(f"port parameters with no JAX leaf: {missing}")
+    return out
