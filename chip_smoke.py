@@ -10,8 +10,9 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               matmul, so float32 convolutions are float32
   2. build    every CUDA source of the port, timed
   3. kernels  each kernel against its plain PyTorch version on the card,
-              over det/stoch x clip x float32/bfloat16 x R in {16, 768}
-              (+ want_x0 for the per-row kernel), with stated tolerances
+              over det/stoch x clip x float32/bfloat16 x R in {16, 768 and
+              the main path's 96 and 128} (+ want_x0 for the per-row
+              kernel), with stated tolerances
   4. main     the sampling service at CIFAR10 width: DiffusionSampler
               (tile_resident=True) serves 16 requests (eta=0, S=20) and 8
               (eta=1, S=10), plan.run(backend='rows') runs one batch; the
@@ -111,8 +112,25 @@ def bound_ms(n_elems: int, elem_bytes: int, n_streams: int,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# float32 operations per element (PRNG integer ops counted as operations)
-OPS_DET, OPS_NOISE = 3, 60
+# Operations per element of the timed variants (no clip), counted from the
+# body of csrc/sampler_step.cu.  An FMA counts 2, logf / sqrtf / cosf 1
+# each; the PRNG's integer ops are counted at the float32 rate (the data
+# sheet gives none for int32), which can only shorten the bound.  Index
+# arithmetic and the per-launch coefficients and keys are not counted.
+#   step:  b*eps, fma(a, x, .)                                       =  3
+#   noise: 2 draws x 11 (xor, mul, add; fmix32: 3 shift, 3 xor, 2 mul)
+#          + Box-Muller 13 (2 shift, 2 cvt, add, 5 mul, log, sqrt, cos)
+#          + fma(c_noise, z, out) 2                                  = 37
+OPS_STEP, OPS_NOISE = 3, 37
+
+
+def main_rows():
+    """Rows of the (R, 256) state the main path gives each kernel at batch
+    BATCH: the tile layout (B1) and the slot layout (B2)."""
+    from repro_torch.kernels.sampler_step import ops
+    r_main = ops.to_tile_layout(
+        torch.empty((BATCH,) + CARD_SHAPE, device="meta"))[0].shape[0]
+    return r_main, BATCH * ops.slot_rows(CARD_SHAPE)
 
 
 # ----------------------------------------------------------------- phases
@@ -164,7 +182,8 @@ def phase_kernels():
     gen = torch.Generator(device=dev).manual_seed(1234)
     coefs = torch.tensor([0.9, 0.3, 1.0, 0.6, 0.8])   # c_noise = 1.0
     errs = {"sampler_step_2d": [], "sampler_step_rows_2d": []}
-    for R in (16, 768):
+    # the 8-row granule, the main path's shapes (B1's and B2's), 256-row tiles
+    for R in sorted({16, *main_rows(), 768}):
         x32 = torch.randn(R, 256, generator=gen, device=dev) * 2
         e32 = torch.randn(R, 256, generator=gen, device=dev)
         row_coefs = torch.rand(R, 8, generator=gen, device=dev) * 0.9 + 0.1
@@ -320,15 +339,13 @@ def profile_batch(smi: str, svc, plan) -> None:
 
 
 def phase_times(smi: str, model, errs, launches, st_det):
-    from repro_torch.kernels.sampler_step import kernel, ops, ref
+    from repro_torch.kernels.sampler_step import kernel, ref
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(99)
     coefs = torch.tensor([0.9, 0.3, 1.0, 0.6, 0.8])
     coefs_dev = coefs.to(dev)
     records = {}
-    rows_main = BATCH * ops.slot_rows(CARD_SHAPE)
-    r_main = ops.to_tile_layout(
-        torch.empty((BATCH,) + CARD_SHAPE, device="meta"))[0].shape[0]
+    r_main, rows_main = main_rows()
     for kname, shapes in (("sampler_step_2d", (r_main, 768)),
                           ("sampler_step_rows_2d", (rows_main, 768))):
         for R in shapes:
@@ -351,7 +368,7 @@ def phase_times(smi: str, model, errs, launches, st_det):
                         x, e, rc, rs, stochastic=stoch)
                     extra = R * (8 * 4 + (4 if stoch else 0))
                 n = R * 256
-                ops_pe = OPS_DET + (OPS_NOISE if stoch else 0)
+                ops_pe = OPS_STEP + (OPS_NOISE if stoch else 0)
                 b_ms, b_by = bound_ms(n, 4, 3, extra, ops_pe)
                 t = {"ms": graph_ms(fn), "plain_ms": graph_ms(plain),
                      "call_ms": loop_ms(fn), "bound_ms": b_ms,

@@ -1,7 +1,6 @@
 """Build the package's CUDA sources into plain-C shared libraries.
 
-Every ``kernels/*/csrc/*.cu`` is compiled by ``nvcc`` on first use, one
-process per source, all started together, into
+Every ``kernels/*/csrc/*.cu`` is compiled by ``nvcc`` on first use into
 ``build/repro_torch_kernels/<stem>-<sha256[:16]>.so`` at the repository
 root, and loaded with ``ctypes``.  The source hash is in the file name, so
 an edited source is rebuilt and an unchanged one is loaded as built.  A
@@ -23,7 +22,6 @@ from typing import Dict
 
 _KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch_kernels"
-TOOLKIT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -36,14 +34,12 @@ def sources() -> Dict[str, Path]:
 
 
 def nvcc_path() -> str:
-    """The nvcc to build with: PATH first, then the toolkit's default."""
+    """The nvcc on PATH."""
     found = shutil.which("nvcc")
-    if found:
-        return found
-    if TOOLKIT_NVCC.exists():
-        return str(TOOLKIT_NVCC)
-    raise RuntimeError("nvcc not found (neither on PATH nor at "
-                       f"{TOOLKIT_NVCC}); the CUDA kernels cannot be built")
+    if not found:
+        raise RuntimeError("nvcc not found on PATH; the CUDA kernels cannot "
+                           "be built")
+    return found
 
 
 def _library(src: Path) -> Path:
@@ -53,31 +49,20 @@ def _library(src: Path) -> Path:
 
 def build_all() -> Dict[str, ctypes.CDLL]:
     """Build (where needed) and load every source; returns name -> CDLL."""
-    todo = {name: (src, _library(src)) for name, src in sources().items()
-            if name not in _loaded}
-    jobs = []
-    missing = [(n, s, lib) for n, (s, lib) in todo.items()
-               if not lib.exists()]
-    if missing:
-        nvcc = nvcc_path()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        for name, src, lib in missing:
+    for name, src in sources().items():
+        if name in _loaded:
+            continue
+        lib = _library(src)
+        if not lib.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-            proc = subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            proc = subprocess.run(
+                [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            jobs.append((name, proc, tmp, lib))
-    failures = []
-    for name, proc, tmp, lib in jobs:        # wait for every job first
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed for {name} "
-                            f"(exit {proc.returncode}):\n{log}")
-        else:
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name} (exit "
+                                   f"{proc.returncode}):\n{proc.stdout}")
             os.replace(tmp, lib)
-    if failures:
-        raise RuntimeError("\n".join(failures))
-    for name, (_, lib) in todo.items():
         _loaded[name] = ctypes.CDLL(str(lib))
     return dict(_loaded)
 

@@ -26,8 +26,8 @@
 // pass, memory-bound.  Bytes moved = (2 reads + 1 write, +1 write for the
 // x0 preview) x N elements x dtype size (+ R x 36 bytes of row coefficients
 // and seeds for the per-row kernel), over 3.35 TB/s.  Even the stochastic
-// path's ~100 float32 operations per element stay below the bytes bound
-// at 67 TFLOP/s.
+// path's operations per element (counted in chip_smoke.py, OPS_STEP +
+// OPS_NOISE) stay below the bytes bound at 67 TFLOP/s.
 //
 // Design (the simple one): one thread per 4 consecutive elements of the
 // (R, 256) tile layout, loaded and stored as one vector (16 bytes for

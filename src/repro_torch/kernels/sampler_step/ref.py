@@ -82,22 +82,6 @@ def _bits(ctr: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
     return fmix32((_mul32(ctr ^ key, GOLDEN) + key) & MASK32)
 
 
-def sw_random_bits(seed: int, tid: int, salt_id: int, shape,
-                   device=None) -> torch.Tensor:
-    """One (rows, lanes) tile of the scalar kernel's uint32 stream.
-
-    Mirrors ``repro`` kernel.sw_random_bits: key fmix(seed ^ tid*M ^ salt),
-    counter r * lanes + c.  Returns int64 holding uint32 values.
-    """
-    key = fmix32(torch.tensor(((int(seed) & MASK32)
-                               ^ ((int(tid) * TID_MUL) & MASK32)
-                               ^ salt(salt_id)), dtype=torch.int64,
-                              device=device))
-    r = torch.arange(shape[0], dtype=torch.int64, device=device)[:, None]
-    c = torch.arange(shape[1], dtype=torch.int64, device=device)[None, :]
-    return _bits(r * shape[1] + c, key)
-
-
 def sw_random_bits_rows(row_seeds: torch.Tensor, col0: int, salt_id: int,
                         shape) -> torch.Tensor:
     """The per-row stream: key fmix(row_seed ^ salt), counter = lane."""
@@ -115,8 +99,9 @@ def bits_to_normal(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
 
 
 def tile_bits(seed: int, R: int, salt_id: int, device=None) -> torch.Tensor:
-    """(R, TILE_C) uint32 bits (in int64) of the scalar kernel: stream keyed
-    on (seed, row-tile id), counter (row % tile_rows) * TILE_C + lane."""
+    """(R, TILE_C) uint32 bits (in int64) of the scalar kernel: ``repro``
+    kernel.sw_random_bits tile by tile, key fmix(seed ^ tid*M ^ salt) for
+    row-tile ``tid``, counter (row % tile_rows) * TILE_C + lane."""
     tr = tile_rows(R)
     row = torch.arange(R, dtype=torch.int64, device=device)[:, None]
     col = torch.arange(TILE_C, dtype=torch.int64, device=device)[None, :]

@@ -51,11 +51,15 @@ def test_fmix32_bitwise():
 @pytest.mark.parametrize("seed", SEEDS)
 @pytest.mark.parametrize("rows", [8, 256])
 def test_sw_random_bits_bitwise(seed, rows):
-    for tid in (0, 1, 7):
-        for salt in (1, 2):
+    """JAX's per-tile stream is the port's whole-array stream, sliced at
+    that tile: 8 tiles of ``rows`` rows, so the granule is ``rows``."""
+    tids = (0, 1, 7)
+    for salt in (1, 2):
+        whole = ref.tile_bits(seed, rows * (max(tids) + 1), salt)
+        for tid in tids:
             want = _u32(jk.sw_random_bits(np.int32(seed), tid, salt,
                                           (rows, 256)))
-            got = ref.sw_random_bits(seed, tid, salt, (rows, 256))
+            got = whole[tid * rows:(tid + 1) * rows]
             np.testing.assert_array_equal(got.numpy().astype(np.uint32),
                                           want)
 
@@ -251,7 +255,6 @@ def test_non_cpu_tensor_never_runs_the_plain_version(monkeypatch):
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
-    monkeypatch.setattr(build, "TOOLKIT_NVCC", tmp_path / "no-nvcc")
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(build, "_loaded", {})
     assert "sampler_step" in build.sources()
