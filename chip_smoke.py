@@ -7,22 +7,39 @@ It needs one CUDA device and ``nvcc`` (the kernels are built from the
 sources in the checkout into build/repro_torch_kernels/).  Phases:
 
   1. card     name and power limit (nvidia-smi); TF32 off for cuDNN and
-              matmul, so float32 convolutions are float32
-  2. build    every CUDA source of the port, timed
+              matmul, so float32 convolutions and products are float32
+  2. build    every CUDA source of the port (one nvcc each, in parallel),
+              timed, with ptxas's register / spill lines for the new ones
   3. kernels  each kernel against its plain PyTorch version on the card,
-              over det/stoch x clip x float32/bfloat16 x R in {16, 768 and
-              the main path's 96 and 128} (+ want_x0 for the per-row
-              kernel), with stated tolerances
-  4. main     the sampling service at CIFAR10 width: DiffusionSampler
+              with stated tolerances:
+              B1/B2 over det/stoch x clip x float32/bfloat16 x R in {16,
+              768 and the main path's 96 and 128} (+ want_x0 for B2);
+              B6 rms_norm over f32/bf16 x rows {256, 1000} x d {576, 192};
+              B5 flash_attention over f32/bf16 x causal/not at (36, 64, 64)
+              and (9, 2048, 64); B3 megastep_call at the slice's shape
+              (smollm width, 2 layers, batch 4 x 64 tokens) over
+              exact/flash x clip none/1.0 x K {1, 8}
+  4. main     each path with the launch counters zeroed just before it and
+              read just after:
+              the sampling service at CIFAR10 width: DiffusionSampler
               (tile_resident=True) serves 16 requests (eta=0, S=20) and 8
-              (eta=1, S=10), plan.run(backend='rows') runs one batch; the
-              kernels' launch counters must grow by exactly S per batch;
-              the outputs are checked against the eager path and the U-Net
-              against its own CPU forward
-  5. times    CUDA-graph-replayed kernel times at the main path's shapes and
-              at R=768 beside their bytes bound and the plain versions'
-              times; the U-Net forward at batch 8; samples/s from serve;
-              a torch.profiler breakdown of one steady serve batch
+              (eta=1, S=10), plan.run(backend='rows') runs one batch; B1/B2
+              must grow by exactly S per batch; outputs are checked against
+              the eager path and the U-Net against its own CPU forward;
+              diffusion-LM generate(tile_resident=True) at S=20, batch 4 x
+              64 tokens: DLM_SMOLLM_MEGA (2 layers, eligible) must launch B3
+              exactly ceil(20/8) = 3 times and B1 0 times, DLM_SMOLLM (30
+              layers, not eligible) B3 0 times and B1 20 times, with the
+              eligibility reason printed; plan.run 'mega' (exact and flash)
+              against 'tile_resident' on the card;
+              the attention / norm ops at smollm width and prefill length
+              (rms_norm, gqa_flash causal), against the model's plain ones
+  5. times    CUDA-graph-replayed kernel times at the main path's shapes
+              beside their bound, the plain versions' and the library
+              call's times; the U-Net forward at batch 8; samples/s from
+              serve and from generate on 'mega' and 'tile_resident';
+              torch.profiler breakdowns of one steady serve batch and of
+              one generate call on each of the two backends
 
 Any failure raises and the script exits nonzero with no result line.  On
 success the second-to-last line is the kernels' JSON record and the last
@@ -31,7 +48,10 @@ line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
+import math
+import re
 import subprocess
 import sys
 import time
@@ -50,6 +70,17 @@ CARD_SHAPE = (32, 32, 3)
 BATCH = 8
 KERNEL_SOURCE = "src/repro_torch/kernels/sampler_step/csrc/sampler_step.cu"
 TPU_KERNEL = "src/repro/kernels/sampler_step/kernel.py"
+DLM_BATCH, DLM_SEQ, DLM_S, DLM_K = 4, 64, 20, 8
+# name -> (source, the TPU kernel's function file:line) of this slice
+DLM_KERNELS = {
+    "megastep_call": ("src/repro_torch/kernels/megastep/csrc/megastep.cu",
+                      "src/repro/kernels/megastep/kernel.py:232"),
+    "flash_attention": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:118"),
+    "rms_norm_2d": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm/kernel.py:38"),
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -155,6 +186,15 @@ def phase_build():
     libs = build.build_all()
     print(f"[build] {sorted(libs)} built/loaded in "
           f"{time.perf_counter() - t0:.2f} s into {build.BUILD_DIR}")
+    for name in ("megastep", "flash_attention", "rmsnorm"):
+        lines = [ln.strip() for ln in build.build_log(name).splitlines()
+                 if "Used" in ln or "spill" in ln]
+        spills = [ln for ln in lines if "spill" in ln and not re.search(
+            r"(?<!\d)0 bytes spill stores, 0 bytes spill loads", ln)]
+        print(f"[build] {name}: {len(lines)} ptxas lines, {len(spills)} "
+              f"with spills")
+        for ln in (lines if name == "megastep" else spills)[:16]:
+            print(f"[build]   {ln}")
 
 
 def _tolerance(dtype, exact: bool, scale: float) -> float:
@@ -308,32 +348,39 @@ def phase_main(model):
     return launches, st_det, svc, det
 
 
-def profile_batch(smi: str, svc, plan) -> None:
-    """torch.profiler over one steady serve batch: device kernel time by
-    kernel, and the device's idle share of the same batch's wall time
-    measured without the profiler (its host cost slows the loop)."""
+def profile_call(smi: str, label: str, fn, marker: str) -> None:
+    """torch.profiler over one steady call of ``fn``: device kernel time by
+    kernel, and the device's idle share of the same call's wall time
+    measured without the profiler (its host cost slows the loop).
+    ``marker`` picks the port's kernel out of the kernel names."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    _, wall_s = svc.sample_batch(plan, gen)
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, prof_wall_s = svc.sample_batch(plan, gen)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
     busy_ms = sum(r[1] for r in rows) / 1e3
     if busy_ms == 0:
-        print(f"[profile] {smi} | the profiler saw no device time: device "
-              "busy/idle share not measured")
+        print(f"[profile] {smi} | {label}: the profiler saw no device "
+              "time: device busy/idle share not measured")
         return
-    step_ms = sum(r[1] for r in rows if "step_kernel" in r[0]) / 1e3
-    print(f"[profile] {smi} | one serve batch (eta=0, S={plan.S}, batch "
-          f"{svc.batch}): wall {wall_s * 1e3:.1f} ms unprofiled "
-          f"({prof_wall_s * 1e3:.1f} ms profiled), device kernels "
-          f"{busy_ms:.1f} ms, idle share {1 - busy_ms / (wall_s * 1e3):.3f}"
-          f", sampler-step kernel {step_ms:.3f} ms, {len(rows)} kernels")
+    mine_ms = sum(r[1] for r in rows if marker in r[0]) / 1e3
+    print(f"[profile] {smi} | {label}: wall {wall_ms:.1f} ms unprofiled "
+          f"({prof_wall_ms:.1f} ms profiled), device kernels "
+          f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
+          f"{marker} {mine_ms:.3f} ms, {len(rows)} kernels")
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"[profile]   {us / 1e3:8.3f} ms  {count:5d}x  {key[:90]}")
 
@@ -405,6 +452,364 @@ def phase_times(smi: str, model, errs, launches, st_det):
     return kernels
 
 
+# ------------------------------------------------- the diffusion-LM slice
+def _dlm_params(cfg):
+    """Seeded random weights of ``cfg``, drawn on the card."""
+    from repro_torch.diffusion_lm import init_params
+    from repro_torch.kernels.megastep.kernel import leaves
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in leaves(params))
+    print(f"[main] {cfg.arch.name} (diffusion-LM, time_dim {cfg.time_dim}, "
+          f"latent {cfg.latent_dim}): {n / 1e6:.2f} M parameters, init "
+          f"{time.perf_counter() - t0:.2f} s")
+    return params
+
+
+def _plan_rows(S: int):
+    """(coefs (S, 5) float32, ts (S,) int32) of the S-step eta=0 plan, on
+    the card, in sampling order."""
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.sampling import SamplerPlan
+    tab = SamplerPlan.build(make_schedule("linear", 1000), S).steps()
+    cols = ("c_x0", "c_dir", "c_noise", "sqrt_a_t", "sqrt_1m_a_t")
+    coefs = torch.stack([torch.from_numpy(tab[c].copy()) for c in cols], 1)
+    return (coefs.cuda(), torch.from_numpy(tab["t"].copy()).cuda())
+
+
+def _check_rel(errs, name, got, want, rel_tol) -> None:
+    """max|got - want| <= rel_tol * max|want|, all finite."""
+    got, want = got.float(), want.float()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    tol = rel_tol * scale
+    ok = bool(torch.isfinite(got).all()) and err <= tol
+    print(f"[kernels] {name:<44} max|d|={err:.3e} tol={tol:.3e} "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"{name}: max|d| {err} > tol {tol}")
+    errs.append(err)
+
+
+def phase_kernels_dlm(params2):
+    """B6, B5 and B3 against their plain versions on the card."""
+    from repro_torch.configs import DLM_SMOLLM_MEGA
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.megastep import kernel as mk
+    from repro_torch.kernels.megastep import ref as mref
+    from repro_torch.kernels.rmsnorm import ops as rops
+    from repro_torch.kernels.rmsnorm import ref as rref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    errs = {k: [] for k in DLM_KERNELS}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        ulps = 4 * F32_ULP if dtype == torch.float32 else BF16_ULP
+        for R in (256, 1000):            # 1000 goes through ops' padding
+            for d in (576, 192):
+                x = (torch.randn(R, d, generator=gen, device=dev) * 3
+                     ).to(dtype)
+                sc = (torch.rand(d, generator=gen, device=dev) + 0.5
+                      ).to(dtype)
+                _check_rel(errs["rms_norm_2d"], f"B6 R={R} d={d} {tag}",
+                           rops.rms_norm(x, sc), rref.rms_norm_body(x, sc,
+                                                                    1e-5),
+                           ulps)
+        rel = 2e-5 if dtype == torch.float32 else 2e-2
+        for BH, S, blk in ((36, DLM_SEQ, 64), (9, 2048, 128)):
+            q, k, v = (torch.randn(BH, S, 64, generator=gen, device=dev)
+                       .to(dtype) for _ in range(3))
+            for causal in (False, True):
+                got = fk.flash_attention(q, k, v, causal=causal,
+                                         block_q=blk, block_k=blk)
+                want = fref.flash_attention_ref(q, k, v, causal=causal,
+                                                block_k=blk)
+                _check_rel(errs["flash_attention"],
+                           f"B5 ({BH}, {S}, 64) {tag} "
+                           f"{'causal' if causal else 'full'}", got, want,
+                           rel)
+    coefs, ts = _plan_rows(DLM_S)
+    n = DLM_BATCH * DLM_SEQ * DLM_SMOLLM_MEGA.latent_dim
+    x2 = torch.randn(n // 256, 256, generator=gen, device=dev)
+    for impl in ("exact", "flash"):
+        for clip in (None, 1.0):
+            for K in (1, DLM_K):
+                args = (x2, params2, DLM_SMOLLM_MEGA, DLM_BATCH, DLM_SEQ,
+                        coefs[:K], ts[:K])
+                got = mk.megastep_call(*args, clip=clip, attn_impl=impl)
+                want = mref.megastep_ref(*args, clip=clip, attn_impl=impl)
+                _check_rel(errs["megastep_call"],
+                           f"B3 {impl} clip={clip} K={K}", got, want, 1e-4)
+    torch.cuda.synchronize()
+    return {k: max(v) for k, v in errs.items()}
+
+
+def phase_main_dlm(params2, params30):
+    """generate() on the eligible 2-layer and the ineligible 30-layer
+    smollm-width trunk, counted; 'mega' against 'tile_resident'."""
+    from repro_torch.configs import DLM_SMOLLM, DLM_SMOLLM_MEGA
+    from repro_torch.core import SamplerConfig
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.diffusion_lm import generate, make_tile_eps_fn
+    from repro_torch.kernels.megastep import kernel as mk
+    from repro_torch.kernels.sampler_step import kernel as sk
+    from repro_torch.sampling import backends
+    sch = make_schedule("linear", 1000)
+    sampler = SamplerConfig(S=DLM_S)
+    b3_launches = None
+    for cfg, params, want_b3, want_b1 in (
+            (DLM_SMOLLM_MEGA, params2, math.ceil(DLM_S / DLM_K), 0),
+            (DLM_SMOLLM, params30, 0, DLM_S)):
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        mk.megastep_call.launches = 0
+        sk.sampler_step_2d.launches = 0
+        tokens = generate(params, cfg, sch, gen, DLM_BATCH, DLM_SEQ,
+                          sampler, tile_resident=True)
+        torch.cuda.synchronize()
+        n3 = mk.megastep_call.launches
+        n1 = sk.sampler_step_2d.launches
+        print(f"[main] generate {cfg.arch.name} (S={DLM_S}, eta=0, batch "
+              f"{DLM_BATCH} x {DLM_SEQ} tokens, tile_resident=True): mega "
+              f"eligibility: {backends.run_mega.last_reason!r}; launches "
+              f"megastep_call {n3} (want {want_b3}), sampler_step_2d {n1} "
+              f"(want {want_b1}); tokens {tuple(tokens.shape)} "
+              f"{tokens.dtype}, first row {tokens[0, :8].tolist()}")
+        check(n3 == want_b3 and n1 == want_b1,
+              f"{cfg.arch.name}: B3 {n3} / B1 {n1} launches, want "
+              f"{want_b3} / {want_b1}")
+        check(tokens.shape == (DLM_BATCH, DLM_SEQ)
+              and tokens.dtype == torch.int32
+              and 0 <= int(tokens.min()) and int(tokens.max())
+              < cfg.arch.vocab, f"{cfg.arch.name}: bad tokens")
+        if want_b3:
+            b3_launches = n3
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x_T = torch.randn(DLM_BATCH, DLM_SEQ, DLM_SMOLLM_MEGA.latent_dim,
+                      generator=gen, device="cuda")
+    eps = make_tile_eps_fn(params2, DLM_SMOLLM_MEGA, DLM_BATCH, DLM_SEQ)
+    plan = sampler.to_plan(sch)
+    want = plan.run(eps, x_T, backend="tile_resident")
+    spec = eps.mega_spec
+    for impl in ("exact", "flash"):
+        eps.mega_spec = dataclasses.replace(spec, attn_impl=impl)
+        got = plan.run(eps, x_T, backend="mega")
+        rel = float((got - want).abs().max() / want.abs().max())
+        print(f"[main] plan.run mega ({impl}) vs tile_resident, "
+              f"{DLM_SMOLLM_MEGA.arch.name} S={DLM_S}: max|d|/max|x| = "
+              f"{rel:.3e} (tol 1e-3), max|x| {float(want.abs().max()):.4g}")
+        check(backends.run_mega.last_reason == "ok" and rel <= 1e-3,
+              f"mega {impl} vs tile_resident: {rel} > 1e-3")
+    eps.mega_spec = spec
+    return b3_launches
+
+
+def phase_ops_path():
+    """The public norm / attention ops at smollm width and prefill
+    length, counted, against the model's plain versions."""
+    from repro_torch.configs import SMOLLM_135M as a
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.rmsnorm import ops as rops
+    from repro_torch.models.attention import _grouped_attention
+    from repro_torch.models.common import causal_mask, rms_norm
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    S, d, D = 2048, a.d_model, a.hd()
+    h = torch.randn(1, S, d, generator=gen, device=dev)
+    scale = torch.rand(d, generator=gen, device=dev) + 0.5
+    w = {n: torch.randn(d, m * D, generator=gen, device=dev) * d ** -0.5
+         for n, m in (("q", a.n_heads), ("k", a.n_kv_heads),
+                      ("v", a.n_kv_heads))}
+    fk.flash_attention.launches = 0
+    rk.rms_norm_2d.launches = 0
+    xn = rops.rms_norm(h, scale)
+    q, k, v = ((xn @ w[n]).view(1, S, -1, D) for n in "qkv")
+    out = fops.gqa_flash(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": fk.flash_attention.launches,
+                "rms_norm_2d": rk.rms_norm_2d.launches}
+    xn_plain = rms_norm(h, scale)
+    want = _grouped_attention(q, k, v, torch.clamp(causal_mask(S, device=dev),
+                                                   min=-1e30))
+    e_n = float((xn - xn_plain).abs().max() / xn_plain.abs().max())
+    e_a = float((out - want).abs().max() / want.abs().max())
+    print(f"[main] ops path (smollm width, 1 x {S} tokens): rms_norm + "
+          f"gqa_flash causal ({a.n_heads}/{a.n_kv_heads} heads); launches "
+          f"{launches}; vs models.common.rms_norm {e_n:.3e} (tol 4 f32 "
+          f"ulps = {4 * F32_ULP:.3e}), vs _grouped_attention {e_a:.3e} "
+          f"(tol 1e-4) of max|out|")
+    check(launches == {"flash_attention": 1, "rms_norm_2d": 1},
+          f"ops path launches {launches}")
+    check(e_n <= 4 * F32_ULP and e_a <= 1e-4, "ops path disagrees")
+    return launches
+
+
+def mega_ops(cfg, batch: int, seq: int, K: int) -> int:
+    """Operations of one K-step megastep launch, counted from the body of
+    csrc/megastep.cu: 2 per multiply-add of a product, 1 per other float
+    operation (exp, divide, add, ...), index arithmetic not counted."""
+    a = cfg.arch
+    d, T, L, F = a.d_model, cfg.time_dim, cfg.latent_dim, a.d_ff
+    H, D = a.n_heads, a.hd()
+    hq, hkv, S = H * D, a.n_kv_heads * D, seq
+    per = 2 * T * T + 4 * T + 2 * T * d          # time MLP, silu
+    per += 2 * S * L * d + S * d                 # w_in + temb
+    lay = 2 * 4 * S * d                          # two RMSNorms
+    lay += 2 * S * d * (hq + 2 * hkv)            # q, k, v
+    lay += 3 * S * (hq + hkv)                    # RoPE: 6 per pair
+    lay += H * (4 * S * S * D + 5 * S * S)       # q k^T, p v, softmax
+    lay += 2 * S * hq * d + S * d                # wo, residual
+    lay += 4 * S * d * F + 5 * S * F             # gate, up, silu * up
+    lay += 2 * S * F * d + S * d                 # down, residual
+    per += a.n_layers * lay + 4 * S * d + 2 * S * d * L + 3 * S * L
+    return batch * K * per
+
+
+def _bound(n_bytes: float, n_ops: float):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _time_line(smi, label, rec):
+    lib = ("none" if rec["library_ms"] is None
+           else f"{rec['library_ms'] * 1e3:.2f} us")
+    print(f"[times] {smi} | {label}: kernel {rec['ms'] * 1e3:.2f} us "
+          f"(graph), plain {rec['plain_ms'] * 1e3:.2f} us, library {lib}, "
+          f"bound {rec['bound_ms'] * 1e3:.3f} us ({rec['bound_by']})")
+
+
+def phase_times_dlm(smi, params2, errs, b3_launches, ops_launches):
+    import torch.nn.functional as F
+    from repro_torch.configs import DLM_SMOLLM_MEGA as cfg
+    from repro_torch.core import SamplerConfig, sample
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.diffusion_lm import (generate, make_tile_eps_fn,
+                                          round_to_tokens)
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.megastep import kernel as mk
+    from repro_torch.kernels.megastep import ref as mref
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.rmsnorm import ref as rref
+    from repro_torch.kernels.sampler_step import kernel as sk
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(77)
+    recs = {}
+
+    # B6 at the trunk's norm shape: 256 tokens x d_model
+    R, d = DLM_BATCH * DLM_SEQ, cfg.arch.d_model
+    x = torch.randn(R, d, generator=gen, device=dev)
+    sc = torch.rand(d, generator=gen, device=dev) + 0.5
+    b_ms, b_by = _bound((2 * R * d + d) * 4, 4 * R * d)
+    recs["rms_norm_2d"] = dict(
+        ms=graph_ms(lambda: rk.rms_norm_2d(x, sc)),
+        plain_ms=graph_ms(lambda: rref.rms_norm_body(x, sc, 1e-5)),
+        library_ms=graph_ms(lambda: F.rms_norm(x, (d,), sc, 1e-5)),
+        bound_ms=b_ms, bound_by=b_by, shape=f"({R}, {d}) f32")
+    _time_line(smi, f"B6 rms_norm_2d ({R}, {d}) f32", recs["rms_norm_2d"])
+
+    # B5 at the trunk's attention shape and at one prefill-like shape
+    for BH, S, blk, causal in ((DLM_BATCH * cfg.arch.n_heads, DLM_SEQ, 64,
+                                False), (9, 2048, 128, True)):
+        q, k, v = (torch.randn(BH, S, 64, generator=gen, device=dev)
+                   for _ in range(3))
+        pairs = BH * (S * (S + 1) // 2 if causal else S * S)
+        b_ms, b_by = _bound(4 * BH * S * 64 * 4, pairs * (4 * 64 + 5))
+        rec = dict(
+            ms=graph_ms(lambda: fk.flash_attention(
+                q, k, v, causal=causal, block_q=blk, block_k=blk)),
+            plain_ms=graph_ms(lambda: fref.flash_attention_ref(
+                q, k, v, causal=causal, block_k=blk), iters=10),
+            library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], is_causal=causal)),
+            bound_ms=b_ms, bound_by=b_by,
+            shape=f"({BH}, {S}, 64) f32 {'causal' if causal else 'full'}")
+        _time_line(smi, f"B5 flash_attention {rec['shape']}", rec)
+        recs.setdefault("flash_attention", rec)
+
+    # B3: one 8-step launch at the slice's shape
+    coefs, ts = _plan_rows(DLM_S)
+    n = DLM_BATCH * DLM_SEQ * cfg.latent_dim
+    x2 = torch.randn(n // 256, 256, generator=gen, device=dev)
+    eps = make_tile_eps_fn(params2, cfg, DLM_BATCH, DLM_SEQ)
+    n_bytes = (eps.mega_spec.weight_bytes() + 2 * n * 4
+               + DLM_K * (5 * 4 + cfg.time_dim * 4) + DLM_SEQ * 64 * 4)
+    b_ms, b_by = _bound(n_bytes, mega_ops(cfg, DLM_BATCH, DLM_SEQ, DLM_K))
+    args = (x2, params2, cfg, DLM_BATCH, DLM_SEQ, coefs[:DLM_K],
+            ts[:DLM_K])
+    for impl in ("exact", "flash"):
+        rec = dict(
+            ms=graph_ms(lambda: mk.megastep_call(*args, attn_impl=impl),
+                        iters=3, reps=2),
+            plain_ms=graph_ms(lambda: mref.megastep_ref(
+                *args, attn_impl=impl), iters=3, reps=2),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            shape=f"{cfg.arch.name} batch {DLM_BATCH} x {DLM_SEQ}, K="
+                  f"{DLM_K}, {impl}")
+        _time_line(smi, f"B3 megastep_call {rec['shape']}", rec)
+        recs.setdefault("megastep_call", rec)
+    t_vecs = [torch.full((DLM_BATCH,), int(t), dtype=torch.int32,
+                         device=dev) for t in ts[:DLM_K].tolist()]
+    c_host = coefs[:DLM_K].cpu().numpy()
+
+    def unfused():
+        y = x2
+        for j in range(DLM_K):
+            y = sk.sampler_step_2d(y, eps(y, t_vecs[j]), c_host[j])
+        return y
+    tile_ms = graph_ms(unfused, iters=3, reps=2)
+    print(f"[times] {smi} | unfused tile_resident, the same {DLM_K} steps "
+          f"(eager trunk + B1 per step): {tile_ms * 1e3:.2f} us (graph), "
+          f"{tile_ms / DLM_K * 1e3:.2f} us per step")
+
+    # generate samples/s, 'mega' (the entry point) and 'tile_resident'
+    sch = make_schedule("linear", 1000)
+    sampler = SamplerConfig(S=DLM_S)
+
+    def gen_mega():
+        return generate(params2, cfg, sch, torch.Generator(
+            device="cuda").manual_seed(5), DLM_BATCH, DLM_SEQ, sampler,
+            tile_resident=True)
+
+    def gen_tile():
+        x_T = torch.randn(DLM_BATCH, DLM_SEQ, cfg.latent_dim,
+                          generator=torch.Generator(
+                              device="cuda").manual_seed(5), device=dev)
+        return round_to_tokens(params2, sample(sch, eps, x_T, sampler,
+                                               backend="tile_resident"))
+    for label, fn in (("mega", gen_mega), ("tile_resident", gen_tile)):
+        fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall = sorted(walls)[1]
+        print(f"[times] {smi} | generate {cfg.arch.name} S={DLM_S} batch "
+              f"{DLM_BATCH} on '{label}': {wall * 1e3:.1f} ms median of 3, "
+              f"{DLM_BATCH / wall:.2f} samples/s (walls "
+              f"{[round(w * 1e3, 1) for w in walls]} ms)")
+
+    profile_call(smi, f"generate {cfg.arch.name} S={DLM_S} batch "
+                 f"{DLM_BATCH} on 'mega'", gen_mega, "megastep_kernel")
+    profile_call(smi, f"generate {cfg.arch.name} S={DLM_S} batch "
+                 f"{DLM_BATCH} on 'tile_resident'", gen_tile, "step_kernel")
+
+    launches = {"megastep_call": b3_launches, **ops_launches}
+    return [{"name": name, "route": "cuda", "source": DLM_KERNELS[name][0],
+             "replaces": DLM_KERNELS[name][1], "launches": launches[name],
+             "max_abs_err": errs[name], "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+             "shape": r["shape"]} for name, r in recs.items()]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -415,14 +820,24 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    from repro_torch.configs import DLM_SMOLLM, DLM_SMOLLM_MEGA
     t0 = time.perf_counter()
     smi = phase_card()
     phase_build()
     errs = phase_kernels()
+    params2 = _dlm_params(DLM_SMOLLM_MEGA)
+    errs_dlm = phase_kernels_dlm(params2)
     model = _cifar10_model()
     launches, st_det, svc, det = phase_main(model)
+    b3_launches = phase_main_dlm(params2, _dlm_params(DLM_SMOLLM))
+    ops_launches = phase_ops_path()
     kernels = phase_times(smi, model, errs, launches, st_det)
-    profile_batch(smi, svc, det)
+    kernels += phase_times_dlm(smi, params2, errs_dlm, b3_launches,
+                               ops_launches)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    profile_call(smi, f"one serve batch (eta=0, S={det.S}, batch "
+                 f"{svc.batch})", lambda: svc.sample_batch(det, gen),
+                 "step_kernel")
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,224 @@
+"""DDIM over latent token sequences with a dense transformer eps-trunk
+(port of ``repro/diffusion_lm/model.py``, dense family only).
+
+Tokens embed into a small continuous latent (Diffusion-LM, Li et al.
+2022); the sampler runs on those latents; a bidirectional dense trunk with
+additive time conditioning predicts the noise.  The parameters are a dict
+mirroring the JAX pytree: (in, out) matrices used as ``x @ w``, the
+layers' leaves stacked along a leading ``n_layers`` axis.  Plain matrix
+products stay ``torch.matmul``, as the JAX package left them to XLA; the
+hand-written kernels run inside ``backend='mega'`` (kernels/megastep).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.sampler import SamplerConfig, sample
+from repro_torch.core.schedules import NoiseSchedule
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.sampler_step.ref import SUBLANE, TILE_C
+from repro_torch.models import dense
+from repro_torch.models.common import (ArchConfig, dense_init, embed_init,
+                                       rms_norm, sinusoidal_time_embedding)
+
+Params = Dict[str, object]
+
+# the eps path's weights: what the sampler loop (and the megakernel) reads
+EPS_PATH = ("w_in", "time_w1", "time_w2", "layers", "out_norm", "w_out")
+_DENSE_FAMILIES = ("dense", "vlm", "audio")
+_JAX_MODULES = {"moe": "repro/models/moe.py", "ssm": "repro/models/rwkv6.py",
+                "hybrid": "repro/models/hybrid.py"}
+
+
+@dataclasses.dataclass(frozen=True)
+class DiffusionLMConfig:
+    arch: ArchConfig
+    time_dim: int = 256
+    latent_dim: int = 32           # Diffusion-LM: diffuse in a SMALL latent
+
+
+def _check_family(cfg: DiffusionLMConfig) -> None:
+    fam = cfg.arch.family
+    if fam in _DENSE_FAMILIES:
+        return
+    where = _JAX_MODULES.get(fam)
+    if where is None:
+        raise ValueError(fam)
+    raise NotImplementedError(
+        f"the {fam!r} diffusion-LM trunk is not ported yet (JAX: {where})")
+
+
+def init_params(cfg: DiffusionLMConfig, generator: torch.Generator,
+                device: DeviceLike = None,
+                dtype=torch.float32) -> Params:
+    """Dense-family parameters with the JAX init's distributions, drawn
+    from ``generator`` on its device and moved to ``device`` (CUDA unless
+    named).  The same scheme as the JAX ``init_params``, not its numbers."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    a = cfg.arch
+    g = generator
+    params: Params = {
+        "embed": embed_init(g, (a.vocab, cfg.latent_dim), dtype),
+        "w_in": dense_init(g, (cfg.latent_dim, a.d_model), dtype),
+        "time_w1": dense_init(g, (cfg.time_dim, cfg.time_dim), dtype),
+        "time_w2": dense_init(g, (cfg.time_dim, a.d_model), dtype),
+        "out_norm": torch.ones((a.d_model,), dtype=dtype, device=g.device),
+        "w_out": dense_init(g, (a.d_model, cfg.latent_dim), dtype),
+        "rounding": dense_init(g, (cfg.latent_dim, a.vocab), dtype),
+    }
+    layers = [dense.init_layer(g, a, dtype) for _ in range(a.n_layers)]
+    params["layers"] = _stack(layers)
+    return _to(params, dev)
+
+
+def param_shapes(cfg: DiffusionLMConfig) -> Dict[str, object]:
+    """The dense-family parameter tree as nested dicts of shapes (stacked
+    layer leaves lead with n_layers), as the JAX ``init_params`` builds."""
+    _check_family(cfg)
+    a = cfg.arch
+    n, d, L, T = a.n_layers, a.d_model, cfg.latent_dim, cfg.time_dim
+    hq, hkv = a.n_heads * a.hd(), a.n_kv_heads * a.hd()
+    return {
+        "embed": (a.vocab, L), "w_in": (L, d), "time_w1": (T, T),
+        "time_w2": (T, d), "out_norm": (d,), "w_out": (d, L),
+        "rounding": (L, a.vocab),
+        "layers": {
+            "attn": {"wq": (n, d, hq), "wk": (n, d, hkv), "wv": (n, d, hkv),
+                     "wo": (n, hq, d)},
+            "attn_norm": (n, d), "mlp_norm": (n, d),
+            "w_gate": (n, d, a.d_ff), "w_up": (n, d, a.d_ff),
+            "w_down": (n, a.d_ff, d),
+        },
+    }
+
+
+def _stack(layers):
+    if isinstance(layers[0], dict):
+        return {k: _stack([l[k] for l in layers]) for k in layers[0]}
+    return torch.stack(layers)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _layer(layers, i: int):
+    if isinstance(layers, dict):
+        return {k: _layer(v, i) for k, v in layers.items()}
+    return layers[i]
+
+
+def eps_forward(params: Params, cfg: DiffusionLMConfig, x_t: torch.Tensor,
+                t: torch.Tensor) -> torch.Tensor:
+    """eps prediction over latent sequences. x_t: (B,S,d); t: (B,) int."""
+    _check_family(cfg)
+    a = cfg.arch
+    temb = sinusoidal_time_embedding(t, cfg.time_dim).to(x_t.dtype)
+    temb = F.silu(temb @ params["time_w1"]) @ params["time_w2"]
+    h = x_t @ params["w_in"] + temb[:, None, :]
+    B, S, _ = h.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=h.device)[None].expand(B, S)
+    for i in range(a.n_layers):
+        h = dense.layer_fwd(_layer(params["layers"], i), a, h, positions,
+                            causal=False)
+    h = rms_norm(h, params["out_norm"], a.norm_eps)
+    return h @ params["w_out"]
+
+
+def make_eps_fn(params: Params, cfg: DiffusionLMConfig):
+    def eps_fn(x, t):
+        with torch.no_grad():
+            return eps_forward(params, cfg, x, t)
+    return eps_fn
+
+
+def make_tile_eps_fn(params: Params, cfg: DiffusionLMConfig, batch: int,
+                     seq_len: int):
+    """Tile-aware eps model: consumes the (R, 256) tile view directly.
+
+    Valid when ``seq_len * latent_dim`` is a multiple of the 8 x 256 tile
+    granule, so the tile view is a pure reshape of (batch, seq_len,
+    latent_dim).  ``t`` may be a scalar or a (batch,) vector.  It also
+    carries ``eps_fn.mega_spec`` (the eps-path weights and the
+    bound geometry, for ``backend='mega'``) and ``eps_fn.mega_vmem_bytes``,
+    the byte model the eligibility rule holds against ``MEGA_BUDGET``.
+    """
+    _check_family(cfg)
+    n = seq_len * cfg.latent_dim
+    granule = SUBLANE * TILE_C
+    if n % granule:
+        raise ValueError(
+            f"tile-aware diffusion-LM needs seq_len*latent_dim divisible by "
+            f"{granule}, got {seq_len}*{cfg.latent_dim}={n}; use "
+            f"make_eps_fn (adapter path) for unaligned shapes")
+    shape = (batch, seq_len, cfg.latent_dim)
+
+    def eps_fn(x2, t):
+        t = torch.as_tensor(t, dtype=torch.int32,
+                            device=x2.device).reshape(-1).expand(batch)
+        with torch.no_grad():
+            e = eps_forward(params, cfg, x2.reshape(shape), t)
+        return e.reshape(x2.shape)
+
+    from repro_torch.kernels.megastep import MegaSpec
+    spec = MegaSpec(params={k: params[k] for k in EPS_PATH}, cfg=cfg,
+                    batch=batch, seq_len=seq_len)
+    eps_fn.tile_aware = True
+    eps_fn.mega_spec = spec
+    eps_fn.mega_vmem_bytes = spec.vmem_bytes()
+    return eps_fn
+
+
+def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """Tokens -> unit-scale latents (x0 of the diffusion)."""
+    e = params["embed"][tokens]
+    return e / (torch.std(e, dim=-1, keepdim=True, correction=0) + 1e-6)
+
+
+def round_to_tokens(params: Params, x0: torch.Tensor) -> torch.Tensor:
+    """Latents -> int32 tokens via the rounding head (Diffusion-LM)."""
+    return torch.argmax(x0 @ params["rounding"], dim=-1).to(torch.int32)
+
+
+def generate(params: Params, cfg: DiffusionLMConfig,
+             schedule: NoiseSchedule, generator: torch.Generator,
+             batch: int, seq_len: int,
+             sampler: Optional[SamplerConfig] = None,
+             tile_resident: bool = False,
+             device: DeviceLike = None) -> torch.Tensor:
+    """Sample (batch, seq_len) int32 token sequences with the DDIM process.
+
+    Runs on ``device`` (CUDA unless named), where ``params`` must lie.
+    x_T and, for stochastic samplers, the per-step seeds come from
+    ``generator``.  ``tile_resident=True`` runs the loop in the tile layout
+    with the tile-aware eps model when the latent aligns to the tile
+    granule (the adapter path otherwise), on ``backend='mega'``: eligible
+    trunks run fused, everything else the tile-resident loop.
+    """
+    dev = resolve_device(device)
+    on = params["w_in"].device
+    if on.type != dev.type or (None not in (on.index, dev.index)
+                               and on.index != dev.index):
+        raise ValueError(f"params lie on {on}, not on {dev}")
+    sampler = sampler or SamplerConfig(S=50, eta=0.0)
+    x_T = torch.randn((batch, seq_len, cfg.latent_dim), generator=generator,
+                      device=generator.device).to(dev)
+    if tile_resident:
+        try:
+            eps_fn = make_tile_eps_fn(params, cfg, batch, seq_len)
+        except ValueError:   # unaligned latent: adapter path still works
+            eps_fn = make_eps_fn(params, cfg)
+        x0 = sample(schedule, eps_fn, x_T, sampler, generator,
+                    tile_resident=True, backend="mega")
+    else:
+        x0 = sample(schedule, make_eps_fn(params, cfg), x_T, sampler,
+                    generator)
+    return round_to_tokens(params, x0)

@@ -4,6 +4,12 @@ The input is a JAX ``init_params`` (or trained) pytree already converted
 to numpy arrays — nested dicts and lists of ``np.ndarray`` — so this
 module never imports jax.
 
+Diffusion-LM mapping (``repro/diffusion_lm/model.py`` ->
+``repro_torch.diffusion_lm``): the same nested dict, every leaf as a
+float32 tensor in its JAX layout — (in, out) matrices and stacked
+(n_layers, ...) layer leaves, no transposes — so the megakernel reads
+exactly what the plain version reads.
+
 U-Net mapping (``repro/models/unet.py`` -> ``repro_torch.models.unet``):
   * conv kernels HWIO (kh, kw, cin, cout) -> OIHW (cout, cin, kh, kw);
   * dense matrices (in, out) -> ``nn.Linear.weight`` (out, in): the port
@@ -20,6 +26,7 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
+from repro_torch.diffusion_lm.model import DiffusionLMConfig, param_shapes
 from repro_torch.models.unet import UNet, UNetConfig
 
 _CONV = "conv"
@@ -92,3 +99,28 @@ def unet_params_from_jax(tree, cfg: UNetConfig) -> Dict[str, torch.Tensor]:
     if missing:
         raise KeyError(f"port parameters with no JAX leaf: {missing}")
     return out
+
+
+def dlm_params_from_jax(tree, cfg: DiffusionLMConfig) -> Dict:
+    """JAX diffusion-LM pytree (numpy leaves, dense family) -> the port's
+    parameter dict on the CPU: same keys, same layouts, float32."""
+    return _same_tree(tree, param_shapes(cfg), ())
+
+
+def _same_tree(tree, shapes, path: Tuple[str, ...]):
+    where = "/".join(path) or "<root>"
+    if isinstance(shapes, dict):
+        if not isinstance(tree, dict):
+            raise TypeError(f"{where}: expected a dict of leaves")
+        extra = sorted(set(tree) - set(shapes))
+        missing = sorted(set(shapes) - set(tree))
+        if extra or missing:
+            raise KeyError(f"{where}: unmapped JAX leaves {extra}, port "
+                           f"parameters with no JAX leaf {missing}")
+        return {k: _same_tree(tree[k], shapes[k], path + (k,))
+                for k in shapes}
+    arr = np.ascontiguousarray(np.asarray(tree), np.float32)
+    if arr.shape != tuple(shapes):
+        raise ValueError(f"{where}: JAX shape {arr.shape} != port shape "
+                         f"{tuple(shapes)}")
+    return torch.from_numpy(arr.copy())

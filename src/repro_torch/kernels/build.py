@@ -2,13 +2,19 @@
 
 Every ``kernels/*/csrc/*.cu`` is compiled by ``nvcc`` on first use into
 ``build/repro_torch_kernels/<stem>-<sha256[:16]>.so`` at the repository
-root, and loaded with ``ctypes``.  The source hash is in the file name, so
-an edited source is rebuilt and an unchanged one is loaded as built.  A
-missing ``nvcc`` or a failed build raises; nothing is skipped.
+root, and loaded with ``ctypes``.  Sources include shared bodies from other
+kernel families (``#include "<family>/csrc/<name>.cuh"``, resolved by
+``-I kernels/``), so the hash in the file name covers the source and every
+``kernels/*/csrc/*.cuh`` of the package: an edited source or header is
+rebuilt, an unchanged one is loaded as built.  Missing libraries are built
+in parallel, one ``nvcc`` per source, each logging to ``<library>.log``
+(``-Xptxas -v``: registers, shared memory, spills).  A missing ``nvcc`` or
+a failed build raises; nothing is skipped.
 
-The sources include no PyTorch header (each exposes an ``extern "C"``
-launcher taking raw pointers and the stream), which keeps a build to
-seconds; ``torch.utils.cpp_extension`` is deliberately not used.
+The sources include no PyTorch header (each exposes ``extern "C"``
+launchers taking raw pointers and the stream), which keeps a build to
+seconds; ``torch.utils.cpp_extension`` is deliberately not used.  The
+wrappers share the launch checks below.
 """
 from __future__ import annotations
 
@@ -18,12 +24,15 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable, List
+
+import torch
 
 _KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(_KERNELS))
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -31,6 +40,11 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 def sources() -> Dict[str, Path]:
     """Every CUDA source of the package, by stem."""
     return {p.stem: p for p in sorted(_KERNELS.glob("*/csrc/*.cu"))}
+
+
+def headers() -> List[Path]:
+    """Every shared CUDA header of the package."""
+    return sorted(_KERNELS.glob("*/csrc/*.cuh"))
 
 
 def nvcc_path() -> str:
@@ -42,27 +56,44 @@ def nvcc_path() -> str:
     return found
 
 
-def _library(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+def library_path(src: Path, hdrs: Iterable[Path]) -> Path:
+    """Where the library built from ``src`` with headers ``hdrs`` lives:
+    the name carries a hash of the source and of every header (name and
+    bytes), so a change to any of them names a new library."""
+    h = hashlib.sha256(src.read_bytes())
+    for p in hdrs:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> Dict[str, ctypes.CDLL]:
-    """Build (where needed) and load every source; returns name -> CDLL."""
-    for name, src in sources().items():
-        if name in _loaded:
-            continue
-        lib = _library(src)
-        if not lib.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name} (exit "
-                                   f"{proc.returncode}):\n{proc.stdout}")
+    """Build (where needed, in parallel) and load every source; returns
+    name -> CDLL."""
+    hdrs = headers()
+    todo = {name: (src, library_path(src, hdrs))
+            for name, src in sources().items() if name not in _loaded}
+    missing = {name: v for name, v in todo.items() if not v[1].exists()}
+    nvcc = nvcc_path() if missing else None
+    procs = []
+    for name, (src, lib) in missing.items():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        log = lib.with_suffix(".log")
+        with open(log, "w") as out:
+            procs.append((name, lib, tmp, log, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=out, stderr=subprocess.STDOUT)))
+    failed = []
+    for name, lib, tmp, log, proc in procs:
+        if proc.wait() != 0:
+            failed.append(f"nvcc failed for {name} (exit {proc.returncode})"
+                          f":\n{log.read_text()}")
+        else:
             os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name, (_, lib) in todo.items():
         _loaded[name] = ctypes.CDLL(str(lib))
     return dict(_loaded)
 
@@ -75,3 +106,26 @@ def load(name: str) -> ctypes.CDLL:
         raise KeyError(f"no CUDA source named {name!r}; have "
                        f"{sorted(sources())}")
     return _loaded[name]
+
+
+def build_log(name: str) -> str:
+    """The nvcc output of the library built from ``<name>.cu``."""
+    log = library_path(sources()[name], headers()).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def check_cuda(*tensors: torch.Tensor) -> None:
+    """A CUDA kernel's inputs: CUDA tensors, 16-byte aligned."""
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"the CUDA kernel needs CUDA tensors, got one "
+                             f"on {t.device}")
+        if t.data_ptr() % 16:
+            raise ValueError("the CUDA kernel needs 16-byte aligned tensors")
+
+
+def raise_on(err: int, name: str) -> None:
+    """Raise if a launcher returned a CUDA error (a refused launch never
+    runs, and synchronising would not report it)."""
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")

@@ -1,0 +1,169 @@
+"""Wrapper of the CUDA megakernel (``csrc/megastep.cu``).
+
+Port of ``megastep_call`` in ``repro/kernels/megastep/kernel.py``: K
+consecutive plan steps, each the dense diffusion-LM eps trunk plus the
+Eq. 12 update, in one launch over the (R, 256) tile view.  The wrapper
+checks its inputs, computes the small constant tables the TPU kernel takes
+as hoisted constants (the K timesteps' sinusoidal embeddings and the RoPE
+cos / sin table) with the plain functions, allocates the output and the
+activation workspace with ``torch.empty``, launches on PyTorch's current
+stream and counts the launch in ``megastep_call.launches``.  On tensors
+that lie on the CPU it runs the plain version (``ref.megastep_ref``) and
+counts nothing; on a CUDA tensor it launches or raises.
+
+The kernel takes float32 state and weights, 64 tokens per sample and head
+dim 64 (the smollm-width slice); bfloat16 state is not ported.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Iterator, Optional
+
+import torch
+
+from repro_torch.diffusion_lm.model import EPS_PATH, param_shapes
+from repro_torch.kernels import build
+from repro_torch.kernels.sampler_step.ref import TILE_C
+from repro_torch.models.common import rope_freqs, sinusoidal_time_embedding
+
+from . import ref
+
+ATTN_IMPLS = ("exact", "flash")
+KERNEL_SEQ = 64
+KERNEL_HEAD_DIM = 64
+
+# the order of the pointer fields of ReproMegaWeights in csrc/megastep.cu
+_POINTERS = (("w_in",), ("time_w1",), ("time_w2",), ("out_norm",),
+             ("w_out",), ("layers", "attn_norm"), ("layers", "mlp_norm"),
+             ("layers", "attn", "wq"), ("layers", "attn", "wk"),
+             ("layers", "attn", "wv"), ("layers", "attn", "wo"),
+             ("layers", "w_gate"), ("layers", "w_up"), ("layers", "w_down"))
+_WIDTHS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
+           "time_dim", "latent")
+
+
+class _Weights(ctypes.Structure):
+    _fields_ = ([(p[-1], ctypes.c_void_p) for p in _POINTERS]
+                + [(n, ctypes.c_int) for n in _WIDTHS]
+                + [("norm_eps", ctypes.c_float)])
+
+
+def leaves(tree) -> Iterator[torch.Tensor]:
+    """The tensors of a nested dict of parameters."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    else:
+        yield tree
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.load("megastep")
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.repro_megastep_workspace_floats.argtypes = [ctypes.POINTER(_Weights)]
+    lib.repro_megastep_workspace_floats.restype = ctypes.c_longlong
+    lib.repro_megastep.argtypes = [P, P, ctypes.POINTER(_Weights), P, P, P,
+                                   P, I, I, I, F, I, P, P]
+    lib.repro_megastep.restype = I
+    return lib
+
+
+def _check_kernel_inputs(x2: torch.Tensor, params: Dict, cfg) -> None:
+    a = cfg.arch
+    if a.hd() != KERNEL_HEAD_DIM:
+        raise ValueError(f"the megakernel takes head_dim "
+                         f"{KERNEL_HEAD_DIM}, got {a.hd()}")
+    if x2.dtype != torch.float32 or not x2.is_contiguous():
+        raise TypeError("the megakernel takes a contiguous float32 state "
+                        "(bfloat16 state is not ported)")
+    shapes = param_shapes(cfg)
+    for path in _POINTERS:
+        t, want = _get(params, path), _get(shapes, path)
+        name = "/".join(path)
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != {want}")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise TypeError(f"{name} must be contiguous float32")
+        if t.device != x2.device:
+            raise ValueError(f"{name} on {t.device}, state on {x2.device}")
+    build.check_cuda(x2, *(_get(params, p) for p in _POINTERS))
+
+
+def _weights(params: Dict, cfg) -> _Weights:
+    a = cfg.arch
+    return _Weights(*(_get(params, p).data_ptr() for p in _POINTERS),
+                    a.n_layers, a.d_model, a.n_heads, a.n_kv_heads, a.d_ff,
+                    cfg.time_dim, cfg.latent_dim, a.norm_eps)
+
+
+def megastep_call(x2: torch.Tensor, params: Dict, cfg, batch: int,
+                  seq_len: int, coefs: torch.Tensor, ts: torch.Tensor, *,
+                  clip: Optional[float] = None,
+                  attn_impl: str = "exact") -> torch.Tensor:
+    """One fused K-step launch over the (R, 256) tile view.
+
+    Args:
+      x2: (R, 256) tile state that is a pure reshape of the (batch,
+        seq_len, latent) natural state (no padding rows).
+      params: the eps-path weights (``diffusion_lm.EPS_PATH`` keys).
+      coefs: (K, 5) float32 rows [c_x0, c_dir, c_noise, sqrt_a_t,
+        sqrt_1m_a_t] of the plan's table, on x2's device.
+      ts: (K,) int timesteps of those rows, on x2's device.
+      clip: |x0| bound or None (a compile-time specialization).
+      attn_impl: 'exact' | 'flash' (a compile-time specialization).
+    Returns the state after the K steps, (R, 256).
+    """
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
+                         f"{attn_impl!r}")
+    K = int(ts.shape[0])
+    if K < 1 or tuple(coefs.shape) != (K, 5):
+        raise ValueError(f"coefs must be (K, 5) for K={K} timesteps, got "
+                         f"{tuple(coefs.shape)}")
+    n = batch * seq_len * cfg.latent_dim
+    if x2.dim() != 2 or x2.shape[1] != TILE_C or x2.numel() != n:
+        raise ValueError(
+            f"x2 {tuple(x2.shape)} is not a pure reshape of the ({batch}, "
+            f"{seq_len}, {cfg.latent_dim}) state; the megakernel does not "
+            f"compute on padding")
+    eps_params = {k: params[k] for k in EPS_PATH}
+    if x2.device.type == "cpu":
+        return ref.megastep_ref(x2, eps_params, cfg, batch, seq_len, coefs,
+                                ts, clip=clip, attn_impl=attn_impl)
+    if seq_len != KERNEL_SEQ:
+        raise ValueError(f"the megakernel takes seq_len {KERNEL_SEQ}, got "
+                         f"{seq_len}")
+    _check_kernel_inputs(x2, eps_params, cfg)
+    dev = x2.device
+    temb = sinusoidal_time_embedding(ts.to(dev), cfg.time_dim).contiguous()
+    cos, sin = rope_freqs(torch.arange(seq_len, device=dev),
+                          KERNEL_HEAD_DIM, cfg.arch.rope_theta)
+    cos, sin = cos.contiguous(), sin.contiguous()
+    c32 = coefs.to(device=dev, dtype=torch.float32).contiguous()
+    w = _weights(eps_params, cfg)
+    lib = _lib()
+    ws = torch.empty(batch * lib.repro_megastep_workspace_floats(
+        ctypes.byref(w)), dtype=torch.float32, device=dev)
+    out = torch.empty_like(x2)
+    build.check_cuda(temb, cos, sin, c32, ws, out)
+    with torch.cuda.device(dev):
+        err = lib.repro_megastep(
+            x2.data_ptr(), out.data_ptr(), ctypes.byref(w), temb.data_ptr(),
+            cos.data_ptr(), sin.data_ptr(), c32.data_ptr(), K, batch,
+            clip is not None, 0.0 if clip is None else float(clip),
+            attn_impl == "flash", ws.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.raise_on(err, "megastep_call")
+    megastep_call.launches += 1
+    return out
+
+
+megastep_call.launches = 0

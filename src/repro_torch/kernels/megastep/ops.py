@@ -1,0 +1,117 @@
+"""MegaSpec, the eligibility rule and the chunk wrapper of the megakernel
+(port of ``repro/kernels/megastep/ops.py``).
+
+A ``MegaSpec`` is what a tile-aware eps model attaches to itself
+(``diffusion_lm.make_tile_eps_fn`` sets ``eps_fn.mega_spec``) to declare
+that its trunk can run inside the fused sampler step: the eps-path weights,
+the static config and the (batch, seq_len) geometry they are bound for.
+
+Eligibility (``eligible``; the plan-level half — deterministic, order 1 —
+is the backend's): the model carries a spec, the state has the spec's
+shape, and weights + activations + state fit ``MEGA_BUDGET`` under the
+JAX package's byte model (``vmem_bytes``, unchanged).  Anything else runs
+the 'tile_resident' backend.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from . import kernel as _k
+
+MEGA_BUDGET = 39_321_600
+"""Bytes that weights + activations + state may take, 0.75 x 50 MiB.
+
+The TPU kernel keeps all of them in VMEM, and the JAX package admits a
+trunk when they fit 12 MiB of a ~16 MiB VMEM (``MEGA_VMEM_BUDGET``, a 75%
+share).  The H100 has no scratchpad that large: a block has at most 227 KB
+of shared memory.  The smallest on-card memory that holds a smollm-width
+trunk is the 50 MiB L2, where the megakernel's weights and workspace stay
+between its steps; the port takes the same 75% share of it:
+0.75 x 50 x 2**20 = 39,321,600 B.  At smollm-135m widths that admits the
+2-layer trunk at batch 4 x 64 tokens (35.5 MB exact, 36.1 MB flash) and
+not batch 8 (42.8 MB) or the full 30 layers (432 MB)."""
+
+DEFAULT_K_FUSE = 8
+
+
+@dataclasses.dataclass
+class MegaSpec:
+    """Everything the megakernel needs to run one eps trunk in-kernel.
+
+    ``params`` holds ONLY the eps-path weights (w_in, time conditioning,
+    stacked trunk layers, out head); the embedding and rounding tables
+    never enter the sampler loop.
+    """
+
+    params: Dict[str, Any]        # eps-path weight dict (torch tensors)
+    cfg: Any                      # DiffusionLMConfig
+    batch: int
+    seq_len: int
+    attn_impl: str = "exact"      # 'exact' | 'flash' (see kernel.py)
+
+    def __post_init__(self):
+        if self.attn_impl not in _k.ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {_k.ATTN_IMPLS}, "
+                             f"got {self.attn_impl!r}")
+
+    # ------------------------------------------------------------ memory
+    def weight_bytes(self) -> int:
+        return int(sum(t.numel() * t.element_size()
+                       for t in _k.leaves(self.params)))
+
+    def state_bytes(self, dtype=torch.float32) -> int:
+        n = self.batch * self.seq_len * self.cfg.latent_dim
+        return n * torch.empty((), dtype=dtype).element_size()
+
+    def activation_bytes(self) -> int:
+        """Peak live activation estimate for one trunk pass, float32: the
+        residual stream and a handful of layer temporaries, plus the full
+        score block ('exact') or one 128-wide KV block row ('flash')."""
+        a = self.cfg.arch
+        B, S = self.batch, self.seq_len
+        live = B * S * (4 * a.d_model + 2 * a.d_ff)
+        if self.attn_impl == "exact":
+            live += B * a.n_heads * S * S
+        else:
+            live += B * a.n_heads * S * 128
+        return int(live * 4)
+
+    def vmem_bytes(self, dtype=torch.float32) -> int:
+        """The budget number: weights + activations + state in/out."""
+        return (self.weight_bytes() + self.activation_bytes()
+                + 2 * self.state_bytes(dtype))
+
+    # ------------------------------------------------------- eligibility
+    def fits(self, budget: Optional[int] = None,
+             dtype=torch.float32) -> bool:
+        return self.vmem_bytes(dtype) <= (MEGA_BUDGET if budget is None
+                                          else budget)
+
+
+def eligible(spec: Optional[MegaSpec], x_T: torch.Tensor,
+             budget: Optional[int] = None) -> Tuple[bool, str]:
+    """(ok, reason): can this (eps model, state) pair run the megakernel?"""
+    if spec is None:
+        return False, ("eps model carries no mega_spec (not a fused-capable "
+                       "tile-aware trunk)")
+    shape = (spec.batch, spec.seq_len, spec.cfg.latent_dim)
+    if tuple(x_T.shape) != shape:
+        return False, (f"state shape {tuple(x_T.shape)} != the spec's "
+                       f"bound geometry {shape}")
+    if not spec.fits(budget, x_T.dtype):
+        return False, (f"weights+activations+state "
+                       f"{spec.vmem_bytes(x_T.dtype)} B exceed the "
+                       f"megakernel budget "
+                       f"{MEGA_BUDGET if budget is None else budget} B")
+    return True, "ok"
+
+
+def megastep_tiles(x2: torch.Tensor, spec: MegaSpec, coefs: torch.Tensor,
+                   ts: torch.Tensor, *, clip=None) -> torch.Tensor:
+    """One fused K-step chunk over the (R, C) tile view (lockstep)."""
+    return _k.megastep_call(x2, spec.params, spec.cfg, spec.batch,
+                            spec.seq_len, coefs, ts, clip=clip,
+                            attn_impl=spec.attn_impl)

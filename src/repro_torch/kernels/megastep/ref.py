@@ -1,0 +1,96 @@
+"""Plain PyTorch version of the megastep kernel (port of
+``repro/kernels/megastep/ref.py`` and of ``eps_exact`` / ``eps_flash`` in
+its ``kernel.py``).
+
+The CPU path of ``kernel.megastep_call`` and the yardstick the CUDA kernel
+(``csrc/megastep.cu``) is held against on the card: per fused step, the
+eps trunk on the natural (batch, seq_len, latent) view of the tile state,
+then the sampler step body ``sampler_step/ref.update``.
+
+  * 'exact' is ``diffusion_lm.eps_forward`` itself, so on the CPU a mega
+    run equals the 'tile_resident' loop bit for bit (same eps, same update
+    on the same float32 coefficients).
+  * 'flash' assembles the same trunk from the plain versions of the
+    kernels' bodies (rmsnorm ``rms_norm_body``, flash_attention
+    ``streaming_attention_body``), as the JAX ``eps_flash`` does: equal in
+    exact arithmetic, not bitwise (it divides after the PV product).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.diffusion_lm.model import eps_forward
+from repro_torch.kernels.flash_attention.ref import streaming_attention_body
+from repro_torch.kernels.rmsnorm.ref import rms_norm_body
+from repro_torch.kernels.sampler_step.ref import update
+from repro_torch.models.common import (apply_rope, rope_freqs,
+                                       sinusoidal_time_embedding, swiglu)
+
+
+def _t_vec(t, batch: int, device) -> torch.Tensor:
+    return torch.as_tensor(t, dtype=torch.int32,
+                           device=device).reshape(-1).expand(batch)
+
+
+def eps_exact(params, cfg, batch: int, seq_len: int, x2, t):
+    """The diffusion-LM eps on the tile view (make_tile_eps_fn's body)."""
+    e = eps_forward(params, cfg, x2.reshape(batch, seq_len, cfg.latent_dim),
+                    _t_vec(t, batch, x2.device))
+    return e.reshape(x2.shape)
+
+
+def eps_flash(params, cfg, batch: int, seq_len: int, x2, t):
+    """The same dense trunk from the kernels' plain bodies."""
+    a = cfg.arch
+    B, S = batch, seq_len
+    H, Hkv, D = a.n_heads, a.n_kv_heads, a.hd()
+    x = x2.reshape(B, S, cfg.latent_dim)
+    temb = sinusoidal_time_embedding(_t_vec(t, B, x2.device),
+                                     cfg.time_dim).to(x.dtype)
+    temb = F.silu(temb @ params["time_w1"]) @ params["time_w2"]
+    h = x @ params["w_in"] + temb[:, None, :]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None].expand(B, S)
+    cos, sin = rope_freqs(positions, D, a.rope_theta)
+    lay = params["layers"]
+    for i in range(a.n_layers):
+        ap = {k: v[i] for k, v in lay["attn"].items()}
+        xn = rms_norm_body(h, lay["attn_norm"][i], a.norm_eps)
+        q = apply_rope((xn @ ap["wq"]).reshape(B, S, H, D), cos, sin)
+        k = apply_rope((xn @ ap["wk"]).reshape(B, S, Hkv, D), cos, sin)
+        v = (xn @ ap["wv"]).reshape(B, S, Hkv, D)
+        if Hkv != H:                       # GQA: share each kv head
+            k = torch.repeat_interleave(k, H // Hkv, dim=2)
+            v = torch.repeat_interleave(v, H // Hkv, dim=2)
+        qf, kf, vf = (z.transpose(1, 2).reshape(B * H, S, D).float()
+                      for z in (q, k, v))
+        out = streaming_attention_body(qf, kf, vf, scale=1.0 / math.sqrt(D),
+                                       causal=False).to(h.dtype)
+        out = out.reshape(B, H, S, D).transpose(1, 2)
+        h = h + out.reshape(B, S, H * D) @ ap["wo"]
+        h = h + swiglu(rms_norm_body(h, lay["mlp_norm"][i], a.norm_eps),
+                       lay["w_gate"][i], lay["w_up"][i], lay["w_down"][i])
+    h = rms_norm_body(h, params["out_norm"], a.norm_eps)
+    return (h @ params["w_out"]).reshape(x2.shape)
+
+
+EPS_BODIES = {"exact": eps_exact, "flash": eps_flash}
+
+
+def megastep_ref(x2: torch.Tensor, params, cfg, batch: int, seq_len: int,
+                 coefs: torch.Tensor, ts: torch.Tensor, *, clip=None,
+                 attn_impl: str = "exact") -> torch.Tensor:
+    """K fused lockstep steps over the (R, C) tile view; coefs (K, 5+)
+    rows [c_x0, c_dir, c_noise, sqrt_a_t, sqrt_1m_a_t], ts (K,) int."""
+    eps_fn = EPS_BODIES[attn_impl]
+    c = torch.as_tensor(coefs, dtype=torch.float32).to(x2.device)
+    x = x2
+    with torch.no_grad():
+        for k in range(int(ts.shape[0])):
+            e2 = eps_fn(params, cfg, batch, seq_len, x, ts[k])
+            x = update(x.float(), e2.float(), c[k, 0], c[k, 1], c[k, 3],
+                       c[k, 4], clip)[1].to(x.dtype)
+    return x

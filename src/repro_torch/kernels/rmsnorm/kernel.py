@@ -1,0 +1,63 @@
+"""Wrapper of the CUDA RMSNorm kernel (``csrc/rmsnorm.cu``).
+
+Port of ``rms_norm_2d`` in ``repro/kernels/rmsnorm/kernel.py``.  It checks
+its inputs, allocates the output with ``torch.empty``, launches on
+PyTorch's current stream and counts the launch in ``rms_norm_2d.launches``.
+On tensors that lie on the CPU it runs the plain version (``ref.py``) and
+counts nothing; on a CUDA tensor it launches or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+from . import ref
+
+TILE_R = 256
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.load("rmsnorm")
+    lib.repro_rms_norm_2d.argtypes = [_P, _P, _P, _I, _I, _I, _F, _P]
+    lib.repro_rms_norm_2d.restype = _I
+    return lib
+
+
+def rms_norm_2d(x: torch.Tensor, scale: torch.Tensor, *,
+                eps: float = 1e-5) -> torch.Tensor:
+    """x: (R, d) with R % min(TILE_R, R) == 0 (ops.rms_norm pads);
+    scale: (d,) of x's dtype.  Returns (R, d) in x's dtype."""
+    if x.dim() != 2 or scale.shape != (x.shape[1],):
+        raise ValueError(f"x must be (R, d) and scale (d,), got "
+                         f"{tuple(x.shape)} and {tuple(scale.shape)}")
+    R = x.shape[0]
+    if R == 0 or R % min(TILE_R, R):
+        raise ValueError(f"R={R} must be a positive multiple of "
+                         f"min({TILE_R}, R)")
+    if x.device.type == "cpu":
+        return ref.rms_norm_body(x, scale, eps)
+    if x.dtype not in _DTYPE_CODES or scale.dtype != x.dtype:
+        raise TypeError(f"x and scale must share float32 or bfloat16, got "
+                        f"{x.dtype} and {scale.dtype}")
+    if not (x.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("x and scale must be contiguous")
+    build.check_cuda(x, scale)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = _lib().repro_rms_norm_2d(
+            x.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            _DTYPE_CODES[x.dtype], R, x.shape[1], float(eps),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    build.raise_on(err, "rms_norm_2d")
+    rms_norm_2d.launches += 1
+    return out
+
+
+rms_norm_2d.launches = 0

@@ -14,7 +14,8 @@
 // The multiply-adds are written as the explicit __fmaf_rn / __fmul_rn /
 // __fadd_rn / __fdiv_rn that XLA:CPU's contraction of the reference gives
 // (see ref.py), so nvcc's default -fmad=true cannot contract differently.
-// Build without --use_fast_math: logf / cosf / sqrtf must be the accurate
+// The deterministic part (``update``) is in step_update.cuh, which the
+// megastep kernel includes too.  Build without --use_fast_math: logf / cosf / sqrtf must be the accurate
 // ones.  The deterministic specializations contain no PRNG code.
 //
 // Noise: the reference's software stream, bit for bit — murmur3 fmix32
@@ -41,7 +42,12 @@
 
 #include <type_traits>
 
+#include "sampler_step/csrc/step_update.cuh"
+
 namespace {
+
+using repro::Coefs;
+using repro::update;
 
 constexpr int kTileC = 256;
 constexpr int kCoefCols = 8;
@@ -97,30 +103,6 @@ __device__ __forceinline__ float bits_to_normal(uint32_t b1, uint32_t b2) {
   const float u2 = __fmul_rn(static_cast<float>(b2 >> 8), kInv2p24);
   return __fmul_rn(sqrtf(__fmul_rn(-2.0f, logf(u1))),
                    cosf(__fmul_rn(kTwoPi, u2)));
-}
-
-// ------------------------------------------------------------ step body
-struct Coefs {
-  float c_x0, c_dir, c_noise, sqrt_a_t, sqrt_1m_a_t;
-};
-
-// Returns x_prev without noise; writes x0 when the explicit-x0 form runs.
-template <bool CLIP, bool X0_FORM>
-__device__ __forceinline__ float update(float x, float e, const Coefs& c,
-                                        float clip, float* x0_out) {
-  if (!CLIP && !X0_FORM) {
-    const float a = __fdiv_rn(c.c_x0, c.sqrt_a_t);
-    const float b = __fmaf_rn(-a, c.sqrt_1m_a_t, c.c_dir);
-    return __fmaf_rn(a, x, __fmul_rn(b, e));
-  }
-  float x0 = __fdiv_rn(__fmaf_rn(-c.sqrt_1m_a_t, e, x), c.sqrt_a_t);
-  if (CLIP) {
-    // NaN passes through, as jnp.clip / torch.clamp let it
-    x0 = x0 < -clip ? -clip : (x0 > clip ? clip : x0);
-    e = __fdiv_rn(__fmaf_rn(-c.sqrt_a_t, x0, x), c.sqrt_1m_a_t);
-  }
-  *x0_out = x0;
-  return __fmaf_rn(c.c_x0, x0, __fmul_rn(c.c_dir, e));
 }
 
 // Scalar coefficients: every row at the same trajectory position.

@@ -59,20 +59,6 @@ def _check_state(x: torch.Tensor, eps: torch.Tensor) -> None:
         raise ValueError(f"x on {x.device} but eps on {eps.device}")
 
 
-def _check_cuda(*tensors: torch.Tensor) -> None:
-    for t in tensors:
-        if t.device.type != "cuda":
-            raise ValueError(f"the CUDA kernel needs CUDA tensors, got one "
-                             f"on {t.device}")
-        if t.data_ptr() % 16:
-            raise ValueError("the CUDA kernel needs 16-byte aligned tensors")
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-
-
 def sampler_step_2d(x: torch.Tensor, eps: torch.Tensor, coefs,
                     seed: Optional[int] = None, *,
                     clip: Optional[float] = None,
@@ -97,7 +83,7 @@ def sampler_step_2d(x: torch.Tensor, eps: torch.Tensor, coefs,
     if x.device.type == "cpu":
         return ref.sampler_step_2d(x, eps, torch.from_numpy(c.copy()), seed,
                                    clip=clip, stochastic=stochastic)
-    _check_cuda(x, eps)
+    build.check_cuda(x, eps)
     out = torch.empty_like(x)
     R = x.shape[0]
     with torch.cuda.device(x.device):
@@ -108,7 +94,7 @@ def sampler_step_2d(x: torch.Tensor, eps: torch.Tensor, coefs,
             0.0 if clip is None else float(clip), bool(stochastic),
             int(np.int32(seed)) if stochastic else 0,
             torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(err, "sampler_step_2d")
+    build.raise_on(err, "sampler_step_2d")
     sampler_step_2d.launches += 1
     return out
 
@@ -150,7 +136,7 @@ def sampler_step_rows_2d(x: torch.Tensor, eps: torch.Tensor,
         return ref.sampler_step_rows_2d(x, eps, row_coefs, row_seeds,
                                         clip=clip, stochastic=stochastic,
                                         want_x0=want_x0)
-    _check_cuda(x, eps, row_coefs)
+    build.check_cuda(x, eps, row_coefs)
     out = torch.empty_like(x)
     x0 = torch.empty_like(x) if want_x0 else None
     with torch.cuda.device(x.device):
@@ -162,7 +148,7 @@ def sampler_step_rows_2d(x: torch.Tensor, eps: torch.Tensor,
             clip is not None, 0.0 if clip is None else float(clip),
             bool(stochastic), bool(want_x0),
             torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(err, "sampler_step_rows_2d")
+    build.raise_on(err, "sampler_step_rows_2d")
     sampler_step_rows_2d.launches += 1
     return (out, x0) if want_x0 else out
 

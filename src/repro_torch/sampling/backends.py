@@ -14,6 +14,10 @@ on the kernel backends' CPU path:
                      carried there, one sampler_step_2d launch per step.
   run_rows           the per-row kernel sampler_step_rows_2d driven in
                      lockstep over the slot-tile layout.
+  run_mega           the megakernel megastep_call: eps trunk and update
+                     fused, K plan steps per launch, for eligible
+                     (eps model, plan) pairs; the tile-resident loop for
+                     every other.
 
 Randomness stays outside the step loops: the kernel backends draw their
 per-step int32 seeds from the generator up front (``(S,)`` for the scalar
@@ -105,10 +109,14 @@ def _loop_tiles(plan, eps_fn, x2: torch.Tensor, seeds, n: int, shape):
     w = _table(plan, x2.device)["solver_w"] if order > 1 else None
     hist = _hist0(order, x2.shape, x2.device)
     batch = shape[0]
+    tile_aware = getattr(eps_fn, "tile_aware", False)
     for k in range(plan.S):
-        x_view = tile_ops.from_tile_layout(x2, n, shape)
-        eps = eps_fn(x_view, _timesteps(tab["t"][k], batch, x2.device))
-        eps2, _ = tile_ops.to_tile_layout(eps)
+        t = _timesteps(tab["t"][k], batch, x2.device)
+        if tile_aware:                     # native (R, C) model
+            eps2 = eps_fn(x2, t)
+        else:
+            x_view = tile_ops.from_tile_layout(x2, n, shape)
+            eps2, _ = tile_ops.to_tile_layout(eps_fn(x_view, t))
         if order > 1:
             eps2, hist = mix_history(eps2.float(), hist, w[k], order)
         x2 = tile_ops.sampler_step_tiles(
@@ -159,3 +167,45 @@ def _loop_rows(plan, eps_fn, x2: torch.Tensor, seeds, n: int, batch_shape):
             None if row_seeds_all is None else row_seeds_all[k], clip=clip,
             stochastic=plan.stochastic)
     return x2
+
+
+# ------------------------------------------------------------------ mega
+def run_mega(plan, eps_fn, x_T: torch.Tensor,
+             generator: Optional[torch.Generator],
+             k_fuse: Optional[int] = None) -> torch.Tensor:
+    """The megakernel path: trunk + update fused, K plan steps per launch.
+
+    Eligibility is the JAX package's rule: a deterministic order-1 plan
+    over an eps model whose ``mega_spec`` fits ``MEGA_BUDGET`` runs fused;
+    everything else runs the tile-resident loop (the same arithmetic,
+    unfused).  Why is kept in ``run_mega.last_reason`` ("ok" when fused).
+    An S-step plan is exactly ceil(S / K) launches; the last chunk takes
+    the S % K remainder as its own smaller K.
+    """
+    from repro_torch.kernels import megastep as mega_ops
+
+    ok, why = mega_ops.eligible(getattr(eps_fn, "mega_spec", None), x_T)
+    if ok and plan.stochastic:
+        ok, why = False, "the plan is stochastic (mega plans take no noise)"
+    if ok and plan.order > 1:
+        ok, why = False, f"the plan has solver order {plan.order} > 1"
+    run_mega.last_reason = why
+    if not ok:
+        return run_tile_resident(plan, eps_fn, x_T, generator)
+    spec = eps_fn.mega_spec
+    tab = plan.steps()
+    S = plan.S
+    K = mega_ops.DEFAULT_K_FUSE if k_fuse is None else int(k_fuse)
+    K = max(1, min(K, S))
+    coefs = torch.from_numpy(np.stack(
+        [tab["c_x0"], tab["c_dir"], tab["c_noise"], tab["sqrt_a_t"],
+         tab["sqrt_1m_a_t"]], axis=1)).to(x_T.device)          # (S, 5)
+    ts = torch.from_numpy(np.array(tab["t"])).to(x_T.device)   # (S,)
+    x2, n = tile_ops.to_tile_layout(x_T)              # conversion #1 (entry)
+    for c0 in range(0, S, K):                         # ceil(S/K) launches
+        x2 = mega_ops.megastep_tiles(x2, spec, coefs[c0:c0 + K],
+                                     ts[c0:c0 + K], clip=plan.x0.clip)
+    return tile_ops.from_tile_layout(x2, n, x_T.shape)  # conversion #2
+
+
+run_mega.last_reason = None

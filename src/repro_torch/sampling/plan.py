@@ -24,7 +24,10 @@ schedule digests.
                        one sampler_step_2d kernel launch per step
       'rows'           the per-row kernel sampler_step_rows_2d driven in
                        lockstep over the slot-tile layout
-      'mega'           not ported yet: raises NotImplementedError
+      'mega'           the megakernel megastep_call (eps trunk + update,
+                       k_fuse steps per launch) for an eps model carrying
+                       a fitting ``mega_spec`` and a deterministic order-1
+                       plan; the 'tile_resident' loop otherwise
 """
 from __future__ import annotations
 
@@ -110,6 +113,17 @@ class SamplerPlan:
         return cls(schedule=schedule, tau=tau, sigma=sigma, x0=x0,
                    order=order)
 
+    @classmethod
+    def from_config(cls, schedule: NoiseSchedule, cfg,
+                    order: int = 1) -> "SamplerPlan":
+        """Adapter from the scalar ``core.sampler.SamplerConfig`` knobs."""
+        tau_kind = "uniform" if cfg.tau_kind == "linear" else cfg.tau_kind
+        return cls(schedule=schedule,
+                   tau=TauSpec(kind=tau_kind, S=cfg.S),
+                   sigma=SigmaSpec.from_eta(cfg.eta, sigma_hat=cfg.sigma_hat),
+                   x0=X0Policy(clip=cfg.clip_x0),
+                   order=order)
+
     # ------------------------------------------------------------- compile
     def _compile(self) -> Dict[str, np.ndarray]:
         """The per-step table, SAMPLING order: float64 math, one f32 cast."""
@@ -159,7 +173,8 @@ class SamplerPlan:
     # ---------------------------------------------------------- execution
     def run(self, eps_fn, x_T: torch.Tensor,
             generator: Optional[torch.Generator] = None, *,
-            backend: str = "eager") -> torch.Tensor:
+            backend: str = "eager",
+            k_fuse: Optional[int] = None) -> torch.Tensor:
         """Execute the plan from x_T to x_0 on the device x_T lies on.
 
         Args:
@@ -168,22 +183,29 @@ class SamplerPlan:
           x_T: (batch, *shape) initial latent, float32 or bfloat16.
           generator: torch.Generator on x_T's device; required iff the plan
             is stochastic (per-step kernel seeds / eager noise come from it).
-          backend: 'eager' | 'tile_resident' | 'rows'.
+          backend: 'eager' | 'tile_resident' | 'rows' | 'mega'.  On
+            'tile_resident' (and 'mega') a model may declare
+            ``eps_fn.tile_aware = True`` to receive the (R, 256) tile view;
+            on 'mega' it must carry ``eps_fn.mega_spec`` (set by
+            ``diffusion_lm.make_tile_eps_fn``) to run fused.
+          k_fuse: 'mega' only — plan steps per megakernel launch (default
+            ``kernels.megastep.DEFAULT_K_FUSE``); S steps are
+            ceil(S / k_fuse) launches.
         """
         from . import backends
         if backend not in _BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; choose from "
                              f"{_BACKENDS}")
-        if backend == "mega":
-            raise NotImplementedError(
-                "backend='mega' needs the megastep kernel (megastep_call, "
-                "src/repro/kernels/megastep/kernel.py:232), which the port "
-                "does not have yet")
         if self.stochastic and generator is None:
             raise ValueError("stochastic plan needs a generator (sigma > 0 "
                              "somewhere in the schedule)")
-        fn = {"eager": backends.run_eager,
-              "tile_resident": backends.run_tile_resident,
-              "rows": backends.run_rows}[backend]
+        if k_fuse is not None and backend != "mega":
+            raise ValueError("k_fuse is a 'mega' backend knob")
         with torch.no_grad():
+            if backend == "mega":
+                return backends.run_mega(self, eps_fn, x_T, generator,
+                                         k_fuse)
+            fn = {"eager": backends.run_eager,
+                  "tile_resident": backends.run_tile_resident,
+                  "rows": backends.run_rows}[backend]
             return fn(self, eps_fn, x_T, generator)

@@ -1,0 +1,98 @@
+"""B5 flash attention: the port's ``mha_flash`` / ``gqa_flash`` (plain
+version on the CPU) against the JAX package's Pallas kernel (interpret
+mode) and the model's grouped attention, on the same numpy inputs.
+
+Tolerances as ``test_kernels.py:17`` holds the JAX kernel: float32 2e-5,
+bfloat16 2e-2 (absolute and relative).  The online-softmax recurrence runs
+over the same KV blocks on both sides; the sums inside the products are
+taken in another order.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import gqa_flash as j_gqa_flash
+from repro.kernels import mha_flash as j_mha_flash
+from repro.models import attention as jattn
+from repro.models import common as jcommon
+from repro_torch.kernels.flash_attention import kernel as tk
+from repro_torch.kernels.flash_attention import ops as tops
+from repro_torch.kernels.flash_attention import ref as tref
+from repro_torch.models import attention as tattn
+from repro_torch.models import common as tcommon
+
+TOL = {"f32": dict(atol=2e-5, rtol=2e-5), "bf16": dict(atol=2e-2, rtol=2e-2)}
+DT = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16,
+                                                    torch.bfloat16)}
+
+
+def _qkv(shapes, dtype, seed=0):
+    rs = np.random.RandomState(seed)
+    arrs = [rs.randn(*s).astype(np.float32) for s in shapes]
+    jdt, tdt = DT[dtype]
+    return ([jnp.asarray(a, jdt) for a in arrs],
+            [torch.from_numpy(a).to(tdt) for a in arrs])
+
+
+def _close(got, want, dtype):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", list(DT))
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("B,H,S,D", [(2, 2, 128, 64), (1, 2, 256, 32)],
+                         ids=str)
+def test_mha_flash_matches_jax_kernel(B, H, S, D, causal, dtype):
+    (jq, jk, jv), (tq, tk_, tv) = _qkv([(B, H, S, D)] * 3, dtype)
+    _close(tops.mha_flash(tq, tk_, tv, causal=causal),
+           j_mha_flash(jq, jk, jv, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("block", [(64, 64), (128, 64)], ids=str)
+def test_mha_flash_blocks_match_jax_kernel(block):
+    bq, bk = block
+    (jq, jk, jv), (tq, tk_, tv) = _qkv([(2, 2, 256, 64)] * 3, "f32", seed=1)
+    _close(tops.mha_flash(tq, tk_, tv, causal=True, block_q=bq,
+                          block_k=bk),
+           j_mha_flash(jq, jk, jv, causal=True, block_q=bq, block_k=bk),
+           "f32")
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_gqa_flash_matches_jax_and_model_attention(causal):
+    """8 query heads over 2 KV heads: q head h reads kv head h // 4."""
+    shapes = [(2, 128, 8, 32), (2, 128, 2, 32), (2, 128, 2, 32)]
+    (jq, jk, jv), (tq, tk_, tv) = _qkv(shapes, "f32", seed=2)
+    got = tops.gqa_flash(tq, tk_, tv, causal=causal)
+    _close(got, j_gqa_flash(jq, jk, jv, causal=causal), "f32")
+    jmask = (jcommon.causal_mask(128) if causal
+             else jnp.zeros((128, 128), jnp.float32))
+    want = jattn._grouped_attention(jq, jk, jv, jnp.maximum(jmask, -1e30))
+    _close(got, want, "f32")
+    tmask = (tcommon.causal_mask(128) if causal
+             else torch.zeros(128, 128))
+    _close(tattn._grouped_attention(tq, tk_, tv,
+                                    torch.clamp(tmask, min=-1e30)),
+           want, "f32")
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_plain_recurrence_matches_attention_ref(causal):
+    """The port's own plain pieces agree: the streaming recurrence (with a
+    ragged tail block) and the plain softmax attention."""
+    _, (tq, tk_, tv) = _qkv([(1, 3, 96, 64)] * 3, "f32", seed=3)
+    want = tref.attention_ref(tq, tk_, tv, causal=causal)
+    got = tref.streaming_attention_body(tq, tk_, tv, scale=0.125,
+                                        causal=causal, block_k=64)
+    torch.testing.assert_close(got, want, **TOL["f32"])
+
+
+def test_flash_attention_checks_blocks_and_counts_nothing_on_cpu():
+    q = torch.zeros(2, 192, 64)
+    with pytest.raises(ValueError, match="multiple"):
+        tk.flash_attention(q, q, q, block_q=128)
+    n0 = tk.flash_attention.launches
+    tk.flash_attention(q, q, q, block_q=64, block_k=64)
+    assert tk.flash_attention.launches == n0

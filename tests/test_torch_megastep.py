@@ -1,0 +1,227 @@
+"""B3 megastep and ``backend='mega'`` of the port against the JAX package.
+
+Sizes are those of ``test_megastep.py`` (d_model 64, batch 2, 64 tokens,
+latent 32), weights from the JAX ``init_params`` through ``interop``.  The
+JAX oracle is ``backend='jnp'`` and ``megastep.ref.megastep_ref``, not
+JAX's interpret-mode megakernel (which drifts ~1e-4 from 'jnp' at K >= 2
+on this jax).
+
+Tolerances: 1e-4 of the largest state (float32 trunks whose products sum
+in another order, carried through the steps).  Port 'mega' with 'exact'
+attention equals port 'tile_resident' bitwise: on the CPU both run the
+same eps and the same step arithmetic.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import diffusion_lm as jdlm
+from repro.core import make_schedule as j_make_schedule
+from repro.kernels.megastep import MegaSpec as JMegaSpec
+from repro.kernels.megastep import ref as jmega_ref
+from repro.models.common import ArchConfig as JArch
+from repro.sampling import SamplerPlan as JPlan
+from repro_torch import configs, interop
+from repro_torch.core import make_schedule
+from repro_torch.diffusion_lm import model as tdlm
+from repro_torch.kernels import megastep
+from repro_torch.kernels.megastep import kernel as tk
+from repro_torch.kernels.megastep import ops as tops
+from repro_torch.models.common import ArchConfig as TArch
+from repro_torch.sampling import SamplerPlan
+from repro_torch.sampling import backends as tback
+
+TOL_OF_SCALE = 1e-4
+B, SEQ, LATENT = 2, 64, 32
+JSCH = j_make_schedule("linear", T=1000)
+TSCH = make_schedule("linear", 1000)
+
+
+def _models(n_heads=2, n_kv_heads=2):
+    arch = dict(n_layers=2, d_model=64, n_heads=n_heads,
+                n_kv_heads=n_kv_heads, d_ff=128, vocab=50)
+    jcfg = jdlm.DiffusionLMConfig(arch=JArch(name="t", family="dense",
+                                             **arch), time_dim=32)
+    tcfg = tdlm.DiffusionLMConfig(arch=TArch(name="t", family="dense",
+                                             **arch), time_dim=32)
+    jp = jdlm.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = interop.dlm_params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
+    x = np.random.RandomState(1).randn(B, SEQ, LATENT).astype(np.float32)
+    return jcfg, tcfg, jp, tp, x
+
+
+def _flash(eps_fn):
+    eps_fn.mega_spec = dataclasses.replace(eps_fn.mega_spec,
+                                           attn_impl="flash")
+    return eps_fn
+
+
+def _rel(got, want) -> float:
+    want = np.asarray(want)
+    return float(np.abs(np.asarray(got) - want).max() / np.abs(want).max())
+
+
+# ------------------------------------------------------------ one chunk
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("clip", [None, 1.5], ids=["noclip", "clip"])
+@pytest.mark.parametrize("attn_impl", ["exact", "flash"])
+def test_megastep_call_matches_jax_ref(attn_impl, clip, K):
+    jcfg, tcfg, jp, tp, x = _models(n_heads=4, n_kv_heads=2)
+    plan = JPlan.build(JSCH, tau=K + 2, x0=clip)
+    tab = plan.steps()
+    coefs = np.stack([tab["c_x0"], tab["c_dir"], tab["c_noise"],
+                      tab["sqrt_a_t"], tab["sqrt_1m_a_t"]], 1)[:K]
+    ts = np.array(tab["t"][:K], np.int32)
+    x2 = x.reshape(-1, 256)
+    jspec = JMegaSpec(params={k: jp[k] for k in tdlm.EPS_PATH}, cfg=jcfg,
+                      batch=B, seq_len=SEQ, attn_impl=attn_impl)
+    want = jmega_ref.megastep_ref(jnp.asarray(x2), jspec, jnp.asarray(coefs),
+                                  jnp.asarray(ts), clip=clip)
+    got = tk.megastep_call(torch.from_numpy(x2.copy()), tp, tcfg, B, SEQ,
+                           torch.from_numpy(coefs.copy()),
+                           torch.from_numpy(ts), clip=clip,
+                           attn_impl=attn_impl)
+    assert got.shape == x2.shape
+    assert _rel(got, want) <= TOL_OF_SCALE
+
+
+# ------------------------------------------------------------ the slice
+@pytest.mark.parametrize("k_fuse", [1, 4, 8], ids=["K1", "K4-ragged", "K8"])
+@pytest.mark.parametrize("attn_impl", ["exact", "flash"])
+def test_plan_run_mega_matches_jax_jnp(attn_impl, k_fuse):
+    jcfg, tcfg, jp, tp, x = _models()
+    want = JPlan.build(JSCH, tau=6).run(jdlm.make_eps_fn(jp, jcfg),
+                                        jnp.asarray(x), backend="jnp")
+    eps = tdlm.make_tile_eps_fn(tp, tcfg, B, SEQ)
+    if attn_impl == "flash":
+        eps = _flash(eps)
+    got = SamplerPlan.build(TSCH, 6).run(eps, torch.from_numpy(x),
+                                         backend="mega", k_fuse=k_fuse)
+    assert tback.run_mega.last_reason == "ok"
+    assert _rel(got, want) <= TOL_OF_SCALE
+
+
+@pytest.mark.parametrize("k_fuse,clip,heads", [
+    (1, None, (2, 2)), (3, None, (2, 2)), (8, None, (2, 2)),
+    (3, 1.5, (4, 2))], ids=["K1", "K3", "K8", "K3-clip-gqa"])
+def test_mega_exact_equals_tile_resident_bitwise(k_fuse, clip, heads):
+    _, tcfg, _, tp, x = _models(*heads)
+    eps = tdlm.make_tile_eps_fn(tp, tcfg, B, SEQ)
+    plan = SamplerPlan.build(TSCH, 7, x0=clip)
+    xT = torch.from_numpy(x)
+    mega = plan.run(eps, xT, backend="mega", k_fuse=k_fuse)
+    assert tback.run_mega.last_reason == "ok"
+    tile = plan.run(eps, xT, backend="tile_resident")
+    torch.testing.assert_close(mega, tile, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------- eligibility
+def _meta_spec(cfg, batch, attn_impl="exact"):
+    def meta(tree):
+        if isinstance(tree, dict):
+            return {k: meta(v) for k, v in tree.items()}
+        return torch.empty(tree, device="meta")
+    p = meta(tdlm.param_shapes(cfg))
+    return megastep.MegaSpec(params={k: p[k] for k in tdlm.EPS_PATH},
+                             cfg=cfg, batch=batch, seq_len=SEQ,
+                             attn_impl=attn_impl)
+
+
+@pytest.mark.parametrize("cfg,batch,impl,total,ok", [
+    ("DLM_SMOLLM_MEGA", 4, "exact", 35_482_880, True),
+    ("DLM_SMOLLM_MEGA", 4, "flash", 36_072_704, True),
+    ("DLM_SMOLLM_MEGA", 8, "flash", 42_822_912, False),
+    ("DLM_SMOLLM", 4, "exact", 431_973_632, False)],
+    ids=["2L-b4-exact", "2L-b4-flash", "2L-b8-flash", "30L-b4-exact"])
+def test_eligibility_of_the_smollm_trunks(cfg, batch, impl, total, ok):
+    spec = _meta_spec(getattr(configs, cfg), batch, impl)
+    assert spec.vmem_bytes() == total
+    got, why = megastep.eligible(spec, torch.empty(batch, SEQ, LATENT,
+                                                   device="meta"))
+    assert got == ok
+    assert (why == "ok") if ok else ("budget 39321600 B" in why)
+    assert megastep.MEGA_BUDGET == 39_321_600 == int(0.75 * 50 * 2 ** 20)
+
+
+def test_eligibility_reasons():
+    _, tcfg, _, tp, x = _models()
+    spec = tdlm.make_tile_eps_fn(tp, tcfg, B, SEQ).mega_spec
+    xT = torch.from_numpy(x)
+    assert megastep.eligible(spec, xT) == (True, "ok")
+    assert "mega_spec" in megastep.eligible(None, xT)[1]
+    assert "geometry" in megastep.eligible(spec, xT[:, :32])[1]
+    assert "budget 1024 B" in megastep.eligible(spec, xT, budget=1024)[1]
+    with pytest.raises(ValueError, match="attn_impl"):
+        dataclasses.replace(spec, attn_impl="chunked")
+
+
+def _count_chunks(monkeypatch):
+    calls = []
+    real = megastep.megastep_tiles
+
+    def spy(*a, **kw):
+        calls.append(a[3].shape[0])
+        return real(*a, **kw)
+    monkeypatch.setattr(megastep, "megastep_tiles", spy)
+    return calls
+
+
+@pytest.mark.parametrize("case", ["stochastic", "order2", "no-spec",
+                                  "wrong-shape", "over-budget"])
+def test_ineligible_runs_take_the_tile_resident_loop(case, monkeypatch):
+    _, tcfg, _, tp, x = _models()
+    eps = tdlm.make_tile_eps_fn(tp, tcfg, B, SEQ)
+    plan = SamplerPlan.build(TSCH, 5)
+    xT = torch.from_numpy(x)
+    why = {"stochastic": "stochastic", "order2": "order 2",
+           "no-spec": "mega_spec", "wrong-shape": "geometry",
+           "over-budget": "budget"}[case]
+    if case == "stochastic":
+        plan = SamplerPlan.build(TSCH, 5, sigma=1.0)
+    elif case == "order2":
+        plan = SamplerPlan.build(TSCH, 5, order=2)
+    elif case == "no-spec":
+        del eps.mega_spec
+    elif case == "wrong-shape":
+        xT = xT[:1]
+    else:
+        monkeypatch.setattr(tops, "MEGA_BUDGET", 1024)
+    calls = _count_chunks(monkeypatch)
+    gen = lambda: torch.Generator().manual_seed(7)  # noqa: E731
+    if case == "wrong-shape":   # natural-shape eps still carrying the spec
+        spec, eps = eps.mega_spec, tdlm.make_eps_fn(tp, tcfg)
+        eps.mega_spec = spec
+    got = plan.run(eps, xT, gen(), backend="mega")
+    assert calls == [] and why in tback.run_mega.last_reason
+    want = plan.run(eps, xT, gen(), backend="tile_resident")
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("S,K", [(20, 8), (6, 4), (5, 8), (7, 1)])
+def test_eligible_runs_launch_ceil_s_over_k_chunks(S, K, monkeypatch):
+    _, tcfg, _, tp, x = _models()
+    eps = tdlm.make_tile_eps_fn(tp, tcfg, B, SEQ)
+    calls = _count_chunks(monkeypatch)
+    SamplerPlan.build(TSCH, S).run(eps, torch.from_numpy(x), backend="mega",
+                                   k_fuse=K)
+    K = min(K, S)
+    assert calls == [K] * (S // K) + ([S % K] if S % K else [])
+
+
+def test_megastep_call_refuses_padding_and_counts_nothing_on_cpu():
+    _, tcfg, _, tp, x = _models()
+    x2 = torch.from_numpy(x.reshape(-1, 256).copy())
+    c = torch.tensor([[0.9, 0.3, 0.0, 0.6, 0.8]])
+    t = torch.tensor([500], dtype=torch.int32)
+    padded = torch.cat([x2, torch.zeros(8, 256)])
+    with pytest.raises(ValueError, match="pure reshape"):
+        tk.megastep_call(padded, tp, tcfg, B, SEQ, c, t)
+    with pytest.raises(ValueError, match=r"\(K, 5\)"):
+        tk.megastep_call(x2, tp, tcfg, B, SEQ, c[:, :4], t)
+    n0 = tk.megastep_call.launches
+    tk.megastep_call(x2, tp, tcfg, B, SEQ, c, t)
+    assert tk.megastep_call.launches == n0

@@ -119,12 +119,21 @@ def test_warmup_weights_and_mix_history(order):
 
 
 def test_mega_backend_raises_not_implemented():
+    """'mega' is ported: an eps model without a mega_spec runs the
+    tile-resident loop instead of raising; an unknown backend and k_fuse
+    on another backend raise."""
+    from repro_torch.sampling import backends as tback
     tp = tplan.SamplerPlan.build(tsched.make_schedule("linear", T), 4)
-    x = torch.zeros(1, 4)
-    with pytest.raises(NotImplementedError, match="megastep"):
-        tp.run(lambda x, t: x, x, backend="mega")
+    x = torch.linspace(-1.0, 1.0, 4).reshape(1, 4)
+    eps = lambda x, t: 0.5 * x  # noqa: E731
+    mega = tp.run(eps, x, backend="mega")
+    assert "mega_spec" in tback.run_mega.last_reason
+    torch.testing.assert_close(mega, tp.run(eps, x, backend="tile_resident"),
+                               rtol=0, atol=0)
     with pytest.raises(ValueError, match="unknown backend"):
-        tp.run(lambda x, t: x, x, backend="jnp")
+        tp.run(eps, x, backend="jnp")
+    with pytest.raises(ValueError, match="k_fuse"):
+        tp.run(eps, x, backend="tile_resident", k_fuse=2)
 
 
 def test_stochastic_plan_needs_generator():
