@@ -18,7 +18,10 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               B5 flash_attention over f32/bf16 x causal/not at (36, 64, 64)
               and (9, 2048, 64); B3 megastep_call at the slice's shape
               (smollm width, 2 layers, batch 4 x 64 tokens) over
-              exact/flash x clip none/1.0 x K {1, 8}
+              exact/flash x clip none/1.0 x K {1, 8}; B4 megastep_rows_call
+              at the same shape (every slot its own t and coefficient row,
+              one idle slot) over exact/flash x clip none/1.0; B7
+              ddim_step_2d over f32/bf16 x R {256, 1024}, C = 256
   4. main     each path with the launch counters zeroed just before it and
               read just after:
               the sampling service at CIFAR10 width: DiffusionSampler
@@ -33,13 +36,26 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               eligibility reason printed; plan.run 'mega' (exact and flash)
               against 'tile_resident' on the card;
               the attention / norm ops at smollm width and prefill length
-              (rms_norm, gqa_flash causal), against the model's plain ones
+              (rms_norm, gqa_flash causal), against the model's plain ones;
+              the continuous-batching scheduler on the CIFAR10 U-Net:
+              svc.continuous(slots=8, stochastic, max_order 2, preview)
+              serves 24 requests (S {10, 20, 50} x tau uniform/quadratic x
+              eta 0 order 1 / eta 0 order 2 / eta 1, and 6 whose deadline
+              expires in the queue) submitted in two waves; B2 must launch
+              once per tick and B1/B3/B4 never; every eta=0 x0 against a
+              lone plan.run(backend='eager') of the same x_T;
+              the scheduler's mega tick on DLM_SMOLLM_MEGA (4 slots x 64
+              tokens, 8 requests S {10, 20}): B4 once per tick, B2 never,
+              against a use_mega=False engine, rounded to tokens
   5. times    CUDA-graph-replayed kernel times at the main path's shapes
               beside their bound, the plain versions' and the library
               call's times; the U-Net forward at batch 8; samples/s from
               serve and from generate on 'mega' and 'tile_resident';
               torch.profiler breakdowns of one steady serve batch and of
-              one generate call on each of the two backends
+              one generate call on each of the two backends; B4 per tick,
+              B7, the unfused rows tick at the DLM shape; the scheduler
+              engines' steady slot-steps/s, and a profile (device idle
+              share) of one steady tick of each engine
 
 Any failure raises and the script exits nonzero with no result line.  On
 success the second-to-last line is the kernels' JSON record and the last
@@ -72,6 +88,9 @@ KERNEL_SOURCE = "src/repro_torch/kernels/sampler_step/csrc/sampler_step.cu"
 TPU_KERNEL = "src/repro/kernels/sampler_step/kernel.py"
 DLM_BATCH, DLM_SEQ, DLM_S, DLM_K = 4, 64, 20, 8
 # name -> (source, the TPU kernel's function file:line) of this slice
+SCHED_SLOTS = 8
+DLM_SCHED_S = (10, 20)
+B7_COEFS = (0.93, 0.31, 0.27, 0.61, 0.79)
 DLM_KERNELS = {
     "megastep_call": ("src/repro_torch/kernels/megastep/csrc/megastep.cu",
                       "src/repro/kernels/megastep/kernel.py:232"),
@@ -80,6 +99,14 @@ DLM_KERNELS = {
         "src/repro/kernels/flash_attention/kernel.py:118"),
     "rms_norm_2d": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm/kernel.py:38"),
+}
+# name -> (source, the TPU kernel's function file:line) of the scheduler slice
+SCHED_KERNELS = {
+    "megastep_rows_call": (
+        "src/repro_torch/kernels/megastep/csrc/megastep.cu",
+        "src/repro/kernels/megastep/kernel.py:269"),
+    "ddim_step_2d": ("src/repro_torch/kernels/ddim_step/csrc/ddim_step.cu",
+                     "src/repro/kernels/ddim_step/kernel.py:43"),
 }
 
 
@@ -186,7 +213,7 @@ def phase_build():
     libs = build.build_all()
     print(f"[build] {sorted(libs)} built/loaded in "
           f"{time.perf_counter() - t0:.2f} s into {build.BUILD_DIR}")
-    for name in ("megastep", "flash_attention", "rmsnorm"):
+    for name in ("megastep", "flash_attention", "rmsnorm", "ddim_step"):
         lines = [ln.strip() for ln in build.build_log(name).splitlines()
                  if "Used" in ln or "spill" in ln]
         spills = [ln for ln in lines if "spill" in ln and not re.search(
@@ -810,6 +837,332 @@ def phase_times_dlm(smi, params2, errs, b3_launches, ops_launches):
              "shape": r["shape"]} for name, r in recs.items()]
 
 
+# ------------------------------------------------ the scheduler slice
+def _slot_states(clip, idle_slot=None):
+    """Per-slot (t (B,) int32, coefficient rows (B, 5) float32) on the
+    card: slot b at its own position of its own plan; ``idle_slot`` takes
+    the engine's idle row (t = 1, the identity update)."""
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.sampling import SamplerPlan
+    sch = make_schedule("linear", 1000)
+    cols = ("c_x0", "c_dir", "c_noise", "sqrt_a_t", "sqrt_1m_a_t")
+    ts, rows = [], []
+    for b, (S, k) in enumerate([(10, 1), (20, 13), (50, 47), (7, 3)]
+                               [:DLM_BATCH]):
+        tab = SamplerPlan.build(sch, S, x0=clip).steps()
+        ts.append(int(tab["t"][k]))
+        rows.append([float(tab[c][k]) for c in cols])
+        if b == idle_slot:
+            ts[-1] = 1
+            rows[-1] = [1.0, 0.0, 0.0, 1.0, 1.0 if clip is not None else 0.0]
+    return (torch.tensor(ts, dtype=torch.int32, device="cuda"),
+            torch.tensor(rows, dtype=torch.float32, device="cuda"))
+
+
+def phase_kernels_sched(params2):
+    """B4 at the slice's shape and B7, against their plain versions."""
+    from repro_torch.configs import DLM_SMOLLM_MEGA as cfg
+    from repro_torch.kernels.ddim_step import kernel as dk
+    from repro_torch.kernels.ddim_step import ref as dref
+    from repro_torch.kernels.megastep import kernel as mk
+    from repro_torch.kernels.megastep import ref as mref
+    from repro_torch.kernels.sampler_step import ops as sops
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    errs = {k: [] for k in SCHED_KERNELS}
+    n = DLM_BATCH * DLM_SEQ * cfg.latent_dim
+    x2 = torch.randn(n // 256, 256, generator=gen, device=dev)
+    rps = x2.shape[0] // DLM_BATCH
+    for impl in ("exact", "flash"):
+        for clip in (None, 1.0):
+            ts, c = _slot_states(clip, idle_slot=3 if impl == "exact" else None)
+            args = (x2, params2, cfg, DLM_BATCH, DLM_SEQ,
+                    sops.expand_slot_coefs(c, rps), ts)
+            got = mk.megastep_rows_call(*args, clip=clip, attn_impl=impl)
+            want = mref.megastep_rows_ref(*args, clip=clip, attn_impl=impl)
+            _check_rel(errs["megastep_rows_call"],
+                       f"B4 {impl} clip={clip} t={ts.tolist()}", got, want,
+                       1e-4)
+    coefs = torch.tensor(B7_COEFS)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for R in (256, 1024):
+            x, e, z = (torch.randn(R, 256, generator=gen, device=dev)
+                       .to(dtype) for _ in range(3))
+            _report(errs["ddim_step_2d"], f"B7 R={R} C=256 {tag}",
+                    dk.ddim_step_2d(x, e, z, coefs),
+                    dref.ddim_step_body(x, e, z, coefs), dtype, exact=True)
+    torch.cuda.synchronize()
+    return {k: max(v) for k, v in errs.items()}
+
+
+def _zero_counts():
+    from repro_torch.kernels.megastep import kernel as mk
+    from repro_torch.kernels.sampler_step import kernel as sk
+    for fn in (sk.sampler_step_2d, sk.sampler_step_rows_2d, mk.megastep_call,
+               mk.megastep_rows_call):
+        fn.launches = 0
+
+
+def _counts():
+    from repro_torch.kernels.megastep import kernel as mk
+    from repro_torch.kernels.sampler_step import kernel as sk
+    return {"B1": sk.sampler_step_2d.launches,
+            "B2": sk.sampler_step_rows_2d.launches,
+            "B3": mk.megastep_call.launches,
+            "B4": mk.megastep_rows_call.launches}
+
+
+def phase_main_sched(model):
+    """The continuous-batching scheduler at CIFAR10 width, counted: mixed
+    plans admitted mid-flight, previews, deadlines expiring in the queue;
+    every eta=0 result against a lone eager run of the same x_T."""
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.kernels.sampler_step import ops as sops
+    from repro_torch.models.unet import make_eps_fn
+    from repro_torch.sampling import SamplerPlan
+    from repro_torch.sampling.specs import TauSpec
+    from repro_torch.serving import (DiffusionSampler, SampleRequest,
+                                     SlotCheckpoint)
+    dev = torch.device("cuda")
+    sch = make_schedule("linear", 1000)
+    eps_fn = make_eps_fn(model)
+    svc = DiffusionSampler(sch, eps_fn, CARD_SHAPE, batch_size=BATCH,
+                           tile_resident=True)
+    eng = svc.continuous(slots=SCHED_SLOTS, stochastic=True, max_order=2,
+                         preview=True)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    previews, reqs, x_T = [], [], {}
+    for S in (10, 20, 50):
+        for tau in ("uniform", "quadratic"):
+            for eta, order in ((0.0, 1), (0.0, 2), (1.0, 1)):
+                i = len(reqs)
+                x = torch.randn((1,) + CARD_SHAPE, generator=gen, device=dev)
+                x_T[i] = x
+                reqs.append(SampleRequest(
+                    request_id=i, seed=i,
+                    plan=SamplerPlan.build(sch, TauSpec(kind=tau, S=S),
+                                           sigma=eta, order=order),
+                    preview_every=5 if i % 4 == 0 else 0,
+                    on_preview=lambda rid, k, x0: previews.append(
+                        (rid, k, bool(torch.isfinite(x0).all()))),
+                    resume=SlotCheckpoint(
+                        request_id=i, k=0, x_rows=sops.to_slot_tile_layout(
+                            x)[0], hist_rows=None)))
+    late = [SampleRequest(request_id=100 + j, S=20, eta=1.0, seed=100 + j)
+            for j in range(6)]
+    _zero_counts()
+    t0 = time.perf_counter()
+    for r in reqs[:12]:
+        eng.submit(r)
+    results = eng.tick() + eng.tick() + eng.tick()
+    for r in reqs[12:]:
+        eng.submit(r)
+    for r in late:      # deadlines that pass while they wait in the queue
+        eng.submit(dataclasses.replace(r, deadline=time.perf_counter()
+                                       + 1e-3))
+    time.sleep(2e-3)
+    results += eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    st = eng.stats()
+    print(f"[main] scheduler CIFAR10_UNET slots {SCHED_SLOTS}: {st['ticks']} "
+          f"ticks, completed {st['completed']}, dropped {st['dropped']}, "
+          f"deadline_missed {st['deadline_missed']}, previews "
+          f"{st['previews_sent']}, occupancy {st['occupancy']:.3f}, "
+          f"compiled_ticks {st['compiled_ticks']}, tick_variant "
+          f"{st['tick_variant']}; launches {counts}; wall {wall:.2f} s")
+    check(counts == {"B1": 0, "B2": st["ticks"], "B3": 0, "B4": 0},
+          f"scheduler launches {counts}, want B2 == ticks {st['ticks']} "
+          "and nothing else")
+    check(st["compiled_ticks"] == 1 and st["completed"] == len(reqs)
+          and st["dropped"] == len(late) and st["deadline_missed"]
+          >= len(late) and not st["mega_tick"],
+          f"scheduler stats {st}")
+    check(len(previews) == st["previews_sent"] > 0
+          and all(p[2] for p in previews), "previews missing or non-finite")
+    by_id = {r.request_id: r for r in results}
+    check(sorted(by_id) == sorted([r.request_id for r in reqs]
+                                  + [r.request_id for r in late]),
+          "a request has no result")
+    worst = 0.0
+    for r in reqs:
+        res = by_id[r.request_id]
+        check(res.x0.shape == CARD_SHAPE and bool(torch.isfinite(res.x0)
+                                                  .all()),
+              f"request {r.request_id}: bad x0")
+        if r.plan.stochastic:
+            continue
+        lone = r.plan.run(eps_fn, x_T[r.request_id], backend="eager")[0]
+        rel = float((res.x0 - lone).abs().max() / lone.abs().max())
+        worst = max(worst, rel)
+    print(f"[main] scheduler eta=0 x0 vs lone plan.run(backend='eager') of "
+          f"the same x_T, 12 requests (S 10/20/50, order 1/2): worst "
+          f"max|d|/max|x| = {worst:.3e} (tol 1e-3)")
+    check(worst <= 1e-3, f"scheduler vs lone eager: {worst} > 1e-3")
+    return counts, eng
+
+
+def phase_main_dlm_sched(params2):
+    """The scheduler's mega tick (B4) on the eligible 2-layer trunk,
+    counted, against the unfused tick."""
+    from repro_torch.configs import DLM_SMOLLM_MEGA as cfg
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.diffusion_lm import make_tile_eps_fn, round_to_tokens
+    from repro_torch.serving import ContinuousBatchingEngine, SampleRequest
+    sch = make_schedule("linear", 1000)
+    eps = make_tile_eps_fn(params2, cfg, DLM_BATCH, DLM_SEQ)
+    shape = (DLM_SEQ, cfg.latent_dim)
+
+    def requests():
+        return [SampleRequest(request_id=i, S=DLM_SCHED_S[i % 2],
+                              seed=200 + i) for i in range(8)]
+    mega = ContinuousBatchingEngine(sch, eps, shape, slots=DLM_BATCH)
+    plain = ContinuousBatchingEngine(sch, eps, shape, slots=DLM_BATCH,
+                                     use_mega=False)
+    check(mega.stats()["mega_tick"] and not plain.stats()["mega_tick"],
+          "mega tick eligibility")
+    _zero_counts()
+    res_m = mega.serve(requests())
+    torch.cuda.synchronize()
+    counts = _counts()
+    res_p = plain.serve(requests())
+    torch.cuda.synchronize()
+    st = mega.stats()
+    print(f"[main] scheduler {cfg.arch.name} mega tick, slots {DLM_BATCH} x "
+          f"{DLM_SEQ} tokens, 8 requests S {DLM_SCHED_S}: {st['ticks']} "
+          f"ticks, completed {st['completed']}, tick_variant "
+          f"{st['tick_variant']}, compiled_ticks {st['compiled_ticks']}; "
+          f"launches {counts}")
+    check(counts == {"B1": 0, "B2": 0, "B3": 0, "B4": st["ticks"]}
+          and st["completed"] == 8 and st["compiled_ticks"] == 1,
+          f"mega-tick launches {counts}, want B4 == ticks {st['ticks']}")
+    xm = torch.stack([r.x0 for r in sorted(res_m, key=lambda r: r.request_id)])
+    xp = torch.stack([r.x0 for r in sorted(res_p, key=lambda r: r.request_id)])
+    rel = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(xm, xp))
+    tokens = round_to_tokens(params2, xm)
+    agree = float((tokens == round_to_tokens(params2, xp)).float().mean())
+    print(f"[main] mega tick vs unfused tick, per request: worst "
+          f"max|d|/max|x| = {rel:.3e} (tol 1e-3); tokens "
+          f"{tuple(tokens.shape)} {tokens.dtype}, token agreement {agree:.4f}"
+          f", first row {tokens[0, :8].tolist()}")
+    check(rel <= 1e-3 and bool(torch.isfinite(xm).all()),
+          f"mega vs unfused tick: {rel} > 1e-3")
+    check(tokens.shape == (8, DLM_SEQ) and 0 <= int(tokens.min())
+          and int(tokens.max()) < cfg.arch.vocab, "bad tokens")
+    return counts, mega, plain
+
+
+def _steady(eng, make_requests, label, smi, marker):
+    """Steady slot-steps/s of ``eng`` over a second wave of requests, then
+    a profile of one tick with every slot busy."""
+    eng.reset_stats()
+    eng.serve(make_requests(0))
+    torch.cuda.synchronize()
+    st = eng.stats()
+    print(f"[times] {smi} | {label}: {st['slot_steps']} slot-steps in "
+          f"{st['ticks']} ticks, {st['steps_per_s']:.1f} slot-steps/s, tick "
+          f"EWMA {st['tick_ewma_s'] * 1e3:.2f} ms, occupancy "
+          f"{st['occupancy']:.3f}")
+    for r in make_requests(1000):
+        eng.submit(r)
+    eng.tick()
+    profile_call(smi, f"one steady tick, {label}", eng.tick, marker)
+    eng.run()
+    return st
+
+
+def phase_times_sched(smi, params2, errs, b4_launches, eng_unet, dlm_mega,
+                      dlm_plain):
+    from repro_torch.configs import DLM_SMOLLM_MEGA as cfg
+    from repro_torch.core import StepStates, slot_tile_step
+    from repro_torch.diffusion_lm import make_tile_eps_fn
+    from repro_torch.kernels.ddim_step import kernel as dk
+    from repro_torch.kernels.ddim_step import ref as dref
+    from repro_torch.kernels.megastep import kernel as mk
+    from repro_torch.kernels.megastep import ref as mref
+    from repro_torch.kernels.sampler_step import ops as sops
+    from repro_torch.serving import SampleRequest
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    recs = {}
+
+    # B4: one scheduler tick at the slice's shape
+    n = DLM_BATCH * DLM_SEQ * cfg.latent_dim
+    x2 = torch.randn(n // 256, 256, generator=gen, device=dev)
+    rps = x2.shape[0] // DLM_BATCH
+    ts, c = _slot_states(None)
+    rows = sops.expand_slot_coefs(c, rps)
+    eps = make_tile_eps_fn(params2, cfg, DLM_BATCH, DLM_SEQ)
+    n_bytes = (eps.mega_spec.weight_bytes() + 2 * n * 4 + rows.numel() * 4
+               + DLM_BATCH * (4 + cfg.time_dim * 4) + DLM_SEQ * 64 * 4)
+    b_ms, b_by = _bound(n_bytes, mega_ops(cfg, DLM_BATCH, DLM_SEQ, 1)
+                        + 3 * n)
+    args = (x2, params2, cfg, DLM_BATCH, DLM_SEQ, rows, ts)
+    for impl in ("exact", "flash"):
+        rec = dict(
+            ms=graph_ms(lambda: mk.megastep_rows_call(*args, attn_impl=impl),
+                        iters=5, reps=2),
+            plain_ms=graph_ms(lambda: mref.megastep_rows_ref(
+                *args, attn_impl=impl), iters=5, reps=2),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            shape=f"{cfg.arch.name} {DLM_BATCH} slots x {DLM_SEQ}, one "
+                  f"tick, {impl}")
+        _time_line(smi, f"B4 megastep_rows_call {rec['shape']}", rec)
+        recs.setdefault("megastep_rows_call", rec)
+    states = StepStates(t=ts, c_x0=c[:, 0], c_dir=c[:, 1], c_noise=c[:, 2],
+                        sqrt_a_t=c[:, 3], sqrt_1m_a_t=c[:, 4])
+    shape = (DLM_SEQ, cfg.latent_dim)
+    rows_ms = graph_ms(lambda: slot_tile_step(eps, x2, states, shape),
+                       iters=5, reps=2)
+    print(f"[times] {smi} | unfused rows tick at the same shape (eager "
+          f"trunk + B2): {rows_ms * 1e3:.2f} us (graph); B4 / unfused = "
+          f"{recs['megastep_rows_call']['ms'] / rows_ms:.1f}x")
+
+    # B7 at R = 1024, C = 256 (the wrapper reads host coefficients, the
+    # plain version device ones: a graph captures no host-device copy)
+    coefs = torch.tensor(B7_COEFS)
+    coefs_dev = coefs.to(dev)
+    for dtype, esz in ((torch.float32, 4), (torch.bfloat16, 2)):
+        x, e, z = (torch.randn(1024, 256, generator=gen, device=dev)
+                   .to(dtype) for _ in range(3))
+        b_ms, b_by = _bound(4 * x.numel() * esz, 5 * x.numel())
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        rec = dict(ms=graph_ms(lambda: dk.ddim_step_2d(x, e, z, coefs)),
+                   plain_ms=graph_ms(lambda: dref.ddim_step_body(
+                       x, e, z, coefs_dev)),
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                   shape=f"(1024, 256) {tag}")
+        _time_line(smi, f"B7 ddim_step_2d {rec['shape']}", rec)
+        recs.setdefault("ddim_step_2d", rec)
+
+    # the engines: steady slot-steps/s and one profiled tick each
+    def unet_requests(base):
+        return [SampleRequest(request_id=base + i, S=50, seed=base + i)
+                for i in range(SCHED_SLOTS)]
+
+    def dlm_requests(base):
+        return [SampleRequest(request_id=base + i, S=20, seed=base + i)
+                for i in range(DLM_BATCH)]
+    _steady(eng_unet, unet_requests, f"scheduler CIFAR10_UNET {SCHED_SLOTS} "
+            "slots (stochastic, order 2, preview), S=50", smi,
+            "step_rows_kernel")
+    _steady(dlm_mega, dlm_requests, f"scheduler {cfg.arch.name} mega tick "
+            f"{DLM_BATCH} slots, S=20", smi, "megastep_kernel")
+    _steady(dlm_plain, dlm_requests, f"scheduler {cfg.arch.name} unfused tick"
+            f" {DLM_BATCH} slots, S=20", smi, "step_rows_kernel")
+
+    launches = {"megastep_rows_call": b4_launches, "ddim_step_2d": 0}
+    return [{"name": name, "route": "cuda", "source": SCHED_KERNELS[name][0],
+             "replaces": SCHED_KERNELS[name][1], "launches": launches[name],
+             "max_abs_err": errs[name], "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+             "shape": r["shape"]} for name, r in recs.items()]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -827,13 +1180,20 @@ def main() -> int:
     errs = phase_kernels()
     params2 = _dlm_params(DLM_SMOLLM_MEGA)
     errs_dlm = phase_kernels_dlm(params2)
+    errs_sched = phase_kernels_sched(params2)
     model = _cifar10_model()
     launches, st_det, svc, det = phase_main(model)
     b3_launches = phase_main_dlm(params2, _dlm_params(DLM_SMOLLM))
     ops_launches = phase_ops_path()
+    sched_counts, eng_unet = phase_main_sched(model)
+    dlm_counts, dlm_mega, dlm_plain = phase_main_dlm_sched(params2)
+    # B2 runs on two main paths: the lockstep rows run and the scheduler
+    launches["sampler_step_rows_2d"] += sched_counts["B2"]
     kernels = phase_times(smi, model, errs, launches, st_det)
     kernels += phase_times_dlm(smi, params2, errs_dlm, b3_launches,
                                ops_launches)
+    kernels += phase_times_sched(smi, params2, errs_sched, dlm_counts["B4"],
+                                 eng_unet, dlm_mega, dlm_plain)
     gen = torch.Generator(device="cuda").manual_seed(3)
     profile_call(smi, f"one serve batch (eta=0, S={det.S}, batch "
                  f"{svc.batch})", lambda: svc.sample_batch(det, gen),

@@ -1,15 +1,23 @@
-"""The scalar-knob sampler surface (port of ``repro/core/sampler.py:68-88,
-271-327``): ``SamplerConfig`` and the thin ``sample`` adapter over
-``SamplerPlan``.  For trajectories the scalar knobs cannot express (learned
-tau, per-step eta schedules, explicit sigmas, multistep orders) build the
-plan directly."""
+"""The scalar-knob sampler surface and the scheduler's single-step API
+(port of ``repro/core/sampler.py``).
+
+  * ``SamplerConfig`` and the thin ``sample`` adapter over ``SamplerPlan``.
+    For trajectories the scalar knobs cannot express (learned tau,
+    per-step eta schedules, explicit sigmas, multistep orders) build the
+    plan directly.
+  * ``StepStates`` / ``step_table`` / ``slot_tile_step`` / ``sample_step``:
+    one step of a slot batch where every slot sits at its own position of
+    its own trajectory, the body of the continuous-batching tick.
+"""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from repro_torch.core import solver
 from repro_torch.core.schedules import NoiseSchedule
 
 
@@ -50,3 +58,98 @@ def sample(schedule: NoiseSchedule, eps_fn, x_T: torch.Tensor,
     if backend is None:
         backend = "tile_resident" if tile_resident else "eager"
     return cfg.to_plan(schedule).run(eps_fn, x_T, generator, backend=backend)
+
+
+class StepStates(NamedTuple):
+    """Per-slot step state for one scheduler tick (all tensors length B).
+
+    ``t[b]`` is slot b's timestep for the eps model and the five
+    coefficient vectors are that position's Eq. 12 row.  ``seed`` is the
+    per-slot per-tick int32 noise seed (stochastic engines only);
+    ``solver_w`` the per-slot (B, max_order) Adams–Bashforth weight row
+    (multistep-capable engines only).
+    """
+
+    t: torch.Tensor
+    c_x0: torch.Tensor
+    c_dir: torch.Tensor
+    c_noise: torch.Tensor
+    sqrt_a_t: torch.Tensor
+    sqrt_1m_a_t: torch.Tensor
+    seed: Optional[torch.Tensor] = None
+    solver_w: Optional[torch.Tensor] = None
+
+    def coef_matrix(self) -> torch.Tensor:
+        """(B, 5) float32 rows in the kernels' column order."""
+        return torch.stack([self.c_x0, self.c_dir, self.c_noise,
+                            self.sqrt_a_t, self.sqrt_1m_a_t],
+                           dim=1).float()
+
+
+def step_table(schedule: NoiseSchedule, cfg: SamplerConfig):
+    """Per-request step table in SAMPLING order (row k is the k-th tick:
+    t, c_x0, c_dir, c_noise, sqrt_a_t, sqrt_1m_a_t, and (S, order)
+    ``solver_w``) — the compiled plan's ``steps()``."""
+    return cfg.to_plan(schedule).steps()
+
+
+def slot_tile_step(eps_fn, x2: torch.Tensor, states: StepStates, shape, *,
+                   hist2: Optional[torch.Tensor] = None, clip_x0=None,
+                   stochastic: bool = False, want_x0: bool = False):
+    """One scheduler tick over the (B * rows_per_slot, 256) slot-tile view.
+
+    eps models declaring ``slot_tile_aware = True`` receive (x2, t (B,));
+    others see the natural (B, *shape) view through an adapter.  Multistep
+    engines pass ``hist2``, the (max_order-1, R, 256) float32 stack of
+    previous eps evaluations (newest first), and ``states.solver_w``: each
+    slot's effective eps is its own Adams–Bashforth combination, through
+    ``solver.mix_history`` with an (order, R, 1) per-row weight stack.
+    The update is one ``sampler_step_rows_2d`` launch.  Returns the
+    advanced view (plus the x0 preview when ``want_x0``); with ``hist2``
+    ``(step_out, new_hist2)``.  (JAX's ``want_eps`` feeds the device
+    probes, which are not ported.)
+    """
+    from repro_torch.kernels.sampler_step import ops as tile_ops
+
+    B = states.t.shape[0]
+    rps = x2.shape[0] // B
+    with torch.no_grad():
+        if getattr(eps_fn, "slot_tile_aware", False):
+            eps2 = eps_fn(x2, states.t)
+        else:
+            n = int(np.prod(shape))
+            x_nat = tile_ops.from_slot_tile_layout(x2, n,
+                                                   (B,) + tuple(shape))
+            eps2, _ = tile_ops.to_slot_tile_layout(eps_fn(x_nat, states.t))
+        new_hist2 = None
+        if hist2 is not None:
+            order = states.solver_w.shape[1]
+            w_stack = states.solver_w.float().repeat_interleave(
+                rps, dim=0).T[:, :, None]
+            eps2, new_hist2 = solver.mix_history(eps2.float(), hist2,
+                                                 w_stack, order)
+        row_coefs = tile_ops.expand_slot_coefs(states.coef_matrix(), rps)
+        row_seeds = (tile_ops.derive_row_seeds(states.seed, rps)
+                     if stochastic else None)
+        out = tile_ops.sampler_step_rows(
+            x2, eps2.contiguous(), row_coefs, row_seeds, clip=clip_x0,
+            stochastic=stochastic, want_x0=want_x0)
+    return (out, new_hist2) if hist2 is not None else out
+
+
+def sample_step(schedule: NoiseSchedule, eps_fn, x: torch.Tensor,
+                states: StepStates, *, clip_x0=None,
+                stochastic: bool = False, want_x0: bool = False):
+    """Advance a natural-shape slot batch ONE step, each row at its own
+    trajectory position (order 1; one layout conversion in, one out).
+    ``schedule`` is unused, kept for symmetry with ``sample``."""
+    del schedule
+    from repro_torch.kernels.sampler_step import ops as tile_ops
+
+    x2, n = tile_ops.to_slot_tile_layout(x)
+    out = slot_tile_step(eps_fn, x2, states, x.shape[1:], clip_x0=clip_x0,
+                         stochastic=stochastic, want_x0=want_x0)
+    if want_x0:
+        return tuple(tile_ops.from_slot_tile_layout(o, n, x.shape)
+                     for o in out)
+    return tile_ops.from_slot_tile_layout(out, n, x.shape)

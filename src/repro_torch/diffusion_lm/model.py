@@ -145,8 +145,10 @@ def make_tile_eps_fn(params: Params, cfg: DiffusionLMConfig, batch: int,
     """Tile-aware eps model: consumes the (R, 256) tile view directly.
 
     Valid when ``seq_len * latent_dim`` is a multiple of the 8 x 256 tile
-    granule, so the tile view is a pure reshape of (batch, seq_len,
-    latent_dim).  ``t`` may be a scalar or a (batch,) vector.  It also
+    granule, so the tile view (and the scheduler's slot-tile view) is a
+    pure reshape of (batch, seq_len, latent_dim).  ``t`` may be a scalar
+    (the tile-resident loop) or a (batch,) vector (the scheduler: every
+    slot at its own timestep).  It also
     carries ``eps_fn.mega_spec`` (the eps-path weights and the
     bound geometry, for ``backend='mega'``) and ``eps_fn.mega_vmem_bytes``,
     the byte model the eligibility rule holds against ``MEGA_BUDGET``.
@@ -171,7 +173,8 @@ def make_tile_eps_fn(params: Params, cfg: DiffusionLMConfig, batch: int,
     from repro_torch.kernels.megastep import MegaSpec
     spec = MegaSpec(params={k: params[k] for k in EPS_PATH}, cfg=cfg,
                     batch=batch, seq_len=seq_len)
-    eps_fn.tile_aware = True
+    eps_fn.tile_aware = True        # tile-resident loop (backends.py)
+    eps_fn.slot_tile_aware = True   # scheduler slot layout (serving)
     eps_fn.mega_spec = spec
     eps_fn.mega_vmem_bytes = spec.vmem_bytes()
     return eps_fn

@@ -1,0 +1,7 @@
+"""The legacy fused DDIM update with external noise (B7): the CUDA kernel,
+its plain version and the Eq. 12 oracle.  No sampling path calls it; the
+sampler-step kernels (``kernels/sampler_step``) replaced it."""
+from .kernel import ddim_step_2d
+from .ref import ddim_step_ref
+
+__all__ = ["ddim_step_2d", "ddim_step_ref"]

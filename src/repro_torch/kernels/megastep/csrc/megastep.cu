@@ -1,10 +1,13 @@
-// The sampler megakernel for Hopper (sm_90a), plain-C ABI: K consecutive
+// The sampler megakernels for Hopper (sm_90a), plain-C ABI: K consecutive
 // plan steps, each the whole dense diffusion-LM eps trunk followed by the
-// Eq. 12 update, in ONE launch.
+// Eq. 12 update, in ONE launch (repro_megastep); or one continuous-batching
+// scheduler tick, the trunk with a timestep per slot followed by the
+// per-row update (repro_megastep_rows).  Both are one kernel template.
 //
-// Replaces the Pallas TPU kernel ``megastep_call`` of
-// src/repro/kernels/megastep/kernel.py:232 (bodies ``_mega_kernel``,
-// ``eps_exact`` / ``eps_flash``).  Per step and sample (all float32):
+// Replaces the Pallas TPU kernels ``megastep_call`` (B3) and
+// ``megastep_rows_call`` (B4) of src/repro/kernels/megastep/kernel.py:232
+// and :269 (bodies ``_mega_kernel`` / ``_mega_rows_kernel``, ``eps_exact``
+// / ``eps_flash``).  Per step and sample (all float32):
 //   temb = silu(sinusoid(t) @ time_w1) @ time_w2
 //   h    = x @ w_in + temb
 //   n_layers x [ xn = rmsnorm(h); q, k, v = xn @ wq, wk, wv; rope(q, k);
@@ -25,7 +28,8 @@
 // heads of 64, d_ff 1536, 2 layers), batch 4, 64 tokens is ~3.7 GFLOP
 // (2 x 256 tokens x 7.11 M eps-path weights, plus attention), so an
 // 8-step launch is ~30 GFLOP, ~0.44 ms at 67 TFLOP/s float32; reading the
-// 29.3 MB of weights once takes ~9 us at 3.35 TB/s.
+// 29.3 MB of weights once takes ~9 us at 3.35 TB/s.  A scheduler tick is
+// one such step, ~56 us at 67 TFLOP/s.
 //
 // Design (the simple one): one block of 256 threads per sample.  Every op
 // of the trunk is per sample (lockstep t, per-token products, attention
@@ -79,6 +83,8 @@ constexpr int kHD = 64;                 // head dim
 constexpr int kTK = 32;                 // depth of a product tile
 constexpr int kTN = 64;                 // width of a product tile
 constexpr int kAS = kSeq + 4;           // row stride of the k-major A tile
+constexpr int kTileC = 256;             // width of the tile view
+constexpr int kRowCoefs = 8;            // columns of a per-row coefficient row
 constexpr int kMatmulFloats = kTK * kAS + kTK * kTN;
 constexpr int kAttnFloats =
     3 * kSeq * (kHD + 1) + kSeq * kHD;  // sQ, sK, sP (+1 pads) and sV
@@ -292,7 +298,10 @@ __device__ void attention_head(const float* q, int ldq, const float* k,
   __syncthreads();  // smem is reused by the next head
 }
 
-template <bool CLIP, bool FLASH>
+// ROWS is the scheduler tick (B4): one step (K = 1), block b reads its own
+// slot's embedding temb[b], and state element i of slot b takes coefficient
+// row b * rows_per_slot + i / 256 of the (R, 8) per-row block.
+template <bool CLIP, bool FLASH, bool ROWS>
 __global__ void __launch_bounds__(kThreads)
 megastep_kernel(const float* __restrict__ x, float* __restrict__ out,
                 ReproMegaWeights w, const float* __restrict__ temb,
@@ -315,9 +324,11 @@ megastep_kernel(const float* __restrict__ x, float* __restrict__ out,
   for (int i = threadIdx.x; i < n_state; i += kThreads) sx[i] = xb[i];
   __syncthreads();
 
-  for (int step = 0; step < K; ++step) {
+  const int steps = ROWS ? 1 : K;
+  for (int step = 0; step < steps; ++step) {
     // time conditioning: th = silu(temb @ time_w1), tv = th @ time_w2
-    const float* te = temb + static_cast<long long>(step) * T;
+    const float* te =
+        temb + static_cast<long long>(ROWS ? blockIdx.x : step) * T;
     for (int j = threadIdx.x; j < T; j += kThreads) {
       float a = 0.0f;
       for (int i = 0; i < T; ++i) a = fmaf(te[i], __ldg(w.time_w1 + i * T + j), a);
@@ -362,12 +373,23 @@ megastep_kernel(const float* __restrict__ x, float* __restrict__ out,
     norm_rows(ws.h, w.out_norm, ws.xn, d, w.norm_eps);
     block_matmul<kStore>(ws.xn, d, w.w_out, L, se, L, L, d, nullptr, su);
 
-    const repro::Coefs c{coefs[step * 5 + 0], coefs[step * 5 + 1],
-                         coefs[step * 5 + 2], coefs[step * 5 + 3],
-                         coefs[step * 5 + 4]};
-    for (int i = threadIdx.x; i < n_state; i += kThreads) {
-      float x0;
-      sx[i] = repro::update<CLIP, false>(sx[i], se[i], c, clip, &x0);
+    if (ROWS) {
+      const float* cb = coefs + static_cast<long long>(blockIdx.x) *
+                                    (n_state / kTileC) * kRowCoefs;
+      for (int i = threadIdx.x; i < n_state; i += kThreads) {
+        const float* cr = cb + (i / kTileC) * kRowCoefs;
+        const repro::Coefs c{cr[0], cr[1], cr[2], cr[3], cr[4]};
+        float x0;
+        sx[i] = repro::update<CLIP, false>(sx[i], se[i], c, clip, &x0);
+      }
+    } else {
+      const repro::Coefs c{coefs[step * 5 + 0], coefs[step * 5 + 1],
+                           coefs[step * 5 + 2], coefs[step * 5 + 3],
+                           coefs[step * 5 + 4]};
+      for (int i = threadIdx.x; i < n_state; i += kThreads) {
+        float x0;
+        sx[i] = repro::update<CLIP, false>(sx[i], se[i], c, clip, &x0);
+      }
     }
     __syncthreads();
   }
@@ -380,22 +402,48 @@ bool widths_ok(const ReproMegaWeights& w) {
   return w.n_layers >= 0 && w.n_heads > 0 && w.n_kv_heads > 0 &&
          w.n_heads % w.n_kv_heads == 0 && w.d_model % kTK == 0 &&
          w.d_ff % kTK == 0 && w.latent % kTK == 0 && w.latent <= 128 &&
-         w.time_dim % 4 == 0;
+         w.time_dim % 4 == 0 && (kSeq * w.latent) % kTileC == 0;
 }
 
-template <bool CLIP, bool FLASH>
+template <bool CLIP, bool FLASH, bool ROWS>
 int launch(const float* x, float* out, const ReproMegaWeights& w,
            const float* temb, const float* rope_cos, const float* rope_sin,
            const float* coefs, int K, int batch, float clip, float* ws,
            cudaStream_t s) {
   const int bytes = (2 * kSeq * w.latent + kUnionFloats) * 4;
-  auto kern = megastep_kernel<CLIP, FLASH>;
+  auto kern = megastep_kernel<CLIP, FLASH, ROWS>;
   const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   kern<<<batch, kThreads, bytes, s>>>(x, out, w, temb, rope_cos, rope_sin,
                                       coefs, K, clip, ws);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool ROWS>
+int dispatch(const void* x, void* out, const ReproMegaWeights* w,
+             const void* temb, const void* rope_cos, const void* rope_sin,
+             const void* coefs, int K, int batch, int has_clip, float clip,
+             int flash, void* ws, void* stream) {
+  if (!widths_ok(*w) || K < 1 || batch < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* xf = static_cast<const float*>(x);
+  float* of = static_cast<float*>(out);
+  const float* tf = static_cast<const float*>(temb);
+  const float* cf = static_cast<const float*>(rope_cos);
+  const float* sf = static_cast<const float*>(rope_sin);
+  const float* kf = static_cast<const float*>(coefs);
+  float* wf = static_cast<float*>(ws);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (has_clip)
+    return flash ? launch<true, true, ROWS>(xf, of, *w, tf, cf, sf, kf, K,
+                                            batch, clip, wf, s)
+                 : launch<true, false, ROWS>(xf, of, *w, tf, cf, sf, kf, K,
+                                             batch, clip, wf, s);
+  return flash ? launch<false, true, ROWS>(xf, of, *w, tf, cf, sf, kf, K,
+                                           batch, clip, wf, s)
+               : launch<false, false, ROWS>(xf, of, *w, tf, cf, sf, kf, K,
+                                            batch, clip, wf, s);
 }
 
 }  // namespace
@@ -418,25 +466,22 @@ int repro_megastep(const void* x, void* out, const ReproMegaWeights* w,
                    const void* rope_sin, const void* coefs, int K, int batch,
                    int has_clip, float clip, int flash, void* ws,
                    void* stream) {
-  if (!widths_ok(*w) || K < 1 || batch < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const float* xf = static_cast<const float*>(x);
-  float* of = static_cast<float*>(out);
-  const float* tf = static_cast<const float*>(temb);
-  const float* cf = static_cast<const float*>(rope_cos);
-  const float* sf = static_cast<const float*>(rope_sin);
-  const float* kf = static_cast<const float*>(coefs);
-  float* wf = static_cast<float*>(ws);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (has_clip)
-    return flash ? launch<true, true>(xf, of, *w, tf, cf, sf, kf, K, batch,
-                                      clip, wf, s)
-                 : launch<true, false>(xf, of, *w, tf, cf, sf, kf, K, batch,
-                                       clip, wf, s);
-  return flash ? launch<false, true>(xf, of, *w, tf, cf, sf, kf, K, batch,
-                                     clip, wf, s)
-               : launch<false, false>(xf, of, *w, tf, cf, sf, kf, K, batch,
-                                      clip, wf, s);
+  return dispatch<false>(x, out, w, temb, rope_cos, rope_sin, coefs, K, batch,
+                         has_clip, clip, flash, ws, stream);
+}
+
+// One scheduler tick (B4, replaces megastep_rows_call of
+// src/repro/kernels/megastep/kernel.py:269): as repro_megastep with K = 1,
+// but temb is (batch, time_dim), one embedding per slot, and coefs is the
+// (R, 8) per-row block (sampler_step ops.expand_slot_coefs), R = batch * 64
+// * latent / 256.
+int repro_megastep_rows(const void* x, void* out, const ReproMegaWeights* w,
+                        const void* temb, const void* rope_cos,
+                        const void* rope_sin, const void* row_coefs,
+                        int batch, int has_clip, float clip, int flash,
+                        void* ws, void* stream) {
+  return dispatch<true>(x, out, w, temb, rope_cos, rope_sin, row_coefs, 1,
+                        batch, has_clip, clip, flash, ws, stream);
 }
 
 }  // extern "C"

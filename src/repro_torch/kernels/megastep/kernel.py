@@ -1,14 +1,20 @@
-"""Wrapper of the CUDA megakernel (``csrc/megastep.cu``).
+"""Wrappers of the CUDA megakernel (``csrc/megastep.cu``).
 
-Port of ``megastep_call`` in ``repro/kernels/megastep/kernel.py``: K
-consecutive plan steps, each the dense diffusion-LM eps trunk plus the
-Eq. 12 update, in one launch over the (R, 256) tile view.  The wrapper
-checks its inputs, computes the small constant tables the TPU kernel takes
-as hoisted constants (the K timesteps' sinusoidal embeddings and the RoPE
-cos / sin table) with the plain functions, allocates the output and the
-activation workspace with ``torch.empty``, launches on PyTorch's current
-stream and counts the launch in ``megastep_call.launches``.  On tensors
-that lie on the CPU it runs the plain version (``ref.megastep_ref``) and
+Port of the two Pallas launchers in ``repro/kernels/megastep/kernel.py``:
+
+  * ``megastep_call`` (B3): K consecutive plan steps, each the dense
+    diffusion-LM eps trunk plus the Eq. 12 update, in one launch over the
+    (R, 256) tile view (lockstep: one timestep per step).
+  * ``megastep_rows_call`` (B4): one continuous-batching scheduler tick in
+    one launch: the trunk with a timestep per slot, then the per-row
+    update, every tile row with its own coefficient row.
+
+Each wrapper checks its inputs, computes the small constant tables the TPU
+kernel takes as hoisted constants (the sinusoidal time embeddings and the
+RoPE cos / sin table) with the plain functions, allocates the output and
+the activation workspace with ``torch.empty``, launches on PyTorch's
+current stream and counts the launch in its ``launches`` attribute.  On
+tensors that lie on the CPU it runs the plain version (``ref.py``) and
 counts nothing; on a CUDA tensor it launches or raises.
 
 The kernel takes float32 state and weights, 64 tokens per sample and head
@@ -24,7 +30,7 @@ import torch
 
 from repro_torch.diffusion_lm.model import EPS_PATH, param_shapes
 from repro_torch.kernels import build
-from repro_torch.kernels.sampler_step.ref import TILE_C
+from repro_torch.kernels.sampler_step.ref import COEF_COLS, TILE_C
 from repro_torch.models.common import rope_freqs, sinusoidal_time_embedding
 
 from . import ref
@@ -73,6 +79,9 @@ def _lib() -> ctypes.CDLL:
     lib.repro_megastep.argtypes = [P, P, ctypes.POINTER(_Weights), P, P, P,
                                    P, I, I, I, F, I, P, P]
     lib.repro_megastep.restype = I
+    lib.repro_megastep_rows.argtypes = [P, P, ctypes.POINTER(_Weights), P,
+                                        P, P, P, I, I, F, I, P, P]
+    lib.repro_megastep_rows.restype = I
     return lib
 
 
@@ -104,40 +113,29 @@ def _weights(params: Dict, cfg) -> _Weights:
                     cfg.time_dim, cfg.latent_dim, a.norm_eps)
 
 
-def megastep_call(x2: torch.Tensor, params: Dict, cfg, batch: int,
-                  seq_len: int, coefs: torch.Tensor, ts: torch.Tensor, *,
-                  clip: Optional[float] = None,
-                  attn_impl: str = "exact") -> torch.Tensor:
-    """One fused K-step launch over the (R, 256) tile view.
-
-    Args:
-      x2: (R, 256) tile state that is a pure reshape of the (batch,
-        seq_len, latent) natural state (no padding rows).
-      params: the eps-path weights (``diffusion_lm.EPS_PATH`` keys).
-      coefs: (K, 5) float32 rows [c_x0, c_dir, c_noise, sqrt_a_t,
-        sqrt_1m_a_t] of the plan's table, on x2's device.
-      ts: (K,) int timesteps of those rows, on x2's device.
-      clip: |x0| bound or None (a compile-time specialization).
-      attn_impl: 'exact' | 'flash' (a compile-time specialization).
-    Returns the state after the K steps, (R, 256).
-    """
+def _check_state(x2: torch.Tensor, params: Dict, cfg, batch: int,
+                 seq_len: int, attn_impl: str) -> Dict:
+    """The layout contract of both launchers; returns the eps-path
+    weights."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                          f"{attn_impl!r}")
-    K = int(ts.shape[0])
-    if K < 1 or tuple(coefs.shape) != (K, 5):
-        raise ValueError(f"coefs must be (K, 5) for K={K} timesteps, got "
-                         f"{tuple(coefs.shape)}")
     n = batch * seq_len * cfg.latent_dim
     if x2.dim() != 2 or x2.shape[1] != TILE_C or x2.numel() != n:
         raise ValueError(
             f"x2 {tuple(x2.shape)} is not a pure reshape of the ({batch}, "
             f"{seq_len}, {cfg.latent_dim}) state; the megakernel does not "
             f"compute on padding")
-    eps_params = {k: params[k] for k in EPS_PATH}
-    if x2.device.type == "cpu":
-        return ref.megastep_ref(x2, eps_params, cfg, batch, seq_len, coefs,
-                                ts, clip=clip, attn_impl=attn_impl)
+    return {k: params[k] for k in EPS_PATH}
+
+
+def _launch(entry: str, x2: torch.Tensor, eps_params: Dict, cfg,
+            batch: int, seq_len: int, ts: torch.Tensor,
+            coefs: torch.Tensor, clip: Optional[float], attn_impl: str,
+            *count) -> torch.Tensor:
+    """Check the card-side contract, build the sinusoid / RoPE tables and
+    the workspace, and launch ``entry``; ``count`` are the leading int
+    arguments that follow the coefficient pointer (K for B3)."""
     if seq_len != KERNEL_SEQ:
         raise ValueError(f"the megakernel takes seq_len {KERNEL_SEQ}, got "
                          f"{seq_len}")
@@ -155,15 +153,85 @@ def megastep_call(x2: torch.Tensor, params: Dict, cfg, batch: int,
     out = torch.empty_like(x2)
     build.check_cuda(temb, cos, sin, c32, ws, out)
     with torch.cuda.device(dev):
-        err = lib.repro_megastep(
+        err = getattr(lib, entry)(
             x2.data_ptr(), out.data_ptr(), ctypes.byref(w), temb.data_ptr(),
-            cos.data_ptr(), sin.data_ptr(), c32.data_ptr(), K, batch,
+            cos.data_ptr(), sin.data_ptr(), c32.data_ptr(), *count, batch,
             clip is not None, 0.0 if clip is None else float(clip),
             attn_impl == "flash", ws.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
-    build.raise_on(err, "megastep_call")
+    build.raise_on(err, entry)
+    return out
+
+
+def megastep_call(x2: torch.Tensor, params: Dict, cfg, batch: int,
+                  seq_len: int, coefs: torch.Tensor, ts: torch.Tensor, *,
+                  clip: Optional[float] = None,
+                  attn_impl: str = "exact") -> torch.Tensor:
+    """One fused K-step launch over the (R, 256) tile view (B3).
+
+    Args:
+      x2: (R, 256) tile state that is a pure reshape of the (batch,
+        seq_len, latent) natural state (no padding rows).
+      params: the eps-path weights (``diffusion_lm.EPS_PATH`` keys).
+      coefs: (K, 5) float32 rows [c_x0, c_dir, c_noise, sqrt_a_t,
+        sqrt_1m_a_t] of the plan's table, on x2's device.
+      ts: (K,) int timesteps of those rows, on x2's device.
+      clip: |x0| bound or None (a compile-time specialization).
+      attn_impl: 'exact' | 'flash' (a compile-time specialization).
+    Returns the state after the K steps, (R, 256).
+    """
+    eps_params = _check_state(x2, params, cfg, batch, seq_len, attn_impl)
+    K = int(ts.shape[0])
+    if K < 1 or tuple(coefs.shape) != (K, 5):
+        raise ValueError(f"coefs must be (K, 5) for K={K} timesteps, got "
+                         f"{tuple(coefs.shape)}")
+    if x2.device.type == "cpu":
+        return ref.megastep_ref(x2, eps_params, cfg, batch, seq_len, coefs,
+                                ts, clip=clip, attn_impl=attn_impl)
+    out = _launch("repro_megastep", x2, eps_params, cfg, batch, seq_len, ts,
+                  coefs, clip, attn_impl, K)
     megastep_call.launches += 1
     return out
 
 
 megastep_call.launches = 0
+
+
+def megastep_rows_call(x2: torch.Tensor, params: Dict, cfg, batch: int,
+                       seq_len: int, row_coefs: torch.Tensor,
+                       slot_ts: torch.Tensor, *,
+                       clip: Optional[float] = None,
+                       attn_impl: str = "exact") -> torch.Tensor:
+    """One fused scheduler tick over the (R, 256) slot-tile view (B4).
+
+    Args:
+      x2: (R, 256) slot-tile state, a pure reshape of the (batch, seq_len,
+        latent) natural state (slot b owns rows [b R/batch, (b+1)
+        R/batch)).
+      params: the eps-path weights (``diffusion_lm.EPS_PATH`` keys).
+      row_coefs: (R, 8) float32 per-row [c_x0, c_dir, c_noise, sqrt_a_t,
+        sqrt_1m_a_t, pad...] (``sampler_step.ops.expand_slot_coefs``).
+      slot_ts: (batch,) int timesteps, one per slot.
+      clip, attn_impl: as for ``megastep_call``.
+    Returns the state after the tick, (R, 256).
+    """
+    eps_params = _check_state(x2, params, cfg, batch, seq_len, attn_impl)
+    R = x2.shape[0]
+    if (tuple(row_coefs.shape) != (R, COEF_COLS)
+            or row_coefs.dtype != torch.float32):
+        raise ValueError(f"row_coefs must be ({R}, {COEF_COLS}) float32, "
+                         f"got {tuple(row_coefs.shape)} {row_coefs.dtype}")
+    if tuple(slot_ts.shape) != (batch,):
+        raise ValueError(f"slot_ts must be ({batch},), got "
+                         f"{tuple(slot_ts.shape)}")
+    if x2.device.type == "cpu":
+        return ref.megastep_rows_ref(x2, eps_params, cfg, batch, seq_len,
+                                     row_coefs, slot_ts, clip=clip,
+                                     attn_impl=attn_impl)
+    out = _launch("repro_megastep_rows", x2, eps_params, cfg, batch, seq_len,
+                  slot_ts, row_coefs, clip, attn_impl)
+    megastep_rows_call.launches += 1
+    return out
+
+
+megastep_rows_call.launches = 0

@@ -1,4 +1,4 @@
-"""MegaSpec, the eligibility rule and the chunk wrapper of the megakernel
+"""MegaSpec, the eligibility rule and the wrappers of the megakernels
 (port of ``repro/kernels/megastep/ops.py``).
 
 A ``MegaSpec`` is what a tile-aware eps model attaches to itself
@@ -10,7 +10,7 @@ Eligibility (``eligible``; the plan-level half — deterministic, order 1 —
 is the backend's): the model carries a spec, the state has the spec's
 shape, and weights + activations + state fit ``MEGA_BUDGET`` under the
 JAX package's byte model (``vmem_bytes``, unchanged).  Anything else runs
-the 'tile_resident' backend.
+the 'tile_resident' backend, or the scheduler's unfused tick.
 """
 from __future__ import annotations
 
@@ -115,3 +115,11 @@ def megastep_tiles(x2: torch.Tensor, spec: MegaSpec, coefs: torch.Tensor,
     return _k.megastep_call(x2, spec.params, spec.cfg, spec.batch,
                             spec.seq_len, coefs, ts, clip=clip,
                             attn_impl=spec.attn_impl)
+
+
+def megastep_rows(x2: torch.Tensor, spec: MegaSpec, row_coefs: torch.Tensor,
+                  slot_ts: torch.Tensor, *, clip=None) -> torch.Tensor:
+    """One fused scheduler tick (per-slot t, per-row coefficients)."""
+    return _k.megastep_rows_call(x2, spec.params, spec.cfg, spec.batch,
+                                 spec.seq_len, row_coefs, slot_ts,
+                                 clip=clip, attn_impl=spec.attn_impl)

@@ -1,11 +1,13 @@
-"""Plain PyTorch version of the megastep kernel (port of
+"""Plain PyTorch versions of the megastep kernels (port of
 ``repro/kernels/megastep/ref.py`` and of ``eps_exact`` / ``eps_flash`` in
 its ``kernel.py``).
 
-The CPU path of ``kernel.megastep_call`` and the yardstick the CUDA kernel
-(``csrc/megastep.cu``) is held against on the card: per fused step, the
-eps trunk on the natural (batch, seq_len, latent) view of the tile state,
-then the sampler step body ``sampler_step/ref.update``.
+The CPU path of ``kernel.megastep_call`` / ``kernel.megastep_rows_call``
+and the yardstick the CUDA kernels (``csrc/megastep.cu``) are held against
+on the card: per fused step, the eps trunk on the natural (batch, seq_len,
+latent) view of the tile state, then the sampler step body
+``sampler_step/ref.update`` (scalar coefficients for B3, one coefficient
+row per tile row for B4).
 
   * 'exact' is ``diffusion_lm.eps_forward`` itself, so on the CPU a mega
     run equals the 'tile_resident' loop bit for bit (same eps, same update
@@ -94,3 +96,19 @@ def megastep_ref(x2: torch.Tensor, params, cfg, batch: int, seq_len: int,
             x = update(x.float(), e2.float(), c[k, 0], c[k, 1], c[k, 3],
                        c[k, 4], clip)[1].to(x.dtype)
     return x
+
+
+def megastep_rows_ref(x2: torch.Tensor, params, cfg, batch: int,
+                      seq_len: int, row_coefs: torch.Tensor,
+                      slot_ts: torch.Tensor, *, clip=None,
+                      attn_impl: str = "exact") -> torch.Tensor:
+    """One fused scheduler tick over the (R, C) slot-tile view: the trunk
+    at each slot's timestep ``slot_ts`` (batch,), then the per-row update
+    with ``row_coefs`` (R, 8) — the arithmetic of the per-row sampler-step
+    kernel's deterministic body without the x0 output."""
+    c = torch.as_tensor(row_coefs, dtype=torch.float32).to(x2.device)
+    with torch.no_grad():
+        e2 = EPS_BODIES[attn_impl](params, cfg, batch, seq_len, x2, slot_ts)
+        out = update(x2.float(), e2.float(), c[:, 0:1], c[:, 1:2],
+                     c[:, 3:4], c[:, 4:5], clip)[1]
+    return out.to(x2.dtype)

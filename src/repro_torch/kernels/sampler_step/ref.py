@@ -77,6 +77,17 @@ def fmix32(h: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
+def fmix32_u32(h: np.ndarray) -> np.ndarray:
+    """murmur3 finalizer on numpy uint32 arrays (host-side seed streams,
+    e.g. the scheduler's per-slot per-tick seeds); equals ``fmix32``."""
+    h = np.asarray(h, np.uint32)
+    h = h ^ (h >> np.uint32(16))
+    h = h * np.uint32(0x85EBCA6B)
+    h = h ^ (h >> np.uint32(13))
+    h = h * np.uint32(0xC2B2AE35)
+    return h ^ (h >> np.uint32(16))
+
+
 def _bits(ctr: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
     """The counter stream: fmix32((ctr ^ key) * GOLDEN + key)."""
     return fmix32((_mul32(ctr ^ key, GOLDEN) + key) & MASK32)
@@ -92,10 +103,25 @@ def sw_random_bits_rows(row_seeds: torch.Tensor, col0: int, salt_id: int,
 
 
 def bits_to_normal(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """Box–Muller: two uint32 draws -> one standard-normal float32."""
+    """Box–Muller: two uint32 draws -> one standard-normal float32.
+
+    On a CUDA tensor log and cos are PyTorch's float32 ops, the libm the
+    CUDA kernels call.  On the CPU they are numpy's float64 log / cos
+    rounded to float32: PyTorch's float32 CPU log / cos can take more than
+    one code path for the same element within a process (a few thousand
+    of 65,536 normals came out ~5e-5 off in one run of two), so the CPU
+    value is the path-independent, correctly rounded one."""
     u1 = ((b1 >> 8).to(torch.float32) + 0.5) * _INV_2_24
     u2 = (b2 >> 8).to(torch.float32) * _INV_2_24
-    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI_F32 * u2)
+    arg = _TWO_PI_F32 * u2
+    if u1.device.type == "cpu":
+        lg = torch.from_numpy(
+            np.log(u1.numpy().astype(np.float64)).astype(np.float32))
+        cs = torch.from_numpy(
+            np.cos(arg.numpy().astype(np.float64)).astype(np.float32))
+    else:
+        lg, cs = torch.log(u1), torch.cos(arg)
+    return torch.sqrt(-2.0 * lg) * cs
 
 
 def tile_bits(seed: int, R: int, salt_id: int, device=None) -> torch.Tensor:

@@ -10,8 +10,10 @@ one ``sampler_step_2d`` CUDA launch per step; otherwise the plain eager
 loop.  The state dtype may be bfloat16 while every coefficient stays
 float32 (the kernels compute in float32 and cast on store).
 
-Not ported yet: ``ARGenerator``, the plan bank / ``"auto"`` plans, the
-legacy ``SamplerConfig`` adapter, buffer donation and ``continuous()``.
+``continuous()`` builds the continuous-batching scheduler
+(``serving/scheduler``) over the same model.  Not ported yet:
+``ARGenerator``, the plan bank / ``"auto"`` plans, the legacy
+``SamplerConfig`` adapter and buffer donation.
 """
 from __future__ import annotations
 
@@ -127,3 +129,17 @@ class DiffusionSampler:
             "net_evals_per_sample": plan.S,
             "dtype": dtype_name,
         }
+
+    def continuous(self, slots: Optional[int] = None, **kw):
+        """Build the continuous-batching engine over this service's model:
+        the same schedule, eps model, sample shape, dtype and device, but
+        requests carry their OWN plan and seed, are admitted mid-flight
+        into resident slots, and never wait on a batchmate's longer
+        trajectory.  Keyword args pass through to
+        ``ContinuousBatchingEngine`` (stochastic, clip_x0, preview,
+        max_order, max_queue, use_mega, ...)."""
+        from .scheduler import ContinuousBatchingEngine
+        return ContinuousBatchingEngine(
+            self.schedule, self.eps_fn, self.shape,
+            slots=slots or self.batch, dtype=self.dtype,
+            device=kw.pop("device", self.device), **kw)

@@ -40,11 +40,13 @@ def test_headers_are_hashed_for_every_source():
     assert {"step_update.cuh", "rmsnorm_body.cuh",
             "online_softmax.cuh"} <= names
     assert set(build.sources()) == {"sampler_step", "rmsnorm",
-                                    "flash_attention", "megastep"}
+                                    "flash_attention", "megastep",
+                                    "ddim_step"}
 
 
 @pytest.mark.parametrize("name", ["sampler_step", "rmsnorm",
-                                  "flash_attention", "megastep"])
+                                  "flash_attention", "megastep",
+                                  "ddim_step"])
 def test_includes_resolve_under_the_include_dir(name):
     """nvcc gets ``-I kernels/``; every quoted include names a header of
     the package, so the hash covers what the build reads."""
@@ -52,6 +54,6 @@ def test_includes_resolve_under_the_include_dir(name):
     assert ("-I", str(kernels)) == build.NVCC_FLAGS[-2:]
     text = build.sources()[name].read_text()
     incs = re.findall(r'#include "([^"]+)"', text)
-    assert name == "sampler_step" or incs
+    assert name in ("sampler_step", "ddim_step") or incs
     for inc in incs:
         assert (kernels / inc) in build.headers(), inc

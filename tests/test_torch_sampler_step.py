@@ -7,7 +7,8 @@ Tolerances:
   * Deterministic steps in float32 (no clip, clip, want_x0): bitwise — the
     plain version emulates the FMAs XLA:CPU contracts the kernel body into.
   * Stochastic steps: 4 float32 ulps of max|out| — Box–Muller's log/cos
-    are PyTorch's, not XLA's (measured: at most 1 ulp of max|z| apart).
+    are correctly rounded float64 libm values on the CPU, not XLA's float32
+    ones (measured: at most 1 ulp of max|z| apart).
   * bfloat16 state: 1 bfloat16 ulp of max|out| (a float32 difference of
     an ulp can flip one rounding to bfloat16).
 """
@@ -92,6 +93,9 @@ def test_sw_random_bits_rows_bitwise(R):
 
 
 def test_bits_to_normal_within_two_ulps():
+    """The CPU plain version's normals (float64 log / cos rounded to
+    float32, independent of PyTorch's CPU code paths) stay within 2 float32
+    ulps of max|z| of XLA's float32 Box–Muller, on every run."""
     b1 = jk.sw_random_bits(np.int32(-12345), 3, 1, (256, 256))
     b2 = jk.sw_random_bits(np.int32(-12345), 3, 2, (256, 256))
     want = np.asarray(jk.bits_to_normal(b1, b2))
