@@ -87,10 +87,11 @@ BATCH = 8
 KERNEL_SOURCE = "src/repro_torch/kernels/sampler_step/csrc/sampler_step.cu"
 TPU_KERNEL = "src/repro/kernels/sampler_step/kernel.py"
 DLM_BATCH, DLM_SEQ, DLM_S, DLM_K = 4, 64, 20, 8
-# name -> (source, the TPU kernel's function file:line) of this slice
 SCHED_SLOTS = 8
+SCHED_VS_EAGER_TOL = 1e-5      # of max|x|, scheduler eta=0 vs a lone eager run
 DLM_SCHED_S = (10, 20)
 B7_COEFS = (0.93, 0.31, 0.27, 0.61, 0.79)
+# name -> (source, the TPU kernel's function file:line) of the DLM slice
 DLM_KERNELS = {
     "megastep_call": ("src/repro_torch/kernels/megastep/csrc/megastep.cu",
                       "src/repro/kernels/megastep/kernel.py:232"),
@@ -916,7 +917,9 @@ def _counts():
 def phase_main_sched(model):
     """The continuous-batching scheduler at CIFAR10 width, counted: mixed
     plans admitted mid-flight, previews, deadlines expiring in the queue;
-    every eta=0 result against a lone eager run of the same x_T."""
+    every eta=0 result against a lone eager run of the same x_T, within
+    SCHED_VS_EAGER_TOL of max|x| (measured 8.8e-7 on an H100: the
+    batch-8 and batch-1 forwards may take other cuDNN algorithms)."""
     from repro_torch.core.schedules import make_schedule
     from repro_torch.kernels.sampler_step import ops as sops
     from repro_torch.models.unet import make_eps_fn
@@ -999,8 +1002,9 @@ def phase_main_sched(model):
         worst = max(worst, rel)
     print(f"[main] scheduler eta=0 x0 vs lone plan.run(backend='eager') of "
           f"the same x_T, 12 requests (S 10/20/50, order 1/2): worst "
-          f"max|d|/max|x| = {worst:.3e} (tol 1e-3)")
-    check(worst <= 1e-3, f"scheduler vs lone eager: {worst} > 1e-3")
+          f"max|d|/max|x| = {worst:.3e} (tol {SCHED_VS_EAGER_TOL:g})")
+    check(worst <= SCHED_VS_EAGER_TOL,
+          f"scheduler vs lone eager: {worst} > {SCHED_VS_EAGER_TOL:g}")
     return counts, eng
 
 

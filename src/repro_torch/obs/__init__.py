@@ -1,12 +1,10 @@
 """Serving telemetry, host side only (port of part of ``repro.obs``): the
-metrics registry behind the scheduler's ``stats()`` and per-request trace
-spans.  Probes, the flight recorder, profiling annotations, dashboards
-and the frozen stats schemas are not ported yet."""
+counters behind the scheduler's ``stats()`` and per-request trace spans.
+Gauges, histograms, probes, the flight recorder, profiling annotations,
+dashboards and the frozen stats schemas are not ported yet."""
 from .core import Observability
-from .registry import (Counter, Gauge, Histogram, LATENCY_BUCKETS_S,
-                       MetricsRegistry, SLACK_BUCKETS_S)
+from .registry import Counter, MetricsRegistry
 from .trace import ListSink, TraceContext, Tracer, plan_digest
 
-__all__ = ["Observability", "MetricsRegistry", "Counter", "Gauge",
-           "Histogram", "LATENCY_BUCKETS_S", "SLACK_BUCKETS_S", "Tracer",
+__all__ = ["Observability", "MetricsRegistry", "Counter", "Tracer",
            "TraceContext", "ListSink", "plan_digest"]

@@ -1,28 +1,16 @@
-"""Metrics registry: host-side counters, gauges and fixed-bucket histograms.
+"""Metrics registry: host-side counters.
 
-Port of the part of ``repro/obs/registry.py`` that the scheduler and its
-admission queue call.  Every instrument is plain host-side Python/numpy
-state, so instrumenting the tick loop adds no device work.  Instruments
-are identified by (name, sorted label pairs); the engine's ``stats()``
-dict is a view over them.  The Prometheus exporter and the percentile
-estimate wait with the rest of the serving stack (ROADMAP item 9).
+Port of the part of ``repro/obs/registry.py`` that the scheduler's
+``stats()`` reads.  Every instrument is plain host-side Python state, so
+instrumenting the tick loop adds no device work.  Instruments are
+identified by (name, sorted label pairs); the engine's ``stats()`` dict is
+a view over them.  The gauges, the histograms with their bucket ladders,
+the Prometheus exporter and the percentile estimate wait with the rest of
+the serving stack (ROADMAP item 9).
 """
 from __future__ import annotations
 
-from bisect import bisect_left
-from typing import Dict, List, Sequence, Tuple
-
-import numpy as np
-
-# default latency bucket ladder (seconds): ~geometric, 100us .. 60s
-LATENCY_BUCKETS_S: Tuple[float, ...] = (
-    1e-4, 2.5e-4, 5e-4, 1e-3, 2.5e-3, 5e-3, 1e-2, 2.5e-2, 5e-2,
-    0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0)
-
-# signed buckets for deadline slack (negative = finished past deadline)
-SLACK_BUCKETS_S: Tuple[float, ...] = (
-    -30.0, -10.0, -5.0, -1.0, -0.5, -0.1, -0.01, 0.0,
-    0.01, 0.1, 0.5, 1.0, 5.0, 10.0, 30.0)
+from typing import Dict, List, Tuple
 
 LabelKey = Tuple[Tuple[str, str], ...]
 
@@ -30,13 +18,12 @@ LabelKey = Tuple[Tuple[str, str], ...]
 class Counter:
     """Monotonic counter (floats allowed, e.g. accumulated wall seconds)."""
 
-    __slots__ = ("name", "labels", "value")
+    __slots__ = ("name", "labels", "help", "value")
 
-    kind = "counter"
-
-    def __init__(self, name: str, labels: LabelKey = ()):
+    def __init__(self, name: str, labels: LabelKey = (), help: str = ""):
         self.name = name
         self.labels = labels
+        self.help = help
         self.value = 0
 
     def inc(self, n=1) -> None:
@@ -46,91 +33,18 @@ class Counter:
         self.value = 0
 
 
-class Gauge:
-    """Last-value instrument (queue depth, occupancy, EWMA mirrors)."""
-
-    __slots__ = ("name", "labels", "value")
-
-    kind = "gauge"
-
-    def __init__(self, name: str, labels: LabelKey = ()):
-        self.name = name
-        self.labels = labels
-        self.value = 0.0
-
-    def set(self, v) -> None:
-        self.value = float(v)
-
-    def reset(self) -> None:
-        self.value = 0.0
-
-
-class Histogram:
-    """Fixed-bucket histogram: counts per bucket + running sum/count.
-
-    ``edges`` are ascending upper bounds; an implicit +Inf bucket catches
-    the overflow.
-    """
-
-    __slots__ = ("name", "labels", "edges", "counts", "sum", "count")
-
-    kind = "histogram"
-
-    def __init__(self, name: str, labels: LabelKey = (),
-                 edges: Sequence[float] = LATENCY_BUCKETS_S):
-        edges = tuple(float(e) for e in edges)
-        if not edges or any(b <= a for a, b in zip(edges, edges[1:])):
-            raise ValueError(f"{name}: histogram edges must be non-empty "
-                             f"and strictly ascending, got {edges}")
-        self.name = name
-        self.labels = labels
-        self.edges = edges
-        self.counts = np.zeros(len(edges) + 1, np.int64)
-        self.sum = 0.0
-        self.count = 0
-
-    def observe(self, v: float) -> None:
-        self.counts[bisect_left(self.edges, v)] += 1
-        self.sum += v
-        self.count += 1
-
-    def reset(self) -> None:
-        self.counts[:] = 0
-        self.sum = 0.0
-        self.count = 0
-
-
 class MetricsRegistry:
-    """Get-or-create instrument store with one kind per name."""
+    """Get-or-create counter store."""
 
     def __init__(self):
-        self._instruments: Dict[Tuple[str, LabelKey], object] = {}
-        self._meta: Dict[str, Tuple[str, str]] = {}   # name -> (kind, help)
+        self._instruments: Dict[Tuple[str, LabelKey], Counter] = {}
 
-    def _get(self, cls, name: str, help_: str, labels: Dict, **kw):
+    def counter(self, name: str, help: str = "", **labels) -> Counter:
         key = (name, tuple(sorted((k, str(v)) for k, v in labels.items())))
         inst = self._instruments.get(key)
         if inst is None:
-            meta = self._meta.get(name)
-            if meta is not None and meta[0] != cls.kind:
-                raise ValueError(f"instrument {name!r} already registered "
-                                 f"as a {meta[0]}, not a {cls.kind}")
-            if meta is None or (not meta[1] and help_):
-                self._meta[name] = (cls.kind, help_)
-            inst = cls(name, key[1], **kw)
-            self._instruments[key] = inst
+            inst = self._instruments[key] = Counter(name, key[1], help)
         return inst
 
-    def counter(self, name: str, help: str = "", **labels) -> Counter:
-        return self._get(Counter, name, help, labels)
-
-    def gauge(self, name: str, help: str = "", **labels) -> Gauge:
-        return self._get(Gauge, name, help, labels)
-
-    def histogram(self, name: str, help: str = "",
-                  edges: Sequence[float] = LATENCY_BUCKETS_S,
-                  **labels) -> Histogram:
-        return self._get(Histogram, name, help, labels, edges=edges)
-
-    def instruments(self) -> List[object]:
+    def instruments(self) -> List[Counter]:
         return [self._instruments[k] for k in sorted(self._instruments)]

@@ -50,7 +50,6 @@ from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.kernels.sampler_step import ops as tile_ops
 from repro_torch.kernels.sampler_step.ref import GOLDEN, fmix32_u32
 from repro_torch.obs import Observability
-from repro_torch.obs.registry import SLACK_BUCKETS_S
 from repro_torch.obs.trace import plan_digest as _plan_digest
 from repro_torch.sampling import SamplerPlan
 from repro_torch.sampling.plan import _schedule_digest
@@ -60,6 +59,7 @@ from .queue import AdmissionQueue
 from .request import SampleRequest, SampleResult, SlotCheckpoint
 
 _COEFS = ("c_x0", "c_dir", "c_noise", "sqrt_a_t", "sqrt_1m_a_t")
+_TICK_EWMA_ALPHA = 0.2   # smoothing of the per-tick latency EWMA
 
 
 def _not_ported(what: str, where: str) -> NotImplementedError:
@@ -107,13 +107,11 @@ class ContinuousBatchingEngine:
         ``mega_spec`` eligible for (slots, *sample_shape)); True raises
         with the reason when it does not hold; False forces the unfused
         tick.
-      tick_ewma_alpha: smoothing of the per-tick latency EWMA.
       pool_id: identity stamped on stats and results.
       obs: an ``obs.Observability``; None builds a private, sink-less one.
       device: where the engine runs; None is the CUDA card.
       plan_bank, eps_params, mesh, probes, flight: not ported yet;
-        anything but None raises.  select_margin (the plan bank's) is
-        accepted and unused.
+        anything but None raises.
     """
 
     def __init__(self, schedule: NoiseSchedule, eps_fn: Callable,
@@ -125,8 +123,7 @@ class ContinuousBatchingEngine:
                  eps_params=None,
                  max_queue: Optional[int] = None,
                  use_mega: Optional[bool] = None,
-                 plan_bank=None, select_margin: float = 0.9,
-                 tick_ewma_alpha: float = 0.2,
+                 plan_bank=None,
                  mesh=None, pool_id: Optional[int] = None,
                  obs: Optional[Observability] = None,
                  probes=None, flight=None,
@@ -153,7 +150,6 @@ class ContinuousBatchingEngine:
         self.clip_x0 = clip_x0
         self.preview = preview
         self.max_order = int(max_order)
-        self.tick_ewma_alpha = float(tick_ewma_alpha)
         self.tick_ewma_s: Optional[float] = None
         self.pool_id = pool_id
         self.use_mega = self._resolve_mega(use_mega)
@@ -188,25 +184,6 @@ class ContinuousBatchingEngine:
         self._c_wall = reg.counter(
             "engine_tick_wall_seconds",
             "accumulated wall time inside the tick")
-        self._g_active = reg.gauge(
-            "engine_active_slots", "resident requests after the last tick")
-        self._g_ewma = reg.gauge(
-            "engine_tick_ewma_seconds",
-            "EWMA per-tick latency (the first tick excluded)")
-        self._h_tick = reg.histogram(
-            "engine_tick_seconds",
-            "per-tick wall latency (the first tick excluded)")
-        self._h_wait = reg.histogram(
-            "engine_queue_wait_seconds", "submit -> admit queue wait")
-        self._h_service = reg.histogram(
-            "engine_service_seconds", "admit -> retire service time")
-        self._h_latency = reg.histogram(
-            "engine_request_latency_seconds",
-            "submit -> retire end-to-end latency")
-        self._h_slack = reg.histogram(
-            "engine_deadline_slack_seconds",
-            "deadline - finish at retirement (negative = missed)",
-            edges=SLACK_BUCKETS_S)
         self._n = int(np.prod(self.shape))
         self._rps = tile_ops.slot_rows(self.shape)
         self._tile_c = tile_ops.TILE_C
@@ -437,10 +414,10 @@ class ContinuousBatchingEngine:
                 slot.k = int(ck.k)
                 slot.previews = int(ck.previews)
                 self._c_resumed.inc()
-            wait = (now - req.submit_t if req.submit_t is not None else 0.0)
-            self._h_wait.observe(wait)
             ctx = req.trace
             if ctx is not None:
+                wait = (now - req.submit_t if req.submit_t is not None
+                        else 0.0)
                 if self.pool_id is not None:
                     ctx.pool_id = self.pool_id
                 if ctx.nfe is None:
@@ -556,7 +533,6 @@ class ContinuousBatchingEngine:
                 out.append(slot.req)
                 self._slots[b] = None
                 self._free.append(b)
-        self._g_active.set(self.active)
         return out
 
     def cancel(self, request_id, now: Optional[float] = None) -> bool:
@@ -567,7 +543,6 @@ class ContinuousBatchingEngine:
             if slot is not None and slot.req.request_id == request_id:
                 self._slots[b] = None
                 self._free.append(b)
-                self._g_active.set(self.active)
                 self._c_cancelled.inc()
                 if slot.req.trace is not None:
                     slot.req.trace.emit("cancel", now, k=slot.k)
@@ -617,14 +592,12 @@ class ContinuousBatchingEngine:
         # EWMA per-step tick latency; the first tick (kernel builds, library
         # set-up) is excluded, as JAX excludes its compile ticks
         if self._ticked:
-            self._h_tick.observe(t1 - t0)
             if self.tick_ewma_s is None:
                 self.tick_ewma_s = t1 - t0
             else:
-                a = self.tick_ewma_alpha
+                a = _TICK_EWMA_ALPHA
                 self.tick_ewma_s = (a * (t1 - t0)
                                     + (1.0 - a) * self.tick_ewma_s)
-            self._g_ewma.set(self.tick_ewma_s)
         self._ticked = True
         if wall:
             now = t1
@@ -652,18 +625,12 @@ class ContinuousBatchingEngine:
                 self._c_completed.inc()
                 if missed:
                     self._c_miss.inc()
-                service = now - slot.admit_t
-                self._h_service.observe(service)
-                if req.submit_t is not None:
-                    self._h_latency.observe(now - req.submit_t)
-                if req.deadline is not None:
-                    self._h_slack.observe(req.deadline - now)
                 if req.trace is not None:
-                    req.trace.emit("retire", now, service_s=service,
+                    req.trace.emit("retire", now,
+                                   service_s=now - slot.admit_t,
                                    missed=True if missed else None)
                 self._slots[b] = None
                 self._free.append(b)
-        self._g_active.set(self.active)
         return results
 
     def run(self, max_ticks: Optional[int] = None,
@@ -694,10 +661,10 @@ class ContinuousBatchingEngine:
 
     def reset_stats(self) -> None:
         """Zero the throughput instruments (e.g. after a warm-up), keeping
-        ``compiled_ticks``, the measured ``tick_ewma_s`` and the gauges;
-        the queue's own counters are untouched."""
+        ``compiled_ticks`` and the measured ``tick_ewma_s``; the queue's
+        own counters are untouched."""
         for inst in self.obs.registry.instruments():
-            if (inst.name.startswith("engine_") and inst.kind != "gauge"
+            if (inst.name.startswith("engine_")
                     and inst.name != "engine_compiled_ticks_total"):
                 inst.reset()
 

@@ -6,9 +6,9 @@ FIFO among themselves), an optional depth bound for back-pressure, and
 expiry at pop time: a request whose deadline has passed is never admitted
 to a slot; it comes back to the engine as a dropped miss.  ``pop`` takes a
 ``select`` hook run on the request it is about to return.  The
-submitted / rejected / expired counters and the depth gauge are registry
-instruments of the owning tier's ``Observability``; the queue emits the
-``reject`` and ``expire`` span events.
+submitted / rejected / expired counters are registry instruments of the
+owning tier's ``Observability``; the queue emits the ``reject`` and
+``expire`` span events.
 """
 from __future__ import annotations
 
@@ -38,8 +38,6 @@ class AdmissionQueue:
             "queue_rejected_total", "submissions refused at the depth bound")
         self._c_expired = reg.counter(
             "queue_expired_total", "requests expired un-served at pop")
-        self._g_depth = reg.gauge(
-            "queue_depth", "current admission-queue depth")
 
     @property
     def submitted(self) -> int:
@@ -59,7 +57,6 @@ class AdmissionQueue:
     def _push(self, req: SampleRequest) -> None:
         key = req.deadline if req.deadline is not None else math.inf
         heapq.heappush(self._heap, (key, next(self._seq), req))
-        self._g_depth.set(len(self._heap))
 
     def submit(self, req: SampleRequest, now: float) -> bool:
         """Enqueue; False means rejected for depth (back-pressure)."""
@@ -97,7 +94,6 @@ class AdmissionQueue:
                 select(req, now)
             out = req
             break
-        self._g_depth.set(len(self._heap))
         return out, missed
 
     def remove_if(self, pred: Callable[[SampleRequest], bool]
@@ -111,7 +107,6 @@ class AdmissionQueue:
         if removed:
             heapq.heapify(kept)
             self._heap = kept
-            self._g_depth.set(len(kept))
         return [r for _, _, r in sorted(removed, key=lambda e: e[:2])]
 
     def pending_requests(self) -> List[SampleRequest]:
@@ -122,5 +117,4 @@ class AdmissionQueue:
         """Remove and return every queued request (EDF order)."""
         out = self.pending_requests()
         self._heap.clear()
-        self._g_depth.set(0)
         return out
