@@ -20,7 +20,9 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               (smollm width, 2 layers, batch 4 x 64 tokens) over
               exact/flash x clip none/1.0 x K {1, 8}; B4 megastep_rows_call
               at the same shape (every slot its own t and coefficient row,
-              one idle slot) over exact/flash x clip none/1.0; B7
+              one idle slot) over exact/flash x clip none/1.0; each of the
+              8 megakernel instantiations launched twice on the same
+              inputs must give the same bits; B7
               ddim_step_2d over f32/bf16 x R {256, 1024}, C = 256
   4. main     each path with the launch counters zeroed just before it and
               read just after:
@@ -53,9 +55,13 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               serve and from generate on 'mega' and 'tile_resident';
               torch.profiler breakdowns of one steady serve batch and of
               one generate call on each of the two backends; B4 per tick,
-              B7, the unfused rows tick at the DLM shape; the scheduler
-              engines' steady slot-steps/s, and a profile (device idle
-              share) of one steady tick of each engine
+              B7, the unfused rows tick at the DLM shape; B3 and B4 must
+              take less device time than the unfused path of the same
+              work, and print their grid, blocks per SM, grid barriers per
+              step and a per-phase trace of one launch; the scheduler
+              engines' steady slot-steps/s, a profile (device idle share)
+              of one steady tick of each engine, and the host time of each
+              piece of the mega tick's work before B4
 
 Any failure raises and the script exits nonzero with no result line.  On
 success the second-to-last line is the kernels' JSON record and the last
@@ -519,6 +525,16 @@ def _check_rel(errs, name, got, want, rel_tol) -> None:
     errs.append(err)
 
 
+def _check_repeat(name, first, second) -> None:
+    """A second launch on the same inputs gives the same bits (split-K
+    partials are summed in a fixed order; no sum uses atomics)."""
+    torch.cuda.synchronize()
+    same = torch.equal(first, second)
+    print(f"[kernels] {name:<44} second launch bitwise equal: "
+          f"{'ok' if same else 'FAIL'}")
+    check(same, f"{name}: two launches on the same inputs differ")
+
+
 def phase_kernels_dlm(params2):
     """B6, B5 and B3 against their plain versions on the card."""
     from repro_torch.configs import DLM_SMOLLM_MEGA
@@ -569,6 +585,10 @@ def phase_kernels_dlm(params2):
                 want = mref.megastep_ref(*args, clip=clip, attn_impl=impl)
                 _check_rel(errs["megastep_call"],
                            f"B3 {impl} clip={clip} K={K}", got, want, 1e-4)
+                if K == DLM_K:
+                    _check_repeat(f"B3 {impl} clip={clip} K={K}", got,
+                                  mk.megastep_call(*args, clip=clip,
+                                                   attn_impl=impl))
     torch.cuda.synchronize()
     return {k: max(v) for k, v in errs.items()}
 
@@ -705,9 +725,74 @@ def _bound(n_bytes: float, n_ops: float):
 def _time_line(smi, label, rec):
     lib = ("none" if rec["library_ms"] is None
            else f"{rec['library_ms'] * 1e3:.2f} us")
+    grid = (f"; grid {rec['grid']} blocks ({rec['blocks_per_sm']} per SM), "
+            f"{rec['barriers_per_step']} grid barriers per step"
+            if "grid" in rec else "")
     print(f"[times] {smi} | {label}: kernel {rec['ms'] * 1e3:.2f} us "
-          f"(graph), plain {rec['plain_ms'] * 1e3:.2f} us, library {lib}, "
-          f"bound {rec['bound_ms'] * 1e3:.3f} us ({rec['bound_by']})")
+          f"({rec.get('timed_by', 'graph')}), plain "
+          f"{rec['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
+          f"{rec['bound_ms'] * 1e3:.3f} us ({rec['bound_by']}), "
+          f"{rec['bound_ms'] / rec['ms']:.3f} of it{grid}")
+
+
+def _record(name, where, launches, err, rec):
+    """One kernel's entry of the kernels JSON line (with the launch plan
+    for the megakernels)."""
+    return {"name": name, "route": "cuda", "source": where[0],
+            "replaces": where[1], "launches": launches, "max_abs_err": err,
+            **rec}
+
+
+def _plan_keys(plan):
+    """The launch plan of a megakernel launch, as kept in its record."""
+    return {k: plan[k] for k in ("grid", "blocks_per_sm", "barriers_per_step",
+                                 "split_wo", "split_down", "split_out")}
+
+
+def _mega_timer(fn):
+    """(timer, how): graph_ms when a CUDA graph captures the cooperative
+    megakernel launch, else loop_ms, for the megakernel and for the
+    unfused path it is held against alike (never one of each)."""
+    try:
+        graph_ms(fn, iters=1, reps=1)
+        return graph_ms, "graph"
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        print(f"[times] CUDA graph capture of the cooperative launch refused "
+              f"({e}); the megakernels and the unfused paths are timed by "
+              f"loop_ms")
+        return (lambda f, iters, reps: loop_ms(f, iters=iters * reps)), "loop"
+
+
+MEGA_PHASES = ("qkv", "attn", "wo", "mlp", "down")
+
+
+def _phase_trace(smi, label, wrapper, fn, steps, n_layers):
+    """Device time of each phase of one launch, from the kernel's
+    %globaltimer stamps (block 0, after each grid barrier): the time MLP,
+    then per step w_in, per layer qkv / attn / wo / mlp / down, and out
+    (the last step's out is block 0's alone: no barrier follows it)."""
+    wrapper.trace = torch.zeros(2 + steps * (2 + 5 * n_layers),
+                                dtype=torch.int64, device="cuda")
+    try:
+        fn()
+        fn()
+        torch.cuda.synchronize()
+        st = wrapper.trace.tolist()
+    finally:
+        wrapper.trace = None
+    us = [(b - a) / 1e3 for a, b in zip(st, st[1:])]
+    names = ["time"] + (["w_in"] + [f"L{i} {n}" for i in range(n_layers)
+                                    for n in MEGA_PHASES] + ["out"]) * steps
+    kinds = {}
+    for name, t in zip(names[1:], us[1:]):
+        kinds.setdefault(name.split()[-1], []).append(t)
+    mean = ", ".join(f"{k} {sum(v) / len(v):.1f}" for k, v in kinds.items())
+    step0 = ", ".join(f"{n} {t:.1f}" for n, t in
+                      zip(names[:3 + 5 * n_layers], us))
+    print(f"[trace] {smi} | {label}: {(st[-1] - st[0]) / 1e3:.1f} us in "
+          f"{len(us)} phases; step 0 (us): {step0}; mean per phase kind "
+          f"(us): {mean}")
 
 
 def phase_times_dlm(smi, params2, errs, b3_launches, ops_launches):
@@ -769,17 +854,22 @@ def phase_times_dlm(smi, params2, errs, b3_launches, ops_launches):
     b_ms, b_by = _bound(n_bytes, mega_ops(cfg, DLM_BATCH, DLM_SEQ, DLM_K))
     args = (x2, params2, cfg, DLM_BATCH, DLM_SEQ, coefs[:DLM_K],
             ts[:DLM_K])
+    timer, how = _mega_timer(lambda: mk.megastep_call(*args))
     for impl in ("exact", "flash"):
         rec = dict(
-            ms=graph_ms(lambda: mk.megastep_call(*args, attn_impl=impl),
-                        iters=3, reps=2),
-            plain_ms=graph_ms(lambda: mref.megastep_ref(
+            ms=timer(lambda: mk.megastep_call(*args, attn_impl=impl),
+                     iters=3, reps=2),
+            plain_ms=timer(lambda: mref.megastep_ref(
                 *args, attn_impl=impl), iters=3, reps=2),
             library_ms=None, bound_ms=b_ms, bound_by=b_by,
             shape=f"{cfg.arch.name} batch {DLM_BATCH} x {DLM_SEQ}, K="
-                  f"{DLM_K}, {impl}")
+                  f"{DLM_K}, {impl}", timed_by=how,
+            **_plan_keys(mk.megastep_call.last_plan))
         _time_line(smi, f"B3 megastep_call {rec['shape']}", rec)
         recs.setdefault("megastep_call", rec)
+    _phase_trace(smi, f"B3 megastep_call {cfg.arch.name} K={DLM_K} exact",
+                 mk.megastep_call, lambda: mk.megastep_call(*args), DLM_K,
+                 cfg.arch.n_layers)
     t_vecs = [torch.full((DLM_BATCH,), int(t), dtype=torch.int32,
                          device=dev) for t in ts[:DLM_K].tolist()]
     c_host = coefs[:DLM_K].cpu().numpy()
@@ -789,10 +879,14 @@ def phase_times_dlm(smi, params2, errs, b3_launches, ops_launches):
         for j in range(DLM_K):
             y = sk.sampler_step_2d(y, eps(y, t_vecs[j]), c_host[j])
         return y
-    tile_ms = graph_ms(unfused, iters=3, reps=2)
+    tile_ms = timer(unfused, iters=3, reps=2)
+    b3 = recs["megastep_call"]["ms"]
     print(f"[times] {smi} | unfused tile_resident, the same {DLM_K} steps "
-          f"(eager trunk + B1 per step): {tile_ms * 1e3:.2f} us (graph), "
-          f"{tile_ms / DLM_K * 1e3:.2f} us per step")
+          f"(eager trunk + B1 per step): {tile_ms * 1e3:.2f} us ({how}), "
+          f"{tile_ms / DLM_K * 1e3:.2f} us per step; B3 / unfused = "
+          f"{b3 / tile_ms:.3f}")
+    check(b3 < tile_ms, f"B3 {b3 * 1e3:.1f} us is not below the unfused "
+          f"{DLM_K} steps {tile_ms * 1e3:.1f} us")
 
     # generate samples/s, 'mega' (the entry point) and 'tile_resident'
     sch = make_schedule("linear", 1000)
@@ -830,12 +924,8 @@ def phase_times_dlm(smi, params2, errs, b3_launches, ops_launches):
                  f"{DLM_BATCH} on 'tile_resident'", gen_tile, "step_kernel")
 
     launches = {"megastep_call": b3_launches, **ops_launches}
-    return [{"name": name, "route": "cuda", "source": DLM_KERNELS[name][0],
-             "replaces": DLM_KERNELS[name][1], "launches": launches[name],
-             "max_abs_err": errs[name], "ms": r["ms"],
-             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-             "shape": r["shape"]} for name, r in recs.items()]
+    return [_record(name, DLM_KERNELS[name], launches[name], errs[name], r)
+            for name, r in recs.items()]
 
 
 # ------------------------------------------------ the scheduler slice
@@ -884,6 +974,9 @@ def phase_kernels_sched(params2):
             _check_rel(errs["megastep_rows_call"],
                        f"B4 {impl} clip={clip} t={ts.tolist()}", got, want,
                        1e-4)
+            _check_repeat(f"B4 {impl} clip={clip}", got,
+                          mk.megastep_rows_call(*args, clip=clip,
+                                                attn_impl=impl))
     coefs = torch.tensor(B7_COEFS)
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
@@ -1078,6 +1171,66 @@ def _steady(eng, make_requests, label, smi, marker):
     return st
 
 
+def _host_prep(smi, eng, label):
+    """Host time per call of each piece of work the mega tick does before
+    B4 starts (host clock, 100 calls, no synchronisation inside: what the
+    host spends issuing it), with every slot of ``eng`` busy."""
+    import ctypes
+    from repro_torch.kernels.megastep import kernel as mk
+    from repro_torch.kernels.sampler_step import ops as sops
+    from repro_torch.models.common import (rope_freqs,
+                                           sinusoidal_time_embedding)
+    from repro_torch.serving import SampleRequest
+    spec = eng.eps_fn.mega_spec
+    cfg, params, B, S = spec.cfg, spec.params, spec.batch, spec.seq_len
+    for i in range(eng.slots):
+        eng.submit(SampleRequest(request_id=5000 + i, S=20, seed=i))
+    eng.tick()                                  # admits: every slot busy
+    states = eng._states()
+    rows = sops.expand_slot_coefs(states.coef_matrix(), eng._rps)
+    x2, dev = eng._x2, eng._x2.device
+    w = mk._weights(params, cfg)
+    plan = (ctypes.c_longlong * len(mk._PLAN))()
+    lib = mk._lib()
+    pieces = (
+        ("engine _states", lambda: eng._states()),
+        ("expand_slot_coefs", lambda: sops.expand_slot_coefs(
+            states.coef_matrix(), eng._rps)),
+        ("wrapper checks", lambda: mk._check_kernel_inputs(
+            x2, mk._check_state(x2, params, cfg, B, S, spec.attn_impl), cfg)),
+        ("sinusoid", lambda: sinusoidal_time_embedding(
+            states.t, cfg.time_dim).contiguous()),
+        ("RoPE table", lambda: rope_freqs(torch.arange(S, device=dev),
+                                          mk.KERNEL_HEAD_DIM,
+                                          cfg.arch.rope_theta)),
+        ("ctypes weight struct", lambda: mk._weights(params, cfg)),
+        ("plan query", lambda: lib.repro_megastep_plan(
+            ctypes.byref(w), B, B, 1, eng.clip_x0 is not None,
+            spec.attn_impl == "flash", plan)),
+        ("workspace + output alloc", lambda: (
+            torch.empty(plan[0], device=dev), torch.empty_like(x2))),
+        ("whole megastep_rows_call", lambda: mk.megastep_rows_call(
+            x2, params, cfg, B, S, rows, states.t, clip=eng.clip_x0,
+            attn_impl=spec.attn_impl)),
+        ("whole tick (states + expand + call)", lambda: eng._tick_fn(
+            x2, None, eng._states())),
+    )
+    out = []
+    for name, fn in pieces:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fn()
+        us = (time.perf_counter() - t0) / 100 * 1e6
+        torch.cuda.synchronize()
+        out.append(f"{name} {us:.1f}")
+    print(f"[host] {smi} | {label}, host time per call (us, host clock, "
+          f"issue only): {'; '.join(out)}")
+    eng.run()
+
+
 def phase_times_sched(smi, params2, errs, b4_launches, eng_unet, dlm_mega,
                       dlm_plain):
     from repro_torch.configs import DLM_SMOLLM_MEGA as cfg
@@ -1105,25 +1258,33 @@ def phase_times_sched(smi, params2, errs, b4_launches, eng_unet, dlm_mega,
     b_ms, b_by = _bound(n_bytes, mega_ops(cfg, DLM_BATCH, DLM_SEQ, 1)
                         + 3 * n)
     args = (x2, params2, cfg, DLM_BATCH, DLM_SEQ, rows, ts)
+    timer, how = _mega_timer(lambda: mk.megastep_rows_call(*args))
     for impl in ("exact", "flash"):
         rec = dict(
-            ms=graph_ms(lambda: mk.megastep_rows_call(*args, attn_impl=impl),
-                        iters=5, reps=2),
-            plain_ms=graph_ms(lambda: mref.megastep_rows_ref(
+            ms=timer(lambda: mk.megastep_rows_call(*args, attn_impl=impl),
+                     iters=5, reps=2),
+            plain_ms=timer(lambda: mref.megastep_rows_ref(
                 *args, attn_impl=impl), iters=5, reps=2),
             library_ms=None, bound_ms=b_ms, bound_by=b_by,
             shape=f"{cfg.arch.name} {DLM_BATCH} slots x {DLM_SEQ}, one "
-                  f"tick, {impl}")
+                  f"tick, {impl}", timed_by=how,
+            **_plan_keys(mk.megastep_rows_call.last_plan))
         _time_line(smi, f"B4 megastep_rows_call {rec['shape']}", rec)
         recs.setdefault("megastep_rows_call", rec)
+    _phase_trace(smi, f"B4 megastep_rows_call {cfg.arch.name} exact",
+                 mk.megastep_rows_call, lambda: mk.megastep_rows_call(*args),
+                 1, cfg.arch.n_layers)
     states = StepStates(t=ts, c_x0=c[:, 0], c_dir=c[:, 1], c_noise=c[:, 2],
                         sqrt_a_t=c[:, 3], sqrt_1m_a_t=c[:, 4])
     shape = (DLM_SEQ, cfg.latent_dim)
-    rows_ms = graph_ms(lambda: slot_tile_step(eps, x2, states, shape),
-                       iters=5, reps=2)
+    rows_ms = timer(lambda: slot_tile_step(eps, x2, states, shape),
+                    iters=5, reps=2)
+    b4 = recs["megastep_rows_call"]["ms"]
     print(f"[times] {smi} | unfused rows tick at the same shape (eager "
-          f"trunk + B2): {rows_ms * 1e3:.2f} us (graph); B4 / unfused = "
-          f"{recs['megastep_rows_call']['ms'] / rows_ms:.1f}x")
+          f"trunk + B2): {rows_ms * 1e3:.2f} us ({how}); B4 / unfused = "
+          f"{b4 / rows_ms:.3f}")
+    check(b4 < rows_ms, f"B4 {b4 * 1e3:.1f} us is not below the unfused "
+          f"rows tick {rows_ms * 1e3:.1f} us")
 
     # B7 at R = 1024, C = 256 (the wrapper reads host coefficients, the
     # plain version device ones: a graph captures no host-device copy)
@@ -1155,16 +1316,14 @@ def phase_times_sched(smi, params2, errs, b4_launches, eng_unet, dlm_mega,
             "step_rows_kernel")
     _steady(dlm_mega, dlm_requests, f"scheduler {cfg.arch.name} mega tick "
             f"{DLM_BATCH} slots, S=20", smi, "megastep_kernel")
+    _host_prep(smi, dlm_mega, f"scheduler {cfg.arch.name} mega tick "
+               f"{DLM_BATCH} slots")
     _steady(dlm_plain, dlm_requests, f"scheduler {cfg.arch.name} unfused tick"
             f" {DLM_BATCH} slots, S=20", smi, "step_rows_kernel")
 
     launches = {"megastep_rows_call": b4_launches, "ddim_step_2d": 0}
-    return [{"name": name, "route": "cuda", "source": SCHED_KERNELS[name][0],
-             "replaces": SCHED_KERNELS[name][1], "launches": launches[name],
-             "max_abs_err": errs[name], "ms": r["ms"],
-             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-             "shape": r["shape"]} for name, r in recs.items()]
+    return [_record(name, SCHED_KERNELS[name], launches[name], errs[name], r)
+            for name, r in recs.items()]
 
 
 def main() -> int:

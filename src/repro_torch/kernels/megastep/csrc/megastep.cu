@@ -19,10 +19,10 @@
 // TPU kernel takes them as hoisted constants (kernel.py:188-229).
 // attention is 'exact' (q k^T / sqrt(D), softmax, then p v — models/
 // attention._grouped_attention) or 'flash' (q pre-scaled, the shared
-// online_softmax_step body over KV blocks of 64, acc / max(l, 1e-20) —
-// kernel.py:83-130).  The norms are the shared rmsnorm body, the update the
-// shared step body (step_update.cuh).  There is no PRNG code: mega plans are
-// deterministic.
+// online_softmax_step body over one KV block of 64, acc / max(l, 1e-20) —
+// kernel.py:83-130).  The norms' inverse RMS is the shared rmsnorm body's
+// (rms_inv_from_sumsq), the update the shared step body (step_update.cuh).
+// There is no PRNG code: mega plans are deterministic.
 //
 // Bound on the H100: operations.  One step at smollm width (d 576, 9 / 3
 // heads of 64, d_ff 1536, 2 layers), batch 4, 64 tokens is ~3.7 GFLOP
@@ -31,19 +31,69 @@
 // 29.3 MB of weights once takes ~9 us at 3.35 TB/s.  A scheduler tick is
 // one such step, ~56 us at 67 TFLOP/s.
 //
-// Design (the simple one): one block of 256 threads per sample.  Every op
-// of the trunk is per sample (lockstep t, per-token products, attention
-// inside the sequence), and sample b's latent is rows [b S L / 256,
-// (b+1) S L / 256) of the tile view, so no block waits for another and the
-// K-step loop runs inside the block.  The state (S x L) and eps live in
-// shared memory for the whole launch: read once, written once.  The
-// activations (about 1 MB per sample at smollm width) do not fit in shared
-// memory; they live in a workspace the wrapper allocates and stay in L2.
-// Products are shared-memory-tiled FFMA (64 x 64 output tiles, 4 x 4 per
-// thread, depth 32): float32 as the reference, no TF32.  At batch 4 this
-// fills 4 of 132 SMs; splitting a sample over a cluster or the grid, and
-// tensor cores, are later work.
+// Grid, phases, barriers.  One persistent cooperative launch
+// (cudaLaunchKernelEx with cudaLaunchAttributeCooperative, which also
+// captures into a CUDA graph) of 256-thread blocks, as many per SM as the
+// occupancy query admits for the real shared memory, capped at
+// kMaxBlocksPerSM: 264 blocks (2 per SM) on an H100, whatever the batch.  A
+// refused launch is returned as its error; nothing falls back.  Every
+// block runs the step loop; each step is a chain of phases separated by
+// cooperative_groups::this_grid().sync().  A phase cuts its work into
+// items over the whole batch (M = batch x 64 token rows); item i goes to
+// the block of rank i mod grid, ranks ordering blocks by (slot on their
+// SM, SM id) so that the first items of a phase land on distinct SMs:
+//   time  th = silu(temb @ time_w1) for every embedding of the launch (K
+//         for B3, one per slot for B4): once per launch
+//   w_in  h = x @ w_in + th @ time_w2: 64 x 32 output tiles; the block
+//         computes its 32 columns of th @ time_w2 itself
+//   per layer:
+//   qkv   [q k v] = rmsnorm(h) @ [wq wk wv] (one product, N = H*64 +
+//         2 Hkv*64)
+//   attn  one item per (sample, q head) on kv head h / G; RoPE is applied
+//         to q and k as they are loaded (exact or flash body)
+//   wo    h += attn @ wo, split-K
+//   mlp   ff = silu(rmsnorm(h) @ w_gate) * (rmsnorm(h) @ w_up), both
+//         products in one item
+//   down  h += ff @ w_down, split-K
+//   out   eps = rmsnorm(h) @ w_out, split-K, with the Eq. 12 update fused
+//         into the epilogue: a 64 x 32 tile of eps is a run of the
+//         sample's state elements, so element i of sample b takes its
+//         coefficients (B4: row b * rows_per_slot + i / 256) and x in place
+// That is 2 + 5 n_layers grid barriers per step (12 at 2 layers), one more
+// per launch for the time MLP and one fewer after the last step.  A
+// normed product computes rmsnorm(h) @ W as inv[row] * ((h * scale) @ W):
+// the A fragments are multiplied by the norm's scale as they are read,
+// each row's sum of squares is taken from the A slices as they stream
+// through shared memory, and the epilogue multiplies by the inverse RMS
+// (rms_inv_from_sumsq, rmsnorm_body.cuh), so no phase rereads h for its
+// norm.  Split-K partials (and, for normed products, partial sums of
+// squares) go to the workspace; the last item of a tile to arrive (an
+// atomic counter elects it: no thread waits) sums them in split order 0,
+// 1, ... and applies the epilogue, so no sum depends on timing and two
+// launches on the same inputs are bitwise equal.
+//
+// Products: 64 x 32 output tiles, 8 warps of 16 x 16, depth slices of 32
+// staged by cp.async.cg in a 4-stage ring in dynamic shared memory, so the
+// copies of slices i + 1 .. i + 3 overlap the product of slice i.  They run
+// on the tensor cores as 3xTF32: each float32 operand splits into a TF32
+// big part (round to nearest, ties away: the bits of cvt.rna.tf32.f32,
+// computed with two integer ops) and the TF32 rounding of the remainder,
+// and mma.sync.m16n8k8 (float32 accumulators) sums small.big + big.small +
+// big.big: float32-level products (plain twin: ref.tf32x3_matmul).  The
+// time MLP and attention stay float32 FFMA.  On the H100 the products are
+// bound by the mma.sync work, not by the copies (bound_probe.py compiles
+// out either and times the phases): wgmma is the next step.
+//
+// Memory ordering.  Activations (h, qkv, attn, ff, th, the split-K
+// partials and, from the second step, the state in ``out``) live in one
+// workspace for the whole batch, allocated by the wrapper, and stay in
+// the 50 MB L2.  Another block writes them inside the same launch, so they
+// are read only through L2 (cp.async.cg, __ldcg), never through __ldg,
+// ld.global.nc or an L1-caching cp.async.ca, whose lines may be stale
+// after a grid barrier.  __ldg reads only weights and inputs that the
+// launch never writes.  The state x must not alias out.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,187 +125,611 @@ struct ReproMegaWeights {
 
 namespace {
 
+namespace cg = cooperative_groups;
 using repro::kAttnThreads;
 
-constexpr int kThreads = kAttnThreads;  // 256
-constexpr int kSeq = 64;                // tokens per sample: M of every product
+constexpr int kThreads = kAttnThreads;  // 256: 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kSeq = 64;                // tokens per sample
 constexpr int kHD = 64;                 // head dim
-constexpr int kTK = 32;                 // depth of a product tile
-constexpr int kTN = 64;                 // width of a product tile
-constexpr int kAS = kSeq + 4;           // row stride of the k-major A tile
-constexpr int kTileC = 256;             // width of the tile view
-constexpr int kRowCoefs = 8;            // columns of a per-row coefficient row
-constexpr int kMatmulFloats = kTK * kAS + kTK * kTN;
+constexpr int kBM = 64;                 // rows of a product tile
+constexpr int kBN = 32;                 // columns of a product tile
+constexpr int kBK = 32;                 // depth of a staged slice
+constexpr int kStages = 4;              // cp.async ring
+constexpr int kAS = kBK + 4;            // A slice row stride: conflict-free
+constexpr int kBS = kBN + 8;            // B slice row stride: conflict-free
+constexpr int kAStage = kBM * kAS;
+constexpr int kBStage = kBK * kBS;
+constexpr int kStageFloats = kAStage + 2 * kBStage;  // A, B (and B2)
+constexpr int kGemmFloats = kStages * kStageFloats;
 constexpr int kAttnFloats =
     3 * kSeq * (kHD + 1) + kSeq * kHD;  // sQ, sK, sP (+1 pads) and sV
 constexpr int kUnionFloats =
-    kMatmulFloats > kAttnFloats ? kMatmulFloats : kAttnFloats;
+    kGemmFloats > kAttnFloats ? kGemmFloats : kAttnFloats;
+// + the tile's row sums of squares, the partial dots of a 32-column row,
+// its sums, and the block's rank (an int)
+constexpr int kRankSlot = kUnionFloats + kBM + kWarps * 32 + 32;
+constexpr int kSmemFloats = kRankSlot + 4;
+constexpr int kSmemBytes = kSmemFloats * 4;
+constexpr int kMaxBlocksPerSM = 2;
+constexpr int kMinSlicesPerSplit = 2;
+constexpr int kTileC = 256;             // width of the tile view
+constexpr int kRowCoefs = 8;            // columns of a per-row coefficient row
+constexpr int kMaxDevices = 16;
 
-struct Workspace {
-  float *h, *xn, *q, *k, *v, *ao, *ff, *th, *tv;
+// Everything a launch reads: the weights, the inputs, the workspace and
+// the split-K factors of the plan.
+struct Params {
+  ReproMegaWeights w;
+  const float* x;
+  float* out;
+  const float* temb;
+  const float* rope_cos;
+  const float* rope_sin;
+  const float* coefs;
+  int K, batch, n_emb, n_cnt;
+  float clip;
+  float *h, *qkv, *ao, *ff, *th, *part, *ssq;
+  int* cnt;
+  int* sm_of;  // the SM of each block
+  int split_wo, split_dn, split_out;
+  unsigned long long* trace;  // null, or one stamp per phase boundary
 };
 
-__host__ __device__ inline long long workspace_floats(
-    const ReproMegaWeights& w) {
-  const long long d = w.d_model, hq = w.n_heads * kHD,
-                  hkv = w.n_kv_heads * kHD;
-  return kSeq * (2 * d + 2 * hq + 2 * hkv + w.d_ff) + w.time_dim + d;
+struct Plan {
+  int grid, per_sm, split_wo, split_dn, split_out;
+};
+
+struct Layout {
+  long long h, qkv, ao, ff, th, part, ssq, cnt, n_cnt, sm_of, total;
+};
+
+long long round4(long long n) { return (n + 3) / 4 * 4; }
+
+// Split-K for the phases with too few output tiles to occupy the grid
+// (the residual products wo, w_down and w_out), as far as the grid has
+// blocks and every item keeps at least kMinSlicesPerSplit slices.
+int split_for(int tiles, int slices, int grid) {
+  int s = grid / tiles;
+  if (s > slices / kMinSlicesPerSplit) s = slices / kMinSlicesPerSplit;
+  return s < 1 ? 1 : s;
 }
 
-__device__ inline Workspace carve(float* base, const ReproMegaWeights& w) {
-  const int d = w.d_model, hq = w.n_heads * kHD, hkv = w.n_kv_heads * kHD;
-  Workspace s;
-  s.h = base;
-  s.xn = s.h + kSeq * d;
-  s.q = s.xn + kSeq * d;
-  s.k = s.q + kSeq * hq;
-  s.v = s.k + kSeq * hkv;
-  s.ao = s.v + kSeq * hkv;
-  s.ff = s.ao + kSeq * hq;
-  s.th = s.ff + kSeq * w.d_ff;
-  s.tv = s.th + w.time_dim;
-  return s;
+Plan make_plan(const ReproMegaWeights& w, int batch, int per_sm, int sms) {
+  Plan p;
+  p.per_sm = per_sm;
+  p.grid = per_sm * sms;
+  const int mt = batch * kSeq / kBM;
+  p.split_wo = split_for(mt * w.d_model / kBN, w.n_heads * kHD / kBK, p.grid);
+  p.split_dn = split_for(mt * w.d_model / kBN, w.d_ff / kBK, p.grid);
+  p.split_out = split_for(mt * w.latent / kBN, w.d_model / kBK, p.grid);
+  return p;
 }
 
+// Workspace offsets in floats (each a multiple of 4: 16-byte aligned).
+Layout layout(const ReproMegaWeights& w, int batch, int n_emb,
+              const Plan& p) {
+  const long long M = static_cast<long long>(batch) * kSeq,
+                  d = w.d_model, hq = w.n_heads * kHD,
+                  hkv = w.n_kv_heads * kHD, L = w.latent;
+  long long part = p.split_wo * M * d;
+  if (p.split_dn * M * d > part) part = p.split_dn * M * d;
+  if (p.split_out * M * L > part) part = p.split_out * M * L;
+  Layout l;
+  long long o = 0;
+  l.h = o;
+  o += M * d;
+  l.qkv = o;
+  o += M * (hq + 2 * hkv);
+  l.ao = o;
+  o += M * hq;
+  l.ff = o;
+  o += M * w.d_ff;
+  l.th = o;
+  o += round4(static_cast<long long>(n_emb) * w.time_dim);
+  l.part = o;  // split-K partial tiles
+  o += part;
+  l.ssq = o;  // row sums of squares of the split w_out items
+  o += p.split_out * (M / kBM) * (L / kBN) * kBM;
+  l.cnt = o;  // arrival counters of split tiles
+  l.n_cnt = M / kBM * ((d > L ? d : L) / kBN);
+  o += round4(l.n_cnt);
+  l.sm_of = o;
+  o += round4(p.grid);
+  l.total = o;
+  return l;
+}
+
+// ------------------------------------------------------------ primitives
 __device__ __forceinline__ float silu(float g) {
   return __fdiv_rn(g, __fadd_rn(1.0f, expf(-g)));
 }
 
-enum Epilogue { kStore, kAddRow, kAccum, kSwiGLU };
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
+               "l"(src)
+               : "memory");
+}
 
-// C (64 x N) op= A (64 x Kd) @ B (Kd x N), row-major, B a weight matrix in
-// (in, out) layout.  kStore: C = AB; kAddRow: C = AB + aux[n];
-// kAccum: C = C + AB; kSwiGLU: C = silu(C) * AB.  A and C are generic
-// pointers (workspace or shared memory).  Needs N % 4 == 0, Kd % 32 == 0,
-// 16-byte aligned rows.  Ends with a block barrier.
-template <int EPI>
-__device__ void block_matmul(const float* A, int lda,
-                             const float* __restrict__ B, int ldb, float* C,
-                             int ldc, int N, int Kd, const float* aux,
-                             float* smem) {
-  float* sA = smem;              // [kTK][kAS]: the A tile, k-major
-  float* sB = smem + kTK * kAS;  // [kTK][kTN]
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  for (int n0 = 0; n0 < N; n0 += kTN) {
-    float acc[4][4];
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// cvt.rna.tf32.f32 (round to nearest, ties away from zero, keep the top
+// 19 bits) as two integer ops: the same bits for every finite x, at the
+// full ALU rate (the cvt goes through the slower conversion pipe).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = big + small, both TF32: big = rna(x), small = rna(x - big).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(__fsub_rn(x, __uint_as_float(big)));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ------------------------------------------------------------ block ranks
+// A phase gives item i to the block of rank i mod grid.  Ranks order the
+// blocks by (slot on their SM, SM), so the first ``SM count`` items of a
+// phase land on distinct SMs (the hardware may place consecutive blocks
+// on one SM).  Which block runs an item does not change its arithmetic.
+__device__ __forceinline__ int block_rank(const float* smem) {
+  return *reinterpret_cast<const int*>(smem + kRankSlot);
+}
+
+// After a grid barrier that follows the writes of p.sm_of: the rank of
+// this block among (slot, SM) keys, slot = the number of lower-numbered
+// blocks on the same SM.  Uses the union area of shared memory.
+__device__ __noinline__ void compute_rank(const Params& p, float* smem) {
+  int* sm = reinterpret_cast<int*>(smem);
+  __shared__ int s_count;
+  const int grid = gridDim.x;
+  for (int j = threadIdx.x; j < grid; j += kThreads) sm[j] = __ldcg(p.sm_of + j);
+  if (threadIdx.x == 0) s_count = 0;
+  __syncthreads();
+  auto key = [&](int j) {
+    int slot = 0;
+    for (int i = 0; i < j; ++i) slot += sm[i] == sm[j];
+    return static_cast<long long>(slot) << 32 | static_cast<unsigned>(sm[j]);
+  };
+  const long long mine = key(blockIdx.x);
+  int below = 0;
+  for (int j = threadIdx.x; j < grid; j += kThreads) below += key(j) < mine;
+  atomicAdd(&s_count, below);  // an integer count: order-free
+  __syncthreads();
+  if (threadIdx.x == 0) *reinterpret_cast<int*>(smem + kRankSlot) = s_count;
+  __syncthreads();
+}
+
+// ---------------------------------------------------------- product tiles
+// One 64 x 32 output tile (two with DUAL: the same A against B0 and B1)
+// over depth slices [sl0, sl1) of 32.  A points at row m0, column 0 of a
+// row-major activation (lda); B0 / B1 at row 0, column n0 of a row-major
+// (K, N) weight (ldb).  NORM computes rmsnorm(A) @ B as
+// inv[row] * ((A * scale[k]) @ B): the fragments of A are multiplied by
+// the norm's scale as they are read, each row's sum of squares is taken
+// from the slices as they stream through shared memory, and the epilogue
+// multiplies by the inverse RMS (equal in exact arithmetic to scaling A).
+struct Tile {
+  const float* A;
+  const float* B0;
+  const float* B1;
+  int lda, ldb, sl0, sl1;
+  const float* scale;
+};
+
+template <bool DUAL>
+__device__ __forceinline__ void load_slice(float* st, const Tile& t,
+                                           int sl) {
+  const int tid = threadIdx.x, k = sl * kBK;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 2; ++i) {  // 64 rows x 8 chunks of 16 bytes
+    const int c = tid + i * kThreads, r = c >> 3, q = c & 7;
+    cp_async16(st + r * kAS + 4 * q,
+               t.A + static_cast<long long>(r) * t.lda + k + 4 * q);
+  }
+  const int r = tid >> 3, q = tid & 7;  // 32 rows x 8 chunks
+  const long long off = static_cast<long long>(k + r) * t.ldb + 4 * q;
+  cp_async16(st + kAStage + r * kBS + 4 * q, t.B0 + off);
+  if (DUAL) cp_async16(st + kAStage + kBStage + r * kBS + 4 * q, t.B1 + off);
+}
+
+// Warp (wm, wn) = (warp % 4, warp / 4) owns rows 16 wm + [0, 16) and
+// columns 16 wn + [0, 16): two m16n8 fragments per B.
+template <bool NORM, bool DUAL>
+__device__ __forceinline__ void mma_slice(const float* st, const Tile& t,
+                                          int sl,
+                                          float (&acc)[DUAL ? 2 : 1][2][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3, wm = warp & 3, wn = warp >> 2;
+  const float* sA = st + (wm * 16 + g) * kAS;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-    for (int k0 = 0; k0 < Kd; k0 += kTK) {
-      // rows on consecutive lanes: the transposed stores hit distinct banks
-      for (int i = tid; i < kSeq * (kTK / 4); i += kThreads) {
-        const int m = i % kSeq, q4 = i / kSeq;
-        const float4 a =
-            *reinterpret_cast<const float4*>(A + m * lda + k0 + 4 * q4);
-        sA[(4 * q4 + 0) * kAS + m] = a.x;
-        sA[(4 * q4 + 1) * kAS + m] = a.y;
-        sA[(4 * q4 + 2) * kAS + m] = a.z;
-        sA[(4 * q4 + 3) * kAS + m] = a.w;
-      }
-      for (int i = tid; i < kTK * (kTN / 4); i += kThreads) {
-        const int kk = i / (kTN / 4), n4 = i % (kTN / 4);
-        const int n = n0 + 4 * n4;
-        float4 b = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (n < N)
-          b = __ldg(reinterpret_cast<const float4*>(
-              B + static_cast<long long>(k0 + kk) * ldb + n));
-        *reinterpret_cast<float4*>(sB + kk * kTN + 4 * n4) = b;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kTK; ++kk) {
-        const float4 a = *reinterpret_cast<const float4*>(sA + kk * kAS +
-                                                          4 * ty);
-        const float4 b = *reinterpret_cast<const float4*>(sB + kk * kTN +
-                                                          4 * tx);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
+  for (int kk = 0; kk < kBK / 8; ++kk) {
+    const int kc = kk * 8 + q;
+    float a[4] = {sA[kc], sA[8 * kAS + kc], sA[kc + 4], sA[8 * kAS + kc + 4]};
+    if (NORM) {
+      const float s0 = __ldg(t.scale + sl * kBK + kc);
+      const float s1 = __ldg(t.scale + sl * kBK + kc + 4);
+      a[0] = __fmul_rn(a[0], s0);
+      a[1] = __fmul_rn(a[1], s0);
+      a[2] = __fmul_rn(a[2], s1);
+      a[3] = __fmul_rn(a[3], s1);
     }
-    const int n = n0 + 4 * tx;
-    if (n < N) {
+    uint32_t ab[4], as[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float* c = C + (4 * ty + i) * ldc + n;
-        float4 o = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-        if (EPI == kAddRow) {
-          o.x = __fadd_rn(o.x, aux[n]);
-          o.y = __fadd_rn(o.y, aux[n + 1]);
-          o.z = __fadd_rn(o.z, aux[n + 2]);
-          o.w = __fadd_rn(o.w, aux[n + 3]);
-        } else if (EPI == kAccum) {
-          const float4 p = *reinterpret_cast<const float4*>(c);
-          o.x = __fadd_rn(p.x, o.x);
-          o.y = __fadd_rn(p.y, o.y);
-          o.z = __fadd_rn(p.z, o.z);
-          o.w = __fadd_rn(p.w, o.w);
-        } else if (EPI == kSwiGLU) {
-          const float4 g = *reinterpret_cast<const float4*>(c);
-          o.x = __fmul_rn(silu(g.x), o.x);
-          o.y = __fmul_rn(silu(g.y), o.y);
-          o.z = __fmul_rn(silu(g.z), o.z);
-          o.w = __fmul_rn(silu(g.w), o.w);
+    for (int i = 0; i < 4; ++i) split_tf32(a[i], ab[i], as[i]);
+    constexpr int NF = (DUAL ? 2 : 1) * 2;  // accumulators of this warp
+    uint32_t bb[NF][2], bs[NF][2];
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      const float* sB = st + kAStage + (f / 2) * kBStage;
+      const int n = wn * 16 + (f % 2) * 8 + g;
+      split_tf32(sB[kc * kBS + n], bb[f][0], bs[f][0]);
+      split_tf32(sB[(kc + 4) * kBS + n], bb[f][1], bs[f][1]);
+    }
+    // pass-major: consecutive mma.sync go to independent accumulators
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+      mma_tf32(acc[f / 2][f % 2], as, bb[f][0], bb[f][1]);
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+      mma_tf32(acc[f / 2][f % 2], ab, bs[f][0], bs[f][1]);
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+      mma_tf32(acc[f / 2][f % 2], ab, bb[f][0], bb[f][1]);
+  }
+}
+
+// ss += the squares of this thread's 8 elements of the slice's A tile:
+// row tid / 4, columns 8 (tid % 4) + [0, 8).
+__device__ __forceinline__ void slice_sumsq(const float* st, float& ss) {
+  const float4* a = reinterpret_cast<const float4*>(
+      st + (threadIdx.x >> 2) * kAS + 8 * (threadIdx.x & 3));
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float4 v = a[i];
+    ss = __fadd_rn(ss, __fmul_rn(v.x, v.x));
+    ss = __fadd_rn(ss, __fmul_rn(v.y, v.y));
+    ss = __fadd_rn(ss, __fmul_rn(v.z, v.z));
+    ss = __fadd_rn(ss, __fmul_rn(v.w, v.w));
+  }
+}
+
+// One product phase: M = batch x 64 rows by N columns, depth Kd, each
+// tile cut into ``split`` items along the depth.  tile_of(m0, n0) gives
+// the operands of a tile; pre(m0, n0) runs before its product (all
+// threads; the block synchronises after it); epi(m, n, v) takes output
+// pair (m, n), (m, n + 1) of the finished tile (v[nb] from B0 / B1).
+template <bool NORM, bool DUAL, typename TileOf, typename Pre, typename Epi>
+__device__ __forceinline__ void gemm_phase(const Params& p, float* smem,
+                                           int N, int Kd, int split,
+                                           TileOf tile_of, Pre pre, Epi epi) {
+  static_assert(kThreads == 4 * kBM, "slice_sumsq: 4 threads per row");
+  const int M = p.batch * kSeq, n_nt = N / kBN, tiles = M / kBM * n_nt;
+  const int nsl = Kd / kBK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3, wm = warp & 3, wn = warp >> 2;
+  float* sSS = smem + kUnionFloats;  // the tile's row sums of squares
+  __shared__ int s_last;
+  for (int item = block_rank(smem); item < tiles * split;
+       item += gridDim.x) {
+    const int tile = item % tiles, s = item / tiles;
+    const int m0 = tile / n_nt * kBM, n0 = tile % n_nt * kBN;
+    Tile t = tile_of(m0, n0);
+    t.sl0 = s * nsl / split;
+    t.sl1 = (s + 1) * nsl / split;
+    pre(m0, n0);
+    __syncthreads();
+
+    float acc[DUAL ? 2 : 1][2][4];
+#pragma unroll
+    for (int nb = 0; nb < (DUAL ? 2 : 1); ++nb)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nb][j][e] = 0.0f;
+    float ss = 0.0f;
+
+    const int n_sl = t.sl1 - t.sl0;
+#pragma unroll
+    for (int i = 0; i < kStages - 1; ++i) {
+      if (i < n_sl) load_slice<DUAL>(smem + i * kStageFloats, t, t.sl0 + i);
+      cp_async_commit();
+    }
+    for (int i = 0; i < n_sl; ++i) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();  // slice i landed; slice i - 1 is no longer read
+      const int nx = i + kStages - 1;
+      if (nx < n_sl)
+        load_slice<DUAL>(smem + (nx % kStages) * kStageFloats, t, t.sl0 + nx);
+      cp_async_commit();
+      const float* st = smem + (i % kStages) * kStageFloats;
+      if (NORM) slice_sumsq(st, ss);
+      mma_slice<NORM, DUAL>(st, t, t.sl0 + i, acc);
+    }
+    cp_async_wait<0>();
+    if (NORM) {  // the row's quarters, added pairwise: one value per row
+      ss = __fadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, 1));
+      ss = __fadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, 2));
+      if ((threadIdx.x & 3) == 0) sSS[threadIdx.x >> 2] = ss;
+    }
+    __syncthreads();
+    // this thread's output rows: wm * 16 + g and + 8
+    float ss_rows[2] = {0.0f, 0.0f};
+    if (NORM) {
+      ss_rows[0] = sSS[wm * 16 + g];
+      ss_rows[1] = sSS[wm * 16 + g + 8];
+    }
+
+    // fragment element e of acc[.][j]: row g + 8 (e / 2), column 2 q + e % 2
+    bool mine = true;
+    if (split > 1) {  // DUAL phases are never split
+      float* part = p.part + static_cast<long long>(s) * M * N;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int m = m0 + wm * 16 + g + 8 * hr,
+                    n = n0 + wn * 16 + j * 8 + 2 * q;
+          *reinterpret_cast<float2*>(part + static_cast<long long>(m) * N +
+                                     n) =
+              make_float2(acc[0][j][2 * hr], acc[0][j][2 * hr + 1]);
         }
-        *reinterpret_cast<float4*>(c) = o;
+      if (NORM && threadIdx.x < kBM)
+        p.ssq[(static_cast<long long>(s) * tiles + tile) * kBM + threadIdx.x] =
+            sSS[threadIdx.x];
+      __threadfence();
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        s_last = atomicAdd(p.cnt + tile, 1) == split - 1;
+        if (s_last) p.cnt[tile] = 0;  // for the next split phase
+      }
+      __syncthreads();
+      mine = s_last;
+      if (mine) {  // sum the partials in split order 0, 1, ...
+        __threadfence();
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const long long off =
+                static_cast<long long>(m0 + wm * 16 + g + 8 * hr) * N + n0 +
+                wn * 16 + j * 8 + 2 * q;
+            float2 v = __ldcg(reinterpret_cast<const float2*>(p.part + off));
+            for (int s2 = 1; s2 < split; ++s2) {
+              const float2 u = __ldcg(reinterpret_cast<const float2*>(
+                  p.part + static_cast<long long>(s2) * M * N + off));
+              v.x = __fadd_rn(v.x, u.x);
+              v.y = __fadd_rn(v.y, u.y);
+            }
+            acc[0][j][2 * hr] = v.x;
+            acc[0][j][2 * hr + 1] = v.y;
+          }
+        if (NORM)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const float* sp = p.ssq + static_cast<long long>(tile) * kBM +
+                              wm * 16 + g + 8 * hr;
+            float t_ss = __ldcg(sp);
+            for (int s2 = 1; s2 < split; ++s2)
+              t_ss = __fadd_rn(t_ss, __ldcg(sp + static_cast<long long>(s2) *
+                                                     tiles * kBM));
+            ss_rows[hr] = t_ss;
+          }
       }
     }
+    if (mine) {
+      float inv[2] = {1.0f, 1.0f};
+      if (NORM)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+          inv[hr] = repro::rms_inv_from_sumsq<float>(ss_rows[hr], Kd,
+                                                     p.w.norm_eps);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          float2 v[DUAL ? 2 : 1];
+#pragma unroll
+          for (int nb = 0; nb < (DUAL ? 2 : 1); ++nb) {
+            v[nb] = make_float2(acc[nb][j][2 * hr], acc[nb][j][2 * hr + 1]);
+            if (NORM) {
+              v[nb].x = __fmul_rn(v[nb].x, inv[hr]);
+              v[nb].y = __fmul_rn(v[nb].y, inv[hr]);
+            }
+          }
+          epi(m0 + wm * 16 + g + 8 * hr, n0 + wn * 16 + j * 8 + 2 * q, v);
+        }
+    }
+    __syncthreads();  // the ring and sSS are reused by the next item
   }
-  __syncthreads();
 }
 
-// xn[r] = rmsnorm(h[r], scale) for the 64 rows, one warp per row.
-__device__ void norm_rows(const float* h, const float* scale, float* xn,
-                          int d, float eps) {
-  for (int r = threadIdx.x / 32; r < kSeq; r += kThreads / 32)
-    repro::rms_norm_row_warp<float>(h + r * d, scale, xn + r * d, d, eps);
+// out[j] = sum_i in[i] w[i, c0 + j] for the 32 columns j of one row, by
+// the whole block: warp w sums i = w, w + 8, ...; the eight partial sums
+// are added in warp order.  Returns the sum on lanes of warp 0 (j =
+// lane), 0 elsewhere; ends with a block barrier.  ``in`` is read through
+// L2 (it may be an activation of this launch).
+__device__ __forceinline__ float block_row_dot(const float* in, int n_in,
+                                               const float* __restrict__ w,
+                                               int ldw, int c0, int n_out,
+                                               float* red) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = c0 + lane;
+  float a = 0.0f;
+  if (c < n_out)
+#pragma unroll 8
+    for (int i = warp; i < n_in; i += kWarps)
+      a = fmaf(__ldcg(in + i), __ldg(w + static_cast<long long>(i) * ldw + c),
+               a);
+  red[warp * 32 + lane] = a;
   __syncthreads();
-}
-
-// Rotary embedding in place on q (64 x H*64) and k (64 x Hkv*64): the head
-// dim splits into halves, [x1 c - x2 s, x2 c + x1 s].
-__device__ void rope_rows(float* q, float* k, int H, int Hkv,
-                          const float* cos_t, const float* sin_t) {
-  constexpr int half = kHD / 2;
-  const int heads = H + Hkv;
-  for (int i = threadIdx.x; i < kSeq * heads * half; i += kThreads) {
-    const int s = i / (heads * half), hh = (i / half) % heads, j = i % half;
-    float* row = hh < H ? q + (s * H + hh) * kHD
-                        : k + (s * Hkv + hh - H) * kHD;
-    const float x1 = row[j], x2 = row[j + half];
-    const float c = cos_t[s * half + j], sn = sin_t[s * half + j];
-    row[j] = __fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, sn));
-    row[j + half] = __fadd_rn(__fmul_rn(x2, c), __fmul_rn(x1, sn));
+  float sum = 0.0f;
+  if (warp == 0) {
+    sum = red[lane];
+    for (int k = 1; k < kWarps; ++k) sum = __fadd_rn(sum, red[k * 32 + lane]);
   }
   __syncthreads();
+  return sum;
 }
 
-// out (64 x 64, row stride ldo) = attention of one head over the sequence.
-template <bool FLASH>
-__device__ void attention_head(const float* q, int ldq, const float* k,
-                               const float* v, int ldkv, float* out, int ldo,
-                               float* smem) {
-  constexpr int QS = kHD + 1, PS = kSeq + 1;
-  float* sQ = smem;
-  float* sK = sQ + kSeq * QS;
-  float* sP = sK + kSeq * QS;
-  float* sV = sP + kSeq * PS;
-  // FLASH multiplies q by the softmax scale 1/sqrt(64) before the dot, as
-  // streaming_attention_body; 'exact' divides the scores after it.
-  const float q_scale = FLASH ? 0.125f : 1.0f;
-  for (int i = threadIdx.x; i < kSeq * kHD; i += kThreads) {
-    const int r = i / kHD, c = i % kHD;
-    sQ[r * QS + c] = __fmul_rn(q[r * ldq + c], q_scale);
-    sK[r * QS + c] = k[r * ldkv + c];
-    sV[r * kHD + c] = v[r * ldkv + c];
+// ----------------------------------------------------------------- phases
+// th[e] = silu(temb[e] @ time_w1) for every embedding of the launch; also
+// clears the split-K counters.
+__device__ __noinline__ void phase_time(const Params& p, float* smem) {
+  if (blockIdx.x == 0)
+    for (int i = threadIdx.x; i < p.n_cnt; i += kThreads) p.cnt[i] = 0;
+  const int T = p.w.time_dim, groups = (T + 31) / 32;
+  float* red = smem + kUnionFloats + kBM;
+  for (int item = blockIdx.x; item < p.n_emb * groups; item += gridDim.x) {
+    const int e = item / groups, c0 = item % groups * 32;
+    const float a = block_row_dot(p.temb + static_cast<long long>(e) * T, T,
+                                  p.w.time_w1, T, c0, T, red);
+    if (threadIdx.x < 32 && c0 + threadIdx.x < T)
+      p.th[static_cast<long long>(e) * T + c0 + threadIdx.x] = silu(a);
   }
-  __syncthreads();
-  auto store = [&](int row, int col, float val) { out[row * ldo + col] = val; };
+}
+
+// h = state @ w_in + th[e] @ time_w2; e is the step (B3) or, with
+// per_slot, the tile's sample (B4).  The state is x at step 0, then out.
+__device__ __noinline__ void phase_w_in(const Params& p, float* smem,
+                                        int step, bool per_slot) {
+  const int d = p.w.d_model, L = p.w.latent, T = p.w.time_dim;
+  const float* state = step == 0 ? p.x : p.out;
+  float* red = smem + kUnionFloats + kBM;
+  float* tv = red + kWarps * 32;
+  gemm_phase<false, false>(
+      p, smem, d, L, 1,
+      [&](int m0, int n0) {
+        return Tile{state + static_cast<long long>(m0) * L, p.w.w_in + n0,
+                    nullptr, L, d, 0, 0, nullptr};
+      },
+      [&](int m0, int n0) {
+        const int e = per_slot ? m0 / kSeq : step;
+        const float a = block_row_dot(p.th + static_cast<long long>(e) * T,
+                                      T, p.w.time_w2, d, n0, d, red);
+        if (threadIdx.x < 32) tv[threadIdx.x] = a;
+      },
+      [&](int m, int n, const float2 (&v)[1]) {
+        *reinterpret_cast<float2*>(p.h + static_cast<long long>(m) * d + n) =
+            make_float2(__fadd_rn(v[0].x, tv[n % kBN]),
+                        __fadd_rn(v[0].y, tv[n % kBN + 1]));
+      });
+}
+
+struct NoPre {
+  __device__ __forceinline__ void operator()(int, int) const {}
+};
+
+// [q k v] = rmsnorm(h, attn_norm) @ [wq wk wv] into the (M, H*64 + 2
+// Hkv*64) qkv buffer.
+__device__ __noinline__ void phase_qkv(const Params& p, float* smem,
+                                       int layer) {
+  const int d = p.w.d_model, hq = p.w.n_heads * kHD,
+            hkv = p.w.n_kv_heads * kHD, nq = hq + 2 * hkv;
+  const long long dd = d;
+  const float* wq = p.w.wq + layer * dd * hq;
+  const float* wk = p.w.wk + layer * dd * hkv;
+  const float* wv = p.w.wv + layer * dd * hkv;
+  const float* scale = p.w.attn_norm + layer * dd;
+  gemm_phase<true, false>(
+      p, smem, nq, d, 1,
+      [&](int m0, int n0) {
+        const float* A = p.h + static_cast<long long>(m0) * d;
+        if (n0 < hq) return Tile{A, wq + n0, nullptr, d, hq, 0, 0, scale};
+        if (n0 < hq + hkv)
+          return Tile{A, wk + (n0 - hq), nullptr, d, hkv, 0, 0, scale};
+        return Tile{A, wv + (n0 - hq - hkv), nullptr, d, hkv, 0, 0, scale};
+      },
+      NoPre{},
+      [&](int m, int n, const float2 (&v)[1]) {
+        *reinterpret_cast<float2*>(p.qkv + static_cast<long long>(m) * nq +
+                                   n) = v[0];
+      });
+}
+
+// h += a @ w (a: (M, Kd) activations), split-K: the attention output
+// projection and the MLP's down projection.
+__device__ __forceinline__ void residual_phase(const Params& p, float* smem,
+                                               const float* a, int Kd,
+                                               const float* w, int split) {
+  const int d = p.w.d_model;
+  gemm_phase<false, false>(
+      p, smem, d, Kd, split,
+      [&](int m0, int n0) {
+        return Tile{a + static_cast<long long>(m0) * Kd, w + n0, nullptr, Kd,
+                    d, 0, 0, nullptr};
+      },
+      NoPre{},
+      [&](int m, int n, const float2 (&v)[1]) {
+        float2* hp =
+            reinterpret_cast<float2*>(p.h + static_cast<long long>(m) * d + n);
+        const float2 o = __ldcg(hp);
+        *hp = make_float2(__fadd_rn(o.x, v[0].x), __fadd_rn(o.y, v[0].y));
+      });
+}
+
+__device__ __noinline__ void phase_wo(const Params& p, float* smem,
+                                      int layer) {
+  const int hq = p.w.n_heads * kHD;
+  residual_phase(p, smem, p.ao, hq,
+                 p.w.wo + layer * static_cast<long long>(hq) * p.w.d_model,
+                 p.split_wo);
+}
+
+__device__ __noinline__ void phase_down(const Params& p, float* smem,
+                                        int layer) {
+  const int dff = p.w.d_ff;
+  residual_phase(p, smem, p.ff, dff,
+                 p.w.w_down + layer * static_cast<long long>(dff) * p.w.d_model,
+                 p.split_dn);
+}
+
+// ff = silu(xn @ w_gate) * (xn @ w_up), xn = rmsnorm(h, mlp_norm).
+__device__ __noinline__ void phase_mlp(const Params& p, float* smem,
+                                       int layer) {
+  const int d = p.w.d_model, dff = p.w.d_ff;
+  const long long dd = d;
+  const float* wg = p.w.w_gate + layer * dd * dff;
+  const float* wu = p.w.w_up + layer * dd * dff;
+  const float* scale = p.w.mlp_norm + layer * dd;
+  gemm_phase<true, true>(
+      p, smem, dff, d, 1,
+      [&](int m0, int n0) {
+        return Tile{p.h + static_cast<long long>(m0) * d, wg + n0, wu + n0, d,
+                    dff, 0, 0, scale};
+      },
+      NoPre{},
+      [&](int m, int n, const float2 (&v)[2]) {
+        *reinterpret_cast<float2*>(p.ff + static_cast<long long>(m) * dff +
+                                   n) =
+            make_float2(__fmul_rn(silu(v[0].x), v[1].x),
+                        __fmul_rn(silu(v[0].y), v[1].y));
+      });
+}
+
+// out = attention of one 64 x 64 head tile already in shared memory (sQ,
+// sK with stride 65, q pre-scaled for FLASH; sV stride 64).
+template <bool FLASH, typename Store>
+__device__ __forceinline__ void attention_tile(const float* sQ,
+                                               const float* sK,
+                                               const float* sV, float* sP,
+                                               Store store) {
   if (FLASH) {
     repro::SoftmaxState<kSeq, kHD> st;
     st.init();
@@ -263,7 +737,8 @@ __device__ void attention_head(const float* q, int ldq, const float* k,
                                                        0);
     repro::softmax_finish<kSeq, kHD>(st, store);
   } else {
-    constexpr int RQ = kSeq / 16, RK = kSeq / 16, RD = kHD / 16;
+    constexpr int RQ = kSeq / 16, RK = kSeq / 16, RD = kHD / 16,
+                  PS = kSeq + 1;
     const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
     float s[RQ][RK];
     repro::qk_scores<kSeq, kSeq, kHD>(sQ, sK, s);
@@ -295,193 +770,342 @@ __device__ void attention_head(const float* q, int ldq, const float* k,
 #pragma unroll
       for (int r = 0; r < RD; ++r) store(ty * RQ + i, tx + 16 * r, pv[i][r]);
   }
-  __syncthreads();  // smem is reused by the next head
 }
 
-// ROWS is the scheduler tick (B4): one step (K = 1), block b reads its own
-// slot's embedding temb[b], and state element i of slot b takes coefficient
-// row b * rows_per_slot + i / 256 of the (R, 8) per-row block.
-template <bool CLIP, bool FLASH, bool ROWS>
-__global__ void __launch_bounds__(kThreads)
-megastep_kernel(const float* __restrict__ x, float* __restrict__ out,
-                ReproMegaWeights w, const float* __restrict__ temb,
-                const float* __restrict__ rope_cos,
-                const float* __restrict__ rope_sin,
-                const float* __restrict__ coefs, int K, float clip,
-                float* ws_base) {
-  extern __shared__ float smem[];
-  const int n_state = kSeq * w.latent;
-  float* sx = smem;                // the sample's state, whole launch
-  float* se = sx + n_state;        // its eps, per step
-  float* su = se + n_state;        // product / attention tiles
-  const int d = w.d_model, L = w.latent, T = w.time_dim, dff = w.d_ff;
-  const int H = w.n_heads, Hkv = w.n_kv_heads, G = H / Hkv;
-  const int hq = H * kHD, hkv = Hkv * kHD;
-  const Workspace ws =
-      carve(ws_base + blockIdx.x * workspace_floats(w), w);
-  const float* xb = x + static_cast<long long>(blockIdx.x) * n_state;
-
-  for (int i = threadIdx.x; i < n_state; i += kThreads) sx[i] = xb[i];
-  __syncthreads();
-
-  const int steps = ROWS ? 1 : K;
-  for (int step = 0; step < steps; ++step) {
-    // time conditioning: th = silu(temb @ time_w1), tv = th @ time_w2
-    const float* te =
-        temb + static_cast<long long>(ROWS ? blockIdx.x : step) * T;
-    for (int j = threadIdx.x; j < T; j += kThreads) {
-      float a = 0.0f;
-      for (int i = 0; i < T; ++i) a = fmaf(te[i], __ldg(w.time_w1 + i * T + j), a);
-      ws.th[j] = silu(a);
-    }
-    __syncthreads();
-    for (int j = threadIdx.x; j < d; j += kThreads) {
-      float a = 0.0f;
-      for (int i = 0; i < T; ++i) a = fmaf(ws.th[i], __ldg(w.time_w2 + i * d + j), a);
-      ws.tv[j] = a;
-    }
-    __syncthreads();
-    block_matmul<kAddRow>(sx, L, w.w_in, d, ws.h, d, d, L, ws.tv, su);
-
-    for (int layer = 0; layer < w.n_layers; ++layer) {
-      const long long dd = d;
-      const float* wq = w.wq + layer * dd * hq;
-      const float* wk = w.wk + layer * dd * hkv;
-      const float* wv = w.wv + layer * dd * hkv;
-      const float* wo = w.wo + layer * static_cast<long long>(hq) * d;
-      const float* wg = w.w_gate + layer * dd * dff;
-      const float* wu = w.w_up + layer * dd * dff;
-      const float* wdn = w.w_down + layer * static_cast<long long>(dff) * d;
-
-      norm_rows(ws.h, w.attn_norm + layer * d, ws.xn, d, w.norm_eps);
-      block_matmul<kStore>(ws.xn, d, wq, hq, ws.q, hq, hq, d, nullptr, su);
-      block_matmul<kStore>(ws.xn, d, wk, hkv, ws.k, hkv, hkv, d, nullptr, su);
-      block_matmul<kStore>(ws.xn, d, wv, hkv, ws.v, hkv, hkv, d, nullptr, su);
-      rope_rows(ws.q, ws.k, H, Hkv, rope_cos, rope_sin);
-      for (int h = 0; h < H; ++h)  // q head h reads kv head h / G
-        attention_head<FLASH>(ws.q + h * kHD, hq, ws.k + (h / G) * kHD,
-                              ws.v + (h / G) * kHD, hkv, ws.ao + h * kHD, hq,
-                              su);
-      block_matmul<kAccum>(ws.ao, hq, wo, d, ws.h, d, d, hq, nullptr, su);
-
-      norm_rows(ws.h, w.mlp_norm + layer * d, ws.xn, d, w.norm_eps);
-      block_matmul<kStore>(ws.xn, d, wg, dff, ws.ff, dff, dff, d, nullptr, su);
-      block_matmul<kSwiGLU>(ws.xn, d, wu, dff, ws.ff, dff, dff, d, nullptr,
-                            su);
-      block_matmul<kAccum>(ws.ff, dff, wdn, d, ws.h, d, d, dff, nullptr, su);
-    }
-    norm_rows(ws.h, w.out_norm, ws.xn, d, w.norm_eps);
-    block_matmul<kStore>(ws.xn, d, w.w_out, L, se, L, L, d, nullptr, su);
-
-    if (ROWS) {
-      const float* cb = coefs + static_cast<long long>(blockIdx.x) *
-                                    (n_state / kTileC) * kRowCoefs;
-      for (int i = threadIdx.x; i < n_state; i += kThreads) {
-        const float* cr = cb + (i / kTileC) * kRowCoefs;
-        const repro::Coefs c{cr[0], cr[1], cr[2], cr[3], cr[4]};
-        float x0;
-        sx[i] = repro::update<CLIP, false>(sx[i], se[i], c, clip, &x0);
-      }
-    } else {
-      const repro::Coefs c{coefs[step * 5 + 0], coefs[step * 5 + 1],
-                           coefs[step * 5 + 2], coefs[step * 5 + 3],
-                           coefs[step * 5 + 4]};
-      for (int i = threadIdx.x; i < n_state; i += kThreads) {
-        float x0;
-        sx[i] = repro::update<CLIP, false>(sx[i], se[i], c, clip, &x0);
+// One item per (sample, q head): RoPE on q and k as they are loaded (the
+// head dim splits into halves, [x1 c - x2 s, x2 c + x1 s]), q head h reads
+// kv head h / G; the result goes to columns h*64 of the (M, H*64) buffer.
+template <bool FLASH>
+__device__ __noinline__ void phase_attention(const Params& p, float* smem) {
+  constexpr int QS = kHD + 1, half = kHD / 2;
+  const int H = p.w.n_heads, Hkv = p.w.n_kv_heads, G = H / Hkv;
+  const int hq = H * kHD, nq = hq + 2 * Hkv * kHD;
+  float* sQ = smem;
+  float* sK = sQ + kSeq * QS;
+  float* sP = sK + kSeq * QS;
+  float* sV = sP + kSeq * (kSeq + 1);
+  // FLASH multiplies q by the softmax scale 1/sqrt(64) after RoPE, as
+  // streaming_attention_body; 'exact' divides the scores after the dot.
+  const float q_scale = FLASH ? 0.125f : 1.0f;
+  for (int item = block_rank(smem); item < p.batch * H; item += gridDim.x) {
+    const int b = item / H, hh = item % H, kvh = hh / G;
+    const float* base = p.qkv + static_cast<long long>(b) * kSeq * nq;
+    const float* q = base + hh * kHD;
+    const float* k = base + hq + kvh * kHD;
+    const float* v = base + hq + Hkv * kHD + kvh * kHD;
+    for (int i = threadIdx.x; i < kSeq * half / 4; i += kThreads) {
+      const int r = i / (half / 4), j = i % (half / 4) * 4;
+      const float4 c4 = __ldg(reinterpret_cast<const float4*>(
+          p.rope_cos + r * half + j));
+      const float4 s4 = __ldg(reinterpret_cast<const float4*>(
+          p.rope_sin + r * half + j));
+      const float4 qa = __ldcg(reinterpret_cast<const float4*>(q + r * nq + j));
+      const float4 qb =
+          __ldcg(reinterpret_cast<const float4*>(q + r * nq + j + half));
+      const float4 ka = __ldcg(reinterpret_cast<const float4*>(k + r * nq + j));
+      const float4 kb =
+          __ldcg(reinterpret_cast<const float4*>(k + r * nq + j + half));
+      const float cs[4] = {c4.x, c4.y, c4.z, c4.w},
+                  sn[4] = {s4.x, s4.y, s4.z, s4.w};
+      const float q1[4] = {qa.x, qa.y, qa.z, qa.w},
+                  q2[4] = {qb.x, qb.y, qb.z, qb.w};
+      const float k1[4] = {ka.x, ka.y, ka.z, ka.w},
+                  k2[4] = {kb.x, kb.y, kb.z, kb.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float* qr = sQ + r * QS + j + u;
+        float* kr = sK + r * QS + j + u;
+        qr[0] = __fmul_rn(
+            __fsub_rn(__fmul_rn(q1[u], cs[u]), __fmul_rn(q2[u], sn[u])),
+            q_scale);
+        qr[half] = __fmul_rn(
+            __fadd_rn(__fmul_rn(q2[u], cs[u]), __fmul_rn(q1[u], sn[u])),
+            q_scale);
+        kr[0] = __fsub_rn(__fmul_rn(k1[u], cs[u]), __fmul_rn(k2[u], sn[u]));
+        kr[half] = __fadd_rn(__fmul_rn(k2[u], cs[u]), __fmul_rn(k1[u], sn[u]));
       }
     }
+    for (int i = threadIdx.x; i < kSeq * kHD / 4; i += kThreads) {
+      const int r = i / (kHD / 4), c = i % (kHD / 4) * 4;
+      *reinterpret_cast<float4*>(sV + r * kHD + c) =
+          __ldcg(reinterpret_cast<const float4*>(v + r * nq + c));
+    }
     __syncthreads();
+    float* out = p.ao + static_cast<long long>(b) * kSeq * hq + hh * kHD;
+    attention_tile<FLASH>(sQ, sK, sV, sP, [&](int row, int col, float val) {
+      out[row * hq + col] = val;
+    });
+    __syncthreads();  // shared memory is reused by the next item
   }
+}
 
-  float* ob = out + static_cast<long long>(blockIdx.x) * n_state;
-  for (int i = threadIdx.x; i < n_state; i += kThreads) ob[i] = sx[i];
+// eps = rmsnorm(h, out_norm) @ w_out, split-K, then the update of the
+// state elements the tile covers: element idx = m * L + n of the flat
+// (batch, 64, L) state.  B3 reads the step's coefficients, B4 (ROWS) the
+// (R, 8) row idx / 256.
+template <bool CLIP, bool ROWS>
+__device__ __noinline__ void phase_out(const Params& p, float* smem,
+                                       int step) {
+  const int d = p.w.d_model, L = p.w.latent;
+  const float* prev = step == 0 ? p.x : p.out;
+  const bool from_input = step == 0;
+  gemm_phase<true, false>(
+      p, smem, L, d, p.split_out,
+      [&](int m0, int n0) {
+        return Tile{p.h + static_cast<long long>(m0) * d, p.w.w_out + n0,
+                    nullptr, d, L, 0, 0, p.w.out_norm};
+      },
+      NoPre{},
+      [&](int m, int n, const float2 (&v)[1]) {
+        const long long idx = static_cast<long long>(m) * L + n;
+        const float* cr =
+            ROWS ? p.coefs + idx / kTileC * kRowCoefs : p.coefs + step * 5;
+        const repro::Coefs c{__ldg(cr), __ldg(cr + 1), __ldg(cr + 2),
+                             __ldg(cr + 3), __ldg(cr + 4)};
+        const float2 x = from_input
+                             ? __ldg(reinterpret_cast<const float2*>(prev + idx))
+                             : __ldcg(reinterpret_cast<const float2*>(prev + idx));
+        float x0;
+        const float y0 = repro::update<CLIP, false>(x.x, v[0].x, c, p.clip, &x0);
+        const float y1 = repro::update<CLIP, false>(x.y, v[0].y, c, p.clip, &x0);
+        *reinterpret_cast<float2*>(p.out + idx) = make_float2(y0, y1);
+      });
+}
+
+// Phase trace (off when p.trace is null): block 0 records %globaltimer
+// (ns) at the start and after every phase, barrier included, so stamp i+1
+// - stamp i is phase i as the grid saw it.  2 + steps (2 + 5 n_layers)
+// stamps.
+__device__ __forceinline__ void stamp(const Params& p, int& n) {
+  if (p.trace != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    p.trace[n] = t;
+  }
+  ++n;
+}
+
+// ROWS is the scheduler tick (B4): one step (K = 1), slot b's tiles read
+// its own embedding, and state element i of slot b takes coefficient row
+// b * rows_per_slot + i / 256 of the (R, 8) per-row block.
+template <bool CLIP, bool FLASH, bool ROWS>
+__global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
+megastep_kernel(const __grid_constant__ Params p) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  cg::grid_group grid = cg::this_grid();
+  int n = 0;
+  stamp(p, n);
+  if (threadIdx.x == 0) {
+    unsigned smid;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
+    p.sm_of[blockIdx.x] = static_cast<int>(smid);
+  }
+  phase_time(p, smem);
+  grid.sync();
+  compute_rank(p, smem);
+  stamp(p, n);
+  const int steps = ROWS ? 1 : p.K;
+  for (int step = 0; step < steps; ++step) {
+    phase_w_in(p, smem, step, ROWS);
+    grid.sync();
+    stamp(p, n);
+    for (int layer = 0; layer < p.w.n_layers; ++layer) {
+      phase_qkv(p, smem, layer);
+      grid.sync();
+      stamp(p, n);
+      phase_attention<FLASH>(p, smem);
+      grid.sync();
+      stamp(p, n);
+      phase_wo(p, smem, layer);
+      grid.sync();
+      stamp(p, n);
+      phase_mlp(p, smem, layer);
+      grid.sync();
+      stamp(p, n);
+      phase_down(p, smem, layer);
+      grid.sync();
+      stamp(p, n);
+    }
+    phase_out<CLIP, ROWS>(p, smem, step);
+    if (step + 1 < steps) grid.sync();
+    stamp(p, n);
+  }
 }
 
 bool widths_ok(const ReproMegaWeights& w) {
   return w.n_layers >= 0 && w.n_heads > 0 && w.n_kv_heads > 0 &&
-         w.n_heads % w.n_kv_heads == 0 && w.d_model % kTK == 0 &&
-         w.d_ff % kTK == 0 && w.latent % kTK == 0 && w.latent <= 128 &&
+         w.n_heads % w.n_kv_heads == 0 && w.d_model % kBK == 0 &&
+         w.d_ff % kBK == 0 && w.latent % kBK == 0 && w.latent <= 128 &&
          w.time_dim % 4 == 0 && (kSeq * w.latent) % kTileC == 0;
 }
 
-template <bool CLIP, bool FLASH, bool ROWS>
-int launch(const float* x, float* out, const ReproMegaWeights& w,
-           const float* temb, const float* rope_cos, const float* rope_sin,
-           const float* coefs, int K, int batch, float clip, float* ws,
-           cudaStream_t s) {
-  const int bytes = (2 * kSeq * w.latent + kUnionFloats) * 4;
-  auto kern = megastep_kernel<CLIP, FLASH, ROWS>;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  kern<<<batch, kThreads, bytes, s>>>(x, out, w, temb, rope_cos, rope_sin,
-                                      coefs, K, clip, ws);
-  return static_cast<int>(cudaGetLastError());
+using Kernel = void (*)(Params);
+
+Kernel pick(bool clip, bool flash, bool rows) {
+  if (rows) {
+    if (clip)
+      return flash ? megastep_kernel<true, true, true>
+                   : megastep_kernel<true, false, true>;
+    return flash ? megastep_kernel<false, true, true>
+                 : megastep_kernel<false, false, true>;
+  }
+  if (clip)
+    return flash ? megastep_kernel<true, true, false>
+                 : megastep_kernel<true, false, false>;
+  return flash ? megastep_kernel<false, true, false>
+               : megastep_kernel<false, false, false>;
 }
 
-template <bool ROWS>
-int dispatch(const void* x, void* out, const ReproMegaWeights* w,
-             const void* temb, const void* rope_cos, const void* rope_sin,
-             const void* coefs, int K, int batch, int has_clip, float clip,
-             int flash, void* ws, void* stream) {
-  if (!widths_ok(*w) || K < 1 || batch < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const float* xf = static_cast<const float*>(x);
-  float* of = static_cast<float*>(out);
-  const float* tf = static_cast<const float*>(temb);
-  const float* cf = static_cast<const float*>(rope_cos);
-  const float* sf = static_cast<const float*>(rope_sin);
-  const float* kf = static_cast<const float*>(coefs);
-  float* wf = static_cast<float*>(ws);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (has_clip)
-    return flash ? launch<true, true, ROWS>(xf, of, *w, tf, cf, sf, kf, K,
-                                            batch, clip, wf, s)
-                 : launch<true, false, ROWS>(xf, of, *w, tf, cf, sf, kf, K,
-                                             batch, clip, wf, s);
-  return flash ? launch<false, true, ROWS>(xf, of, *w, tf, cf, sf, kf, K,
-                                           batch, clip, wf, s)
-               : launch<false, false, ROWS>(xf, of, *w, tf, cf, sf, kf, K,
-                                            batch, clip, wf, s);
+// Blocks per SM and SM count of one instantiation on the current device:
+// the shared-memory attribute is set and the occupancy queried once per
+// device.  Refuses a device without cooperative launch.
+cudaError_t residency(bool clip, bool flash, bool rows, int* per_sm,
+                      int* sms) {
+  static int cache[kMaxDevices][8][2];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int* c = cache[dev][(clip ? 4 : 0) + (flash ? 2 : 0) + (rows ? 1 : 0)];
+  if (c[0] == 0) {
+    int coop = 0, n_sm = 0, nb = 0;
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (err != cudaSuccess) return err;
+    if (!coop) return cudaErrorNotSupported;
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    const Kernel k = pick(clip, flash, rows);
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBytes);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, k, kThreads,
+                                                        kSmemBytes);
+    if (err != cudaSuccess) return err;
+    if (nb < 1) return cudaErrorCooperativeLaunchTooLarge;
+    c[1] = n_sm;
+    c[0] = nb < kMaxBlocksPerSM ? nb : kMaxBlocksPerSM;
+  }
+  *per_sm = c[0];
+  *sms = c[1];
+  return cudaSuccess;
+}
+
+cudaError_t plan_for(const ReproMegaWeights& w, int batch, bool clip,
+                     bool flash, bool rows, Plan* plan) {
+  if (!widths_ok(w) || batch < 1) return cudaErrorInvalidValue;
+  int per_sm = 0, sms = 0;
+  const cudaError_t err = residency(clip, flash, rows, &per_sm, &sms);
+  if (err != cudaSuccess) return err;
+  *plan = make_plan(w, batch, per_sm, sms);
+  return cudaSuccess;
+}
+
+int launch(const void* x, void* out, const ReproMegaWeights* w,
+           const void* temb, const void* rope_cos, const void* rope_sin,
+           const void* coefs, int K, int batch, int has_clip, float clip,
+           int flash, void* ws, void* trace, void* stream, bool rows) {
+  if (K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  Plan plan;
+  cudaError_t err = plan_for(*w, batch, has_clip, flash, rows, &plan);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_emb = rows ? batch : K;
+  const Layout l = layout(*w, batch, n_emb, plan);
+  float* base = static_cast<float*>(ws);
+  Params p;
+  p.w = *w;
+  p.x = static_cast<const float*>(x);
+  p.out = static_cast<float*>(out);
+  p.temb = static_cast<const float*>(temb);
+  p.rope_cos = static_cast<const float*>(rope_cos);
+  p.rope_sin = static_cast<const float*>(rope_sin);
+  p.coefs = static_cast<const float*>(coefs);
+  p.K = K;
+  p.batch = batch;
+  p.n_emb = n_emb;
+  p.n_cnt = static_cast<int>(l.n_cnt);
+  p.clip = clip;
+  p.h = base + l.h;
+  p.qkv = base + l.qkv;
+  p.ao = base + l.ao;
+  p.ff = base + l.ff;
+  p.th = base + l.th;
+  p.part = base + l.part;
+  p.ssq = base + l.ssq;
+  p.cnt = reinterpret_cast<int*>(base + l.cnt);
+  p.sm_of = reinterpret_cast<int*>(base + l.sm_of);
+  p.split_wo = plan.split_wo;
+  p.split_dn = plan.split_dn;
+  p.split_out = plan.split_out;
+  p.trace = static_cast<unsigned long long*>(trace);
+
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(plan.grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, pick(has_clip, flash, rows), p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Workspace floats one sample needs (the wrapper allocates batch of them).
-long long repro_megastep_workspace_floats(const ReproMegaWeights* w) {
-  return workspace_floats(*w);
+// The launch plan of one instantiation on the current device, into out[8]:
+// workspace floats (batch, n_emb embeddings), grid blocks, blocks per SM,
+// grid barriers per step, dynamic shared memory bytes, and the split-K
+// factors of wo, w_down and w_out.  Returns a cudaError_t (0 on success).
+int repro_megastep_plan(const ReproMegaWeights* w, int batch, int n_emb,
+                        int rows, int has_clip, int flash, long long* out) {
+  Plan plan;
+  const cudaError_t err = plan_for(*w, batch, has_clip, flash, rows, &plan);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = layout(*w, batch, n_emb, plan).total;
+  out[1] = plan.grid;
+  out[2] = plan.per_sm;
+  out[3] = 2 + 5 * w->n_layers;
+  out[4] = kSmemBytes;
+  out[5] = plan.split_wo;
+  out[6] = plan.split_dn;
+  out[7] = plan.split_out;
+  return 0;
 }
 
 // x, out: (batch * 64 * latent / 256, 256) float32 tile view, sample b at
 // flat offset b * 64 * latent; temb: (K, time_dim) sinusoidal embeddings of
 // the K timesteps; rope_cos / rope_sin: (64, 32); coefs: (K, 5) rows
-// [c_x0, c_dir, c_noise, sqrt_a_t, sqrt_1m_a_t]; ws: batch x
-// repro_megastep_workspace_floats floats.  All device pointers, float32,
+// [c_x0, c_dir, c_noise, sqrt_a_t, sqrt_1m_a_t]; ws: the plan's workspace
+// floats (repro_megastep_plan with n_emb = K); trace: null, or 2 + K (2 +
+// 5 n_layers) uint64 for the phase stamps.  All device pointers, float32,
 // 16-byte aligned.  Returns the cudaError_t of the launch (0 on success).
 int repro_megastep(const void* x, void* out, const ReproMegaWeights* w,
                    const void* temb, const void* rope_cos,
                    const void* rope_sin, const void* coefs, int K, int batch,
-                   int has_clip, float clip, int flash, void* ws,
+                   int has_clip, float clip, int flash, void* ws, void* trace,
                    void* stream) {
-  return dispatch<false>(x, out, w, temb, rope_cos, rope_sin, coefs, K, batch,
-                         has_clip, clip, flash, ws, stream);
+  return launch(x, out, w, temb, rope_cos, rope_sin, coefs, K, batch,
+                has_clip, clip, flash, ws, trace, stream, false);
 }
 
 // One scheduler tick (B4, replaces megastep_rows_call of
 // src/repro/kernels/megastep/kernel.py:269): as repro_megastep with K = 1,
-// but temb is (batch, time_dim), one embedding per slot, and coefs is the
+// but temb is (batch, time_dim), one embedding per slot, coefs is the
 // (R, 8) per-row block (sampler_step ops.expand_slot_coefs), R = batch * 64
-// * latent / 256.
+// * latent / 256, and ws is the plan's with rows = 1, n_emb = batch.
 int repro_megastep_rows(const void* x, void* out, const ReproMegaWeights* w,
                         const void* temb, const void* rope_cos,
                         const void* rope_sin, const void* row_coefs,
                         int batch, int has_clip, float clip, int flash,
-                        void* ws, void* stream) {
-  return dispatch<true>(x, out, w, temb, rope_cos, rope_sin, row_coefs, 1,
-                        batch, has_clip, clip, flash, ws, stream);
+                        void* ws, void* trace, void* stream) {
+  return launch(x, out, w, temb, rope_cos, rope_sin, row_coefs, 1, batch,
+                has_clip, clip, flash, ws, trace, stream, true);
 }
 
 }  // extern "C"

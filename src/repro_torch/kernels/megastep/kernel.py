@@ -11,11 +11,16 @@ Port of the two Pallas launchers in ``repro/kernels/megastep/kernel.py``:
 
 Each wrapper checks its inputs, computes the small constant tables the TPU
 kernel takes as hoisted constants (the sinusoidal time embeddings and the
-RoPE cos / sin table) with the plain functions, allocates the output and
-the activation workspace with ``torch.empty``, launches on PyTorch's
-current stream and counts the launch in its ``launches`` attribute.  On
-tensors that lie on the CPU it runs the plain version (``ref.py``) and
-counts nothing; on a CUDA tensor it launches or raises.
+RoPE cos / sin table) with the plain functions, asks the library for the
+launch plan (one cooperative grid of one or two blocks per SM, the split-K
+factors and the size of the one activation workspace of the whole batch),
+allocates the output and that workspace with ``torch.empty``, launches on
+PyTorch's current stream and counts the launch in its ``launches``
+attribute; ``last_plan`` holds the plan of its latest launch, and a CUDA
+int64 tensor set as its ``trace`` collects per-phase timestamps.  A
+refused launch raises; nothing falls back.  On tensors that lie on the
+CPU it runs the plain version (``ref.py``) and counts nothing; on a CUDA
+tensor it launches or raises.
 
 The kernel takes float32 state and weights, 64 tokens per sample and head
 dim 64 (the smollm-width slice); bfloat16 state is not ported.
@@ -45,6 +50,9 @@ _POINTERS = (("w_in",), ("time_w1",), ("time_w2",), ("out_norm",),
              ("layers", "attn", "wq"), ("layers", "attn", "wk"),
              ("layers", "attn", "wv"), ("layers", "attn", "wo"),
              ("layers", "w_gate"), ("layers", "w_up"), ("layers", "w_down"))
+# the fields of repro_megastep_plan's out[8], in order
+_PLAN = ("workspace_floats", "grid", "blocks_per_sm", "barriers_per_step",
+         "smem_bytes", "split_wo", "split_down", "split_out")
 _WIDTHS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
            "time_dim", "latent")
 
@@ -74,13 +82,14 @@ def _get(tree, path):
 def _lib() -> ctypes.CDLL:
     lib = build.load("megastep")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.repro_megastep_workspace_floats.argtypes = [ctypes.POINTER(_Weights)]
-    lib.repro_megastep_workspace_floats.restype = ctypes.c_longlong
+    lib.repro_megastep_plan.argtypes = [ctypes.POINTER(_Weights), I, I, I, I,
+                                        I, ctypes.POINTER(ctypes.c_longlong)]
+    lib.repro_megastep_plan.restype = I
     lib.repro_megastep.argtypes = [P, P, ctypes.POINTER(_Weights), P, P, P,
-                                   P, I, I, I, F, I, P, P]
+                                   P, I, I, I, F, I, P, P, P]
     lib.repro_megastep.restype = I
     lib.repro_megastep_rows.argtypes = [P, P, ctypes.POINTER(_Weights), P,
-                                        P, P, P, I, I, F, I, P, P]
+                                        P, P, P, I, I, F, I, P, P, P]
     lib.repro_megastep_rows.restype = I
     return lib
 
@@ -129,13 +138,30 @@ def _check_state(x2: torch.Tensor, params: Dict, cfg, batch: int,
     return {k: params[k] for k in EPS_PATH}
 
 
-def _launch(entry: str, x2: torch.Tensor, eps_params: Dict, cfg,
+def _trace_buffer(wrapper, steps: int, n_layers: int, dev):
+    """The phase-stamp buffer of ``wrapper.trace`` (None when off): a
+    CUDA int64 tensor of at least 2 + steps (2 + 5 n_layers) elements
+    that the launch fills with %globaltimer stamps (ns) of block 0, one
+    at the start and one after every phase and its grid barrier."""
+    t = wrapper.trace
+    if t is None:
+        return None
+    need = 2 + steps * (2 + 5 * n_layers)
+    if (t.dtype != torch.int64 or t.device != dev or t.numel() < need
+            or not t.is_contiguous()):
+        raise ValueError(f"trace must be a contiguous int64 tensor of >= "
+                         f"{need} elements on {dev}")
+    return t
+
+
+def _launch(wrapper, entry: str, x2: torch.Tensor, eps_params: Dict, cfg,
             batch: int, seq_len: int, ts: torch.Tensor,
             coefs: torch.Tensor, clip: Optional[float], attn_impl: str,
             *count) -> torch.Tensor:
-    """Check the card-side contract, build the sinusoid / RoPE tables and
-    the workspace, and launch ``entry``; ``count`` are the leading int
-    arguments that follow the coefficient pointer (K for B3)."""
+    """Check the card-side contract, build the sinusoid / RoPE tables, ask
+    for the launch plan, allocate the workspace and launch ``entry``;
+    ``count`` are the leading int arguments that follow the coefficient
+    pointer (K for B3).  Records the plan in ``wrapper.last_plan``."""
     if seq_len != KERNEL_SEQ:
         raise ValueError(f"the megakernel takes seq_len {KERNEL_SEQ}, got "
                          f"{seq_len}")
@@ -148,18 +174,26 @@ def _launch(entry: str, x2: torch.Tensor, eps_params: Dict, cfg,
     c32 = coefs.to(device=dev, dtype=torch.float32).contiguous()
     w = _weights(eps_params, cfg)
     lib = _lib()
-    ws = torch.empty(batch * lib.repro_megastep_workspace_floats(
-        ctypes.byref(w)), dtype=torch.float32, device=dev)
-    out = torch.empty_like(x2)
-    build.check_cuda(temb, cos, sin, c32, ws, out)
+    rows = entry == "repro_megastep_rows"
+    flash = attn_impl == "flash"
+    plan = (ctypes.c_longlong * len(_PLAN))()
     with torch.cuda.device(dev):
+        build.raise_on(lib.repro_megastep_plan(
+            ctypes.byref(w), batch, int(ts.shape[0]), rows, clip is not None,
+            flash, plan), "repro_megastep_plan")
+        ws = torch.empty(plan[0], dtype=torch.float32, device=dev)
+        out = torch.empty_like(x2)
+        build.check_cuda(temb, cos, sin, c32, ws, out)
+        trace = _trace_buffer(wrapper, int(ts.shape[0]) if not rows else 1,
+                              cfg.arch.n_layers, dev)
         err = getattr(lib, entry)(
             x2.data_ptr(), out.data_ptr(), ctypes.byref(w), temb.data_ptr(),
             cos.data_ptr(), sin.data_ptr(), c32.data_ptr(), *count, batch,
-            clip is not None, 0.0 if clip is None else float(clip),
-            attn_impl == "flash", ws.data_ptr(),
+            clip is not None, 0.0 if clip is None else float(clip), flash,
+            ws.data_ptr(), None if trace is None else trace.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     build.raise_on(err, entry)
+    wrapper.last_plan = dict(zip(_PLAN, plan))
     return out
 
 
@@ -188,13 +222,15 @@ def megastep_call(x2: torch.Tensor, params: Dict, cfg, batch: int,
     if x2.device.type == "cpu":
         return ref.megastep_ref(x2, eps_params, cfg, batch, seq_len, coefs,
                                 ts, clip=clip, attn_impl=attn_impl)
-    out = _launch("repro_megastep", x2, eps_params, cfg, batch, seq_len, ts,
-                  coefs, clip, attn_impl, K)
+    out = _launch(megastep_call, "repro_megastep", x2, eps_params, cfg,
+                  batch, seq_len, ts, coefs, clip, attn_impl, K)
     megastep_call.launches += 1
     return out
 
 
 megastep_call.launches = 0
+megastep_call.last_plan = None
+megastep_call.trace = None
 
 
 def megastep_rows_call(x2: torch.Tensor, params: Dict, cfg, batch: int,
@@ -228,10 +264,13 @@ def megastep_rows_call(x2: torch.Tensor, params: Dict, cfg, batch: int,
         return ref.megastep_rows_ref(x2, eps_params, cfg, batch, seq_len,
                                      row_coefs, slot_ts, clip=clip,
                                      attn_impl=attn_impl)
-    out = _launch("repro_megastep_rows", x2, eps_params, cfg, batch, seq_len,
-                  slot_ts, row_coefs, clip, attn_impl)
+    out = _launch(megastep_rows_call, "repro_megastep_rows", x2,
+                  eps_params, cfg, batch, seq_len, slot_ts, row_coefs, clip,
+                  attn_impl)
     megastep_rows_call.launches += 1
     return out
 
 
 megastep_rows_call.launches = 0
+megastep_rows_call.last_plan = None
+megastep_rows_call.trace = None

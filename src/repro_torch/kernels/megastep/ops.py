@@ -28,8 +28,10 @@ The TPU kernel keeps all of them in VMEM, and the JAX package admits a
 trunk when they fit 12 MiB of a ~16 MiB VMEM (``MEGA_VMEM_BUDGET``, a 75%
 share).  The H100 has no scratchpad that large: a block has at most 227 KB
 of shared memory.  The smallest on-card memory that holds a smollm-width
-trunk is the 50 MiB L2, where the megakernel's weights and workspace stay
-between its steps; the port takes the same 75% share of it:
+trunk is the 50 MiB L2, where the megakernel's weights and its one
+activation workspace for the whole batch (residual, q/k/v, attention and
+MLP activations, split-K partials: 5.5 MB at batch 4 x 64 tokens) stay
+between its phases; the port takes the same 75% share of it:
 0.75 x 50 x 2**20 = 39,321,600 B.  At smollm-135m widths that admits the
 2-layer trunk at batch 4 x 64 tokens (35.5 MB exact, 36.1 MB flash) and
 not batch 8 (42.8 MB) or the full 30 layers (432 MB)."""

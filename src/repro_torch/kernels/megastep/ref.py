@@ -16,6 +16,11 @@ row per tile row for B4).
     kernels' bodies (rmsnorm ``rms_norm_body``, flash_attention
     ``streaming_attention_body``), as the JAX ``eps_flash`` does: equal in
     exact arithmetic, not bitwise (it divides after the PV product).
+
+``tf32x3_matmul`` is the plain version of the kernels' 3xTF32 product
+(each float32 operand split into a TF32 big part and a TF32 remainder);
+the tests use it to hold the split against float64 and against the
+float32 trunk.  The plain versions above keep float32 products.
 """
 from __future__ import annotations
 
@@ -112,3 +117,23 @@ def megastep_rows_ref(x2: torch.Tensor, params, cfg, batch: int,
         out = update(x2.float(), e2.float(), c[:, 0:1], c[:, 1:2],
                      c[:, 3:4], c[:, 4:5], clip)[1]
     return out.to(x2.dtype)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the float32 value of its TF32 rounding, as
+    ``cvt.rna.tf32.f32`` gives it: keep sign, exponent and the top 10
+    mantissa bits, round to nearest with ties away from zero (add half of
+    the dropped 13 bits' range to the magnitude bits, then clear them)."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in float32 as the kernels' tensor-core products compute it:
+    a = a_big + a_small, b = b_big + b_small (big = TF32 rounding, small =
+    TF32 rounding of the remainder), then small.big + big.small + big.big;
+    the small.small term is dropped."""
+    a, b = a.to(torch.float32), b.to(torch.float32)
+    a_big, b_big = tf32_round(a), tf32_round(b)
+    a_small, b_small = tf32_round(a - a_big), tf32_round(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
