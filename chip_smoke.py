@@ -9,14 +9,19 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
   1. card     name and power limit (nvidia-smi); TF32 off for cuDNN and
               matmul, so float32 convolutions and products are float32
   2. build    every CUDA source of the port (one nvcc each, in parallel),
-              timed, with ptxas's register / spill lines for the new ones
+              timed, with ptxas's register / shared memory / spill lines
+              for the megakernel and the B5 / B6 sources
   3. kernels  each kernel against its plain PyTorch version on the card,
               with stated tolerances:
               B1/B2 over det/stoch x clip x float32/bfloat16 x R in {16,
               768 and the main path's 96 and 128} (+ want_x0 for B2);
-              B6 rms_norm over f32/bf16 x rows {256, 1000} x d {576, 192};
-              B5 flash_attention over f32/bf16 x causal/not at (36, 64, 64)
-              and (9, 2048, 64); B3 megastep_call at the slice's shape
+              B6 rms_norm over f32/bf16 x rows {256, 1000} x d {576, 192,
+              190} (190 takes the scalar row path; so does an unaligned
+              x at d 576), the row path checked from the launch plan;
+              B5 flash_attention over f32/bf16 x causal/not at (36, 64, 64),
+              (9, 2048, 64) and (8, 1024, 128) (one-, four- and two-warp
+              blocks), with the launch plan printed; B3 megastep_call at
+              the slice's shape
               (smollm width, 2 layers, batch 4 x 64 tokens) over
               exact/flash x clip none/1.0 x K {1, 8}; B4 megastep_rows_call
               at the same shape (every slot its own t and coefficient row,
@@ -51,7 +56,11 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               against a use_mega=False engine, rounded to tokens
   5. times    CUDA-graph-replayed kernel times at the main path's shapes
               beside their bound, the plain versions' and the library
-              call's times; the U-Net forward at batch 8; samples/s from
+              call's times (B6 at (256, 576), (2048, 576) and (16384, 576);
+              B5 at (36, 64, 64) full and (9, 2048, 64) causal, that one
+              in bf16 too, with the bound at the float32 SIMT rate beside
+              the bound on the units it uses; each with its launch plan);
+              the U-Net forward at batch 8; samples/s from
               serve and from generate on 'mega' and 'tile_resident';
               torch.profiler breakdowns of one steady serve batch and of
               one generate call on each of the two backends; B4 per tick,
@@ -86,6 +95,8 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
+BF16_OPS_PER_S = 989e12        # H100 SXM bfloat16 tensor cores, dense
 F32_ULP = 2.0 ** -23
 BF16_ULP = 2.0 ** -7
 CARD_SHAPE = (32, 32, 3)
@@ -222,12 +233,14 @@ def phase_build():
           f"{time.perf_counter() - t0:.2f} s into {build.BUILD_DIR}")
     for name in ("megastep", "flash_attention", "rmsnorm", "ddim_step"):
         lines = [ln.strip() for ln in build.build_log(name).splitlines()
-                 if "Used" in ln or "spill" in ln]
+                 if "Used" in ln or "spill" in ln
+                 or "Compiling entry" in ln]
         spills = [ln for ln in lines if "spill" in ln and not re.search(
             r"(?<!\d)0 bytes spill stores, 0 bytes spill loads", ln)]
         print(f"[build] {name}: {len(lines)} ptxas lines, {len(spills)} "
               f"with spills")
-        for ln in (lines if name == "megastep" else spills)[:16]:
+        full = name in ("megastep", "flash_attention", "rmsnorm")
+        for ln in (lines if full else spills)[:96]:
             print(f"[build]   {ln}")
 
 
@@ -535,6 +548,38 @@ def _check_repeat(name, first, second) -> None:
     check(same, f"{name}: two launches on the same inputs differ")
 
 
+def _check_row_path(plan, vector: bool) -> None:
+    """B6 took the vector (16-byte) row path or the scalar one."""
+    print(f"[kernels]   plan {plan}")
+    check(plan["vector"] == int(vector), f"B6 took the "
+          f"{'vector' if plan['vector'] else 'scalar'} row path, want the "
+          f"{'vector' if vector else 'scalar'} one")
+
+
+def _fa_plan(wrapper):
+    """B5's launch plan as the records keep it: grid, blocks per SM,
+    dynamic shared bytes, threads per block, KV tile rows, the warps that
+    share 16 query rows."""
+    p = wrapper.last_plan
+    return {"grid": p["grid_x"] * p["grid_y"], "grid_xy": [p["grid_x"],
+            p["grid_y"]], "blocks_per_sm": p["blocks_per_sm"],
+            "smem_bytes": p["smem_bytes"], "threads": p["threads"],
+            "kv_tile": p["kv_tile"], "kv_split": p["kv_split"]}
+
+
+def _vs_float64(q, k, v, causal, got, want) -> None:
+    """Print the float32 kernel's and its plain version's distance from
+    attention in float64, of max|out|."""
+    from repro_torch.kernels.flash_attention import ref as fref
+    exact = fref.attention_ref(q.double()[None], k.double()[None],
+                               v.double()[None], causal=causal)[0]
+    scale = float(exact.abs().max())
+    e_k = float((got.double() - exact).abs().max()) / scale
+    e_p = float((want.double() - exact).abs().max()) / scale
+    print(f"[kernels]   vs float64 attention: kernel {e_k:.3e}, plain "
+          f"{e_p:.3e} of max|out|")
+
+
 def phase_kernels_dlm(params2):
     """B6, B5 and B3 against their plain versions on the card."""
     from repro_torch.configs import DLM_SMOLLM_MEGA
@@ -542,6 +587,7 @@ def phase_kernels_dlm(params2):
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.megastep import kernel as mk
     from repro_torch.kernels.megastep import ref as mref
+    from repro_torch.kernels.rmsnorm import kernel as rk
     from repro_torch.kernels.rmsnorm import ops as rops
     from repro_torch.kernels.rmsnorm import ref as rref
     dev = torch.device("cuda")
@@ -551,7 +597,7 @@ def phase_kernels_dlm(params2):
         tag = "f32" if dtype == torch.float32 else "bf16"
         ulps = 4 * F32_ULP if dtype == torch.float32 else BF16_ULP
         for R in (256, 1000):            # 1000 goes through ops' padding
-            for d in (576, 192):
+            for d in (576, 192, 190):    # 190: the scalar row path
                 x = (torch.randn(R, d, generator=gen, device=dev) * 3
                      ).to(dtype)
                 sc = (torch.rand(d, generator=gen, device=dev) + 0.5
@@ -560,9 +606,20 @@ def phase_kernels_dlm(params2):
                            rops.rms_norm(x, sc), rref.rms_norm_body(x, sc,
                                                                     1e-5),
                            ulps)
+                _check_row_path(rk.rms_norm_2d.last_plan, d != 190)
+        # rows that start one element past a 16-byte boundary: scalar path
+        buf = (torch.randn(256 * 576 + 1, generator=gen, device=dev) * 3
+               ).to(dtype)
+        x = buf[1:].view(256, 576)
+        sc = (torch.rand(576, generator=gen, device=dev) + 0.5).to(dtype)
+        _check_rel(errs["rms_norm_2d"], f"B6 R=256 d=576 {tag} unaligned",
+                   rk.rms_norm_2d(x, sc), rref.rms_norm_body(x, sc, 1e-5),
+                   ulps)
+        _check_row_path(rk.rms_norm_2d.last_plan, False)
         rel = 2e-5 if dtype == torch.float32 else 2e-2
-        for BH, S, blk in ((36, DLM_SEQ, 64), (9, 2048, 128)):
-            q, k, v = (torch.randn(BH, S, 64, generator=gen, device=dev)
+        for BH, S, D, blk in ((36, DLM_SEQ, 64, 64), (9, 2048, 64, 128),
+                              (8, 1024, 128, 128)):
+            q, k, v = (torch.randn(BH, S, D, generator=gen, device=dev)
                        .to(dtype) for _ in range(3))
             for causal in (False, True):
                 got = fk.flash_attention(q, k, v, causal=causal,
@@ -570,9 +627,12 @@ def phase_kernels_dlm(params2):
                 want = fref.flash_attention_ref(q, k, v, causal=causal,
                                                 block_k=blk)
                 _check_rel(errs["flash_attention"],
-                           f"B5 ({BH}, {S}, 64) {tag} "
+                           f"B5 ({BH}, {S}, {D}) {tag} "
                            f"{'causal' if causal else 'full'}", got, want,
                            rel)
+                print(f"[kernels]   plan {_fa_plan(fk.flash_attention)}")
+                if dtype == torch.float32:
+                    _vs_float64(q, k, v, causal, got, want)
     coefs, ts = _plan_rows(DLM_S)
     n = DLM_BATCH * DLM_SEQ * DLM_SMOLLM_MEGA.latent_dim
     x2 = torch.randn(n // 256, 256, generator=gen, device=dev)
@@ -725,14 +785,36 @@ def _bound(n_bytes: float, n_ops: float):
 def _time_line(smi, label, rec):
     lib = ("none" if rec["library_ms"] is None
            else f"{rec['library_ms'] * 1e3:.2f} us")
-    grid = (f"; grid {rec['grid']} blocks ({rec['blocks_per_sm']} per SM), "
-            f"{rec['barriers_per_step']} grid barriers per step"
+    grid = (f"; grid {rec['grid']} blocks ({rec['blocks_per_sm']} per SM)"
             if "grid" in rec else "")
+    if "barriers_per_step" in rec:
+        grid += f", {rec['barriers_per_step']} grid barriers per step"
+    if "smem_bytes" in rec:
+        grid += (f", {rec['threads']} threads, {rec['smem_bytes']} B "
+                 f"dynamic shared memory")
     print(f"[times] {smi} | {label}: kernel {rec['ms'] * 1e3:.2f} us "
           f"({rec.get('timed_by', 'graph')}), plain "
           f"{rec['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
           f"{rec['bound_ms'] * 1e3:.3f} us ({rec['bound_by']}), "
           f"{rec['bound_ms'] / rec['ms']:.3f} of it{grid}")
+
+
+def _rn_plan(wrapper):
+    """B6's launch plan as the records keep it."""
+    p = wrapper.last_plan
+    return {"grid": p["grid"], "blocks_per_sm": p["blocks_per_sm"],
+            "smem_bytes": p["smem_bytes"], "threads": p["threads"],
+            "rows_per_block": p["rows_per_block"],
+            "vector": bool(p["vector"])}
+
+
+def _add_shape(recs, name, rec, primary: bool) -> None:
+    """Keep ``rec`` as ``name``'s record when ``primary``, and every timed
+    shape under the record's ``shapes``."""
+    shapes = recs.get(name, {}).get("shapes", []) + [rec]
+    if primary or name not in recs:
+        recs[name] = dict(rec)
+    recs[name]["shapes"] = shapes
 
 
 def _record(name, where, launches, err, rec):
@@ -813,25 +895,46 @@ def phase_times_dlm(smi, params2, errs, b3_launches, ops_launches):
     gen = torch.Generator(device=dev).manual_seed(77)
     recs = {}
 
-    # B6 at the trunk's norm shape: 256 tokens x d_model
-    R, d = DLM_BATCH * DLM_SEQ, cfg.arch.d_model
-    x = torch.randn(R, d, generator=gen, device=dev)
-    sc = torch.rand(d, generator=gen, device=dev) + 0.5
-    b_ms, b_by = _bound((2 * R * d + d) * 4, 4 * R * d)
-    recs["rms_norm_2d"] = dict(
-        ms=graph_ms(lambda: rk.rms_norm_2d(x, sc)),
-        plain_ms=graph_ms(lambda: rref.rms_norm_body(x, sc, 1e-5)),
-        library_ms=graph_ms(lambda: F.rms_norm(x, (d,), sc, 1e-5)),
-        bound_ms=b_ms, bound_by=b_by, shape=f"({R}, {d}) f32")
-    _time_line(smi, f"B6 rms_norm_2d ({R}, {d}) f32", recs["rms_norm_2d"])
+    # B6 at the trunk's norm shape (256 tokens), the ops path's (2048)
+    # and a prefill of 8 x 2048 tokens, whose 75.5 MB do not fit the L2;
+    # the ops path's shape is the record, the others ride along
+    d = cfg.arch.d_model
+    for R in (DLM_BATCH * DLM_SEQ, 2048, 16384):
+        x = torch.randn(R, d, generator=gen, device=dev)
+        sc = torch.rand(d, generator=gen, device=dev) + 0.5
+        b_ms, b_by = _bound((2 * R * d + d) * 4, 4 * R * d)
+        rec = dict(
+            ms=graph_ms(lambda: rk.rms_norm_2d(x, sc)),
+            plain_ms=graph_ms(lambda: rref.rms_norm_body(x, sc, 1e-5)),
+            library_ms=graph_ms(lambda: F.rms_norm(x, (d,), sc, 1e-5)),
+            bound_ms=b_ms, bound_by=b_by, shape=f"({R}, {d}) f32",
+            **_rn_plan(rk.rms_norm_2d))
+        _time_line(smi, f"B6 rms_norm_2d {rec['shape']}", rec)
+        _add_shape(recs, "rms_norm_2d", rec, primary=R == 2048)
 
-    # B5 at the trunk's attention shape and at one prefill-like shape
-    for BH, S, blk, causal in ((DLM_BATCH * cfg.arch.n_heads, DLM_SEQ, 64,
-                                False), (9, 2048, 128, True)):
+    # B5 at the trunk's attention shape and at the ops path's prefill
+    # (the record); bounds: bytes, the operations at the float32 SIMT rate
+    # (bound_simt_ms), and the operations on the units the kernel uses
+    # (bound_ms): 3 TF32 passes (2 bf16 passes) for the products plus the
+    # softmax at the float32 rate
+    for BH, S, blk, causal, dtype in (
+            (DLM_BATCH * cfg.arch.n_heads, DLM_SEQ, 64, False,
+             torch.float32),
+            (9, 2048, 128, True, torch.float32),
+            (9, 2048, 128, True, torch.bfloat16)):
         q, k, v = (torch.randn(BH, S, 64, generator=gen, device=dev)
-                   for _ in range(3))
+                   .to(dtype) for _ in range(3))
         pairs = BH * (S * (S + 1) // 2 if causal else S * S)
-        b_ms, b_by = _bound(4 * BH * S * 64 * 4, pairs * (4 * 64 + 5))
+        size = q.element_size()
+        t_bytes = 4 * BH * S * 64 * size / HBM_BYTES_PER_S * 1e3
+        t_simt = pairs * (4 * 64 + 5) / FP32_OPS_PER_S * 1e3
+        t_tc = (pairs * 4 * 64 * 3 / TF32_OPS_PER_S
+                if dtype == torch.float32
+                else pairs * 4 * 64 * 2 / BF16_OPS_PER_S) * 1e3 \
+            + pairs * 5 / FP32_OPS_PER_S * 1e3
+        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_tc \
+            else (t_tc, "operations")
+        tag = "f32" if dtype == torch.float32 else "bf16"
         rec = dict(
             ms=graph_ms(lambda: fk.flash_attention(
                 q, k, v, causal=causal, block_q=blk, block_k=blk)),
@@ -840,9 +943,17 @@ def phase_times_dlm(smi, params2, errs, b3_launches, ops_launches):
             library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
                 q[None], k[None], v[None], is_causal=causal)),
             bound_ms=b_ms, bound_by=b_by,
-            shape=f"({BH}, {S}, 64) f32 {'causal' if causal else 'full'}")
+            bound_simt_ms=max(t_bytes, t_simt),
+            shape=f"({BH}, {S}, 64) {tag} "
+                  f"{'causal' if causal else 'full'}",
+            **_fa_plan(fk.flash_attention))
         _time_line(smi, f"B5 flash_attention {rec['shape']}", rec)
-        recs.setdefault("flash_attention", rec)
+        print(f"[times]   B5 bound at the float32 SIMT rate "
+              f"{rec['bound_simt_ms'] * 1e3:.3f} us, on the units used "
+              f"{b_ms * 1e3:.3f} us; kernel / library "
+              f"{rec['ms'] / rec['library_ms']:.3f}")
+        _add_shape(recs, "flash_attention", rec,
+                   primary=causal and dtype == torch.float32)
 
     # B3: one 8-step launch at the slice's shape
     coefs, ts = _plan_rows(DLM_S)

@@ -114,13 +114,14 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def check_cuda(*tensors: torch.Tensor) -> None:
-    """A CUDA kernel's inputs: CUDA tensors, 16-byte aligned."""
+def check_cuda(*tensors: torch.Tensor, aligned: bool = True) -> None:
+    """A CUDA kernel's inputs: CUDA tensors, 16-byte aligned unless
+    ``aligned`` is False (a kernel with a path for unaligned rows)."""
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"the CUDA kernel needs CUDA tensors, got one "
                              f"on {t.device}")
-        if t.data_ptr() % 16:
+        if aligned and t.data_ptr() % 16:
             raise ValueError("the CUDA kernel needs 16-byte aligned tensors")
 
 

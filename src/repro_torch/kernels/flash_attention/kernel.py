@@ -1,12 +1,16 @@
 """Wrapper of the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
 
 Port of ``flash_attention`` in ``repro/kernels/flash_attention/kernel.py``.
-It checks its inputs, allocates the output with ``torch.empty``, launches
-on PyTorch's current stream and counts the launch in
-``flash_attention.launches``.  On tensors that lie on the CPU it runs the
-plain version (``ref.flash_attention_ref``) and counts nothing; on a CUDA
-tensor it launches or raises.  The kernel takes head dim 64 and block
-sizes 64 or 128.
+It checks its inputs (the block sizes as the JAX wrapper checks them),
+allocates the output with ``torch.empty``, launches on PyTorch's current
+stream and counts the launch in ``flash_attention.launches``;
+``flash_attention.last_plan`` holds the launch plan of its latest launch
+(grid, threads, shared bytes, blocks per SM, KV tile rows, and the
+warps that split the KV columns of 16 query rows).  On tensors that lie
+on the CPU it runs the plain version (``ref.flash_attention_ref``) and
+counts nothing; on a CUDA tensor it launches or raises.  The kernel tiles
+for the card whatever blocks the caller passes; it takes head dim 64 or
+128 and S a multiple of 64.
 """
 from __future__ import annotations
 
@@ -22,9 +26,12 @@ from . import ref
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
-KERNEL_HEAD_DIM = 64
-KERNEL_BLOCKS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_SEQ_MULTIPLE = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the fields of repro_flash_attention's plan[7], in order
+_PLAN = ("grid_x", "grid_y", "threads", "smem_bytes", "blocks_per_sm",
+         "kv_tile", "kv_split")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -32,7 +39,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     lib.repro_flash_attention.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I,
-                                          _I, _I, _I, _F, _P]
+                                          _I, _F, _P, _P]
     lib.repro_flash_attention.restype = _I
     return lib
 
@@ -56,24 +63,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError("q, k, v must share float32 or bfloat16")
-    if D != KERNEL_HEAD_DIM or block_q not in KERNEL_BLOCKS \
-            or block_k not in KERNEL_BLOCKS:
-        raise ValueError(f"the CUDA kernel takes D={KERNEL_HEAD_DIM} and "
-                         f"blocks in {KERNEL_BLOCKS}; got D={D}, blocks "
-                         f"({block_q}, {block_k})")
+    if D not in KERNEL_HEAD_DIMS or S % KERNEL_SEQ_MULTIPLE:
+        raise ValueError(f"the CUDA kernel takes D in {KERNEL_HEAD_DIMS} "
+                         f"and S a multiple of {KERNEL_SEQ_MULTIPLE}; got "
+                         f"D={D}, S={S}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")
     build.check_cuda(q, k, v)
     out = torch.empty_like(q)
+    plan = (ctypes.c_int * len(_PLAN))()
     with torch.cuda.device(q.device):
         err = _lib().repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[q.dtype], BH, S, D, block_q, block_k, bool(causal),
+            _DTYPE_CODES[q.dtype], BH, S, D, bool(causal),
             1.0 / math.sqrt(D),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            torch.cuda.current_stream(q.device).cuda_stream, plan)
     build.raise_on(err, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.last_plan = dict(zip(_PLAN, plan))
     return out
 
 
 flash_attention.launches = 0
+flash_attention.last_plan = None

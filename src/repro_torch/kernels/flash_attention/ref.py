@@ -12,6 +12,9 @@
     at once: the TPU kernel's query blocks only partition the rows, and the
     KV blocks it skips above the causal diagonal would add p = 0 with
     alpha = 1, so the result is the same.
+  * ``flash_attention_tiles_ref``: the CUDA kernel's float32 tile
+    arithmetic (64-row q tiles, its KV tiles in ascending order, 3xTF32
+    products), for the CPU tests to hold against the JAX kernel.
 """
 from __future__ import annotations
 
@@ -36,11 +39,20 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", probs.to(q.dtype), v)
 
 
+Q_TILE = 64   # query rows of the CUDA kernel's largest block
+
+
+def kernel_kv_tile(d: int, dtype: torch.dtype) -> int:
+    """KV rows per stage of the CUDA kernel (``Tiles<T, D>::BK`` in
+    ``csrc/flash_mma.cuh``): 64, or 32 for float32 at head dim 128."""
+    return 4096 // d if dtype == torch.float32 else 64
+
+
 def online_softmax_step(q, k, v, m_prev, l_prev, acc_prev, *, q_start: int,
-                        k_start: int, causal: bool):
+                        k_start: int, causal: bool, matmul=torch.matmul):
     """One KV-block update; q pre-scaled, all float32, leading batch dims
-    allowed.  Returns (m, l, acc)."""
-    s = q @ k.transpose(-1, -2)
+    allowed; ``matmul`` computes both products.  Returns (m, l, acc)."""
+    s = matmul(q, k.transpose(-1, -2))
     if causal:
         bq, bk = s.shape[-2:]
         rows = q_start + torch.arange(bq, device=s.device)[:, None]
@@ -51,7 +63,7 @@ def online_softmax_step(q, k, v, m_prev, l_prev, acc_prev, *, q_start: int,
     p = torch.exp(s - m_new)
     alpha = torch.exp(m_prev - m_new)
     l_new = alpha * l_prev + torch.sum(p, dim=-1, keepdim=True)
-    acc = acc_prev * alpha + p @ v
+    acc = acc_prev * alpha + matmul(p, v)
     return m_new, l_new, acc
 
 
@@ -83,3 +95,47 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    scale=scale, causal=causal,
                                    block_k=block_k)
     return out.to(q.dtype)
+
+
+def flash_attention_tiles_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = False,
+                              kv_split: int = 1) -> torch.Tensor:
+    """(BH, S, D) float32 -> (BH, S, D) float32 by the CUDA kernel's
+    float32 arithmetic: q tiles of ``Q_TILE / kv_split`` rows, q scaled
+    before the dot; for each, the KV tiles of ``kernel_kv_tile`` rows in
+    ascending order, under causal up to the one holding the tile's last
+    row; both products by the 3xTF32 split
+    (``megastep.ref.tf32x3_matmul``).  With ``kv_split`` P > 1 (the
+    kernel's choice for grids with fewer q tiles than SMs) every KV tile's
+    columns are cut into P slices, each slice runs its own recurrence,
+    and the P states merge at the end: m = max m_i, l = sum l_i e^(m_i -
+    m), acc likewise, in slice order."""
+    from repro_torch.kernels.megastep.ref import tf32x3_matmul
+    BH, S, D = q.shape
+    bk = kernel_kv_tile(D, torch.float32)
+    width, rows = bk // kv_split, Q_TILE // kv_split
+    scale = 1.0 / math.sqrt(D)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    for q0 in range(0, S, rows):
+        q1 = min(q0 + rows, S)
+        qs = q[:, q0:q1].float() * scale
+        lead = (BH, q1 - q0, 1)
+        states = []
+        for p in range(kv_split):
+            m = torch.full(lead, _NEG, dtype=torch.float32, device=q.device)
+            l = torch.zeros(lead, dtype=torch.float32, device=q.device)
+            acc = torch.zeros(qs.shape, dtype=torch.float32, device=q.device)
+            for k0 in range(0, q1 if causal else S, bk):
+                c0 = k0 + p * width
+                m, l, acc = online_softmax_step(
+                    qs, k[:, c0:c0 + width].float(),
+                    v[:, c0:c0 + width].float(), m, l, acc, q_start=q0,
+                    k_start=c0, causal=causal, matmul=tf32x3_matmul)
+            states.append((m, l, acc))
+        m, l, acc = states[0]
+        for mi, li, acci in states[1:]:
+            mn = torch.maximum(m, mi)
+            a0, a1 = torch.exp(m - mn), torch.exp(mi - mn)
+            m, l, acc = mn, l * a0 + li * a1, acc * a0 + acci * a1
+        out[:, q0:q1] = acc / torch.clamp(l, min=1e-20)
+    return out

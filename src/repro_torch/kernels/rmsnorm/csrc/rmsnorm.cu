@@ -7,31 +7,81 @@
 //
 // Bound on the H100: one read of x and scale and one write of out, a few
 // operations per element, so bytes bound it: (2 R d + d) x dtype size over
-// 3.35 TB/s.
+// 3.35 TB/s.  At the trunk's (256, 576) and the ops path's (2048, 576) the
+// rows stay in the 50 MB L2 under graph replay, so what sets the time is
+// latency: the launch, one round of loads, one reduction, one round of
+// stores.
 //
-// Design (the simple one): one warp per row, 8 rows per 256-thread block;
-// each lane strides over the row, the warp reduces the sum of squares with
-// shuffles, then the same lanes scale the row.  The row body is
-// rmsnorm_body.cuh, which the megastep kernel inlines too.
+// Design (rmsnorm_rows.cuh has the body): one pass.  A warp holds a row
+// in registers (up to 8 chunks per lane), loaded with 16-byte loads, all
+// issued at once; it reduces four independent partial sums per lane and
+// a warp shuffle, then scales from the registers and stores 16 bytes at a
+// time.  Rule for the grid: two rows (two warps) per 64-thread block, so
+// R = 256 runs 128 blocks and every row's loads are in flight together;
+// at large R an SM holds as many 64-thread blocks as its registers allow,
+// each with two rows of loads in flight.  Rows longer than a warp holds (d > 1,024 float32, 2,048
+// bfloat16) take up to 8 warps, one row per block, and add their warps'
+// partial sums in warp order through shared memory (so d <= 8,192
+// float32, 16,384 bfloat16).  Where d is not a multiple of the vector (4
+// float32, 8 bfloat16) or a pointer is not 16-byte aligned, the same
+// kernel runs its scalar row path: the same structure with one element
+// per chunk and 32 chunks per thread (d <= 8,192).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "rmsnorm/csrc/rmsnorm_body.cuh"
+#include <cstdint>
+
+#include "rmsnorm/csrc/rmsnorm_rows.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowsPerBlock = kThreads / 32;
+using repro::rn::chunks_per_thread;
+using repro::rn::kMaxThreads;
+using repro::rn::kRowsPerBlock;
+using repro::rn::rms_norm_rows_kernel;
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <typename T, bool VEC>
+int launch(const void* x, const void* scale, void* out, int R, int d,
+           float eps, cudaStream_t s, int* plan) {
+  constexpr int N = VEC ? 16 / static_cast<int>(sizeof(T)) : 1;
+  const int nc = d / N;
+  constexpr int per_warp = 32 * chunks_per_thread<VEC>();
+  const int wpr = (nc + per_warp - 1) / per_warp;
+  if (32 * wpr > kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
+  const int rpb = wpr == 1 ? kRowsPerBlock : 1;
+  const int threads = 32 * wpr * rpb;
+  const int blocks = (R + rpb - 1) / rpb;
+  const int bytes = wpr > 1 ? wpr * static_cast<int>(sizeof(float)) : 0;
+  auto kern = rms_norm_rows_kernel<T, VEC>;
+  int per_sm = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kern, threads, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  plan[0] = blocks;
+  plan[1] = threads;
+  plan[2] = rpb;
+  plan[3] = VEC ? 1 : 0;
+  plan[4] = bytes;
+  plan[5] = per_sm;
+  kern<<<blocks, threads, bytes, s>>>(static_cast<const T*>(x),
+                                      static_cast<const T*>(scale),
+                                      static_cast<T*>(out), R, d, eps, wpr);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-rms_norm_kernel(const T* __restrict__ x, const T* __restrict__ scale,
-                T* __restrict__ out, int R, int d, float eps) {
-  const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
-  if (row >= R) return;  // whole warps leave together
-  const long long off = static_cast<long long>(row) * d;
-  repro::rms_norm_row_warp<T>(x + off, scale, out + off, d, eps);
+int with_path(const void* x, const void* scale, void* out, int R, int d,
+              float eps, cudaStream_t s, int* plan) {
+  constexpr int N = 16 / static_cast<int>(sizeof(T));
+  const bool vec =
+      d % N == 0 && aligned16(x) && aligned16(scale) && aligned16(out);
+  return vec ? launch<T, true>(x, scale, out, R, d, eps, s, plan)
+             : launch<T, false>(x, scale, out, R, d, eps, s, plan);
 }
 
 }  // namespace
@@ -39,24 +89,19 @@ rms_norm_kernel(const T* __restrict__ x, const T* __restrict__ scale,
 extern "C" {
 
 // x, out: (R, d) contiguous; scale: (d,), all of one dtype (0 = float32,
-// 1 = bfloat16).  Returns the cudaError_t of the launch (0 on success).
+// 1 = bfloat16).  plan (6 ints) receives blocks, threads per block, rows
+// per block, the vector path (1) or the scalar one (0), dynamic shared
+// bytes and blocks per SM (occupancy).  Returns the cudaError_t of the
+// launch (0 on success).
 int repro_rms_norm_2d(const void* x, const void* scale, void* out, int dtype,
-                      int R, int d, float eps, void* stream) {
-  const int blocks = (R + kRowsPerBlock - 1) / kRowsPerBlock;
+                      int R, int d, float eps, void* stream, int* plan) {
+  if (R <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    rms_norm_kernel<float><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(scale),
-        static_cast<float*>(out), R, d, eps);
-  } else if (dtype == 1) {
-    rms_norm_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(scale),
-        static_cast<__nv_bfloat16*>(out), R, d, eps);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0)
+    return with_path<float>(x, scale, out, R, d, eps, s, plan);
+  if (dtype == 1)
+    return with_path<__nv_bfloat16>(x, scale, out, R, d, eps, s, plan);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -2,9 +2,11 @@
 
 Port of ``rms_norm_2d`` in ``repro/kernels/rmsnorm/kernel.py``.  It checks
 its inputs, allocates the output with ``torch.empty``, launches on
-PyTorch's current stream and counts the launch in ``rms_norm_2d.launches``.
-On tensors that lie on the CPU it runs the plain version (``ref.py``) and
-counts nothing; on a CUDA tensor it launches or raises.
+PyTorch's current stream and counts the launch in ``rms_norm_2d.launches``;
+``rms_norm_2d.last_plan`` holds the launch plan of its latest launch
+(blocks, threads, rows per block, vector or scalar row path, shared bytes,
+blocks per SM).  On tensors that lie on the CPU it runs the plain version
+(``ref.py``) and counts nothing; on a CUDA tensor it launches or raises.
 """
 from __future__ import annotations
 
@@ -19,13 +21,17 @@ from . import ref
 
 TILE_R = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the fields of repro_rms_norm_2d's plan[6], in order
+_PLAN = ("grid", "threads", "rows_per_block", "vector", "smem_bytes",
+         "blocks_per_sm")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("rmsnorm")
-    lib.repro_rms_norm_2d.argtypes = [_P, _P, _P, _I, _I, _I, _F, _P]
+    lib.repro_rms_norm_2d.argtypes = [_P, _P, _P, _I, _I, _I, _F, _P,
+                                      _P]
     lib.repro_rms_norm_2d.restype = _I
     return lib
 
@@ -48,16 +54,19 @@ def rms_norm_2d(x: torch.Tensor, scale: torch.Tensor, *,
                         f"{x.dtype} and {scale.dtype}")
     if not (x.is_contiguous() and scale.is_contiguous()):
         raise ValueError("x and scale must be contiguous")
-    build.check_cuda(x, scale)
+    build.check_cuda(x, scale, aligned=False)  # unaligned: scalar path
     out = torch.empty_like(x)
+    plan = (ctypes.c_int * len(_PLAN))()
     with torch.cuda.device(x.device):
         err = _lib().repro_rms_norm_2d(
             x.data_ptr(), scale.data_ptr(), out.data_ptr(),
             _DTYPE_CODES[x.dtype], R, x.shape[1], float(eps),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            torch.cuda.current_stream(x.device).cuda_stream, plan)
     build.raise_on(err, "rms_norm_2d")
     rms_norm_2d.launches += 1
+    rms_norm_2d.last_plan = dict(zip(_PLAN, plan))
     return out
 
 
 rms_norm_2d.launches = 0
+rms_norm_2d.last_plan = None

@@ -5,7 +5,9 @@ mode) and the model's grouped attention, on the same numpy inputs.
 Tolerances as ``test_kernels.py:17`` holds the JAX kernel: float32 2e-5,
 bfloat16 2e-2 (absolute and relative).  The online-softmax recurrence runs
 over the same KV blocks on both sides; the sums inside the products are
-taken in another order.
+taken in another order.  The CUDA kernel's own tile arithmetic (its q and
+KV tiles, 3xTF32 products) is emulated by ``ref.flash_attention_tiles_ref``
+and held to the JAX kernel at the same float32 tolerance.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +16,8 @@ import torch
 
 from repro.kernels import gqa_flash as j_gqa_flash
 from repro.kernels import mha_flash as j_mha_flash
+from repro.kernels.flash_attention.kernel import \
+    flash_attention as j_flash_attention
 from repro.models import attention as jattn
 from repro.models import common as jcommon
 from repro_torch.kernels.flash_attention import kernel as tk
@@ -42,12 +46,29 @@ def _close(got, want, dtype):
 
 @pytest.mark.parametrize("dtype", list(DT))
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("B,H,S,D", [(2, 2, 128, 64), (1, 2, 256, 32)],
-                         ids=str)
+@pytest.mark.parametrize("B,H,S,D", [(2, 2, 128, 64), (1, 2, 256, 32),
+                                     (1, 2, 128, 128)], ids=str)
 def test_mha_flash_matches_jax_kernel(B, H, S, D, causal, dtype):
     (jq, jk, jv), (tq, tk_, tv) = _qkv([(B, H, S, D)] * 3, dtype)
     _close(tops.mha_flash(tq, tk_, tv, causal=causal),
            j_mha_flash(jq, jk, jv, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("kv_split", [1, 4])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("B,H,S,D", [(2, 2, 128, 64), (1, 2, 128, 128)],
+                         ids=str)
+def test_kernel_tile_arithmetic_matches_jax_kernel(B, H, S, D, causal,
+                                                   kv_split):
+    """The CUDA kernel's float32 arithmetic (64-row q tiles, KV tiles of
+    64 rows at D 64 and 32 at D 128 in ascending order, 3xTF32 products;
+    with kv_split 4, 16-row q tiles whose KV columns four recurrences
+    share and merge) against the Pallas kernel in interpret mode."""
+    (jq, jk, jv), (tq, tk_, tv) = _qkv([(B * H, S, D)] * 3, "f32", seed=4)
+    assert tref.kernel_kv_tile(D, torch.float32) == 4096 // D
+    _close(tref.flash_attention_tiles_ref(tq, tk_, tv, causal=causal,
+                                          kv_split=kv_split),
+           j_flash_attention(jq, jk, jv, causal=causal), "f32")
 
 
 @pytest.mark.parametrize("block", [(64, 64), (128, 64)], ids=str)

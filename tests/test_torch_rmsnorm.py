@@ -21,7 +21,10 @@ from repro_torch.models import common as tcommon
 BF16_ULP = 2.0 ** -7
 DTYPES = {"f32": (np.float32, jnp.float32, torch.float32),
           "bf16": (np.float32, jnp.bfloat16, torch.bfloat16)}
-SHAPES = [(4, 128), (3, 17, 96), (2, 5, 7, 64), (1000, 256), (1, 64)]
+# the last two: the ops path's rows at smollm width, and a d that takes
+# the CUDA kernel's scalar row path (d % 4 != 0)
+SHAPES = [(4, 128), (3, 17, 96), (2, 5, 7, 64), (1000, 256), (1, 64),
+          (2048, 576), (256, 190)]
 
 
 def _inputs(shape, dtype, seed=0):
