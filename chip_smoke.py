@@ -556,15 +556,26 @@ def _check_row_path(plan, vector: bool) -> None:
           f"{'vector' if vector else 'scalar'} one")
 
 
-def _fa_plan(wrapper):
+def _fa_plan(p):
     """B5's launch plan as the records keep it: grid, blocks per SM,
     dynamic shared bytes, threads per block, KV tile rows, the warps that
     share 16 query rows."""
-    p = wrapper.last_plan
     return {"grid": p["grid_x"] * p["grid_y"], "grid_xy": [p["grid_x"],
             p["grid_y"]], "blocks_per_sm": p["blocks_per_sm"],
             "smem_bytes": p["smem_bytes"], "threads": p["threads"],
             "kv_tile": p["kv_tile"], "kv_split": p["kv_split"]}
+
+
+def _check_fa_plan(plan, BH, S, D, dtype) -> None:
+    """B5 launched with the KV tile and split that the CPU emulation
+    (``ref.flash_attention_tiles_ref``) assumes for this shape."""
+    from repro_torch.kernels.flash_attention import ref as fref
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    want = (fref.kernel_kv_tile(D, dtype), fref.kernel_kv_split(BH, S, n_sm))
+    print(f"[kernels]   plan {_fa_plan(plan)}")
+    check((plan["kv_tile"], plan["kv_split"]) == want,
+          f"B5 ({BH}, {S}, {D}) launched KV tile {plan['kv_tile']} and "
+          f"split {plan['kv_split']}; the emulation assumes {want}")
 
 
 def _vs_float64(q, k, v, causal, got, want) -> None:
@@ -617,8 +628,15 @@ def phase_kernels_dlm(params2):
                    ulps)
         _check_row_path(rk.rms_norm_2d.last_plan, False)
         rel = 2e-5 if dtype == torch.float32 else 2e-2
-        for BH, S, D, blk in ((36, DLM_SEQ, 64, 64), (9, 2048, 64, 128),
-                              (8, 1024, 128, 128)):
+        # every launch variant: head dim 64 and 128, each with 1, 2 and 4
+        # warps splitting the KV columns (the split on 132 SMs in [])
+        variants = set()
+        for BH, S, D, blk in ((36, DLM_SEQ, 64, 64),      # [4]
+                              (36, 128, 64, 64),          # [2]
+                              (9, 2048, 64, 128),         # [1]
+                              (2, 64, 128, 64),           # [4]
+                              (8, 1024, 128, 128),        # [2]
+                              (24, 2048, 128, 128)):      # [1]
             q, k, v = (torch.randn(BH, S, D, generator=gen, device=dev)
                        .to(dtype) for _ in range(3))
             for causal in (False, True):
@@ -630,9 +648,14 @@ def phase_kernels_dlm(params2):
                            f"B5 ({BH}, {S}, {D}) {tag} "
                            f"{'causal' if causal else 'full'}", got, want,
                            rel)
-                print(f"[kernels]   plan {_fa_plan(fk.flash_attention)}")
+                _check_fa_plan(fk.flash_attention.last_plan, BH, S, D,
+                               dtype)
+                variants.add((D, fk.flash_attention.last_plan["kv_split"]))
                 if dtype == torch.float32:
                     _vs_float64(q, k, v, causal, got, want)
+        check(variants == {(d, p) for d in (64, 128) for p in (1, 2, 4)},
+              f"B5 {tag}: the checks ran the variants {sorted(variants)}, "
+              f"not every head dim with every KV split")
     coefs, ts = _plan_rows(DLM_S)
     n = DLM_BATCH * DLM_SEQ * DLM_SMOLLM_MEGA.latent_dim
     x2 = torch.randn(n // 256, 256, generator=gen, device=dev)
@@ -913,10 +936,11 @@ def phase_times_dlm(smi, params2, errs, b3_launches, ops_launches):
         _add_shape(recs, "rms_norm_2d", rec, primary=R == 2048)
 
     # B5 at the trunk's attention shape and at the ops path's prefill
-    # (the record); bounds: bytes, the operations at the float32 SIMT rate
-    # (bound_simt_ms), and the operations on the units the kernel uses
-    # (bound_ms): 3 TF32 passes (2 bf16 passes) for the products plus the
-    # softmax at the float32 rate
+    # (the record).  bound_ms: bytes, or the operations at the rate of the
+    # inputs' type (float32 on the SIMT units; bfloat16: one pass on the
+    # tensor cores, the softmax at the float32 rate).  bound_tc_ms: on
+    # the units the float32 kernel uses, 3 TF32 passes for the products
+    # plus the softmax at the float32 rate (bfloat16: as bound_ms)
     for BH, S, blk, causal, dtype in (
             (DLM_BATCH * cfg.arch.n_heads, DLM_SEQ, 64, False,
              torch.float32),
@@ -925,15 +949,15 @@ def phase_times_dlm(smi, params2, errs, b3_launches, ops_launches):
         q, k, v = (torch.randn(BH, S, 64, generator=gen, device=dev)
                    .to(dtype) for _ in range(3))
         pairs = BH * (S * (S + 1) // 2 if causal else S * S)
-        size = q.element_size()
-        t_bytes = 4 * BH * S * 64 * size / HBM_BYTES_PER_S * 1e3
-        t_simt = pairs * (4 * 64 + 5) / FP32_OPS_PER_S * 1e3
-        t_tc = (pairs * 4 * 64 * 3 / TF32_OPS_PER_S
-                if dtype == torch.float32
-                else pairs * 4 * 64 * 2 / BF16_OPS_PER_S) * 1e3 \
-            + pairs * 5 / FP32_OPS_PER_S * 1e3
-        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_tc \
-            else (t_tc, "operations")
+        t_bytes = 4 * BH * S * 64 * q.element_size() / HBM_BYTES_PER_S * 1e3
+        t_soft = pairs * 5 / FP32_OPS_PER_S * 1e3
+        if dtype == torch.float32:
+            t_ops = pairs * 4 * 64 / FP32_OPS_PER_S * 1e3 + t_soft
+            t_tc = pairs * 4 * 64 * 3 / TF32_OPS_PER_S * 1e3 + t_soft
+        else:
+            t_ops = t_tc = pairs * 4 * 64 / BF16_OPS_PER_S * 1e3 + t_soft
+        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops \
+            else (t_ops, "operations")
         tag = "f32" if dtype == torch.float32 else "bf16"
         rec = dict(
             ms=graph_ms(lambda: fk.flash_attention(
@@ -942,16 +966,15 @@ def phase_times_dlm(smi, params2, errs, b3_launches, ops_launches):
                 q, k, v, causal=causal, block_k=blk), iters=10),
             library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
                 q[None], k[None], v[None], is_causal=causal)),
-            bound_ms=b_ms, bound_by=b_by,
-            bound_simt_ms=max(t_bytes, t_simt),
+            bound_ms=b_ms, bound_by=b_by, bound_tc_ms=max(t_bytes, t_tc),
             shape=f"({BH}, {S}, 64) {tag} "
                   f"{'causal' if causal else 'full'}",
-            **_fa_plan(fk.flash_attention))
+            **_fa_plan(fk.flash_attention.last_plan))
         _time_line(smi, f"B5 flash_attention {rec['shape']}", rec)
-        print(f"[times]   B5 bound at the float32 SIMT rate "
-              f"{rec['bound_simt_ms'] * 1e3:.3f} us, on the units used "
-              f"{b_ms * 1e3:.3f} us; kernel / library "
-              f"{rec['ms'] / rec['library_ms']:.3f}")
+        print(f"[times]   B5 bound on the units the kernel uses "
+              f"{rec['bound_tc_ms'] * 1e3:.3f} us, "
+              f"{rec['bound_tc_ms'] / rec['ms']:.3f} of it; kernel / "
+              f"library {rec['ms'] / rec['library_ms']:.3f}")
         _add_shape(recs, "flash_attention", rec,
                    primary=causal and dtype == torch.float32)
 

@@ -35,7 +35,8 @@
 // difference below 2^-21 of the product); one TF32 pass would not hold
 // the float32 tolerance.  bfloat16: mma.sync m16n8k16 with float32
 // accumulators; k and v are exact bfloat16, the float32 operands (q *
-// scale and p) are split into bfloat16 hi + lo, two passes.
+// scale and p) are split into bfloat16 hi + lo, two passes (one for q k^T
+// at D 64, where q * scale is exact in bfloat16).
 //
 // Fragment layouts.  A thread (g, c) = (lane / 4, lane % 4) holds score
 // elements (g, 2c), (g, 2c + 1), (g + 8, 2c), (g + 8, 2c + 1) of each
@@ -221,7 +222,12 @@ template <int D, int NJ>
 struct Ops<__nv_bfloat16, D, NJ> {
   using L = Tiles<__nv_bfloat16, D>;
   static_assert(NJ % 2 == 0, "p v takes k-steps of two score n-tiles");
-  uint32_t qh[D / 16][4], ql[D / 16][4];  // q * scale = hi + lo
+  // Where D is a power of 4, scale = 1 / sqrt(D) is a power of two and
+  // q * scale is exact in bfloat16 (unless it falls below 2^-126, where
+  // less than 2^-133 is lost): lo is zero and its pass is left out.
+  static constexpr bool kSplitQ = (D & (D - 1)) || (D & 0xAAAAAAAA);
+  // q * scale = hi + lo
+  uint32_t qh[D / 16][4], ql[kSplitQ ? D / 16 : 1][4];
 
   __device__ __forceinline__ void load_q(const __nv_bfloat16* q, float scale,
                                          int g, int c) {
@@ -232,8 +238,10 @@ struct Ops<__nv_bfloat16, D, NJ> {
         const int row = g + 8 * (i & 1), col = kk * 16 + 2 * c + 8 * (i >> 1);
         const __nv_bfloat162 x =
             *reinterpret_cast<const __nv_bfloat162*>(q + row * D + col);
+        uint32_t lo;
         split_bf16x2(__fmul_rn(__low2float(x), scale),
-                     __fmul_rn(__high2float(x), scale), qh[kk][i], ql[kk][i]);
+                     __fmul_rn(__high2float(x), scale), qh[kk][i], lo);
+        if constexpr (kSplitQ) ql[kk][i] = lo;
       }
     }
   }
@@ -253,7 +261,7 @@ struct Ops<__nv_bfloat16, D, NJ> {
             sK + (col0 + j * 8 + g) * L::KS + kk * 16 + 2 * c;
         const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr);
         const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + 8);
-        mma_bf16(s[j], ql[kk], b0, b1);
+        if constexpr (kSplitQ) mma_bf16(s[j], ql[kk], b0, b1);
         mma_bf16(s[j], qh[kk], b0, b1);
       }
     }

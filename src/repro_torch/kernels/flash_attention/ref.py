@@ -48,11 +48,19 @@ def kernel_kv_tile(d: int, dtype: torch.dtype) -> int:
     return 4096 // d if dtype == torch.float32 else 64
 
 
+def kernel_kv_split(bh: int, s: int, n_sm: int) -> int:
+    """The warps P that split the KV columns of 16 query rows
+    (``with_split`` in ``csrc/flash_attention.cu``): 1 while the 64-row q
+    tiles are at least the SMs, else 2 while twice as many are, else 4."""
+    tiles = bh * (s // Q_TILE)
+    return 1 if tiles >= n_sm else 2 if 2 * tiles >= n_sm else 4
+
+
 def online_softmax_step(q, k, v, m_prev, l_prev, acc_prev, *, q_start: int,
-                        k_start: int, causal: bool, matmul=torch.matmul):
+                        k_start: int, causal: bool):
     """One KV-block update; q pre-scaled, all float32, leading batch dims
-    allowed; ``matmul`` computes both products.  Returns (m, l, acc)."""
-    s = matmul(q, k.transpose(-1, -2))
+    allowed.  Returns (m, l, acc)."""
+    s = q @ k.transpose(-1, -2)
     if causal:
         bq, bk = s.shape[-2:]
         rows = q_start + torch.arange(bq, device=s.device)[:, None]
@@ -63,7 +71,7 @@ def online_softmax_step(q, k, v, m_prev, l_prev, acc_prev, *, q_start: int,
     p = torch.exp(s - m_new)
     alpha = torch.exp(m_prev - m_new)
     l_new = alpha * l_prev + torch.sum(p, dim=-1, keepdim=True)
-    acc = acc_prev * alpha + matmul(p, v)
+    acc = acc_prev * alpha + p @ v
     return m_new, l_new, acc
 
 
@@ -104,8 +112,8 @@ def flash_attention_tiles_ref(q: torch.Tensor, k: torch.Tensor,
     float32 arithmetic: q tiles of ``Q_TILE / kv_split`` rows, q scaled
     before the dot; for each, the KV tiles of ``kernel_kv_tile`` rows in
     ascending order, under causal up to the one holding the tile's last
-    row; both products by the 3xTF32 split
-    (``megastep.ref.tf32x3_matmul``).  With ``kv_split`` P > 1 (the
+    row, the recurrence of ``online_softmax_step`` with both products by
+    the 3xTF32 split (``megastep.ref.tf32x3_matmul``).  With ``kv_split`` P > 1 (the
     kernel's choice for grids with fewer q tiles than SMs) every KV tile's
     columns are cut into P slices, each slice runs its own recurrence,
     and the P states merge at the end: m = max m_i, l = sum l_i e^(m_i -
@@ -120,6 +128,8 @@ def flash_attention_tiles_ref(q: torch.Tensor, k: torch.Tensor,
         q1 = min(q0 + rows, S)
         qs = q[:, q0:q1].float() * scale
         lead = (BH, q1 - q0, 1)
+        rows_i = torch.arange(q0, q1, device=q.device)[:, None]
+        cols_i = torch.arange(width, device=q.device)[None, :]
         states = []
         for p in range(kv_split):
             m = torch.full(lead, _NEG, dtype=torch.float32, device=q.device)
@@ -127,10 +137,17 @@ def flash_attention_tiles_ref(q: torch.Tensor, k: torch.Tensor,
             acc = torch.zeros(qs.shape, dtype=torch.float32, device=q.device)
             for k0 in range(0, q1 if causal else S, bk):
                 c0 = k0 + p * width
-                m, l, acc = online_softmax_step(
-                    qs, k[:, c0:c0 + width].float(),
-                    v[:, c0:c0 + width].float(), m, l, acc, q_start=q0,
-                    k_start=c0, causal=causal, matmul=tf32x3_matmul)
+                sc = tf32x3_matmul(
+                    qs, k[:, c0:c0 + width].float().transpose(-1, -2))
+                if causal:
+                    sc = torch.where(rows_i >= c0 + cols_i, sc, _NEG)
+                m_new = torch.maximum(m, torch.amax(sc, -1, keepdim=True))
+                pr = torch.exp(sc - m_new)
+                alpha = torch.exp(m - m_new)
+                l = alpha * l + torch.sum(pr, -1, keepdim=True)
+                acc = acc * alpha + tf32x3_matmul(
+                    pr, v[:, c0:c0 + width].float())
+                m = m_new
             states.append((m, l, acc))
         m, l, acc = states[0]
         for mi, li, acci in states[1:]:

@@ -65,7 +65,6 @@ def test_kernel_tile_arithmetic_matches_jax_kernel(B, H, S, D, causal,
     with kv_split 4, 16-row q tiles whose KV columns four recurrences
     share and merge) against the Pallas kernel in interpret mode."""
     (jq, jk, jv), (tq, tk_, tv) = _qkv([(B * H, S, D)] * 3, "f32", seed=4)
-    assert tref.kernel_kv_tile(D, torch.float32) == 4096 // D
     _close(tref.flash_attention_tiles_ref(tq, tk_, tv, causal=causal,
                                           kv_split=kv_split),
            j_flash_attention(jq, jk, jv, causal=causal), "f32")
