@@ -14,7 +14,10 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
   3. kernels  each kernel against its plain PyTorch version on the card,
               with stated tolerances:
               B1/B2 over det/stoch x clip x float32/bfloat16 x R in {16,
-              768 and the main path's 96 and 128} (+ want_x0 for B2);
+              768 and the main path's 96 and 128} (+ want_x0 for B2), and
+              at R 96 / 128 in every other launch variant that
+              kernels/launch_probe.py times (block size, elements per
+              thread, programmatic dependent launch);
               B6 rms_norm over f32/bf16 x rows {256, 1000} x d {576, 192,
               190} (190 takes the scalar row path; so does an unaligned
               x at d 576), the row path checked from the launch plan;
@@ -36,12 +39,23 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               (eta=1, S=10), plan.run(backend='rows') runs one batch; B1/B2
               must grow by exactly S per batch; outputs are checked against
               the eager path and the U-Net against its own CPU forward;
+              the paper's encode / decode / interpolation at CIFAR10 width,
+              batch 8: plan.encode, then a 'tile_resident' decode at S=20
+              and S=50 (B1 exactly S times each) against an 'eager' decode
+              of the same latent (1e-5 of max|x|), with the reconstruction
+              MSE printed; 8 slerp points between two encodings decoded as
+              one batch (B1 S times), whose ends must match the decodes of
+              the two latents (1e-5 of max|x|);
               diffusion-LM generate(tile_resident=True) at S=20, batch 4 x
               64 tokens: DLM_SMOLLM_MEGA (2 layers, eligible) must launch B3
               exactly ceil(20/8) = 3 times and B1 0 times, DLM_SMOLLM (30
               layers, not eligible) B3 0 times and B1 20 times, with the
               eligibility reason printed; plan.run 'mega' (exact and flash)
-              against 'tile_resident' on the card;
+              against 'tile_resident' on the card; DLM_SMOLLM_MEGA at
+              (2, 128), eligible by the JAX rule but past the CUDA
+              megakernel's 64 tokens: generate returns tokens through B1
+              (B3 0 times, run_mega.last_reason printed) and 'mega' equals
+              'tile_resident' within 1e-3;
               the attention / norm ops at smollm width and prefill length
               (rms_norm, gqa_flash causal), against the model's plain ones;
               the continuous-batching scheduler on the CIFAR10 U-Net:
@@ -54,7 +68,15 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               the scheduler's mega tick on DLM_SMOLLM_MEGA (4 slots x 64
               tokens, 8 requests S {10, 20}): B4 once per tick, B2 never,
               against a use_mega=False engine, rounded to tokens
-  5. times    CUDA-graph-replayed kernel times at the main path's shapes
+  5. times    the launch floor: the sampler-step library's empty kernel,
+              graph-replayed and per Python call, at 1 block and at every
+              grid B1 / B2 take; B1 / B2 (det and stoch, R = 96 / 128 and
+              768) beside that floor and their bytes bound; the pair "the
+              op that produces eps on the path, then B1 / B2",
+              graph-replayed, beside the producer alone, in every launch
+              variant (kernels/launch_probe.py; run it with --src on a
+              parent checkout for the time before);
+              CUDA-graph-replayed kernel times at the main path's shapes
               beside their bound, the plain versions' and the library
               call's times (B6 at (256, 576), (2048, 576) and (16384, 576);
               B5 at (36, 64, 64) full and (9, 2048, 64) causal, that one
@@ -72,9 +94,10 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               of one steady tick of each engine, and the host time of each
               piece of the mega tick's work before B4
 
-Any failure raises and the script exits nonzero with no result line.  On
-success the second-to-last line is the kernels' JSON record and the last
-line is {"ok": true, "device": {...}}.
+Every time is printed beside the card's name and power limit.  Any failure
+raises and the script exits nonzero with no result line.  On success the
+second-to-last line is the kernels' JSON record (B1 / B2 with floor_ms and
+the pair's times) and the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -83,7 +106,6 @@ import dataclasses
 import json
 import math
 import re
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -104,6 +126,10 @@ BATCH = 8
 KERNEL_SOURCE = "src/repro_torch/kernels/sampler_step/csrc/sampler_step.cu"
 TPU_KERNEL = "src/repro/kernels/sampler_step/kernel.py"
 DLM_BATCH, DLM_SEQ, DLM_S, DLM_K = 4, 64, 20, 8
+MEGA_FALLBACK = (2, 128)       # (batch, seq_len) past the megakernel's limits
+ODE_S = (20, 50)               # encode / decode trajectory lengths
+ODE_VS_EAGER_TOL = 1e-5        # of max|x|, the U-Net tolerance on the card
+SLERP_POINTS = 8
 SCHED_SLOTS = 8
 SCHED_VS_EAGER_TOL = 1e-5      # of max|x|, scheduler eta=0 vs a lone eager run
 DLM_SCHED_S = (10, 20)
@@ -138,45 +164,11 @@ def check(ok: bool, what: str) -> None:
 
 
 # ----------------------------------------------------------------- timing
-def graph_ms(fn, iters: int = 50, reps: int = 5) -> float:
-    """Device time of one call of ``fn``: ``iters`` calls captured in one
-    CUDA graph, the graph replayed ``reps`` times between CUDA events."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * iters)
-
-
-def loop_ms(fn, iters: int = 200) -> float:
-    """Time of one call of ``fn`` issued from Python in a loop (CUDA
-    events): what the step loop pays per launch, host overhead included."""
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+# graph_ms (CUDA-graph replay), loop_ms (per Python call) and main_rows
+# (the rows of the (R, 256) state that B1 and B2 take on the main path at
+# batch BATCH) come from repro_torch/kernels/launch_probe.py, imported in
+# main() once src/ is on the path.
+graph_ms = loop_ms = main_rows = None
 
 
 def bound_ms(n_elems: int, elem_bytes: int, n_streams: int,
@@ -200,21 +192,10 @@ def bound_ms(n_elems: int, elem_bytes: int, n_streams: int,
 OPS_STEP, OPS_NOISE = 3, 37
 
 
-def main_rows():
-    """Rows of the (R, 256) state the main path gives each kernel at batch
-    BATCH: the tile layout (B1) and the slot layout (B2)."""
-    from repro_torch.kernels.sampler_step import ops
-    r_main = ops.to_tile_layout(
-        torch.empty((BATCH,) + CARD_SHAPE, device="meta"))[0].shape[0]
-    return r_main, BATCH * ops.slot_rows(CARD_SHAPE)
-
-
 # ----------------------------------------------------------------- phases
 def phase_card() -> str:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    from repro_torch.kernels.launch_probe import card
+    smi = card()
     print(smi)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -250,25 +231,34 @@ def _tolerance(dtype, exact: bool, scale: float) -> float:
     return 0.0 if exact else 4 * F32_ULP * scale
 
 
-def _report(errs, name, got, want, dtype, exact) -> None:
+def _report(errs, name, got, want, dtype, exact, quiet=False) -> None:
     got, want = got.float(), want.float()
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
     tol = _tolerance(dtype, exact, scale)
     ok = bool(torch.isfinite(got).all()) and err <= tol
-    print(f"[kernels] {name:<44} max|d|={err:.3e} tol={tol:.3e} "
-          f"{'ok' if ok else 'FAIL'}")
+    if not (ok and quiet):
+        print(f"[kernels] {name:<44} max|d|={err:.3e} tol={tol:.3e} "
+              f"{'ok' if ok else 'FAIL'}")
     check(ok, f"{name}: max|d| {err} > tol {tol}")
     errs.append(err)
 
 
 def phase_kernels():
-    """B1 and B2 against their plain versions on the card."""
+    """B1 and B2 against their plain versions on the card: as the main path
+    launches them at every R, and in every other launch variant (block
+    size, programmatic dependent launch) at the main path's R."""
+    from repro_torch.kernels.launch_probe import (launch_of, variants,
+                                                  with_variant)
     from repro_torch.kernels.sampler_step import kernel, ref
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
     coefs = torch.tensor([0.9, 0.3, 1.0, 0.6, 0.8])   # c_noise = 1.0
     errs = {"sampler_step_2d": [], "sampler_step_rows_2d": []}
+    b1, b2 = kernel.sampler_step_2d, kernel.sampler_step_rows_2d
+    as_built = launch_of(b1)
+    check(as_built == launch_of(b2), "B1 and B2 launch alike")
+    inputs = {}
     # the 8-row granule, the main path's shapes (B1's and B2's), 256-row tiles
     for R in sorted({16, *main_rows(), 768}):
         x32 = torch.randn(R, 256, generator=gen, device=dev) * 2
@@ -278,6 +268,10 @@ def phase_kernels():
         row_seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (R,),
                                   generator=gen, device=dev,
                                   dtype=torch.int32)
+        inputs[R] = (x32, e32, row_coefs, row_seeds)
+
+    def cases(R, errs, quiet):
+        x32, e32, row_coefs, row_seeds = inputs[R]
         for dtype in (torch.float32, torch.bfloat16):
             x, e = x32.to(dtype), e32.to(dtype)
             tag = "f32" if dtype == torch.float32 else "bf16"
@@ -292,7 +286,7 @@ def phase_kernels():
                         x, e, coefs.to(dev), -98765, clip=clip,
                         stochastic=stoch)
                     _report(errs["sampler_step_2d"], "B1 " + name, got,
-                            want, dtype, exact)
+                            want, dtype, exact, quiet)
                     for want_x0 in (False, True):
                         kw = dict(clip=clip, stochastic=stoch,
                                   want_x0=want_x0)
@@ -304,10 +298,27 @@ def phase_kernels():
                         if want_x0:
                             _report(errs["sampler_step_rows_2d"],
                                     sub + " [x0]", got[1], want[1], dtype,
-                                    exact=dtype == torch.float32)
+                                    dtype == torch.float32, quiet)
                             got, want = got[0], want[0]
                         _report(errs["sampler_step_rows_2d"], sub, got,
-                                want, dtype, exact and not want_x0)
+                                want, dtype, exact and not want_x0, quiet)
+
+    print(f"[kernels] B1 / B2 as the main path launches them: {as_built}")
+    for R in inputs:
+        cases(R, errs, quiet=False)
+    for v in variants(b1):
+        if v == as_built:
+            continue
+        verrs = {k: [] for k in errs}
+        with_variant(b1, v, lambda: with_variant(b2, v, lambda: [
+            cases(R, verrs, quiet=True) for R in main_rows()]))
+        print(f"[kernels] B1 / B2 launched with {v} at R {main_rows()}: "
+              f"{sum(map(len, verrs.values()))} cases, max|d| B1 "
+              f"{max(verrs['sampler_step_2d']):.3e}, B2 "
+              f"{max(verrs['sampler_step_rows_2d']):.3e}, all within "
+              "tolerance (exact cases bitwise)")
+        for k, v_errs in verrs.items():
+            errs[k] += v_errs
     torch.cuda.synchronize()
     return {k: max(v) for k, v in errs.items()}
 
@@ -395,6 +406,66 @@ def phase_main(model):
     return launches, st_det, svc, det
 
 
+def phase_main_ode(smi, model):
+    """The paper's encode -> decode (Table 2) and slerp interpolation
+    (Fig. 6) at CIFAR10 width, counted: every decode runs 'tile_resident'
+    and launches B1 exactly S times, and is held against an 'eager' decode
+    of the same latent on the card, within ODE_VS_EAGER_TOL of max|x|."""
+    from repro_torch.core import slerp
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.models.unet import make_eps_fn
+    from repro_torch.sampling import SamplerPlan
+    eps_fn = make_eps_fn(model)
+    sch = make_schedule("linear", 1000)
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    x0 = torch.randn((BATCH,) + CARD_SHAPE, generator=gen,
+                     device="cuda").clamp(-1.0, 1.0)      # image-scale data
+
+    def decode(plan, z, what):
+        _zero_counts()
+        out = plan.run(eps_fn, z, backend="tile_resident")
+        torch.cuda.synchronize()
+        counts = _counts()
+        check(counts == {"B1": plan.S, "B2": 0, "B3": 0, "B4": 0},
+              f"{what}: launches {counts}, want B1 == S == {plan.S}")
+        return out, counts["B1"]
+
+    launches = 0
+    for S in ODE_S:
+        plan = SamplerPlan.build(sch, S)
+        z = plan.encode(eps_fn, x0)
+        rec, n1 = decode(plan, z, f"decode S={S}")
+        launches += n1
+        want = plan.run(eps_fn, z, backend="eager")
+        rel = float((rec - want).abs().max() / want.abs().max())
+        mse = float(((rec - x0) ** 2).mean())
+        print(f"[main] {smi} | encode -> decode CIFAR10_UNET batch "
+              f"{BATCH}, S={S} (uniform tau): B1 launches {n1}; decode "
+              f"tile_resident vs eager max|d|/max|x| = {rel:.3e} (tol "
+              f"{ODE_VS_EAGER_TOL:g});"
+              f" max|z| {float(z.abs().max()):.4g}; reconstruction MSE per "
+              f"dimension {mse:.4e} (random weights: not a quality figure)")
+        check(bool(torch.isfinite(rec).all()) and rec.shape == x0.shape
+              and rel <= ODE_VS_EAGER_TOL,
+              f"decode S={S}: tile_resident vs eager {rel}")
+    plan = SamplerPlan.build(sch, ODE_S[0])
+    z = plan.encode(eps_fn, x0[:2])
+    alphas = torch.linspace(0.0, 1.0, SLERP_POINTS, device="cuda")
+    path, n1 = decode(plan, slerp(z[0], z[1], alphas), "slerp decode")
+    launches += n1
+    ends = plan.run(eps_fn, z, backend="tile_resident")
+    rel = max(float((path[i] - ends[j]).abs().max() / ends[j].abs().max())
+              for i, j in ((0, 0), (-1, 1)))
+    print(f"[main] {smi} | slerp: {SLERP_POINTS} points between two "
+          f"encodings, decoded as one batch (S={plan.S}): B1 launches {n1}; "
+          f"alpha 0 / 1 vs the decodes of the two latents: max|d|/max|x| "
+          f"= {rel:.3e} (tol {ODE_VS_EAGER_TOL:g}); path shape "
+          f"{tuple(path.shape)}")
+    check(bool(torch.isfinite(path).all()) and rel <= ODE_VS_EAGER_TOL,
+          f"slerp endpoints: {rel} > {ODE_VS_EAGER_TOL}")
+    return launches
+
+
 def profile_call(smi: str, label: str, fn, marker: str) -> None:
     """torch.profiler over one steady call of ``fn``: device kernel time by
     kernel, and the device's idle share of the same call's wall time
@@ -432,13 +503,46 @@ def profile_call(smi: str, label: str, fn, marker: str) -> None:
         print(f"[profile]   {us / 1e3:8.3f} ms  {count:5d}x  {key[:90]}")
 
 
+def _floor(smi):
+    """The empty kernel's times by (blocks, threads, pdl), printed."""
+    from repro_torch.kernels.launch_probe import floor
+    out = {}
+    for r in floor():
+        out[r["blocks"], r["threads"], r["pdl"]] = r
+        print(f"[times] {smi} | floor: empty kernel, {r['blocks']} blocks x "
+              f"{r['threads']} threads, pdl {r['pdl']}: "
+              f"{r['graph_ms'] * 1e3:.2f} us (graph), "
+              f"{r['loop_ms'] * 1e3:.2f} us per Python call")
+    return out
+
+
+def _pairs(smi):
+    """Each step kernel alone and after its producer, every launch variant
+    (launch_probe.pairs), printed; returns the records."""
+    from repro_torch.kernels.launch_probe import ROUNDS, pairs
+    recs = pairs()
+    for r in recs:
+        rng = r["pair_ms_range"]
+        print(f"[times] {smi} | pair {r['kernel']} R={r['R']} {r['variant']}"
+              f" {r['launch']}: alone {r['alone_ms'] * 1e3:.2f} us, "
+              f"producer {r['producer_ms'] * 1e3:.2f} us, producer + step "
+              f"{r['pair_ms'] * 1e3:.2f} us (range {rng[0] * 1e3:.2f}-"
+              f"{rng[1] * 1e3:.2f}), step in the pair "
+              f"{r['step_in_pair_ms'] * 1e3:.2f} us (graph, median of "
+              f"{ROUNDS} rounds)")
+    return recs
+
+
 def phase_times(smi: str, model, errs, launches, st_det):
+    """B1 / B2 alone at the main path's R and at 768, the U-Net forward and
+    serve's samples/s.  Returns B1 / B2's records, and their times alone by
+    (name, R, stochastic) for phase_launch."""
     from repro_torch.kernels.sampler_step import kernel, ref
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(99)
     coefs = torch.tensor([0.9, 0.3, 1.0, 0.6, 0.8])
     coefs_dev = coefs.to(dev)
-    records = {}
+    records, alone = {}, {}
     r_main, rows_main = main_rows()
     for kname, shapes in (("sampler_step_2d", (r_main, 768)),
                           ("sampler_step_rows_2d", (rows_main, 768))):
@@ -464,14 +568,16 @@ def phase_times(smi: str, model, errs, launches, st_det):
                 n = R * 256
                 ops_pe = OPS_STEP + (OPS_NOISE if stoch else 0)
                 b_ms, b_by = bound_ms(n, 4, 3, extra, ops_pe)
-                t = {"ms": graph_ms(fn), "plain_ms": graph_ms(plain),
+                # 2,000 launches a window, as launch_probe.pairs times them
+                t = {"ms": graph_ms(fn, 100, 20), "plain_ms": graph_ms(plain),
                      "call_ms": loop_ms(fn), "bound_ms": b_ms,
                      "bound_by": b_by}
-                variant = "stoch" if stoch else "det"
-                print(f"[times] {smi} | {kname} R={R} f32 {variant}: "
-                      f"kernel {t['ms'] * 1e3:.2f} us (graph), "
-                      f"{t['call_ms'] * 1e3:.2f} us per Python call; "
-                      f"plain {t['plain_ms'] * 1e3:.2f} us; bound "
+                alone[kname, R, stoch] = t
+                print(f"[times] {smi} | {kname} R={R} f32 "
+                      f"{'stoch' if stoch else 'det'}: kernel "
+                      f"{t['ms'] * 1e3:.2f} us (graph), "
+                      f"{t['call_ms'] * 1e3:.2f} us per Python call; plain "
+                      f"{t['plain_ms'] * 1e3:.2f} us; bound "
                       f"{b_ms * 1e3:.3f} us ({b_by})")
                 if R == shapes[0] and not stoch:
                     records[kname] = dict(t, R=R, variant="f32 det")
@@ -496,7 +602,48 @@ def phase_times(smi: str, model, errs, launches, st_det):
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "call_ms": r["call_ms"], "R": r["R"],
             "variant": r["variant"]})
-    return kernels
+    return kernels, alone
+
+
+def phase_launch(smi, b_kernels, alone) -> None:
+    """The launch floor and the producer + step pairs (launch_probe), run
+    last, so that the end-to-end rates are measured before its ~450 CUDA
+    graph captures, as they were before this phase existed.  Prints B1 / B2
+    alone beside the empty kernel at their grid and adds floor_ms and the
+    pair's times to their records."""
+    from repro_torch.kernels.launch_probe import launch_of
+    from repro_torch.kernels.sampler_step import kernel
+    floors = _floor(smi)
+    for (kname, R, stoch), t in alone.items():
+        wrapper = getattr(kernel, kname)
+        per = kernel.elems_per_thread(wrapper, stoch)
+        blocks = kernel.grid(R, wrapper.block_threads, per)
+        fl = floors[blocks, wrapper.block_threads, False]
+        print(f"[times] {smi} | {kname} R={R} f32 "
+              f"{'stoch' if stoch else 'det'} ({blocks} blocks x "
+              f"{wrapper.block_threads}, {per} per thread, pdl "
+              f"{wrapper.pdl}): kernel {t['ms'] * 1e3:.2f} us (graph) beside "
+              f"the empty kernel at that grid, {fl['graph_ms'] * 1e3:.2f} us "
+              f"(graph) and {fl['loop_ms'] * 1e3:.2f} us per Python call; "
+              f"bound {t['bound_ms'] * 1e3:.3f} us ({t['bound_by']})")
+        if not stoch:
+            rec = next(k for k in b_kernels if k["name"] == kname)
+            if rec["R"] == R:
+                rec.update(floor_ms=fl["graph_ms"],
+                           floor_call_ms=fl["loop_ms"])
+    pairs = _pairs(smi)
+    for rec in b_kernels:
+        built = launch_of(getattr(kernel, rec["name"]))
+        mine = [p for p in pairs if p["kernel"] == rec["name"]]
+        det = next(p for p in mine if p["launch"] == built
+                   and p["variant"] == "det")
+        rec.update(pair_ms=det["pair_ms"], producer_ms=det["producer_ms"],
+                   step_in_pair_ms=det["step_in_pair_ms"], launch=built,
+                   launch_variants=[
+                       {k: p[k] for k in ("variant", "launch", "alone_ms",
+                                          "pair_ms", "producer_ms",
+                                          "step_in_pair_ms")}
+                       for p in mine])
 
 
 # ------------------------------------------------- the diffusion-LM slice
@@ -676,7 +823,7 @@ def phase_kernels_dlm(params2):
     return {k: max(v) for k, v in errs.items()}
 
 
-def phase_main_dlm(params2, params30):
+def phase_main_dlm(smi, params2, params30):
     """generate() on the eligible 2-layer and the ineligible 30-layer
     smollm-width trunk, counted; 'mega' against 'tile_resident'."""
     from repro_torch.configs import DLM_SMOLLM, DLM_SMOLLM_MEGA
@@ -733,7 +880,43 @@ def phase_main_dlm(params2, params30):
         check(backends.run_mega.last_reason == "ok" and rel <= 1e-3,
               f"mega {impl} vs tile_resident: {rel} > 1e-3")
     eps.mega_spec = spec
+    _mega_fallback(smi, sch, sampler, params2)
     return b3_launches
+
+
+def _mega_fallback(smi, sch, sampler, params2):
+    """(2, 128) over DLM_SMOLLM_MEGA: eligible by the JAX rule, but past
+    the CUDA megakernel's 64 tokens, so 'mega' runs the tile-resident loop
+    (B1 S times, B3 never) and returns what 'tile_resident' returns."""
+    from repro_torch.configs import DLM_SMOLLM_MEGA as cfg
+    from repro_torch.diffusion_lm import generate, make_tile_eps_fn
+    from repro_torch.sampling import backends
+    batch, seq = MEGA_FALLBACK
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    _zero_counts()
+    tokens = generate(params2, cfg, sch, gen, batch, seq, sampler,
+                      tile_resident=True)
+    torch.cuda.synchronize()
+    counts, why = _counts(), backends.run_mega.last_reason
+    print(f"[main] {smi} | generate {cfg.arch.name} (S={DLM_S}, batch "
+          f"{batch} x {seq} tokens, tile_resident=True): run_mega.last_reason "
+          f"{why!r}; launches {counts}; tokens {tuple(tokens.shape)}, first "
+          f"row {tokens[0, :8].tolist()}")
+    check(counts == {"B1": DLM_S, "B2": 0, "B3": 0, "B4": 0}
+          and "seq_len" in why, f"(2, 128) generate: launches {counts}, "
+          f"reason {why!r}")
+    check(tokens.shape == (batch, seq) and 0 <= int(tokens.min())
+          and int(tokens.max()) < cfg.arch.vocab, "(2, 128): bad tokens")
+    x_T = torch.randn(batch, seq, cfg.latent_dim, generator=gen,
+                      device="cuda")
+    eps = make_tile_eps_fn(params2, cfg, batch, seq)
+    plan = sampler.to_plan(sch)
+    got = plan.run(eps, x_T, backend="mega")
+    want = plan.run(eps, x_T, backend="tile_resident")
+    rel = float((got - want).abs().max() / want.abs().max())
+    print(f"[main] {smi} | plan.run mega vs tile_resident at ({batch}, "
+          f"{seq}): max|d|/max|x| = {rel:.3e} (tol 1e-3)")
+    check(rel <= 1e-3, f"(2, 128) mega vs tile_resident: {rel} > 1e-3")
 
 
 def phase_ops_path():
@@ -1331,7 +1514,8 @@ def _host_prep(smi, eng, label):
         ("expand_slot_coefs", lambda: sops.expand_slot_coefs(
             states.coef_matrix(), eng._rps)),
         ("wrapper checks", lambda: mk._check_kernel_inputs(
-            x2, mk._check_state(x2, params, cfg, B, S, spec.attn_impl), cfg)),
+            x2, mk._check_state(x2, params, cfg, B, S, spec.attn_impl), cfg,
+            S)),
         ("sinusoid", lambda: sinusoidal_time_embedding(
             states.t, cfg.time_dim).contiguous()),
         ("RoPE table", lambda: rope_freqs(torch.arange(S, device=dev),
@@ -1470,7 +1654,9 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    global graph_ms, loop_ms, main_rows
     from repro_torch.configs import DLM_SMOLLM, DLM_SMOLLM_MEGA
+    from repro_torch.kernels.launch_probe import graph_ms, loop_ms, main_rows
     t0 = time.perf_counter()
     smi = phase_card()
     phase_build()
@@ -1480,13 +1666,16 @@ def main() -> int:
     errs_sched = phase_kernels_sched(params2)
     model = _cifar10_model()
     launches, st_det, svc, det = phase_main(model)
-    b3_launches = phase_main_dlm(params2, _dlm_params(DLM_SMOLLM))
+    # B1 runs on three main paths: serve, decode and interpolation
+    launches["sampler_step_2d"] += phase_main_ode(smi, model)
+    b3_launches = phase_main_dlm(smi, params2, _dlm_params(DLM_SMOLLM))
     ops_launches = phase_ops_path()
     sched_counts, eng_unet = phase_main_sched(model)
     dlm_counts, dlm_mega, dlm_plain = phase_main_dlm_sched(params2)
     # B2 runs on two main paths: the lockstep rows run and the scheduler
     launches["sampler_step_rows_2d"] += sched_counts["B2"]
-    kernels = phase_times(smi, model, errs, launches, st_det)
+    b_kernels, alone = phase_times(smi, model, errs, launches, st_det)
+    kernels = list(b_kernels)
     kernels += phase_times_dlm(smi, params2, errs_dlm, b3_launches,
                                ops_launches)
     kernels += phase_times_sched(smi, params2, errs_sched, dlm_counts["B4"],
@@ -1495,6 +1684,12 @@ def main() -> int:
     profile_call(smi, f"one serve batch (eta=0, S={det.S}, batch "
                  f"{svc.batch})", lambda: svc.sample_batch(det, gen),
                  "step_kernel")
+    z = det.encode(svc.eps_fn, torch.randn((BATCH,) + CARD_SHAPE,
+                                           generator=gen, device="cuda"))
+    profile_call(smi, f"one decode (encoded latent, S={det.S}, batch "
+                 f"{BATCH}, tile_resident)", lambda: det.run(
+                     svc.eps_fn, z, backend="tile_resident"), "step_kernel")
+    phase_launch(smi, b_kernels, alone)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

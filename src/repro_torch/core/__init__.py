@@ -1,11 +1,25 @@
 """Core diffusion math (port of ``repro.core``): schedules, the solver,
-the scalar-knob sampler adapter and the scheduler's single-step API."""
-from .sampler import (SamplerConfig, StepStates, sample, sample_step,
-                      slot_tile_step, step_table)
+the forward process and losses, the scalar-knob sampler adapter and the
+scheduler's single-step API, the ODE view (encode / decode) and latent
+interpolation.  ddim_sample / ddpm_sample / multistep_sample are
+deprecated shims."""
+from .diffusion import (eps_from_x0, gamma_weights, posterior_sigma,
+                        predict_x0, q_sample, sigma_hat, simple_loss,
+                        training_loss)
+from .interpolate import slerp, slerp_grid
+from .ode import decode, encode, multistep_sample, probability_flow_sample
+from .sampler import (SamplerConfig, StepStates, ddim_sample, ddpm_sample,
+                      sample, sample_step, slot_tile_step, step_table,
+                      trajectory_coefficients)
 from .schedules import NoiseSchedule, make_schedule, make_tau
 from .solver import AB_COEFS, MAX_ORDER, mix_history, warmup_weights
 
-__all__ = ["NoiseSchedule", "SamplerConfig", "StepStates", "make_schedule",
-           "make_tau", "sample", "sample_step", "slot_tile_step",
-           "step_table", "AB_COEFS", "MAX_ORDER", "mix_history",
-           "warmup_weights"]
+__all__ = ["NoiseSchedule", "make_schedule", "make_tau",
+           "q_sample", "predict_x0", "eps_from_x0", "posterior_sigma",
+           "sigma_hat", "gamma_weights", "simple_loss", "training_loss",
+           "SamplerConfig", "StepStates", "trajectory_coefficients",
+           "sample", "sample_step", "slot_tile_step", "step_table",
+           "ddim_sample", "ddpm_sample",
+           "encode", "decode", "probability_flow_sample", "multistep_sample",
+           "slerp", "slerp_grid",
+           "AB_COEFS", "MAX_ORDER", "mix_history", "warmup_weights"]

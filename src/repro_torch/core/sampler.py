@@ -5,6 +5,10 @@
     For trajectories the scalar knobs cannot express (learned tau,
     per-step eta schedules, explicit sigmas, multistep orders) build the
     plan directly.
+  * ``trajectory_coefficients`` / ``step_table``: views of the compiled
+    plan's table (one coefficient program for the whole package).
+  * DEPRECATED shims ``ddim_sample`` / ``ddpm_sample`` over plans, which
+    emit a DeprecationWarning.
   * ``StepStates`` / ``step_table`` / ``slot_tile_step`` / ``sample_step``:
     one step of a slot batch where every slot sits at its own position of
     its own trajectory, the body of the continuous-batching tick.
@@ -12,6 +16,7 @@
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -41,23 +46,69 @@ class SamplerConfig:
         return SamplerPlan.from_config(schedule, self, order=order)
 
 
+def trajectory_coefficients(schedule: NoiseSchedule, cfg: SamplerConfig):
+    """Per-step scalar coefficients for the Eq. 12 update (legacy view).
+
+    Returns a dict of (S,) CPU tensors in TRAJECTORY order (increasing
+    t): t and the five coefficients consumed by the fused step, read from
+    the compiled SamplerPlan.
+    """
+    return cfg.to_plan(schedule).coefficients()
+
+
 def sample(schedule: NoiseSchedule, eps_fn, x_T: torch.Tensor,
            cfg: SamplerConfig, generator: Optional[torch.Generator] = None,
            tile_resident: bool = False,
-           backend: Optional[str] = None) -> torch.Tensor:
+           backend: Optional[str] = None,
+           return_trajectory: bool = False):
     """Run the generalized generative process from x_T to x_0.
 
     Builds the plan for ``cfg`` and runs backend 'eager' (the counterpart
     of JAX's 'jnp'), or 'tile_resident' when ``tile_resident``; an explicit
     ``backend`` ('eager' | 'tile_resident' | 'rows' | 'mega') overrides
-    the flag.  ``generator`` is required iff eta > 0 or sigma_hat.
+    the flag.  ``generator`` is required iff eta > 0 or sigma_hat.  With
+    ``return_trajectory`` it returns ``(x_0, traj)``, traj the
+    (S + 1, ...) stack of iterates.
     """
     if (cfg.eta > 0.0 or cfg.sigma_hat) and generator is None:
         raise ValueError("stochastic sampler (eta>0 or sigma_hat) needs a "
                          "generator")
     if backend is None:
         backend = "tile_resident" if tile_resident else "eager"
-    return cfg.to_plan(schedule).run(eps_fn, x_T, generator, backend=backend)
+    return cfg.to_plan(schedule).run(eps_fn, x_T, generator, backend=backend,
+                                     return_trajectory=return_trajectory)
+
+
+def ddim_sample(schedule: NoiseSchedule, eps_fn, x_T: torch.Tensor,
+                S: int = 50, tau_kind: str = "linear", **kw):
+    """DEPRECATED: use ``SamplerPlan.build(schedule, tau=S).run(...)``.
+
+    Deterministic DDIM (eta = 0) — the paper's headline sampler; ``kw`` go
+    to ``sample``.
+    """
+    warnings.warn("ddim_sample is deprecated: use repro_torch.sampling."
+                  "SamplerPlan.build(schedule, tau=S).run(eps_fn, x_T)",
+                  DeprecationWarning, stacklevel=2)
+    return sample(schedule, eps_fn, x_T,
+                  SamplerConfig(S=S, eta=0.0, tau_kind=tau_kind), **kw)
+
+
+def ddpm_sample(schedule: NoiseSchedule, eps_fn, x_T: torch.Tensor,
+                generator: torch.Generator, S: Optional[int] = None,
+                tau_kind: str = "linear", sigma_hat: bool = False, **kw):
+    """DEPRECATED: use ``SamplerPlan.build(schedule, tau=S, sigma=1.0)``.
+
+    DDPM baseline (eta = 1), optionally the sigma-hat variant; S defaults
+    to the schedule's T.  ``kw`` go to ``sample``.
+    """
+    warnings.warn(
+        "ddpm_sample is deprecated: use repro_torch.sampling.SamplerPlan."
+        "build(schedule, tau=S, sigma=SigmaSpec.ddpm(...)).run(eps_fn, x_T, "
+        "generator)", DeprecationWarning, stacklevel=2)
+    S = S if S is not None else schedule.T
+    return sample(schedule, eps_fn, x_T,
+                  SamplerConfig(S=S, eta=1.0, tau_kind=tau_kind,
+                                sigma_hat=sigma_hat), generator, **kw)
 
 
 class StepStates(NamedTuple):

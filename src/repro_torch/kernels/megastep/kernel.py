@@ -24,12 +24,14 @@ tensor it launches or raises.
 
 The kernel takes float32 state and weights, 64 tokens per sample and head
 dim 64 (the smollm-width slice); bfloat16 state is not ported.
+``kernel_limits`` states these limits; ``ops.eligible`` applies them to
+states off the CPU, so such runs take the unfused path instead.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -94,22 +96,60 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_kernel_inputs(x2: torch.Tensor, params: Dict, cfg) -> None:
-    a = cfg.arch
-    if a.hd() != KERNEL_HEAD_DIM:
-        raise ValueError(f"the megakernel takes head_dim "
-                         f"{KERNEL_HEAD_DIM}, got {a.hd()}")
-    if x2.dtype != torch.float32 or not x2.is_contiguous():
-        raise TypeError("the megakernel takes a contiguous float32 state "
-                        "(bfloat16 state is not ported)")
+def _shape_limits(cfg, seq_len: int, state_dtype: torch.dtype
+                  ) -> Optional[str]:
+    """Why the CUDA megakernel cannot take this geometry or state, or
+    None."""
+    if seq_len != KERNEL_SEQ:
+        return (f"the CUDA megakernel takes seq_len {KERNEL_SEQ}, got "
+                f"seq_len {seq_len}")
+    if cfg.arch.hd() != KERNEL_HEAD_DIM:
+        return (f"the CUDA megakernel takes head_dim {KERNEL_HEAD_DIM}, got "
+                f"head_dim {cfg.arch.hd()}")
+    if state_dtype != torch.float32:
+        return (f"the CUDA megakernel takes a float32 state, got dtype "
+                f"{state_dtype}")
+    return None
+
+
+def _weight_limit(dtype: torch.dtype) -> str:
+    return f"the CUDA megakernel takes float32 weights, got dtype {dtype}"
+
+
+def kernel_limits(cfg, seq_len: int, state_dtype: torch.dtype,
+                  params: Dict) -> Tuple[bool, str]:
+    """(ok, reason): does the CUDA megakernel take this trunk and state?
+
+    Its own limits, beyond the eligibility rule it shares with the JAX
+    package: ``KERNEL_SEQ`` tokens per sample, head dim
+    ``KERNEL_HEAD_DIM``, a float32 state and float32 weights.  The plain
+    version (``ref.py``) has none of them.  Needs no CUDA state: the
+    weights may be meta tensors.  The launcher refuses the same inputs
+    (``_check_kernel_inputs``)."""
+    why = _shape_limits(cfg, seq_len, state_dtype)
+    if why is None:
+        why = next((_weight_limit(t.dtype) for t in leaves(params)
+                    if t.dtype != torch.float32), None)
+    return (False, why) if why else (True, "ok")
+
+
+def _check_kernel_inputs(x2: torch.Tensor, params: Dict, cfg,
+                         seq_len: int) -> None:
+    why = _shape_limits(cfg, seq_len, x2.dtype)
+    if why:
+        raise ValueError(why)
+    if not x2.is_contiguous():
+        raise ValueError("the megakernel takes a contiguous state")
     shapes = param_shapes(cfg)
     for path in _POINTERS:
         t, want = _get(params, path), _get(shapes, path)
         name = "/".join(path)
         if tuple(t.shape) != want:
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {want}")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise TypeError(f"{name} must be contiguous float32")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: {_weight_limit(t.dtype)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
         if t.device != x2.device:
             raise ValueError(f"{name} on {t.device}, state on {x2.device}")
     build.check_cuda(x2, *(_get(params, p) for p in _POINTERS))
@@ -162,10 +202,7 @@ def _launch(wrapper, entry: str, x2: torch.Tensor, eps_params: Dict, cfg,
     for the launch plan, allocate the workspace and launch ``entry``;
     ``count`` are the leading int arguments that follow the coefficient
     pointer (K for B3).  Records the plan in ``wrapper.last_plan``."""
-    if seq_len != KERNEL_SEQ:
-        raise ValueError(f"the megakernel takes seq_len {KERNEL_SEQ}, got "
-                         f"{seq_len}")
-    _check_kernel_inputs(x2, eps_params, cfg)
+    _check_kernel_inputs(x2, eps_params, cfg, seq_len)
     dev = x2.device
     temb = sinusoidal_time_embedding(ts.to(dev), cfg.time_dim).contiguous()
     cos, sin = rope_freqs(torch.arange(seq_len, device=dev),

@@ -8,9 +8,11 @@ the static config and the (batch, seq_len) geometry they are bound for.
 
 Eligibility (``eligible``; the plan-level half — deterministic, order 1 —
 is the backend's): the model carries a spec, the state has the spec's
-shape, and weights + activations + state fit ``MEGA_BUDGET`` under the
-JAX package's byte model (``vmem_bytes``, unchanged).  Anything else runs
-the 'tile_resident' backend, or the scheduler's unfused tick.
+shape, a state off the CPU meets the CUDA kernel's own limits
+(``kernel.kernel_limits``), and weights + activations + state fit
+``MEGA_BUDGET`` under the JAX package's byte model (``vmem_bytes``,
+unchanged).  Anything else runs the 'tile_resident' backend, or the
+scheduler's unfused tick.
 """
 from __future__ import annotations
 
@@ -95,7 +97,12 @@ class MegaSpec:
 
 def eligible(spec: Optional[MegaSpec], x_T: torch.Tensor,
              budget: Optional[int] = None) -> Tuple[bool, str]:
-    """(ok, reason): can this (eps model, state) pair run the megakernel?"""
+    """(ok, reason): can this (eps model, state) pair run the megakernel?
+
+    A state that is not on the CPU (a CUDA state, or a meta tensor that
+    stands for one) must also meet the CUDA kernel's own limits
+    (``kernel.kernel_limits``: seq_len, head dim, float32 state and
+    weights); the plain version the CPU runs has none."""
     if spec is None:
         return False, ("eps model carries no mega_spec (not a fused-capable "
                        "tile-aware trunk)")
@@ -103,6 +110,11 @@ def eligible(spec: Optional[MegaSpec], x_T: torch.Tensor,
     if tuple(x_T.shape) != shape:
         return False, (f"state shape {tuple(x_T.shape)} != the spec's "
                        f"bound geometry {shape}")
+    if x_T.device.type != "cpu":
+        ok, why = _k.kernel_limits(spec.cfg, spec.seq_len, x_T.dtype,
+                                   spec.params)
+        if not ok:
+            return False, why
     if not spec.fits(budget, x_T.dtype):
         return False, (f"weights+activations+state "
                        f"{spec.vmem_bytes(x_T.dtype)} B exceed the "

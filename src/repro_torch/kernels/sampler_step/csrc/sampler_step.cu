@@ -30,11 +30,27 @@
 // path's operations per element (counted in chip_smoke.py, OPS_STEP +
 // OPS_NOISE) stay below the bytes bound at 67 TFLOP/s.
 //
-// Design (the simple one): one thread per 4 consecutive elements of the
-// (R, 256) tile layout, loaded and stored as one vector (16 bytes for
-// float32, 8 for bfloat16); one launch per step on the caller's stream.
-// No shared memory, no persistence: making it faster (fusing with the
-// eps model's last layer, CUDA graphs over the step loop) is later work.
+// Design.  At the main path's sizes (R = 96 or 128 rows, under 0.5 MB) the
+// bytes take ~0.1 us and a launch ~1 us: the time is the fixed cost of one
+// launch plus one round trip to memory, and the kernel keeps to that.
+//  * Deterministic steps: one thread per 4 consecutive elements of the
+//    (R, 256) tile layout, loaded and stored as one vector (16 bytes for
+//    float32, 8 for bfloat16), in 256-thread blocks.
+//  * Stochastic steps: one thread per element (96 blocks of 256 at R = 96),
+//    so that each thread's dependent chain (2 fmix32 draws, the accurate
+//    logf / cosf / sqrtf) is one normal long instead of four; the noise is
+//    drawn while the loads are in flight.
+// Elements per thread, block size and programmatic dependent launch are
+// launch arguments (the wrappers' attributes), so that
+// kernels/launch_probe.py can time the alternatives against each other on
+// one card.  Programmatic dependent launch (cudaLaunchKernelEx with
+// cudaLaunchAttributeProgrammaticStreamSerialization; griddepcontrol.wait
+// before the first load) lets the grid start before the kernel ahead of it
+// has finished.  The kernels ahead of B1 / B2 on the main path are
+// PyTorch's, which never signal early, and with them it measured slower on
+// an H100 (PERF.md), so it is off by default, as are 64-thread blocks.
+// The arithmetic, and its order, are the same in every variant: each is
+// bitwise equal to the plain version.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,7 +67,6 @@ using repro::update;
 
 constexpr int kTileC = 256;
 constexpr int kCoefCols = 8;
-constexpr int kVec = 4;
 constexpr int kThreads = 256;
 constexpr uint32_t kGolden = 0x9E3779B9u;
 constexpr uint32_t kTidMul = 0x632BE59Bu;
@@ -61,26 +76,54 @@ constexpr float kInv2p24 = 5.9604644775390625e-08f;  // 2^-24
 constexpr float kTwoPi = 6.283185307179586f;         // float32(2 pi)
 
 // ------------------------------------------------------------ vector I/O
-__device__ __forceinline__ void load4(const float* p, float v[kVec]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+// V = 4: one 16-byte (float32) or 8-byte (bfloat16) vector; V = 1: one
+// element.  The bfloat16 roundings are the same either way.
+template <int V>
+__device__ __forceinline__ void load_v(const float* p, float v[V]) {
+  if constexpr (V == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+    v[0] = *p;
+  }
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[kVec]) {
-  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
-  const __nv_bfloat162 a = p2[0], b = p2[1];
-  v[0] = __low2float(a); v[1] = __high2float(a);
-  v[2] = __low2float(b); v[3] = __high2float(b);
+template <int V>
+__device__ __forceinline__ void load_v(const __nv_bfloat16* p, float v[V]) {
+  if constexpr (V == 4) {
+    const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
+    const __nv_bfloat162 a = p2[0], b = p2[1];
+    v[0] = __low2float(a); v[1] = __high2float(a);
+    v[2] = __low2float(b); v[3] = __high2float(b);
+  } else {
+    v[0] = __bfloat162float(*p);
+  }
 }
 
-__device__ __forceinline__ void store4(float* p, const float v[kVec]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+template <int V>
+__device__ __forceinline__ void store_v(float* p, const float v[V]) {
+  if constexpr (V == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *p = v[0];
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[kVec]) {
-  __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(p);
-  p2[0] = __floats2bfloat162_rn(v[0], v[1]);
-  p2[1] = __floats2bfloat162_rn(v[2], v[3]);
+template <int V>
+__device__ __forceinline__ void store_v(__nv_bfloat16* p, const float v[V]) {
+  if constexpr (V == 4) {
+    __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(p);
+    p2[0] = __floats2bfloat162_rn(v[0], v[1]);
+    p2[1] = __floats2bfloat162_rn(v[2], v[3]);
+  } else {
+    *p = __float2bfloat16_rn(v[0]);
+  }
+}
+
+// Programmatic dependent launch: wait until the grids this launch depends
+// on have completed and their writes are visible.  A no-op for a launch
+// that has no programmatic dependency.
+__device__ __forceinline__ void wait_for_producer() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
 // ------------------------------------------------------------------ PRNG
@@ -106,21 +149,23 @@ __device__ __forceinline__ float bits_to_normal(uint32_t b1, uint32_t b2) {
 }
 
 // Scalar coefficients: every row at the same trajectory position.
-template <typename T, typename E, bool CLIP, bool STOCH>
+template <typename T, typename E, bool CLIP, bool STOCH, int V>
 __global__ void __launch_bounds__(kThreads)
 step_kernel(const T* __restrict__ x, const E* __restrict__ eps,
             T* __restrict__ out, int n_vec, int tile_rows, Coefs c,
             float clip, uint32_t seed) {
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= n_vec) return;
-  const int base = v * kVec;
-  float xs[kVec], es[kVec], os[kVec], x0;
-  load4(x + base, xs);
-  load4(eps + base, es);
+  const int base = v * V;
+  wait_for_producer();
+  float xs[V], es[V], os[V], x0;
+  load_v<V>(x + base, xs);
+  load_v<V>(eps + base, es);
 #pragma unroll
-  for (int k = 0; k < kVec; ++k)
+  for (int k = 0; k < V; ++k)
     os[k] = update<CLIP, false>(xs[k], es[k], c, clip, &x0);
   if constexpr (STOCH) {
+    // drawn while the loads are in flight (the noise reads no memory)
     const int row = base / kTileC;
     const int col = base % kTileC;
     const uint32_t tid = static_cast<uint32_t>(row / tile_rows);
@@ -129,18 +174,18 @@ step_kernel(const T* __restrict__ x, const E* __restrict__ eps,
     const uint32_t key2 = fmix32(mixed ^ kSalt2);
     const uint32_t ctr0 = static_cast<uint32_t>((row % tile_rows) * kTileC + col);
 #pragma unroll
-    for (int k = 0; k < kVec; ++k) {
+    for (int k = 0; k < V; ++k) {
       const float z = bits_to_normal(stream_bits(ctr0 + k, key1),
                                      stream_bits(ctr0 + k, key2));
       os[k] = __fmaf_rn(c.c_noise, z, os[k]);
     }
   }
-  store4(out + base, os);
+  store_v<V>(out + base, os);
 }
 
 // Per-row coefficients and seeds: one launch advances rows at different
 // trajectory positions (the continuous-batching tick).
-template <typename T, typename E, bool CLIP, bool STOCH, bool WANT_X0>
+template <typename T, typename E, bool CLIP, bool STOCH, bool WANT_X0, int V>
 __global__ void __launch_bounds__(kThreads)
 step_rows_kernel(const T* __restrict__ x, const E* __restrict__ eps,
                  const float* __restrict__ row_coefs,
@@ -148,15 +193,16 @@ step_rows_kernel(const T* __restrict__ x, const E* __restrict__ eps,
                  T* __restrict__ x0_out, int n_vec, float clip) {
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= n_vec) return;
-  const int base = v * kVec;
+  const int base = v * V;
   const int row = base / kTileC;
+  wait_for_producer();
   const float* rc = row_coefs + row * kCoefCols;
   const Coefs c{rc[0], rc[1], rc[2], rc[3], rc[4]};
-  float xs[kVec], es[kVec], os[kVec], x0s[kVec];
-  load4(x + base, xs);
-  load4(eps + base, es);
+  float xs[V], es[V], os[V], x0s[V];
+  load_v<V>(x + base, xs);
+  load_v<V>(eps + base, es);
 #pragma unroll
-  for (int k = 0; k < kVec; ++k)
+  for (int k = 0; k < V; ++k)
     os[k] = update<CLIP, WANT_X0>(xs[k], es[k], c, clip, &x0s[k]);
   if constexpr (STOCH) {
     const uint32_t s = static_cast<uint32_t>(row_seeds[row]);
@@ -164,17 +210,51 @@ step_rows_kernel(const T* __restrict__ x, const E* __restrict__ eps,
     const uint32_t key2 = fmix32(s ^ kSalt2);
     const uint32_t ctr0 = static_cast<uint32_t>(base % kTileC);
 #pragma unroll
-    for (int k = 0; k < kVec; ++k) {
+    for (int k = 0; k < V; ++k) {
       const float z = bits_to_normal(stream_bits(ctr0 + k, key1),
                                      stream_bits(ctr0 + k, key2));
       os[k] = __fmaf_rn(c.c_noise, z, os[k]);
     }
   }
-  store4(out + base, os);
-  if constexpr (WANT_X0) store4(x0_out + base, x0s);
+  store_v<V>(out + base, os);
+  if constexpr (WANT_X0) store_v<V>(x0_out + base, x0s);
 }
 
+// The yardstick of the fixed cost per launch (no TPU counterpart).
+__global__ void empty_kernel() {}
+
 // ------------------------------------------------------------- dispatch
+// One launch on ``s``; with ``pdl`` the grid may start before the kernel
+// ahead of it on the stream has finished (it waits in wait_for_producer).
+template <typename... Params, typename... Args>
+cudaError_t launch(void (*kernel)(Params...), int blocks, int threads,
+                   cudaStream_t s, bool pdl, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
+
+bool threads_ok(int threads) {
+  return threads >= 32 && threads <= kThreads && threads % 32 == 0;
+}
+
+// Elements per thread: 4 (one vector) or 1 (checked by the launchers).
+bool vec_ok(int vec) { return vec == 4 || vec == 1; }
+
+template <typename F>
+void with_vec(int vec, F f) {
+  if (vec == 4) f(std::integral_constant<int, 4>{});
+  else f(std::integral_constant<int, 1>{});
+}
+
 template <typename F>
 void with_bool(bool b, F f) {
   if (b) f(std::true_type{}); else f(std::false_type{});
@@ -202,63 +282,94 @@ int with_dtypes(int x_dtype, int eps_dtype, F f) {
 
 extern "C" {
 
-// x, eps, out: (R, 256) contiguous, 16-byte aligned.  Returns the
-// cudaError_t of the launch (0 on success).
+// x, eps, out: (R, 256) contiguous, 16-byte aligned.  ``threads`` per
+// block (a multiple of 32 up to 256), ``vec`` elements per thread (4 or
+// 1); ``pdl`` launches with programmatic stream serialization.  Returns
+// the cudaError_t of the launch (0 on success).
 int repro_sampler_step_2d(const void* x, const void* eps, void* out,
                           int x_dtype, int eps_dtype, int R, int tile_rows,
                           float c_x0, float c_dir, float c_noise,
                           float sqrt_a_t, float sqrt_1m_a_t, int has_clip,
-                          float clip, int stochastic, int seed,
-                          void* stream) {
-  const int n_vec = R * kTileC / kVec;
-  const int blocks = (n_vec + kThreads - 1) / kThreads;
+                          float clip, int stochastic, int seed, int threads,
+                          int vec, int pdl, void* stream) {
+  if (!threads_ok(threads) || !vec_ok(vec))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_vec = R * kTileC / vec;
+  const int blocks = (n_vec + threads - 1) / threads;
   const Coefs c{c_x0, c_dir, c_noise, sqrt_a_t, sqrt_1m_a_t};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
   const int bad = with_dtypes(x_dtype, eps_dtype, [&](auto tx, auto te) {
     using T = typename decltype(tx)::type;
     using E = typename decltype(te)::type;
     with_bool(has_clip != 0, [&](auto clip_c) {
       with_bool(stochastic != 0, [&](auto stoch_c) {
-        step_kernel<T, E, decltype(clip_c)::value, decltype(stoch_c)::value>
-            <<<blocks, kThreads, 0, s>>>(
-                static_cast<const T*>(x), static_cast<const E*>(eps),
-                static_cast<T*>(out), n_vec, tile_rows, c, clip,
-                static_cast<uint32_t>(seed));
+        with_vec(vec, [&](auto vec_c) {
+          err = launch(
+              step_kernel<T, E, decltype(clip_c)::value,
+                          decltype(stoch_c)::value, decltype(vec_c)::value>,
+              blocks, threads, s, pdl != 0, static_cast<const T*>(x),
+              static_cast<const E*>(eps), static_cast<T*>(out), n_vec,
+              tile_rows, c, clip, static_cast<uint32_t>(seed));
+        });
       });
     });
   });
   if (bad) return bad;
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // x, eps, out, x0_out: (R, 256); row_coefs: (R, 8) float32; row_seeds:
-// (R,) int32 (may be null when !stochastic); x0_out null when !want_x0.
+// (R,) int32 (may be null when !stochastic); x0_out null when !want_x0;
+// threads, vec and pdl as for repro_sampler_step_2d.
 int repro_sampler_step_rows_2d(const void* x, const void* eps,
                                const void* row_coefs, const void* row_seeds,
                                void* out, void* x0_out, int x_dtype,
                                int eps_dtype, int R, int has_clip, float clip,
-                               int stochastic, int want_x0, void* stream) {
-  const int n_vec = R * kTileC / kVec;
-  const int blocks = (n_vec + kThreads - 1) / kThreads;
+                               int stochastic, int want_x0, int threads,
+                               int vec, int pdl, void* stream) {
+  if (!threads_ok(threads) || !vec_ok(vec))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_vec = R * kTileC / vec;
+  const int blocks = (n_vec + threads - 1) / threads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
   const int bad = with_dtypes(x_dtype, eps_dtype, [&](auto tx, auto te) {
     using T = typename decltype(tx)::type;
     using E = typename decltype(te)::type;
     with_bool(has_clip != 0, [&](auto clip_c) {
       with_bool(stochastic != 0, [&](auto stoch_c) {
         with_bool(want_x0 != 0, [&](auto x0_c) {
-          step_rows_kernel<T, E, decltype(clip_c)::value,
-                           decltype(stoch_c)::value, decltype(x0_c)::value>
-              <<<blocks, kThreads, 0, s>>>(
-                  static_cast<const T*>(x), static_cast<const E*>(eps),
-                  static_cast<const float*>(row_coefs),
-                  static_cast<const int32_t*>(row_seeds),
-                  static_cast<T*>(out), static_cast<T*>(x0_out), n_vec, clip);
+          with_vec(vec, [&](auto vec_c) {
+            err = launch(
+                step_rows_kernel<T, E, decltype(clip_c)::value,
+                                 decltype(stoch_c)::value,
+                                 decltype(x0_c)::value,
+                                 decltype(vec_c)::value>,
+                blocks, threads, s, pdl != 0, static_cast<const T*>(x),
+                static_cast<const E*>(eps),
+                static_cast<const float*>(row_coefs),
+                static_cast<const int32_t*>(row_seeds), static_cast<T*>(out),
+                static_cast<T*>(x0_out), n_vec, clip);
+          });
         });
       });
     });
   });
   if (bad) return bad;
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The empty kernel over ``blocks`` x ``threads``, launched as the step
+// kernels are: the fixed cost per launch that they are measured against.
+int repro_empty_kernel(int blocks, int threads, int pdl, void* stream) {
+  if (blocks < 1 || !threads_ok(threads))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = launch(empty_kernel, blocks, threads,
+                                 static_cast<cudaStream_t>(stream), pdl != 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,6 +18,14 @@ on the kernel backends' CPU path:
                      fused, K plan steps per launch, for eligible
                      (eps model, plan) pairs; the tile-resident loop for
                      every other.
+  encode_eager       the forward ODE direction x_0 -> x_T on the plan's
+                     own trajectory (the counterpart of JAX's encode_jnp).
+
+Every run_* takes ``return_trajectory``: it then returns ``(x0, traj)``
+with ``traj`` the (S + 1, batch, *shape) stack of iterates, ``traj[0]`` =
+x_T and ``traj[-1]`` = x0, as the JAX backends do.  The tile backends
+convert each step's state back with ``from_tile_layout`` /
+``from_slot_tile_layout`` (views of the step's output, no copy per step).
 
 Randomness stays outside the step loops: the kernel backends draw their
 per-step int32 seeds from the generator up front (``(S,)`` for the scalar
@@ -33,7 +41,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.solver import mix_history
+from repro_torch.core.solver import mix_history, warmup_weights
 from repro_torch.kernels.sampler_step import ops as tile_ops
 from repro_torch.kernels.sampler_step.ref import update
 
@@ -68,13 +76,22 @@ def _draw_seeds(generator: torch.Generator, size) -> torch.Tensor:
                          device=generator.device, dtype=torch.int32)
 
 
+def _result(x0: torch.Tensor, x_T: torch.Tensor, traj: Optional[list]):
+    """x0, or (x0, the (S + 1, ...) stack x_T, step 1, ..., x0)."""
+    if traj is None:
+        return x0
+    return x0, torch.stack([x_T] + traj)
+
+
 # ----------------------------------------------------------------- eager
 def run_eager(plan, eps_fn, x_T: torch.Tensor,
-              generator: Optional[torch.Generator]) -> torch.Tensor:
+              generator: Optional[torch.Generator],
+              return_trajectory: bool = False):
     tab = _table(plan, x_T.device)
     ts = plan.steps()["t"]
     clip, order = plan.x0.clip, plan.order
     x, hist = x_T, _hist0(order, x_T.shape, x_T.device)
+    traj = [] if return_trajectory else None
     for k in range(plan.S):
         e32 = eps_fn(x, _timesteps(ts[k], x.shape[0], x.device)).float()
         e32, hist = mix_history(e32, hist, tab["solver_w"][k], order)
@@ -85,21 +102,28 @@ def run_eager(plan, eps_fn, x_T: torch.Tensor,
                 x.shape, generator=generator, dtype=torch.float32,
                 device=generator.device).to(x.device)
         x = out.to(x_T.dtype)
-    return x
+        if traj is not None:
+            traj.append(x)
+    return _result(x, x_T, traj)
 
 
 # --------------------------------------------------------- tile_resident
 def run_tile_resident(plan, eps_fn, x_T: torch.Tensor,
-                      generator: Optional[torch.Generator]) -> torch.Tensor:
+                      generator: Optional[torch.Generator],
+                      return_trajectory: bool = False):
     seeds = _draw_seeds(generator, (plan.S,)) if plan.stochastic else None
+    traj = [] if return_trajectory else None
     x2, n = tile_ops.to_tile_layout(x_T)              # conversion #1 (entry)
-    x2 = _loop_tiles(plan, eps_fn, x2, seeds, n, x_T.shape)
-    return tile_ops.from_tile_layout(x2, n, x_T.shape)  # conversion #2
+    x2 = _loop_tiles(plan, eps_fn, x2, seeds, n, x_T.shape, traj)
+    x0 = tile_ops.from_tile_layout(x2, n, x_T.shape)  # conversion #2
+    return _result(x0, x_T, traj)
 
 
-def _loop_tiles(plan, eps_fn, x2: torch.Tensor, seeds, n: int, shape):
+def _loop_tiles(plan, eps_fn, x2: torch.Tensor, seeds, n: int, shape,
+                trajectory: Optional[list] = None):
     """The S-step loop in the tile layout; ``seeds`` is (S,) int32 or None.
-    """
+    Each step's state, in the natural shape, is appended to ``trajectory``
+    when one is given."""
     tab = plan.steps()
     cmat = np.stack([tab["c_x0"], tab["c_dir"], tab["c_noise"],
                      tab["sqrt_a_t"], tab["sqrt_1m_a_t"]], axis=1)  # (S, 5)
@@ -123,23 +147,30 @@ def _loop_tiles(plan, eps_fn, x2: torch.Tensor, seeds, n: int, shape):
             x2, eps2.contiguous(), cmat[k],
             None if seeds is None else seeds[k], clip=clip,
             stochastic=plan.stochastic)
+        if trajectory is not None:
+            trajectory.append(tile_ops.from_tile_layout(x2, n, shape))
     return x2
 
 
 # ------------------------------------------------------------------ rows
 def run_rows(plan, eps_fn, x_T: torch.Tensor,
-             generator: Optional[torch.Generator]) -> torch.Tensor:
+             generator: Optional[torch.Generator],
+             return_trajectory: bool = False):
     B = x_T.shape[0]
     seeds = _draw_seeds(generator, (plan.S, B)) if plan.stochastic else None
+    traj = [] if return_trajectory else None
     x2, n = tile_ops.to_slot_tile_layout(x_T)
-    x2 = _loop_rows(plan, eps_fn, x2, seeds, n, x_T.shape)
-    return tile_ops.from_slot_tile_layout(x2, n, x_T.shape)
+    x2 = _loop_rows(plan, eps_fn, x2, seeds, n, x_T.shape, traj)
+    x0 = tile_ops.from_slot_tile_layout(x2, n, x_T.shape)
+    return _result(x0, x_T, traj)
 
 
-def _loop_rows(plan, eps_fn, x2: torch.Tensor, seeds, n: int, batch_shape):
+def _loop_rows(plan, eps_fn, x2: torch.Tensor, seeds, n: int, batch_shape,
+               trajectory: Optional[list] = None):
     """The lockstep loop over the slot-tile layout; ``seeds`` is (S, B)
     int32 per-slot tick seeds or None.  The per-step row tables are built
-    once, before the loop."""
+    once, before the loop.  Each step's state, in the natural shape, is
+    appended to ``trajectory`` when one is given."""
     B = batch_shape[0]
     rps = x2.shape[0] // B
     device = x2.device
@@ -166,21 +197,26 @@ def _loop_rows(plan, eps_fn, x2: torch.Tensor, seeds, n: int, batch_shape):
             x2, eps2.contiguous(), row_coefs_all[k],
             None if row_seeds_all is None else row_seeds_all[k], clip=clip,
             stochastic=plan.stochastic)
+        if trajectory is not None:
+            trajectory.append(tile_ops.from_slot_tile_layout(x2, n,
+                                                             batch_shape))
     return x2
 
 
 # ------------------------------------------------------------------ mega
 def run_mega(plan, eps_fn, x_T: torch.Tensor,
              generator: Optional[torch.Generator],
-             k_fuse: Optional[int] = None) -> torch.Tensor:
+             k_fuse: Optional[int] = None, return_trajectory: bool = False):
     """The megakernel path: trunk + update fused, K plan steps per launch.
 
     Eligibility is the JAX package's rule: a deterministic order-1 plan
-    over an eps model whose ``mega_spec`` fits ``MEGA_BUDGET`` runs fused;
-    everything else runs the tile-resident loop (the same arithmetic,
-    unfused).  Why is kept in ``run_mega.last_reason`` ("ok" when fused).
-    An S-step plan is exactly ceil(S / K) launches; the last chunk takes
-    the S % K remainder as its own smaller K.
+    without trajectory capture, over an eps model whose ``mega_spec`` fits
+    ``MEGA_BUDGET``, runs fused; on the card the state must also meet the
+    CUDA kernel's own limits (``megastep.eligible``).  Everything else runs
+    the tile-resident loop (the same arithmetic, unfused).  Why is kept in
+    ``run_mega.last_reason`` ("ok" when fused).  An S-step plan is exactly
+    ceil(S / K) launches; the last chunk takes the S % K remainder as its
+    own smaller K.
     """
     from repro_torch.kernels import megastep as mega_ops
 
@@ -189,9 +225,13 @@ def run_mega(plan, eps_fn, x_T: torch.Tensor,
         ok, why = False, "the plan is stochastic (mega plans take no noise)"
     if ok and plan.order > 1:
         ok, why = False, f"the plan has solver order {plan.order} > 1"
+    if ok and return_trajectory:
+        ok, why = False, ("the run returns its trajectory (the fused steps "
+                          "keep no iterates)")
     run_mega.last_reason = why
     if not ok:
-        return run_tile_resident(plan, eps_fn, x_T, generator)
+        return run_tile_resident(plan, eps_fn, x_T, generator,
+                                 return_trajectory)
     spec = eps_fn.mega_spec
     tab = plan.steps()
     S = plan.S
@@ -209,3 +249,39 @@ def run_mega(plan, eps_fn, x_T: torch.Tensor,
 
 
 run_mega.last_reason = None
+
+
+# ---------------------------------------------------------------- encode
+def encode_eager(plan, eps_fn, x_0: torch.Tensor) -> torch.Tensor:
+    """Forward ODE integration x_0 -> x_T on the plan's own trajectory.
+
+    Euler (order 1) or Adams–Bashforth (the plan's order) steps in the
+    x_bar/sigma coordinates of Eq. 14, in the canonical a*x + b*eps form:
+
+      x_next = sqrt(a_to)/sqrt(a_from) * x + sqrt(a_to) * dsigma * eps_eff
+
+    The a / b / solver_w tables are float64 numpy math cast once to float32
+    (the JAX package's ``encode_jnp``); the first step evaluates the model
+    at t = 1, the start of its grid.
+    """
+    ab = np.asarray(plan.schedule.alpha_bar.detach().cpu().numpy(),
+                    np.float64)
+    t_traj = np.asarray(plan.steps()["t"][::-1], np.int64)  # increasing
+    t_from = np.concatenate([[0], t_traj[:-1]])
+    a_f, a_to = ab[t_from], ab[t_traj]
+    sig = lambda a: np.sqrt((1.0 - a) / a)  # noqa: E731
+    dev = x_0.device
+    f32 = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, np.float32)).to(dev)
+    a_coef = f32(np.sqrt(a_to / a_f))
+    b_coef = f32(np.sqrt(a_to) * (sig(a_to) - sig(a_f)))
+    order = plan.order
+    solver_w = f32(warmup_weights(len(t_traj), order))
+    t_eval = np.maximum(t_from, 1).astype(np.int32)
+    batch = x_0.shape[0]
+    x, hist = x_0, _hist0(order, x_0.shape, dev)
+    for k in range(len(t_traj)):
+        e32 = eps_fn(x, _timesteps(t_eval[k], batch, dev)).float()
+        e32, hist = mix_history(e32, hist, solver_w[k], order)
+        x = (a_coef[k] * x.float() + b_coef[k] * e32).to(x_0.dtype)
+    return x

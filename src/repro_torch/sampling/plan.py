@@ -17,6 +17,9 @@ The table is float64 numpy math cast once to float32, exactly as in the
 JAX package, so the two packages compile bitwise-equal tables and equal
 schedule digests.
 
+  plan.encode(eps_fn, x_0)   the ODE direction x_0 -> x_T on the plan's
+      own tau and solver order (paper §4.3); a deterministic ``run``
+      decodes it (paper Table 2)
   plan.run(eps_fn, x_T, generator, backend=...)   backend in
       'eager'          plain PyTorch loop over the natural shape (the
                        counterpart of the JAX 'jnp' reference)
@@ -170,17 +173,26 @@ class SamplerPlan:
         """Digest identifying the bound noise schedule."""
         return self._key[0]
 
+    def coefficients(self) -> Dict[str, torch.Tensor]:
+        """The table in TRAJECTORY order (increasing t), without
+        ``solver_w``: the legacy view ``core.trajectory_coefficients``
+        returns (CPU tensors)."""
+        return {k: torch.from_numpy(np.ascontiguousarray(v[::-1]))
+                for k, v in self._table.items() if k != "solver_w"}
+
     # ---------------------------------------------------------- execution
     def run(self, eps_fn, x_T: torch.Tensor,
             generator: Optional[torch.Generator] = None, *,
-            backend: str = "eager",
-            k_fuse: Optional[int] = None) -> torch.Tensor:
+            backend: str = "eager", return_trajectory: bool = False,
+            k_fuse: Optional[int] = None):
         """Execute the plan from x_T to x_0 on the device x_T lies on.
 
         Args:
           eps_fn: eps_theta(x_t, t) with x_t (batch, *shape) and t an int32
             (batch,) tensor on x_T's device.
-          x_T: (batch, *shape) initial latent, float32 or bfloat16.
+          x_T: (batch, *shape) initial latent, float32 or bfloat16: N(0, I)
+            for generation, or an encoding from :meth:`encode` for
+            reconstruction.
           generator: torch.Generator on x_T's device; required iff the plan
             is stochastic (per-step kernel seeds / eager noise come from it).
           backend: 'eager' | 'tile_resident' | 'rows' | 'mega'.  On
@@ -188,6 +200,10 @@ class SamplerPlan:
             ``eps_fn.tile_aware = True`` to receive the (R, 256) tile view;
             on 'mega' it must carry ``eps_fn.mega_spec`` (set by
             ``diffusion_lm.make_tile_eps_fn``) to run fused.
+          return_trajectory: also return the (S + 1, batch, *shape) stack
+            of iterates, x_T first and x_0 last: ``(x_0, traj)``.  On
+            'mega' it runs the tile-resident loop (the fused steps keep no
+            iterates), as in JAX.
           k_fuse: 'mega' only — plan steps per megakernel launch (default
             ``kernels.megastep.DEFAULT_K_FUSE``); S steps are
             ceil(S / k_fuse) launches.
@@ -204,8 +220,23 @@ class SamplerPlan:
         with torch.no_grad():
             if backend == "mega":
                 return backends.run_mega(self, eps_fn, x_T, generator,
-                                         k_fuse)
+                                         k_fuse, return_trajectory)
             fn = {"eager": backends.run_eager,
                   "tile_resident": backends.run_tile_resident,
                   "rows": backends.run_rows}[backend]
-            return fn(self, eps_fn, x_T, generator)
+            return fn(self, eps_fn, x_T, generator, return_trajectory)
+
+    def encode(self, eps_fn, x_0: torch.Tensor) -> torch.Tensor:
+        """Integrate the ODE view FORWARD: x_0 -> x_T (paper §4.3, Eq. 13),
+        on the device x_0 lies on.
+
+        Uses the plan's own tau (so a quadratic or learned trajectory
+        encodes on the same grid it decodes on) and its solver order (AB-k
+        forward steps in sigma, Euler warm-up).  The sigma spec plays no
+        role — encoding is the deterministic ODE direction; a subsequent
+        deterministic ``run`` reconstructs x_0 (paper Table 2).  A plain
+        PyTorch loop, as JAX's encode runs its 'jnp' reference.
+        """
+        from . import backends
+        with torch.no_grad():
+            return backends.encode_eager(self, eps_fn, x_0)

@@ -255,7 +255,7 @@ class ContinuousBatchingEngine:
                               "preview-free only")
         else:
             state = torch.empty((self.slots,) + self.shape,
-                                dtype=self.dtype, device="meta")
+                                dtype=self.dtype, device=self.device)
             ok, why = mega_ops.eligible(spec, state)
         if ok:
             return True

@@ -120,14 +120,15 @@ def test_mega_exact_equals_tile_resident_bitwise(k_fuse, clip, heads):
 
 
 # ---------------------------------------------------------- eligibility
-def _meta_spec(cfg, batch, attn_impl="exact"):
+def _meta_spec(cfg, batch, attn_impl="exact", seq_len=SEQ,
+               dtype=torch.float32):
     def meta(tree):
         if isinstance(tree, dict):
             return {k: meta(v) for k, v in tree.items()}
-        return torch.empty(tree, device="meta")
+        return torch.empty(tree, device="meta", dtype=dtype)
     p = meta(tdlm.param_shapes(cfg))
     return megastep.MegaSpec(params={k: p[k] for k in tdlm.EPS_PATH},
-                             cfg=cfg, batch=batch, seq_len=SEQ,
+                             cfg=cfg, batch=batch, seq_len=seq_len,
                              attn_impl=attn_impl)
 
 
@@ -157,6 +158,71 @@ def test_eligibility_reasons():
     assert "budget 1024 B" in megastep.eligible(spec, xT, budget=1024)[1]
     with pytest.raises(ValueError, match="attn_impl"):
         dataclasses.replace(spec, attn_impl="chunked")
+
+
+# The CUDA megakernel's own limits (kernel_limits): the (2, 128) geometry
+# of DLM_SMOLLM_MEGA, a bfloat16 state or bfloat16 weights, and the test
+# trunk's head dim 32.  A state off the CPU (meta stands for the card here)
+# meets them or is not eligible; a CPU state keeps the JAX rule.
+LIMIT_CASES = {
+    "seq_len": dict(batch=2, seq=128, what="seq_len 128"),
+    "state_dtype": dict(state=torch.bfloat16, what="dtype torch.bfloat16"),
+    "weight_dtype": dict(weights=torch.bfloat16, what="dtype torch.bfloat16"),
+    "head_dim": dict(cfg="small", what="head_dim 32"),
+}
+
+
+def _limit_case(case):
+    c = LIMIT_CASES[case]
+    cfg = (_models()[1] if c.get("cfg") == "small"
+           else configs.DLM_SMOLLM_MEGA)
+    batch, seq = c.get("batch", 4 if cfg.arch.d_model > 64 else B), \
+        c.get("seq", SEQ)
+    spec = _meta_spec(cfg, batch, seq_len=seq,
+                      dtype=c.get("weights", torch.float32))
+    return spec, (batch, seq, cfg.latent_dim), c.get("state", torch.float32)
+
+
+@pytest.mark.parametrize("case", list(LIMIT_CASES))
+def test_kernel_limits_name_the_limit(case):
+    spec, shape, dtype = _limit_case(case)
+    ok, why = tk.kernel_limits(spec.cfg, spec.seq_len, dtype, spec.params)
+    assert not ok and LIMIT_CASES[case]["what"] in why
+    assert "CUDA megakernel" in why
+    # off the CPU the eligibility rule takes the kernel's reason
+    assert megastep.eligible(spec, torch.empty(shape, dtype=dtype,
+                                               device="meta")) == (ok, why)
+    # a CPU state keeps the JAX rule, which the plain version runs
+    assert megastep.eligible(spec, torch.empty(shape, dtype=dtype)) == (
+        True, "ok")
+
+
+def test_kernel_limits_admit_the_slice():
+    spec = _meta_spec(configs.DLM_SMOLLM_MEGA, 4)
+    assert tk.kernel_limits(spec.cfg, SEQ, torch.float32,
+                            spec.params) == (True, "ok")
+    assert megastep.eligible(spec, torch.empty(
+        4, SEQ, configs.DLM_SMOLLM_MEGA.latent_dim, device="meta")) == (
+        True, "ok")
+
+
+def test_engine_off_the_cpu_takes_rows_for_the_kernel_limits():
+    from repro_torch.serving import ContinuousBatchingEngine
+    spec, shape, _ = _limit_case("seq_len")
+
+    def eps(x2, t):
+        raise AssertionError("never called")
+    eps.slot_tile_aware = True
+    eps.mega_spec = spec
+    for device, want in (("cpu", True), ("meta", False)):
+        eng = ContinuousBatchingEngine(TSCH, eps, shape[1:], slots=shape[0],
+                                       device=device)
+        assert eng.use_mega == want
+        assert eng.tick_variant == ("mega" if want else "rows")
+    with pytest.raises(ValueError, match="use_mega=True but the CUDA "
+                       "megakernel takes seq_len 64, got seq_len 128"):
+        ContinuousBatchingEngine(TSCH, eps, shape[1:], slots=shape[0],
+                                 use_mega=True, device="meta")
 
 
 def _count_chunks(monkeypatch):
