@@ -3,6 +3,12 @@
 
 Run from anywhere inside a checkout:  python3 chip_smoke.py
 
+    python3 chip_smoke.py --launch-probe OTHER/src
+
+times only the launch floor and the B1 / B2 pairs of phase 6 for another
+checkout's ``src`` (the parent commit, unpacked with git archive), with
+the timers of this script, and prints them as JSON lines.
+
 It needs one CUDA device and ``nvcc`` (the kernels are built from the
 sources in the checkout into build/repro_torch_kernels/).  Phases:
 
@@ -14,10 +20,7 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
   3. kernels  each kernel against its plain PyTorch version on the card,
               with stated tolerances:
               B1/B2 over det/stoch x clip x float32/bfloat16 x R in {16,
-              768 and the main path's 96 and 128} (+ want_x0 for B2), and
-              at R 96 / 128 in every other launch variant that
-              kernels/launch_probe.py times (block size, elements per
-              thread, programmatic dependent launch);
+              768 and the main path's 96 and 128} (+ want_x0 for B2);
               B6 rms_norm over f32/bf16 x rows {256, 1000} x d {576, 192,
               190} (190 takes the scalar row path; so does an unaligned
               x at d 576), the row path checked from the launch plan;
@@ -39,23 +42,12 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               (eta=1, S=10), plan.run(backend='rows') runs one batch; B1/B2
               must grow by exactly S per batch; outputs are checked against
               the eager path and the U-Net against its own CPU forward;
-              the paper's encode / decode / interpolation at CIFAR10 width,
-              batch 8: plan.encode, then a 'tile_resident' decode at S=20
-              and S=50 (B1 exactly S times each) against an 'eager' decode
-              of the same latent (1e-5 of max|x|), with the reconstruction
-              MSE printed; 8 slerp points between two encodings decoded as
-              one batch (B1 S times), whose ends must match the decodes of
-              the two latents (1e-5 of max|x|);
               diffusion-LM generate(tile_resident=True) at S=20, batch 4 x
               64 tokens: DLM_SMOLLM_MEGA (2 layers, eligible) must launch B3
               exactly ceil(20/8) = 3 times and B1 0 times, DLM_SMOLLM (30
               layers, not eligible) B3 0 times and B1 20 times, with the
               eligibility reason printed; plan.run 'mega' (exact and flash)
-              against 'tile_resident' on the card; DLM_SMOLLM_MEGA at
-              (2, 128), eligible by the JAX rule but past the CUDA
-              megakernel's 64 tokens: generate returns tokens through B1
-              (B3 0 times, run_mega.last_reason printed) and 'mega' equals
-              'tile_resident' within 1e-3;
+              against 'tile_resident' on the card;
               the attention / norm ops at smollm width and prefill length
               (rms_norm, gqa_flash causal), against the model's plain ones;
               the continuous-batching scheduler on the CIFAR10 U-Net:
@@ -68,14 +60,8 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               the scheduler's mega tick on DLM_SMOLLM_MEGA (4 slots x 64
               tokens, 8 requests S {10, 20}): B4 once per tick, B2 never,
               against a use_mega=False engine, rounded to tokens
-  5. times    the launch floor: the sampler-step library's empty kernel,
-              graph-replayed and per Python call, at 1 block and at every
-              grid B1 / B2 take; B1 / B2 (det and stoch, R = 96 / 128 and
-              768) beside that floor and their bytes bound; the pair "the
-              op that produces eps on the path, then B1 / B2",
-              graph-replayed, beside the producer alone, in every launch
-              variant (kernels/launch_probe.py; run it with --src on a
-              parent checkout for the time before);
+  5. times    B1 / B2 alone (det and stoch, R = 96 / 128 and 768),
+              graph-replayed and per Python call, beside their bytes bound;
               CUDA-graph-replayed kernel times at the main path's shapes
               beside their bound, the plain versions' and the library
               call's times (B6 at (256, 576), (2048, 576) and (16384, 576);
@@ -93,6 +79,27 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               engines' steady slot-steps/s, a profile (device idle share)
               of one steady tick of each engine, and the host time of each
               piece of the mega tick's work before B4
+  6. new paths, run after every rate of phase 5 so that those are timed
+              from the state they were timed in before these paths existed,
+              each counted as in phase 4:
+              the paper's encode / decode / interpolation at CIFAR10 width,
+              batch 8: plan.encode, then a 'tile_resident' decode at S=20
+              and S=50 (B1 exactly S times each) against an 'eager' decode
+              of the same latent (1e-5 of max|x|), with the reconstruction
+              MSE printed; 8 slerp points between two encodings decoded as
+              one batch (B1 S times), whose ends must match the decodes of
+              the two latents (1e-5 of max|x|);
+              DLM_SMOLLM_MEGA at (2, 128), eligible by the JAX rule but
+              past the CUDA megakernel's 64 tokens: generate returns tokens
+              through B1 (B3 0 times, run_mega.last_reason printed) and
+              'mega' equals 'tile_resident' within 1e-3;
+              a torch.profiler breakdown of one decode;
+              the launch floor: the sampler-step library's empty kernel,
+              graph-replayed and per Python call, at 1 block and at every
+              grid B1 / B2 take, beside B1 / B2 alone at that grid; the
+              pair "the op that produces eps on the path, then B1 / B2",
+              graph-replayed, beside the producer alone (--launch-probe
+              times the same for another checkout)
 
 Every time is printed beside the card's name and power limit.  Any failure
 raises and the script exits nonzero with no result line.  On success the
@@ -106,6 +113,8 @@ import dataclasses
 import json
 import math
 import re
+import statistics
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -164,11 +173,45 @@ def check(ok: bool, what: str) -> None:
 
 
 # ----------------------------------------------------------------- timing
-# graph_ms (CUDA-graph replay), loop_ms (per Python call) and main_rows
-# (the rows of the (R, 256) state that B1 and B2 take on the main path at
-# batch BATCH) come from repro_torch/kernels/launch_probe.py, imported in
-# main() once src/ is on the path.
-graph_ms = loop_ms = main_rows = None
+def graph_ms(fn, iters: int = 50, reps: int = 5) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in one
+    CUDA graph, the graph replayed ``reps`` times between CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
+
+
+def loop_ms(fn, iters: int = 200) -> float:
+    """Time of one call of ``fn`` issued from Python in a loop (CUDA
+    events): what the step loop pays per launch, host overhead included."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def bound_ms(n_elems: int, elem_bytes: int, n_streams: int,
@@ -192,10 +235,21 @@ def bound_ms(n_elems: int, elem_bytes: int, n_streams: int,
 OPS_STEP, OPS_NOISE = 3, 37
 
 
+def main_rows():
+    """Rows of the (R, 256) state the main path gives each kernel at batch
+    BATCH: the tile layout (B1) and the slot layout (B2)."""
+    from repro_torch.kernels.sampler_step import ops
+    r_main = ops.to_tile_layout(
+        torch.empty((BATCH,) + CARD_SHAPE, device="meta"))[0].shape[0]
+    return r_main, BATCH * ops.slot_rows(CARD_SHAPE)
+
+
 # ----------------------------------------------------------------- phases
 def phase_card() -> str:
-    from repro_torch.kernels.launch_probe import card
-    smi = card()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
     print(smi)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -231,34 +285,25 @@ def _tolerance(dtype, exact: bool, scale: float) -> float:
     return 0.0 if exact else 4 * F32_ULP * scale
 
 
-def _report(errs, name, got, want, dtype, exact, quiet=False) -> None:
+def _report(errs, name, got, want, dtype, exact) -> None:
     got, want = got.float(), want.float()
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
     tol = _tolerance(dtype, exact, scale)
     ok = bool(torch.isfinite(got).all()) and err <= tol
-    if not (ok and quiet):
-        print(f"[kernels] {name:<44} max|d|={err:.3e} tol={tol:.3e} "
-              f"{'ok' if ok else 'FAIL'}")
+    print(f"[kernels] {name:<44} max|d|={err:.3e} tol={tol:.3e} "
+          f"{'ok' if ok else 'FAIL'}")
     check(ok, f"{name}: max|d| {err} > tol {tol}")
     errs.append(err)
 
 
 def phase_kernels():
-    """B1 and B2 against their plain versions on the card: as the main path
-    launches them at every R, and in every other launch variant (block
-    size, programmatic dependent launch) at the main path's R."""
-    from repro_torch.kernels.launch_probe import (launch_of, variants,
-                                                  with_variant)
+    """B1 and B2 against their plain versions on the card."""
     from repro_torch.kernels.sampler_step import kernel, ref
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
     coefs = torch.tensor([0.9, 0.3, 1.0, 0.6, 0.8])   # c_noise = 1.0
     errs = {"sampler_step_2d": [], "sampler_step_rows_2d": []}
-    b1, b2 = kernel.sampler_step_2d, kernel.sampler_step_rows_2d
-    as_built = launch_of(b1)
-    check(as_built == launch_of(b2), "B1 and B2 launch alike")
-    inputs = {}
     # the 8-row granule, the main path's shapes (B1's and B2's), 256-row tiles
     for R in sorted({16, *main_rows(), 768}):
         x32 = torch.randn(R, 256, generator=gen, device=dev) * 2
@@ -268,10 +313,6 @@ def phase_kernels():
         row_seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (R,),
                                   generator=gen, device=dev,
                                   dtype=torch.int32)
-        inputs[R] = (x32, e32, row_coefs, row_seeds)
-
-    def cases(R, errs, quiet):
-        x32, e32, row_coefs, row_seeds = inputs[R]
         for dtype in (torch.float32, torch.bfloat16):
             x, e = x32.to(dtype), e32.to(dtype)
             tag = "f32" if dtype == torch.float32 else "bf16"
@@ -286,7 +327,7 @@ def phase_kernels():
                         x, e, coefs.to(dev), -98765, clip=clip,
                         stochastic=stoch)
                     _report(errs["sampler_step_2d"], "B1 " + name, got,
-                            want, dtype, exact, quiet)
+                            want, dtype, exact)
                     for want_x0 in (False, True):
                         kw = dict(clip=clip, stochastic=stoch,
                                   want_x0=want_x0)
@@ -298,27 +339,10 @@ def phase_kernels():
                         if want_x0:
                             _report(errs["sampler_step_rows_2d"],
                                     sub + " [x0]", got[1], want[1], dtype,
-                                    dtype == torch.float32, quiet)
+                                    exact=dtype == torch.float32)
                             got, want = got[0], want[0]
                         _report(errs["sampler_step_rows_2d"], sub, got,
-                                want, dtype, exact and not want_x0, quiet)
-
-    print(f"[kernels] B1 / B2 as the main path launches them: {as_built}")
-    for R in inputs:
-        cases(R, errs, quiet=False)
-    for v in variants(b1):
-        if v == as_built:
-            continue
-        verrs = {k: [] for k in errs}
-        with_variant(b1, v, lambda: with_variant(b2, v, lambda: [
-            cases(R, verrs, quiet=True) for R in main_rows()]))
-        print(f"[kernels] B1 / B2 launched with {v} at R {main_rows()}: "
-              f"{sum(map(len, verrs.values()))} cases, max|d| B1 "
-              f"{max(verrs['sampler_step_2d']):.3e}, B2 "
-              f"{max(verrs['sampler_step_rows_2d']):.3e}, all within "
-              "tolerance (exact cases bitwise)")
-        for k, v_errs in verrs.items():
-            errs[k] += v_errs
+                                want, dtype, exact and not want_x0)
     torch.cuda.synchronize()
     return {k: max(v) for k, v in errs.items()}
 
@@ -503,36 +527,6 @@ def profile_call(smi: str, label: str, fn, marker: str) -> None:
         print(f"[profile]   {us / 1e3:8.3f} ms  {count:5d}x  {key[:90]}")
 
 
-def _floor(smi):
-    """The empty kernel's times by (blocks, threads, pdl), printed."""
-    from repro_torch.kernels.launch_probe import floor
-    out = {}
-    for r in floor():
-        out[r["blocks"], r["threads"], r["pdl"]] = r
-        print(f"[times] {smi} | floor: empty kernel, {r['blocks']} blocks x "
-              f"{r['threads']} threads, pdl {r['pdl']}: "
-              f"{r['graph_ms'] * 1e3:.2f} us (graph), "
-              f"{r['loop_ms'] * 1e3:.2f} us per Python call")
-    return out
-
-
-def _pairs(smi):
-    """Each step kernel alone and after its producer, every launch variant
-    (launch_probe.pairs), printed; returns the records."""
-    from repro_torch.kernels.launch_probe import ROUNDS, pairs
-    recs = pairs()
-    for r in recs:
-        rng = r["pair_ms_range"]
-        print(f"[times] {smi} | pair {r['kernel']} R={r['R']} {r['variant']}"
-              f" {r['launch']}: alone {r['alone_ms'] * 1e3:.2f} us, "
-              f"producer {r['producer_ms'] * 1e3:.2f} us, producer + step "
-              f"{r['pair_ms'] * 1e3:.2f} us (range {rng[0] * 1e3:.2f}-"
-              f"{rng[1] * 1e3:.2f}), step in the pair "
-              f"{r['step_in_pair_ms'] * 1e3:.2f} us (graph, median of "
-              f"{ROUNDS} rounds)")
-    return recs
-
-
 def phase_times(smi: str, model, errs, launches, st_det):
     """B1 / B2 alone at the main path's R and at 768, the U-Net forward and
     serve's samples/s.  Returns B1 / B2's records, and their times alone by
@@ -568,16 +562,15 @@ def phase_times(smi: str, model, errs, launches, st_det):
                 n = R * 256
                 ops_pe = OPS_STEP + (OPS_NOISE if stoch else 0)
                 b_ms, b_by = bound_ms(n, 4, 3, extra, ops_pe)
-                # 2,000 launches a window, as launch_probe.pairs times them
-                t = {"ms": graph_ms(fn, 100, 20), "plain_ms": graph_ms(plain),
+                t = {"ms": graph_ms(fn), "plain_ms": graph_ms(plain),
                      "call_ms": loop_ms(fn), "bound_ms": b_ms,
                      "bound_by": b_by}
                 alone[kname, R, stoch] = t
-                print(f"[times] {smi} | {kname} R={R} f32 "
-                      f"{'stoch' if stoch else 'det'}: kernel "
-                      f"{t['ms'] * 1e3:.2f} us (graph), "
-                      f"{t['call_ms'] * 1e3:.2f} us per Python call; plain "
-                      f"{t['plain_ms'] * 1e3:.2f} us; bound "
+                variant = "stoch" if stoch else "det"
+                print(f"[times] {smi} | {kname} R={R} f32 {variant}: "
+                      f"kernel {t['ms'] * 1e3:.2f} us (graph), "
+                      f"{t['call_ms'] * 1e3:.2f} us per Python call; "
+                      f"plain {t['plain_ms'] * 1e3:.2f} us; bound "
                       f"{b_ms * 1e3:.3f} us ({b_by})")
                 if R == shapes[0] and not stoch:
                     records[kname] = dict(t, R=R, variant="f32 det")
@@ -605,45 +598,129 @@ def phase_times(smi: str, model, errs, launches, st_det):
     return kernels, alone
 
 
-def phase_launch(smi, b_kernels, alone) -> None:
-    """The launch floor and the producer + step pairs (launch_probe), run
-    last, so that the end-to-end rates are measured before its ~450 CUDA
-    graph captures, as they were before this phase existed.  Prints B1 / B2
-    alone beside the empty kernel at their grid and adds floor_ms and the
-    pair's times to their records."""
-    from repro_torch.kernels.launch_probe import launch_of
+# ------------------------------------------- the launch floor and the pairs
+PAIR_ROUNDS = 5
+
+
+def launch_floor():
+    """The sampler-step library's empty kernel at 1 block and at every grid
+    that B1 and B2 take at the main path's R and at 768: {blocks:
+    (graph_ms, loop_ms)}."""
     from repro_torch.kernels.sampler_step import kernel
-    floors = _floor(smi)
+    grids = {1} | {kernel.grid(R, stoch) for R in (*main_rows(), 768)
+                   for stoch in (False, True)}
+    out = {}
+    for blocks in sorted(grids):
+        fn = lambda: kernel.empty_kernel(blocks)  # noqa: E731
+        out[blocks] = (graph_ms(fn), loop_ms(fn))
+    return out
+
+
+def launch_pairs(seed: int = 99):
+    """B1 and B2 (det and stoch) at the main path's R, each alone and after
+    the op that produces eps on its path, graph-replayed, beside that op
+    alone: PAIR_ROUNDS rounds in turns; the median and the range of each.
+    B1's producer is the copy that ``to_tile_layout`` makes of the U-Net's
+    NHWC eps view (``sampling.backends._loop_tiles``), B2's the copy and pad
+    of ``to_slot_tile_layout`` (``_loop_rows``)."""
+    from repro_torch.kernels.sampler_step import kernel, ops
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r_b1, r_b2 = main_rows()
+    # the U-Net's eps as it leaves the model: an NHWC view of NCHW data
+    eps_nhwc = torch.randn((BATCH, CARD_SHAPE[2]) + CARD_SHAPE[:2],
+                           generator=gen, device="cuda").permute(0, 2, 3, 1)
+    rc = torch.rand(r_b2, 8, generator=gen, device="cuda") + 0.1
+    rs = torch.randint(0, 2 ** 31 - 1, (r_b2,), generator=gen,
+                       device="cuda", dtype=torch.int32)
+    coefs = [0.9, 0.3, 1.0, 0.6, 0.8]
+    x_b1 = torch.randn(r_b1, 256, generator=gen, device="cuda")
+    x_b2 = torch.randn(r_b2, 256, generator=gen, device="cuda")
+    produce = {"sampler_step_2d": lambda: ops.to_tile_layout(eps_nhwc)[0],
+               "sampler_step_rows_2d":
+                   lambda: ops.to_slot_tile_layout(eps_nhwc)[0]}
+
+    def step(name, stoch, e):
+        if name == "sampler_step_2d":
+            return kernel.sampler_step_2d(x_b1, e, coefs, 7,
+                                          stochastic=stoch)
+        return kernel.sampler_step_rows_2d(x_b2, e, rc, rs,
+                                           stochastic=stoch)
+    cases = [(name, stoch, produce[name]()) for name in produce
+             for stoch in (False, True)]
+    times = [{"alone": [], "pair": [], "producer": []} for _ in cases]
+    for _ in range(PAIR_ROUNDS):
+        for (name, stoch, e), t in zip(cases, times):
+            t["alone"].append(graph_ms(lambda: step(name, stoch, e)))
+            t["pair"].append(graph_ms(
+                lambda: step(name, stoch, produce[name]())))
+            t["producer"].append(graph_ms(produce[name]))
+    out = []
+    for (name, stoch, _), t in zip(cases, times):
+        rec = {"kernel": name, "R": r_b1 if name == "sampler_step_2d"
+               else r_b2, "variant": "stoch" if stoch else "det"}
+        for k, vals in t.items():
+            rec[f"{k}_ms"] = statistics.median(vals)
+            rec[f"{k}_ms_range"] = [min(vals), max(vals)]
+        rec["step_in_pair_ms"] = rec["pair_ms"] - rec["producer_ms"]
+        out.append(rec)
+    return out
+
+
+def _pair_line(smi, r) -> str:
+    lo, hi = r["pair_ms_range"]
+    return (f"[times] {smi} | pair {r['kernel']} R={r['R']} {r['variant']}: "
+            f"alone {r['alone_ms'] * 1e3:.3f} us, producer "
+            f"{r['producer_ms'] * 1e3:.3f} us, producer + step "
+            f"{r['pair_ms'] * 1e3:.3f} us (range {lo * 1e3:.3f}-"
+            f"{hi * 1e3:.3f}), step in the pair "
+            f"{r['step_in_pair_ms'] * 1e3:.3f} us (graph, median of "
+            f"{PAIR_ROUNDS} rounds)")
+
+
+def phase_launch(smi, b_kernels, alone) -> None:
+    """The launch floor and the producer + step pairs, run last, so that
+    every end-to-end rate is measured before their CUDA graph captures, as
+    in the trees before them.  Prints B1 / B2 alone beside the empty kernel
+    at their grid and adds floor_ms and the pair's times to their
+    records."""
+    from repro_torch.kernels.sampler_step import kernel
+    floors = launch_floor()
+    for blocks, (g_ms, l_ms) in floors.items():
+        print(f"[times] {smi} | floor: empty kernel, {blocks} blocks x 256 "
+              f"threads: {g_ms * 1e3:.3f} us (graph), {l_ms * 1e3:.2f} us "
+              "per Python call")
+    recs = {r["name"]: r for r in b_kernels}
     for (kname, R, stoch), t in alone.items():
-        wrapper = getattr(kernel, kname)
-        per = kernel.elems_per_thread(wrapper, stoch)
-        blocks = kernel.grid(R, wrapper.block_threads, per)
-        fl = floors[blocks, wrapper.block_threads, False]
+        blocks = kernel.grid(R, stoch)
+        g_ms, l_ms = floors[blocks]
         print(f"[times] {smi} | {kname} R={R} f32 "
-              f"{'stoch' if stoch else 'det'} ({blocks} blocks x "
-              f"{wrapper.block_threads}, {per} per thread, pdl "
-              f"{wrapper.pdl}): kernel {t['ms'] * 1e3:.2f} us (graph) beside "
-              f"the empty kernel at that grid, {fl['graph_ms'] * 1e3:.2f} us "
-              f"(graph) and {fl['loop_ms'] * 1e3:.2f} us per Python call; "
-              f"bound {t['bound_ms'] * 1e3:.3f} us ({t['bound_by']})")
-        if not stoch:
-            rec = next(k for k in b_kernels if k["name"] == kname)
-            if rec["R"] == R:
-                rec.update(floor_ms=fl["graph_ms"],
-                           floor_call_ms=fl["loop_ms"])
-    pairs = _pairs(smi)
-    for rec in b_kernels:
-        built = launch_of(getattr(kernel, rec["name"]))
-        mine = [p for p in pairs if p["kernel"] == rec["name"]]
-        det = next(p for p in mine if p["launch"] == built
-                   and p["variant"] == "det")
-        rec.update(pair_ms=det["pair_ms"], producer_ms=det["producer_ms"],
-                   step_in_pair_ms=det["step_in_pair_ms"], launch=built,
-                   launch_variants=[
-                       {k: p[k] for k in ("variant", "launch", "alone_ms",
-                                          "pair_ms", "producer_ms",
-                                          "step_in_pair_ms")}
-                       for p in mine])
+              f"{'stoch' if stoch else 'det'} ({blocks} blocks): kernel "
+              f"{t['ms'] * 1e3:.3f} us (graph) beside the empty kernel at "
+              f"that grid, {g_ms * 1e3:.3f} us (graph) and "
+              f"{l_ms * 1e3:.2f} us per Python call; bound "
+              f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']})")
+        if not stoch and recs[kname]["R"] == R:
+            recs[kname].update(floor_ms=g_ms, floor_call_ms=l_ms)
+    for r in launch_pairs():
+        print(_pair_line(smi, r))
+        if r["variant"] == "det":
+            recs[r["kernel"]].update(
+                pair_ms=r["pair_ms"], producer_ms=r["producer_ms"],
+                step_in_pair_ms=r["step_in_pair_ms"])
+
+
+def launch_probe(smi) -> None:
+    """``--launch-probe SRC``: the floor (where SRC's library has the empty
+    kernel) and the pairs of SRC's step kernels, as JSON lines, so that
+    another checkout (the parent commit, unpacked with git archive) is
+    timed by this script's timers in the same call."""
+    from repro_torch.kernels.sampler_step import kernel
+    if hasattr(kernel, "empty_kernel"):
+        for blocks, (g_ms, l_ms) in launch_floor().items():
+            print(json.dumps({"card": smi, "probe": "floor", "blocks": blocks,
+                              "graph_ms": g_ms, "loop_ms": l_ms}))
+    for r in launch_pairs():
+        print(json.dumps({"card": smi, "probe": "pair", **r}))
 
 
 # ------------------------------------------------- the diffusion-LM slice
@@ -823,7 +900,7 @@ def phase_kernels_dlm(params2):
     return {k: max(v) for k, v in errs.items()}
 
 
-def phase_main_dlm(smi, params2, params30):
+def phase_main_dlm(params2, params30):
     """generate() on the eligible 2-layer and the ineligible 30-layer
     smollm-width trunk, counted; 'mega' against 'tile_resident'."""
     from repro_torch.configs import DLM_SMOLLM, DLM_SMOLLM_MEGA
@@ -880,18 +957,20 @@ def phase_main_dlm(smi, params2, params30):
         check(backends.run_mega.last_reason == "ok" and rel <= 1e-3,
               f"mega {impl} vs tile_resident: {rel} > 1e-3")
     eps.mega_spec = spec
-    _mega_fallback(smi, sch, sampler, params2)
     return b3_launches
 
 
-def _mega_fallback(smi, sch, sampler, params2):
+def phase_mega_fallback(smi, params2):
     """(2, 128) over DLM_SMOLLM_MEGA: eligible by the JAX rule, but past
     the CUDA megakernel's 64 tokens, so 'mega' runs the tile-resident loop
     (B1 S times, B3 never) and returns what 'tile_resident' returns."""
     from repro_torch.configs import DLM_SMOLLM_MEGA as cfg
+    from repro_torch.core import SamplerConfig
+    from repro_torch.core.schedules import make_schedule
     from repro_torch.diffusion_lm import generate, make_tile_eps_fn
     from repro_torch.sampling import backends
     batch, seq = MEGA_FALLBACK
+    sch, sampler = make_schedule("linear", 1000), SamplerConfig(S=DLM_S)
     gen = torch.Generator(device="cuda").manual_seed(13)
     _zero_counts()
     tokens = generate(params2, cfg, sch, gen, batch, seq, sampler,
@@ -1644,21 +1723,29 @@ def phase_times_sched(smi, params2, errs, b4_launches, eng_unet, dlm_mega,
             for name, r in recs.items()]
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--launch-probe", metavar="SRC", type=Path,
+                    help="only time the launch floor and the B1 / B2 pairs "
+                         "of SRC/repro_torch (another checkout's src)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    if not (SRC / "repro_torch").is_dir():
-        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run it from a "
+    src = (args.launch_probe or SRC).resolve()
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} not found; run it from a "
               "checkout of the repository", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(SRC))
-    global graph_ms, loop_ms, main_rows
-    from repro_torch.configs import DLM_SMOLLM, DLM_SMOLLM_MEGA
-    from repro_torch.kernels.launch_probe import graph_ms, loop_ms, main_rows
+    sys.path.insert(0, str(src))
     t0 = time.perf_counter()
     smi = phase_card()
+    if args.launch_probe:
+        launch_probe(smi)
+        return 0
+    from repro_torch.configs import DLM_SMOLLM, DLM_SMOLLM_MEGA
     phase_build()
     errs = phase_kernels()
     params2 = _dlm_params(DLM_SMOLLM_MEGA)
@@ -1666,9 +1753,7 @@ def main() -> int:
     errs_sched = phase_kernels_sched(params2)
     model = _cifar10_model()
     launches, st_det, svc, det = phase_main(model)
-    # B1 runs on three main paths: serve, decode and interpolation
-    launches["sampler_step_2d"] += phase_main_ode(smi, model)
-    b3_launches = phase_main_dlm(smi, params2, _dlm_params(DLM_SMOLLM))
+    b3_launches = phase_main_dlm(params2, _dlm_params(DLM_SMOLLM))
     ops_launches = phase_ops_path()
     sched_counts, eng_unet = phase_main_sched(model)
     dlm_counts, dlm_mega, dlm_plain = phase_main_dlm_sched(params2)
@@ -1684,6 +1769,13 @@ def main() -> int:
     profile_call(smi, f"one serve batch (eta=0, S={det.S}, batch "
                  f"{svc.batch})", lambda: svc.sample_batch(det, gen),
                  "step_kernel")
+    # Encode / decode / interpolation and the (2, 128) fallback run after
+    # every rate above, so that those are timed from the state they were
+    # timed in before these paths existed.  B1 runs on three main paths:
+    # serve, decode and interpolation.
+    next(r for r in b_kernels if r["name"] == "sampler_step_2d")[
+        "launches"] += phase_main_ode(smi, model)
+    phase_mega_fallback(smi, params2)
     z = det.encode(svc.eps_fn, torch.randn((BATCH,) + CARD_SHAPE,
                                            generator=gen, device="cuda"))
     profile_call(smi, f"one decode (encoded latent, S={det.S}, batch "

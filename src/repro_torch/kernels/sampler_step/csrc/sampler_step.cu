@@ -40,17 +40,10 @@
 //    so that each thread's dependent chain (2 fmix32 draws, the accurate
 //    logf / cosf / sqrtf) is one normal long instead of four; the noise is
 //    drawn while the loads are in flight.
-// Elements per thread, block size and programmatic dependent launch are
-// launch arguments (the wrappers' attributes), so that
-// kernels/launch_probe.py can time the alternatives against each other on
-// one card.  Programmatic dependent launch (cudaLaunchKernelEx with
-// cudaLaunchAttributeProgrammaticStreamSerialization; griddepcontrol.wait
-// before the first load) lets the grid start before the kernel ahead of it
-// has finished.  The kernels ahead of B1 / B2 on the main path are
-// PyTorch's, which never signal early, and with them it measured slower on
-// an H100 (PERF.md), so it is off by default, as are 64-thread blocks.
-// The arithmetic, and its order, are the same in every variant: each is
-// bitwise equal to the plain version.
+// The arithmetic, and its order, are the same either way: both are bitwise
+// equal to the plain version.  Measured slower on an H100 (PERF.md) and
+// not used: 64-thread blocks, and programmatic dependent launch, whose grid
+// still waits for the PyTorch op ahead of it on the main path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,6 +69,12 @@ constexpr float kInv2p24 = 5.9604644775390625e-08f;  // 2^-24
 constexpr float kTwoPi = 6.283185307179586f;         // float32(2 pi)
 
 // ------------------------------------------------------------ vector I/O
+// Elements per thread: 4 (one vector) for deterministic steps, 1 for
+// stochastic ones.
+__host__ __device__ constexpr int elems_per_thread(bool stochastic) {
+  return stochastic ? 1 : 4;
+}
+
 // V = 4: one 16-byte (float32) or 8-byte (bfloat16) vector; V = 1: one
 // element.  The bfloat16 roundings are the same either way.
 template <int V>
@@ -119,13 +118,6 @@ __device__ __forceinline__ void store_v(__nv_bfloat16* p, const float v[V]) {
   }
 }
 
-// Programmatic dependent launch: wait until the grids this launch depends
-// on have completed and their writes are visible.  A no-op for a launch
-// that has no programmatic dependency.
-__device__ __forceinline__ void wait_for_producer() {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-}
-
 // ------------------------------------------------------------------ PRNG
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   h ^= h >> 16;
@@ -149,15 +141,15 @@ __device__ __forceinline__ float bits_to_normal(uint32_t b1, uint32_t b2) {
 }
 
 // Scalar coefficients: every row at the same trajectory position.
-template <typename T, typename E, bool CLIP, bool STOCH, int V>
+template <typename T, typename E, bool CLIP, bool STOCH>
 __global__ void __launch_bounds__(kThreads)
 step_kernel(const T* __restrict__ x, const E* __restrict__ eps,
             T* __restrict__ out, int n_vec, int tile_rows, Coefs c,
             float clip, uint32_t seed) {
+  constexpr int V = elems_per_thread(STOCH);
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= n_vec) return;
   const int base = v * V;
-  wait_for_producer();
   float xs[V], es[V], os[V], x0;
   load_v<V>(x + base, xs);
   load_v<V>(eps + base, es);
@@ -185,17 +177,17 @@ step_kernel(const T* __restrict__ x, const E* __restrict__ eps,
 
 // Per-row coefficients and seeds: one launch advances rows at different
 // trajectory positions (the continuous-batching tick).
-template <typename T, typename E, bool CLIP, bool STOCH, bool WANT_X0, int V>
+template <typename T, typename E, bool CLIP, bool STOCH, bool WANT_X0>
 __global__ void __launch_bounds__(kThreads)
 step_rows_kernel(const T* __restrict__ x, const E* __restrict__ eps,
                  const float* __restrict__ row_coefs,
                  const int32_t* __restrict__ row_seeds, T* __restrict__ out,
                  T* __restrict__ x0_out, int n_vec, float clip) {
+  constexpr int V = elems_per_thread(STOCH);
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= n_vec) return;
   const int base = v * V;
   const int row = base / kTileC;
-  wait_for_producer();
   const float* rc = row_coefs + row * kCoefCols;
   const Coefs c{rc[0], rc[1], rc[2], rc[3], rc[4]};
   float xs[V], es[V], os[V], x0s[V];
@@ -224,35 +216,10 @@ step_rows_kernel(const T* __restrict__ x, const E* __restrict__ eps,
 __global__ void empty_kernel() {}
 
 // ------------------------------------------------------------- dispatch
-// One launch on ``s``; with ``pdl`` the grid may start before the kernel
-// ahead of it on the stream has finished (it waits in wait_for_producer).
-template <typename... Params, typename... Args>
-cudaError_t launch(void (*kernel)(Params...), int blocks, int threads,
-                   cudaStream_t s, bool pdl, Args... args) {
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = s;
-  cfg.attrs = attr;
-  cfg.numAttrs = pdl ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
-}
-
-bool threads_ok(int threads) {
-  return threads >= 32 && threads <= kThreads && threads % 32 == 0;
-}
-
-// Elements per thread: 4 (one vector) or 1 (checked by the launchers).
-bool vec_ok(int vec) { return vec == 4 || vec == 1; }
-
-template <typename F>
-void with_vec(int vec, F f) {
-  if (vec == 4) f(std::integral_constant<int, 4>{});
-  else f(std::integral_constant<int, 1>{});
+// Blocks of kThreads that one step over n elements launches.
+int blocks_for(int n, bool stochastic) {
+  const int n_threads = n / elems_per_thread(stochastic);
+  return (n_threads + kThreads - 1) / kThreads;
 }
 
 template <typename F>
@@ -282,94 +249,72 @@ int with_dtypes(int x_dtype, int eps_dtype, F f) {
 
 extern "C" {
 
-// x, eps, out: (R, 256) contiguous, 16-byte aligned.  ``threads`` per
-// block (a multiple of 32 up to 256), ``vec`` elements per thread (4 or
-// 1); ``pdl`` launches with programmatic stream serialization.  Returns
-// the cudaError_t of the launch (0 on success).
+// x, eps, out: (R, 256) contiguous, 16-byte aligned.  Returns the
+// cudaError_t of the launch (0 on success).
 int repro_sampler_step_2d(const void* x, const void* eps, void* out,
                           int x_dtype, int eps_dtype, int R, int tile_rows,
                           float c_x0, float c_dir, float c_noise,
                           float sqrt_a_t, float sqrt_1m_a_t, int has_clip,
-                          float clip, int stochastic, int seed, int threads,
-                          int vec, int pdl, void* stream) {
-  if (!threads_ok(threads) || !vec_ok(vec))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int n_vec = R * kTileC / vec;
-  const int blocks = (n_vec + threads - 1) / threads;
+                          float clip, int stochastic, int seed,
+                          void* stream) {
+  const int blocks = blocks_for(R * kTileC, stochastic != 0);
   const Coefs c{c_x0, c_dir, c_noise, sqrt_a_t, sqrt_1m_a_t};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaSuccess;
   const int bad = with_dtypes(x_dtype, eps_dtype, [&](auto tx, auto te) {
     using T = typename decltype(tx)::type;
     using E = typename decltype(te)::type;
     with_bool(has_clip != 0, [&](auto clip_c) {
       with_bool(stochastic != 0, [&](auto stoch_c) {
-        with_vec(vec, [&](auto vec_c) {
-          err = launch(
-              step_kernel<T, E, decltype(clip_c)::value,
-                          decltype(stoch_c)::value, decltype(vec_c)::value>,
-              blocks, threads, s, pdl != 0, static_cast<const T*>(x),
-              static_cast<const E*>(eps), static_cast<T*>(out), n_vec,
-              tile_rows, c, clip, static_cast<uint32_t>(seed));
-        });
+        constexpr bool STOCH = decltype(stoch_c)::value;
+        step_kernel<T, E, decltype(clip_c)::value, STOCH>
+            <<<blocks, kThreads, 0, s>>>(
+                static_cast<const T*>(x), static_cast<const E*>(eps),
+                static_cast<T*>(out), R * kTileC / elems_per_thread(STOCH),
+                tile_rows, c, clip, static_cast<uint32_t>(seed));
       });
     });
   });
   if (bad) return bad;
-  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // x, eps, out, x0_out: (R, 256); row_coefs: (R, 8) float32; row_seeds:
-// (R,) int32 (may be null when !stochastic); x0_out null when !want_x0;
-// threads, vec and pdl as for repro_sampler_step_2d.
+// (R,) int32 (may be null when !stochastic); x0_out null when !want_x0.
 int repro_sampler_step_rows_2d(const void* x, const void* eps,
                                const void* row_coefs, const void* row_seeds,
                                void* out, void* x0_out, int x_dtype,
                                int eps_dtype, int R, int has_clip, float clip,
-                               int stochastic, int want_x0, int threads,
-                               int vec, int pdl, void* stream) {
-  if (!threads_ok(threads) || !vec_ok(vec))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int n_vec = R * kTileC / vec;
-  const int blocks = (n_vec + threads - 1) / threads;
+                               int stochastic, int want_x0, void* stream) {
+  const int blocks = blocks_for(R * kTileC, stochastic != 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaSuccess;
   const int bad = with_dtypes(x_dtype, eps_dtype, [&](auto tx, auto te) {
     using T = typename decltype(tx)::type;
     using E = typename decltype(te)::type;
     with_bool(has_clip != 0, [&](auto clip_c) {
       with_bool(stochastic != 0, [&](auto stoch_c) {
         with_bool(want_x0 != 0, [&](auto x0_c) {
-          with_vec(vec, [&](auto vec_c) {
-            err = launch(
-                step_rows_kernel<T, E, decltype(clip_c)::value,
-                                 decltype(stoch_c)::value,
-                                 decltype(x0_c)::value,
-                                 decltype(vec_c)::value>,
-                blocks, threads, s, pdl != 0, static_cast<const T*>(x),
-                static_cast<const E*>(eps),
-                static_cast<const float*>(row_coefs),
-                static_cast<const int32_t*>(row_seeds), static_cast<T*>(out),
-                static_cast<T*>(x0_out), n_vec, clip);
-          });
+          constexpr bool STOCH = decltype(stoch_c)::value;
+          step_rows_kernel<T, E, decltype(clip_c)::value, STOCH,
+                           decltype(x0_c)::value>
+              <<<blocks, kThreads, 0, s>>>(
+                  static_cast<const T*>(x), static_cast<const E*>(eps),
+                  static_cast<const float*>(row_coefs),
+                  static_cast<const int32_t*>(row_seeds),
+                  static_cast<T*>(out), static_cast<T*>(x0_out),
+                  R * kTileC / elems_per_thread(STOCH), clip);
         });
       });
     });
   });
   if (bad) return bad;
-  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The empty kernel over ``blocks`` x ``threads``, launched as the step
+// The empty kernel over ``blocks`` blocks of kThreads, launched as the step
 // kernels are: the fixed cost per launch that they are measured against.
-int repro_empty_kernel(int blocks, int threads, int pdl, void* stream) {
-  if (blocks < 1 || !threads_ok(threads))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = launch(empty_kernel, blocks, threads,
-                                 static_cast<cudaStream_t>(stream), pdl != 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
+int repro_empty_kernel(int blocks, void* stream) {
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  empty_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

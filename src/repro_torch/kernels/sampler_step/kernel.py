@@ -8,12 +8,8 @@ attribute.  On tensors that lie on the CPU it runs the plain PyTorch
 version (``ref.py``) instead and counts nothing; on a CUDA tensor it
 launches or raises — there is no fallback.
 
-How a wrapper launches is kept in three attributes, which
-``kernels/launch_probe.py`` varies to time the alternatives on the card:
-``block_threads`` (256), ``elems_per_thread`` (None: 4 for deterministic
-steps, 1 for stochastic ones, the faster of the two on an H100 for each)
-and ``pdl`` (programmatic dependent launch; False, since it measured slower
-after the PyTorch ops that precede the kernels on the main path).
+Both launch blocks of 256 threads, each thread taking 4 elements (one
+vector) in a deterministic step and 1 in a stochastic one (``grid``).
 ``empty_kernel`` launches the library's empty kernel the same way: the
 fixed cost per launch that the step kernels are measured against.
 """
@@ -39,36 +35,27 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _lib() -> ctypes.CDLL:
     lib = build.load("sampler_step")
     lib.repro_sampler_step_2d.argtypes = [
-        _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _F, _I, _I, _I,
-        _I, _I, _P]
+        _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _F, _I, _I, _P]
     lib.repro_sampler_step_2d.restype = _I
     lib.repro_sampler_step_rows_2d.argtypes = [
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
-        _P]
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P]
     lib.repro_sampler_step_rows_2d.restype = _I
-    lib.repro_empty_kernel.argtypes = [_I, _I, _I, _P]
+    lib.repro_empty_kernel.argtypes = [_I, _P]
     lib.repro_empty_kernel.restype = _I
     return lib
 
 
-def elems_per_thread(wrapper, stochastic: bool) -> int:
-    """Elements each thread of ``wrapper``'s next launch takes: its
-    ``elems_per_thread``, or by default 1 for a stochastic step (the noise
-    chain is the longest part of a thread's work) and 4 (one vector) for a
-    deterministic one."""
-    if wrapper.elems_per_thread is not None:
-        return wrapper.elems_per_thread
-    return 1 if stochastic else 4
+def grid(R: int, stochastic: bool) -> int:
+    """Blocks of 256 threads that one step over R rows launches: a thread
+    takes 1 element of a stochastic step (the noise chain is the longest
+    part of its work) and 4 (one vector) of a deterministic one."""
+    return -(-R * TILE_C // ((1 if stochastic else 4) * 256))
 
 
-def grid(R: int, threads: int, elems_per_thread: int) -> int:
-    """Blocks of ``threads`` that one step over R rows launches."""
-    return -(-R * TILE_C // (elems_per_thread * threads))
-
-
-def empty_kernel(blocks: int, threads: int, *, pdl: bool = False) -> None:
-    """Launch the library's empty kernel on the current CUDA stream."""
-    err = _lib().repro_empty_kernel(int(blocks), int(threads), bool(pdl),
+def empty_kernel(blocks: int) -> None:
+    """Launch the library's empty kernel, ``blocks`` blocks of 256 threads,
+    on the current CUDA stream."""
+    err = _lib().repro_empty_kernel(int(blocks),
                                     torch.cuda.current_stream().cuda_stream)
     build.raise_on(err, "empty_kernel")
 
@@ -128,9 +115,6 @@ def sampler_step_2d(x: torch.Tensor, eps: torch.Tensor, coefs,
             *(float(v) for v in c), clip is not None,
             0.0 if clip is None else float(clip), bool(stochastic),
             int(np.int32(seed)) if stochastic else 0,
-            sampler_step_2d.block_threads,
-            elems_per_thread(sampler_step_2d, stochastic),
-            sampler_step_2d.pdl,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.raise_on(err, "sampler_step_2d")
     sampler_step_2d.launches += 1
@@ -138,9 +122,6 @@ def sampler_step_2d(x: torch.Tensor, eps: torch.Tensor, coefs,
 
 
 sampler_step_2d.launches = 0
-sampler_step_2d.block_threads = 256
-sampler_step_2d.elems_per_thread = None
-sampler_step_2d.pdl = False
 
 
 def sampler_step_rows_2d(x: torch.Tensor, eps: torch.Tensor,
@@ -188,9 +169,6 @@ def sampler_step_rows_2d(x: torch.Tensor, eps: torch.Tensor,
             _DTYPE_CODES[x.dtype], _DTYPE_CODES[eps.dtype], R,
             clip is not None, 0.0 if clip is None else float(clip),
             bool(stochastic), bool(want_x0),
-            sampler_step_rows_2d.block_threads,
-            elems_per_thread(sampler_step_rows_2d, stochastic),
-            sampler_step_rows_2d.pdl,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.raise_on(err, "sampler_step_rows_2d")
     sampler_step_rows_2d.launches += 1
@@ -198,6 +176,3 @@ def sampler_step_rows_2d(x: torch.Tensor, eps: torch.Tensor,
 
 
 sampler_step_rows_2d.launches = 0
-sampler_step_rows_2d.block_threads = 256
-sampler_step_rows_2d.elems_per_thread = None
-sampler_step_rows_2d.pdl = False

@@ -31,3 +31,21 @@ def test_port_files_exist():
 def test_no_jax_or_repro_import(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("argv", [[], ["--launch-probe", "src"]],
+                         ids=["smoke", "launch-probe"])
+def test_chip_smoke_refuses_without_a_card(argv, monkeypatch, capsys):
+    """chip_smoke.py exits nonzero and prints no result line when torch
+    sees no CUDA device, in either mode."""
+    import importlib.util
+
+    import torch
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert smoke.main(argv) == 1
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err

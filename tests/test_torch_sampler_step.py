@@ -268,17 +268,12 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("name", ["sampler_step_2d", "sampler_step_rows_2d"])
 def test_launch_shape_of_the_card_kernels(name):
-    """Elements per thread: 4 (one vector) for deterministic steps, 1 for
-    stochastic ones unless the wrapper's attribute names a count; the grid
-    covers the (R, 256) state."""
+    """Blocks of 256 threads, 4 elements (one vector) per thread for
+    deterministic steps and 1 for stochastic ones: the grid covers the
+    (R, 256) state, and the wrapper has no other launch setting."""
     wrapper = getattr(tk, name)
-    assert wrapper.elems_per_thread is None and wrapper.pdl is False
-    assert tk.elems_per_thread(wrapper, False) == 4
-    assert tk.elems_per_thread(wrapper, True) == 1
-    assert tk.grid(96, 256, 4) == 24 and tk.grid(96, 256, 1) == 96
-    assert tk.grid(128, 64, 4) == 128 and tk.grid(8, 256, 4) == 2
-    wrapper.elems_per_thread = 4
-    try:
-        assert tk.elems_per_thread(wrapper, True) == 4
-    finally:
-        wrapper.elems_per_thread = None
+    assert tk.grid(96, False) == 24 and tk.grid(96, True) == 96
+    assert tk.grid(128, False) == 32 and tk.grid(128, True) == 128
+    assert tk.grid(8, False) == 2 and tk.grid(768, True) == 768
+    assert [k for k in vars(wrapper) if not k.startswith("_")] == [
+        "launches"]
