@@ -100,6 +100,29 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               pair "the op that produces eps on the path, then B1 / B2",
               graph-replayed, beside the producer alone (--launch-probe
               times the same for another checkout)
+  7. autotuner, run after phase 6 so that every rate of phase 5 is timed
+              as before, each path counted as in phase 4, on the CIFAR10
+              U-Net: build_objective (grid 16, batch 16, chunk 8) over 16
+              seeded x0 images in [-1, 1] (trans against a table rebuilt
+              from the same noise within 1e-5, adjacent defects 0);
+              search_bank for S in (5, 10), DP then refinement (eta 0 / 1,
+              order 1 / 2) scored by fid_proxy through one PlanExecutor at
+              batch 16: B1 exactly the sum of S over the rollouts, one
+              rollout function per statics, every refined score at most
+              its DP plan's, one det and one stoch rollout bitwise equal to
+              plan.run(backend='tile_resident'); the bank's JSON round
+              trip; DiffusionSampler(tile_resident, plan_bank).serve(16,
+              "auto") (B1 S per batch, bitwise equal to serve(bank.best()));
+              svc.continuous(slots=8, stochastic, order 2, plan_bank)
+              serving 8 warm-up requests, then 16 auto_plan requests whose
+              deadlines, set from the measured tick EWMA, give 'fit',
+              'degraded' and 'quality' admissions: each admitted NFE equal
+              to bank.select at the EWMA of its admission, B2 once per
+              tick, every eta=0 x0 within SCHED_VS_EAGER_TOL of a lone
+              eager run; the objective's and the search's walls, ms per
+              rollout and the outcome counters printed, then a
+              torch.profiler breakdown of one build_objective and of one
+              rollout
 
 Every time is printed beside the card's name and power limit.  Any failure
 raises and the script exits nonzero with no result line.  On success the
@@ -596,6 +619,281 @@ def phase_times(smi: str, model, errs, launches, st_det):
             "library_ms": None, "call_ms": r["call_ms"], "R": r["R"],
             "variant": r["variant"]})
     return kernels, alone
+
+
+# ------------------------------------------------------- the autotuner slice
+AUTO_BUDGETS = (5, 10)         # the searched step budgets
+AUTO_N = 16                    # x0 images, rollout batch, served requests
+AUTO_SLOTS = 8
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def phase_autotuner(smi, model, dev=torch.device("cuda")):
+    """The trajectory autotuner at CIFAR10 width (phase 7), each path
+    counted as in phase 4: the objective over 16 seeded x0 images, the DP +
+    refinement search of a bank for S in AUTO_BUDGETS scored by fid_proxy
+    through one PlanExecutor (B1 S times per rollout), the bank's JSON round
+    trip, ``serve(16, "auto")`` (B1 S times per batch) and a bank-driven
+    scheduler (B2 once per tick) whose deadlines, set from its measured
+    tick EWMA, give 'fit', 'degraded' and 'quality' admissions.  Returns
+    (B1, B2) launches of the counted paths."""
+    import tempfile
+    from repro_torch.autoplan import (ObjectiveConfig, PlanBank,
+                                      PlanExecutor, RefineConfig,
+                                      SearchConfig, build_objective,
+                                      search_bank)
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.eval import fid_proxy, transition_elbo_table
+    from repro_torch.kernels.sampler_step import ops as sops
+    from repro_torch.models.unet import make_eps_fn
+    from repro_torch.obs import ListSink, Observability
+    from repro_torch.sampling import SamplerPlan, TauSpec
+    from repro_torch.serving import (DiffusionSampler, SampleRequest,
+                                     SlotCheckpoint)
+    sch = make_schedule("linear", 1000)
+    eps_fn = make_eps_fn(model)
+    gen = torch.Generator(device=dev).manual_seed(71)
+    x0 = torch.rand((AUTO_N,) + CARD_SHAPE, generator=gen,
+                    device=dev) * 2.0 - 1.0           # images in [-1, 1]
+    x_T = torch.randn((AUTO_N,) + CARD_SHAPE, generator=gen, device=dev)
+
+    # --- objective (no step kernel on this path)
+    cfg = ObjectiveConfig(grid_size=16, batch=AUTO_N, chunk=8)
+    _zero_counts()
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    table = build_objective(sch, eps_fn, x0, cfg)
+    _sync(dev)
+    objective_s = time.perf_counter() - t0
+    peak_gb = (torch.cuda.max_memory_allocated(dev) / 1e9
+               if dev.type == "cuda" else float("nan"))
+    counts = _counts()
+    check(counts == {"B1": 0, "B2": 0, "B3": 0, "B4": 0},
+          f"objective launched {counts}")
+    noise = torch.randn((len(table.grid),) + tuple(x0.shape),
+                        generator=torch.Generator(device=dev).manual_seed(
+                            cfg.seed), device=dev)
+    again = transition_elbo_table(sch, eps_fn, x0, grid=table.grid,
+                                  eta=cfg.eta, recon_sigma=cfg.recon_sigma,
+                                  chunk=cfg.chunk, noise=noise)
+    const = 0.5 * math.log(2.0 * math.pi * cfg.recon_sigma ** 2)
+    a, b = table.elbo.trans.copy(), again.trans.copy()
+    a[0, 1:] -= const                 # compare the mse-scaled part
+    b[0, 1:] -= const
+    fin = [(i, j) for i in range(a.shape[0]) for j in range(a.shape[1])
+           if math.isfinite(b[i, j])]
+    same_inf = all((math.isinf(a[i, j]) == math.isinf(b[i, j]))
+                   for i in range(a.shape[0]) for j in range(a.shape[1]))
+    rel = max(abs(a[i, j] - b[i, j]) / max(abs(b[i, j]), 1e-300)
+              for i, j in fin)
+    adjacent = [float(table.defect[j - 1, j])
+                for j in range(1, table.defect.shape[0])]
+    n_pairs = sum(1 for j in range(2, len(table.grid) + 1)
+                  for _ in range(j - 1))
+    print(f"[auto] {smi} | objective CIFAR10_UNET: grid {len(table.grid)} "
+          f"({cfg.grid_kind}), batch {cfg.batch}, chunk {cfg.chunk}: "
+          f"{len(table.grid)} timestep evals + {n_pairs} pair evals "
+          f"({n_pairs * cfg.batch} images in one U-Net call) in "
+          f"{objective_s:.3f} s, peak device memory {peak_gb:.2f} GB; "
+          f"trans vs a table rebuilt from the same "
+          f"noise: max rel {rel:.3e} (tol 1e-5); adjacent defects "
+          f"{set(adjacent)}; max defect {float(table.defect.max()):.4g}")
+    check(same_inf and rel <= 1e-5, f"objective trans vs rebuilt: {rel}")
+    check(all(v == 0.0 for v in adjacent), "adjacent defects not 0")
+    check(bool((table.defect >= 0).all()) and table.defect.max() > 0,
+          "defect table empty or negative")
+
+    # --- search: DP + refinement, every candidate a PlanExecutor rollout
+    ex = PlanExecutor(eps_fn)
+    rollouts = []
+
+    def score(plan):
+        g = torch.Generator(device=dev).manual_seed(77)
+        _sync(dev)
+        t1 = time.perf_counter()
+        out = ex.run(plan, x_T, g if plan.stochastic else None)
+        _sync(dev)
+        rollouts.append((plan, time.perf_counter() - t1))
+        return fid_proxy(out, x0)
+
+    refine = RefineConfig(eta_grid=(0.0, 1.0), orders=(1, 2))
+    _zero_counts()
+    t0 = time.perf_counter()
+    bank = search_bank(sch, table, SearchConfig(budgets=AUTO_BUDGETS,
+                                                refine=refine),
+                       score_fn=score, model_digest="chip_smoke:71")
+    _sync(dev)
+    search_s = time.perf_counter() - t0
+    counts = _counts()
+    statics = {(p.S, p.order, p.stochastic, p.x0.clip) for p, _ in rollouts}
+    sum_s = sum(p.S for p, _ in rollouts)
+    ms = [dt * 1e3 for _, dt in rollouts]
+    print(f"[auto] {smi} | search_bank budgets {AUTO_BUDGETS}, refine "
+          f"eta {refine.eta_grid} orders {refine.orders}: {len(rollouts)} "
+          f"rollouts (batch {AUTO_N}, sum of S {sum_s}) in {search_s:.3f} s;"
+          f" ms per rollout {statistics.median(ms):.2f} median "
+          f"({min(ms):.2f}-{max(ms):.2f}); executor compiled {ex.compiled} "
+          f"for {len(statics)} statics; launches {counts}")
+    check(counts == {"B1": sum_s, "B2": 0, "B3": 0, "B4": 0},
+          f"search launched {counts}, want B1 == {sum_s}")
+    check(ex.compiled == ex.traces == len(statics) and ex.calls
+          == len(rollouts), f"executor compiled {ex.compiled} traces "
+          f"{ex.traces} calls {ex.calls}, statics {len(statics)}")
+    b1_auto = counts["B1"]
+    for e in bank.entries:
+        dp_plan = SamplerPlan.build(sch, TauSpec.explicit(e.meta["dp_taus"]))
+        dp_score = score(dp_plan)
+        print(f"[auto] {smi} | bank row nfe {e.nfe}: taus {list(e.taus)}, "
+              f"sigma {e.sigma.kind} eta {e.sigma.eta}, order {e.order}, "
+              f"DP objective {e.objective:.6g}, score {e.score:.6g} (the DP "
+              f"plan's {dp_score:.6g}), {e.meta['refine_trials']} trials")
+        check(e.score <= dp_score, f"nfe {e.nfe}: refined {e.score} > DP "
+              f"plan {dp_score}")
+    det = next(p for p, _ in rollouts if not p.stochastic)
+    sto = next((p for p, _ in rollouts if p.stochastic), None)
+    for p in [det] + ([sto] if sto is not None else []):
+        got = ex.run(p, x_T, torch.Generator(device=dev).manual_seed(5)
+                     if p.stochastic else None)
+        want = p.run(eps_fn, x_T, torch.Generator(device=dev).manual_seed(5)
+                     if p.stochastic else None, backend="tile_resident")
+        same = torch.equal(got, want)
+        print(f"[auto] executor vs plan.run(backend='tile_resident'), "
+              f"{'stoch' if p.stochastic else 'det'} S={p.S}: bitwise {same}")
+        check(same, f"executor vs tile_resident ({p})")
+    check(sto is not None, "the search ran no stochastic candidate")
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/bank.json"
+        bank.save(path)
+        loaded = PlanBank.load(path, sch)
+    check(loaded.to_json() == bank.to_json()
+          and all(loaded.plan(n) == bank.plan(n) for n in bank.nfes),
+          "bank JSON round trip")
+    print(f"[auto] bank JSON round trip: {len(loaded)} rows, nfes "
+          f"{loaded.nfes}, search wall_s {bank.search_config['wall_s']:.3f}")
+
+    # --- lockstep service: serve(16, "auto")
+    svc = DiffusionSampler(sch, eps_fn, CARD_SHAPE, batch_size=BATCH,
+                           tile_resident=True, plan_bank=bank, device=dev)
+    best = bank.best()
+    _zero_counts()
+    out, st = svc.serve(AUTO_N, "auto", seed=13)
+    _sync(dev)
+    counts = _counts()
+    want_b1 = st["batches"] * best.S
+    print(f"[auto] {smi} | serve({AUTO_N}, 'auto'): S={best.S}, "
+          f"{st['batches']} batches, {st['samples_per_s']:.2f} samples/s "
+          f"steady; launches {counts}")
+    check(counts == {"B1": want_b1, "B2": 0, "B3": 0, "B4": 0},
+          f"serve auto launched {counts}, want B1 == {want_b1}")
+    b1_auto += counts["B1"]
+    ref, _ = svc.serve(AUTO_N, best, seed=13)
+    check(torch.equal(out, ref) and bool(torch.isfinite(out).all()),
+          "serve('auto') vs serve(bank.best())")
+
+    # --- scheduler: bank-driven admission at the measured tick EWMA
+    obs = Observability()
+    sink = obs.add_sink(ListSink())
+    eng = svc.continuous(slots=AUTO_SLOTS, stochastic=True, max_order=2,
+                         obs=obs)
+    gen = torch.Generator(device=dev).manual_seed(72)
+    _zero_counts()
+    warm = [SampleRequest(request_id=1000 + i, plan=bank.plan(min(
+        bank.nfes)), seed=1000 + i) for i in range(AUTO_SLOTS)]
+    eng.serve(warm)
+    e0 = eng.tick_ewma_s
+    check(e0 is not None and e0 > 0, "no tick EWMA after the warm-up")
+    t_sub = time.perf_counter()
+    reqs, x_nat = [], {}
+    # EDF: 'degraded' (3 ticks) < 'fit' to the small row (7.8) < 'fit' to
+    # the large row (44) < no deadline ('quality')
+    for i, ticks in enumerate([3.0] * 4 + [7.8] * 4 + [44.0] * 4
+                              + [None] * 4):
+        x = torch.randn((1,) + CARD_SHAPE, generator=gen, device=dev)
+        x_nat[i] = x
+        reqs.append(SampleRequest(
+            request_id=i, auto_plan=True, seed=i,
+            deadline=None if ticks is None else t_sub + ticks * e0
+            / eng.select_margin,
+            resume=SlotCheckpoint(request_id=i, k=0, hist_rows=None,
+                                  x_rows=sops.to_slot_tile_layout(x)[0])))
+    for r in reqs:
+        eng.submit(r, now=t_sub)
+    ewma_at, results = {}, []
+    while len(eng.queue) or eng.active:
+        now = time.perf_counter()
+        ewma_at[round(now, 9)] = eng.tick_ewma_s
+        results += eng.tick(now=now)
+    _sync(dev)
+    counts = _counts()
+    st = eng.stats()
+    selects = {e["req"]: e for e in sink.events if e["ev"] == "select"}
+    outcomes = {}
+    for r in reqs:
+        e = selects[r.request_id]
+        outcomes[e["outcome"]] = outcomes.get(e["outcome"], 0) + 1
+        headroom = (math.inf if r.deadline is None
+                    else max(r.deadline - e["t"], 0.0))
+        want = bank.select(headroom, ewma_at[e["t"]],
+                           margin=eng.select_margin, max_order=2, clip=None)
+        check(r.plan is not None and r.plan.S == want.S == e["nfe"],
+              f"request {r.request_id}: admitted NFE {r.plan.S}, "
+              f"select says {want.S}")
+    by_id = {r.request_id: r for r in results}
+    worst, n_det = 0.0, 0
+    for r in reqs:
+        res = by_id[r.request_id]
+        check(res.x0 is not None and res.x0.shape == CARD_SHAPE
+              and bool(torch.isfinite(res.x0).all()) and res.auto_plan
+              and res.nfe == r.plan.S, f"request {r.request_id}: bad result")
+        if r.plan.stochastic:
+            continue
+        lone = r.plan.run(eps_fn, x_nat[r.request_id], backend="eager")[0]
+        worst = max(worst, float((res.x0 - lone).abs().max()
+                                 / lone.abs().max()))
+        n_det += 1
+    reg = {dict(i.labels).get("outcome"): int(i.value)
+           for i in obs.registry.instruments()
+           if i.name == "engine_bank_outcome_total"}
+    nfes = {dict(i.labels)["nfe"]: int(i.value)
+            for i in obs.registry.instruments()
+            if i.name == "engine_bank_nfe_total"}
+    print(f"[auto] {smi} | scheduler CIFAR10_UNET slots {AUTO_SLOTS} "
+          f"(stochastic, order 2), {len(warm)} warm-up + {len(reqs)} "
+          f"auto_plan requests: EWMA after warm-up {e0 * 1e3:.2f} ms, "
+          f"{st['ticks']} ticks, bank_selected {st['bank_selected']}, "
+          f"outcomes {reg}, NFE {nfes}, deadline_missed "
+          f"{st['deadline_missed']}, compiled_ticks {st['compiled_ticks']}; "
+          f"launches {counts}")
+    print(f"[auto] scheduler eta=0 x0 vs lone plan.run(backend='eager') of "
+          f"the same x_T, {n_det} requests: worst max|d|/max|x| = "
+          f"{worst:.3e} (tol {SCHED_VS_EAGER_TOL:g})")
+    check(counts == {"B1": 0, "B2": st["ticks"], "B3": 0, "B4": 0},
+          f"scheduler launched {counts}, want B2 == ticks {st['ticks']}")
+    check(st["bank_selected"] == len(reqs) and st["compiled_ticks"] == 1
+          and st["completed"] == len(reqs) + len(warm),
+          f"scheduler stats {st}")
+    check(all(outcomes.get(k, 0) > 0 for k in ("fit", "degraded",
+                                               "quality"))
+          and outcomes == reg, f"outcomes {outcomes} / counters {reg}")
+    check(n_det > 0 and worst <= SCHED_VS_EAGER_TOL,
+          f"scheduler vs lone eager: {worst} > {SCHED_VS_EAGER_TOL:g}")
+    if dev.type == "cuda":        # after every counted path
+        profile_call(smi, f"build_objective (grid {cfg.grid_size}, batch "
+                     f"{cfg.batch}, chunk {cfg.chunk})",
+                     lambda: build_objective(sch, eps_fn, x0, cfg),
+                     "step_kernel")
+        p = next(p for p, _ in rollouts
+                 if p.S == max(AUTO_BUDGETS) and not p.stochastic)
+        profile_call(smi, f"one PlanExecutor rollout (S={p.S}, batch "
+                     f"{AUTO_N}, eta=0)", lambda: ex.run(p, x_T),
+                     "step_kernel")
+    return b1_auto, counts["B2"]
 
 
 # ------------------------------------------- the launch floor and the pairs
@@ -1782,6 +2080,13 @@ def main(argv=None) -> int:
                  f"{BATCH}, tile_resident)", lambda: det.run(
                      svc.eps_fn, z, backend="tile_resident"), "step_kernel")
     phase_launch(smi, b_kernels, alone)
+    # The autotuner runs last: every rate above is timed from the state
+    # earlier trees timed it in.  B1 runs on its rollouts and on
+    # serve("auto"), B2 on the bank-driven scheduler's ticks.
+    b1_auto, b2_auto = phase_autotuner(smi, model)
+    recs = {r["name"]: r for r in b_kernels}
+    recs["sampler_step_2d"]["launches"] += b1_auto
+    recs["sampler_step_rows_2d"]["launches"] += b2_auto
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

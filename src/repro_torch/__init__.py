@@ -7,9 +7,12 @@ of what it needs.  Entry points run on the CUDA device unless the caller
 asks for another (``device="cpu"``); on the CPU every hand-written kernel
 is replaced by its plain PyTorch version (``kernels/*/ref.py``).
 
-Ported so far: noise schedules, the SamplerPlan coefficient table, the
-eager / tile-resident / rows sampler backends over the two sampler-step
-CUDA kernels, the paper's U-Net, and the lockstep ``DiffusionSampler``.
+Ported so far: noise schedules, the SamplerPlan coefficient table and
+its backends (eager, tile-resident, rows, mega) over the CUDA kernels, the
+paper's U-Net and the dense diffusion-LM trunk, the ODE view (encode /
+decode / interpolation), the lockstep ``DiffusionSampler`` and the
+continuous-batching scheduler, the sample-quality metrics and ELBO table
+(``eval``) and the trajectory autotuner with its plan bank (``autoplan``).
 """
 from .device import resolve_device
 

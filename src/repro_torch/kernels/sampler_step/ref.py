@@ -105,23 +105,23 @@ def sw_random_bits_rows(row_seeds: torch.Tensor, col0: int, salt_id: int,
 def bits_to_normal(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """Box–Muller: two uint32 draws -> one standard-normal float32.
 
-    On a CUDA tensor log and cos are PyTorch's float32 ops, the libm the
-    CUDA kernels call.  On the CPU they are numpy's float64 log / cos
-    rounded to float32: PyTorch's float32 CPU log / cos can take more than
-    one code path for the same element within a process (a few thousand
-    of 65,536 normals came out ~5e-5 off in one run of two), so the CPU
-    value is the path-independent, correctly rounded one."""
+    On a CUDA tensor log, cos and sqrt are PyTorch's float32 ops, the libm
+    the CUDA kernels call.  On the CPU the whole transform is numpy:
+    float64 log / cos rounded to float32, then float32 sqrt and product
+    (correctly rounded).  PyTorch's float32 CPU transcendentals are neither
+    correctly rounded nor path-independent: its sqrt is ~0.5% of elements
+    an ulp off on an AVX512 build, and now and then one intra-op thread's
+    chunk (~1/8 of 65,536 normals) came out ~2**-12 relative off; log and
+    cos have shown the same (a few thousand ~5e-5 off).  So the CPU value
+    is the path-independent, correctly rounded one."""
     u1 = ((b1 >> 8).to(torch.float32) + 0.5) * _INV_2_24
     u2 = (b2 >> 8).to(torch.float32) * _INV_2_24
     arg = _TWO_PI_F32 * u2
     if u1.device.type == "cpu":
-        lg = torch.from_numpy(
-            np.log(u1.numpy().astype(np.float64)).astype(np.float32))
-        cs = torch.from_numpy(
-            np.cos(arg.numpy().astype(np.float64)).astype(np.float32))
-    else:
-        lg, cs = torch.log(u1), torch.cos(arg)
-    return torch.sqrt(-2.0 * lg) * cs
+        lg = np.log(u1.numpy().astype(np.float64)).astype(np.float32)
+        cs = np.cos(arg.numpy().astype(np.float64)).astype(np.float32)
+        return torch.from_numpy(np.sqrt(np.float32(-2.0) * lg) * cs)
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(arg)
 
 
 def tile_bits(seed: int, R: int, salt_id: int, device=None) -> torch.Tensor:

@@ -6,7 +6,7 @@ instrumenting the tick loop adds no device work.  Instruments are
 identified by (name, sorted label pairs); the engine's ``stats()`` dict is
 a view over them.  The gauges, the histograms with their bucket ladders,
 the Prometheus exporter and the percentile estimate wait with the rest of
-the serving stack (ROADMAP item 9).
+the serving stack (ROADMAP queue 1).
 """
 from __future__ import annotations
 

@@ -13,7 +13,7 @@ each with ``ev`` (kind), ``t`` (the caller's clock) and ``req`` (request
 id), plus ``pool`` / ``plan`` / ``nfe`` once known and per-kind extras.
 A :class:`TraceContext` rides on ``SampleRequest.trace``; emission is a
 no-op unless a sink is attached.  The JSONL sink and the span readers
-and checkers wait with the rest of the serving stack (ROADMAP item 9).
+and checkers wait with the rest of the serving stack (ROADMAP queue 1).
 """
 from __future__ import annotations
 

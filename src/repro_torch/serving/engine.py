@@ -10,10 +10,13 @@ one ``sampler_step_2d`` CUDA launch per step; otherwise the plain eager
 loop.  The state dtype may be bfloat16 while every coefficient stays
 float32 (the kernels compute in float32 and cast on store).
 
+``sample_batch`` / ``serve`` take a ``SamplerPlan``, a legacy
+``SamplerConfig`` (compiled to its plan) or ``"auto"``: the quality end of
+the service's ``plan_bank`` (``repro_torch.autoplan.PlanBank``).
 ``continuous()`` builds the continuous-batching scheduler
-(``serving/scheduler``) over the same model.  Not ported yet:
-``ARGenerator``, the plan bank / ``"auto"`` plans, the legacy
-``SamplerConfig`` adapter and buffer donation.
+(``serving/scheduler``) over the same model and passes the bank on, for
+per-request deadline-aware selection.  Not ported yet: ``ARGenerator`` and
+buffer donation.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch
 from repro_torch.core.schedules import NoiseSchedule
 from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.sampling import SamplerPlan
+from repro_torch.sampling.plan import _schedule_digest
 
 
 class DiffusionSampler:
@@ -35,7 +39,7 @@ class DiffusionSampler:
                  dtype: torch.dtype = torch.float32,
                  tile_resident: bool = False,
                  bucket_sizes: Optional[Sequence[int]] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, plan_bank=None):
         """Args:
 
         eps_fn: eps_theta(x, t) on ``device`` (e.g. models.make_eps_fn).
@@ -46,6 +50,11 @@ class DiffusionSampler:
         bucket_sizes: ascending batch-size ladder for ragged loads;
           defaults to (batch_size,).
         device: where the service runs; None is the CUDA card.
+        plan_bank: a ``repro_torch.autoplan.PlanBank`` searched on
+          ``schedule`` (digest-validated). ``serve``/``sample_batch`` then
+          accept ``"auto"`` (the bank's quality end) and
+          ``bank_plan(max_nfe)`` picks a budget-bounded row;
+          ``continuous()`` passes the bank on to the scheduler.
         """
         self.schedule = schedule
         self.eps_fn = eps_fn
@@ -58,6 +67,12 @@ class DiffusionSampler:
         if buckets[-1] < batch_size:
             buckets = buckets + (batch_size,)
         self.buckets = buckets
+        self.plan_bank = plan_bank
+        if plan_bank is not None and (_schedule_digest(plan_bank.schedule)
+                                      != _schedule_digest(schedule)):
+            raise ValueError(
+                "plan_bank was searched on a different noise schedule "
+                "than this service serves")
 
     def _bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -76,11 +91,37 @@ class DiffusionSampler:
             n -= b
         return plan
 
-    def sample_batch(self, plan: SamplerPlan, generator: torch.Generator,
+    def _as_plan(self, plan_or_cfg) -> SamplerPlan:
+        """Normalize the request surface: a SamplerPlan passes through,
+        ``"auto"`` resolves against the plan bank, a legacy SamplerConfig
+        compiles to its equivalent plan."""
+        if isinstance(plan_or_cfg, SamplerPlan):
+            return plan_or_cfg
+        if isinstance(plan_or_cfg, str) and plan_or_cfg == "auto":
+            return self.bank_plan()
+        return plan_or_cfg.to_plan(self.schedule)
+
+    def bank_plan(self, max_nfe: Optional[int] = None) -> SamplerPlan:
+        """The plan bank's best row with NFE <= max_nfe (None = best).
+
+        Graceful degradation, not a hard cap: when every bank row exceeds
+        ``max_nfe`` this returns the SMALLEST row (the cheapest searched
+        trajectory the bank knows) rather than failing — check the
+        returned ``plan.S`` if the budget is a hard limit.
+        """
+        if self.plan_bank is None:
+            raise ValueError("no plan bank: build the DiffusionSampler "
+                             "with plan_bank= to use cfg='auto'")
+        plan = self.plan_bank.best(max_nfe)
+        if plan is None:
+            raise ValueError("the plan bank is empty")
+        return plan
+
+    def sample_batch(self, cfg, generator: torch.Generator,
                      n: Optional[int] = None) -> Tuple[torch.Tensor, float]:
-        """One batch for ``plan``: (samples, seconds of the plan run)."""
-        if not isinstance(plan, SamplerPlan):
-            raise TypeError(f"expected a SamplerPlan, got {type(plan)}")
+        """One batch for ``cfg`` (a SamplerPlan, a SamplerConfig or
+        ``"auto"``): (samples, seconds of the plan run)."""
+        plan = self._as_plan(cfg)
         batch = self._bucket_for(n) if n is not None else self.batch
         x_T = torch.randn((batch,) + self.shape, generator=generator,
                           dtype=self.dtype, device=self.device)
@@ -91,15 +132,17 @@ class DiffusionSampler:
         synchronize(self.device)
         return out, time.perf_counter() - t0
 
-    def serve(self, n_samples: int, plan: SamplerPlan,
+    def serve(self, n_samples: int, cfg,
               seed: int = 0) -> Tuple[torch.Tensor, Dict]:
         """Produce n_samples in lockstep batches; returns samples + stats.
+        ``cfg`` may be a SamplerPlan, a legacy SamplerConfig or ``"auto"``.
 
         x_T and the per-step kernel seeds come from one torch.Generator on
         the service's device, seeded with ``seed``.  The first batch
         includes the kernels' first-use build; the steady-state figures
         exclude it when there is more than one batch.
         """
+        plan = self._as_plan(cfg)
         dtype_name = str(self.dtype).replace("torch.", "")
         if n_samples <= 0:
             empty = torch.zeros((0,) + self.shape, dtype=self.dtype,
@@ -137,9 +180,11 @@ class DiffusionSampler:
         into resident slots, and never wait on a batchmate's longer
         trajectory.  Keyword args pass through to
         ``ContinuousBatchingEngine`` (stochastic, clip_x0, preview,
-        max_order, max_queue, use_mega, ...)."""
+        max_order, max_queue, use_mega, select_margin, ...); the service's
+        ``plan_bank`` is passed on unless ``plan_bank=`` overrides it."""
         from .scheduler import ContinuousBatchingEngine
         return ContinuousBatchingEngine(
             self.schedule, self.eps_fn, self.shape,
             slots=slots or self.batch, dtype=self.dtype,
-            device=kw.pop("device", self.device), **kw)
+            device=kw.pop("device", self.device),
+            plan_bank=kw.pop("plan_bank", self.plan_bank), **kw)

@@ -30,13 +30,18 @@ Differences from the JAX engine:
     result, so the tick wall and its EWMA measure the same thing.  The
     per-tick slot states ship to the device in one host-to-device copy.
   * ``donate``, ``interpret`` and the TPU hardware PRNG are JAX-only and
-    dropped.  ``plan_bank`` / ``auto_plan``, ``probes``, ``flight``,
-    ``mesh`` and ``eps_params`` are not ported yet and raise
-    ``NotImplementedError`` naming their JAX module.
+    dropped.  ``probes``, ``flight``, ``mesh`` and ``eps_params`` are not
+    ported yet and raise ``NotImplementedError`` naming their JAX module.
+
+Deadline-aware admission: with a ``plan_bank`` (``repro_torch.autoplan``),
+requests submitted with ``auto_plan=True`` get their plan from the bank
+when the queue pops them (``_fill_auto_plan``), at this engine's measured
+tick EWMA.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -59,7 +64,6 @@ from .queue import AdmissionQueue
 from .request import SampleRequest, SampleResult, SlotCheckpoint
 
 _COEFS = ("c_x0", "c_dir", "c_noise", "sqrt_a_t", "sqrt_1m_a_t")
-_TICK_EWMA_ALPHA = 0.2   # smoothing of the per-tick latency EWMA
 
 
 def _not_ported(what: str, where: str) -> NotImplementedError:
@@ -107,11 +111,26 @@ class ContinuousBatchingEngine:
         ``mega_spec`` eligible for (slots, *sample_shape)); True raises
         with the reason when it does not hold; False forces the unfused
         tick.
+      plan_bank: a ``repro_torch.autoplan.PlanBank`` searched on this
+        engine's noise schedule (digest-validated).  Requests submitted
+        with ``auto_plan=True`` get their SamplerPlan chosen AT ADMISSION:
+        the largest-NFE bank row that fits the request's deadline headroom
+        at the measured EWMA tick latency (one tick advances a resident
+        request one step); deadline-free requests are served the quality
+        end of the frontier.  Rows incompatible with this engine
+        (stochastic rows on a deterministic engine, order > max_order,
+        clip mismatch) are never selected.
+      select_margin: safety factor on the deadline fit — a bank row fits
+        when NFE * tick_ewma_s <= headroom * select_margin.
+      tick_ewma_alpha: smoothing factor for the per-tick latency EWMA
+        that feeds the selection policy (``stats()['tick_ewma_s']``);
+        0.0 freezes a seeded ``tick_ewma_s`` (virtual-clock replays).
+        The first tick (kernel builds, library set-up) is never folded in.
       pool_id: identity stamped on stats and results.
       obs: an ``obs.Observability``; None builds a private, sink-less one.
       device: where the engine runs; None is the CUDA card.
-      plan_bank, eps_params, mesh, probes, flight: not ported yet;
-        anything but None raises.
+      eps_params, mesh, probes, flight: not ported yet; anything but None
+        raises.
     """
 
     def __init__(self, schedule: NoiseSchedule, eps_fn: Callable,
@@ -123,13 +142,13 @@ class ContinuousBatchingEngine:
                  eps_params=None,
                  max_queue: Optional[int] = None,
                  use_mega: Optional[bool] = None,
-                 plan_bank=None,
+                 plan_bank=None, select_margin: float = 0.9,
+                 tick_ewma_alpha: float = 0.2,
                  mesh=None, pool_id: Optional[int] = None,
                  obs: Optional[Observability] = None,
                  probes=None, flight=None,
                  device: DeviceLike = None):
         for value, what, where in (
-                (plan_bank, "plan_bank", "repro/autoplan/"),
                 (eps_params, "eps_params (weight hot-swap)",
                  "repro/serving/gateway/"),
                 (mesh, "mesh (sharded slot pools)", "repro/serving/fleet/"),
@@ -150,7 +169,17 @@ class ContinuousBatchingEngine:
         self.clip_x0 = clip_x0
         self.preview = preview
         self.max_order = int(max_order)
+        self.plan_bank = plan_bank
+        self.select_margin = float(select_margin)
+        self.tick_ewma_alpha = float(tick_ewma_alpha)
         self.tick_ewma_s: Optional[float] = None
+        if plan_bank is not None and (_schedule_digest(plan_bank.schedule)
+                                      != _schedule_digest(schedule)):
+            raise ValueError(
+                "plan_bank was searched on a different noise schedule "
+                "than this engine serves — re-search or load the "
+                "matching bank")
+        self._last_outcome: Optional[str] = None
         self.pool_id = pool_id
         self.use_mega = self._resolve_mega(use_mega)
         self.tick_variant = ("mega" if self.use_mega else
@@ -169,6 +198,9 @@ class ContinuousBatchingEngine:
             "requests dropped (expiry or back-pressure)")
         self._c_previews = reg.counter(
             "engine_previews_total", "x0 previews delivered")
+        self._c_bank_selected = reg.counter(
+            "engine_bank_selected_total",
+            "auto_plan requests served a bank row")
         self._c_compiled = reg.counter(
             "engine_compiled_ticks_total",
             "tick functions built (one per engine)")
@@ -230,6 +262,10 @@ class ContinuousBatchingEngine:
     @property
     def previews_sent(self) -> int:
         return int(self._c_previews.value)
+
+    @property
+    def bank_selected(self) -> int:
+        return int(self._c_bank_selected.value)
 
     @property
     def deadline_missed(self) -> int:
@@ -327,8 +363,25 @@ class ContinuousBatchingEngine:
         """Raise if this engine can never serve ``req``: a typed
         ``RequestError`` (a ValueError) whose ``.code`` is a RejectCode."""
         if req.auto_plan:
-            raise _not_ported("auto_plan (plan-bank selection)",
-                              "repro/autoplan/")
+            if req.plan is not None:
+                raise RequestError(
+                    RejectCode.AUTO_PLAN_CONFLICT,
+                    f"request {req.request_id}: auto_plan=True and an "
+                    "explicit plan are mutually exclusive (the engine "
+                    "fills plan in at admission)")
+            if self.plan_bank is None:
+                raise RequestError(
+                    RejectCode.NO_PLAN_BANK,
+                    f"request {req.request_id}: auto_plan=True needs an "
+                    "engine built with plan_bank=")
+            if self._bank_candidates() == 0:
+                raise RequestError(
+                    RejectCode.BANK_INCOMPATIBLE,
+                    f"request {req.request_id}: the plan bank has no entry "
+                    "compatible with this engine (stochastic rows need a "
+                    f"stochastic engine; order <= max_order="
+                    f"{self.max_order}; clip == {self.clip_x0})")
+            return
         if req.stochastic and not self.stochastic:
             raise RequestError(
                 RejectCode.STOCHASTIC_UNSUPPORTED,
@@ -350,6 +403,57 @@ class ContinuousBatchingEngine:
         self.obs.trace_submit(req, now, deadline=req.deadline)
         return self.queue.submit(req, now)
 
+    # ------------------------------------------------- deadline-aware bank
+    def _bank_candidates(self) -> int:
+        """How many bank rows this engine could actually serve."""
+        return len(self.plan_bank.compatible(
+            deterministic=None if self.stochastic else True,
+            max_order=self.max_order, clip=self.clip_x0))
+
+    def _select_plan(self, req: SampleRequest, now: float):
+        """The admission-time bank pick (the deadline-aware policy).
+
+        headroom = deadline - now (infinite without a deadline); the
+        per-step latency estimate is the EWMA tick time — a resident
+        request advances exactly one step per tick, so a plan fits when
+        NFE * tick_ewma_s <= headroom * select_margin.  Before the first
+        measured tick the policy is conservative (smallest row) for
+        deadline requests and quality-greedy for deadline-free ones.
+        """
+        headroom = (math.inf if req.deadline is None
+                    else max(req.deadline - now, 0.0))
+        return self.plan_bank.select(
+            headroom, self.tick_ewma_s, margin=self.select_margin,
+            deterministic=None if self.stochastic else True,
+            max_order=self.max_order, clip=self.clip_x0,
+            on_outcome=self._bank_outcome)
+
+    def _bank_outcome(self, outcome: str, plan) -> None:
+        """PlanBank.select telemetry hook: count WHY each row was picked
+        (quality / conservative / fit / degraded / none) and WHAT it was
+        (per-NFE counter)."""
+        self._last_outcome = outcome
+        reg = self.obs.registry
+        reg.counter("engine_bank_outcome_total",
+                    "auto_plan selections by policy outcome",
+                    outcome=outcome).inc()
+        if plan is not None:
+            reg.counter("engine_bank_nfe_total",
+                        "auto_plan selections by chosen NFE",
+                        nfe=plan.S).inc()
+
+    def _fill_auto_plan(self, req: SampleRequest, now: float) -> None:
+        """The queue's pop-time ``select`` hook: fill an auto_plan
+        request's plan from the bank using THIS engine's tick EWMA."""
+        if req.auto_plan and req.plan is None:
+            req.plan = self._select_plan(req, now)
+            self._c_bank_selected.inc()
+            ctx = req.trace
+            if ctx is not None and req.plan is not None:
+                ctx.nfe = req.plan.S
+                ctx.plan_digest = _plan_digest(req.plan)
+                ctx.emit("select", now, outcome=self._last_outcome)
+
     @property
     def active(self) -> int:
         return self.slots - len(self._free)
@@ -360,7 +464,9 @@ class ContinuousBatchingEngine:
         return max(len(self._free) - len(self.queue), 0)
 
     def pending_steps(self) -> int:
-        """Remaining step budget, resident + queued."""
+        """Remaining step budget, resident + queued.  Queued ``auto_plan``
+        requests count their S field — an estimate; the real NFE is picked
+        at admission."""
         rem = sum(s.req.steps - s.k for s in self._slots if s is not None)
         rem += sum(r.steps for r in self.queue.pending_requests())
         return rem
@@ -387,7 +493,7 @@ class ContinuousBatchingEngine:
 
     def _admit(self, now: float, results: List[SampleResult]) -> None:
         while self._free and len(self.queue):
-            req, missed = self.queue.pop(now)
+            req, missed = self.queue.pop(now, select=self._fill_auto_plan)
             results.extend(self._drop(m, now, reason="expired")
                            for m in missed)
             if req is None:
@@ -595,7 +701,7 @@ class ContinuousBatchingEngine:
             if self.tick_ewma_s is None:
                 self.tick_ewma_s = t1 - t0
             else:
-                a = _TICK_EWMA_ALPHA
+                a = self.tick_ewma_alpha
                 self.tick_ewma_s = (a * (t1 - t0)
                                     + (1.0 - a) * self.tick_ewma_s)
         self._ticked = True
@@ -696,8 +802,9 @@ class ContinuousBatchingEngine:
             "tick_ewma_s": self.tick_ewma_s,
             "steps_per_s": self.slot_steps / max(self._tick_wall_s, 1e-9),
             "compiled_ticks": self._traces,
-            "plan_bank": None,
-            "bank_selected": 0,
+            "plan_bank": (None if self.plan_bank is None
+                          else len(self.plan_bank)),
+            "bank_selected": self.bank_selected,
             "stochastic": self.stochastic,
             "preview": self.preview,
             "max_order": self.max_order,

@@ -54,8 +54,8 @@ class SampleRequest:
     sigma_hat: bool = False            # over-dispersed DDPM variant
     plan: Optional[SamplerPlan] = None  # full per-request trajectory plan;
     #                                     overrides the scalar knobs above
-    auto_plan: bool = False            # plan from a PlanBank at admission
-    #                                     (not ported: repro/autoplan/)
+    auto_plan: bool = False            # plan from the engine's PlanBank,
+    #                                     picked at admission
     seed: int = 0                      # x_T + noise-stream seed
     deadline: Optional[float] = None   # absolute completion deadline
     preview_every: int = 0             # stream x0-previews every k ticks

@@ -105,6 +105,27 @@ def test_bits_to_normal_within_two_ulps():
     assert float(np.abs(got.numpy() - want).max()) <= tol
 
 
+def test_bits_to_normal_cpu_is_correctly_rounded_numpy():
+    """On the CPU the plain Box–Muller is numpy end to end: float64 log /
+    cos rounded to float32, float32 sqrt and product, bitwise.  PyTorch's
+    float32 CPU sqrt is not correctly rounded, and on some runs one
+    intra-op thread's chunk came out ~2**-12 off, which made the two-ulp
+    test above fail now and then."""
+    rs = np.random.RandomState(11)
+    b1 = rs.randint(0, 2 ** 32, (256, 256), dtype=np.uint64)
+    b2 = rs.randint(0, 2 ** 32, (256, 256), dtype=np.uint64)
+    u1 = ((b1 >> 8).astype(np.float32) + np.float32(0.5)) * np.float32(
+        2.0 ** -24)
+    arg = np.float32(2.0 * np.pi) * ((b2 >> 8).astype(np.float32)
+                                     * np.float32(2.0 ** -24))
+    want = (np.sqrt(np.float32(-2.0) * np.log(u1.astype(np.float64)).astype(
+        np.float32)) * np.cos(arg.astype(np.float64)).astype(np.float32))
+    got = ref.bits_to_normal(torch.from_numpy(b1.astype(np.int64)),
+                             torch.from_numpy(b2.astype(np.int64)))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 # --------------------------------------------------------------- layouts
 @pytest.mark.parametrize("shape", [(2, 8, 8, 3), (3, 5, 7), (4, 32, 32, 3),
                                    (1, 256, 256), (2, 300, 256)])

@@ -520,7 +520,6 @@ def test_continuous_and_engine_default_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("arg,where", [
-    (dict(plan_bank=object()), "repro/autoplan/"),
     (dict(eps_params={}), "repro/serving/gateway/"),
     (dict(mesh=object()), "repro/serving/fleet/"),
     (dict(probes=True), "repro/obs/probes.py"),
@@ -536,8 +535,6 @@ def test_not_ported_arguments_raise(arg, where):
 def test_not_ported_calls_raise():
     _, teps = _eps_pair(slot_aware=False)
     eng = ContinuousBatchingEngine(TSCH, teps, (16,), slots=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="repro/autoplan/"):
-        eng.submit(SampleRequest(request_id=0, auto_plan=True))
     with pytest.raises(NotImplementedError, match="repro/serving/gateway/"):
         eng.install_eps_params({})
     with pytest.raises(NotImplementedError, match="repro/obs/profiling.py"):
