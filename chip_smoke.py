@@ -627,12 +627,7 @@ AUTO_N = 16                    # x0 images, rollout batch, served requests
 AUTO_SLOTS = 8
 
 
-def _sync(dev) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
-def phase_autotuner(smi, model, dev=torch.device("cuda")):
+def phase_autotuner(smi, model):
     """The trajectory autotuner at CIFAR10 width (phase 7), each path
     counted as in phase 4: the objective over 16 seeded x0 images, the DP +
     refinement search of a bank for S in AUTO_BUDGETS scored by fid_proxy
@@ -654,6 +649,7 @@ def phase_autotuner(smi, model, dev=torch.device("cuda")):
     from repro_torch.sampling import SamplerPlan, TauSpec
     from repro_torch.serving import (DiffusionSampler, SampleRequest,
                                      SlotCheckpoint)
+    dev = torch.device("cuda")
     sch = make_schedule("linear", 1000)
     eps_fn = make_eps_fn(model)
     gen = torch.Generator(device=dev).manual_seed(71)
@@ -664,15 +660,13 @@ def phase_autotuner(smi, model, dev=torch.device("cuda")):
     # --- objective (no step kernel on this path)
     cfg = ObjectiveConfig(grid_size=16, batch=AUTO_N, chunk=8)
     _zero_counts()
-    _sync(dev)
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     table = build_objective(sch, eps_fn, x0, cfg)
-    _sync(dev)
+    torch.cuda.synchronize()
     objective_s = time.perf_counter() - t0
-    peak_gb = (torch.cuda.max_memory_allocated(dev) / 1e9
-               if dev.type == "cuda" else float("nan"))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     counts = _counts()
     check(counts == {"B1": 0, "B2": 0, "B3": 0, "B4": 0},
           f"objective launched {counts}")
@@ -715,10 +709,10 @@ def phase_autotuner(smi, model, dev=torch.device("cuda")):
 
     def score(plan):
         g = torch.Generator(device=dev).manual_seed(77)
-        _sync(dev)
+        torch.cuda.synchronize()
         t1 = time.perf_counter()
         out = ex.run(plan, x_T, g if plan.stochastic else None)
-        _sync(dev)
+        torch.cuda.synchronize()
         rollouts.append((plan, time.perf_counter() - t1))
         return fid_proxy(out, x0)
 
@@ -728,7 +722,7 @@ def phase_autotuner(smi, model, dev=torch.device("cuda")):
     bank = search_bank(sch, table, SearchConfig(budgets=AUTO_BUDGETS,
                                                 refine=refine),
                        score_fn=score, model_digest="chip_smoke:71")
-    _sync(dev)
+    torch.cuda.synchronize()
     search_s = time.perf_counter() - t0
     counts = _counts()
     statics = {(p.S, p.order, p.stochastic, p.x0.clip) for p, _ in rollouts}
@@ -783,7 +777,7 @@ def phase_autotuner(smi, model, dev=torch.device("cuda")):
     best = bank.best()
     _zero_counts()
     out, st = svc.serve(AUTO_N, "auto", seed=13)
-    _sync(dev)
+    torch.cuda.synchronize()
     counts = _counts()
     want_b1 = st["batches"] * best.S
     print(f"[auto] {smi} | serve({AUTO_N}, 'auto'): S={best.S}, "
@@ -829,7 +823,7 @@ def phase_autotuner(smi, model, dev=torch.device("cuda")):
         now = time.perf_counter()
         ewma_at[round(now, 9)] = eng.tick_ewma_s
         results += eng.tick(now=now)
-    _sync(dev)
+    torch.cuda.synchronize()
     counts = _counts()
     st = eng.stats()
     selects = {e["req"]: e for e in sink.events if e["ev"] == "select"}
@@ -883,16 +877,14 @@ def phase_autotuner(smi, model, dev=torch.device("cuda")):
           and outcomes == reg, f"outcomes {outcomes} / counters {reg}")
     check(n_det > 0 and worst <= SCHED_VS_EAGER_TOL,
           f"scheduler vs lone eager: {worst} > {SCHED_VS_EAGER_TOL:g}")
-    if dev.type == "cuda":        # after every counted path
-        profile_call(smi, f"build_objective (grid {cfg.grid_size}, batch "
-                     f"{cfg.batch}, chunk {cfg.chunk})",
-                     lambda: build_objective(sch, eps_fn, x0, cfg),
-                     "step_kernel")
-        p = next(p for p, _ in rollouts
-                 if p.S == max(AUTO_BUDGETS) and not p.stochastic)
-        profile_call(smi, f"one PlanExecutor rollout (S={p.S}, batch "
-                     f"{AUTO_N}, eta=0)", lambda: ex.run(p, x_T),
-                     "step_kernel")
+    # after every counted path
+    profile_call(smi, f"build_objective (grid {cfg.grid_size}, batch "
+                 f"{cfg.batch}, chunk {cfg.chunk})",
+                 lambda: build_objective(sch, eps_fn, x0, cfg), "step_kernel")
+    p = next(p for p, _ in rollouts
+             if p.S == max(AUTO_BUDGETS) and not p.stochastic)
+    profile_call(smi, f"one PlanExecutor rollout (S={p.S}, batch {AUTO_N}, "
+                 f"eta=0)", lambda: ex.run(p, x_T), "step_kernel")
     return b1_auto, counts["B2"]
 
 

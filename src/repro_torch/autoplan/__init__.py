@@ -15,13 +15,22 @@ measured tick latency.
                                       SearchConfig, PlanBank,
                                       build_objective, search_bank)
 
-    table = build_objective(schedule, eps_fn, x0_batch, ObjectiveConfig())
+    table = build_objective(schedule, eps_fn, x0_batch,
+                            ObjectiveConfig(grid_size=16, batch=16, chunk=8))
     ex = PlanExecutor(eps_fn)
     bank = search_bank(schedule, table, SearchConfig(budgets=(5, 10, 20)),
                        score_fn=lambda p: fid_proxy(ex.run(p, x_T, gen),
                                                     reference))
     bank.save("planbank.json")
     # serving: ContinuousBatchingEngine(..., plan_bank=PlanBank.load(...))
+
+The sizes above fit one H100 at CIFAR10 width: the step-doubling defect
+runs the model on up to ``pair_chunk`` (256) pairs x ``batch`` images per
+call, and grid 16 x batch 16 is 1,920 images.  ``ObjectiveConfig()``'s
+defaults (grid 48, batch 128) make that 32,768 CIFAR10 images in one call,
+which one H100 does not hold; ``build_objective`` does not expose
+``pair_chunk``, so at those defaults call ``step_doubling_defect`` with a
+smaller ``pair_chunk``.
 
 The model runs on the tensors' device (the CUDA card by default, as every
 entry point of the port); the tables, the DP and the bank are float64 /

@@ -1,85 +1,65 @@
-"""Statics-keyed rollout executor — candidate plans share ONE rollout
-function; port of ``repro/autoplan/executor.py``.
+"""Statics-keyed rollout executor — port of ``repro/autoplan/executor.py``.
 
 The search scores hundreds of candidate trajectories by full rollout.
 Every candidate at one step budget is the SAME program fed a different
-coefficient table, so ``PlanExecutor`` keys its cache on the plan's
-*statics* only — (S, order, stochastic, clip, batch shape, dtype), the
-JAX package's key — and the per-step table enters as tensors
-(``sampling.backends._tile_table``).  This is the port's form of JAX's
-"one compiled scan per statics": ``traces`` counts the rollout functions
-built, one per distinct statics key, not one per candidate.
+coefficient table; the JAX package compiles one scan per plan *statics* —
+(S, order, stochastic, clip, batch shape, dtype) — and passes the table
+as data.  Eager PyTorch compiles nothing, so the port keeps JAX's
+bookkeeping only: ``traces`` / ``compiled`` count the distinct statics
+keys seen, ``calls`` the rollouts run.
 
-The rollout is the 'tile_resident' backend's own loop
-(``sampling.backends._tile_steps``): the (R, 256) tile layout carried
-through the S steps, one ``sampler_step_2d`` (B1) launch per step on the
-card, per-step seeds drawn from the generator up front as
-``run_tile_resident`` draws them.  So ``executor.run(plan, x_T, gen)`` is
-BITWISE equal to ``plan.run(eps_fn, x_T, gen, backend='tile_resident')``
-under the same generator state — the searched scores are scores of
-exactly what ``DiffusionSampler(tile_resident=True)`` serves — and, like
-that backend, bitwise equal to 'eager' for deterministic plans on the CPU.
+The rollout is the 'tile_resident' backend itself (``run_tile_resident``):
+the (R, 256) tile layout carried through the S steps, one
+``sampler_step_2d`` (B1) launch per step on the card.  So
+``executor.run(plan, x_T, gen)`` is BITWISE
+``plan.run(eps_fn, x_T, gen, backend='tile_resident')`` under the same
+generator state — the searched scores are scores of exactly what
+``DiffusionSampler(tile_resident=True)`` serves — and, like that backend,
+bitwise equal to 'eager' for deterministic plans on the CPU.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Optional, Set, Tuple
 
 import torch
 
-from repro_torch.kernels.sampler_step import ops as tile_ops
 from repro_torch.sampling import SamplerPlan
-from repro_torch.sampling.backends import (_draw_seeds, _tile_steps,
-                                          _tile_table)
+from repro_torch.sampling.backends import run_tile_resident
 
 
 class PlanExecutor:
-    """Cached tile-resident rollouts keyed on plan statics, table as data.
+    """Tile-resident rollouts with JAX's statics-keyed bookkeeping.
 
     Args:
       eps_fn: the (fixed) eps model every candidate is scored against.
 
     Attributes:
-      traces: rollout functions built so far — the search-efficiency
-        contract is ``traces == #distinct (S, order, stochastic, clip,
-        batch-shape, dtype) combinations``, not #candidates.
+      traces: distinct (S, order, stochastic, clip, batch-shape, dtype)
+        combinations seen so far — JAX's search-efficiency contract,
+        ``traces == #distinct statics``, not #candidates.
       calls: rollouts run.
     """
 
     def __init__(self, eps_fn):
         self.eps_fn = eps_fn
-        self._cache: Dict[Tuple, Callable] = {}
+        self._statics: Set[Tuple] = set()
         self.traces = 0
         self.calls = 0
-
-    def _build(self, order: int, stochastic: bool,
-               clip: Optional[float]) -> Callable:
-        eps_fn = self.eps_fn
-        self.traces += 1
-
-        def rollout(table, x_T, seeds):
-            x2, n = tile_ops.to_tile_layout(x_T)
-            x2 = _tile_steps(table, order, clip, stochastic, eps_fn, x2,
-                             seeds, n, x_T.shape)
-            return tile_ops.from_tile_layout(x2, n, x_T.shape)
-
-        return rollout
 
     def run(self, plan: SamplerPlan, x_T: torch.Tensor,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Execute ``plan`` from x_T — bitwise the 'tile_resident' backend."""
-        stochastic = plan.stochastic
-        if stochastic and generator is None:
+        if plan.stochastic and generator is None:
             raise ValueError("stochastic candidate plan needs rng")
-        key = (plan.S, plan.order, stochastic, plan.x0.clip,
+        key = (plan.S, plan.order, plan.stochastic, plan.x0.clip,
                tuple(x_T.shape), str(x_T.dtype))
-        if key not in self._cache:
-            self._cache[key] = self._build(plan.order, stochastic,
-                                           plan.x0.clip)
-        seeds = _draw_seeds(generator, (plan.S,)) if stochastic else None
+        if key not in self._statics:
+            self._statics.add(key)
+            self.traces += 1
         self.calls += 1
         with torch.no_grad():
-            return self._cache[key](_tile_table(plan), x_T, seeds)
+            return run_tile_resident(plan, self.eps_fn, x_T, generator)
 
     @property
     def compiled(self) -> int:
-        return len(self._cache)
+        return len(self._statics)

@@ -32,9 +32,7 @@ per-step int32 seeds from the generator up front (``(S,)`` for the scalar
 kernel, ``(S, B)`` per-slot seeds for the rows kernel), then run the inner
 loops ``_loop_tiles`` / ``_loop_rows``, which tests can hand the very seeds
 the JAX package drew.  Deterministic plans draw nothing and launch the
-kernels' no-PRNG specializations.  ``_loop_tiles`` runs ``_tile_steps``
-over the plan's ``_tile_table``; ``autoplan.PlanExecutor`` runs the same
-body, so its rollouts are the 'tile_resident' backend's bits.
+kernels' no-PRNG specializations.
 """
 from __future__ import annotations
 
@@ -126,40 +124,18 @@ def _loop_tiles(plan, eps_fn, x2: torch.Tensor, seeds, n: int, shape,
     """The S-step loop in the tile layout; ``seeds`` is (S,) int32 or None.
     Each step's state, in the natural shape, is appended to ``trajectory``
     when one is given."""
-    return _tile_steps(_tile_table(plan), plan.order, plan.x0.clip,
-                       plan.stochastic, eps_fn, x2, seeds, n, shape,
-                       trajectory)
-
-
-def _tile_table(plan) -> Dict[str, torch.Tensor]:
-    """The plan's table in the form the tile loop reads, as CPU tensors:
-    ``t`` (S,) int32, ``coefs`` (S, 5) float32 rows [c_x0, c_dir, c_noise,
-    sqrt_a_t, sqrt_1m_a_t] (passed to B1 by value, so no device copy per
-    step) and ``solver_w`` (S, order) float32."""
     tab = plan.steps()
-    coefs = np.stack([tab["c_x0"], tab["c_dir"], tab["c_noise"],
-                      tab["sqrt_a_t"], tab["sqrt_1m_a_t"]], axis=1)
-    return {"t": torch.from_numpy(np.array(tab["t"])),
-            "coefs": torch.from_numpy(coefs),
-            "solver_w": torch.from_numpy(np.array(tab["solver_w"]))}
-
-
-def _tile_steps(table: Dict[str, torch.Tensor], order: int, clip,
-                stochastic: bool, eps_fn, x2: torch.Tensor, seeds, n: int,
-                shape, trajectory: Optional[list] = None):
-    """The tile loop over a ``_tile_table``: what depends on the plan enters
-    as tensors, what selects the code (order, clip, stochastic) as
-    arguments, so every plan with the same statics runs this one loop."""
-    S = int(table["t"].shape[0])
-    ts = table["t"].tolist()
+    cmat = np.stack([tab["c_x0"], tab["c_dir"], tab["c_noise"],
+                     tab["sqrt_a_t"], tab["sqrt_1m_a_t"]], axis=1)  # (S, 5)
     seeds = (None if seeds is None
              else [int(s) for s in torch.as_tensor(seeds).tolist()])
-    w = table["solver_w"].to(x2.device) if order > 1 else None
+    order, clip = plan.order, plan.x0.clip
+    w = _table(plan, x2.device)["solver_w"] if order > 1 else None
     hist = _hist0(order, x2.shape, x2.device)
     batch = shape[0]
     tile_aware = getattr(eps_fn, "tile_aware", False)
-    for k in range(S):
-        t = _timesteps(ts[k], batch, x2.device)
+    for k in range(plan.S):
+        t = _timesteps(tab["t"][k], batch, x2.device)
         if tile_aware:                     # native (R, C) model
             eps2 = eps_fn(x2, t)
         else:
@@ -168,9 +144,9 @@ def _tile_steps(table: Dict[str, torch.Tensor], order: int, clip,
         if order > 1:
             eps2, hist = mix_history(eps2.float(), hist, w[k], order)
         x2 = tile_ops.sampler_step_tiles(
-            x2, eps2.contiguous(), table["coefs"][k],
+            x2, eps2.contiguous(), cmat[k],
             None if seeds is None else seeds[k], clip=clip,
-            stochastic=stochastic)
+            stochastic=plan.stochastic)
         if trajectory is not None:
             trajectory.append(tile_ops.from_tile_layout(x2, n, shape))
     return x2
