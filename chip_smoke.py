@@ -123,6 +123,39 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               rollout and the outcome counters printed, then a
               torch.profiler breakdown of one build_objective and of one
               rollout
+  8. telemetry and the fleet, run after phase 7 so that every earlier
+              rate is timed as before, each path counted as in phase 4:
+              the phase 4 U-Net scheduler (8 slots, stochastic, order 2,
+              preview) with probes and a FlightRecorder serves 16 mixed
+              requests (S {10, 20} x eta {0, 1}): x0 bitwise a probe-less
+              engine's, B2 once per tick, one (8, 6) float32 frame per
+              tick, finite_frac 1, each request's quality recomputed from
+              its frames with the k = 0 defect discarded; set_probes off /
+              on keeps compiled_ticks <= 2; the median tick wall of 24
+              probed and 24 plain ticks alternated on one engine, and the
+              device time of device_frame and its copy (torch.profiler);
+              an Observability(profile=True) engine under torch.profiler:
+              each of 3 steady ticks one repro/tick/<variant> range
+              holding its B2, the share of device time inside the ranges,
+              and format_hbm_table(modeled_hbm_table(engine)) beside B2's
+              time; PoolFleet.build (2 pools x 8 slots, stochastic, order
+              2, probes, flight_dir) serves 32 requests (8 with an
+              affinity key), pool 1 drained mid-run and restored: B2 ==
+              the pools' ticks, every request retired once,
+              check_spans == [], eta=0 x0 within SCHED_VS_EAGER_TOL of an
+              eager run of its x_T, the stats key sets, pool series in
+              render_prometheus; render_dashboard and render_summary
+              printed, and the fleet's steady slot-steps/s beside one
+              8-slot engine's; an eps_params fleet (2 U-Net pools, order
+              1): install on an ACTIVE pool refused, a NaN in
+              conv_out.weight installed on drained pool 1 shows in its
+              frames and the dump's attribution (pool 1, the slot, step
+              0), the original weights re-installed give the pre-swap x0
+              bitwise, compiled_ticks unmoved; a fleet of 2 DLM_SMOLLM_MEGA
+              pools x 4 slots: every pool on the mega tick, B4 == the
+              pools' ticks, B2 0, tokens equal one mega engine's (x0 within
+              1e-3); probes with use_mega=None raise on that trunk, and
+              with use_mega=False serve with B2 once per tick
 
 Every time is printed beside the card's name and power limit.  Any failure
 raises and the script exits nonzero with no result line.  On success the
@@ -886,6 +919,474 @@ def phase_autotuner(smi, model):
     profile_call(smi, f"one PlanExecutor rollout (S={p.S}, batch {AUTO_N}, "
                  f"eta=0)", lambda: ex.run(p, x_T), "step_kernel")
     return b1_auto, counts["B2"]
+
+
+# ------------------------------------------- phase 8: telemetry and fleet
+P8_SLOTS = 8
+P8_COST_TICKS = 24             # probed and plain ticks alternated, each
+P8_FLEET_N = 32                # requests the U-Net fleet serves
+P8_RATE_ROUNDS = 3             # fleet / one-engine rate rounds, alternated
+
+
+def _p8_requests(n, base=0, key_every=0):
+    """``n`` U-Net requests, S {10, 20} x eta {0, 1}, x_T drawn by the
+    engine from the request's seed; every ``key_every``-th carries an
+    affinity key (3 or 8 in turn)."""
+    from repro_torch.serving import SampleRequest
+    return [SampleRequest(
+        request_id=base + i, S=(10, 20)[i % 2], eta=float(i // 2 % 2),
+        seed=base + i,
+        affinity_key=((3, 8)[i // key_every % 2]
+                      if key_every and i % key_every == 0 else None))
+        for i in range(n)]
+
+
+def _x_T(seed):
+    """The x_T an engine on the card draws for ``seed``."""
+    gen = torch.Generator(device="cuda").manual_seed(int(seed))
+    return torch.randn((1,) + CARD_SHAPE, generator=gen, device="cuda")
+
+
+def _vs_eager(eps_fn, sch, results, reqs):
+    """Worst max|d|/max|x| of the eta=0 results against eager runs of
+    their x_T (one batch per S)."""
+    by_id = {r.request_id: r for r in results}
+    worst, n = 0.0, 0
+    for S in sorted({r.S for r in reqs}):
+        det = [r for r in reqs if r.S == S and r.eta == 0.0]
+        if not det:
+            continue
+        x_T = torch.cat([_x_T(r.seed) for r in det])
+        lone = det[0].resolved_plan(sch, None).run(eps_fn, x_T,
+                                                   backend="eager")
+        for r, want in zip(det, lone):
+            got = by_id[r.request_id].x0
+            worst = max(worst, float((got - want).abs().max()
+                                     / want.abs().max()))
+            n += 1
+    return worst, n
+
+
+def _quality_from_frames(frames, rid):
+    """frames / defect max / defect mean of one request, recomputed from
+    its flight frames with the k == 0 defect discarded."""
+    from repro_torch.obs.schema import PROBE_COLUMNS
+    i_def = PROBE_COLUMNS.index("defect")
+    rows = [(ent["k"], fr["values"][b]) for fr in frames
+            for b, ent in enumerate(fr["slots"])
+            if ent is not None and ent["request_id"] == rid]
+    d = [v[i_def] for k, v in rows if k >= 1 and math.isfinite(v[i_def])]
+    return len(rows), (max(d) if d else None), (sum(d) / len(d) if d
+                                                 else None)
+
+
+def phase_telemetry(smi, model):
+    """Phase 8, items 1-2: device probes and profiling ranges on the
+    CIFAR10 U-Net scheduler (8 slots, stochastic, order 2, preview).
+    Returns the B2 launches of the counted paths."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.models.unet import make_eps_fn
+    from repro_torch.obs import (FlightRecorder, Observability, ProbeSpec,
+                                 format_hbm_table, modeled_hbm_table)
+    from repro_torch.obs.probes import device_frame
+    from repro_torch.obs.schema import PROBE_COLUMNS
+    from repro_torch.serving import DiffusionSampler, SampleRequest
+    sch = make_schedule("linear", 1000)
+    eps_fn = make_eps_fn(model)
+    svc = DiffusionSampler(sch, eps_fn, CARD_SHAPE, batch_size=BATCH,
+                           tile_resident=True)
+    kw = dict(slots=P8_SLOTS, stochastic=True, max_order=2, preview=True)
+    fl = FlightRecorder(1024, pool_id=0)
+    eng = svc.continuous(probes=ProbeSpec(), flight=fl, **kw)
+    plain = svc.continuous(**kw)
+
+    def reqs(base=0):
+        out = _p8_requests(16, base)
+        for r in out[::5]:
+            r.preview_every, r.on_preview = 4, lambda *a: None
+        return out
+
+    # --- 1. the probed engine, counted
+    _zero_counts()
+    res = {r.request_id: r for r in eng.serve(reqs())}
+    torch.cuda.synchronize()
+    counts = _counts()
+    st = eng.stats()
+    ref = {r.request_id: r for r in plain.serve(reqs())}
+    torch.cuda.synchronize()
+    frames = fl.frames()
+    vals = [np.asarray(f["values"], np.float64) for f in frames]
+    f32 = all(np.array_equal(v, v.astype(np.float32).astype(np.float64),
+                             equal_nan=True) for v in vals)
+    i_fin = PROBE_COLUMNS.index("finite_frac")
+    fin = min(v[b, i_fin] for v, f in zip(vals, frames)
+              for b, e in enumerate(f["slots"]) if e is not None)
+    bitwise = sorted(res) == sorted(ref) and all(
+        torch.equal(res[i].x0, ref[i].x0) for i in ref)
+    requant = all(
+        _quality_from_frames(frames, i) == (
+            res[i].quality["frames"], res[i].quality["defect_max"],
+            res[i].quality["defect_mean"]) for i in res)
+    print(f"[probe] {smi} | scheduler CIFAR10_UNET slots {P8_SLOTS} "
+          f"(stochastic, order 2, preview) probes {st['probes']}: 16 "
+          f"requests, {st['ticks']} ticks, probe_frames "
+          f"{st['probe_frames']}, frames {len(frames)} of shape "
+          f"{vals[0].shape} float32 {f32}, min finite_frac {fin}, "
+          f"probe_defect_max {st['probe_defect_max']:.4g}, compiled_ticks "
+          f"{st['compiled_ticks']}; launches {counts}; x0 bitwise vs a "
+          f"probe-less engine {bitwise}; quality recomputed from the "
+          f"frames (defect at k = 0 discarded) {requant}")
+    check(counts == {"B1": 0, "B2": st["ticks"], "B3": 0, "B4": 0},
+          f"probed engine launched {counts}, want B2 == ticks {st['ticks']}")
+    check(bitwise, "probed engine x0 differs from the probe-less engine")
+    check(st["probe_frames"] == st["ticks"] == len(frames) and f32
+          and all(v.shape == (P8_SLOTS, 6) for v in vals),
+          f"probe frames {st['probe_frames']} / ticks {st['ticks']}")
+    check(fin == 1.0 and requant
+          and all(r.quality is not None for r in res.values()),
+          "probe frames or quality summaries wrong")
+    n_b2 = counts["B2"]
+    # toggling picks one of two tick functions, never a third
+    _zero_counts()
+    for on in (False, True):
+        eng.set_probes(on)
+        eng.serve(_p8_requests(4, 100 + 10 * on))
+    n_b2 += _counts()["B2"]
+    ct = eng.stats()["compiled_ticks"]
+    print(f"[probe] set_probes(False) then (True): compiled_ticks {ct}")
+    check(ct <= 2, f"compiled_ticks {ct} > 2 after toggling")
+
+    # --- probe cost: probed and plain ticks alternated on one engine
+    for r in _p8_requests(P8_SLOTS, 200):
+        r.S = 2 * P8_COST_TICKS + 8
+        eng.submit(r)
+    walls = {True: [], False: []}
+    for i in range(2 * P8_COST_TICKS + 4):
+        on = bool(i % 2)
+        eng.set_probes(on)
+        t0 = time.perf_counter()
+        eng.tick()
+        if i >= 4:
+            walls[on].append((time.perf_counter() - t0) * 1e3)
+    eng.run()
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    print(f"[probe] {smi} | tick wall, {P8_COST_TICKS} probed and "
+          f"{P8_COST_TICKS} plain ticks alternated (8 slots busy): median "
+          f"probed {med[True]:.3f} ms, plain {med[False]:.3f} ms, cost "
+          f"{med[True] - med[False]:.3f} ms "
+          f"({(med[True] / med[False] - 1) * 100:.1f}%)")
+    # device time of the frame's reductions and its copy, on the engine's
+    # own tensors
+    states = eng._states()
+    x2 = eng._x2
+    eps2 = torch.randn_like(x2)
+    prev = eng._hist2[0]
+    spec = eng.probe_spec
+
+    def frame_and_copy():
+        return device_frame(spec, x2, x2, eps2, prev, states, rps=eng._rps,
+                            n_live=eng._n).cpu()
+    frame_and_copy()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        frame_and_copy()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    dev_us = sum(e.self_device_time_total for e in dev)
+    copy_us = sum(e.self_device_time_total for e in dev
+                  if "Memcpy" in e.key or "memcpy" in e.key)
+    print(f"[probe] {smi} | device_frame + copy to the host: "
+          f"{dev_us / 1e3:.4f} ms of device time in {sum(e.count for e in dev)}"
+          f" device ops (copy {copy_us / 1e3:.4f} ms)")
+
+    # --- 2. profiling ranges
+    prof_eng = svc.continuous(obs=Observability(profile=True), **kw)
+    for r in _p8_requests(P8_SLOTS, 300):
+        r.S = 20
+        prof_eng.submit(r)
+    prof_eng.tick()
+    prof_eng.tick()
+    _zero_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            prof_eng.tick()
+        torch.cuda.synchronize()
+    n_b2 += _counts()["B2"]
+    prof_eng.run()
+    name = f"repro/tick/{prof_eng.tick_variant}"
+    evs = list(prof.events())
+    ranges = [e for e in evs if e.name == name
+              and e.device_type == DeviceType.CPU]
+    kernels = [e for e in evs if e.device_type == DeviceType.CUDA]
+
+    def inside(k, r):
+        return (r.time_range.start <= k.time_range.start
+                and k.time_range.end <= r.time_range.end)
+    b2_in = [sum(1 for k in kernels if "step_rows_kernel" in k.name
+                 and inside(k, r)) for r in ranges]
+    busy = sum(k.time_range.elapsed_us() for k in kernels)
+    held = sum(k.time_range.elapsed_us() for k in kernels
+               if any(inside(k, r) for r in ranges))
+    b2_us = [k.time_range.elapsed_us() for k in kernels
+             if "step_rows_kernel" in k.name]
+    print(f"[range] {smi} | 3 steady ticks under torch.profiler: "
+          f"{len(ranges)} '{name}' ranges, B2 inside each {b2_in}; "
+          f"device time inside the ranges {held / 1e3:.3f} of "
+          f"{busy / 1e3:.3f} ms ({held / max(busy, 1e-9):.4f})")
+    check(len(ranges) == 3 and b2_in == [1, 1, 1],
+          f"profiling ranges {len(ranges)}, B2 inside {b2_in}")
+    b2_med = statistics.median(b2_us) if b2_us else float("nan")
+    print(f"[range] modeled per-tick device-memory traffic of this engine, "
+          f"beside B2's measured {b2_med:.2f} us per tick ({smi}):")
+    print(format_hbm_table(modeled_hbm_table(prof_eng)))
+    return n_b2
+
+
+def phase_fleet(smi, model):
+    """Phase 8, items 3-4: the U-Net fleet (2 pools x 8 slots, probes,
+    flight recorders, a drain and restore) and the hot-swap postmortem on
+    an eps_params fleet.  Returns the B2 launches of the counted paths."""
+    import tempfile
+    from torch.func import functional_call
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.models.unet import make_eps_fn
+    from repro_torch.obs import (FLEET_STATS_KEYS, POOL_STATS_KEYS,
+                                 ListSink, Observability, attribute_nonfinite,
+                                 check_spans, read_flight, render_dashboard,
+                                 render_summary, summarize_results)
+    from repro_torch.serving import PoolFleet, PoolState, SampleRequest
+    from repro_torch.serving.fleet import affinity_pool
+    sch = make_schedule("linear", 1000)
+    eps_fn = make_eps_fn(model)
+    tmp = tempfile.mkdtemp(prefix="repro_flight_")
+
+    # --- 3. the U-Net fleet, counted
+    o = Observability()
+    sink = o.add_sink(ListSink())
+    fleet = PoolFleet.build(sch, eps_fn, CARD_SHAPE, n_pools=2,
+                            slots=P8_SLOTS, stochastic=True, max_order=2,
+                            probes=True, flight_dir=tmp, obs=o)
+    reqs = _p8_requests(P8_FLEET_N, key_every=4)
+    _zero_counts()
+    for r in reqs:
+        fleet.submit(r)
+    results = []
+    for _ in range(5):
+        results += fleet.tick()
+    # drain pool 1 right after a dispatch gave it work it has not admitted
+    # yet, so that the drain hands work back to the global queue
+    for _ in range(40):
+        results += fleet.dispatch(time.perf_counter())
+        if len(fleet.pools[1].engine.queue) or not len(fleet.queue):
+            break
+        results += fleet.tick()
+    moved = fleet.drain_pool(1)
+    while fleet.pools[1].state is not PoolState.STOPPED:
+        results += fleet.tick()
+    stopped_at = fleet.stats()["ticks"]
+    fleet.restore_pool(1)
+    results += fleet.run()
+    torch.cuda.synchronize()
+    counts = _counts()
+    st = fleet.stats()
+    ids = sorted(r.request_id for r in results)
+    worst, n_det = _vs_eager(eps_fn, sch, results, reqs)
+    text = fleet.render_prometheus()
+    spans = check_spans(sink.events)
+    print(f"[fleet] {smi} | PoolFleet CIFAR10_UNET 2 pools x {P8_SLOTS} "
+          f"slots (stochastic, order 2, probes), {len(reqs)} requests (8 "
+          f"with an affinity key), pool 1 drained mid-run ({moved} "
+          f"re-routed, STOPPED at pool tick {stopped_at}) and restored: "
+          f"pool ticks {[p['ticks'] for p in st['pools']]}, completed "
+          f"{st['completed']}, launches {counts}, span errors {len(spans)}, "
+          f"eta=0 x0 vs eager of the same x_T ({n_det} requests) worst "
+          f"max|d|/max|x| = {worst:.3e} (tol {SCHED_VS_EAGER_TOL:g})")
+    check(counts == {"B1": 0, "B2": st["ticks"], "B3": 0, "B4": 0},
+          f"fleet launched {counts}, want B2 == pool ticks {st['ticks']}")
+    check(ids == [r.request_id for r in reqs] and not spans,
+          f"fleet results {ids} / span errors {spans[:3]}")
+    check(n_det > 0 and worst <= SCHED_VS_EAGER_TOL,
+          f"fleet vs eager: {worst} > {SCHED_VS_EAGER_TOL:g}")
+    check(set(st) == FLEET_STATS_KEYS
+          and all(set(p) == POOL_STATS_KEYS for p in st["pools"]),
+          "fleet / pool stats keys differ from the schema")
+    check('pool="0"' in text and 'pool="1"' in text
+          and "engine_tick_seconds_bucket{" in text,
+          "render_prometheus lacks the pool series")
+    n_b2 = counts["B2"]
+    print(render_dashboard(st))
+    print(render_summary(summarize_results(results)))
+    # steady slot-steps/s: the fleet beside one 8-slot engine (pool 0's),
+    # alternated over P8_RATE_ROUNDS rounds in this call (host walls
+    # spread between runs)
+    one = fleet.pools[0].engine
+
+    def rate(serve, n, base):
+        t0 = time.perf_counter()
+        out = serve([dataclasses.replace(r, S=20)
+                     for r in _p8_requests(n, base)])
+        torch.cuda.synchronize()
+        return len(out) * 20 / (time.perf_counter() - t0)
+    fleet.serve(_p8_requests(2 * P8_SLOTS, 1000))      # warm every slot
+    rates = {"fleet": [], "one": []}
+    for i in range(P8_RATE_ROUNDS):
+        rates["fleet"].append(rate(fleet.serve, 4 * P8_SLOTS,
+                                   2000 + 100 * i))
+        rates["one"].append(rate(one.serve, 2 * P8_SLOTS, 3000 + 100 * i))
+    med = {k: statistics.median(v) for k, v in rates.items()}
+    print(f"[fleet] {smi} | steady slot-steps/s (S=20, every slot busy, "
+          f"2 waves), {P8_RATE_ROUNDS} rounds alternated: fleet of 2 x "
+          f"{P8_SLOTS} slots median {med['fleet']:.1f} "
+          f"({', '.join(f'{r:.1f}' for r in rates['fleet'])}), one "
+          f"{P8_SLOTS}-slot engine median {med['one']:.1f} "
+          f"({', '.join(f'{r:.1f}' for r in rates['one'])}), ratio of "
+          f"medians {med['fleet'] / med['one']:.3f}")
+
+    # --- 4. hot-swap and postmortem on an eps_params fleet, counted
+    params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def eps_p(p, x, t):
+        return functional_call(model, p, (x, t))
+    swap = PoolFleet.build(sch, eps_p, CARD_SHAPE, n_pools=2,
+                           slots=P8_SLOTS, eps_params=params, probes=True,
+                           flight_dir=tmp)
+    key1 = next(k for k in range(64) if affinity_pool(k, 2) == 1)
+    pool = swap.pools[1]
+
+    def one_request(rid):
+        return SampleRequest(request_id=rid, S=10, seed=4242,
+                             affinity_key=key1)
+    _zero_counts()
+    (pre,) = swap.serve([one_request(0)])
+    ct0 = pool.stats()["compiled_ticks"]
+    bad = dict(params)
+    bad["conv_out.weight"] = params["conv_out.weight"].clone()
+    bad["conv_out.weight"][0, 0, 0, 0] = float("nan")
+    try:
+        pool.install(bad)
+        refused = False
+    except RuntimeError:
+        refused = True
+    swap.drain_pool(1)
+    swap.run()
+    pool.install(bad)
+    swap.restore_pool(1)
+    (poisoned,) = swap.serve([one_request(1)])
+    path = pool.engine.flight.dump("nonfinite", request_id=1)
+    header, frames = read_flight(path)
+    attr = attribute_nonfinite(frames)
+    fin = min(f["values"][b][4] for f in frames
+              for b, e in enumerate(f["slots"])
+              if e is not None and e["request_id"] == 1)
+    swap.drain_pool(1)
+    swap.run()
+    pool.install(params)
+    swap.restore_pool(1)
+    (post,) = swap.serve([one_request(2)])
+    torch.cuda.synchronize()
+    counts = _counts()
+    sst = swap.stats()
+    print(f"[swap] {smi} | eps_params fleet 2 x {P8_SLOTS} slots (order 1, "
+          f"probes): install on ACTIVE refused {refused}; NaN in "
+          f"conv_out.weight installed on drained pool 1 "
+          f"(weight_swaps {pool.weight_swaps}): request on pool "
+          f"{poisoned.pool_id}, min finite_frac {fin}, x0 finite "
+          f"{bool(torch.isfinite(poisoned.x0).all())}; dump {path} -> "
+          f"attribution {header['attribution']}; original weights "
+          f"re-installed: x0 bitwise the pre-swap one "
+          f"{torch.equal(post.x0, pre.x0)}; compiled_ticks {ct0} -> "
+          f"{pool.stats()['compiled_ticks']}; launches {counts}")
+    check(refused, "install on an ACTIVE pool was not refused")
+    check(pre.pool_id == poisoned.pool_id == post.pool_id == 1,
+          "the affinity request did not reach pool 1")
+    ent = (next(f for f in frames if f["tick"] == attr["tick"])["slots"][
+        attr["slot"]] if attr is not None else None)
+    check(fin < 1.0 and attr is not None and header["attribution"] == attr
+          and (attr["pool"], attr["step"], attr["request_id"]) == (1, 0, 1)
+          and ent == {"slot": attr["slot"], "request_id": 1, "k": 0},
+          f"non-finite attribution {attr}")
+    check(torch.equal(post.x0, pre.x0), "x0 after the restore differs from "
+          "the pre-swap x0")
+    check(pool.stats()["compiled_ticks"] == ct0 and pool.weight_swaps == 2,
+          "an install built a tick function")
+    check(counts == {"B1": 0, "B2": sst["ticks"], "B3": 0, "B4": 0},
+          f"swap fleet launched {counts}, want B2 == ticks {sst['ticks']}")
+    return n_b2 + counts["B2"]
+
+
+def phase_mega_fleet(params2):
+    """Phase 8, item 5: a fleet of two mega pools (B4 per pool tick)
+    against one mega engine, and probes on that trunk.  Returns (B2, B4)
+    launches of the counted paths."""
+    from repro_torch.configs import DLM_SMOLLM_MEGA as cfg
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.diffusion_lm import make_tile_eps_fn, round_to_tokens
+    from repro_torch.serving import (ContinuousBatchingEngine, PoolFleet,
+                                     SampleRequest)
+    sch = make_schedule("linear", 1000)
+    eps = make_tile_eps_fn(params2, cfg, DLM_BATCH, DLM_SEQ)
+    shape = (DLM_SEQ, cfg.latent_dim)
+
+    def reqs():
+        return [SampleRequest(request_id=i, S=DLM_SCHED_S[i % 2],
+                              seed=400 + i) for i in range(8)]
+    fleet = PoolFleet.build(sch, eps, shape, n_pools=2, slots=DLM_BATCH)
+    single = ContinuousBatchingEngine(sch, eps, shape, slots=DLM_BATCH)
+    _zero_counts()
+    res_f = {r.request_id: r for r in fleet.serve(reqs())}
+    torch.cuda.synchronize()
+    counts = _counts()
+    st = fleet.stats()
+    res_s = {r.request_id: r for r in single.serve(reqs())}
+    xf = torch.stack([res_f[i].x0 for i in sorted(res_s)])
+    xs = torch.stack([res_s[i].x0 for i in sorted(res_s)])
+    rel = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(xf, xs))
+    same_tokens = torch.equal(round_to_tokens(params2, xf),
+                              round_to_tokens(params2, xs))
+    print(f"[fleet] PoolFleet {cfg.arch.name} 2 pools x {DLM_BATCH} slots x "
+          f"{DLM_SEQ} tokens, use_mega=None: mega_tick "
+          f"{[p['mega_tick'] for p in st['pools']]}, pool ticks "
+          f"{[p['ticks'] for p in st['pools']]}, mega_tick_ratio "
+          f"{st['mega_tick_ratio']}, launches {counts}; vs one mega engine: "
+          f"tokens equal {same_tokens}, worst max|d|/max|x| {rel:.3e} "
+          f"(tol 1e-3)")
+    check(all(p["mega_tick"] for p in st["pools"])
+          and counts == {"B1": 0, "B2": 0, "B3": 0, "B4": st["ticks"]},
+          f"mega fleet launched {counts}, want B4 == pool ticks "
+          f"{st['ticks']}")
+    check(same_tokens and rel <= 1e-3, f"mega fleet vs one mega engine: "
+          f"tokens equal {same_tokens}, {rel} > 1e-3")
+    try:
+        ContinuousBatchingEngine(sch, eps, shape, slots=DLM_BATCH,
+                                 probes=True)
+        why = None
+    except ValueError as e:
+        why = str(e)
+    probed = ContinuousBatchingEngine(sch, eps, shape, slots=DLM_BATCH,
+                                      probes=True, use_mega=False)
+    _zero_counts()
+    res_p = probed.serve(reqs()[:4])
+    torch.cuda.synchronize()
+    counts_p = _counts()
+    pst = probed.stats()
+    print(f"[fleet] probes=True, use_mega=None on {cfg.arch.name}: "
+          f"{'raises: ' + why[:60] + '...' if why else 'NO ERROR'}; "
+          f"use_mega=False: {pst['ticks']} ticks, probe_frames "
+          f"{pst['probe_frames']}, launches {counts_p}")
+    check(why is not None and "probes are unavailable on the mega tick" in why,
+          "mega + probes did not raise")
+    check(counts_p == {"B1": 0, "B2": pst["ticks"], "B3": 0, "B4": 0}
+          and len(res_p) == 4 and pst["probe_frames"] == pst["ticks"],
+          f"probed unfused DLM engine launched {counts_p}")
+    return counts_p["B2"], counts["B4"]
 
 
 # ------------------------------------------- the launch floor and the pairs
@@ -1899,8 +2400,8 @@ def _host_prep(smi, eng, label):
         ("whole megastep_rows_call", lambda: mk.megastep_rows_call(
             x2, params, cfg, B, S, rows, states.t, clip=eng.clip_x0,
             attn_impl=spec.attn_impl)),
-        ("whole tick (states + expand + call)", lambda: eng._tick_fn(
-            x2, None, eng._states())),
+        ("whole tick (states + expand + call)", lambda: eng._tick(False)(
+            x2, None, eng._states(), None)),
     )
     out = []
     for name, fn in pieces:
@@ -2076,9 +2577,16 @@ def main(argv=None) -> int:
     # earlier trees timed it in.  B1 runs on its rollouts and on
     # serve("auto"), B2 on the bank-driven scheduler's ticks.
     b1_auto, b2_auto = phase_autotuner(smi, model)
-    recs = {r["name"]: r for r in b_kernels}
+    # Phase 8 runs after phase 7, so that every rate above is timed from
+    # the state it was timed in before.  B2 runs on the probed scheduler,
+    # the U-Net fleets and the probed unfused DLM engine, B4 on the mega
+    # fleet's pool ticks.
+    b2_p8 = phase_telemetry(smi, model) + phase_fleet(smi, model)
+    b2_mega, b4_p8 = phase_mega_fleet(params2)
+    recs = {r["name"]: r for r in kernels}
     recs["sampler_step_2d"]["launches"] += b1_auto
-    recs["sampler_step_rows_2d"]["launches"] += b2_auto
+    recs["sampler_step_rows_2d"]["launches"] += b2_auto + b2_p8 + b2_mega
+    recs["megastep_rows_call"]["launches"] += b4_p8
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,10 @@ its backends (eager, tile-resident, rows, mega) over the CUDA kernels, the
 paper's U-Net and the dense diffusion-LM trunk, the ODE view (encode /
 decode / interpolation), the lockstep ``DiffusionSampler`` and the
 continuous-batching scheduler, the sample-quality metrics and ELBO table
-(``eval``) and the trajectory autotuner with its plan bank (``autoplan``).
+(``eval``), the trajectory autotuner with its plan bank (``autoplan``),
+serving telemetry (``obs``: metrics, spans, device probes, flight
+recorder, profiler ranges) with the engine's weight hot-swap, and the
+slot-pool fleet (``serving.fleet``).
 """
 from .device import resolve_device
 

@@ -146,7 +146,8 @@ def step_table(schedule: NoiseSchedule, cfg: SamplerConfig):
 
 def slot_tile_step(eps_fn, x2: torch.Tensor, states: StepStates, shape, *,
                    hist2: Optional[torch.Tensor] = None, clip_x0=None,
-                   stochastic: bool = False, want_x0: bool = False):
+                   stochastic: bool = False, want_x0: bool = False,
+                   want_eps: bool = False):
     """One scheduler tick over the (B * rows_per_slot, 256) slot-tile view.
 
     eps models declaring ``slot_tile_aware = True`` receive (x2, t (B,));
@@ -157,8 +158,10 @@ def slot_tile_step(eps_fn, x2: torch.Tensor, states: StepStates, shape, *,
     ``solver.mix_history`` with an (order, R, 1) per-row weight stack.
     The update is one ``sampler_step_rows_2d`` launch.  Returns the
     advanced view (plus the x0 preview when ``want_x0``); with ``hist2``
-    ``(step_out, new_hist2)``.  (JAX's ``want_eps`` feeds the device
-    probes, which are not ported.)
+    ``(step_out, new_hist2)``.  ``want_eps`` also appends the RAW eps
+    evaluation (before the Adams–Bashforth mix) in tile layout, for the
+    engine's probed tick: ``(step_out, eps)`` or
+    ``(step_out, new_hist2, eps)``.
     """
     from repro_torch.kernels.sampler_step import ops as tile_ops
 
@@ -172,6 +175,7 @@ def slot_tile_step(eps_fn, x2: torch.Tensor, states: StepStates, shape, *,
             x_nat = tile_ops.from_slot_tile_layout(x2, n,
                                                    (B,) + tuple(shape))
             eps2, _ = tile_ops.to_slot_tile_layout(eps_fn(x_nat, states.t))
+        eps_raw2 = eps2
         new_hist2 = None
         if hist2 is not None:
             order = states.solver_w.shape[1]
@@ -185,7 +189,10 @@ def slot_tile_step(eps_fn, x2: torch.Tensor, states: StepStates, shape, *,
         out = tile_ops.sampler_step_rows(
             x2, eps2.contiguous(), row_coefs, row_seeds, clip=clip_x0,
             stochastic=stochastic, want_x0=want_x0)
-    return (out, new_hist2) if hist2 is not None else out
+    ret = (out, new_hist2) if hist2 is not None else (out,)
+    if want_eps:
+        ret += (eps_raw2,)
+    return ret if len(ret) > 1 else out
 
 
 def sample_step(schedule: NoiseSchedule, eps_fn, x: torch.Tensor,

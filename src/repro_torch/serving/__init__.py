@@ -1,10 +1,11 @@
-"""Serving surfaces of the port: the lockstep DiffusionSampler and the
-continuous-batching scheduler."""
+"""Serving surfaces of the port: the lockstep DiffusionSampler, the
+continuous-batching scheduler and the slot-pool fleet."""
 from .engine import DiffusionSampler
 from .errors import RejectCode, RequestError
+from .fleet import PoolFleet, PoolState, SlotPool
 from .scheduler import (AdmissionQueue, ContinuousBatchingEngine,
                         SampleRequest, SampleResult, SlotCheckpoint)
 
 __all__ = ["AdmissionQueue", "ContinuousBatchingEngine", "DiffusionSampler",
-           "RejectCode", "RequestError", "SampleRequest", "SampleResult",
-           "SlotCheckpoint"]
+           "PoolFleet", "PoolState", "RejectCode", "RequestError",
+           "SampleRequest", "SampleResult", "SlotCheckpoint", "SlotPool"]

@@ -30,8 +30,22 @@ Differences from the JAX engine:
     result, so the tick wall and its EWMA measure the same thing.  The
     per-tick slot states ship to the device in one host-to-device copy.
   * ``donate``, ``interpret`` and the TPU hardware PRNG are JAX-only and
-    dropped.  ``probes``, ``flight``, ``mesh`` and ``eps_params`` are not
-    ported yet and raise ``NotImplementedError`` naming their JAX module.
+    dropped.  ``mesh`` (sharded pools) is not ported yet and raises
+    ``NotImplementedError`` naming its JAX module.
+  * JAX traces a tick program on its first call; here a tick function is
+    built on its first call, and ``compiled_ticks`` counts those (one per
+    variant run: the plain tick and, with ``probes=``, the probed one).
+  * ``eps_params`` is a flat ``Dict[str, Tensor]`` (a module's state dict,
+    applied with ``torch.func.functional_call``) or a nested dict/list of
+    tensors, passed to ``eps_fn(params, x, t)`` on every tick.
+
+Telemetry: counters, gauges and histograms in ``obs.registry``; span
+events through the request's TraceContext; with ``probes=`` a second tick
+function also returns a (slots, 6) float32 frame of per-slot numerics
+(``obs/probes.py``), copied to the host once per probed tick and fed to
+``SampleResult.quality``, the probe gauges and an optional
+``FlightRecorder``; with ``obs.profile`` each tick runs inside an
+``annotate("repro/tick/<variant>")`` range.
 
 Deadline-aware admission: with a ``plan_bank`` (``repro_torch.autoplan``),
 requests submitted with ``auto_plan=True`` get their plan from the bank
@@ -40,6 +54,7 @@ tick EWMA.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -55,6 +70,10 @@ from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.kernels.sampler_step import ops as tile_ops
 from repro_torch.kernels.sampler_step.ref import GOLDEN, fmix32_u32
 from repro_torch.obs import Observability
+from repro_torch.obs.probes import device_frame, normalize_probes
+from repro_torch.obs.profiling import annotate
+from repro_torch.obs.registry import SLACK_BUCKETS_S
+from repro_torch.obs.schema import PROBE_COLUMNS
 from repro_torch.obs.trace import plan_digest as _plan_digest
 from repro_torch.sampling import SamplerPlan
 from repro_torch.sampling.plan import _schedule_digest
@@ -64,10 +83,21 @@ from .queue import AdmissionQueue
 from .request import SampleRequest, SampleResult, SlotCheckpoint
 
 _COEFS = ("c_x0", "c_dir", "c_noise", "sqrt_a_t", "sqrt_1m_a_t")
+_I_EPS, _I_FIN, _I_DEF = (PROBE_COLUMNS.index(c)
+                          for c in ("eps_rms", "finite_frac", "defect"))
 
 
-def _not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (JAX: {where})")
+def _flatten(tree, path=()):
+    """[(path, leaf)] of a nested dict / list / tuple of tensors, dict keys
+    in sorted order (the leaf order of a JAX pytree of dicts)."""
+    if isinstance(tree, dict):
+        return [e for k in sorted(tree) for e in _flatten(tree[k],
+                                                          path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        kind = type(tree).__name__
+        return [e for i, v in enumerate(tree)
+                for e in _flatten(v, path + (f"{kind}[{i}]",))]
+    return [(path, tree)]
 
 
 @dataclasses.dataclass
@@ -80,14 +110,23 @@ class _Slot:
     admit_t: float
     previews: int = 0
     headroom_s: Optional[float] = None   # deadline - admit time (if any)
+    # probe-quality accumulators (filled per probed tick, summarized into
+    # SampleResult.quality at retirement; columns in obs/probes.py)
+    q_frames: int = 0
+    q_eps_rms: Optional[float] = None    # last tick's eps RMS
+    q_finite_min: Optional[float] = None
+    q_defect_max: Optional[float] = None
+    q_defect_sum: float = 0.0
+    q_defect_n: int = 0
 
 
 class ContinuousBatchingEngine:
     """Slot-based continuous-batching server for DDIM-family sampling.
 
     One engine has one tick function for its (slots, sample_shape, dtype,
-    stochastic, clip_x0, preview, max_order) configuration; admission,
-    retirement and per-request plan mixes never rebuild it.
+    stochastic, clip_x0, preview, max_order) configuration, plus one probed
+    tick with ``probes=``; admission, retirement, per-request plan mixes
+    and weight installs never rebuild them.
 
     Args:
       schedule: the noise schedule the eps model was trained with; plan
@@ -105,6 +144,14 @@ class ContinuousBatchingEngine:
       preview: build the x0-preview tick (B2's second output, streamed
         through ``on_preview`` every ``preview_every`` ticks).
       max_order: highest Adams–Bashforth order the tick supports (1..4).
+      eps_params: model weights passed INTO the tick on every call
+        (``eps_fn(params, x, t)``): a flat ``Dict[str, Tensor]`` (a
+        module's state dict through ``torch.func.functional_call``) or a
+        nested dict/list of tensors.  None keeps ``eps_fn(x, t)`` with its
+        own weights.  With params the weights are hot-swappable:
+        ``install_eps_params`` replaces them between ticks, same keys,
+        shapes, dtypes and devices, without building a new tick.  Such an
+        engine never takes the mega tick.
       max_queue: admission-queue depth bound (None = unbounded).
       use_mega: the fused scheduler tick (B4).  None decides by the JAX
         rule (deterministic, order 1, preview-free, and the eps model's
@@ -128,9 +175,22 @@ class ContinuousBatchingEngine:
         The first tick (kernel builds, library set-up) is never folded in.
       pool_id: identity stamped on stats and results.
       obs: an ``obs.Observability``; None builds a private, sink-less one.
+        Its registry holds the engine's counters, gauges and histograms
+        (``stats()`` is a view over them); a trace sink turns on span
+        events; ``profile=True`` runs each tick inside an
+        ``annotate("repro/tick/<variant>")`` range.
+      probes: None (default) builds nothing extra; True or a frozen
+        ``ProbeSpec`` builds a second tick function that also reduces the
+        raw eps and the pre/post-step state into a (slots, 6) float32
+        frame per tick (eps RMS, x0 range, finite fraction, the one-eval
+        step-doubling defect proxy).  The plain tick is untouched, so
+        probes-off stays bitwise a probe-less engine, and ``set_probes``
+        switches between the two (at most 2 tick functions).  Refused
+        with the mega tick.
+      flight: an optional ``obs.FlightRecorder`` fed every probe frame
+        and the slot -> request map.
       device: where the engine runs; None is the CUDA card.
-      eps_params, mesh, probes, flight: not ported yet; anything but None
-        raises.
+      mesh: not ported yet (sharded pools); anything but None raises.
     """
 
     def __init__(self, schedule: NoiseSchedule, eps_fn: Callable,
@@ -148,14 +208,10 @@ class ContinuousBatchingEngine:
                  obs: Optional[Observability] = None,
                  probes=None, flight=None,
                  device: DeviceLike = None):
-        for value, what, where in (
-                (eps_params, "eps_params (weight hot-swap)",
-                 "repro/serving/gateway/"),
-                (mesh, "mesh (sharded slot pools)", "repro/serving/fleet/"),
-                (probes, "probes", "repro/obs/probes.py"),
-                (flight, "flight", "repro/obs/flight.py")):
-            if value is not None:
-                raise _not_ported(what, where)
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh (sharded slot pools) is not ported yet (JAX: "
+                "repro/serving/fleet/sharded.py)")
         if not 1 <= max_order <= MAX_ORDER:
             raise ValueError(f"max_order must be in 1..{MAX_ORDER}, got "
                              f"{max_order}")
@@ -181,9 +237,20 @@ class ContinuousBatchingEngine:
                 "matching bank")
         self._last_outcome: Optional[str] = None
         self.pool_id = pool_id
+        self.eps_params = eps_params
         self.use_mega = self._resolve_mega(use_mega)
         self.tick_variant = ("mega" if self.use_mega else
                              "multistep" if self.max_order > 1 else "rows")
+        self.probe_spec = normalize_probes(probes)
+        if self.probe_spec is not None and self.use_mega:
+            raise ValueError(
+                "probes are unavailable on the mega tick variant: the eps "
+                "evaluation never leaves the fused megastep kernel, so the "
+                "device probes have nothing to reduce — build the engine "
+                "with use_mega=False to probe it")
+        self.probes_on = self.probe_spec is not None
+        self.flight = flight
+        self.last_frame: Optional[Dict] = None
         self.obs = obs if obs is not None else Observability()
         reg = self.obs.registry
         self._c_ticks = reg.counter("engine_ticks_total",
@@ -203,7 +270,7 @@ class ContinuousBatchingEngine:
             "auto_plan requests served a bank row")
         self._c_compiled = reg.counter(
             "engine_compiled_ticks_total",
-            "tick functions built (one per engine)")
+            "tick functions built (one per variant run: at most 2)")
         self._c_miss = reg.counter(
             "engine_deadline_miss_total",
             "requests finished or dropped past their deadline")
@@ -213,9 +280,42 @@ class ContinuousBatchingEngine:
         self._c_resumed = reg.counter(
             "engine_resumed_total",
             "checkpointed trajectories resumed mid-flight")
+        self._c_installs = reg.counter(
+            "engine_weight_installs_total",
+            "eps_params hot-swaps installed (no new tick function)")
         self._c_wall = reg.counter(
             "engine_tick_wall_seconds",
             "accumulated wall time inside the tick")
+        self._g_active = reg.gauge(
+            "engine_active_slots", "resident requests after the last tick")
+        self._c_frames = reg.counter(
+            "engine_probe_frames_total",
+            "device probe frames transferred to the host")
+        self._g_defect = reg.gauge(
+            "engine_probe_defect_max",
+            "max per-slot step-doubling defect proxy, last probed tick")
+        self._g_finite = reg.gauge(
+            "engine_probe_finite_frac_min",
+            "min per-slot finite fraction, last probed tick")
+        self._last_defect_max: Optional[float] = None
+        self._last_finite_min: Optional[float] = None
+        self._g_ewma = reg.gauge(
+            "engine_tick_ewma_seconds",
+            "EWMA per-tick latency (first tick of each variant excluded)")
+        self._h_tick = reg.histogram(
+            "engine_tick_seconds",
+            "per-tick wall latency (first tick of each variant excluded)")
+        self._h_wait = reg.histogram(
+            "engine_queue_wait_seconds", "submit -> admit queue wait")
+        self._h_service = reg.histogram(
+            "engine_service_seconds", "admit -> retire service time")
+        self._h_latency = reg.histogram(
+            "engine_request_latency_seconds",
+            "submit -> retire end-to-end latency")
+        self._h_slack = reg.histogram(
+            "engine_deadline_slack_seconds",
+            "deadline - finish at retirement (negative = missed)",
+            edges=SLACK_BUCKETS_S)
         self._n = int(np.prod(self.shape))
         self._rps = tile_ops.slot_rows(self.shape)
         self._tile_c = tile_ops.TILE_C
@@ -231,7 +331,6 @@ class ContinuousBatchingEngine:
         self._tables: Dict[SamplerPlan, Dict[str, np.ndarray]] = {}
         self._schedule_digest = None   # filled lazily from the first plan
         self._traces = 0
-        self._ticked = False
         # inactive-slot filler row: an EXACT identity update on the no-clip
         # path (a = c_x0/sqrt_a = 1, b = c_dir - a*sqrt_1m_a = 0 => x' = x);
         # the clip path divides by sqrt_1m_a, so there it is 1.0 and idle
@@ -240,7 +339,15 @@ class ContinuousBatchingEngine:
                               sqrt_a_t=1.0,
                               sqrt_1m_a_t=1.0 if clip_x0 is not None
                               else 0.0)
-        self._tick_fn = self._make_tick()
+        # probe-only previous-eps buffer for the defect proxy on order-1
+        # engines (multistep engines read the pre-update newest history
+        # row; see obs/probes.py on the one-eval proxy)
+        self._probe_prev = (
+            torch.zeros((rows, self._tile_c), dtype=torch.float32,
+                        device=self.device)
+            if (self.probe_spec is not None and self.probe_spec.defect
+                and self.max_order == 1) else None)
+        self._tick_fns: Dict[bool, Callable] = {}   # probed? -> tick
 
     # ----------------------------------- registry-backed counters (views)
     @property
@@ -272,6 +379,10 @@ class ContinuousBatchingEngine:
         return int(self._c_miss.value)
 
     @property
+    def weight_installs(self) -> int:
+        return int(self._c_installs.value)
+
+    @property
     def _tick_wall_s(self) -> float:
         return float(self._c_wall.value)
 
@@ -286,7 +397,11 @@ class ContinuousBatchingEngine:
         from repro_torch.kernels import megastep as mega_ops
 
         spec = getattr(self.eps_fn, "mega_spec", None)
-        if self.stochastic or self.preview or self.max_order > 1:
+        if self.eps_params is not None:
+            ok, why = False, ("megakernel tick bakes its trunk weights "
+                              "into the fused kernel's spec; a hot-swappable "
+                              "eps_params engine runs the unfused tick")
+        elif self.stochastic or self.preview or self.max_order > 1:
             ok, why = False, ("megakernel tick is deterministic/order-1/"
                               "preview-free only")
         else:
@@ -299,18 +414,79 @@ class ContinuousBatchingEngine:
             raise ValueError(f"use_mega=True but {why}")
         return False
 
-    def _make_tick(self):
-        """The engine's one tick function: (x2, hist2, states) ->
-        (x2, x0 preview or None, hist2)."""
-        self._traces += 1
-        self._c_compiled.inc()
+    def _bind_eps(self, params):
+        """The eps callable a tick sees: ``eps_fn`` itself, or on an
+        eps_params engine ``eps_fn`` with ``params`` bound, keeping the
+        ``slot_tile_aware`` marker the slot-tile step dispatches on."""
+        if params is None:
+            return self.eps_fn
+        raw = self.eps_fn
+
+        def bound(x, t):
+            return raw(params, x, t)
+
+        bound.slot_tile_aware = getattr(raw, "slot_tile_aware", False)
+        return bound
+
+    def install_eps_params(self, new_params) -> None:
+        """Hot-swap the model weights without building a new tick.
+
+        Only on an engine built with ``eps_params=``.  The replacement
+        must match the resident weights in structure (keys) and in every
+        leaf's shape, dtype and device.  The fleet tier swaps only on an
+        idle pool; see ``SlotPool.install``.
+        """
+        if self.eps_params is None:
+            raise RuntimeError(
+                "engine has no eps_params to swap: closure-captured "
+                "weights are compiled into the tick — build the engine "
+                "with eps_params= to make weights installable")
+        old, new = _flatten(self.eps_params), _flatten(new_params)
+        old_p, new_p = [p for p, _ in old], [p for p, _ in new]
+        if old_p != new_p:
+            raise ValueError(
+                "install_eps_params: new pytree structure differs from "
+                f"the resident weights (only in new: "
+                f"{sorted(set(new_p) - set(old_p))[:5]}, only in resident: "
+                f"{sorted(set(old_p) - set(new_p))[:5]})")
+        def desc(t):
+            return f"{tuple(t.shape)}/{str(t.dtype).removeprefix('torch.')}"
+        for i, ((_, o), (_, n)) in enumerate(zip(old, new)):
+            if o.shape != n.shape or o.dtype != n.dtype:
+                raise ValueError(
+                    f"install_eps_params: leaf {i} is {desc(n)}, resident "
+                    f"is {desc(o)} — a swap must preserve shapes/dtypes "
+                    "to reuse the compiled tick")
+            if o.device != n.device:
+                raise ValueError(
+                    f"install_eps_params: leaf {i} is on {n.device}, "
+                    f"resident is on {o.device}")
+        self.eps_params = new_params
+        self._c_installs.inc()
+
+    def _tick(self, probed: bool) -> Callable:
+        """The tick function of one variant, built (and counted in
+        ``compiled_ticks``) the first time it runs."""
+        fn = self._tick_fns.get(probed)
+        if fn is None:
+            fn = self._tick_fns[probed] = self._make_tick(probed)
+            self._traces += 1
+            self._c_compiled.inc()
+        return fn
+
+    def _make_tick(self, probed: bool):
+        """Plain tick: (x2, hist2, states, params) -> (x2, x0 preview or
+        None, hist2).  Probed tick: (x2, hist2, prev, states, params) ->
+        (x2, x0, hist2, frame, prev), the same step (the same
+        ``slot_tile_step`` call, returning the raw eps as well) plus the
+        (slots, 6) probe frame; ``prev`` is the order-1 defect buffer."""
         shape, clip = self.shape, self.clip_x0
 
         if self.use_mega:
             from repro_torch.kernels import megastep as mega_ops
             spec, rps = self.eps_fn.mega_spec, self._rps
 
-            def tick(x2, hist2, states):
+            def tick(x2, hist2, states, params):
                 row_coefs = tile_ops.expand_slot_coefs(
                     states.coef_matrix(), rps)
                 return (mega_ops.megastep_rows(x2, spec, row_coefs,
@@ -318,15 +494,50 @@ class ContinuousBatchingEngine:
                         None, hist2)
             return tick
 
-        def tick(x2, hist2, states):
-            out = slot_tile_step(
-                self.eps_fn, x2, states, shape, hist2=hist2, clip_x0=clip,
-                stochastic=self.stochastic, want_x0=self.preview)
-            if hist2 is not None:
-                out, hist2 = out
-            x_new, x0 = out if self.preview else (out, None)
-            return x_new, x0, hist2
+        def step(x2, hist2, states, params, want_eps):
+            res = slot_tile_step(
+                self._bind_eps(params), x2, states, shape, hist2=hist2,
+                clip_x0=clip, stochastic=self.stochastic,
+                want_x0=self.preview, want_eps=want_eps)
+            if hist2 is None and not want_eps:
+                res = (res,)
+            x_new, x0 = res[0] if self.preview else (res[0], None)
+            return (x_new, x0, res[1] if hist2 is not None else None,
+                    res[-1] if want_eps else None)
+
+        if not probed:
+            def tick(x2, hist2, states, params):
+                return step(x2, hist2, states, params, False)[:3]
+            return tick
+
+        spec, rps, n = self.probe_spec, self._rps, self._n
+
+        def tick(x2, hist2, prev, states, params):
+            # hist2 is the PRE-update stack: row 0 is the previous tick's
+            # raw eval, the defect proxy's reference on multistep engines
+            eps_prev = (prev if hist2 is None
+                        else hist2[0] if spec.defect else None)
+            x_new, x0, new_hist2, eps2 = step(x2, hist2, states, params,
+                                              True)
+            frame = device_frame(spec, x2, x_new, eps2, eps_prev, states,
+                                 rps=rps, n_live=n)
+            if prev is not None:
+                prev = eps2.to(torch.float32)
+            return x_new, x0, new_hist2, frame, prev
         return tick
+
+    def set_probes(self, on: bool) -> None:
+        """Pick which tick function runs: the probed or the plain one.
+
+        Only on an engine built with ``probes=``: the probed tick is built
+        for the construction-time ProbeSpec, so enabling probes on a
+        spec-less engine raises.
+        """
+        if on and self.probe_spec is None:
+            raise RuntimeError(
+                "engine was built without probes= — the probed tick is a "
+                "construction-time compiled variant, not a runtime add-on")
+        self.probes_on = bool(on)
 
     # ------------------------------------------------------------ plumbing
     def _table_for(self, req: SampleRequest) -> Dict[str, np.ndarray]:
@@ -520,10 +731,10 @@ class ContinuousBatchingEngine:
                 slot.k = int(ck.k)
                 slot.previews = int(ck.previews)
                 self._c_resumed.inc()
+            wait = (now - req.submit_t if req.submit_t is not None else 0.0)
+            self._h_wait.observe(wait)
             ctx = req.trace
             if ctx is not None:
-                wait = (now - req.submit_t if req.submit_t is not None
-                        else 0.0)
                 if self.pool_id is not None:
                     ctx.pool_id = self.pool_id
                 if ctx.nfe is None:
@@ -639,6 +850,7 @@ class ContinuousBatchingEngine:
                 out.append(slot.req)
                 self._slots[b] = None
                 self._free.append(b)
+        self._g_active.set(self.active)
         return out
 
     def cancel(self, request_id, now: Optional[float] = None) -> bool:
@@ -649,6 +861,7 @@ class ContinuousBatchingEngine:
             if slot is not None and slot.req.request_id == request_id:
                 self._slots[b] = None
                 self._free.append(b)
+                self._g_active.set(self.active)
                 self._c_cancelled.inc()
                 if slot.req.trace is not None:
                     slot.req.trace.emit("cancel", now, k=slot.k)
@@ -675,6 +888,71 @@ class ContinuousBatchingEngine:
                 if req.trace is not None:
                     req.trace.emit("preview", now, k=done)
 
+    # -------------------------------------------------- device-probe host
+    def _record_frame(self, vals: np.ndarray, now: float) -> None:
+        """Host side of the probe path (one small frame per probed tick).
+
+        Folds the (slots, 6) float32 matrix into per-slot quality
+        accumulators, the probe gauges, ``last_frame`` and the flight
+        recorder's ring.  The defect needs a previous eps of the SAME
+        request: at k == 0 the buffer or history row still holds a
+        predecessor's (or zero) eval, so the first step's value is
+        discarded here.
+        """
+        spec = self.probe_spec
+        self._c_frames.inc()
+        slot_map: List[Optional[Dict]] = []
+        defect_max = finite_min = None
+        for b, slot in enumerate(self._slots):
+            if slot is None:
+                slot_map.append(None)
+                continue
+            slot_map.append({"slot": b, "request_id": slot.req.request_id,
+                             "k": slot.k})
+            row = vals[b]
+            slot.q_frames += 1
+            if spec.eps_norm and math.isfinite(row[_I_EPS]):
+                slot.q_eps_rms = float(row[_I_EPS])
+            if spec.finite and math.isfinite(row[_I_FIN]):
+                f = float(row[_I_FIN])
+                slot.q_finite_min = (f if slot.q_finite_min is None
+                                     else min(slot.q_finite_min, f))
+                finite_min = (f if finite_min is None
+                              else min(finite_min, f))
+            if spec.defect and slot.k >= 1 and math.isfinite(row[_I_DEF]):
+                d = float(row[_I_DEF])
+                slot.q_defect_sum += d
+                slot.q_defect_n += 1
+                slot.q_defect_max = (d if slot.q_defect_max is None
+                                     else max(slot.q_defect_max, d))
+                defect_max = (d if defect_max is None
+                              else max(defect_max, d))
+        if defect_max is not None:
+            self._last_defect_max = defect_max
+            self._g_defect.set(defect_max)
+        if finite_min is not None:
+            self._last_finite_min = finite_min
+            self._g_finite.set(finite_min)
+        frame = {"tick": self.ticks, "now": now, "pool": self.pool_id,
+                 "slots": slot_map, "values": vals.tolist()}
+        self.last_frame = frame
+        if self.flight is not None:
+            self.flight.record(frame)
+
+    @staticmethod
+    def _slot_quality(slot: _Slot) -> Optional[Dict]:
+        """Per-request probe summary attached to SampleResult.quality."""
+        if slot.q_frames == 0:
+            return None
+        return {
+            "frames": slot.q_frames,
+            "eps_rms_last": slot.q_eps_rms,
+            "finite_frac_min": slot.q_finite_min,
+            "defect_max": slot.q_defect_max,
+            "defect_mean": (slot.q_defect_sum / slot.q_defect_n
+                            if slot.q_defect_n else None),
+        }
+
     # ----------------------------------------------------------- the loop
     def tick(self, now: Optional[float] = None) -> List[SampleResult]:
         """One engine tick: admit, advance every resident slot, retire.
@@ -688,27 +966,46 @@ class ContinuousBatchingEngine:
         self._admit(now, results)
         if self.active == 0:
             return results
+        probed = self.probes_on and self.probe_spec is not None
+        traces0 = self._traces
+        fn = self._tick(probed)
+        frame_dev = None
         t0 = time.perf_counter()
-        states = self._states()
-        self._x2, x0_2, self._hist2 = self._tick_fn(self._x2, self._hist2,
-                                                    states)
-        synchronize(self.device)
+        with (annotate(f"repro/tick/{self.tick_variant}")
+              if self.obs.profile else contextlib.nullcontext()):
+            states = self._states()
+            if probed:
+                (self._x2, x0_2, self._hist2, frame_dev,
+                 self._probe_prev) = fn(self._x2, self._hist2,
+                                        self._probe_prev, states,
+                                        self.eps_params)
+            else:
+                self._x2, x0_2, self._hist2 = fn(self._x2, self._hist2,
+                                                 states, self.eps_params)
+            synchronize(self.device)
         t1 = time.perf_counter()
         self._c_wall.inc(t1 - t0)
-        # EWMA per-step tick latency; the first tick (kernel builds, library
-        # set-up) is excluded, as JAX excludes its compile ticks
-        if self._ticked:
+        # EWMA per-step tick latency, the deadline-selection policy's
+        # input; a variant's first tick (its build, library set-up) is
+        # excluded, as JAX excludes its compile ticks, and so is it from
+        # the tick histogram
+        if self._traces == traces0:
+            self._h_tick.observe(t1 - t0)
             if self.tick_ewma_s is None:
                 self.tick_ewma_s = t1 - t0
             else:
                 a = self.tick_ewma_alpha
                 self.tick_ewma_s = (a * (t1 - t0)
                                     + (1.0 - a) * self.tick_ewma_s)
-        self._ticked = True
+            self._g_ewma.set(self.tick_ewma_s)
         if wall:
             now = t1
         self._c_ticks.inc()
         self._c_slot_steps.inc(self.active)
+        if frame_dev is not None:
+            # before the retire loop: every occupied slot's k is the step
+            # this frame measured; one device-to-host copy of the frame
+            self._record_frame(frame_dev.cpu().numpy(), now)
         if x0_2 is not None:
             self._deliver_previews(x0_2, now)
         for b, slot in enumerate(self._slots):
@@ -727,16 +1024,23 @@ class ContinuousBatchingEngine:
                     admit_t=slot.admit_t, finish_t=now,
                     previews=slot.previews, deadline_missed=missed,
                     deadline_headroom_s=slot.headroom_s,
-                    auto_plan=req.auto_plan, pool_id=self.pool_id))
+                    auto_plan=req.auto_plan, pool_id=self.pool_id,
+                    quality=self._slot_quality(slot)))
                 self._c_completed.inc()
                 if missed:
                     self._c_miss.inc()
+                service = now - slot.admit_t
+                self._h_service.observe(service)
+                if req.submit_t is not None:
+                    self._h_latency.observe(now - req.submit_t)
+                if req.deadline is not None:
+                    self._h_slack.observe(req.deadline - now)
                 if req.trace is not None:
-                    req.trace.emit("retire", now,
-                                   service_s=now - slot.admit_t,
+                    req.trace.emit("retire", now, service_s=service,
                                    missed=True if missed else None)
                 self._slots[b] = None
                 self._free.append(b)
+        self._g_active.set(self.active)
         return results
 
     def run(self, max_ticks: Optional[int] = None,
@@ -767,16 +1071,15 @@ class ContinuousBatchingEngine:
 
     def reset_stats(self) -> None:
         """Zero the throughput instruments (e.g. after a warm-up), keeping
-        ``compiled_ticks`` and the measured ``tick_ewma_s``; the queue's
-        own counters are untouched."""
+        ``compiled_ticks``, the weight-install count, the measured
+        ``tick_ewma_s`` and the live gauges; the queue's own counters are
+        untouched."""
+        keep = {"engine_compiled_ticks_total",
+                "engine_weight_installs_total"}
         for inst in self.obs.registry.instruments():
-            if (inst.name.startswith("engine_")
-                    and inst.name != "engine_compiled_ticks_total"):
+            if (inst.name.startswith("engine_") and inst.kind != "gauge"
+                    and inst.name not in keep):
                 inst.reset()
-
-    def install_eps_params(self, new_params) -> None:
-        raise _not_ported("install_eps_params (weight hot-swap)",
-                          "repro/serving/gateway/")
 
     def stats(self) -> Dict:
         denom = max(self.ticks * self.slots, 1)
@@ -811,8 +1114,10 @@ class ContinuousBatchingEngine:
             "mega_tick": self.use_mega,
             "dtype": str(self.dtype).replace("torch.", ""),
             "donated": False,
-            "probes": None,
-            "probe_frames": 0,
-            "probe_defect_max": None,
-            "probe_finite_min": None,
+            "probes": (None if self.probe_spec is None
+                       else (self.probe_spec.describe() if self.probes_on
+                             else "off")),
+            "probe_frames": int(self._c_frames.value),
+            "probe_defect_max": self._last_defect_max,
+            "probe_finite_min": self._last_finite_min,
         }

@@ -6,9 +6,9 @@ FIFO among themselves), an optional depth bound for back-pressure, and
 expiry at pop time: a request whose deadline has passed is never admitted
 to a slot; it comes back to the engine as a dropped miss.  ``pop`` takes a
 ``select`` hook run on the request it is about to return.  The
-submitted / rejected / expired counters are registry instruments of the
-owning tier's ``Observability``; the queue emits the ``reject`` and
-``expire`` span events.
+submitted / rejected / expired counters and the ``queue_depth`` gauge are
+registry instruments of the owning tier's ``Observability``; the queue
+emits the ``reject`` and ``expire`` span events.
 """
 from __future__ import annotations
 
@@ -38,6 +38,8 @@ class AdmissionQueue:
             "queue_rejected_total", "submissions refused at the depth bound")
         self._c_expired = reg.counter(
             "queue_expired_total", "requests expired un-served at pop")
+        self._g_depth = reg.gauge(
+            "queue_depth", "current admission-queue depth")
 
     @property
     def submitted(self) -> int:
@@ -68,6 +70,7 @@ class AdmissionQueue:
         req.submit_t = now if req.submit_t is None else req.submit_t
         self._push(req)
         self._c_submitted.inc()
+        self._g_depth.set(len(self._heap))
         return True
 
     def requeue(self, req: SampleRequest, now: float) -> None:
@@ -94,6 +97,7 @@ class AdmissionQueue:
                 select(req, now)
             out = req
             break
+        self._g_depth.set(len(self._heap))
         return out, missed
 
     def remove_if(self, pred: Callable[[SampleRequest], bool]
@@ -107,6 +111,7 @@ class AdmissionQueue:
         if removed:
             heapq.heapify(kept)
             self._heap = kept
+            self._g_depth.set(len(kept))
         return [r for _, _, r in sorted(removed, key=lambda e: e[:2])]
 
     def pending_requests(self) -> List[SampleRequest]:
@@ -117,4 +122,5 @@ class AdmissionQueue:
         """Remove and return every queued request (EDF order)."""
         out = self.pending_requests()
         self._heap.clear()
+        self._g_depth.set(0)
         return out

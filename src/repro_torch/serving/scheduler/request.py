@@ -61,8 +61,10 @@ class SampleRequest:
     preview_every: int = 0             # stream x0-previews every k ticks
     on_preview: Optional[Callable] = None  # f(request_id, step_k, x0)
     submit_t: Optional[float] = None   # stamped by the admission queue
-    affinity_key: Optional[int] = None  # fleet routing key (no fleet yet)
-    model: Optional[str] = None        # multi-model routing (no gateway yet)
+    affinity_key: Optional[int] = None  # fleet routing: requests sharing a
+    #                                     key prefer the same slot pool
+    model: Optional[str] = None        # multi-model routing: pools serving
+    #                                     this checkpoint only (None = any)
     trace: Optional[object] = None     # obs.TraceContext, or None
     resume: Optional[SlotCheckpoint] = None  # mid-trajectory restore:
     #                                     the admitting engine writes the
@@ -129,7 +131,10 @@ class SampleResult:
     deadline_headroom_s: Optional[float] = None   # deadline - admit time
     auto_plan: bool = False
     pool_id: Optional[int] = None
-    quality: Optional[Dict] = None     # device-probe summary (no probes yet)
+    quality: Optional[Dict] = None     # device-probe summary (frames,
+    #                                     eps_rms_last, finite_frac_min,
+    #                                     defect_max, defect_mean) when the
+    #                                     engine ran with probes on
 
     @classmethod
     def drop(cls, req: SampleRequest, now: float, *, missed: bool = True,

@@ -707,10 +707,10 @@ def test_engine_virtual_clock_replay_matches_jax_engine():
         jeps, jnp.asarray(x_T[1]), backend="jnp"))[0]
     scale = max(np.abs(want).max(), np.abs(x_T[1]).max())
     assert np.abs(tres[1].x0.numpy() - want).max() <= F32_TOL * scale
-    reg = {(i.name, i.labels): i.value for i in tobs.registry.instruments()}
-    assert reg[("engine_bank_outcome_total", (("outcome", "fit"),))] == 1
-    assert reg[("engine_bank_nfe_total", (("nfe", "6"),))] == 2
-    assert reg[("engine_bank_nfe_total", (("nfe", "3"),))] == 1
+    reg = tobs.registry
+    assert reg.get("engine_bank_outcome_total", outcome="fit").value == 1
+    assert reg.get("engine_bank_nfe_total", nfe=6).value == 2
+    assert reg.get("engine_bank_nfe_total", nfe=3).value == 1
 
 
 def test_engine_auto_plan_validation_matches_jax():
@@ -783,10 +783,8 @@ def test_engine_tick_ewma_alpha_and_conservative_first_pick():
     res = eng.run()
     assert res[0].nfe == 3
     assert eng.stats()["tick_ewma_s"] > 0.0
-    reg = {(i.name, i.labels): i.value
-           for i in eng.obs.registry.instruments()}
-    assert reg[("engine_bank_outcome_total",
-                (("outcome", "conservative"),))] == 1
+    assert eng.obs.registry.get("engine_bank_outcome_total",
+                                outcome="conservative").value == 1
 
 
 # ------------------------------------------------- DiffusionSampler glue

@@ -519,26 +519,13 @@ def test_continuous_and_engine_default_to_cuda(monkeypatch):
         svc.continuous(slots=2, device=None)
 
 
-@pytest.mark.parametrize("arg,where", [
-    (dict(eps_params={}), "repro/serving/gateway/"),
-    (dict(mesh=object()), "repro/serving/fleet/"),
-    (dict(probes=True), "repro/obs/probes.py"),
-    (dict(flight=object()), "repro/obs/flight.py"),
-])
-def test_not_ported_arguments_raise(arg, where):
+def test_not_ported_arguments_raise():
+    """Sharded pools (the engine's ``mesh=``) wait for a second card."""
     _, teps = _eps_pair(slot_aware=False)
-    with pytest.raises(NotImplementedError, match=where):
+    with pytest.raises(NotImplementedError,
+                       match="repro/serving/fleet/sharded.py"):
         ContinuousBatchingEngine(TSCH, teps, (16,), slots=2, device="cpu",
-                                 **arg)
-
-
-def test_not_ported_calls_raise():
-    _, teps = _eps_pair(slot_aware=False)
-    eng = ContinuousBatchingEngine(TSCH, teps, (16,), slots=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="repro/serving/gateway/"):
-        eng.install_eps_params({})
-    with pytest.raises(NotImplementedError, match="repro/obs/profiling.py"):
-        Observability(profile=True)
+                                 mesh=object())
 
 
 def test_request_refusals_carry_jax_codes():
