@@ -156,6 +156,42 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               pools' ticks, B2 0, tokens equal one mega engine's (x0 within
               1e-3); probes with use_mega=None raise on that trunk, and
               with use_mega=False serve with B2 once per tick
+  9. the gateway, resilience and the serving CLI, run after phase 8 so
+              that every earlier rate is timed as before, each path
+              counted as in phase 4: GatewayCore.build over the CIFAR10
+              U-Net with two models (the seeded weights and a seed-1
+              copy), one 8-slot pool each, probes on, supervised, driven
+              through EngineBridge by an asyncio client in this process
+              (bridge.acall(core.submit, spec, on_event), what every HTTP
+              handler calls): 24 requests of S 10 / 20, every third
+              streaming previews, the last with a 1 ms deadline submitted
+              once every slot is resident: exactly one terminal event
+              each, previews before it, 504 for the expired one, every
+              x0 bitwise a lone unsupervised 8-slot engine's, B2 == the
+              pools' ticks; hot_swap('base', the alt weights) with 8
+              requests resident: they finish bitwise on the old weights,
+              4 submitted during the walk bitwise on the new ones,
+              compiled_ticks unmoved, the version bumped; slot-steps/s of
+              the gateway (a warmed engine thread) against the gateway
+              core and the same fleet, each pumped in this thread (3
+              rounds alternated, medians), p50 / p99 request latency
+              through the bridge, the host time per event of copying and
+              encoding one x0; a chaos replay on a supervised gateway
+              (checkpoint every tick) through the bridge, one FaultPlan:
+              nan-eps, tick-latency and corrupted-weights on pool 0 and a
+              tick-error on pool 1 right after a dispatch: pool 1
+              quarantined, its queued and resident work migrated, a submit
+              for its model refused 503 while OPEN, the resumed requests'
+              x0 bitwise their uninterrupted lone runs, the NaN request a
+              typed 500 with nothing non-finite streamed, health degraded
+              then ok after the backoff probe (pumps and seconds from the
+              trip to re-admission printed), detect_weight_corruption on
+              pool 0's frames naming pool 0, the bridge alive, B2 == the
+              pools' ticks; an unsupervised core whose tick raises poisons
+              its bridge; python -m repro_torch.launch.serve --arch unet
+              --scheduler (slots 4, S 4 / 6 / 8, tau mix, order 2) on the
+              card with B2 == its ticks, and --gateway --smoke where
+              aiohttp is importable (a line says which)
 
 Every time is printed beside the card's name and power limit.  Any failure
 raises and the script exits nonzero with no result line.  On success the
@@ -403,12 +439,12 @@ def phase_kernels():
     return {k: max(v) for k, v in errs.items()}
 
 
-def _cifar10_model():
+def _cifar10_model(seed: int = 0):
     """The CIFAR10-width U-Net, port's own init from a seed, with the
     near-zero leaves re-drawn at fan-in scale so that eps is O(1)."""
     from repro_torch.configs import CIFAR10_UNET
     from repro_torch.models.unet import ZERO_INIT_LEAVES, init_params
-    gen = torch.Generator().manual_seed(0)
+    gen = torch.Generator().manual_seed(seed)
     model = init_params(CIFAR10_UNET, gen, device="cuda")
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -2514,6 +2550,595 @@ def phase_times_sched(smi, params2, errs, b4_launches, eng_unet, dlm_mega,
             for name, r in recs.items()]
 
 
+# ------------------------------------------------------------------ phase 9
+P9_SLOTS = 8
+P9_N = 24                      # requests of the gateway run (one expires)
+P9_SWAP_N = (8, 4)             # hot swap: in flight, submitted during it
+P9_RATE_N = 32                 # requests per rate round: 2 waves per pool
+P9_RATE_ROUNDS = 3             # gateway / core / direct rounds, alternated
+P9_CHAOS_N = 32                # requests of the chaos replay
+P9_BACKOFF = 4                 # the chaos breaker's backoff, pumps
+P9_EVENT_REPS = 200            # repetitions of the per-event copy timing
+
+
+def _p9_weights(model):
+    """The two models of the gateway (the seeded CIFAR10 U-Net and a
+    differently seeded one, as state dicts on the card) and the shared
+    trunk ``eps_apply(params, x, t)``."""
+    from torch.func import functional_call
+    base = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    alt = {k: v.detach().clone()
+           for k, v in _cifar10_model(seed=1).state_dict().items()}
+
+    def eps_apply(params, x, t):
+        return functional_call(model, params, (x, t))
+    return base, alt, eps_apply
+
+
+def _p9_specs(n, seed0, S=(10, 20), preview_every=0, model=None):
+    """``n`` wire specs alternating models base / alt (or all ``model``)
+    and S; every third streams previews when ``preview_every``."""
+    return [{"model": model or ("base", "alt")[i % 2],
+             "S": S[i // 2 % len(S)], "seed": seed0 + i,
+             **({"preview_every": preview_every}
+                if preview_every and i % 3 == 0 else {})}
+            for i in range(n)]
+
+
+def _lone_x0(eng, specs):
+    """x0 by seed of the specs served by a lone engine (no fleet, no
+    supervisor), 8 slots like the pools: the same tick shape."""
+    from repro_torch.serving import SampleRequest
+    res = eng.serve([SampleRequest(request_id=i, S=s["S"], seed=s["seed"])
+                     for i, s in enumerate(specs)])
+    return {specs[r.request_id]["seed"]: r.x0 for r in res}
+
+
+class _Client:
+    """An asyncio client in this process: every call goes through
+    ``bridge.acall(core.submit, spec, on_event)``, as each HTTP handler
+    does, and the events come back through ``call_soon_threadsafe``."""
+
+    def __init__(self, bridge):
+        self.bridge, self.core = bridge, bridge.core
+
+    async def submit(self, spec):
+        import asyncio
+        q, loop = asyncio.Queue(), asyncio.get_running_loop()
+        t0 = time.perf_counter()
+        rid = await self.bridge.acall(
+            self.core.submit, dict(spec),
+            lambda ev: loop.call_soon_threadsafe(q.put_nowait, ev))
+        return rid, q, t0, spec
+
+    @staticmethod
+    async def collect(rid, q, t0, spec):
+        events = []
+        while not events or events[-1]["event"] not in ("result", "error"):
+            events.append(await q.get())
+        return {"rid": rid, "spec": spec, "events": events, "q": q,
+                "latency_s": time.perf_counter() - t0}
+
+    async def run(self, specs):
+        import asyncio
+        subs = await asyncio.gather(*(self.submit(s) for s in specs))
+        return await asyncio.gather(*(self.collect(*s) for s in subs))
+
+    async def idle(self):
+        import asyncio
+        while await self.bridge.acall(lambda: self.core.busy):
+            await asyncio.sleep(0.01)
+
+
+def _check_streams(runs, what):
+    """Exactly one terminal event per request, previews before it in step
+    order, as many as the result counts."""
+    for r in runs:
+        kinds = [e["event"] for e in r["events"]]
+        steps = [e["step"] for e in r["events"] if e["event"] == "preview"]
+        check(r["q"].empty() and kinds[-1] in ("result", "error")
+              and set(kinds[:-1]) <= {"preview"} and steps == sorted(steps),
+              f"{what}: request {r['rid']} events {kinds}")
+        if kinds[-1] == "result":
+            check(r["events"][-1]["previews"] == len(steps),
+                  f"{what}: request {r['rid']} counted "
+                  f"{r['events'][-1]['previews']} previews, sent "
+                  f"{len(steps)}")
+
+
+def phase_gateway(smi, model):
+    """Phase 9, items 1-2: the gateway at CIFAR10 width (2 models, one
+    8-slot pool each, probes, supervised) driven through the bridge by an
+    asyncio client, the rolling hot swap under load, the gateway's rate
+    against the same fleet pumped directly, and the per-event copy cost.
+    Returns (B2 launches of the counted paths, base, alt, eps_apply,
+    the lone engines)."""
+    import asyncio
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.obs.schema import GATEWAY_STATS_KEYS
+    from repro_torch.serving import (ContinuousBatchingEngine, SampleRequest)
+    from repro_torch.serving.gateway import (EngineBridge, GatewayCore,
+                                             OverloadPolicy)
+    from repro_torch.serving.gateway.core import wire_event
+    sch = make_schedule("linear", 1000)
+    base, alt, eps_apply = _p9_weights(model)
+    # margin 0: no feasibility shedding, so that the short-deadline request
+    # expires in the queue (504) as in the JAX package's gateway test
+    core = GatewayCore.build(sch, eps_apply, CARD_SHAPE,
+                             models={"base": base, "alt": alt},
+                             slots=P9_SLOTS, probes=True,
+                             policy=OverloadPolicy(margin=0.0))
+    lone = {name: ContinuousBatchingEngine(
+        sch, eps_apply, CARD_SHAPE, P9_SLOTS, eps_params=w, preview=True,
+        probes=True) for name, w in (("base", base), ("alt", alt))}
+    ticks0 = {p.pool_id: p.stats()["compiled_ticks"]
+              for p in core.fleet.pools}
+
+    # --- 1. the gateway run, counted
+    specs = _p9_specs(P9_N - 1, 9000, preview_every=5)
+
+    async def main_run(bridge):
+        client = _Client(bridge)
+        subs = await asyncio.gather(*(client.submit(s) for s in specs))
+        # the last request is submitted once every slot is resident: its
+        # deadline passes in the queue (EDF puts it first) before a slot
+        # frees, so it expires there
+        while await bridge.acall(lambda: core.fleet.active) < 2 * P9_SLOTS:
+            await asyncio.sleep(0.002)
+        subs.append(await client.submit({"model": "alt", "S": 10,
+                                         "seed": 9999, "deadline_s": 1e-3}))
+        runs = await asyncio.gather(*(client.collect(*s) for s in subs))
+        await client.idle()
+        return runs
+
+    _zero_counts()
+    bridge = EngineBridge(core).start()
+    t0 = time.perf_counter()
+    runs = asyncio.run(main_run(bridge))
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = _counts()
+    st = core.stats()
+    check(bridge.error is None, f"gateway bridge failed: {bridge.error!r}")
+    _check_streams(runs, "gateway")
+    term = {r["rid"]: r["events"][-1] for r in runs}
+    expired = runs[-1]["events"][-1]
+    check(expired["event"] == "error" and expired["code"] == "expired"
+          and expired["status"] == 504,
+          f"the short-deadline request ended {expired}")
+    ok = [r for r in runs[:-1] if r["events"][-1]["event"] == "result"]
+    check(len(ok) == P9_N - 1, f"{len(ok)} of {P9_N - 1} requests got a "
+          f"result: {[r['events'][-1] for r in runs[:-1]]}")
+    n_prev = sum(e["event"] == "preview" for r in runs for e in r["events"])
+    want = {}
+    for name in ("base", "alt"):
+        mine = [r["spec"] for r in ok if r["spec"]["model"] == name]
+        want.update(_lone_x0(lone[name], mine))
+    same = [torch.equal(r["events"][-1]["x0"], want[r["spec"]["seed"]])
+            for r in ok]
+    print(f"[gateway] {smi} | GatewayCore CIFAR10_UNET 2 models x 1 pool x "
+          f"{P9_SLOTS} slots (probes, supervised), {len(runs)} requests "
+          f"through EngineBridge from an asyncio client (S 10 / 20, "
+          f"{n_prev} previews streamed, one 1 ms deadline) in {wall:.2f} s: "
+          f"terminal events {len(term)} ({len(ok)} results, expired "
+          f"{expired['status']} {expired['code']}); x0 bitwise a lone "
+          f"unsupervised engine's for {sum(same)} of {len(same)}; pool "
+          f"ticks {[p['ticks'] for p in st['fleet']['pools']]}, launches "
+          f"{counts}")
+    check(all(same), "gateway x0 differs from a lone engine's")
+    check(n_prev > 0 and st["previews_streamed"] == n_prev,
+          f"previews streamed {n_prev}, counted {st['previews_streamed']}")
+    check(set(st) == GATEWAY_STATS_KEYS and st["expired"] == 1
+          and st["results_streamed"] == P9_N - 1,
+          f"gateway stats {dict((k, st[k]) for k in ('expired', 'results_streamed'))}")
+    check(counts == {"B1": 0, "B2": st["fleet"]["ticks"], "B3": 0, "B4": 0},
+          f"gateway launched {counts}, want B2 == pool ticks "
+          f"{st['fleet']['ticks']}")
+    n_b2 = counts["B2"]
+
+    # --- 2. the rolling hot swap under load, counted
+    pool = next(p for p in core.fleet.pools if p.model == "base")
+    v0 = core.registry.version("base")
+    inflight = _p9_specs(P9_SWAP_N[0], 9100, S=(20,), model="base")
+    during = _p9_specs(P9_SWAP_N[1], 9200, S=(10,), model="base")
+
+    async def swap_run(bridge):
+        client = _Client(bridge)
+        subs = await asyncio.gather(*(client.submit(s) for s in inflight))
+        while await bridge.acall(lambda: pool.engine.active) < P9_SLOTS:
+            await asyncio.sleep(0.002)
+        n_pools = await bridge.acall(core.hot_swap, "base", alt)
+        subs += await asyncio.gather(*(client.submit(s) for s in during))
+        runs = await asyncio.gather(*(client.collect(*s) for s in subs))
+        await client.idle()
+        return n_pools, runs
+
+    _zero_counts()
+    n_pools, swap_runs = asyncio.run(swap_run(bridge))
+    torch.cuda.synchronize()
+    counts = _counts()
+    st2 = core.stats()
+    _check_streams(swap_runs, "hot swap")
+    old = _lone_x0(lone["base"], inflight)
+    new = _lone_x0(lone["alt"], during)
+    same_old = [torch.equal(r["events"][-1]["x0"], old[r["spec"]["seed"]])
+                for r in swap_runs[:len(inflight)]]
+    same_new = [torch.equal(r["events"][-1]["x0"], new[r["spec"]["seed"]])
+                for r in swap_runs[len(inflight):]]
+    ticks1 = {p.pool_id: p.stats()["compiled_ticks"]
+              for p in core.fleet.pools}
+    print(f"[swap] {smi} | hot_swap('base', alt weights) over {n_pools} "
+          f"pool with {len(inflight)} requests resident: in-flight x0 "
+          f"bitwise the old weights' (lone engine) {sum(same_old)} of "
+          f"{len(same_old)}, {len(during)} submitted during the walk "
+          f"bitwise the new weights' {sum(same_new)} of {len(same_new)}; "
+          f"version {v0} -> {core.registry.version('base')}, swaps "
+          f"{st2['swaps']}, compiled_ticks {ticks0} -> {ticks1}, "
+          f"launches {counts}")
+    check(all(same_old) and all(same_new) and n_pools == 1,
+          "hot swap: x0 differs from the old / new weights' lone runs")
+    check(core.registry.version("base") == v0 + 1 and st2["swaps"] == 1
+          and core.swapping is None, "hot swap did not promote the version")
+    check(ticks1 == ticks0, f"hot swap built a tick: {ticks0} -> {ticks1}")
+    check(counts == {"B1": 0, "B2": st2["fleet"]["ticks"] - st["fleet"][
+        "ticks"], "B3": 0, "B4": 0},
+        f"hot swap launched {counts}, want B2 == pool ticks")
+    n_b2 += counts["B2"]
+    bridge.stop()
+
+    # --- 3. slot-steps/s: the gateway (bridge thread, supervisor, events)
+    # against the same 2-pool fleet pumped directly in this thread, and
+    # between them the gateway core pumped in this thread (its tier's cost
+    # without the bridge), alternated; S=20, every slot busy, 2 waves per
+    # pool
+    def gateway_round(i):
+        # a fresh engine thread first serves 2 short requests untimed: a
+        # thread's first kernels pay for its own cuDNN / cuBLAS handles,
+        # which a long-lived gateway thread pays once
+        b = EngineBridge(core).start()
+        t0 = time.perf_counter()
+        asyncio.run(_Client(b).run(_p9_specs(2, 10090 + 100 * i, S=(2,))))
+        warm = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rs = asyncio.run(_Client(b).run(_p9_specs(
+            P9_RATE_N, 10000 + 100 * i, S=(20,))))
+        dt = time.perf_counter() - t0
+        b.stop()
+        check(b.error is None and all(r["events"][-1]["event"] == "result"
+                                      for r in rs), "gateway rate round")
+        return P9_RATE_N * 20 / dt, [r["latency_s"] for r in rs], warm
+
+    def core_round(i):               # the gateway tier, no bridge thread
+        specs, done = _p9_specs(P9_RATE_N, 30000 + 100 * i, S=(20,)), []
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for spec in specs:
+                core.submit(spec, done.append)
+            core.run_until_idle()
+        dt = time.perf_counter() - t0
+        check(len(done) == P9_RATE_N and all(e["event"] == "result"
+                                             for e in done), "core round")
+        return P9_RATE_N * 20 / dt
+
+    def direct_round(i):
+        reqs = [SampleRequest(request_id=20000 + 100 * i + j, S=20,
+                              seed=20000 + 100 * i + j,
+                              model=("base", "alt")[j % 2])
+                for j in range(P9_RATE_N)]
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = core.fleet.serve(reqs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(len(out) == P9_RATE_N and not any(r.dropped for r in out),
+              "direct fleet round")
+        return P9_RATE_N * 20 / dt
+
+    rates = {"gateway": [], "core": [], "direct": []}
+    lat, warms = [], []
+    for i in range(P9_RATE_ROUNDS):
+        r, ls, warm = gateway_round(i)
+        rates["gateway"].append(r)
+        lat += ls
+        warms.append(warm)
+        rates["core"].append(core_round(i))
+        rates["direct"].append(direct_round(i))
+    med = {k: statistics.median(v) for k, v in rates.items()}
+    lat.sort()
+    p50 = lat[len(lat) // 2]
+    p99 = lat[min(len(lat) - 1, math.ceil(0.99 * len(lat)) - 1)]
+    print(f"[gateway] {smi} | steady slot-steps/s (S=20, 2 x {P9_SLOTS} "
+          f"slots busy, {P9_RATE_N} requests a round), {P9_RATE_ROUNDS} "
+          f"rounds alternated: gateway through the bridge median "
+          f"{med['gateway']:.1f} ({', '.join(f'{r:.1f}' for r in rates['gateway'])}), "
+          f"the gateway core pumped in this thread median {med['core']:.1f} "
+          f"({', '.join(f'{r:.1f}' for r in rates['core'])}), "
+          f"the same fleet pumped in this thread median {med['direct']:.1f} "
+          f"({', '.join(f'{r:.1f}' for r in rates['direct'])}), ratio of "
+          f"medians {med['gateway'] / med['direct']:.3f}; request latency "
+          f"through the bridge over {len(lat)} requests p50 "
+          f"{p50 * 1e3:.1f} ms p99 {p99 * 1e3:.1f} ms; each new engine "
+          f"thread's first 2 requests (S=2, untimed above) "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in warms)} ms")
+
+    # --- 4. host cost per event of the transport's copy and encoding of
+    # one CIFAR10 x0 (3,072 floats on the card)
+    x0 = ok[0]["events"][-1]["x0"]
+    ev = dict(ok[0]["events"][-1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(P9_EVENT_REPS):
+        x0.detach().float().cpu()
+    copy_us = (time.perf_counter() - t0) / P9_EVENT_REPS * 1e6
+    t0 = time.perf_counter()
+    for _ in range(P9_EVENT_REPS):
+        body = json.dumps(wire_event(ev))
+    enc_us = (time.perf_counter() - t0) / P9_EVENT_REPS * 1e6
+    print(f"[event] {smi} | one result event, x0 {tuple(x0.shape)} "
+          f"({x0.numel()} floats) on the card: copy to the host "
+          f"{copy_us:.1f} us, copy + wire_event + json.dumps {enc_us:.1f} us "
+          f"({len(body)} bytes), mean of {P9_EVENT_REPS}")
+    return n_b2, base, alt, eps_apply, lone
+
+
+def phase_chaos(smi, base, alt, eps_apply, lone):
+    """Phase 9, item 3: a deterministic chaos replay on a supervised
+    gateway (base / alt, one 8-slot pool each, probes, a checkpoint every
+    tick) through the bridge, and an unsupervised core that poisons its
+    bridge.  Returns the B2 launches of the replay."""
+    import tempfile
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.obs import ListSink, Observability, \
+        detect_weight_corruption
+    from repro_torch.serving import RequestError
+    from repro_torch.serving.gateway import (EngineBridge, GatewayCore,
+                                             OverloadPolicy)
+    from repro_torch.serving.resilience import (BreakerPolicy, BreakerState,
+                                                Fault, FaultInjector,
+                                                FaultPlan, InjectedFault)
+    sch = make_schedule("linear", 1000)
+    tmp = tempfile.mkdtemp(prefix="repro_p9_chaos_")
+    # per-pool busy tick indices; pools follow the sorted model names, so
+    # pool 0 serves alt and pool 1 base.  Pool 1 faults at tick 10, right
+    # after its S=10 residents retired and their successors were
+    # dispatched to it: its local queue and its S=20 residents migrate.
+    # The weights are corrupted x4, not JAX's default x8: at x8 this
+    # U-Net's activations grow with every scaled layer until GroupNorm's
+    # float32 statistics overflow and eps collapses to zero, which
+    # detect_weight_corruption (a jump up by `factor`) cannot see.
+    plan = FaultPlan([
+        Fault(kind="nan-eps", pool=0, tick=3),
+        Fault(kind="tick-latency", pool=0, tick=4, delay_s=0.05),
+        Fault(kind="corrupted-weights", pool=0, tick=6, scale=4.0),
+        Fault(kind="tick-error", pool=1, tick=10)])
+    inj = FaultInjector(plan)
+    o = Observability()
+    sink = o.add_sink(ListSink())
+    core = GatewayCore.build(
+        sch, eps_apply, CARD_SHAPE, models={"base": base, "alt": alt},
+        slots=P9_SLOTS, probes=True, flight_dir=tmp, flight_capacity=256,
+        checkpoint_every=1, injector=inj, obs=o,
+        breaker=BreakerPolicy(backoff_pumps=P9_BACKOFF, probe_ticks=2),
+        policy=OverloadPolicy(margin=0.0))
+    sup = core.supervisor
+    faulted = core.fleet.pools[1].model
+    specs = _p9_specs(P9_CHAOS_N, 7000)
+    events, spec_of, done = {}, {}, []
+
+    def handler(box):                 # called on the engine thread
+        def on_event(ev):
+            events[box[0]].append(ev)
+            if ev["event"] in ("result", "error"):
+                done.append(box[0])
+        return on_event
+    for spec in specs:                # a fixed arrival: all before pumping
+        box = []
+        box.append(core.submit(dict(spec), handler(box)))
+        events[box[0]], spec_of[box[0]] = [], spec
+    log, seen = [], {}
+    orig = core.pump
+
+    def pump(now=None):               # runs on the engine thread
+        n = orig(now)
+        st = sup.breaker(1).state
+        h = core.health()
+        log.append((sup.stats()["pumps"], time.perf_counter(), st,
+                    h["status"]))
+        if h["status"] == "degraded" and "health" not in seen:
+            seen["health"] = h
+        if st is BreakerState.OPEN and "refusal" not in seen:
+            try:
+                core.submit({"model": faulted, "S": 10, "seed": 1},
+                            lambda ev: None)
+                seen["refusal"] = None
+            except RequestError as e:
+                seen["refusal"] = (e.code.value, e.status, e.retry_after_s)
+        return n
+
+    core.pump = pump
+    _zero_counts()
+    bridge = EngineBridge(core).start()
+    t_end = time.perf_counter() + 300.0
+    while len(done) < len(specs) and bridge.error is None \
+            and time.perf_counter() < t_end:
+        time.sleep(0.01)
+    while bridge.call(lambda: core.busy).result(30):
+        time.sleep(0.01)
+    torch.cuda.synchronize()
+    counts = _counts()
+    alive = bridge.error is None and bridge.call(lambda: 7).result(30) == 7
+    bridge.stop()
+    st = core.stats()
+    sst = st["resilience"]
+    check(len(done) == len(specs) and sorted(done) == sorted(events),
+          f"chaos: {len(done)} of {len(specs)} requests ended, "
+          f"{len(set(done))} distinct")
+    check(all(sum(e["event"] in ("result", "error") for e in evs) == 1
+              for evs in events.values()), "chaos: a request got two "
+          "terminal events")
+    # quarantine, migration, resume
+    trips = [i for i, (_, _, s, _) in enumerate(log)
+             if s is BreakerState.OPEN]
+    check(sst["quarantines"] == 1 and inj.fired("tick-error") == 1
+          and bool(trips), f"chaos: quarantines {sst['quarantines']}, "
+          f"tick errors fired {inj.fired('tick-error')}")
+    i_trip = trips[0]
+    i_half = next((i for i in range(i_trip, len(log))
+                   if log[i][2] is BreakerState.HALF_OPEN), None)
+    i_closed = next((i for i in range(i_half or i_trip, len(log))
+                     if log[i][2] is BreakerState.CLOSED), None)
+    check(i_half is not None and i_closed is not None,
+          f"chaos: pool 1 was not re-admitted and closed: "
+          f"{[(n, s.value) for n, _, s, _ in log]}")
+    rec = {"trip_pump": log[i_trip][0],
+           "readmit_pumps": log[i_half][0] - log[i_trip][0],
+           "close_pumps": log[i_closed][0] - log[i_trip][0],
+           "readmit_s": log[i_half][1] - log[i_trip][1],
+           "close_s": log[i_closed][1] - log[i_trip][1]}
+    resumed = sorted({e["req"] for e in sink.events
+                      if e["ev"] == "requeue" and e.get("resumed")})
+    want = _lone_x0(lone[faulted], [spec_of[r] for r in resumed])
+    same = [torch.equal(events[r][-1]["x0"], want[spec_of[r]["seed"]])
+            for r in resumed if events[r][-1]["event"] == "result"]
+    h = seen.get("health", {})
+    q = h.get("quarantined") or [{}]
+    print(f"[chaos] {smi} | FaultPlan {[(f.kind, f.pool, f.tick) for f in plan]} "
+          f"on a supervised gateway (alt / base x 1 pool x {P9_SLOTS} slots, "
+          f"probes, checkpoint every tick, backoff {P9_BACKOFF} pumps), "
+          f"{len(specs)} requests through the bridge: faults fired "
+          f"{[f.kind for f in inj.log]}; pool 1 quarantined at pump "
+          f"{rec['trip_pump']} ({q[0].get('last_error')}), requeued "
+          f"{sst['requeued']}, migrated {sst['migrated']}, restarted "
+          f"{sst['restarted']}; submit while OPEN -> {seen.get('refusal')}; "
+          f"re-admitted (HALF_OPEN) {rec['readmit_pumps']} pumps / "
+          f"{rec['readmit_s'] * 1e3:.1f} ms after the trip, CLOSED "
+          f"{rec['close_pumps']} pumps / {rec['close_s'] * 1e3:.1f} ms after; "
+          f"health {h.get('status')} -> {core.health()['status']}; resumed "
+          f"requests {resumed}: x0 bitwise their uninterrupted lone run "
+          f"{sum(same)} of {len(same)}; launches {counts}, pool ticks "
+          f"{[p['ticks'] for p in st['fleet']['pools']]}")
+    check(sst["migrated"] >= 1 and resumed and len(same) == len(resumed)
+          and all(same), "chaos: resumed x0 differs from the "
+          "uninterrupted run")
+    check(h.get("status") == "degraded" and q[0].get("pool") == 1
+          and "InjectedFault" in str(q[0].get("last_error"))
+          and core.health()["status"] == "ok"
+          and log[-1][2] is BreakerState.CLOSED,
+          f"chaos: health {h} then {core.health()}")
+    check(seen.get("refusal") is not None
+          and seen["refusal"][:2] == ("model-unavailable", 503)
+          and seen["refusal"][2] >= 1,
+          f"chaos: submit while OPEN -> {seen.get('refusal')}")
+    # the NaN request: a typed 5xx, no garbage streamed anywhere
+    [poison] = inj.poisoned
+    pev = events[poison["request_id"]]
+    finite = all(bool(torch.isfinite(e["x0"]).all())
+                 for evs in events.values() for e in evs if "x0" in e)
+    print(f"[chaos] {smi} | nan-eps poisoned {poison}: events "
+          f"{[(e['event'], e.get('code'), e.get('status')) for e in pev]}, "
+          f"every streamed x0 finite {finite}, nonfinite {st['nonfinite']}")
+    check(len(pev) == 1 and pev[0]["event"] == "error"
+          and pev[0]["code"] == "nonfinite-sample" and pev[0]["status"] == 500
+          and "x0" not in pev[0] and finite and st["nonfinite"] == 1,
+          f"chaos: the poisoned request ended {pev}")
+    # the corrupted weights: every sample finite, the ring names the pool
+    hits = {pid: detect_weight_corruption(core.flight_snapshot(pid)["frames"])
+            for pid in (0, 1)}
+
+    print(f"[chaos] {smi} | corrupted-weights {inj.corrupted}: "
+          f"detect_weight_corruption on pool 0's frames {hits[0]}, on "
+          f"pool 1's {hits[1]}; compiled_ticks "
+          f"{[p['compiled_ticks'] for p in st['fleet']['pools']]}; bridge "
+          f"alive {alive}; tick-latency injected "
+          f"{sup.take_injected_delay():.3f} s")
+    check(inj.corrupted and hits[0] is not None and hits[0]["pool"] == 0,
+          f"chaos: corruption not attributed to pool 0: {hits}")
+    check(all(p["compiled_ticks"] == 1 for p in st["fleet"]["pools"]),
+          "chaos: an install built a tick")
+    check(alive and inj.fired() == 4, f"chaos: bridge alive {alive}, "
+          f"faults fired {inj.fired()}")
+    check(counts == {"B1": 0, "B2": st["fleet"]["ticks"], "B3": 0, "B4": 0},
+          f"chaos launched {counts}, want B2 == pool ticks "
+          f"{st['fleet']['ticks']}")
+
+    # the same tick fault without a supervisor poisons the bridge
+    bad = GatewayCore.build(sch, eps_apply, CARD_SHAPE, models={"base": base},
+                            slots=P9_SLOTS, supervise=False, warm=False)
+    eng = bad.fleet.pools[0].engine
+    tick, calls = eng.tick, []
+
+    def failing_tick(now=None):
+        calls.append(now)
+        if len(calls) == 2:
+            raise InjectedFault(Fault(kind="tick-error", pool=0, tick=1))
+        return tick(now)
+
+    eng.tick = failing_tick
+    b2 = EngineBridge(bad).start()
+    b2.call(bad.submit, {"model": "base", "S": 10, "seed": 1},
+            lambda ev: None).result(30)
+    t_end = time.perf_counter() + 60.0
+    while b2.error is None and time.perf_counter() < t_end:
+        time.sleep(0.01)
+    try:
+        b2.call(bad.stats)
+        refused = False
+    except RuntimeError as e:
+        refused = "engine thread failed" in str(e)
+    b2.stop()
+    print(f"[chaos] {smi} | unsupervised core, the same tick fault: bridge "
+          f"error {b2.error!r}, later calls refused {refused}")
+    check(isinstance(b2.error, InjectedFault) and refused,
+          "the unsupervised core did not poison its bridge")
+    return counts["B2"]
+
+
+def phase_serve_cli(smi):
+    """Phase 9, item 4: the port's serving CLI on the card, counted."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve
+    argv = ["--arch", "unet", "--scheduler", "--slots", "4", "--s-mix",
+            "4,6,8", "--tau", "mix", "--order", "2", "--n-samples", "6"]
+    buf = io.StringIO()
+    _zero_counts()
+    with contextlib.redirect_stdout(buf):
+        serve.main(argv)
+    torch.cuda.synchronize()
+    counts = _counts()
+    out = buf.getvalue().splitlines()
+    reqs = [line for line in out if re.match(r"req\d+: SamplerPlan\(", line)]
+    m = next((re.match(r"^\s+-\s+active\s+0/4\s+0\s+(\d+)\s", line)
+              for line in out if re.match(r"^\s+-\s+active", line)), None)
+    ticks = int(m.group(1)) if m else -1
+    print(f"[cli] {smi} | python -m repro_torch.launch.serve "
+          f"{' '.join(argv)} (device cuda): launches {counts}, engine ticks "
+          f"{ticks}")
+    for line in out:
+        print(f"[cli]   {line}")
+    check(len(reqs) == 6 and counts == {"B1": 0, "B2": ticks, "B3": 0,
+                                        "B4": 0},
+          f"CLI: {len(reqs)} request lines, launches {counts}, ticks {ticks}")
+    try:
+        import aiohttp  # noqa: F401
+        have = True
+    except ImportError:
+        have = False
+    if have:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve.main(["--arch", "unet", "--gateway", "--smoke"])
+        line = buf.getvalue().strip().splitlines()[-1]
+        print(f"[cli] {smi} | aiohttp importable: --gateway --smoke on the "
+              f"card: {line}")
+        check(line.endswith("(OK)"), f"--gateway --smoke: {line}")
+    else:
+        print("[cli] aiohttp is not importable here: --gateway --smoke not "
+              "run (the HTTP transport is not a device path; the CPU tests "
+              "hold it)")
+    return counts["B2"]
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2583,9 +3208,16 @@ def main(argv=None) -> int:
     # fleet's pool ticks.
     b2_p8 = phase_telemetry(smi, model) + phase_fleet(smi, model)
     b2_mega, b4_p8 = phase_mega_fleet(params2)
+    # Phase 9 runs last, so that every rate above is timed from the state
+    # it was timed in before.  B2 runs on every pool tick of the gateway,
+    # its hot swap and the chaos replay, and on the CLI's scheduler.
+    b2_gw, base, alt, eps_apply, lone = phase_gateway(smi, model)
+    b2_chaos = phase_chaos(smi, base, alt, eps_apply, lone)
+    b2_cli = phase_serve_cli(smi)
     recs = {r["name"]: r for r in kernels}
     recs["sampler_step_2d"]["launches"] += b1_auto
-    recs["sampler_step_rows_2d"]["launches"] += b2_auto + b2_p8 + b2_mega
+    recs["sampler_step_rows_2d"]["launches"] += (b2_auto + b2_p8 + b2_mega
+                                                 + b2_gw + b2_chaos + b2_cli)
     recs["megastep_rows_call"]["launches"] += b4_p8
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -14,8 +14,11 @@ decode / interpolation), the lockstep ``DiffusionSampler`` and the
 continuous-batching scheduler, the sample-quality metrics and ELBO table
 (``eval``), the trajectory autotuner with its plan bank (``autoplan``),
 serving telemetry (``obs``: metrics, spans, device probes, flight
-recorder, profiler ranges) with the engine's weight hot-swap, and the
-slot-pool fleet (``serving.fleet``).
+recorder, profiler ranges) with the engine's weight hot-swap, the
+slot-pool fleet (``serving.fleet``), the HTTP/SSE gateway and the
+resilience layer (``serving.gateway``, ``serving.resilience``), checkpoint
+files (``training.checkpoint``) and the U-Net serving CLI
+(``launch.serve``).
 """
 from .device import resolve_device
 

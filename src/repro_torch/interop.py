@@ -17,7 +17,10 @@ U-Net mapping (``repro/models/unet.py`` -> ``repro_torch.models.unet``):
   * ``*_s`` / ``*_b`` GroupNorm leaves -> ``gn*.weight`` / ``gn*.bias``;
     ``time_b*`` -> the matching Linear's ``bias``.
 Any leaf it cannot map, any shape that disagrees with the port's module,
-and any port parameter left unfilled raises.
+and any port parameter left unfilled raises.  ``unet_params_to_jax`` is the
+inverse (a port state dict -> the JAX pytree's nesting, names and layouts,
+numpy leaves), so a checkpoint the port writes restores in the JAX package
+(``training/checkpoint.py``).
 """
 from __future__ import annotations
 
@@ -99,6 +102,46 @@ def unet_params_from_jax(tree, cfg: UNetConfig) -> Dict[str, torch.Tensor]:
     if missing:
         raise KeyError(f"port parameters with no JAX leaf: {missing}")
     return out
+
+
+_UNET_INVERSE = {suffix: (name, kind)
+                 for name, (suffix, kind) in _UNET_LEAVES.items()}
+
+
+def _listify(node):
+    """Nested dicts whose keys are all decimal become lists (the JAX
+    U-Net's ``downs`` / ``ups`` / ``blocks``)."""
+    if not isinstance(node, dict):
+        return node
+    if node and all(k.isdigit() for k in node):
+        return [_listify(node[str(i)]) for i in range(len(node))]
+    return {k: _listify(v) for k, v in node.items()}
+
+
+def unet_params_to_jax(state_dict, cfg: UNetConfig) -> Dict:
+    """The port's U-Net state dict -> the JAX U-Net pytree (numpy float32
+    leaves in JAX layouts: HWIO convs, (in, out) dense matrices)."""
+    expected = UNet(cfg, device="meta").state_dict()
+    if sorted(state_dict) != sorted(expected):
+        raise KeyError("state dict keys differ from the port's UNet: "
+                       f"{sorted(set(state_dict) ^ set(expected))[:5]}")
+    tree: Dict = {}
+    for key, t in state_dict.items():
+        if tuple(t.shape) != tuple(expected[key].shape):
+            raise ValueError(f"{key}: shape {tuple(t.shape)} != the port's "
+                             f"{tuple(expected[key].shape)}")
+        parts = key.split(".")
+        name, kind = _UNET_INVERSE[".".join(parts[-2:])]
+        a = t.detach().float().cpu().numpy()
+        if kind == _CONV:
+            a = a.transpose(2, 3, 1, 0)
+        elif kind == _DENSE:
+            a = a.T
+        node = tree
+        for p in parts[:-2]:
+            node = node.setdefault(p, {})
+        node[name] = np.ascontiguousarray(a)
+    return _listify(tree)
 
 
 def dlm_params_from_jax(tree, cfg: DiffusionLMConfig) -> Dict:
