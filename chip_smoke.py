@@ -192,6 +192,30 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               --scheduler (slots 4, S 4 / 6 / 8, tau mix, order 2) on the
               card with B2 == its ticks, and --gateway --smoke where
               aiohttp is importable (a line says which)
+ 10. autoregressive serving, run last so that every earlier rate is
+              timed as before: serving.ARGenerator (the card by default) on
+              smollm-135m (30 layers, prompt 64) and llama3.2-3b (full
+              width, prompt 128), float32 weights drawn on the card, batch
+              4 (rows greedy, greedy, T 0.8 top-k 50, T 1.0), 32 new
+              tokens, the seven kernels' counters zeroed before each run
+              and 0 after it (the path launches none of them): prefill ms,
+              decode ms per step, tokens/s; the cache's k / v pointers and
+              torch.cuda.memory_allocated the same before every decode
+              step; the cache path's logits at every step against the
+              cache-free forward over prompt + generated tokens within
+              1e-4 of max|logits|, greedy rows equal to forward's argmax
+              except near ties (counted); perf_flags(decode_inplace=True)
+              against the default decode (bitwise, or within 1e-6 of
+              max|logits|, printed); threefry split / random_bits of every
+              step's keys on the card bitwise the CPU's, gumbel within
+              ulps, and a CPU replay of _sample_tokens on the copied logits
+              equal to the card's tokens except Gumbel near ties; one
+              steady decode step (the model, then the generate loop's whole
+              step) under torch.profiler: wall, device kernel ms, idle
+              share, device ops launched, beside the step's bytes bound
+              (weights + KV over the HBM rate); the peak allocated memory;
+              then python -m repro_torch.launch.serve --arch smollm-135m
+              --batch 4 --new-tokens 16 --device cuda at full width
 
 Every time is printed beside the card's name and power limit.  Any failure
 raises and the script exits nonzero with no result line.  On success the
@@ -3139,6 +3163,321 @@ def phase_serve_cli(smi):
     return counts["B2"]
 
 
+# ------------------------------------------------- phase 10: AR serving
+LM_ROWS = ((0.0, 0), (0.0, 0), (0.8, 50), (1.0, 0))   # (temperature, top_k)
+LM_NEW = 32
+LM_FORWARD_TOL = 1e-4      # of max|logits|: the cache path against forward
+LM_VARIANT_TOL = 1e-6      # of max|logits|: decode_inplace against decode
+LM_GUMBEL_TIE = 8          # f32 ulps of max(|z|, 1): a card/CPU Gumbel tie
+
+
+def _all_counts():
+    """Launch counts of all seven kernels."""
+    from repro_torch.kernels.ddim_step import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    return dict(_counts(), B5=fk.flash_attention.launches,
+                B6=rk.rms_norm_2d.launches, B7=dk.ddim_step_2d.launches)
+
+
+def _zero_all_counts():
+    from repro_torch.kernels.ddim_step import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    _zero_counts()
+    for fn in (fk.flash_attention, rk.rms_norm_2d, dk.ddim_step_2d):
+        fn.launches = 0
+
+
+def _lm_requests(cfg, prompt_len, new, seed=0):
+    import numpy as np
+    from repro_torch.serving import GenRequest
+    rs = np.random.RandomState(seed)
+    return [GenRequest(prompt=rs.randint(0, cfg.vocab, prompt_len)
+                       .astype(np.int32), max_new_tokens=new,
+                       temperature=t, top_k=k, rng_seed=seed + i)
+            for i, (t, k) in enumerate(LM_ROWS)]
+
+
+def _lm_run(gen, reqs, record: bool):
+    """One counted generate.  Spies on the decode step (cache pointer and
+    allocated bytes before every call, no sync) and, with ``record``, on
+    the sampler (its logits, keys and tokens, cloned on the card)."""
+    import dataclasses as dc
+    ptrs, steps = [], []
+    decode = gen.api.decode_step
+
+    def spy_decode(params, cfg, tokens, cache):
+        ptrs.append((cache["k"].data_ptr(), cache["v"].data_ptr(),
+                     torch.cuda.memory_allocated()))
+        return decode(params, cfg, tokens, cache)
+
+    def spy_sample(logits, temps, top_ks, subs, max_k):
+        nxt = type(gen)._sample_tokens(logits, temps, top_ks, subs, max_k)
+        steps.append((logits.clone(), subs.clone(), nxt.clone(), temps,
+                      top_ks, max_k))
+        return nxt
+
+    api = gen.api
+    gen.api = dc.replace(api, decode_step=spy_decode)
+    if record:
+        gen._sample_tokens = spy_sample
+    _zero_all_counts()
+    try:
+        res = gen.generate(reqs)
+    finally:
+        gen.api = api
+        gen.__dict__.pop("_sample_tokens", None)
+    torch.cuda.synchronize()
+    return res, ptrs, steps, _all_counts()
+
+
+def _near_tie(row: torch.Tensor, tol: float) -> bool:
+    top2 = torch.topk(row.double(), 2).values
+    return float(top2[0] - top2[1]) <= tol
+
+
+def _lm_device_profile(fn):
+    """torch.profiler over one steady call: (wall ms unprofiled, device
+    busy ms, device ops launched)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:4]
+    return (statistics.median(walls), busy, sum(e.count for e in rows),
+            [(e.key[:70], e.self_device_time_total / 1e3, e.count)
+             for e in top])
+
+
+def phase_lm(smi, cfg, prompt_len):
+    """Phase 10: ARGenerator on one dense architecture at full width,
+    float32, batch 4 (rows greedy, greedy, T 0.8 top-k 50, T 1.0), with
+    every check on the card.  Returns the peak allocated bytes."""
+    import numpy as np
+    from repro_torch import prng
+    from repro_torch.models import dense
+    from repro_torch.models.runtime_flags import perf_flags
+    from repro_torch.serving import ARGenerator
+    dev = torch.device("cuda")
+    name = cfg.name
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = dense.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[lm] {smi} | {name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.hd()}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, tied "
+          f"{cfg.tie_embeddings}: {n_params:,} parameters "
+          f"({n_params * 4 / 1e9:.3f} GB float32) drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    B, P, N = len(LM_ROWS), prompt_len, LM_NEW
+    M = P + N
+    gen = ARGenerator(cfg, params, batch_size=B, max_len=M)
+    reqs = _lm_requests(cfg, P, N)
+    gen.generate(_lm_requests(cfg, P, 2))            # warm-up (handles)
+    # (1) the timed run: the cache's pointers and allocated bytes per step
+    res, ptrs, _, counts = _lm_run(gen, reqs, record=False)
+    r = res[0]
+    print(f"[lm] {smi} | {name}: generate batch {B}, prompt {P}, {N} new "
+          f"tokens: prefill {r.prefill_ms:.3f} ms, decode {r.decode_ms:.3f} "
+          f"ms ({r.decode_ms / N:.4f} ms per step), {r.tokens_per_s:.1f} "
+          f"tokens/s; launches of the seven kernels {counts}")
+    check(all(v == 0 for v in counts.values()),
+          f"{name}: the AR path launched a kernel of the seven: {counts}")
+    check(len(ptrs) == N and len(set(ptrs)) == 1,
+          f"{name}: the cache moved or memory grew across decode steps: "
+          f"{sorted(set(ptrs))[:4]}")
+    print(f"[lm]   cache k/v pointers and torch.cuda.memory_allocated the "
+          f"same before all {N} decode steps ({ptrs[0][2]:,} B)")
+    # (2) the checked run: logits, keys and tokens of every step
+    res2, _, steps, _ = _lm_run(gen, reqs, record=True)
+    toks = torch.tensor(np.stack([x.tokens for x in res2], 1),
+                        device=dev, dtype=torch.int64)        # (N, B)
+    same = all(np.array_equal(a.tokens, b.tokens) for a, b in zip(res, res2))
+    prompts = torch.tensor(np.stack([q.prompt for q in reqs]), device=dev)
+    full = torch.cat([prompts.long(), toks.T], dim=1)         # (B, P + N)
+    with torch.no_grad():
+        fwd = dense.forward(gen.params, cfg, full)            # (B, P+N, V)
+    scale = float(fwd.abs().max())
+    tol = LM_FORWARD_TOL * scale
+    err = max(float((lg - fwd[:, P - 1 + s]).abs().max())
+              for s, (lg, *_) in enumerate(steps))
+    check(err <= tol, f"{name}: cache logits vs forward {err:.3e} > "
+          f"{tol:.3e}")
+    # greedy rows against forward's argmax, near ties counted
+    greedy_ties = greedy_bad = 0
+    for s in range(N):
+        want = fwd[:, P - 1 + s].argmax(-1)
+        for i, (t, _) in enumerate(LM_ROWS):
+            if t > 0 or int(toks[s, i]) == int(want[i]):
+                continue
+            if _near_tie(fwd[i, P - 1 + s], tol):
+                greedy_ties += 1
+            else:
+                greedy_bad += 1
+    check(greedy_bad == 0, f"{name}: {greedy_bad} greedy tokens differ "
+          "from forward's argmax outside near ties")
+    print(f"[lm]   cache path vs forward over prompt + generated: max "
+          f"|dlogits| {err:.3e} = {err / scale:.3e} of max|logits| "
+          f"{scale:.3e} (tol {LM_FORWARD_TOL:g}); greedy rows equal "
+          f"forward's argmax at every step but {greedy_ties} near ties "
+          f"(top-2 gap <= tol); timed and checked runs' tokens equal: "
+          f"{same}")
+    # (3) decode_inplace against the default decode, step by step until
+    # the first token that differs
+    with perf_flags(decode_inplace=True):
+        res3, _, steps3, _ = _lm_run(gen, reqs, record=True)
+    d_max, n_cmp, bitwise = 0.0, 0, True
+    for (l0, _, t0_, *_), (l1, _, t1_, *_) in zip(steps, steps3):
+        d_max = max(d_max, float((l0 - l1).abs().max()))
+        bitwise = bitwise and torch.equal(l0, l1)
+        n_cmp += 1
+        if not torch.equal(t0_, t1_):
+            break
+    check(d_max <= LM_VARIANT_TOL * scale,
+          f"{name}: decode_inplace vs decode {d_max:.3e}")
+    print(f"[lm]   decode_inplace vs decode over {n_cmp} steps: "
+          f"{'bitwise equal' if bitwise else f'max |dlogits| {d_max:.3e}'}"
+          f" (tol {LM_VARIANT_TOL:g} of max|logits|)")
+    # (4) threefry on the card against the CPU, and a CPU replay of the
+    # sampler on the same logits
+    V = cfg.vocab
+    bits_eq = True
+    g_ulps = 0.0
+    ties = bad = 0
+    for logits, subs, nxt, temps, top_ks, max_k in steps:
+        sc = subs.cpu()
+        bits_eq = bits_eq and torch.equal(
+            prng.random_bits(subs, V).cpu(), prng.random_bits(sc, V))
+        bits_eq = bits_eq and torch.equal(prng.split(subs, 2).cpu(),
+                                          prng.split(sc, 2))
+        g_dev, g_cpu = prng.gumbel(subs, V).cpu(), prng.gumbel(sc, V)
+        sp = torch.finfo(torch.float32).eps * torch.clamp(g_cpu.abs(), min=1)
+        g_ulps = max(g_ulps, float(((g_dev - g_cpu).abs() / sp).max()))
+        lc = logits.cpu()
+        want = ARGenerator._sample_tokens(lc, temps.cpu(), top_ks.cpu(), sc,
+                                          max_k)
+        for i in torch.nonzero(want != nxt.cpu()).flatten().tolist():
+            sc_row = lc[i] / max(float(temps[i]), 1e-6)
+            k = int(top_ks[i])
+            if k > 0:
+                kth = torch.topk(sc_row, k).values[-1]
+                sc_row = torch.where(sc_row < kth, float("-inf"), sc_row)
+            z = g_cpu[i] + sc_row
+            zt = LM_GUMBEL_TIE * torch.finfo(torch.float32).eps * max(
+                float(z[torch.isfinite(z)].abs().max()), 1.0)
+            if _near_tie(z, zt):
+                ties += 1
+            else:
+                bad += 1
+    check(bits_eq, f"{name}: threefry bits or keys on the card differ "
+          "from the CPU's")
+    check(bad == 0, f"{name}: {bad} sampled tokens differ from the CPU "
+          "replay outside Gumbel near ties")
+    print(f"[lm]   threefry split and random_bits on the card bitwise the "
+          f"CPU's for all {N} steps' keys; gumbel card vs CPU within "
+          f"{g_ulps:.2f} f32 ulps of max(|g|, 1); CPU replay of "
+          f"_sample_tokens on the copied logits: every token equal but "
+          f"{ties} Gumbel near ties")
+    # (5) one steady step: the model's decode alone, then the generate
+    # loop's whole step (split, sample, copy to the host, decode)
+    cache = dense.init_cache(cfg, B, M, device=dev)
+    logits, _ = dense.prefill(gen.params, cfg, prompts, cache)
+    tok = logits.argmax(-1)[:, None]
+    idx0 = int(cache["idx"])
+
+    def decode_only():
+        cache["idx"].fill_(idx0)
+        dense.decode_step(gen.params, cfg, tok, cache)
+
+    temps = torch.tensor([t for t, _ in LM_ROWS], device=dev)
+    top_ks = torch.tensor([k for _, k in LM_ROWS], device=dev)
+    keys = torch.stack([prng.PRNGKey(i, dev) for i in range(B)])
+    host = torch.empty(B, dtype=torch.int64, pin_memory=True)
+
+    def gen_step():
+        split = prng.split(keys, 2)
+        nxt = ARGenerator._sample_tokens(logits, temps, top_ks, split[:, 1],
+                                         max(k for _, k in LM_ROWS))
+        host.copy_(nxt, non_blocking=True)
+        cache["idx"].fill_(idx0)
+        dense.decode_step(gen.params, cfg, nxt[:, None], cache)
+
+    w_bytes = n_params * 4
+    kv_bytes = 2 * cfg.n_layers * B * M * cfg.n_kv_heads * cfg.hd() * 4
+    bound = (w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    for label, fn in (("decode step (model)", decode_only),
+                      ("generate step (split + sample + copy + decode)",
+                       gen_step)):
+        wall, busy, n_ops, top = _lm_device_profile(fn)
+        print(f"[lm] {smi} | {name}: one steady {label}: wall {wall:.3f} ms "
+              f"(median of 5), device kernels {busy:.3f} ms, idle share "
+              f"{1 - busy / wall:.3f}, {n_ops} device ops launched; bytes "
+              f"bound {bound:.3f} ms ({w_bytes / 1e9:.3f} GB of weights + "
+              f"{kv_bytes / 1e9:.4f} GB of KV at M {M} over "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+        for key, ms, count in top:
+            print(f"[lm]     {ms:8.3f} ms {count:5d}x {key}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[lm] {smi} | {name}: peak torch.cuda.max_memory_allocated "
+          f"{peak / 1e9:.3f} GB")
+    del gen, params, cache, fwd, steps, steps3
+    torch.cuda.empty_cache()
+    return peak
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_lm_cli(smi):
+    """Phase 10 (c): the LM CLI at full smollm-135m width on the card."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve
+    argv = ["--arch", "smollm-135m", "--batch", "4", "--new-tokens", "16",
+            "--device", "cuda"]
+    buf = io.StringIO()
+    _zero_all_counts()
+    with contextlib.redirect_stdout(buf):
+        serve.main(argv)
+    torch.cuda.synchronize()
+    counts = _all_counts()
+    out = buf.getvalue().splitlines()
+    for line in out:
+        print(f"[cli]   {line}")
+    reqs = [line for line in out if re.match(r"req\d: \[", line)]
+    rate = [line for line in out if re.match(
+        r"prefill=[\d.]+ms decode=[\d.]+ms throughput=[\d.]+ tok/s", line)]
+    print(f"[cli] {smi} | python -m repro_torch.launch.serve "
+          f"{' '.join(argv)}: {len(reqs)} request lines, launches {counts}")
+    check(len(reqs) == 4 and len(rate) == 1
+          and all(v == 0 for v in counts.values()),
+          f"LM CLI: {len(reqs)} request lines, {rate}, launches {counts}")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3214,6 +3553,12 @@ def main(argv=None) -> int:
     b2_gw, base, alt, eps_apply, lone = phase_gateway(smi, model)
     b2_chaos = phase_chaos(smi, base, alt, eps_apply, lone)
     b2_cli = phase_serve_cli(smi)
+    # Phase 10 runs last, so that every rate above is timed as before.
+    # The autoregressive path launches none of the seven kernels.
+    from repro_torch.configs import LLAMA3_2_3B, SMOLLM_135M
+    phase_lm(smi, SMOLLM_135M, 64)
+    phase_lm(smi, LLAMA3_2_3B, 128)
+    phase_lm_cli(smi)
     recs = {r["name"]: r for r in kernels}
     recs["sampler_step_2d"]["launches"] += b1_auto
     recs["sampler_step_rows_2d"]["launches"] += (b2_auto + b2_p8 + b2_mega

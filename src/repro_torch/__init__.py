@@ -17,8 +17,12 @@ serving telemetry (``obs``: metrics, spans, device probes, flight
 recorder, profiler ranges) with the engine's weight hot-swap, the
 slot-pool fleet (``serving.fleet``), the HTTP/SSE gateway and the
 resilience layer (``serving.gateway``, ``serving.resilience``), checkpoint
-files (``training.checkpoint``) and the U-Net serving CLI
-(``launch.serve``).
+files (``training.checkpoint``), the U-Net serving CLI
+(``launch.serve``), and autoregressive serving of the dense family: the
+KV-cache path (``models.dense``, ``models.attention``), the family registry
+(``models.get_api``), the architecture configs (``configs.get``), threefry
+sampling keys (``prng``), ``serving.ARGenerator`` and the CLI's ``--arch``
+LM paths.
 """
 from .device import resolve_device
 

@@ -4,6 +4,13 @@ The input is a JAX ``init_params`` (or trained) pytree already converted
 to numpy arrays — nested dicts and lists of ``np.ndarray`` — so this
 module never imports jax.
 
+Dense-family mapping (``repro/models/dense.py`` ->
+``repro_torch.models.dense``), for the autoregressive server: the same
+nested dict, every leaf a float32 tensor in its JAX layout (stacked
+layer leaves, (in, out) matrices); ``dense_params_to_jax`` is the inverse
+(numpy leaves), so the ``{"params": ...}`` checkpoint the JAX
+``serve_lm --ckpt`` restores crosses both ways.
+
 Diffusion-LM mapping (``repro/diffusion_lm/model.py`` ->
 ``repro_torch.diffusion_lm``): the same nested dict, every leaf as a
 float32 tensor in its JAX layout — (in, out) matrices and stacked
@@ -30,6 +37,8 @@ import numpy as np
 import torch
 
 from repro_torch.diffusion_lm.model import DiffusionLMConfig, param_shapes
+from repro_torch.models import dense
+from repro_torch.models.common import ArchConfig
 from repro_torch.models.unet import UNet, UNetConfig
 
 _CONV = "conv"
@@ -150,6 +159,26 @@ def dlm_params_from_jax(tree, cfg: DiffusionLMConfig) -> Dict:
     return _same_tree(tree, param_shapes(cfg), ())
 
 
+def dense_params_from_jax(tree, cfg: ArchConfig) -> Dict:
+    """JAX dense-family pytree (numpy leaves) -> the port's parameter dict
+    on the CPU: same keys, same layouts, float32."""
+    return _same_tree(tree, dense.param_shapes(cfg), ())
+
+
+def dense_params_to_jax(params, cfg: ArchConfig) -> Dict:
+    """The port's dense parameter dict -> the JAX pytree (nested dicts of
+    float32 numpy arrays), every key and shape checked."""
+    tree = _same_tree(params, dense.param_shapes(cfg), ())
+    return map_leaves(tree, lambda t: t.numpy())
+
+
+def map_leaves(tree, fn):
+    """A nested dict of the same keys with ``fn`` applied to every leaf."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
 def _same_tree(tree, shapes, path: Tuple[str, ...]):
     where = "/".join(path) or "<root>"
     if isinstance(shapes, dict):
@@ -162,6 +191,8 @@ def _same_tree(tree, shapes, path: Tuple[str, ...]):
                            f"parameters with no JAX leaf {missing}")
         return {k: _same_tree(tree[k], shapes[k], path + (k,))
                 for k in shapes}
+    if isinstance(tree, torch.Tensor):
+        tree = tree.detach().float().cpu().numpy()
     arr = np.ascontiguousarray(np.asarray(tree), np.float32)
     if arr.shape != tuple(shapes):
         raise ValueError(f"{where}: JAX shape {arr.shape} != port shape "

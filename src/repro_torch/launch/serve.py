@@ -1,9 +1,14 @@
-"""Serving driver of the port (port of ``repro/launch/serve.py``, its U-Net
-paths): DDIM sampling from a U-Net checkpoint, in lockstep batches, through
-the continuous-batching scheduler, a slot-pool fleet, or the HTTP/SSE
-gateway.  The flags, defaults and printed lines are JAX's, plus
-``--device`` (default ``cuda``; the tests pass ``cpu``).
+"""Serving driver of the port (port of ``repro/launch/serve.py``): batched
+autoregressive generation over the dense architectures, or DDIM sampling
+from a U-Net checkpoint, in lockstep batches, through the
+continuous-batching scheduler, a slot-pool fleet, or the HTTP/SSE gateway.
+The flags, defaults and printed lines are JAX's, plus ``--device``
+(default ``cuda``; the tests pass ``cpu``).
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
+      --smoke --batch 4 --new-tokens 16 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
+      --batch 4 --prompt-len 128 --new-tokens 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch unet \\
       --ckpt results/unet/ckpt_00000300.npz --S 20 --eta 0.0
   PYTHONPATH=src python -m repro_torch.launch.serve --arch unet \\
@@ -34,9 +39,15 @@ numbers than the JAX init of the same seed), or ``--ckpt``, a
 ``training/checkpoint.py`` file with a JAX-layout ``{"params", "ema"}``
 U-Net tree (saved by either package), carried into the port through
 ``repro_torch.interop``.  ``--pools`` runs every pool on the one device
-(no meshes).  Every ``--arch`` but ``unet`` raises NotImplementedError:
-the autoregressive path (JAX ``repro/serving/engine.py::ARGenerator``) is
-not ported yet.
+(no meshes).
+
+``--arch <id>`` other than ``unet`` serves that architecture through
+``serving.ARGenerator`` (``--smoke``: its reduced variant).  The dense ids
+run; the moe, ssm, hybrid, audio and vlm ids raise NotImplementedError
+through the model registry.  Weights: ``dense.init_params`` from a
+``torch.Generator`` on the device seeded with ``--seed`` (the JAX init's
+distributions, not its numbers), or ``--ckpt``, a JAX-layout
+``{"params": ...}`` file, which gives the JAX package's weights.
 """
 from __future__ import annotations
 
@@ -50,11 +61,12 @@ import torch
 from repro_torch import configs, interop
 from repro_torch.core import make_schedule
 from repro_torch.device import resolve_device
-from repro_torch.models import unet
+from repro_torch.models import dense, get_api, unet
 from repro_torch.obs import (JsonlSink, Observability, render_dashboard,
                              render_summary, summarize_results)
 from repro_torch.sampling import SamplerPlan, SigmaSpec, TauSpec
-from repro_torch.serving import DiffusionSampler, SampleRequest
+from repro_torch.serving import (ARGenerator, DiffusionSampler, GenRequest,
+                                 SampleRequest)
 from repro_torch.training import checkpoint
 
 
@@ -120,11 +132,42 @@ def _finish_replay(results, server, obs, trace_path, args) -> None:
         print(f"saved -> {args.out}")
 
 
+def _restore_lm(path: str, cfg, device: torch.device):
+    """The dense parameters of a ``{"params": ...}`` checkpoint file
+    holding the JAX-layout tree, on ``device``."""
+    like = {"params": interop.map_leaves(
+        dense.param_shapes(cfg), lambda s: np.empty(s, np.float32))}
+    restored, _ = checkpoint.restore(path, like)
+    params = interop.dense_params_from_jax(restored["params"], cfg)
+    return interop.map_leaves(params, lambda t: t.to(device))
+
+
 def serve_lm(args):
-    raise NotImplementedError(
-        f"--arch {args.arch}: autoregressive serving is not ported yet "
-        "(JAX: repro/serving/engine.py::ARGenerator, which needs the dense "
-        "prefill / decode_step / init_cache KV-cache path); use --arch unet")
+    cfg = (configs.get_smoke(args.arch) if args.smoke
+           else configs.get(args.arch))
+    api = get_api(cfg)
+    device = resolve_device(args.device)
+    if args.ckpt:
+        params = _restore_lm(args.ckpt, cfg, device)
+    else:
+        params = api.init_params(
+            cfg, torch.Generator(device=device).manual_seed(args.seed),
+            device=device)
+    gen = ARGenerator(cfg, params, batch_size=args.batch,
+                      max_len=args.prompt_len + args.new_tokens,
+                      device=device)
+    rng = np.random.RandomState(args.seed)
+    reqs = [GenRequest(prompt=rng.randint(0, cfg.vocab, args.prompt_len)
+                       .astype(np.int32),
+                       max_new_tokens=args.new_tokens,
+                       temperature=args.temperature)
+            for _ in range(args.batch)]
+    results = gen.generate(reqs)
+    for i, r in enumerate(results):
+        print(f"req{i}: {r.tokens[:16]}...")
+    print(f"prefill={results[0].prefill_ms:.1f}ms "
+          f"decode={results[0].decode_ms:.1f}ms "
+          f"throughput={results[0].tokens_per_s:.1f} tok/s")
 
 
 def _init_unet(seed: int, device: torch.device) -> unet.UNet:
@@ -438,8 +481,12 @@ def serve_unet_fleet(args, svc: DiffusionSampler, *, stochastic,
 def main(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--smoke", action="store_true",
+                    help="LM archs: the reduced same-family variant")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint (.npz, training/checkpoint.py) in the "
+                    "JAX layout: unet {params, ema}, LM archs {params}; "
+                    "gives the JAX package's weights")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=16)
@@ -504,7 +551,10 @@ def main(argv: Optional[Sequence[str]] = None):
                     help="with --scheduler: wrap ticks in profiler ranges "
                     "(repro/tick/<variant>, obs/profiling.annotate) so a "
                     "device profile attributes time per tick variant")
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seeds the weights (a torch.Generator: the JAX "
+                    "init's distributions, not JAX's numbers for the same "
+                    "seed; --ckpt gives JAX's), the prompts and the noise")
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cuda, or cpu for the "

@@ -33,12 +33,20 @@ class ArchConfig:
     vocab: int
     source: str = ""
     head_dim: Optional[int] = None  # default d_model // n_heads
+    tie_embeddings: bool = False   # logits = h @ embed.T (no "unembed")
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     sliding_window: int = 0        # 0 = full attention
 
     def hd(self) -> int:
         return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+    def q_per_kv(self) -> int:
+        return self.n_heads // self.n_kv_heads
+
+    def validate(self) -> None:
+        if self.n_kv_heads and self.n_heads % self.n_kv_heads:
+            raise ValueError(f"{self.name}: n_heads % n_kv_heads != 0")
 
 
 def causal_mask(S: int, dtype=torch.float32, window: int = 0,
@@ -59,14 +67,16 @@ def dense_init(generator: torch.Generator, shape: Tuple[int, ...], dtype,
     std = scale if scale is not None else fan_in ** -0.5
     w = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=generator)
-    return (w * std).to(dtype)
+    return w.mul_(std).to(dtype)
 
 
 def embed_init(generator: torch.Generator, shape: Tuple[int, ...],
                dtype) -> torch.Tensor:
-    w = torch.randn(shape, dtype=torch.float32, generator=generator,
-                    device=generator.device)
-    return (w * 0.02).to(dtype)
+    """normal * 0.02, drawn and scaled in one buffer (``torch.randn``'s
+    numbers: it is ``empty().normal_()``)."""
+    w = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    w.normal_(generator=generator)
+    return w.mul_(0.02).to(dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

@@ -1,17 +1,36 @@
-"""The llama-family dense layer (port of ``repro/models/dense.py:24-59``):
-pre-norm GQA attention and a pre-norm SwiGLU FFN, both residual.
+"""Decoder-only dense transformer, llama family (port of
+``repro/models/dense.py``): the layer, the parameters, the full-sequence
+forward and the KV-cache serving path (``init_cache``, ``prefill``,
+``decode_step``, ``decode_step_inplace``).
 
-Parameters are plain dicts of tensors in the JAX pytree's (in, out)
-layouts, so ``x @ w`` reads them as the JAX model does.
+Parameters are the JAX pytree as nested dicts of tensors in its (in, out)
+layouts, with every layer leaf stacked along a leading ``n_layers`` axis
+(``param_shapes``), so ``x @ w`` reads them as the JAX model does and
+``repro_torch.interop`` carries them across unchanged.  The JAX scan over
+layers is a Python loop over views of the stacked leaves.
+
+The cache is updated in place, the counterpart of the JAX decode step's
+donated cache: ``prefill`` and both decode variants write the new rows
+into ``cache["k"]`` / ``cache["v"]``, advance ``cache["idx"]`` on its
+device and return the same dict.  A caller that needs the old state
+clones it first.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from .attention import gqa_forward, init_gqa_params
-from .common import ArchConfig, dense_init, rms_norm, swiglu
+from repro_torch.device import DeviceLike, resolve_device
+
+from .attention import (_decode_rope_mask, _grouped_attention, _write_slot,
+                        gqa_decode_step, gqa_forward, gqa_prefill,
+                        init_gqa_params, init_kv_cache)
+from .common import (ArchConfig, apply_rope, dense_init, embed_init,
+                     rms_norm, swiglu)
+from .runtime_flags import FLAGS
+
+Params = Dict
 
 
 def init_layer(generator: torch.Generator, cfg: ArchConfig,
@@ -31,6 +50,72 @@ def init_layer(generator: torch.Generator, cfg: ArchConfig,
     }
 
 
+def param_shapes(cfg: ArchConfig) -> Dict[str, object]:
+    """The parameter tree as nested dicts of shapes (stacked layer leaves
+    lead with n_layers), as the JAX ``init_params`` builds it."""
+    n, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    hq, hkv = cfg.n_heads * cfg.hd(), cfg.n_kv_heads * cfg.hd()
+    shapes = {
+        "embed": (cfg.vocab, d),
+        "final_norm": (d,),
+        "layers": {
+            "attn": {"wq": (n, d, hq), "wk": (n, d, hkv), "wv": (n, d, hkv),
+                     "wo": (n, hq, d)},
+            "attn_norm": (n, d), "mlp_norm": (n, d),
+            "w_gate": (n, d, f), "w_up": (n, d, f), "w_down": (n, f, d),
+        },
+    }
+    if not cfg.tie_embeddings:
+        shapes["unembed"] = (d, cfg.vocab)
+    return shapes
+
+
+def _empty(shapes, dtype, device):
+    if isinstance(shapes, dict):
+        return {k: _empty(v, dtype, device) for k, v in shapes.items()}
+    return torch.empty(shapes, dtype=dtype, device=device)
+
+
+def _fill_layer(dst: Dict, src: Dict, i: int) -> None:
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _fill_layer(dst[k], v, i)
+        else:
+            dst[k][i].copy_(v)
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                device: DeviceLike = None, dtype=torch.float32) -> Params:
+    """Parameters with the JAX init's distributions (normal * 0.02 embeds,
+    truncated-normal fan-in matrices, unit norms), drawn from ``generator``
+    on its device in the JAX order (embed, the layers, unembed) and stored
+    on ``device`` (CUDA unless named).  The stacked layer leaves are
+    allocated once and filled layer by layer, and the embedding tables are
+    drawn in place, so the peak is the parameters plus one layer's draws.
+    The same scheme as the JAX ``init_params``, not its numbers."""
+    cfg.validate()
+    dev = resolve_device(device)
+    g = generator
+    params = {
+        "embed": embed_init(g, (cfg.vocab, cfg.d_model), dtype).to(dev),
+        "layers": _empty(param_shapes(cfg)["layers"], dtype, dev),
+        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
+    }
+    for i in range(cfg.n_layers):
+        _fill_layer(params["layers"], init_layer(g, cfg, dtype), i)
+    if not cfg.tie_embeddings:
+        params["unembed"] = dense_init(
+            g, (cfg.d_model, cfg.vocab), dtype).to(dev)
+    return params
+
+
+def layer_params(layers: Dict, i: int) -> Dict:
+    """Layer ``i`` of the stacked layer leaves (views, no copies)."""
+    if isinstance(layers, dict):
+        return {k: layer_params(v, i) for k, v in layers.items()}
+    return layers[i]
+
+
 def layer_fwd(layer: Dict, cfg: ArchConfig, x: torch.Tensor,
               positions: torch.Tensor, causal: bool = True) -> torch.Tensor:
     h = x + gqa_forward(layer["attn"], cfg,
@@ -39,3 +124,115 @@ def layer_fwd(layer: Dict, cfg: ArchConfig, x: torch.Tensor,
     h = h + swiglu(rms_norm(h, layer["mlp_norm"], cfg.norm_eps),
                    layer["w_gate"], layer["w_up"], layer["w_down"])
     return h
+
+
+def _logits(params: Params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return h @ params["embed"].T
+    return h @ params["unembed"]
+
+
+def _embed(params: Params, tokens: torch.Tensor,
+           embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    h = params["embed"][tokens]
+    if embeds is not None:
+        h = torch.cat([embeds.to(h.dtype), h], dim=1)
+    return h
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+
+
+def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+            embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence forward -> logits (B, S, vocab).
+
+    embeds: optional (B, S_ctx, d) prefix embeddings prepended before the
+    token embeddings.
+    """
+    h = _embed(params, tokens, embeds)
+    B, S, _ = h.shape
+    positions = _positions(B, S, h.device)
+    for i in range(cfg.n_layers):
+        h = layer_fwd(layer_params(params["layers"], i), cfg, h, positions)
+    return _logits(params, cfg, h)
+
+
+# ------------------------------------------------------------------ serving
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.float32, device=None) -> Dict[str, torch.Tensor]:
+    return init_kv_cache(cfg, batch, max_len, cfg.n_layers, dtype, device)
+
+
+def _mlp(layer: Dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
+    return h + swiglu(rms_norm(h, layer["mlp_norm"], cfg.norm_eps),
+                      layer["w_gate"], layer["w_up"], layer["w_down"])
+
+
+def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+            cache: Dict, embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Run the prompt through the model, filling the cache in place.
+
+    Returns (last-position logits (B, vocab), cache); ``cache["idx"]``
+    becomes the (padded) prompt length S, shared by every row."""
+    h = _embed(params, tokens, embeds)
+    B, S, _ = h.shape
+    positions = _positions(B, S, h.device)
+    for i in range(cfg.n_layers):
+        layer = layer_params(params["layers"], i)
+        attn_out, _, _ = gqa_prefill(
+            cache["k"][i], cache["v"][i], layer["attn"], cfg,
+            rms_norm(h, layer["attn_norm"], cfg.norm_eps), positions)
+        h = _mlp(layer, cfg, h + attn_out)
+    cache["idx"].fill_(S)
+    return _logits(params, cfg, h[:, -1:])[:, 0], cache
+
+
+def decode_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """One AR decode step. tokens: (B, 1) -> logits (B, vocab); the token's
+    k / v go into the cache at slot ``idx mod M`` and ``idx`` advances."""
+    if FLAGS.decode_inplace:
+        return decode_step_inplace(params, cfg, tokens, cache)
+    h = params["embed"][tokens]
+    idx = cache["idx"]
+    for i in range(cfg.n_layers):
+        layer = layer_params(params["layers"], i)
+        attn_out, _, _ = gqa_decode_step(
+            cache["k"][i], cache["v"][i], idx, layer["attn"], cfg,
+            rms_norm(h, layer["attn_norm"], cfg.norm_eps))
+        h = _mlp(layer, cfg, h + attn_out)
+    idx.add_(1)
+    return _logits(params, cfg, h)[:, 0], cache
+
+
+def decode_step_inplace(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                        cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """The JAX §Perf variant: the slot, the rotary tables and the mask are
+    computed once for all layers and each layer writes its token-sized
+    rows into the stacked cache (the JAX scan carry) before attending.
+    The same arithmetic as ``decode_step``."""
+    h = params["embed"][tokens]
+    idx = cache["idx"]
+    K, V = cache["k"], cache["v"]              # (L, B, M, Hkv, D)
+    B = h.shape[0]
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd()
+    M = K.shape[2]
+    slot = torch.remainder(idx, M).reshape(1).long()
+    cos, sin, mask = _decode_rope_mask(idx, B, M, D, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        layer = layer_params(params["layers"], i)
+        ap = layer["attn"]
+        xn = rms_norm(h, layer["attn_norm"], cfg.norm_eps)
+        q = apply_rope((xn @ ap["wq"]).reshape(B, 1, H, D), cos, sin)
+        k = apply_rope((xn @ ap["wk"]).reshape(B, 1, Hkv, D), cos, sin)
+        v = (xn @ ap["wv"]).reshape(B, 1, Hkv, D)
+        _write_slot(K[i], slot, k)
+        _write_slot(V[i], slot, v)
+        out = _grouped_attention(q, K[i], V[i], mask)
+        h = _mlp(layer, cfg, h + out.reshape(B, 1, H * D) @ ap["wo"])
+    idx.add_(1)
+    return _logits(params, cfg, h)[:, 0], cache

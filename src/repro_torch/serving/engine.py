@@ -1,5 +1,15 @@
-"""Batched DDIM sampling service (port of ``DiffusionSampler``,
-``repro/serving/engine.py:154-336``).
+"""Batched serving engine (port of ``repro/serving/engine.py``).
+
+Two services:
+  * ARGenerator — the classic prefill + decode loop with a KV cache over a
+    registered architecture (the dense family), with greedy / temperature /
+    top-k sampling per request from JAX's threefry keys (``repro_torch.
+    prng``), so one ``rng_seed`` draws JAX's Gumbels.  The decode step
+    writes the cache in place (JAX donates it), so steady-state decoding
+    allocates no new cache.
+  * DiffusionSampler — the batched DDIM sampling service, below.
+
+DiffusionSampler (``repro/serving/engine.py:154-336``).
 
 Requests are served in lockstep batches: every sample of a batch shares
 one SamplerPlan and runs the whole S-step loop together.  Ragged loads
@@ -15,20 +25,143 @@ float32 (the kernels compute in float32 and cast on store).
 the service's ``plan_bank`` (``repro_torch.autoplan.PlanBank``).
 ``continuous()`` builds the continuous-batching scheduler
 (``serving/scheduler``) over the same model and passes the bank on, for
-per-request deadline-aware selection.  Not ported yet: ``ARGenerator`` and
-buffer donation.
+per-request deadline-aware selection.  Not ported: buffer donation of
+x_T.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.core.schedules import NoiseSchedule
 from repro_torch.device import DeviceLike, resolve_device, synchronize
+from repro_torch.models.common import ArchConfig
+from repro_torch.models.registry import get_api
 from repro_torch.sampling import SamplerPlan
 from repro_torch.sampling.plan import _schedule_digest
+
+
+@dataclasses.dataclass
+class GenRequest:
+    prompt: np.ndarray            # (S,) int32
+    max_new_tokens: int = 32
+    temperature: float = 0.0      # 0 => greedy
+    top_k: int = 0
+    rng_seed: int = 0
+
+
+@dataclasses.dataclass
+class GenResult:
+    tokens: np.ndarray
+    prefill_ms: float
+    decode_ms: float
+    tokens_per_s: float
+
+
+class ARGenerator:
+    """Fixed-batch autoregressive server for one architecture."""
+
+    def __init__(self, cfg: ArchConfig, params, batch_size: int,
+                 max_len: int, dtype: torch.dtype = torch.float32,
+                 donate: Optional[bool] = None, device: DeviceLike = None):
+        """``params``: the family's parameter dict, on ``device``.
+        ``max_len``: the cache length M; as in JAX nothing checks it
+        against prompt + new tokens (positions past M wrap round the
+        ring).  ``donate``: the port's decode step
+        always writes the cache in place, which is what JAX's donation
+        gives; None or True are accepted, False (an out-of-place decode)
+        is not ported.  ``device``: None is the CUDA card."""
+        if donate is False:
+            raise ValueError("ARGenerator updates the KV cache in place; an "
+                             "out-of-place decode (donate=False) is not "
+                             "ported")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.api = get_api(cfg)
+        self.params = params
+        self.batch = batch_size
+        self.max_len = max_len
+        self.dtype = dtype
+        self.donate = True
+
+    @staticmethod
+    def _sample_tokens(logits: torch.Tensor, temps: torch.Tensor,
+                       top_ks: torch.Tensor, rngs: torch.Tensor,
+                       max_k: int) -> torch.Tensor:
+        """Per-request sampling, vectorized over the batch.
+
+        logits (B, V); temps/top_ks (B,); rngs (B, 2) threefry keys. Rows
+        with temperature <= 0 are greedy; rows with top_k == 0 skip the
+        top-k filter. max_k is the top-k width (max over requests).
+        """
+        greedy = logits.argmax(-1)
+        scaled = logits / torch.clamp(temps, min=1e-6)[:, None]
+        if max_k > 0:
+            top = torch.topk(scaled, max_k, dim=-1).values
+            kth = torch.gather(top, -1,
+                               torch.clamp(top_ks - 1, 0, max_k - 1)[:, None])
+            scaled = torch.where((top_ks[:, None] > 0) & (scaled < kth),
+                                 float("-inf"), scaled)
+        sampled = prng.categorical(rngs, scaled)
+        return torch.where(temps <= 0.0, greedy, sampled)
+
+    @torch.no_grad()
+    def generate(self, requests: Sequence[GenRequest],
+                 embeds: Optional[torch.Tensor] = None) -> List[GenResult]:
+        assert len(requests) <= self.batch
+        reqs = list(requests)
+        dev = self.device
+        prompt_len = max(len(r.prompt) for r in reqs)
+        toks = np.zeros((self.batch, prompt_len), np.int32)
+        for i, r in enumerate(reqs):
+            toks[i, prompt_len - len(r.prompt):] = r.prompt  # left-pad
+        cache = self.api.init_cache(self.cfg, self.batch, self.max_len,
+                                    self.dtype, dev)
+        tokens = torch.from_numpy(toks).to(dev)
+        synchronize(dev)
+        t0 = time.perf_counter()
+        kwargs = {"embeds": embeds} if embeds is not None else {}
+        logits, cache = self.api.prefill(self.params, self.cfg, tokens,
+                                         cache, **kwargs)
+        synchronize(dev)
+        t1 = time.perf_counter()
+        max_new = max(r.max_new_tokens for r in reqs)
+        # per-request sampling params (padding rows are greedy/ignored)
+        pad = self.batch - len(reqs)
+        temps = torch.tensor([r.temperature for r in reqs] + [0.0] * pad,
+                             dtype=torch.float32, device=dev)
+        top_ks = torch.tensor([r.top_k for r in reqs] + [0] * pad,
+                              dtype=torch.int64, device=dev)
+        max_k = max((r.top_k for r in reqs), default=0)
+        rngs = torch.stack([prng.PRNGKey(r.rng_seed, dev) for r in reqs]
+                           + [prng.PRNGKey(0, dev)] * pad)
+        # one copy per step into a host buffer, read after the last step
+        out = torch.empty((max_new, self.batch), dtype=torch.int64,
+                          pin_memory=dev.type == "cuda")
+        for step in range(max_new):
+            split = prng.split(rngs, 2)
+            rngs, subs = split[:, 0], split[:, 1]
+            nxt = self._sample_tokens(logits, temps, top_ks, subs, max_k)
+            out[step].copy_(nxt, non_blocking=True)
+            logits, cache = self.api.decode_step(self.params, self.cfg,
+                                                 nxt[:, None], cache)
+        synchronize(dev)
+        t2 = time.perf_counter()
+        host = out.numpy().astype(np.int32)
+        results = []
+        for i, r in enumerate(reqs):
+            n = r.max_new_tokens
+            results.append(GenResult(
+                tokens=host[:n, i].copy(),
+                prefill_ms=(t1 - t0) * 1e3,
+                decode_ms=(t2 - t1) * 1e3,
+                tokens_per_s=max_new * len(reqs) / max(t2 - t1, 1e-9)))
+        return results
 
 
 class DiffusionSampler:

@@ -1,6 +1,11 @@
 """The port's serving CLI (``repro_torch.launch.serve``) and checkpoint
 files (``repro_torch.training.checkpoint``) on the CPU.
 
+The LM paths (``--arch <dense id> --smoke``) run for each dense
+architecture, the vlm id raises through the model registry, and a
+``{"params": ...}`` file of a JAX init gives the JAX ARGenerator's greedy
+tokens (exact: the same weights, prompts and argmax).
+
 The CLI runs through ``main([..., "--device", "cpu"])`` at its defaults
 (``TOY_UNET``, 16 x 16 images): the ``--scheduler`` replay prints JAX's
 per-request lines (each request's plan is the JAX ``SamplerPlan`` of the
@@ -41,6 +46,9 @@ from repro_torch.serving.gateway import HAVE_HTTP
 from repro_torch.training import checkpoint
 
 CPU = ["--arch", "unet", "--device", "cpu"]
+TOKENS = re.compile(r"^req(\d+): \[([\d\s]+)\]\.\.\.$", re.M)
+RATE = re.compile(r"^prefill=[\d.]+ms decode=[\d.]+ms "
+                  r"throughput=[\d.]+ tok/s$", re.M)
 LINE = re.compile(r"^req(\d+): (SamplerPlan\(.*\)) wait=[\d.]+ms "
                   r"service=[\d.]+ms latency=[\d.]+ms$")
 
@@ -153,10 +161,13 @@ def test_gateway_needs_the_transport(monkeypatch):
         serve.main(CPU + ["--gateway", "--smoke"])
 
 
-def test_refusals_and_unported_arch(monkeypatch):
-    with pytest.raises(NotImplementedError,
-                       match="repro/serving/engine.py::ARGenerator"):
-        serve.main(["--arch", "smollm-135m", "--device", "cpu"])
+def test_refusals_and_unported_arch(monkeypatch, capsys):
+    serve.main(["--arch", "smollm-135m", "--smoke", "--new-tokens", "3",
+                "--device", "cpu"])
+    assert len(TOKENS.findall(capsys.readouterr().out)) == 4
+    with pytest.raises(NotImplementedError, match="repro/models/vlm.py"):
+        serve.main(["--arch", "llava-next-mistral-7b", "--smoke",
+                    "--device", "cpu"])
     with pytest.raises(SystemExit):
         serve.main(["--arch", "smollm-135m", "--gateway"])
     with pytest.raises(SystemExit):
@@ -164,6 +175,49 @@ def test_refusals_and_unported_arch(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "unet", "--S", "2", "--n-samples", "1"])
+
+
+# ---------------------------------------------------------------- LM CLI
+DENSE_IDS = ["smollm-135m", "llama3.2-3b", "deepseek-7b",
+             "mistral-large-123b"]
+
+
+@pytest.mark.parametrize("arch", DENSE_IDS)
+def test_lm_cli_smoke_runs_each_dense_arch(arch, capsys):
+    serve.main(["--arch", arch, "--smoke", "--batch", "2", "--new-tokens",
+                "4", "--device", "cpu"])
+    out = capsys.readouterr().out
+    rows = TOKENS.findall(out)
+    assert [int(i) for i, _ in rows] == [0, 1]
+    vocab = configs.get_smoke(arch).vocab
+    assert all(len(t.split()) == 4 and all(0 <= int(x) < vocab
+                                           for x in t.split())
+               for _, t in rows)
+    assert RATE.search(out)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "llama3.2-3b"])
+def test_lm_cli_ckpt_from_jax_gives_jax_greedy_tokens(arch, tmp_path,
+                                                      capsys):
+    """--ckpt with the {"params": ...} file of a JAX init: the port's
+    greedy tokens are the JAX ARGenerator's for the CLI's prompts."""
+    from repro import configs as jconfigs
+    from repro.models import dense as jdense
+    from repro.serving import ARGenerator as JGen
+    from repro.serving import GenRequest as JReq
+    jcfg = jconfigs.get_smoke(arch)
+    jp = jdense.init_params(jax.random.PRNGKey(4), jcfg)
+    path = str(tmp_path / "lm.npz")
+    jckpt.save(path, {"params": jp}, step=1)
+    serve.main(["--arch", arch, "--smoke", "--ckpt", path, "--seed", "2",
+                "--device", "cpu"])
+    got = [[int(x) for x in t.split()]
+           for _, t in TOKENS.findall(capsys.readouterr().out)]
+    rng = np.random.RandomState(2)
+    reqs = [JReq(prompt=rng.randint(0, jcfg.vocab, 16).astype(np.int32),
+                 max_new_tokens=16) for _ in range(4)]
+    want = JGen(jcfg, jp, batch_size=4, max_len=32).generate(reqs)
+    assert got == [r.tokens.tolist() for r in want]
 
 
 # ------------------------------------------------------------ checkpoint

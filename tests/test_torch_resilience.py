@@ -91,10 +91,25 @@ def _plan_pair(faults):
             FaultPlan([Fault(kind=k, **kw) for k, kw in faults]))
 
 
+def _freeze_tick_clock(core):
+    """Seed every pool's tick EWMA at DT and freeze it (alpha 0).
+
+    The least-loaded router ranks pools by backlog x tick EWMA, and
+    ``retry_after_s`` reads the EWMA too.  Left live, the EWMA is each
+    package's own wall-clock tick time even on the virtual clock, so under
+    a loaded machine the two packages could route a requeued request to
+    different pools."""
+    for p in core.fleet.pools:
+        p.engine.tick_ewma_s = DT
+    return core
+
+
 def _cores(pools=1, faults=None, breaker=None, supervise=True, obs=None,
            policy=None, **kw):
     """(JAX core, port core, JAX injector, port injector) on one model
-    "m" with 2 slots per pool."""
+    "m" with 2 slots per pool, on a frozen tick clock
+    (``_freeze_tick_clock``)."""
+    kw.setdefault("tick_ewma_alpha", 0.0)
     jinj = tinj = None
     if faults is not None:
         jp, tp = _plan_pair(faults)
@@ -111,7 +126,7 @@ def _cores(pools=1, faults=None, breaker=None, supervise=True, obs=None,
         breaker=(BreakerPolicy(**breaker) if breaker else None), obs=tobs,
         policy=(OverloadPolicy(**policy) if policy else None), device="cpu",
         **kw)
-    return j, t, jinj, tinj
+    return _freeze_tick_clock(j), _freeze_tick_clock(t), jinj, tinj
 
 
 def _run(core, t=0.0, max_pumps=600):
@@ -575,7 +590,10 @@ def test_shed_events_carry_retry_after():
     assert all(e["retry_after_s"] >= 1 for e in errs)
 
 
-def test_healthz_degraded_detail_then_recovers():
+def _degraded_then_ok():
+    """Three requests on two pools; pool 0 faults at its tick 1 and is
+    quarantined, then re-admitted: health() while degraded and after, and
+    the event streams, held against JAX's."""
     j, t, _, _ = _cores(pools=2, faults=[("tick-error", dict(pool=0,
                                                              tick=1))],
                         breaker=dict(backoff_pumps=1, probe_ticks=1))
@@ -607,6 +625,38 @@ def test_healthz_degraded_detail_then_recovers():
     # torch.Generator): its x0 is its package's own, so no x0 here
     _same_events(tev, jev)
     assert len([e for e in tev if e["event"] == "result"]) == 3
+
+
+def test_healthz_degraded_detail_then_recovers():
+    _degraded_then_ok()
+
+
+class _SkewedClock:
+    """A ``time`` module whose perf_counter advances by a seeded random
+    step (1 us to 0.5 s) at every reading."""
+
+    def __init__(self, seed):
+        self._t = 0.0
+        self._rs = np.random.RandomState(seed)
+
+    def perf_counter(self):
+        self._t += self._rs.uniform(1e-6, 0.5)
+        return self._t
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+@pytest.mark.parametrize("seed", [0, 10, 11])
+def test_two_pool_replay_ignores_wall_clock_tick_times(seed, monkeypatch):
+    """The port's engines measure arbitrary tick times while JAX's measure
+    real ones: the virtual-clock replay still routes, degrades and
+    recovers as JAX's does, because the tick EWMA the router ranks pools
+    by is frozen in this file's cores.  (A live EWMA made
+    test_healthz_degraded_detail_then_recovers fail under load.)"""
+    import repro_torch.serving.scheduler.engine as tengine
+    monkeypatch.setattr(tengine, "time", _SkewedClock(seed))
+    _degraded_then_ok()
 
 
 # ------------------------------------------------ requeue under hot swap
