@@ -9,6 +9,11 @@ times only the launch floor and the B1 / B2 pairs of phase 6 for another
 checkout's ``src`` (the parent commit, unpacked with git archive), with
 the timers of this script, and prints them as JSON lines.
 
+    python3 chip_smoke.py --lm-probe OTHER/src
+
+runs only phase 10's smollm-135m and llama3.2-3b generations, checks and
+step profiles for another checkout's ``src``, with this script's code.
+
 It needs one CUDA device and ``nvcc`` (the kernels are built from the
 sources in the checkout into build/repro_torch_kernels/).  Phases:
 
@@ -204,8 +209,10 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               step; the cache path's logits at every step against the
               cache-free forward over prompt + generated tokens within
               1e-4 of max|logits|, greedy rows equal to forward's argmax
-              except near ties (counted); perf_flags(decode_inplace=True)
-              against the default decode (bitwise, or within 1e-6 of
+              except near ties (counted); the decode step (its slot,
+              rotary tables and mask computed once per step) against the
+              per-layer attention.gqa_decode_step composition, JAX's
+              decode_step structure (bitwise, or within 1e-6 of
               max|logits|, printed); threefry split / random_bits of every
               step's keys on the card bitwise the CPU's, gumbel within
               ulps, and a CPU replay of _sample_tokens on the copied logits
@@ -3167,7 +3174,7 @@ def phase_serve_cli(smi):
 LM_ROWS = ((0.0, 0), (0.0, 0), (0.8, 50), (1.0, 0))   # (temperature, top_k)
 LM_NEW = 32
 LM_FORWARD_TOL = 1e-4      # of max|logits|: the cache path against forward
-LM_VARIANT_TOL = 1e-6      # of max|logits|: decode_inplace against decode
+LM_VARIANT_TOL = 1e-6      # of max|logits|: decode_step against per-layer
 LM_GUMBEL_TIE = 8          # f32 ulps of max(|z|, 1): a card/CPU Gumbel tie
 
 
@@ -3232,6 +3239,23 @@ def _lm_run(gen, reqs, record: bool):
     return res, ptrs, steps, _all_counts()
 
 
+def _decode_per_layer(params, cfg, tokens, cache):
+    """JAX's decode_step structure: every layer calls the per-layer
+    attention.gqa_decode_step, which builds the step's tables itself."""
+    from repro_torch.models import dense
+    from repro_torch.models.attention import gqa_decode_step
+    from repro_torch.models.common import rms_norm
+    h = params["embed"][tokens]
+    for i in range(cfg.n_layers):
+        layer = dense.layer_params(params["layers"], i)
+        out, _, _ = gqa_decode_step(
+            cache["k"][i], cache["v"][i], cache["idx"], layer["attn"], cfg,
+            rms_norm(h, layer["attn_norm"], cfg.norm_eps))
+        h = dense._mlp(layer, cfg, h + out)
+    cache["idx"].add_(1)
+    return dense._logits(params, cfg, h)[:, 0], cache
+
+
 def _near_tie(row: torch.Tensor, tol: float) -> bool:
     top2 = torch.topk(row.double(), 2).values
     return float(top2[0] - top2[1]) <= tol
@@ -3271,7 +3295,6 @@ def phase_lm(smi, cfg, prompt_len):
     import numpy as np
     from repro_torch import prng
     from repro_torch.models import dense
-    from repro_torch.models.runtime_flags import perf_flags
     from repro_torch.serving import ARGenerator
     dev = torch.device("cuda")
     name = cfg.name
@@ -3341,10 +3364,14 @@ def phase_lm(smi, cfg, prompt_len):
           f"forward's argmax at every step but {greedy_ties} near ties "
           f"(top-2 gap <= tol); timed and checked runs' tokens equal: "
           f"{same}")
-    # (3) decode_inplace against the default decode, step by step until
-    # the first token that differs
-    with perf_flags(decode_inplace=True):
-        res3, _, steps3, _ = _lm_run(gen, reqs, record=True)
+    # (3) the decode step against the per-layer gqa_decode_step
+    # composition, step by step until the first token that differs
+    api = gen.api
+    gen.api = dataclasses.replace(api, decode_step=_decode_per_layer)
+    try:
+        _, _, steps3, _ = _lm_run(gen, reqs, record=True)
+    finally:
+        gen.api = api
     d_max, n_cmp, bitwise = 0.0, 0, True
     for (l0, _, t0_, *_), (l1, _, t1_, *_) in zip(steps, steps3):
         d_max = max(d_max, float((l0 - l1).abs().max()))
@@ -3353,8 +3380,9 @@ def phase_lm(smi, cfg, prompt_len):
         if not torch.equal(t0_, t1_):
             break
     check(d_max <= LM_VARIANT_TOL * scale,
-          f"{name}: decode_inplace vs decode {d_max:.3e}")
-    print(f"[lm]   decode_inplace vs decode over {n_cmp} steps: "
+          f"{name}: decode_step vs per-layer gqa_decode_step {d_max:.3e}")
+    print(f"[lm]   decode_step vs per-layer gqa_decode_step over {n_cmp} "
+          f"steps: "
           f"{'bitwise equal' if bitwise else f'max |dlogits| {d_max:.3e}'}"
           f" (tol {LM_VARIANT_TOL:g} of max|logits|)")
     # (4) threefry on the card against the CPU, and a CPU replay of the
@@ -3484,12 +3512,15 @@ def main(argv=None) -> int:
     ap.add_argument("--launch-probe", metavar="SRC", type=Path,
                     help="only time the launch floor and the B1 / B2 pairs "
                          "of SRC/repro_torch (another checkout's src)")
+    ap.add_argument("--lm-probe", metavar="SRC", type=Path,
+                    help="only run phase 10's smollm-135m and llama3.2-3b "
+                         "runs and checks on SRC/repro_torch")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    src = (args.launch_probe or SRC).resolve()
+    src = (args.launch_probe or args.lm_probe or SRC).resolve()
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke: {src / 'repro_torch'} not found; run it from a "
               "checkout of the repository", file=sys.stderr)
@@ -3499,6 +3530,11 @@ def main(argv=None) -> int:
     smi = phase_card()
     if args.launch_probe:
         launch_probe(smi)
+        return 0
+    from repro_torch.configs import LLAMA3_2_3B, SMOLLM_135M
+    if args.lm_probe:
+        phase_lm(smi, SMOLLM_135M, 64)
+        phase_lm(smi, LLAMA3_2_3B, 128)
         return 0
     from repro_torch.configs import DLM_SMOLLM, DLM_SMOLLM_MEGA
     phase_build()
@@ -3555,7 +3591,6 @@ def main(argv=None) -> int:
     b2_cli = phase_serve_cli(smi)
     # Phase 10 runs last, so that every rate above is timed as before.
     # The autoregressive path launches none of the seven kernels.
-    from repro_torch.configs import LLAMA3_2_3B, SMOLLM_135M
     phase_lm(smi, SMOLLM_135M, 64)
     phase_lm(smi, LLAMA3_2_3B, 128)
     phase_lm_cli(smi)

@@ -170,21 +170,41 @@ def _ring_slot_positions(idx: torch.Tensor, M: int) -> torch.Tensor:
     return n - torch.remainder(n - i, M)
 
 
-def _decode_rope_mask(idx: torch.Tensor, B: int, M: int, D: int,
-                      theta: float):
-    """The incoming token's rotary tables and the (1,1,1,1,M) additive mask
-    over the ring slots that hold a position once it is written."""
-    pos = idx.to(torch.int32).expand(B, 1)
-    cos, sin = rope_freqs(pos, D, theta)
+def decode_tables(idx: torch.Tensor, B: int, M: int, D: int, theta: float
+                  ) -> Tuple[torch.Tensor, ...]:
+    """What one decode step shares across its layers: the ring slot
+    ``idx mod M`` (a 1-element long tensor), the incoming token's rotary
+    tables and the (1,1,1,1,M) additive mask over the ring slots that hold
+    a position once it is written."""
+    slot = torch.remainder(idx, M).reshape(1).long()
+    cos, sin = rope_freqs(idx.to(torch.int32).expand(B, 1), D, theta)
     valid = _ring_slot_positions(idx + 1, M) >= 0
     mask = torch.where(valid, 0.0, _NEG)[None, None, None, None, :]
-    return cos, sin, mask
+    return slot, cos, sin, mask
 
 
 def _write_slot(layer_cache: torch.Tensor, slot: torch.Tensor,
                 row: torch.Tensor) -> None:
     """layer_cache[:, slot] = row[:, 0] in place; slot a 1-element tensor."""
     layer_cache.index_copy_(1, slot, row.to(layer_cache.dtype))
+
+
+def decode_attend(layer_k: torch.Tensor, layer_v: torch.Tensor,
+                  tables: Tuple[torch.Tensor, ...], params: Dict,
+                  cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """One layer's attention for the incoming token x (B, 1, d), given the
+    step's ``decode_tables``: writes its k / v into the layer's cache at
+    the slot, then attends over the ring.  Returns attn_out (B, 1, d)."""
+    slot, cos, sin, mask = tables
+    B = x.shape[0]
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd()
+    q = apply_rope((x @ params["wq"]).reshape(B, 1, H, D), cos, sin)
+    k = apply_rope((x @ params["wk"]).reshape(B, 1, Hkv, D), cos, sin)
+    v = (x @ params["wv"]).reshape(B, 1, Hkv, D)
+    _write_slot(layer_k, slot, k)
+    _write_slot(layer_v, slot, v)
+    out = _grouped_attention(q, layer_k, layer_v, mask)
+    return out.reshape(B, 1, H * D) @ params["wo"]
 
 
 def gqa_decode_step(layer_k: torch.Tensor, layer_v: torch.Tensor,
@@ -198,18 +218,10 @@ def gqa_decode_step(layer_k: torch.Tensor, layer_v: torch.Tensor,
     incoming token), a 0-dim tensor. x: (B, 1, d).
     Returns (attn_out (B,1,d), layer_k, layer_v).
     """
-    B = x.shape[0]
-    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd()
-    M = layer_k.shape[1]
-    cos, sin, mask = _decode_rope_mask(idx, B, M, D, cfg.rope_theta)
-    q = apply_rope((x @ params["wq"]).reshape(B, 1, H, D), cos, sin)
-    k = apply_rope((x @ params["wk"]).reshape(B, 1, Hkv, D), cos, sin)
-    v = (x @ params["wv"]).reshape(B, 1, Hkv, D)
-    slot = torch.remainder(idx, M).reshape(1).long()
-    _write_slot(layer_k, slot, k)
-    _write_slot(layer_v, slot, v)
-    out = _grouped_attention(q, layer_k, layer_v, mask)
-    return out.reshape(B, 1, H * D) @ params["wo"], layer_k, layer_v
+    tables = decode_tables(idx, x.shape[0], layer_k.shape[1], cfg.hd(),
+                           cfg.rope_theta)
+    return (decode_attend(layer_k, layer_v, tables, params, cfg, x),
+            layer_k, layer_v)
 
 
 def gqa_prefill(layer_k: torch.Tensor, layer_v: torch.Tensor, params: Dict,

@@ -10,10 +10,13 @@ layouts, with every layer leaf stacked along a leading ``n_layers`` axis
 layers is a Python loop over views of the stacked leaves.
 
 The cache is updated in place, the counterpart of the JAX decode step's
-donated cache: ``prefill`` and both decode variants write the new rows
-into ``cache["k"]`` / ``cache["v"]``, advance ``cache["idx"]`` on its
-device and return the same dict.  A caller that needs the old state
-clones it first.
+donated cache: ``prefill`` and ``decode_step`` write the new rows into
+``cache["k"]`` / ``cache["v"]``, advance ``cache["idx"]`` on its device
+and return the same dict.  A caller that needs the old state clones it
+first.  JAX has two decode bodies, one restacking each layer's cache as
+scan outputs and ``decode_step_inplace`` carrying it; both write in place
+here, so the port has one body (the slot, rotary tables and mask computed
+once per step) and ``decode_step_inplace`` is ``decode_step``.
 """
 from __future__ import annotations
 
@@ -23,12 +26,9 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 
-from .attention import (_decode_rope_mask, _grouped_attention, _write_slot,
-                        gqa_decode_step, gqa_forward, gqa_prefill,
-                        init_gqa_params, init_kv_cache)
-from .common import (ArchConfig, apply_rope, dense_init, embed_init,
-                     rms_norm, swiglu)
-from .runtime_flags import FLAGS
+from .attention import (decode_attend, decode_tables, gqa_forward,
+                        gqa_prefill, init_gqa_params, init_kv_cache)
+from .common import ArchConfig, dense_init, embed_init, rms_norm, swiglu
 
 Params = Dict
 
@@ -193,46 +193,22 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 
 def decode_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                 cache: Dict) -> Tuple[torch.Tensor, Dict]:
-    """One AR decode step. tokens: (B, 1) -> logits (B, vocab); the token's
-    k / v go into the cache at slot ``idx mod M`` and ``idx`` advances."""
-    if FLAGS.decode_inplace:
-        return decode_step_inplace(params, cfg, tokens, cache)
+    """One AR decode step. tokens: (B, 1) -> logits (B, vocab); each
+    layer writes the token's k / v into the cache at slot ``idx mod M``
+    before attending, and ``idx`` advances."""
     h = params["embed"][tokens]
-    idx = cache["idx"]
+    K, V = cache["k"], cache["v"]              # (L, B, M, Hkv, D)
+    tables = decode_tables(cache["idx"], h.shape[0], K.shape[2], cfg.hd(),
+                           cfg.rope_theta)
     for i in range(cfg.n_layers):
         layer = layer_params(params["layers"], i)
-        attn_out, _, _ = gqa_decode_step(
-            cache["k"][i], cache["v"][i], idx, layer["attn"], cfg,
+        attn_out = decode_attend(
+            K[i], V[i], tables, layer["attn"], cfg,
             rms_norm(h, layer["attn_norm"], cfg.norm_eps))
         h = _mlp(layer, cfg, h + attn_out)
-    idx.add_(1)
+    cache["idx"].add_(1)
     return _logits(params, cfg, h)[:, 0], cache
 
 
-def decode_step_inplace(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-                        cache: Dict) -> Tuple[torch.Tensor, Dict]:
-    """The JAX §Perf variant: the slot, the rotary tables and the mask are
-    computed once for all layers and each layer writes its token-sized
-    rows into the stacked cache (the JAX scan carry) before attending.
-    The same arithmetic as ``decode_step``."""
-    h = params["embed"][tokens]
-    idx = cache["idx"]
-    K, V = cache["k"], cache["v"]              # (L, B, M, Hkv, D)
-    B = h.shape[0]
-    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd()
-    M = K.shape[2]
-    slot = torch.remainder(idx, M).reshape(1).long()
-    cos, sin, mask = _decode_rope_mask(idx, B, M, D, cfg.rope_theta)
-    for i in range(cfg.n_layers):
-        layer = layer_params(params["layers"], i)
-        ap = layer["attn"]
-        xn = rms_norm(h, layer["attn_norm"], cfg.norm_eps)
-        q = apply_rope((xn @ ap["wq"]).reshape(B, 1, H, D), cos, sin)
-        k = apply_rope((xn @ ap["wk"]).reshape(B, 1, Hkv, D), cos, sin)
-        v = (xn @ ap["wv"]).reshape(B, 1, Hkv, D)
-        _write_slot(K[i], slot, k)
-        _write_slot(V[i], slot, v)
-        out = _grouped_attention(q, K[i], V[i], mask)
-        h = _mlp(layer, cfg, h + out.reshape(B, 1, H * D) @ ap["wo"])
-    idx.add_(1)
-    return _logits(params, cfg, h)[:, 0], cache
+# JAX's carried-cache variant; the port's one body already is that.
+decode_step_inplace = decode_step

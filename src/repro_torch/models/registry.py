@@ -38,8 +38,6 @@ class ModelApi:
     init_cache: Callable
     prefill: Callable
     decode_step: Callable
-    needs_embeds: bool = False  # stub frontend supplies `embeds`
-    has_decode: bool = True
 
 
 def _wrap_no_aux(fwd):

@@ -5,13 +5,15 @@ global; ``perf_flags(**kw)`` sets some for the length of a ``with`` block
 and restores the old values after it.  The model code reads them on each
 call (the JAX package reads them at trace time).
 
-Levers that mean something on one card:
+The lever that means something on one card:
   * attn_chunk: KV-block size for chunked (online-softmax) attention in
     plain torch (``attention.chunked_grouped_attention``).  Bounds the score
     blocks at attn_chunk**2 instead of S**2 per head.
-  * decode_inplace: ``dense.decode_step`` runs ``decode_step_inplace``,
-    which rotates and writes the token's k / v into the stacked cache
-    before attending.  Both variants write the cache in place here.
+
+Not needed: ``decode_inplace``.  In JAX it chose the carried-cache decode
+over restacking each layer's cache; the port's decode always writes the
+cache in place with the step's tables computed once, so
+``dense.decode_step_inplace`` is ``dense.decode_step``.
 
 Not ported: ``seq_parallel_spec``, ``exp_in_spec``, ``dispatch_spec``,
 ``mesh`` and ``accum_steps`` (sharding and training levers; they wait for
@@ -27,7 +29,6 @@ import dataclasses
 @dataclasses.dataclass
 class PerfFlags:
     attn_chunk: int = 0                        # 0 = full S^2 attention
-    decode_inplace: bool = False               # carry-cache decode variant
 
 
 FLAGS = PerfFlags()

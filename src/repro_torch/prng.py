@@ -21,7 +21,7 @@ from typing import Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, resolve_device
 
 _MASK = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
@@ -52,13 +52,15 @@ def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
     return a, b
 
 
-def PRNGKey(seed: int, device: DeviceLike = "cpu") -> torch.Tensor:
+def PRNGKey(seed: int, device: DeviceLike = None) -> torch.Tensor:
     """``jax.random.PRNGKey(seed)``: the seed's 32-bit pattern in the low
-    word (JAX converts the seed to int32 first, so the high word is 0)."""
+    word (JAX converts the seed to int32 first, so the high word is 0).
+    The key lies on ``device``, the CUDA card unless named; the other
+    functions run where their keys lie."""
     if not -2 ** 31 <= int(seed) < 2 ** 32:
         raise OverflowError(f"seed {seed} does not fit 32 bits")
     return torch.tensor([0, int(seed) & _MASK], dtype=torch.int64,
-                        device=device)
+                        device=resolve_device(device))
 
 
 def _iota_2x32(shape: Tuple[int, ...], device) -> Tuple[torch.Tensor,

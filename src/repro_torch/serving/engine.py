@@ -72,10 +72,11 @@ class ARGenerator:
         """``params``: the family's parameter dict, on ``device``.
         ``max_len``: the cache length M; as in JAX nothing checks it
         against prompt + new tokens (positions past M wrap round the
-        ring).  ``donate``: the port's decode step
-        always writes the cache in place, which is what JAX's donation
-        gives; None or True are accepted, False (an out-of-place decode)
-        is not ported.  ``device``: None is the CUDA card."""
+        ring).  ``donate`` is kept for the JAX signature only: the port's
+        decode step always writes the cache in place, which is what JAX's
+        donation gives, so None and True mean that and False (an
+        out-of-place decode) is refused.  ``device``: None is the CUDA
+        card."""
         if donate is False:
             raise ValueError("ARGenerator updates the KV cache in place; an "
                              "out-of-place decode (donate=False) is not "
@@ -87,7 +88,6 @@ class ARGenerator:
         self.batch = batch_size
         self.max_len = max_len
         self.dtype = dtype
-        self.donate = True
 
     @staticmethod
     def _sample_tokens(logits: torch.Tensor, temps: torch.Tensor,

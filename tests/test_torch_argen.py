@@ -172,7 +172,7 @@ def test_sample_tokens_keys_split_per_step():
     """The per-row key walk: each step splits every row's key and samples
     with the second half, as JAX's loop does (bitwise keys)."""
     seeds = [0, 7, 2 ** 31 - 1]
-    t = torch.stack([prng.PRNGKey(s) for s in seeds])
+    t = torch.stack([prng.PRNGKey(s, "cpu") for s in seeds])
     j = jnp.stack([jax.random.PRNGKey(s) for s in seeds])
     for _ in range(4):
         s = prng.split(t, 2)

@@ -6,9 +6,11 @@ sizes, with the JAX weights carried over by
 
 Tolerance: 1e-5 of max|.| for logits, KV caches and attention outputs
 (float32; the products sum in another order).  ``idx`` and every integer
-are exact, and the two port decode variants are bitwise equal (the same
-arithmetic in the same order).
+are exact, and the port's decode step equals its per-layer
+``gqa_decode_step`` composition bitwise (the same arithmetic in the same
+order).
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -27,7 +29,7 @@ from repro_torch import configs, interop
 from repro_torch.models import attention as tattn
 from repro_torch.models import dense as tdense
 from repro_torch.models import registry as tregistry
-from repro_torch.models.common import ArchConfig
+from repro_torch.models.common import ArchConfig, rms_norm
 from repro_torch.models.runtime_flags import FLAGS, perf_flags
 
 TOL_OF_SCALE = 1e-5
@@ -54,6 +56,20 @@ def _params(tcfg: ArchConfig):
                                            tcfg)
         _PARAMS[tcfg] = (jp, tp)
     return _PARAMS[tcfg]
+
+
+@contextlib.contextmanager
+def _jax_attn_chunk(chunk):
+    """Set JAX's attn_chunk for a block and restore it on the same object.
+    JAX's own ``perf_flags`` rebinds its module's FLAGS on exit and leaves
+    the old object, which other modules imported by name, still set."""
+    flags = jflags.FLAGS
+    old = flags.attn_chunk
+    flags.attn_chunk = chunk
+    try:
+        yield flags
+    finally:
+        flags.attn_chunk = old
 
 
 def _close(got, want, tol=TOL_OF_SCALE):
@@ -110,39 +126,55 @@ def test_prefill_then_teacher_forced_decode_matches_jax(tcfg, S, n_new):
         assert tc["k"].shape[2] == tcfg.sliding_window < S + n_new
 
 
+def _decode_per_layer(tp, tcfg, tokens, cache):
+    """JAX's decode_step structure: each layer calls gqa_decode_step, which
+    builds the step's tables itself."""
+    h = tp["embed"][tokens]
+    for i in range(tcfg.n_layers):
+        layer = tdense.layer_params(tp["layers"], i)
+        out, _, _ = tattn.gqa_decode_step(
+            cache["k"][i], cache["v"][i], cache["idx"], layer["attn"], tcfg,
+            rms_norm(h, layer["attn_norm"], tcfg.norm_eps))
+        h = tdense._mlp(layer, tcfg, h + out)
+    cache["idx"].add_(1)
+    return tdense._logits(tp, tcfg, h)[:, 0], cache
+
+
 @pytest.mark.parametrize("tcfg", [configs.LLAMA3_2_3B_SMOKE, RING],
                          ids=["llama-smoke", "ring"])
 def test_decode_inplace_variant(tcfg):
-    """FLAGS.decode_inplace: the port's two variants agree bitwise, and
-    the in-place one matches JAX's decode_step_inplace."""
+    """JAX's two decode variants against the port's one body: the port's
+    decode_step_inplace is decode_step, which equals the per-layer
+    gqa_decode_step composition bitwise (the tables are only hoisted) and
+    matches both JAX variants; decode_inplace is not a port flag."""
+    assert tdense.decode_step_inplace is tdense.decode_step
+    with pytest.raises(AttributeError, match="decode_inplace"):
+        with perf_flags(decode_inplace=True):
+            pass
     jcfg = _jcfg(tcfg)
     jp, tp = _params(tcfg)
     B, S, n_new = 2, 6, 9
     toks = _tokens(B, S, tcfg.vocab, 2)
     new = _tokens(B, n_new, tcfg.vocab, 3)
     caches = []
-    for inplace in (False, True):
+    for step in (tdense.decode_step, _decode_per_layer):
         tc = tdense.init_cache(tcfg, B, S + n_new, device="cpu")
         tdense.prefill(tp, tcfg, torch.from_numpy(toks), tc)
         logits = []
-        with perf_flags(decode_inplace=inplace):
-            assert FLAGS.decode_inplace is inplace
-            for j in range(n_new):
-                tl, tc = tdense.decode_step(
-                    tp, tcfg, torch.from_numpy(new[:, j:j + 1]), tc)
-                logits.append(tl)
+        for j in range(n_new):
+            tl, tc = step(tp, tcfg, torch.from_numpy(new[:, j:j + 1]), tc)
+            logits.append(tl)
         caches.append((torch.stack(logits), tc))
-    assert FLAGS.decode_inplace is False      # restored after the block
     (l0, c0), (l1, c1) = caches
     assert torch.equal(l0, l1)
     assert torch.equal(c0["k"], c1["k"]) and torch.equal(c0["v"], c1["v"])
-    jc = jdense.init_cache(jcfg, B, S + n_new)
-    _, jc = jdense.prefill(jp, jcfg, jnp.asarray(toks), jc)
-    for j in range(n_new):
-        jl, jc = jdense.decode_step_inplace(jp, jcfg,
-                                            jnp.asarray(new[:, j:j + 1]), jc)
-        _close(l1[j], jl)
-    _cache_close(c1, jc)
+    for jstep in (jdense.decode_step, jdense.decode_step_inplace):
+        jc = jdense.init_cache(jcfg, B, S + n_new)
+        _, jc = jdense.prefill(jp, jcfg, jnp.asarray(toks), jc)
+        for j in range(n_new):
+            jl, jc = jstep(jp, jcfg, jnp.asarray(new[:, j:j + 1]), jc)
+            _close(l0[j], jl)
+        _cache_close(c0, jc)
 
 
 def test_prefill_longer_than_the_ring_keeps_the_last_rows():
@@ -236,7 +268,7 @@ def test_attn_chunk_branches_match_jax(tcfg):
     jk = jnp.zeros((2, 16, tcfg.n_kv_heads, tcfg.hd()))
     tk = torch.zeros(2, 16, tcfg.n_kv_heads, tcfg.hd())
     tv = torch.zeros_like(tk)
-    with jflags.perf_flags(attn_chunk=4), perf_flags(attn_chunk=4):
+    with _jax_attn_chunk(4), perf_flags(attn_chunk=4):
         want = jattn.gqa_forward(jl0["attn"], jcfg, jnp.asarray(x),
                                  jnp.asarray(pos))
         got = tattn.gqa_forward(tl0["attn"], tcfg, torch.from_numpy(x),
@@ -246,7 +278,7 @@ def test_attn_chunk_branches_match_jax(tcfg):
         tout, _, _ = tattn.gqa_prefill(tk, tv, tl0["attn"], tcfg,
                                        torch.from_numpy(x),
                                        torch.from_numpy(pos.copy()))
-    assert FLAGS.attn_chunk == 0
+    assert FLAGS.attn_chunk == 0 and jflags.FLAGS.attn_chunk == 0
     _close(got, want)
     _close(got, plain.numpy())
     _close(tout, jout)

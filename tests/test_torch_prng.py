@@ -42,18 +42,18 @@ def test_jax_runs_partitionable_threefry():
 
 @pytest.mark.parametrize("seed", SEEDS + [-1, 12345], ids=str)
 def test_prng_key_bitwise(seed):
-    assert prng.PRNGKey(seed).tolist() == _u32(_jkey(seed)).tolist()
+    assert prng.PRNGKey(seed, "cpu").tolist() == _u32(_jkey(seed)).tolist()
 
 
 def test_prng_key_refuses_seeds_past_32_bits():
     with pytest.raises(OverflowError):
-        prng.PRNGKey(2 ** 32)
+        prng.PRNGKey(2 ** 32, "cpu")
 
 
 @pytest.mark.parametrize("seed", SEEDS, ids=str)
 @pytest.mark.parametrize("num", [2, 3, (2, 3)], ids=str)
 def test_split_bitwise(seed, num):
-    got = prng.split(prng.PRNGKey(seed), num)
+    got = prng.split(prng.PRNGKey(seed, "cpu"), num)
     want = _u32(jax.random.split(_jkey(seed), num))
     assert got.shape == want.shape
     assert np.array_equal(got.numpy(), want)
@@ -62,7 +62,7 @@ def test_split_bitwise(seed, num):
 @pytest.mark.parametrize("seed", SEEDS, ids=str)
 def test_split_chain_bitwise(seed):
     """Five generations of split, as the AR sampler walks its keys."""
-    k, jk = prng.PRNGKey(seed), _jkey(seed)
+    k, jk = prng.PRNGKey(seed, "cpu"), _jkey(seed)
     for _ in range(5):
         k, sub = prng.split(k)
         jk, jsub = jax.random.split(jk)
@@ -73,7 +73,7 @@ def test_split_chain_bitwise(seed):
 @pytest.mark.parametrize("seed", SEEDS, ids=str)
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
 def test_random_bits_bitwise(seed, shape):
-    got = prng.random_bits(prng.PRNGKey(seed), shape)
+    got = prng.random_bits(prng.PRNGKey(seed, "cpu"), shape)
     want = _u32(jax.random.bits(_jkey(seed), shape))
     assert np.array_equal(got.numpy(), want)
 
@@ -81,7 +81,7 @@ def test_random_bits_bitwise(seed, shape):
 def test_batched_keys_are_vmap():
     """A (B, 2) batch of keys acts as jax.vmap over the batch."""
     keys = jnp.stack([_jkey(s) for s in SEEDS])
-    tkeys = torch.stack([prng.PRNGKey(s) for s in SEEDS])
+    tkeys = torch.stack([prng.PRNGKey(s, "cpu") for s in SEEDS])
     want = _u32(jax.vmap(lambda k: jax.random.split(k, 2))(keys))
     assert np.array_equal(prng.split(tkeys, 2).numpy(), want)
     want = _u32(jax.vmap(lambda k: jax.random.bits(k, (4, 3)))(keys))
@@ -91,14 +91,14 @@ def test_batched_keys_are_vmap():
 @pytest.mark.parametrize("seed", SEEDS, ids=str)
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
 def test_uniform_bitwise(seed, shape):
-    got = prng.uniform(prng.PRNGKey(seed), shape).numpy()
+    got = prng.uniform(prng.PRNGKey(seed, "cpu"), shape).numpy()
     want = np.asarray(jax.random.uniform(_jkey(seed), shape))
     assert got.dtype == np.float32
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
 
 
 def test_uniform_range_bitwise():
-    key = prng.PRNGKey(7)
+    key = prng.PRNGKey(7, "cpu")
     got = prng.uniform(key, (1000,), minval=-2.0, maxval=3.0).numpy()
     want = np.asarray(jax.random.uniform(_jkey(7), (1000,), minval=-2.0,
                                          maxval=3.0))
@@ -112,7 +112,7 @@ def _gumbel_gap_ulps(got, want):
 
 @pytest.mark.parametrize("seed", SEEDS, ids=str)
 def test_gumbel_within_four_ulps(seed):
-    got = prng.gumbel(prng.PRNGKey(seed), (4096,)).numpy()
+    got = prng.gumbel(prng.PRNGKey(seed, "cpu"), (4096,)).numpy()
     want = np.asarray(jax.random.gumbel(_jkey(seed), (4096,)))
     assert got.dtype == np.float32 and np.isfinite(got).all()
     assert _gumbel_gap_ulps(got, want) <= GUMBEL_ULPS
@@ -121,7 +121,7 @@ def test_gumbel_within_four_ulps(seed):
 def test_uniform_floor_gives_finite_gumbels():
     """u is floored at float32 tiny, so an all-zero mantissa still gives a
     finite Gumbel draw: the smallest draw of 65,536 is finite."""
-    g = prng.gumbel(prng.PRNGKey(3), (65536,))
+    g = prng.gumbel(prng.PRNGKey(3, "cpu"), (65536,))
     assert torch.isfinite(g).all()
 
 
@@ -150,3 +150,11 @@ def test_prng_runs_on_any_device_tensor():
     assert prng.split(k, 3).shape == (3, 2)
     assert prng.gumbel(k, (5,)).device.type == "meta"
     assert prng.random_bits(k, (2, 2)).dtype == torch.int64
+
+
+def test_prng_key_defaults_to_the_card(monkeypatch):
+    """With no device named the key goes to CUDA, and without a card that
+    raises instead of falling back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        prng.PRNGKey(0)
