@@ -14,6 +14,12 @@ the timers of this script, and prints them as JSON lines.
 runs only phase 10's smollm-135m and llama3.2-3b generations, checks and
 step profiles for another checkout's ``src``, with this script's code.
 
+    python3 chip_smoke.py --draw-probe OTHER/src
+
+times, for another checkout's ``src``, one scheduler x_T draw, a steady
+U-Net scheduler tick, serve samples/s and slot-steps/s at CIFAR10 width,
+as one JSON line (the cost of phase 11's draws against the parent).
+
 It needs one CUDA device and ``nvcc`` (the kernels are built from the
 sources in the checkout into build/repro_torch_kernels/).  Phases:
 
@@ -223,6 +229,29 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               (weights + KV over the HBM rate); the peak allocated memory;
               then python -m repro_torch.launch.serve --arch smollm-135m
               --batch 4 --new-tokens 16 --device cuda at full width
+ 11. JAX's draws and training, run last so that every earlier rate is
+              timed as before: threefry normal, randint (1, 1001) and
+              (0, 2^31 - 1) and truncated_normal(-3, 3) on the card against
+              the same keys on the CPU (bitwise; the CPU tests hold the CPU
+              bitwise against jax.random); one int seed on the card against
+              the port on the CPU at TOY_UNET width, S = 10, the same
+              weights: a seeded eta=1 serve (B1), a stochastic 'rows'
+              plan.run (B2) and one stochastic scheduler request (B2), each
+              within 1e-4 of scale; the CIFAR10 U-Net trained at full width
+              (AdamW, warmup_cosine, EMA 0.999, SyntheticImages(32), batch
+              32, 30 steps): its first step at batch 2 on the card against
+              the CPU (loss and grad norm within 1e-4), first and steady
+              step ms, images/s, one step's profile, peak memory, the FLOP
+              bound; its init, trained and EMA weights served through B1
+              (S=20, 16 samples) and scored with fid_proxy and mmd_rbf
+              against a held-out batch; smollm-135m at full width, batch 8
+              x 128, accum_steps 2 against 1 from one state (loss and grad
+              norm within 1e-4), step ms, tokens/s, peak, bound, profile;
+              3 diffusion-LM training_loss steps on DLM_SMOLLM_MEGA; the
+              seven counters 0 across every train step; python -m
+              repro_torch.launch.train --arch unet --steps 20 writing a
+              checkpoint, and python -m repro_torch.launch.serve --arch
+              unet --ckpt serving it on the card
 
 Every time is printed beside the card's name and power limit.  Any failure
 raises and the script exits nonzero with no result line.  On success the
@@ -490,6 +519,7 @@ def _cifar10_model(seed: int = 0):
 
 
 def phase_main(model):
+    from repro_torch import prng
     from repro_torch.core.schedules import make_schedule
     from repro_torch.kernels.sampler_step import kernel
     from repro_torch.models.unet import make_eps_fn
@@ -512,7 +542,7 @@ def phase_main(model):
     n1 = kernel.sampler_step_2d.launches
     out_sto, st_sto = svc.serve(8, sto, seed=2)
     n2 = kernel.sampler_step_2d.launches - n1
-    out_rows = sto.run(eps_fn, x_rows, gen, backend="rows")
+    out_rows = sto.run(eps_fn, x_rows, prng.PRNGKey(5), backend="rows")
     torch.cuda.synchronize()
     launches = {"sampler_step_2d": kernel.sampler_step_2d.launches,
                 "sampler_step_rows_2d": kernel.sampler_step_rows_2d.launches}
@@ -736,6 +766,7 @@ def phase_autotuner(smi, model):
     scheduler (B2 once per tick) whose deadlines, set from its measured
     tick EWMA, give 'fit', 'degraded' and 'quality' admissions.  Returns
     (B1, B2) launches of the counted paths."""
+    from repro_torch import prng
     import tempfile
     from repro_torch.autoplan import (ObjectiveConfig, PlanBank,
                                       PlanExecutor, RefineConfig,
@@ -770,9 +801,8 @@ def phase_autotuner(smi, model):
     counts = _counts()
     check(counts == {"B1": 0, "B2": 0, "B3": 0, "B4": 0},
           f"objective launched {counts}")
-    noise = torch.randn((len(table.grid),) + tuple(x0.shape),
-                        generator=torch.Generator(device=dev).manual_seed(
-                            cfg.seed), device=dev)
+    noise = prng.normal(prng.PRNGKey(cfg.seed, dev),
+                        (len(table.grid),) + tuple(x0.shape))
     again = transition_elbo_table(sch, eps_fn, x0, grid=table.grid,
                                   eta=cfg.eta, recon_sigma=cfg.recon_sigma,
                                   chunk=cfg.chunk, noise=noise)
@@ -808,7 +838,7 @@ def phase_autotuner(smi, model):
     rollouts = []
 
     def score(plan):
-        g = torch.Generator(device=dev).manual_seed(77)
+        g = prng.PRNGKey(77, dev)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         out = ex.run(plan, x_T, g if plan.stochastic else None)
@@ -852,10 +882,9 @@ def phase_autotuner(smi, model):
     det = next(p for p, _ in rollouts if not p.stochastic)
     sto = next((p for p, _ in rollouts if p.stochastic), None)
     for p in [det] + ([sto] if sto is not None else []):
-        got = ex.run(p, x_T, torch.Generator(device=dev).manual_seed(5)
-                     if p.stochastic else None)
-        want = p.run(eps_fn, x_T, torch.Generator(device=dev).manual_seed(5)
-                     if p.stochastic else None, backend="tile_resident")
+        got = ex.run(p, x_T, prng.PRNGKey(5, dev) if p.stochastic else None)
+        want = p.run(eps_fn, x_T, prng.PRNGKey(5, dev) if p.stochastic
+                     else None, backend="tile_resident")
         same = torch.equal(got, want)
         print(f"[auto] executor vs plan.run(backend='tile_resident'), "
               f"{'stoch' if p.stochastic else 'det'} S={p.S}: bitwise {same}")
@@ -1010,8 +1039,8 @@ def _p8_requests(n, base=0, key_every=0):
 
 def _x_T(seed):
     """The x_T an engine on the card draws for ``seed``."""
-    gen = torch.Generator(device="cuda").manual_seed(int(seed))
-    return torch.randn((1,) + CARD_SHAPE, generator=gen, device="cuda")
+    from repro_torch import prng
+    return prng.normal(prng.PRNGKey(int(seed)), (1,) + CARD_SHAPE)
 
 
 def _vs_eager(eps_fn, sch, results, reqs):
@@ -1761,6 +1790,7 @@ def phase_kernels_dlm(params2):
 def phase_main_dlm(params2, params30):
     """generate() on the eligible 2-layer and the ineligible 30-layer
     smollm-width trunk, counted; 'mega' against 'tile_resident'."""
+    from repro_torch import prng
     from repro_torch.configs import DLM_SMOLLM, DLM_SMOLLM_MEGA
     from repro_torch.core import SamplerConfig
     from repro_torch.core.schedules import make_schedule
@@ -1774,11 +1804,10 @@ def phase_main_dlm(params2, params30):
     for cfg, params, want_b3, want_b1 in (
             (DLM_SMOLLM_MEGA, params2, math.ceil(DLM_S / DLM_K), 0),
             (DLM_SMOLLM, params30, 0, DLM_S)):
-        gen = torch.Generator(device="cuda").manual_seed(11)
         mk.megastep_call.launches = 0
         sk.sampler_step_2d.launches = 0
-        tokens = generate(params, cfg, sch, gen, DLM_BATCH, DLM_SEQ,
-                          sampler, tile_resident=True)
+        tokens = generate(params, cfg, sch, prng.PRNGKey(11), DLM_BATCH,
+                          DLM_SEQ, sampler, tile_resident=True)
         torch.cuda.synchronize()
         n3 = mk.megastep_call.launches
         n1 = sk.sampler_step_2d.launches
@@ -1822,6 +1851,7 @@ def phase_mega_fallback(smi, params2):
     """(2, 128) over DLM_SMOLLM_MEGA: eligible by the JAX rule, but past
     the CUDA megakernel's 64 tokens, so 'mega' runs the tile-resident loop
     (B1 S times, B3 never) and returns what 'tile_resident' returns."""
+    from repro_torch import prng
     from repro_torch.configs import DLM_SMOLLM_MEGA as cfg
     from repro_torch.core import SamplerConfig
     from repro_torch.core.schedules import make_schedule
@@ -1831,8 +1861,8 @@ def phase_mega_fallback(smi, params2):
     sch, sampler = make_schedule("linear", 1000), SamplerConfig(S=DLM_S)
     gen = torch.Generator(device="cuda").manual_seed(13)
     _zero_counts()
-    tokens = generate(params2, cfg, sch, gen, batch, seq, sampler,
-                      tile_resident=True)
+    tokens = generate(params2, cfg, sch, prng.PRNGKey(13), batch, seq,
+                      sampler, tile_resident=True)
     torch.cuda.synchronize()
     counts, why = _counts(), backends.run_mega.last_reason
     print(f"[main] {smi} | generate {cfg.arch.name} (S={DLM_S}, batch "
@@ -2022,6 +2052,8 @@ def _phase_trace(smi, label, wrapper, fn, steps, n_layers):
 
 def phase_times_dlm(smi, params2, errs, b3_launches, ops_launches):
     import torch.nn.functional as F
+
+    from repro_torch import prng
     from repro_torch.configs import DLM_SMOLLM_MEGA as cfg
     from repro_torch.core import SamplerConfig, sample
     from repro_torch.core.schedules import make_schedule
@@ -2147,9 +2179,8 @@ def phase_times_dlm(smi, params2, errs, b3_launches, ops_launches):
     sampler = SamplerConfig(S=DLM_S)
 
     def gen_mega():
-        return generate(params2, cfg, sch, torch.Generator(
-            device="cuda").manual_seed(5), DLM_BATCH, DLM_SEQ, sampler,
-            tile_resident=True)
+        return generate(params2, cfg, sch, prng.PRNGKey(5), DLM_BATCH,
+                        DLM_SEQ, sampler, tile_resident=True)
 
     def gen_tile():
         x_T = torch.randn(DLM_BATCH, DLM_SEQ, cfg.latent_dim,
@@ -3506,6 +3537,459 @@ def phase_lm_cli(smi):
           f"LM CLI: {len(reqs)} request lines, {rate}, launches {counts}")
 
 
+# ---------------------------------- phase 11: JAX's draws and training
+P11_PARITY_TOL = 1e-4      # of scale: a seeded card run vs the port on the CPU
+P11_STEP_RTOL = 1e-4       # card vs CPU: the first train step's loss, gnorm
+P11_ACCUM_RTOL = 1e-4      # LM accum_steps 2 vs 1: loss and grad norm
+P11_DRAW_N = 1 << 20       # threefry draws per kind, card against CPU
+P11_IMG_BATCH, P11_IMG_STEPS = 32, 30
+P11_LM_BATCH, P11_LM_SEQ, P11_LM_STEPS = 8, 128, 6
+P11_DLM_STEPS = 3
+P11_SERVE_N, P11_SERVE_S = 16, 20
+
+
+def _ulp_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| in float32 ulps of max(|want|, 1)."""
+    w = want.double()
+    spacing = torch.maximum(w.abs(), torch.ones_like(w)) * F32_ULP
+    return float(((got.double() - w).abs() / spacing).max())
+
+
+def phase_draws_card(smi):
+    """Phase 11a: threefry normal / randint / truncated_normal on the card
+    against the same keys on the CPU (the CPU tests hold the CPU against
+    jax.random bitwise)."""
+    from repro_torch import prng
+    gaps = {}
+    for seed in (0, 7):
+        kc, kh = prng.PRNGKey(seed), prng.PRNGKey(seed, "cpu")
+        for name, fn in (
+                ("normal", lambda k: prng.normal(k, (P11_DRAW_N,))),
+                ("truncated_normal(-3, 3)", lambda k: prng.truncated_normal(
+                    k, -3.0, 3.0, (P11_DRAW_N,)))):
+            got, want = fn(kc).cpu(), fn(kh)
+            gaps[name] = max(gaps.get(name, 0.0), _ulp_gap(got, want))
+            check(torch.isfinite(got).all().item(), f"{name}: non-finite")
+            if name.startswith("truncated"):
+                check(bool((got > -3).all() and (got < 3).all()),
+                      "truncated_normal left (-3, 3)")
+        for lo, hi in ((1, 1001), (0, 2 ** 31 - 1)):
+            got = prng.randint(kc, (P11_DRAW_N,), lo, hi).cpu()
+            want = prng.randint(kh, (P11_DRAW_N,), lo, hi)
+            check(torch.equal(got, want), f"randint({lo}, {hi}) card != CPU")
+    print(f"[draw] {smi} | threefry on the card vs the CPU, 2 keys x "
+          f"{P11_DRAW_N} draws each: randint (1, 1001) and (0, 2^31-1) "
+          f"bitwise; max ulp gap of max(|z|, 1): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in gaps.items()) + " (tol 0: bitwise)")
+    check(all(v == 0.0 for v in gaps.values()),
+          f"threefry floats card vs CPU: {gaps}")
+
+
+def phase_draws_parity(smi):
+    """Phase 11b: one int seed on the card against the port on the CPU at
+    TOY_UNET width, S = 10, the same weights: a seeded eta=1 serve on
+    tile_resident (B1), a stochastic 'rows' plan.run (B2) and one
+    stochastic scheduler request (B2).  Returns (B1, B2) launches."""
+    from repro_torch import prng
+    from repro_torch.configs import TOY_UNET
+    from repro_torch.core import make_schedule
+    from repro_torch.models.unet import init_params, make_eps_fn
+    from repro_torch.sampling import SamplerPlan
+    from repro_torch.serving import DiffusionSampler, SampleRequest
+    sch = make_schedule("linear", 1000)
+    card = init_params(TOY_UNET, torch.Generator().manual_seed(3),
+                       device="cuda").eval()
+    host = copy.deepcopy(card).cpu()
+    shape, plan = (16, 16, 3), SamplerPlan.build(sch, 10, sigma=1.0)
+    out = {}
+    _zero_counts()
+    for dev, m in (("cuda", card), ("cpu", host)):
+        eps = make_eps_fn(m)
+        svc = DiffusionSampler(sch, eps, shape, batch_size=8,
+                               tile_resident=True, device=dev)
+        serve, _ = svc.serve(8, plan, seed=7)
+        x_T = prng.normal(prng.PRNGKey(3, dev), (8,) + shape)
+        rows = plan.run(eps, x_T, prng.PRNGKey(4, dev), backend="rows")
+        eng = svc.continuous(slots=2, stochastic=True)
+        res = eng.serve([SampleRequest(request_id=0, S=10, eta=1.0,
+                                       seed=7)])
+        out[dev] = (serve, rows, res[0].x0)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts, ticks = _counts(), eng.stats()["ticks"]
+    for i, name in enumerate(("serve(8, eta=1, seed=7) tile_resident",
+                              "rows plan.run eta=1", "scheduler request "
+                              "eta=1 seed=7")):
+        got, want = out["cuda"][i].cpu(), out["cpu"][i]
+        rel = float((got - want).abs().max() / want.abs().max())
+        print(f"[draw] {smi} | {name}, TOY_UNET S=10: card vs the port on "
+              f"the CPU max|d|/max|x| {rel:.3e} (tol {P11_PARITY_TOL})")
+        check(rel <= P11_PARITY_TOL, f"{name}: card vs CPU {rel}")
+    want = {"B1": plan.S, "B2": plan.S + ticks, "B3": 0, "B4": 0}
+    print(f"[draw] launches {counts} (want {want})")
+    check(counts == want, f"seeded parity launches {counts}")
+    return counts["B1"], counts["B2"]
+
+
+def _unet_forward_flops(cfg, batch: int, size: int) -> int:
+    """Conv, dense and attention-product FLOPs of one U-Net forward,
+    counted from the layer shapes of a meta-device forward."""
+    from repro_torch.models.unet import AttnBlock, UNet
+    model = UNet(cfg, device="meta")
+    total = [0]
+
+    def conv(m, inp, out):
+        total[0] += (2 * out.numel() * m.in_channels // m.groups
+                     * m.kernel_size[0] * m.kernel_size[1])
+
+    def dense_(m, inp, out):
+        total[0] += 2 * out.numel() * m.in_features
+
+    def attn(m, inp, out):
+        n, c, h, w = inp[0].shape
+        total[0] += 4 * n * (h * w) ** 2 * c          # q k^T and att v
+
+    for m in model.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            m.register_forward_hook(conv)
+        elif isinstance(m, torch.nn.Linear):
+            m.register_forward_hook(dense_)
+        elif isinstance(m, AttnBlock):
+            m.register_forward_hook(attn)
+    with torch.no_grad():
+        model(torch.empty(batch, size, size, cfg.in_channels, device="meta"),
+              torch.zeros(batch, dtype=torch.int32, device="meta"))
+    return total[0]
+
+
+def _lm_forward_flops(cfg, batch: int, seq: int) -> int:
+    """Matmul FLOPs of one dense-LM forward: the projections, the full
+    (B, H, S, S) attention products, SwiGLU and the vocabulary head."""
+    T, d, D = batch * seq, cfg.d_model, cfg.hd()
+    per_layer = (2 * T * d * (cfg.n_heads + 2 * cfg.n_kv_heads) * D
+                 + 2 * T * cfg.n_heads * D * d
+                 + 4 * batch * seq * seq * cfg.n_heads * D
+                 + 3 * 2 * T * d * cfg.d_ff)
+    return cfg.n_layers * per_layer + 2 * T * d * cfg.vocab
+
+
+def _timed_steps(step, state, batches, n):
+    """n train steps; (state, metrics of each, wall s of each)."""
+    metrics, walls = [], []
+    for _ in range(n):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        metrics.append(m)
+    return state, metrics, walls
+
+
+def _rel(a, b) -> float:
+    return abs(float(a) - float(b)) / abs(float(b))
+
+
+def phase_train_unet(smi):
+    """Phase 11c: the CIFAR10 U-Net trained at full width, then its EMA
+    served through B1 and scored with eval/metrics.  Returns B1
+    launches of the serve."""
+    from repro_torch import prng
+    from repro_torch.configs import CIFAR10_UNET
+    from repro_torch.core import make_schedule, training_loss
+    from repro_torch.data import SyntheticImages
+    from repro_torch.eval.metrics import fid_proxy, mmd_rbf
+    from repro_torch.models.unet import make_eps_fn
+    from repro_torch.sampling import SamplerPlan
+    from repro_torch.serving import DiffusionSampler
+    from repro_torch.training import (AdamWConfig, ema_init, ema_update,
+                                      init_train_state,
+                                      make_diffusion_train_step, module_loss,
+                                      warmup_cosine)
+    sch = make_schedule("linear", 1000)
+    model = _cifar10_model(seed=2)
+    opt = AdamWConfig(lr=2e-4, schedule=warmup_cosine(10, P11_IMG_STEPS))
+
+    def stepper(m):
+        return make_diffusion_train_step(module_loss(m, lambda eps, b, r: (
+            training_loss(sch, eps, b, r), {})), opt)
+
+    def params_of(m):
+        return {k: v.detach() for k, v in m.named_parameters()}
+
+    # the first step at batch 2, card against CPU: same weights, batch, key
+    host = copy.deepcopy(model).cpu()
+    b2 = SyntheticImages(size=32).sample(prng.PRNGKey(5, "cpu"), 2)
+    first = {}
+    for dev, m in (("cuda", model), ("cpu", host)):
+        st = init_train_state(params_of(m), prng.PRNGKey(9, dev), opt)
+        _, mt = stepper(m)(st, b2.to(dev))
+        first[dev] = (float(mt["loss"]), float(mt["grad_norm"]))
+    rl, rg = (_rel(first["cuda"][i], first["cpu"][i]) for i in (0, 1))
+    print(f"[train] {smi} | CIFAR10_UNET first step at batch 2, card vs CPU:"
+          f" loss {first['cuda'][0]:.6f} / {first['cpu'][0]:.6f} (rel "
+          f"{rl:.2e}), grad norm {first['cuda'][1]:.6f} / "
+          f"{first['cpu'][1]:.6f} (rel {rg:.2e}); tol {P11_STEP_RTOL}")
+    check(rl <= P11_STEP_RTOL and rg <= P11_STEP_RTOL,
+          f"U-Net first step card vs CPU: loss {rl}, gnorm {rg}")
+    del host
+
+    # training at batch P11_IMG_BATCH, counted: no kernel of the seven
+    params = params_of(model)
+    step = stepper(model)
+    state = init_train_state(params, prng.PRNGKey(1), opt)
+    data = SyntheticImages(size=32, seed=0).batches(P11_IMG_BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    next(data)
+    torch.cuda.synchronize()
+    data_ms = (time.perf_counter() - t0) * 1e3
+    _zero_all_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ema = ema_init(params)
+    walls, losses, ema_ms = [], [], []
+    for _ in range(P11_IMG_STEPS):
+        state, ms, w = _timed_steps(step, state, data, 1)
+        t0 = time.perf_counter()
+        ema = ema_update(ema, state.params, decay=0.999)
+        torch.cuda.synchronize()
+        ema_ms.append((time.perf_counter() - t0) * 1e3)
+        walls += w
+        losses.append(float(ms[0]["loss"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = _all_counts()
+    steady = statistics.median(walls[5:]) * 1e3
+    flops = 3 * _unet_forward_flops(CIFAR10_UNET, P11_IMG_BATCH, 32)
+    bound = flops / FP32_OPS_PER_S * 1e3
+    print(f"[train] {smi} | CIFAR10_UNET (35.7 M, float32) AdamW + "
+          f"warmup_cosine + EMA 0.999 on SyntheticImages(32), batch "
+          f"{P11_IMG_BATCH}, {P11_IMG_STEPS} steps: first step "
+          f"{walls[0] * 1e3:.1f} ms, steady {steady:.1f} ms/step (median of "
+          f"{len(walls) - 5}), {P11_IMG_BATCH / steady * 1e3:.1f} images/s; "
+          f"EMA update {statistics.median(ema_ms):.2f} ms, one batch drawn "
+          f"{data_ms:.2f} ms; loss first {losses[0]:.4f} last "
+          f"{losses[-1]:.4f}; peak {peak_gb:.2f} GB; FLOP bound "
+          f"{bound:.2f} ms (3 x {flops / 3 / 1e12:.3f} TFLOP forward at "
+          f"the float32 SIMT rate), {bound / steady:.3f} of it; launches "
+          f"{counts}")
+    check(all(v == 0 for v in counts.values()),
+          f"U-Net training launched {counts}")
+    check(all(math.isfinite(x) for x in losses), "U-Net loss not finite")
+    fixed = next(data)
+    profile_call(smi, f"one CIFAR10_UNET train step, batch {P11_IMG_BATCH}",
+                 lambda: step(state, fixed), "implicit_gemm")
+
+    # the EMA served through B1, scored against a held-out batch
+    held = SyntheticImages(size=32, seed=1).sample(prng.PRNGKey(424242),
+                                                   P11_SERVE_N)
+    plan = SamplerPlan.build(sch, P11_SERVE_S)
+    b1 = 0
+    for label, weights in (("init", params_of(model)),
+                           ("trained", state.params), ("EMA", ema)):
+        served = copy.deepcopy(model)
+        served.load_state_dict({**served.state_dict(), **weights})
+        svc = DiffusionSampler(sch, make_eps_fn(served.eval()),
+                               CARD_SHAPE, batch_size=BATCH,
+                               tile_resident=True)
+        n1 = _counts()["B1"]
+        x, st = svc.serve(P11_SERVE_N, plan, seed=0)
+        torch.cuda.synchronize()
+        n = _counts()["B1"] - n1
+        b1 += n
+        fid = fid_proxy(x, held)
+        mmd = mmd_rbf(x.reshape(P11_SERVE_N, -1), held.reshape(
+            P11_SERVE_N, -1))
+        print(f"[train] {smi} | serve {label} weights: {P11_SERVE_N} "
+              f"samples, S={plan.S}: {st['samples_per_s']:.1f} samples/s; "
+              f"vs a held-out SyntheticImages batch of {P11_SERVE_N}: "
+              f"fid_proxy {fid:.4f}, mmd_rbf {mmd:.5f}; B1 {n}")
+        check(n == plan.S * 2 and bool(torch.isfinite(x).all()),
+              f"EMA serve: B1 {n}, finite {bool(torch.isfinite(x).all())}")
+    return b1
+
+
+def phase_train_lm(smi):
+    """Phase 11d: the dense LM (smollm-135m, full width) trained with
+    accum_steps 1 and 2, then diffusion-LM steps on DLM_SMOLLM_MEGA."""
+    from repro_torch import prng
+    from repro_torch.configs import DLM_SMOLLM_MEGA, SMOLLM_135M
+    from repro_torch.core import make_schedule
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.diffusion_lm import model as dlm
+    from repro_torch.models import dense
+    from repro_torch.training import (AdamWConfig, init_train_state,
+                                      make_diffusion_train_step,
+                                      make_lm_train_step)
+    cfg = SMOLLM_135M
+    params = dense.init_params(cfg, torch.Generator(
+        device="cuda").manual_seed(0))
+    opt = AdamWConfig(lr=3e-4)
+    data = SyntheticTokens(vocab=cfg.vocab).batches(P11_LM_BATCH, P11_LM_SEQ)
+    tokens = next(data)
+    state0 = init_train_state(params, prng.PRNGKey(1), opt)
+    _zero_all_counts()
+    torch.cuda.reset_peak_memory_stats()
+    one = make_lm_train_step(cfg, opt, accum_steps=1)
+    two = make_lm_train_step(cfg, opt, accum_steps=2)
+    _, m1 = one(state0, {"tokens": tokens})
+    _, m2 = two(state0, {"tokens": tokens})
+    rl, rg = _rel(m2["loss"], m1["loss"]), _rel(m2["grad_norm"],
+                                                 m1["grad_norm"])
+    print(f"[train] {smi} | {cfg.name} step from one state, accum_steps 2 vs "
+          f"1: loss {float(m2['loss']):.6f} / {float(m1['loss']):.6f} (rel "
+          f"{rl:.2e}), grad norm {float(m2['grad_norm']):.6f} / "
+          f"{float(m1['grad_norm']):.6f} (rel {rg:.2e}); tol "
+          f"{P11_ACCUM_RTOL}")
+    check(rl <= P11_ACCUM_RTOL and rg <= P11_ACCUM_RTOL,
+          f"LM accum 2 vs 1: loss {rl}, gnorm {rg}")
+    batches = ({"tokens": t} for t in data)
+    state, ms, walls = _timed_steps(one, state0, batches, P11_LM_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = _all_counts()
+    steady = statistics.median(walls[1:]) * 1e3
+    flops = 3 * _lm_forward_flops(cfg, P11_LM_BATCH, P11_LM_SEQ)
+    bound = flops / FP32_OPS_PER_S * 1e3
+    losses = [float(m["loss"]) for m in ms]
+    print(f"[train] {smi} | {cfg.name} (float32, AdamW) on SyntheticTokens("
+          f"{cfg.vocab}), batch {P11_LM_BATCH} x {P11_LM_SEQ}: first step "
+          f"{walls[0] * 1e3:.1f} ms, steady {steady:.1f} ms/step, "
+          f"{P11_LM_BATCH * P11_LM_SEQ / steady * 1e3:.0f} tokens/s; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; peak {peak_gb:.2f} GB; FLOP "
+          f"bound {bound:.2f} ms (3 x {flops / 3 / 1e12:.3f} TFLOP forward "
+          f"at the float32 SIMT rate), {bound / steady:.3f} of it; "
+          f"launches {counts}")
+    check(all(v == 0 for v in counts.values()), f"LM training: {counts}")
+    fixed = {"tokens": tokens}
+    profile_call(smi, f"one {cfg.name} train step, batch {P11_LM_BATCH} x "
+                 f"{P11_LM_SEQ}", lambda: one(state, fixed), "gemm")
+    del state, state0, params
+
+    dcfg, sch = DLM_SMOLLM_MEGA, make_schedule("linear", 1000)
+    dparams = _dlm_params(dcfg)
+    dstep = make_diffusion_train_step(
+        lambda p, b, r: dlm.training_loss(p, dcfg, sch, b, r), opt)
+    toks = SyntheticTokens(vocab=dcfg.arch.vocab, seed=1).batches(
+        DLM_BATCH, DLM_SEQ)
+    _zero_all_counts()
+    _, ms, walls = _timed_steps(dstep, init_train_state(
+        dparams, prng.PRNGKey(2), opt), toks, P11_DLM_STEPS)
+    counts = _all_counts()
+    print(f"[train] {smi} | diffusion_lm.training_loss on {dcfg.arch.name}, "
+          f"batch {DLM_BATCH} x {DLM_SEQ}, remat: losses "
+          f"{[round(float(m['loss']), 4) for m in ms]}, l_eps "
+          f"{float(ms[-1]['l_eps']):.4f}, l_round "
+          f"{float(ms[-1]['l_round']):.4f}; ms/step "
+          f"{[round(w * 1e3, 1) for w in walls]}; launches {counts}")
+    check(all(v == 0 for v in counts.values())
+          and all(math.isfinite(float(m["loss"])) for m in ms),
+          f"diffusion-LM training: {counts}")
+
+
+def phase_train_cli(smi):
+    """Phase 11e: python -m repro_torch.launch.train --arch unet writes a
+    checkpoint, python -m repro_torch.launch.serve --arch unet --ckpt
+    serves it on the card.  Returns B1 launches of the serve."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.launch import serve, train
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--arch", "unet", "--steps", "20", "--log-every", "10",
+                "--ckpt-dir", tmp]
+        buf = io.StringIO()
+        _zero_all_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _all_counts()
+        out = buf.getvalue().splitlines()
+        print(f"[cli] {smi} | python -m repro_torch.launch.train "
+              f"{' '.join(argv[:-1])} <tmp>: {wall:.2f} s, launches "
+              f"{counts}")
+        for line in out:
+            print(f"[cli]   {line}")
+        check(out[-1].startswith("final checkpoint: ")
+              and all(v == 0 for v in counts.values()),
+              f"train CLI: {out[-1]!r}, launches {counts}")
+        path = out[-1].split(": ", 1)[1]
+        argv = ["--arch", "unet", "--ckpt", path, "--S", "10",
+                "--n-samples", "8", "--batch", "8"]
+        buf = io.StringIO()
+        _zero_counts()
+        with contextlib.redirect_stdout(buf):
+            serve.main(argv)
+        torch.cuda.synchronize()
+        counts = _counts()
+        line = buf.getvalue().strip().splitlines()[-1]
+        print(f"[cli] {smi} | python -m repro_torch.launch.serve --arch unet "
+              f"--ckpt <that file> --S 10 --n-samples 8 --batch 8: {line}; "
+              f"launches {counts}")
+        check(line.startswith("sampled (8, 16, 16, 3)")
+              and counts["B2"] == counts["B3"] == counts["B4"] == 0,
+              f"serve --ckpt: {line!r}, launches {counts}")
+    return counts["B1"]
+
+
+def draw_probe(smi, src) -> None:
+    """--draw-probe: the draw's cost on SRC's tree, as one JSON line: the
+    host µs of one scheduler x_T draw (``_draw_xT``), a steady tick, and at
+    CIFAR10 width serve samples/s (det S=20 and eta=1 S=10, over the
+    serve's wall and as its stats count them, which leave the x_T draw
+    out) and the scheduler's slot-steps/s (over the serve's wall, and over
+    the tick walls, which leave admission out)."""
+    from repro_torch.core import make_schedule
+    from repro_torch.models.unet import make_eps_fn
+    from repro_torch.sampling import SamplerPlan
+    from repro_torch.serving import DiffusionSampler, SampleRequest
+    sch = make_schedule("linear", 1000)
+    model = _cifar10_model()
+    svc = DiffusionSampler(sch, make_eps_fn(model), CARD_SHAPE,
+                           batch_size=BATCH, tile_resident=True)
+    det = SamplerPlan.build(sch, 20)
+    sto = SamplerPlan.build(sch, 10, sigma=1.0)
+    rates = {}
+    for name, plan in (("det_s20", det), ("eta1_s10", sto)):
+        svc.serve(BATCH, plan, seed=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, st = svc.serve(3 * BATCH, plan, seed=1)
+        torch.cuda.synchronize()
+        rates[f"serve_{name}_samples_per_s_wall"] = (
+            3 * BATCH / (time.perf_counter() - t0))
+        rates[f"serve_{name}_samples_per_s_stats"] = st["samples_per_s"]
+    eng = svc.continuous(slots=SCHED_SLOTS)
+    walls = []
+    for i in range(60):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._draw_xT(i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    draw_us = statistics.median(walls[10:]) * 1e6
+
+    def reqs(base):
+        return [SampleRequest(request_id=base + i, S=10, eta=0.0,
+                              seed=base + i) for i in range(2 * SCHED_SLOTS)]
+    eng.serve(reqs(0))
+    eng.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.serve(reqs(100))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    es = eng.stats()
+    print(json.dumps({"card": smi, "probe": "draw", "src": str(src),
+                      "draw_xT_us": draw_us, **rates,
+                      "sched_slot_steps_per_s_wall": es["slot_steps"] / wall,
+                      "sched_slot_steps_per_s_ticks": es["steps_per_s"],
+                      "sched_tick_ewma_ms": es["tick_ewma_s"] * 1e3,
+                      "draw_share_of_tick":
+                          draw_us / 1e3 / (es["tick_ewma_s"] * 1e3)}))
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3515,12 +3999,17 @@ def main(argv=None) -> int:
     ap.add_argument("--lm-probe", metavar="SRC", type=Path,
                     help="only run phase 10's smollm-135m and llama3.2-3b "
                          "runs and checks on SRC/repro_torch")
+    ap.add_argument("--draw-probe", metavar="SRC", type=Path,
+                    help="only time the x_T draw, serve and the U-Net "
+                         "scheduler on SRC/repro_torch (phase 11's cost "
+                         "against another checkout)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    src = (args.launch_probe or args.lm_probe or SRC).resolve()
+    src = (args.launch_probe or args.lm_probe or args.draw_probe
+           or SRC).resolve()
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke: {src / 'repro_torch'} not found; run it from a "
               "checkout of the repository", file=sys.stderr)
@@ -3531,11 +4020,15 @@ def main(argv=None) -> int:
     if args.launch_probe:
         launch_probe(smi)
         return 0
+    if args.draw_probe:
+        draw_probe(smi, src)
+        return 0
     from repro_torch.configs import LLAMA3_2_3B, SMOLLM_135M
     if args.lm_probe:
         phase_lm(smi, SMOLLM_135M, 64)
         phase_lm(smi, LLAMA3_2_3B, 128)
         return 0
+    from repro_torch import prng
     from repro_torch.configs import DLM_SMOLLM, DLM_SMOLLM_MEGA
     phase_build()
     errs = phase_kernels()
@@ -3557,8 +4050,9 @@ def main(argv=None) -> int:
     kernels += phase_times_sched(smi, params2, errs_sched, dlm_counts["B4"],
                                  eng_unet, dlm_mega, dlm_plain)
     gen = torch.Generator(device="cuda").manual_seed(3)
+    key = prng.PRNGKey(3)
     profile_call(smi, f"one serve batch (eta=0, S={det.S}, batch "
-                 f"{svc.batch})", lambda: svc.sample_batch(det, gen),
+                 f"{svc.batch})", lambda: svc.sample_batch(det, key),
                  "step_kernel")
     # Encode / decode / interpolation and the (2, 128) fallback run after
     # every rate above, so that those are timed from the state they were
@@ -3594,10 +4088,19 @@ def main(argv=None) -> int:
     phase_lm(smi, SMOLLM_135M, 64)
     phase_lm(smi, LLAMA3_2_3B, 128)
     phase_lm_cli(smi)
+    # Phase 11 runs last, so that every rate above is timed as before:
+    # JAX's draws on the card, then training (none of the seven kernels
+    # launches in a train step; B1 serves the trained weights).
+    phase_draws_card(smi)
+    b1_p11, b2_p11 = phase_draws_parity(smi)
+    b1_p11 += phase_train_unet(smi)
+    phase_train_lm(smi)
+    b1_p11 += phase_train_cli(smi)
     recs = {r["name"]: r for r in kernels}
-    recs["sampler_step_2d"]["launches"] += b1_auto
+    recs["sampler_step_2d"]["launches"] += b1_auto + b1_p11
     recs["sampler_step_rows_2d"]["launches"] += (b2_auto + b2_p8 + b2_mega
-                                                 + b2_gw + b2_chaos + b2_cli)
+                                                 + b2_gw + b2_chaos + b2_cli
+                                                 + b2_p11)
     recs["megastep_rows_call"]["launches"] += b4_p8
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

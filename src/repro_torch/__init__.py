@@ -20,9 +20,12 @@ resilience layer (``serving.gateway``, ``serving.resilience``), checkpoint
 files (``training.checkpoint``), the U-Net serving CLI
 (``launch.serve``), and autoregressive serving of the dense family: the
 KV-cache path (``models.dense``, ``models.attention``), the family registry
-(``models.get_api``), the architecture configs (``configs.get``), threefry
-sampling keys (``prng``), ``serving.ARGenerator`` and the CLI's ``--arch``
-LM paths.
+(``models.get_api``), the architecture configs (``configs.get``),
+``serving.ARGenerator`` and the CLI's ``--arch`` LM paths; JAX's random
+draws from one seed (``prng``: threefry keys, bits, ``normal``,
+``randint``, ``truncated_normal``) at every draw site; and training: the
+synthetic data (``data``), the optimizers and train steps
+(``training``) and the training CLI (``launch.train``).
 """
 from .device import resolve_device
 

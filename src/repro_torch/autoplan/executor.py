@@ -11,11 +11,14 @@ keys seen, ``calls`` the rollouts run.
 The rollout is the 'tile_resident' backend itself (``run_tile_resident``):
 the (R, 256) tile layout carried through the S steps, one
 ``sampler_step_2d`` (B1) launch per step on the card.  So
-``executor.run(plan, x_T, gen)`` is BITWISE
-``plan.run(eps_fn, x_T, gen, backend='tile_resident')`` under the same
-generator state — the searched scores are scores of exactly what
+``executor.run(plan, x_T, rng)`` is BITWISE
+``plan.run(eps_fn, x_T, rng, backend='tile_resident')`` for the same
+threefry key — the searched scores are scores of exactly what
 ``DiffusionSampler(tile_resident=True)`` serves — and, like that backend,
-bitwise equal to 'eager' for deterministic plans on the CPU.
+bitwise equal to 'eager' for deterministic plans on the CPU.  A
+stochastic rollout therefore draws the tile backend's per-step kernel
+seeds (``randint`` of the key) where JAX's executor, the 'jnp' scan, draws
+``normal`` noise of ``split(rng, S)``.
 """
 from __future__ import annotations
 
@@ -47,9 +50,9 @@ class PlanExecutor:
         self.calls = 0
 
     def run(self, plan: SamplerPlan, x_T: torch.Tensor,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            rng: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Execute ``plan`` from x_T — bitwise the 'tile_resident' backend."""
-        if plan.stochastic and generator is None:
+        if plan.stochastic and rng is None:
             raise ValueError("stochastic candidate plan needs rng")
         key = (plan.S, plan.order, plan.stochastic, plan.x0.clip,
                tuple(x_T.shape), str(x_T.dtype))
@@ -58,7 +61,7 @@ class PlanExecutor:
             self.traces += 1
         self.calls += 1
         with torch.no_grad():
-            return run_tile_resident(plan, self.eps_fn, x_T, generator)
+            return run_tile_resident(plan, self.eps_fn, x_T, rng)
 
     @property
     def compiled(self) -> int:

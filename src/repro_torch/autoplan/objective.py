@@ -25,10 +25,9 @@ per-transition terms, so the DP's exact-optimality guarantee is intact.
 
 The model runs in float32 on x0's device under ``torch.inference_mode``;
 the tables are float64 numpy on the host.  ``build_objective`` draws its
-forward-process noise from a ``torch.Generator`` seeded with
-``ObjectiveConfig.seed`` on x0's device, so the port's table for a seed
-differs from the JAX package's (threefry is not ported); the functions
-below take the noise explicitly, so both packages can be fed one draw.
+forward-process noise with ``prng.normal(PRNGKey(ObjectiveConfig.seed))``
+on x0's device, JAX's draw, so one seed gives the JAX package's table; the
+functions below take the noise explicitly.
 """
 from __future__ import annotations
 
@@ -38,6 +37,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.core.schedules import NoiseSchedule
 from repro_torch.eval import TransitionTable, transition_elbo_table
 from repro_torch.eval.elbo import _alpha_bar_f32, eps_mse
@@ -225,25 +225,22 @@ def step_doubling_defect(schedule: NoiseSchedule, eps_fn, x0: torch.Tensor,
 
 def build_objective(schedule: NoiseSchedule, eps_fn, x0: torch.Tensor,
                     cfg: ObjectiveConfig = ObjectiveConfig(),
-                    generator: Optional[torch.Generator] = None
-                    ) -> ObjectiveTable:
+                    rng: Optional[torch.Tensor] = None) -> ObjectiveTable:
     """Tabulate the combined DP objective for one model on one grid.
 
     ``x0`` is a data batch (at least ``cfg.batch`` rows; extra rows are
     dropped) on the device the model runs on.  The same forward-process
-    noise draw — from ``generator``, by default a ``torch.Generator``
-    seeded with ``cfg.seed`` on x0's device — feeds both the ELBO table
+    noise draw — ``normal(rng)``, by default ``rng = PRNGKey(cfg.seed)``
+    on x0's device, as in JAX — feeds both the ELBO table
     and the defect table, so the two terms see the same x_t states, and
     the per-timestep eps evaluations are computed ONCE and shared (the
     ELBO's eps-MSE and the defect's direct jumps both read them).
     """
     x0 = torch.as_tensor(x0)[: cfg.batch]
-    if generator is None:
-        generator = torch.Generator(device=x0.device).manual_seed(cfg.seed)
+    if rng is None:
+        rng = prng.PRNGKey(cfg.seed, x0.device)
     grid = make_grid(schedule.T, cfg.grid_size, cfg.grid_kind)
-    noise = torch.randn((len(grid),) + tuple(x0.shape), generator=generator,
-                        dtype=torch.float32,
-                        device=generator.device).to(x0.device)
+    noise = prng.normal(rng, (len(grid),) + tuple(x0.shape)).to(x0.device)
     eps_table = _eps_table(schedule, eps_fn, x0, grid, noise, cfg.chunk)
     mse = eps_mse(eps_table[1], noise)
     elbo = transition_elbo_table(schedule, eps_fn, x0, grid=grid,

@@ -3,17 +3,18 @@ of ``repro/core/diffusion.py``.
 
 Everything here is a function of (schedule, tensors); the ε-network is
 passed in as ``eps_fn(x_t, t) -> eps`` where ``t`` is an int32 tensor of
-timesteps (one per batch element, values in [1, T]).  Forward functions
-only: the port has no optimiser or trainer yet.  The math runs in the
-inputs' dtype on their device; ``alpha_bar`` is the schedule's float32
-table, moved there.  Where JAX splits a PRNG key, the port takes an
-explicit ``torch.Generator``.
+timesteps (one per batch element, values in [1, T]).  The math runs in
+the inputs' dtype on their device; ``alpha_bar`` is the schedule's float32
+table, moved there.  Where JAX splits a PRNG key, the port splits the
+same threefry key (``repro_torch.prng``), so one key gives JAX's draws.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional, Union
 
 import torch
+
+from repro_torch import prng
 
 from .schedules import NoiseSchedule
 
@@ -106,14 +107,13 @@ def simple_loss(schedule: NoiseSchedule, eps_fn: EpsFn, x0: torch.Tensor,
 
 
 def training_loss(schedule: NoiseSchedule, eps_fn: EpsFn, x0: torch.Tensor,
-                  generator: torch.Generator,
+                  rng: torch.Tensor,
                   weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Draw (t, ε) from ``generator`` and evaluate the denoising loss — one
-    training step's loss.  The draws are torch's, not JAX's: the same seed
-    gives other (t, ε) than the JAX function's key."""
-    t = torch.randint(1, schedule.T + 1, (x0.shape[0],), generator=generator,
-                      device=generator.device, dtype=torch.int32)
-    noise = torch.randn(x0.shape, generator=generator, dtype=x0.dtype,
-                        device=generator.device)
+    """Draw (t, ε) and evaluate the denoising loss — one training step's
+    loss.  ``k_t, k_e = split(rng)``, t int32 uniform on [1, T], ε normal
+    of x0's shape, as the JAX function draws them."""
+    k_t, k_e = prng.split(rng)
+    t = prng.randint(k_t, (x0.shape[0],), 1, schedule.T + 1)
+    noise = prng.normal(k_e, x0.shape).to(x0.dtype)
     return simple_loss(schedule, eps_fn, x0, t.to(x0.device),
                        noise.to(x0.device), weights)

@@ -57,7 +57,7 @@ def trajectory_coefficients(schedule: NoiseSchedule, cfg: SamplerConfig):
 
 
 def sample(schedule: NoiseSchedule, eps_fn, x_T: torch.Tensor,
-           cfg: SamplerConfig, generator: Optional[torch.Generator] = None,
+           cfg: SamplerConfig, rng: Optional[torch.Tensor] = None,
            tile_resident: bool = False,
            backend: Optional[str] = None,
            return_trajectory: bool = False):
@@ -66,16 +66,16 @@ def sample(schedule: NoiseSchedule, eps_fn, x_T: torch.Tensor,
     Builds the plan for ``cfg`` and runs backend 'eager' (the counterpart
     of JAX's 'jnp'), or 'tile_resident' when ``tile_resident``; an explicit
     ``backend`` ('eager' | 'tile_resident' | 'rows' | 'mega') overrides
-    the flag.  ``generator`` is required iff eta > 0 or sigma_hat.  With
-    ``return_trajectory`` it returns ``(x_0, traj)``, traj the
+    the flag.  ``rng`` (a threefry key) is required iff eta > 0 or
+    sigma_hat; the step noise is drawn from ``split(rng, S)`` as in JAX.
+    With ``return_trajectory`` it returns ``(x_0, traj)``, traj the
     (S + 1, ...) stack of iterates.
     """
-    if (cfg.eta > 0.0 or cfg.sigma_hat) and generator is None:
-        raise ValueError("stochastic sampler (eta>0 or sigma_hat) needs a "
-                         "generator")
+    if (cfg.eta > 0.0 or cfg.sigma_hat) and rng is None:
+        raise ValueError("stochastic sampler (eta>0 or sigma_hat) needs rng")
     if backend is None:
         backend = "tile_resident" if tile_resident else "eager"
-    return cfg.to_plan(schedule).run(eps_fn, x_T, generator, backend=backend,
+    return cfg.to_plan(schedule).run(eps_fn, x_T, rng, backend=backend,
                                      return_trajectory=return_trajectory)
 
 
@@ -94,7 +94,7 @@ def ddim_sample(schedule: NoiseSchedule, eps_fn, x_T: torch.Tensor,
 
 
 def ddpm_sample(schedule: NoiseSchedule, eps_fn, x_T: torch.Tensor,
-                generator: torch.Generator, S: Optional[int] = None,
+                rng: torch.Tensor, S: Optional[int] = None,
                 tau_kind: str = "linear", sigma_hat: bool = False, **kw):
     """DEPRECATED: use ``SamplerPlan.build(schedule, tau=S, sigma=1.0)``.
 
@@ -104,11 +104,11 @@ def ddpm_sample(schedule: NoiseSchedule, eps_fn, x_T: torch.Tensor,
     warnings.warn(
         "ddpm_sample is deprecated: use repro_torch.sampling.SamplerPlan."
         "build(schedule, tau=S, sigma=SigmaSpec.ddpm(...)).run(eps_fn, x_T, "
-        "generator)", DeprecationWarning, stacklevel=2)
+        "rng)", DeprecationWarning, stacklevel=2)
     S = S if S is not None else schedule.T
     return sample(schedule, eps_fn, x_T,
                   SamplerConfig(S=S, eta=1.0, tau_kind=tau_kind,
-                                sigma_hat=sigma_hat), generator, **kw)
+                                sigma_hat=sigma_hat), rng, **kw)
 
 
 class StepStates(NamedTuple):

@@ -16,7 +16,10 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import prng
+from repro_torch.core.diffusion import q_sample
 from repro_torch.core.sampler import SamplerConfig, sample
 from repro_torch.core.schedules import NoiseSchedule
 from repro_torch.device import DeviceLike, resolve_device
@@ -109,15 +112,12 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def _layer(layers, i: int):
-    if isinstance(layers, dict):
-        return {k: _layer(v, i) for k, v in layers.items()}
-    return layers[i]
-
-
 def eps_forward(params: Params, cfg: DiffusionLMConfig, x_t: torch.Tensor,
-                t: torch.Tensor) -> torch.Tensor:
-    """eps prediction over latent sequences. x_t: (B,S,d); t: (B,) int."""
+                t: torch.Tensor, remat: bool = False) -> torch.Tensor:
+    """eps prediction over latent sequences. x_t: (B,S,d); t: (B,) int.
+    ``remat`` recomputes each layer's activations in the backward pass
+    (``torch.utils.checkpoint``, JAX's ``jax.checkpoint`` of the layer
+    scan): less memory, the same numbers."""
     _check_family(cfg)
     a = cfg.arch
     temb = sinusoidal_time_embedding(t, cfg.time_dim).to(x_t.dtype)
@@ -126,9 +126,12 @@ def eps_forward(params: Params, cfg: DiffusionLMConfig, x_t: torch.Tensor,
     B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=h.device)[None].expand(B, S)
-    for i in range(a.n_layers):
-        h = dense.layer_fwd(_layer(params["layers"], i), a, h, positions,
-                            causal=False)
+    for layer in dense.unstack_layers(params["layers"], a.n_layers):
+        if remat and torch.is_grad_enabled():
+            h = checkpoint(dense.layer_fwd, layer, a, h, positions, False,
+                           use_reentrant=False)
+        else:
+            h = dense.layer_fwd(layer, a, h, positions, causal=False)
     h = rms_norm(h, params["out_norm"], a.norm_eps)
     return h @ params["w_out"]
 
@@ -191,8 +194,32 @@ def round_to_tokens(params: Params, x0: torch.Tensor) -> torch.Tensor:
     return torch.argmax(x0 @ params["rounding"], dim=-1).to(torch.int32)
 
 
+def training_loss(params: Params, cfg: DiffusionLMConfig,
+                  schedule: NoiseSchedule, tokens: torch.Tensor,
+                  rng: torch.Tensor, rounding_weight: float = 1.0,
+                  remat: bool = True):
+    """L_simple on latents + the rounding cross-entropy (keeps latents
+    decodable); paper Eq. 5 with gamma = 1.  Returns (loss, {"l_eps",
+    "l_round"}).  (t, eps) come from ``split(rng)`` as in JAX; the forward
+    runs with autograd on."""
+    k_t, k_e = prng.split(rng)
+    x0 = embed_tokens(params, tokens)
+    t = prng.randint(k_t, (tokens.shape[0],), 1, schedule.T + 1)
+    noise = prng.normal(k_e, x0.shape).to(x0.dtype).to(x0.device)
+    t = t.to(x0.device)
+    x_t = q_sample(schedule, x0, t, noise)
+    eps_hat = eps_forward(params, cfg, x_t, t, remat=remat)
+    l_eps = torch.mean(torch.square(eps_hat - noise))
+    logits = x0 @ params["rounding"]
+    l_round = -torch.mean(torch.gather(
+        torch.log_softmax(logits, dim=-1), -1,
+        tokens.long()[..., None]))
+    loss = l_eps + rounding_weight * l_round
+    return loss, {"l_eps": l_eps, "l_round": l_round}
+
+
 def generate(params: Params, cfg: DiffusionLMConfig,
-             schedule: NoiseSchedule, generator: torch.Generator,
+             schedule: NoiseSchedule, rng: torch.Tensor,
              batch: int, seq_len: int,
              sampler: Optional[SamplerConfig] = None,
              tile_resident: bool = False,
@@ -200,11 +227,12 @@ def generate(params: Params, cfg: DiffusionLMConfig,
     """Sample (batch, seq_len) int32 token sequences with the DDIM process.
 
     Runs on ``device`` (CUDA unless named), where ``params`` must lie.
-    x_T and, for stochastic samplers, the per-step seeds come from
-    ``generator``.  ``tile_resident=True`` runs the loop in the tile layout
-    with the tile-aware eps model when the latent aligns to the tile
-    granule (the adapter path otherwise), on ``backend='mega'``: eligible
-    trunks run fused, everything else the tile-resident loop.
+    ``k_init, k_samp = split(rng)``: x_T is ``normal(k_init)`` and the
+    sampler runs with ``k_samp``, as in JAX.  ``tile_resident=True`` runs
+    the loop in the tile layout with the tile-aware eps model when the
+    latent aligns to the tile granule (the adapter path otherwise), on
+    ``backend='mega'``: eligible trunks run fused, everything else the
+    tile-resident loop.
     """
     dev = resolve_device(device)
     on = params["w_in"].device
@@ -212,16 +240,16 @@ def generate(params: Params, cfg: DiffusionLMConfig,
                                and on.index != dev.index):
         raise ValueError(f"params lie on {on}, not on {dev}")
     sampler = sampler or SamplerConfig(S=50, eta=0.0)
-    x_T = torch.randn((batch, seq_len, cfg.latent_dim), generator=generator,
-                      device=generator.device).to(dev)
+    k_init, k_samp = prng.split(rng.to(dev))
+    x_T = prng.normal(k_init, (batch, seq_len, cfg.latent_dim))
     if tile_resident:
         try:
             eps_fn = make_tile_eps_fn(params, cfg, batch, seq_len)
         except ValueError:   # unaligned latent: adapter path still works
             eps_fn = make_eps_fn(params, cfg)
-        x0 = sample(schedule, eps_fn, x_T, sampler, generator,
+        x0 = sample(schedule, eps_fn, x_T, sampler, k_samp,
                     tile_resident=True, backend="mega")
     else:
         x0 = sample(schedule, make_eps_fn(params, cfg), x_T, sampler,
-                    generator)
+                    k_samp)
     return round_to_tokens(params, x0)

@@ -31,9 +31,9 @@ discretized decoder), and the prior column is the closed-form Gaussian KL.
 All terms are NATS PER DIMENSION; ``path_bpd`` converts a trajectory's sum
 to bits/dim for Table-1-style likelihood reporting.
 
-The forward-process noise comes from a ``torch.Generator`` (the JAX
-package draws it from a threefry key), so one seed gives another table
-than in the JAX package; ``noise=`` hands both packages the same draw.
+The forward-process noise is ``prng.normal`` of a threefry key, JAX's
+draw, so one key gives the JAX package's table; ``noise=`` injects a
+draw.
 """
 from __future__ import annotations
 
@@ -43,6 +43,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.core.schedules import NoiseSchedule
 
 LN2 = float(np.log(2.0))
@@ -148,7 +149,7 @@ def _mse_per_t(schedule: NoiseSchedule, eps_fn, x0: torch.Tensor,
 
 
 def transition_elbo_table(schedule: NoiseSchedule, eps_fn, x0: torch.Tensor,
-                          generator: Optional[torch.Generator] = None,
+                          rng: Optional[torch.Tensor] = None,
                           grid: Optional[Sequence[int]] = None,
                           eta: float = 1.0, recon_sigma: float = 0.1,
                           chunk: int = 32,
@@ -161,9 +162,9 @@ def transition_elbo_table(schedule: NoiseSchedule, eps_fn, x0: torch.Tensor,
       schedule: the T-step noise schedule the model was trained with.
       eps_fn: eps_theta(x_t, t), t an int32 per-row tensor on x0's device.
       x0: (B, *shape) data batch for the Monte-Carlo expectation.
-      generator: torch.Generator for the forward-process noise (ignored
-        when ``noise`` is given; required otherwise).  The noise is drawn
-        on the generator's device and moved to x0's.
+      rng: threefry key for the forward-process noise (ignored when
+        ``noise`` is given; required otherwise).  The noise is drawn where
+        the key lies and moved to x0's device.
       grid: increasing timesteps in [1, T] to tabulate (default: all of
         1..T).  Grid size G costs G model evals and a (G+1)^2 table.
       eta: Eq. 16 noise level defining the transition variances; must be
@@ -207,12 +208,10 @@ def transition_elbo_table(schedule: NoiseSchedule, eps_fn, x0: torch.Tensor,
             raise ValueError(f"mse shape {mse.shape} != ({G},)")
     else:
         if noise is None:
-            if generator is None:
+            if rng is None:
                 raise ValueError("need rng (or explicit noise) for the "
                                  "Monte-Carlo eps-MSE estimate")
-            noise = torch.randn((G,) + tuple(x0.shape), generator=generator,
-                                dtype=torch.float32,
-                                device=generator.device)
+            noise = prng.normal(rng, (G,) + tuple(x0.shape))
         elif tuple(noise.shape) != (G,) + tuple(x0.shape):
             raise ValueError(f"noise shape {tuple(noise.shape)} != "
                              f"{(G,) + tuple(x0.shape)}")

@@ -20,7 +20,7 @@ once per step) and ``decode_step_inplace`` is ``decode_step``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -116,6 +116,19 @@ def layer_params(layers: Dict, i: int) -> Dict:
     return layers[i]
 
 
+def unstack_layers(layers: Dict, n_layers: int) -> List[Dict]:
+    """Every layer of the stacked leaves, each leaf cut once by
+    ``unbind`` (views, no copies).  Under autograd the layers' gradients
+    then stack back in one op per leaf, where indexing layer by layer
+    would add each one into a zero gradient of the whole stack."""
+    def cut(node):
+        if isinstance(node, dict):
+            parts = {k: cut(v) for k, v in node.items()}
+            return [{k: parts[k][i] for k in parts} for i in range(n_layers)]
+        return node.unbind(0)
+    return cut(layers)
+
+
 def layer_fwd(layer: Dict, cfg: ArchConfig, x: torch.Tensor,
               positions: torch.Tensor, causal: bool = True) -> torch.Tensor:
     h = x + gqa_forward(layer["attn"], cfg,
@@ -155,8 +168,8 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     h = _embed(params, tokens, embeds)
     B, S, _ = h.shape
     positions = _positions(B, S, h.device)
-    for i in range(cfg.n_layers):
-        h = layer_fwd(layer_params(params["layers"], i), cfg, h, positions)
+    for layer in unstack_layers(params["layers"], cfg.n_layers):
+        h = layer_fwd(layer, cfg, h, positions)
     return _logits(params, cfg, h)
 
 

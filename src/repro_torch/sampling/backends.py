@@ -8,7 +8,8 @@ on the kernel backends' CPU path:
 
   run_eager          plain PyTorch loop over the natural shape (the
                      counterpart of the JAX 'jnp' reference; its noise, for
-                     stochastic plans, comes from torch.randn).
+                     stochastic plans, is ``prng.normal`` of one key per
+                     step, as JAX draws it).
   run_tile_resident  the production hot path: one conversion into the
                      padded (R, 256) tile layout, the whole S-step loop
                      carried there, one sampler_step_2d launch per step.
@@ -28,11 +29,11 @@ convert each step's state back with ``from_tile_layout`` /
 ``from_slot_tile_layout`` (views of the step's output, no copy per step).
 
 Randomness stays outside the step loops: the kernel backends draw their
-per-step int32 seeds from the generator up front (``(S,)`` for the scalar
-kernel, ``(S, B)`` per-slot seeds for the rows kernel), then run the inner
-loops ``_loop_tiles`` / ``_loop_rows``, which tests can hand the very seeds
-the JAX package drew.  Deterministic plans draw nothing and launch the
-kernels' no-PRNG specializations.
+per-step int32 seeds from the run's threefry key up front with JAX's
+``randint`` (``(S,)`` for the scalar kernel, ``(S, B)`` per-slot seeds for
+the rows kernel), so one key gives the JAX package's seeds, then run the
+inner loops ``_loop_tiles`` / ``_loop_rows``.  Deterministic plans draw
+nothing and launch the kernels' no-PRNG specializations.
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.core.solver import mix_history, warmup_weights
 from repro_torch.kernels.sampler_step import ops as tile_ops
 from repro_torch.kernels.sampler_step.ref import update
@@ -70,10 +72,10 @@ def _timesteps(t: int, batch: int, device) -> torch.Tensor:
     return torch.full((batch,), int(t), dtype=torch.int32, device=device)
 
 
-def _draw_seeds(generator: torch.Generator, size) -> torch.Tensor:
-    """int32 seeds in [0, 2**31 - 1), as the JAX backends draw them."""
-    return torch.randint(0, _INT32_MAX, size, generator=generator,
-                         device=generator.device, dtype=torch.int32)
+def _draw_seeds(rng: torch.Tensor, size) -> torch.Tensor:
+    """int32 seeds in [0, 2**31 - 1) from the key ``rng``, as the JAX
+    backends draw them."""
+    return prng.randint(rng, size, 0, _INT32_MAX)
 
 
 def _result(x0: torch.Tensor, x_T: torch.Tensor, traj: Optional[list]):
@@ -84,10 +86,10 @@ def _result(x0: torch.Tensor, x_T: torch.Tensor, traj: Optional[list]):
 
 
 # ----------------------------------------------------------------- eager
-def run_eager(plan, eps_fn, x_T: torch.Tensor,
-              generator: Optional[torch.Generator],
+def run_eager(plan, eps_fn, x_T: torch.Tensor, rng: Optional[torch.Tensor],
               return_trajectory: bool = False):
     tab = _table(plan, x_T.device)
+    keys = prng.split(rng, plan.S) if plan.stochastic else None
     ts = plan.steps()["t"]
     clip, order = plan.x0.clip, plan.order
     x, hist = x_T, _hist0(order, x_T.shape, x_T.device)
@@ -98,9 +100,8 @@ def run_eager(plan, eps_fn, x_T: torch.Tensor,
         out = kernel_update(x.float(), e32, tab["c_x0"][k], tab["c_dir"][k],
                             tab["sqrt_a_t"][k], tab["sqrt_1m_a_t"][k], clip)
         if plan.stochastic:
-            out = out + tab["c_noise"][k] * torch.randn(
-                x.shape, generator=generator, dtype=torch.float32,
-                device=generator.device).to(x.device)
+            out = out + tab["c_noise"][k] * prng.normal(
+                keys[k], x.shape).to(x.device)
         x = out.to(x_T.dtype)
         if traj is not None:
             traj.append(x)
@@ -109,9 +110,9 @@ def run_eager(plan, eps_fn, x_T: torch.Tensor,
 
 # --------------------------------------------------------- tile_resident
 def run_tile_resident(plan, eps_fn, x_T: torch.Tensor,
-                      generator: Optional[torch.Generator],
+                      rng: Optional[torch.Tensor],
                       return_trajectory: bool = False):
-    seeds = _draw_seeds(generator, (plan.S,)) if plan.stochastic else None
+    seeds = _draw_seeds(rng, (plan.S,)) if plan.stochastic else None
     traj = [] if return_trajectory else None
     x2, n = tile_ops.to_tile_layout(x_T)              # conversion #1 (entry)
     x2 = _loop_tiles(plan, eps_fn, x2, seeds, n, x_T.shape, traj)
@@ -153,11 +154,10 @@ def _loop_tiles(plan, eps_fn, x2: torch.Tensor, seeds, n: int, shape,
 
 
 # ------------------------------------------------------------------ rows
-def run_rows(plan, eps_fn, x_T: torch.Tensor,
-             generator: Optional[torch.Generator],
+def run_rows(plan, eps_fn, x_T: torch.Tensor, rng: Optional[torch.Tensor],
              return_trajectory: bool = False):
     B = x_T.shape[0]
-    seeds = _draw_seeds(generator, (plan.S, B)) if plan.stochastic else None
+    seeds = _draw_seeds(rng, (plan.S, B)) if plan.stochastic else None
     traj = [] if return_trajectory else None
     x2, n = tile_ops.to_slot_tile_layout(x_T)
     x2 = _loop_rows(plan, eps_fn, x2, seeds, n, x_T.shape, traj)
@@ -204,8 +204,7 @@ def _loop_rows(plan, eps_fn, x2: torch.Tensor, seeds, n: int, batch_shape,
 
 
 # ------------------------------------------------------------------ mega
-def run_mega(plan, eps_fn, x_T: torch.Tensor,
-             generator: Optional[torch.Generator],
+def run_mega(plan, eps_fn, x_T: torch.Tensor, rng: Optional[torch.Tensor],
              k_fuse: Optional[int] = None, return_trajectory: bool = False):
     """The megakernel path: trunk + update fused, K plan steps per launch.
 
@@ -230,8 +229,7 @@ def run_mega(plan, eps_fn, x_T: torch.Tensor,
                           "keep no iterates)")
     run_mega.last_reason = why
     if not ok:
-        return run_tile_resident(plan, eps_fn, x_T, generator,
-                                 return_trajectory)
+        return run_tile_resident(plan, eps_fn, x_T, rng, return_trajectory)
     spec = eps_fn.mega_spec
     tab = plan.steps()
     S = plan.S

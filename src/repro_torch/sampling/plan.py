@@ -20,7 +20,7 @@ schedule digests.
   plan.encode(eps_fn, x_0)   the ODE direction x_0 -> x_T on the plan's
       own tau and solver order (paper §4.3); a deterministic ``run``
       decodes it (paper Table 2)
-  plan.run(eps_fn, x_T, generator, backend=...)   backend in
+  plan.run(eps_fn, x_T, rng, backend=...)   backend in
       'eager'          plain PyTorch loop over the natural shape (the
                        counterpart of the JAX 'jnp' reference)
       'tile_resident'  the (R, 256) tile layout carried through the loop,
@@ -161,7 +161,7 @@ class SamplerPlan:
 
     @property
     def stochastic(self) -> bool:
-        """True iff any step injects noise (needs a generator)."""
+        """True iff any step injects noise (needs a key)."""
         return bool(np.any(self._table["c_noise"] > 0.0))
 
     # -------------------------------------------------------------- views
@@ -182,7 +182,7 @@ class SamplerPlan:
 
     # ---------------------------------------------------------- execution
     def run(self, eps_fn, x_T: torch.Tensor,
-            generator: Optional[torch.Generator] = None, *,
+            rng: Optional[torch.Tensor] = None, *,
             backend: str = "eager", return_trajectory: bool = False,
             k_fuse: Optional[int] = None):
         """Execute the plan from x_T to x_0 on the device x_T lies on.
@@ -193,8 +193,10 @@ class SamplerPlan:
           x_T: (batch, *shape) initial latent, float32 or bfloat16: N(0, I)
             for generation, or an encoding from :meth:`encode` for
             reconstruction.
-          generator: torch.Generator on x_T's device; required iff the plan
-            is stochastic (per-step kernel seeds / eager noise come from it).
+          rng: a threefry key (``prng.PRNGKey``) on x_T's device; required
+            iff the plan is stochastic.  The per-step kernel seeds and the
+            eager noise are drawn from it as the JAX backends draw them, so
+            one key gives JAX's draws.
           backend: 'eager' | 'tile_resident' | 'rows' | 'mega'.  On
             'tile_resident' (and 'mega') a model may declare
             ``eps_fn.tile_aware = True`` to receive the (R, 256) tile view;
@@ -212,19 +214,19 @@ class SamplerPlan:
         if backend not in _BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; choose from "
                              f"{_BACKENDS}")
-        if self.stochastic and generator is None:
-            raise ValueError("stochastic plan needs a generator (sigma > 0 "
+        if self.stochastic and rng is None:
+            raise ValueError("stochastic plan needs rng (sigma > 0 "
                              "somewhere in the schedule)")
         if k_fuse is not None and backend != "mega":
             raise ValueError("k_fuse is a 'mega' backend knob")
         with torch.no_grad():
             if backend == "mega":
-                return backends.run_mega(self, eps_fn, x_T, generator,
-                                         k_fuse, return_trajectory)
+                return backends.run_mega(self, eps_fn, x_T, rng, k_fuse,
+                                         return_trajectory)
             fn = {"eager": backends.run_eager,
                   "tile_resident": backends.run_tile_resident,
                   "rows": backends.run_rows}[backend]
-            return fn(self, eps_fn, x_T, generator, return_trajectory)
+            return fn(self, eps_fn, x_T, rng, return_trajectory)
 
     def encode(self, eps_fn, x_0: torch.Tensor) -> torch.Tensor:
         """Integrate the ODE view FORWARD: x_0 -> x_T (paper §4.3, Eq. 13),

@@ -250,18 +250,20 @@ class DiffusionSampler:
             raise ValueError("the plan bank is empty")
         return plan
 
-    def sample_batch(self, cfg, generator: torch.Generator,
+    def sample_batch(self, cfg, rng: torch.Tensor,
                      n: Optional[int] = None) -> Tuple[torch.Tensor, float]:
         """One batch for ``cfg`` (a SamplerPlan, a SamplerConfig or
-        ``"auto"``): (samples, seconds of the plan run)."""
+        ``"auto"``): (samples, seconds of the plan run).  ``k1, k2 =
+        split(rng)``: x_T is ``normal(k1)`` (float32, cast to the service's
+        dtype) and the plan runs with ``k2``, as in JAX."""
         plan = self._as_plan(cfg)
         batch = self._bucket_for(n) if n is not None else self.batch
-        x_T = torch.randn((batch,) + self.shape, generator=generator,
-                          dtype=self.dtype, device=self.device)
+        k1, k2 = prng.split(rng.to(self.device))
+        x_T = prng.normal(k1, (batch,) + self.shape).to(self.dtype)
         backend = "tile_resident" if self.tile_resident else "eager"
         synchronize(self.device)
         t0 = time.perf_counter()
-        out = plan.run(self.eps_fn, x_T, generator, backend=backend)
+        out = plan.run(self.eps_fn, x_T, k2, backend=backend)
         synchronize(self.device)
         return out, time.perf_counter() - t0
 
@@ -270,8 +272,9 @@ class DiffusionSampler:
         """Produce n_samples in lockstep batches; returns samples + stats.
         ``cfg`` may be a SamplerPlan, a legacy SamplerConfig or ``"auto"``.
 
-        x_T and the per-step kernel seeds come from one torch.Generator on
-        the service's device, seeded with ``seed``.  The first batch
+        x_T and the per-step kernel seeds come from ``PRNGKey(seed)`` on
+        the service's device, split once per chunk as JAX splits it, so
+        one seed gives JAX's draws.  The first batch
         includes the kernels' first-use build; the steady-state figures
         exclude it when there is more than one batch.
         """
@@ -284,11 +287,12 @@ class DiffusionSampler:
                            "steady_batch_s": 0.0, "samples_per_s": 0.0,
                            "net_evals_per_sample": plan.S,
                            "dtype": dtype_name}
-        generator = torch.Generator(device=self.device).manual_seed(seed)
+        rng = prng.PRNGKey(seed, self.device)
         outs, times, sizes = [], [], []
         delivered = 0
         for bucket in self._chunk_plan(n_samples):
-            out, dt = self.sample_batch(plan, generator, n=bucket)
+            rng, sub = prng.split(rng)
+            out, dt = self.sample_batch(plan, sub, n=bucket)
             outs.append(out)
             times.append(dt)
             # throughput counts DELIVERED samples only: the final chunk's

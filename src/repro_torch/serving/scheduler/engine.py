@@ -22,10 +22,9 @@ multistep engines also carry a (max_order-1, R, 256) float32 eps-history
 stack.  Writes into a slot's rows (admission, restore) are in place.
 
 Differences from the JAX engine:
-  * x_T comes from a ``torch.Generator`` seeded with ``req.seed`` on the
-    engine's device, so one seed gives another x_T than in the JAX
-    package; ``SampleRequest(resume=SlotCheckpoint(k=0, x_rows=...))``
-    hands both engines the same x_T.
+  * x_T is ``prng.normal(PRNGKey(req.seed))``, JAX's draw, in float32 and
+    then cast to the engine's dtype (JAX draws a bfloat16 engine's x_T in
+    bfloat16).
   * The tick ends in ``torch.cuda.synchronize`` where JAX blocks on the
     result, so the tick wall and its EWMA measure the same thing.  The
     per-tick slot states ship to the device in one host-to-device copy.
@@ -63,6 +62,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.core.sampler import StepStates, slot_tile_step
 from repro_torch.core.schedules import NoiseSchedule
 from repro_torch.core.solver import MAX_ORDER
@@ -695,11 +695,10 @@ class ContinuousBatchingEngine:
                                  pool_id=self.pool_id)
 
     def _draw_xT(self, seed: int) -> torch.Tensor:
-        """x_T of one slot, (rows_per_slot, 256), from a torch.Generator
-        seeded with the request's seed on the engine's device."""
-        gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        x = torch.randn((1,) + self.shape, generator=gen, dtype=self.dtype,
-                        device=self.device)
+        """x_T of one slot, (rows_per_slot, 256): JAX's normal from
+        ``PRNGKey(seed)`` on the engine's device."""
+        key = prng.PRNGKey(int(seed), self.device)
+        x = prng.normal(key, (1,) + self.shape).to(self.dtype)
         return tile_ops.to_slot_tile_layout(x)[0]
 
     def _admit(self, now: float, results: List[SampleResult]) -> None:

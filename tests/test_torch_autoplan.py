@@ -4,8 +4,8 @@ scheduler's ``plan_bank`` / ``auto_plan`` admission and
 ``DiffusionSampler(plan_bank=)``) against the JAX package's.
 
 Inputs are made with numpy from a seed and handed to both sides; the
-forward-process noise is drawn the port's way (a ``torch.Generator``) and
-injected into JAX's functions.  Eps models, each written in both
+forward-process noise is drawn the port's way (``prng.normal`` of the
+config's seed, JAX's draw) and injected into JAX's functions.  Eps models, each written in both
 frameworks: the closed-form eps of N(mu, s^2) data on shape (2,) / (8,)
 (``tests/test_autoplan.py``'s analytic model), and the elementwise mu = 0
 case eps = x * f[t] on (8, 8, 3) images (the feature path).
@@ -29,7 +29,7 @@ Tolerances:
     ``test_step_doubling_defect_vs_float64`` holds the port to twice the
     reference's own distance;
   * ``PlanExecutor``: bitwise against the port's ``tile_resident`` (det
-    and stoch, one generator seed) and, for eta = 0, against ``eager``;
+    and stoch, one threefry key) and, for eta = 0, against ``eager``;
     4 float32 ulps of max(|x_T|, |x_0|) against JAX's ``PlanExecutor``;
   * ``PlanBank``: JSON equal key for key across the packages; ``best`` /
     ``select`` outcomes equal;
@@ -60,6 +60,7 @@ from repro.sampling import TauSpec as JTau
 from repro.serving.scheduler import ContinuousBatchingEngine as JEngine
 from repro.serving.scheduler import SampleRequest as JReq
 from repro.serving.scheduler import SlotCheckpoint as JCk
+from repro_torch import prng
 from repro_torch import autoplan as tap
 from repro_torch.autoplan import objective as tobj
 from repro_torch.core import SamplerConfig, make_schedule
@@ -118,8 +119,7 @@ def _rand(seed, *shape, loc=0.0, scale=1.0):
 
 def _port_noise(seed, shape):
     """The forward-process noise ``build_objective`` draws on the CPU."""
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    return torch.randn(shape, generator=g, dtype=torch.float32)
+    return prng.normal(prng.PRNGKey(seed, "cpu"), shape)
 
 
 def _assert_elbo_match(t, j):
@@ -272,10 +272,10 @@ def test_build_objective_matches_jax(model):
     assert got.config is cfg and got.quality_weight == 1.0
     np.testing.assert_array_equal(got.cost, got.elbo.trans + got.defect)
     np.testing.assert_array_equal(got.nodes, np.concatenate([[0], grid]))
-    # a caller's generator draws the same noise; quality_weight 0 drops
-    # the defect
+    # a caller's key draws the same noise; quality_weight 0 drops the
+    # defect
     again = tap.build_objective(TSCH, teps, torch.from_numpy(x0), cfg,
-                                generator=torch.Generator().manual_seed(5))
+                                rng=prng.PRNGKey(5, "cpu"))
     np.testing.assert_array_equal(again.cost, got.cost)
     elbo_only = tap.build_objective(
         TSCH, teps, torch.from_numpy(x0),
@@ -433,7 +433,7 @@ def test_executor_bitwise_to_tile_resident_and_eager(model):
         SamplerPlan.build(TSCH, tau=5, sigma=SigmaSpec.schedule(
             [0.0, 0.5, 0.0, 1.0, 0.25]))]
     for plan in cands:
-        gen = (lambda: torch.Generator().manual_seed(9)) if \
+        gen = (lambda: prng.PRNGKey(9, "cpu")) if \
             plan.stochastic else (lambda: None)
         out = ex.run(plan, x_T, gen())
         want = plan.run(teps, x_T, gen(), backend="tile_resident")
@@ -448,13 +448,13 @@ def test_executor_bitwise_to_tile_resident_and_eager(model):
 
 def test_executor_one_build_per_statics():
     """Five candidates over three statics build three rollouts; a new S
-    builds exactly one more; a stochastic plan needs a generator, with
-    JAX's message."""
+    builds exactly one more; a stochastic plan needs a key, with JAX's
+    message."""
     jeps, teps = toy_eps_pair()
     ex, jex = tap.PlanExecutor(teps), jap.PlanExecutor(jeps)
     x_T = _rand(4, 16, 2)
     cands, jcands = _plans(TSCH, J=False), _plans(JSCH, J=True)
-    gen = torch.Generator().manual_seed(1)
+    gen = prng.PRNGKey(1, "cpu")
     for p in cands:
         ex.run(p, torch.from_numpy(x_T), gen if p.stochastic else None)
     statics = {(p.S, p.order, p.stochastic, p.x0.clip) for p in cands}
@@ -799,7 +799,7 @@ def test_diffusion_sampler_auto_bank_plan_and_config():
     assert out.shape == (6, 8) and st["net_evals_per_sample"] == 10
     again, _ = svc.serve(6, bank.best(), seed=3)
     assert torch.equal(out, again)
-    got, _ = svc.sample_batch("auto", torch.Generator().manual_seed(2))
+    got, _ = svc.sample_batch("auto", prng.PRNGKey(2, "cpu"))
     assert got.shape == (4, 8)
     cfg = SamplerConfig(S=7, eta=0.5, tau_kind="quadratic")
     a, st = svc.serve(5, cfg, seed=1)

@@ -20,6 +20,7 @@ from repro.models import attention as jattn
 from repro.models import dense as jdense
 from repro.models.common import ArchConfig as JArch
 from repro.sampling import SamplerPlan as JPlan
+from repro_torch import prng
 from repro_torch import configs, interop
 from repro_torch.core import SamplerConfig, make_schedule, sample
 from repro_torch.diffusion_lm import model as tdlm
@@ -72,7 +73,7 @@ def test_eps_forward_matches_jax(arch):
 def test_gqa_forward_and_layer_match_jax(causal):
     jcfg, tcfg, jp, tp = _params(GQA)
     layer_j = jax.tree.map(lambda a: a[0], jp["layers"])
-    layer_t = tdlm._layer(tp["layers"], 0)
+    layer_t = tdense.layer_params(tp["layers"], 0)
     x = np.random.RandomState(2).randn(2, 24, 64).astype(np.float32)
     pos = np.broadcast_to(np.arange(24, dtype=np.int32), (2, 24))
     want = jattn.gqa_forward(layer_j["attn"], jcfg.arch, jnp.asarray(x),
@@ -175,19 +176,19 @@ def test_generate_composes_on_the_port():
     jcfg, tcfg, jp, tp = _params(GQA)
     sch = make_schedule("linear", 1000)
     kw = dict(sampler=SamplerConfig(S=4), device="cpu")
-    a = tdlm.generate(tp, tcfg, sch, torch.Generator().manual_seed(3), 2,
+    a = tdlm.generate(tp, tcfg, sch, prng.PRNGKey(3, "cpu"), 2,
                       64, tile_resident=True, **kw)
-    b = tdlm.generate(tp, tcfg, sch, torch.Generator().manual_seed(3), 2,
+    b = tdlm.generate(tp, tcfg, sch, prng.PRNGKey(3, "cpu"), 2,
                       64, **kw)
     assert a.shape == (2, 64) and a.dtype == torch.int32
     assert int(a.min()) >= 0 and int(a.max()) < GQA["vocab"]
     torch.testing.assert_close(a, b, rtol=0, atol=0)
-    c = tdlm.generate(tp, tcfg, sch, torch.Generator().manual_seed(3), 2,
+    c = tdlm.generate(tp, tcfg, sch, prng.PRNGKey(3, "cpu"), 2,
                       64, sampler=SamplerConfig(S=4),
                       device=torch.device("cpu", 0))
     torch.testing.assert_close(a, c, rtol=0, atol=0)
     with pytest.raises(ValueError, match="params lie on"):
-        tdlm.generate(tp, tcfg, sch, torch.Generator(), 2, 64,
+        tdlm.generate(tp, tcfg, sch, prng.PRNGKey(0, "cpu"), 2, 64,
                       device="meta")
     tok = np.random.RandomState(4).randint(0, GQA["vocab"], (2, 64))
     want = jdlm.round_to_tokens(jp, jdlm.embed_tokens(jp, jnp.asarray(tok)))

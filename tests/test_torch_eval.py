@@ -37,6 +37,7 @@ import torch
 from repro import eval as jeval
 from repro.core import make_schedule as j_make_schedule
 from repro.eval import metrics as jmetrics
+from repro_torch import prng
 from repro_torch import eval as teval
 from repro_torch.core import make_schedule
 from repro_torch.eval import metrics as tmetrics
@@ -252,14 +253,14 @@ def test_transition_elbo_table_matches_jax(model, shape, grid, eta, rs):
 
 
 def test_transition_elbo_table_generator_and_full_grid():
-    """Drawn noise (the port's generator) equals the same draw injected;
-    the default grid is every timestep 1..T."""
+    """Noise drawn from a key equals the same draw injected (the draw is
+    JAX's: ``test_torch_draws.py``); the default grid is every timestep
+    1..T."""
     _, teps = toy_eps_pair()
     x0 = torch.from_numpy(_rand(2, 4, 2, loc=2.0))
     drawn = teval.transition_elbo_table(
-        TSCH, teps, x0, generator=torch.Generator().manual_seed(3),
-        grid=[50, 500])
-    noise = torch.randn((2, 4, 2), generator=torch.Generator().manual_seed(3))
+        TSCH, teps, x0, rng=prng.PRNGKey(3, "cpu"), grid=[50, 500])
+    noise = prng.normal(prng.PRNGKey(3, "cpu"), (2, 4, 2))
     given = teval.transition_elbo_table(TSCH, teps, x0, grid=[50, 500],
                                         noise=noise)
     np.testing.assert_array_equal(drawn.trans, given.trans)
@@ -280,7 +281,7 @@ def _messages(fn):
 def test_elbo_validation_messages_match_jax():
     jeps, teps = toy_eps_pair()
     jx, tx = _both(np.zeros((4, 2), np.float32))
-    jkey, tgen = jax.random.PRNGKey(0), torch.Generator().manual_seed(0)
+    jkey, tkey = jax.random.PRNGKey(0), prng.PRNGKey(0, "cpu")
     cases = [
         (dict(eta=0.0), True), (dict(recon_sigma=0.0), True),
         (dict(grid=[0, 10]), True), (dict(grid=[10, 2000]), True),
@@ -297,7 +298,7 @@ def test_elbo_validation_messages_match_jax():
         want = _messages(lambda: jeval.transition_elbo_table(
             JSCH, jeps, jx, rng=jkey if keyed else None, **jkw))
         got = _messages(lambda: teval.transition_elbo_table(
-            TSCH, teps, tx, generator=tgen if keyed else None, **tkw))
+            TSCH, teps, tx, rng=tkey if keyed else None, **tkw))
         assert got == want, kw
     tab = teval.transition_elbo_table(TSCH, teps, tx, grid=[50, 200],
                                       mse=np.ones(2))

@@ -33,8 +33,9 @@ def test_no_jax_or_repro_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-@pytest.mark.parametrize("argv", [[], ["--launch-probe", "src"]],
-                         ids=["smoke", "launch-probe"])
+@pytest.mark.parametrize("argv", [[], ["--launch-probe", "src"],
+                                  ["--draw-probe", "src"]],
+                         ids=["smoke", "launch-probe", "draw-probe"])
 def test_chip_smoke_refuses_without_a_card(argv, monkeypatch, capsys):
     """chip_smoke.py exits nonzero and prints no result line when torch
     sees no CUDA device, in either mode."""

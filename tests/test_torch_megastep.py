@@ -25,6 +25,7 @@ from repro.kernels.megastep import MegaSpec as JMegaSpec
 from repro.kernels.megastep import ref as jmega_ref
 from repro.models.common import ArchConfig as JArch
 from repro.sampling import SamplerPlan as JPlan
+from repro_torch import prng
 from repro_torch import configs, interop
 from repro_torch.core import make_schedule
 from repro_torch.diffusion_lm import model as tdlm
@@ -257,7 +258,7 @@ def test_ineligible_runs_take_the_tile_resident_loop(case, monkeypatch):
     else:
         monkeypatch.setattr(tops, "MEGA_BUDGET", 1024)
     calls = _count_chunks(monkeypatch)
-    gen = lambda: torch.Generator().manual_seed(7)  # noqa: E731
+    gen = lambda: prng.PRNGKey(7, "cpu")  # noqa: E731
     if case == "wrong-shape":   # natural-shape eps still carrying the spec
         spec, eps = eps.mega_spec, tdlm.make_eps_fn(tp, tcfg)
         eps.mega_spec = spec

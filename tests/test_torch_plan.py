@@ -139,5 +139,5 @@ def test_mega_backend_raises_not_implemented():
 def test_stochastic_plan_needs_generator():
     tp = tplan.SamplerPlan.build(tsched.make_schedule("linear", T), 4,
                                  sigma=1.0)
-    with pytest.raises(ValueError, match="generator"):
+    with pytest.raises(ValueError, match="needs rng"):
         tp.run(lambda x, t: x, torch.zeros(1, 4), backend="eager")

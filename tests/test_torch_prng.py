@@ -13,6 +13,16 @@ Tolerances:
     near 0, so the gap is an ulp of 1 there, not of the value.
   * ``categorical``: equal indices, except where JAX's top-2 of gumbel +
     logits are within the gumbel tolerance (a near tie).
+  * ``randint``: bitwise (int32).
+  * ``normal`` and ``truncated_normal``: NORMAL_ULPS = 4 float32 ulps of
+    max(|z|, 1).  The port follows XLA's float32 erf / erf_inv / log1p op
+    for op, fused multiply-adds included, and is bitwise on the x86 CPU
+    these tests were written on (gap 0 on every one of the 2**23
+    uniforms each can draw, the two extremes included).  Which of
+    erf_inv's multiply-adds XLA fuses is its code generator's choice; an
+    erf_inv with none fused is 2 ulps away, so the bound holds either way.
+  * XLA's float32 ``erf`` (two bounds per truncated draw): bitwise (XLA
+    writes its multiply-adds as explicit fused ones).
 """
 import jax
 import jax.numpy as jnp
@@ -20,11 +30,14 @@ import numpy as np
 import pytest
 import torch
 
+from jax import lax
+
 from repro_torch import prng
 
 SEEDS = [0, 1, 2 ** 31 - 1]
 SHAPES = [(1,), (7,), (3, 5), (2, 3, 4), (513,)]
 GUMBEL_ULPS = 4
+NORMAL_ULPS = 4
 
 
 def _u32(x) -> np.ndarray:
@@ -158,3 +171,111 @@ def test_prng_key_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         prng.PRNGKey(0)
+
+
+RANGES = [(1, 1001), (0, 2 ** 31 - 1), (0, 4), (-5, 5), (3, 3)]
+
+
+@pytest.mark.parametrize("seed", SEEDS, ids=str)
+@pytest.mark.parametrize("lohi", RANGES, ids=str)
+def test_randint_bitwise(seed, lohi):
+    lo, hi = lohi
+    got = prng.randint(prng.PRNGKey(seed, "cpu"), (3, 333), lo, hi).numpy()
+    want = np.asarray(jax.random.randint(_jkey(seed), (3, 333), lo, hi))
+    assert got.dtype == np.int32 and np.array_equal(got, want)
+
+
+def test_randint_batched_keys_are_vmap():
+    keys = jnp.stack([_jkey(s) for s in SEEDS])
+    tkeys = torch.from_numpy(_u32(keys))
+    want = np.asarray(jax.vmap(
+        lambda k: jax.random.randint(k, (5,), 1, 1001))(keys))
+    assert np.array_equal(prng.randint(tkeys, (5,), 1, 1001).numpy(), want)
+
+
+def _same_bits(got, want):
+    return got.dtype == np.float32 and np.array_equal(
+        got.view(np.int32), np.asarray(want).view(np.int32))
+
+
+def _normals_close(got, want):
+    return (got.dtype == np.float32 and np.isfinite(got).all()
+            and _gumbel_gap_ulps(got, np.asarray(want)) <= NORMAL_ULPS)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2 ** 31 - 1, 42], ids=str)
+def test_normal_matches_jax_over_a_million_draws(seed):
+    """4 keys x 2**20 draws: 2**22 in all."""
+    got = prng.normal(prng.PRNGKey(seed, "cpu"), (1 << 20,)).numpy()
+    assert _normals_close(got, jax.random.normal(_jkey(seed), (1 << 20,)))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_normal_matches_jax_shapes(shape):
+    got = prng.normal(prng.PRNGKey(3, "cpu"), shape).numpy()
+    assert _normals_close(got, jax.random.normal(_jkey(3), shape))
+
+
+@pytest.mark.parametrize("seed", [0, 7], ids=str)
+@pytest.mark.parametrize("bounds", [(-3.0, 3.0), (-2.0, 2.0), (-1.0, 2.5)],
+                         ids=str)
+def test_truncated_normal_matches_jax_and_lies_inside(seed, bounds):
+    lo, hi = bounds
+    got = prng.truncated_normal(prng.PRNGKey(seed, "cpu"), lo, hi,
+                                (1 << 18,)).numpy()
+    want = jax.random.truncated_normal(_jkey(seed), lo, hi, (1 << 18,))
+    assert _normals_close(got, want)
+    assert (got > lo).all() and (got < hi).all()
+
+
+def _all_uniforms(lo, hi):
+    """Every value ``uniform`` can give on [lo, hi): the 2**23 mantissas
+    through XLA's fused f * (hi - lo) + lo, floored at lo."""
+    m = np.arange(1 << 23, dtype=np.uint32)
+    f = (m | np.uint32(0x3F800000)).view(np.float32) - np.float32(1)
+    lo, hi = np.float32(lo), np.float32(hi)
+    fused = f.astype(np.float64) * np.float64(hi - lo) + np.float64(lo)
+    return np.maximum(lo, fused.astype(np.float32))
+
+
+def _port_transform(u):
+    out = [(prng.erf_inv32(torch.from_numpy(c)) * prng._SQRT2).numpy()
+           for c in np.array_split(u, 8)]
+    return np.concatenate(out)
+
+
+def test_normal_transform_on_every_uniform():
+    """sqrt2 * erf_inv on all 2**23 uniforms of normal's range, the
+    extremes nextafter(-1, 0) and 1 - 2**-22 included."""
+    u = _all_uniforms(np.nextafter(np.float32(-1), np.float32(0)), 1.0)
+    assert u.min() == np.nextafter(np.float32(-1), np.float32(0))
+    assert u.max() == np.float32(2 - 2.0 ** -22 + np.float64(u.min()))
+    want = jax.jit(lambda v: lax.erf_inv(v) * np.float32(np.sqrt(2)))(u)
+    assert _normals_close(_port_transform(u), want)
+
+
+def test_truncated_transform_on_every_uniform():
+    """The same over truncated_normal(-3, 3)'s uniform range, whose ends
+    are XLA's float32 erf(-+3 / sqrt2)."""
+    s2 = np.float32(np.sqrt(2))
+    a, b = (np.asarray(jax.jit(lax.erf)(np.float32(v) / s2))
+            for v in (-3.0, 3.0))
+    pa, pb = (np.float32(prng.erf32(torch.tensor(v) / float(s2)))
+              for v in (-3.0, 3.0))
+    assert pa == a and pb == b
+    u = _all_uniforms(a, b)
+    want = jax.jit(lambda v: lax.erf_inv(v) * s2)(u)
+    assert _normals_close(_port_transform(u), want)
+
+
+def test_erf_bitwise_on_a_grid():
+    x = np.linspace(-5, 5, 100_003, dtype=np.float32)
+    got = prng.erf32(torch.from_numpy(x)).numpy()
+    assert _same_bits(got, jax.jit(lax.erf)(x))
+
+
+def test_normal_runs_where_its_key_lies():
+    k = prng.PRNGKey(0, device="meta")
+    assert prng.normal(k, (5,)).device.type == "meta"
+    assert prng.randint(k, (2, 2), 0, 4).dtype == torch.int32
+    assert prng.truncated_normal(k, -3, 3, (4,)).shape == (4,)

@@ -621,8 +621,8 @@ def _degraded_then_ok():
     assert {p["state"] for p in tdeg["pools"]} >= {"quarantined"}
     assert tok == jok and tok["status"] == "ok"
     # request 0 is evicted before the first checkpoint sweep and restarts
-    # from step 0 with x_T drawn from its seed (JAX's PRNG or a
-    # torch.Generator): its x0 is its package's own, so no x0 here
+    # from step 0 with x_T drawn from its seed; the events are compared
+    # here, the x0 of a seeded request in tests/test_torch_draws.py
     _same_events(tev, jev)
     assert len([e for e in tev if e["event"] == "result"]) == 3
 

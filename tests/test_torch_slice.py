@@ -25,6 +25,7 @@ from repro.core import schedules as jsched
 from repro.models import unet as junet
 from repro.sampling import plan as jplan
 from repro.serving import engine as jengine
+from repro_torch import prng
 from repro_torch import interop
 from repro_torch.core import schedules as tsched
 from repro_torch.kernels.sampler_step import kernel as tk
@@ -140,13 +141,13 @@ def test_tile_resident_equals_eager_bitwise(models, x_T, name):
 
 
 def test_kernel_backends_draw_seeds_from_the_generator(models, x_T):
-    """Stochastic runs are reproducible from the generator's seed and
-    differ across seeds; the CPU path counts no kernel launches."""
+    """Stochastic runs are reproducible from the key's seed and differ
+    across seeds; the CPU path counts no kernel launches."""
     _, eps_fn = models
     _, tp = _plans("eta1")
     x = torch.from_numpy(x_T)
     launches = tk.sampler_step_2d.launches
-    runs = [tp.run(eps_fn, x, torch.Generator().manual_seed(s),
+    runs = [tp.run(eps_fn, x, prng.PRNGKey(s, "cpu"),
                    backend="tile_resident") for s in (3, 3, 4)]
     assert torch.equal(runs[0], runs[1])
     assert not torch.equal(runs[0], runs[2])
