@@ -118,10 +118,12 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               from the same noise within 1e-5, adjacent defects 0);
               search_bank for S in (5, 10), DP then refinement (eta 0 / 1,
               order 1 / 2) scored by fid_proxy through one PlanExecutor at
-              batch 16: B1 exactly the sum of S over the rollouts, one
-              rollout function per statics, every refined score at most
-              its DP plan's, one det and one stoch rollout bitwise equal to
-              plan.run(backend='tile_resident'); the bank's JSON round
+              batch 16: B1 exactly the sum of S over the deterministic
+              rollouts (a stochastic one runs the eager loop, JAX's
+              executor's noise), one rollout function per statics, every
+              refined score at most its DP plan's, one det rollout bitwise
+              equal to plan.run(backend='tile_resident') and one stoch
+              rollout to plan.run(backend='eager'); the bank's JSON round
               trip; DiffusionSampler(tile_resident, plan_bank).serve(16,
               "auto") (B1 S per batch, bitwise equal to serve(bank.best()));
               svc.continuous(slots=8, stochastic, order 2, plan_bank)
@@ -252,6 +254,28 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               repro_torch.launch.train --arch unet --steps 20 writing a
               checkpoint, and python -m repro_torch.launch.serve --arch
               unet --ckpt serving it on the card
+ 12. the rest of core, JAX's inits and the moe / vlm families, run last
+              so that every earlier rate is timed as before: (a) the
+              retired fused_ddim_step shim (B1 == calls) against the eager
+              Eq. 12 step + noise, and sample(step_impl=) at S=10 against
+              the eager plan run; (b) a CFG eps (two CIFAR10 U-Nets) and a
+              v-prediction eps served on B1 against the eager service;
+              (c) discrete.reverse_sample (K 8, batch 64, S 10) on the card
+              replayed step by step on the CPU (every token equal but
+              Gumbel near ties, counted); (d) the smoke inits of every
+              family bitwise the CPU's; (e) deepseek-v2-236b at full width
+              cut to 3 layers (every init leaf's windows redrawn on the
+              CPU), (f) llava-next-mistral-7b at full width with 2,880 stub
+              image embeddings and (g) kimi-k2-1t-a32b's smoke config
+              through ARGenerator: the seven counters 0, the cache path
+              against the cache-free model (a moe one routing as the
+              server routes) within 1e-4 of max|logits|, one decode step
+              profiled, peak memory, the MLA cache against the dense cache
+              it replaces; (h) the diffusion-LM on a 2-layer deepseek-width
+              MoE trunk: generate(tile_resident=True) B1 once per step,
+              'mega' (not eligible) against 'eager'; (j) the serve and
+              train CLIs for the moe and vlm smoke ids.  --p12-probe runs
+              only the build and this phase
 
 Every time is printed beside the card's name and power limit.  Any failure
 raises and the script exits nonzero with no result line.  On success the
@@ -500,15 +524,17 @@ def phase_kernels():
 
 
 def _cifar10_model(seed: int = 0):
-    """The CIFAR10-width U-Net, port's own init from a seed, with the
+    """The CIFAR10-width U-Net, JAX's init of PRNGKey(seed), with the
     near-zero leaves re-drawn at fan-in scale so that eps is O(1)."""
+    from repro_torch import prng
     from repro_torch.configs import CIFAR10_UNET
-    from repro_torch.models.unet import ZERO_INIT_LEAVES, init_params
+    from repro_torch.models.unet import init_params
     gen = torch.Generator().manual_seed(seed)
-    model = init_params(CIFAR10_UNET, gen, device="cuda")
+    model = init_params(prng.PRNGKey(seed), CIFAR10_UNET, device="cuda")
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.endswith(ZERO_INIT_LEAVES):
+            if name.endswith(("conv2.weight", "wo.weight",
+                              "conv_out.weight")):
                 w = torch.nn.init.trunc_normal_(
                     torch.empty(p.shape), 0.0, 1.0, -3.0, 3.0,
                     generator=gen)
@@ -761,7 +787,8 @@ def phase_autotuner(smi, model):
     """The trajectory autotuner at CIFAR10 width (phase 7), each path
     counted as in phase 4: the objective over 16 seeded x0 images, the DP +
     refinement search of a bank for S in AUTO_BUDGETS scored by fid_proxy
-    through one PlanExecutor (B1 S times per rollout), the bank's JSON round
+    through one PlanExecutor (B1 S times per deterministic rollout; a
+    stochastic one runs the eager loop), the bank's JSON round
     trip, ``serve(16, "auto")`` (B1 S times per batch) and a bank-driven
     scheduler (B2 once per tick) whose deadlines, set from its measured
     tick EWMA, give 'fit', 'degraded' and 'quality' admissions.  Returns
@@ -856,11 +883,14 @@ def phase_autotuner(smi, model):
     search_s = time.perf_counter() - t0
     counts = _counts()
     statics = {(p.S, p.order, p.stochastic, p.x0.clip) for p, _ in rollouts}
-    sum_s = sum(p.S for p, _ in rollouts)
+    # deterministic rollouts run the tile-resident loop (B1 per step);
+    # stochastic ones the eager loop, JAX's executor's noise
+    sum_s = sum(p.S for p, _ in rollouts if not p.stochastic)
     ms = [dt * 1e3 for _, dt in rollouts]
     print(f"[auto] {smi} | search_bank budgets {AUTO_BUDGETS}, refine "
           f"eta {refine.eta_grid} orders {refine.orders}: {len(rollouts)} "
-          f"rollouts (batch {AUTO_N}, sum of S {sum_s}) in {search_s:.3f} s;"
+          f"rollouts (batch {AUTO_N}, sum of S over the deterministic "
+          f"ones {sum_s}) in {search_s:.3f} s;"
           f" ms per rollout {statistics.median(ms):.2f} median "
           f"({min(ms):.2f}-{max(ms):.2f}); executor compiled {ex.compiled} "
           f"for {len(statics)} statics; launches {counts}")
@@ -883,12 +913,13 @@ def phase_autotuner(smi, model):
     sto = next((p for p, _ in rollouts if p.stochastic), None)
     for p in [det] + ([sto] if sto is not None else []):
         got = ex.run(p, x_T, prng.PRNGKey(5, dev) if p.stochastic else None)
+        backend = "eager" if p.stochastic else "tile_resident"
         want = p.run(eps_fn, x_T, prng.PRNGKey(5, dev) if p.stochastic
-                     else None, backend="tile_resident")
+                     else None, backend=backend)
         same = torch.equal(got, want)
-        print(f"[auto] executor vs plan.run(backend='tile_resident'), "
+        print(f"[auto] executor vs plan.run(backend='{backend}'), "
               f"{'stoch' if p.stochastic else 'det'} S={p.S}: bitwise {same}")
-        check(same, f"executor vs tile_resident ({p})")
+        check(same, f"executor vs {backend} ({p})")
     check(sto is not None, "the search ran no stochastic candidate")
     with tempfile.TemporaryDirectory() as d:
         path = f"{d}/bank.json"
@@ -1612,11 +1643,12 @@ def launch_probe(smi) -> None:
 
 # ------------------------------------------------- the diffusion-LM slice
 def _dlm_params(cfg):
-    """Seeded random weights of ``cfg``, drawn on the card."""
+    """JAX's init of ``cfg`` for PRNGKey(0), drawn on the card."""
+    from repro_torch import prng
     from repro_torch.diffusion_lm import init_params
     from repro_torch.kernels.megastep.kernel import leaves
     t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    params = init_params(prng.PRNGKey(0), cfg)
     torch.cuda.synchronize()
     n = sum(t.numel() for t in leaves(params))
     print(f"[main] {cfg.arch.name} (diffusion-LM, time_dim {cfg.time_dim}, "
@@ -3227,14 +3259,14 @@ def _zero_all_counts():
         fn.launches = 0
 
 
-def _lm_requests(cfg, prompt_len, new, seed=0):
+def _lm_requests(cfg, prompt_len, new, seed=0, rows=LM_ROWS):
     import numpy as np
     from repro_torch.serving import GenRequest
     rs = np.random.RandomState(seed)
     return [GenRequest(prompt=rs.randint(0, cfg.vocab, prompt_len)
                        .astype(np.int32), max_new_tokens=new,
                        temperature=t, top_k=k, rng_seed=seed + i)
-            for i, (t, k) in enumerate(LM_ROWS)]
+            for i, (t, k) in enumerate(rows)]
 
 
 def _lm_run(gen, reqs, record: bool):
@@ -3332,8 +3364,7 @@ def phase_lm(smi, cfg, prompt_len):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = dense.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                               device=dev)
+    params = dense.init_params(prng.PRNGKey(0, dev), cfg, device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     print(f"[lm] {smi} | {name}: {cfg.n_layers} layers, d_model "
@@ -3597,8 +3628,7 @@ def phase_draws_parity(smi):
     from repro_torch.sampling import SamplerPlan
     from repro_torch.serving import DiffusionSampler, SampleRequest
     sch = make_schedule("linear", 1000)
-    card = init_params(TOY_UNET, torch.Generator().manual_seed(3),
-                       device="cuda").eval()
+    card = init_params(prng.PRNGKey(3), TOY_UNET, device="cuda").eval()
     host = copy.deepcopy(card).cpu()
     shape, plan = (16, 16, 3), SamplerPlan.build(sch, 10, sigma=1.0)
     out = {}
@@ -3822,8 +3852,7 @@ def phase_train_lm(smi):
                                       make_diffusion_train_step,
                                       make_lm_train_step)
     cfg = SMOLLM_135M
-    params = dense.init_params(cfg, torch.Generator(
-        device="cuda").manual_seed(0))
+    params = dense.init_params(prng.PRNGKey(0), cfg)
     opt = AdamWConfig(lr=3e-4)
     data = SyntheticTokens(vocab=cfg.vocab).batches(P11_LM_BATCH, P11_LM_SEQ)
     tokens = next(data)
@@ -3933,6 +3962,548 @@ def phase_train_cli(smi):
     return counts["B1"]
 
 
+# ----------------- phase 12: App. A, the shim, inits, the MoE and VLM
+P12_EAGER_TOL = 1e-5       # of max|x|: B1 paths against the eager loop
+P12_DLM_TOL = 1e-3         # of max|x0|: the MoE trunk on B1 vs eager
+P12_WINDOW = 4096          # init elements compared per window, card vs CPU
+P12_DS_LAYERS = 3          # deepseek-v2 cut: layer 0 dense + 2 MoE layers
+P12_DLM_LAYERS = 2         # the diffusion-LM's deepseek-width MoE trunk
+P12_LM_NEW, P12_VLM_NEW = 32, 16
+P12_SMOKES = ("smollm-135m", "deepseek-v2-236b", "kimi-k2-1t-a32b",
+              "llava-next-mistral-7b")
+
+
+def phase_shim_and_adapters(smi, model):
+    """Phase 12 (a), (b): the retired StepImpl shim and the eps adapters,
+    each served through B1 on the card.  Returns B1's launches."""
+    from repro_torch import prng
+    from repro_torch.core import (SamplerConfig, cfg_eps_fn,
+                                  eps_fn_from_v_fn, make_schedule, sample)
+    from repro_torch.core.sampler import _jnp_step
+    from repro_torch.kernels.ddim_step import fused_ddim_step
+    from repro_torch.models.unet import make_eps_fn
+    from repro_torch.sampling import SamplerPlan
+    from repro_torch.serving import DiffusionSampler
+    import warnings
+    dev = torch.device("cuda")
+    sch = make_schedule("linear", 1000)
+    gen = torch.Generator(device=dev).manual_seed(120)
+    shape = (BATCH,) + CARD_SHAPE
+    x, eps, noise = (torch.randn(shape, generator=gen, device=dev)
+                     for _ in range(3))
+    ab = sch.alpha_bar
+    c = [float(v) for v in (ab[600].sqrt(), (1 - ab[600]).sqrt() * 0.8,
+                            (1 - ab[600]).sqrt() * 0.4, ab[700].sqrt(),
+                            (1 - ab[700]).sqrt())]
+    b1 = 0
+    # (a) the shim on the card against the eager Eq. 12 step plus noise
+    _zero_all_counts()
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        got = fused_ddim_step(x, eps, noise, *c)
+        got_det = fused_ddim_step(x, eps, None, *c)
+    torch.cuda.synchronize()
+    counts = _all_counts()
+    want = _jnp_step(x, eps, noise, *c)
+    want_det = _jnp_step(x, eps, None, *c)
+    scale = float(want.abs().max())
+    err = max(float((got - want).abs().max()),
+              float((got_det - want_det).abs().max()))
+    warned = sum(issubclass(i.category, DeprecationWarning) for i in w)
+    print(f"[p12] {smi} | (a) fused_ddim_step at {tuple(shape)}: 2 calls, "
+          f"launches {counts}, {warned} DeprecationWarnings; vs the eager "
+          f"Eq. 12 step + noise max|d| {err:.3e} = {err / scale:.3e} of "
+          f"max|x| (tol {4 * F32_ULP:.3e})")
+    check(counts == dict(_zero_dict(), B1=2) and warned == 2
+          and err <= 4 * F32_ULP * scale, f"shim: {counts}, {warned}, {err}")
+    b1 += counts["B1"]
+    eps_fn = make_eps_fn(model)
+    x_T = torch.randn(shape, generator=gen, device=dev)
+    S = 10
+    cfg = SamplerConfig(S=S, eta=1.0)
+    _zero_all_counts()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        got = sample(sch, eps_fn, x_T, cfg, prng.PRNGKey(12),
+                     step_impl=fused_ddim_step)
+    torch.cuda.synchronize()
+    counts = _all_counts()
+    want = sample(sch, eps_fn, x_T, cfg, prng.PRNGKey(12), backend="eager")
+    scale = max(float(want.abs().max()), 1.0)
+    err = float((got - want).abs().max())
+    print(f"[p12] {smi} | (a) sample(step_impl=fused_ddim_step), CIFAR10 "
+          f"U-Net, S={S}, eta 1, batch {BATCH}: launches {counts}; vs the "
+          f"eager plan run of the same key max|d| {err:.3e} = "
+          f"{err / scale:.3e} of scale (tol {P12_EAGER_TOL:g})")
+    check(counts == dict(_zero_dict(), B1=S)
+          and err <= P12_EAGER_TOL * scale, f"legacy sample: {counts} {err}")
+    b1 += counts["B1"]
+    # (b) CFG over two U-Net evaluations, and a v-prediction eps, served
+    other = _cifar10_model(1)
+    adapters = {
+        "cfg (guidance 2)": cfg_eps_fn(eps_fn, make_eps_fn(other), 2.0),
+        "v-prediction": eps_fn_from_v_fn(sch, eps_fn)}
+    plan = SamplerPlan.build(sch, 20)
+    for label, fn in adapters.items():
+        svc = DiffusionSampler(sch, fn, CARD_SHAPE, batch_size=BATCH,
+                               tile_resident=True, device=dev)
+        ref = DiffusionSampler(sch, fn, CARD_SHAPE, batch_size=BATCH,
+                               device=dev)
+        _zero_all_counts()
+        out, st = svc.serve(2 * BATCH, plan, seed=4)
+        torch.cuda.synchronize()
+        counts = _all_counts()
+        want, _ = ref.serve(2 * BATCH, plan, seed=4)
+        scale = max(float(want.abs().max()), 1.0)
+        err = float((out - want).abs().max())
+        print(f"[p12] {smi} | (b) {label} eps served (tile_resident, S 20,"
+              f" {2 * BATCH} samples): {st['samples_per_s']:.1f} samples/s,"
+              f" compiled_programs {st['compiled_programs']}, launches "
+              f"{counts}; vs the eager service max|d| {err:.3e} = "
+              f"{err / scale:.3e} of scale (tol {P12_EAGER_TOL:g})")
+        check(counts == dict(_zero_dict(), B1=2 * 20)
+              and st["compiled_programs"] == 1
+              and bool(torch.isfinite(out).all())
+              and err <= P12_EAGER_TOL * scale,
+              f"{label} serve: {counts} {err}")
+        b1 += counts["B1"]
+    del other
+    torch.cuda.empty_cache()
+    return b1
+
+
+def _zero_dict():
+    return {k: 0 for k in ("B1", "B2", "B3", "B4", "B5", "B6", "B7")}
+
+
+def _x0_model(K: int, device):
+    """The App. A x0 model of the check: softmax of a fixed linear map of
+    x_t and t (numpy weights), on ``device``."""
+    import numpy as np
+    W = torch.from_numpy(np.random.RandomState(0).randn(K, K).astype(
+        np.float32)).to(device)
+
+    def fn(x, t):
+        return torch.softmax(x @ W + (t.float() / 1000.0)[:, None, None],
+                             dim=-1)
+    return fn
+
+
+def phase_discrete(smi):
+    """Phase 12 (c): discrete.reverse_sample (K 8, batch 64, S 10) on the
+    card against the port on the CPU, replayed step by step from the
+    card's states: every token equal but Gumbel near ties (counted)."""
+    import numpy as np
+    from repro_torch import prng
+    from repro_torch.core import discrete, make_schedule, make_tau
+    sch = make_schedule("linear", 1000)
+    K, B, N, S = 8, 64, 16, 10
+    idx = np.random.RandomState(3).randint(0, K, (B, N))
+    x_T = torch.from_numpy(np.eye(K, dtype=np.float32)[idx])
+    states = []
+    fn = _x0_model(K, "cuda")
+
+    def rec(x, t):
+        states.append((x.cpu(), t.cpu()))
+        return fn(x, t)
+
+    _zero_all_counts()
+    t0 = time.perf_counter()
+    got = discrete.reverse_sample(sch, rec, x_T.cuda(), prng.PRNGKey(5), S,
+                                  eta=0.5)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = _all_counts()
+    nexts = [s for s, _ in states[1:]] + [got.cpu()]
+    fn_cpu = _x0_model(K, "cpu")
+    tau = make_tau(1000, S, "linear")
+    t_prev = np.concatenate([[0], tau[:-1]])[::-1]
+    key = prng.PRNGKey(5, "cpu")
+    ties = bad = 0
+    for (x, t), tp, nxt in zip(states, t_prev, nexts):
+        key, k1 = prng.split(key)
+        tc = int(t[0])
+        sig = 0.5 * discrete.sigma_implicit(sch, torch.tensor(tc),
+                                            torch.tensor(int(tp)))
+        p = discrete.posterior_probs(sch, x, fn_cpu(x, t), tc, int(tp), sig)
+        z = prng.gumbel(k1, p.shape) + torch.log(p + 1e-20)
+        for pos in torch.nonzero(z.argmax(-1) != nxt.argmax(-1)).tolist():
+            zz = z[tuple(pos)]
+            tol = LM_GUMBEL_TIE * F32_ULP * max(float(zz.abs().max()), 1.0)
+            if _near_tie(zz, tol):
+                ties += 1
+            else:
+                bad += 1
+    print(f"[p12] {smi} | (c) discrete.reverse_sample K {K}, batch {B} x "
+          f"{N} tokens, S {S}, eta 0.5: {wall:.1f} ms on the card; "
+          f"launches {counts}; replayed on the CPU from the card's states: "
+          f"{B * N * S} draws, {ties} Gumbel near ties, {bad} other "
+          f"mismatches")
+    check(bad == 0 and len(states) == S and all(v == 0 for v in
+                                                 counts.values()),
+          f"discrete: {bad} mismatches, {len(states)} steps, {counts}")
+
+
+def _init_windows(store):
+    """A spy on ``models.common._draw``: after each draw on the card it
+    keeps the key, the draw's parameters and P12_WINDOW-element windows at
+    the start, across the first chunk boundary, in the middle and at the
+    end of the leaf."""
+    from repro_torch.models import common
+    orig = common._draw
+
+    def spy(key, shape, dtype, scale, draw, chunk):
+        out = orig(key, shape, dtype, scale, draw, chunk)
+        flat = out.view(-1)
+        n, m = flat.numel(), P12_WINDOW
+        starts = sorted({0, max(min(chunk - m // 2, n - m), 0),
+                         max(n // 2 - m // 2, 0), max(n - m, 0)})
+        store.append((key.cpu(), n, dtype, scale, draw,
+                      [(a, flat[a:a + m].cpu()) for a in starts]))
+        return out
+    return orig, spy
+
+
+def _check_windows(store) -> int:
+    """Redraw every stored window on the CPU; returns the elements
+    compared.  Raises on the first window that differs."""
+    n_cmp = 0
+    for key, n, dtype, scale, draw, windows in store:
+        for a, got in windows:
+            m = got.numel()
+            want = (draw(key, (m,), start=a) * scale).to(dtype)
+            check(torch.equal(got, want), f"init window at {a} of a "
+                  f"{n}-element leaf differs from the CPU's")
+            n_cmp += m
+    return n_cmp
+
+
+def phase_inits_card(smi):
+    """Phase 12 (d): JAX's inits on the card bitwise the CPU's, every leaf
+    of one smoke config per family (U-Net, dense, moe MLA and GQA, vlm,
+    the diffusion-LM's moe trunk)."""
+    from repro_torch import configs, prng
+    from repro_torch.diffusion_lm import DiffusionLMConfig
+    from repro_torch.diffusion_lm import init_params as dlm_init
+    from repro_torch.models import get_api
+    from repro_torch.models.unet import init_params as unet_init
+    n_leaves = n_elems = 0
+
+    def same(a, b, what):
+        nonlocal n_leaves, n_elems
+        for (ka, va), (kb, vb) in zip(sorted(_named(a)), sorted(_named(b))):
+            check(ka == kb and torch.equal(va.cpu(), vb),
+                  f"{what}: leaf {ka} on the card differs from the CPU's")
+            n_leaves += 1
+            n_elems += vb.numel()
+
+    t0 = time.perf_counter()
+    card = unet_init(prng.PRNGKey(6), configs.TOY_UNET, device="cuda")
+    host = unet_init(prng.PRNGKey(6, "cpu"), configs.TOY_UNET, device="cpu")
+    same(card.state_dict(), host.state_dict(), "TOY_UNET")
+    for arch in P12_SMOKES:
+        cfg = configs.get_smoke(arch)
+        init = get_api(cfg).init_params
+        same(init(prng.PRNGKey(6), cfg, device="cuda"),
+             init(prng.PRNGKey(6, "cpu"), cfg, device="cpu"), arch)
+    dcfg = DiffusionLMConfig(arch=configs.get_smoke("deepseek-v2-236b"))
+    same(dlm_init(prng.PRNGKey(6), dcfg, device="cuda"),
+         dlm_init(prng.PRNGKey(6, "cpu"), dcfg, device="cpu"), "dlm moe")
+    torch.cuda.synchronize()
+    print(f"[p12] {smi} | (d) smoke inits (TOY_UNET, "
+          f"{', '.join(P12_SMOKES)}, the moe diffusion-LM) on the card: "
+          f"{n_leaves} leaves, {n_elems:,} elements bitwise the CPU's "
+          f"({time.perf_counter() - t0:.2f} s)")
+
+
+def _named(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named(v, f"{prefix}{k}/")
+    else:
+        yield prefix.rstrip("/"), tree
+
+
+def _moe_forward_as_served(params, cfg, tokens, P):
+    """The cache-free reference of a served MoE model: the full causal
+    attention over prompt + generated tokens, the MoE FFN routed as the
+    server routes it (the prompt as one call, as prefill does; each
+    generated position as one call over the batch, as a decode step
+    does).  Returns logits (B, S, vocab)."""
+    from repro_torch.models import moe
+    h, positions = moe._embed(params, tokens, None)
+    l0 = params["layer0"]
+    h = moe._dense_mlp(l0, cfg, h + moe._attn_fwd(l0, cfg, h, positions))
+    for i in range(cfg.n_layers - 1):
+        layer = moe.layer_params(params["layers"], i)
+        h = h + moe._attn_fwd(layer, cfg, h, positions)
+        parts = [moe._moe_mlp(layer, cfg, h[:, :P])[0]]
+        parts += [moe._moe_mlp(layer, cfg, h[:, s:s + 1])[0]
+                  for s in range(P, h.shape[1])]
+        h = torch.cat(parts, dim=1)
+    return moe._logits(params, cfg, h)
+
+
+def phase_lm_family(smi, cfg, batch, prompt_len, new, window_check=False):
+    """Phase 12 (e) / (f) / (g): ARGenerator on a moe or vlm model,
+    float32 weights drawn on the card, the first ``batch`` of LM_ROWS'
+    greedy and sampled rows; the seven counters 0; the cache path's logits against
+    the cache-free model within LM_FORWARD_TOL of max|logits|; one steady
+    decode step profiled; peak memory; for a moe model the latent cache's
+    bytes against the dense GQA cache it replaces.  With
+    ``window_check`` every leaf's init windows are redrawn on the CPU."""
+    import numpy as np
+    from repro_torch import prng
+    from repro_torch.models import common, get_api
+    from repro_torch.models.vlm import stub_embeds
+    from repro_torch.serving import ARGenerator
+    dev = torch.device("cuda")
+    name = cfg.name
+    api = get_api(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    store = []
+    orig, spy = _init_windows(store)
+    if window_check:
+        common._draw = spy
+    t0 = time.perf_counter()
+    try:
+        params = api.init_params(prng.PRNGKey(0, dev), cfg, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        common._draw = orig
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[p12] {smi} | {name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, family {cfg.family}"
+          + (f", {cfg.n_experts} experts top-{cfg.top_k} + "
+             f"{cfg.n_shared_experts} shared, d_ff_expert {cfg.d_ff_expert},"
+             f" {'MLA kv_lora ' + str(cfg.kv_lora) if cfg.use_mla else 'GQA'}"
+             if cfg.family == "moe" else "")
+          + f": {n_params:,} parameters ({n_params * 4 / 1e9:.3f} GB "
+          f"float32), JAX's init of PRNGKey(0) drawn on the card in "
+          f"{init_s:.2f} s")
+    if window_check:
+        t1 = time.perf_counter()
+        n_cmp = _check_windows(store)
+        print(f"[p12]   init windows of all {len(store)} drawn leaves "
+              f"({n_cmp:,} elements at each leaf's start, first chunk "
+              f"boundary, middle and end) bitwise the CPU's "
+              f"({time.perf_counter() - t1:.2f} s)")
+    del store
+    rows = LM_ROWS[:batch]
+    B = len(rows)
+    embeds = stub_embeds(cfg, B, dev)
+    extra = 0 if embeds is None else embeds.shape[1]
+    P, N = prompt_len, new
+    M = extra + P + N
+    gen = ARGenerator(cfg, params, batch_size=B, max_len=M)
+    reqs = _lm_requests(cfg, P, N, rows=rows)
+    gen.generate(_lm_requests(cfg, P, 2, rows=rows), embeds=embeds)
+    steps = []
+
+    def spy_sample(logits, temps, top_ks, subs, max_k):
+        nxt = ARGenerator._sample_tokens(logits, temps, top_ks, subs, max_k)
+        steps.append((logits.clone(), nxt.clone()))
+        return nxt
+
+    _zero_all_counts()
+    res = gen.generate(reqs, embeds=embeds)
+    torch.cuda.synchronize()
+    counts = _all_counts()
+    r = res[0]
+    print(f"[p12] {smi} | {name}: generate batch {B}, "
+          + (f"{extra} stub image embeddings + " if extra else "")
+          + f"prompt {P}, {N} new tokens: prefill {r.prefill_ms:.3f} ms, "
+          f"decode {r.decode_ms:.3f} ms ({r.decode_ms / N:.4f} ms per step),"
+          f" {r.tokens_per_s:.1f} tokens/s; launches of the seven kernels "
+          f"{counts}")
+    check(all(v == 0 for v in counts.values()),
+          f"{name}: the AR path launched a kernel of the seven: {counts}")
+    gen._sample_tokens = spy_sample
+    try:
+        res2 = gen.generate(reqs, embeds=embeds)
+    finally:
+        gen.__dict__.pop("_sample_tokens", None)
+    toks = torch.tensor(np.stack([x.tokens for x in res2], 1), device=dev,
+                        dtype=torch.int64)                      # (N, B)
+    prompts = torch.tensor(np.stack([q.prompt for q in reqs]), device=dev)
+    full = torch.cat([prompts.long(), toks.T], dim=1)           # (B, P + N)
+    with torch.no_grad():
+        if cfg.family == "moe":
+            fwd = _moe_forward_as_served(params, cfg, full, P)
+        else:
+            fwd = api.forward(params, cfg, full, embeds=embeds)[0][:, extra:]
+    scale = float(fwd.abs().max())
+    tol = LM_FORWARD_TOL * scale
+    err = max(float((lg - fwd[:, P - 1 + s]).abs().max())
+              for s, (lg, _) in enumerate(steps))
+    ties = bad = 0
+    for s in range(N):
+        want = fwd[:, P - 1 + s].argmax(-1)
+        for i, (t, _) in enumerate(rows):
+            if t > 0 or int(toks[s, i]) == int(want[i]):
+                continue
+            if _near_tie(fwd[i, P - 1 + s], tol):
+                ties += 1
+            else:
+                bad += 1
+    print(f"[p12]   cache path vs the cache-free model over prompt + "
+          f"generated: max |dlogits| {err:.3e} = {err / scale:.3e} of "
+          f"max|logits| {scale:.3e} (tol {LM_FORWARD_TOL:g}); greedy rows "
+          f"equal its argmax at every step but {ties} near ties")
+    check(err <= tol and bad == 0, f"{name}: cache vs forward {err:.3e} > "
+          f"{tol:.3e} or {bad} greedy tokens off")
+    del fwd, steps
+    cache = api.init_cache(cfg, B, M, device=dev)
+    kw = {} if embeds is None else {"embeds": embeds}
+    logits, _ = api.prefill(params, cfg, prompts, cache, **kw)
+    tok = logits.argmax(-1)[:, None]
+    idx0 = int(cache["idx"])
+
+    def decode_only():
+        cache["idx"].fill_(idx0)
+        api.decode_step(params, cfg, tok, cache)
+
+    wall, busy, n_ops, top = _lm_device_profile(decode_only)
+    cache_b = sum(v.numel() * v.element_size() for k, v in cache.items()
+                  if k != "idx")
+    print(f"[p12] {smi} | {name}: one steady decode step: wall {wall:.3f} ms"
+          f" (median of 5), device kernels {busy:.3f} ms, idle share "
+          f"{1 - busy / wall:.3f}, {n_ops} device ops launched")
+    for key, ms, count in top:
+        print(f"[p12]     {ms:8.3f} ms {count:5d}x {key}")
+    if cfg.use_mla:
+        per_tok = cfg.n_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim
+                                 + cfg.v_head_dim)
+        gqa_b = cfg.n_layers * B * M * per_tok * 4
+        print(f"[p12]   MLA cache {cache_b:,} B ({cfg.kv_lora} + "
+              f"{cfg.qk_rope_dim} values per token and layer) against the "
+              f"{gqa_b:,} B of the dense cache it replaces (k of "
+              f"{cfg.qk_nope_dim + cfg.qk_rope_dim} and v of "
+              f"{cfg.v_head_dim} per head, {cfg.n_heads} heads): "
+              f"{cache_b / gqa_b:.4f}")
+    else:
+        print(f"[p12]   cache {cache_b:,} B at M {M}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[p12] {smi} | {name}: peak torch.cuda.max_memory_allocated "
+          f"{peak / 1e9:.3f} GB")
+    del gen, params, cache, logits
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_dlm_moe(smi):
+    """Phase 12 (h): the diffusion-LM on the deepseek-width MoE trunk
+    (P12_DLM_LAYERS layers, MLA): generate(tile_resident=True) takes the
+    tile-resident loop (no mega_spec), B1 once per step, against the eager
+    backend on the card.  Returns B1's launches."""
+    import dataclasses as dc
+    from repro_torch import prng
+    from repro_torch.configs import DEEPSEEK_V2_236B
+    from repro_torch.core import SamplerConfig, make_schedule
+    from repro_torch.diffusion_lm import (DiffusionLMConfig, generate,
+                                          init_params, make_eps_fn,
+                                          make_tile_eps_fn)
+    from repro_torch.sampling import SamplerPlan, backends
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = DiffusionLMConfig(arch=dc.replace(
+        DEEPSEEK_V2_236B, name=f"deepseek-v2-236b-{P12_DLM_LAYERS}l",
+        n_layers=P12_DLM_LAYERS))
+    t0 = time.perf_counter()
+    params = init_params(prng.PRNGKey(0), cfg)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    print(f"[p12] {smi} | (h) diffusion-LM {cfg.arch.name} trunk: "
+          f"{n:,} parameters ({n * 4 / 1e9:.3f} GB float32) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    sch = make_schedule("linear", 1000)
+    B, L, S = 4, 64, 20
+    _zero_all_counts()
+    t0 = time.perf_counter()
+    toks = generate(params, cfg, sch, prng.PRNGKey(7), B, L,
+                    sampler=SamplerConfig(S=S), tile_resident=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _all_counts()
+    why = backends.run_mega.last_reason
+    x_T = prng.normal(prng.PRNGKey(8), (B, L, cfg.latent_dim))
+    plan = SamplerPlan.build(sch, S)
+    _zero_all_counts()
+    got = plan.run(make_tile_eps_fn(params, cfg, B, L), x_T, backend="mega")
+    torch.cuda.synchronize()
+    counts2 = _all_counts()
+    want = plan.run(make_eps_fn(params, cfg), x_T, backend="eager")
+    scale = max(float(want.abs().max()), 1.0)
+    err = float((got - want).abs().max())
+    print(f"[p12] {smi} | (h) generate(tile_resident=True) batch {B} x {L} "
+          f"tokens, eta 0, S={S}: {wall:.3f} s, {B * L / wall:.1f} tokens/s,"
+          f" launches {counts}, run_mega.last_reason {why!r}; plan.run "
+          f"'mega' launches {counts2}, vs 'eager' on the card max|d| "
+          f"{err:.3e} = {err / scale:.3e} of scale (tol {P12_DLM_TOL:g}); "
+          f"tokens in [0, {cfg.arch.vocab}): "
+          f"{int(toks.min()) >= 0 and int(toks.max()) < cfg.arch.vocab}; "
+          f"peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    check(counts == dict(_zero_dict(), B1=S)
+          and counts2 == dict(_zero_dict(), B1=S) and "mega_spec" in why
+          and err <= P12_DLM_TOL * scale,
+          f"dlm moe: {counts} {counts2} {why} {err}")
+    del params
+    torch.cuda.empty_cache()
+    return counts["B1"] + counts2["B1"]
+
+
+def phase_p12_cli(smi):
+    """Phase 12 (j): the serve and train CLIs on the card for the moe and
+    vlm smoke configs."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve, train
+    for arch in ("deepseek-v2-236b", "llava-next-mistral-7b"):
+        for mod, argv in (
+                (serve, ["--arch", arch, "--smoke", "--batch", "2",
+                         "--new-tokens", "8", "--device", "cuda"]),
+                (train, ["--arch", arch, "--smoke", "--steps", "3",
+                         "--batch", "2", "--seq", "32", "--device",
+                         "cuda"])):
+            buf = io.StringIO()
+            _zero_all_counts()
+            with contextlib.redirect_stdout(buf):
+                mod.main(argv)
+            torch.cuda.synchronize()
+            counts = _all_counts()
+            out = buf.getvalue().splitlines()
+            for line in out[-3:]:
+                print(f"[cli]   {line}")
+            ok = (len([ln for ln in out if re.match(r"req\d: \[", ln)]) == 2
+                  if mod is serve else out[-1].startswith('{"first_loss"'))
+            print(f"[cli] {smi} | python -m {mod.__name__} "
+                  f"{' '.join(argv)}: launches {counts}")
+            check(ok and all(v == 0 for v in counts.values()),
+                  f"{mod.__name__} {arch}: {out[-2:]} {counts}")
+
+
+def phase_12(smi, model):
+    """Phase 12, run last so that every earlier rate is timed as before.
+    Returns B1's launches on its paths."""
+    import dataclasses as dc
+    from repro_torch import configs
+    b1 = phase_shim_and_adapters(smi, model)
+    phase_discrete(smi)
+    phase_inits_card(smi)
+    # (e) - (g): the AR paths launch none of the seven kernels
+    ds = dc.replace(configs.DEEPSEEK_V2_236B,
+                    name=f"deepseek-v2-236b-{P12_DS_LAYERS}l",
+                    n_layers=P12_DS_LAYERS)
+    phase_lm_family(smi, ds, 4, 128, P12_LM_NEW, window_check=True)
+    phase_lm_family(smi, configs.LLAVA_NEXT_MISTRAL_7B, 2, 32, P12_VLM_NEW)
+    phase_lm_family(smi, configs.KIMI_K2_1T_A32B_SMOKE, 4, 32, P12_LM_NEW)
+    b1 += phase_dlm_moe(smi)
+    phase_p12_cli(smi)
+    return b1
+
+
 def draw_probe(smi, src) -> None:
     """--draw-probe: the draw's cost on SRC's tree, as one JSON line: the
     host µs of one scheduler x_T draw (``_draw_xT``), a steady tick, and at
@@ -3999,6 +4570,10 @@ def main(argv=None) -> int:
     ap.add_argument("--lm-probe", metavar="SRC", type=Path,
                     help="only run phase 10's smollm-135m and llama3.2-3b "
                          "runs and checks on SRC/repro_torch")
+    ap.add_argument("--p12-probe", action="store_true",
+                    help="only build the kernels and run phase 12 (App. A, "
+                         "the shim and adapters, the inits, the moe and vlm "
+                         "families) on this checkout")
     ap.add_argument("--draw-probe", metavar="SRC", type=Path,
                     help="only time the x_T draw, serve and the U-Net "
                          "scheduler on SRC/repro_torch (phase 11's cost "
@@ -4031,6 +4606,10 @@ def main(argv=None) -> int:
     from repro_torch import prng
     from repro_torch.configs import DLM_SMOLLM, DLM_SMOLLM_MEGA
     phase_build()
+    if args.p12_probe:
+        phase_12(smi, _cifar10_model())
+        print(f"[done] {time.perf_counter() - t0:.1f} s")
+        return 0
     errs = phase_kernels()
     params2 = _dlm_params(DLM_SMOLLM_MEGA)
     errs_dlm = phase_kernels_dlm(params2)
@@ -4096,8 +4675,12 @@ def main(argv=None) -> int:
     b1_p11 += phase_train_unet(smi)
     phase_train_lm(smi)
     b1_p11 += phase_train_cli(smi)
+    # Phase 12 runs last, so that every rate above is timed as before.  B1
+    # runs on the shim, the CFG / v-prediction serves and the MoE
+    # diffusion-LM trunk; the AR paths launch none of the seven.
+    b1_p12 = phase_12(smi, model)
     recs = {r["name"]: r for r in kernels}
-    recs["sampler_step_2d"]["launches"] += b1_auto + b1_p11
+    recs["sampler_step_2d"]["launches"] += b1_auto + b1_p11 + b1_p12
     recs["sampler_step_rows_2d"]["launches"] += (b2_auto + b2_p8 + b2_mega
                                                  + b2_gw + b2_chaos + b2_cli
                                                  + b2_p11)

@@ -18,14 +18,19 @@ recorder, profiler ranges) with the engine's weight hot-swap, the
 slot-pool fleet (``serving.fleet``), the HTTP/SSE gateway and the
 resilience layer (``serving.gateway``, ``serving.resilience``), checkpoint
 files (``training.checkpoint``), the U-Net serving CLI
-(``launch.serve``), and autoregressive serving of the dense family: the
-KV-cache path (``models.dense``, ``models.attention``), the family registry
+(``launch.serve``), and autoregressive serving of the dense, moe (MLA
+or GQA) and vlm families: the cache paths (``models.dense``,
+``models.moe``, ``models.vlm``, ``models.attention``), the family registry
 (``models.get_api``), the architecture configs (``configs.get``),
 ``serving.ARGenerator`` and the CLI's ``--arch`` LM paths; JAX's random
 draws from one seed (``prng``: threefry keys, bits, ``normal``,
-``randint``, ``truncated_normal``) at every draw site; and training: the
-synthetic data (``data``), the optimizers and train steps
-(``training``) and the training CLI (``launch.train``).
+``randint``, ``truncated_normal``) at every draw site, the initial
+weights of every family included; training: the synthetic data
+(``data``), the optimizers and train steps (``training``) and the
+training CLI (``launch.train``); and the rest of ``core``: the paper's
+App. A multinomial process (``core.discrete``), the v-prediction and
+guidance adapters (``core.extensions``) and the retired StepImpl shim
+(``kernels.ddim_step.fused_ddim_step``).
 """
 from .device import resolve_device
 

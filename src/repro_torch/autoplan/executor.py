@@ -8,17 +8,15 @@ as data.  Eager PyTorch compiles nothing, so the port keeps JAX's
 bookkeeping only: ``traces`` / ``compiled`` count the distinct statics
 keys seen, ``calls`` the rollouts run.
 
-The rollout is the 'tile_resident' backend itself (``run_tile_resident``):
-the (R, 256) tile layout carried through the S steps, one
-``sampler_step_2d`` (B1) launch per step on the card.  So
-``executor.run(plan, x_T, rng)`` is BITWISE
-``plan.run(eps_fn, x_T, rng, backend='tile_resident')`` for the same
-threefry key — the searched scores are scores of exactly what
-``DiffusionSampler(tile_resident=True)`` serves — and, like that backend,
-bitwise equal to 'eager' for deterministic plans on the CPU.  A
-stochastic rollout therefore draws the tile backend's per-step kernel
-seeds (``randint`` of the key) where JAX's executor, the 'jnp' scan, draws
-``normal`` noise of ``split(rng, S)``.
+A deterministic rollout is the 'tile_resident' backend itself
+(``run_tile_resident``): the (R, 256) tile layout carried through the S
+steps, one ``sampler_step_2d`` (B1) launch per step on the card, bitwise
+``plan.run(eps_fn, x_T, backend='tile_resident')`` — the searched scores
+are scores of exactly what ``DiffusionSampler(tile_resident=True)``
+serves — and, like that backend, bitwise 'eager' on the CPU.  A
+stochastic rollout is the 'eager' backend (``run_eager``): its noise is
+``normal`` of ``split(rng, S)``, the draws of JAX's executor (the 'jnp'
+scan), so both packages score a stochastic candidate alike for one key.
 """
 from __future__ import annotations
 
@@ -27,11 +25,12 @@ from typing import Optional, Set, Tuple
 import torch
 
 from repro_torch.sampling import SamplerPlan
-from repro_torch.sampling.backends import run_tile_resident
+from repro_torch.sampling.backends import run_eager, run_tile_resident
 
 
 class PlanExecutor:
-    """Tile-resident rollouts with JAX's statics-keyed bookkeeping.
+    """Rollouts with JAX's statics-keyed bookkeeping: deterministic plans
+    on the tile-resident loop, stochastic plans on the eager loop.
 
     Args:
       eps_fn: the (fixed) eps model every candidate is scored against.
@@ -51,7 +50,9 @@ class PlanExecutor:
 
     def run(self, plan: SamplerPlan, x_T: torch.Tensor,
             rng: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Execute ``plan`` from x_T — bitwise the 'tile_resident' backend."""
+        """Execute ``plan`` from x_T: the 'tile_resident' backend for a
+        deterministic plan, the 'eager' backend (JAX's noise) for a
+        stochastic one."""
         if plan.stochastic and rng is None:
             raise ValueError("stochastic candidate plan needs rng")
         key = (plan.S, plan.order, plan.stochastic, plan.x0.clip,
@@ -60,8 +61,9 @@ class PlanExecutor:
             self._statics.add(key)
             self.traces += 1
         self.calls += 1
+        run = run_eager if plan.stochastic else run_tile_resident
         with torch.no_grad():
-            return run_tile_resident(plan, self.eps_fn, x_T, rng)
+            return run(plan, self.eps_fn, x_T, rng)
 
     @property
     def compiled(self) -> int:

@@ -1,12 +1,14 @@
 """Model configurations of the port, as this package's own copies.
 
 The paper's U-Net (``repro/configs/__init__.py``, DDIM App. D.1), the four
-dense architectures and their smoke variants (``repro/configs/{smollm_135m,
-llama3_2_3b,deepseek_7b,mistral_large_123b}.py``), and the diffusion-LM
-configurations the megakernel slice runs on the smollm widths.
-``get(name)`` / ``get_smoke(name)`` resolve an ``--arch`` id; the JAX
-package's six other ids (moe, ssm, hybrid, audio, vlm) raise
-NotImplementedError naming their family.
+dense architectures, the two MoE ones and the VLM, each with its smoke
+variant (``repro/configs/{smollm_135m,llama3_2_3b,deepseek_7b,
+mistral_large_123b,deepseek_v2_236b,kimi_k2_1t_a32b,
+llava_next_mistral_7b}.py``), and the diffusion-LM configurations the
+megakernel slice runs on the smollm widths.  ``get(name)`` /
+``get_smoke(name)`` resolve an ``--arch`` id; the JAX package's three
+other ids (ssm, hybrid, audio) raise NotImplementedError naming their
+family.
 """
 from __future__ import annotations
 
@@ -97,20 +99,91 @@ MISTRAL_LARGE_123B_SMOKE = ArchConfig(
     source=MISTRAL_LARGE_123B.source,
 )
 
-_DENSE = [(MISTRAL_LARGE_123B, MISTRAL_LARGE_123B_SMOKE),
-          (LLAMA3_2_3B, LLAMA3_2_3B_SMOKE),
-          (SMOLLM_135M, SMOLLM_135M_SMOKE),
-          (DEEPSEEK_7B, DEEPSEEK_7B_SMOKE)]
+# deepseek-v2-236b [moe], MLA + 2 shared + 160 routed top-6
+# (arXiv:2405.04434): 60 layers, d_model 5120, 128 heads with latent
+# attention (kv_lora 512, q_lora 1536, qk_nope 128, qk_rope 64, v 128),
+# expert d_ff 1536, vocab 102400; layer 0 a dense FFN of 12288
+DEEPSEEK_V2_236B = ArchConfig(
+    name="deepseek-v2-236b", family="moe",
+    n_layers=60, d_model=5120, n_heads=128, n_kv_heads=128,
+    d_ff=12288,               # dense layer-0 FFN (paper intermediate size)
+    vocab=102400,
+    n_experts=160, top_k=6, n_shared_experts=2, d_ff_expert=1536,
+    capacity_factor=1.25,
+    use_mla=True, kv_lora=512, q_lora=1536,
+    qk_rope_dim=64, qk_nope_dim=128, v_head_dim=128,
+    source="arXiv:2405.04434",
+)
+
+DEEPSEEK_V2_236B_SMOKE = ArchConfig(
+    name="deepseek-v2-236b-smoke", family="moe",
+    n_layers=3, d_model=128, n_heads=4, n_kv_heads=4,
+    d_ff=256, vocab=512,
+    n_experts=4, top_k=2, n_shared_experts=2, d_ff_expert=64,
+    capacity_factor=2.0,
+    use_mla=True, kv_lora=48, q_lora=64,
+    qk_rope_dim=16, qk_nope_dim=32, v_head_dim=32,
+    source=DEEPSEEK_V2_236B.source,
+)
+
+# kimi-k2-1t-a32b [moe], trillion-parameter MoE: 61 layers, d_model 7168,
+# 64 heads (GQA kv 8, head_dim 112), 384 routed experts top-8 (+1 shared),
+# expert d_ff 2048, vocab 163840; layer 0 a dense FFN of 18432
+KIMI_K2_1T_A32B = ArchConfig(
+    name="kimi-k2-1t-a32b", family="moe",
+    n_layers=61, d_model=7168, n_heads=64, n_kv_heads=8, head_dim=112,
+    d_ff=18432,               # dense layer-0 FFN (model card intermediate)
+    vocab=163840,
+    n_experts=384, top_k=8, n_shared_experts=1, d_ff_expert=2048,
+    capacity_factor=1.25,
+    source="arXiv:2501.kimi2",
+)
+
+KIMI_K2_1T_A32B_SMOKE = ArchConfig(
+    name="kimi-k2-1t-a32b-smoke", family="moe",
+    n_layers=3, d_model=128, n_heads=4, n_kv_heads=2, head_dim=32,
+    d_ff=256, vocab=512,
+    n_experts=4, top_k=2, n_shared_experts=1, d_ff_expert=64,
+    capacity_factor=2.0,
+    source=KIMI_K2_1T_A32B.source,
+)
+
+# llava-next-mistral-7b [vlm], hf:llava-hf/llava-v1.6-mistral-7b-hf: the
+# Mistral-7B backbone (32 layers, d_model 4096, 32 heads, GQA kv 8,
+# head_dim 128, d_ff 14336, vocab 32000) over 2880 stub image embeddings
+# (anyres: 576 base + 4 tiles x 576)
+LLAVA_NEXT_MISTRAL_7B = ArchConfig(
+    name="llava-next-mistral-7b", family="vlm",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, head_dim=128,
+    d_ff=14336, vocab=32000, rope_theta=1e6,
+    n_ctx_embeds=2880,
+    source="hf:llava-hf/llava-v1.6-mistral-7b-hf",
+)
+
+LLAVA_NEXT_MISTRAL_7B_SMOKE = ArchConfig(
+    name="llava-next-mistral-7b-smoke", family="vlm",
+    n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, head_dim=64,
+    d_ff=512, vocab=512, rope_theta=1e6,
+    n_ctx_embeds=16,
+    source=LLAVA_NEXT_MISTRAL_7B.source,
+)
+
+_PORTED = [(MISTRAL_LARGE_123B, MISTRAL_LARGE_123B_SMOKE),
+           (LLAMA3_2_3B, LLAMA3_2_3B_SMOKE),
+           (KIMI_K2_1T_A32B, KIMI_K2_1T_A32B_SMOKE),
+           (DEEPSEEK_V2_236B, DEEPSEEK_V2_236B_SMOKE),
+           (SMOLLM_135M, SMOLLM_135M_SMOKE),
+           (DEEPSEEK_7B, DEEPSEEK_7B_SMOKE),
+           (LLAVA_NEXT_MISTRAL_7B, LLAVA_NEXT_MISTRAL_7B_SMOKE)]
 
 # the JAX package's other assigned architectures: id -> family, none ported
 UNPORTED_ARCHS = {
-    "zamba2-2.7b": "hybrid", "kimi-k2-1t-a32b": "moe", "rwkv6-7b": "ssm",
-    "seamless-m4t-large-v2": "audio", "deepseek-v2-236b": "moe",
-    "llava-next-mistral-7b": "vlm",
+    "zamba2-2.7b": "hybrid", "rwkv6-7b": "ssm",
+    "seamless-m4t-large-v2": "audio",
 }
 
-ARCHS: Dict[str, ArchConfig] = {full.name: full for full, _ in _DENSE}
-SMOKES: Dict[str, ArchConfig] = {full.name: smoke for full, smoke in _DENSE}
+ARCHS: Dict[str, ArchConfig] = {full.name: full for full, _ in _PORTED}
+SMOKES: Dict[str, ArchConfig] = {full.name: smoke for full, smoke in _PORTED}
 
 # every id, in the JAX package's order (repro/configs/__init__.py)
 ARCH_IDS = ["mistral-large-123b", "llama3.2-3b", "zamba2-2.7b",

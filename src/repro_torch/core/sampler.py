@@ -7,8 +7,10 @@
     plan directly.
   * ``trajectory_coefficients`` / ``step_table``: views of the compiled
     plan's table (one coefficient program for the whole package).
-  * DEPRECATED shims ``ddim_sample`` / ``ddpm_sample`` over plans, which
-    emit a DeprecationWarning.
+  * DEPRECATED shims ``ddim_sample`` / ``ddpm_sample`` over plans, and
+    the legacy injectable ``step_impl=`` loop of ``sample`` (the StepImpl
+    contract of ``kernels/ddim_step/ops.py::fused_ddim_step``); each
+    emits a DeprecationWarning.
   * ``StepStates`` / ``step_table`` / ``slot_tile_step`` / ``sample_step``:
     one step of a slot batch where every slot sits at its own position of
     its own trajectory, the body of the continuous-batching tick.
@@ -17,13 +19,31 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core import solver
+from repro_torch import prng
+from repro_torch.core.diffusion import predict_x0
 from repro_torch.core.schedules import NoiseSchedule
+
+# fused Eq. 12 update signature of the legacy ``sample(step_impl=...)``
+# path: (x, eps, noise | None, c_x0, c_dir, c_noise, sqrt_a_t,
+# sqrt_1m_a_t) -> x_prev.  DEPRECATED: build a SamplerPlan instead.
+StepImpl = Callable[..., torch.Tensor]
+
+
+def _jnp_step(x, eps, noise, c_x0, c_dir, c_noise, sqrt_a_t, sqrt_1m_a_t):
+    """Reference fused Eq. 12 update for the legacy StepImpl path (the
+    name is JAX's).  ``noise`` is None on the deterministic path: the
+    noise term is skipped rather than multiplied by zero."""
+    x0 = (x - sqrt_1m_a_t * eps) / sqrt_a_t
+    out = c_x0 * x0 + c_dir * eps
+    if noise is not None:
+        out = out + c_noise * noise
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,11 +76,46 @@ def trajectory_coefficients(schedule: NoiseSchedule, cfg: SamplerConfig):
     return cfg.to_plan(schedule).coefficients()
 
 
+def _legacy_step_impl_sample(schedule, eps_fn, x_T, cfg, rng, step_impl,
+                             return_trajectory):
+    """The injectable-StepImpl loop (deprecated migration baseline): one
+    ``step_impl`` call per step on the natural shape, the step noise
+    ``normal`` of ``split(rng, S)`` drawn outside it, as in JAX.  The
+    coefficients go in as 0-dim CPU tensors in x's dtype (no device copy
+    per step)."""
+    stochastic = cfg.eta > 0.0 or cfg.sigma_hat
+    coefs = trajectory_coefficients(schedule, cfg)
+    batch, dt, dev = x_T.shape[0], x_T.dtype, x_T.device
+    keys = prng.split(rng.to(dev), cfg.S) if stochastic else None
+    ab = schedule.alpha_bar.to(dev)
+    x, traj = x_T, []
+    for k in range(cfg.S - 1, -1, -1):       # largest timestep first
+        c = {n: v[k] for n, v in coefs.items()}
+        tk = int(c["t"])
+        t = torch.full((batch,), tk, dtype=torch.int32, device=dev)
+        eps = eps_fn(x, t)
+        if cfg.clip_x0 is not None:
+            # clipping predicted x0 re-derives an equivalent eps
+            x0 = predict_x0(schedule, x, t, eps, clip=cfg.clip_x0)
+            eps = (x - torch.sqrt(ab[tk]) * x0) / torch.sqrt(1.0 - ab[tk])
+        noise = (prng.normal(keys[cfg.S - 1 - k], x.shape).to(dt)
+                 if stochastic else None)
+        x = step_impl(x, eps, noise,
+                      *(c[n].to(dt) for n in (
+                          "c_x0", "c_dir", "c_noise", "sqrt_a_t",
+                          "sqrt_1m_a_t")))
+        traj.append(x)
+    if return_trajectory:
+        return x, torch.stack([x_T] + traj)
+    return x
+
+
 def sample(schedule: NoiseSchedule, eps_fn, x_T: torch.Tensor,
            cfg: SamplerConfig, rng: Optional[torch.Tensor] = None,
            tile_resident: bool = False,
            backend: Optional[str] = None,
-           return_trajectory: bool = False):
+           return_trajectory: bool = False,
+           step_impl: StepImpl = _jnp_step):
     """Run the generalized generative process from x_T to x_0.
 
     Builds the plan for ``cfg`` and runs backend 'eager' (the counterpart
@@ -69,10 +124,21 @@ def sample(schedule: NoiseSchedule, eps_fn, x_T: torch.Tensor,
     the flag.  ``rng`` (a threefry key) is required iff eta > 0 or
     sigma_hat; the step noise is drawn from ``split(rng, S)`` as in JAX.
     With ``return_trajectory`` it returns ``(x_0, traj)``, traj the
-    (S + 1, ...) stack of iterates.
+    (S + 1, ...) stack of iterates.  ``step_impl`` is DEPRECATED: passing
+    anything but the default runs the legacy per-step loop (for example
+    ``kernels.ddim_step.fused_ddim_step``, B1 once per step) and warns;
+    it is ignored when ``tile_resident``.
     """
     if (cfg.eta > 0.0 or cfg.sigma_hat) and rng is None:
         raise ValueError("stochastic sampler (eta>0 or sigma_hat) needs rng")
+    if step_impl is not _jnp_step and not tile_resident:
+        warnings.warn(
+            "sample(step_impl=...) is deprecated: build a "
+            "repro_torch.sampling.SamplerPlan and pick a backend "
+            "(run(..., backend='tile_resident') is the fused hot path)",
+            DeprecationWarning, stacklevel=2)
+        return _legacy_step_impl_sample(schedule, eps_fn, x_T, cfg, rng,
+                                        step_impl, return_trajectory)
     if backend is None:
         backend = "tile_resident" if tile_resident else "eager"
     return cfg.to_plan(schedule).run(eps_fn, x_T, rng, backend=backend,

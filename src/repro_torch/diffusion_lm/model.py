@@ -1,13 +1,19 @@
-"""DDIM over latent token sequences with a dense transformer eps-trunk
-(port of ``repro/diffusion_lm/model.py``, dense family only).
+"""DDIM over latent token sequences with a transformer eps-trunk (port
+of ``repro/diffusion_lm/model.py``: the dense, vlm and moe trunks).
 
 Tokens embed into a small continuous latent (Diffusion-LM, Li et al.
-2022); the sampler runs on those latents; a bidirectional dense trunk with
-additive time conditioning predicts the noise.  The parameters are a dict
-mirroring the JAX pytree: (in, out) matrices used as ``x @ w``, the
-layers' leaves stacked along a leading ``n_layers`` axis.  Plain matrix
-products stay ``torch.matmul``, as the JAX package left them to XLA; the
-hand-written kernels run inside ``backend='mega'`` (kernels/megastep).
+2022); the sampler runs on those latents; a trunk with additive time
+conditioning predicts the noise:
+  dense / vlm -> bidirectional dense transformer layers;
+  moe         -> MoE layers (``models/moe.py``), their attention MLA
+                 (causal, as JAX's trunk calls ``mla_forward``) or
+                 bidirectional GQA.
+The parameters are a dict mirroring the JAX pytree: (in, out) matrices
+used as ``x @ w``, the layers' leaves stacked along a leading
+``n_layers`` axis.  Plain matrix products stay ``torch.matmul``, as the
+JAX package left them to XLA; the hand-written kernels run inside
+``backend='mega'`` (kernels/megastep, dense trunks only: a moe trunk
+carries no ``mega_spec`` and runs the tile-resident loop, B1 per step).
 """
 from __future__ import annotations
 
@@ -24,16 +30,19 @@ from repro_torch.core.sampler import SamplerConfig, sample
 from repro_torch.core.schedules import NoiseSchedule
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.sampler_step.ref import SUBLANE, TILE_C
-from repro_torch.models import dense
-from repro_torch.models.common import (ArchConfig, dense_init, embed_init,
-                                       rms_norm, sinusoidal_time_embedding)
+from repro_torch.models import dense, moe
+from repro_torch.models.attention import gqa_forward, mla_forward
+from repro_torch.models.common import (ArchConfig, KeyGen, dense_init,
+                                       embed_init, rms_norm,
+                                       sinusoidal_time_embedding,
+                                       stack_layer_params)
 
 Params = Dict[str, object]
 
 # the eps path's weights: what the sampler loop (and the megakernel) reads
 EPS_PATH = ("w_in", "time_w1", "time_w2", "layers", "out_norm", "w_out")
 _DENSE_FAMILIES = ("dense", "vlm", "audio")
-_JAX_MODULES = {"moe": "repro/models/moe.py", "ssm": "repro/models/rwkv6.py",
+_JAX_MODULES = {"ssm": "repro/models/rwkv6.py",
                 "hybrid": "repro/models/hybrid.py"}
 
 
@@ -46,7 +55,7 @@ class DiffusionLMConfig:
 
 def _check_family(cfg: DiffusionLMConfig) -> None:
     fam = cfg.arch.family
-    if fam in _DENSE_FAMILIES:
+    if fam in _DENSE_FAMILIES or fam == "moe":
         return
     where = _JAX_MODULES.get(fam)
     if where is None:
@@ -55,61 +64,66 @@ def _check_family(cfg: DiffusionLMConfig) -> None:
         f"the {fam!r} diffusion-LM trunk is not ported yet (JAX: {where})")
 
 
-def init_params(cfg: DiffusionLMConfig, generator: torch.Generator,
+def init_params(key: torch.Tensor, cfg: DiffusionLMConfig,
                 device: DeviceLike = None,
                 dtype=torch.float32) -> Params:
-    """Dense-family parameters with the JAX init's distributions, drawn
-    from ``generator`` on its device and moved to ``device`` (CUDA unless
-    named).  The same scheme as the JAX ``init_params``, not its numbers."""
+    """JAX's ``init_params(key, cfg, dtype)`` numbers for a threefry key,
+    drawn and stored on ``device`` (CUDA unless named): the heads in its
+    key order, then ``n_layers`` stacked dense or MoE layers."""
     _check_family(cfg)
     dev = resolve_device(device)
     a = cfg.arch
-    g = generator
+    kg = KeyGen(key.to(dev))
     params: Params = {
-        "embed": embed_init(g, (a.vocab, cfg.latent_dim), dtype),
-        "w_in": dense_init(g, (cfg.latent_dim, a.d_model), dtype),
-        "time_w1": dense_init(g, (cfg.time_dim, cfg.time_dim), dtype),
-        "time_w2": dense_init(g, (cfg.time_dim, a.d_model), dtype),
-        "out_norm": torch.ones((a.d_model,), dtype=dtype, device=g.device),
-        "w_out": dense_init(g, (a.d_model, cfg.latent_dim), dtype),
-        "rounding": dense_init(g, (cfg.latent_dim, a.vocab), dtype),
+        "embed": embed_init(kg(), (a.vocab, cfg.latent_dim), dtype),
+        "w_in": dense_init(kg(), (cfg.latent_dim, a.d_model), dtype),
+        "time_w1": dense_init(kg(), (cfg.time_dim, cfg.time_dim), dtype),
+        "time_w2": dense_init(kg(), (cfg.time_dim, a.d_model), dtype),
+        "out_norm": torch.ones((a.d_model,), dtype=dtype, device=dev),
+        "w_out": dense_init(kg(), (a.d_model, cfg.latent_dim), dtype),
+        "rounding": dense_init(kg(), (cfg.latent_dim, a.vocab), dtype),
     }
-    layers = [dense.init_layer(g, a, dtype) for _ in range(a.n_layers)]
-    params["layers"] = _stack(layers)
-    return _to(params, dev)
+    init_layer = moe.init_layer if a.family == "moe" else dense.init_layer
+    params["layers"] = stack_layer_params(
+        lambda k: init_layer(k, a, dtype), a.n_layers, kg)
+    return params
 
 
 def param_shapes(cfg: DiffusionLMConfig) -> Dict[str, object]:
-    """The dense-family parameter tree as nested dicts of shapes (stacked
-    layer leaves lead with n_layers), as the JAX ``init_params`` builds."""
+    """The parameter tree as nested dicts of shapes (stacked layer leaves
+    lead with n_layers), as the JAX ``init_params`` builds it."""
     _check_family(cfg)
     a = cfg.arch
     n, d, L, T = a.n_layers, a.d_model, cfg.latent_dim, cfg.time_dim
-    hq, hkv = a.n_heads * a.hd(), a.n_kv_heads * a.hd()
+    if a.family == "moe":
+        layers = moe.stacked(moe.layer_shapes(a), n)
+    else:
+        layers = dense.param_shapes(a)["layers"]
     return {
         "embed": (a.vocab, L), "w_in": (L, d), "time_w1": (T, T),
         "time_w2": (T, d), "out_norm": (d,), "w_out": (d, L),
-        "rounding": (L, a.vocab),
-        "layers": {
-            "attn": {"wq": (n, d, hq), "wk": (n, d, hkv), "wv": (n, d, hkv),
-                     "wo": (n, hq, d)},
-            "attn_norm": (n, d), "mlp_norm": (n, d),
-            "w_gate": (n, d, a.d_ff), "w_up": (n, d, a.d_ff),
-            "w_down": (n, a.d_ff, d),
-        },
+        "rounding": (L, a.vocab), "layers": layers,
     }
 
 
-def _stack(layers):
-    if isinstance(layers[0], dict):
-        return {k: _stack([l[k] for l in layers]) for k in layers[0]}
-    return torch.stack(layers)
+def _moe_layer_fwd(layer: Dict, a: ArchConfig, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    """One MoE trunk layer (``diffusion_lm/model.py:93-104``)."""
+    xn = rms_norm(x, layer["attn_norm"], a.norm_eps)
+    if a.use_mla:
+        x = x + mla_forward(layer["attn"], a, xn, positions)
+    else:
+        x = x + gqa_forward(layer["attn"], a, xn, positions, causal=False)
+    y, _ = moe.moe_ffn(layer["moe"], a,
+                       rms_norm(x, layer["mlp_norm"], a.norm_eps))
+    return x + y
 
 
-def _to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+def _layer_fwd(layer: Dict, a: ArchConfig, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    if a.family == "moe":
+        return _moe_layer_fwd(layer, a, x, positions)
+    return dense.layer_fwd(layer, a, x, positions, False)
 
 
 def eps_forward(params: Params, cfg: DiffusionLMConfig, x_t: torch.Tensor,
@@ -128,10 +142,10 @@ def eps_forward(params: Params, cfg: DiffusionLMConfig, x_t: torch.Tensor,
                              device=h.device)[None].expand(B, S)
     for layer in dense.unstack_layers(params["layers"], a.n_layers):
         if remat and torch.is_grad_enabled():
-            h = checkpoint(dense.layer_fwd, layer, a, h, positions, False,
+            h = checkpoint(_layer_fwd, layer, a, h, positions,
                            use_reentrant=False)
         else:
-            h = dense.layer_fwd(layer, a, h, positions, causal=False)
+            h = _layer_fwd(layer, a, h, positions)
     h = rms_norm(h, params["out_norm"], a.norm_eps)
     return h @ params["w_out"]
 
@@ -151,10 +165,11 @@ def make_tile_eps_fn(params: Params, cfg: DiffusionLMConfig, batch: int,
     granule, so the tile view (and the scheduler's slot-tile view) is a
     pure reshape of (batch, seq_len, latent_dim).  ``t`` may be a scalar
     (the tile-resident loop) or a (batch,) vector (the scheduler: every
-    slot at its own timestep).  It also
-    carries ``eps_fn.mega_spec`` (the eps-path weights and the
-    bound geometry, for ``backend='mega'``) and ``eps_fn.mega_vmem_bytes``,
-    the byte model the eligibility rule holds against ``MEGA_BUDGET``.
+    slot at its own timestep).  A dense-family trunk also carries
+    ``eps_fn.mega_spec`` (the eps-path weights and the bound geometry, for
+    ``backend='mega'``) and ``eps_fn.mega_vmem_bytes``, the byte model the
+    eligibility rule holds against ``MEGA_BUDGET``; a moe trunk carries
+    neither, so 'mega' runs it on the tile-resident loop, as in JAX.
     """
     _check_family(cfg)
     n = seq_len * cfg.latent_dim
@@ -173,13 +188,14 @@ def make_tile_eps_fn(params: Params, cfg: DiffusionLMConfig, batch: int,
             e = eps_forward(params, cfg, x2.reshape(shape), t)
         return e.reshape(x2.shape)
 
-    from repro_torch.kernels.megastep import MegaSpec
-    spec = MegaSpec(params={k: params[k] for k in EPS_PATH}, cfg=cfg,
-                    batch=batch, seq_len=seq_len)
     eps_fn.tile_aware = True        # tile-resident loop (backends.py)
     eps_fn.slot_tile_aware = True   # scheduler slot layout (serving)
-    eps_fn.mega_spec = spec
-    eps_fn.mega_vmem_bytes = spec.vmem_bytes()
+    if cfg.arch.family in _DENSE_FAMILIES:
+        from repro_torch.kernels.megastep import MegaSpec
+        spec = MegaSpec(params={k: params[k] for k in EPS_PATH}, cfg=cfg,
+                        batch=batch, seq_len=seq_len)
+        eps_fn.mega_spec = spec
+        eps_fn.mega_vmem_bytes = spec.vmem_bytes()
     return eps_fn
 
 

@@ -4,12 +4,14 @@ The input is a JAX ``init_params`` (or trained) pytree already converted
 to numpy arrays — nested dicts and lists of ``np.ndarray`` — so this
 module never imports jax.
 
-Dense-family mapping (``repro/models/dense.py`` ->
-``repro_torch.models.dense``), for the autoregressive server: the same
-nested dict, every leaf a float32 tensor in its JAX layout (stacked
-layer leaves, (in, out) matrices); ``dense_params_to_jax`` is the inverse
-(numpy leaves), so the ``{"params": ...}`` checkpoint the JAX
-``serve_lm --ckpt`` restores crosses both ways.
+LM mapping (``repro/models/{dense,vlm,moe}.py`` ->
+``repro_torch.models``), for the autoregressive server: the same nested
+dict, every leaf a float32 tensor in its JAX layout (stacked layer leaves,
+(in, out) matrices; the MoE tree's ``layer0`` plus stacked ``layers``
+with their ``moe`` block and MLA or GQA ``attn``); ``lm_params_to_jax``
+is the inverse (numpy leaves), so the ``{"params": ...}`` checkpoint the
+JAX ``serve_lm --ckpt`` restores crosses both ways.  The vlm tree is the
+dense one.
 
 Diffusion-LM mapping (``repro/diffusion_lm/model.py`` ->
 ``repro_torch.diffusion_lm``): the same nested dict, every leaf as a
@@ -31,78 +33,35 @@ numpy leaves), so a checkpoint the port writes restores in the JAX package
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.diffusion_lm.model import DiffusionLMConfig, param_shapes
-from repro_torch.models import dense
+from repro_torch.models import dense, moe
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.unet import UNet, UNetConfig
-
-_CONV = "conv"
-_DENSE = "dense"
-_PLAIN = "plain"
-
-# JAX leaf name -> (port parameter suffix, conversion)
-_UNET_LEAVES = {
-    "time_w1": ("time_w1.weight", _DENSE), "time_b1": ("time_w1.bias", _PLAIN),
-    "time_w2": ("time_w2.weight", _DENSE), "time_b2": ("time_w2.bias", _PLAIN),
-    "time_w": ("time.weight", _DENSE), "time_b": ("time.bias", _PLAIN),
-    "wq": ("wq.weight", _DENSE), "wk": ("wk.weight", _DENSE),
-    "wv": ("wv.weight", _DENSE), "wo": ("wo.weight", _DENSE),
-    "gn1_s": ("gn1.weight", _PLAIN), "gn1_b": ("gn1.bias", _PLAIN),
-    "gn2_s": ("gn2.weight", _PLAIN), "gn2_b": ("gn2.bias", _PLAIN),
-    "gn_s": ("gn.weight", _PLAIN), "gn_b": ("gn.bias", _PLAIN),
-    "gn_out_s": ("gn_out.weight", _PLAIN),
-    "gn_out_b": ("gn_out.bias", _PLAIN),
-    "conv_in": ("conv_in.weight", _CONV), "conv1": ("conv1.weight", _CONV),
-    "conv2": ("conv2.weight", _CONV), "skip": ("skip.weight", _CONV),
-    "down": ("down.weight", _CONV), "up": ("up.weight", _CONV),
-    "conv_out": ("conv_out.weight", _CONV),
-}
-
-
-def _leaves(tree, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...],
-                                                              np.ndarray]]:
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaves(v, path + (str(k),))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _leaves(v, path + (str(i),))
-    else:
-        yield path, np.asarray(tree)
-
-
-def _convert(a: np.ndarray, kind: str) -> np.ndarray:
-    if kind == _CONV:
-        if a.ndim != 4:
-            raise ValueError(f"conv kernel must be HWIO, got shape {a.shape}")
-        return a.transpose(3, 2, 0, 1)
-    if kind == _DENSE:
-        if a.ndim != 2:
-            raise ValueError(f"dense matrix must be 2-D, got {a.shape}")
-        return a.T
-    return a
-
+from repro_torch.models.unet import (JAX_LEAVES, UNet, UNetConfig,
+                                     jax_leaf_to_port, tree_leaves)
 
 def unet_params_from_jax(tree, cfg: UNetConfig) -> Dict[str, torch.Tensor]:
     """JAX U-Net pytree (numpy leaves) -> the port's float32 state_dict."""
     expected = {k: tuple(v.shape)
                 for k, v in UNet(cfg, device="meta").state_dict().items()}
     out: Dict[str, torch.Tensor] = {}
-    for path, leaf in _leaves(tree):
-        name = path[-1]
-        if name not in _UNET_LEAVES:
+    for path, leaf in tree_leaves(tree):
+        leaf = np.asarray(leaf)
+        if path[-1] not in JAX_LEAVES:
             raise KeyError(f"unmapped JAX U-Net leaf {'/'.join(path)}")
-        suffix, kind = _UNET_LEAVES[name]
-        key = ".".join(path[:-1] + (suffix,))
+        if leaf.ndim != {"conv": 4, "dense": 2}.get(
+                JAX_LEAVES[path[-1]][1], leaf.ndim):
+            raise ValueError(f"{'/'.join(path)}: shape {leaf.shape} is not "
+                             f"a {JAX_LEAVES[path[-1]][1]} leaf")
+        key, arr = jax_leaf_to_port(path, leaf)
         if key not in expected:
             raise KeyError(f"JAX leaf {'/'.join(path)} maps to {key!r}, "
                            "which the port's UNet does not have")
-        arr = np.ascontiguousarray(_convert(leaf, kind), np.float32)
+        arr = np.ascontiguousarray(arr, np.float32)
         if arr.shape != expected[key]:
             raise ValueError(f"{key}: converted shape {arr.shape} != port "
                              f"shape {expected[key]}")
@@ -114,7 +73,7 @@ def unet_params_from_jax(tree, cfg: UNetConfig) -> Dict[str, torch.Tensor]:
 
 
 _UNET_INVERSE = {suffix: (name, kind)
-                 for name, (suffix, kind) in _UNET_LEAVES.items()}
+                 for name, (suffix, kind) in JAX_LEAVES.items()}
 
 
 def _listify(node):
@@ -142,9 +101,9 @@ def unet_params_to_jax(state_dict, cfg: UNetConfig) -> Dict:
         parts = key.split(".")
         name, kind = _UNET_INVERSE[".".join(parts[-2:])]
         a = t.detach().float().cpu().numpy()
-        if kind == _CONV:
+        if kind == "conv":
             a = a.transpose(2, 3, 1, 0)
-        elif kind == _DENSE:
+        elif kind == "dense":
             a = a.T
         node = tree
         for p in parts[:-2]:
@@ -159,16 +118,26 @@ def dlm_params_from_jax(tree, cfg: DiffusionLMConfig) -> Dict:
     return _same_tree(tree, param_shapes(cfg), ())
 
 
-def dense_params_from_jax(tree, cfg: ArchConfig) -> Dict:
-    """JAX dense-family pytree (numpy leaves) -> the port's parameter dict
-    on the CPU: same keys, same layouts, float32."""
-    return _same_tree(tree, dense.param_shapes(cfg), ())
+def lm_param_shapes(cfg: ArchConfig) -> Dict:
+    """The LM family's parameter tree as nested dicts of shapes."""
+    if cfg.family == "moe":
+        return moe.param_shapes(cfg)
+    if cfg.family in ("dense", "vlm"):
+        return dense.param_shapes(cfg)
+    raise NotImplementedError(f"no parameter layout for the {cfg.family!r} "
+                              "family")
 
 
-def dense_params_to_jax(params, cfg: ArchConfig) -> Dict:
-    """The port's dense parameter dict -> the JAX pytree (nested dicts of
-    float32 numpy arrays), every key and shape checked."""
-    tree = _same_tree(params, dense.param_shapes(cfg), ())
+def lm_params_from_jax(tree, cfg: ArchConfig) -> Dict:
+    """JAX dense / vlm / moe pytree (numpy leaves) -> the port's parameter
+    dict on the CPU: same keys, same layouts, float32."""
+    return _same_tree(tree, lm_param_shapes(cfg), ())
+
+
+def lm_params_to_jax(params, cfg: ArchConfig) -> Dict:
+    """The port's dense / vlm / moe parameter dict -> the JAX pytree
+    (nested dicts of float32 numpy arrays), every key and shape checked."""
+    tree = _same_tree(params, lm_param_shapes(cfg), ())
     return map_leaves(tree, lambda t: t.numpy())
 
 

@@ -93,6 +93,7 @@ def phase_times(tick, n_layers: int) -> List[Tuple[str, float]]:
 
 
 def main() -> None:
+    from repro_torch import prng
     from repro_torch.configs import DLM_SMOLLM_MEGA as cfg
     from repro_torch.core.schedules import make_schedule
     from repro_torch.diffusion_lm import init_params
@@ -104,7 +105,7 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     batch, seq = 4, 64
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    params = init_params(prng.PRNGKey(0, "cuda"), cfg)
     gen = torch.Generator(device="cuda").manual_seed(1357)
     x2 = torch.randn(batch * seq * cfg.latent_dim // 256, 256,
                      generator=gen, device="cuda")

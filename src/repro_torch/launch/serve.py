@@ -1,5 +1,5 @@
 """Serving driver of the port (port of ``repro/launch/serve.py``): batched
-autoregressive generation over the dense architectures, or DDIM sampling
+autoregressive generation over the LM architectures, or DDIM sampling
 from a U-Net checkpoint, in lockstep batches, through the
 continuous-batching scheduler, a slot-pool fleet, or the HTTP/SSE gateway.
 The flags, defaults and printed lines are JAX's, plus ``--device``
@@ -34,20 +34,22 @@ per-pool dashboard, ``--trace-out`` per-request JSONL spans,
 profiler ranges (obs/profiling.annotate); every replay ends with a
 p50/p95/p99 latency + miss/drop summary table.
 
-Weights: a seeded init of the port's U-Net (``torch.Generator``, so other
-numbers than the JAX init of the same seed), or ``--ckpt``, a
+Weights: the U-Net init of ``--seed`` (threefry: the JAX init's numbers
+for the same seed), or ``--ckpt``, a
 ``training/checkpoint.py`` file with a JAX-layout ``{"params", "ema"}``
 U-Net tree (saved by either package), carried into the port through
 ``repro_torch.interop``.  ``--pools`` runs every pool on the one device
 (no meshes).
 
 ``--arch <id>`` other than ``unet`` serves that architecture through
-``serving.ARGenerator`` (``--smoke``: its reduced variant).  The dense ids
-run; the moe, ssm, hybrid, audio and vlm ids raise NotImplementedError
-through the model registry.  Weights: ``dense.init_params`` from a
-``torch.Generator`` on the device seeded with ``--seed`` (the JAX init's
-distributions, not its numbers), or ``--ckpt``, a JAX-layout
-``{"params": ...}`` file, which gives the JAX package's weights.
+``serving.ARGenerator`` (``--smoke``: its reduced variant).  The dense,
+moe (deepseek-v2-236b, kimi-k2-1t-a32b) and vlm (llava-next-mistral-7b)
+ids run; the ssm, hybrid and audio ids raise NotImplementedError through
+the model registry.  Weights: the family's ``init_params`` of
+``PRNGKey(--seed)`` (JAX's numbers), or ``--ckpt``, a JAX-layout
+``{"params": ...}`` file.  A vlm serves JAX's stub image embeddings,
+``normal(PRNGKey(9), (batch, n_ctx_embeds, d_model)) * 0.02``, with the
+cache grown by ``n_ctx_embeds``.
 """
 from __future__ import annotations
 
@@ -58,10 +60,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import configs, interop
+from repro_torch import configs, interop, prng
 from repro_torch.core import make_schedule
 from repro_torch.device import resolve_device
-from repro_torch.models import dense, get_api, unet
+from repro_torch.models import get_api, unet
+from repro_torch.models.vlm import stub_embeds
 from repro_torch.obs import (JsonlSink, Observability, render_dashboard,
                              render_summary, summarize_results)
 from repro_torch.sampling import SamplerPlan, SigmaSpec, TauSpec
@@ -133,12 +136,12 @@ def _finish_replay(results, server, obs, trace_path, args) -> None:
 
 
 def _restore_lm(path: str, cfg, device: torch.device):
-    """The dense parameters of a ``{"params": ...}`` checkpoint file
-    holding the JAX-layout tree, on ``device``."""
+    """The LM parameters of a ``{"params": ...}`` checkpoint file holding
+    the JAX-layout tree, on ``device``."""
     like = {"params": interop.map_leaves(
-        dense.param_shapes(cfg), lambda s: np.empty(s, np.float32))}
+        interop.lm_param_shapes(cfg), lambda s: np.empty(s, np.float32))}
     restored, _ = checkpoint.restore(path, like)
-    params = interop.dense_params_from_jax(restored["params"], cfg)
+    params = interop.lm_params_from_jax(restored["params"], cfg)
     return interop.map_leaves(params, lambda t: t.to(device))
 
 
@@ -150,11 +153,12 @@ def serve_lm(args):
     if args.ckpt:
         params = _restore_lm(args.ckpt, cfg, device)
     else:
-        params = api.init_params(
-            cfg, torch.Generator(device=device).manual_seed(args.seed),
-            device=device)
+        params = api.init_params(prng.PRNGKey(args.seed, device), cfg,
+                                 device=device)
+    embeds = stub_embeds(cfg, args.batch, device)
     gen = ARGenerator(cfg, params, batch_size=args.batch,
-                      max_len=args.prompt_len + args.new_tokens,
+                      max_len=args.prompt_len + args.new_tokens
+                      + (cfg.n_ctx_embeds if api.needs_embeds else 0),
                       device=device)
     rng = np.random.RandomState(args.seed)
     reqs = [GenRequest(prompt=rng.randint(0, cfg.vocab, args.prompt_len)
@@ -162,7 +166,7 @@ def serve_lm(args):
                        max_new_tokens=args.new_tokens,
                        temperature=args.temperature)
             for _ in range(args.batch)]
-    results = gen.generate(reqs)
+    results = gen.generate(reqs, embeds=embeds)
     for i, r in enumerate(results):
         print(f"req{i}: {r.tokens[:16]}...")
     print(f"prefill={results[0].prefill_ms:.1f}ms "
@@ -171,9 +175,8 @@ def serve_lm(args):
 
 
 def _init_unet(seed: int, device: torch.device) -> unet.UNet:
-    """TOY_UNET with the port's seeded init."""
-    return unet.init_params(configs.TOY_UNET,
-                            torch.Generator().manual_seed(seed),
+    """TOY_UNET with JAX's init of ``PRNGKey(seed)``."""
+    return unet.init_params(prng.PRNGKey(seed, device), configs.TOY_UNET,
                             device=device).eval()
 
 
@@ -552,9 +555,7 @@ def main(argv: Optional[Sequence[str]] = None):
                     "(repro/tick/<variant>, obs/profiling.annotate) so a "
                     "device profile attributes time per tick variant")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seeds the weights (a torch.Generator: the JAX "
-                    "init's distributions, not JAX's numbers for the same "
-                    "seed; --ckpt gives JAX's), the prompts and the noise")
+                    help="seeds the weights, the prompts and the noise")
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cuda, or cpu for the "

@@ -3,8 +3,10 @@
 Two modes, with JAX's flags, printed lines and checkpoint files, plus
 ``--device`` (default ``cuda``; the tests pass ``cpu``):
   * --arch <id>   LM pretraining on the synthetic Markov-chain corpus over
-                  the dense family (``--smoke``: the reduced config).  The
-                  other families raise through the model registry.
+                  the dense, moe and vlm families (``--smoke``: the reduced
+                  config; a vlm trains on JAX's stub image embeddings, a
+                  moe adds 0.01 x its aux loss).  The other families raise
+                  through the model registry.
   * --arch unet   The paper's own training: the U-Net eps-model on the
                   synthetic image distribution with L_simple (Eq. 5,
                   gamma = 1), EMA tracking (decay 0.999), checkpoints.
@@ -15,8 +17,7 @@ Two modes, with JAX's flags, printed lines and checkpoint files, plus
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --smoke --steps 50 --batch 8 --seq 128
 
-Weights start from the port's seeded init (``torch.Generator``: the JAX
-init's distributions, not its numbers for the same seed).  The data, the
+Weights start from the init of ``PRNGKey(--seed)``; it, the data, the
 train keys and the noise are threefry draws, JAX's for the same seed.
 Checkpoints are JAX-layout trees in the JAX package's ``.npz`` format:
 ``{"params", "ema"}`` for the U-Net (what ``launch.serve --arch unet
@@ -29,13 +30,12 @@ import argparse
 import json
 import time
 
-import torch
-
 from repro_torch import configs, interop, prng
 from repro_torch.core import make_schedule, training_loss
 from repro_torch.data import SyntheticImages, SyntheticTokens
 from repro_torch.device import resolve_device
 from repro_torch.models import get_api, unet
+from repro_torch.models.vlm import stub_embeds
 from repro_torch.training import (AdamWConfig, checkpoint, ema_init,
                                   ema_update, init_train_state,
                                   make_diffusion_train_step,
@@ -60,7 +60,7 @@ def train_unet(args):
     device = resolve_device(args.device)
     ucfg = configs.TOY_UNET       # JAX's train_unet: TOY_UNET, --smoke or not
     schedule = make_schedule("linear", T=args.T)
-    model = unet.init_params(ucfg, torch.Generator().manual_seed(args.seed),
+    model = unet.init_params(prng.PRNGKey(args.seed, device), ucfg,
                              device=device)
     params = {k: v.detach() for k, v in model.named_parameters()}
     print(f"U-Net params: {_n_params(params)/1e6:.2f}M  T={args.T}")
@@ -104,9 +104,8 @@ def train_lm(args):
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get(args.arch))
     api = get_api(cfg)
-    params = api.init_params(
-        cfg, torch.Generator(device=device).manual_seed(args.seed),
-        device=device)
+    params = api.init_params(prng.PRNGKey(args.seed, device), cfg,
+                             device=device)
     print(f"{cfg.name}: {_n_params(params)/1e6:.2f}M params")
     opt_cfg = AdamWConfig(lr=args.lr,
                           schedule=warmup_cosine(20, args.steps))
@@ -115,10 +114,14 @@ def train_lm(args):
                              opt_cfg)
     data = SyntheticTokens(vocab=cfg.vocab, seed=args.seed)
     gen = data.batches(args.batch, args.seq, device)
+    embeds = stub_embeds(cfg, args.batch, device)
     t0 = time.time()
     losses = []
     for step in range(1, args.steps + 1):
-        state, metrics = step_fn(state, {"tokens": next(gen)})
+        batch = {"tokens": next(gen)}
+        if embeds is not None:
+            batch["embeds"] = embeds
+        state, metrics = step_fn(state, batch)
         losses.append(float(metrics["loss"]))
         if step % args.log_every == 0 or step == 1:
             print(f"step {step:5d} loss={losses[-1]:.4f} "
@@ -126,7 +129,7 @@ def train_lm(args):
     print(json.dumps({"first_loss": losses[0], "last_loss": losses[-1]}))
     if args.ckpt_dir:
         checkpoint.save_step(args.ckpt_dir, args.steps, {
-            "params": interop.dense_params_to_jax(state.params, cfg)})
+            "params": interop.lm_params_to_jax(state.params, cfg)})
     return state
 
 

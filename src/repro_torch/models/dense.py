@@ -28,24 +28,26 @@ from repro_torch.device import DeviceLike, resolve_device
 
 from .attention import (decode_attend, decode_tables, gqa_forward,
                         gqa_prefill, init_gqa_params, init_kv_cache)
-from .common import ArchConfig, dense_init, embed_init, rms_norm, swiglu
+from .common import (ArchConfig, KeyGen, dense_init, embed_init, rms_norm,
+                     stack_layer_params, swiglu)
 
 Params = Dict
 
 
-def init_layer(generator: torch.Generator, cfg: ArchConfig,
+def init_layer(key: torch.Tensor, cfg: ArchConfig,
                dtype=torch.float32) -> Dict:
-    """One layer, the JAX init's distributions drawn from ``generator`` on
-    its device (not the JAX numbers)."""
-    dev = generator.device
+    """One layer from one threefry key, JAX's ``init_layer`` numbers (the
+    draws run where the key lies)."""
+    kg = KeyGen(key)
+    dev = key.device
     return {
-        "attn": init_gqa_params(generator, cfg, dtype),
+        "attn": init_gqa_params(kg, cfg, dtype),
         "attn_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
         "mlp_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
-        "w_gate": dense_init(generator, (cfg.d_model, cfg.d_ff), dtype),
-        "w_up": dense_init(generator, (cfg.d_model, cfg.d_ff), dtype),
+        "w_gate": dense_init(kg(), (cfg.d_model, cfg.d_ff), dtype),
+        "w_up": dense_init(kg(), (cfg.d_model, cfg.d_ff), dtype),
         "w_down": dense_init(
-            generator, (cfg.d_ff, cfg.d_model), dtype,
+            kg(), (cfg.d_ff, cfg.d_model), dtype,
             scale=cfg.d_ff ** -0.5 / (2 * cfg.n_layers) ** 0.5),
     }
 
@@ -70,42 +72,24 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, object]:
     return shapes
 
 
-def _empty(shapes, dtype, device):
-    if isinstance(shapes, dict):
-        return {k: _empty(v, dtype, device) for k, v in shapes.items()}
-    return torch.empty(shapes, dtype=dtype, device=device)
-
-
-def _fill_layer(dst: Dict, src: Dict, i: int) -> None:
-    for k, v in src.items():
-        if isinstance(v, dict):
-            _fill_layer(dst[k], v, i)
-        else:
-            dst[k][i].copy_(v)
-
-
-def init_params(cfg: ArchConfig, generator: torch.Generator,
+def init_params(key: torch.Tensor, cfg: ArchConfig,
                 device: DeviceLike = None, dtype=torch.float32) -> Params:
-    """Parameters with the JAX init's distributions (normal * 0.02 embeds,
-    truncated-normal fan-in matrices, unit norms), drawn from ``generator``
-    on its device in the JAX order (embed, the layers, unembed) and stored
-    on ``device`` (CUDA unless named).  The stacked layer leaves are
-    allocated once and filled layer by layer, and the embedding tables are
-    drawn in place, so the peak is the parameters plus one layer's draws.
-    The same scheme as the JAX ``init_params``, not its numbers."""
+    """JAX's ``init_params(key, cfg, dtype)`` numbers for a threefry key:
+    embed, the ``n_layers`` stacked layers, unembed, in its key order,
+    drawn and stored on ``device`` (CUDA unless named).  The stacked
+    leaves are filled layer by layer, so the peak is the parameters plus
+    one layer."""
     cfg.validate()
     dev = resolve_device(device)
-    g = generator
+    kg = KeyGen(key.to(dev))
     params = {
-        "embed": embed_init(g, (cfg.vocab, cfg.d_model), dtype).to(dev),
-        "layers": _empty(param_shapes(cfg)["layers"], dtype, dev),
+        "embed": embed_init(kg(), (cfg.vocab, cfg.d_model), dtype),
+        "layers": stack_layer_params(
+            lambda k: init_layer(k, cfg, dtype), cfg.n_layers, kg),
         "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
     }
-    for i in range(cfg.n_layers):
-        _fill_layer(params["layers"], init_layer(g, cfg, dtype), i)
     if not cfg.tie_embeddings:
-        params["unembed"] = dense_init(
-            g, (cfg.d_model, cfg.vocab), dtype).to(dev)
+        params["unembed"] = dense_init(kg(), (cfg.d_model, cfg.vocab), dtype)
     return params
 
 

@@ -5,20 +5,23 @@ global; ``perf_flags(**kw)`` sets some for the length of a ``with`` block
 and restores the old values after it.  The model code reads them on each
 call (the JAX package reads them at trace time).
 
-The lever that means something on one card:
+The levers that mean something on one card:
   * attn_chunk: KV-block size for chunked (online-softmax) attention in
     plain torch (``attention.chunked_grouped_attention``).  Bounds the score
     blocks at attn_chunk**2 instead of S**2 per head.
+  * moe_group: routing group size of the MoE family (GShard's G axis,
+    ``moe.MOE_GROUP``); smaller groups shrink the (G,S,E,C) dispatch
+    one-hots at a slightly higher drop risk.
 
 Not needed: ``decode_inplace``.  In JAX it chose the carried-cache decode
 over restacking each layer's cache; the port's decode always writes the
 cache in place with the step's tables computed once, so
 ``dense.decode_step_inplace`` is ``dense.decode_step``.
 
-Not ported: ``seq_parallel_spec``, ``exp_in_spec``, ``dispatch_spec``,
-``mesh`` and ``accum_steps`` (sharding and training levers; they wait for
-``serving/fleet/sharded.py`` and the training port) and ``moe_group``
-(the MoE family).
+Not ported: ``seq_parallel_spec``, ``exp_in_spec``, ``dispatch_spec``
+and ``mesh`` (sharding hints; they wait for a second GPU and
+``serving/fleet/sharded.py``) and ``accum_steps`` (``training/steps.py``
+takes it as an argument).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import dataclasses
 @dataclasses.dataclass
 class PerfFlags:
     attn_chunk: int = 0                        # 0 = full S^2 attention
+    moe_group: int = 512
 
 
 FLAGS = PerfFlags()

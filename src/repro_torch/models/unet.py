@@ -21,18 +21,18 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
 
-from .common import sinusoidal_time_embedding
+from .common import KeyGen, dense_init, sinusoidal_time_embedding
 
 # init scale of the leaves the JAX model starts near zero (unet.py:65,89,158)
-ZERO_INIT_LEAVES = ("conv2.weight", "wo.weight", "conv_out.weight")
 ZERO_INIT_SCALE = 1e-10
 
 
@@ -195,31 +195,168 @@ class UNet(nn.Module):
         return h.permute(0, 2, 3, 1)
 
 
-def init_params(cfg: UNetConfig, generator: torch.Generator,
-                device: DeviceLike = None) -> UNet:
-    """A UNet with the JAX model's init scheme, drawn from ``generator``
-    (a CPU generator; the draw is the same whatever the target device).
+# JAX leaf name -> (port parameter suffix, conversion): conv kernels HWIO
+# -> OIHW, dense (in, out) -> nn.Linear's (out, in), the rest as they are
+JAX_LEAVES = {
+    "time_w1": ("time_w1.weight", "dense"), "time_b1": ("time_w1.bias", ""),
+    "time_w2": ("time_w2.weight", "dense"), "time_b2": ("time_w2.bias", ""),
+    "time_w": ("time.weight", "dense"), "time_b": ("time.bias", ""),
+    "wq": ("wq.weight", "dense"), "wk": ("wk.weight", "dense"),
+    "wv": ("wv.weight", "dense"), "wo": ("wo.weight", "dense"),
+    "gn1_s": ("gn1.weight", ""), "gn1_b": ("gn1.bias", ""),
+    "gn2_s": ("gn2.weight", ""), "gn2_b": ("gn2.bias", ""),
+    "gn_s": ("gn.weight", ""), "gn_b": ("gn.bias", ""),
+    "gn_out_s": ("gn_out.weight", ""), "gn_out_b": ("gn_out.bias", ""),
+    "conv_in": ("conv_in.weight", "conv"), "conv1": ("conv1.weight", "conv"),
+    "conv2": ("conv2.weight", "conv"), "skip": ("skip.weight", "conv"),
+    "down": ("down.weight", "conv"), "up": ("up.weight", "conv"),
+    "conv_out": ("conv_out.weight", "conv"),
+}
 
-    Conv and dense weights: truncated normal on [-3, 3] times fan_in^-0.5
-    (fan_in = k*k*cin for convs, in-features for dense), except the
-    ZERO_INIT_LEAVES at 1e-10; biases 0; GroupNorm scale 1, shift 0.
-    Same scheme as the JAX ``init_params``, not the same numbers.
-    """
+
+def _conv_init(key, k: int, cin: int, cout: int, dtype, scale=None):
+    """HWIO (k, k, cin, cout) truncated normal, fan_in = k*k*cin."""
+    std = scale if scale is not None else (k * k * cin) ** -0.5
+    return dense_init(key, (k, k, cin, cout), dtype, scale=std)
+
+
+def _init_resblock(kg: KeyGen, cin: int, cout: int, time_dim: int, dtype,
+                   dev) -> Dict:
+    p = {
+        "gn1_s": torch.ones((cin,), dtype=dtype, device=dev),
+        "gn1_b": torch.zeros((cin,), dtype=dtype, device=dev),
+        "conv1": _conv_init(kg(), 3, cin, cout, dtype),
+        "time_w": dense_init(kg(), (time_dim, cout), dtype),
+        "time_b": torch.zeros((cout,), dtype=dtype, device=dev),
+        "gn2_s": torch.ones((cout,), dtype=dtype, device=dev),
+        "gn2_b": torch.zeros((cout,), dtype=dtype, device=dev),
+        "conv2": _conv_init(kg(), 3, cout, cout, dtype,
+                            scale=ZERO_INIT_SCALE),
+    }
+    if cin != cout:
+        p["skip"] = _conv_init(kg(), 1, cin, cout, dtype)
+    return p
+
+
+def _init_attn(kg: KeyGen, c: int, dtype, dev) -> Dict:
+    return {
+        "gn_s": torch.ones((c,), dtype=dtype, device=dev),
+        "gn_b": torch.zeros((c,), dtype=dtype, device=dev),
+        "wq": dense_init(kg(), (c, c), dtype),
+        "wk": dense_init(kg(), (c, c), dtype),
+        "wv": dense_init(kg(), (c, c), dtype),
+        "wo": dense_init(kg(), (c, c), dtype, scale=ZERO_INIT_SCALE),
+    }
+
+
+def init_tree(key: torch.Tensor, cfg: UNetConfig,
+              dtype=torch.float32) -> Dict:
+    """JAX's U-Net parameter pytree (``unet.py:101``: nesting, names, HWIO
+    / (in, out) layouts) for a threefry key, drawn where the key lies, in
+    its ``KeyGen`` order.  ``init_params`` loads it into a ``UNet``."""
+    kg, dev = KeyGen(key), key.device
+    W0, tdim = cfg.base_width, cfg.time_dim
+
+    def zeros(n):
+        return torch.zeros((n,), dtype=dtype, device=dev)
+
+    def ones(n):
+        return torch.ones((n,), dtype=dtype, device=dev)
+
+    params: Dict = {
+        "time_w1": dense_init(kg(), (W0, tdim), dtype),
+        "time_b1": zeros(tdim),
+        "time_w2": dense_init(kg(), (tdim, tdim), dtype),
+        "time_b2": zeros(tdim),
+        "conv_in": _conv_init(kg(), 3, cfg.in_channels, W0, dtype),
+    }
+    widths = [W0 * m for m in cfg.width_mults]
+    downs: List[Dict] = []
+    ch = W0
+    skip_chs = [ch]
+    for lvl, w in enumerate(widths):
+        blocks = []
+        for _ in range(cfg.n_res_blocks):
+            blk = {"res": _init_resblock(kg, ch, w, tdim, dtype, dev)}
+            if lvl in cfg.attn_levels:
+                blk["attn"] = _init_attn(kg, w, dtype, dev)
+            blocks.append(blk)
+            ch = w
+            skip_chs.append(ch)
+        entry: Dict = {"blocks": blocks}
+        if lvl < len(widths) - 1:
+            entry["down"] = _conv_init(kg(), 3, ch, ch, dtype)
+            skip_chs.append(ch)
+        downs.append(entry)
+    params["downs"] = downs
+    params["mid_res1"] = _init_resblock(kg, ch, ch, tdim, dtype, dev)
+    params["mid_attn"] = _init_attn(kg, ch, dtype, dev)
+    params["mid_res2"] = _init_resblock(kg, ch, ch, tdim, dtype, dev)
+    ups: List[Dict] = []
+    for lvl, w in reversed(list(enumerate(widths))):
+        blocks = []
+        for _ in range(cfg.n_res_blocks + 1):
+            sc = skip_chs.pop()
+            blk = {"res": _init_resblock(kg, ch + sc, w, tdim, dtype, dev)}
+            if lvl in cfg.attn_levels:
+                blk["attn"] = _init_attn(kg, w, dtype, dev)
+            blocks.append(blk)
+            ch = w
+        entry = {"blocks": blocks}
+        if lvl > 0:
+            entry["up"] = _conv_init(kg(), 3, ch, ch, dtype)
+        ups.append(entry)
+    params["ups"] = ups
+    params["gn_out_s"] = ones(ch)
+    params["gn_out_b"] = zeros(ch)
+    params["conv_out"] = _conv_init(kg(), 3, ch, cfg.in_channels, dtype,
+                                    scale=ZERO_INIT_SCALE)
+    return params
+
+
+def jax_leaf_to_port(path: Tuple[str, ...], leaf):
+    """(port state-dict key, leaf in the port's layout) of the JAX leaf at
+    ``path`` (numpy array or tensor)."""
+    suffix, kind = JAX_LEAVES[path[-1]]
+    if kind == "conv":
+        leaf = leaf.transpose(3, 2, 0, 1) if isinstance(leaf, np.ndarray) \
+            else leaf.permute(3, 2, 0, 1)
+    elif kind == "dense":
+        leaf = leaf.T
+    return ".".join(path[:-1] + (suffix,)), leaf
+
+
+def tree_leaves(tree, path=()):
+    """(path, leaf) of every leaf of a JAX-style tree of dicts and lists;
+    list indices become decimal path entries."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves(v, path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, path + (str(i),))
+    else:
+        yield path, tree
+
+
+def init_params(key: torch.Tensor, cfg: UNetConfig,
+                device: DeviceLike = None, dtype=torch.float32) -> UNet:
+    """A UNet holding JAX's ``init_params(key, cfg, dtype)`` numbers: the
+    JAX tree drawn on ``device`` (CUDA unless named, where the draws run)
+    by ``init_tree`` and loaded into the module's layouts."""
     dev = resolve_device(device)
-    model = UNet(cfg, device="meta").to_empty(device="cpu")
+    model = UNet(cfg, device="meta").to_empty(device=dev).to(dtype)
+    state = dict(model.named_parameters())
+    filled = set()
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            if p.dim() < 2:
-                is_gn_scale = name.endswith("weight")
-                p.fill_(1.0 if is_gn_scale else 0.0)
-                continue
-            fan_in = p[0].numel()            # cin*k*k (conv) / in (dense)
-            std = (ZERO_INIT_SCALE if name.endswith(ZERO_INIT_LEAVES)
-                   else fan_in ** -0.5)
-            nn.init.trunc_normal_(p, 0.0, 1.0, -3.0, 3.0,
-                                  generator=generator)
-            p.mul_(std)
-    return model.to(dev)
+        for path, leaf in tree_leaves(init_tree(key.to(dev), cfg, dtype)):
+            name, leaf = jax_leaf_to_port(path, leaf)
+            state[name].copy_(leaf)
+            filled.add(name)
+    missing = sorted(set(state) - filled)
+    if missing:
+        raise KeyError(f"port parameters with no JAX leaf: {missing}")
+    return model
 
 
 def make_eps_fn(model: UNet):

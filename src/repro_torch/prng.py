@@ -76,13 +76,15 @@ def PRNGKey(seed: int, device: DeviceLike = None) -> torch.Tensor:
     return key
 
 
-def _iota_2x32(shape: Tuple[int, ...], device) -> Tuple[torch.Tensor,
-                                                        torch.Tensor]:
-    """(hi, lo) words of the row-major index of each element of shape."""
+def _iota_2x32(shape: Tuple[int, ...], device, start: int = 0
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) words of the row-major index of each element of shape,
+    plus ``start``."""
     n = 1
     for s in shape:
         n *= s
-    idx = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    idx = torch.arange(start, start + n, dtype=torch.int64,
+                       device=device).reshape(shape)
     return idx >> 32, idx & _MASK
 
 
@@ -90,10 +92,10 @@ def _shape(shape: Shape) -> Tuple[int, ...]:
     return (int(shape),) if isinstance(shape, int) else tuple(shape)
 
 
-def _hash(keys: torch.Tensor, shape: Tuple[int, ...]):
-    """Hash the counters of ``shape`` under every key of ``keys``; returns
-    two (*keys.shape[:-1], *shape) words."""
-    hi, lo = _iota_2x32(shape, keys.device)
+def _hash(keys: torch.Tensor, shape: Tuple[int, ...], start: int = 0):
+    """Hash the counters of ``shape`` (offset by ``start``) under every key
+    of ``keys``; returns two (*keys.shape[:-1], *shape) words."""
+    hi, lo = _iota_2x32(shape, keys.device, start)
     lead = keys.shape[:-1]
     view = lead + (1,) * len(shape)
     k1 = keys[..., 0].reshape(view)
@@ -107,10 +109,17 @@ def split(keys: torch.Tensor, num: Shape = 2) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
-def random_bits(keys: torch.Tensor, shape: Shape) -> torch.Tensor:
+def random_bits(keys: torch.Tensor, shape: Shape, *,
+                start: int = 0) -> torch.Tensor:
     """32 random bits per element (``jax.random.bits``, uint32 values in an
-    int64 tensor): keys (..., 2) -> (..., *shape)."""
-    b1, b2 = _hash(keys, _shape(shape))
+    int64 tensor): keys (..., 2) -> (..., *shape).
+
+    ``start`` offsets the counters: the bits of a flat ``shape`` (n,) at
+    ``start`` are elements [start, start + n) of a larger row-major draw
+    (the counter of an element is its row-major index), which is how a
+    large draw is taken in chunks (``normal`` / ``truncated_normal``
+    forward it)."""
+    b1, b2 = _hash(keys, _shape(shape), start)
     return b1 ^ b2
 
 
@@ -155,9 +164,9 @@ def _poly(x: torch.Tensor, coefs, start) -> torch.Tensor:
 
 
 def _uniform32(keys: torch.Tensor, shape: Shape, lo: torch.Tensor,
-               hi: torch.Tensor) -> torch.Tensor:
+               hi: torch.Tensor, start: int = 0) -> torch.Tensor:
     """``uniform`` on float32 bounds ``lo`` / ``hi`` (0-dim tensors)."""
-    bits = random_bits(keys, shape)
+    bits = random_bits(keys, shape, start=start)
     one = ((bits >> 9) | _F32_ONE_BITS).to(torch.int32).view(torch.float32)
     return torch.maximum(lo, _fma32_exact(one - 1.0, hi - lo, lo))
 
@@ -275,24 +284,27 @@ def erf32(x: torch.Tensor) -> torch.Tensor:
     return (x * num) / den
 
 
-def normal(keys: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
+def normal(keys: torch.Tensor, shape: Shape = (), *,
+           start: int = 0) -> torch.Tensor:
     """float32 standard normals, ``jax.random.normal``:
-    sqrt(2) * erf_inv(u), u uniform on [nextafter(-1, 0), 1)."""
+    sqrt(2) * erf_inv(u), u uniform on [nextafter(-1, 0), 1).  ``start``
+    as in ``random_bits``."""
     lo = _scalar32(float(np.nextafter(np.float32(-1), np.float32(0))),
                    keys.device)
-    u = _uniform32(keys, shape, lo, torch.ones_like(lo))
+    u = _uniform32(keys, shape, lo, torch.ones_like(lo), start)
     return erf_inv32(u) * _SQRT2
 
 
 def truncated_normal(keys: torch.Tensor, lower: float, upper: float,
-                     shape: Shape = ()) -> torch.Tensor:
+                     shape: Shape = (), *, start: int = 0) -> torch.Tensor:
     """float32 normals truncated to (lower, upper),
     ``jax.random.truncated_normal``: u uniform on [erf(lower / sqrt2),
     erf(upper / sqrt2)), sqrt(2) * erf_inv(u), clipped to the open
-    interval."""
+    interval.  ``start`` as in ``random_bits``."""
     lo = _scalar32(lower, keys.device)
     hi = _scalar32(upper, keys.device)
-    u = _uniform32(keys, shape, erf32(lo / _SQRT2), erf32(hi / _SQRT2))
+    u = _uniform32(keys, shape, erf32(lo / _SQRT2), erf32(hi / _SQRT2),
+                   start)
     out = erf_inv32(u) * _SQRT2
     return out.clamp(torch.nextafter(lo, lo.new_tensor(float("inf"))),
                      torch.nextafter(hi, hi.new_tensor(-float("inf"))))
@@ -335,8 +347,11 @@ def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """``jax.random.categorical`` over the last axis (the Gumbel-max trick:
     argmax of gumbel + logits, first index on ties).
 
-    keys (*K, 2) and logits (*K, V): each key draws its own V Gumbels, as
-    ``jax.vmap(jax.random.categorical)`` does over K.  Returns (*K,) int64.
+    keys (*K, 2) and logits (*K, ..., V): each key draws its own Gumbels
+    over the rest of the logits' shape, as ``jax.vmap(
+    jax.random.categorical)`` does over K.  One key (shape (2,)) is
+    ``jax.random.categorical(key, logits, axis=-1)`` itself: one Gumbel
+    draw of ``logits.shape``.  Returns logits.shape[:-1], int64.
     """
     g = gumbel(keys, logits.shape[keys.dim() - 1:])
     return torch.argmax(g + logits, dim=-1)

@@ -201,6 +201,9 @@ class DiffusionSampler:
             buckets = buckets + (batch_size,)
         self.buckets = buckets
         self.plan_bank = plan_bank
+        # JAX's compiled-program keys, (plan, batch): eager PyTorch builds
+        # no program per key, the stats count the keys seen
+        self._programs = set()
         if plan_bank is not None and (_schedule_digest(plan_bank.schedule)
                                       != _schedule_digest(schedule)):
             raise ValueError(
@@ -258,6 +261,7 @@ class DiffusionSampler:
         dtype) and the plan runs with ``k2``, as in JAX."""
         plan = self._as_plan(cfg)
         batch = self._bucket_for(n) if n is not None else self.batch
+        self._programs.add((plan, batch))
         k1, k2 = prng.split(rng.to(self.device))
         x_T = prng.normal(k1, (batch,) + self.shape).to(self.dtype)
         backend = "tile_resident" if self.tile_resident else "eager"
@@ -276,7 +280,10 @@ class DiffusionSampler:
         the service's device, split once per chunk as JAX splits it, so
         one seed gives JAX's draws.  The first batch
         includes the kernels' first-use build; the steady-state figures
-        exclude it when there is more than one batch.
+        exclude it when there is more than one batch.  The stats carry
+        JAX's keys: ``compiled_programs`` counts the distinct (plan,
+        batch) keys served so far (JAX compiles one program per key), and
+        ``donated`` is False: no run takes over x_T's buffer.
         """
         plan = self._as_plan(cfg)
         dtype_name = str(self.dtype).replace("torch.", "")
@@ -286,7 +293,8 @@ class DiffusionSampler:
             return empty, {"batches": 0, "first_batch_s": 0.0,
                            "steady_batch_s": 0.0, "samples_per_s": 0.0,
                            "net_evals_per_sample": plan.S,
-                           "dtype": dtype_name}
+                           "compiled_programs": len(self._programs),
+                           "dtype": dtype_name, "donated": False}
         rng = prng.PRNGKey(seed, self.device)
         outs, times, sizes = [], [], []
         delivered = 0
@@ -307,7 +315,9 @@ class DiffusionSampler:
             "steady_batch_s": sum(times[sl]) / len(times[sl]),
             "samples_per_s": float(sum(sizes[sl])) / float(sum(times[sl])),
             "net_evals_per_sample": plan.S,
+            "compiled_programs": len(self._programs),
             "dtype": dtype_name,
+            "donated": False,
         }
 
     def continuous(self, slots: Optional[int] = None, **kw):

@@ -1,6 +1,6 @@
 """The port's autoregressive server (``repro_torch.serving.ARGenerator``)
 against the JAX package's, on the CPU at smoke sizes, over the same
-weights (``interop.dense_params_from_jax``), prompts and ``rng_seed``s.
+weights (``interop.lm_params_from_jax``), prompts and ``rng_seed``s.
 
 The two packages' logits agree to 1e-5 of max|logits| (float32 products
 summed in another order), so a token can differ only where the choice is
@@ -45,7 +45,7 @@ def _jcfg(tcfg):
 @functools.lru_cache(maxsize=None)
 def _params(tcfg):
     jp = jdense.init_params(jax.random.PRNGKey(1), _jcfg(tcfg))
-    return jp, interop.dense_params_from_jax(jax.tree.map(np.asarray, jp),
+    return jp, interop.lm_params_from_jax(jax.tree.map(np.asarray, jp),
                                              tcfg)
 
 
@@ -218,8 +218,8 @@ def test_argenerator_refusals(monkeypatch):
     _, tp = _params(tcfg)
     with pytest.raises(ValueError, match="in place"):
         ARGenerator(tcfg, tp, 2, 8, donate=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="repro/models/moe.py"):
-        ARGenerator(dataclasses.replace(tcfg, family="moe"), tp, 2, 8,
+    with pytest.raises(NotImplementedError, match="repro/models/rwkv6.py"):
+        ARGenerator(dataclasses.replace(tcfg, family="ssm"), tp, 2, 8,
                     device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

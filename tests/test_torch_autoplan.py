@@ -28,9 +28,11 @@ Tolerances:
     off on these inputs, the port's up to 1.8e-3;
     ``test_step_doubling_defect_vs_float64`` holds the port to twice the
     reference's own distance;
-  * ``PlanExecutor``: bitwise against the port's ``tile_resident`` (det
-    and stoch, one threefry key) and, for eta = 0, against ``eager``;
-    4 float32 ulps of max(|x_T|, |x_0|) against JAX's ``PlanExecutor``;
+  * ``PlanExecutor``: a deterministic plan bitwise against the port's
+    ``tile_resident`` and ``eager``, a stochastic one bitwise against
+    ``eager`` (one threefry key: JAX's noise); 4 float32 ulps of
+    max(|x_T|, |x_0|) against JAX's ``PlanExecutor``, stochastic
+    candidates included;
   * ``PlanBank``: JSON equal key for key across the packages; ``best`` /
     ``select`` outcomes equal;
   * engine: NFE picks, counters and span events equal to the JAX engine's;
@@ -42,6 +44,7 @@ import dataclasses
 import itertools
 import json
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -436,10 +439,11 @@ def test_executor_bitwise_to_tile_resident_and_eager(model):
         gen = (lambda: prng.PRNGKey(9, "cpu")) if \
             plan.stochastic else (lambda: None)
         out = ex.run(plan, x_T, gen())
-        want = plan.run(teps, x_T, gen(), backend="tile_resident")
+        want = plan.run(teps, x_T, gen(), backend="eager")
         assert torch.equal(out, want), plan
         if not plan.stochastic:
-            assert torch.equal(out, plan.run(teps, x_T, backend="eager"))
+            assert torch.equal(out, plan.run(teps, x_T,
+                                             backend="tile_resident"))
     assert ex.calls == len(cands)
     bf = x_T.bfloat16()
     assert torch.equal(ex.run(cands[0], bf),
@@ -484,6 +488,31 @@ def test_executor_matches_jax_executor(model):
         scale = max(np.abs(want).max(), np.abs(x_T).max())
         assert np.abs(got - want).max() <= F32_TOL * scale
     assert ex.traces == jex.traces == 2
+
+
+@pytest.mark.parametrize("model", list(MODELS))
+@pytest.mark.parametrize("seed", [0, 9])
+def test_executor_stochastic_matches_jax_executor(model, seed):
+    """A stochastic candidate scored by both executors on one x_T and one
+    key agrees to 4 float32 ulps of max(|x_T|, |x_0|): both draw ``normal``
+    of ``split(rng, S)``."""
+    pair, shape, _ = MODELS[model]
+    jeps, teps = pair()
+    ex, jex = tap.PlanExecutor(teps), jap.PlanExecutor(jeps)
+    x_T = _rand(6, *shape)
+    plans = [(Plan.build(sch, tau=4, sigma=1.0),
+              Plan.build(sch, tau=5, sigma=Sig.schedule(
+                  [0.0, 0.5, 0.0, 1.0, 0.25])))
+             for Plan, sch, Sig in ((SamplerPlan, TSCH, SigmaSpec),
+                                    (JPlan, JSCH, JSigma))]
+    for tp, jp in zip(*plans):
+        assert tp.stochastic and jp.stochastic
+        got = ex.run(tp, torch.from_numpy(x_T),
+                     prng.PRNGKey(seed, "cpu")).numpy()
+        want = np.asarray(jex.run(jp, jnp.asarray(x_T),
+                                  jax.random.PRNGKey(seed)))
+        scale = max(np.abs(want).max(), np.abs(x_T).max())
+        assert np.abs(got - want).max() <= F32_TOL * scale
 
 
 # ---------------------------------------------------------------- PlanBank

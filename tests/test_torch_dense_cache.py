@@ -2,7 +2,7 @@
 ``models.attention``, ``models.runtime_flags``, ``models.registry``,
 ``configs``, ``interop``) against the JAX package, on the CPU at smoke
 sizes, with the JAX weights carried over by
-``interop.dense_params_from_jax``.
+``interop.lm_params_from_jax``.
 
 Tolerance: 1e-5 of max|.| for logits, KV caches and attention outputs
 (float32; the products sum in another order).  ``idx`` and every integer
@@ -25,7 +25,7 @@ from repro.models import dense as jdense
 from repro.models import registry as jregistry
 from repro.models import runtime_flags as jflags
 from repro.models.common import ArchConfig as JArch
-from repro_torch import configs, interop
+from repro_torch import configs, interop, prng
 from repro_torch.models import attention as tattn
 from repro_torch.models import dense as tdense
 from repro_torch.models import registry as tregistry
@@ -52,7 +52,7 @@ def _params(tcfg: ArchConfig):
     """(JAX params, port params) of the JAX init at seed 0."""
     if tcfg not in _PARAMS:
         jp = jdense.init_params(jax.random.PRNGKey(0), _jcfg(tcfg))
-        tp = interop.dense_params_from_jax(jax.tree.map(np.asarray, jp),
+        tp = interop.lm_params_from_jax(jax.tree.map(np.asarray, jp),
                                            tcfg)
         _PARAMS[tcfg] = (jp, tp)
     return _PARAMS[tcfg]
@@ -316,8 +316,9 @@ def test_configs_field_for_field(arch):
 
 def test_config_tables_and_unported_ids():
     assert configs.ARCH_IDS == jconfigs.ARCH_IDS
-    assert list(configs.ARCHS) == [a for a in jconfigs.ARCHS
-                                   if jconfigs.ARCHS[a].family == "dense"]
+    assert list(configs.ARCHS) == [
+        a for a in jconfigs.ARCHS
+        if jconfigs.ARCHS[a].family in ("dense", "moe", "vlm")]
     for arch in configs.ARCH_IDS:
         if arch in configs.ARCHS:
             continue
@@ -334,9 +335,8 @@ def test_config_tables_and_unported_ids():
 
 
 @pytest.mark.parametrize("family,module", [
-    ("moe", "repro/models/moe.py"), ("ssm", "repro/models/rwkv6.py"),
-    ("hybrid", "repro/models/hybrid.py"), ("audio", "repro/models/encdec.py"),
-    ("vlm", "repro/models/vlm.py")])
+    ("ssm", "repro/models/rwkv6.py"),
+    ("hybrid", "repro/models/hybrid.py"), ("audio", "repro/models/encdec.py")])
 def test_registry_refuses_unported_families(family, module):
     assert family in jregistry.FAMILIES
     cfg = dataclasses.replace(configs.SMOLLM_135M_SMOKE, family=family)
@@ -371,8 +371,7 @@ def test_init_params_scheme_and_interop_round_trip(tcfg):
     jcfg = _jcfg(tcfg)
     shapes = jax.eval_shape(lambda k: jdense.init_params(k, jcfg),
                             jax.random.PRNGKey(0))
-    tp = tdense.init_params(tcfg, torch.Generator().manual_seed(0),
-                            device="cpu")
+    tp = tdense.init_params(prng.PRNGKey(0, "cpu"), tcfg, device="cpu")
     want = jax.tree.map(lambda s: tuple(s.shape), shapes)
     assert interop.map_leaves(tp, lambda t: tuple(t.shape)) == want
     assert ("unembed" in tp) == (not tcfg.tie_embeddings)
@@ -384,19 +383,19 @@ def test_init_params_scheme_and_interop_round_trip(tcfg):
     assert torch.equal(tp["final_norm"], torch.ones(tcfg.d_model))
     jp, _ = _params(tcfg)
     tree = jax.tree.map(np.asarray, jp)
-    back = interop.dense_params_to_jax(
-        interop.dense_params_from_jax(tree, tcfg), tcfg)
+    back = interop.lm_params_to_jax(
+        interop.lm_params_from_jax(tree, tcfg), tcfg)
     la, ta = jax.tree_util.tree_flatten(tree)
     lb, tb = jax.tree_util.tree_flatten(back)
     assert ta == tb and all(np.array_equal(a, b) for a, b in zip(la, lb))
     with pytest.raises(KeyError, match="final_norm"):
-        interop.dense_params_from_jax(
+        interop.lm_params_from_jax(
             {k: v for k, v in tree.items() if k != "final_norm"}, tcfg)
     with pytest.raises(ValueError, match="embed"):
-        interop.dense_params_from_jax(dict(tree, embed=np.zeros(3)), tcfg)
+        interop.lm_params_from_jax(dict(tree, embed=np.zeros(3)), tcfg)
 
 
 def test_init_params_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
-        tdense.init_params(configs.SMOLLM_135M_SMOKE, torch.Generator())
+        tdense.init_params(prng.PRNGKey(0, "cpu"), configs.SMOLLM_135M_SMOKE)

@@ -109,11 +109,11 @@ def test_interop_rejects_unmapped_missing_and_misshaped_leaves():
 
 
 def test_init_params_scheme():
-    """The port's own init: the JAX shapes, norm scales 1, fan-in
-    truncated-normal weights, w_down at its depth-scaled std."""
+    """The port's init: the JAX shapes, norm scales 1, fan-in
+    truncated-normal weights, w_down at its depth-scaled std (its numbers
+    are held to JAX's in ``test_torch_init.py``)."""
     _, tcfg = _cfgs(SMOKE)
-    p = tdlm.init_params(tcfg, torch.Generator().manual_seed(0),
-                         device="cpu")
+    p = tdlm.init_params(prng.PRNGKey(0, "cpu"), tcfg, device="cpu")
     shapes = jax.tree.map(lambda t: tuple(t.shape), p)
     assert shapes == tdlm.param_shapes(tcfg)
     assert torch.equal(p["layers"]["attn_norm"], torch.ones(2, 192))
@@ -130,20 +130,19 @@ def test_entry_points_default_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, tcfg = _cfgs(GQA)
     with pytest.raises(RuntimeError, match="CUDA"):
-        tdlm.init_params(tcfg, torch.Generator().manual_seed(0))
-    p = tdlm.init_params(tcfg, torch.Generator().manual_seed(0),
-                         device="cpu")
+        tdlm.init_params(prng.PRNGKey(0, "cpu"), tcfg)
+    p = tdlm.init_params(prng.PRNGKey(0, "cpu"), tcfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         tdlm.generate(p, tcfg, make_schedule("linear", 1000),
-                      torch.Generator().manual_seed(0), 2, 64)
+                      prng.PRNGKey(0, "cpu"), 2, 64)
 
 
 def test_other_families_name_their_jax_module():
     cfg = tdlm.DiffusionLMConfig(arch=TArch(
-        name="m", family="moe", n_layers=1, d_model=64, n_heads=2,
+        name="m", family="ssm", n_layers=1, d_model=64, n_heads=2,
         n_kv_heads=2, d_ff=64, vocab=10))
-    with pytest.raises(NotImplementedError, match="moe.py"):
-        tdlm.init_params(cfg, torch.Generator(), device="cpu")
+    with pytest.raises(NotImplementedError, match="rwkv6.py"):
+        tdlm.init_params(prng.PRNGKey(0, "cpu"), cfg, device="cpu")
 
 
 def test_configs_carry_smollm_widths():
@@ -200,3 +199,53 @@ def test_generate_composes_on_the_port():
     torch.testing.assert_close(
         sample(sch, eps, x, SamplerConfig(S=3)),
         SamplerConfig(S=3).to_plan(sch).run(eps, x), rtol=0, atol=0)
+
+
+# ------------------------------------------------------------ moe trunk
+MOE_TRUNKS = ["deepseek-v2-236b", "kimi-k2-1t-a32b"]
+
+
+def _moe_params(arch):
+    from repro import configs as jconfigs
+    ja, ta = jconfigs.get_smoke(arch), configs.get_smoke(arch)
+    jcfg = jdlm.DiffusionLMConfig(arch=ja, time_dim=32)
+    tcfg = tdlm.DiffusionLMConfig(arch=ta, time_dim=32)
+    jp = jdlm.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = interop.dlm_params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
+    return jcfg, tcfg, jp, tp
+
+
+@pytest.mark.parametrize("arch", MOE_TRUNKS, ids=["mla", "gqa"])
+def test_moe_trunk_eps_forward_matches_jax(arch):
+    """The moe trunk: MLA layers causal (JAX's trunk calls mla_forward),
+    GQA layers bidirectional, each with the routed-expert FFN."""
+    jcfg, tcfg, jp, tp = _moe_params(arch)
+    x = np.random.RandomState(1).randn(2, 64, 32).astype(np.float32)
+    t = np.array([999, 17], np.int32)
+    want = jdlm.eps_forward(jp, jcfg, jnp.asarray(x), jnp.asarray(t))
+    got = tdlm.eps_forward(tp, tcfg, torch.from_numpy(x),
+                           torch.from_numpy(t))
+    assert _rel_err(got, want) <= TOL_OF_SCALE
+
+
+@pytest.mark.parametrize("arch", MOE_TRUNKS, ids=["mla", "gqa"])
+def test_moe_trunk_generate_runs_tile_resident_like_jax(arch):
+    """A moe trunk carries no mega_spec in either package, so 'mega' runs
+    the tile-resident loop (B1 per step on the card), with the reason in
+    run_mega.last_reason; tokens equal the eager loop's and JAX's."""
+    from repro_torch.sampling import backends
+    jcfg, tcfg, jp, tp = _moe_params(arch)
+    sch = make_schedule("linear", 1000)
+    eps = tdlm.make_tile_eps_fn(tp, tcfg, 2, 64)
+    assert getattr(eps, "mega_spec", None) is None
+    assert not hasattr(jdlm.make_tile_eps_fn(jp, jcfg, 2, 64), "mega_spec")
+    kw = dict(sampler=SamplerConfig(S=4), device="cpu")
+    a = tdlm.generate(tp, tcfg, sch, prng.PRNGKey(3, "cpu"), 2, 64,
+                      tile_resident=True, **kw)
+    assert "mega_spec" in backends.run_mega.last_reason
+    b = tdlm.generate(tp, tcfg, sch, prng.PRNGKey(3, "cpu"), 2, 64, **kw)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    want = jdlm.generate(jp, jcfg, j_make_schedule("linear", 1000),
+                         jax.random.PRNGKey(3), 2, 64,
+                         sampler=JSamplerConfig(S=4), tile_resident=True)
+    np.testing.assert_array_equal(a.numpy(), np.asarray(want))

@@ -36,7 +36,7 @@ from repro.sampling import SamplerPlan as JPlan
 from repro.sampling import SigmaSpec as JSigma
 from repro.sampling import TauSpec as JTau
 from repro.training import checkpoint as jckpt
-from repro_torch import configs, interop
+from repro_torch import configs, interop, prng
 from repro_torch.core import make_schedule
 from repro_torch.launch import serve
 from repro_torch.models import unet
@@ -165,9 +165,8 @@ def test_refusals_and_unported_arch(monkeypatch, capsys):
     serve.main(["--arch", "smollm-135m", "--smoke", "--new-tokens", "3",
                 "--device", "cpu"])
     assert len(TOKENS.findall(capsys.readouterr().out)) == 4
-    with pytest.raises(NotImplementedError, match="repro/models/vlm.py"):
-        serve.main(["--arch", "llava-next-mistral-7b", "--smoke",
-                    "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="repro/models/rwkv6.py"):
+        serve.main(["--arch", "rwkv6-7b", "--smoke", "--device", "cpu"])
     with pytest.raises(SystemExit):
         serve.main(["--arch", "smollm-135m", "--gateway"])
     with pytest.raises(SystemExit):
@@ -235,8 +234,7 @@ def test_checkpoint_files_cross_packages_both_ways(tmp_path):
     jpath = str(tmp_path / "jax.npz")
     jckpt.save(jpath, {"params": j_params, "ema": j_ema}, step=7)
     like = interop.unet_params_to_jax(unet.init_params(
-        cfg, torch.Generator().manual_seed(0), device="cpu").state_dict(),
-        cfg)
+        prng.PRNGKey(0, "cpu"), cfg, device="cpu").state_dict(), cfg)
     got, meta = checkpoint.restore(jpath, {"params": like, "ema": like})
     assert meta == {"step": 7, "n_leaves": 2 * len(
         jax.tree_util.tree_leaves(j_ema))}

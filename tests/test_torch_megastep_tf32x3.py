@@ -23,6 +23,7 @@ import pytest
 import torch
 from torch.overrides import TorchFunctionMode
 
+from repro_torch import prng
 from repro_torch.core import make_schedule
 from repro_torch.diffusion_lm import model as tdlm
 from repro_torch.kernels.megastep import ref
@@ -114,8 +115,7 @@ def test_megastep_ref_with_tf32x3_products_within_1e5(attn_impl):
     arch = ArchConfig(name="t", family="dense", n_layers=2, d_model=192,
                       n_heads=3, n_kv_heads=1, d_ff=512, vocab=50)
     cfg = tdlm.DiffusionLMConfig(arch=arch, time_dim=64)
-    params = tdlm.init_params(cfg, torch.Generator().manual_seed(0),
-                              device="cpu")
+    params = tdlm.init_params(prng.PRNGKey(0, "cpu"), cfg, device="cpu")
     eps_params = {k: params[k] for k in tdlm.EPS_PATH}
     batch, seq, K = 2, 64, 8
     x2 = torch.from_numpy(np.random.RandomState(1).randn(

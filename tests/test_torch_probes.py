@@ -35,7 +35,7 @@ from repro.sampling import SamplerPlan as JPlan
 from repro.serving.scheduler import ContinuousBatchingEngine as JEngine
 from repro.serving.scheduler import SampleRequest as JReq
 from repro.serving.scheduler import SlotCheckpoint as JCk
-from repro_torch import obs
+from repro_torch import obs, prng
 from repro_torch.core import StepStates, make_schedule
 from repro_torch.obs.probes import device_frame
 from repro_torch.obs.schema import FLIGHT_FRAME_KEYS, PROBE_COLUMNS
@@ -274,8 +274,7 @@ def test_set_probes_without_spec_and_mega_plus_probes_raise():
         arch=ArchConfig(name="t", family="dense", n_layers=2, d_model=64,
                         n_heads=2, n_kv_heads=2, d_ff=128, vocab=50),
         time_dim=32)
-    params = tdlm.init_params(cfg, torch.Generator().manual_seed(0),
-                              device="cpu")
+    params = tdlm.init_params(prng.PRNGKey(0, "cpu"), cfg, device="cpu")
     eps = tdlm.make_tile_eps_fn(params, cfg, 2, 64)
     shape = (64, cfg.latent_dim)
     with pytest.raises(ValueError, match="mega") as e:

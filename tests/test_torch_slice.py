@@ -167,14 +167,19 @@ def test_diffusion_sampler_serve(models):
     out, stats = svc.serve(5, tp, seed=3)
     assert out.shape == (5,) + SHAPE and torch.isfinite(out).all()
     assert set(stats) == {"batches", "first_batch_s", "steady_batch_s",
-                          "samples_per_s", "net_evals_per_sample", "dtype"}
-    _, jstats = jsvc.serve(1, jplan.SamplerPlan.build(
+                          "samples_per_s", "net_evals_per_sample", "dtype",
+                          "compiled_programs", "donated"}
+    _, jstats = jsvc.serve(5, jplan.SamplerPlan.build(
         jsched.make_schedule("linear", 1000), 2))
-    assert set(stats) <= set(jstats)
+    assert set(stats) == set(jstats)
+    # one program key per (plan, bucket): the 4 and the 2 of [4, 2]
+    assert stats["compiled_programs"] == jstats["compiled_programs"] == 2
+    assert stats["donated"] is False
     assert stats["batches"] == 2 and stats["net_evals_per_sample"] == S
     assert stats["dtype"] == "float32"
-    again, _ = svc.serve(5, tp, seed=3)
-    assert torch.equal(out, again)
+    again, st2 = svc.serve(5, tp, seed=3)
+    assert torch.equal(out, again) and st2["compiled_programs"] == 2
+    assert svc.serve(0, tp)[1]["compiled_programs"] == 2
 
 
 def test_diffusion_sampler_defaults_to_cuda(monkeypatch):

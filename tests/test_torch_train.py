@@ -169,7 +169,7 @@ def lm_pair():
     jcfg = jconfigs.get_smoke("smollm-135m")
     tcfg = tconfigs.get_smoke("smollm-135m")
     jp = jdense.init_params(jax.random.PRNGKey(0), jcfg)
-    tp = interop.dense_params_from_jax(_np(jp), tcfg)
+    tp = interop.lm_params_from_jax(_np(jp), tcfg)
     tokens = SyntheticTokens(vocab=tcfg.vocab).sample(
         prng.PRNGKey(2, "cpu"), 4, 24)
     return jcfg, tcfg, jp, tp, tokens
@@ -201,10 +201,46 @@ def test_lm_train_step_matches_jax(lm_pair, accum):
         flat = lambda tree: {"/".join(p): v for p, v in  # noqa: E731
                              tckpt._flatten(tree)}
         _assert_grads_close(flat(tg), flat(_np(jg)))
-        jg_t = interop.dense_params_from_jax(_np(jg), tcfg)
+        jg_t = interop.lm_params_from_jax(_np(jg), tcfg)
         p1, _, _ = topt.adamw_update(opt, jg_t, topt.adamw_init(tp), tp)
-        _assert_params_close(flat(p1), flat(interop.dense_params_from_jax(
+        _assert_params_close(flat(p1), flat(interop.lm_params_from_jax(
             _np(jnew.params), tcfg)))
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "kimi-k2-1t-a32b",
+                                  "llava-next-mistral-7b"])
+def test_lm_train_step_other_families_match_jax(arch):
+    """A moe step adds aux_weight * aux (MLA and GQA); a vlm step trains
+    on JAX's stub embeddings; loss, aux and grad norm as JAX's."""
+    from repro.models import get_api as jget_api
+    from repro_torch.models.vlm import stub_embeds
+    jcfg, tcfg = jconfigs.get_smoke(arch), tconfigs.get_smoke(arch)
+    jp = jget_api(jcfg).init_params(jax.random.PRNGKey(0), jcfg)
+    tp = tsteps.get_api(tcfg).init_params(prng.PRNGKey(0, "cpu"), tcfg,
+                                          device="cpu")
+    tokens = SyntheticTokens(vocab=tcfg.vocab).sample(
+        prng.PRNGKey(2, "cpu"), 2, 16)
+    batch, jbatch = {"tokens": tokens}, {"tokens": jnp.asarray(
+        tokens.numpy())}
+    emb = stub_embeds(tcfg, 2, "cpu")
+    if emb is not None:
+        batch["embeds"] = emb
+        jbatch["embeds"] = jax.random.normal(
+            jax.random.PRNGKey(9), (2, jcfg.n_ctx_embeds, jcfg.d_model)) \
+            * 0.02
+        np.testing.assert_array_equal(emb.numpy(), np.asarray(
+            jbatch["embeds"]))
+    opt, jopt_cfg = topt.AdamWConfig(lr=1e-3), jopt.AdamWConfig(lr=1e-3)
+    _, m = tsteps.make_lm_train_step(tcfg, opt)(
+        tsteps.init_train_state(tp, prng.PRNGKey(1, "cpu"), opt), batch)
+    _, jm = jsteps.make_lm_train_step(jcfg, jopt_cfg)(
+        jsteps.init_train_state(jp, jax.random.PRNGKey(1), jopt_cfg),
+        jbatch)
+    assert _rel(m["loss"], jm["loss"]) <= LOSS_RTOL
+    assert _rel(m["grad_norm"], jm["grad_norm"]) <= GNORM_RTOL
+    if tcfg.family == "moe":
+        assert float(m["aux"]) > 0.0
+        assert _rel(m["aux"], jm["aux"]) <= LOSS_RTOL
 
 
 def test_lm_accum_two_agrees_with_one(lm_pair):
@@ -219,8 +255,7 @@ def test_lm_accum_two_agrees_with_one(lm_pair):
 
 def test_prefill_and_decode_steps_are_the_api():
     cfg = tconfigs.get_smoke("smollm-135m")
-    params = tdense.init_params(cfg, torch.Generator().manual_seed(0),
-                                device="cpu")
+    params = tdense.init_params(prng.PRNGKey(0, "cpu"), cfg, device="cpu")
     tok = torch.tensor([[1, 2, 3]], dtype=torch.int32)
     cache = tdense.init_cache(cfg, 1, 8, device="cpu")
     logits, cache = tsteps.make_prefill_step(cfg)(params, tok, cache)
@@ -309,6 +344,6 @@ def test_train_lm_cli_smoke_and_refusals(tmp_path):
     restored, _ = jckpt.restore(jckpt.latest(str(tmp_path)),
                                 {"params": like})
     assert jax.tree.structure(restored["params"]) == jax.tree.structure(like)
-    for arch in ("llava-next-mistral-7b", "seamless-m4t-large-v2"):
+    for arch in ("rwkv6-7b", "seamless-m4t-large-v2"):
         with pytest.raises(NotImplementedError, match="not ported"):
             ttrain.main(["--arch", arch, "--smoke", "--device", "cpu"])

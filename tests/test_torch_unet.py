@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from repro.models import unet as junet
-from repro_torch import interop
+from repro_torch import interop, prng
 from repro_torch.configs import CIFAR10_UNET, TOY_UNET
 from repro_torch.models import unet as tunet
 
@@ -128,8 +128,7 @@ def test_port_init_matches_jax_parameter_shapes(cfg):
     assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == \
         {k: tuple(v.shape) for k, v in expected.items()}
     if cfg is SMALL:
-        m = tunet.init_params(cfg, torch.Generator().manual_seed(0),
-                              device="cpu")
+        m = tunet.init_params(prng.PRNGKey(0, "cpu"), cfg, device="cpu")
         sd = m.state_dict()
         assert float(sd["conv_out.weight"].abs().max()) < 1e-9
         w = sd["conv_in.weight"]
@@ -142,4 +141,4 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         tunet.UNet(SMALL)
     with pytest.raises(RuntimeError, match="CUDA"):
-        tunet.init_params(SMALL, torch.Generator().manual_seed(0))
+        tunet.init_params(prng.PRNGKey(0, "cpu"), SMALL)
