@@ -276,6 +276,21 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               'mega' (not eligible) against 'eager'; (j) the serve and
               train CLIs for the moe and vlm smoke ids.  --p12-probe runs
               only the build and this phase
+ 13. the ssm, hybrid and audio families, run last so that every
+              earlier rate is timed as before: (a) rwkv6-7b (its drawn init
+              leaves' windows redrawn on the CPU), (b) seamless-m4t-large-v2
+              over 1,024 stub frames and (c) zamba2-2.7b, each at full width
+              and depth in float32 through ARGenerator, batch 4, 32 new
+              tokens: the seven counters 0, the cache path against the
+              cache-free model within 1e-4 of max|logits| (each family;
+              zamba2's cached recurrence against its chunked SSD
+              forward), one prefill and one decode step profiled, peak
+              memory; (d) / (e) the
+              diffusion-LM on a 2-layer rwkv6-width and a 4-layer
+              zamba2-width trunk: generate(tile_resident=True) B1 once per
+              step, 'mega' (not eligible) against 'eager'; (f) the serve CLI
+              for the three smoke ids.  --p13-probe runs only the build and
+              this phase
 
 Every time is printed beside the card's name and power limit.  Any failure
 raises and the script exits nonzero with no result line.  On success the
@@ -4244,14 +4259,19 @@ def _moe_forward_as_served(params, cfg, tokens, P):
     return moe._logits(params, cfg, h)
 
 
-def phase_lm_family(smi, cfg, batch, prompt_len, new, window_check=False):
-    """Phase 12 (e) / (f) / (g): ARGenerator on a moe or vlm model,
-    float32 weights drawn on the card, the first ``batch`` of LM_ROWS'
-    greedy and sampled rows; the seven counters 0; the cache path's logits against
-    the cache-free model within LM_FORWARD_TOL of max|logits|; one steady
-    decode step profiled; peak memory; for a moe model the latent cache's
-    bytes against the dense GQA cache it replaces.  With
-    ``window_check`` every leaf's init windows are redrawn on the CPU."""
+def phase_lm_family(smi, cfg, batch, prompt_len, new, window_check=False,
+                    tag="[p12]", profile_prefill=False):
+    """Phase 12 (e) / (f) / (g) and phase 13: ARGenerator on a model of
+    any family, float32 weights drawn on the card, the first ``batch`` of
+    LM_ROWS' greedy and sampled rows; the seven counters 0; the cache
+    path's logits against the cache-free model within LM_FORWARD_TOL of
+    max|logits|; one steady decode step (and with ``profile_prefill`` one
+    prefill) profiled; peak memory; for a moe model the latent cache's
+    bytes against the dense GQA cache it replaces.  A vlm's stub
+    embeddings are prepended (its cache grows by them), an audio model's
+    frames go to the encoder.  With ``window_check`` every drawn leaf's
+    init windows are redrawn on the CPU.  Returns the launch counts of
+    the generate."""
     import numpy as np
     from repro_torch import prng
     from repro_torch.models import common, get_api
@@ -4274,7 +4294,7 @@ def phase_lm_family(smi, cfg, batch, prompt_len, new, window_check=False):
         common._draw = orig
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"[p12] {smi} | {name}: {cfg.n_layers} layers, d_model "
+    print(f"{tag} {smi} | {name}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, family {cfg.family}"
           + (f", {cfg.n_experts} experts top-{cfg.top_k} + "
              f"{cfg.n_shared_experts} shared, d_ff_expert {cfg.d_ff_expert},"
@@ -4286,7 +4306,7 @@ def phase_lm_family(smi, cfg, batch, prompt_len, new, window_check=False):
     if window_check:
         t1 = time.perf_counter()
         n_cmp = _check_windows(store)
-        print(f"[p12]   init windows of all {len(store)} drawn leaves "
+        print(f"{tag}   init windows of all {len(store)} drawn leaves "
               f"({n_cmp:,} elements at each leaf's start, first chunk "
               f"boundary, middle and end) bitwise the CPU's "
               f"({time.perf_counter() - t1:.2f} s)")
@@ -4294,7 +4314,7 @@ def phase_lm_family(smi, cfg, batch, prompt_len, new, window_check=False):
     rows = LM_ROWS[:batch]
     B = len(rows)
     embeds = stub_embeds(cfg, B, dev)
-    extra = 0 if embeds is None else embeds.shape[1]
+    extra = embeds.shape[1] if cfg.family == "vlm" else 0
     P, N = prompt_len, new
     M = extra + P + N
     gen = ARGenerator(cfg, params, batch_size=B, max_len=M)
@@ -4312,8 +4332,10 @@ def phase_lm_family(smi, cfg, batch, prompt_len, new, window_check=False):
     torch.cuda.synchronize()
     counts = _all_counts()
     r = res[0]
-    print(f"[p12] {smi} | {name}: generate batch {B}, "
+    print(f"{tag} {smi} | {name}: generate batch {B}, "
           + (f"{extra} stub image embeddings + " if extra else "")
+          + (f"{embeds.shape[1]} stub frames to the encoder + "
+             if embeds is not None and not extra else "")
           + f"prompt {P}, {N} new tokens: prefill {r.prefill_ms:.3f} ms, "
           f"decode {r.decode_ms:.3f} ms ({r.decode_ms / N:.4f} ms per step),"
           f" {r.tokens_per_s:.1f} tokens/s; launches of the seven kernels "
@@ -4348,15 +4370,27 @@ def phase_lm_family(smi, cfg, batch, prompt_len, new, window_check=False):
                 ties += 1
             else:
                 bad += 1
-    print(f"[p12]   cache path vs the cache-free model over prompt + "
+    print(f"{tag}   cache path vs the cache-free model over prompt + "
           f"generated: max |dlogits| {err:.3e} = {err / scale:.3e} of "
           f"max|logits| {scale:.3e} (tol {LM_FORWARD_TOL:g}); greedy rows "
           f"equal its argmax at every step but {ties} near ties")
     check(err <= tol and bad == 0, f"{name}: cache vs forward {err:.3e} > "
           f"{tol:.3e} or {bad} greedy tokens off")
     del fwd, steps
-    cache = api.init_cache(cfg, B, M, device=dev)
     kw = {} if embeds is None else {"embeds": embeds}
+    if profile_prefill:
+        def prefill_only():
+            api.prefill(params, cfg, prompts,
+                        api.init_cache(cfg, B, M, device=dev), **kw)
+
+        wall, busy, n_ops, top = _lm_device_profile(prefill_only)
+        print(f"{tag} {smi} | {name}: one prefill ({B} x {P} tokens): wall "
+              f"{wall:.3f} ms (median of 5), device kernels {busy:.3f} ms, "
+              f"idle share {1 - busy / wall:.3f}, {n_ops} device ops "
+              f"launched")
+        for key, ms, count in top:
+            print(f"{tag}     {ms:8.3f} ms {count:5d}x {key}")
+    cache = api.init_cache(cfg, B, M, device=dev)
     logits, _ = api.prefill(params, cfg, prompts, cache, **kw)
     tok = logits.argmax(-1)[:, None]
     idx0 = int(cache["idx"])
@@ -4368,25 +4402,25 @@ def phase_lm_family(smi, cfg, batch, prompt_len, new, window_check=False):
     wall, busy, n_ops, top = _lm_device_profile(decode_only)
     cache_b = sum(v.numel() * v.element_size() for k, v in cache.items()
                   if k != "idx")
-    print(f"[p12] {smi} | {name}: one steady decode step: wall {wall:.3f} ms"
+    print(f"{tag} {smi} | {name}: one steady decode step: wall {wall:.3f} ms"
           f" (median of 5), device kernels {busy:.3f} ms, idle share "
           f"{1 - busy / wall:.3f}, {n_ops} device ops launched")
     for key, ms, count in top:
-        print(f"[p12]     {ms:8.3f} ms {count:5d}x {key}")
+        print(f"{tag}     {ms:8.3f} ms {count:5d}x {key}")
     if cfg.use_mla:
         per_tok = cfg.n_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim
                                  + cfg.v_head_dim)
         gqa_b = cfg.n_layers * B * M * per_tok * 4
-        print(f"[p12]   MLA cache {cache_b:,} B ({cfg.kv_lora} + "
+        print(f"{tag}   MLA cache {cache_b:,} B ({cfg.kv_lora} + "
               f"{cfg.qk_rope_dim} values per token and layer) against the "
               f"{gqa_b:,} B of the dense cache it replaces (k of "
               f"{cfg.qk_nope_dim + cfg.qk_rope_dim} and v of "
               f"{cfg.v_head_dim} per head, {cfg.n_heads} heads): "
               f"{cache_b / gqa_b:.4f}")
     else:
-        print(f"[p12]   cache {cache_b:,} B at M {M}")
+        print(f"{tag}   cache {cache_b:,} B at M {M}")
     peak = torch.cuda.max_memory_allocated()
-    print(f"[p12] {smi} | {name}: peak torch.cuda.max_memory_allocated "
+    print(f"{tag} {smi} | {name}: peak torch.cuda.max_memory_allocated "
           f"{peak / 1e9:.3f} GB")
     del gen, params, cache, logits
     torch.cuda.empty_cache()
@@ -4395,12 +4429,21 @@ def phase_lm_family(smi, cfg, batch, prompt_len, new, window_check=False):
 
 def phase_dlm_moe(smi):
     """Phase 12 (h): the diffusion-LM on the deepseek-width MoE trunk
-    (P12_DLM_LAYERS layers, MLA): generate(tile_resident=True) takes the
-    tile-resident loop (no mega_spec), B1 once per step, against the eager
-    backend on the card.  Returns B1's launches."""
+    (P12_DLM_LAYERS layers, MLA).  Returns B1's launches."""
     import dataclasses as dc
-    from repro_torch import prng
     from repro_torch.configs import DEEPSEEK_V2_236B
+    return phase_dlm_trunk(smi, dc.replace(
+        DEEPSEEK_V2_236B, name=f"deepseek-v2-236b-{P12_DLM_LAYERS}l",
+        n_layers=P12_DLM_LAYERS), "[p12]", "(h) ")
+
+
+def phase_dlm_trunk(smi, arch, tag, label=""):
+    """A diffusion-LM on a trunk that carries no mega_spec (moe, ssm,
+    hybrid), batch 4 x 64, eta 0, S=20: generate(tile_resident=True) takes
+    the tile-resident loop, B1 once per step, and plan.run 'mega' on one
+    x_T against the eager backend on the card within P12_DLM_TOL of
+    scale.  Returns B1's launches."""
+    from repro_torch import prng
     from repro_torch.core import SamplerConfig, make_schedule
     from repro_torch.diffusion_lm import (DiffusionLMConfig, generate,
                                           init_params, make_eps_fn,
@@ -4408,16 +4451,14 @@ def phase_dlm_moe(smi):
     from repro_torch.sampling import SamplerPlan, backends
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = DiffusionLMConfig(arch=dc.replace(
-        DEEPSEEK_V2_236B, name=f"deepseek-v2-236b-{P12_DLM_LAYERS}l",
-        n_layers=P12_DLM_LAYERS))
+    cfg = DiffusionLMConfig(arch=arch)
     t0 = time.perf_counter()
     params = init_params(prng.PRNGKey(0), cfg)
     torch.cuda.synchronize()
     n = sum(t.numel() for t in _leaves(params))
-    print(f"[p12] {smi} | (h) diffusion-LM {cfg.arch.name} trunk: "
-          f"{n:,} parameters ({n * 4 / 1e9:.3f} GB float32) in "
-          f"{time.perf_counter() - t0:.2f} s")
+    print(f"{tag} {smi} | {label}diffusion-LM {cfg.arch.name} trunk "
+          f"({cfg.arch.family}): {n:,} parameters ({n * 4 / 1e9:.3f} GB "
+          f"float32) in {time.perf_counter() - t0:.2f} s")
     sch = make_schedule("linear", 1000)
     B, L, S = 4, 64, 20
     _zero_all_counts()
@@ -4437,18 +4478,18 @@ def phase_dlm_moe(smi):
     want = plan.run(make_eps_fn(params, cfg), x_T, backend="eager")
     scale = max(float(want.abs().max()), 1.0)
     err = float((got - want).abs().max())
-    print(f"[p12] {smi} | (h) generate(tile_resident=True) batch {B} x {L} "
-          f"tokens, eta 0, S={S}: {wall:.3f} s, {B * L / wall:.1f} tokens/s,"
-          f" launches {counts}, run_mega.last_reason {why!r}; plan.run "
-          f"'mega' launches {counts2}, vs 'eager' on the card max|d| "
-          f"{err:.3e} = {err / scale:.3e} of scale (tol {P12_DLM_TOL:g}); "
-          f"tokens in [0, {cfg.arch.vocab}): "
+    print(f"{tag} {smi} | {label}generate(tile_resident=True) batch {B} x "
+          f"{L} tokens, eta 0, S={S}: {wall:.3f} s, {B * L / wall:.1f} "
+          f"tokens/s, launches {counts}, run_mega.last_reason {why!r}; "
+          f"plan.run 'mega' launches {counts2}, vs 'eager' on the card "
+          f"max|d| {err:.3e} = {err / scale:.3e} of scale (tol "
+          f"{P12_DLM_TOL:g}); tokens in [0, {cfg.arch.vocab}): "
           f"{int(toks.min()) >= 0 and int(toks.max()) < cfg.arch.vocab}; "
           f"peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     check(counts == dict(_zero_dict(), B1=S)
           and counts2 == dict(_zero_dict(), B1=S) and "mega_spec" in why
           and err <= P12_DLM_TOL * scale,
-          f"dlm moe: {counts} {counts2} {why} {err}")
+          f"dlm {cfg.arch.name}: {counts} {counts2} {why} {err}")
     del params
     torch.cuda.empty_cache()
     return counts["B1"] + counts2["B1"]
@@ -4501,6 +4542,65 @@ def phase_12(smi, model):
     phase_lm_family(smi, configs.KIMI_K2_1T_A32B_SMOKE, 4, 32, P12_LM_NEW)
     b1 += phase_dlm_moe(smi)
     phase_p12_cli(smi)
+    return b1
+
+
+P13_NEW = 32
+P13_FRAMES_PROMPT = 32         # seamless: 1,024 stub frames + a 32-token prompt
+P13_DLM_LAYERS = {"rwkv6-7b": 2, "zamba2-2.7b": 4}
+
+
+def phase_p13_cli(smi):
+    """Phase 13 (f): the serve CLI for the three new smoke ids."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve
+    for arch in ("zamba2-2.7b", "rwkv6-7b", "seamless-m4t-large-v2"):
+        argv = ["--arch", arch, "--smoke", "--batch", "2", "--new-tokens",
+                "8", "--device", "cuda"]
+        buf = io.StringIO()
+        _zero_all_counts()
+        with contextlib.redirect_stdout(buf):
+            serve.main(argv)
+        torch.cuda.synchronize()
+        counts = _all_counts()
+        out = buf.getvalue().splitlines()
+        for line in out[-3:]:
+            print(f"[cli]   {line}")
+        print(f"[cli] {smi} | python -m repro_torch.launch.serve "
+              f"{' '.join(argv)}: launches {counts}")
+        ok = len([ln for ln in out if re.match(r"req\d: \[", ln)]) == 2
+        check(ok and all(v == 0 for v in counts.values()),
+              f"serve {arch}: {out[-2:]} {counts}")
+
+
+def phase_13(smi):
+    """Phase 13, run last so that every earlier rate is timed as before:
+    (a) rwkv6-7b, (b) seamless-m4t-large-v2 and (c) zamba2-2.7b at full
+    width and depth in float32 through ARGenerator (the seven counters 0,
+    the cache path against the cache-free model within LM_FORWARD_TOL for
+    each family: the hybrid's cached decode runs Mamba2's single-token
+    recurrence where the cache-free forward runs the chunked SSD, and
+    still holds it); (d) / (e) the
+    diffusion-LM on 2-layer rwkv6-width and 4-layer zamba2-width trunks
+    (B1 once per step); (f) the serve CLI.  Returns B1's launches."""
+    import dataclasses as dc
+    from repro_torch import configs
+    for cfg, prompt, label in (
+            (configs.RWKV6_7B, 128, "(a)"),
+            (configs.SEAMLESS_M4T_LARGE_V2, P13_FRAMES_PROMPT, "(b)"),
+            (configs.ZAMBA2_2_7B, 128, "(c)")):
+        print(f"[p13] {label} {cfg.name}")
+        phase_lm_family(smi, cfg, 4, prompt, P13_NEW,
+                        window_check=cfg.family == "ssm", tag="[p13]",
+                        profile_prefill=True)
+    b1 = 0
+    for arch, label in (("rwkv6-7b", "(d) "), ("zamba2-2.7b", "(e) ")):
+        n = P13_DLM_LAYERS[arch]
+        b1 += phase_dlm_trunk(smi, dc.replace(
+            configs.get(arch), name=f"{arch}-{n}l", n_layers=n), "[p13]",
+            label)
+    phase_p13_cli(smi)
     return b1
 
 
@@ -4574,6 +4674,10 @@ def main(argv=None) -> int:
                     help="only build the kernels and run phase 12 (App. A, "
                          "the shim and adapters, the inits, the moe and vlm "
                          "families) on this checkout")
+    ap.add_argument("--p13-probe", action="store_true",
+                    help="only build the kernels and run phase 13 (the ssm, "
+                         "hybrid and audio families and their diffusion-LM "
+                         "trunks) on this checkout")
     ap.add_argument("--draw-probe", metavar="SRC", type=Path,
                     help="only time the x_T draw, serve and the U-Net "
                          "scheduler on SRC/repro_torch (phase 11's cost "
@@ -4608,6 +4712,10 @@ def main(argv=None) -> int:
     phase_build()
     if args.p12_probe:
         phase_12(smi, _cifar10_model())
+        print(f"[done] {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args.p13_probe:
+        phase_13(smi)
         print(f"[done] {time.perf_counter() - t0:.1f} s")
         return 0
     errs = phase_kernels()
@@ -4679,8 +4787,13 @@ def main(argv=None) -> int:
     # runs on the shim, the CFG / v-prediction serves and the MoE
     # diffusion-LM trunk; the AR paths launch none of the seven.
     b1_p12 = phase_12(smi, model)
+    # Phase 13 runs last, so that every rate above is timed as before.  B1
+    # runs on the rwkv6 and Mamba2 diffusion-LM trunks; the AR paths of
+    # the ssm, hybrid and audio families launch none of the seven.
+    b1_p13 = phase_13(smi)
     recs = {r["name"]: r for r in kernels}
-    recs["sampler_step_2d"]["launches"] += b1_auto + b1_p11 + b1_p12
+    recs["sampler_step_2d"]["launches"] += (b1_auto + b1_p11 + b1_p12
+                                            + b1_p13)
     recs["sampler_step_rows_2d"]["launches"] += (b2_auto + b2_p8 + b2_mega
                                                  + b2_gw + b2_chaos + b2_cli
                                                  + b2_p11)

@@ -18,9 +18,11 @@ recorder, profiler ranges) with the engine's weight hot-swap, the
 slot-pool fleet (``serving.fleet``), the HTTP/SSE gateway and the
 resilience layer (``serving.gateway``, ``serving.resilience``), checkpoint
 files (``training.checkpoint``), the U-Net serving CLI
-(``launch.serve``), and autoregressive serving of the dense, moe (MLA
-or GQA) and vlm families: the cache paths (``models.dense``,
-``models.moe``, ``models.vlm``, ``models.attention``), the family registry
+(``launch.serve``), and autoregressive serving of every LM family of the
+JAX package, dense, moe (MLA or GQA), ssm (rwkv6), hybrid (Mamba2 +
+shared attention), audio (enc-dec) and vlm: the cache paths
+(``models.dense``, ``moe``, ``rwkv6``, ``mamba2``, ``hybrid``,
+``encdec``, ``vlm``, ``attention``), the family registry
 (``models.get_api``), the architecture configs (``configs.get``),
 ``serving.ARGenerator`` and the CLI's ``--arch`` LM paths; JAX's random
 draws from one seed (``prng``: threefry keys, bits, ``normal``,

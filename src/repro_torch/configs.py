@@ -1,14 +1,11 @@
 """Model configurations of the port, as this package's own copies.
 
-The paper's U-Net (``repro/configs/__init__.py``, DDIM App. D.1), the four
-dense architectures, the two MoE ones and the VLM, each with its smoke
-variant (``repro/configs/{smollm_135m,llama3_2_3b,deepseek_7b,
-mistral_large_123b,deepseek_v2_236b,kimi_k2_1t_a32b,
-llava_next_mistral_7b}.py``), and the diffusion-LM configurations the
+The paper's U-Net (``repro/configs/__init__.py``, DDIM App. D.1), the
+JAX package's ten assigned architectures (four dense, two MoE, the ssm,
+the hybrid, the audio enc-dec and the VLM), each with its smoke variant
+(``repro/configs/<id>.py``), and the diffusion-LM configurations the
 megakernel slice runs on the smollm widths.  ``get(name)`` /
-``get_smoke(name)`` resolve an ``--arch`` id; the JAX package's three
-other ids (ssm, hybrid, audio) raise NotImplementedError naming their
-family.
+``get_smoke(name)`` resolve an ``--arch`` id.
 """
 from __future__ import annotations
 
@@ -17,7 +14,6 @@ from typing import Dict
 
 from repro_torch.diffusion_lm.model import DiffusionLMConfig
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.registry import refuse_unported
 from repro_torch.models.unet import UNetConfig
 
 # CIFAR10-shaped faithful config (Ho et al. widths), about 36 M parameters
@@ -168,46 +164,90 @@ LLAVA_NEXT_MISTRAL_7B_SMOKE = ArchConfig(
     source=LLAVA_NEXT_MISTRAL_7B.source,
 )
 
-_PORTED = [(MISTRAL_LARGE_123B, MISTRAL_LARGE_123B_SMOKE),
-           (LLAMA3_2_3B, LLAMA3_2_3B_SMOKE),
-           (KIMI_K2_1T_A32B, KIMI_K2_1T_A32B_SMOKE),
-           (DEEPSEEK_V2_236B, DEEPSEEK_V2_236B_SMOKE),
-           (SMOLLM_135M, SMOLLM_135M_SMOKE),
-           (DEEPSEEK_7B, DEEPSEEK_7B_SMOKE),
-           (LLAVA_NEXT_MISTRAL_7B, LLAVA_NEXT_MISTRAL_7B_SMOKE)]
+# zamba2-2.7b [hybrid] (arXiv:2411.15242): 54 Mamba2 layers, d_model
+# 2560, ssm_state 64 (head dim 64, expand 2: 80 SSM heads), a shared
+# attention block (32 heads, kv 32, head_dim 80) every 6 layers, d_ff
+# 10240, vocab 32000
+ZAMBA2_2_7B = ArchConfig(
+    name="zamba2-2.7b", family="hybrid",
+    n_layers=54, d_model=2560, n_heads=32, n_kv_heads=32, head_dim=80,
+    d_ff=10240, vocab=32000,
+    ssm_state=64, ssm_head_dim=64, ssm_expand=2, attn_every=6,
+    source="arXiv:2411.15242",
+)
 
-# the JAX package's other assigned architectures: id -> family, none ported
-UNPORTED_ARCHS = {
-    "zamba2-2.7b": "hybrid", "rwkv6-7b": "ssm",
-    "seamless-m4t-large-v2": "audio",
-}
+ZAMBA2_2_7B_SMOKE = ArchConfig(
+    name="zamba2-2.7b-smoke", family="hybrid",
+    n_layers=4, d_model=128, n_heads=4, n_kv_heads=4, head_dim=32,
+    d_ff=256, vocab=512,
+    ssm_state=16, ssm_head_dim=32, ssm_expand=2, attn_every=2,
+    source=ZAMBA2_2_7B.source,
+)
 
-ARCHS: Dict[str, ArchConfig] = {full.name: full for full, _ in _PORTED}
-SMOKES: Dict[str, ArchConfig] = {full.name: smoke for full, smoke in _PORTED}
+# rwkv6-7b [ssm], Finch (arXiv:2404.05892): 32 layers, d_model 4096
+# (attention-free: 64 wkv heads of size 64), d_ff 14336, vocab 65536
+RWKV6_7B = ArchConfig(
+    name="rwkv6-7b", family="ssm",
+    n_layers=32, d_model=4096, n_heads=64, n_kv_heads=64, head_dim=64,
+    d_ff=14336, vocab=65536,
+    source="arXiv:2404.05892",
+)
 
-# every id, in the JAX package's order (repro/configs/__init__.py)
-ARCH_IDS = ["mistral-large-123b", "llama3.2-3b", "zamba2-2.7b",
-            "kimi-k2-1t-a32b", "rwkv6-7b", "seamless-m4t-large-v2",
-            "deepseek-v2-236b", "smollm-135m", "deepseek-7b",
-            "llava-next-mistral-7b"]
+RWKV6_7B_SMOKE = ArchConfig(
+    name="rwkv6-7b-smoke", family="ssm",
+    n_layers=2, d_model=128, n_heads=4, n_kv_heads=4, head_dim=32,
+    d_ff=256, vocab=512,
+    source=RWKV6_7B.source,
+)
 
+# seamless-m4t-large-v2 [audio], the enc-dec backbone (arXiv:2308.11596):
+# 24 encoder + 24 decoder layers, d_model 1024, 16 heads (kv 16 -> MHA,
+# head_dim 64), d_ff 8192, vocab 256206, over 1024 stub frame embeddings
+SEAMLESS_M4T_LARGE_V2 = ArchConfig(
+    name="seamless-m4t-large-v2", family="audio",
+    n_layers=24, d_model=1024, n_heads=16, n_kv_heads=16, head_dim=64,
+    d_ff=8192, vocab=256206,
+    enc_layers=24, dec_layers=24, n_ctx_embeds=1024,
+    source="arXiv:2308.11596",
+)
 
-def _lookup(table: Dict[str, ArchConfig], name: str) -> ArchConfig:
-    if name in table:
-        return table[name]
-    if name in UNPORTED_ARCHS:
-        refuse_unported(UNPORTED_ARCHS[name], name)
-    raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
+SEAMLESS_M4T_LARGE_V2_SMOKE = ArchConfig(
+    name="seamless-m4t-large-v2-smoke", family="audio",
+    n_layers=2, d_model=128, n_heads=4, n_kv_heads=4, head_dim=32,
+    d_ff=256, vocab=512,
+    enc_layers=2, dec_layers=2, n_ctx_embeds=24,
+    source=SEAMLESS_M4T_LARGE_V2.source,
+)
+
+# (full, smoke) in the JAX package's order (repro/configs/__init__.py)
+_ALL = [(MISTRAL_LARGE_123B, MISTRAL_LARGE_123B_SMOKE),
+        (LLAMA3_2_3B, LLAMA3_2_3B_SMOKE),
+        (ZAMBA2_2_7B, ZAMBA2_2_7B_SMOKE),
+        (KIMI_K2_1T_A32B, KIMI_K2_1T_A32B_SMOKE),
+        (RWKV6_7B, RWKV6_7B_SMOKE),
+        (SEAMLESS_M4T_LARGE_V2, SEAMLESS_M4T_LARGE_V2_SMOKE),
+        (DEEPSEEK_V2_236B, DEEPSEEK_V2_236B_SMOKE),
+        (SMOLLM_135M, SMOLLM_135M_SMOKE),
+        (DEEPSEEK_7B, DEEPSEEK_7B_SMOKE),
+        (LLAVA_NEXT_MISTRAL_7B, LLAVA_NEXT_MISTRAL_7B_SMOKE)]
+
+ARCHS: Dict[str, ArchConfig] = {full.name: full for full, _ in _ALL}
+SMOKES: Dict[str, ArchConfig] = {full.name: smoke for full, smoke in _ALL}
+ARCH_IDS = list(ARCHS)
 
 
 def get(name: str) -> ArchConfig:
     """The full configuration of an architecture id."""
-    return _lookup(ARCHS, name)
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
+    return ARCHS[name]
 
 
 def get_smoke(name: str) -> ArchConfig:
     """The reduced same-family variant used by CPU smoke tests."""
-    return _lookup(SMOKES, name)
+    if name not in SMOKES:
+        raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
+    return SMOKES[name]
 
 
 # The diffusion-LM on the smollm-width trunk (time_dim 256, latent 32, the

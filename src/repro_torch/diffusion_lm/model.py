@@ -1,19 +1,24 @@
-"""DDIM over latent token sequences with a transformer eps-trunk (port
-of ``repro/diffusion_lm/model.py``: the dense, vlm and moe trunks).
+"""DDIM over latent token sequences with a backbone eps-trunk (port of
+``repro/diffusion_lm/model.py``: every family's trunk).
 
 Tokens embed into a small continuous latent (Diffusion-LM, Li et al.
 2022); the sampler runs on those latents; a trunk with additive time
 conditioning predicts the noise:
-  dense / vlm -> bidirectional dense transformer layers;
+  dense / vlm / audio -> bidirectional dense transformer layers;
   moe         -> MoE layers (``models/moe.py``), their attention MLA
                  (causal, as JAX's trunk calls ``mla_forward``) or
-                 bidirectional GQA.
+                 bidirectional GQA;
+  ssm         -> rwkv6 layers (``models/rwkv6.py``), each from a fresh
+                 zero state per call (a causal recurrence);
+  hybrid      -> Mamba2 layers only (``models/hybrid.py``), each from
+                 fresh zero states, with no shared attention (causal).
 The parameters are a dict mirroring the JAX pytree: (in, out) matrices
 used as ``x @ w``, the layers' leaves stacked along a leading
 ``n_layers`` axis.  Plain matrix products stay ``torch.matmul``, as the
 JAX package left them to XLA; the hand-written kernels run inside
-``backend='mega'`` (kernels/megastep, dense trunks only: a moe trunk
-carries no ``mega_spec`` and runs the tile-resident loop, B1 per step).
+``backend='mega'`` (kernels/megastep, dense trunks only: a moe, ssm or
+hybrid trunk carries no ``mega_spec`` and runs the tile-resident loop,
+B1 per step).
 """
 from __future__ import annotations
 
@@ -30,20 +35,18 @@ from repro_torch.core.sampler import SamplerConfig, sample
 from repro_torch.core.schedules import NoiseSchedule
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.sampler_step.ref import SUBLANE, TILE_C
-from repro_torch.models import dense, moe
+from repro_torch.models import dense, hybrid, mamba2, moe, rwkv6
 from repro_torch.models.attention import gqa_forward, mla_forward
 from repro_torch.models.common import (ArchConfig, KeyGen, dense_init,
                                        embed_init, rms_norm,
                                        sinusoidal_time_embedding,
-                                       stack_layer_params)
+                                       stack_layer_params, stacked)
 
 Params = Dict[str, object]
 
 # the eps path's weights: what the sampler loop (and the megakernel) reads
 EPS_PATH = ("w_in", "time_w1", "time_w2", "layers", "out_norm", "w_out")
 _DENSE_FAMILIES = ("dense", "vlm", "audio")
-_JAX_MODULES = {"ssm": "repro/models/rwkv6.py",
-                "hybrid": "repro/models/hybrid.py"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,15 +56,17 @@ class DiffusionLMConfig:
     latent_dim: int = 32           # Diffusion-LM: diffuse in a SMALL latent
 
 
-def _check_family(cfg: DiffusionLMConfig) -> None:
-    fam = cfg.arch.family
-    if fam in _DENSE_FAMILIES or fam == "moe":
-        return
-    where = _JAX_MODULES.get(fam)
-    if where is None:
-        raise ValueError(fam)
-    raise NotImplementedError(
-        f"the {fam!r} diffusion-LM trunk is not ported yet (JAX: {where})")
+def _trunk_layer(a: ArchConfig):
+    """(one trunk layer's init from a key, its leaves' shapes) of the
+    family; ValueError for a family the JAX trunk does not know."""
+    if a.family in _DENSE_FAMILIES:
+        return dense.init_layer, dense.layer_shapes
+    trunks = {"moe": (moe.init_layer, moe.layer_shapes),
+              "ssm": (rwkv6.init_layer, rwkv6.layer_shapes),
+              "hybrid": (hybrid.init_mamba_layer, hybrid.mamba_layer_shapes)}
+    if a.family not in trunks:
+        raise ValueError(a.family)
+    return trunks[a.family]
 
 
 def init_params(key: torch.Tensor, cfg: DiffusionLMConfig,
@@ -69,8 +74,8 @@ def init_params(key: torch.Tensor, cfg: DiffusionLMConfig,
                 dtype=torch.float32) -> Params:
     """JAX's ``init_params(key, cfg, dtype)`` numbers for a threefry key,
     drawn and stored on ``device`` (CUDA unless named): the heads in its
-    key order, then ``n_layers`` stacked dense or MoE layers."""
-    _check_family(cfg)
+    key order, then ``n_layers`` stacked layers of the family's trunk."""
+    init_layer, _ = _trunk_layer(cfg.arch)
     dev = resolve_device(device)
     a = cfg.arch
     kg = KeyGen(key.to(dev))
@@ -83,7 +88,6 @@ def init_params(key: torch.Tensor, cfg: DiffusionLMConfig,
         "w_out": dense_init(kg(), (a.d_model, cfg.latent_dim), dtype),
         "rounding": dense_init(kg(), (cfg.latent_dim, a.vocab), dtype),
     }
-    init_layer = moe.init_layer if a.family == "moe" else dense.init_layer
     params["layers"] = stack_layer_params(
         lambda k: init_layer(k, a, dtype), a.n_layers, kg)
     return params
@@ -92,13 +96,9 @@ def init_params(key: torch.Tensor, cfg: DiffusionLMConfig,
 def param_shapes(cfg: DiffusionLMConfig) -> Dict[str, object]:
     """The parameter tree as nested dicts of shapes (stacked layer leaves
     lead with n_layers), as the JAX ``init_params`` builds it."""
-    _check_family(cfg)
     a = cfg.arch
-    n, d, L, T = a.n_layers, a.d_model, cfg.latent_dim, cfg.time_dim
-    if a.family == "moe":
-        layers = moe.stacked(moe.layer_shapes(a), n)
-    else:
-        layers = dense.param_shapes(a)["layers"]
+    d, L, T = a.d_model, cfg.latent_dim, cfg.time_dim
+    layers = stacked(_trunk_layer(a)[1](a), a.n_layers)
     return {
         "embed": (a.vocab, L), "w_in": (L, d), "time_w1": (T, T),
         "time_w2": (T, d), "out_norm": (d,), "w_out": (d, L),
@@ -119,11 +119,28 @@ def _moe_layer_fwd(layer: Dict, a: ArchConfig, x: torch.Tensor,
     return x + y
 
 
+def _mamba_layer_fwd(layer: Dict, a: ArchConfig,
+                     x: torch.Tensor) -> torch.Tensor:
+    """One hybrid trunk layer: Mamba2 from zero states
+    (``diffusion_lm/model.py:115-122``)."""
+    conv, ssm = mamba2.init_mamba_state(a, x.shape[0], x.dtype, x.device)
+    y, _, _ = mamba2.mamba_forward(layer["mamba"], a,
+                                   rms_norm(x, layer["norm"], a.norm_eps),
+                                   conv, ssm)
+    return x + y
+
+
 def _layer_fwd(layer: Dict, a: ArchConfig, x: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
+    if a.family in _DENSE_FAMILIES:
+        return dense.layer_fwd(layer, a, x, positions, False)
     if a.family == "moe":
         return _moe_layer_fwd(layer, a, x, positions)
-    return dense.layer_fwd(layer, a, x, positions, False)
+    if a.family == "ssm":
+        return rwkv6.layer_fwd(layer, a, x)
+    if a.family == "hybrid":
+        return _mamba_layer_fwd(layer, a, x)
+    raise ValueError(a.family)
 
 
 def eps_forward(params: Params, cfg: DiffusionLMConfig, x_t: torch.Tensor,
@@ -132,7 +149,6 @@ def eps_forward(params: Params, cfg: DiffusionLMConfig, x_t: torch.Tensor,
     ``remat`` recomputes each layer's activations in the backward pass
     (``torch.utils.checkpoint``, JAX's ``jax.checkpoint`` of the layer
     scan): less memory, the same numbers."""
-    _check_family(cfg)
     a = cfg.arch
     temb = sinusoidal_time_embedding(t, cfg.time_dim).to(x_t.dtype)
     temb = F.silu(temb @ params["time_w1"]) @ params["time_w2"]
@@ -169,9 +185,9 @@ def make_tile_eps_fn(params: Params, cfg: DiffusionLMConfig, batch: int,
     ``eps_fn.mega_spec`` (the eps-path weights and the bound geometry, for
     ``backend='mega'``) and ``eps_fn.mega_vmem_bytes``, the byte model the
     eligibility rule holds against ``MEGA_BUDGET``; a moe trunk carries
-    neither, so 'mega' runs it on the tile-resident loop, as in JAX.
+    neither (nor does an ssm or hybrid trunk), so 'mega' runs it on the
+    tile-resident loop, as in JAX.
     """
-    _check_family(cfg)
     n = seq_len * cfg.latent_dim
     granule = SUBLANE * TILE_C
     if n % granule:

@@ -4,11 +4,13 @@ The input is a JAX ``init_params`` (or trained) pytree already converted
 to numpy arrays — nested dicts and lists of ``np.ndarray`` — so this
 module never imports jax.
 
-LM mapping (``repro/models/{dense,vlm,moe}.py`` ->
+LM mapping (``repro/models/{dense,vlm,moe,rwkv6,hybrid,encdec}.py`` ->
 ``repro_torch.models``), for the autoregressive server: the same nested
 dict, every leaf a float32 tensor in its JAX layout (stacked layer leaves,
 (in, out) matrices; the MoE tree's ``layer0`` plus stacked ``layers``
-with their ``moe`` block and MLA or GQA ``attn``); ``lm_params_to_jax``
+with their ``moe`` block and MLA or GQA ``attn``; the hybrid's Mamba2
+``layers`` grouped (n_apps, attn_every, ...) beside its ``shared`` block;
+the enc-dec's ``enc_layers`` and ``dec_layers``); ``lm_params_to_jax``
 is the inverse (numpy leaves), so the ``{"params": ...}`` checkpoint the
 JAX ``serve_lm --ckpt`` restores crosses both ways.  The vlm tree is the
 dense one.
@@ -39,7 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.diffusion_lm.model import DiffusionLMConfig, param_shapes
-from repro_torch.models import dense, moe
+from repro_torch.models import dense, encdec, hybrid, moe, rwkv6
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.unet import (JAX_LEAVES, UNet, UNetConfig,
                                      jax_leaf_to_port, tree_leaves)
@@ -113,29 +115,29 @@ def unet_params_to_jax(state_dict, cfg: UNetConfig) -> Dict:
 
 
 def dlm_params_from_jax(tree, cfg: DiffusionLMConfig) -> Dict:
-    """JAX diffusion-LM pytree (numpy leaves, dense family) -> the port's
+    """JAX diffusion-LM pytree (numpy leaves, any trunk family) -> the port's
     parameter dict on the CPU: same keys, same layouts, float32."""
     return _same_tree(tree, param_shapes(cfg), ())
 
 
 def lm_param_shapes(cfg: ArchConfig) -> Dict:
     """The LM family's parameter tree as nested dicts of shapes."""
-    if cfg.family == "moe":
-        return moe.param_shapes(cfg)
-    if cfg.family in ("dense", "vlm"):
-        return dense.param_shapes(cfg)
-    raise NotImplementedError(f"no parameter layout for the {cfg.family!r} "
-                              "family")
+    shapes = {"dense": dense.param_shapes, "vlm": dense.param_shapes,
+              "moe": moe.param_shapes, "ssm": rwkv6.param_shapes,
+              "hybrid": hybrid.param_shapes, "audio": encdec.param_shapes}
+    if cfg.family not in shapes:
+        raise ValueError(f"unknown family {cfg.family!r} for {cfg.name}")
+    return shapes[cfg.family](cfg)
 
 
 def lm_params_from_jax(tree, cfg: ArchConfig) -> Dict:
-    """JAX dense / vlm / moe pytree (numpy leaves) -> the port's parameter
+    """JAX LM pytree of any family (numpy leaves) -> the port's parameter
     dict on the CPU: same keys, same layouts, float32."""
     return _same_tree(tree, lm_param_shapes(cfg), ())
 
 
 def lm_params_to_jax(params, cfg: ArchConfig) -> Dict:
-    """The port's dense / vlm / moe parameter dict -> the JAX pytree
+    """The port's LM parameter dict of any family -> the JAX pytree
     (nested dicts of float32 numpy arrays), every key and shape checked."""
     tree = _same_tree(params, lm_param_shapes(cfg), ())
     return map_leaves(tree, lambda t: t.numpy())

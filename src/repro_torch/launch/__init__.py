@@ -1,3 +1,3 @@
-"""Launch layer of the port: so far the serving CLI (``serve``), U-Net
-paths only.  JAX's mesh / shapes / roofline / train / dry-run tooling is
-not ported yet."""
+"""Launch layer of the port: the serving CLI (``serve``) and the training
+CLI (``train``).  JAX's mesh / shapes / roofline / dry-run tooling is not
+ported yet."""

@@ -42,14 +42,15 @@ U-Net tree (saved by either package), carried into the port through
 (no meshes).
 
 ``--arch <id>`` other than ``unet`` serves that architecture through
-``serving.ARGenerator`` (``--smoke``: its reduced variant).  The dense,
-moe (deepseek-v2-236b, kimi-k2-1t-a32b) and vlm (llava-next-mistral-7b)
-ids run; the ssm, hybrid and audio ids raise NotImplementedError through
-the model registry.  Weights: the family's ``init_params`` of
+``serving.ARGenerator`` (``--smoke``: its reduced variant): every id of
+the JAX package, dense, moe (deepseek-v2-236b, kimi-k2-1t-a32b), hybrid
+(zamba2-2.7b), ssm (rwkv6-7b), audio (seamless-m4t-large-v2) and vlm
+(llava-next-mistral-7b).  Weights: the family's ``init_params`` of
 ``PRNGKey(--seed)`` (JAX's numbers), or ``--ckpt``, a JAX-layout
-``{"params": ...}`` file.  A vlm serves JAX's stub image embeddings,
-``normal(PRNGKey(9), (batch, n_ctx_embeds, d_model)) * 0.02``, with the
-cache grown by ``n_ctx_embeds``.
+``{"params": ...}`` file.  A vlm or audio model serves JAX's stub
+embeddings, ``normal(PRNGKey(9), (batch, n_ctx_embeds, d_model)) *
+0.02``: a vlm's image embeddings are prepended, so its cache grows by
+``n_ctx_embeds``; an audio model's frames go to the encoder.
 """
 from __future__ import annotations
 
@@ -158,7 +159,7 @@ def serve_lm(args):
     embeds = stub_embeds(cfg, args.batch, device)
     gen = ARGenerator(cfg, params, batch_size=args.batch,
                       max_len=args.prompt_len + args.new_tokens
-                      + (cfg.n_ctx_embeds if api.needs_embeds else 0),
+                      + (cfg.n_ctx_embeds if cfg.family == "vlm" else 0),
                       device=device)
     rng = np.random.RandomState(args.seed)
     reqs = [GenRequest(prompt=rng.randint(0, cfg.vocab, args.prompt_len)

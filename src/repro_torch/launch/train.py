@@ -3,10 +3,9 @@
 Two modes, with JAX's flags, printed lines and checkpoint files, plus
 ``--device`` (default ``cuda``; the tests pass ``cpu``):
   * --arch <id>   LM pretraining on the synthetic Markov-chain corpus over
-                  the dense, moe and vlm families (``--smoke``: the reduced
-                  config; a vlm trains on JAX's stub image embeddings, a
-                  moe adds 0.01 x its aux loss).  The other families raise
-                  through the model registry.
+                  every family (``--smoke``: the reduced config; a vlm or
+                  audio model trains on JAX's stub image or frame
+                  embeddings, a moe adds 0.01 x its aux loss).
   * --arch unet   The paper's own training: the U-Net eps-model on the
                   synthetic image distribution with L_simple (Eq. 5,
                   gamma = 1), EMA tracking (decay 0.999), checkpoints.

@@ -49,6 +49,12 @@ def init_gqa_params(keygen: KeyGen, cfg: ArchConfig,
     }
 
 
+def gqa_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, int]]:
+    """``init_gqa_params``' leaves as a dict of shapes."""
+    d, hq, hkv = cfg.d_model, cfg.n_heads * cfg.hd(), cfg.n_kv_heads * cfg.hd()
+    return {"wq": (d, hq), "wk": (d, hkv), "wv": (d, hkv), "wo": (hq, d)}
+
+
 def _grouped_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        mask: torch.Tensor) -> torch.Tensor:
     """q: (B,Sq,H,D), k/v: (B,Sk,Hkv,D), mask additive broadcast to
@@ -147,6 +153,39 @@ def gqa_forward(params: Dict[str, torch.Tensor], cfg: ArchConfig,
     mask = torch.clamp(mask, min=_NEG)
     out = _grouped_attention(q, k, v, mask)
     return out.reshape(B, S, H * D) @ params["wo"]
+
+
+def cross_kv(params: Dict[str, torch.Tensor], cfg: ArchConfig,
+             kv_src: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention keys and values of kv_src (B, Sk, d): two
+    (B, Sk, Hkv, D) tensors, no RoPE."""
+    B, Sk, _ = kv_src.shape
+    Hkv, D = cfg.n_kv_heads, cfg.hd()
+    return ((kv_src @ params["wk"]).reshape(B, Sk, Hkv, D),
+            (kv_src @ params["wv"]).reshape(B, Sk, Hkv, D))
+
+
+def cross_attend(params: Dict[str, torch.Tensor], cfg: ArchConfig,
+                 x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """Queries from x (B, S, d) against given cross keys / values, no
+    RoPE, the additive ``mask``; returns (B, S, d)."""
+    B, S, _ = x.shape
+    H, D = cfg.n_heads, cfg.hd()
+    q = (x @ params["wq"]).reshape(B, S, H, D)
+    out = _grouped_attention(q, k, v, mask)
+    return out.reshape(B, S, H * D) @ params["wo"]
+
+
+def gqa_cross_forward(params: Dict[str, torch.Tensor], cfg: ArchConfig,
+                      x: torch.Tensor, kv_src: torch.Tensor) -> torch.Tensor:
+    """Cross-attention (enc-dec decoder, ``attention.py:148``): queries
+    from x, keys / values from kv_src (the encoder output).  No RoPE
+    across modalities and no causal mask: a zero (S, Sk) mask."""
+    k, v = cross_kv(params, cfg, kv_src)
+    mask = torch.zeros((x.shape[1], kv_src.shape[1]), dtype=torch.float32,
+                       device=x.device)
+    return cross_attend(params, cfg, x, k, v, mask)
 
 
 # ---------------------------------------------------------------- KV cache

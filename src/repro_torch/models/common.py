@@ -1,8 +1,8 @@
 """Shared model building blocks (port of ``repro/models/common.py``).
 
 The sinusoidal time embedding (U-Net and diffusion-LM), the architecture
-config, the dense-trunk numerics (RMSNorm, SwiGLU, rotary embeddings, the
-causal mask) and the inits.  Each keeps the JAX function's op order,
+config, the trunk numerics (RMSNorm, LayerNorm, SwiGLU, rotary
+embeddings, the causal mask) and the inits.  Each keeps the JAX function's op order,
 so float32 results differ only by the order of the sums inside matrix
 products.  The inits take a threefry key (``repro_torch.prng``) and draw
 JAX's numbers: ``dense_init`` / ``embed_init`` are ``truncated_normal`` /
@@ -31,9 +31,9 @@ INIT_CHUNK = 1 << 26
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """One architecture (``repro/models/common.py:22``): the fields the
-    dense, MoE (MLA) and VLM families read, with JAX's defaults.  The
-    SSM / hybrid / enc-dec fields are not ported.
+    """One architecture (``repro/models/common.py:22``): every field the
+    dense, MoE (MLA), VLM, SSM (rwkv6), hybrid (Mamba2 + shared attention)
+    and enc-dec families read, with JAX's defaults.
     """
 
     name: str
@@ -62,8 +62,17 @@ class ArchConfig:
     qk_rope_dim: int = 64
     qk_nope_dim: int = 128
     v_head_dim: int = 128
-    # --- vlm frontend (a stub: embeddings arrive precomputed) ---
-    n_ctx_embeds: int = 0          # image patch token count
+    # --- SSM / hybrid ---
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    attn_every: int = 0            # hybrid: shared attn block period
+    # --- enc-dec ---
+    enc_layers: int = 0
+    dec_layers: int = 0
+    # --- vlm / audio frontends (stubs: embeddings arrive precomputed) ---
+    n_ctx_embeds: int = 0          # image patch / audio frame token count
     # --- serving ---
     sliding_window: int = 0        # 0 = full attention
 
@@ -195,6 +204,13 @@ def stack_layer_params(layer_inits: Callable, n_layers: int,
     return out
 
 
+def stacked(shapes, n: int):
+    """Every shape of a nested dict with a leading ``n`` axis."""
+    if isinstance(shapes, dict):
+        return {k: stacked(v, n) for k, v in shapes.items()}
+    return (n,) + tuple(shapes)
+
+
 def _map(fn, tree):
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
@@ -215,6 +231,16 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     (``common.py:84-85``)."""
     var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
     return (x * torch.rsqrt(var + eps).to(x.dtype)) * scale
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """float32 mean and (biased) variance, the normalised value cast back
+    to x's dtype before ``* scale + bias`` (``common.py:88-94``)."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * scale + bias
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

@@ -27,9 +27,10 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 
 from .attention import (decode_attend, decode_tables, gqa_forward,
-                        gqa_prefill, init_gqa_params, init_kv_cache)
+                        gqa_prefill, gqa_shapes, init_gqa_params,
+                        init_kv_cache)
 from .common import (ArchConfig, KeyGen, dense_init, embed_init, rms_norm,
-                     stack_layer_params, swiglu)
+                     stack_layer_params, stacked, swiglu)
 
 Params = Dict
 
@@ -52,20 +53,21 @@ def init_layer(key: torch.Tensor, cfg: ArchConfig,
     }
 
 
+def layer_shapes(cfg: ArchConfig) -> Dict[str, object]:
+    """One layer's leaves (``init_layer``) as nested dicts of shapes."""
+    d, f = cfg.d_model, cfg.d_ff
+    return {"attn": gqa_shapes(cfg), "attn_norm": (d,), "mlp_norm": (d,),
+            "w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+
+
 def param_shapes(cfg: ArchConfig) -> Dict[str, object]:
     """The parameter tree as nested dicts of shapes (stacked layer leaves
     lead with n_layers), as the JAX ``init_params`` builds it."""
-    n, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
-    hq, hkv = cfg.n_heads * cfg.hd(), cfg.n_kv_heads * cfg.hd()
+    d = cfg.d_model
     shapes = {
         "embed": (cfg.vocab, d),
         "final_norm": (d,),
-        "layers": {
-            "attn": {"wq": (n, d, hq), "wk": (n, d, hkv), "wv": (n, d, hkv),
-                     "wo": (n, hq, d)},
-            "attn_norm": (n, d), "mlp_norm": (n, d),
-            "w_gate": (n, d, f), "w_up": (n, d, f), "w_down": (n, f, d),
-        },
+        "layers": stacked(layer_shapes(cfg), cfg.n_layers),
     }
     if not cfg.tie_embeddings:
         shapes["unembed"] = (d, cfg.vocab)

@@ -30,11 +30,12 @@ import torch.nn.functional as F
 from repro_torch.device import DeviceLike, resolve_device
 
 from .attention import (decode_attend, decode_tables, gqa_forward,
-                        gqa_prefill, init_gqa_params, init_kv_cache,
+                        gqa_prefill, gqa_shapes, init_gqa_params,
+                        init_kv_cache,
                         init_mla_cache, init_mla_params, mla_decode_attend,
                         mla_decode_tables, mla_forward, mla_prefill)
 from .common import (ArchConfig, KeyGen, dense_init, embed_init, rms_norm,
-                     stack_layer_params, swiglu)
+                     stack_layer_params, stacked, swiglu)
 from .dense import layer_params, unstack_layers
 from .runtime_flags import FLAGS
 
@@ -183,9 +184,7 @@ def init_params(key: torch.Tensor, cfg: ArchConfig,
 def _attn_shapes(cfg: ArchConfig) -> Dict:
     d, H = cfg.d_model, cfg.n_heads
     if not cfg.use_mla:
-        hq, hkv = H * cfg.hd(), cfg.n_kv_heads * cfg.hd()
-        return {"wq": (d, hq), "wk": (d, hkv), "wv": (d, hkv),
-                "wo": (hq, d)}
+        return gqa_shapes(cfg)
     qd = cfg.qk_nope_dim + cfg.qk_rope_dim
     shapes = {"w_dkv": (d, cfg.kv_lora), "w_krope": (d, cfg.qk_rope_dim),
               "kv_norm": (cfg.kv_lora,),
@@ -210,13 +209,6 @@ def layer_shapes(cfg: ArchConfig) -> Dict:
         block.update(sw_gate=(d, Fs), sw_up=(d, Fs), sw_down=(Fs, d))
     return {"attn": _attn_shapes(cfg), "attn_norm": (d,), "mlp_norm": (d,),
             "moe": block}
-
-
-def stacked(shapes, n: int):
-    """Every shape of a nested dict with a leading ``n`` axis."""
-    if isinstance(shapes, dict):
-        return {k: stacked(v, n) for k, v in shapes.items()}
-    return (n,) + tuple(shapes)
 
 
 def param_shapes(cfg: ArchConfig) -> Dict:

@@ -1,8 +1,10 @@
 """Batched serving engine (port of ``repro/serving/engine.py``).
 
 Two services:
-  * ARGenerator — the classic prefill + decode loop with a KV cache over a
-    registered architecture (the dense family), with greedy / temperature /
+  * ARGenerator — the classic prefill + decode loop with a KV / state
+    cache over a registered architecture (any family of
+    ``models.registry``; an audio or vlm model takes its stub embeddings
+    through ``generate(..., embeds=)``), with greedy / temperature /
     top-k sampling per request from JAX's threefry keys (``repro_torch.
     prng``), so one ``rng_seed`` draws JAX's Gumbels.  The decode step
     writes the cache in place (JAX donates it), so steady-state decoding

@@ -218,8 +218,8 @@ def test_argenerator_refusals(monkeypatch):
     _, tp = _params(tcfg)
     with pytest.raises(ValueError, match="in place"):
         ARGenerator(tcfg, tp, 2, 8, donate=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="repro/models/rwkv6.py"):
-        ARGenerator(dataclasses.replace(tcfg, family="ssm"), tp, 2, 8,
+    with pytest.raises(ValueError, match="unknown family"):
+        ARGenerator(dataclasses.replace(tcfg, family="rnn"), tp, 2, 8,
                     device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

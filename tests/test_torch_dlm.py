@@ -138,11 +138,18 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_other_families_name_their_jax_module():
-    cfg = tdlm.DiffusionLMConfig(arch=TArch(
-        name="m", family="ssm", n_layers=1, d_model=64, n_heads=2,
-        n_kv_heads=2, d_ff=64, vocab=10))
-    with pytest.raises(NotImplementedError, match="rwkv6.py"):
-        tdlm.init_params(prng.PRNGKey(0, "cpu"), cfg, device="cpu")
+    """The ssm trunk builds rwkv6 layers (its leaves the shapes of
+    ``param_shapes``); a family the JAX trunk does not know raises
+    ValueError naming it, as JAX's does."""
+    arch = dict(name="m", n_layers=1, d_model=64, n_heads=2, n_kv_heads=2,
+                d_ff=64, vocab=10)
+    cfg = tdlm.DiffusionLMConfig(arch=TArch(family="ssm", **arch))
+    p = tdlm.init_params(prng.PRNGKey(0, "cpu"), cfg, device="cpu")
+    assert set(p["layers"]) == {"ln1", "ln2", "tm", "cm"}
+    assert jax.tree.map(lambda t: tuple(t.shape), p) == tdlm.param_shapes(cfg)
+    bad = tdlm.DiffusionLMConfig(arch=TArch(family="rnn", **arch))
+    with pytest.raises(ValueError, match="rnn"):
+        tdlm.init_params(prng.PRNGKey(0, "cpu"), bad, device="cpu")
 
 
 def test_configs_carry_smollm_widths():

@@ -112,7 +112,7 @@ def _leaves_list(tree, path=()):
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-v2-236b",
-                                  "kimi-k2-1t-a32b"])
+                                  "kimi-k2-1t-a32b", "rwkv6-7b"])
 def test_diffusion_lm_inits_bitwise_jax(arch):
     tcfg = tdlm.DiffusionLMConfig(arch=configs.get_smoke(arch), time_dim=32)
     jcfg = jdlm.DiffusionLMConfig(arch=jconfigs.get_smoke(arch), time_dim=32)

@@ -1,0 +1,152 @@
+"""Mamba2 blocks of the port (``models/mamba2.py``) against the JAX
+package's on the CPU: the chunked SSD (S a multiple of the chunk and not,
+a nonzero state0, decays large enough that exp overflows above the
+diagonal), the causal conv, the block forward, and the single-token
+recurrence against the chunked forward.
+
+Tolerances: ``ssd_chunked`` and ``mamba_forward`` 1e-5 of max|.| of
+JAX's (the three-operand contractions and the cumsum sum in another
+order than XLA's); the causal conv 1e-6 of max|.| (the same four
+products and sums, SiLU by another library); the recurrence against the
+chunked forward 1e-5 of max|y| (two summation orders of one recurrence).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import common as jcommon
+from repro.models import mamba2 as jm
+from repro_torch import configs, prng
+from repro_torch.models import common as tcommon
+from repro_torch.models import mamba2 as tm
+
+from _torch_lm import close, np_tree
+
+SSD_TOL = 1e-5
+CONV_TOL = 1e-6
+
+
+def _ssd_inputs(seed, Bt, S, H, P, N, dt_scale):
+    rs = np.random.RandomState(seed)
+    x = rs.randn(Bt, S, H, P).astype(np.float32)
+    dt = (np.log1p(np.exp(rs.randn(Bt, S, H))) * dt_scale).astype(np.float32)
+    A = -np.linspace(1.0, 16.0, H).astype(np.float32)
+    B = rs.randn(Bt, S, N).astype(np.float32)
+    C = rs.randn(Bt, S, N).astype(np.float32)
+    D = rs.randn(H).astype(np.float32)
+    state0 = rs.randn(Bt, H, P, N).astype(np.float32)
+    return x, dt, A, B, C, D, state0
+
+
+@pytest.mark.parametrize("S,dt_scale", [(256, 0.1), (200, 0.1), (40, 0.1),
+                                        (128, 1.0)],
+                         ids=["two-chunks", "padded", "one-short-chunk",
+                              "overflowing-decay"])
+def test_ssd_chunked_matches_jax(S, dt_scale):
+    args = _ssd_inputs(S, 2, S, 4, 8, 16, dt_scale)
+    wy, ws = jm.ssd_chunked(*map(jnp.asarray, args))
+    gy, gs = tm.ssd_chunked(*map(torch.from_numpy, args))
+    assert gy.shape == (2, S, 4, 8) and gs.dtype == torch.float32
+    if dt_scale == 1.0:
+        # above the diagonal exp(cum_i - cum_j) is inf: masked, not NaN
+        cum = np.cumsum(args[1] * args[2], axis=1)
+        assert (cum[:, :, None] - cum[:, None, :]).max() > 88.0
+        assert bool(torch.isfinite(gy).all())
+    close(gy, wy, SSD_TOL)
+    close(gs, ws, SSD_TOL)
+
+
+def test_causal_conv_matches_jax():
+    rs = np.random.RandomState(3)
+    seq = rs.randn(2, 9, 24).astype(np.float32)
+    w = rs.randn(4, 24).astype(np.float32)
+    b = rs.randn(24).astype(np.float32)
+    prev = rs.randn(2, 3, 24).astype(np.float32)
+    wo, wp = jm._causal_conv(*map(jnp.asarray, (seq, w, b, prev)))
+    go, gp = tm._causal_conv(*map(torch.from_numpy, (seq, w, b, prev)))
+    close(go, wo, CONV_TOL)
+    np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
+    np.testing.assert_array_equal(gp.numpy(), seq[:, -3:])
+
+
+def _block(seed=0):
+    jcfg = jconfigs.get_smoke("zamba2-2.7b")
+    tcfg = configs.get_smoke("zamba2-2.7b")
+    jp = jm.init_mamba_params(jcommon.KeyGen(jax.random.PRNGKey(seed)),
+                              jcfg, jnp.float32)
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in np_tree(jp).items()}
+    return jcfg, tcfg, jp, tp
+
+
+def test_split_and_sizes_are_jax():
+    jcfg, tcfg, _, tp = _block()
+    assert (tm.d_inner(tcfg), tm.n_ssm_heads(tcfg)) == (
+        jm.d_inner(jcfg), jm.n_ssm_heads(jcfg)) == (256, 8)
+    assert tm.mamba_shapes(tcfg) == {k: tuple(v.shape)
+                                     for k, v in tp.items()}
+    proj = torch.arange(2 * 3 * tp["w_in"].shape[1]).reshape(2, 3, -1)
+    want = jm._split_in(jnp.asarray(proj.numpy()), jcfg)
+    for g, w in zip(tm._split_in(proj, tcfg), want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("S", [7, 130])
+def test_mamba_forward_matches_jax(S):
+    jcfg, tcfg, jp, tp = _block()
+    x = np.random.RandomState(S).randn(2, S, tcfg.d_model).astype(
+        np.float32)
+    conv, ssm = (a + 0.1 for a in jm.init_mamba_state(jcfg, 2, jnp.float32))
+    want = jm.mamba_forward(jp, jcfg, jnp.asarray(x), conv, ssm)
+    got = tm.mamba_forward(tp, tcfg, torch.from_numpy(x),
+                           torch.from_numpy(np.array(conv)),
+                           torch.from_numpy(np.array(ssm)))
+    for g, w in zip(got, want):
+        close(g, w, SSD_TOL)
+
+
+def test_decode_recurrence_matches_chunked_forward():
+    """Token by token, mamba_decode_step gives the chunked forward's
+    outputs and states (JAX's decode step agrees with them too)."""
+    jcfg, tcfg, jp, tp = _block(1)
+    S = 6
+    x = np.random.RandomState(2).randn(2, S, tcfg.d_model).astype(np.float32)
+    conv, ssm = tm.init_mamba_state(tcfg, 2, device="cpu")
+    y_full, conv_f, ssm_f = tm.mamba_forward(tp, tcfg, torch.from_numpy(x),
+                                             conv, ssm)
+    jconv, jssm = jm.init_mamba_state(jcfg, 2, jnp.float32)
+    for s in range(S):
+        y, conv, ssm = tm.mamba_decode_step(
+            tp, tcfg, torch.from_numpy(x[:, s:s + 1]), conv, ssm)
+        jy, jconv, jssm = jm.mamba_decode_step(
+            jp, jcfg, jnp.asarray(x[:, s:s + 1]), jconv, jssm)
+        close(y, y_full[:, s:s + 1].numpy(), SSD_TOL)
+        close(y, jy, SSD_TOL)
+    close(ssm, ssm_f.numpy(), SSD_TOL)
+    close(conv, conv_f.numpy(), SSD_TOL)
+
+
+def test_init_draws_are_jax_and_a_log_dt_bias_within_two_ulps():
+    from _torch_lm import INIT_ULPS, ulp_gap
+    jcfg, tcfg, jp, _ = _block(4)
+    got = tm.init_mamba_params(tcommon.KeyGen(prng.PRNGKey(4, "cpu")), tcfg)
+    for k, w in np_tree(jp).items():
+        if k in ("A_log", "dt_bias"):
+            assert ulp_gap(got[k].numpy(), w) <= INIT_ULPS, k
+        else:
+            np.testing.assert_array_equal(got[k].numpy(), w, err_msg=k)
+    # zamba2's 80 heads (at a narrow width): A from -1 down to -16, dt in
+    # [1e-3, 0.1]
+    full = dataclasses.replace(tcfg, d_model=320, ssm_head_dim=8)
+    H = tm.n_ssm_heads(full)
+    a = tm.init_mamba_params(tcommon.KeyGen(prng.PRNGKey(0, "cpu")), full)
+    assert H == 80 and a["A_log"].shape == (80,)
+    np.testing.assert_allclose(np.exp(a["A_log"].numpy())[[0, -1]],
+                               [1.0, 16.0], rtol=1e-6)
+    dt = torch.nn.functional.softplus(a["dt_bias"])
+    assert float(dt.min()) >= 1e-3 * (1 - 1e-5)
+    assert float(dt.max()) <= 0.1 * (1 + 1e-5)

@@ -84,7 +84,7 @@ def test_registry_serves_moe_and_vlm():
         assert api is tregistry.FAMILIES[fam]
         assert api.needs_embeds == jregistry.FAMILIES[fam].needs_embeds \
             == embeds
-    assert set(tregistry.UNPORTED_FAMILIES) == {"ssm", "hybrid", "audio"}
+    assert set(tregistry.FAMILIES) == set(jregistry.FAMILIES)
     bad = dataclasses.replace(configs.DEEPSEEK_V2_236B_SMOKE, kv_lora=0)
     with pytest.raises(AssertionError):
         bad.validate()

@@ -208,10 +208,13 @@ def test_lm_train_step_matches_jax(lm_pair, accum):
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-236b", "kimi-k2-1t-a32b",
-                                  "llava-next-mistral-7b"])
+                                  "llava-next-mistral-7b", "zamba2-2.7b",
+                                  "rwkv6-7b", "seamless-m4t-large-v2"])
 def test_lm_train_step_other_families_match_jax(arch):
-    """A moe step adds aux_weight * aux (MLA and GQA); a vlm step trains
-    on JAX's stub embeddings; loss, aux and grad norm as JAX's."""
+    """A moe step adds aux_weight * aux (MLA and GQA); a vlm or audio
+    step trains on JAX's stub embeddings; the hybrid and ssm steps run
+    autograd through the chunked SSD and the WKV loop; loss, aux and grad
+    norm as JAX's."""
     from repro.models import get_api as jget_api
     from repro_torch.models.vlm import stub_embeds
     jcfg, tcfg = jconfigs.get_smoke(arch), tconfigs.get_smoke(arch)
@@ -345,5 +348,8 @@ def test_train_lm_cli_smoke_and_refusals(tmp_path):
                                 {"params": like})
     assert jax.tree.structure(restored["params"]) == jax.tree.structure(like)
     for arch in ("rwkv6-7b", "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ttrain.main(["--arch", arch, "--smoke", "--device", "cpu"])
+        lines = _run(ttrain.main, ["--arch", arch, "--smoke", "--steps", "1",
+                                   "--batch", "2", "--seq", "16",
+                                   "--device", "cpu"])
+        assert lines[0].startswith(f"{arch}-smoke: ")
+        assert set(json.loads(lines[-1])) == {"first_loss", "last_loss"}
