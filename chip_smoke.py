@@ -291,6 +291,23 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               step, 'mega' (not eligible) against 'eager'; (f) the serve CLI
               for the three smoke ids.  --p13-probe runs only the build and
               this phase
+ 14. the examples and the launch tools, run last so that every earlier
+              rate is timed as before: each of repro_torch.examples' six
+              main()s on the card at the example's own widths and sample
+              sizes, the seven counters zeroed before each and read after:
+              quickstart (GMM: backends within 1e-4 of eager, B1 == B2 ==
+              the check's S; images: TOY_UNET, no kernel), interpolation
+              (B1 == its decode's S, DDIM spread at a fixed x_T 0),
+              reconstruction (Table 2: MSE falls with S), discrete_ddim,
+              lm_diffusion for dense / moe / ssm / hybrid, and gateway_sse
+              in process where aiohttp imports (B2 == the pools' ticks + one
+              warm-up tick each; every stream previews and a result); every
+              printed number finite, each cut of JAX's train steps printed;
+              [roofline] phase 10's smollm-135m and llama3.2-3b decode steps
+              counted on meta (launch.roofline.count: flops, bytes, terms)
+              against their measured device ms; [shapes] every --arch x
+              shape id's float32 params + cache bytes (meta) against the
+              card's memory.  --p14-probe runs only the build and this phase
 
 Every time is printed beside the card's name and power limit.  Any failure
 raises and the script exits nonzero with no result line.  On success the
@@ -315,10 +332,6 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
-FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
-TF32_OPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
-BF16_OPS_PER_S = 989e12        # H100 SXM bfloat16 tensor cores, dense
 F32_ULP = 2.0 ** -23
 BF16_ULP = 2.0 ** -7
 CARD_SHAPE = (32, 32, 3)
@@ -405,12 +418,18 @@ def loop_ms(fn, iters: int = 200) -> float:
     return start.elapsed_time(end) / iters
 
 
+# ``repro_torch.launch.roofline``: the card's data-sheet rates (H100 SXM,
+# dense, 700 W) as HBM_BW and PEAK_FLOPS_*, and the step counter.  Imported
+# in ``main`` once the checkout's ``src`` is on the path.
+RL = None
+
+
 def bound_ms(n_elems: int, elem_bytes: int, n_streams: int,
              extra_bytes: int, ops_per_elem: int):
     """Least time for the step: bytes over HBM rate vs ops over fp32 rate."""
     t_bytes = (n_elems * elem_bytes * n_streams + extra_bytes) \
-        / HBM_BYTES_PER_S * 1e3
-    t_ops = n_elems * ops_per_elem / FP32_OPS_PER_S * 1e3
+        / RL.HBM_BW * 1e3
+    t_ops = n_elems * ops_per_elem / RL.PEAK_FLOPS_F32 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1997,8 +2016,8 @@ def mega_ops(cfg, batch: int, seq: int, K: int) -> int:
 
 
 def _bound(n_bytes: float, n_ops: float):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_bytes = n_bytes / RL.HBM_BW * 1e3
+    t_ops = n_ops / RL.PEAK_FLOPS_F32 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2148,13 +2167,13 @@ def phase_times_dlm(smi, params2, errs, b3_launches, ops_launches):
         q, k, v = (torch.randn(BH, S, 64, generator=gen, device=dev)
                    .to(dtype) for _ in range(3))
         pairs = BH * (S * (S + 1) // 2 if causal else S * S)
-        t_bytes = 4 * BH * S * 64 * q.element_size() / HBM_BYTES_PER_S * 1e3
-        t_soft = pairs * 5 / FP32_OPS_PER_S * 1e3
+        t_bytes = 4 * BH * S * 64 * q.element_size() / RL.HBM_BW * 1e3
+        t_soft = pairs * 5 / RL.PEAK_FLOPS_F32 * 1e3
         if dtype == torch.float32:
-            t_ops = pairs * 4 * 64 / FP32_OPS_PER_S * 1e3 + t_soft
-            t_tc = pairs * 4 * 64 * 3 / TF32_OPS_PER_S * 1e3 + t_soft
+            t_ops = pairs * 4 * 64 / RL.PEAK_FLOPS_F32 * 1e3 + t_soft
+            t_tc = pairs * 4 * 64 * 3 / RL.PEAK_FLOPS_TF32 * 1e3 + t_soft
         else:
-            t_ops = t_tc = pairs * 4 * 64 / BF16_OPS_PER_S * 1e3 + t_soft
+            t_ops = t_tc = pairs * 4 * 64 / RL.PEAK_FLOPS_BF16 * 1e3 + t_soft
         b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops \
             else (t_ops, "operations")
         tag = "f32" if dtype == torch.float32 else "bf16"
@@ -3528,7 +3547,7 @@ def phase_lm(smi, cfg, prompt_len):
 
     w_bytes = n_params * 4
     kv_bytes = 2 * cfg.n_layers * B * M * cfg.n_kv_heads * cfg.hd() * 4
-    bound = (w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    bound = (w_bytes + kv_bytes) / RL.HBM_BW * 1e3
     for label, fn in (("decode step (model)", decode_only),
                       ("generate step (split + sample + copy + decode)",
                        gen_step)):
@@ -3538,7 +3557,7 @@ def phase_lm(smi, cfg, prompt_len):
               f"{1 - busy / wall:.3f}, {n_ops} device ops launched; bytes "
               f"bound {bound:.3f} ms ({w_bytes / 1e9:.3f} GB of weights + "
               f"{kv_bytes / 1e9:.4f} GB of KV at M {M} over "
-              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+              f"{RL.HBM_BW / 1e12:.2f} TB/s)")
         for key, ms, count in top:
             print(f"[lm]     {ms:8.3f} ms {count:5d}x {key}")
     peak = torch.cuda.max_memory_allocated()
@@ -3806,7 +3825,7 @@ def phase_train_unet(smi):
     counts = _all_counts()
     steady = statistics.median(walls[5:]) * 1e3
     flops = 3 * _unet_forward_flops(CIFAR10_UNET, P11_IMG_BATCH, 32)
-    bound = flops / FP32_OPS_PER_S * 1e3
+    bound = flops / RL.PEAK_FLOPS_F32 * 1e3
     print(f"[train] {smi} | CIFAR10_UNET (35.7 M, float32) AdamW + "
           f"warmup_cosine + EMA 0.999 on SyntheticImages(32), batch "
           f"{P11_IMG_BATCH}, {P11_IMG_STEPS} steps: first step "
@@ -3893,7 +3912,7 @@ def phase_train_lm(smi):
     counts = _all_counts()
     steady = statistics.median(walls[1:]) * 1e3
     flops = 3 * _lm_forward_flops(cfg, P11_LM_BATCH, P11_LM_SEQ)
-    bound = flops / FP32_OPS_PER_S * 1e3
+    bound = flops / RL.PEAK_FLOPS_F32 * 1e3
     losses = [float(m["loss"]) for m in ms]
     print(f"[train] {smi} | {cfg.name} (float32, AdamW) on SyntheticTokens("
           f"{cfg.vocab}), batch {P11_LM_BATCH} x {P11_LM_SEQ}: first step "
@@ -4604,6 +4623,267 @@ def phase_13(smi):
     return b1
 
 
+# ----------------------------------------------- phase 14: the examples
+# Train steps of each example run (JAX's defaults are the examples' own,
+# parse_args([]).steps): cut where phase 14 would otherwise add well over
+# two minutes (every cut is printed).  At JAX's defaults (lm_diffusion at
+# 100) the examples took 221 s on an H100 at 700 W: the GMM MLP's steps
+# are host-bound at 25-44 ms (threefry draws), TOY_UNET's at 53-93 ms,
+# lm_diffusion's ssm trunk at 134-188 ms; with about twice these steps
+# the whole script ran 634.5 s, over half its time limit.
+P14_STEPS = {"quickstart": 600, "quickstart-images": 100,
+             "interpolation": 300, "reconstruction": 300,
+             "discrete_ddim": 300, "lm_diffusion": 30}
+P14_LM_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+P14_ROOFLINE = (("smollm-135m", 64), ("llama3.2-3b", 128))   # phase 10's
+NONFINITE = re.compile(r"\b(nan|inf)\b", re.IGNORECASE)
+
+
+def _p14_example(smi, name, argv, label=None):
+    """One example's ``main(argv)`` on the card with its stdout captured and
+    echoed, the seven counters zeroed just before it and read just after.
+    Checks every printed number is finite.  Returns (result, wall s,
+    counts)."""
+    import contextlib
+    import importlib
+    import io
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    buf = io.StringIO()
+    _zero_all_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = mod.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _all_counts()
+    out = buf.getvalue()
+    train = (f", train {res['train_step_s'] * 1e3:.2f} ms a step"
+             if "train_step_s" in res else "")
+    print(f"[p14] {smi} | python -m repro_torch.examples.{name} "
+          f"{' '.join(argv)}: wall {wall:.2f} s{train}, launches {counts}")
+    for line in out.splitlines():
+        if line.strip():
+            print(f"[p14]   {line}")
+    check(NONFINITE.search(out) is None,
+          f"{label or name}: a printed metric is not finite")
+    return res, wall, counts
+
+
+def _p14_cut(name, preset_argv=()):
+    """The train steps phase 14 gives example ``name`` (its own default,
+    which is JAX's, unless P14_STEPS cuts it: then a line says so)."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    default = mod.parse_args(list(preset_argv)).steps
+    key = name if not preset_argv else f"{name}-{preset_argv[-1]}"
+    steps = P14_STEPS[key]
+    if steps != default:
+        print(f"[p14] cut: {key} trains {steps} steps (JAX's default "
+              f"{default}) so that phase 14 stays near two minutes")
+    return steps
+
+
+def phase_examples(smi):
+    """Phase 14 (a): the six examples of repro_torch.examples on the card
+    at their own widths and sample sizes.  Returns (B1, B2) launches."""
+    walls = {}
+    zero = {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B5": 0, "B6": 0, "B7": 0}
+    # quickstart, both presets
+    st = _p14_cut("quickstart")
+    res, walls["quickstart"], c = _p14_example(
+        smi, "quickstart", ["--steps", str(st)])
+    S = res["backend_S"]
+    check(all(d < 1e-4 for d in res["backend_delta"].values()),
+          f"quickstart backends: {res['backend_delta']}")
+    check(c == dict(zero, B1=S, B2=S),
+          f"quickstart launched {c}, want B1 == B2 == S {S}")
+    b1, b2 = c["B1"], c["B2"]
+    st = _p14_cut("quickstart", ("--preset", "images"))
+    res, walls["quickstart-images"], c = _p14_example(
+        smi, "quickstart", ["--preset", "images", "--steps", str(st)],
+        "quickstart --preset images")
+    check(c == zero, f"quickstart images launched {c} (eager sampling)")
+    # interpolation: the slerp path decoded on tile_resident
+    st = _p14_cut("interpolation")
+    res, walls["interpolation"], c = _p14_example(
+        smi, "interpolation", ["--steps", str(st)])
+    check(c == dict(zero, B1=res["decode_S"]),
+          f"interpolation launched {c}, want B1 == S {res['decode_S']}")
+    check(res["ddim_spread"] == 0.0 and res["ddpm_spread"] > 0.0,
+          f"interpolation spreads DDIM {res['ddim_spread']} DDPM "
+          f"{res['ddpm_spread']}")
+    b1 += c["B1"]
+    # reconstruction (Table 2)
+    st = _p14_cut("reconstruction")
+    res, walls["reconstruction"], c = _p14_example(
+        smi, "reconstruction", ["--steps", str(st)])
+    errs = [r[1] for r in res["rows"]]
+    check(c == zero, f"reconstruction launched {c} (eager decode)")
+    check(all(b <= a for a, b in zip(errs, errs[1:])),
+          f"reconstruction error does not fall with S: {res['rows']}")
+    # discrete DDIM (App. A)
+    st = _p14_cut("discrete_ddim")
+    res, walls["discrete_ddim"], c = _p14_example(
+        smi, "discrete_ddim", ["--steps", str(st)])
+    check(c == zero, f"discrete_ddim launched {c}")
+    check(len(res["rows"]) == 9, f"discrete_ddim rows {res['rows']}")
+    # lm_diffusion, JAX's four families
+    st = _p14_cut("lm_diffusion")
+    for fam in P14_LM_FAMILIES:
+        res, walls[f"lm_diffusion {fam}"], c = _p14_example(
+            smi, "lm_diffusion", ["--family", fam, "--steps", str(st)],
+            f"lm_diffusion {fam}")
+        check(c == zero and len(res["rows"]) == 4,
+              f"lm_diffusion {fam} launched {c}, rows {res['rows']}")
+    # gateway_sse, in process (the transport needs aiohttp)
+    try:
+        import aiohttp  # noqa: F401
+        have = True
+    except ImportError:
+        have = False
+    if have:
+        res, walls["gateway_sse"], c = _p14_example(
+            smi, "gateway_sse", ["--smoke"])
+        fleet = res["stats"]["fleet"]
+        pools = len(fleet["pools"])
+        print(f"[p14] aiohttp importable: gateway_sse streamed in process; "
+              f"pool ticks {[p['ticks'] for p in fleet['pools']]} after one "
+              f"warm-up tick per pool ({pools} pools)")
+        check(res["ok"] and all(t["previews"] > 0 and t["result"] is not None
+                                for t in res["streams"].values()),
+              f"gateway_sse streams {res['streams']}")
+        check(c == dict(zero, B2=fleet["ticks"] + pools),
+              f"gateway_sse launched {c}, want B2 == pool ticks "
+              f"{fleet['ticks']} + {pools} warm-up ticks")
+        b2 += c["B2"]
+    else:
+        print("[p14] aiohttp is not importable here: gateway_sse not run "
+              "(the HTTP transport is not a device path; the CPU tests "
+              "hold it)")
+    print(f"[p14] {smi} | examples' walls (s): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
+          + f"; total {sum(walls.values()):.1f} s; B1 {b1}, B2 {b2}")
+    return b1, b2
+
+
+def phase_roofline(smi):
+    """Phase 14 (b): the roofline terms of phase 10's decode steps, counted
+    on meta tensors (launch.roofline.count), against the measured device
+    time of the same step on the card, with the analytic traffic (weights,
+    the cache read once, one slot a layer written), the useful share
+    (2 N D over the counted flops) and the step's peak device memory."""
+    from repro_torch import configs, prng
+    from repro_torch.launch import shapes
+    from repro_torch.models import dense
+    dev = torch.device("cuda")
+    B = len(LM_ROWS)
+    for arch, P in P14_ROOFLINE:
+        cfg = configs.get(arch)
+        M = P + LM_NEW
+        specs = shapes.param_specs(cfg)
+        meta_tok = torch.empty((B, 1), dtype=torch.int64, device="meta")
+        meta_cache = dense.init_cache(cfg, B, M, device="meta")
+        counts = RL.count(dense.decode_step, specs, cfg, meta_tok,
+                          meta_cache)
+        n_params = sum(t.numel() for t in _leaves(specs))
+        analytic = (shapes.nbytes(specs) + shapes.nbytes(
+            {k: meta_cache[k] for k in ("k", "v")})
+            + 2 * cfg.n_layers * B * cfg.n_kv_heads * cfg.hd() * 4)
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = dense.init_params(prng.PRNGKey(0, dev), cfg, device=dev)
+        cache = dense.init_cache(cfg, B, M, device=dev)
+        terms = RL.analyze(counts, model_flops=RL.lm_model_flops(
+            n_params, B, "decode"), dtype=params["embed"].dtype)
+        prompts = torch.randint(0, cfg.vocab, (B, P), device=dev)
+        with torch.no_grad():
+            logits, _ = dense.prefill(params, cfg, prompts, cache)
+            tok = logits.argmax(-1)[:, None]
+            idx0 = int(cache["idx"])
+
+            def decode_only():
+                cache["idx"].fill_(idx0)
+                dense.decode_step(params, cfg, tok, cache)
+
+            wall, busy, n_ops, _ = _lm_device_profile(decode_only)
+        mem = RL.memory_report(dev)
+        bound_ms = max(terms.compute_s, terms.memory_s) * 1e3
+        print(f"[roofline] {smi} | {arch} decode step (batch {B}, cache M "
+              f"{M}), counted on meta: {counts['flops']:,} flops, "
+              f"{counts['traffic_bytes']:,} bytes ({counts['traffic_bytes'] / analytic:.4f}"
+              f" x the analytic {analytic:,}: weights, cache read once, one"
+              f" slot a layer written), {counts['ops']} aten ops; useful "
+              f"2 N D / flops {terms.useful_ratio:.4f}; terms compute "
+              f"{terms.compute_s * 1e3:.4f} ms ({params['embed'].dtype}, "
+              f"{RL.peak_flops(params['embed'].dtype) / 1e12:.0f} TFLOP/s)"
+              f", memory {terms.memory_s * 1e3:.4f} ms ({RL.HBM_BW / 1e12:.2f}"
+              f" TB/s), bottleneck {terms.bottleneck}; measured device "
+              f"kernels {busy:.3f} ms ({n_ops} device ops), wall "
+              f"{wall:.3f} ms: max(terms) / device {bound_ms / busy:.3f}, "
+              f"/ wall {bound_ms / wall:.3f}; peak allocated "
+              f"{mem['peak_allocated_bytes'] / 1e9:.3f} GB")
+        check(counts["flops"] > 0 and busy > 0
+              and counts["traffic_bytes"] >= analytic,
+              f"{arch}: roofline counts {counts} (analytic bytes "
+              f"{analytic}), device ms {busy}")
+        del params, cache
+        torch.cuda.empty_cache()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_shapes(smi):
+    """Phase 14 (c): every --arch x shape id's float32 state (meta tensors,
+    no allocation) against the card's memory.  Serving combos: params plus
+    the cache.  Train combos: params, their gradients and AdamW's two
+    moments (the port's train step); the activations of batch x seq are
+    not counted, so "fits" there says that the state fits, not the step."""
+    from repro_torch import configs
+    from repro_torch.launch import shapes
+    from repro_torch.training.optim import adamw_init
+    total = torch.cuda.get_device_properties(0).total_memory
+    for arch in configs.ARCH_IDS:
+        specs = shapes.param_specs(configs.get(arch))
+        p_bytes = shapes.nbytes(specs)
+        opt = adamw_init(specs)
+        o_bytes = shapes.nbytes(opt.mu) + shapes.nbytes(opt.nu)
+        for sid in shapes.SHAPE_IDS:
+            combo = shapes.resolve(configs.get(arch), sid)
+            win = f", window {shapes.WINDOW}" if combo.windowed else ""
+            head = (f"[shapes] {smi} | {arch} x {sid} ({combo.kind}, batch "
+                    f"{combo.batch}, seq {combo.seq_len}{win}): float32 "
+                    f"params {p_bytes / 1e9:.3f} GB")
+            if combo.kind == "train":
+                need = 2 * p_bytes + o_bytes
+                print(f"{head} + grads {p_bytes / 1e9:.3f} GB + AdamW "
+                      f"moments {o_bytes / 1e9:.3f} GB = {need / 1e9:.3f} "
+                      f"GB against {total / 1e9:.1f} GB, activations not "
+                      f"counted: the state "
+                      f"{'fits' if need <= total else 'does not fit'} one "
+                      f"card")
+                continue
+            c_bytes = shapes.nbytes(shapes.cache_specs(combo, torch.float32))
+            need = p_bytes + c_bytes
+            print(f"{head} + cache {c_bytes / 1e9:.3f} GB = "
+                  f"{need / 1e9:.3f} GB against {total / 1e9:.1f} GB: "
+                  f"{'fits' if need <= total else 'does not fit'} one card")
+
+
+def phase_14(smi):
+    """Phase 14, run last so that every earlier rate is timed as before:
+    the six examples, the decode steps' roofline terms, the shape table.
+    Returns (B1, B2) launches of the examples."""
+    b1, b2 = phase_examples(smi)
+    phase_roofline(smi)
+    phase_shapes(smi)
+    return b1, b2
+
+
 def draw_probe(smi, src) -> None:
     """--draw-probe: the draw's cost on SRC's tree, as one JSON line: the
     host µs of one scheduler x_T draw (``_draw_xT``), a steady tick, and at
@@ -4678,6 +4958,10 @@ def main(argv=None) -> int:
                     help="only build the kernels and run phase 13 (the ssm, "
                          "hybrid and audio families and their diffusion-LM "
                          "trunks) on this checkout")
+    ap.add_argument("--p14-probe", action="store_true",
+                    help="only build the kernels and run phase 14 (the six "
+                         "examples, the roofline and shapes lines) on this "
+                         "checkout")
     ap.add_argument("--draw-probe", metavar="SRC", type=Path,
                     help="only time the x_T draw, serve and the U-Net "
                          "scheduler on SRC/repro_torch (phase 11's cost "
@@ -4694,6 +4978,8 @@ def main(argv=None) -> int:
               "checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(src))
+    global RL
+    from repro_torch.launch import roofline as RL
     t0 = time.perf_counter()
     smi = phase_card()
     if args.launch_probe:
@@ -4716,6 +5002,10 @@ def main(argv=None) -> int:
         return 0
     if args.p13_probe:
         phase_13(smi)
+        print(f"[done] {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args.p14_probe:
+        phase_14(smi)
         print(f"[done] {time.perf_counter() - t0:.1f} s")
         return 0
     errs = phase_kernels()
@@ -4791,12 +5081,16 @@ def main(argv=None) -> int:
     # runs on the rwkv6 and Mamba2 diffusion-LM trunks; the AR paths of
     # the ssm, hybrid and audio families launch none of the seven.
     b1_p13 = phase_13(smi)
+    # Phase 14 runs last, so that every rate above is timed as before.  B1
+    # runs on quickstart's tile_resident check and interpolation's decode,
+    # B2 on quickstart's rows check and every gateway_sse pool tick.
+    b1_p14, b2_p14 = phase_14(smi)
     recs = {r["name"]: r for r in kernels}
     recs["sampler_step_2d"]["launches"] += (b1_auto + b1_p11 + b1_p12
-                                            + b1_p13)
+                                            + b1_p13 + b1_p14)
     recs["sampler_step_rows_2d"]["launches"] += (b2_auto + b2_p8 + b2_mega
                                                  + b2_gw + b2_chaos + b2_cli
-                                                 + b2_p11)
+                                                 + b2_p11 + b2_p14)
     recs["megastep_rows_call"]["launches"] += b4_p8
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -17,9 +17,10 @@ single-token recurrence.  The two sum in another order, so a cached
 decode agrees with the chunked forward to a tolerance, not bitwise.
 
 Above the diagonal ``exp(c_i - c_j)`` overflows at zamba2 width (the
-exponent is >= 0 and passes 88): it is masked with ``torch.where``, as
-JAX's ``jnp.where`` masks it, never multiplied by a 0/1 mask (inf * 0 is
-NaN).  The three-operand contractions of JAX's einsums are written as two
+exponent is >= 0 and passes 88): the exponent is set to -inf there
+before ``exp``, so the forward is JAX's ``jnp.where`` mask bit for bit
+and the gradient there is 0 (JAX's is 0 * inf = NaN), never a 0/1
+multiply (inf * 0 is NaN).  The three-operand contractions of JAX's einsums are written as two
 steps that never form a (B, nc, L, L, H, P) tensor.
 """
 from __future__ import annotations
@@ -146,8 +147,11 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     scores = torch.einsum("bcln,bcmn->bclm", Cr, Br)     # (Bt,nc,L,L)
     decay = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (Bt,nc,L,L,H)
     mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
-    M = torch.where(mask[None, None, :, :, None], torch.exp(decay),
-                    0.0) * scores[..., None]
+    # exp only below the diagonal: above it decay > 0 can overflow to inf,
+    # and where(mask, exp(decay), 0)'s gradient there is 0 * inf = NaN
+    # (JAX's is).  exp(-inf) = 0 gives the same forward bits, a 0 gradient.
+    M = torch.exp(decay.masked_fill(~mask[None, None, :, :, None],
+                                    float("-inf"))) * scores[..., None]
     # "bclmh,bcmh,bcmhp->bclhp": dt_j folds into M, then one product over m
     y = torch.einsum("bclmh,bcmhp->bclhp", M * dtr[:, :, None], xr)
     del M, decay

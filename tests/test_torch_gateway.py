@@ -2,9 +2,9 @@
 JAX package's (``tests/test_gateway.py``, case for case).
 
 Both gateways serve the same wire specs on the CPU over the demo trunk of
-``repro/serving/fleet/sharded.py`` (``trunk_apply``; the port's copy below
-is the same function in torch, its weights converted from the JAX
-``make_trunk_params``), the JAX pools running their Pallas kernels in
+``repro/serving/fleet/sharded.py`` (``trunk_apply``; the port's
+``repro_torch.serving.fleet.trunk_apply``, its weights converted from the
+JAX ``make_trunk_params``), the JAX pools running their Pallas kernels in
 interpret mode, the port's their plain versions.  Where x0 is compared,
 each request is handed the same x_T in both packages as a k = 0
 ``SlotCheckpoint`` set on the accepted request before its first pump.
@@ -47,6 +47,7 @@ from repro_torch.obs import ListSink, Observability
 from repro_torch.obs.schema import GATEWAY_STATS_KEYS
 from repro_torch.serving import (RejectCode, RequestError, SampleRequest,
                                  SlotCheckpoint)
+from repro_torch.serving.fleet import trunk_apply as t_trunk_apply
 from repro_torch.serving.gateway import (EngineBridge, GatewayCore,
                                          HAVE_HTTP, ModelRegistry,
                                          OverloadPolicy, parse_spec)
@@ -66,15 +67,6 @@ def _torch_tree(tree):
 
 T_PARAMS = {s: _torch_tree(p) for s, p in J_PARAMS.items()}
 A, B, C = 0, 1, 2
-
-
-def t_trunk_apply(params, x, t):
-    """``repro.serving.fleet.trunk_apply`` (single device) in torch."""
-    w = params["trunk"]
-    a = params["alpha_bar"][t.long()].reshape((-1,) + (1,) * (x.dim() - 1))
-    base = x * torch.sqrt(1 - a) / (1 - a + a * 0.25)
-    r = torch.tanh(x @ w["wq"]) @ w["wo"]
-    return base + 0.05 * torch.sqrt(1 - a) * w["time_w"] * r
 
 
 def _gateways(models=None, obs=(None, None), **kw):

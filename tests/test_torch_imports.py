@@ -34,9 +34,10 @@ def test_no_jax_or_repro_import(path):
 
 
 @pytest.mark.parametrize("argv", [[], ["--launch-probe", "src"],
-                                  ["--draw-probe", "src"], ["--p12-probe"]],
+                                  ["--draw-probe", "src"], ["--p12-probe"],
+                                  ["--p14-probe"]],
                          ids=["smoke", "launch-probe", "draw-probe",
-                              "p12-probe"])
+                              "p12-probe", "p14-probe"])
 def test_chip_smoke_refuses_without_a_card(argv, monkeypatch, capsys):
     """chip_smoke.py exits nonzero and prints no result line when torch
     sees no CUDA device, in either mode."""

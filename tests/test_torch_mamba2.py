@@ -1,7 +1,9 @@
 """Mamba2 blocks of the port (``models/mamba2.py``) against the JAX
 package's on the CPU: the chunked SSD (S a multiple of the chunk and not,
 a nonzero state0, decays large enough that exp overflows above the
-diagonal), the causal conv, the block forward, and the single-token
+diagonal) and its gradients (finite where JAX's dt gradient is NaN, and
+held there against jax.grad of the SSD's step-by-step recurrence), the
+causal conv, the block forward, and the single-token
 recurrence against the chunked forward.
 
 Tolerances: ``ssd_chunked`` and ``mamba_forward`` 1e-5 of max|.| of
@@ -59,6 +61,62 @@ def test_ssd_chunked_matches_jax(S, dt_scale):
         assert bool(torch.isfinite(gy).all())
     close(gy, wy, SSD_TOL)
     close(gs, ws, SSD_TOL)
+
+
+def _jax_recurrence(x, dt, A, B, C, D, state0):
+    """The SSD as its recurrence (``repro/models/mamba2.py``'s docstring),
+    one step at a time: every decay exp(dt_t A) is at most 1, so its
+    gradient is finite wherever the chunked form's exp overflows."""
+    def step(state, inp):
+        xt, dtt, Bt, Ct = inp
+        a = jnp.exp(dtt * A)                                   # (Bt,H)
+        state = (a[..., None, None] * state
+                 + (dtt[..., None] * xt)[..., None] * Bt[:, None, None, :])
+        return state, (jnp.einsum("bhpn,bn->bhp", state, Ct)
+                       + D[None, :, None] * xt)
+    _, y = jax.lax.scan(step, state0, tuple(
+        jnp.moveaxis(a, 1, 0) for a in (x, dt, B, C)))
+    return jnp.moveaxis(y, 0, 1)
+
+
+@pytest.mark.parametrize("S,dt_scale", [(40, 0.01), (128, 1.0)],
+                         ids=["finite-decay", "overflowing-decay"])
+def test_ssd_chunked_gradients(S, dt_scale):
+    """d sum(y * w) by x, dt, B and C against jax.grad of JAX's
+    ``ssd_chunked`` and of the SSD's step-by-step recurrence.  Where the
+    decay above the diagonal overflows, JAX's chunked dt gradient is NaN
+    (its where's backward multiplies 0 by inf) and the port's, which
+    takes exp below the diagonal only, is held against the recurrence's;
+    every other gradient agrees with both (SSD_TOL)."""
+    x, dt, A, B, C, D, s0 = _ssd_inputs(7, 2, S, 4, 8, 16, dt_scale)
+    cum = np.cumsum(dt * A, axis=1)
+    assert ((cum[:, :, None] - cum[:, None, :]).max() > 88.0) == (
+        dt_scale == 1.0)
+    w = np.random.RandomState(8).randn(2, S, 4, 8).astype(np.float32)
+
+    def jloss(ssd):
+        def loss(x, dt, B, C):
+            y = ssd(x, dt, jnp.asarray(A), B, C, jnp.asarray(D),
+                    jnp.asarray(s0))
+            return jnp.sum(y * w)
+        return loss
+
+    jargs = tuple(map(jnp.asarray, (x, dt, B, C)))
+    want = jax.grad(jloss(lambda *a: jm.ssd_chunked(*a)[0]),
+                    argnums=(0, 1, 2, 3))(*jargs)
+    recur = jax.grad(jloss(_jax_recurrence), argnums=(0, 1, 2, 3))(*jargs)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (x, dt, B, C)]
+    y, _ = tm.ssd_chunked(leaves[0], leaves[1], torch.from_numpy(A),
+                          leaves[2], leaves[3], torch.from_numpy(D),
+                          torch.from_numpy(s0))
+    got = torch.autograd.grad((y * torch.from_numpy(w)).sum(), leaves)
+    for name, g, wg, rg in zip(("x", "dt", "B", "C"), got, want, recur):
+        assert bool(torch.isfinite(g).all()), name
+        close(g, rg, SSD_TOL)
+        if name == "dt" and dt_scale == 1.0:
+            assert not np.isfinite(np.asarray(wg)).all()
+            continue
+        close(g, wg, SSD_TOL)
 
 
 def test_causal_conv_matches_jax():

@@ -4,9 +4,10 @@ against the JAX package's (``tests/test_resilience.py``, case for case).
 Both packages run the same fault plans over the same requests on a
 virtual clock (``pump(now=t)``), so breaker backoff and EDF order are
 exact, on the CPU over the demo trunk (``repro/serving/fleet/sharded.py``
-``trunk_apply``, and the same function in torch over the converted
-weights); JAX's Pallas kernels run in interpret mode, the port's
-wrappers take their plain versions.  Where x0 is compared, every
+``trunk_apply``, and the port's
+``repro_torch.serving.fleet.trunk_apply`` over the converted weights);
+JAX's Pallas kernels run in interpret mode, the port's wrappers take
+their plain versions.  Where x0 is compared, every
 request starts from the same x_T in both packages, a k = 0
 ``SlotCheckpoint`` set on the accepted request; span checks draw x_T from
 the seed instead (a k = 0 checkpoint logs a ``resume`` event that
@@ -54,6 +55,7 @@ from repro_torch.serving import (ContinuousBatchingEngine, PoolFleet,
                                  PoolState, RejectCode, RequestError,
                                  SampleRequest, SlotCheckpoint, SlotPool)
 from repro_torch.serving.fleet import pick_pool
+from repro_torch.serving.fleet import trunk_apply as t_trunk_apply
 from repro_torch.serving.gateway import (EngineBridge, GatewayCore,
                                          OverloadPolicy)
 from repro_torch.serving.resilience import (FAULT_KINDS, BreakerPolicy,
@@ -69,15 +71,6 @@ J_PARAMS = make_trunk_params(JSCH, DIM, HIDDEN, seed=0)
 T_PARAMS = jax.tree_util.tree_map(lambda a: torch.from_numpy(np.array(a)),
                                   J_PARAMS)
 DT = 0.01
-
-
-def t_trunk_apply(params, x, t):
-    """``repro.serving.fleet.trunk_apply`` (single device) in torch."""
-    w = params["trunk"]
-    a = params["alpha_bar"][t.long()].reshape((-1,) + (1,) * (x.dim() - 1))
-    base = x * torch.sqrt(1 - a) / (1 - a + a * 0.25)
-    r = torch.tanh(x @ w["wq"]) @ w["wo"]
-    return base + 0.05 * torch.sqrt(1 - a) * w["time_w"] * r
 
 
 def _engine(slots=2, **kw):
