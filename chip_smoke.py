@@ -20,6 +20,13 @@ times, for another checkout's ``src``, one scheduler x_T draw, a steady
 U-Net scheduler tick, serve samples/s and slot-steps/s at CIFAR10 width,
 as one JSON line (the cost of phase 11's draws against the parent).
 
+    python3 chip_smoke.py --tick-probe OTHER/src
+
+times, for another checkout's ``src``, the steady tick of phases 4-9's
+unsharded engines (the U-Net scheduler eta 0, eta 1 and order 2 with
+preview, probed; the diffusion-LM mega and unfused ticks), as one JSON
+line (the engine's state as a list of row blocks against the parent).
+
 It needs one CUDA device and ``nvcc`` (the kernels are built from the
 sources in the checkout into build/repro_torch_kernels/).  Phases:
 
@@ -308,6 +315,21 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               against their measured device ms; [shapes] every --arch x
               shape id's float32 params + cache bytes (meta) against the
               card's memory.  --p14-probe runs only the build and this phase
+ 15. mesh-sharded slot pools, run last so that every earlier rate is
+              timed as before: (a) the fleet bench's demo trunk
+              (state_dim 512, hidden 1024, 4 slots, S in {5, 10, 20}) as a
+              PoolFleet on the (1, 1) mesh of the card (make_fleet_mesh,
+              make_sharded_eps), x0 bitwise the unsharded engine's; (b) the
+              same fleet of 2 pools on simulated (1, 2) and (2, 2) pool
+              meshes over [cuda:0] * k (devices=), within rtol / atol 1e-5,
+              mesh / state_sharded / compiled_ticks as JAX reports them;
+              (c) the CIFAR10 U-Net in one engine with mesh= on a
+              simulated (2, 1) mesh through sharded_eps_from_apply, within
+              1e-5 of max|x| of the unsharded engine.  The B2 counter is
+              zeroed before each path and must read ticks x data shards
+              after it; each path's steady tick wall is printed beside the
+              unsharded one, labelled simulated (no scaling figure).
+              --p15-probe runs only the build and this phase
 
 Every time is printed beside the card's name and power limit.  Any failure
 raises and the script exits nonzero with no result line.  On success the
@@ -1242,9 +1264,9 @@ def phase_telemetry(smi, model):
     # device time of the frame's reductions and its copy, on the engine's
     # own tensors
     states = eng._states()
-    x2 = eng._x2
+    x2 = eng._x2[0]                     # the one row block off a mesh
     eps2 = torch.randn_like(x2)
-    prev = eng._hist2[0]
+    prev = eng._hist2[0][0]
     spec = eng.probe_spec
 
     def frame_and_copy():
@@ -2539,7 +2561,8 @@ def _host_prep(smi, eng, label):
     eng.tick()                                  # admits: every slot busy
     states = eng._states()
     rows = sops.expand_slot_coefs(states.coef_matrix(), eng._rps)
-    x2, dev = eng._x2, eng._x2.device
+    x2 = eng._x2[0]                     # the one row block off a mesh
+    dev = x2.device
     w = mk._weights(params, cfg)
     plan = (ctypes.c_longlong * len(mk._PLAN))()
     lib = mk._lib()
@@ -2565,7 +2588,7 @@ def _host_prep(smi, eng, label):
             x2, params, cfg, B, S, rows, states.t, clip=eng.clip_x0,
             attn_impl=spec.attn_impl)),
         ("whole tick (states + expand + call)", lambda: eng._tick(False)(
-            x2, None, eng._states(), None)),
+            eng._x2, None, eng._states(), None)),
     )
     out = []
     for name, fn in pieces:
@@ -4884,6 +4907,176 @@ def phase_14(smi):
     return b1, b2
 
 
+P15_DIM, P15_HIDDEN = 512, 1024      # the fleet bench's demo trunk
+P15_SLOTS = 4                        # its slots per pool
+P15_S = (5, 10, 20)                  # its S menu
+P15_N = 12                           # requests per fleet path
+P15_UNET_SLOTS = 4
+P15_UNET_S = 10
+P15_RTOL = P15_ATOL = 1e-5           # model > 1 against the unsharded engine
+
+
+def _p15_requests(n, base=0, S_menu=P15_S):
+    from repro_torch.serving import SampleRequest
+    return [SampleRequest(request_id=base + i, S=S_menu[i % len(S_menu)],
+                          eta=0.0, seed=base + i, affinity_key=i % 5)
+            for i in range(n)]
+
+
+def _p15_tick_ms(serve, eng_or_fleet, n, base):
+    """Mean steady tick wall (ms) of one more serve of ``n`` requests,
+    after the path's first (built) serve; the stats' tick wall over its
+    ticks (summed over a fleet's pools)."""
+    eng_or_fleet.reset_stats()
+    serve(_p15_requests(n, base))
+    torch.cuda.synchronize()
+    st = eng_or_fleet.stats()
+    pools = st.get("pools", [st])
+    return (1e3 * sum(p["tick_wall_s"] for p in pools)
+            / max(sum(p["ticks"] for p in pools), 1))
+
+
+def phase_15(smi, model):
+    """Phase 15: mesh-sharded slot pools.  (a) the fleet bench's demo
+    trunk (state_dim 512, hidden 1024, 4 slots) as a pool on the (1, 1)
+    mesh of the real card, x0 bitwise the unsharded engine's; (b) the same
+    fleet of 2 pools on simulated (1, 2) and (2, 2) pool meshes over
+    [cuda:0] * k (make_fleet_mesh(devices=)), within rtol / atol 1e-5,
+    with JAX's stats; (c) the CIFAR10 U-Net in one engine on a simulated
+    (2, 1) mesh through sharded_eps_from_apply.  B2 is zeroed before each
+    path and read after: ticks x data shards.  Returns B2 launches."""
+    from torch.func import functional_call
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.launch.mesh import make_fleet_mesh, make_host_mesh
+    from repro_torch.models.unet import make_eps_fn
+    from repro_torch.serving import (ContinuousBatchingEngine, PoolFleet,
+                                     SampleRequest)
+    from repro_torch.serving.fleet import (make_sharded_eps,
+                                           make_trunk_params,
+                                           make_unsharded_eps,
+                                           sharded_eps_from_apply)
+    sch = make_schedule("linear", 1000)
+    params = make_trunk_params(sch, P15_DIM, P15_HIDDEN, seed=0)
+    card = torch.device("cuda", 0)
+    n_b2 = 0
+
+    def shards(engine):
+        return len(engine._blocks)
+
+    # the unsharded reference: one engine, the same requests
+    ref = ContinuousBatchingEngine(sch, make_unsharded_eps(params),
+                                   (P15_DIM,), P15_SLOTS)
+    want = {r.request_id: r.x0 for r in ref.serve(_p15_requests(P15_N))}
+    ref_ms = _p15_tick_ms(ref.serve, ref, P15_N, 1000)
+    print(f"[p15] {smi} | unsharded engine, demo trunk {P15_DIM} x "
+          f"{P15_HIDDEN}, {P15_SLOTS} slots, S {P15_S}: steady tick "
+          f"{ref_ms:.3f} ms")
+    paths = (("(a) (1, 1) mesh of the card", 1, 1, None),
+             ("(b) (1, 2) pool meshes, simulated 2 x cuda:0", 2, 2,
+              [card] * 4),
+             ("(b) (2, 2) pool meshes, simulated 4 x cuda:0", 2, 2,
+              [card] * 8))
+    for label, n_pools, model_axis, devices in paths:
+        meshes = make_fleet_mesh(n_pools, model=model_axis,
+                                 devices=devices)
+        fleet = PoolFleet.build(
+            sch, lambda pool_id, mesh: make_sharded_eps(mesh, params),
+            (P15_DIM,), n_pools=n_pools, slots=P15_SLOTS, meshes=meshes)
+        _zero_counts()
+        res = fleet.serve(_p15_requests(P15_N), now=0.0)
+        torch.cuda.synchronize()
+        counts = _counts()
+        st = fleet.stats()
+        ticks_x_shards = sum(p.engine.ticks * shards(p.engine)
+                             for p in fleet.pools)
+        got = {r.request_id: r.x0 for r in res}
+        worst = max(float((got[k] - want[k]).abs().max()) for k in want)
+        bitwise = all(torch.equal(got[k], want[k]) for k in want)
+        ms = _p15_tick_ms(lambda reqs: fleet.serve(reqs, now=0.0), fleet,
+                          P15_N, 1000)
+        pools = [(p["mesh"], p["state_sharded"], p["compiled_ticks"])
+                 for p in st["pools"]]
+        print(f"[p15] {smi} | {label}: {n_pools} pool(s) of "
+              f"{meshes[0].shape}, {len(res)} requests, pool ticks "
+              f"{[p['ticks'] for p in st['pools']]}, data shards "
+              f"{[shards(p.engine) for p in fleet.pools]}, launches "
+              f"{counts}; x0 vs unsharded max|d| {worst:.3e} (bitwise "
+              f"{bitwise}); (mesh, state_sharded, compiled_ticks) {pools}; "
+              f"steady tick {ms:.3f} ms per pool tick ("
+              + (f"simulated {meshes[0].size} x cuda:0, no scaling figure"
+                 if devices is not None else "the card's own mesh")
+              + f") beside the unsharded {ref_ms:.3f} ms")
+        check(counts == {"B1": 0, "B2": ticks_x_shards, "B3": 0, "B4": 0},
+              f"{label}: launches {counts}, want B2 == ticks x data shards "
+              f"{ticks_x_shards}")
+        check(sorted(got) == sorted(want), f"{label}: results {sorted(got)}")
+        for mesh, (m, sharded, ct) in zip(meshes, pools):
+            dsize = mesh.shape["data"]
+            rows = P15_SLOTS * fleet.pools[0].engine._rps
+            check(m == mesh.shape and ct == 1
+                  and sharded == (dsize > 1 and rows % dsize == 0),
+                  f"{label}: pool stats {(m, sharded, ct)}")
+        if devices is None:
+            check(bitwise, f"{label}: x0 not bitwise the unsharded engine's "
+                  f"(max|d| {worst})")
+        else:
+            for k in want:
+                check(torch.allclose(got[k], want[k], rtol=P15_RTOL,
+                                     atol=P15_ATOL),
+                      f"{label}: request {k} beyond rtol/atol 1e-5")
+        n_b2 += counts["B2"]
+
+    # (c) the CIFAR10 U-Net on a simulated (2, 1) mesh
+    mesh = make_host_mesh(devices=[card] * 2)
+    state = {k: v.detach() for k, v in model.state_dict().items()}
+
+    def apply(p, x, t):
+        with torch.no_grad():
+            return functional_call(model, p, (x, t))
+    eng = ContinuousBatchingEngine(sch, sharded_eps_from_apply(mesh, state,
+                                                               apply),
+                                   CARD_SHAPE, P15_UNET_SLOTS, mesh=mesh)
+    lone = ContinuousBatchingEngine(sch, make_eps_fn(model), CARD_SHAPE,
+                                    P15_UNET_SLOTS)
+    reqs = [SampleRequest(request_id=i, S=P15_UNET_S, seed=300 + i)
+            for i in range(2 * P15_UNET_SLOTS)]
+    _zero_counts()
+    res = eng.serve(reqs)
+    torch.cuda.synchronize()
+    counts = _counts()
+    ticks = eng.ticks
+    ticks_x_shards = ticks * shards(eng)
+    want = {r.request_id: r.x0 for r in lone.serve(reqs)}
+    worst = max(float((r.x0 - want[r.request_id]).abs().max()
+                      / want[r.request_id].abs().max()) for r in res)
+
+    def unet_ms(e):
+        e.reset_stats()
+        e.serve([SampleRequest(request_id=100 + i, S=P15_UNET_S,
+                               seed=400 + i) for i in range(len(reqs))])
+        torch.cuda.synchronize()
+        return 1e3 * e.stats()["tick_wall_s"] / max(e.ticks, 1)
+    ms_mesh, ms_lone = unet_ms(eng), unet_ms(lone)
+    st = eng.stats()
+    print(f"[p15] {smi} | (c) CIFAR10_UNET {P15_UNET_SLOTS} slots on a (2, "
+          f"1) mesh (sharded_eps_from_apply), {len(reqs)} requests S="
+          f"{P15_UNET_S}: ticks {ticks}, data shards {shards(eng)}, "
+          f"launches {counts}, x0 vs the "
+          f"unsharded engine worst max|d|/max|x| {worst:.3e} (tol "
+          f"{SCHED_VS_EAGER_TOL:g}); mesh {st['mesh']}, state_sharded "
+          f"{st['state_sharded']}, compiled_ticks {st['compiled_ticks']}; "
+          f"steady tick {ms_mesh:.3f} ms (simulated 2 x cuda:0, no scaling "
+          f"figure) beside the unsharded {ms_lone:.3f} ms")
+    check(counts == {"B1": 0, "B2": ticks_x_shards, "B3": 0, "B4": 0}
+          and shards(eng) == 2,
+          f"(c): launches {counts}, want B2 == ticks x 2 = {ticks_x_shards}")
+    check(worst <= SCHED_VS_EAGER_TOL, f"(c): x0 {worst} > "
+          f"{SCHED_VS_EAGER_TOL:g} of max|x|")
+    check(st["state_sharded"] and st["compiled_ticks"] == 1
+          and st["mesh"] == {"data": 2, "model": 1}, f"(c): stats {st}")
+    return n_b2 + counts["B2"]
+
+
 def draw_probe(smi, src) -> None:
     """--draw-probe: the draw's cost on SRC's tree, as one JSON line: the
     host µs of one scheduler x_T draw (``_draw_xT``), a steady tick, and at
@@ -4941,6 +5134,113 @@ def draw_probe(smi, src) -> None:
                           draw_us / 1e3 / (es["tick_ewma_s"] * 1e3)}))
 
 
+def tick_probe(smi, src) -> None:
+    """--tick-probe: the steady tick wall of the unsharded engines of
+    phases 4-9 on SRC's tree, as one JSON line: the CIFAR10 U-Net
+    scheduler (eta 0; eta 1 and order-2 requests alternated on a
+    stochastic order-2 engine with preview; probed) and the
+    diffusion-LM trunk's mega and unfused ticks.  Per engine, 3 waves of
+    ``slots`` requests at S=20 after a warm wave; a tick's wall is the
+    host clock around ``tick()`` and a synchronisation, over the ticks
+    where every slot is busy and nothing is admitted or retired (17 a
+    wave); reported as the median (ms) and the stats' mean fn wall."""
+    from repro_torch.configs import DLM_SMOLLM_MEGA as cfg
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.diffusion_lm import make_tile_eps_fn
+    from repro_torch.models.unet import make_eps_fn
+    from repro_torch.sampling import SamplerPlan
+    from repro_torch.serving import ContinuousBatchingEngine, SampleRequest
+    sch = make_schedule("linear", 1000)
+    unet_eps = make_eps_fn(_cifar10_model())
+    dlm_eps = make_tile_eps_fn(_dlm_params(cfg), cfg, DLM_BATCH, DLM_SEQ)
+    dlm_shape = (DLM_SEQ, cfg.latent_dim)
+    det = SamplerPlan.build(sch, 20)
+    plans = {"det": (det,),
+             "mixed": (SamplerPlan.build(sch, 20, sigma=1.0),
+                       SamplerPlan.build(sch, 20, order=2))}
+    engines = (
+        ("unet_det", "det", ContinuousBatchingEngine(
+            sch, unet_eps, CARD_SHAPE, SCHED_SLOTS)),
+        ("unet_eta1_or_order2_preview", "mixed", ContinuousBatchingEngine(
+            sch, unet_eps, CARD_SHAPE, SCHED_SLOTS, stochastic=True,
+            max_order=2, preview=True)),
+        ("unet_probed", "det", ContinuousBatchingEngine(
+            sch, unet_eps, CARD_SHAPE, SCHED_SLOTS, probes=True)),
+        ("dlm_mega", "det", ContinuousBatchingEngine(
+            sch, dlm_eps, dlm_shape, DLM_BATCH)),
+        ("dlm_rows", "det", ContinuousBatchingEngine(
+            sch, dlm_eps, dlm_shape, DLM_BATCH, use_mega=False)))
+    out = {"card": smi, "probe": "tick", "src": str(src)}
+    for name, plan, eng in engines:
+        def wave(base):
+            for i in range(eng.slots):
+                ps = plans[plan]
+                eng.submit(SampleRequest(request_id=base + i, seed=base + i,
+                                         plan=ps[i % len(ps)]))
+        wave(0)
+        eng.run()
+        eng.reset_stats()
+        walls = []
+        for w in range(3):
+            wave(100 * (w + 1))
+            for k in range(20):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.tick()
+                torch.cuda.synchronize()
+                if 2 <= k <= 18:
+                    walls.append((time.perf_counter() - t0) * 1e3)
+            eng.run()
+        st = eng.stats()
+        out[f"{name}_tick_ms_median"] = statistics.median(walls)
+        out[f"{name}_fn_ms_mean"] = 1e3 * st["tick_wall_s"] / st["ticks"]
+        if name.startswith("dlm"):
+            out.update(_tick_fn_vs_bare(eng, name, dlm_shape))
+    print(json.dumps(out))
+
+
+def _tick_fn_vs_bare(eng, name, shape):
+    """With every slot of ``eng`` busy: the host ms (median of 200, each
+    call synchronised, the two alternated and their order swapped every
+    round) of the engine's tick function and of the bare step it wraps on
+    the same tensors (``megastep_rows`` for a mega engine,
+    ``slot_tile_step`` else): their difference is what the engine's state
+    handling costs a tick."""
+    from repro_torch.core.sampler import slot_tile_step
+    from repro_torch.kernels import megastep as mega_ops
+    from repro_torch.kernels.sampler_step import ops as sops
+    from repro_torch.serving import SampleRequest
+    for i in range(eng.slots):
+        eng.submit(SampleRequest(request_id=9000 + i, S=500, seed=i))
+    eng.tick()
+    fn, states = eng._tick(False), eng._states()
+    x2s = eng._x2
+    x2 = x2s[0] if isinstance(x2s, list) else x2s
+
+    def bare():
+        if eng.use_mega:
+            return mega_ops.megastep_rows(
+                x2, eng.eps_fn.mega_spec, sops.expand_slot_coefs(
+                    states.coef_matrix(), eng._rps), states.t,
+                clip=eng.clip_x0)
+        return slot_tile_step(eng.eps_fn, x2, states, shape,
+                              clip_x0=eng.clip_x0)
+    walls = {"fn": [], "bare": []}
+    calls = {"fn": lambda: fn(x2s, eng._hist2, states, eng.eps_params),
+             "bare": bare}
+    for i in range(220):
+        for key in (("fn", "bare") if i % 2 else ("bare", "fn")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            calls[key]()
+            torch.cuda.synchronize()
+            if i >= 20:
+                walls[key].append((time.perf_counter() - t0) * 1e3)
+    fn_ms, bare_ms = (statistics.median(walls[k]) for k in ("fn", "bare"))
+    return {f"{name}_tick_fn_ms": fn_ms, f"{name}_bare_step_ms": bare_ms,
+            f"{name}_state_handling_ms": fn_ms - bare_ms}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4962,17 +5262,24 @@ def main(argv=None) -> int:
                     help="only build the kernels and run phase 14 (the six "
                          "examples, the roofline and shapes lines) on this "
                          "checkout")
+    ap.add_argument("--p15-probe", action="store_true",
+                    help="only build the kernels and run phase 15 (the "
+                         "mesh-sharded slot pools) on this checkout")
     ap.add_argument("--draw-probe", metavar="SRC", type=Path,
                     help="only time the x_T draw, serve and the U-Net "
                          "scheduler on SRC/repro_torch (phase 11's cost "
                          "against another checkout)")
+    ap.add_argument("--tick-probe", metavar="SRC", type=Path,
+                    help="only time the steady ticks of phases 4-9's "
+                         "unsharded engines on SRC/repro_torch (another "
+                         "checkout's src)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
     src = (args.launch_probe or args.lm_probe or args.draw_probe
-           or SRC).resolve()
+           or args.tick_probe or SRC).resolve()
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke: {src / 'repro_torch'} not found; run it from a "
               "checkout of the repository", file=sys.stderr)
@@ -4987,6 +5294,9 @@ def main(argv=None) -> int:
         return 0
     if args.draw_probe:
         draw_probe(smi, src)
+        return 0
+    if args.tick_probe:
+        tick_probe(smi, src)
         return 0
     from repro_torch.configs import LLAMA3_2_3B, SMOLLM_135M
     if args.lm_probe:
@@ -5006,6 +5316,10 @@ def main(argv=None) -> int:
         return 0
     if args.p14_probe:
         phase_14(smi)
+        print(f"[done] {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args.p15_probe:
+        phase_15(smi, _cifar10_model())
         print(f"[done] {time.perf_counter() - t0:.1f} s")
         return 0
     errs = phase_kernels()
@@ -5085,12 +5399,16 @@ def main(argv=None) -> int:
     # runs on quickstart's tile_resident check and interpolation's decode,
     # B2 on quickstart's rows check and every gateway_sse pool tick.
     b1_p14, b2_p14 = phase_14(smi)
+    # Phase 15 runs last, so that every rate above is timed as before.  B2
+    # runs once per data shard per pool tick of the mesh pools.
+    b2_p15 = phase_15(smi, model)
     recs = {r["name"]: r for r in kernels}
     recs["sampler_step_2d"]["launches"] += (b1_auto + b1_p11 + b1_p12
                                             + b1_p13 + b1_p14)
     recs["sampler_step_rows_2d"]["launches"] += (b2_auto + b2_p8 + b2_mega
                                                  + b2_gw + b2_chaos + b2_cli
-                                                 + b2_p11 + b2_p14)
+                                                 + b2_p11 + b2_p14
+                                                 + b2_p15)
     recs["megastep_rows_call"]["launches"] += b4_p8
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

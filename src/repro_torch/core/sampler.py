@@ -210,51 +210,80 @@ def step_table(schedule: NoiseSchedule, cfg: SamplerConfig):
     return cfg.to_plan(schedule).steps()
 
 
+def slot_tile_eps(eps_fn, x2: torch.Tensor, t: torch.Tensor, shape):
+    """The eps model on a (B * rows_per_slot, 256) slot-tile view, in that
+    layout.  eps models declaring ``slot_tile_aware = True`` receive (x2,
+    t (B,)); others see the natural (B, *shape) view through an adapter."""
+    from repro_torch.kernels.sampler_step import ops as tile_ops
+
+    if getattr(eps_fn, "slot_tile_aware", False):
+        return eps_fn(x2, t)
+    n = int(np.prod(shape))
+    x_nat = tile_ops.from_slot_tile_layout(x2, n,
+                                           (t.shape[0],) + tuple(shape))
+    return tile_ops.to_slot_tile_layout(eps_fn(x_nat, t))[0]
+
+
+def slot_row_inputs(states: StepStates, rps: int, stochastic: bool):
+    """Per-row inputs of the update: (R, 8) coefficients, (R,) seeds (None
+    when deterministic) and the (order, R, 1) Adams–Bashforth weight stack
+    (None without ``solver_w``).  Row r of each belongs to slot r // rps,
+    so a block of rows takes the same rows of each."""
+    from repro_torch.kernels.sampler_step import ops as tile_ops
+
+    row_coefs = tile_ops.expand_slot_coefs(states.coef_matrix(), rps)
+    row_seeds = (tile_ops.derive_row_seeds(states.seed, rps)
+                 if stochastic else None)
+    row_w = (states.solver_w.float().repeat_interleave(rps, dim=0).T[
+        :, :, None] if states.solver_w is not None else None)
+    return row_coefs, row_seeds, row_w
+
+
+def slot_rows_update(x2, eps2, row_coefs, row_seeds=None, *, hist2=None,
+                     row_w=None, clip_x0=None, stochastic: bool = False,
+                     want_x0: bool = False):
+    """The update of a block of slot-tile rows: each row's Adams–Bashforth
+    combination (with ``hist2``, the (max_order-1, R, 256) float32 stack
+    of previous evaluations, newest first, and ``row_w``) through
+    ``solver.mix_history``, then one ``sampler_step_rows_2d`` launch.
+    Returns (step_out, new_hist2 or None)."""
+    from repro_torch.kernels.sampler_step import ops as tile_ops
+
+    new_hist2 = None
+    if hist2 is not None:
+        eps2, new_hist2 = solver.mix_history(eps2.float(), hist2, row_w,
+                                             row_w.shape[0])
+    out = tile_ops.sampler_step_rows(
+        x2, eps2.contiguous(), row_coefs, row_seeds, clip=clip_x0,
+        stochastic=stochastic, want_x0=want_x0)
+    return out, new_hist2
+
+
 def slot_tile_step(eps_fn, x2: torch.Tensor, states: StepStates, shape, *,
                    hist2: Optional[torch.Tensor] = None, clip_x0=None,
                    stochastic: bool = False, want_x0: bool = False,
                    want_eps: bool = False):
     """One scheduler tick over the (B * rows_per_slot, 256) slot-tile view.
 
-    eps models declaring ``slot_tile_aware = True`` receive (x2, t (B,));
-    others see the natural (B, *shape) view through an adapter.  Multistep
-    engines pass ``hist2``, the (max_order-1, R, 256) float32 stack of
-    previous eps evaluations (newest first), and ``states.solver_w``: each
-    slot's effective eps is its own Adams–Bashforth combination, through
-    ``solver.mix_history`` with an (order, R, 1) per-row weight stack.
-    The update is one ``sampler_step_rows_2d`` launch.  Returns the
-    advanced view (plus the x0 preview when ``want_x0``); with ``hist2``
-    ``(step_out, new_hist2)``.  ``want_eps`` also appends the RAW eps
-    evaluation (before the Adams–Bashforth mix) in tile layout, for the
-    engine's probed tick: ``(step_out, eps)`` or
-    ``(step_out, new_hist2, eps)``.
+    The eps model through ``slot_tile_eps``, then ``slot_rows_update``.
+    Multistep engines pass ``hist2``, the (max_order-1, R, 256) float32
+    stack of previous eps evaluations (newest first), and
+    ``states.solver_w``: each slot's effective eps is its own
+    Adams–Bashforth combination.  The update is one
+    ``sampler_step_rows_2d`` launch.  Returns the advanced view (plus the
+    x0 preview when ``want_x0``); with ``hist2`` ``(step_out,
+    new_hist2)``.  ``want_eps`` also appends the RAW eps evaluation
+    (before the Adams–Bashforth mix) in tile layout, for the engine's
+    probed tick: ``(step_out, eps)`` or ``(step_out, new_hist2, eps)``.
     """
-    from repro_torch.kernels.sampler_step import ops as tile_ops
-
-    B = states.t.shape[0]
-    rps = x2.shape[0] // B
+    rps = x2.shape[0] // states.t.shape[0]
     with torch.no_grad():
-        if getattr(eps_fn, "slot_tile_aware", False):
-            eps2 = eps_fn(x2, states.t)
-        else:
-            n = int(np.prod(shape))
-            x_nat = tile_ops.from_slot_tile_layout(x2, n,
-                                                   (B,) + tuple(shape))
-            eps2, _ = tile_ops.to_slot_tile_layout(eps_fn(x_nat, states.t))
-        eps_raw2 = eps2
-        new_hist2 = None
-        if hist2 is not None:
-            order = states.solver_w.shape[1]
-            w_stack = states.solver_w.float().repeat_interleave(
-                rps, dim=0).T[:, :, None]
-            eps2, new_hist2 = solver.mix_history(eps2.float(), hist2,
-                                                 w_stack, order)
-        row_coefs = tile_ops.expand_slot_coefs(states.coef_matrix(), rps)
-        row_seeds = (tile_ops.derive_row_seeds(states.seed, rps)
-                     if stochastic else None)
-        out = tile_ops.sampler_step_rows(
-            x2, eps2.contiguous(), row_coefs, row_seeds, clip=clip_x0,
-            stochastic=stochastic, want_x0=want_x0)
+        eps_raw2 = slot_tile_eps(eps_fn, x2, states.t, shape)
+        row_coefs, row_seeds, row_w = slot_row_inputs(states, rps,
+                                                      stochastic)
+        out, new_hist2 = slot_rows_update(
+            x2, eps_raw2, row_coefs, row_seeds, hist2=hist2, row_w=row_w,
+            clip_x0=clip_x0, stochastic=stochastic, want_x0=want_x0)
     ret = (out, new_hist2) if hist2 is not None else (out,)
     if want_eps:
         ret += (eps_raw2,)

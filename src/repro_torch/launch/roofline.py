@@ -30,9 +30,9 @@ before a product) are counted: the card moves those bytes.  It runs on
 meta tensors, so a full-size combo is counted on any host without
 memory.
 
-The collective term is 0: one card has no collectives.  JAX's HLO
-collective parser (``collective_bytes``) needs a second GPU and is not
-ported.
+The collective term is 0 here.  JAX's collective term
+(``collective_bytes``, its HLO collective parser) and a mesh's terms are
+not ported yet; they build on ``launch/mesh.py`` and ``sharding/``.
 
 Hardware constants (NVIDIA H100 SXM data sheet, dense, at 700 W): HBM
 3.35e12 B/s; float32 outside the tensor cores 67e12, TF32 495e12 and
@@ -197,7 +197,7 @@ def analyze(counts: Dict, model_flops: Optional[float] = None,
     """Roofline terms of ``count``'s result on one H100, with JAX's
     arithmetic (``n_chips=1``) and its ``max``-term bottleneck; the compute
     peak is that of ``dtype``'s products (the port's float32 runs without
-    tensor cores).  A mesh's terms need a second GPU and are not ported."""
+    tensor cores).  A mesh's terms are not ported yet."""
     flops = float(counts["flops"])
     byts = float(counts["traffic_bytes"])
     compute_s = flops / peak_flops(dtype)

@@ -38,8 +38,11 @@ Weights: the U-Net init of ``--seed`` (threefry: the JAX init's numbers
 for the same seed), or ``--ckpt``, a
 ``training/checkpoint.py`` file with a JAX-layout ``{"params", "ema"}``
 U-Net tree (saved by either package), carried into the port through
-``repro_torch.interop``.  ``--pools`` runs every pool on the one device
-(no meshes).
+``repro_torch.interop``.  ``--pools N`` gives each pool its own
+("data", "model") mesh of CUDA cards (``launch.mesh.make_fleet_mesh``)
+when there are at least 2N of them and N divides their count, as the JAX
+package does with its devices; else (one card) every pool runs on the one
+device.
 
 ``--arch <id>`` other than ``unet`` serves that architecture through
 ``serving.ARGenerator`` (``--smoke``: its reduced variant): every id of
@@ -311,7 +314,7 @@ def serve_unet(args):
                            batch_size=args.batch, plan_bank=bank,
                            device=device)
     if args.scheduler:
-        return serve_unet_continuous(args, svc)
+        return serve_unet_continuous(args, svc, model)
     if bank is not None:
         # budget-bounded bank row: the best searched trajectory <= --S NFE
         plan = svc.bank_plan(max_nfe=args.S)
@@ -334,7 +337,7 @@ def serve_unet(args):
         print(f"saved -> {args.out}")
 
 
-def serve_unet_continuous(args, svc: DiffusionSampler):
+def serve_unet_continuous(args, svc: DiffusionSampler, model: unet.UNet):
     """Mixed-PLAN request stream through the continuous-batching scheduler.
 
     Each request carries its own frozen SamplerPlan: the S mix cycles,
@@ -366,7 +369,7 @@ def serve_unet_continuous(args, svc: DiffusionSampler):
                   f"clip_x0={clip_x0} rows")
     schedule = svc.schedule
     if args.pools > 1:
-        return serve_unet_fleet(args, svc, stochastic=stochastic,
+        return serve_unet_fleet(args, svc, model, stochastic=stochastic,
                                 max_order=max_order, clip_x0=clip_x0)
     obs, trace_path = _make_obs(args)
     flight = None
@@ -439,28 +442,55 @@ def serve_unet_continuous(args, svc: DiffusionSampler):
     _finish_replay(results, eng, obs, trace_path, args)
 
 
-def serve_unet_fleet(args, svc: DiffusionSampler, *, stochastic,
-                     max_order, clip_x0):
+def pool_meshes(pools: int, device: torch.device):
+    """Per-pool meshes by the JAX package's rule: disjoint ("data",
+    "model") meshes of the CUDA cards (``make_fleet_mesh(pools)``) when
+    there are at least two a pool and ``pools`` divides their count, else
+    None (every pool on ``device``)."""
+    n_dev = torch.cuda.device_count() if device.type == "cuda" else 0
+    if n_dev >= 2 * pools and n_dev % pools == 0:
+        from repro_torch.launch.mesh import make_fleet_mesh
+        return make_fleet_mesh(pools)
+    return None
+
+
+def _mesh_eps(model: unet.UNet):
+    """Pool factory: the U-Net's weights placed on each pool's mesh
+    (``sharded_eps_from_apply``)."""
+    from torch.func import functional_call
+    from repro_torch.serving.fleet import sharded_eps_from_apply
+
+    def apply(p, x, t):
+        with torch.no_grad():
+            return functional_call(model, p, (x, t))
+    return lambda pool_id, mesh: sharded_eps_from_apply(mesh, _state(model),
+                                                        apply)
+
+
+def serve_unet_fleet(args, svc: DiffusionSampler, model: unet.UNet, *,
+                     stochastic, max_order, clip_x0):
     """--pools N: the mixed-S stream through a slot-pool fleet.
 
     N continuous-batching pools behind the global EDF queue with
-    least-loaded dispatch (serving/fleet), all on the service's one
-    device (the JAX package's per-pool meshes are not ported). Requests
-    cycle an affinity key to exercise sticky routing; per-pool stats
-    print at the end.
+    least-loaded dispatch (serving/fleet).  With ``pool_meshes`` each pool
+    gets its own mesh and the U-Net's weights placed there
+    (``sharded_eps_from_apply``); else all pools share the service's
+    device.  Requests cycle an affinity key to exercise sticky routing;
+    per-pool stats print at the end.
     """
     from repro_torch.serving.fleet import PoolFleet
 
     s_mix = [int(s) for s in args.s_mix.split(",")]
+    meshes = pool_meshes(args.pools, svc.device)
     obs, trace_path = _make_obs(args)
     fleet = PoolFleet.build(
-        svc.schedule, svc.eps_fn,
+        svc.schedule, svc.eps_fn if meshes is None else _mesh_eps(model),
         (args.image_size, args.image_size, 3), n_pools=args.pools,
-        slots=args.slots, dtype=svc.dtype,
+        slots=args.slots, meshes=meshes, dtype=svc.dtype,
         stochastic=stochastic, max_order=max_order, clip_x0=clip_x0,
         plan_bank=svc.plan_bank, obs=obs,
         probes=args.probes or None, flight_dir=args.flight_dir,
-        device=svc.device)
+        device=svc.device if meshes is None else None)
     # warm every pool's tick before stamping latencies
     fleet.serve([SampleRequest(request_id=-1 - p, S=min(s_mix), seed=0)
                  for p in range(args.pools)], now=0.0)
@@ -522,7 +552,9 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--pools", type=int, default=1,
                     help="with --scheduler: serve through a fleet of N "
                     "slot pools (global EDF queue + least-loaded/affinity "
-                    "routing), all on the one device")
+                    "routing); each pool gets its own mesh of the cards "
+                    "when there are at least 2N and N divides their count, "
+                    "else all run on the one device")
     ap.add_argument("--s-mix", default="10,20,50",
                     help="comma list of per-request step budgets to cycle")
     ap.add_argument("--plan-bank", default=None,

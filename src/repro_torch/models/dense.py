@@ -31,6 +31,7 @@ from .attention import (decode_attend, decode_tables, gqa_forward,
                         init_kv_cache)
 from .common import (ArchConfig, KeyGen, dense_init, embed_init, rms_norm,
                      stack_layer_params, stacked, swiglu)
+from .runtime_flags import constrain_residual
 
 Params = Dict
 
@@ -155,7 +156,7 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     B, S, _ = h.shape
     positions = _positions(B, S, h.device)
     for layer in unstack_layers(params["layers"], cfg.n_layers):
-        h = layer_fwd(layer, cfg, h, positions)
+        h = constrain_residual(layer_fwd(layer, cfg, h, positions))
     return _logits(params, cfg, h)
 
 

@@ -30,6 +30,7 @@ from .common import (ArchConfig, KeyGen, dense_init, embed_init, rms_norm,
 from .dense import _embed, _positions, layer_params
 from .mamba2 import (init_mamba_params, init_mamba_state, mamba_decode_step,
                      mamba_forward, mamba_shapes)
+from .runtime_flags import constrain_residual
 
 Params = Dict
 
@@ -137,7 +138,7 @@ def _mamba_group_fwd(group: Dict, cfg: ArchConfig, h: torch.Tensor,
         y, nconv, nssm = mamba_forward(
             layer["mamba"], cfg, rms_norm(h, layer["norm"], cfg.norm_eps),
             conv_g[e], ssm_g[e])
-        h = h + y
+        h = constrain_residual(h + y)
         if write:
             conv_g[e].copy_(nconv)
             ssm_g[e].copy_(nssm)

@@ -37,7 +37,7 @@ from .attention import (decode_attend, decode_tables, gqa_forward,
 from .common import (ArchConfig, KeyGen, dense_init, embed_init, rms_norm,
                      stack_layer_params, stacked, swiglu)
 from .dense import layer_params, unstack_layers
-from .runtime_flags import FLAGS
+from .runtime_flags import FLAGS, constrain, constrain_residual
 
 Params = Dict
 MOE_GROUP = 512  # tokens per routing group (GShard's G axis)
@@ -102,7 +102,10 @@ def moe_ffn(block: Dict, cfg: ArchConfig, x: torch.Tensor
     xg = xt.reshape(G, group, d)
     C = _capacity(cfg, group)
     dispatch, combine, aux = route(block["router"], xg, cfg, C)
-    exp_in = torch.einsum("gsec,gsd->egcd", dispatch, xg)
+    dispatch = constrain(dispatch, FLAGS.dispatch_spec)
+    combine = constrain(combine, FLAGS.dispatch_spec)
+    exp_in = constrain(torch.einsum("gsec,gsd->egcd", dispatch, xg),
+                       FLAGS.exp_in_spec)
     h = torch.einsum("egcd,edf->egcf", exp_in, block["w_gate"])
     u = torch.einsum("egcd,edf->egcf", exp_in, block["w_up"])
     h = F.silu(h) * u
@@ -274,6 +277,7 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     for layer in unstack_layers(params["layers"], cfg.n_layers - 1):
         h, aux = _moe_mlp(layer, cfg, h + _attn_fwd(layer, cfg, h,
                                                      positions))
+        h = constrain_residual(h)
         auxes.append(aux)
     return _logits(params, cfg, h), torch.mean(torch.stack(auxes))
 

@@ -30,6 +30,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from .common import (ArchConfig, KeyGen, dense_init, embed_init, rms_norm,
                      stack_layer_params, stacked)
 from .dense import unstack_layers
+from .runtime_flags import constrain_residual
 
 Params = Dict
 LORA_R = 32          # decay / mix LoRA rank
@@ -217,7 +218,7 @@ def _run(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         h = h + a
         ln2 = rms_norm(h, layer["ln2"], cfg.norm_eps)
         b, _ = channel_mix(layer["cm"], cfg, ln2, state["cm_last"][i])
-        h = h + b
+        h = constrain_residual(h + b)
         if write:
             state["tm_last"][i].copy_(ln1[:, -1])
             state["cm_last"][i].copy_(ln2[:, -1])

@@ -1,9 +1,9 @@
 """Slot-pool fleet (port of ``repro.serving.fleet``): N continuous-batching
 slot pools behind a global EDF admission queue with affinity /
 least-loaded routing, graceful drain / refill, weight hot-swap on idle
-pools and aggregated stats.  On one card the pools share it; the demo
-trunk of ``sharded.py`` runs unsharded, and its mesh entry points raise
-``NotImplementedError`` (they need a second GPU)."""
+pools and aggregated stats.  ``sharded.py`` holds the demo trunk and the
+mesh-sharded eps wrappers; ``PoolFleet.build(meshes=)`` gives each pool
+its own ``launch.mesh`` mesh."""
 from .fleet import PoolFleet
 from .pool import PoolState, SlotPool
 from .router import AFFINITY_HEALTH_MIN, affinity_pool, pick_pool

@@ -17,8 +17,10 @@
 * **Aggregated stats** and one Prometheus snapshot over every registry.
 
 Pools must be capability-homogeneous (same schedule, shape, clip,
-stochasticity, max_order, dtype).  On one card the pools share it and
-tick in turn; mesh-sharded pools (JAX ``sharded.py``) are not ported.
+stochasticity, max_order, dtype).  Pools on one device share it and tick
+in turn; ``build(meshes=)`` gives pool i its own mesh (``launch/mesh.py``:
+``make_fleet_mesh`` splits the devices into disjoint pool meshes) and a
+factory eps places that pool's weights there (``sharded.py``).
 """
 from __future__ import annotations
 
@@ -88,34 +90,33 @@ class PoolFleet:
         """Build n_pools homogeneous pools over one model.
 
         ``eps_fn`` is a plain eps callable shared by every pool, or a
-        FACTORY ``f(pool_id, mesh) -> eps_fn`` (mesh is always None here).
+        FACTORY ``f(pool_id, mesh) -> eps_fn`` (the sharded-trunk path:
+        each pool places its weights on its own mesh — see
+        ``serving.fleet.sharded`` and ``launch.mesh.make_fleet_mesh``).
+        ``meshes`` gives pool i its mesh (None entries = unsharded).
         ``obs`` becomes the fleet's telemetry handle; each pool engine gets
         ``obs.child()`` (private registry, SHARED tracer).  ``engine_kw``
-        goes to every engine, ``device=`` included (default: the card).
-        With ``probes=`` each pool engine also gets its own
-        FlightRecorder (postmortems under ``flight_dir``, in memory only
-        when None).  ``meshes`` (sharded pools) is not ported: any mesh
-        raises.
+        goes to every engine, ``device=`` included (default: the card; a
+        mesh pool runs on its mesh's first device).  With ``probes=`` each
+        pool engine also gets its own FlightRecorder (postmortems under
+        ``flight_dir``, in memory only when None).
         """
         if meshes is not None and len(meshes) != n_pools:
             raise ValueError(f"got {len(meshes)} meshes for {n_pools} "
                              "pools")
-        if meshes is not None and any(m is not None for m in meshes):
-            raise NotImplementedError(
-                "mesh-sharded pools are not ported yet (JAX: "
-                "repro/serving/fleet/sharded.py)")
+        meshes = list(meshes) if meshes is not None else [None] * n_pools
         factory = _is_factory(eps_fn)
         obs = obs if obs is not None else Observability()
         probed = engine_kw.get("probes") not in (None, False)
         pools = []
         for pid in range(n_pools):
-            fn = eps_fn(pid, None) if factory else eps_fn
+            fn = eps_fn(pid, meshes[pid]) if factory else eps_fn
             flight = (FlightRecorder(flight_capacity, pool_id=pid,
                                      out_dir=flight_dir)
                       if probed else None)
             eng = ContinuousBatchingEngine(
-                schedule, fn, sample_shape, slots, pool_id=pid,
-                obs=obs.child(), flight=flight, **engine_kw)
+                schedule, fn, sample_shape, slots, mesh=meshes[pid],
+                pool_id=pid, obs=obs.child(), flight=flight, **engine_kw)
             pools.append(SlotPool(pid, eng))
         return cls(pools, max_queue=max_queue, obs=obs)
 

@@ -21,6 +21,17 @@ slot-tile layout on the engine's device for a request's whole residency;
 multistep engines also carry a (max_order-1, R, 256) float32 eps-history
 stack.  Writes into a slot's rows (admission, restore) are in place.
 
+Sharded pools (``mesh=``, a ``launch.mesh.Mesh``): the slot-tile state,
+the eps-history stack and the probe buffer split their ROWS over the
+mesh's data axes when the row count divides (JAX's rule; else they stay
+whole on the mesh's first device), each block on its data block's first
+device.  A tick evaluates eps per block where the eps model was built for
+the same mesh (``serving/fleet/sharded.py``: ``.apply_blocks``) and the
+blocks hold whole slots, else on the gathered state, and then launches
+``sampler_step_rows_2d`` once PER BLOCK on that block's device.  B2's
+noise is keyed on (row seed, lane), so a row's step does not depend on
+the block it sits in; a block may start mid-slot.
+
 Differences from the JAX engine:
   * x_T is ``prng.normal(PRNGKey(req.seed))``, JAX's draw, in float32 and
     then cast to the engine's dtype (JAX draws a bfloat16 engine's x_T in
@@ -29,8 +40,9 @@ Differences from the JAX engine:
     result, so the tick wall and its EWMA measure the same thing.  The
     per-tick slot states ship to the device in one host-to-device copy.
   * ``donate``, ``interpret`` and the TPU hardware PRNG are JAX-only and
-    dropped.  ``mesh`` (sharded pools) is not ported yet and raises
-    ``NotImplementedError`` naming its JAX module.
+    dropped.
+  * On a mesh each state block must hold a multiple of B2's 8-row
+    granule; a split that would not raises at construction.
   * JAX traces a tick program on its first call; here a tick function is
     built on its first call, and ``compiled_ticks`` counts those (one per
     variant run: the plain tick and, with ``probes=``, the probed one).
@@ -63,12 +75,14 @@ import numpy as np
 import torch
 
 from repro_torch import prng
-from repro_torch.core.sampler import StepStates, slot_tile_step
+from repro_torch.core.sampler import (StepStates, slot_row_inputs,
+                                      slot_rows_update, slot_tile_eps)
 from repro_torch.core.schedules import NoiseSchedule
 from repro_torch.core.solver import MAX_ORDER
 from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.kernels.sampler_step import ops as tile_ops
-from repro_torch.kernels.sampler_step.ref import GOLDEN, fmix32_u32
+from repro_torch.kernels.sampler_step.ref import (GOLDEN, SUBLANE,
+                                                  fmix32_u32)
 from repro_torch.obs import Observability
 from repro_torch.obs.probes import device_frame, normalize_probes
 from repro_torch.obs.profiling import annotate
@@ -98,6 +112,43 @@ def _flatten(tree, path=()):
         return [e for i, v in enumerate(tree)
                 for e in _flatten(v, path + (f"{kind}[{i}]",))]
     return [(path, tree)]
+
+
+def _mesh_home(mesh, device: DeviceLike) -> torch.device:
+    """A mesh engine's own device: the mesh's first device (data block 0,
+    model index 0), which ``device``, when given, must name."""
+    home = mesh.devices[mesh.data_model_grid()[0, 0]]
+    if device is not None:
+        d = torch.device(device)
+        if d.type != home.type or (d.index is not None
+                                   and home.index is not None
+                                   and d.index != home.index):
+            raise ValueError(f"device={d} but the mesh's first device is "
+                             f"{home}")
+    return resolve_device(home)
+
+
+def _state_blocks(mesh, rows: int):
+    """JAX's placement of the (rows, 256) slot state on a mesh: the rows
+    split over the data axes when they divide, else whole.  Returns the
+    ``NamedSharding`` and the row blocks [(lo, hi, device)], block i on
+    data block i's first device."""
+    from repro_torch.sharding import NamedSharding, P, data_axes
+    grid = mesh.data_model_grid()
+    dsize = grid.shape[0]
+    split = dsize > 1 and rows % dsize == 0
+    sharding = NamedSharding(mesh, P(data_axes(mesh) if split else None,
+                                     None))
+    n = dsize if split else 1
+    blk = rows // n
+    if blk % SUBLANE:
+        raise ValueError(
+            f"{rows} slot-tile rows over {n} data blocks gives {blk} rows a "
+            f"block, not a multiple of the step kernel's {SUBLANE}-row "
+            "granule: pick a slot count or data-axis size that keeps each "
+            "block a multiple of it")
+    return sharding, [(i * blk, (i + 1) * blk, mesh.devices[grid[i, 0]])
+                      for i in range(n)]
 
 
 @dataclasses.dataclass
@@ -189,8 +240,14 @@ class ContinuousBatchingEngine:
         with the mega tick.
       flight: an optional ``obs.FlightRecorder`` fed every probe frame
         and the slot -> request map.
-      device: where the engine runs; None is the CUDA card.
-      mesh: not ported yet (sharded pools); anything but None raises.
+      device: where the engine runs; None is the CUDA card (on a mesh:
+        the mesh's first device, which ``device`` must name if given).
+      mesh: a ``("data", "model")`` (or ``("pod", "data", "model")``)
+        ``launch.mesh.Mesh`` this pool's tick runs on; None = single
+        device.  The slot-tile state rows split over the data axes when
+        divisible; the eps model is expected to carry mesh-placed weights
+        (``serving/fleet/sharded.py``).  ``stats()`` reports the mesh
+        shape and whether the state is split.
     """
 
     def __init__(self, schedule: NoiseSchedule, eps_fn: Callable,
@@ -208,10 +265,6 @@ class ContinuousBatchingEngine:
                  obs: Optional[Observability] = None,
                  probes=None, flight=None,
                  device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh (sharded slot pools) is not ported yet (JAX: "
-                "repro/serving/fleet/sharded.py)")
         if not 1 <= max_order <= MAX_ORDER:
             raise ValueError(f"max_order must be in 1..{MAX_ORDER}, got "
                              f"{max_order}")
@@ -220,7 +273,9 @@ class ContinuousBatchingEngine:
         self.shape = tuple(sample_shape)
         self.slots = int(slots)
         self.dtype = dtype
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (resolve_device(device) if mesh is None
+                       else _mesh_home(mesh, device))
         self.stochastic = stochastic
         self.clip_x0 = clip_x0
         self.preview = preview
@@ -320,10 +375,21 @@ class ContinuousBatchingEngine:
         self._rps = tile_ops.slot_rows(self.shape)
         self._tile_c = tile_ops.TILE_C
         rows = self.slots * self._rps
-        self._x2 = torch.zeros((rows, self._tile_c), dtype=dtype,
-                               device=self.device)
-        self._hist2 = (torch.zeros((self.max_order - 1, rows, self._tile_c),
-                                   dtype=torch.float32, device=self.device)
+        self._state_sharding = None
+        # row blocks of the state, [(lo, hi, device)]; one whole block off
+        # a mesh.  The state, the eps history and the probe buffer are
+        # lists of these blocks.
+        self._blocks = [(0, rows, self.device)]
+        if mesh is not None:
+            self._state_sharding, self._blocks = _state_blocks(
+                mesh, rows)
+        # every device a tick may queue work on (the tick wall waits for
+        # all of them)
+        self._devices = ([self.device] if mesh is None else
+                         list(dict.fromkeys(mesh.devices.ravel())))
+        self._x2 = self._alloc((rows, self._tile_c), dtype)
+        self._hist2 = (self._alloc((self.max_order - 1, rows, self._tile_c),
+                                   torch.float32, dim=1)
                        if self.max_order > 1 else None)
         self._slots: List[Optional[_Slot]] = [None] * self.slots
         self._free: List[int] = list(range(self.slots))[::-1]
@@ -343,8 +409,7 @@ class ContinuousBatchingEngine:
         # engines (multistep engines read the pre-update newest history
         # row; see obs/probes.py on the one-eval proxy)
         self._probe_prev = (
-            torch.zeros((rows, self._tile_c), dtype=torch.float32,
-                        device=self.device)
+            self._alloc((rows, self._tile_c), torch.float32)
             if (self.probe_spec is not None and self.probe_spec.defect
                 and self.max_order == 1) else None)
         self._tick_fns: Dict[bool, Callable] = {}   # probed? -> tick
@@ -475,56 +540,133 @@ class ContinuousBatchingEngine:
         return fn
 
     def _make_tick(self, probed: bool):
-        """Plain tick: (x2, hist2, states, params) -> (x2, x0 preview or
+        """The tick over the state's row blocks (one block off a mesh).
+
+        Plain tick: (x2, hist2, states, params) -> (x2, x0 preview or
         None, hist2).  Probed tick: (x2, hist2, prev, states, params) ->
-        (x2, x0, hist2, frame, prev), the same step (the same
-        ``slot_tile_step`` call, returning the raw eps as well) plus the
-        (slots, 6) probe frame; ``prev`` is the order-1 defect buffer."""
-        shape, clip = self.shape, self.clip_x0
+        (x2, x0, hist2, frame, prev), the same step returning the raw eps
+        as well, plus the (slots, 6) probe frame; ``prev`` is the order-1
+        defect buffer.  Each state is a list of row blocks.  eps runs per
+        block where the eps model has ``apply_blocks`` for this mesh and
+        every block holds whole slots, else on the state gathered onto the
+        engine's device and cut back into blocks; then one
+        ``slot_rows_update`` (one B2 launch) per block on its device.  The
+        mega tick runs on the gathered state."""
+        shape, clip, rps, n = self.shape, self.clip_x0, self._rps, self._n
+        blocks, rows = self._blocks, self.slots * self._rps
+        nb = len(blocks)
+        per_block = (self.mesh is not None
+                     and nb == self.mesh.data_model_grid().shape[0]
+                     and self.slots % nb == 0)
+
+        def gather(arr, dim=0):
+            return None if arr is None else self._read_rows(arr, 0, rows,
+                                                            dim)
+
+        def scatter(x, dim=0):
+            return [x.narrow(dim, lo, hi - lo).to(dev)
+                    for lo, hi, dev in blocks]
 
         if self.use_mega:
             from repro_torch.kernels import megastep as mega_ops
-            spec, rps = self.eps_fn.mega_spec, self._rps
+            spec = self.eps_fn.mega_spec
 
-            def tick(x2, hist2, states, params):
+            def tick(x2b, hist2b, states, params):
                 row_coefs = tile_ops.expand_slot_coefs(
                     states.coef_matrix(), rps)
-                return (mega_ops.megastep_rows(x2, spec, row_coefs,
-                                               states.t, clip=clip),
-                        None, hist2)
+                return (scatter(mega_ops.megastep_rows(
+                    gather(x2b), spec, row_coefs, states.t, clip=clip)),
+                    None, hist2b)
             return tick
 
-        def step(x2, hist2, states, params, want_eps):
-            res = slot_tile_step(
-                self._bind_eps(params), x2, states, shape, hist2=hist2,
-                clip_x0=clip, stochastic=self.stochastic,
-                want_x0=self.preview, want_eps=want_eps)
-            if hist2 is None and not want_eps:
-                res = (res,)
-            x_new, x0 = res[0] if self.preview else (res[0], None)
-            return (x_new, x0, res[1] if hist2 is not None else None,
-                    res[-1] if want_eps else None)
+        def eps_blocks(eps_fn, x2b, t):
+            if (per_block and getattr(eps_fn, "mesh", None) == self.mesh
+                    and hasattr(eps_fn, "apply_blocks")
+                    and not getattr(eps_fn, "slot_tile_aware", False)):
+                k = self.slots // nb
+                xs = [tile_ops.from_slot_tile_layout(xb, n, (k,) + shape)
+                      for xb in x2b]
+                ts = [t[i * k:(i + 1) * k].to(dev)
+                      for i, (_, _, dev) in enumerate(blocks)]
+                return [tile_ops.to_slot_tile_layout(e)[0]
+                        for e in eps_fn.apply_blocks(xs, ts)]
+            return scatter(slot_tile_eps(eps_fn, gather(x2b), t, shape))
+
+        def step(x2b, hist2b, states, params, want_eps):
+            with torch.no_grad():
+                eps_b = eps_blocks(self._bind_eps(params), x2b, states.t)
+                row_coefs, row_seeds, row_w = slot_row_inputs(
+                    states, rps, self.stochastic)
+                outs, x0s, hists = [], [], []
+                for i, (lo, hi, dev) in enumerate(blocks):
+                    out, new_h = slot_rows_update(
+                        x2b[i], eps_b[i], row_coefs[lo:hi].to(dev),
+                        None if row_seeds is None
+                        else row_seeds[lo:hi].to(dev),
+                        hist2=None if hist2b is None else hist2b[i],
+                        row_w=None if row_w is None
+                        else row_w[:, lo:hi].to(dev),
+                        clip_x0=clip, stochastic=self.stochastic,
+                        want_x0=self.preview)
+                    if self.preview:
+                        out, x0 = out
+                        x0s.append(x0)
+                    outs.append(out)
+                    hists.append(new_h)
+            return (outs, x0s if self.preview else None,
+                    hists if hist2b is not None else None,
+                    eps_b if want_eps else None)
 
         if not probed:
-            def tick(x2, hist2, states, params):
-                return step(x2, hist2, states, params, False)[:3]
+            def tick(x2b, hist2b, states, params):
+                return step(x2b, hist2b, states, params, False)[:3]
             return tick
 
-        spec, rps, n = self.probe_spec, self._rps, self._n
+        spec = self.probe_spec
 
-        def tick(x2, hist2, prev, states, params):
+        def tick(x2b, hist2b, prevb, states, params):
             # hist2 is the PRE-update stack: row 0 is the previous tick's
             # raw eval, the defect proxy's reference on multistep engines
-            eps_prev = (prev if hist2 is None
-                        else hist2[0] if spec.defect else None)
-            x_new, x0, new_hist2, eps2 = step(x2, hist2, states, params,
-                                              True)
-            frame = device_frame(spec, x2, x_new, eps2, eps_prev, states,
-                                 rps=rps, n_live=n)
-            if prev is not None:
-                prev = eps2.to(torch.float32)
-            return x_new, x0, new_hist2, frame, prev
+            eps_prev = (gather(prevb) if hist2b is None
+                        else gather(hist2b, 1)[0] if spec.defect else None)
+            x_new, x0, new_hist2, eps_b = step(x2b, hist2b, states, params,
+                                               True)
+            frame = device_frame(spec, gather(x2b), gather(x_new),
+                                 gather(eps_b), eps_prev, states, rps=rps,
+                                 n_live=n)
+            if prevb is not None:
+                prevb = [e.to(torch.float32) for e in eps_b]
+            return x_new, x0, new_hist2, frame, prevb
         return tick
+
+    # --------------------------------------------------- state row blocks
+    def _alloc(self, shape, dtype: torch.dtype, dim: int = 0):
+        """A zero state of ``shape`` whose rows lie on ``dim``, as a list
+        of row blocks on their devices."""
+        out = []
+        for lo, hi, dev in self._blocks:
+            s = list(shape)
+            s[dim] = hi - lo
+            out.append(torch.zeros(s, dtype=dtype, device=dev))
+        return out
+
+    def _read_rows(self, arr, lo: int, hi: int, dim: int = 0):
+        """Rows [lo, hi) of a row-block list, gathered onto the engine's
+        device from the blocks that hold them (a view with one block)."""
+        parts = [blk.narrow(dim, max(lo, a) - a, min(hi, b) - max(lo, a))
+                 .to(self.device)
+                 for (a, b, _), blk in zip(self._blocks, arr)
+                 if a < hi and lo < b]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+    def _write_rows(self, arr, lo: int, hi: int, rows: torch.Tensor,
+                    dim: int = 0) -> None:
+        """Overwrite rows [lo, hi) of a row-block list in place."""
+        for (a, b, _), blk in zip(self._blocks, arr):
+            s, e = max(lo, a), min(hi, b)
+            if s < e:
+                blk.narrow(dim, s - a, e - s).copy_(
+                    rows.narrow(dim, s - lo, e - s))
 
     def set_probes(self, on: bool) -> None:
         """Pick which tick function runs: the probed or the plain one.
@@ -787,9 +929,9 @@ class ContinuousBatchingEngine:
             solver_w=(dev[:, 7:].view(torch.float32) if order > 1
                       else None))
 
-    def _slot_view(self, x2: torch.Tensor, b: int) -> torch.Tensor:
-        """Slot ``b``'s natural-shape sample from a slot-tile tensor."""
-        rows = x2[b * self._rps:(b + 1) * self._rps]
+    def _slot_view(self, x2: List[torch.Tensor], b: int) -> torch.Tensor:
+        """Slot ``b``'s natural-shape sample from a slot-tile state."""
+        rows = self._read_rows(x2, b * self._rps, (b + 1) * self._rps)
         return rows.reshape(-1)[:self._n].reshape(self.shape).clone()
 
     # --------------------------------------- checkpoint / migrate / cancel
@@ -814,10 +956,10 @@ class ContinuousBatchingEngine:
                 f"slot rows must be {(self._rps, self._tile_c)}, got "
                 f"{tuple(rows.shape)}")
         lo, hi = b * self._rps, (b + 1) * self._rps
-        self._x2[lo:hi] = rows
+        self._write_rows(self._x2, lo, hi, rows)
         if hist_rows is not None and self._hist2 is not None:
-            self._hist2[:, lo:hi] = torch.as_tensor(hist_rows).to(
-                device=self.device, dtype=torch.float32)
+            self._write_rows(self._hist2, lo, hi, torch.as_tensor(
+                hist_rows).to(device=self.device, dtype=torch.float32), 1)
 
     def snapshot_slot(self, b: int,
                       now: Optional[float] = None) -> SlotCheckpoint:
@@ -827,11 +969,12 @@ class ContinuousBatchingEngine:
         if slot is None:
             raise ValueError(f"slot {b} is not resident")
         lo, hi = b * self._rps, (b + 1) * self._rps
-        hist = (self._hist2[:, lo:hi].clone()
+        hist = (self._read_rows(self._hist2, lo, hi, 1).clone()
                 if self._hist2 is not None else None)
         return SlotCheckpoint(
             request_id=slot.req.request_id, k=slot.k,
-            x_rows=self._x2[lo:hi].clone(), hist_rows=hist,
+            x_rows=self._read_rows(self._x2, lo, hi).clone(),
+            hist_rows=hist,
             previews=slot.previews, pool_id=self.pool_id, taken_t=now)
 
     def snapshot_slots(self,
@@ -873,7 +1016,8 @@ class ContinuousBatchingEngine:
                 r.trace.emit("cancel", now)
         return bool(removed)
 
-    def _deliver_previews(self, x0_2: torch.Tensor, now: float) -> None:
+    def _deliver_previews(self, x0_2: List[torch.Tensor],
+                          now: float) -> None:
         for b, slot in enumerate(self._slots):
             if slot is None:
                 continue
@@ -981,7 +1125,8 @@ class ContinuousBatchingEngine:
             else:
                 self._x2, x0_2, self._hist2 = fn(self._x2, self._hist2,
                                                  states, self.eps_params)
-            synchronize(self.device)
+            for dev in self._devices:
+                synchronize(dev)
         t1 = time.perf_counter()
         self._c_wall.inc(t1 - t0)
         # EWMA per-step tick latency, the deadline-selection policy's
@@ -1084,8 +1229,9 @@ class ContinuousBatchingEngine:
         denom = max(self.ticks * self.slots, 1)
         return {
             "pool_id": self.pool_id,
-            "mesh": None,
-            "state_sharded": False,
+            "mesh": None if self.mesh is None else dict(self.mesh.shape),
+            "state_sharded": (self._state_sharding is not None
+                              and not self._state_sharding.is_replicated),
             "slots": self.slots,
             "active": self.active,
             "ticks": self.ticks,

@@ -338,11 +338,21 @@ def test_auto_plan_uses_destination_pool_ewma():
 
 
 def test_meshes_raise_and_build_defaults_to_the_card(monkeypatch):
+    """``meshes`` gives pool i its mesh (None = unsharded) and a factory
+    sees it; a wrong count raises as in JAX; the default device is the
+    card."""
+    from repro_torch.launch.mesh import make_host_mesh
     _, teps = _eps_pair()
-    with pytest.raises(NotImplementedError,
-                       match="repro/serving/fleet/sharded.py"):
-        PoolFleet.build(TSCH, teps, SHAPE, n_pools=2, slots=2,
-                        meshes=[None, object()], device="cpu")
+    mesh = make_host_mesh(devices=[torch.device("cpu")] * 2)
+    seen = []
+    mixed = PoolFleet.build(TSCH, lambda pool_id, mesh: seen.append(mesh)
+                            or teps, SHAPE, n_pools=2, slots=2,
+                            meshes=[None, mesh], device="cpu")
+    assert seen == [None, mesh]
+    assert [p.engine.stats()["mesh"] for p in mixed.pools] == [
+        None, {"data": 2, "model": 1}]
+    assert [p.engine.stats()["state_sharded"] for p in mixed.pools] == [
+        False, True]
     with pytest.raises(ValueError, match="meshes"):
         PoolFleet.build(TSCH, teps, SHAPE, n_pools=2, slots=2,
                         meshes=[None], device="cpu")

@@ -520,12 +520,28 @@ def test_continuous_and_engine_default_to_cuda(monkeypatch):
 
 
 def test_not_ported_arguments_raise():
-    """Sharded pools (the engine's ``mesh=``) wait for a second card."""
+    """The engine's ``mesh=`` (sharded pools) on a simulated (2, 1) CPU
+    mesh: the rows split over the data axis, x0 bitwise the unsharded
+    engine's (the step is per row); a device other than the mesh's
+    first, or a block off B2's 8-row granule, raises."""
+    from repro_torch.launch.mesh import make_host_mesh
     _, teps = _eps_pair(slot_aware=False)
-    with pytest.raises(NotImplementedError,
-                       match="repro/serving/fleet/sharded.py"):
-        ContinuousBatchingEngine(TSCH, teps, (16,), slots=2, device="cpu",
-                                 mesh=object())
+    cpu2 = [torch.device("cpu")] * 2
+    mesh = make_host_mesh(devices=cpu2)
+    eng = ContinuousBatchingEngine(TSCH, teps, (16,), slots=2, device="cpu",
+                                   mesh=mesh)
+    ref = ContinuousBatchingEngine(TSCH, teps, (16,), slots=2, device="cpu")
+    reqs = [SampleRequest(request_id=i, S=4, seed=i) for i in range(3)]
+    got = {r.request_id: r.x0 for r in eng.serve(reqs)}
+    assert all(torch.equal(got[r.request_id], r.x0) for r in ref.serve(reqs))
+    st = eng.stats()
+    assert st["mesh"] == {"data": 2, "model": 1} and st["state_sharded"]
+    with pytest.raises(ValueError, match="first device"):
+        ContinuousBatchingEngine(TSCH, teps, (16,), slots=2, mesh=mesh,
+                                 device="meta")
+    with pytest.raises(ValueError, match="8-row granule"):
+        ContinuousBatchingEngine(TSCH, teps, (16,), slots=3, device="cpu",
+                                 mesh=make_host_mesh(devices=cpu2 * 3))
 
 
 def test_request_refusals_carry_jax_codes():

@@ -1,4 +1,4 @@
-"""The fleet's demo trunk on one card (``repro_torch.serving.fleet.sharded``)
+"""The fleet's demo trunk (``repro_torch.serving.fleet.sharded``)
 against the JAX package's (``repro/serving/fleet/sharded.py``).
 
 Tolerances:
@@ -7,8 +7,8 @@ Tolerances:
   * ``trunk_apply`` / ``make_unsharded_eps``: within 4 float32 ulps of
     max(|eps|) on the same weights, x and t (tanh and the two products
     round differently in XLA and PyTorch).
-  * The mesh entry points raise ``NotImplementedError`` naming the second
-    GPU they need.
+  * The mesh entry points on a simulated (1, 2) CPU mesh: the same 4
+    ulps (``tests/test_torch_sharded_mesh.py`` holds them further).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -74,18 +74,39 @@ def test_trunk_apply_matches_jax(batch):
                                    "make_sharded_eps",
                                    "sharded_eps_from_apply"])
 def test_mesh_entry_points_need_a_second_gpu(entry):
-    params = make_trunk_params(make_schedule("linear", 10), DIM, HIDDEN,
-                               device="cpu")
-    x, t = torch.zeros(2, DIM), torch.ones(2, dtype=torch.int32)
-    calls = {
-        "trunk_apply_model_axis":
-            lambda: trunk_apply(params, x, t, model_axis="model"),
-        "make_sharded_eps": lambda: make_sharded_eps(None, params),
-        "sharded_eps_from_apply":
-            lambda: sharded_eps_from_apply(None, params, trunk_apply),
-    }
-    with pytest.raises(NotImplementedError, match="second GPU"):
-        calls[entry]()
+    """The mesh entry points on a simulated (1, 2) CPU mesh (no second
+    card): the model-axis partial products sum to JAX's apply within 4
+    float32 ulps of max(|eps|); both mesh wrappers equal it the same way,
+    with their weights placed by the rules."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import P
+    sch = make_schedule("linear", T)
+    params = make_trunk_params(sch, DIM, HIDDEN, seed=2, device="cpu")
+    j = j_make_trunk_params(j_make_schedule("linear", T), DIM, HIDDEN,
+                            seed=2)
+    rs = np.random.RandomState(5)
+    x = rs.randn(4, DIM).astype(np.float32)
+    tt = rs.randint(0, T + 1, size=4).astype(np.int32)
+    want = np.asarray(j_trunk_apply(j, jnp.asarray(x), jnp.asarray(tt)))
+    xt, t = torch.from_numpy(x), torch.from_numpy(tt)
+    mesh = make_host_mesh(model=2, devices=[torch.device("cpu")] * 2)
+    if entry == "trunk_apply_model_axis":
+        half = HIDDEN // 2
+        r = sum(trunk_apply({"trunk": {"wq": params["trunk"]["wq"][
+            :, k * half:(k + 1) * half], "wo": params["trunk"]["wo"][
+                k * half:(k + 1) * half]}}, xt, t, model_axis="model")
+            for k in range(2))
+        a = params["alpha_bar"][t.long()][:, None]
+        got = (xt * torch.sqrt(1 - a) / (1 - a + a * 0.25)
+               + 0.05 * torch.sqrt(1 - a) * params["trunk"]["time_w"] * r)
+    else:
+        eps = (make_sharded_eps(mesh, params) if entry == "make_sharded_eps"
+               else sharded_eps_from_apply(mesh, params, trunk_apply))
+        assert eps.mesh is mesh
+        assert eps.params["trunk"]["wo"].sharding.spec == P("model", None)
+        got = eps(xt, t)
+    tol = 4 * F32_ULP * max(float(np.abs(want).max()), 1.0)
+    assert np.abs(got.numpy() - want).max() <= tol
 
 
 def test_fleet_exports_the_demo_trunk():
