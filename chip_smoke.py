@@ -330,6 +330,21 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               after it; each path's steady tick wall is printed beside the
               unsharded one, labelled simulated (no scaling figure).
               --p15-probe runs only the build and this phase
+ 16. the dry run and the collective term, run last; no kernel launches:
+              (a) launch.dryrun --all --mesh both --no-count in process (80
+              records over the 16 x 16 and 2 x 16 x 16 production meshes,
+              meta tensors in bfloat16, no FAIL), each record's per-device
+              argument bytes against the card's memory; (c) the largest
+              record that fits 0.9 of the free memory allocated on the
+              card, one device's block of every argument leaf; (d) the
+              bytes a tick of phase 15's pools moves between mesh
+              positions and their NVLink time beside phase 15's tick, 0
+              on (1, 1).  --p16-probe runs only this phase (nothing
+              built), with (b): the roofline terms of smollm-135m's and
+              llama3.2-3b's four shapes, every other arch's decode_32k,
+              zamba2's prefill_32k (bfloat16 Mamba2) and rwkv6's
+              (extended from shorter lengths), counted on meta on the
+              host, with their seconds
 
 Every time is printed beside the card's name and power limit.  Any failure
 raises and the script exits nonzero with no result line.  On success the
@@ -4944,7 +4959,8 @@ def phase_15(smi, model):
     [cuda:0] * k (make_fleet_mesh(devices=)), within rtol / atol 1e-5,
     with JAX's stats; (c) the CIFAR10 U-Net in one engine on a simulated
     (2, 1) mesh through sharded_eps_from_apply.  B2 is zeroed before each
-    path and read after: ticks x data shards.  Returns B2 launches."""
+    path and read after: ticks x data shards.  Returns B2 launches and
+    each path's steady tick ms by (eps, mesh shape)."""
     from torch.func import functional_call
     from repro_torch.core.schedules import make_schedule
     from repro_torch.launch.mesh import make_fleet_mesh, make_host_mesh
@@ -4959,6 +4975,7 @@ def phase_15(smi, model):
     params = make_trunk_params(sch, P15_DIM, P15_HIDDEN, seed=0)
     card = torch.device("cuda", 0)
     n_b2 = 0
+    tick_ms = {}
 
     def shards(engine):
         return len(engine._blocks)
@@ -4994,6 +5011,7 @@ def phase_15(smi, model):
         bitwise = all(torch.equal(got[k], want[k]) for k in want)
         ms = _p15_tick_ms(lambda reqs: fleet.serve(reqs, now=0.0), fleet,
                           P15_N, 1000)
+        tick_ms[("trunk", tuple(meshes[0].devices.shape))] = ms
         pools = [(p["mesh"], p["state_sharded"], p["compiled_ticks"])
                  for p in st["pools"]]
         print(f"[p15] {smi} | {label}: {n_pools} pool(s) of "
@@ -5057,6 +5075,7 @@ def phase_15(smi, model):
         torch.cuda.synchronize()
         return 1e3 * e.stats()["tick_wall_s"] / max(e.ticks, 1)
     ms_mesh, ms_lone = unet_ms(eng), unet_ms(lone)
+    tick_ms[("unet", (2, 1))] = ms_mesh
     st = eng.stats()
     print(f"[p15] {smi} | (c) CIFAR10_UNET {P15_UNET_SLOTS} slots on a (2, "
           f"1) mesh (sharded_eps_from_apply), {len(reqs)} requests S="
@@ -5074,7 +5093,201 @@ def phase_15(smi, model):
           f"{SCHED_VS_EAGER_TOL:g} of max|x|")
     check(st["state_sharded"] and st["compiled_ticks"] == 1
           and st["mesh"] == {"data": 2, "model": 1}, f"(c): stats {st}")
-    return n_b2 + counts["B2"]
+    return n_b2 + counts["B2"], tick_ms
+
+
+P16_COUNTED = ([("smollm-135m", s) for s in ("train_4k", "prefill_32k",
+                                              "decode_32k", "long_500k")]
+               + [("llama3.2-3b", s) for s in ("train_4k", "prefill_32k",
+                                               "decode_32k", "long_500k")]
+               + [(a, "decode_32k") for a in (
+                   "mistral-large-123b", "zamba2-2.7b", "kimi-k2-1t-a32b",
+                   "rwkv6-7b", "seamless-m4t-large-v2", "deepseek-v2-236b",
+                   "deepseek-7b", "llava-next-mistral-7b")]
+               + [("zamba2-2.7b", "prefill_32k"), ("rwkv6-7b",
+                                                   "prefill_32k")])
+P16_FIT = 0.9                 # of the card's free memory
+
+
+def _p16_dryrun(smi):
+    """Phase 16 (a): the dry run over --all --mesh both --no-count, in
+    process: 80 records, no FAIL; each record's per-device argument bytes
+    against the card's memory.  Returns the records."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.launch import dryrun
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "dryrun.jsonl"
+        with contextlib.redirect_stdout(log):
+            rc = dryrun.main(["--all", "--mesh", "both", "--no-count",
+                              "--out", str(out)])
+        recs = [json.loads(ln) for ln in out.read_text().splitlines()]
+    secs = time.perf_counter() - t0
+    lines = log.getvalue().splitlines()
+    n_ok = sum(ln.startswith("OK ") for ln in lines)
+    fails = [ln for ln in lines if ln.startswith("FAIL")]
+    total = torch.cuda.get_device_properties(0).total_memory
+    for r in recs:
+        m = r["memory"]
+        arg = m["argument_size_in_bytes"]
+        print(f"[p16] {smi} | (a) {r['arch']} x {r['shape']} x {r['mesh']} "
+              f"({r['kind']}): per-device arguments {arg / 1e9:.3f} GB, "
+              f"outputs {m['output_size_in_bytes'] / 1e9:.3f} GB, "
+              f"{arg / total:.3f} of the card's {total / 1e9:.1f} GB")
+    print(f"[p16] {smi} | (a) dry run --all --mesh both --no-count: "
+          f"{n_ok} OK, {len(fails)} FAIL, exit {rc}, {secs:.1f} s")
+    check(rc == 0 and n_ok == 80 and not fails and len(recs) == 80,
+          f"(a): dry run exit {rc}, {n_ok} OK, fails {fails[:3]}")
+    return recs
+
+
+def _p16_counted(smi):
+    """Phase 16 (b): the roofline terms of a fixed subset, counted on meta
+    tensors over the (16, 16) mesh."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    for arch, sid in P16_COUNTED:
+        r = dryrun.run_combo(arch, sid, False)
+        t = r["roofline"]
+        at = r.get("counted_at")
+        print(f"[p16] {smi} | (b) {arch} x {sid} x 16x16 counted in "
+              f"{r['count_s']} s" + (f" (extended from lengths {at})"
+                                     if at else "")
+              + f": per device {t['flops']:.4e} flops, "
+              f"{t['bytes_accessed']:.4e} bytes, collectives "
+              f"{t['coll_bytes']:.4e} bytes ({t['coll_breakdown']['count']}"
+              f"); terms compute {t['compute_s']:.4e} s, memory "
+              f"{t['memory_s']:.4e} s, collective {t['collective_s']:.4e} s "
+              f"(NVLink {RL.NVLINK_BW / 1e9:.0f} GB/s, data sheet), "
+              f"bottleneck {t['bottleneck']}, useful "
+              f"{t['useful_ratio']:.4f}")
+        check(t["flops"] > 0 and t["bytes_accessed"] > 0
+              and all(math.isfinite(t[k]) for k in (
+                  "compute_s", "memory_s", "collective_s")),
+              f"(b) {arch} x {sid}: terms {t}")
+        check((at is not None) == (arch == "rwkv6-7b" and sid != "decode_32k"),
+              f"(b) {arch} x {sid}: counted_at {at}")
+    print(f"[p16] {smi} | (b) {len(P16_COUNTED)} combos counted in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def _p16_allocate(smi, recs):
+    """Phase 16 (c): the largest record that fits 90% of the card's free
+    memory, one device's block of every argument leaf allocated with
+    torch.empty on the card, then freed; records that do not fit are
+    printed with their size."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import shapes as shp
+    from repro_torch.launch.mesh import make_production_mesh
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0]
+
+    def tag(r):
+        return f"{r['arch']} x {r['shape']} x {r['mesh']}"
+    fits = []
+    for r in recs:
+        want = r["memory"]["argument_size_in_bytes"]
+        if want > P16_FIT * free:
+            print(f"[p16] {smi} | (c) {tag(r)}: {want / 1e9:.3f} GB does "
+                  f"not fit {P16_FIT:g} of the free {free / 1e9:.3f} GB")
+        else:
+            fits.append(r)
+    check(fits, "(c): no record fits the card")
+    r = max(fits, key=lambda r: r["memory"]["argument_size_in_bytes"])
+    mesh = make_production_mesh(multi_pod=r["mesh"] == "2x16x16")
+    blocks = dryrun.build(shp.resolve(configs.get(r["arch"]), r["shape"]),
+                          mesh).argument_blocks
+    t0 = time.perf_counter()
+    held = [torch.empty(shape, dtype=leaf.dtype, device=dev)
+            for leaf, shape in blocks]
+    torch.cuda.synchronize()
+    print(f"[p16] {smi} | (c) {tag(r)}, the largest of the {len(fits)} "
+          f"records that fit: {len(held)} blocks, "
+          f"{r['memory']['argument_size_in_bytes']:,} B allocated on the "
+          f"card in {time.perf_counter() - t0:.3f} s and freed")
+    del held
+    torch.cuda.empty_cache()
+
+
+def _p16_pools(smi, p15_ticks):
+    """Phase 16 (d): the per-tick bytes that phase 15's pools move between
+    mesh positions (launch.roofline.pool_collective_bytes, from the
+    engines' eps plans) and the NVLink time they imply, beside phase
+    15's measured tick where it ran."""
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.launch.mesh import make_fleet_mesh, make_host_mesh
+    from repro_torch.serving import ContinuousBatchingEngine
+    from repro_torch.serving.fleet import (make_sharded_eps,
+                                           make_trunk_params,
+                                           sharded_eps_from_apply)
+    sch = make_schedule("linear", 1000)
+    card = torch.device("cuda", 0)
+    params = make_trunk_params(sch, P15_DIM, P15_HIDDEN, seed=0)
+    # x (float32 rows of 512) and t (int32) of the pool's 4 slots
+    x1, t1 = P15_SLOTS * P15_DIM * 4, P15_SLOTS * 4
+    x2, t2 = x1 // 2, t1 // 2
+    paths = (  # label, mesh, engine eps, bytes by hand
+        ("(1, 1) mesh of the card", make_fleet_mesh(1, 1)[0], "trunk", {}),
+        ("(1, 2) pool mesh", make_fleet_mesh(2, 2, devices=[card] * 4)[0],
+         "trunk", {"collective-permute": x1 + t1, "all-reduce": x1}),
+        ("(2, 2) pool mesh", make_fleet_mesh(2, 2, devices=[card] * 8)[0],
+         "trunk", {"collective-permute": 2 * (x2 + t2),
+                   "all-reduce": 2 * x2}),
+        ("(c) CIFAR10_UNET (2, 1) mesh", make_host_mesh(
+            devices=[card] * 2), "unet", {}))
+    for label, mesh, style, hand in paths:
+        if style == "trunk":
+            eps = make_sharded_eps(mesh, params)
+            eng = ContinuousBatchingEngine(sch, eps, (P15_DIM,), P15_SLOTS,
+                                           mesh=mesh)
+        else:
+            eps = sharded_eps_from_apply(mesh, {"w": torch.ones(1)},
+                                         lambda p, x, t: x * p["w"])
+            eng = ContinuousBatchingEngine(sch, eps, CARD_SHAPE,
+                                           P15_UNET_SLOTS, mesh=mesh)
+        per_block = eng.eps_plan()["per_block"]
+        got = RL.pool_collective_bytes(eng)
+        total = sum(got[k] for k in RL.COLLECTIVES)
+        tick = (p15_ticks or {}).get((style,
+                                      tuple(mesh.devices.shape)))
+        kinds = {k: v for k, v in got.items() if v}
+        print(f"[p16] {smi} | (d) {label} ({style}, {eng.slots} slots, "
+              f"per-block eps {per_block}): per tick {kinds or 'nothing'}"
+              f", {total:,} B = {1e6 * total / RL.NVLINK_BW:.4f} us at "
+              f"NVLink {RL.NVLINK_BW / 1e9:.0f} GB/s (data sheet, not "
+              "measured), beside phase 15's steady tick "
+              + (f"{tick:.3f} ms (simulated)" if tick is not None
+                 else "(phase 15 not run)"))
+        want = {**{k: 0 for k in RL.COLLECTIVES}, **hand}
+        check(per_block and {k: got[k] for k in RL.COLLECTIVES} == want,
+              f"(d) {label}: {got}, want {want} (per-block {per_block})")
+        if label.startswith("(1, 1)"):
+            check(total == 0 and got["count"] == 0, f"(d) {label}: {got}")
+
+
+def phase_16(smi, p15_ticks=None, counted=False):
+    """Phase 16: the dry run and the collective term.  (a) the dry run
+    over every --arch x shape id x production mesh without the count: 80
+    records, per-device argument bytes against the card; (b) only where
+    ``counted``, the roofline terms of a fixed subset, counted on the
+    host; (c) the largest record that fits allocated on the card; (d) the
+    collective bytes of phase 15's pools a tick.  Launches none of the
+    seven kernels."""
+    t0 = time.perf_counter()
+    before = _all_counts()
+    recs = _p16_dryrun(smi)
+    if counted:
+        _p16_counted(smi)
+    _p16_allocate(smi, recs)
+    _p16_pools(smi, p15_ticks)
+    check(_all_counts() == before, f"phase 16 launched a kernel: "
+          f"{before} -> {_all_counts()}")
+    print(f"[p16] {smi} | phase 16: {time.perf_counter() - t0:.1f} s")
 
 
 def draw_probe(smi, src) -> None:
@@ -5265,6 +5478,11 @@ def main(argv=None) -> int:
     ap.add_argument("--p15-probe", action="store_true",
                     help="only build the kernels and run phase 15 (the "
                          "mesh-sharded slot pools) on this checkout")
+    ap.add_argument("--p16-probe", action="store_true",
+                    help="only run phase 16 (the dry run over the "
+                         "production meshes and the collective term; it "
+                         "launches no kernel, so nothing is built) on this "
+                         "checkout, with its counted subset (b)")
     ap.add_argument("--draw-probe", metavar="SRC", type=Path,
                     help="only time the x_T draw, serve and the U-Net "
                          "scheduler on SRC/repro_torch (phase 11's cost "
@@ -5302,6 +5520,10 @@ def main(argv=None) -> int:
     if args.lm_probe:
         phase_lm(smi, SMOLLM_135M, 64)
         phase_lm(smi, LLAMA3_2_3B, 128)
+        return 0
+    if args.p16_probe:
+        phase_16(smi, counted=True)
+        print(f"[done] {time.perf_counter() - t0:.1f} s")
         return 0
     from repro_torch import prng
     from repro_torch.configs import DLM_SMOLLM, DLM_SMOLLM_MEGA
@@ -5401,7 +5623,10 @@ def main(argv=None) -> int:
     b1_p14, b2_p14 = phase_14(smi)
     # Phase 15 runs last, so that every rate above is timed as before.  B2
     # runs once per data shard per pool tick of the mesh pools.
-    b2_p15 = phase_15(smi, model)
+    b2_p15, p15_ticks = phase_15(smi, model)
+    # Phase 16 runs last, so that every rate above is timed as before.  The
+    # dry run and the collective term launch none of the seven kernels.
+    phase_16(smi, p15_ticks)
     recs = {r["name"]: r for r in kernels}
     recs["sampler_step_2d"]["launches"] += (b1_auto + b1_p11 + b1_p12
                                             + b1_p13 + b1_p14)

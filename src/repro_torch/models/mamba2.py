@@ -25,6 +25,7 @@ steps that never form a (B, nc, L, L, H, P) tensor.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -113,12 +114,23 @@ def _causal_conv(seq: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(out + b), new_prev
 
 
+def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` with its operands promoted to their common type
+    first, as ``jnp.einsum`` promotes them: in bfloat16 the decays are
+    float32 (``A`` is), so a product of them with a bfloat16 operand runs
+    in float32.  Operands of one type pass through untouched."""
+    dt = functools.reduce(torch.promote_types, [o.dtype for o in ops])
+    return torch.einsum(eq, *(o.to(dt) for o in ops))
+
+
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
                 state0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD.  x: (Bt, S, H, P), dt: (Bt, S, H), A: (H,) negative,
     B / C: (Bt, S, N) (one group, broadcast over heads), state0:
-    (Bt, H, P, N).  Returns (y (Bt, S, H, P), final float32 state)."""
+    (Bt, H, P, N).  Returns (y (Bt, S, H, P), final float32 state); y is
+    in the operands' promoted type, float32 in bfloat16 since ``A`` is
+    float32, as JAX's is."""
     Bt, S, H, P = x.shape
     N = B.shape[-1]
     L = min(CHUNK, S)
@@ -153,13 +165,13 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     M = torch.exp(decay.masked_fill(~mask[None, None, :, :, None],
                                     float("-inf"))) * scores[..., None]
     # "bclmh,bcmh,bcmhp->bclhp": dt_j folds into M, then one product over m
-    y = torch.einsum("bclmh,bcmhp->bclhp", M * dtr[:, :, None], xr)
+    y = _einsum("bclmh,bcmhp->bclhp", M * dtr[:, :, None], xr)
     del M, decay
 
     # chunk summaries: S_c = sum_j exp(total - cum_j) dt_j x_j (x) B_j
     w_j = torch.exp(total[:, :, None] - cum) * dtr        # (Bt,nc,L,H)
-    chunk_states = torch.einsum("bclhp,bcln->bchpn", w_j[..., None] * xr,
-                                Br).float()
+    chunk_states = _einsum("bclhp,bcln->bchpn", w_j[..., None] * xr,
+                           Br).float()
 
     # inter-chunk carries; each chunk sees the state BEFORE it
     h = state0.float()
@@ -170,7 +182,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     h_before = torch.stack(before, dim=1)                # (Bt,nc,H,P,N)
 
     # inter-chunk contribution: y[i] += exp(cum_i) * C_i . H_{c-1}
-    y = y + torch.exp(cum)[..., None] * torch.einsum(
+    y = y + torch.exp(cum)[..., None] * _einsum(
         "bcln,bchpn->bclhp", Cr, h_before)
     y = y + D[None, None, :, None] * xr
     return y.reshape(Bt, S, H, P)[:, :S_in], h

@@ -19,8 +19,8 @@ Levers:
     the JAX package does and raises on an axis the mesh lacks; a sharding
     constraint never changes values, and eager PyTorch has no partitioner
     to hand it to, so the tensor comes back unchanged.  The JAX package's
-    ``launch/dryrun.py`` sets them over ``make_production_mesh``; in the
-    port only that dry run's counterpart is to set them.
+    ``launch/dryrun.py`` sets them over ``make_production_mesh``, and so
+    does the port's (``launch/dryrun.py --opt``).
 
 Not needed: ``decode_inplace``.  In JAX it chose the carried-cache decode
 over restacking each layer's cache; the port's decode always writes the

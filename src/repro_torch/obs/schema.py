@@ -62,8 +62,8 @@ FLEET_STATS_KEYS = frozenset({
     "tick_ewma_s", "pools",
 })
 
-# the gateway tier's stats() (JAX: serving/gateway/core.py, not ported
-# yet): front-door admission/overload/stream counters plus the wrapped
+# the gateway tier's stats() (serving/gateway/core.py, JAX's keys):
+# front-door admission/overload/stream counters plus the wrapped
 # fleet's stats dict; "resilience" is the pool supervisor's tree
 GATEWAY_STATS_KEYS = frozenset({
     "requests", "rejected", "shed", "expired",

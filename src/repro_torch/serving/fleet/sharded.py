@@ -121,12 +121,16 @@ class MeshEps:
     """An eps model on a mesh: ``eps(x, t)`` over the whole batch (split
     over the data axes by ``batch_spec``, each block's eps joined back on
     x's device), ``.mesh``, ``.apply_blocks(xs, ts)`` (the same function
-    over blocks already split and on their devices) and ``.params``, the
-    weights placed by the rules (a tree of ``ShardedTensor``), built by
-    ``place`` the first time it is read."""
+    over blocks already split and on their devices), ``.model_split``
+    (True where a block's work is split over the "model" axis: x and t go
+    to each (i, j) and the partials come back to (i, 0)) and ``.params``,
+    the weights placed by the rules (a tree of ``ShardedTensor``), built
+    by ``place`` the first time it is read."""
 
-    def __init__(self, mesh, apply_blocks: Callable, place: Callable):
+    def __init__(self, mesh, apply_blocks: Callable, place: Callable,
+                 model_split: bool):
         self.mesh = mesh
+        self.model_split = model_split
         self._grid = mesh.data_model_grid()
         self.apply_blocks = apply_blocks
         self._place = place
@@ -191,7 +195,7 @@ def make_sharded_eps(mesh, params) -> MeshEps:
             out.append(_finish(local[i][0], x, t, r))
         return out
 
-    return MeshEps(mesh, apply_blocks, lambda: placed)
+    return MeshEps(mesh, apply_blocks, lambda: placed, model_split=True)
 
 
 def sharded_eps_from_apply(mesh, params, apply_fn: Callable) -> MeshEps:
@@ -216,4 +220,5 @@ def sharded_eps_from_apply(mesh, params, apply_fn: Callable) -> MeshEps:
                 for i, (x, t) in enumerate(zip(xs, ts))]
 
     return MeshEps(mesh, apply_blocks,
-                   lambda: device_put(params, shard_params(params, mesh)))
+                   lambda: device_put(params, shard_params(params, mesh)),
+                   model_split=False)

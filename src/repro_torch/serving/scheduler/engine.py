@@ -383,6 +383,12 @@ class ContinuousBatchingEngine:
         if mesh is not None:
             self._state_sharding, self._blocks = _state_blocks(
                 mesh, rows)
+        # one state block per data block, each holding whole slots: a
+        # mesh eps can run on the blocks in place
+        self._whole_slot_blocks = (
+            mesh is not None
+            and len(self._blocks) == mesh.data_model_grid().shape[0]
+            and self.slots % len(self._blocks) == 0)
         # every device a tick may queue work on (the tick wall waits for
         # all of them)
         self._devices = ([self.device] if mesh is None else
@@ -493,6 +499,30 @@ class ContinuousBatchingEngine:
         bound.slot_tile_aware = getattr(raw, "slot_tile_aware", False)
         return bound
 
+    def _eps_on_blocks(self, eps_fn) -> bool:
+        """The tick's eps plan: True where eps runs per row block in place
+        (``apply_blocks`` of an eps built for this mesh, every block
+        holding whole slots), False where it runs on the state gathered
+        onto the engine's device."""
+        return (self._whole_slot_blocks
+                and getattr(eps_fn, "mesh", None) == self.mesh
+                and hasattr(eps_fn, "apply_blocks")
+                and not getattr(eps_fn, "slot_tile_aware", False))
+
+    def eps_plan(self) -> Dict:
+        """What a tick hands its eps, for counting what it moves
+        (``launch.roofline.pool_collective_bytes``): ``per_block`` (the
+        tick's plan above; False on the mega tick, which runs no eps
+        model), the eps model, the bytes of each of the state's row
+        blocks, and the dtypes of the state and of the t column."""
+        eps = self._bind_eps(self.eps_params)
+        return {"per_block": not self.use_mega and self._eps_on_blocks(eps),
+                "eps": None if self.use_mega else eps,
+                "block_bytes": [x.numel() * x.element_size()
+                                for x in self._x2],
+                "x_dtype": self._x2[0].dtype,
+                "t_dtype": self._states().t.dtype}
+
     def install_eps_params(self, new_params) -> None:
         """Hot-swap the model weights without building a new tick.
 
@@ -555,9 +585,6 @@ class ContinuousBatchingEngine:
         shape, clip, rps, n = self.shape, self.clip_x0, self._rps, self._n
         blocks, rows = self._blocks, self.slots * self._rps
         nb = len(blocks)
-        per_block = (self.mesh is not None
-                     and nb == self.mesh.data_model_grid().shape[0]
-                     and self.slots % nb == 0)
 
         def gather(arr, dim=0):
             return None if arr is None else self._read_rows(arr, 0, rows,
@@ -580,9 +607,7 @@ class ContinuousBatchingEngine:
             return tick
 
         def eps_blocks(eps_fn, x2b, t):
-            if (per_block and getattr(eps_fn, "mesh", None) == self.mesh
-                    and hasattr(eps_fn, "apply_blocks")
-                    and not getattr(eps_fn, "slot_tile_aware", False)):
+            if self._eps_on_blocks(eps_fn):
                 k = self.slots // nb
                 xs = [tile_ops.from_slot_tile_layout(xb, n, (k,) + shape)
                       for xb in x2b]

@@ -130,16 +130,21 @@ def _path_str(path) -> str:
 
 def tree_map_with_path(fn, tree, *rest, path=()):
     """``fn(path_str, leaf, *rest_leaves)`` over a nested dict / list /
-    tuple, keeping its structure (JAX's ``tree_map_with_path``)."""
+    tuple / NamedTuple (a field as ".name" in the path, JAX's
+    ``GetAttrKey``), keeping its structure (JAX's
+    ``tree_map_with_path``)."""
     if isinstance(tree, dict):
         return {k: tree_map_with_path(fn, v, *(r[k] for r in rest),
                                       path=path + (k,))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
+        names = ([f".{f}" for f in tree._fields]
+                 if hasattr(tree, "_fields") else range(len(tree)))
         out = [tree_map_with_path(fn, v, *(r[i] for r in rest),
-                                  path=path + (i,))
-               for i, v in enumerate(tree)]
-        return type(tree)(out)
+                                  path=path + (name,))
+               for i, (name, v) in enumerate(zip(names, tree))]
+        return type(tree)(*out) if hasattr(tree, "_fields") else \
+            type(tree)(out)
     return fn(_path_str(path), tree, *rest)
 
 

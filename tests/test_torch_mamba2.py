@@ -11,6 +11,18 @@ JAX's (the three-operand contractions and the cumsum sum in another
 order than XLA's); the causal conv 1e-6 of max|.| (the same four
 products and sums, SiLU by another library); the recurrence against the
 chunked forward 1e-5 of max|y| (two summation orders of one recurrence).
+
+In bfloat16, as JAX's dry run runs every combo: the smoke zamba2
+``forward``, ``prefill``, ``decode_step`` and every cache leaf within
+``BF16_TOL`` = 4e-2 of max|.| of JAX's (jitted) on the same bfloat16
+weights and tokens.  JAX's own bfloat16 forward lies 2.3e-2 of
+max|logits| from its float32 forward on those weights (XLA keeps excess
+precision between fused bfloat16 ops, eager PyTorch rounds after each
+op), so the two bfloat16 results differ by about that much (1.7e-2 to
+3.0e-2 here); the port's bfloat16 forward
+also stays within 1.25x JAX's distance from that float32 forward.  The
+mean train loss of one ``make_lm_train_step`` within 1e-3 relative of
+the loss JAX's step reports (its ``lm_loss_fn`` on the same weights).
 """
 import dataclasses
 
@@ -31,6 +43,9 @@ from _torch_lm import close, np_tree
 
 SSD_TOL = 1e-5
 CONV_TOL = 1e-6
+BF16_TOL = 4e-2
+BF16_VS_F32 = 1.25
+BF16_LOSS_RTOL = 1e-3
 
 
 def _ssd_inputs(seed, Bt, S, H, P, N, dt_scale):
@@ -208,3 +223,89 @@ def test_init_draws_are_jax_and_a_log_dt_bias_within_two_ulps():
     dt = torch.nn.functional.softplus(a["dt_bias"])
     assert float(dt.min()) >= 1e-3 * (1 - 1e-5)
     assert float(dt.max()) <= 0.1 * (1 + 1e-5)
+
+
+# --------------------------------------------------------------- bfloat16
+@pytest.fixture(scope="module")
+def bf16_pair():
+    """zamba2's smoke config, JAX's init drawn in bfloat16 and the same
+    bfloat16 weights in the port."""
+    from repro.models import registry as jregistry
+    from repro_torch import interop
+    from repro_torch.models import registry as tregistry
+    arch = "zamba2-2.7b"
+    jcfg, tcfg = jconfigs.get_smoke(arch), configs.get_smoke(arch)
+    japi, tapi = jregistry.get_api(jcfg), tregistry.get_api(tcfg)
+    jp = jax.jit(lambda k: japi.init_params(k, jcfg, dtype=jnp.bfloat16))(
+        jax.random.PRNGKey(0))
+    f32 = jax.tree.map(lambda a: np.asarray(a.astype(jnp.float32)), jp)
+    tp = jax.tree.map(lambda t: t.to(torch.bfloat16),
+                      interop.lm_params_from_jax(f32, tcfg))
+    return jcfg, tcfg, japi, tapi, jp, tp, f32
+
+
+def _f32(a):
+    return np.asarray(jnp.asarray(a).astype(jnp.float32)) if not isinstance(
+        a, torch.Tensor) else a.float().numpy()
+
+
+def _close_bf16(got, want):
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    close(_f32(got), _f32(want), BF16_TOL)
+
+
+def test_bf16_forward_matches_jax(bf16_pair):
+    jcfg, tcfg, japi, tapi, jp, tp, f32 = bf16_pair
+    toks = np.random.RandomState(1).randint(0, tcfg.vocab, (2, 11)).astype(
+        np.int32)
+    fwd = jax.jit(lambda p, x: japi.forward(p, jcfg, x)[0])
+    want = fwd(jp, jnp.asarray(toks))
+    got, _ = tapi.forward(tp, tcfg, torch.from_numpy(toks))
+    _close_bf16(got, want)
+    ref = np.asarray(fwd(jax.tree.map(jnp.asarray, f32), jnp.asarray(toks)))
+    jax_gap = np.abs(_f32(want) - ref).max()
+    assert np.abs(_f32(got) - ref).max() <= BF16_VS_F32 * jax_gap
+
+
+def test_bf16_prefill_and_decode_match_jax(bf16_pair):
+    jcfg, tcfg, japi, tapi, jp, tp, _ = bf16_pair
+    P, N = 6, 3
+    toks = np.random.RandomState(2).randint(0, tcfg.vocab,
+                                            (2, P + N)).astype(np.int32)
+    jc = japi.init_cache(jcfg, 2, P + N, jnp.bfloat16)
+    tc = tapi.init_cache(tcfg, 2, P + N, dtype=torch.bfloat16, device="cpu")
+    jl, jc = jax.jit(lambda p, x, c: japi.prefill(p, jcfg, x, c))(
+        jp, jnp.asarray(toks[:, :P]), jc)
+    tl, tc = tapi.prefill(tp, tcfg, torch.from_numpy(toks[:, :P]), tc)
+    _close_bf16(tl, jl)
+    decode = jax.jit(lambda p, x, c: japi.decode_step(p, jcfg, x, c))
+    for s in range(P, P + N):
+        jl, jc = decode(jp, jnp.asarray(toks[:, s:s + 1]), jc)
+        tl, tc = tapi.decode_step(tp, tcfg, torch.from_numpy(
+            toks[:, s:s + 1]), tc)
+        _close_bf16(tl, jl)
+    for k in jc:
+        if k != "idx":
+            _close_bf16(tc[k], jc[k])
+
+
+def test_bf16_train_loss_matches_jax(bf16_pair):
+    from repro.models import registry as jregistry
+    from repro.training import steps as jsteps
+    from repro_torch.training import optim as topt
+    from repro_torch.training import steps as tsteps
+    jcfg, tcfg, _, _, jp, tp, _ = bf16_pair
+    toks = np.random.RandomState(3).randint(0, tcfg.vocab, (4, 24)).astype(
+        np.int32)
+    opt = topt.AdamWConfig(lr=1e-3)
+    _, m = tsteps.make_lm_train_step(tcfg, opt)(
+        tsteps.init_train_state(tp, prng.PRNGKey(1, "cpu"), opt),
+        {"tokens": torch.from_numpy(toks)})
+    # the loss JAX's train step reports is its lm_loss_fn's on the
+    # params before the update (jitted alone: a quarter of the compile)
+    japi = jregistry.get_api(jcfg)
+    _, jm = jax.jit(lambda p, x: jsteps.lm_loss_fn(japi, jcfg, p, x, None))(
+        jp, jnp.asarray(toks))
+    want = float(jm["loss"])
+    assert np.isfinite(float(m["loss"]))
+    assert abs(float(m["loss"]) - want) <= BF16_LOSS_RTOL * abs(want)

@@ -11,6 +11,18 @@ scatter, an overwrite and an in-place update, op by op.
 ``hlo_analysis.aggregate``'s on the same forward (run with ``-s`` to read
 it); it is reported, not gated.
 
+Exact, the collective term: ``analyze`` with ``n_chips`` 1, 4 and 256,
+``links_per_chip`` 1 and 2 and a collective dict, against JAX's
+``analyze`` on the same numbers (its ``aggregate`` patched to return
+them, its rates set to the H100's, ``ICI_BW`` to ``NVLINK_BW``);
+``pool_collective_bytes`` of the fleet bench's demo trunk (state_dim 512,
+hidden 1024, 4 slots) on (1, 1), (1, 2) and (2, 2) CPU meshes and of a
+CIFAR10-shaped pool on (2, 1), of the same pool's engine on (1, 1) with
+the eps on (2, 1) (the eps cuts the batch), and of a plain eps on (2, 1)
+(the engine gathers its state), against bytes worked out by hand, with
+the engine's own eps plan.  ``count_per_device`` of a product whose
+weight one device holds half of, by hand.
+
 Bounded: a smoke dense decode step's bytes against the analytic traffic
 (every weight read once, the cache read once, one slot a layer written),
 which they exceed by the step's activations alone, under 10% of it (at
@@ -249,3 +261,131 @@ def test_count_vs_hlo_aggregate():
           f"bytes {c['traffic_bytes']} / {agg['traffic_bytes']:.0f} = "
           f"{c['traffic_bytes'] / agg['traffic_bytes']:.4f}")
     assert np.isfinite(ratio) and ratio > 0
+
+
+# ---------------------------------------------------- the collective term
+@pytest.mark.parametrize("n_chips", [1, 4, 256])
+@pytest.mark.parametrize("links", [1, 2])
+def test_analyze_with_collectives_is_jaxs(n_chips, links, monkeypatch):
+    kinds = dict(zip(j_hlo._COLLECTIVES,
+                     (301_989_888, 1_207_959_552, 0, 536_870_912, 8_208)))
+    agg = {"flops": 4.4e12, "traffic_bytes": 2.2e10, "coll_bytes": kinds,
+           "coll_bytes_total": sum(kinds.values()), "coll_count": 61}
+    monkeypatch.setattr(j_hlo, "aggregate", lambda text: agg)
+    monkeypatch.setattr(j_roofline, "PEAK_FLOPS_BF16",
+                        roofline.PEAK_FLOPS_BF16)
+    monkeypatch.setattr(j_roofline, "HBM_BW", roofline.HBM_BW)
+    monkeypatch.setattr(j_roofline, "ICI_BW", roofline.NVLINK_BW)
+    want = j_roofline.analyze(None, "", n_chips, model_flops=9.9e14,
+                              links_per_chip=links)
+    got = roofline.analyze(agg, n_chips, model_flops=9.9e14,
+                           links_per_chip=links, dtype=torch.bfloat16,
+                           coll={**kinds, "count": 61})
+    assert got.as_dict() == want.as_dict()
+    assert got.collective_s == sum(kinds.values()) / (450e9 * links)
+    assert roofline.COLLECTIVES == j_hlo._COLLECTIVES
+
+
+def test_analyze_defaults_are_one_card_without_collectives():
+    t = roofline.analyze({"flops": 1.0, "traffic_bytes": 2.0},
+                         model_flops=3.0)
+    assert (t.coll_bytes, t.collective_s, t.useful_ratio) == (0.0, 0.0, 3.0)
+    assert t.coll_breakdown == {**{k: 0 for k in j_hlo._COLLECTIVES},
+                                "count": 0}
+
+
+DIM, HIDDEN, SLOTS = 512, 1024, 4          # the fleet bench's demo trunk
+UNET_ELEMS = 32 * 32 * 3                  # a CIFAR10 sample
+
+
+def _pool_engine(mesh, apply_style, eps_mesh=None):
+    """The engine phase 15 builds on ``mesh`` (on the CPU): the demo trunk
+    through make_sharded_eps, a CIFAR10-shaped apply through
+    sharded_eps_from_apply (on ``eps_mesh``, ``mesh`` by default), or that
+    apply as a plain function."""
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.serving import ContinuousBatchingEngine
+    from repro_torch.serving.fleet import (make_sharded_eps,
+                                           make_trunk_params,
+                                           sharded_eps_from_apply)
+    sch = make_schedule("linear", 1000)
+    if apply_style == "trunk":
+        params = make_trunk_params(sch, DIM, HIDDEN, seed=0, device="cpu")
+        return ContinuousBatchingEngine(
+            sch, make_sharded_eps(mesh, params), (DIM,), SLOTS, mesh=mesh,
+            device="cpu")
+    eps = (sharded_eps_from_apply(eps_mesh or mesh, {"w": torch.ones(1)},
+                                  lambda p, x, t: x * p["w"])
+           if apply_style == "unet" else (lambda x, t: x * 1.0))
+    return ContinuousBatchingEngine(sch, eps, (32, 32, 3), SLOTS,
+                                    mesh=mesh, device="cpu")
+
+
+# x_i (k rows of 512 float32), t_i (k int32), per the hand counts below
+_X1, _T1 = 4 * DIM * 4, 4 * 4             # one data block of 4 rows
+_X2, _T2 = 2 * DIM * 4, 2 * 4             # two data blocks of 2 rows
+_U2, _UT2 = 2 * UNET_ELEMS * 4, 2 * 4
+# a CIFAR10 sample is 12 slot-tile rows of 256 float32, padded to the
+# step kernel's 8-row granule: 16; 2 slots a block
+_S2 = 2 * 16 * 256 * 4
+POOL_CASES = {
+    # engine (data, model), eps, eps (data, model), per-block plan:
+    # {kind: bytes}, count
+    "trunk (1, 1)": ((1, 1), "trunk", None, True, {}, 0),
+    # x and t to (0, 1); its partial back to (0, 0)
+    "trunk (1, 2)": ((1, 2), "trunk", None, True,
+                     {"collective-permute": _X1 + _T1, "all-reduce": _X1},
+                     3),
+    # per block i: x_i and t_i to (i, 1), its partial back to (i, 0)
+    "trunk (2, 2)": ((2, 2), "trunk", None, True,
+                     {"collective-permute": 2 * (_X2 + _T2),
+                      "all-reduce": 2 * _X2}, 6),
+    # blocks already on (i, 0), weights copied there at build: nothing
+    "unet (2, 1)": ((2, 1), "unet", None, True, {}, 0),
+    # an eps for another mesh: MeshEps(x, t) on the whole batch, x_1 and
+    # t_1 cut to (1, 0), eps_1 back
+    "unet (2, 1) whole call": ((1, 1), "unet", (2, 1), False,
+                               {"collective-permute": _U2 + _UT2,
+                                "all-gather": _U2}, 3),
+    # a plain eps: state block 1 gathered onto (0, 0), its eps cut back
+    "plain eps (2, 1)": ((2, 1), "plain", None, False,
+                         {"all-gather": _S2, "collective-permute": _S2}, 2),
+}
+
+
+@pytest.mark.parametrize("case", list(POOL_CASES))
+def test_pool_collective_bytes_by_hand(case):
+    from repro_torch.launch.mesh import make_host_mesh
+
+    def mesh_of(data, model):
+        return make_host_mesh(model, devices=[torch.device("cpu")]
+                              * (data * model))
+    (data, model), style, eps_dm, per_block, kinds, n = POOL_CASES[case]
+    eng = _pool_engine(mesh_of(data, model), style,
+                       eps_dm and mesh_of(*eps_dm))
+    assert eng.eps_plan()["per_block"] is per_block
+    want = {**{k: 0 for k in roofline.COLLECTIVES}, **kinds, "count": n}
+    assert roofline.pool_collective_bytes(eng) == want
+
+
+def test_count_per_device_by_hand():
+    """x (8, 16) @ w (16, 32) over 4 devices, w's block a half of it (split
+    over a model axis of 2): w's bytes at 1/2, x's and the product's at
+    1/4; a view of w (its transpose) counts as w; a tensor the step makes
+    is split."""
+    x = torch.empty(8, 16, device="meta")
+    w = torch.empty(16, 32, device="meta")
+    wb, xb, yb = 16 * 32 * 4, 8 * 16 * 4, 8 * 32 * 4
+    got = roofline.count_per_device(lambda x, w: x @ w, (x, w), 4,
+                                    [(w, wb // 2), (x, xb // 4)])
+    assert got["device_bytes"] == wb / 2 + xb / 4 + yb / 4
+    assert got["traffic_bytes"] == wb + xb + yb
+    got = roofline.count_per_device(lambda w: (w.t() * 2.0).sum(), (w,),
+                                    4, [(w, wb // 2)])
+    # mul reads w (a half) and writes a new (32, 16); sum reads it (split)
+    assert got["device_bytes"] == wb / 2 + wb / 4 + wb / 4 + 4 / 4
+    assert got["traffic_bytes"] == roofline.count(
+        lambda w: (w.t() * 2.0).sum(), w)["traffic_bytes"]
+    with pytest.raises(ValueError, match="share one storage"):
+        roofline.count_per_device(lambda w: w, (w,), 4,
+                                  [(w, wb), (w[1:], wb)])
