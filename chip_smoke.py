@@ -107,10 +107,12 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               MSE printed; 8 slerp points between two encodings decoded as
               one batch (B1 S times), whose ends must match the decodes of
               the two latents (1e-5 of max|x|);
-              DLM_SMOLLM_MEGA at (2, 128), eligible by the JAX rule but
-              past the CUDA megakernel's 64 tokens: generate returns tokens
-              through B1 (B3 0 times, run_mega.last_reason printed) and
-              'mega' equals 'tile_resident' within 1e-3;
+              DLM_SMOLLM_MEGA at 4 x 64 with a bfloat16 state and
+              weights, eligible by the JAX rule but past the CUDA
+              megakernel's float32 domain: plan.run 'mega' runs B1 S times
+              (B3 0 times, the reason printed) and equals 'tile_resident'
+              within 1e-3;
+              phase 17 (below);
               a torch.profiler breakdown of one decode;
               the launch floor: the sampler-step library's empty kernel,
               graph-replayed and per Python call, at 1 block and at every
@@ -345,6 +347,22 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               zamba2's prefill_32k (bfloat16 Mamba2) and rwkv6's
               (extended from shorter lengths), counted on meta on the
               host, with their seconds
+ 17. the megakernels over the TPU kernel's float32 domain, run in phase
+              6's place (after every rate of phase 5): every instantiation
+              (B3 / B4 x exact / flash x clip) at head dims 16 and 128
+              over 2 x 128 tokens, and B3 / B4 at DLM_SMOLLM_MEGA's 2 x 128
+              and 1 x 256 and the JAX package's bench trunk (head dim 32,
+              32 x 64), against the plain versions within 1e-4 of
+              max|state|; counted as in phase 4: generate and plan.run
+              'mega' (exact, flash) at each geometry (B3 ceil(S/K) = 3
+              times, B1 never, 'mega' within 1e-3 of 'tile_resident'),
+              and a 2-slot x 128-token scheduler (the engine's default
+              pick: B4 once per tick, B2 never, within 1e-3 of an unfused
+              engine); B3 (8 steps) at each geometry and B4 (one tick) at 2
+              x 128, exact and flash, timed beside the plain version, the
+              operations bound and the unfused path, which each must beat,
+              with phase traces.  --p17-probe runs only the build, the
+              bfloat16 fallback and this phase
 
 Every time is printed beside the card's name and power limit.  Any failure
 raises and the script exits nonzero with no result line.  On success the
@@ -376,7 +394,6 @@ BATCH = 8
 KERNEL_SOURCE = "src/repro_torch/kernels/sampler_step/csrc/sampler_step.cu"
 TPU_KERNEL = "src/repro/kernels/sampler_step/kernel.py"
 DLM_BATCH, DLM_SEQ, DLM_S, DLM_K = 4, 64, 20, 8
-MEGA_FALLBACK = (2, 128)       # (batch, seq_len) past the megakernel's limits
 ODE_S = (20, 50)               # encode / decode trajectory lengths
 ODE_VS_EAGER_TOL = 1e-5        # of max|x|, the U-Net tolerance on the card
 SLERP_POINTS = 8
@@ -1950,43 +1967,381 @@ def phase_main_dlm(params2, params30):
     return b3_launches
 
 
+def _to_dtype(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _to_dtype(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
 def phase_mega_fallback(smi, params2):
-    """(2, 128) over DLM_SMOLLM_MEGA: eligible by the JAX rule, but past
-    the CUDA megakernel's 64 tokens, so 'mega' runs the tile-resident loop
-    (B1 S times, B3 never) and returns what 'tile_resident' returns."""
-    from repro_torch import prng
+    """A bfloat16 state and weights over DLM_SMOLLM_MEGA at the slice's (4,
+    64): eligible by the JAX rule, but past the CUDA megakernel's float32
+    domain, so 'mega' runs the tile-resident loop (B1 S times, B3 never,
+    the reason named) and returns what 'tile_resident' returns."""
     from repro_torch.configs import DLM_SMOLLM_MEGA as cfg
+    from repro_torch.core import SamplerConfig
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.diffusion_lm import make_tile_eps_fn
+    from repro_torch.sampling import backends
+    batch, seq = DLM_BATCH, DLM_SEQ
+    plan = SamplerConfig(S=DLM_S).to_plan(make_schedule("linear", 1000))
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x_T = torch.randn(batch, seq, cfg.latent_dim, generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    eps = make_tile_eps_fn(_to_dtype(params2, torch.bfloat16), cfg, batch,
+                           seq)
+    _zero_counts()
+    got = plan.run(eps, x_T, backend="mega")
+    torch.cuda.synchronize()
+    counts, why = _counts(), backends.run_mega.last_reason
+    want = plan.run(eps, x_T, backend="tile_resident")
+    rel = float((got.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    print(f"[main] {smi} | plan.run mega {cfg.arch.name} (S={DLM_S}, batch "
+          f"{batch} x {seq} tokens, bfloat16 state and weights): "
+          f"run_mega.last_reason {why!r}; launches {counts}; vs "
+          f"tile_resident max|d|/max|x| = {rel:.3e} (tol 1e-3)")
+    check(counts == {"B1": DLM_S, "B2": 0, "B3": 0, "B4": 0}
+          and "bfloat16" in why, f"bfloat16 mega: launches {counts}, "
+          f"reason {why!r}")
+    check(got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+          and rel <= 1e-3, f"bfloat16 mega vs tile_resident: {rel} > 1e-3")
+
+
+# ------------------------------------------------------------------ phase 17
+# The megakernels over the TPU kernel's float32 domain: seq_len in 64-token
+# blocks and head dims 16 to 128.  (batch, seq_len) of DLM_SMOLLM_MEGA on
+# the main path, of its scheduler (slots, tokens), and of the JAX
+# package's bench trunk (benchmarks/sampler_overhead.py).
+P17_GEOMS = ((2, 128), (1, 256))
+P17_SLOTS = (2, 128)
+P17_BENCH = (32, 64)
+P17_SCHED_S = (10, 20)
+# name -> (ArchConfig fields, time_dim, init seed): JAX's bench trunk (head
+# dim 32) and trunks at head dims 16 and 128 (the JAX tests' d_model 64
+# with 4 / 2 heads; d_model 128 with one head)
+P17_TRUNKS = {
+    "bench-mega": (dict(d_model=64, n_heads=2, n_kv_heads=2, d_ff=128,
+                        vocab=64), 64, 7),
+    "hd16": (dict(d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab=50),
+             32, 0),
+    "hd128": (dict(d_model=128, n_heads=1, n_kv_heads=1, d_ff=256,
+                   vocab=50), 32, 0),
+}
+
+
+def _p17_trunk(name):
+    """(cfg, params on the card) of a P17_TRUNKS entry, 2 layers, latent
+    32, JAX's init for its seed."""
+    from repro_torch import prng
+    from repro_torch.diffusion_lm import DiffusionLMConfig, init_params
+    from repro_torch.models.common import ArchConfig
+    arch, time_dim, seed = P17_TRUNKS[name]
+    cfg = DiffusionLMConfig(arch=ArchConfig(name=name, family="dense",
+                                            n_layers=2, **arch),
+                            time_dim=time_dim, latent_dim=32)
+    return cfg, init_params(prng.PRNGKey(seed), cfg)
+
+
+def _p17_slot_rows(batch, clip):
+    """Phase 5's per-slot (t, coefficient rows) of the first ``batch``
+    slots, each at its own position of its own plan."""
+    ts, rows = _slot_states(clip)
+    return ts[:batch], rows[:batch]
+
+
+def phase_17_kernels(params2):
+    """Every megakernel instantiation (B3 / B4 x exact / flash x clip) at
+    head dims 16 and 128 over 2 x 128 tokens, and B3 / B4 at the new
+    geometries of DLM_SMOLLM_MEGA (head dim 64) and of the bench trunk
+    (head dim 32), each against its plain version within 1e-4 of
+    max|state|.  Returns the largest error of each kernel."""
+    from repro_torch.configs import DLM_SMOLLM_MEGA
+    from repro_torch.kernels.megastep import kernel as mk
+    from repro_torch.kernels.megastep import ref as mref
+    from repro_torch.kernels.sampler_step import ops as sops
+    gen = torch.Generator(device="cuda").manual_seed(1717)
+    errs = {"megastep_call": [], "megastep_rows_call": []}
+    coefs, ts = _plan_rows(DLM_S)
+    trunks = [(n, *_p17_trunk(n)) for n in ("hd16", "hd128")]
+    for name, cfg, params in trunks:
+        batch, seq = P17_SLOTS
+        n = batch * seq * cfg.latent_dim
+        x2 = torch.randn(n // 256, 256, generator=gen, device="cuda")
+        for impl in ("exact", "flash"):
+            for clip in (None, 1.0):
+                tag = f"{name} {batch}x{seq} {impl} clip={clip}"
+                args = (x2, params, cfg, batch, seq, coefs[:2], ts[:2])
+                got = mk.megastep_call(*args, clip=clip, attn_impl=impl)
+                _check_rel(errs["megastep_call"], f"B3 {tag} K=2", got,
+                           mref.megastep_ref(*args, clip=clip,
+                                             attn_impl=impl), 1e-4)
+                st, c = _p17_slot_rows(batch, clip)
+                args = (x2, params, cfg, batch, seq,
+                        sops.expand_slot_coefs(c, x2.shape[0] // batch), st)
+                got = mk.megastep_rows_call(*args, clip=clip, attn_impl=impl)
+                _check_rel(errs["megastep_rows_call"], f"B4 {tag}", got,
+                           mref.megastep_rows_ref(*args, clip=clip,
+                                                  attn_impl=impl), 1e-4)
+    bench_cfg, bench_params = _p17_trunk("bench-mega")
+    for name, cfg, params, (batch, seq) in (
+            [("smollm", DLM_SMOLLM_MEGA, params2, g) for g in P17_GEOMS]
+            + [("bench-mega", bench_cfg, bench_params, P17_BENCH)]):
+        n = batch * seq * cfg.latent_dim
+        x2 = torch.randn(n // 256, 256, generator=gen, device="cuda")
+        for impl in ("exact", "flash"):
+            args = (x2, params, cfg, batch, seq, coefs[:DLM_K], ts[:DLM_K])
+            got = mk.megastep_call(*args, attn_impl=impl)
+            _check_rel(errs["megastep_call"],
+                       f"B3 {name} {batch}x{seq} {impl} K={DLM_K}", got,
+                       mref.megastep_ref(*args, attn_impl=impl), 1e-4)
+            if (batch, seq) == P17_SLOTS and name == "smollm":
+                _check_repeat(f"B3 {name} {batch}x{seq} {impl}", got,
+                              mk.megastep_call(*args, attn_impl=impl))
+                st, c = _p17_slot_rows(batch, None)
+                args = (x2, params, cfg, batch, seq,
+                        sops.expand_slot_coefs(c, x2.shape[0] // batch), st)
+                _check_rel(errs["megastep_rows_call"],
+                           f"B4 {name} {batch}x{seq} {impl}",
+                           mk.megastep_rows_call(*args, attn_impl=impl),
+                           mref.megastep_rows_ref(*args, attn_impl=impl),
+                           1e-4)
+    torch.cuda.synchronize()
+    return {k: max(v) for k, v in errs.items()}, (bench_cfg, bench_params)
+
+
+def _p17_generate(smi, cfg, params, batch, seq):
+    """generate(tile_resident=True) and plan.run 'mega' (exact, flash)
+    against 'tile_resident' at (batch, seq), each counted: B3
+    ceil(S / K) times and B1 never on the mega runs.  Returns the B3
+    launches of the mega runs."""
+    from repro_torch import prng
     from repro_torch.core import SamplerConfig
     from repro_torch.core.schedules import make_schedule
     from repro_torch.diffusion_lm import generate, make_tile_eps_fn
     from repro_torch.sampling import backends
-    batch, seq = MEGA_FALLBACK
     sch, sampler = make_schedule("linear", 1000), SamplerConfig(S=DLM_S)
-    gen = torch.Generator(device="cuda").manual_seed(13)
+    want_b3 = math.ceil(DLM_S / DLM_K)
+    want = {"B1": 0, "B2": 0, "B3": want_b3, "B4": 0}
     _zero_counts()
-    tokens = generate(params2, cfg, sch, prng.PRNGKey(13), batch, seq,
+    tokens = generate(params, cfg, sch, prng.PRNGKey(17), batch, seq,
                       sampler, tile_resident=True)
     torch.cuda.synchronize()
     counts, why = _counts(), backends.run_mega.last_reason
-    print(f"[main] {smi} | generate {cfg.arch.name} (S={DLM_S}, batch "
-          f"{batch} x {seq} tokens, tile_resident=True): run_mega.last_reason "
-          f"{why!r}; launches {counts}; tokens {tuple(tokens.shape)}, first "
-          f"row {tokens[0, :8].tolist()}")
-    check(counts == {"B1": DLM_S, "B2": 0, "B3": 0, "B4": 0}
-          and "seq_len" in why, f"(2, 128) generate: launches {counts}, "
-          f"reason {why!r}")
-    check(tokens.shape == (batch, seq) and 0 <= int(tokens.min())
-          and int(tokens.max()) < cfg.arch.vocab, "(2, 128): bad tokens")
+    print(f"[p17] {smi} | generate {cfg.arch.name} (head dim "
+          f"{cfg.arch.hd()}, S={DLM_S}, batch {batch} x {seq} tokens, "
+          f"tile_resident=True): run_mega.last_reason {why!r}; launches "
+          f"{counts} (want {want}); tokens {tuple(tokens.shape)}, first row "
+          f"{tokens[0, :8].tolist()}")
+    check(counts == want and why == "ok", f"generate {cfg.arch.name} "
+          f"({batch}, {seq}): launches {counts}, reason {why!r}")
+    check(tokens.shape == (batch, seq) and tokens.dtype == torch.int32
+          and 0 <= int(tokens.min()) and int(tokens.max()) < cfg.arch.vocab,
+          f"generate {cfg.arch.name} ({batch}, {seq}): bad tokens")
+    b3 = counts["B3"]
+    gen = torch.Generator(device="cuda").manual_seed(18)
     x_T = torch.randn(batch, seq, cfg.latent_dim, generator=gen,
                       device="cuda")
-    eps = make_tile_eps_fn(params2, cfg, batch, seq)
+    eps = make_tile_eps_fn(params, cfg, batch, seq)
     plan = sampler.to_plan(sch)
-    got = plan.run(eps, x_T, backend="mega")
-    want = plan.run(eps, x_T, backend="tile_resident")
-    rel = float((got - want).abs().max() / want.abs().max())
-    print(f"[main] {smi} | plan.run mega vs tile_resident at ({batch}, "
-          f"{seq}): max|d|/max|x| = {rel:.3e} (tol 1e-3)")
-    check(rel <= 1e-3, f"(2, 128) mega vs tile_resident: {rel} > 1e-3")
+    ref = plan.run(eps, x_T, backend="tile_resident")
+    spec = eps.mega_spec
+    for impl in ("exact", "flash"):
+        eps.mega_spec = dataclasses.replace(spec, attn_impl=impl)
+        _zero_counts()
+        got = plan.run(eps, x_T, backend="mega")
+        torch.cuda.synchronize()
+        counts = _counts()
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        print(f"[p17] {smi} | plan.run mega ({impl}) vs tile_resident, "
+              f"{cfg.arch.name} {batch} x {seq}: max|d|/max|x| = {rel:.3e} "
+              f"(tol 1e-3); launches {counts}")
+        check(counts == want and backends.run_mega.last_reason == "ok"
+              and rel <= 1e-3, f"mega {impl} {cfg.arch.name} ({batch}, "
+              f"{seq}): launches {counts}, {rel} vs 1e-3")
+        b3 += counts["B3"]
+    eps.mega_spec = spec
+    return b3
+
+
+def _p17_sched(smi, params2):
+    """The scheduler over DLM_SMOLLM_MEGA with P17_SLOTS (slots, tokens):
+    the mega tick (the engine's default pick) launches B4 once per tick and
+    B2 never, against a use_mega=False engine within 1e-3 of max|x|."""
+    from repro_torch.configs import DLM_SMOLLM_MEGA as cfg
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.diffusion_lm import make_tile_eps_fn, round_to_tokens
+    from repro_torch.serving import ContinuousBatchingEngine, SampleRequest
+    slots, seq = P17_SLOTS
+    sch = make_schedule("linear", 1000)
+    eps = make_tile_eps_fn(params2, cfg, slots, seq)
+
+    def requests():
+        return [SampleRequest(request_id=i, S=P17_SCHED_S[i % 2],
+                              seed=300 + i) for i in range(2 * slots)]
+    mega = ContinuousBatchingEngine(sch, eps, (seq, cfg.latent_dim),
+                                    slots=slots)
+    plain = ContinuousBatchingEngine(sch, eps, (seq, cfg.latent_dim),
+                                     slots=slots, use_mega=False)
+    check(mega.tick_variant == "mega" and plain.tick_variant == "rows",
+          f"engine picks {mega.tick_variant} / {plain.tick_variant}")
+    _zero_counts()
+    res_m = mega.serve(requests())
+    torch.cuda.synchronize()
+    counts = _counts()
+    st = mega.stats()
+    _zero_counts()
+    res_p = plain.serve(requests())
+    torch.cuda.synchronize()
+    counts_p = _counts()
+    xm = torch.stack([r.x0 for r in sorted(res_m, key=lambda r: r.request_id)])
+    xp = torch.stack([r.x0 for r in sorted(res_p, key=lambda r: r.request_id)])
+    rel = float((xm - xp).abs().max() / xp.abs().max())
+    agree = float((round_to_tokens(params2, xm)
+                   == round_to_tokens(params2, xp)).float().mean())
+    print(f"[p17] {smi} | scheduler {cfg.arch.name} mega tick, {slots} slots "
+          f"x {seq} tokens, {2 * slots} requests S {P17_SCHED_S}: "
+          f"{st['ticks']} ticks, completed {st['completed']}, "
+          f"compiled_ticks {st['compiled_ticks']}; launches {counts}; "
+          f"unfused engine {counts_p}; vs unfused max|d|/max|x| = {rel:.3e} "
+          f"(tol 1e-3), token agreement {agree:.4f}")
+    check(counts == {"B1": 0, "B2": 0, "B3": 0, "B4": st["ticks"]}
+          and st["completed"] == 2 * slots and st["compiled_ticks"] == 1,
+          f"2 x 128 mega tick launches {counts}, want B4 == ticks "
+          f"{st['ticks']}")
+    check(counts_p["B2"] == plain.stats()["ticks"] and counts_p["B4"] == 0,
+          f"2 x 128 unfused tick launches {counts_p}")
+    check(rel <= 1e-3 and bool(torch.isfinite(xm).all()),
+          f"2 x 128 mega vs unfused tick: {rel} > 1e-3")
+    return counts["B4"]
+
+
+def phase_17_main(smi, params2, bench):
+    """The main paths at the new geometries, counted (phase 4's rules):
+    DLM_SMOLLM_MEGA at (2, 128) and (1, 256), the bench trunk at (32, 64),
+    the 2 x 128 scheduler.  Returns (B3, B4) launches."""
+    from repro_torch.configs import DLM_SMOLLM_MEGA
+    b3 = sum(_p17_generate(smi, DLM_SMOLLM_MEGA, params2, *g)
+             for g in P17_GEOMS)
+    b3 += _p17_generate(smi, *bench, *P17_BENCH)
+    return b3, _p17_sched(smi, params2)
+
+
+def phase_17_times(smi, params2, bench):
+    """B3 (8 steps) at each new geometry and B4 (one tick) at 2 x 128,
+    exact and flash, beside the plain version, the operations bound and
+    the unfused path of the same work, which each must beat; a phase trace
+    of B3 at each DLM_SMOLLM_MEGA geometry.  Returns the timed shapes of
+    each kernel."""
+    from repro_torch.configs import DLM_SMOLLM_MEGA
+    from repro_torch.core import StepStates, slot_tile_step
+    from repro_torch.diffusion_lm import make_tile_eps_fn
+    from repro_torch.kernels.megastep import kernel as mk
+    from repro_torch.kernels.megastep import ref as mref
+    from repro_torch.kernels.sampler_step import kernel as sk
+    from repro_torch.kernels.sampler_step import ops as sops
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1718)
+    shapes = {"megastep_call": [], "megastep_rows_call": []}
+    coefs, ts = _plan_rows(DLM_S)
+    c_host = coefs[:DLM_K].cpu().numpy()
+    for cfg, params, (batch, seq) in (
+            [(DLM_SMOLLM_MEGA, params2, g) for g in P17_GEOMS]
+            + [(*bench, P17_BENCH)]):
+        n = batch * seq * cfg.latent_dim
+        x2 = torch.randn(n // 256, 256, generator=gen, device=dev)
+        eps = make_tile_eps_fn(params, cfg, batch, seq)
+        n_bytes = (eps.mega_spec.weight_bytes() + 2 * n * 4
+                   + DLM_K * (5 * 4 + cfg.time_dim * 4)
+                   + seq * cfg.arch.hd() * 4)
+        b_ms, b_by = _bound(n_bytes, mega_ops(cfg, batch, seq, DLM_K))
+        args = (x2, params, cfg, batch, seq, coefs[:DLM_K], ts[:DLM_K])
+        timer, how = _mega_timer(lambda: mk.megastep_call(*args))
+        t_vecs = [torch.full((batch,), int(t), dtype=torch.int32, device=dev)
+                  for t in ts[:DLM_K].tolist()]
+
+        def unfused():
+            y = x2
+            for j in range(DLM_K):
+                y = sk.sampler_step_2d(y, eps(y, t_vecs[j]), c_host[j])
+            return y
+        tile_ms = timer(unfused, iters=3, reps=2)
+        for impl in ("exact", "flash"):
+            rec = dict(
+                ms=timer(lambda: mk.megastep_call(*args, attn_impl=impl),
+                         iters=3, reps=2),
+                plain_ms=timer(lambda: mref.megastep_ref(
+                    *args, attn_impl=impl), iters=3, reps=2),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                unfused_ms=tile_ms,
+                shape=f"{cfg.arch.name} (head dim {cfg.arch.hd()}) batch "
+                      f"{batch} x {seq}, K={DLM_K}, {impl}", timed_by=how,
+                **_plan_keys(mk.megastep_call.last_plan))
+            _time_line(smi, f"B3 megastep_call {rec['shape']}", rec)
+            print(f"[times] {smi} | unfused tile_resident, the same "
+                  f"{DLM_K} steps: {tile_ms * 1e3:.2f} us ({how}); B3 / "
+                  f"unfused = {rec['ms'] / tile_ms:.3f}")
+            check(rec["ms"] < tile_ms, f"B3 {rec['shape']}: "
+                  f"{rec['ms'] * 1e3:.1f} us is not below the unfused "
+                  f"{tile_ms * 1e3:.1f} us")
+            shapes["megastep_call"].append(rec)
+        if cfg is DLM_SMOLLM_MEGA:
+            _phase_trace(smi, f"B3 megastep_call {cfg.arch.name} {batch} x "
+                         f"{seq} K={DLM_K} exact", mk.megastep_call,
+                         lambda: mk.megastep_call(*args), DLM_K,
+                         cfg.arch.n_layers)
+
+    # B4: one tick of the 2 x 128 scheduler
+    cfg = DLM_SMOLLM_MEGA
+    batch, seq = P17_SLOTS
+    n = batch * seq * cfg.latent_dim
+    x2 = torch.randn(n // 256, 256, generator=gen, device=dev)
+    st, c = _p17_slot_rows(batch, None)
+    rows = sops.expand_slot_coefs(c, x2.shape[0] // batch)
+    eps = make_tile_eps_fn(params2, cfg, batch, seq)
+    n_bytes = (eps.mega_spec.weight_bytes() + 2 * n * 4 + rows.numel() * 4
+               + batch * (4 + cfg.time_dim * 4) + seq * cfg.arch.hd() * 4)
+    b_ms, b_by = _bound(n_bytes, mega_ops(cfg, batch, seq, 1) + 3 * n)
+    args = (x2, params2, cfg, batch, seq, rows, st)
+    timer, how = _mega_timer(lambda: mk.megastep_rows_call(*args))
+    states = StepStates(t=st, c_x0=c[:, 0], c_dir=c[:, 1], c_noise=c[:, 2],
+                        sqrt_a_t=c[:, 3], sqrt_1m_a_t=c[:, 4])
+    rows_ms = timer(lambda: slot_tile_step(eps, x2, states,
+                                           (seq, cfg.latent_dim)),
+                    iters=5, reps=2)
+    for impl in ("exact", "flash"):
+        rec = dict(
+            ms=timer(lambda: mk.megastep_rows_call(*args, attn_impl=impl),
+                     iters=5, reps=2),
+            plain_ms=timer(lambda: mref.megastep_rows_ref(
+                *args, attn_impl=impl), iters=5, reps=2),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            unfused_ms=rows_ms,
+            shape=f"{cfg.arch.name} {batch} slots x {seq}, one tick, {impl}",
+            timed_by=how, **_plan_keys(mk.megastep_rows_call.last_plan))
+        _time_line(smi, f"B4 megastep_rows_call {rec['shape']}", rec)
+        print(f"[times] {smi} | unfused rows tick at the same shape: "
+              f"{rows_ms * 1e3:.2f} us ({how}); B4 / unfused = "
+              f"{rec['ms'] / rows_ms:.3f}")
+        check(rec["ms"] < rows_ms, f"B4 {rec['shape']}: "
+              f"{rec['ms'] * 1e3:.1f} us is not below the unfused rows "
+              f"tick {rows_ms * 1e3:.1f} us")
+        shapes["megastep_rows_call"].append(rec)
+    _phase_trace(smi, f"B4 megastep_rows_call {cfg.arch.name} {batch} x "
+                 f"{seq} exact", mk.megastep_rows_call,
+                 lambda: mk.megastep_rows_call(*args), 1, cfg.arch.n_layers)
+    return shapes
+
+
+def phase_17(smi, params2):
+    """The checks, the counted main paths and the times of phase 17.
+    Returns ({kernel: max error}, {kernel: launches}, {kernel: shapes})."""
+    t0 = time.perf_counter()
+    errs, bench = phase_17_kernels(params2)
+    b3, b4 = phase_17_main(smi, params2, bench)
+    shapes = phase_17_times(smi, params2, bench)
+    print(f"[p17] phase 17: {time.perf_counter() - t0:.1f} s")
+    return errs, {"megastep_call": b3, "megastep_rows_call": b4}, shapes
 
 
 def phase_ops_path():
@@ -2591,11 +2946,11 @@ def _host_prep(smi, eng, label):
         ("sinusoid", lambda: sinusoidal_time_embedding(
             states.t, cfg.time_dim).contiguous()),
         ("RoPE table", lambda: rope_freqs(torch.arange(S, device=dev),
-                                          mk.KERNEL_HEAD_DIM,
+                                          cfg.arch.hd(),
                                           cfg.arch.rope_theta)),
         ("ctypes weight struct", lambda: mk._weights(params, cfg)),
         ("plan query", lambda: lib.repro_megastep_plan(
-            ctypes.byref(w), B, B, 1, eng.clip_x0 is not None,
+            ctypes.byref(w), B, S, B, 1, eng.clip_x0 is not None,
             spec.attn_impl == "flash", plan)),
         ("workspace + output alloc", lambda: (
             torch.empty(plan[0], device=dev), torch.empty_like(x2))),
@@ -5483,6 +5838,11 @@ def main(argv=None) -> int:
                          "production meshes and the collective term; it "
                          "launches no kernel, so nothing is built) on this "
                          "checkout, with its counted subset (b)")
+    ap.add_argument("--p17-probe", action="store_true",
+                    help="only build the kernels and run phase 17 (the "
+                         "megakernels at seq_len 128 / 256 and head dims "
+                         "16 to 128) and the bfloat16 fallback on this "
+                         "checkout")
     ap.add_argument("--draw-probe", metavar="SRC", type=Path,
                     help="only time the x_T draw, serve and the U-Net "
                          "scheduler on SRC/repro_torch (phase 11's cost "
@@ -5544,6 +5904,12 @@ def main(argv=None) -> int:
         phase_15(smi, _cifar10_model())
         print(f"[done] {time.perf_counter() - t0:.1f} s")
         return 0
+    if args.p17_probe:
+        params2 = _dlm_params(DLM_SMOLLM_MEGA)
+        phase_mega_fallback(smi, params2)
+        phase_17(smi, params2)
+        print(f"[done] {time.perf_counter() - t0:.1f} s")
+        return 0
     errs = phase_kernels()
     params2 = _dlm_params(DLM_SMOLLM_MEGA)
     errs_dlm = phase_kernels_dlm(params2)
@@ -5567,13 +5933,16 @@ def main(argv=None) -> int:
     profile_call(smi, f"one serve batch (eta=0, S={det.S}, batch "
                  f"{svc.batch})", lambda: svc.sample_batch(det, key),
                  "step_kernel")
-    # Encode / decode / interpolation and the (2, 128) fallback run after
-    # every rate above, so that those are timed from the state they were
-    # timed in before these paths existed.  B1 runs on three main paths:
-    # serve, decode and interpolation.
+    # Encode / decode / interpolation, the bfloat16 mega fallback and
+    # phase 17 (the megakernels at seq_len 128 / 256 and head dims 16 to
+    # 128) run after every rate above, so that those are timed from the
+    # state they were timed in before these paths existed.  B1 runs on
+    # three main paths: serve, decode and interpolation; B3 and B4 also on
+    # phase 17's.
     next(r for r in b_kernels if r["name"] == "sampler_step_2d")[
         "launches"] += phase_main_ode(smi, model)
     phase_mega_fallback(smi, params2)
+    errs17, launches17, shapes17 = phase_17(smi, params2)
     z = det.encode(svc.eps_fn, torch.randn((BATCH,) + CARD_SHAPE,
                                            generator=gen, device="cuda"))
     profile_call(smi, f"one decode (encoded latent, S={det.S}, batch "
@@ -5635,6 +6004,11 @@ def main(argv=None) -> int:
                                                  + b2_p11 + b2_p14
                                                  + b2_p15)
     recs["megastep_rows_call"]["launches"] += b4_p8
+    for name in ("megastep_call", "megastep_rows_call"):
+        recs[name]["launches"] += launches17[name]
+        recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"],
+                                        errs17[name])
+        recs[name].setdefault("shapes", []).extend(shapes17[name])
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

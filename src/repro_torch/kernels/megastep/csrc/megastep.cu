@@ -17,12 +17,20 @@
 // The sinusoid (cos / sin of t * freq) and the RoPE cos / sin table are
 // computed by the wrapper with the plain functions and passed in, as the
 // TPU kernel takes them as hoisted constants (kernel.py:188-229).
-// attention is 'exact' (q k^T / sqrt(D), softmax, then p v — models/
-// attention._grouped_attention) or 'flash' (q pre-scaled, the shared
-// online_softmax_step body over one KV block of 64, acc / max(l, 1e-20) —
-// kernel.py:83-130).  The norms' inverse RMS is the shared rmsnorm body's
-// (rms_inv_from_sumsq), the update the shared step body (step_update.cuh).
-// There is no PRNG code: mega plans are deterministic.
+// attention is 'exact' (q k^T / sqrt(D), a whole-row softmax, then p v —
+// models/attention._grouped_attention) or 'flash' (q pre-scaled by
+// 1/sqrt(D), the shared online_softmax_step body over the K/V blocks, acc /
+// max(l, 1e-20) — kernel.py:83-130).  The norms' inverse RMS is the shared
+// rmsnorm body's (rms_inv_from_sumsq), the update the shared step body
+// (step_update.cuh).  There is no PRNG code: mega plans are deterministic.
+//
+// Geometry (the float32 domain of the TPU kernel): any seq_len S that is a
+// multiple of 64 (a 64-row product tile never straddles two samples, so a
+// tile's slot is m0 / S), head dim D in {16, 32, 64, 128} (a runtime value:
+// only the attention phase is instantiated per D, so the build stays at 8
+// kernels), and widths whose products the 64 x 32 tiles cut exactly
+// (widths_ok).  sqrt(D) and 1/sqrt(D) are the float32 values JAX's exact
+// and flash trunks use, computed by the launcher.
 //
 // Bound on the H100: operations.  One step at smollm width (d 576, 9 / 3
 // heads of 64, d_ff 1536, 2 layers), batch 4, 64 tokens is ~3.7 GFLOP
@@ -39,7 +47,7 @@
 // refused launch is returned as its error; nothing falls back.  Every
 // block runs the step loop; each step is a chain of phases separated by
 // cooperative_groups::this_grid().sync().  A phase cuts its work into
-// items over the whole batch (M = batch x 64 token rows); item i goes to
+// items over the whole batch (M = batch x S token rows); item i goes to
 // the block of rank i mod grid, ranks ordering blocks by (slot on their
 // SM, SM id) so that the first items of a phase land on distinct SMs:
 //   time  th = silu(temb @ time_w1) for every embedding of the launch (K
@@ -47,10 +55,17 @@
 //   w_in  h = x @ w_in + th @ time_w2: 64 x 32 output tiles; the block
 //         computes its 32 columns of th @ time_w2 itself
 //   per layer:
-//   qkv   [q k v] = rmsnorm(h) @ [wq wk wv] (one product, N = H*64 +
-//         2 Hkv*64)
-//   attn  one item per (sample, q head) on kv head h / G; RoPE is applied
-//         to q and k as they are loaded (exact or flash body)
+//   qkv   [q k v] = rmsnorm(h) @ [wq wk wv] (one product, N = H*D +
+//         2 Hkv*D)
+//   attn  one item per (sample, q head, block of 32 query rows) on kv head
+//         h / G, looping over the sample's K/V blocks of 64 rows (32 at D =
+//         128, so that the tiles fit the product ring's shared memory and
+//         two blocks stay resident per SM); RoPE is applied to q and k as
+//         they are loaded, at their own positions.  'flash' runs the
+//         online-softmax recurrence over the blocks; 'exact' takes two
+//         passes, the rows' max and sum first, then p = exp(s - max) / sum
+//         and p v block by block (one pass where S is one block: then it is
+//         the plain row softmax)
 //   wo    h += attn @ wo, split-K
 //   mlp   ff = silu(rmsnorm(h) @ w_gate) * (rmsnorm(h) @ w_up), both
 //         products in one item
@@ -95,6 +110,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "flash_attention/csrc/online_softmax.cuh"
@@ -112,14 +128,15 @@ struct ReproMegaWeights {
   const float* w_out;      // (d, L)
   const float* attn_norm;  // (n, d)
   const float* mlp_norm;   // (n, d)
-  const float* wq;         // (n, d, H*64)
-  const float* wk;         // (n, d, Hkv*64)
-  const float* wv;         // (n, d, Hkv*64)
-  const float* wo;         // (n, H*64, d)
+  const float* wq;         // (n, d, H*D)
+  const float* wk;         // (n, d, Hkv*D)
+  const float* wv;         // (n, d, Hkv*D)
+  const float* wo;         // (n, H*D, d)
   const float* w_gate;     // (n, d, d_ff)
   const float* w_up;       // (n, d, d_ff)
   const float* w_down;     // (n, d_ff, d)
-  int n_layers, d_model, n_heads, n_kv_heads, d_ff, time_dim, latent;
+  int n_layers, d_model, n_heads, n_kv_heads, d_ff, time_dim, latent,
+      head_dim;
   float norm_eps;
 };
 
@@ -130,8 +147,8 @@ using repro::kAttnThreads;
 
 constexpr int kThreads = kAttnThreads;  // 256: 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kSeq = 64;                // tokens per sample
-constexpr int kHD = 64;                 // head dim
+constexpr int kSeqMultiple = 64;        // seq_len granule (= kBM)
+constexpr int kBQ = 32;                 // query rows of an attention item
 constexpr int kBM = 64;                 // rows of a product tile
 constexpr int kBN = 32;                 // columns of a product tile
 constexpr int kBK = 32;                 // depth of a staged slice
@@ -142,8 +159,24 @@ constexpr int kAStage = kBM * kAS;
 constexpr int kBStage = kBK * kBS;
 constexpr int kStageFloats = kAStage + 2 * kBStage;  // A, B (and B2)
 constexpr int kGemmFloats = kStages * kStageFloats;
+
+// The attention tiles of head dim HD in the union area: sQ (kBQ, HD), sK
+// (BK, HD) with +1 pads, sP (kBQ, BK) +1, sV (BK, HD) 16-byte aligned.
+template <int HD>
+struct AttnTiles {
+  static constexpr int BK = HD == 128 ? 32 : 64;  // K/V rows of a block
+  static constexpr int QS = HD + 1, PS = BK + 1;
+  static constexpr int kQ = 0, kK = kQ + kBQ * QS, kP = kK + BK * QS;
+  static constexpr int kV = (kP + kBQ * PS + 3) / 4 * 4;
+  static constexpr int kFloats = kV + BK * HD;
+};
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
 constexpr int kAttnFloats =
-    3 * kSeq * (kHD + 1) + kSeq * kHD;  // sQ, sK, sP (+1 pads) and sV
+    cmax(cmax(AttnTiles<16>::kFloats, AttnTiles<32>::kFloats),
+         cmax(AttnTiles<64>::kFloats, AttnTiles<128>::kFloats));
+static_assert(kAttnFloats <= kGemmFloats,
+              "the attention tiles must not grow shared memory past the "
+              "product ring: two blocks per SM");
 constexpr int kUnionFloats =
     kGemmFloats > kAttnFloats ? kGemmFloats : kAttnFloats;
 // + the tile's row sums of squares, the partial dots of a 32-column row,
@@ -167,8 +200,10 @@ struct Params {
   const float* rope_cos;
   const float* rope_sin;
   const float* coefs;
-  int K, batch, n_emb, n_cnt;
+  int K, batch, seq, n_emb, n_cnt;
   float clip;
+  float attn_div;  // sqrt(D) in float32: 'exact' divides the scores by it
+  float q_scale;   // 1/sqrt(D) in float32: 'flash' multiplies q by it
   float *h, *qkv, *ao, *ff, *th, *part, *ssq;
   int* cnt;
   int* sm_of;  // the SM of each block
@@ -195,23 +230,25 @@ int split_for(int tiles, int slices, int grid) {
   return s < 1 ? 1 : s;
 }
 
-Plan make_plan(const ReproMegaWeights& w, int batch, int per_sm, int sms) {
+Plan make_plan(const ReproMegaWeights& w, int batch, int seq, int per_sm,
+               int sms) {
   Plan p;
   p.per_sm = per_sm;
   p.grid = per_sm * sms;
-  const int mt = batch * kSeq / kBM;
-  p.split_wo = split_for(mt * w.d_model / kBN, w.n_heads * kHD / kBK, p.grid);
+  const int mt = batch * seq / kBM;
+  p.split_wo =
+      split_for(mt * w.d_model / kBN, w.n_heads * w.head_dim / kBK, p.grid);
   p.split_dn = split_for(mt * w.d_model / kBN, w.d_ff / kBK, p.grid);
   p.split_out = split_for(mt * w.latent / kBN, w.d_model / kBK, p.grid);
   return p;
 }
 
 // Workspace offsets in floats (each a multiple of 4: 16-byte aligned).
-Layout layout(const ReproMegaWeights& w, int batch, int n_emb,
+Layout layout(const ReproMegaWeights& w, int batch, int seq, int n_emb,
               const Plan& p) {
-  const long long M = static_cast<long long>(batch) * kSeq,
-                  d = w.d_model, hq = w.n_heads * kHD,
-                  hkv = w.n_kv_heads * kHD, L = w.latent;
+  const long long M = static_cast<long long>(batch) * seq,
+                  d = w.d_model, hq = w.n_heads * w.head_dim,
+                  hkv = w.n_kv_heads * w.head_dim, L = w.latent;
   long long part = p.split_wo * M * d;
   if (p.split_dn * M * d > part) part = p.split_dn * M * d;
   if (p.split_out * M * L > part) part = p.split_out * M * L;
@@ -410,7 +447,7 @@ __device__ __forceinline__ void slice_sumsq(const float* st, float& ss) {
   }
 }
 
-// One product phase: M = batch x 64 rows by N columns, depth Kd, each
+// One product phase: M = batch x S rows by N columns, depth Kd, each
 // tile cut into ``split`` items along the depth.  tile_of(m0, n0) gives
 // the operands of a tile; pre(m0, n0) runs before its product (all
 // threads; the block synchronises after it); epi(m, n, v) takes output
@@ -420,7 +457,7 @@ __device__ __forceinline__ void gemm_phase(const Params& p, float* smem,
                                            int N, int Kd, int split,
                                            TileOf tile_of, Pre pre, Epi epi) {
   static_assert(kThreads == 4 * kBM, "slice_sumsq: 4 threads per row");
-  const int M = p.batch * kSeq, n_nt = N / kBN, tiles = M / kBM * n_nt;
+  const int M = p.batch * p.seq, n_nt = N / kBN, tiles = M / kBM * n_nt;
   const int nsl = Kd / kBK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, q = lane & 3, wm = warp & 3, wn = warp >> 2;
@@ -620,7 +657,7 @@ __device__ __noinline__ void phase_w_in(const Params& p, float* smem,
                     nullptr, L, d, 0, 0, nullptr};
       },
       [&](int m0, int n0) {
-        const int e = per_slot ? m0 / kSeq : step;
+        const int e = per_slot ? m0 / p.seq : step;
         const float a = block_row_dot(p.th + static_cast<long long>(e) * T,
                                       T, p.w.time_w2, d, n0, d, red);
         if (threadIdx.x < 32) tv[threadIdx.x] = a;
@@ -636,12 +673,12 @@ struct NoPre {
   __device__ __forceinline__ void operator()(int, int) const {}
 };
 
-// [q k v] = rmsnorm(h, attn_norm) @ [wq wk wv] into the (M, H*64 + 2
-// Hkv*64) qkv buffer.
+// [q k v] = rmsnorm(h, attn_norm) @ [wq wk wv] into the (M, H*D + 2
+// Hkv*D) qkv buffer.
 __device__ __noinline__ void phase_qkv(const Params& p, float* smem,
                                        int layer) {
-  const int d = p.w.d_model, hq = p.w.n_heads * kHD,
-            hkv = p.w.n_kv_heads * kHD, nq = hq + 2 * hkv;
+  const int d = p.w.d_model, hq = p.w.n_heads * p.w.head_dim,
+            hkv = p.w.n_kv_heads * p.w.head_dim, nq = hq + 2 * hkv;
   const long long dd = d;
   const float* wq = p.w.wq + layer * dd * hq;
   const float* wk = p.w.wk + layer * dd * hkv;
@@ -686,7 +723,7 @@ __device__ __forceinline__ void residual_phase(const Params& p, float* smem,
 
 __device__ __noinline__ void phase_wo(const Params& p, float* smem,
                                       int layer) {
-  const int hq = p.w.n_heads * kHD;
+  const int hq = p.w.n_heads * p.w.head_dim;
   residual_phase(p, smem, p.ao, hq,
                  p.w.wo + layer * static_cast<long long>(hq) * p.w.d_model,
                  p.split_wo);
@@ -723,125 +760,214 @@ __device__ __noinline__ void phase_mlp(const Params& p, float* smem,
       });
 }
 
-// out = attention of one 64 x 64 head tile already in shared memory (sQ,
-// sK with stride 65, q pre-scaled for FLASH; sV stride 64).
-template <bool FLASH, typename Store>
-__device__ __forceinline__ void attention_tile(const float* sQ,
-                                               const float* sK,
-                                               const float* sV, float* sP,
-                                               Store store) {
-  if (FLASH) {
-    repro::SoftmaxState<kSeq, kHD> st;
-    st.init();
-    repro::online_softmax_step<kSeq, kSeq, kHD, false>(sQ, sK, sV, sP, st, 0,
-                                                       0);
-    repro::softmax_finish<kSeq, kHD>(st, store);
-  } else {
-    constexpr int RQ = kSeq / 16, RK = kSeq / 16, RD = kHD / 16,
-                  PS = kSeq + 1;
-    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-    float s[RQ][RK];
-    repro::qk_scores<kSeq, kSeq, kHD>(sQ, sK, s);
+// Rows [r0, r0 + n) of one head of the (M, nq) qkv buffer (src points at
+// row r0), RoPE applied with the table's rows r0.. (the head dim splits into
+// halves, [x1 c - x2 s, x2 c + x1 s]) and multiplied by ``scale``, into
+// dst with row stride HD + 1.
+template <int HD>
+__device__ __forceinline__ void load_roped(float* dst, const float* src,
+                                           int nq, const Params& p, int r0,
+                                           int n, float scale) {
+  constexpr int half = HD / 2, QS = HD + 1, C4 = half / 4;
+  for (int i = threadIdx.x; i < n * C4; i += kThreads) {
+    const int r = i / C4, j = i % C4 * 4;
+    const float4 c4 = __ldg(reinterpret_cast<const float4*>(
+        p.rope_cos + (r0 + r) * half + j));
+    const float4 s4 = __ldg(reinterpret_cast<const float4*>(
+        p.rope_sin + (r0 + r) * half + j));
+    const float4 a = __ldcg(reinterpret_cast<const float4*>(src + r * nq + j));
+    const float4 b =
+        __ldcg(reinterpret_cast<const float4*>(src + r * nq + j + half));
+    const float cs[4] = {c4.x, c4.y, c4.z, c4.w},
+                sn[4] = {s4.x, s4.y, s4.z, s4.w};
+    const float x1[4] = {a.x, a.y, a.z, a.w}, x2[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      float mx = repro::kNegBig;
-#pragma unroll
-      for (int j = 0; j < RK; ++j) {
-        s[i][j] = __fdiv_rn(s[i][j], 8.0f);  // / sqrt(64)
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = repro::half_warp_max(mx);
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < RK; ++j) {
-        s[i][j] = expf(s[i][j] - mx);
-        sum += s[i][j];
-      }
-      sum = repro::half_warp_sum(sum);
-#pragma unroll
-      for (int j = 0; j < RK; ++j)
-        sP[(ty * RQ + i) * PS + tx + 16 * j] = __fdiv_rn(s[i][j], sum);
+    for (int u = 0; u < 4; ++u) {
+      float* d = dst + r * QS + j + u;
+      d[0] = __fmul_rn(
+          __fsub_rn(__fmul_rn(x1[u], cs[u]), __fmul_rn(x2[u], sn[u])), scale);
+      d[half] = __fmul_rn(
+          __fadd_rn(__fmul_rn(x2[u], cs[u]), __fmul_rn(x1[u], sn[u])), scale);
     }
-    __syncwarp();
-    float pv[RQ][RD];
-    repro::pv_product<kSeq, kSeq, kHD>(sP, sV, pv);
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-      for (int r = 0; r < RD; ++r) store(ty * RQ + i, tx + 16 * r, pv[i][r]);
   }
 }
 
-// One item per (sample, q head): RoPE on q and k as they are loaded (the
-// head dim splits into halves, [x1 c - x2 s, x2 c + x1 s]), q head h reads
-// kv head h / G; the result goes to columns h*64 of the (M, H*64) buffer.
-template <bool FLASH>
-__device__ __noinline__ void phase_attention(const Params& p, float* smem) {
-  constexpr int QS = kHD + 1, half = kHD / 2;
-  const int H = p.w.n_heads, Hkv = p.w.n_kv_heads, G = H / Hkv;
-  const int hq = H * kHD, nq = hq + 2 * Hkv * kHD;
-  float* sQ = smem;
-  float* sK = sQ + kSeq * QS;
-  float* sP = sK + kSeq * QS;
-  float* sV = sP + kSeq * (kSeq + 1);
-  // FLASH multiplies q by the softmax scale 1/sqrt(64) after RoPE, as
-  // streaming_attention_body; 'exact' divides the scores after the dot.
-  const float q_scale = FLASH ? 0.125f : 1.0f;
-  for (int item = block_rank(smem); item < p.batch * H; item += gridDim.x) {
-    const int b = item / H, hh = item % H, kvh = hh / G;
-    const float* base = p.qkv + static_cast<long long>(b) * kSeq * nq;
-    const float* q = base + hh * kHD;
-    const float* k = base + hq + kvh * kHD;
-    const float* v = base + hq + Hkv * kHD + kvh * kHD;
-    for (int i = threadIdx.x; i < kSeq * half / 4; i += kThreads) {
-      const int r = i / (half / 4), j = i % (half / 4) * 4;
-      const float4 c4 = __ldg(reinterpret_cast<const float4*>(
-          p.rope_cos + r * half + j));
-      const float4 s4 = __ldg(reinterpret_cast<const float4*>(
-          p.rope_sin + r * half + j));
-      const float4 qa = __ldcg(reinterpret_cast<const float4*>(q + r * nq + j));
-      const float4 qb =
-          __ldcg(reinterpret_cast<const float4*>(q + r * nq + j + half));
-      const float4 ka = __ldcg(reinterpret_cast<const float4*>(k + r * nq + j));
-      const float4 kb =
-          __ldcg(reinterpret_cast<const float4*>(k + r * nq + j + half));
-      const float cs[4] = {c4.x, c4.y, c4.z, c4.w},
-                  sn[4] = {s4.x, s4.y, s4.z, s4.w};
-      const float q1[4] = {qa.x, qa.y, qa.z, qa.w},
-                  q2[4] = {qb.x, qb.y, qb.z, qb.w};
-      const float k1[4] = {ka.x, ka.y, ka.z, ka.w},
-                  k2[4] = {kb.x, kb.y, kb.z, kb.w};
+// Rows [0, n) of one head's V (src at its first row) into dst, stride HD.
+template <int HD>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int nq, int n) {
+  for (int i = threadIdx.x; i < n * HD / 4; i += kThreads) {
+    const int r = i / (HD / 4), c = i % (HD / 4) * 4;
+    *reinterpret_cast<float4*>(dst + r * HD + c) =
+        __ldcg(reinterpret_cast<const float4*>(src + r * nq + c));
+  }
+}
+
+// 'exact' scores of the thread's tile: q k^T / sqrt(D), as JAX divides them.
+template <int HD, int BK>
+__device__ __forceinline__ void exact_scores(const float* sQ, const float* sK,
+                                             float div,
+                                             float (&s)[kBQ / 16][BK / 16]) {
+  repro::qk_scores<kBQ, BK, HD>(sQ, sK, s);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float* qr = sQ + r * QS + j + u;
-        float* kr = sK + r * QS + j + u;
-        qr[0] = __fmul_rn(
-            __fsub_rn(__fmul_rn(q1[u], cs[u]), __fmul_rn(q2[u], sn[u])),
-            q_scale);
-        qr[half] = __fmul_rn(
-            __fadd_rn(__fmul_rn(q2[u], cs[u]), __fmul_rn(q1[u], sn[u])),
-            q_scale);
-        kr[0] = __fsub_rn(__fmul_rn(k1[u], cs[u]), __fmul_rn(k2[u], sn[u]));
-        kr[half] = __fadd_rn(__fmul_rn(k2[u], cs[u]), __fmul_rn(k1[u], sn[u]));
-      }
+  for (int i = 0; i < kBQ / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) s[i][j] = __fdiv_rn(s[i][j], div);
+}
+
+// acc[i][r] += sum_c sP[row i, c] sV[c, col r] for the thread's tile (the
+// layout of pv_product), one FMA chain per element into acc: keeping one
+// accumulator instead of pv_product's block sum beside it keeps the exact
+// kernels within the register budget (no spills; as a separate block sum
+// it spilled and slowed every phase of those kernels by ~10%).  From acc =
+// 0 over one block it is pv_product's sum.
+template <int BK, int HD>
+__device__ __forceinline__ void pv_accumulate(const float* sP, const float* sV,
+                                              float (&acc)[kBQ / 16][HD / 16]) {
+  constexpr int RQ = kBQ / 16, RD = HD / 16, PS = BK + 1;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll 4
+  for (int c = 0; c < BK; ++c) {
+    float v[RD];
+#pragma unroll
+    for (int r = 0; r < RD; ++r) v[r] = sV[c * HD + tx + 16 * r];
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) {
+      const float pc = sP[(ty * RQ + i) * PS + c];
+#pragma unroll
+      for (int r = 0; r < RD; ++r) acc[i][r] = fmaf(pc, v[r], acc[i][r]);
     }
-    for (int i = threadIdx.x; i < kSeq * kHD / 4; i += kThreads) {
-      const int r = i / (kHD / 4), c = i % (kHD / 4) * 4;
-      *reinterpret_cast<float4*>(sV + r * kHD + c) =
-          __ldcg(reinterpret_cast<const float4*>(v + r * nq + c));
-    }
-    __syncthreads();
-    float* out = p.ao + static_cast<long long>(b) * kSeq * hq + hh * kHD;
-    attention_tile<FLASH>(sQ, sK, sV, sP, [&](int row, int col, float val) {
+  }
+}
+
+// One item per (sample, q head, kBQ query rows q0..): q head h reads kv
+// head h / G over the sample's S / BK K/V blocks; the result goes to
+// columns h*D of rows q0.. of the (M, H*D) buffer.  FLASH scales q by
+// 1/sqrt(D) after RoPE (streaming_attention_body) and runs the recurrence
+// over the blocks.  'exact' takes the rows' max m and sum l over the
+// blocks first (the recurrence's running pair: m the row max, l the sum of
+// exp(s - m)), then writes p = exp(s - m) / l block by block and
+// accumulates p v over the blocks; with one block (S = BK) that is the
+// plain row softmax and the K block is not reloaded.
+template <bool FLASH, int HD>
+__device__ __noinline__ void attention_items(const Params& p, float* smem) {
+  using T = AttnTiles<HD>;
+  constexpr int BK = T::BK, RQ = kBQ / 16, RK = BK / 16, RD = HD / 16;
+  const int H = p.w.n_heads, Hkv = p.w.n_kv_heads, G = H / Hkv, S = p.seq;
+  const int hq = H * HD, nq = hq + 2 * Hkv * HD, nqb = S / kBQ, nkb = S / BK;
+  float* sQ = smem + T::kQ;
+  float* sK = smem + T::kK;
+  float* sP = smem + T::kP;
+  float* sV = smem + T::kV;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  for (int item = block_rank(smem); item < p.batch * H * nqb;
+       item += gridDim.x) {
+    const int qb = item % nqb, bh = item / nqb, b = bh / H, hh = bh % H,
+              kvh = hh / G, q0 = qb * kBQ;
+    const float* base = p.qkv + static_cast<long long>(b) * S * nq;
+    const float* k = base + hq + kvh * HD;
+    const float* v = base + hq + Hkv * HD + kvh * HD;
+    float* out = p.ao + (static_cast<long long>(b) * S + q0) * hq + hh * HD;
+    auto store = [&](int row, int col, float val) {
       out[row * hq + col] = val;
-    });
+    };
+    load_roped<HD>(sQ, base + static_cast<long long>(q0) * nq + hh * HD, nq,
+                   p, q0, kBQ, FLASH ? p.q_scale : 1.0f);
+    if (FLASH) {
+      repro::SoftmaxState<kBQ, HD> st;
+      st.init();
+      for (int kb = 0; kb < nkb; ++kb) {
+        const int k0 = kb * BK;
+        __syncthreads();  // the previous block is no longer read
+        load_roped<HD>(sK, k + static_cast<long long>(k0) * nq, nq, p, k0,
+                       BK, 1.0f);
+        load_rows<HD>(sV, v + static_cast<long long>(k0) * nq, nq, BK);
+        __syncthreads();
+        repro::online_softmax_step<kBQ, BK, HD, false>(sQ, sK, sV, sP, st, q0,
+                                                       k0);
+      }
+      repro::softmax_finish<kBQ, HD>(st, store);
+    } else {
+      float m[RQ], l[RQ], acc[RQ][RD];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) {
+        m[i] = repro::kNegBig;
+        l[i] = 0.0f;
+#pragma unroll
+        for (int r = 0; r < RD; ++r) acc[i][r] = 0.0f;
+      }
+      for (int kb = 0; kb < nkb; ++kb) {  // pass 1: max and sum
+        const int k0 = kb * BK;
+        __syncthreads();
+        load_roped<HD>(sK, k + static_cast<long long>(k0) * nq, nq, p, k0,
+                       BK, 1.0f);
+        __syncthreads();
+        float s[RQ][RK];
+        exact_scores<HD, BK>(sQ, sK, p.attn_div, s);
+#pragma unroll
+        for (int i = 0; i < RQ; ++i) {
+          float mx = repro::kNegBig;
+#pragma unroll
+          for (int j = 0; j < RK; ++j) mx = fmaxf(mx, s[i][j]);
+          const float m_new = fmaxf(m[i], repro::half_warp_max(mx));
+          float sum = 0.0f;
+#pragma unroll
+          for (int j = 0; j < RK; ++j) sum += expf(s[i][j] - m_new);
+          l[i] = expf(m[i] - m_new) * l[i] + repro::half_warp_sum(sum);
+          m[i] = m_new;
+        }
+      }
+      for (int kb = 0; kb < nkb; ++kb) {  // pass 2: p, then p v
+        const int k0 = kb * BK;
+        __syncthreads();
+        if (nkb > 1)
+          load_roped<HD>(sK, k + static_cast<long long>(k0) * nq, nq, p, k0,
+                         BK, 1.0f);
+        load_rows<HD>(sV, v + static_cast<long long>(k0) * nq, nq, BK);
+        __syncthreads();
+        float s[RQ][RK];
+        exact_scores<HD, BK>(sQ, sK, p.attn_div, s);
+#pragma unroll
+        for (int i = 0; i < RQ; ++i)
+#pragma unroll
+          for (int j = 0; j < RK; ++j)
+            sP[(ty * RQ + i) * T::PS + tx + 16 * j] =
+                __fdiv_rn(expf(s[i][j] - m[i]), l[i]);
+        __syncwarp();  // a half-warp reads back only the P rows it wrote
+        pv_accumulate<BK, HD>(sP, sV, acc);
+      }
+#pragma unroll
+      for (int i = 0; i < RQ; ++i)
+#pragma unroll
+        for (int r = 0; r < RD; ++r)
+          store(ty * RQ + i, tx + 16 * r, acc[i][r]);
+    }
     __syncthreads();  // shared memory is reused by the next item
+  }
+}
+
+// The attention phase at the trunk's head dim (widths_ok admits these).
+template <bool FLASH>
+__device__ __forceinline__ void phase_attention(const Params& p,
+                                                float* smem) {
+  switch (p.w.head_dim) {
+    case 16:
+      attention_items<FLASH, 16>(p, smem);
+      break;
+    case 32:
+      attention_items<FLASH, 32>(p, smem);
+      break;
+    case 64:
+      attention_items<FLASH, 64>(p, smem);
+      break;
+    default:
+      attention_items<FLASH, 128>(p, smem);
   }
 }
 
 // eps = rmsnorm(h, out_norm) @ w_out, split-K, then the update of the
 // state elements the tile covers: element idx = m * L + n of the flat
-// (batch, 64, L) state.  B3 reads the step's coefficients, B4 (ROWS) the
+// (batch, S, L) state.  B3 reads the step's coefficients, B4 (ROWS) the
 // (R, 8) row idx / 256.
 template <bool CLIP, bool ROWS>
 __device__ __noinline__ void phase_out(const Params& p, float* smem,
@@ -933,11 +1059,20 @@ megastep_kernel(const __grid_constant__ Params p) {
   }
 }
 
-bool widths_ok(const ReproMegaWeights& w) {
+// The geometry the kernel takes (mirrored by kernel._shape_limits): S a
+// multiple of 64, D in {16, 32, 64, 128}, every product width a multiple
+// of the 32-wide tiles (the q, k and v column ranges of the qkv product
+// included), and a sample a whole number of 256-wide tile rows.
+bool widths_ok(const ReproMegaWeights& w, int seq) {
+  const int D = w.head_dim;
   return w.n_layers >= 0 && w.n_heads > 0 && w.n_kv_heads > 0 &&
-         w.n_heads % w.n_kv_heads == 0 && w.d_model % kBK == 0 &&
-         w.d_ff % kBK == 0 && w.latent % kBK == 0 && w.latent <= 128 &&
-         w.time_dim % 4 == 0 && (kSeq * w.latent) % kTileC == 0;
+         w.n_heads % w.n_kv_heads == 0 && seq >= kSeqMultiple &&
+         seq % kSeqMultiple == 0 &&
+         (D == 16 || D == 32 || D == 64 || D == 128) &&
+         (w.n_heads * D) % kBN == 0 && (w.n_kv_heads * D) % kBN == 0 &&
+         w.d_model % kBK == 0 && w.d_ff % kBK == 0 && w.latent % kBK == 0 &&
+         w.latent <= 128 && w.time_dim % 4 == 0 &&
+         (static_cast<long long>(seq) * w.latent) % kTileC == 0;
 }
 
 using Kernel = void (*)(Params);
@@ -991,26 +1126,27 @@ cudaError_t residency(bool clip, bool flash, bool rows, int* per_sm,
   return cudaSuccess;
 }
 
-cudaError_t plan_for(const ReproMegaWeights& w, int batch, bool clip,
-                     bool flash, bool rows, Plan* plan) {
-  if (!widths_ok(w) || batch < 1) return cudaErrorInvalidValue;
+cudaError_t plan_for(const ReproMegaWeights& w, int batch, int seq,
+                     bool clip, bool flash, bool rows, Plan* plan) {
+  if (!widths_ok(w, seq) || batch < 1) return cudaErrorInvalidValue;
   int per_sm = 0, sms = 0;
   const cudaError_t err = residency(clip, flash, rows, &per_sm, &sms);
   if (err != cudaSuccess) return err;
-  *plan = make_plan(w, batch, per_sm, sms);
+  *plan = make_plan(w, batch, seq, per_sm, sms);
   return cudaSuccess;
 }
 
 int launch(const void* x, void* out, const ReproMegaWeights* w,
            const void* temb, const void* rope_cos, const void* rope_sin,
-           const void* coefs, int K, int batch, int has_clip, float clip,
-           int flash, void* ws, void* trace, void* stream, bool rows) {
+           const void* coefs, int K, int batch, int seq, int has_clip,
+           float clip, int flash, void* ws, void* trace, void* stream,
+           bool rows) {
   if (K < 1) return static_cast<int>(cudaErrorInvalidValue);
   Plan plan;
-  cudaError_t err = plan_for(*w, batch, has_clip, flash, rows, &plan);
+  cudaError_t err = plan_for(*w, batch, seq, has_clip, flash, rows, &plan);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_emb = rows ? batch : K;
-  const Layout l = layout(*w, batch, n_emb, plan);
+  const Layout l = layout(*w, batch, seq, n_emb, plan);
   float* base = static_cast<float*>(ws);
   Params p;
   p.w = *w;
@@ -1022,9 +1158,14 @@ int launch(const void* x, void* out, const ReproMegaWeights* w,
   p.coefs = static_cast<const float*>(coefs);
   p.K = K;
   p.batch = batch;
+  p.seq = seq;
   p.n_emb = n_emb;
   p.n_cnt = static_cast<int>(l.n_cnt);
   p.clip = clip;
+  // sqrtf is correctly rounded: jnp.sqrt(float32(D)); 1/sqrt(D) rounded
+  // from double, as the flash trunk's Python-float scale
+  p.attn_div = sqrtf(static_cast<float>(w->head_dim));
+  p.q_scale = static_cast<float>(1.0 / sqrt(static_cast<double>(w->head_dim)));
   p.h = base + l.h;
   p.qkv = base + l.qkv;
   p.ao = base + l.ao;
@@ -1059,15 +1200,18 @@ int launch(const void* x, void* out, const ReproMegaWeights* w,
 extern "C" {
 
 // The launch plan of one instantiation on the current device, into out[8]:
-// workspace floats (batch, n_emb embeddings), grid blocks, blocks per SM,
-// grid barriers per step, dynamic shared memory bytes, and the split-K
-// factors of wo, w_down and w_out.  Returns a cudaError_t (0 on success).
-int repro_megastep_plan(const ReproMegaWeights* w, int batch, int n_emb,
-                        int rows, int has_clip, int flash, long long* out) {
+// workspace floats (batch samples of seq tokens, n_emb embeddings), grid
+// blocks, blocks per SM, grid barriers per step, dynamic shared memory
+// bytes, and the split-K factors of wo, w_down and w_out.  Returns a
+// cudaError_t (0 on success; cudaErrorInvalidValue outside widths_ok).
+int repro_megastep_plan(const ReproMegaWeights* w, int batch, int seq,
+                        int n_emb, int rows, int has_clip, int flash,
+                        long long* out) {
   Plan plan;
-  const cudaError_t err = plan_for(*w, batch, has_clip, flash, rows, &plan);
+  const cudaError_t err =
+      plan_for(*w, batch, seq, has_clip, flash, rows, &plan);
   if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = layout(*w, batch, n_emb, plan).total;
+  out[0] = layout(*w, batch, seq, n_emb, plan).total;
   out[1] = plan.grid;
   out[2] = plan.per_sm;
   out[3] = 2 + 5 * w->n_layers;
@@ -1078,34 +1222,35 @@ int repro_megastep_plan(const ReproMegaWeights* w, int batch, int n_emb,
   return 0;
 }
 
-// x, out: (batch * 64 * latent / 256, 256) float32 tile view, sample b at
-// flat offset b * 64 * latent; temb: (K, time_dim) sinusoidal embeddings of
-// the K timesteps; rope_cos / rope_sin: (64, 32); coefs: (K, 5) rows
-// [c_x0, c_dir, c_noise, sqrt_a_t, sqrt_1m_a_t]; ws: the plan's workspace
-// floats (repro_megastep_plan with n_emb = K); trace: null, or 2 + K (2 +
-// 5 n_layers) uint64 for the phase stamps.  All device pointers, float32,
-// 16-byte aligned.  Returns the cudaError_t of the launch (0 on success).
+// x, out: (batch * seq * latent / 256, 256) float32 tile view, sample b
+// at flat offset b * seq * latent; temb: (K, time_dim) sinusoidal
+// embeddings of the K timesteps; rope_cos / rope_sin: (seq, head_dim / 2);
+// coefs: (K, 5) rows [c_x0, c_dir, c_noise, sqrt_a_t, sqrt_1m_a_t]; ws: the
+// plan's workspace floats (repro_megastep_plan with n_emb = K); trace:
+// null, or 2 + K (2 + 5 n_layers) uint64 for the phase stamps.  All device
+// pointers, float32, 16-byte aligned.  Returns the cudaError_t of the
+// launch (0 on success).
 int repro_megastep(const void* x, void* out, const ReproMegaWeights* w,
                    const void* temb, const void* rope_cos,
                    const void* rope_sin, const void* coefs, int K, int batch,
-                   int has_clip, float clip, int flash, void* ws, void* trace,
-                   void* stream) {
-  return launch(x, out, w, temb, rope_cos, rope_sin, coefs, K, batch,
+                   int seq, int has_clip, float clip, int flash, void* ws,
+                   void* trace, void* stream) {
+  return launch(x, out, w, temb, rope_cos, rope_sin, coefs, K, batch, seq,
                 has_clip, clip, flash, ws, trace, stream, false);
 }
 
 // One scheduler tick (B4, replaces megastep_rows_call of
 // src/repro/kernels/megastep/kernel.py:269): as repro_megastep with K = 1,
 // but temb is (batch, time_dim), one embedding per slot, coefs is the
-// (R, 8) per-row block (sampler_step ops.expand_slot_coefs), R = batch * 64
-// * latent / 256, and ws is the plan's with rows = 1, n_emb = batch.
+// (R, 8) per-row block (sampler_step ops.expand_slot_coefs), R = batch *
+// seq * latent / 256, and ws is the plan's with rows = 1, n_emb = batch.
 int repro_megastep_rows(const void* x, void* out, const ReproMegaWeights* w,
                         const void* temb, const void* rope_cos,
                         const void* rope_sin, const void* row_coefs,
-                        int batch, int has_clip, float clip, int flash,
-                        void* ws, void* trace, void* stream) {
+                        int batch, int seq, int has_clip, float clip,
+                        int flash, void* ws, void* trace, void* stream) {
   return launch(x, out, w, temb, rope_cos, rope_sin, row_coefs, 1, batch,
-                has_clip, clip, flash, ws, trace, stream, true);
+                seq, has_clip, clip, flash, ws, trace, stream, true);
 }
 
 }  // extern "C"

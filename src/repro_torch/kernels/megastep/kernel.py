@@ -22,10 +22,11 @@ refused launch raises; nothing falls back.  On tensors that lie on the
 CPU it runs the plain version (``ref.py``) and counts nothing; on a CUDA
 tensor it launches or raises.
 
-The kernel takes float32 state and weights, 64 tokens per sample and head
-dim 64 (the smollm-width slice); bfloat16 state is not ported.
-``kernel_limits`` states these limits; ``ops.eligible`` applies them to
-states off the CPU, so such runs take the unfused path instead.
+The kernel takes the TPU kernel's float32 domain: any seq_len that is a
+multiple of 64, head dim 16, 32, 64 or 128, and widths the 64 x 32
+product tiles cut exactly; a bfloat16 state or bfloat16 weights are not
+ported.  ``kernel_limits`` states these limits; ``ops.eligible`` applies
+them to states off the CPU, so such runs take the unfused path instead.
 """
 from __future__ import annotations
 
@@ -43,8 +44,9 @@ from repro_torch.models.common import rope_freqs, sinusoidal_time_embedding
 from . import ref
 
 ATTN_IMPLS = ("exact", "flash")
-KERNEL_SEQ = 64
-KERNEL_HEAD_DIM = 64
+KERNEL_SEQ_MULTIPLE = 64
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+TILE_WIDTH = 32          # the product tiles' columns and depth slices
 
 # the order of the pointer fields of ReproMegaWeights in csrc/megastep.cu
 _POINTERS = (("w_in",), ("time_w1",), ("time_w2",), ("out_norm",),
@@ -56,7 +58,7 @@ _POINTERS = (("w_in",), ("time_w1",), ("time_w2",), ("out_norm",),
 _PLAN = ("workspace_floats", "grid", "blocks_per_sm", "barriers_per_step",
          "smem_bytes", "split_wo", "split_down", "split_out")
 _WIDTHS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
-           "time_dim", "latent")
+           "time_dim", "latent", "head_dim")
 
 
 class _Weights(ctypes.Structure):
@@ -85,27 +87,52 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("megastep")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.repro_megastep_plan.argtypes = [ctypes.POINTER(_Weights), I, I, I, I,
-                                        I, ctypes.POINTER(ctypes.c_longlong)]
+                                        I, I, ctypes.POINTER(ctypes.c_longlong)]
     lib.repro_megastep_plan.restype = I
     lib.repro_megastep.argtypes = [P, P, ctypes.POINTER(_Weights), P, P, P,
-                                   P, I, I, I, F, I, P, P, P]
+                                   P, I, I, I, I, F, I, P, P, P]
     lib.repro_megastep.restype = I
     lib.repro_megastep_rows.argtypes = [P, P, ctypes.POINTER(_Weights), P,
-                                        P, P, P, I, I, F, I, P, P, P]
+                                        P, P, P, I, I, I, F, I, P, P, P]
     lib.repro_megastep_rows.restype = I
     return lib
+
+
+def _width_limits(cfg, seq_len: int) -> Optional[str]:
+    """Why the product tiles cannot take these widths (``widths_ok`` of
+    csrc/megastep.cu, beyond seq_len and head dim), or None."""
+    a, L = cfg.arch, cfg.latent_dim
+    if a.n_heads % a.n_kv_heads:
+        return (f"the CUDA megakernel takes n_heads a multiple of "
+                f"n_kv_heads, got {a.n_heads} and {a.n_kv_heads}")
+    widths = {"d_model": a.d_model, "d_ff": a.d_ff, "latent_dim": L,
+              "n_heads * head_dim": a.n_heads * a.hd(),
+              "n_kv_heads * head_dim": a.n_kv_heads * a.hd()}
+    bad = [f"{k} {v}" for k, v in widths.items() if v % TILE_WIDTH]
+    if bad:
+        return (f"the CUDA megakernel's product tiles take widths that are "
+                f"multiples of {TILE_WIDTH}, got {', '.join(bad)}")
+    if L > 128 or cfg.time_dim % 4 or (seq_len * L) % TILE_C:
+        return (f"the CUDA megakernel takes latent_dim <= 128, time_dim a "
+                f"multiple of 4 and seq_len * latent_dim a multiple of "
+                f"{TILE_C}, got {L}, {cfg.time_dim} and {seq_len * L}")
+    return None
 
 
 def _shape_limits(cfg, seq_len: int, state_dtype: torch.dtype
                   ) -> Optional[str]:
     """Why the CUDA megakernel cannot take this geometry or state, or
     None."""
-    if seq_len != KERNEL_SEQ:
-        return (f"the CUDA megakernel takes seq_len {KERNEL_SEQ}, got "
-                f"seq_len {seq_len}")
-    if cfg.arch.hd() != KERNEL_HEAD_DIM:
-        return (f"the CUDA megakernel takes head_dim {KERNEL_HEAD_DIM}, got "
-                f"head_dim {cfg.arch.hd()}")
+    if seq_len < KERNEL_SEQ_MULTIPLE or seq_len % KERNEL_SEQ_MULTIPLE:
+        return (f"the CUDA megakernel takes seq_len in multiples of "
+                f"{KERNEL_SEQ_MULTIPLE}, got seq_len {seq_len}")
+    if cfg.arch.hd() not in KERNEL_HEAD_DIMS:
+        return (f"the CUDA megakernel takes head_dim "
+                f"{', '.join(map(str, KERNEL_HEAD_DIMS))}, got head_dim "
+                f"{cfg.arch.hd()}")
+    why = _width_limits(cfg, seq_len)
+    if why:
+        return why
     if state_dtype != torch.float32:
         return (f"the CUDA megakernel takes a float32 state, got dtype "
                 f"{state_dtype}")
@@ -121,11 +148,12 @@ def kernel_limits(cfg, seq_len: int, state_dtype: torch.dtype,
     """(ok, reason): does the CUDA megakernel take this trunk and state?
 
     Its own limits, beyond the eligibility rule it shares with the JAX
-    package: ``KERNEL_SEQ`` tokens per sample, head dim
-    ``KERNEL_HEAD_DIM``, a float32 state and float32 weights.  The plain
-    version (``ref.py``) has none of them.  Needs no CUDA state: the
-    weights may be meta tensors.  The launcher refuses the same inputs
-    (``_check_kernel_inputs``)."""
+    package: seq_len a multiple of ``KERNEL_SEQ_MULTIPLE``, head dim in
+    ``KERNEL_HEAD_DIMS``, widths the product tiles cut exactly
+    (``widths_ok`` of the source), a float32 state and float32 weights.
+    The plain version (``ref.py``) has none of them.  Needs no CUDA
+    state: the weights may be meta tensors.  The launcher refuses the
+    same inputs (``_check_kernel_inputs``)."""
     why = _shape_limits(cfg, seq_len, state_dtype)
     if why is None:
         why = next((_weight_limit(t.dtype) for t in leaves(params)
@@ -159,7 +187,7 @@ def _weights(params: Dict, cfg) -> _Weights:
     a = cfg.arch
     return _Weights(*(_get(params, p).data_ptr() for p in _POINTERS),
                     a.n_layers, a.d_model, a.n_heads, a.n_kv_heads, a.d_ff,
-                    cfg.time_dim, cfg.latent_dim, a.norm_eps)
+                    cfg.time_dim, cfg.latent_dim, a.hd(), a.norm_eps)
 
 
 def _check_state(x2: torch.Tensor, params: Dict, cfg, batch: int,
@@ -206,7 +234,7 @@ def _launch(wrapper, entry: str, x2: torch.Tensor, eps_params: Dict, cfg,
     dev = x2.device
     temb = sinusoidal_time_embedding(ts.to(dev), cfg.time_dim).contiguous()
     cos, sin = rope_freqs(torch.arange(seq_len, device=dev),
-                          KERNEL_HEAD_DIM, cfg.arch.rope_theta)
+                          cfg.arch.hd(), cfg.arch.rope_theta)
     cos, sin = cos.contiguous(), sin.contiguous()
     c32 = coefs.to(device=dev, dtype=torch.float32).contiguous()
     w = _weights(eps_params, cfg)
@@ -216,8 +244,8 @@ def _launch(wrapper, entry: str, x2: torch.Tensor, eps_params: Dict, cfg,
     plan = (ctypes.c_longlong * len(_PLAN))()
     with torch.cuda.device(dev):
         build.raise_on(lib.repro_megastep_plan(
-            ctypes.byref(w), batch, int(ts.shape[0]), rows, clip is not None,
-            flash, plan), "repro_megastep_plan")
+            ctypes.byref(w), batch, seq_len, int(ts.shape[0]), rows,
+            clip is not None, flash, plan), "repro_megastep_plan")
         ws = torch.empty(plan[0], dtype=torch.float32, device=dev)
         out = torch.empty_like(x2)
         build.check_cuda(temb, cos, sin, c32, ws, out)
@@ -226,7 +254,7 @@ def _launch(wrapper, entry: str, x2: torch.Tensor, eps_params: Dict, cfg,
         err = getattr(lib, entry)(
             x2.data_ptr(), out.data_ptr(), ctypes.byref(w), temb.data_ptr(),
             cos.data_ptr(), sin.data_ptr(), c32.data_ptr(), *count, batch,
-            clip is not None, 0.0 if clip is None else float(clip), flash,
+            seq_len, clip is not None, 0.0 if clip is None else float(clip), flash,
             ws.data_ptr(), None if trace is None else trace.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     build.raise_on(err, entry)

@@ -35,8 +35,10 @@ activation workspace for the whole batch (residual, q/k/v, attention and
 MLP activations, split-K partials: 5.5 MB at batch 4 x 64 tokens) stay
 between its phases; the port takes the same 75% share of it:
 0.75 x 50 x 2**20 = 39,321,600 B.  At smollm-135m widths that admits the
-2-layer trunk at batch 4 x 64 tokens (35.5 MB exact, 36.1 MB flash) and
-not batch 8 (42.8 MB) or the full 30 layers (432 MB)."""
+2-layer trunk at batch 4 x 64 tokens (35.5 MB exact, 36.1 MB flash), 2 x
+128 (36.1 MB either way) and 1 x 256 (37.3 MB exact, 36.1 MB flash), and
+not batch 8 x 64 (41.6 / 42.8 MB), 1 x 320 exact (40.0 MB) or the full 30
+layers (432 MB)."""
 
 DEFAULT_K_FUSE = 8
 
@@ -101,8 +103,9 @@ def eligible(spec: Optional[MegaSpec], x_T: torch.Tensor,
 
     A state that is not on the CPU (a CUDA state, or a meta tensor that
     stands for one) must also meet the CUDA kernel's own limits
-    (``kernel.kernel_limits``: seq_len, head dim, float32 state and
-    weights); the plain version the CPU runs has none."""
+    (``kernel.kernel_limits``: seq_len a multiple of 64, head dim 16 to
+    128, widths the product tiles take, float32 state and weights); the
+    plain version the CPU runs has none."""
     if spec is None:
         return False, ("eps model carries no mega_spec (not a fused-capable "
                        "tile-aware trunk)")

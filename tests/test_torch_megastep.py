@@ -6,12 +6,17 @@ JAX oracle is ``backend='jnp'`` and ``megastep.ref.megastep_ref``, not
 JAX's interpret-mode megakernel (which drifts ~1e-4 from 'jnp' at K >= 2
 on this jax).
 
+Past the slice's geometry, the trunks of ``tests/_torch_mega.py``: 128
+and 256 tokens at head dims 16, 32, 64 and 128 (the CUDA megakernel's
+float32 domain).
+
 Tolerances: 1e-4 of the largest state (float32 trunks whose products sum
 in another order, carried through the steps).  Port 'mega' with 'exact'
 attention equals port 'tile_resident' bitwise: on the CPU both run the
 same eps and the same step arithmetic.
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_mega as mega_trunks
 from repro import diffusion_lm as jdlm
 from repro.core import make_schedule as j_make_schedule
 from repro.kernels.megastep import MegaSpec as JMegaSpec
@@ -90,6 +96,35 @@ def test_megastep_call_matches_jax_ref(attn_impl, clip, K):
     assert _rel(got, want) <= TOL_OF_SCALE
 
 
+def _plan_cols(tau, K, clip=None):
+    tab = JPlan.build(JSCH, tau=tau, x0=clip).steps()
+    coefs = np.stack([tab["c_x0"], tab["c_dir"], tab["c_noise"],
+                      tab["sqrt_a_t"], tab["sqrt_1m_a_t"]], 1)[:K]
+    return coefs, np.array(tab["t"][:K], np.int32)
+
+
+@pytest.mark.parametrize("attn_impl", ["exact", "flash"])
+@pytest.mark.parametrize("hd", sorted(mega_trunks.HEAD_DIMS),
+                         ids=lambda d: f"hd{d}")
+@pytest.mark.parametrize("seq", mega_trunks.SEQS, ids=lambda s: f"S{s}")
+def test_megastep_call_long_seq_head_dims_match_jax_ref(seq, hd, attn_impl):
+    """B3's plain version at 2 x 128 and 1 x 256 tokens, head dims 16 to
+    128, against JAX's megastep_ref (2 steps)."""
+    jcfg, tcfg, jp, tp = mega_trunks.trunk(hd)
+    batch = 256 // seq
+    coefs, ts = _plan_cols(4, 1)
+    x2 = mega_trunks.state(batch, seq)
+    jspec = JMegaSpec(params={k: jp[k] for k in tdlm.EPS_PATH}, cfg=jcfg,
+                      batch=batch, seq_len=seq, attn_impl=attn_impl)
+    want = jmega_ref.megastep_ref(jnp.asarray(x2), jspec, jnp.asarray(coefs),
+                                  jnp.asarray(ts))
+    got = tk.megastep_call(torch.from_numpy(x2.copy()), tp, tcfg, batch, seq,
+                           torch.from_numpy(coefs.copy()),
+                           torch.from_numpy(ts), attn_impl=attn_impl)
+    assert got.shape == x2.shape
+    assert _rel(got, want) <= TOL_OF_SCALE
+
+
 # ------------------------------------------------------------ the slice
 @pytest.mark.parametrize("k_fuse", [1, 4, 8], ids=["K1", "K4-ragged", "K8"])
 @pytest.mark.parametrize("attn_impl", ["exact", "flash"])
@@ -115,6 +150,18 @@ def test_mega_exact_equals_tile_resident_bitwise(k_fuse, clip, heads):
     plan = SamplerPlan.build(TSCH, 7, x0=clip)
     xT = torch.from_numpy(x)
     mega = plan.run(eps, xT, backend="mega", k_fuse=k_fuse)
+    assert tback.run_mega.last_reason == "ok"
+    tile = plan.run(eps, xT, backend="tile_resident")
+    torch.testing.assert_close(mega, tile, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("hd", [32, 128], ids=["hd32", "hd128"])
+def test_mega_exact_equals_tile_resident_bitwise_at_128_tokens(hd):
+    _, tcfg, _, tp = mega_trunks.trunk(hd)
+    eps = tdlm.make_tile_eps_fn(tp, tcfg, 2, 128)
+    plan = SamplerPlan.build(TSCH, 5)
+    xT = torch.from_numpy(mega_trunks.state(2, 128).reshape(2, 128, LATENT))
+    mega = plan.run(eps, xT, backend="mega", k_fuse=3)
     assert tback.run_mega.last_reason == "ok"
     tile = plan.run(eps, xT, backend="tile_resident")
     torch.testing.assert_close(mega, tile, rtol=0, atol=0)
@@ -161,22 +208,38 @@ def test_eligibility_reasons():
         dataclasses.replace(spec, attn_impl="chunked")
 
 
-# The CUDA megakernel's own limits (kernel_limits): the (2, 128) geometry
-# of DLM_SMOLLM_MEGA, a bfloat16 state or bfloat16 weights, and the test
-# trunk's head dim 32.  A state off the CPU (meta stands for the card here)
-# meets them or is not eligible; a CPU state keeps the JAX rule.
+# The CUDA megakernel's own limits (kernel_limits): a seq_len that is not a
+# multiple of 64 (96 tokens of a latent-64 trunk, a whole number of tile
+# granules), a head dim outside 16, 32, 64, 128 (8), widths the product
+# tiles do not cut (head dim 16 with one kv head: 16 k and v columns), a
+# bfloat16 state or bfloat16 weights.  A state off the CPU (meta stands for
+# the card here) meets them or is not eligible; a CPU state keeps the JAX
+# rule.
 LIMIT_CASES = {
-    "seq_len": dict(batch=2, seq=128, what="seq_len 128"),
+    "seq_len": dict(cfg="latent64", batch=2, seq=96, what="seq_len 96"),
     "state_dtype": dict(state=torch.bfloat16, what="dtype torch.bfloat16"),
     "weight_dtype": dict(weights=torch.bfloat16, what="dtype torch.bfloat16"),
-    "head_dim": dict(cfg="small", what="head_dim 32"),
+    "head_dim": dict(cfg=(8, 4), what="head_dim 8"),
+    "widths": dict(cfg=(4, 1), what="n_kv_heads * head_dim 16"),
 }
+
+
+def _small_cfg(n_heads, n_kv_heads, d_model=64):
+    return tdlm.DiffusionLMConfig(arch=TArch(
+        name="t", family="dense", n_layers=2, d_model=d_model,
+        n_heads=n_heads, n_kv_heads=n_kv_heads, d_ff=128, vocab=50),
+        time_dim=32)
 
 
 def _limit_case(case):
     c = LIMIT_CASES[case]
-    cfg = (_models()[1] if c.get("cfg") == "small"
-           else configs.DLM_SMOLLM_MEGA)
+    cfg = c.get("cfg")
+    if cfg == "latent64":
+        cfg = dataclasses.replace(configs.DLM_SMOLLM_MEGA, latent_dim=64)
+    elif cfg is None:
+        cfg = configs.DLM_SMOLLM_MEGA
+    else:
+        cfg = _small_cfg(*cfg)
     batch, seq = c.get("batch", 4 if cfg.arch.d_model > 64 else B), \
         c.get("seq", SEQ)
     spec = _meta_spec(cfg, batch, seq_len=seq,
@@ -198,13 +261,42 @@ def test_kernel_limits_name_the_limit(case):
         True, "ok")
 
 
+@pytest.mark.parametrize("case", list(LIMIT_CASES))
+def test_kernel_launcher_refuses_what_kernel_limits_refuses(case):
+    """The launcher's checks (a meta state stands for the card) raise the
+    reason kernel_limits gives, before anything is built or launched."""
+    spec, shape, dtype = _limit_case(case)
+    why = tk.kernel_limits(spec.cfg, spec.seq_len, dtype, spec.params)[1]
+    x2 = torch.empty(math.prod(shape) // 256, 256, dtype=dtype,
+                     device="meta")
+    with pytest.raises(ValueError) as err:
+        tk._check_kernel_inputs(x2, spec.params, spec.cfg, spec.seq_len)
+    assert why in str(err.value)
+
+
+def _bench_mega_cfg():
+    """The JAX package's recorded mega trunk (benchmarks/sampler_overhead.py
+    ``_mega_model``): d_model 64, 2 heads of 32, time_dim 64."""
+    cfg = _small_cfg(2, 2)
+    return dataclasses.replace(cfg, time_dim=64)
+
+
 def test_kernel_limits_admit_the_slice():
-    spec = _meta_spec(configs.DLM_SMOLLM_MEGA, 4)
-    assert tk.kernel_limits(spec.cfg, SEQ, torch.float32,
-                            spec.params) == (True, "ok")
-    assert megastep.eligible(spec, torch.empty(
-        4, SEQ, configs.DLM_SMOLLM_MEGA.latent_dim, device="meta")) == (
-        True, "ok")
+    """The slice's 4 x 64, DLM_SMOLLM_MEGA at 2 x 128 and 1 x 256, the bench
+    trunk (head dim 32) at 32 x 64, and head dims 16 and 128."""
+    cases = [(configs.DLM_SMOLLM_MEGA, 4, SEQ),
+             (configs.DLM_SMOLLM_MEGA, 2, 128),
+             (configs.DLM_SMOLLM_MEGA, 1, 256),
+             (_bench_mega_cfg(), 32, 64),
+             (_small_cfg(4, 2), 2, 128),
+             (_small_cfg(1, 1, d_model=128), 1, 256)]
+    for cfg, batch, seq in cases:
+        spec = _meta_spec(cfg, batch, seq_len=seq)
+        assert tk.kernel_limits(spec.cfg, seq, torch.float32,
+                                spec.params) == (True, "ok")
+        assert megastep.eligible(spec, torch.empty(
+            batch, seq, cfg.latent_dim, device="meta")) == (True, "ok")
+    assert _bench_mega_cfg().arch.hd() == 32
 
 
 def test_engine_off_the_cpu_takes_rows_for_the_kernel_limits():
@@ -221,9 +313,16 @@ def test_engine_off_the_cpu_takes_rows_for_the_kernel_limits():
         assert eng.use_mega == want
         assert eng.tick_variant == ("mega" if want else "rows")
     with pytest.raises(ValueError, match="use_mega=True but the CUDA "
-                       "megakernel takes seq_len 64, got seq_len 128"):
+                       "megakernel takes seq_len in multiples of 64, got "
+                       "seq_len 96"):
         ContinuousBatchingEngine(TSCH, eps, shape[1:], slots=shape[0],
                                  use_mega=True, device="meta")
+    # 2 slots of 128 tokens are in the kernel's domain: B4 off the CPU too
+    eps.mega_spec = _meta_spec(configs.DLM_SMOLLM_MEGA, 2, seq_len=128)
+    eng = ContinuousBatchingEngine(
+        TSCH, eps, (128, configs.DLM_SMOLLM_MEGA.latent_dim), slots=2,
+        device="meta")
+    assert eng.use_mega and eng.tick_variant == "mega"
 
 
 def _count_chunks(monkeypatch):

@@ -4,6 +4,8 @@ scheduler's mega tick against the JAX package.
 Sizes are those of ``test_torch_megastep.py`` (d_model 64, 2 layers, 64
 tokens, latent 32), weights from the JAX ``init_params`` through
 ``interop``; every slot has its own timestep and its own coefficient row.
+Past the slice's geometry, 2 slots of 128 and 256 tokens over the trunks
+of ``tests/_torch_mega.py`` (head dims 16, 32, 64 and 128).
 
 Tolerances: the plain version against JAX ``megastep_rows_ref``, 1e-4 of
 max|state| (float32 trunks whose products sum in another order), as for
@@ -17,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_mega as mega_trunks
 from repro import diffusion_lm as jdlm
 from repro.core import make_schedule as j_make_schedule
 from repro.kernels.megastep import MegaSpec as JMegaSpec
@@ -88,6 +91,33 @@ def test_megastep_rows_call_matches_jax_ref(attn_impl, clip):
                                 attn_impl=attn_impl)
     assert tk.megastep_rows_call.launches == n0      # CPU: plain version
     want = np.asarray(want)
+    assert got.shape == x2.shape
+    assert (np.abs(got.numpy() - want).max()
+            <= TOL_OF_SCALE * np.abs(want).max())
+
+
+@pytest.mark.parametrize("attn_impl", ["exact", "flash"])
+@pytest.mark.parametrize("hd", sorted(mega_trunks.HEAD_DIMS),
+                         ids=lambda d: f"hd{d}")
+@pytest.mark.parametrize("seq", mega_trunks.SEQS, ids=lambda s: f"S{s}")
+def test_megastep_rows_call_long_seq_head_dims_match_jax_ref(seq, hd,
+                                                             attn_impl):
+    """B4's plain version, 2 slots of 128 and 256 tokens, head dims 16 to
+    128, against JAX's megastep_rows_ref."""
+    jcfg, tcfg, jp, tp = mega_trunks.trunk(hd)
+    slots = 2
+    ts, slot_coefs = (a[:slots] for a in _slot_rows(None))
+    x2 = mega_trunks.state(slots, seq)
+    rps = x2.shape[0] // slots
+    jrows = jops.expand_slot_coefs(jnp.asarray(slot_coefs), rps)
+    trows = step_ops.expand_slot_coefs(torch.from_numpy(slot_coefs), rps)
+    jspec = JMegaSpec(params={k: jp[k] for k in tdlm.EPS_PATH}, cfg=jcfg,
+                      batch=slots, seq_len=seq, attn_impl=attn_impl)
+    want = np.asarray(jmega_ref.megastep_rows_ref(
+        jnp.asarray(x2), jspec, jrows, jnp.asarray(ts)))
+    got = tk.megastep_rows_call(torch.from_numpy(x2.copy()), tp, tcfg, slots,
+                                seq, trows, torch.from_numpy(ts),
+                                attn_impl=attn_impl)
     assert got.shape == x2.shape
     assert (np.abs(got.numpy() - want).max()
             <= TOL_OF_SCALE * np.abs(want).max())
