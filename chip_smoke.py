@@ -107,12 +107,7 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               MSE printed; 8 slerp points between two encodings decoded as
               one batch (B1 S times), whose ends must match the decodes of
               the two latents (1e-5 of max|x|);
-              DLM_SMOLLM_MEGA at 4 x 64 with a bfloat16 state and
-              weights, eligible by the JAX rule but past the CUDA
-              megakernel's float32 domain: plan.run 'mega' runs B1 S times
-              (B3 0 times, the reason printed) and equals 'tile_resident'
-              within 1e-3;
-              phase 17 (below);
+              phase 18 and phase 17 (below);
               a torch.profiler breakdown of one decode;
               the launch floor: the sampler-step library's empty kernel,
               graph-replayed and per Python call, at 1 block and at every
@@ -361,8 +356,25 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               engine); B3 (8 steps) at each geometry and B4 (one tick) at 2
               x 128, exact and flash, timed beside the plain version, the
               operations bound and the unfused path, which each must beat,
-              with phase traces.  --p17-probe runs only the build, the
-              bfloat16 fallback and this phase
+              with phase traces.  --p17-probe runs only the build and
+              this phase
+ 18. B3 / B4 on bfloat16 states and weights, run before phase 17: B3
+              (K=2) and B4 against the plain versions for every (state,
+              weights) pair of bf16 / bf16, bf16 / f32 and f32 / bf16,
+              exact and flash, at 4 x 64 and 2 x 128 (2e-2 of max|state|
+              with a bfloat16 state, 1e-4 with a float32 one), a second
+              bfloat16 B3 launch bitwise equal; counted: plan.run 'mega'
+              (S=20) over the bfloat16 DLM_SMOLLM_MEGA at 4 x 64 and 8 x
+              64 and over a 4-layer smollm-width bfloat16 trunk at 4 x 64
+              (B3 3 times, B1 never, within 5e-2 of 'tile_resident'),
+              generate over bfloat16 weights (B3 3 times), a bfloat16
+              4-slot scheduler (B4 once per tick, every x_T bitwise the
+              CPU's bfloat16 draw); a latent-64 trunk at seq_len 96 still
+              runs B1 S times, the reason naming seq_len; B3 (8 steps) and
+              B4 (one tick) in bfloat16 timed beside the plain version and
+              the bound (bfloat16 bytes; operations at the bfloat16 rate
+              and on the products as built), with phase traces.
+              --p18-probe runs only the build and this phase
 
 Every time is printed beside the card's name and power limit.  Any failure
 raises and the script exits nonzero with no result line.  On success the
@@ -373,6 +385,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -403,8 +416,9 @@ DLM_SCHED_S = (10, 20)
 B7_COEFS = (0.93, 0.31, 0.27, 0.61, 0.79)
 # name -> (source, the TPU kernel's function file:line) of the DLM slice
 DLM_KERNELS = {
-    "megastep_call": ("src/repro_torch/kernels/megastep/csrc/megastep.cu",
-                      "src/repro/kernels/megastep/kernel.py:232"),
+    "megastep_call": (
+        "src/repro_torch/kernels/megastep/csrc/megastep_body.cuh",
+        "src/repro/kernels/megastep/kernel.py:232"),
     "flash_attention": (
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:118"),
@@ -414,7 +428,7 @@ DLM_KERNELS = {
 # name -> (source, the TPU kernel's function file:line) of the scheduler slice
 SCHED_KERNELS = {
     "megastep_rows_call": (
-        "src/repro_torch/kernels/megastep/csrc/megastep.cu",
+        "src/repro_torch/kernels/megastep/csrc/megastep_body.cuh",
         "src/repro/kernels/megastep/kernel.py:269"),
     "ddim_step_2d": ("src/repro_torch/kernels/ddim_step/csrc/ddim_step.cu",
                      "src/repro/kernels/ddim_step/kernel.py:43"),
@@ -530,7 +544,8 @@ def phase_build():
     libs = build.build_all()
     print(f"[build] {sorted(libs)} built/loaded in "
           f"{time.perf_counter() - t0:.2f} s into {build.BUILD_DIR}")
-    for name in ("megastep", "flash_attention", "rmsnorm", "ddim_step"):
+    for name in ("megastep", "megastep_bf16", "flash_attention", "rmsnorm",
+                 "ddim_step"):
         lines = [ln.strip() for ln in build.build_log(name).splitlines()
                  if "Used" in ln or "spill" in ln
                  or "Compiling entry" in ln]
@@ -538,7 +553,8 @@ def phase_build():
             r"(?<!\d)0 bytes spill stores, 0 bytes spill loads", ln)]
         print(f"[build] {name}: {len(lines)} ptxas lines, {len(spills)} "
               f"with spills")
-        full = name in ("megastep", "flash_attention", "rmsnorm")
+        full = name in ("megastep", "megastep_bf16", "flash_attention",
+                        "rmsnorm")
         for ln in (lines if full else spills)[:96]:
             print(f"[build]   {ln}")
 
@@ -1967,29 +1983,90 @@ def phase_main_dlm(params2, params30):
     return b3_launches
 
 
+# ------------------------------------------------------------------ phase 18
+# bfloat16 through the fused sampler: B3 / B4 on bfloat16 states and
+# weights.  (state, weights) pairs; the geometries of the kernel checks;
+# tolerances of max|state|: 2e-2 with a bfloat16 state (the repo's
+# bfloat16 tolerance; a float32 trunk differs from the plain one by ~1e-7,
+# which can flip a bfloat16 rounding of the state: one ulp, 2^-8 of the
+# value), 1e-4 with a float32 one (phase 17's float32 tolerance).  A
+# 20-step trajectory compounds the roundings of every step: 'mega' against
+# 'tile_resident' (cuBLAS bfloat16 products, B1) within P18_RUN_TOL.
+P18_PAIRS = (("bf16", "bf16"), ("bf16", "f32"), ("f32", "bf16"))
+P18_DT = {"bf16": torch.bfloat16, "f32": torch.float32}
+P18_GEOMS = ((4, 64), (2, 128))
+P18_RUN_TOL = 5e-2
+P18_BATCH_WIDE = 8              # 8 x 64: fits MEGA_BUDGET in bfloat16 only
+P18_DEEP_LAYERS = 4             # 4 layers at 4 x 64: the same
+
+
 def _to_dtype(tree, dtype):
     if isinstance(tree, dict):
         return {k: _to_dtype(v, dtype) for k, v in tree.items()}
     return tree.to(dtype)
 
 
-def phase_mega_fallback(smi, params2):
-    """A bfloat16 state and weights over DLM_SMOLLM_MEGA at the slice's (4,
-    64): eligible by the JAX rule, but past the CUDA megakernel's float32
-    domain, so 'mega' runs the tile-resident loop (B1 S times, B3 never,
-    the reason named) and returns what 'tile_resident' returns."""
+def _p18_tol(state: str) -> float:
+    return 2e-2 if state == "bf16" else 1e-4
+
+
+def phase_18_kernels(params2):
+    """B3 (K=2) and B4 against their plain versions on the card, for every
+    (state, weights) pair, exact and flash, at 4 x 64 and 2 x 128; a
+    second B3 launch of the bfloat16 trunk gives the same bits.  Returns
+    the largest error of each kernel."""
     from repro_torch.configs import DLM_SMOLLM_MEGA as cfg
+    from repro_torch.kernels.megastep import kernel as mk
+    from repro_torch.kernels.megastep import ref as mref
+    from repro_torch.kernels.sampler_step import ops as sops
+    gen = torch.Generator(device="cuda").manual_seed(1818)
+    errs = {"megastep_call": [], "megastep_rows_call": []}
+    coefs, ts = _plan_rows(DLM_S)
+    weights = {w: _to_dtype(params2, P18_DT[w]) for w in ("bf16", "f32")}
+    for batch, seq in P18_GEOMS:
+        n = batch * seq * cfg.latent_dim
+        x32 = torch.randn(n // 256, 256, generator=gen, device="cuda")
+        st, c = _p17_slot_rows(batch, None)
+        rows = sops.expand_slot_coefs(c, x32.shape[0] // batch)
+        for state, wt in P18_PAIRS:
+            x2, params = x32.to(P18_DT[state]), weights[wt]
+            tol = _p18_tol(state)
+            for impl in ("exact", "flash"):
+                tag = f"{state}/{wt} {batch}x{seq} {impl}"
+                args = (x2, params, cfg, batch, seq, coefs[:2], ts[:2])
+                got = mk.megastep_call(*args, attn_impl=impl)
+                _check_rel(errs["megastep_call"], f"B3 {tag} K=2", got,
+                           mref.megastep_ref(*args, attn_impl=impl), tol)
+                check(got.dtype == x2.dtype, f"B3 {tag}: dtype {got.dtype}")
+                if state == wt == "bf16" and seq == 64:
+                    _check_repeat(f"B3 {tag} K=2", got,
+                                  mk.megastep_call(*args, attn_impl=impl))
+                args = (x2, params, cfg, batch, seq, rows, st)
+                got = mk.megastep_rows_call(*args, attn_impl=impl)
+                _check_rel(errs["megastep_rows_call"], f"B4 {tag}", got,
+                           mref.megastep_rows_ref(*args, attn_impl=impl),
+                           tol)
+                check(got.dtype == x2.dtype, f"B4 {tag}: dtype {got.dtype}")
+    torch.cuda.synchronize()
+    return {k: max(v) for k, v in errs.items()}
+
+
+def _p18_mega_run(smi, label, cfg, params, batch, seq, state, impl="exact"):
+    """plan.run 'mega' (S=20) on a state of dtype ``state``, counted: B3
+    ceil(S / K) times, B1 never, the reason "ok"; against 'tile_resident'
+    on the same eps and x_T within P18_RUN_TOL of max|x|.  Returns the B3
+    launches."""
     from repro_torch.core import SamplerConfig
     from repro_torch.core.schedules import make_schedule
     from repro_torch.diffusion_lm import make_tile_eps_fn
     from repro_torch.sampling import backends
-    batch, seq = DLM_BATCH, DLM_SEQ
     plan = SamplerConfig(S=DLM_S).to_plan(make_schedule("linear", 1000))
-    gen = torch.Generator(device="cuda").manual_seed(13)
+    gen = torch.Generator(device="cuda").manual_seed(19)
     x_T = torch.randn(batch, seq, cfg.latent_dim, generator=gen,
-                      device="cuda").to(torch.bfloat16)
-    eps = make_tile_eps_fn(_to_dtype(params2, torch.bfloat16), cfg, batch,
-                           seq)
+                      device="cuda").to(state)
+    eps = make_tile_eps_fn(params, cfg, batch, seq)
+    eps.mega_spec = dataclasses.replace(eps.mega_spec, attn_impl=impl)
+    want_b3 = math.ceil(DLM_S / DLM_K)
     _zero_counts()
     got = plan.run(eps, x_T, backend="mega")
     torch.cuda.synchronize()
@@ -1997,15 +2074,215 @@ def phase_mega_fallback(smi, params2):
     want = plan.run(eps, x_T, backend="tile_resident")
     rel = float((got.float() - want.float()).abs().max()
                 / want.float().abs().max())
-    print(f"[main] {smi} | plan.run mega {cfg.arch.name} (S={DLM_S}, batch "
-          f"{batch} x {seq} tokens, bfloat16 state and weights): "
-          f"run_mega.last_reason {why!r}; launches {counts}; vs "
-          f"tile_resident max|d|/max|x| = {rel:.3e} (tol 1e-3)")
+    print(f"[p18] {smi} | plan.run mega {label} ({impl}, S={DLM_S}, batch "
+          f"{batch} x {seq}, state {state}, weights "
+          f"{params['w_in'].dtype}): reason {why!r}; launches {counts}; vs "
+          f"tile_resident max|d|/max|x| = {rel:.3e} (tol {P18_RUN_TOL})")
+    check(counts == {"B1": 0, "B2": 0, "B3": want_b3, "B4": 0}
+          and why == "ok", f"{label} mega: launches {counts}, reason {why!r}")
+    check(got.dtype == state and bool(torch.isfinite(got).all())
+          and rel <= P18_RUN_TOL, f"{label} mega vs tile_resident: {rel}")
+    return counts["B3"]
+
+
+def _p18_sched(smi, cfg, params):
+    """A bfloat16 4-slot scheduler over the bfloat16 trunk: B4 once per
+    tick; every x_T the engine drew equals, bit for bit, the CPU's
+    bfloat16 draw for its seed.  Returns the B4 launches."""
+    from repro_torch import prng
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.diffusion_lm import make_tile_eps_fn
+    from repro_torch.serving import ContinuousBatchingEngine, SampleRequest
+    slots, seq = DLM_BATCH, DLM_SEQ
+    shape = (seq, cfg.latent_dim)
+    eng = ContinuousBatchingEngine(
+        make_schedule("linear", 1000), make_tile_eps_fn(params, cfg, slots,
+                                                        seq),
+        shape, slots=slots, dtype=torch.bfloat16)
+    check(eng.tick_variant == "mega", f"bfloat16 engine picks "
+          f"{eng.tick_variant}")
+    drawn = []
+    draw = eng._draw_xT
+
+    def recording(seed):
+        x = draw(seed)
+        drawn.append((seed, x.clone()))
+        return x
+    eng._draw_xT = recording
+    reqs = [SampleRequest(request_id=i, S=DLM_SCHED_S[i % 2], seed=400 + i)
+            for i in range(2 * slots)]
+    _zero_counts()
+    res = eng.serve(reqs)
+    torch.cuda.synchronize()
+    counts, st = _counts(), eng.stats()
+    same = all(torch.equal(x.cpu(), prng.normal(
+        prng.PRNGKey(seed, "cpu"), (1,) + shape, dtype=torch.bfloat16
+    ).reshape(x.shape)) for seed, x in drawn)
+    x0 = torch.stack([r.x0 for r in res])
+    print(f"[p18] {smi} | bfloat16 scheduler {cfg.arch.name}, {slots} slots "
+          f"x {seq}, {len(reqs)} requests S {DLM_SCHED_S}: {st['ticks']} "
+          f"ticks, completed {st['completed']}; launches {counts}; "
+          f"{len(drawn)} x_T draws bitwise the CPU's bfloat16 draw: {same}; x0 "
+          f"{x0.dtype} finite {bool(torch.isfinite(x0.float()).all())}")
+    check(counts == {"B1": 0, "B2": 0, "B3": 0, "B4": st["ticks"]}
+          and st["completed"] == len(reqs), f"bfloat16 scheduler launches "
+          f"{counts}, want B4 == ticks {st['ticks']}")
+    check(same and len(drawn) == len(reqs), "bfloat16 scheduler x_T is not "
+          "the CPU's bfloat16 draw")
+    check(x0.dtype == torch.bfloat16 and bool(torch.isfinite(
+        x0.float()).all()), "bfloat16 scheduler: bad x0")
+    return counts["B4"]
+
+
+def _p18_refusal(smi):
+    """A latent-64 trunk at seq_len 96: eligible by the JAX rule, past the
+    kernel's seq_len granule, so 'mega' runs B1 S times and names
+    seq_len."""
+    from repro_torch import prng
+    from repro_torch.configs import DLM_SMOLLM_MEGA
+    from repro_torch.core import SamplerConfig
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.diffusion_lm import init_params, make_tile_eps_fn
+    from repro_torch.sampling import backends
+    cfg = dataclasses.replace(DLM_SMOLLM_MEGA, latent_dim=64)
+    batch, seq = 2, 96
+    params = init_params(prng.PRNGKey(0), cfg)
+    plan = SamplerConfig(S=DLM_S).to_plan(make_schedule("linear", 1000))
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    x_T = torch.randn(batch, seq, cfg.latent_dim, generator=gen,
+                      device="cuda")
+    eps = make_tile_eps_fn(params, cfg, batch, seq)
+    _zero_counts()
+    got = plan.run(eps, x_T, backend="mega")
+    torch.cuda.synchronize()
+    counts, why = _counts(), backends.run_mega.last_reason
+    want = plan.run(eps, x_T, backend="tile_resident")
+    rel = float((got - want).abs().max() / want.abs().max())
+    print(f"[p18] {smi} | plan.run mega, latent 64 at {batch} x {seq}: "
+          f"reason {why!r}; launches {counts}; vs tile_resident "
+          f"max|d|/max|x| = {rel:.3e}")
     check(counts == {"B1": DLM_S, "B2": 0, "B3": 0, "B4": 0}
-          and "bfloat16" in why, f"bfloat16 mega: launches {counts}, "
+          and "seq_len 96" in why, f"seq_len 96 mega: launches {counts}, "
           f"reason {why!r}")
-    check(got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
-          and rel <= 1e-3, f"bfloat16 mega vs tile_resident: {rel} > 1e-3")
+    check(rel == 0.0, f"seq_len 96 mega vs tile_resident: {rel} != 0")
+
+
+def phase_18_times(smi, params2, deep):
+    """B3 (8 steps) and B4 (one tick) in bfloat16 at 4 x 64, exact and
+    flash, and B3 on the 4-layer trunk, beside the plain version and the
+    bound (``bound_probe.bound_us``: bfloat16 bytes; operations at the
+    bfloat16 rate, and on the products as built).  Returns the timed
+    shapes of each kernel."""
+    from repro_torch.configs import DLM_SMOLLM_MEGA
+    from repro_torch.kernels.megastep import bound_probe
+    from repro_torch.kernels.megastep import kernel as mk
+    from repro_torch.kernels.megastep import ref as mref
+    from repro_torch.kernels.sampler_step import ops as sops
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(1819)
+    shapes = {"megastep_call": [], "megastep_rows_call": []}
+    coefs, ts = _plan_rows(DLM_S)
+    batch, seq = DLM_BATCH, DLM_SEQ
+    n = batch * seq * DLM_SMOLLM_MEGA.latent_dim
+    x2 = torch.randn(n // 256, 256, generator=gen, device="cuda").to(bf16)
+    p2 = _to_dtype(params2, bf16)
+    for name, cfg, params, impls in (
+            ("2 layers", DLM_SMOLLM_MEGA, p2, ("exact", "flash")),
+            (f"{P18_DEEP_LAYERS} layers", *deep, ("exact",))):
+        b = bound_probe.bound_us(cfg, batch, seq, DLM_K, bf16, bf16)
+        args = (x2, params, cfg, batch, seq, coefs[:DLM_K], ts[:DLM_K])
+        timer, how = _mega_timer(lambda: mk.megastep_call(*args))
+        for impl in impls:
+            rec = dict(
+                ms=timer(lambda: mk.megastep_call(*args, attn_impl=impl),
+                         iters=3, reps=2),
+                plain_ms=timer(lambda: mref.megastep_ref(
+                    *args, attn_impl=impl), iters=3, reps=2),
+                library_ms=None, bound_ms=b["bound"] / 1e3,
+                bound_by=b["by"], bound_built_ms=b["operations_built"] / 1e3,
+                shape=f"{cfg.arch.name} ({name}) batch {batch} x {seq}, "
+                      f"K={DLM_K}, {impl}, bfloat16 state and weights",
+                timed_by=how, **_plan_keys(mk.megastep_call.last_plan))
+            _time_line(smi, f"B3 megastep_call {rec['shape']}", rec)
+            print(f"[times] {smi} | bound on the products as built (one TF32"
+                  f" pass): {b['operations_built']:.3f} us, "
+                  f"{b['operations_built'] / 1e3 / rec['ms']:.3f} of it")
+            shapes["megastep_call"].append(rec)
+        _phase_trace(smi, f"B3 megastep_call {cfg.arch.name} ({name}) "
+                     f"bfloat16 {batch} x {seq} K={DLM_K} exact",
+                     mk.megastep_call, lambda: mk.megastep_call(*args),
+                     DLM_K, cfg.arch.n_layers)
+    cfg = DLM_SMOLLM_MEGA
+    st, c = _p17_slot_rows(batch, None)
+    rows = sops.expand_slot_coefs(c, x2.shape[0] // batch)
+    b = bound_probe.bound_us(cfg, batch, seq, 1, bf16, bf16, rows=True)
+    args = (x2, p2, cfg, batch, seq, rows, st)
+    timer, how = _mega_timer(lambda: mk.megastep_rows_call(*args))
+    for impl in ("exact", "flash"):
+        rec = dict(
+            ms=timer(lambda: mk.megastep_rows_call(*args, attn_impl=impl),
+                     iters=5, reps=2),
+            plain_ms=timer(lambda: mref.megastep_rows_ref(
+                *args, attn_impl=impl), iters=5, reps=2),
+            library_ms=None, bound_ms=b["bound"] / 1e3, bound_by=b["by"],
+            bound_built_ms=b["operations_built"] / 1e3,
+            shape=f"{cfg.arch.name} {batch} slots x {seq}, one tick, "
+                  f"{impl}, bfloat16 state and weights",
+            timed_by=how, **_plan_keys(mk.megastep_rows_call.last_plan))
+        _time_line(smi, f"B4 megastep_rows_call {rec['shape']}", rec)
+        shapes["megastep_rows_call"].append(rec)
+    _phase_trace(smi, f"B4 megastep_rows_call {cfg.arch.name} bfloat16 "
+                 f"{batch} x {seq} exact", mk.megastep_rows_call,
+                 lambda: mk.megastep_rows_call(*args), 1, cfg.arch.n_layers)
+    return shapes
+
+
+def phase_18(smi, params2):
+    """bfloat16 B3 / B4: the kernel checks, the counted main paths (plan.run
+    'mega' at 4 x 64 and 8 x 64 and on the 4-layer trunk, generate over
+    bfloat16 weights, the bfloat16 scheduler), the refusal path, and the
+    times.  Returns ({kernel: max error}, {kernel: launches}, {kernel:
+    shapes})."""
+    from repro_torch import prng
+    from repro_torch.configs import DLM_SMOLLM_MEGA
+    from repro_torch.core import SamplerConfig
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.diffusion_lm import generate, init_params
+    from repro_torch.sampling import backends
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    errs = phase_18_kernels(params2)
+    p2 = _to_dtype(params2, bf16)
+    cfg = DLM_SMOLLM_MEGA
+    b3 = _p18_mega_run(smi, cfg.arch.name, cfg, p2, DLM_BATCH, DLM_SEQ, bf16)
+    b3 += _p18_mega_run(smi, cfg.arch.name, cfg, p2, P18_BATCH_WIDE,
+                        DLM_SEQ, bf16, impl="flash")
+    deep_cfg = dataclasses.replace(cfg, arch=dataclasses.replace(
+        cfg.arch, n_layers=P18_DEEP_LAYERS))
+    deep = (deep_cfg, init_params(prng.PRNGKey(0), deep_cfg, dtype=bf16))
+    b3 += _p18_mega_run(smi, f"{P18_DEEP_LAYERS}-layer {cfg.arch.name}",
+                        *deep, DLM_BATCH, DLM_SEQ, bf16)
+    # generate over bfloat16 weights: JAX's float32 x_T, a float32 trunk
+    _zero_counts()
+    tokens = generate(p2, cfg, make_schedule("linear", 1000),
+                      prng.PRNGKey(18), DLM_BATCH, DLM_SEQ,
+                      SamplerConfig(S=DLM_S), tile_resident=True)
+    torch.cuda.synchronize()
+    counts, why = _counts(), backends.run_mega.last_reason
+    print(f"[p18] {smi} | generate {cfg.arch.name} over bfloat16 weights "
+          f"(S={DLM_S}, {DLM_BATCH} x {DLM_SEQ}, tile_resident=True): reason "
+          f"{why!r}; launches {counts}; tokens {tuple(tokens.shape)}")
+    check(counts == {"B1": 0, "B2": 0, "B3": math.ceil(DLM_S / DLM_K),
+                     "B4": 0} and why == "ok", f"generate over bfloat16 "
+          f"weights: launches {counts}, reason {why!r}")
+    check(tokens.shape == (DLM_BATCH, DLM_SEQ) and 0 <= int(tokens.min())
+          and int(tokens.max()) < cfg.arch.vocab, "generate: bad tokens")
+    b3 += counts["B3"]
+    b4 = _p18_sched(smi, cfg, p2)
+    _p18_refusal(smi)
+    shapes = phase_18_times(smi, params2, deep)
+    print(f"[p18] phase 18: {time.perf_counter() - t0:.1f} s")
+    return errs, {"megastep_call": b3, "megastep_rows_call": b4}, shapes
 
 
 # ------------------------------------------------------------------ phase 17
@@ -2387,24 +2664,10 @@ def phase_ops_path():
 
 
 def mega_ops(cfg, batch: int, seq: int, K: int) -> int:
-    """Operations of one K-step megastep launch, counted from the body of
-    csrc/megastep.cu: 2 per multiply-add of a product, 1 per other float
-    operation (exp, divide, add, ...), index arithmetic not counted."""
-    a = cfg.arch
-    d, T, L, F = a.d_model, cfg.time_dim, cfg.latent_dim, a.d_ff
-    H, D = a.n_heads, a.hd()
-    hq, hkv, S = H * D, a.n_kv_heads * D, seq
-    per = 2 * T * T + 4 * T + 2 * T * d          # time MLP, silu
-    per += 2 * S * L * d + S * d                 # w_in + temb
-    lay = 2 * 4 * S * d                          # two RMSNorms
-    lay += 2 * S * d * (hq + 2 * hkv)            # q, k, v
-    lay += 3 * S * (hq + hkv)                    # RoPE: 6 per pair
-    lay += H * (4 * S * S * D + 5 * S * S)       # q k^T, p v, softmax
-    lay += 2 * S * hq * d + S * d                # wo, residual
-    lay += 4 * S * d * F + 5 * S * F             # gate, up, silu * up
-    lay += 2 * S * F * d + S * d                 # down, residual
-    per += a.n_layers * lay + 4 * S * d + 2 * S * d * L + 3 * S * L
-    return batch * K * per
+    """Operations of one K-step megastep launch (``bound_probe.operations``:
+    2 per multiply-add of a product, 1 per other float operation)."""
+    from repro_torch.kernels.megastep.bound_probe import operations
+    return operations(cfg, batch, seq, K)
 
 
 def _bound(n_bytes: float, n_ops: float):
@@ -2933,9 +3196,10 @@ def _host_prep(smi, eng, label):
     rows = sops.expand_slot_coefs(states.coef_matrix(), eng._rps)
     x2 = eng._x2[0]                     # the one row block off a mesh
     dev = x2.device
-    w = mk._weights(params, cfg)
+    w_dtype = params["w_in"].dtype
+    w = mk._weights(params, cfg, w_dtype)
     plan = (ctypes.c_longlong * len(mk._PLAN))()
-    lib = mk._lib()
+    lib = mk._lib(w_dtype)
     pieces = (
         ("engine _states", lambda: eng._states()),
         ("expand_slot_coefs", lambda: sops.expand_slot_coefs(
@@ -2944,11 +3208,11 @@ def _host_prep(smi, eng, label):
             x2, mk._check_state(x2, params, cfg, B, S, spec.attn_impl), cfg,
             S)),
         ("sinusoid", lambda: sinusoidal_time_embedding(
-            states.t, cfg.time_dim).contiguous()),
+            states.t, cfg.time_dim).to(x2.dtype).float().contiguous()),
         ("RoPE table", lambda: rope_freqs(torch.arange(S, device=dev),
                                           cfg.arch.hd(),
                                           cfg.arch.rope_theta)),
-        ("ctypes weight struct", lambda: mk._weights(params, cfg)),
+        ("ctypes weight struct", lambda: mk._weights(params, cfg, w_dtype)),
         ("plan query", lambda: lib.repro_megastep_plan(
             ctypes.byref(w), B, S, B, 1, eng.clip_x0 is not None,
             spec.attn_impl == "flash", plan)),
@@ -3699,7 +3963,13 @@ def _lm_requests(cfg, prompt_len, new, seed=0, rows=LM_ROWS):
 def _lm_run(gen, reqs, record: bool):
     """One counted generate.  Spies on the decode step (cache pointer and
     allocated bytes before every call, no sync) and, with ``record``, on
-    the sampler (its logits, keys and tokens, cloned on the card)."""
+    the sampler (its logits, keys and tokens, cloned on the card).
+
+    Garbage that earlier phases left in reference cycles is collected
+    first, and the cycle collector is held off during the run: a
+    collection of it mid-run frees card memory that the decode step never
+    held, and read as a change of allocated bytes between two steps.
+    Cycles that the run itself makes now stay, so they show as growth."""
     import dataclasses as dc
     ptrs, steps = [], []
     decode = gen.api.decode_step
@@ -3720,9 +3990,15 @@ def _lm_run(gen, reqs, record: bool):
     if record:
         gen._sample_tokens = spy_sample
     _zero_all_counts()
+    torch.cuda.synchronize()
+    gc.collect()
+    was_on = gc.isenabled()
+    gc.disable()
     try:
         res = gen.generate(reqs)
     finally:
+        if was_on:
+            gc.enable()
         gen.api = api
         gen.__dict__.pop("_sample_tokens", None)
     torch.cuda.synchronize()
@@ -3788,6 +4064,12 @@ def phase_lm(smi, cfg, prompt_len):
     from repro_torch.serving import ARGenerator
     dev = torch.device("cuda")
     name = cfg.name
+    held = torch.cuda.memory_allocated()
+    n_garbage = gc.collect()
+    print(f"[lm] {smi} | {name}: gc.collect() at the phase's start: "
+          f"{n_garbage} objects in cycles, "
+          f"{held - torch.cuda.memory_allocated():,} B of card memory "
+          f"freed (left by earlier phases)")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3814,9 +4096,12 @@ def phase_lm(smi, cfg, prompt_len):
           f"tokens/s; launches of the seven kernels {counts}")
     check(all(v == 0 for v in counts.values()),
           f"{name}: the AR path launched a kernel of the seven: {counts}")
-    check(len(ptrs) == N and len(set(ptrs)) == 1,
-          f"{name}: the cache moved or memory grew across decode steps: "
-          f"{sorted(set(ptrs))[:4]}")
+    moves = [(i, ptrs[i - 1], ptrs[i]) for i in range(1, len(ptrs))
+             if ptrs[i] != ptrs[i - 1]]
+    check(len(ptrs) == N and not moves,
+          f"{name}: {len(ptrs)} decode steps of {N}; the cache moved or "
+          f"the allocated bytes changed between steps (step, before, "
+          f"after): {moves[:4]}")
     print(f"[lm]   cache k/v pointers and torch.cuda.memory_allocated the "
           f"same before all {N} decode steps ({ptrs[0][2]:,} B)")
     # (2) the checked run: logits, keys and tokens of every step
@@ -5841,8 +6126,10 @@ def main(argv=None) -> int:
     ap.add_argument("--p17-probe", action="store_true",
                     help="only build the kernels and run phase 17 (the "
                          "megakernels at seq_len 128 / 256 and head dims "
-                         "16 to 128) and the bfloat16 fallback on this "
-                         "checkout")
+                         "16 to 128) on this checkout")
+    ap.add_argument("--p18-probe", action="store_true",
+                    help="only build the kernels and run phase 18 (B3 / B4 "
+                         "on bfloat16 states and weights) on this checkout")
     ap.add_argument("--draw-probe", metavar="SRC", type=Path,
                     help="only time the x_T draw, serve and the U-Net "
                          "scheduler on SRC/repro_torch (phase 11's cost "
@@ -5904,10 +6191,9 @@ def main(argv=None) -> int:
         phase_15(smi, _cifar10_model())
         print(f"[done] {time.perf_counter() - t0:.1f} s")
         return 0
-    if args.p17_probe:
+    if args.p17_probe or args.p18_probe:
         params2 = _dlm_params(DLM_SMOLLM_MEGA)
-        phase_mega_fallback(smi, params2)
-        phase_17(smi, params2)
+        (phase_17 if args.p17_probe else phase_18)(smi, params2)
         print(f"[done] {time.perf_counter() - t0:.1f} s")
         return 0
     errs = phase_kernels()
@@ -5933,15 +6219,15 @@ def main(argv=None) -> int:
     profile_call(smi, f"one serve batch (eta=0, S={det.S}, batch "
                  f"{svc.batch})", lambda: svc.sample_batch(det, key),
                  "step_kernel")
-    # Encode / decode / interpolation, the bfloat16 mega fallback and
+    # Encode / decode / interpolation, phase 18 (B3 / B4 in bfloat16) and
     # phase 17 (the megakernels at seq_len 128 / 256 and head dims 16 to
     # 128) run after every rate above, so that those are timed from the
     # state they were timed in before these paths existed.  B1 runs on
     # three main paths: serve, decode and interpolation; B3 and B4 also on
-    # phase 17's.
+    # phase 18's and phase 17's.
     next(r for r in b_kernels if r["name"] == "sampler_step_2d")[
         "launches"] += phase_main_ode(smi, model)
-    phase_mega_fallback(smi, params2)
+    errs18, launches18, shapes18 = phase_18(smi, params2)
     errs17, launches17, shapes17 = phase_17(smi, params2)
     z = det.encode(svc.eps_fn, torch.randn((BATCH,) + CARD_SHAPE,
                                            generator=gen, device="cuda"))
@@ -6005,10 +6291,11 @@ def main(argv=None) -> int:
                                                  + b2_p15)
     recs["megastep_rows_call"]["launches"] += b4_p8
     for name in ("megastep_call", "megastep_rows_call"):
-        recs[name]["launches"] += launches17[name]
+        recs[name]["launches"] += launches17[name] + launches18[name]
         recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"],
-                                        errs17[name])
-        recs[name].setdefault("shapes", []).extend(shapes17[name])
+                                        errs17[name], errs18[name])
+        recs[name].setdefault("shapes", []).extend(shapes17[name]
+                                                   + shapes18[name])
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -114,6 +114,6 @@ def training_loss(schedule: NoiseSchedule, eps_fn: EpsFn, x0: torch.Tensor,
     of x0's shape, as the JAX function draws them."""
     k_t, k_e = prng.split(rng)
     t = prng.randint(k_t, (x0.shape[0],), 1, schedule.T + 1)
-    noise = prng.normal(k_e, x0.shape).to(x0.dtype)
+    noise = prng.normal(k_e, x0.shape, dtype=x0.dtype)
     return simple_loss(schedule, eps_fn, x0, t.to(x0.device),
                        noise.to(x0.device), weights)

@@ -98,7 +98,7 @@ def _legacy_step_impl_sample(schedule, eps_fn, x_T, cfg, rng, step_impl,
             # clipping predicted x0 re-derives an equivalent eps
             x0 = predict_x0(schedule, x, t, eps, clip=cfg.clip_x0)
             eps = (x - torch.sqrt(ab[tk]) * x0) / torch.sqrt(1.0 - ab[tk])
-        noise = (prng.normal(keys[cfg.S - 1 - k], x.shape).to(dt)
+        noise = (prng.normal(keys[cfg.S - 1 - k], x.shape, dtype=dt)
                  if stochastic else None)
         x = step_impl(x, eps, noise,
                       *(c[n].to(dt) for n in (

@@ -38,7 +38,7 @@ from repro_torch.kernels.sampler_step.ref import SUBLANE, TILE_C
 from repro_torch.models import dense, hybrid, mamba2, moe, rwkv6
 from repro_torch.models.attention import gqa_forward, mla_forward
 from repro_torch.models.common import (ArchConfig, KeyGen, dense_init,
-                                       embed_init, rms_norm,
+                                       embed_init, matmul, rms_norm,
                                        sinusoidal_time_embedding,
                                        stack_layer_params, stacked)
 
@@ -148,11 +148,14 @@ def eps_forward(params: Params, cfg: DiffusionLMConfig, x_t: torch.Tensor,
     """eps prediction over latent sequences. x_t: (B,S,d); t: (B,) int.
     ``remat`` recomputes each layer's activations in the backward pass
     (``torch.utils.checkpoint``, JAX's ``jax.checkpoint`` of the layer
-    scan): less memory, the same numbers."""
+    scan): less memory, the same numbers.  A state and weights of two
+    types promote as in JAX (``models.common.matmul``): a bfloat16 state
+    over float32 weights, or the reverse, runs the trunk in float32."""
     a = cfg.arch
     temb = sinusoidal_time_embedding(t, cfg.time_dim).to(x_t.dtype)
-    temb = F.silu(temb @ params["time_w1"]) @ params["time_w2"]
-    h = x_t @ params["w_in"] + temb[:, None, :]
+    temb = matmul(F.silu(matmul(temb, params["time_w1"])),
+                  params["time_w2"])
+    h = matmul(x_t, params["w_in"]) + temb[:, None, :]
     B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=h.device)[None].expand(B, S)
@@ -163,7 +166,7 @@ def eps_forward(params: Params, cfg: DiffusionLMConfig, x_t: torch.Tensor,
         else:
             h = _layer_fwd(layer, a, h, positions)
     h = rms_norm(h, params["out_norm"], a.norm_eps)
-    return h @ params["w_out"]
+    return matmul(h, params["w_out"])
 
 
 def make_eps_fn(params: Params, cfg: DiffusionLMConfig):
@@ -222,8 +225,10 @@ def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def round_to_tokens(params: Params, x0: torch.Tensor) -> torch.Tensor:
-    """Latents -> int32 tokens via the rounding head (Diffusion-LM)."""
-    return torch.argmax(x0 @ params["rounding"], dim=-1).to(torch.int32)
+    """Latents -> int32 tokens via the rounding head (Diffusion-LM); a
+    float32 x0 over bfloat16 weights promotes, as in JAX."""
+    return torch.argmax(matmul(x0, params["rounding"]),
+                        dim=-1).to(torch.int32)
 
 
 def training_loss(params: Params, cfg: DiffusionLMConfig,
@@ -237,7 +242,7 @@ def training_loss(params: Params, cfg: DiffusionLMConfig,
     k_t, k_e = prng.split(rng)
     x0 = embed_tokens(params, tokens)
     t = prng.randint(k_t, (tokens.shape[0],), 1, schedule.T + 1)
-    noise = prng.normal(k_e, x0.shape).to(x0.dtype).to(x0.device)
+    noise = prng.normal(k_e, x0.shape, dtype=x0.dtype).to(x0.device)
     t = t.to(x0.device)
     x_t = q_sample(schedule, x0, t, noise)
     eps_hat = eps_forward(params, cfg, x_t, t, remat=remat)

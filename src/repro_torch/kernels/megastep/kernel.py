@@ -1,4 +1,6 @@
-"""Wrappers of the CUDA megakernel (``csrc/megastep.cu``).
+"""Wrappers of the CUDA megakernel (``csrc/megastep_body.cuh``, built as
+``csrc/megastep.cu`` for float32 weights and ``csrc/megastep_bf16.cu``
+for bfloat16 weights).
 
 Port of the two Pallas launchers in ``repro/kernels/megastep/kernel.py``:
 
@@ -22,11 +24,15 @@ refused launch raises; nothing falls back.  On tensors that lie on the
 CPU it runs the plain version (``ref.py``) and counts nothing; on a CUDA
 tensor it launches or raises.
 
-The kernel takes the TPU kernel's float32 domain: any seq_len that is a
-multiple of 64, head dim 16, 32, 64 or 128, and widths the 64 x 32
-product tiles cut exactly; a bfloat16 state or bfloat16 weights are not
-ported.  ``kernel_limits`` states these limits; ``ops.eligible`` applies
-them to states off the CPU, so such runs take the unfused path instead.
+The kernel takes the TPU kernel's domain at these widths: any seq_len
+that is a multiple of 64, head dim 16, 32, 64 or 128, widths the 64 x 32
+product tiles cut exactly, a float32 or bfloat16 state, and weights all
+float32 or all bfloat16 (a library each).  The trunk computes in the
+promotion of the two types, as JAX's does: bfloat16 only when both are.
+A float16 state and weights of mixed types, which JAX admits and no
+caller runs, are not ported.  ``kernel_limits`` states these limits;
+``ops.eligible`` applies them to states off the CPU, so such runs take
+the unfused path instead.
 """
 from __future__ import annotations
 
@@ -47,8 +53,13 @@ ATTN_IMPLS = ("exact", "flash")
 KERNEL_SEQ_MULTIPLE = 64
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 TILE_WIDTH = 32          # the product tiles' columns and depth slices
+# state and weight types, by the code the library takes (0, 1), and the
+# library built for each weight type
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+_LIBRARY = {torch.float32: "megastep", torch.bfloat16: "megastep_bf16"}
 
-# the order of the pointer fields of ReproMegaWeights in csrc/megastep.cu
+# the order of the pointer fields of ReproMegaWeights in
+# csrc/megastep_body.cuh
 _POINTERS = (("w_in",), ("time_w1",), ("time_w2",), ("out_norm",),
              ("w_out",), ("layers", "attn_norm"), ("layers", "mlp_norm"),
              ("layers", "attn", "wq"), ("layers", "attn", "wk"),
@@ -62,9 +73,11 @@ _WIDTHS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
 
 
 class _Weights(ctypes.Structure):
+    """ReproMegaWeights: the weights' device pointers (of the library's
+    weight type), the widths, and ``dtype``, the weights' type code."""
     _fields_ = ([(p[-1], ctypes.c_void_p) for p in _POINTERS]
                 + [(n, ctypes.c_int) for n in _WIDTHS]
-                + [("norm_eps", ctypes.c_float)])
+                + [("norm_eps", ctypes.c_float), ("dtype", ctypes.c_int)])
 
 
 def leaves(tree) -> Iterator[torch.Tensor]:
@@ -83,24 +96,25 @@ def _get(tree, path):
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.load("megastep")
+def _lib(weight_dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
+    """The library built for weights of ``weight_dtype``."""
+    lib = build.load(_LIBRARY[weight_dtype])
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.repro_megastep_plan.argtypes = [ctypes.POINTER(_Weights), I, I, I, I,
                                         I, I, ctypes.POINTER(ctypes.c_longlong)]
     lib.repro_megastep_plan.restype = I
     lib.repro_megastep.argtypes = [P, P, ctypes.POINTER(_Weights), P, P, P,
-                                   P, I, I, I, I, F, I, P, P, P]
+                                   P, I, I, I, I, F, I, I, P, P, P]
     lib.repro_megastep.restype = I
     lib.repro_megastep_rows.argtypes = [P, P, ctypes.POINTER(_Weights), P,
-                                        P, P, P, I, I, I, F, I, P, P, P]
+                                        P, P, P, I, I, I, F, I, I, P, P, P]
     lib.repro_megastep_rows.restype = I
     return lib
 
 
 def _width_limits(cfg, seq_len: int) -> Optional[str]:
     """Why the product tiles cannot take these widths (``widths_ok`` of
-    csrc/megastep.cu, beyond seq_len and head dim), or None."""
+    csrc/megastep_body.cuh, beyond seq_len and head dim), or None."""
     a, L = cfg.arch, cfg.latent_dim
     if a.n_heads % a.n_kv_heads:
         return (f"the CUDA megakernel takes n_heads a multiple of "
@@ -133,14 +147,20 @@ def _shape_limits(cfg, seq_len: int, state_dtype: torch.dtype
     why = _width_limits(cfg, seq_len)
     if why:
         return why
-    if state_dtype != torch.float32:
-        return (f"the CUDA megakernel takes a float32 state, got dtype "
-                f"{state_dtype}")
+    if state_dtype not in KERNEL_DTYPES:
+        return (f"the CUDA megakernel takes a float32 or bfloat16 state, "
+                f"got dtype {state_dtype}")
     return None
 
 
-def _weight_limit(dtype: torch.dtype) -> str:
-    return f"the CUDA megakernel takes float32 weights, got dtype {dtype}"
+def _weight_limits(params: Dict) -> Optional[str]:
+    """Why the CUDA megakernel cannot take these weights (not all float32
+    or all bfloat16), or None."""
+    dtypes = sorted({str(t.dtype) for t in leaves(params)})
+    if len(dtypes) == 1 and dtypes[0] in map(str, KERNEL_DTYPES):
+        return None
+    return (f"the CUDA megakernel takes weights all float32 or all "
+            f"bfloat16, got dtype {', '.join(dtypes)}")
 
 
 def kernel_limits(cfg, seq_len: int, state_dtype: torch.dtype,
@@ -150,20 +170,19 @@ def kernel_limits(cfg, seq_len: int, state_dtype: torch.dtype,
     Its own limits, beyond the eligibility rule it shares with the JAX
     package: seq_len a multiple of ``KERNEL_SEQ_MULTIPLE``, head dim in
     ``KERNEL_HEAD_DIMS``, widths the product tiles cut exactly
-    (``widths_ok`` of the source), a float32 state and float32 weights.
-    The plain version (``ref.py``) has none of them.  Needs no CUDA
-    state: the weights may be meta tensors.  The launcher refuses the
-    same inputs (``_check_kernel_inputs``)."""
-    why = _shape_limits(cfg, seq_len, state_dtype)
-    if why is None:
-        why = next((_weight_limit(t.dtype) for t in leaves(params)
-                    if t.dtype != torch.float32), None)
+    (``widths_ok`` of the source), a float32 or bfloat16 state, and
+    weights all float32 or all bfloat16.  The plain version (``ref.py``)
+    has none of them.  Needs no CUDA state: the weights may be meta
+    tensors.  The launcher refuses the same inputs
+    (``_check_kernel_inputs``)."""
+    why = _shape_limits(cfg, seq_len, state_dtype) or _weight_limits(params)
     return (False, why) if why else (True, "ok")
 
 
 def _check_kernel_inputs(x2: torch.Tensor, params: Dict, cfg,
                          seq_len: int) -> None:
-    why = _shape_limits(cfg, seq_len, x2.dtype)
+    pointed = {"/".join(p): _get(params, p) for p in _POINTERS}
+    why = _shape_limits(cfg, seq_len, x2.dtype) or _weight_limits(pointed)
     if why:
         raise ValueError(why)
     if not x2.is_contiguous():
@@ -174,8 +193,6 @@ def _check_kernel_inputs(x2: torch.Tensor, params: Dict, cfg,
         name = "/".join(path)
         if tuple(t.shape) != want:
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {want}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: {_weight_limit(t.dtype)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.device != x2.device:
@@ -183,11 +200,12 @@ def _check_kernel_inputs(x2: torch.Tensor, params: Dict, cfg,
     build.check_cuda(x2, *(_get(params, p) for p in _POINTERS))
 
 
-def _weights(params: Dict, cfg) -> _Weights:
+def _weights(params: Dict, cfg, dtype: torch.dtype) -> _Weights:
     a = cfg.arch
     return _Weights(*(_get(params, p).data_ptr() for p in _POINTERS),
                     a.n_layers, a.d_model, a.n_heads, a.n_kv_heads, a.d_ff,
-                    cfg.time_dim, cfg.latent_dim, a.hd(), a.norm_eps)
+                    cfg.time_dim, cfg.latent_dim, a.hd(), a.norm_eps,
+                    KERNEL_DTYPES.index(dtype))
 
 
 def _check_state(x2: torch.Tensor, params: Dict, cfg, batch: int,
@@ -229,16 +247,23 @@ def _launch(wrapper, entry: str, x2: torch.Tensor, eps_params: Dict, cfg,
     """Check the card-side contract, build the sinusoid / RoPE tables, ask
     for the launch plan, allocate the workspace and launch ``entry``;
     ``count`` are the leading int arguments that follow the coefficient
-    pointer (K for B3).  Records the plan in ``wrapper.last_plan``."""
+    pointer (K for B3).  Records the plan in ``wrapper.last_plan``.
+
+    The tables are float32 holding what JAX's trunk multiplies by: the
+    sinusoid cast to the state's type (``eps_forward``), and in a
+    bfloat16 trunk the RoPE cos / sin cast to bfloat16 (``apply_rope``)."""
     _check_kernel_inputs(x2, eps_params, cfg, seq_len)
     dev = x2.device
-    temb = sinusoidal_time_embedding(ts.to(dev), cfg.time_dim).contiguous()
+    w_dtype = eps_params["w_in"].dtype
+    trunk = torch.promote_types(x2.dtype, w_dtype)
+    temb = sinusoidal_time_embedding(ts.to(dev), cfg.time_dim).to(
+        x2.dtype).float().contiguous()
     cos, sin = rope_freqs(torch.arange(seq_len, device=dev),
                           cfg.arch.hd(), cfg.arch.rope_theta)
-    cos, sin = cos.contiguous(), sin.contiguous()
+    cos, sin = (z.to(trunk).float().contiguous() for z in (cos, sin))
     c32 = coefs.to(device=dev, dtype=torch.float32).contiguous()
-    w = _weights(eps_params, cfg)
-    lib = _lib()
+    w = _weights(eps_params, cfg, w_dtype)
+    lib = _lib(w_dtype)
     rows = entry == "repro_megastep_rows"
     flash = attn_impl == "flash"
     plan = (ctypes.c_longlong * len(_PLAN))()
@@ -254,8 +279,9 @@ def _launch(wrapper, entry: str, x2: torch.Tensor, eps_params: Dict, cfg,
         err = getattr(lib, entry)(
             x2.data_ptr(), out.data_ptr(), ctypes.byref(w), temb.data_ptr(),
             cos.data_ptr(), sin.data_ptr(), c32.data_ptr(), *count, batch,
-            seq_len, clip is not None, 0.0 if clip is None else float(clip), flash,
-            ws.data_ptr(), None if trace is None else trace.data_ptr(),
+            seq_len, clip is not None, 0.0 if clip is None else float(clip),
+            flash, KERNEL_DTYPES.index(x2.dtype), ws.data_ptr(),
+            None if trace is None else trace.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     build.raise_on(err, entry)
     wrapper.last_plan = dict(zip(_PLAN, plan))

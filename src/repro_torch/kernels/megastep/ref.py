@@ -33,7 +33,7 @@ from repro_torch.diffusion_lm.model import eps_forward
 from repro_torch.kernels.flash_attention.ref import streaming_attention_body
 from repro_torch.kernels.rmsnorm.ref import rms_norm_body
 from repro_torch.kernels.sampler_step.ref import update
-from repro_torch.models.common import (apply_rope, rope_freqs,
+from repro_torch.models.common import (apply_rope, matmul, rope_freqs,
                                        sinusoidal_time_embedding, swiglu)
 
 
@@ -57,8 +57,9 @@ def eps_flash(params, cfg, batch: int, seq_len: int, x2, t):
     x = x2.reshape(B, S, cfg.latent_dim)
     temb = sinusoidal_time_embedding(_t_vec(t, B, x2.device),
                                      cfg.time_dim).to(x.dtype)
-    temb = F.silu(temb @ params["time_w1"]) @ params["time_w2"]
-    h = x @ params["w_in"] + temb[:, None, :]
+    temb = matmul(F.silu(matmul(temb, params["time_w1"])),
+                  params["time_w2"])
+    h = matmul(x, params["w_in"]) + temb[:, None, :]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
     cos, sin = rope_freqs(positions, D, a.rope_theta)
@@ -66,9 +67,9 @@ def eps_flash(params, cfg, batch: int, seq_len: int, x2, t):
     for i in range(a.n_layers):
         ap = {k: v[i] for k, v in lay["attn"].items()}
         xn = rms_norm_body(h, lay["attn_norm"][i], a.norm_eps)
-        q = apply_rope((xn @ ap["wq"]).reshape(B, S, H, D), cos, sin)
-        k = apply_rope((xn @ ap["wk"]).reshape(B, S, Hkv, D), cos, sin)
-        v = (xn @ ap["wv"]).reshape(B, S, Hkv, D)
+        q = apply_rope(matmul(xn, ap["wq"]).reshape(B, S, H, D), cos, sin)
+        k = apply_rope(matmul(xn, ap["wk"]).reshape(B, S, Hkv, D), cos, sin)
+        v = matmul(xn, ap["wv"]).reshape(B, S, Hkv, D)
         if Hkv != H:                       # GQA: share each kv head
             k = torch.repeat_interleave(k, H // Hkv, dim=2)
             v = torch.repeat_interleave(v, H // Hkv, dim=2)
@@ -77,11 +78,11 @@ def eps_flash(params, cfg, batch: int, seq_len: int, x2, t):
         out = streaming_attention_body(qf, kf, vf, scale=1.0 / math.sqrt(D),
                                        causal=False).to(h.dtype)
         out = out.reshape(B, H, S, D).transpose(1, 2)
-        h = h + out.reshape(B, S, H * D) @ ap["wo"]
+        h = h + matmul(out.reshape(B, S, H * D), ap["wo"])
         h = h + swiglu(rms_norm_body(h, lay["mlp_norm"][i], a.norm_eps),
                        lay["w_gate"][i], lay["w_up"][i], lay["w_down"][i])
     h = rms_norm_body(h, params["out_norm"], a.norm_eps)
-    return (h @ params["w_out"]).reshape(x2.shape)
+    return matmul(h, params["w_out"]).reshape(x2.shape)
 
 
 EPS_BODIES = {"exact": eps_exact, "flash": eps_flash}

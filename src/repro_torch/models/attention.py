@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from .common import (ArchConfig, KeyGen, apply_rope, causal_mask,
-                     dense_init, rms_norm, rope_freqs)
+                     dense_init, matmul, rms_norm, rope_freqs)
 from .runtime_flags import FLAGS
 
 _NEG = -1e30  # large-negative instead of -inf: safe under bf16 softmax
@@ -133,9 +133,9 @@ def gqa_forward(params: Dict[str, torch.Tensor], cfg: ArchConfig,
     """Full-sequence attention (training / prefill). positions: (B, S)."""
     B, S, _ = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd()
-    q = (x @ params["wq"]).reshape(B, S, H, D)
-    k = (x @ params["wk"]).reshape(B, S, Hkv, D)
-    v = (x @ params["wv"]).reshape(B, S, Hkv, D)
+    q = matmul(x, params["wq"]).reshape(B, S, H, D)
+    k = matmul(x, params["wk"]).reshape(B, S, Hkv, D)
+    v = matmul(x, params["wv"]).reshape(B, S, Hkv, D)
     cos, sin = rope_freqs(positions, D, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -143,7 +143,7 @@ def gqa_forward(params: Dict[str, torch.Tensor], cfg: ArchConfig,
         out = chunked_grouped_attention(q, k, v, causal, FLAGS.attn_chunk,
                                         FLAGS.attn_chunk,
                                         window=cfg.sliding_window)
-        return out.reshape(B, S, H * D) @ params["wo"]
+        return matmul(out.reshape(B, S, H * D), params["wo"])
     if mask is None:
         if causal:
             mask = causal_mask(S, torch.float32, cfg.sliding_window,
@@ -152,7 +152,7 @@ def gqa_forward(params: Dict[str, torch.Tensor], cfg: ArchConfig,
             mask = torch.zeros((S, S), dtype=torch.float32, device=x.device)
     mask = torch.clamp(mask, min=_NEG)
     out = _grouped_attention(q, k, v, mask)
-    return out.reshape(B, S, H * D) @ params["wo"]
+    return matmul(out.reshape(B, S, H * D), params["wo"])
 
 
 def cross_kv(params: Dict[str, torch.Tensor], cfg: ArchConfig,

@@ -243,11 +243,23 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * scale + bias
 
 
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with both operands cast to their promoted type first, as
+    ``jnp.matmul`` promotes them (``torch.matmul`` raises on two types): a
+    bfloat16 operand with a float32 one multiplies in float32.  Operands
+    of one type pass through untouched."""
+    if a.dtype != b.dtype:
+        dt = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dt), b.to(dt)
+    return a @ b
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    """SwiGLU FFN: (silu(x @ w_gate) * (x @ w_up)) @ w_down."""
-    g = F.silu(x @ w_gate)
-    return (g * (x @ w_up)) @ w_down
+    """SwiGLU FFN: (silu(x @ w_gate) * (x @ w_up)) @ w_down, the products
+    promoted (``matmul``)."""
+    g = F.silu(matmul(x, w_gate))
+    return matmul(g * matmul(x, w_up), w_down)
 
 
 def rope_freqs(positions: torch.Tensor, dim: int,

@@ -23,11 +23,14 @@ Sums, products and quotients are float32 tensor ops (IEEE on the CPU and
 the card); a square root is taken in float64 and rounded, and a fused
 multiply-add is an exact float64 product plus a float64 sum, rounded to
 float32 (``_fma32``).  So the draws are JAX's bit for bit on either
-device (``_fma32`` says where that rests on the tests).
+device (``_fma32`` says where that rests on the tests).  ``uniform`` and
+``normal`` also draw bfloat16 and float16 at their own width, as JAX does
+(``_uniform16``): a bfloat16 draw is not the float32 one rounded.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Sequence, Tuple, Union
 
 import numpy as np
@@ -181,14 +184,56 @@ def _table64(values: Tuple[float, ...], device: torch.device) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.float64).to(device)
 
 
+# the 16-bit float types JAX draws at their own width: mantissa bits
+_MANT16 = {torch.bfloat16: 7, torch.float16: 10}
+
+
+def _uniform16(keys: torch.Tensor, shape: Shape, minval: float,
+               maxval: float, dtype: torch.dtype,
+               start: int = 0) -> torch.Tensor:
+    """``jax.random.uniform`` in a 16-bit float type, as ``_uniform`` runs
+    it: ``random_bits`` at bit width 8 (bfloat16: fewer than 8 mantissa
+    bits) or 16, i.e. the low byte or half of the 32-bit word, shifted
+    onto the mantissa under exponent 0, minus 1, then floats * (maxval -
+    minval) + minval and the floor at minval, bounds converted to
+    ``dtype`` first.  XLA:CPU rounds that product and that sum to
+    bfloat16 one by one, and fuses them for float16 (one rounding of the
+    exact value).  bfloat16 draws take one of 128 values."""
+    nmant = _MANT16[dtype]
+    width = 8 if nmant < 8 else 16
+    bits = random_bits(keys, shape, start=start) & ((1 << width) - 1)
+    one = int(torch.ones((), dtype=dtype).view(torch.int16))
+    floats = ((bits >> (width - nmant)) | one).to(torch.int16).view(dtype)
+    lo = torch.full((), minval, dtype=dtype, device=keys.device)
+    hi = torch.full((), maxval, dtype=dtype, device=keys.device)
+    if dtype == torch.bfloat16:
+        out = (floats - 1.0) * (hi - lo) + lo
+    else:    # exact in float64: 11-bit operands
+        out = ((floats - 1.0).double() * (hi - lo).double()
+               + lo.double()).to(dtype)
+    return torch.maximum(lo, out)
+
+
+def _check_dtype(dtype: torch.dtype) -> None:
+    if not dtype.is_floating_point:
+        raise TypeError(f"JAX draws floats only, got dtype {dtype}")
+
+
 def uniform(keys: torch.Tensor, shape: Shape = (), minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """float32 uniform in [minval, maxval) by ``jax.random.uniform``'s bit
-    trick: 23 random mantissa bits under exponent 0 give [1, 2), minus 1,
-    then floats * (maxval - minval) + minval, floored at minval.  XLA fuses
-    that product and sum into one multiply-add; so does the port."""
+            maxval: float = 1.0, *,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Uniform in [minval, maxval) by ``jax.random.uniform``'s bit trick:
+    random mantissa bits under exponent 0 give [1, 2), minus 1, then
+    floats * (maxval - minval) + minval, floored at minval.  In float32
+    (23 bits) XLA fuses that product and sum into one multiply-add; so
+    does the port.  bfloat16 and float16 draw at their own width
+    (``_uniform16``).  float64 is JAX's float32 draw, widened (JAX draws
+    float32 unless x64 is on)."""
+    _check_dtype(dtype)
+    if dtype in _MANT16:
+        return _uniform16(keys, shape, minval, maxval, dtype)
     return _uniform32(keys, shape, _scalar32(minval, keys.device),
-                      _scalar32(maxval, keys.device))
+                      _scalar32(maxval, keys.device)).to(dtype)
 
 
 # XLA:CPU's float32 log: a Cephes logf on the mantissa in [sqrt(1/2), sqrt(2))
@@ -284,15 +329,28 @@ def erf32(x: torch.Tensor) -> torch.Tensor:
     return (x * num) / den
 
 
-def normal(keys: torch.Tensor, shape: Shape = (), *,
-           start: int = 0) -> torch.Tensor:
-    """float32 standard normals, ``jax.random.normal``:
-    sqrt(2) * erf_inv(u), u uniform on [nextafter(-1, 0), 1).  ``start``
-    as in ``random_bits``."""
+def normal(keys: torch.Tensor, shape: Shape = (), *, start: int = 0,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Standard normals, ``jax.random.normal(key, shape, dtype)``:
+    sqrt(2) * erf_inv(u), u uniform on [nextafter(-1, 0), 1) in ``dtype``.
+    In a 16-bit type u is ``_uniform16``'s, erf_inv is XLA's float32 one
+    rounded to ``dtype`` (XLA widens the 16-bit erf_inv to float32), and
+    its product with sqrt(2) (itself in ``dtype``) is rounded to
+    ``dtype``.
+    float64 is the float32 draw, widened.  ``start`` as in
+    ``random_bits``."""
+    _check_dtype(dtype)
+    if dtype in _MANT16:
+        nmant = _MANT16[dtype]
+        u = _uniform16(keys, shape, -(1.0 - 2.0 ** -(nmant + 1)), 1.0,
+                       dtype, start)
+        sqrt2 = torch.full((), math.sqrt(2), dtype=torch.float64,
+                           device=keys.device).to(dtype)
+        return erf_inv32(u.float()).to(dtype) * sqrt2
     lo = _scalar32(float(np.nextafter(np.float32(-1), np.float32(0))),
                    keys.device)
     u = _uniform32(keys, shape, lo, torch.ones_like(lo), start)
-    return erf_inv32(u) * _SQRT2
+    return (erf_inv32(u) * _SQRT2).to(dtype)
 
 
 def truncated_normal(keys: torch.Tensor, lower: float, upper: float,

@@ -259,13 +259,13 @@ class DiffusionSampler:
                      n: Optional[int] = None) -> Tuple[torch.Tensor, float]:
         """One batch for ``cfg`` (a SamplerPlan, a SamplerConfig or
         ``"auto"``): (samples, seconds of the plan run).  ``k1, k2 =
-        split(rng)``: x_T is ``normal(k1)`` (float32, cast to the service's
-        dtype) and the plan runs with ``k2``, as in JAX."""
+        split(rng)``: x_T is ``normal(k1)`` drawn in the service's dtype
+        and the plan runs with ``k2``, as in JAX."""
         plan = self._as_plan(cfg)
         batch = self._bucket_for(n) if n is not None else self.batch
         self._programs.add((plan, batch))
         k1, k2 = prng.split(rng.to(self.device))
-        x_T = prng.normal(k1, (batch,) + self.shape).to(self.dtype)
+        x_T = prng.normal(k1, (batch,) + self.shape, dtype=self.dtype)
         backend = "tile_resident" if self.tile_resident else "eager"
         synchronize(self.device)
         t0 = time.perf_counter()

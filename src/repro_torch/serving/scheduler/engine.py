@@ -32,10 +32,11 @@ blocks hold whole slots, else on the gathered state, and then launches
 noise is keyed on (row seed, lane), so a row's step does not depend on
 the block it sits in; a block may start mid-slot.
 
+x_T is ``prng.normal(PRNGKey(req.seed), dtype=<the engine's dtype>)``,
+JAX's draw in that dtype (a bfloat16 engine's x_T is JAX's bfloat16
+draw, not the float32 one rounded).
+
 Differences from the JAX engine:
-  * x_T is ``prng.normal(PRNGKey(req.seed))``, JAX's draw, in float32 and
-    then cast to the engine's dtype (JAX draws a bfloat16 engine's x_T in
-    bfloat16).
   * The tick ends in ``torch.cuda.synchronize`` where JAX blocks on the
     result, so the tick wall and its EWMA measure the same thing.  The
     per-tick slot states ship to the device in one host-to-device copy.
@@ -865,7 +866,7 @@ class ContinuousBatchingEngine:
         """x_T of one slot, (rows_per_slot, 256): JAX's normal from
         ``PRNGKey(seed)`` on the engine's device."""
         key = prng.PRNGKey(int(seed), self.device)
-        x = prng.normal(key, (1,) + self.shape).to(self.dtype)
+        x = prng.normal(key, (1,) + self.shape, dtype=self.dtype)
         return tile_ops.to_slot_tile_layout(x)[0]
 
     def _admit(self, now: float, results: List[SampleResult]) -> None:

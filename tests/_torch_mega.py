@@ -46,3 +46,10 @@ def state(batch: int, seq: int, seed: int = 1) -> np.ndarray:
     """A (R, 256) float32 tile state of (batch, seq, LATENT)."""
     return np.random.RandomState(seed).randn(
         batch * seq * LATENT // 256, 256).astype(np.float32)
+
+
+def cast(tree, dtype):
+    """A port parameter tree with its float leaves cast to ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: cast(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if tree.is_floating_point() else tree

@@ -38,15 +38,15 @@ def test_a_header_edit_names_a_new_library(tmp_path, monkeypatch):
 def test_headers_are_hashed_for_every_source():
     names = {p.name for p in build.headers()}
     assert {"step_update.cuh", "rmsnorm_body.cuh",
-            "online_softmax.cuh"} <= names
+            "online_softmax.cuh", "megastep_body.cuh"} <= names
     assert set(build.sources()) == {"sampler_step", "rmsnorm",
                                     "flash_attention", "megastep",
-                                    "ddim_step"}
+                                    "megastep_bf16", "ddim_step"}
 
 
 @pytest.mark.parametrize("name", ["sampler_step", "rmsnorm",
                                   "flash_attention", "megastep",
-                                  "ddim_step"])
+                                  "megastep_bf16", "ddim_step"])
 def test_includes_resolve_under_the_include_dir(name):
     """nvcc gets ``-I kernels/``; every quoted include names a header of
     the package, so the hash covers what the build reads."""

@@ -212,13 +212,15 @@ def test_eligibility_reasons():
 # multiple of 64 (96 tokens of a latent-64 trunk, a whole number of tile
 # granules), a head dim outside 16, 32, 64, 128 (8), widths the product
 # tiles do not cut (head dim 16 with one kv head: 16 k and v columns), a
-# bfloat16 state or bfloat16 weights.  A state off the CPU (meta stands for
-# the card here) meets them or is not eligible; a CPU state keeps the JAX
+# float16 state, or weights of two types (float32 and bfloat16: JAX admits
+# both, no caller runs them).  A state off the CPU (meta stands for the
+# card here) meets them or is not eligible; a CPU state keeps the JAX
 # rule.
 LIMIT_CASES = {
     "seq_len": dict(cfg="latent64", batch=2, seq=96, what="seq_len 96"),
-    "state_dtype": dict(state=torch.bfloat16, what="dtype torch.bfloat16"),
-    "weight_dtype": dict(weights=torch.bfloat16, what="dtype torch.bfloat16"),
+    "state_dtype": dict(state=torch.float16, what="dtype torch.float16"),
+    "weight_dtype": dict(weights="mixed", what="weights all float32 or all "
+                         "bfloat16, got dtype torch.bfloat16, torch.float32"),
     "head_dim": dict(cfg=(8, 4), what="head_dim 8"),
     "widths": dict(cfg=(4, 1), what="n_kv_heads * head_dim 16"),
 }
@@ -242,8 +244,9 @@ def _limit_case(case):
         cfg = _small_cfg(*cfg)
     batch, seq = c.get("batch", 4 if cfg.arch.d_model > 64 else B), \
         c.get("seq", SEQ)
-    spec = _meta_spec(cfg, batch, seq_len=seq,
-                      dtype=c.get("weights", torch.float32))
+    spec = _meta_spec(cfg, batch, seq_len=seq)
+    if c.get("weights") == "mixed":     # one bfloat16 leaf among float32
+        spec.params["w_out"] = spec.params["w_out"].to(torch.bfloat16)
     return spec, (batch, seq, cfg.latent_dim), c.get("state", torch.float32)
 
 
@@ -283,7 +286,11 @@ def _bench_mega_cfg():
 
 def test_kernel_limits_admit_the_slice():
     """The slice's 4 x 64, DLM_SMOLLM_MEGA at 2 x 128 and 1 x 256, the bench
-    trunk (head dim 32) at 32 x 64, and head dims 16 and 128."""
+    trunk (head dim 32) at 32 x 64, and head dims 16 and 128; each with
+    the three bfloat16 state / weights pairs too; and a 4-layer
+    smollm-width trunk in bfloat16 at 4 x 64, which fits the budget only
+    with bfloat16 weights."""
+    bf16, f32 = torch.bfloat16, torch.float32
     cases = [(configs.DLM_SMOLLM_MEGA, 4, SEQ),
              (configs.DLM_SMOLLM_MEGA, 2, 128),
              (configs.DLM_SMOLLM_MEGA, 1, 256),
@@ -291,12 +298,24 @@ def test_kernel_limits_admit_the_slice():
              (_small_cfg(4, 2), 2, 128),
              (_small_cfg(1, 1, d_model=128), 1, 256)]
     for cfg, batch, seq in cases:
-        spec = _meta_spec(cfg, batch, seq_len=seq)
-        assert tk.kernel_limits(spec.cfg, seq, torch.float32,
-                                spec.params) == (True, "ok")
-        assert megastep.eligible(spec, torch.empty(
-            batch, seq, cfg.latent_dim, device="meta")) == (True, "ok")
+        for state, weights in ((f32, f32), (bf16, bf16), (bf16, f32),
+                               (f32, bf16)):
+            spec = _meta_spec(cfg, batch, seq_len=seq, dtype=weights)
+            assert tk.kernel_limits(spec.cfg, seq, state,
+                                    spec.params) == (True, "ok")
+            assert megastep.eligible(spec, torch.empty(
+                batch, seq, cfg.latent_dim, dtype=state,
+                device="meta")) == (True, "ok")
     assert _bench_mega_cfg().arch.hd() == 32
+    mega = configs.DLM_SMOLLM_MEGA
+    deep = dataclasses.replace(mega, arch=dataclasses.replace(mega.arch,
+                                                              n_layers=4))
+    for weights, fits in ((bf16, True), (f32, False)):
+        spec = _meta_spec(deep, 4, seq_len=SEQ, dtype=weights)
+        assert tk.kernel_limits(deep, SEQ, bf16, spec.params) == (True, "ok")
+        ok, why = megastep.eligible(spec, torch.empty(
+            4, SEQ, deep.latent_dim, dtype=bf16, device="meta"))
+        assert ok == fits and (fits or "budget 39321600 B" in why)
 
 
 def test_engine_off_the_cpu_takes_rows_for_the_kernel_limits():
