@@ -20,6 +20,11 @@ times, for another checkout's ``src``, one scheduler x_T draw, a steady
 U-Net scheduler tick, serve samples/s and slot-steps/s at CIFAR10 width,
 as one JSON line (the cost of phase 11's draws against the parent).
 
+    python3 chip_smoke.py --b5-probe OTHER/src
+
+times B5 at the main path's shapes for another checkout's ``src``, as one
+JSON line (parent against change, alternated in one call).
+
     python3 chip_smoke.py --tick-probe OTHER/src
 
 times, for another checkout's ``src``, the steady tick of phases 4-9's
@@ -34,7 +39,8 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               matmul, so float32 convolutions and products are float32
   2. build    every CUDA source of the port (one nvcc each, in parallel),
               timed, with ptxas's register / shared memory / spill lines
-              for the megakernel and the B5 / B6 sources
+              for the megakernel and the B5 / B6 sources, and each B5
+              instantiation's registers and spills by name
   3. kernels  each kernel against its plain PyTorch version on the card,
               with stated tolerances:
               B1/B2 over det/stoch x clip x float32/bfloat16 x R in {16,
@@ -42,9 +48,12 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               B6 rms_norm over f32/bf16 x rows {256, 1000} x d {576, 192,
               190} (190 takes the scalar row path; so does an unaligned
               x at d 576), the row path checked from the launch plan;
-              B5 flash_attention over f32/bf16 x causal/not at (36, 64, 64),
-              (9, 2048, 64) and (8, 1024, 128) (one-, four- and two-warp
-              blocks), with the launch plan printed; B3 megastep_call at
+              B5 flash_attention over f32/bf16 x causal/not at every head
+              width (head dims 32, 33, 64, 80, 112, 128, 129, 192, 200,
+              256) with one, two and four warps per 16 query rows, at
+              ragged S 1, 37, 100 and 2,047 and the main path's shapes,
+              the launch plan checked and printed, float32 also against
+              attention in float64; B3 megastep_call at
               the slice's shape
               (smollm width, 2 layers, batch 4 x 64 tokens) over
               exact/flash x clip none/1.0 x K {1, 8}; B4 megastep_rows_call
@@ -67,7 +76,10 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               eligibility reason printed; plan.run 'mega' (exact and flash)
               against 'tile_resident' on the card;
               the attention / norm ops at smollm width and prefill length
-              (rms_norm, gqa_flash causal), against the model's plain ones;
+              (rms_norm, gqa_flash causal), then gqa_flash causal at
+              zamba2-2.7b's (32 / 32 heads, head dim 80) and kimi-k2's (64
+              / 8, head dim 112) attention widths, each counted, against
+              the model's plain ones;
               the continuous-batching scheduler on the CIFAR10 U-Net:
               svc.continuous(slots=8, stochastic, max_order 2, preview)
               serves 24 requests (S {10, 20, 50} x tau uniform/quadratic x
@@ -83,8 +95,9 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               CUDA-graph-replayed kernel times at the main path's shapes
               beside their bound, the plain versions' and the library
               call's times (B6 at (256, 576), (2048, 576) and (16384, 576);
-              B5 at (36, 64, 64) full and (9, 2048, 64) causal, that one
-              in bf16 too, with the bound at the float32 SIMT rate beside
+              B5 at (36, 64, 64) full and (9, 2048, 64), (32, 2048, 80)
+              and (64, 2048, 112) causal, those in bf16 too, with the
+              bound at the float32 SIMT rate (at the true head dim) beside
               the bound on the units it uses; each with its launch plan);
               the U-Net forward at batch 8; samples/s from
               serve and from generate on 'mega' and 'tile_resident';
@@ -375,6 +388,15 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               the bound (bfloat16 bytes; operations at the bfloat16 rate
               and on the products as built), with phase traces.
               --p18-probe runs only the build and this phase
+ 19. mixed-type trunks, run last: the deepseek-v2, kimi-k2, rwkv6-7b and
+              zamba2-2.7b diffusion-LM trunks at smoke width with a
+              float32 state over bfloat16 weights (JAX promotes each
+              product): generate(tile_resident=True), S=10, 4 x 64,
+              counted (B1 S times, nothing else), and x0 of generate's key
+              on the card against the same run on the CPU (1e-4 of
+              max|x0|).  --p19-probe runs only the build, B5's domain
+              checks (phase 3), the ops path (phase 4), B5's timings at
+              its new widths (phase 5) and this phase
 
 Every time is printed beside the card's name and power limit.  Any failure
 raises and the script exits nonzero with no result line.  On success the
@@ -420,7 +442,7 @@ DLM_KERNELS = {
         "src/repro_torch/kernels/megastep/csrc/megastep_body.cuh",
         "src/repro/kernels/megastep/kernel.py:232"),
     "flash_attention": (
-        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro_torch/kernels/flash_attention/csrc/flash_mma.cuh",
         "src/repro/kernels/flash_attention/kernel.py:118"),
     "rms_norm_2d": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm/kernel.py:38"),
@@ -538,13 +560,17 @@ def phase_card() -> str:
     return smi
 
 
+FLASH_LIBS = ("flash_attention", "flash_attention_wide",
+              "flash_attention_bf16", "flash_attention_bf16_wide")
+
+
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     libs = build.build_all()
     print(f"[build] {sorted(libs)} built/loaded in "
           f"{time.perf_counter() - t0:.2f} s into {build.BUILD_DIR}")
-    for name in ("megastep", "megastep_bf16", "flash_attention", "rmsnorm",
+    for name in ("megastep", "megastep_bf16", *FLASH_LIBS, "rmsnorm",
                  "ddim_step"):
         lines = [ln.strip() for ln in build.build_log(name).splitlines()
                  if "Used" in ln or "spill" in ln
@@ -553,10 +579,39 @@ def phase_build():
             r"(?<!\d)0 bytes spill stores, 0 bytes spill loads", ln)]
         print(f"[build] {name}: {len(lines)} ptxas lines, {len(spills)} "
               f"with spills")
-        full = name in ("megastep", "megastep_bf16", "flash_attention",
+        full = name in ("megastep", "megastep_bf16", *FLASH_LIBS,
                         "rmsnorm")
         for ln in (lines if full else spills)[:96]:
             print(f"[build]   {ln}")
+    for name in FLASH_LIBS:
+        for kern, regs, spill in _flash_ptxas(build.build_log(name)):
+            print(f"[build] B5 {kern}: {regs} registers, spill stores / "
+                  f"loads {spill[0]} / {spill[1]} B")
+
+
+def _flash_ptxas(log: str):
+    """(instantiation, registers, (spill store, load bytes)) of every B5
+    kernel in a library's ptxas log."""
+    out, cur, spill = [], None, (0, 0)
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*flash_mma_kernelI"
+                      r"(f|13__nv_bfloat16)Li(\d+)ELb([01])ELi(\d)ELb([01])E",
+                      ln)
+        if m:
+            t, w, c, p, qx = m.groups()
+            cur = (f"{'f32' if t == 'f' else 'bf16'} width {w} "
+                   f"{'causal' if c == '1' else 'full'} P {p}"
+                   f"{' exact q' if qx == '1' else ''}")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and cur:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur:
+            out.append((cur, int(m.group(1)), spill))
+            cur, spill = None, (0, 0)
+    return out
 
 
 def _tolerance(dtype, exact: bool, scale: float) -> float:
@@ -1806,28 +1861,35 @@ def _check_row_path(plan, vector: bool) -> None:
 def _fa_plan(p):
     """B5's launch plan as the records keep it: grid, blocks per SM,
     dynamic shared bytes, threads per block, KV tile rows, the warps that
-    share 16 query rows."""
+    share 16 query rows, the head width, the ring's stages and whether K /
+    V went by 16-byte copies."""
     return {"grid": p["grid_x"] * p["grid_y"], "grid_xy": [p["grid_x"],
             p["grid_y"]], "blocks_per_sm": p["blocks_per_sm"],
             "smem_bytes": p["smem_bytes"], "threads": p["threads"],
-            "kv_tile": p["kv_tile"], "kv_split": p["kv_split"]}
+            "kv_tile": p["kv_tile"], "kv_split": p["kv_split"],
+            "head_width": p["head_width"], "stages": p["stages"],
+            "staging": "16-byte" if p["flags"] & 1 else "element"}
 
 
 def _check_fa_plan(plan, BH, S, D, dtype) -> None:
-    """B5 launched with the KV tile and split that the CPU emulation
-    (``ref.flash_attention_tiles_ref``) assumes for this shape."""
+    """B5 launched with the width, KV tile and split that the CPU
+    emulation (``ref.flash_attention_tiles_ref``) assumes for this shape,
+    and 16-byte staging exactly where rows are whole 16-byte chunks."""
     from repro_torch.kernels.flash_attention import ref as fref
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    want = (fref.kernel_kv_tile(D, dtype), fref.kernel_kv_split(BH, S, n_sm))
+    want = (fref.kernel_head_width(D), fref.kernel_kv_tile(D, dtype),
+            fref.kernel_kv_split(BH, S, n_sm),
+            (D * torch.finfo(dtype).bits // 8) % 16 == 0)
+    got = (plan["head_width"], plan["kv_tile"], plan["kv_split"],
+           bool(plan["flags"] & 1))
     print(f"[kernels]   plan {_fa_plan(plan)}")
-    check((plan["kv_tile"], plan["kv_split"]) == want,
-          f"B5 ({BH}, {S}, {D}) launched KV tile {plan['kv_tile']} and "
-          f"split {plan['kv_split']}; the emulation assumes {want}")
+    check(got == want, f"B5 ({BH}, {S}, {D}) launched (width, KV tile, "
+          f"split, 16-byte staging) {got}; the emulation assumes {want}")
 
 
-def _vs_float64(q, k, v, causal, got, want) -> None:
+def _vs_float64(q, k, v, causal, got, want) -> float:
     """Print the float32 kernel's and its plain version's distance from
-    attention in float64, of max|out|."""
+    attention in float64, of max|out|; returns the kernel's."""
     from repro_torch.kernels.flash_attention import ref as fref
     exact = fref.attention_ref(q.double()[None], k.double()[None],
                                v.double()[None], causal=causal)[0]
@@ -1836,13 +1898,65 @@ def _vs_float64(q, k, v, causal, got, want) -> None:
     e_p = float((want.double() - exact).abs().max()) / scale
     print(f"[kernels]   vs float64 attention: kernel {e_k:.3e}, plain "
           f"{e_p:.3e} of max|out|")
+    return e_k
+
+
+# B5 over its domain: per head width, one head dim that runs there (33
+# and 129: rows that are no whole 16-byte chunks; 80 and 112: zamba2's and
+# kimi-k2's) and one (BH, S) per KV split on 132 SMs ([P]): ragged S 1,
+# 37, 100 and 2,047 (blocks of S at 2,047), and the main path's shapes
+B5_DOMAIN = (
+    (32, ((2, 1), (40, 100), (5, 2047))),
+    (33, ((2, 37), (3, 2047), (132, 1))),
+    (64, ((36, DLM_SEQ), (36, 128), (9, 2048))),
+    (80, ((1, 2047), (70, 37), (66, 100))),
+    (112, ((2, 100), (70, 1), (5, 2047))),
+    (128, ((2, 64), (8, 1024), (24, 2048))),
+    (129, ((2, 37), (40, 100), (132, 1))),
+    (192, ((2, 1), (3, 2047), (66, 100))),
+    (200, ((1, 2047), (70, 37), (132, 37))),
+    (256, ((2, 100), (70, 1), (5, 2047))))
+
+
+def _check_b5_domain(errs, gen, dtype) -> None:
+    """B5 at every head width x KV split x causal in ``dtype`` against
+    its plain version (2e-5 / 2e-2 of max|out|), float32 also against
+    attention in float64 (2e-5)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fref
+    dev = torch.device("cuda")
+    tag = "f32" if dtype == torch.float32 else "bf16"
+    rel = 2e-5 if dtype == torch.float32 else 2e-2
+    variants = set()
+    for D, shapes in B5_DOMAIN:
+        for BH, S in shapes:
+            q, k, v = (torch.randn(BH, S, D, generator=gen, device=dev)
+                       .to(dtype) for _ in range(3))
+            blk = S if S % 64 else min(S, 128)
+            for causal in (False, True):
+                got = fk.flash_attention(q, k, v, causal=causal,
+                                         block_q=blk, block_k=blk)
+                want = fref.flash_attention_ref(q, k, v, causal=causal,
+                                                block_k=blk)
+                name = (f"B5 ({BH}, {S}, {D}) {tag} "
+                        f"{'causal' if causal else 'full'}")
+                _check_rel(errs, name, got, want, rel)
+                plan = fk.flash_attention.last_plan
+                _check_fa_plan(plan, BH, S, D, dtype)
+                variants.add((plan["head_width"], plan["kv_split"]))
+                if dtype == torch.float32:
+                    e64 = _vs_float64(q, k, v, causal, got, want)
+                    check(e64 <= rel, f"{name}: {e64:.3e} of max|out| from "
+                          f"attention in float64")
+    want_v = {(w, p) for w in fref.HEAD_WIDTHS for p in (1, 2, 4)}
+    check(variants == want_v,
+          f"B5 {tag}: the checks ran the variants {sorted(variants)}, not "
+          f"every head width with every KV split")
 
 
 def phase_kernels_dlm(params2):
     """B6, B5 and B3 against their plain versions on the card."""
     from repro_torch.configs import DLM_SMOLLM_MEGA
-    from repro_torch.kernels.flash_attention import kernel as fk
-    from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.megastep import kernel as mk
     from repro_torch.kernels.megastep import ref as mref
     from repro_torch.kernels.rmsnorm import kernel as rk
@@ -1874,35 +1988,7 @@ def phase_kernels_dlm(params2):
                    rk.rms_norm_2d(x, sc), rref.rms_norm_body(x, sc, 1e-5),
                    ulps)
         _check_row_path(rk.rms_norm_2d.last_plan, False)
-        rel = 2e-5 if dtype == torch.float32 else 2e-2
-        # every launch variant: head dim 64 and 128, each with 1, 2 and 4
-        # warps splitting the KV columns (the split on 132 SMs in [])
-        variants = set()
-        for BH, S, D, blk in ((36, DLM_SEQ, 64, 64),      # [4]
-                              (36, 128, 64, 64),          # [2]
-                              (9, 2048, 64, 128),         # [1]
-                              (2, 64, 128, 64),           # [4]
-                              (8, 1024, 128, 128),        # [2]
-                              (24, 2048, 128, 128)):      # [1]
-            q, k, v = (torch.randn(BH, S, D, generator=gen, device=dev)
-                       .to(dtype) for _ in range(3))
-            for causal in (False, True):
-                got = fk.flash_attention(q, k, v, causal=causal,
-                                         block_q=blk, block_k=blk)
-                want = fref.flash_attention_ref(q, k, v, causal=causal,
-                                                block_k=blk)
-                _check_rel(errs["flash_attention"],
-                           f"B5 ({BH}, {S}, {D}) {tag} "
-                           f"{'causal' if causal else 'full'}", got, want,
-                           rel)
-                _check_fa_plan(fk.flash_attention.last_plan, BH, S, D,
-                               dtype)
-                variants.add((D, fk.flash_attention.last_plan["kv_split"]))
-                if dtype == torch.float32:
-                    _vs_float64(q, k, v, causal, got, want)
-        check(variants == {(d, p) for d in (64, 128) for p in (1, 2, 4)},
-              f"B5 {tag}: the checks ran the variants {sorted(variants)}, "
-              f"not every head dim with every KV split")
+        _check_b5_domain(errs["flash_attention"], gen, dtype)
     coefs, ts = _plan_rows(DLM_S)
     n = DLM_BATCH * DLM_SEQ * DLM_SMOLLM_MEGA.latent_dim
     x2 = torch.randn(n // 256, 256, generator=gen, device=dev)
@@ -2621,9 +2707,14 @@ def phase_17(smi, params2):
     return errs, {"megastep_call": b3, "megastep_rows_call": b4}, shapes
 
 
+OPS_ATTN_ARCHS = ("zamba2-2.7b", "kimi-k2-1t-a32b")
+
+
 def phase_ops_path():
     """The public norm / attention ops at smollm width and prefill
-    length, counted, against the model's plain versions."""
+    length, then gqa_flash at zamba2-2.7b's and kimi-k2's attention
+    widths, counted, against the model's plain versions."""
+    from repro_torch import configs
     from repro_torch.configs import SMOLLM_135M as a
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ops as fops
@@ -2660,6 +2751,30 @@ def phase_ops_path():
     check(launches == {"flash_attention": 1, "rms_norm_2d": 1},
           f"ops path launches {launches}")
     check(e_n <= 4 * F32_ULP and e_a <= 1e-4, "ops path disagrees")
+    # gqa_flash at the attention widths of zamba2-2.7b's shared block (32
+    # / 32 heads, head dim 80) and kimi-k2's GQA (64 / 8, head dim 112),
+    # prefill length, each counted on its own
+    for arch in OPS_ATTN_ARCHS:
+        c = configs.get(arch)
+        H, Hkv, D = c.n_heads, c.n_kv_heads, c.hd()
+        q = torch.randn(1, S, H, D, generator=gen, device=dev)
+        k, v = (torch.randn(1, S, Hkv, D, generator=gen, device=dev)
+                for _ in range(2))
+        fk.flash_attention.launches = 0
+        out = fops.gqa_flash(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        n = fk.flash_attention.launches
+        want = _grouped_attention(q, k, v, torch.clamp(
+            causal_mask(S, device=dev), min=-1e30))
+        e_a = float((out - want).abs().max() / want.abs().max())
+        print(f"[main] ops path ({arch} attention width, 1 x {S} tokens): "
+              f"gqa_flash causal ({H}/{Hkv} heads, head dim {D}); launches "
+              f"{n}; plan {_fa_plan(fk.flash_attention.last_plan)}; vs "
+              f"_grouped_attention {e_a:.3e} (tol 1e-4) of max|out|")
+        check(n == 1 and e_a <= 1e-4, f"ops path at {arch}'s attention: "
+              f"{n} launches, {e_a:.3e} of max|out|")
+        launches["flash_attention"] += n
+        del q, k, v, out, want
     return launches
 
 
@@ -2771,6 +2886,57 @@ def _phase_trace(smi, label, wrapper, fn, steps, n_layers):
           f"(us): {mean}")
 
 
+def _b5_bound(BH, S, D, causal, dtype):
+    """B5's bound at the true head dim D (not the kernel's padded width):
+    (bound_ms, bound_by, bound_tc_ms).  bound_ms: the bytes (q, k, v read,
+    out written once), or the operations at the rate of the inputs' type
+    (float32 on the SIMT units; bfloat16: one pass on the tensor cores,
+    the softmax at the float32 rate).  bound_tc_ms: on the units the
+    float32 kernel uses, 3 TF32 passes for the products plus the softmax
+    at the float32 rate (bfloat16: as bound_ms)."""
+    pairs = BH * (S * (S + 1) // 2 if causal else S * S)
+    size = torch.finfo(dtype).bits // 8
+    t_bytes = 4 * BH * S * D * size / RL.HBM_BW * 1e3
+    t_soft = pairs * 5 / RL.PEAK_FLOPS_F32 * 1e3
+    if dtype == torch.float32:
+        t_ops = pairs * 4 * D / RL.PEAK_FLOPS_F32 * 1e3 + t_soft
+        t_tc = pairs * 4 * D * 3 / RL.PEAK_FLOPS_TF32 * 1e3 + t_soft
+    else:
+        t_ops = t_tc = pairs * 4 * D / RL.PEAK_FLOPS_BF16 * 1e3 + t_soft
+    b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops \
+        else (t_ops, "operations")
+    return b_ms, b_by, max(t_bytes, t_tc)
+
+
+def _time_b5(smi, gen, BH, S, D, blk, causal, dtype):
+    """B5 graph-replayed at (BH, S, D) beside its plain version, SDPA and
+    its bound; returns the record."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fref
+    q, k, v = (torch.randn(BH, S, D, generator=gen, device="cuda")
+               .to(dtype) for _ in range(3))
+    b_ms, b_by, b_tc = _b5_bound(BH, S, D, causal, dtype)
+    tag = "f32" if dtype == torch.float32 else "bf16"
+    rec = dict(
+        ms=graph_ms(lambda: fk.flash_attention(
+            q, k, v, causal=causal, block_q=blk, block_k=blk)),
+        plain_ms=graph_ms(lambda: fref.flash_attention_ref(
+            q, k, v, causal=causal, block_k=blk), iters=10),
+        library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=causal)),
+        bound_ms=b_ms, bound_by=b_by, bound_tc_ms=b_tc,
+        shape=f"({BH}, {S}, {D}) {tag} {'causal' if causal else 'full'}",
+        **_fa_plan(fk.flash_attention.last_plan))
+    _time_line(smi, f"B5 flash_attention {rec['shape']}", rec)
+    print(f"[times]   B5 bound on the units the kernel uses "
+          f"{rec['bound_tc_ms'] * 1e3:.3f} us, "
+          f"{rec['bound_tc_ms'] / rec['ms']:.3f} of it; kernel / library "
+          f"{rec['ms'] / rec['library_ms']:.3f}")
+    return rec
+
+
 def phase_times_dlm(smi, params2, errs, b3_launches, ops_launches):
     import torch.nn.functional as F
 
@@ -2780,8 +2946,6 @@ def phase_times_dlm(smi, params2, errs, b3_launches, ops_launches):
     from repro_torch.core.schedules import make_schedule
     from repro_torch.diffusion_lm import (generate, make_tile_eps_fn,
                                           round_to_tokens)
-    from repro_torch.kernels.flash_attention import kernel as fk
-    from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.megastep import kernel as mk
     from repro_torch.kernels.megastep import ref as mref
     from repro_torch.kernels.rmsnorm import kernel as rk
@@ -2809,47 +2973,18 @@ def phase_times_dlm(smi, params2, errs, b3_launches, ops_launches):
         _add_shape(recs, "rms_norm_2d", rec, primary=R == 2048)
 
     # B5 at the trunk's attention shape and at the ops path's prefill
-    # (the record).  bound_ms: bytes, or the operations at the rate of the
-    # inputs' type (float32 on the SIMT units; bfloat16: one pass on the
-    # tensor cores, the softmax at the float32 rate).  bound_tc_ms: on
-    # the units the float32 kernel uses, 3 TF32 passes for the products
-    # plus the softmax at the float32 rate (bfloat16: as bound_ms)
-    for BH, S, blk, causal, dtype in (
-            (DLM_BATCH * cfg.arch.n_heads, DLM_SEQ, 64, False,
+    # (the record), then at zamba2-2.7b's and kimi-k2's attention widths
+    # (ops path, BH = the query heads)
+    for BH, S, D, blk, causal, dtype in (
+            (DLM_BATCH * cfg.arch.n_heads, DLM_SEQ, 64, 64, False,
              torch.float32),
-            (9, 2048, 128, True, torch.float32),
-            (9, 2048, 128, True, torch.bfloat16)):
-        q, k, v = (torch.randn(BH, S, 64, generator=gen, device=dev)
-                   .to(dtype) for _ in range(3))
-        pairs = BH * (S * (S + 1) // 2 if causal else S * S)
-        t_bytes = 4 * BH * S * 64 * q.element_size() / RL.HBM_BW * 1e3
-        t_soft = pairs * 5 / RL.PEAK_FLOPS_F32 * 1e3
-        if dtype == torch.float32:
-            t_ops = pairs * 4 * 64 / RL.PEAK_FLOPS_F32 * 1e3 + t_soft
-            t_tc = pairs * 4 * 64 * 3 / RL.PEAK_FLOPS_TF32 * 1e3 + t_soft
-        else:
-            t_ops = t_tc = pairs * 4 * 64 / RL.PEAK_FLOPS_BF16 * 1e3 + t_soft
-        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops \
-            else (t_ops, "operations")
-        tag = "f32" if dtype == torch.float32 else "bf16"
-        rec = dict(
-            ms=graph_ms(lambda: fk.flash_attention(
-                q, k, v, causal=causal, block_q=blk, block_k=blk)),
-            plain_ms=graph_ms(lambda: fref.flash_attention_ref(
-                q, k, v, causal=causal, block_k=blk), iters=10),
-            library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
-                q[None], k[None], v[None], is_causal=causal)),
-            bound_ms=b_ms, bound_by=b_by, bound_tc_ms=max(t_bytes, t_tc),
-            shape=f"({BH}, {S}, 64) {tag} "
-                  f"{'causal' if causal else 'full'}",
-            **_fa_plan(fk.flash_attention.last_plan))
-        _time_line(smi, f"B5 flash_attention {rec['shape']}", rec)
-        print(f"[times]   B5 bound on the units the kernel uses "
-              f"{rec['bound_tc_ms'] * 1e3:.3f} us, "
-              f"{rec['bound_tc_ms'] / rec['ms']:.3f} of it; kernel / "
-              f"library {rec['ms'] / rec['library_ms']:.3f}")
+            (9, 2048, 64, 128, True, torch.float32),
+            (9, 2048, 64, 128, True, torch.bfloat16),
+            *((BH, S, D, 128, True, dt) for BH, S, D in B5_OPS_SHAPES
+              for dt in (torch.float32, torch.bfloat16))):
+        rec = _time_b5(smi, gen, BH, S, D, blk, causal, dtype)
         _add_shape(recs, "flash_attention", rec,
-                   primary=causal and dtype == torch.float32)
+                   primary=causal and D == 64 and dtype == torch.float32)
 
     # B3: one 8-step launch at the slice's shape
     coefs, ts = _plan_rows(DLM_S)
@@ -5910,6 +6045,109 @@ def _p16_pools(smi, p15_ticks):
             check(total == 0 and got["count"] == 0, f"(d) {label}: {got}")
 
 
+P19_ARCHS = ("deepseek-v2-236b", "kimi-k2-1t-a32b", "rwkv6-7b",
+             "zamba2-2.7b")
+P19_S = 10
+P19_TOL = 1e-4            # of max|x0|: one float32 trunk, card against CPU
+# B5 at the ops path's zamba2-2.7b / kimi-k2 widths, timed in phase 5
+B5_OPS_SHAPES = ((32, 2048, 80), (64, 2048, 112))
+
+
+def phase_19(smi):
+    """The moe (MLA and GQA), ssm and hybrid diffusion-LM trunks at their
+    smoke widths with a float32 state over bfloat16 weights, which JAX
+    promotes: generate(tile_resident=True) on the card, counted (B1 once
+    per step, nothing else), and the x0 of generate's key on the card
+    against the same run on the CPU.  Returns B1's launches."""
+    from repro_torch import configs, prng
+    from repro_torch.core import SamplerConfig, sample
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.diffusion_lm import generate, make_tile_eps_fn
+    from repro_torch.diffusion_lm.model import DiffusionLMConfig, init_params
+    t0 = time.perf_counter()
+    sch = make_schedule("linear", 1000)
+    sampler = SamplerConfig(S=P19_S)
+    b1 = 0
+
+    def x0_of(params, cfg, dev):
+        # generate's own draws and loop, up to x0
+        k_init, k_samp = prng.split(prng.PRNGKey(19, dev))
+        x_T = prng.normal(k_init, (DLM_BATCH, DLM_SEQ, cfg.latent_dim))
+        eps = make_tile_eps_fn(params, cfg, DLM_BATCH, DLM_SEQ)
+        return sample(sch, eps, x_T, sampler, k_samp, tile_resident=True,
+                      backend="mega")
+
+    for arch in P19_ARCHS:
+        cfg = DiffusionLMConfig(arch=configs.get_smoke(arch))
+        host = _to_dtype(init_params(prng.PRNGKey(19, "cpu"), cfg,
+                                     device="cpu"), torch.bfloat16)
+        card = _to_dtype(host, "cuda")
+        _zero_all_counts()
+        toks = generate(card, cfg, sch, prng.PRNGKey(19), DLM_BATCH,
+                        DLM_SEQ, sampler, tile_resident=True)
+        torch.cuda.synchronize()
+        counts = _all_counts()
+        got, want = x0_of(card, cfg, "cuda").cpu(), x0_of(host, cfg, "cpu")
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max()) / scale
+        print(f"[p19] {smi} | {arch} diffusion-LM trunk (smoke width), "
+              f"float32 state over bfloat16 weights, generate(S="
+              f"{P19_S}, {DLM_BATCH} x {DLM_SEQ}, tile_resident=True): "
+              f"launches {counts}; tokens {tuple(toks.shape)} "
+              f"{toks.dtype}; x0 {got.dtype} card vs CPU {err:.3e} of "
+              f"max|x0| (tol {P19_TOL:g})")
+        check(counts == dict(_zero_dict(), B1=P19_S)
+              and toks.shape == (DLM_BATCH, DLM_SEQ)
+              and toks.dtype == torch.int32
+              and got.dtype == torch.float32
+              and bool(torch.isfinite(got).all()) and err <= P19_TOL,
+              f"{arch} mixed-type trunk: {counts}, {err:.3e}")
+        b1 += counts["B1"]
+        del card
+    print(f"[p19] phase 19: {time.perf_counter() - t0:.1f} s")
+    return b1
+
+
+def b5_probe(smi, src) -> None:
+    """--b5-probe SRC: B5 graph-replayed at the main path's shapes (the
+    trunk's (36, 64, 64) full, the ops path's (9, 2048, 64) causal in
+    float32 and bfloat16) for SRC/repro_torch, as one JSON line of µs, so
+    that alternated runs compare two trees with one timer."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import kernel as fk
+    build.build_all()
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    out = {"src": str(src), "card": smi}
+    for BH, S, blk, causal, dtype in (
+            (36, DLM_SEQ, 64, False, torch.float32),
+            (9, 2048, 128, True, torch.float32),
+            (9, 2048, 128, True, torch.bfloat16)):
+        q, k, v = (torch.randn(BH, S, 64, generator=gen, device="cuda")
+                   .to(dtype) for _ in range(3))
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        out[f"({BH}, {S}, 64) {tag} {'causal' if causal else 'full'}"] = \
+            graph_ms(lambda: fk.flash_attention(
+                q, k, v, causal=causal, block_q=blk, block_k=blk)) * 1e3
+    print(json.dumps(out))
+
+
+def phase_19_probe(smi):
+    """--p19-probe: B5 over its domain in both dtypes, the ops path, B5
+    timed at the ops path's new widths, and phase 19."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    errs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        _check_b5_domain(errs, gen, dtype)
+    print(f"[p19] B5 domain checks: {len(errs)} cases, max rel "
+          f"{max(errs):.3e}, {time.perf_counter() - t0:.1f} s")
+    phase_ops_path()
+    for BH, S, D in B5_OPS_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            _time_b5(smi, gen, BH, S, D, 128, True, dtype)
+    phase_19(smi)
+
+
 def phase_16(smi, p15_ticks=None, counted=False):
     """Phase 16: the dry run and the collective term.  (a) the dry run
     over every --arch x shape id x production mesh without the count: 80
@@ -6130,6 +6368,15 @@ def main(argv=None) -> int:
     ap.add_argument("--p18-probe", action="store_true",
                     help="only build the kernels and run phase 18 (B3 / B4 "
                          "on bfloat16 states and weights) on this checkout")
+    ap.add_argument("--p19-probe", action="store_true",
+                    help="only build the kernels and run B5 over its "
+                         "domain, the ops path, B5's timings at its new "
+                         "widths and phase 19 (the mixed-type trunks) on "
+                         "this checkout")
+    ap.add_argument("--b5-probe", metavar="SRC", type=Path,
+                    help="only time B5 at the main path's shapes on "
+                         "SRC/repro_torch (another checkout's src), as one "
+                         "JSON line")
     ap.add_argument("--draw-probe", metavar="SRC", type=Path,
                     help="only time the x_T draw, serve and the U-Net "
                          "scheduler on SRC/repro_torch (phase 11's cost "
@@ -6144,7 +6391,7 @@ def main(argv=None) -> int:
               "False)", file=sys.stderr)
         return 1
     src = (args.launch_probe or args.lm_probe or args.draw_probe
-           or args.tick_probe or SRC).resolve()
+           or args.tick_probe or args.b5_probe or SRC).resolve()
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke: {src / 'repro_torch'} not found; run it from a "
               "checkout of the repository", file=sys.stderr)
@@ -6162,6 +6409,9 @@ def main(argv=None) -> int:
         return 0
     if args.tick_probe:
         tick_probe(smi, src)
+        return 0
+    if args.b5_probe:
+        b5_probe(smi, src)
         return 0
     from repro_torch.configs import LLAMA3_2_3B, SMOLLM_135M
     if args.lm_probe:
@@ -6189,6 +6439,10 @@ def main(argv=None) -> int:
         return 0
     if args.p15_probe:
         phase_15(smi, _cifar10_model())
+        print(f"[done] {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args.p19_probe:
+        phase_19_probe(smi)
         print(f"[done] {time.perf_counter() - t0:.1f} s")
         return 0
     if args.p17_probe or args.p18_probe:
@@ -6282,9 +6536,12 @@ def main(argv=None) -> int:
     # Phase 16 runs last, so that every rate above is timed as before.  The
     # dry run and the collective term launch none of the seven kernels.
     phase_16(smi, p15_ticks)
+    # Phase 19 runs last, so that every rate above is timed as before.  B1
+    # runs on the mixed-type moe, ssm and hybrid trunks.
+    b1_p19 = phase_19(smi)
     recs = {r["name"]: r for r in kernels}
     recs["sampler_step_2d"]["launches"] += (b1_auto + b1_p11 + b1_p12
-                                            + b1_p13 + b1_p14)
+                                            + b1_p13 + b1_p14 + b1_p19)
     recs["sampler_step_rows_2d"]["launches"] += (b2_auto + b2_p8 + b2_mega
                                                  + b2_gw + b2_chaos + b2_cli
                                                  + b2_p11 + b2_p14

@@ -1,12 +1,12 @@
-// Tensor-core and async-copy primitives of the flash-attention kernel
-// (flash_attention.cu, flash_mma.cuh).
+// Tensor-core and async-copy primitives shared by the flash-attention
+// kernel (flash_mma.cuh) and the megakernels (megastep_body.cuh).
 //
-// to_tf32, mma_tf32 and the cp.async helpers are copies of the ones in
-// megastep/csrc/megastep.cu (the 3xTF32 split its products use; CPU
-// twin: megastep/ref.py ``tf32_round`` / ``tf32x3_matmul``); cp_async16
-// here takes untyped pointers so that bfloat16 tiles use it too, and
-// split_tf32_fast leaves the remainder unrounded.  The bfloat16 mma,
-// ldmatrix and split helpers are new.
+// namespace repro: cp_async16 (untyped pointers, so bfloat16 tiles use it
+// too) and its zero-filling twin, the commit / wait pair, to_tf32 and
+// mma_tf32, the one copy that both kernels include (CPU twin of the TF32
+// rounding: megastep/ref.py ``tf32_round`` / ``tf32x3_matmul``).  namespace repro::fa: the flash
+// kernel's own split_tf32_fast (the remainder left unrounded) and its
+// bfloat16 mma, ldmatrix and split helpers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -14,12 +14,21 @@
 #include <cstdint>
 
 namespace repro {
-namespace fa {
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
                "l"(src)
+               : "memory");
+}
+
+// 16 bytes, of which the first ``bytes`` (0 or 16) are read from src and
+// the rest zero-filled: one branch-free copy for a padded or ragged tile.
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 int bytes) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a),
+               "l"(src), "r"(bytes)
                : "memory");
 }
 
@@ -39,23 +48,25 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
 
-// x = big + small with big = rna(x) and small = x - big left as float32:
-// the tensor core reads the top 19 bits of a TF32 operand, so small is
-// truncated to TF32 where it is used (as CUTLASS's fast 3xTF32 does).
-// megastep.cu's split_tf32 rounds small with to_tf32 too; two integer ops
-// more per operand, a difference below 2^-21 of x.
-__device__ __forceinline__ void split_tf32_fast(float x, uint32_t& big,
-                                                uint32_t& small) {
-  big = to_tf32(x);
-  small = __float_as_uint(__fsub_rn(x, __uint_as_float(big)));
-}
-
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+namespace fa {
+
+// x = big + small with big = rna(x) and small = x - big left as float32:
+// the tensor core reads the top 19 bits of a TF32 operand, so small is
+// truncated to TF32 where it is used (as CUTLASS's fast 3xTF32 does).
+// megastep_body.cuh's split_tf32 rounds small with to_tf32 too; two
+// integer ops more per operand, a difference below 2^-21 of x.
+__device__ __forceinline__ void split_tf32_fast(float x, uint32_t& big,
+                                                uint32_t& small) {
+  big = to_tf32(x);
+  small = __float_as_uint(__fsub_rn(x, __uint_as_float(big)));
 }
 
 // d += a b, bfloat16 operands, float32 accumulators (m16n8k16).

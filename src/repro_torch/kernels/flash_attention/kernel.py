@@ -5,12 +5,16 @@ It checks its inputs (the block sizes as the JAX wrapper checks them),
 allocates the output with ``torch.empty``, launches on PyTorch's current
 stream and counts the launch in ``flash_attention.launches``;
 ``flash_attention.last_plan`` holds the launch plan of its latest launch
-(grid, threads, shared bytes, blocks per SM, KV tile rows, and the
-warps that split the KV columns of 16 query rows).  On tensors that lie
-on the CPU it runs the plain version (``ref.flash_attention_ref``) and
-counts nothing; on a CUDA tensor it launches or raises.  The kernel tiles
-for the card whatever blocks the caller passes; it takes head dim 64 or
-128 and S a multiple of 64.
+(grid, threads, shared bytes, blocks per SM, KV tile rows, the warps
+that split the KV columns of 16 query rows, the head width, the ring's
+stages and the staging flags).  On tensors that lie on the CPU it runs
+the plain version (``ref.flash_attention_ref``) and counts nothing; on a
+CUDA tensor it launches or raises.  The kernel tiles for the card
+whatever blocks the caller passes.  It takes every S the block check
+admits and every head dim from 1 to 256, run at the least width of
+``ref.HEAD_WIDTHS`` that holds it; the widths up to 128 and those past it
+are two libraries per dtype (``csrc/flash_attention*.cu``).  A head dim
+past 256 and float16 raise.
 """
 from __future__ import annotations
 
@@ -26,20 +30,23 @@ from . import ref
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
-KERNEL_HEAD_DIMS = (64, 128)
-KERNEL_SEQ_MULTIPLE = 64
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the fields of repro_flash_attention's plan[7], in order
+# the fields of repro_flash_attention's plan[10], in order
 _PLAN = ("grid_x", "grid_y", "threads", "smem_bytes", "blocks_per_sm",
-         "kv_tile", "kv_split")
+         "kv_tile", "kv_split", "head_width", "stages", "flags")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+def library_name(dtype: torch.dtype, width: int) -> str:
+    """The library (``csrc/<name>.cu``) that holds ``width`` in ``dtype``."""
+    return ("flash_attention" + ("_bf16" if dtype == torch.bfloat16 else "")
+            + ("_wide" if width > 128 else ""))
+
+
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.load("flash_attention")
+def _lib(name: str) -> ctypes.CDLL:
+    lib = build.load(name)
     lib.repro_flash_attention.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I,
-                                          _I, _F, _P, _P]
+                                          _F, _P, _P]
     lib.repro_flash_attention.restype = _I
     return lib
 
@@ -60,23 +67,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        block_k=block_k)
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise TypeError("q, k, v must share float32 or bfloat16")
-    if D not in KERNEL_HEAD_DIMS or S % KERNEL_SEQ_MULTIPLE:
-        raise ValueError(f"the CUDA kernel takes D in {KERNEL_HEAD_DIMS} "
-                         f"and S a multiple of {KERNEL_SEQ_MULTIPLE}; got "
-                         f"D={D}, S={S}")
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k, v must share float32 or bfloat16 (no caller "
+                        "passes float16, and the kernel has no float16 "
+                        "build)")
+    if D > ref.MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA kernel takes head dims up to "
+                         f"{ref.MAX_HEAD_DIM}: past that its float32 "
+                         f"accumulator of D / 2 registers a thread does not "
+                         f"fit; got D={D}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")
-    build.check_cuda(q, k, v)
+    build.check_cuda(q, k, v, aligned=False)
     out = torch.empty_like(q)
     plan = (ctypes.c_int * len(_PLAN))()
+    lib = _lib(library_name(q.dtype, ref.kernel_head_width(D)))
     with torch.cuda.device(q.device):
-        err = _lib().repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[q.dtype], BH, S, D, bool(causal),
-            1.0 / math.sqrt(D),
+        err = lib.repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, S,
+            D, bool(causal), 1.0 / math.sqrt(D),
             torch.cuda.current_stream(q.device).cuda_stream, plan)
     build.raise_on(err, "flash_attention")
     flash_attention.launches += 1

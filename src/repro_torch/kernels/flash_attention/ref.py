@@ -14,7 +14,8 @@
     alpha = 1, so the result is the same.
   * ``flash_attention_tiles_ref``: the CUDA kernel's float32 tile
     arithmetic (64-row q tiles, its KV tiles in ascending order, 3xTF32
-    products), for the CPU tests to hold against the JAX kernel.
+    products, the head dim zero-padded to the kernel's width, a ragged
+    last tile), for the CPU tests to hold against the JAX kernel.
 """
 from __future__ import annotations
 
@@ -40,19 +41,36 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 Q_TILE = 64   # query rows of the CUDA kernel's largest block
+# The head widths the CUDA kernel is built at (``csrc/*.cu``): a head dim
+# d runs at the least width >= d, zero-padded (width - d < 32).
+HEAD_WIDTHS = (32, 64, 96, 128, 160, 192, 224, 256)
+MAX_HEAD_DIM = HEAD_WIDTHS[-1]
+
+
+def kernel_head_width(d: int) -> int:
+    """The width the CUDA kernel runs head dim ``d`` at (``D`` of
+    ``flash_mma_kernel``)."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA kernel takes head dims 1 to "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    return next(w for w in HEAD_WIDTHS if w >= d)
 
 
 def kernel_kv_tile(d: int, dtype: torch.dtype) -> int:
     """KV rows per stage of the CUDA kernel (``Tiles<T, D>::BK`` in
-    ``csrc/flash_mma.cuh``): 64, or 32 for float32 at head dim 128."""
-    return 4096 // d if dtype == torch.float32 else 64
+    ``csrc/flash_mma.cuh``) at head dim ``d``: 64, or 32 for float32 past
+    width 64."""
+    if dtype == torch.float32 and kernel_head_width(d) > 64:
+        return 32
+    return 64
 
 
 def kernel_kv_split(bh: int, s: int, n_sm: int) -> int:
     """The warps P that split the KV columns of 16 query rows
-    (``with_split`` in ``csrc/flash_attention.cu``): 1 while the 64-row q
-    tiles are at least the SMs, else 2 while twice as many are, else 4."""
-    tiles = bh * (s // Q_TILE)
+    (``with_split`` in ``csrc/flash_launch.cuh``): 1 while the 64-row q
+    tiles (the last one ragged) are at least the SMs, else 2 while twice
+    as many are, else 4."""
+    tiles = bh * -(-s // Q_TILE)
     return 1 if tiles >= n_sm else 2 if 2 * tiles >= n_sm else 4
 
 
@@ -109,50 +127,61 @@ def flash_attention_tiles_ref(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = False,
                               kv_split: int = 1) -> torch.Tensor:
     """(BH, S, D) float32 -> (BH, S, D) float32 by the CUDA kernel's
-    float32 arithmetic: q tiles of ``Q_TILE / kv_split`` rows, q scaled
-    before the dot; for each, the KV tiles of ``kernel_kv_tile`` rows in
-    ascending order, under causal up to the one holding the tile's last
-    row, the recurrence of ``online_softmax_step`` with both products by
-    the 3xTF32 split (``megastep.ref.tf32x3_matmul``).  With ``kv_split`` P > 1 (the
+    float32 arithmetic: the head dim zero-padded to the kernel's width and
+    S to whole tiles; q tiles of ``Q_TILE / kv_split`` rows, q scaled (by
+    1 / sqrt(D) of the true D) before the dot; for each, the KV tiles of
+    ``kernel_kv_tile`` rows in ascending order, scores at or past S (and,
+    under causal, above the diagonal) masked to -1e30, the recurrence of
+    ``online_softmax_step`` with both products by the 3xTF32 split
+    (``megastep.ref.tf32x3_matmul``).  With ``kv_split`` P > 1 (the
     kernel's choice for grids with fewer q tiles than SMs) every KV tile's
-    columns are cut into P slices, each slice runs its own recurrence,
-    and the P states merge at the end: m = max m_i, l = sum l_i e^(m_i -
-    m), acc likewise, in slice order."""
+    columns are cut into P slices, each slice runs its own recurrence, and
+    the P states merge at the end: m = max m_i, l = sum l_i e^(m_i - m),
+    acc likewise, in slice order.
+
+    Every q tile and slice runs as one batch over the KV tiles up to the
+    last real row's: where the kernel stops a q tile at its own diagonal,
+    the later tiles are masked whole, and add p = 0 with alpha = 1 to a
+    slice that has seen a real score (the same bits), or carry weight 0
+    into the merge."""
     from repro_torch.kernels.megastep.ref import tf32x3_matmul
     BH, S, D = q.shape
+    W = kernel_head_width(D)
     bk = kernel_kv_tile(D, torch.float32)
-    width, rows = bk // kv_split, Q_TILE // kv_split
-    scale = 1.0 / math.sqrt(D)
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    for q0 in range(0, S, rows):
-        q1 = min(q0 + rows, S)
-        qs = q[:, q0:q1].float() * scale
-        lead = (BH, q1 - q0, 1)
-        rows_i = torch.arange(q0, q1, device=q.device)[:, None]
-        cols_i = torch.arange(width, device=q.device)[None, :]
-        states = []
-        for p in range(kv_split):
-            m = torch.full(lead, _NEG, dtype=torch.float32, device=q.device)
-            l = torch.zeros(lead, dtype=torch.float32, device=q.device)
-            acc = torch.zeros(qs.shape, dtype=torch.float32, device=q.device)
-            for k0 in range(0, q1 if causal else S, bk):
-                c0 = k0 + p * width
-                sc = tf32x3_matmul(
-                    qs, k[:, c0:c0 + width].float().transpose(-1, -2))
-                if causal:
-                    sc = torch.where(rows_i >= c0 + cols_i, sc, _NEG)
-                m_new = torch.maximum(m, torch.amax(sc, -1, keepdim=True))
-                pr = torch.exp(sc - m_new)
-                alpha = torch.exp(m - m_new)
-                l = alpha * l + torch.sum(pr, -1, keepdim=True)
-                acc = acc * alpha + tf32x3_matmul(
-                    pr, v[:, c0:c0 + width].float())
-                m = m_new
-            states.append((m, l, acc))
-        m, l, acc = states[0]
-        for mi, li, acci in states[1:]:
-            mn = torch.maximum(m, mi)
-            a0, a1 = torch.exp(m - mn), torch.exp(mi - mn)
-            m, l, acc = mn, l * a0 + li * a1, acc * a0 + acci * a1
-        out[:, q0:q1] = acc / torch.clamp(l, min=1e-20)
-    return out
+    P = kv_split
+    width, rows = bk // P, Q_TILE // P
+    nq = -(-S // rows)                    # q tiles that hold a real row
+    s_pad = -(-S // Q_TILE) * Q_TILE      # a multiple of every tile
+    qp, kp, vp = (torch.nn.functional.pad(t.float(), (0, W - D, 0, s_pad - S))
+                  for t in (q, k, v))
+    qs = (qp[:, :nq * rows] * (1.0 / math.sqrt(D))).reshape(
+        BH, nq, 1, rows, W)
+    row = torch.arange(nq * rows, device=q.device).reshape(nq, 1, rows, 1)
+    col = (torch.arange(P, device=q.device).reshape(P, 1, 1) * width
+           + torch.arange(width, device=q.device))        # (P, 1, width)
+    lead = (BH, nq, P, rows, 1)
+    m = torch.full(lead, _NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros(lead, dtype=torch.float32, device=q.device)
+    acc = torch.zeros((BH, nq, P, rows, W), dtype=torch.float32,
+                      device=q.device)
+    for k0 in range(0, min(nq * rows, S) if causal else S, bk):
+        kt, vt = (t[:, k0:k0 + bk].reshape(BH, 1, P, width, W)
+                  for t in (kp, vp))
+        sc = tf32x3_matmul(qs, kt.transpose(-1, -2))    # (BH, nq, P, rows, w)
+        keep = k0 + col < S
+        if causal:
+            keep = keep & (row >= k0 + col)
+        sc = torch.where(keep, sc, _NEG)
+        m_new = torch.maximum(m, torch.amax(sc, -1, keepdim=True))
+        pr = torch.exp(sc - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + torch.sum(pr, -1, keepdim=True)
+        acc = acc * alpha + tf32x3_matmul(pr, vt)
+        m = m_new
+    mm, ll, aa = m[:, :, 0], l[:, :, 0], acc[:, :, 0]
+    for i in range(1, P):
+        mn = torch.maximum(mm, m[:, :, i])
+        a0, a1 = torch.exp(mm - mn), torch.exp(m[:, :, i] - mn)
+        mm, ll, aa = mn, ll * a0 + l[:, :, i] * a1, aa * a0 + acc[:, :, i] * a1
+    out = (aa / torch.clamp(ll, min=1e-20)).reshape(BH, nq * rows, W)
+    return out[:, :S, :D].contiguous()

@@ -143,6 +143,7 @@
 
 #include <type_traits>
 
+#include "flash_attention/csrc/mma_helpers.cuh"
 #include "flash_attention/csrc/online_softmax.cuh"
 #include "rmsnorm/csrc/rmsnorm_body.cuh"
 #include "sampler_step/csrc/step_update.cuh"
@@ -180,7 +181,12 @@ struct ReproMegaWeights {
 namespace {
 
 namespace cg = cooperative_groups;
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
 using repro::kAttnThreads;
+using repro::mma_tf32;
+using repro::to_tf32;
 using WT = REPRO_MEGA_WEIGHT;  // the weights' type
 constexpr bool kBf16W = std::is_same<WT, __nv_bfloat16>::value;
 static_assert(kBf16W || std::is_same<WT, float>::value,
@@ -356,42 +362,11 @@ __device__ __forceinline__ float wload(const WT* w, long long i) {
   return repro::to_f32(__ldg(w + i));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// cvt.rna.tf32.f32 (round to nearest, ties away from zero, keep the top
-// 19 bits) as two integer ops: the same bits for every finite x, at the
-// full ALU rate (the cvt goes through the slower conversion pipe).
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
 // x = big + small, both TF32: big = rna(x), small = rna(x - big).
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
                                            uint32_t& small) {
   big = to_tf32(x);
   small = to_tf32(__fsub_rn(x, __uint_as_float(big)));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ------------------------------------------------------------ block ranks

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from .common import (ArchConfig, KeyGen, apply_rope, causal_mask,
-                     dense_init, matmul, rms_norm, rope_freqs)
+                     dense_init, einsum, matmul, rms_norm, rope_freqs)
 from .runtime_flags import FLAGS
 
 _NEG = -1e30  # large-negative instead of -inf: safe under bf16 softmax
@@ -63,10 +63,10 @@ def _grouped_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Hkv = k.shape[2]
     G = H // Hkv
     qg = q.reshape(B, Sq, Hkv, G, D)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k) / math.sqrt(D)
+    scores = einsum("bqkgd,bskd->bkgqs", qg, k) / math.sqrt(D)
     scores = scores + mask
     probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    out = einsum("bkgqs,bskd->bqkgd", probs, v)
     return out.reshape(B, Sq, H, D)
 
 
@@ -102,7 +102,7 @@ def chunked_grouped_attention(q: torch.Tensor, k: torch.Tensor,
         acc = torch.zeros((B, Hkv, G, qc, D), dtype=torch.float32,
                           device=q.device)
         for ki in range(nk):
-            s = torch.einsum("bqkgd,bckd->bkgqc", qb, kg[:, ki]).float()
+            s = einsum("bqkgd,bckd->bkgqc", qb, kg[:, ki]).float()
             rows, cols = qi * qc + r, ki * kc + c
             ok = torch.ones((qc, kc), dtype=torch.bool, device=q.device)
             if causal:
@@ -114,7 +114,7 @@ def chunked_grouped_attention(q: torch.Tensor, k: torch.Tensor,
             p = torch.exp(s - m_new)
             alpha = torch.exp(m - m_new)
             l = alpha * l + p.sum(dim=-1, keepdim=True)
-            acc = alpha * acc + torch.einsum(
+            acc = alpha * acc + einsum(
                 "bkgqc,bckd->bkgqd", p.to(q.dtype), vg[:, ki]).float()
             m = m_new
         out = acc / torch.clamp(l, min=1e-20)
@@ -161,8 +161,8 @@ def cross_kv(params: Dict[str, torch.Tensor], cfg: ArchConfig,
     (B, Sk, Hkv, D) tensors, no RoPE."""
     B, Sk, _ = kv_src.shape
     Hkv, D = cfg.n_kv_heads, cfg.hd()
-    return ((kv_src @ params["wk"]).reshape(B, Sk, Hkv, D),
-            (kv_src @ params["wv"]).reshape(B, Sk, Hkv, D))
+    return (matmul(kv_src, params["wk"]).reshape(B, Sk, Hkv, D),
+            matmul(kv_src, params["wv"]).reshape(B, Sk, Hkv, D))
 
 
 def cross_attend(params: Dict[str, torch.Tensor], cfg: ArchConfig,
@@ -172,9 +172,9 @@ def cross_attend(params: Dict[str, torch.Tensor], cfg: ArchConfig,
     RoPE, the additive ``mask``; returns (B, S, d)."""
     B, S, _ = x.shape
     H, D = cfg.n_heads, cfg.hd()
-    q = (x @ params["wq"]).reshape(B, S, H, D)
+    q = matmul(x, params["wq"]).reshape(B, S, H, D)
     out = _grouped_attention(q, k, v, mask)
-    return out.reshape(B, S, H * D) @ params["wo"]
+    return matmul(out.reshape(B, S, H * D), params["wo"])
 
 
 def gqa_cross_forward(params: Dict[str, torch.Tensor], cfg: ArchConfig,
@@ -242,13 +242,14 @@ def decode_attend(layer_k: torch.Tensor, layer_v: torch.Tensor,
     slot, cos, sin, mask = tables
     B = x.shape[0]
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd()
-    q = apply_rope((x @ params["wq"]).reshape(B, 1, H, D), cos, sin)
-    k = apply_rope((x @ params["wk"]).reshape(B, 1, Hkv, D), cos, sin)
-    v = (x @ params["wv"]).reshape(B, 1, Hkv, D)
+    q = apply_rope(matmul(x, params["wq"]).reshape(B, 1, H, D), cos, sin)
+    k = apply_rope(matmul(x, params["wk"]).reshape(B, 1, Hkv, D), cos,
+                   sin)
+    v = matmul(x, params["wv"]).reshape(B, 1, Hkv, D)
     _write_slot(layer_k, slot, k)
     _write_slot(layer_v, slot, v)
     out = _grouped_attention(q, layer_k, layer_v, mask)
-    return out.reshape(B, 1, H * D) @ params["wo"]
+    return matmul(out.reshape(B, 1, H * D), params["wo"])
 
 
 def gqa_decode_step(layer_k: torch.Tensor, layer_v: torch.Tensor,
@@ -277,9 +278,9 @@ def gqa_prefill(layer_k: torch.Tensor, layer_v: torch.Tensor, params: Dict,
     B, S, _ = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd()
     M = layer_k.shape[1]
-    q = (x @ params["wq"]).reshape(B, S, H, D)
-    k = (x @ params["wk"]).reshape(B, S, Hkv, D)
-    v = (x @ params["wv"]).reshape(B, S, Hkv, D)
+    q = matmul(x, params["wq"]).reshape(B, S, H, D)
+    k = matmul(x, params["wk"]).reshape(B, S, Hkv, D)
+    v = matmul(x, params["wv"]).reshape(B, S, Hkv, D)
     cos, sin = rope_freqs(positions, D, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -297,7 +298,7 @@ def gqa_prefill(layer_k: torch.Tensor, layer_v: torch.Tensor, params: Dict,
     else:
         layer_k[:, :S].copy_(k)
         layer_v[:, :S].copy_(v)
-    return out.reshape(B, S, H * D) @ params["wo"], layer_k, layer_v
+    return matmul(out.reshape(B, S, H * D), params["wo"]), layer_k, layer_v
 
 
 # ====================================================================== MLA
@@ -333,17 +334,19 @@ def _mla_q(params: Dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     B, S, _ = x.shape
     qd = cfg.qk_nope_dim + cfg.qk_rope_dim
     if cfg.q_lora:
-        cq = rms_norm(x @ params["w_dq"], params["q_norm"], cfg.norm_eps)
-        q = cq @ params["w_uq"]
+        cq = rms_norm(matmul(x, params["w_dq"]), params["q_norm"],
+                      cfg.norm_eps)
+        q = matmul(cq, params["w_uq"])
     else:
-        q = x @ params["wq"]
+        q = matmul(x, params["wq"])
     return q.reshape(B, S, cfg.n_heads, qd)
 
 
 def _mla_latent(params: Dict, cfg: ArchConfig, x: torch.Tensor):
     """(c_kv, k_rope before rotation) of x: what the cache holds."""
-    ckv = rms_norm(x @ params["w_dkv"], params["kv_norm"], cfg.norm_eps)
-    return ckv, x @ params["w_krope"]
+    ckv = rms_norm(matmul(x, params["w_dkv"]), params["kv_norm"],
+                   cfg.norm_eps)
+    return ckv, matmul(x, params["w_krope"])
 
 
 def _mla_scale(cfg: ArchConfig) -> float:
@@ -362,15 +365,15 @@ def _mla_attend_rot(params: Dict, cfg: ArchConfig, q_nope: torch.Tensor,
     B, Sq, H, _ = q_nope.shape
     Sk = ckv.shape[1]
     nope, dv = cfg.qk_nope_dim, cfg.v_head_dim
-    k_nope = (ckv @ params["w_uk"]).reshape(B, Sk, H, nope)
-    v = (ckv @ params["w_uv"]).reshape(B, Sk, H, dv)
-    scores = (torch.einsum("bqhd,bshd->bhqs", q_nope, k_nope)
-              + torch.einsum("bqhd,bsd->bhqs", q_rope, k_rope)) \
+    k_nope = matmul(ckv, params["w_uk"]).reshape(B, Sk, H, nope)
+    v = matmul(ckv, params["w_uv"]).reshape(B, Sk, H, dv)
+    scores = (einsum("bqhd,bshd->bhqs", q_nope, k_nope)
+              + einsum("bqhd,bsd->bhqs", q_rope, k_rope)) \
         * _mla_scale(cfg)
     scores = scores + mask
     probs = torch.softmax(scores.float(), dim=-1).to(q_nope.dtype)
-    out = torch.einsum("bhqs,bshd->bqhd", probs, v)
-    return out.reshape(B, Sq, H * dv) @ params["wo"]
+    out = einsum("bhqs,bshd->bqhd", probs, v)
+    return matmul(out.reshape(B, Sq, H * dv), params["wo"])
 
 
 def _mla_attend(params: Dict, cfg: ArchConfig, q: torch.Tensor,

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import threading
 from typing import Callable, Dict, Optional, Tuple
@@ -252,6 +253,16 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         dt = torch.promote_types(a.dtype, b.dtype)
         a, b = a.to(dt), b.to(dt)
     return a @ b
+
+
+def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` with its operands cast to their promoted type
+    first, as ``jnp.einsum`` promotes them (``torch.einsum`` raises on two
+    types): in bfloat16 Mamba2's decays are float32 (``A`` is), and a
+    float32 state meets bfloat16 expert weights in a moe trunk.  Operands
+    of one type pass through untouched."""
+    dt = functools.reduce(torch.promote_types, [o.dtype for o in ops])
+    return torch.einsum(eq, *(o.to(dt) for o in ops))
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

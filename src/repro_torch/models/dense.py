@@ -29,8 +29,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from .attention import (decode_attend, decode_tables, gqa_forward,
                         gqa_prefill, gqa_shapes, init_gqa_params,
                         init_kv_cache)
-from .common import (ArchConfig, KeyGen, dense_init, embed_init, rms_norm,
-                     stack_layer_params, stacked, swiglu)
+from .common import (ArchConfig, KeyGen, dense_init, embed_init, matmul,
+                     rms_norm, stack_layer_params, stacked, swiglu)
 from .runtime_flags import constrain_residual
 
 Params = Dict
@@ -129,8 +129,8 @@ def layer_fwd(layer: Dict, cfg: ArchConfig, x: torch.Tensor,
 def _logits(params: Params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        return h @ params["embed"].T
-    return h @ params["unembed"]
+        return matmul(h, params["embed"].T)
+    return matmul(h, params["unembed"])
 
 
 def _embed(params: Params, tokens: torch.Tensor,

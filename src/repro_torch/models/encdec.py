@@ -23,8 +23,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from .attention import (cross_attend, cross_kv, decode_attend, decode_tables,
                         gqa_cross_forward, gqa_forward, gqa_prefill,
                         gqa_shapes, init_gqa_params)
-from .common import (ArchConfig, KeyGen, dense_init, embed_init, rms_norm,
-                     stack_layer_params, stacked, swiglu)
+from .common import (ArchConfig, KeyGen, dense_init, embed_init, matmul,
+                     rms_norm, stack_layer_params, stacked, swiglu)
 from .dense import _positions, layer_params, unstack_layers
 
 Params = Dict
@@ -135,7 +135,8 @@ def _dec_layer_fwd(layer: Dict, cfg: ArchConfig, x: torch.Tensor,
 
 
 def _logits(params: Params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
-    return rms_norm(h, params["final_norm"], cfg.norm_eps) @ params["unembed"]
+    return matmul(rms_norm(h, params["final_norm"], cfg.norm_eps),
+                  params["unembed"])
 
 
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,

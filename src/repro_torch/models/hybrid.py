@@ -25,8 +25,8 @@ from repro_torch.device import DeviceLike, resolve_device
 
 from .attention import (decode_attend, decode_tables, gqa_forward,
                         gqa_prefill, gqa_shapes, init_gqa_params)
-from .common import (ArchConfig, KeyGen, dense_init, embed_init, rms_norm,
-                     stack_layer_params, stacked, swiglu)
+from .common import (ArchConfig, KeyGen, dense_init, embed_init, matmul,
+                     rms_norm, stack_layer_params, stacked, swiglu)
 from .dense import _embed, _positions, layer_params
 from .mamba2 import (init_mamba_params, init_mamba_state, mamba_decode_step,
                      mamba_forward, mamba_shapes)
@@ -147,7 +147,7 @@ def _mamba_group_fwd(group: Dict, cfg: ArchConfig, h: torch.Tensor,
 
 def _shared_in(params: Params, h: torch.Tensor,
                h0: torch.Tensor) -> torch.Tensor:
-    return torch.cat([h, h0], dim=-1) @ params["shared"]["w_in"]
+    return matmul(torch.cat([h, h0], dim=-1), params["shared"]["w_in"])
 
 
 def _shared_out(params: Params, cfg: ArchConfig, h: torch.Tensor,
@@ -164,7 +164,8 @@ def _attn_in(params: Params, cfg: ArchConfig, x: torch.Tensor):
 
 
 def _logits(params: Params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
-    return rms_norm(h, params["final_norm"], cfg.norm_eps) @ params["unembed"]
+    return matmul(rms_norm(h, params["final_norm"], cfg.norm_eps),
+                  params["unembed"])
 
 
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,

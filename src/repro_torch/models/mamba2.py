@@ -25,7 +25,6 @@ steps that never form a (B, nc, L, L, H, P) tensor.
 """
 from __future__ import annotations
 
-import functools
 from typing import Dict, Tuple
 
 import torch
@@ -33,7 +32,8 @@ import torch.nn.functional as F
 
 from repro_torch import prng
 
-from .common import ArchConfig, KeyGen, dense_init, rms_norm
+from .common import (ArchConfig, KeyGen, dense_init, einsum, matmul,
+                     rms_norm)
 
 CHUNK = 128  # SSD chunk length
 
@@ -114,15 +114,6 @@ def _causal_conv(seq: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(out + b), new_prev
 
 
-def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
-    """``torch.einsum`` with its operands promoted to their common type
-    first, as ``jnp.einsum`` promotes them: in bfloat16 the decays are
-    float32 (``A`` is), so a product of them with a bfloat16 operand runs
-    in float32.  Operands of one type pass through untouched."""
-    dt = functools.reduce(torch.promote_types, [o.dtype for o in ops])
-    return torch.einsum(eq, *(o.to(dt) for o in ops))
-
-
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
                 state0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -156,7 +147,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     total = cum[:, :, -1]                                # (Bt,nc,H)
 
     # intra-chunk: M[i,j] = exp(cum_i - cum_j) * (C_i . B_j), j <= i
-    scores = torch.einsum("bcln,bcmn->bclm", Cr, Br)     # (Bt,nc,L,L)
+    scores = einsum("bcln,bcmn->bclm", Cr, Br)     # (Bt,nc,L,L)
     decay = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (Bt,nc,L,L,H)
     mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
     # exp only below the diagonal: above it decay > 0 can overflow to inf,
@@ -165,13 +156,13 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     M = torch.exp(decay.masked_fill(~mask[None, None, :, :, None],
                                     float("-inf"))) * scores[..., None]
     # "bclmh,bcmh,bcmhp->bclhp": dt_j folds into M, then one product over m
-    y = _einsum("bclmh,bcmhp->bclhp", M * dtr[:, :, None], xr)
+    y = einsum("bclmh,bcmhp->bclhp", M * dtr[:, :, None], xr)
     del M, decay
 
     # chunk summaries: S_c = sum_j exp(total - cum_j) dt_j x_j (x) B_j
     w_j = torch.exp(total[:, :, None] - cum) * dtr        # (Bt,nc,L,H)
-    chunk_states = _einsum("bclhp,bcln->bchpn", w_j[..., None] * xr,
-                           Br).float()
+    chunk_states = einsum("bclhp,bcln->bchpn", w_j[..., None] * xr,
+                          Br).float()
 
     # inter-chunk carries; each chunk sees the state BEFORE it
     h = state0.float()
@@ -182,7 +173,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     h_before = torch.stack(before, dim=1)                # (Bt,nc,H,P,N)
 
     # inter-chunk contribution: y[i] += exp(cum_i) * C_i . H_{c-1}
-    y = y + torch.exp(cum)[..., None] * _einsum(
+    y = y + torch.exp(cum)[..., None] * einsum(
         "bcln,bchpn->bclhp", Cr, h_before)
     y = y + D[None, None, :, None] * xr
     return y.reshape(Bt, S, H, P)[:, :S_in], h
@@ -193,7 +184,7 @@ def _in_proj(params: Dict, cfg: ArchConfig, x: torch.Tensor,
     """in_proj, the causal conv over [x | B | C], softplus(dt + bias) and
     A = -exp(A_log): (z, xs, B, C, dt, A, new conv carry)."""
     di, N = d_inner(cfg), cfg.ssm_state
-    proj = x @ params["w_in"]
+    proj = matmul(x, params["w_in"])
     z, xs, Bmat, Cmat, dt = _split_in(proj, cfg)
     conv_in = torch.cat([xs, Bmat, Cmat], dim=-1)
     conv_out, new_conv = _causal_conv(conv_in, params["conv_w"],
@@ -209,7 +200,7 @@ def _in_proj(params: Dict, cfg: ArchConfig, x: torch.Tensor,
 def _out_proj(params: Dict, cfg: ArchConfig, y: torch.Tensor,
               z: torch.Tensor) -> torch.Tensor:
     y = rms_norm(y * F.silu(z), params["gate_norm"], cfg.norm_eps)
-    return y @ params["w_out"]
+    return matmul(y, params["w_out"])
 
 
 def mamba_forward(params: Dict, cfg: ArchConfig, x: torch.Tensor,
@@ -239,7 +230,7 @@ def mamba_decode_step(params: Dict, cfg: ArchConfig, x: torch.Tensor,
     a = torch.exp(dtv * A)                                      # (B,H)
     upd = (dtv[..., None] * xs)[..., None] * Bv[:, None, None, :]
     new_ssm = (a[..., None, None] * ssm_state + upd).to(ssm_state.dtype)
-    y = torch.einsum("bhpn,bn->bhp", new_ssm, Cv)
+    y = einsum("bhpn,bn->bhp", new_ssm, Cv)
     y = y + params["D"][None, :, None] * xs
     y = y.reshape(Bt, 1, d_inner(cfg)).to(x.dtype)
     return _out_proj(params, cfg, y, z), new_conv, new_ssm

@@ -34,8 +34,8 @@ from .attention import (decode_attend, decode_tables, gqa_forward,
                         init_kv_cache,
                         init_mla_cache, init_mla_params, mla_decode_attend,
                         mla_decode_tables, mla_forward, mla_prefill)
-from .common import (ArchConfig, KeyGen, dense_init, embed_init, rms_norm,
-                     stack_layer_params, stacked, swiglu)
+from .common import (ArchConfig, KeyGen, dense_init, einsum, embed_init,
+                     matmul, rms_norm, stack_layer_params, stacked, swiglu)
 from .dense import layer_params, unstack_layers
 from .runtime_flags import FLAGS, constrain, constrain_residual
 
@@ -57,7 +57,7 @@ def route(router_w: torch.Tensor, x: torch.Tensor, cfg: ArchConfig,
     same, the Switch load-balance aux loss, a float32 scalar)."""
     G, S, _ = x.shape
     E, K = cfg.n_experts, cfg.top_k
-    logits = torch.einsum("gsd,de->gse", x, router_w.to(x.dtype))
+    logits = einsum("gsd,de->gse", x, router_w.to(x.dtype))
     probs = torch.softmax(logits.float(), dim=-1)
     topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
     topw, topi = topw[..., :K], topi[..., :K]                  # (G,S,K)
@@ -104,13 +104,13 @@ def moe_ffn(block: Dict, cfg: ArchConfig, x: torch.Tensor
     dispatch, combine, aux = route(block["router"], xg, cfg, C)
     dispatch = constrain(dispatch, FLAGS.dispatch_spec)
     combine = constrain(combine, FLAGS.dispatch_spec)
-    exp_in = constrain(torch.einsum("gsec,gsd->egcd", dispatch, xg),
+    exp_in = constrain(einsum("gsec,gsd->egcd", dispatch, xg),
                        FLAGS.exp_in_spec)
-    h = torch.einsum("egcd,edf->egcf", exp_in, block["w_gate"])
-    u = torch.einsum("egcd,edf->egcf", exp_in, block["w_up"])
+    h = einsum("egcd,edf->egcf", exp_in, block["w_gate"])
+    u = einsum("egcd,edf->egcf", exp_in, block["w_up"])
     h = F.silu(h) * u
-    exp_out = torch.einsum("egcf,efd->egcd", h, block["w_down"])
-    y = torch.einsum("gsec,egcd->gsd", combine, exp_out)
+    exp_out = einsum("egcf,efd->egcd", h, block["w_down"])
+    y = einsum("gsec,egcd->gsd", combine, exp_out)
     y = y.reshape(-1, d)[:N].reshape(B, S, d)
     if cfg.n_shared_experts:
         y = y + swiglu(x, block["sw_gate"], block["sw_up"], block["sw_down"])
@@ -262,7 +262,8 @@ def _embed(params: Params, tokens: torch.Tensor,
 
 
 def _logits(params: Params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
-    return rms_norm(h, params["final_norm"], cfg.norm_eps) @ params["unembed"]
+    return matmul(rms_norm(h, params["final_norm"], cfg.norm_eps),
+                  params["unembed"])
 
 
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,

@@ -27,8 +27,8 @@ import torch.nn.functional as F
 from repro_torch import prng
 from repro_torch.device import DeviceLike, resolve_device
 
-from .common import (ArchConfig, KeyGen, dense_init, embed_init, rms_norm,
-                     stack_layer_params, stacked)
+from .common import (ArchConfig, KeyGen, dense_init, embed_init, matmul,
+                     rms_norm, stack_layer_params, stacked)
 from .dense import unstack_layers
 from .runtime_flags import constrain_residual
 
@@ -107,7 +107,8 @@ def _ddlerp(p: Dict, name: str, x: torch.Tensor,
     """RWKV6 data-dependent lerp between x and the shifted x_prev."""
     dx = x_prev - x
     xx = x + dx * p["mu_base"]
-    lora = torch.tanh(xx @ p[f"mix_a_{name}"]) @ p[f"mix_b_{name}"]
+    lora = matmul(torch.tanh(matmul(xx, p[f"mix_a_{name}"])),
+                  p[f"mix_b_{name}"])
     return x + dx * (p[f"mu_{name}"] + lora)
 
 
@@ -125,13 +126,14 @@ def time_mix(p: Dict, cfg: ArchConfig, x: torch.Tensor, last: torch.Tensor,
     B, S, d = x.shape
     H, K = n_rwkv_heads(cfg), head_size(cfg)
     xp = _shift(x, last)
-    r = _ddlerp(p, "r", x, xp) @ p["wr"]
-    k = _ddlerp(p, "k", x, xp) @ p["wk"]
-    v = _ddlerp(p, "v", x, xp) @ p["wv"]
-    g = _ddlerp(p, "g", x, xp) @ p["wg"]
+    r = matmul(_ddlerp(p, "r", x, xp), p["wr"])
+    k = matmul(_ddlerp(p, "k", x, xp), p["wk"])
+    v = matmul(_ddlerp(p, "v", x, xp), p["wv"])
+    g = matmul(_ddlerp(p, "g", x, xp), p["wg"])
     # dynamic decay: w_t = exp(-exp(w0 + lora_w)) in (0, 1), per channel
-    wl = (torch.tanh(_ddlerp(p, "w", x, xp) @ p["w_lora_a"][:, :LORA_R])
-          @ p["w_lora_b"][:LORA_R])
+    wl = matmul(torch.tanh(matmul(_ddlerp(p, "w", x, xp),
+                                  p["w_lora_a"][:, :LORA_R])),
+                p["w_lora_b"][:LORA_R])
     logw = -torch.exp(torch.clamp(p["w0"] + wl, -10.0, 5.0))
     w = torch.exp(logw)                                    # (B,S,d)
 
@@ -144,12 +146,12 @@ def time_mix(p: Dict, cfg: ArchConfig, x: torch.Tensor, last: torch.Tensor,
     outs = []
     for t in range(S):
         kv = kh[:, t] * vh[:, t]                           # (B,H,K,K)
-        outs.append(rh[:, t] @ (state + u * kv))           # (B,H,1,K)
+        outs.append(matmul(rh[:, t], state + u * kv))     # (B,H,1,K)
         state = wh[:, t] * state + kv
     out = torch.stack(outs, dim=1).reshape(B, S, d)
     out = rms_norm(out, p["ln_scale"], cfg.norm_eps)       # per-head GN approx
     out = out * F.silu(g)
-    return out @ p["wo"], x[:, -1], state
+    return matmul(out, p["wo"]), x[:, -1], state
 
 
 def channel_mix(p: Dict, cfg: ArchConfig, x: torch.Tensor,
@@ -157,8 +159,9 @@ def channel_mix(p: Dict, cfg: ArchConfig, x: torch.Tensor,
     xp = _shift(x, last)
     xk = x + (xp - x) * p["mu_k"]
     xr = x + (xp - x) * p["mu_r"]
-    k = torch.square(F.relu(xk @ p["wk"]))
-    return torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"]), x[:, -1]
+    k = torch.square(F.relu(matmul(xk, p["wk"])))
+    return (torch.sigmoid(matmul(xr, p["wr"])) * matmul(k, p["wv"]),
+            x[:, -1])
 
 
 def init_layer(key: torch.Tensor, cfg: ArchConfig,
@@ -229,7 +232,8 @@ def _run(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
 
 
 def _logits(params: Params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
-    return rms_norm(h, params["final_norm"], cfg.norm_eps) @ params["unembed"]
+    return matmul(rms_norm(h, params["final_norm"], cfg.norm_eps),
+                  params["unembed"])
 
 
 def forward_with_state(params: Params, cfg: ArchConfig,

@@ -7,6 +7,11 @@ import pytest
 
 from repro_torch.kernels import build
 
+SOURCES = ["sampler_step", "rmsnorm", "flash_attention",
+           "flash_attention_wide", "flash_attention_bf16",
+           "flash_attention_bf16_wide", "megastep", "megastep_bf16",
+           "ddim_step"]
+
 
 def _tree(tmp_path):
     (tmp_path / "a" / "csrc").mkdir(parents=True)
@@ -37,16 +42,13 @@ def test_a_header_edit_names_a_new_library(tmp_path, monkeypatch):
 
 def test_headers_are_hashed_for_every_source():
     names = {p.name for p in build.headers()}
-    assert {"step_update.cuh", "rmsnorm_body.cuh",
-            "online_softmax.cuh", "megastep_body.cuh"} <= names
-    assert set(build.sources()) == {"sampler_step", "rmsnorm",
-                                    "flash_attention", "megastep",
-                                    "megastep_bf16", "ddim_step"}
+    assert {"step_update.cuh", "rmsnorm_body.cuh", "online_softmax.cuh",
+            "megastep_body.cuh", "mma_helpers.cuh",
+            "flash_launch.cuh"} <= names
+    assert set(build.sources()) == set(SOURCES)
 
 
-@pytest.mark.parametrize("name", ["sampler_step", "rmsnorm",
-                                  "flash_attention", "megastep",
-                                  "megastep_bf16", "ddim_step"])
+@pytest.mark.parametrize("name", SOURCES)
 def test_includes_resolve_under_the_include_dir(name):
     """nvcc gets ``-I kernels/``; every quoted include names a header of
     the package, so the hash covers what the build reads."""

@@ -8,6 +8,14 @@ over the same KV blocks on both sides; the sums inside the products are
 taken in another order.  The CUDA kernel's own tile arithmetic (its q and
 KV tiles, 3xTF32 products) is emulated by ``ref.flash_attention_tiles_ref``
 and held to the JAX kernel at the same float32 tolerance.
+
+The kernel's whole domain (any S the block check admits, head dims 1 to
+256 at the widths of ``ref.HEAD_WIDTHS``, zero-padded, the last KV and q
+tiles ragged): pairs of head dim and S that together take every head dim
+of {32, 80, 112, 33, 192, 256} and every S of {1, 15, 37, 100, 128}, S 160
+with blocks (32, 32), and JAX's own sweep shape (2, 1, 512, 32) and GQA
+shape (2, 128, 8, 32); JAX's interpret grids stay at 25 programs per BH
+or fewer.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -116,3 +124,110 @@ def test_flash_attention_checks_blocks_and_counts_nothing_on_cpu():
     n0 = tk.flash_attention.launches
     tk.flash_attention(q, q, q, block_q=64, block_k=64)
     assert tk.flash_attention.launches == n0
+
+
+# (D, S): every head dim and every S of the domain's test set at least once
+DOMAIN = [(32, 1), (80, 15), (112, 37), (33, 100), (192, 128), (256, 15),
+          (256, 100)]
+
+
+def _tiles_vs_jax(tq, tk_, tv, want, causal, splits=(1, 2, 4)):
+    """The kernel's float32 tile arithmetic at every KV split against
+    JAX's output ``want`` (B, H, S, D)."""
+    B, H, S, D = tq.shape
+    flat = [t.reshape(B * H, S, D) for t in (tq, tk_, tv)]
+    for kv_split in splits:
+        got = tref.flash_attention_tiles_ref(*flat, causal=causal,
+                                             kv_split=kv_split)
+        _close(got.reshape(B, H, S, D), want, "f32")
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("D,S", DOMAIN, ids=[f"D{d}-S{s}" for d, s in DOMAIN])
+def test_domain_matches_jax_kernel(D, S, causal):
+    """Padded head widths and ragged S: the plain version and the tile
+    arithmetic (KV split 1, 2 and 4) against JAX's ``mha_flash``."""
+    (jq, jk, jv), (tq, tk_, tv) = _qkv([(1, 2, S, D)] * 3, "f32",
+                                       seed=D + S)
+    want = j_mha_flash(jq, jk, jv, causal=causal)
+    _close(tops.mha_flash(tq, tk_, tv, causal=causal), want, "f32")
+    _tiles_vs_jax(tq, tk_, tv, want, causal)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("D,S", [(80, 37), (33, 100)], ids=str)
+def test_domain_bf16_matches_jax_kernel(D, S, causal):
+    (jq, jk, jv), (tq, tk_, tv) = _qkv([(1, 2, S, D)] * 3, "bf16",
+                                       seed=D * S)
+    _close(tops.mha_flash(tq, tk_, tv, causal=causal),
+           j_mha_flash(jq, jk, jv, causal=causal), "bf16")
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_seq_160_blocks_32_matches_jax_kernel(causal):
+    """S 160 is no multiple of the default blocks' 128: JAX and the port
+    both refuse it, and both take it with blocks (32, 32)."""
+    (jq, jk, jv), (tq, tk_, tv) = _qkv([(1, 2, 160, 80)] * 3, "f32",
+                                       seed=160)
+    with pytest.raises(AssertionError):
+        j_mha_flash(jq, jk, jv, causal=causal)
+    with pytest.raises(ValueError, match="multiple"):
+        tops.mha_flash(tq, tk_, tv, causal=causal)
+    want = j_mha_flash(jq, jk, jv, causal=causal, block_q=32, block_k=32)
+    _close(tops.mha_flash(tq, tk_, tv, causal=causal, block_q=32,
+                          block_k=32), want, "f32")
+    _tiles_vs_jax(tq, tk_, tv, want, causal, splits=(1, 4))
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_jax_sweep_shape_matches_jax_kernel(causal):
+    """``tests/test_kernels.py``'s (2, 1, 512, 32), head dim 32."""
+    (jq, jk, jv), (tq, tk_, tv) = _qkv([(2, 1, 512, 32)] * 3, "f32",
+                                       seed=512)
+    want = j_mha_flash(jq, jk, jv, causal=causal)
+    _close(tops.mha_flash(tq, tk_, tv, causal=causal), want, "f32")
+    _tiles_vs_jax(tq, tk_, tv, want, causal, splits=(1, 4))
+
+
+def test_gqa_shape_tile_arithmetic_matches_jax_kernel():
+    """JAX's GQA shape (2, 128, 8, 32) over 2 KV heads: the kernel's tile
+    arithmetic on the layout ``gqa_flash`` hands it."""
+    shapes = [(2, 128, 8, 32), (2, 128, 2, 32), (2, 128, 2, 32)]
+    (jq, jk, jv), (tq, tk_, tv) = _qkv(shapes, "f32", seed=8)
+    want = j_gqa_flash(jq, jk, jv, causal=True)
+    kr, vr = (torch.repeat_interleave(t, 4, dim=2) for t in (tk_, tv))
+    _tiles_vs_jax(tq.transpose(1, 2), kr.transpose(1, 2),
+                  vr.transpose(1, 2), np.asarray(want).transpose(0, 2, 1, 3),
+                  True, splits=(1, 4))
+
+
+def test_kernel_plan_model_covers_the_domain():
+    """The widths, KV tiles and splits the tile arithmetic assumes, as
+    ``csrc/flash_launch.cuh`` launches them."""
+    assert [tref.kernel_head_width(d) for d in (1, 32, 33, 80, 112, 128,
+                                                129, 192, 255, 256)] == \
+        [32, 32, 64, 96, 128, 128, 160, 192, 256, 256]
+    assert all(0 <= tref.kernel_head_width(d) - d < 32
+               for d in range(1, 257))
+    assert [tref.kernel_kv_tile(d, torch.float32) for d in (33, 64, 65)] \
+        == [64, 64, 32]
+    assert tref.kernel_kv_tile(256, torch.bfloat16) == 64
+    assert tref.kernel_kv_split(2, 100, 4) == 1     # 2 x 2 ragged q tiles
+    assert tref.kernel_kv_split(2, 37, 4) == 2
+    assert tref.kernel_kv_split(1, 1, 132) == 4
+    with pytest.raises(ValueError, match="1 to 256"):
+        tref.kernel_head_width(257)
+
+
+def test_wrapper_refuses_past_the_domain_on_the_card():
+    """Meta tensors stand for the card: head dim 257 and float16 raise
+    with their reasons before any launch; the CPU takes both (plain)."""
+    q = torch.zeros(2, 64, 257, device="meta")
+    with pytest.raises(ValueError, match="head dims up to 256"):
+        tk.flash_attention(q, q, q)
+    h = torch.zeros(2, 64, 64, device="meta", dtype=torch.float16)
+    with pytest.raises(TypeError, match="float16"):
+        tk.flash_attention(h, h, h)
+    x = torch.randn(1, 16, 257)
+    torch.testing.assert_close(tk.flash_attention(x, x, x),
+                               tref.flash_attention_ref(x, x, x))
