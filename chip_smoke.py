@@ -382,8 +382,11 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               (B3 3 times, B1 never, within 5e-2 of 'tile_resident'),
               generate over bfloat16 weights (B3 3 times), a bfloat16
               4-slot scheduler (B4 once per tick, every x_T bitwise the
-              CPU's bfloat16 draw); a latent-64 trunk at seq_len 96 still
-              runs B1 S times, the reason naming seq_len; B3 (8 steps) and
+              CPU's bfloat16 draw); a latent-64 trunk at seq_len 96 runs
+              B3 3 times and B1 never (within 1e-3 of 'tile_resident'),
+              and a float16 state takes the refusal path ('mega' names
+              its dtype and the tile loop's B1 raises, as does the
+              launcher); B3 (8 steps) and
               B4 (one tick) in bfloat16 timed beside the plain version and
               the bound (bfloat16 bytes; operations at the bfloat16 rate
               and on the products as built), with phase traces.
@@ -397,6 +400,23 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               max|x0|).  --p19-probe runs only the build, B5's domain
               checks (phase 3), the ops path (phase 4), B5's timings at
               its new widths (phase 5) and this phase
+ 20. B3 / B4 over every geometry JAX's megakernel admits, run after phase
+              17: B3 (K=2) and B4 x exact / flash x clip against the plain
+              versions on 15 narrow trunks (seq_len 8 to 200 with ragged
+              tiles and K/V blocks, latents 16 to 256, head dims 8 to
+              256, d_model 72 / d_ff 100, odd widths 75 / 101 / head dim
+              10 / time_dim 31), float32 (1e-4 of max|state|) and
+              bfloat16 (2e-2), a second launch bitwise equal; counted:
+              DLM_SMOLLM_MEGA at latent 16 x 2 x 128, 64 x 2 x 96, 128 x
+              2 x 80 and 256 x 1 x 200 through generate and plan.run
+              'mega' (exact, flash; B3 3 times each, B1 never, within
+              1e-3 of 'tile_resident') and a latent-64 4-slot x 32-token
+              scheduler (B4 once per tick, B2 never, within 1e-3 of an
+              unfused engine); B3 (8 steps) and B4 (one tick) at each
+              geometry beside the plain version, the bound and the
+              unfused path, which each must beat.  --p20-probe runs only
+              the build and this phase; --mega-probe SRC times B3 / B4 at
+              4 x 64 for another checkout's src (JSON)
 
 Every time is printed beside the card's name and power limit.  Any failure
 raises and the script exits nonzero with no result line.  On success the
@@ -2221,14 +2241,19 @@ def _p18_sched(smi, cfg, params):
 
 
 def _p18_refusal(smi):
-    """A latent-64 trunk at seq_len 96: eligible by the JAX rule, past the
-    kernel's seq_len granule, so 'mega' runs B1 S times and names
-    seq_len."""
+    """A latent-64 trunk at seq_len 96 (eligible by the JAX rule; past the
+    kernel's 64-token blocks until PR 30): 'mega' runs B3 ceil(S / K)
+    times and B1 never, within P20_RUN_TOL of 'tile_resident'.  Then the
+    refusal path on a float16 state, which the megakernel does not take:
+    eligible names the dtype, the launcher raises it, and 'mega' takes
+    the tile loop, whose B1 raises too (no kernel takes float16).
+    Returns the B3 launches."""
     from repro_torch import prng
     from repro_torch.configs import DLM_SMOLLM_MEGA
     from repro_torch.core import SamplerConfig
     from repro_torch.core.schedules import make_schedule
     from repro_torch.diffusion_lm import init_params, make_tile_eps_fn
+    from repro_torch.kernels.megastep import kernel as mk
     from repro_torch.sampling import backends
     cfg = dataclasses.replace(DLM_SMOLLM_MEGA, latent_dim=64)
     batch, seq = 2, 96
@@ -2246,11 +2271,38 @@ def _p18_refusal(smi):
     rel = float((got - want).abs().max() / want.abs().max())
     print(f"[p18] {smi} | plan.run mega, latent 64 at {batch} x {seq}: "
           f"reason {why!r}; launches {counts}; vs tile_resident "
-          f"max|d|/max|x| = {rel:.3e}")
-    check(counts == {"B1": DLM_S, "B2": 0, "B3": 0, "B4": 0}
-          and "seq_len 96" in why, f"seq_len 96 mega: launches {counts}, "
-          f"reason {why!r}")
-    check(rel == 0.0, f"seq_len 96 mega vs tile_resident: {rel} != 0")
+          f"max|d|/max|x| = {rel:.3e} (tol {P20_RUN_TOL})")
+    check(counts == {"B1": 0, "B2": 0, "B3": math.ceil(DLM_S / DLM_K),
+                     "B4": 0} and why == "ok",
+          f"seq_len 96 mega: launches {counts}, reason {why!r}")
+    check(bool(torch.isfinite(got).all()) and rel <= P20_RUN_TOL,
+          f"seq_len 96 mega vs tile_resident: {rel} > {P20_RUN_TOL}")
+    b3 = counts["B3"]
+    x16 = x_T.half()
+    _zero_counts()
+    raised = None
+    try:
+        plan.run(eps, x16, backend="mega")
+    except TypeError as e:
+        raised = e
+    counts, why = _counts(), backends.run_mega.last_reason
+    coefs, ts = _plan_rows(DLM_S)
+    try:
+        mk.megastep_call(x16.reshape(-1, 256), params, cfg, batch, seq,
+                         coefs[:1], ts[:1])
+        launcher = None
+    except ValueError as e:
+        launcher = e
+    print(f"[p18] {smi} | plan.run mega on a float16 state, latent 64 at "
+          f"{batch} x {seq}: reason {why!r}; launches {counts}; the tile "
+          f"loop raised {raised!r}; the launcher raised {launcher!r}")
+    check("dtype torch.float16" in why and counts["B3"] == 0
+          and counts["B1"] == 0 and raised is not None
+          and launcher is not None
+          and "dtype torch.float16" in str(launcher),
+          f"float16 refusal: reason {why!r}, launches {counts}, raised "
+          f"{raised!r}, launcher {launcher!r}")
+    return b3
 
 
 def phase_18_times(smi, params2, deep):
@@ -2365,7 +2417,7 @@ def phase_18(smi, params2):
           and int(tokens.max()) < cfg.arch.vocab, "generate: bad tokens")
     b3 += counts["B3"]
     b4 = _p18_sched(smi, cfg, p2)
-    _p18_refusal(smi)
+    b3 += _p18_refusal(smi)
     shapes = phase_18_times(smi, params2, deep)
     print(f"[p18] phase 18: {time.perf_counter() - t0:.1f} s")
     return errs, {"megastep_call": b3, "megastep_rows_call": b4}, shapes
@@ -2473,7 +2525,7 @@ def phase_17_kernels(params2):
     return {k: max(v) for k, v in errs.items()}, (bench_cfg, bench_params)
 
 
-def _p17_generate(smi, cfg, params, batch, seq):
+def _p17_generate(smi, cfg, params, batch, seq, tag="p17"):
     """generate(tile_resident=True) and plan.run 'mega' (exact, flash)
     against 'tile_resident' at (batch, seq), each counted: B3
     ceil(S / K) times and B1 never on the mega runs.  Returns the B3
@@ -2491,8 +2543,9 @@ def _p17_generate(smi, cfg, params, batch, seq):
                       sampler, tile_resident=True)
     torch.cuda.synchronize()
     counts, why = _counts(), backends.run_mega.last_reason
-    print(f"[p17] {smi} | generate {cfg.arch.name} (head dim "
-          f"{cfg.arch.hd()}, S={DLM_S}, batch {batch} x {seq} tokens, "
+    print(f"[{tag}] {smi} | generate {cfg.arch.name} (head dim "
+          f"{cfg.arch.hd()}, latent {cfg.latent_dim}, S={DLM_S}, batch "
+          f"{batch} x {seq} tokens, "
           f"tile_resident=True): run_mega.last_reason {why!r}; launches "
           f"{counts} (want {want}); tokens {tuple(tokens.shape)}, first row "
           f"{tokens[0, :8].tolist()}")
@@ -2516,8 +2569,9 @@ def _p17_generate(smi, cfg, params, batch, seq):
         torch.cuda.synchronize()
         counts = _counts()
         rel = float((got - ref).abs().max() / ref.abs().max())
-        print(f"[p17] {smi} | plan.run mega ({impl}) vs tile_resident, "
-              f"{cfg.arch.name} {batch} x {seq}: max|d|/max|x| = {rel:.3e} "
+        print(f"[{tag}] {smi} | plan.run mega ({impl}) vs tile_resident, "
+              f"{cfg.arch.name} latent {cfg.latent_dim} {batch} x {seq}: "
+              f"max|d|/max|x| = {rel:.3e} "
               f"(tol 1e-3); launches {counts}")
         check(counts == want and backends.run_mega.last_reason == "ok"
               and rel <= 1e-3, f"mega {impl} {cfg.arch.name} ({batch}, "
@@ -2527,15 +2581,13 @@ def _p17_generate(smi, cfg, params, batch, seq):
     return b3
 
 
-def _p17_sched(smi, params2):
-    """The scheduler over DLM_SMOLLM_MEGA with P17_SLOTS (slots, tokens):
+def _p17_sched(smi, cfg, params2, slots, seq, tag="p17"):
+    """The scheduler over ``cfg`` with ``slots`` slots of ``seq`` tokens:
     the mega tick (the engine's default pick) launches B4 once per tick and
     B2 never, against a use_mega=False engine within 1e-3 of max|x|."""
-    from repro_torch.configs import DLM_SMOLLM_MEGA as cfg
     from repro_torch.core.schedules import make_schedule
     from repro_torch.diffusion_lm import make_tile_eps_fn, round_to_tokens
     from repro_torch.serving import ContinuousBatchingEngine, SampleRequest
-    slots, seq = P17_SLOTS
     sch = make_schedule("linear", 1000)
     eps = make_tile_eps_fn(params2, cfg, slots, seq)
 
@@ -2562,20 +2614,21 @@ def _p17_sched(smi, params2):
     rel = float((xm - xp).abs().max() / xp.abs().max())
     agree = float((round_to_tokens(params2, xm)
                    == round_to_tokens(params2, xp)).float().mean())
-    print(f"[p17] {smi} | scheduler {cfg.arch.name} mega tick, {slots} slots "
-          f"x {seq} tokens, {2 * slots} requests S {P17_SCHED_S}: "
+    print(f"[{tag}] {smi} | scheduler {cfg.arch.name} (latent "
+          f"{cfg.latent_dim}) mega tick, {slots} slots x {seq} tokens, "
+          f"{2 * slots} requests S {P17_SCHED_S}: "
           f"{st['ticks']} ticks, completed {st['completed']}, "
           f"compiled_ticks {st['compiled_ticks']}; launches {counts}; "
           f"unfused engine {counts_p}; vs unfused max|d|/max|x| = {rel:.3e} "
           f"(tol 1e-3), token agreement {agree:.4f}")
     check(counts == {"B1": 0, "B2": 0, "B3": 0, "B4": st["ticks"]}
           and st["completed"] == 2 * slots and st["compiled_ticks"] == 1,
-          f"2 x 128 mega tick launches {counts}, want B4 == ticks "
+          f"{slots} x {seq} mega tick launches {counts}, want B4 == ticks "
           f"{st['ticks']}")
     check(counts_p["B2"] == plain.stats()["ticks"] and counts_p["B4"] == 0,
-          f"2 x 128 unfused tick launches {counts_p}")
+          f"{slots} x {seq} unfused tick launches {counts_p}")
     check(rel <= 1e-3 and bool(torch.isfinite(xm).all()),
-          f"2 x 128 mega vs unfused tick: {rel} > 1e-3")
+          f"{slots} x {seq} mega vs unfused tick: {rel} > 1e-3")
     return counts["B4"]
 
 
@@ -2587,7 +2640,120 @@ def phase_17_main(smi, params2, bench):
     b3 = sum(_p17_generate(smi, DLM_SMOLLM_MEGA, params2, *g)
              for g in P17_GEOMS)
     b3 += _p17_generate(smi, *bench, *P17_BENCH)
-    return b3, _p17_sched(smi, params2)
+    return b3, _p17_sched(smi, DLM_SMOLLM_MEGA, params2, *P17_SLOTS)
+
+
+def _time_b3(smi, cfg, params, batch, seq, gen, trace=False):
+    """B3 (8 steps) at (batch, seq), exact and flash, beside the plain
+    version, the operations bound and the unfused path of the same work,
+    which each must beat; with ``trace`` a phase trace of the exact launch.
+    Returns the two timed shapes."""
+    from repro_torch.diffusion_lm import make_tile_eps_fn
+    from repro_torch.kernels.megastep import kernel as mk
+    from repro_torch.kernels.megastep import ref as mref
+    from repro_torch.kernels.sampler_step import kernel as sk
+    dev = torch.device("cuda")
+    coefs, ts = _plan_rows(DLM_S)
+    c_host = coefs[:DLM_K].cpu().numpy()
+    n = batch * seq * cfg.latent_dim
+    x2 = torch.randn(n // 256, 256, generator=gen, device=dev)
+    eps = make_tile_eps_fn(params, cfg, batch, seq)
+    n_bytes = (eps.mega_spec.weight_bytes() + 2 * n * 4
+               + DLM_K * (5 * 4 + cfg.time_dim * 4)
+               + seq * cfg.arch.hd() * 4)
+    b_ms, b_by = _bound(n_bytes, mega_ops(cfg, batch, seq, DLM_K))
+    args = (x2, params, cfg, batch, seq, coefs[:DLM_K], ts[:DLM_K])
+    timer, how = _mega_timer(lambda: mk.megastep_call(*args))
+    t_vecs = [torch.full((batch,), int(t), dtype=torch.int32, device=dev)
+              for t in ts[:DLM_K].tolist()]
+
+    def unfused():
+        y = x2
+        for j in range(DLM_K):
+            y = sk.sampler_step_2d(y, eps(y, t_vecs[j]), c_host[j])
+        return y
+    tile_ms = timer(unfused, iters=3, reps=2)
+    recs = []
+    for impl in ("exact", "flash"):
+        rec = dict(
+            ms=timer(lambda: mk.megastep_call(*args, attn_impl=impl),
+                     iters=3, reps=2),
+            plain_ms=timer(lambda: mref.megastep_ref(
+                *args, attn_impl=impl), iters=3, reps=2),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            unfused_ms=tile_ms,
+            shape=f"{cfg.arch.name} (head dim {cfg.arch.hd()}, latent "
+                  f"{cfg.latent_dim}) batch {batch} x {seq}, K={DLM_K}, "
+                  f"{impl}", timed_by=how,
+            **_plan_keys(mk.megastep_call.last_plan))
+        _time_line(smi, f"B3 megastep_call {rec['shape']}", rec)
+        print(f"[times] {smi} | unfused tile_resident, the same "
+              f"{DLM_K} steps: {tile_ms * 1e3:.2f} us ({how}); B3 / "
+              f"unfused = {rec['ms'] / tile_ms:.3f}")
+        check(rec["ms"] < tile_ms, f"B3 {rec['shape']}: "
+              f"{rec['ms'] * 1e3:.1f} us is not below the unfused "
+              f"{tile_ms * 1e3:.1f} us")
+        recs.append(rec)
+    if trace:
+        _phase_trace(smi, f"B3 megastep_call {cfg.arch.name} {batch} x "
+                     f"{seq} K={DLM_K} exact", mk.megastep_call,
+                     lambda: mk.megastep_call(*args), DLM_K,
+                     cfg.arch.n_layers)
+    return recs
+
+
+def _time_b4(smi, cfg, params, batch, seq, gen, trace=False):
+    """B4 (one tick of ``batch`` slots of ``seq`` tokens), exact and flash,
+    beside the plain version, the operations bound and the unfused rows
+    tick, which each must beat; with ``trace`` a phase trace of the exact
+    launch.  Returns the two timed shapes."""
+    from repro_torch.core import StepStates, slot_tile_step
+    from repro_torch.diffusion_lm import make_tile_eps_fn
+    from repro_torch.kernels.megastep import kernel as mk
+    from repro_torch.kernels.megastep import ref as mref
+    from repro_torch.kernels.sampler_step import ops as sops
+    dev = torch.device("cuda")
+    n = batch * seq * cfg.latent_dim
+    x2 = torch.randn(n // 256, 256, generator=gen, device=dev)
+    st, c = _p17_slot_rows(batch, None)
+    rows = sops.expand_slot_coefs(c, x2.shape[0] // batch)
+    eps = make_tile_eps_fn(params, cfg, batch, seq)
+    n_bytes = (eps.mega_spec.weight_bytes() + 2 * n * 4 + rows.numel() * 4
+               + batch * (4 + cfg.time_dim * 4) + seq * cfg.arch.hd() * 4)
+    b_ms, b_by = _bound(n_bytes, mega_ops(cfg, batch, seq, 1) + 3 * n)
+    args = (x2, params, cfg, batch, seq, rows, st)
+    timer, how = _mega_timer(lambda: mk.megastep_rows_call(*args))
+    states = StepStates(t=st, c_x0=c[:, 0], c_dir=c[:, 1], c_noise=c[:, 2],
+                        sqrt_a_t=c[:, 3], sqrt_1m_a_t=c[:, 4])
+    rows_ms = timer(lambda: slot_tile_step(eps, x2, states,
+                                           (seq, cfg.latent_dim)),
+                    iters=5, reps=2)
+    recs = []
+    for impl in ("exact", "flash"):
+        rec = dict(
+            ms=timer(lambda: mk.megastep_rows_call(*args, attn_impl=impl),
+                     iters=5, reps=2),
+            plain_ms=timer(lambda: mref.megastep_rows_ref(
+                *args, attn_impl=impl), iters=5, reps=2),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            unfused_ms=rows_ms,
+            shape=f"{cfg.arch.name} (latent {cfg.latent_dim}) {batch} slots "
+                  f"x {seq}, one tick, {impl}",
+            timed_by=how, **_plan_keys(mk.megastep_rows_call.last_plan))
+        _time_line(smi, f"B4 megastep_rows_call {rec['shape']}", rec)
+        print(f"[times] {smi} | unfused rows tick at the same shape: "
+              f"{rows_ms * 1e3:.2f} us ({how}); B4 / unfused = "
+              f"{rec['ms'] / rows_ms:.3f}")
+        check(rec["ms"] < rows_ms, f"B4 {rec['shape']}: "
+              f"{rec['ms'] * 1e3:.1f} us is not below the unfused rows "
+              f"tick {rows_ms * 1e3:.1f} us")
+        recs.append(rec)
+    if trace:
+        _phase_trace(smi, f"B4 megastep_rows_call {cfg.arch.name} {batch} x "
+                     f"{seq} exact", mk.megastep_rows_call,
+                     lambda: mk.megastep_rows_call(*args), 1,
+                     cfg.arch.n_layers)
+    return recs
 
 
 def phase_17_times(smi, params2, bench):
@@ -2597,102 +2763,16 @@ def phase_17_times(smi, params2, bench):
     of B3 at each DLM_SMOLLM_MEGA geometry.  Returns the timed shapes of
     each kernel."""
     from repro_torch.configs import DLM_SMOLLM_MEGA
-    from repro_torch.core import StepStates, slot_tile_step
-    from repro_torch.diffusion_lm import make_tile_eps_fn
-    from repro_torch.kernels.megastep import kernel as mk
-    from repro_torch.kernels.megastep import ref as mref
-    from repro_torch.kernels.sampler_step import kernel as sk
-    from repro_torch.kernels.sampler_step import ops as sops
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(1718)
+    gen = torch.Generator(device="cuda").manual_seed(1718)
     shapes = {"megastep_call": [], "megastep_rows_call": []}
-    coefs, ts = _plan_rows(DLM_S)
-    c_host = coefs[:DLM_K].cpu().numpy()
     for cfg, params, (batch, seq) in (
             [(DLM_SMOLLM_MEGA, params2, g) for g in P17_GEOMS]
             + [(*bench, P17_BENCH)]):
-        n = batch * seq * cfg.latent_dim
-        x2 = torch.randn(n // 256, 256, generator=gen, device=dev)
-        eps = make_tile_eps_fn(params, cfg, batch, seq)
-        n_bytes = (eps.mega_spec.weight_bytes() + 2 * n * 4
-                   + DLM_K * (5 * 4 + cfg.time_dim * 4)
-                   + seq * cfg.arch.hd() * 4)
-        b_ms, b_by = _bound(n_bytes, mega_ops(cfg, batch, seq, DLM_K))
-        args = (x2, params, cfg, batch, seq, coefs[:DLM_K], ts[:DLM_K])
-        timer, how = _mega_timer(lambda: mk.megastep_call(*args))
-        t_vecs = [torch.full((batch,), int(t), dtype=torch.int32, device=dev)
-                  for t in ts[:DLM_K].tolist()]
-
-        def unfused():
-            y = x2
-            for j in range(DLM_K):
-                y = sk.sampler_step_2d(y, eps(y, t_vecs[j]), c_host[j])
-            return y
-        tile_ms = timer(unfused, iters=3, reps=2)
-        for impl in ("exact", "flash"):
-            rec = dict(
-                ms=timer(lambda: mk.megastep_call(*args, attn_impl=impl),
-                         iters=3, reps=2),
-                plain_ms=timer(lambda: mref.megastep_ref(
-                    *args, attn_impl=impl), iters=3, reps=2),
-                library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                unfused_ms=tile_ms,
-                shape=f"{cfg.arch.name} (head dim {cfg.arch.hd()}) batch "
-                      f"{batch} x {seq}, K={DLM_K}, {impl}", timed_by=how,
-                **_plan_keys(mk.megastep_call.last_plan))
-            _time_line(smi, f"B3 megastep_call {rec['shape']}", rec)
-            print(f"[times] {smi} | unfused tile_resident, the same "
-                  f"{DLM_K} steps: {tile_ms * 1e3:.2f} us ({how}); B3 / "
-                  f"unfused = {rec['ms'] / tile_ms:.3f}")
-            check(rec["ms"] < tile_ms, f"B3 {rec['shape']}: "
-                  f"{rec['ms'] * 1e3:.1f} us is not below the unfused "
-                  f"{tile_ms * 1e3:.1f} us")
-            shapes["megastep_call"].append(rec)
-        if cfg is DLM_SMOLLM_MEGA:
-            _phase_trace(smi, f"B3 megastep_call {cfg.arch.name} {batch} x "
-                         f"{seq} K={DLM_K} exact", mk.megastep_call,
-                         lambda: mk.megastep_call(*args), DLM_K,
-                         cfg.arch.n_layers)
-
-    # B4: one tick of the 2 x 128 scheduler
-    cfg = DLM_SMOLLM_MEGA
-    batch, seq = P17_SLOTS
-    n = batch * seq * cfg.latent_dim
-    x2 = torch.randn(n // 256, 256, generator=gen, device=dev)
-    st, c = _p17_slot_rows(batch, None)
-    rows = sops.expand_slot_coefs(c, x2.shape[0] // batch)
-    eps = make_tile_eps_fn(params2, cfg, batch, seq)
-    n_bytes = (eps.mega_spec.weight_bytes() + 2 * n * 4 + rows.numel() * 4
-               + batch * (4 + cfg.time_dim * 4) + seq * cfg.arch.hd() * 4)
-    b_ms, b_by = _bound(n_bytes, mega_ops(cfg, batch, seq, 1) + 3 * n)
-    args = (x2, params2, cfg, batch, seq, rows, st)
-    timer, how = _mega_timer(lambda: mk.megastep_rows_call(*args))
-    states = StepStates(t=st, c_x0=c[:, 0], c_dir=c[:, 1], c_noise=c[:, 2],
-                        sqrt_a_t=c[:, 3], sqrt_1m_a_t=c[:, 4])
-    rows_ms = timer(lambda: slot_tile_step(eps, x2, states,
-                                           (seq, cfg.latent_dim)),
-                    iters=5, reps=2)
-    for impl in ("exact", "flash"):
-        rec = dict(
-            ms=timer(lambda: mk.megastep_rows_call(*args, attn_impl=impl),
-                     iters=5, reps=2),
-            plain_ms=timer(lambda: mref.megastep_rows_ref(
-                *args, attn_impl=impl), iters=5, reps=2),
-            library_ms=None, bound_ms=b_ms, bound_by=b_by,
-            unfused_ms=rows_ms,
-            shape=f"{cfg.arch.name} {batch} slots x {seq}, one tick, {impl}",
-            timed_by=how, **_plan_keys(mk.megastep_rows_call.last_plan))
-        _time_line(smi, f"B4 megastep_rows_call {rec['shape']}", rec)
-        print(f"[times] {smi} | unfused rows tick at the same shape: "
-              f"{rows_ms * 1e3:.2f} us ({how}); B4 / unfused = "
-              f"{rec['ms'] / rows_ms:.3f}")
-        check(rec["ms"] < rows_ms, f"B4 {rec['shape']}: "
-              f"{rec['ms'] * 1e3:.1f} us is not below the unfused rows "
-              f"tick {rows_ms * 1e3:.1f} us")
-        shapes["megastep_rows_call"].append(rec)
-    _phase_trace(smi, f"B4 megastep_rows_call {cfg.arch.name} {batch} x "
-                 f"{seq} exact", mk.megastep_rows_call,
-                 lambda: mk.megastep_rows_call(*args), 1, cfg.arch.n_layers)
+        shapes["megastep_call"] += _time_b3(
+            smi, cfg, params, batch, seq, gen,
+            trace=cfg is DLM_SMOLLM_MEGA)
+    shapes["megastep_rows_call"] += _time_b4(
+        smi, DLM_SMOLLM_MEGA, params2, *P17_SLOTS, gen, trace=True)
     return shapes
 
 
@@ -2705,6 +2785,180 @@ def phase_17(smi, params2):
     shapes = phase_17_times(smi, params2, bench)
     print(f"[p17] phase 17: {time.perf_counter() - t0:.1f} s")
     return errs, {"megastep_call": b3, "megastep_rows_call": b4}, shapes
+
+
+# ------------------------------------------------------------------ phase 20
+# B3 / B4 over every geometry the TPU kernel admits.  (latent, batch,
+# seq_len) of DLM_SMOLLM_MEGA at full width on the main path (each fits
+# MEGA_BUDGET; a 64-row tile straddles samples at 32, 80, 96 and 200
+# tokens, and 80 and 200 leave a ragged last tile and K/V block), and of
+# its latent-64 scheduler (slots, tokens).
+P20_GEOMS = ((16, 2, 128), (64, 2, 96), (128, 2, 80), (256, 1, 200))
+P20_SCHED = (64, 4, 32)
+P20_RUN_TOL = 1e-3             # of max|x|: 'mega' against 'tile_resident'
+# The narrow trunks of the kernel checks: (ArchConfig fields, time_dim,
+# latent, batch, seq_len).  Head dims 8 to 256 (padded to the attention
+# widths), d_model 72 / d_ff 100 (tiles cut mid-way), odd widths (75, 101,
+# head dim 10, time_dim 31: rows that are no whole 16-byte chunks), and
+# seq_len from 8 (one K/V block, mostly past S) to 200.
+_P20_BASE = dict(d_model=64, n_heads=4, n_kv_heads=2, d_ff=128)
+P20_NARROW = (
+    (_P20_BASE, 32, 64, 2, 32), (_P20_BASE, 32, 64, 2, 96),
+    (_P20_BASE, 32, 128, 2, 16), (_P20_BASE, 32, 128, 2, 80),
+    (_P20_BASE, 32, 256, 2, 8), (_P20_BASE, 32, 16, 2, 128),
+    (dict(_P20_BASE, head_dim=8), 32, 64, 2, 32),
+    (dict(d_model=72, n_heads=3, n_kv_heads=1, d_ff=100), 32, 64, 2, 96),
+    (dict(d_model=96, n_heads=2, n_kv_heads=1, d_ff=128), 32, 128, 2, 16),
+    (dict(d_model=64, n_heads=2, n_kv_heads=2, d_ff=128, head_dim=80), 32,
+     128, 2, 80),
+    (dict(d_model=64, n_heads=2, n_kv_heads=1, d_ff=128, head_dim=96), 32,
+     256, 2, 8),
+    (dict(d_model=64, n_heads=1, n_kv_heads=1, d_ff=128, head_dim=112), 32,
+     16, 1, 128),
+    (dict(d_model=64, n_heads=1, n_kv_heads=1, d_ff=128, head_dim=160), 32,
+     256, 1, 200),
+    (dict(d_model=64, n_heads=2, n_kv_heads=1, d_ff=128, head_dim=256), 32,
+     32, 2, 64),
+    (dict(d_model=75, n_heads=3, n_kv_heads=3, d_ff=101, head_dim=10), 31,
+     32, 2, 64),
+)
+
+
+def _p20_narrow(arch, time_dim, latent, seed):
+    """(cfg, params on the card) of a P20_NARROW trunk, 2 layers."""
+    from repro_torch import prng
+    from repro_torch.diffusion_lm import DiffusionLMConfig, init_params
+    from repro_torch.models.common import ArchConfig
+    cfg = DiffusionLMConfig(arch=ArchConfig(name="narrow", family="dense",
+                                            n_layers=2, vocab=50, **arch),
+                            time_dim=time_dim, latent_dim=latent)
+    return cfg, init_params(prng.PRNGKey(seed), cfg)
+
+
+def phase_20_kernels():
+    """B3 (K=2) and B4, exact and flash, with and without clip, against
+    their plain versions on every P20_NARROW trunk, float32 (1e-4 of
+    max|state|) and bfloat16 state and weights (2e-2), a second launch of
+    each float32 B3 and bfloat16 B4 bitwise equal to the first.  Returns
+    the largest error of each kernel."""
+    from repro_torch.kernels.megastep import kernel as mk
+    from repro_torch.kernels.megastep import ref as mref
+    from repro_torch.kernels.sampler_step import ops as sops
+    gen = torch.Generator(device="cuda").manual_seed(2020)
+    errs = {"megastep_call": [], "megastep_rows_call": []}
+    coefs, ts = _plan_rows(DLM_S)
+    for i, (arch, time_dim, latent, batch, seq) in enumerate(P20_NARROW):
+        cfg, params = _p20_narrow(arch, time_dim, latent, i)
+        n = batch * seq * latent
+        x32 = torch.randn(n // 256, 256, generator=gen, device="cuda")
+        for state in ("f32", "bf16"):
+            x2, p = x32.to(P18_DT[state]), _to_dtype(params, P18_DT[state])
+            for impl in ("exact", "flash"):
+                for clip in ((None, 1.0) if state == "f32" else (None,)):
+                    tag = (f"D{cfg.arch.hd()} d{cfg.arch.d_model} L{latent} "
+                           f"{batch}x{seq} {state} {impl} clip={clip}")
+                    args = (x2, p, cfg, batch, seq, coefs[:2], ts[:2])
+                    got = mk.megastep_call(*args, clip=clip, attn_impl=impl)
+                    _check_rel(errs["megastep_call"], f"B3 {tag}", got,
+                               mref.megastep_ref(*args, clip=clip,
+                                                 attn_impl=impl),
+                               _p18_tol(state))
+                    if state == "f32" and clip is None:
+                        _check_repeat(f"B3 {tag}", got, mk.megastep_call(
+                            *args, attn_impl=impl))
+                    st, c = _p17_slot_rows(batch, clip)
+                    args = (x2, p, cfg, batch, seq,
+                            sops.expand_slot_coefs(c, x2.shape[0] // batch),
+                            st)
+                    got = mk.megastep_rows_call(*args, clip=clip,
+                                                attn_impl=impl)
+                    _check_rel(errs["megastep_rows_call"], f"B4 {tag}", got,
+                               mref.megastep_rows_ref(*args, clip=clip,
+                                                      attn_impl=impl),
+                               _p18_tol(state))
+                    if state == "bf16":
+                        _check_repeat(f"B4 {tag}", got, mk.megastep_rows_call(
+                            *args, attn_impl=impl))
+    torch.cuda.synchronize()
+    return {k: max(v) for k, v in errs.items()}
+
+
+def phase_20(smi):
+    """Phase 20: the kernel checks on the narrow trunks; counted,
+    DLM_SMOLLM_MEGA at P20_GEOMS through generate and plan.run 'mega'
+    (exact, flash; B3 3 times a run, B1 never, within 1e-3 of
+    'tile_resident') and its latent-64 scheduler at P20_SCHED (B4 once per
+    tick, B2 never, within 1e-3 of an unfused engine); B3 (8 steps) and B4
+    (one tick) timed at every geometry beside the plain version, the
+    bound and the unfused path, which each must beat.  Returns ({kernel:
+    max error}, {kernel: launches}, {kernel: shapes})."""
+    from repro_torch import prng
+    from repro_torch.configs import DLM_SMOLLM_MEGA
+    from repro_torch.diffusion_lm import init_params
+    t0 = time.perf_counter()
+    errs = phase_20_kernels()
+    print(f"[p20] kernel checks: {len(P20_NARROW)} trunks, largest max|d| "
+          f"B3 {errs['megastep_call']:.3e}, B4 "
+          f"{errs['megastep_rows_call']:.3e}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    trunks = {}
+    for latent in sorted({g[0] for g in P20_GEOMS} | {P20_SCHED[0]}):
+        cfg = dataclasses.replace(DLM_SMOLLM_MEGA, latent_dim=latent)
+        trunks[latent] = (cfg, init_params(prng.PRNGKey(0), cfg))
+    b3 = sum(_p17_generate(smi, *trunks[latent], batch, seq, tag="p20")
+             for latent, batch, seq in P20_GEOMS)
+    latent, slots, seq = P20_SCHED
+    b4 = _p17_sched(smi, *trunks[latent], slots, seq, tag="p20")
+    gen = torch.Generator(device="cuda").manual_seed(2021)
+    shapes = {"megastep_call": [], "megastep_rows_call": []}
+    for latent, batch, seq in P20_GEOMS + (P20_SCHED,):
+        cfg, params = trunks[latent]
+        if (latent, batch, seq) != P20_SCHED:
+            shapes["megastep_call"] += _time_b3(
+                smi, cfg, params, batch, seq, gen, trace=seq % 32 != 0)
+        shapes["megastep_rows_call"] += _time_b4(smi, cfg, params, batch,
+                                                 seq, gen)
+    print(f"[p20] phase 20: {time.perf_counter() - t0:.1f} s")
+    return errs, {"megastep_call": b3, "megastep_rows_call": b4}, shapes
+
+
+def mega_probe(smi, src) -> None:
+    """--mega-probe SRC: B3 (8 steps) and B4 (one tick) of DLM_SMOLLM_MEGA
+    at 4 x 64, float32 and bfloat16 state and weights, exact and flash,
+    graph-replayed for SRC/repro_torch, as one JSON line of us, so that
+    alternated runs compare two trees with one timer; before it, the phase
+    trace of each exact launch."""
+    from repro_torch.configs import DLM_SMOLLM_MEGA as cfg
+    from repro_torch.kernels import build
+    from repro_torch.kernels.megastep import kernel as mk
+    from repro_torch.kernels.sampler_step import ops as sops
+    build.build_all()
+    params = _dlm_params(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    coefs, ts = _plan_rows(DLM_S)
+    n = DLM_BATCH * DLM_SEQ * cfg.latent_dim
+    x32 = torch.randn(n // 256, 256, generator=gen, device="cuda")
+    st, c = _p17_slot_rows(DLM_BATCH, None)
+    rows = sops.expand_slot_coefs(c, x32.shape[0] // DLM_BATCH)
+    out = {"src": str(src), "card": smi}
+    for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        p, x2 = _to_dtype(params, dt), x32.to(dt)
+        for impl in ("exact", "flash"):
+            out[f"B3 {tag} {impl}"] = graph_ms(lambda: mk.megastep_call(
+                x2, p, cfg, DLM_BATCH, DLM_SEQ, coefs[:DLM_K], ts[:DLM_K],
+                attn_impl=impl)) * 1e3
+            out[f"B4 {tag} {impl}"] = graph_ms(lambda: mk.megastep_rows_call(
+                x2, p, cfg, DLM_BATCH, DLM_SEQ, rows, st,
+                attn_impl=impl)) * 1e3
+        _phase_trace(smi, f"{src} B3 {tag} exact", mk.megastep_call,
+                     lambda: mk.megastep_call(x2, p, cfg, DLM_BATCH, DLM_SEQ,
+                                              coefs[:DLM_K], ts[:DLM_K]),
+                     DLM_K, cfg.arch.n_layers)
+        _phase_trace(smi, f"{src} B4 {tag} exact", mk.megastep_rows_call,
+                     lambda: mk.megastep_rows_call(x2, p, cfg, DLM_BATCH,
+                                                   DLM_SEQ, rows, st),
+                     1, cfg.arch.n_layers)
+    print(json.dumps(out))
 
 
 OPS_ATTN_ARCHS = ("zamba2-2.7b", "kimi-k2-1t-a32b")
@@ -2837,7 +3091,8 @@ def _record(name, where, launches, err, rec):
 def _plan_keys(plan):
     """The launch plan of a megakernel launch, as kept in its record."""
     return {k: plan[k] for k in ("grid", "blocks_per_sm", "barriers_per_step",
-                                 "split_wo", "split_down", "split_out")}
+                                 "split_wo", "split_down", "split_out",
+                                 "aligned")}
 
 
 def _mega_timer(fn):
@@ -3340,8 +3595,8 @@ def _host_prep(smi, eng, label):
         ("expand_slot_coefs", lambda: sops.expand_slot_coefs(
             states.coef_matrix(), eng._rps)),
         ("wrapper checks", lambda: mk._check_kernel_inputs(
-            x2, mk._check_state(x2, params, cfg, B, S, spec.attn_impl), cfg,
-            S)),
+            x2, mk._check_state(x2, params, cfg, B, S, spec.attn_impl),
+            cfg)),
         ("sinusoid", lambda: sinusoidal_time_embedding(
             states.t, cfg.time_dim).to(x2.dtype).float().contiguous()),
         ("RoPE table", lambda: rope_freqs(torch.arange(S, device=dev),
@@ -6373,6 +6628,14 @@ def main(argv=None) -> int:
                          "domain, the ops path, B5's timings at its new "
                          "widths and phase 19 (the mixed-type trunks) on "
                          "this checkout")
+    ap.add_argument("--p20-probe", action="store_true",
+                    help="only build the kernels and run phase 20 (B3 / B4 "
+                         "over every geometry JAX's megakernel admits) on "
+                         "this checkout")
+    ap.add_argument("--mega-probe", metavar="SRC", type=Path,
+                    help="only time B3 / B4 at 4 x 64 (float32 and "
+                         "bfloat16, exact and flash) on SRC/repro_torch "
+                         "(another checkout's src), as one JSON line")
     ap.add_argument("--b5-probe", metavar="SRC", type=Path,
                     help="only time B5 at the main path's shapes on "
                          "SRC/repro_torch (another checkout's src), as one "
@@ -6391,7 +6654,8 @@ def main(argv=None) -> int:
               "False)", file=sys.stderr)
         return 1
     src = (args.launch_probe or args.lm_probe or args.draw_probe
-           or args.tick_probe or args.b5_probe or SRC).resolve()
+           or args.tick_probe or args.b5_probe or args.mega_probe
+           or SRC).resolve()
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke: {src / 'repro_torch'} not found; run it from a "
               "checkout of the repository", file=sys.stderr)
@@ -6412,6 +6676,9 @@ def main(argv=None) -> int:
         return 0
     if args.b5_probe:
         b5_probe(smi, src)
+        return 0
+    if args.mega_probe:
+        mega_probe(smi, src)
         return 0
     from repro_torch.configs import LLAMA3_2_3B, SMOLLM_135M
     if args.lm_probe:
@@ -6445,6 +6712,10 @@ def main(argv=None) -> int:
         phase_19_probe(smi)
         print(f"[done] {time.perf_counter() - t0:.1f} s")
         return 0
+    if args.p20_probe:
+        phase_20(smi)
+        print(f"[done] {time.perf_counter() - t0:.1f} s")
+        return 0
     if args.p17_probe or args.p18_probe:
         params2 = _dlm_params(DLM_SMOLLM_MEGA)
         (phase_17 if args.p17_probe else phase_18)(smi, params2)
@@ -6473,16 +6744,18 @@ def main(argv=None) -> int:
     profile_call(smi, f"one serve batch (eta=0, S={det.S}, batch "
                  f"{svc.batch})", lambda: svc.sample_batch(det, key),
                  "step_kernel")
-    # Encode / decode / interpolation, phase 18 (B3 / B4 in bfloat16) and
+    # Encode / decode / interpolation, phase 18 (B3 / B4 in bfloat16),
     # phase 17 (the megakernels at seq_len 128 / 256 and head dims 16 to
-    # 128) run after every rate above, so that those are timed from the
-    # state they were timed in before these paths existed.  B1 runs on
-    # three main paths: serve, decode and interpolation; B3 and B4 also on
-    # phase 18's and phase 17's.
+    # 128) and phase 20 (every geometry JAX's megakernel admits) run after
+    # every rate above, so that those are timed from the state they were
+    # timed in before these paths existed.  B1 runs on three main paths:
+    # serve, decode and interpolation; B3 and B4 also on phase 18's, 17's
+    # and 20's.
     next(r for r in b_kernels if r["name"] == "sampler_step_2d")[
         "launches"] += phase_main_ode(smi, model)
     errs18, launches18, shapes18 = phase_18(smi, params2)
     errs17, launches17, shapes17 = phase_17(smi, params2)
+    errs20, launches20, shapes20 = phase_20(smi)
     z = det.encode(svc.eps_fn, torch.randn((BATCH,) + CARD_SHAPE,
                                            generator=gen, device="cuda"))
     profile_call(smi, f"one decode (encoded latent, S={det.S}, batch "
@@ -6548,11 +6821,13 @@ def main(argv=None) -> int:
                                                  + b2_p15)
     recs["megastep_rows_call"]["launches"] += b4_p8
     for name in ("megastep_call", "megastep_rows_call"):
-        recs[name]["launches"] += launches17[name] + launches18[name]
+        recs[name]["launches"] += (launches17[name] + launches18[name]
+                                   + launches20[name])
         recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"],
-                                        errs17[name], errs18[name])
-        recs[name].setdefault("shapes", []).extend(shapes17[name]
-                                                   + shapes18[name])
+                                        errs17[name], errs18[name],
+                                        errs20[name])
+        recs[name].setdefault("shapes", []).extend(
+            shapes17[name] + shapes18[name] + shapes20[name])
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

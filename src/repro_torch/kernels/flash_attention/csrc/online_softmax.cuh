@@ -1,6 +1,6 @@
 // The streaming-softmax recurrence of flash attention, as a block-level
-// device body.  Shared by the flash_attention kernel (flash_attention.cu)
-// and the megastep kernel's 'flash' trunk.  Port of
+// device body: the megastep kernel's 'flash' trunk (the flash_attention
+// kernel has its own tensor-core body, flash_mma.cuh).  Port of
 // ``online_softmax_step`` (src/repro/kernels/flash_attention/kernel.py:28)
 // and of the normalisation at the end of ``streaming_attention_body`` (:55).
 //
@@ -104,15 +104,16 @@ __device__ __forceinline__ void pv_product(const float* sP, const float* sV,
   }
 }
 
-// One KV block: s = q k^T (masked above the diagonal when CAUSAL),
-// m' = max(m, rowmax s), p = exp(s - m'), alpha = exp(m - m'),
-// l' = alpha l + rowsum p, acc' = acc alpha + p v.  Every thread of the
-// block calls it; the caller synchronises the block before (tiles loaded)
-// and before it overwrites sK / sV.
+// One KV block: s = q k^T (masked above the diagonal when CAUSAL, and
+// from column k_valid on: a ragged last block, whose V rows there the
+// caller zero-fills), m' = max(m, rowmax s), p = exp(s - m'),
+// alpha = exp(m - m'), l' = alpha l + rowsum p, acc' = acc alpha + p v.
+// Every thread of the block calls it; the caller synchronises the block
+// before (tiles loaded) and before it overwrites sK / sV.
 template <int BQ, int BK, int D, bool CAUSAL>
 __device__ __forceinline__ void online_softmax_step(
     const float* sQ, const float* sK, const float* sV, float* sP,
-    SoftmaxState<BQ, D>& st, int q_start, int k_start) {
+    SoftmaxState<BQ, D>& st, int q_start, int k_start, int k_valid) {
   constexpr int RQ = BQ / 16, RK = BK / 16, RD = D / 16, PS = BK + 1;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
@@ -126,7 +127,9 @@ __device__ __forceinline__ void online_softmax_step(
     float mx = kNegBig;
 #pragma unroll
     for (int j = 0; j < RK; ++j) {
-      if (CAUSAL && q_start + row < k_start + tx + 16 * j) s[i][j] = kNegBig;
+      if ((CAUSAL && q_start + row < k_start + tx + 16 * j) ||
+          (k_valid < BK && tx + 16 * j >= k_valid))
+        s[i][j] = kNegBig;
       mx = fmaxf(mx, s[i][j]);
     }
     const float m_new = fmaxf(st.m[i], half_warp_max(mx));

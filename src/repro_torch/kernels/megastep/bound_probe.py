@@ -1,13 +1,16 @@
 """What bounds the megakernel's product phases: the per-phase device time
 of one B4 tick (``megastep_rows_call``, the phase trace of
-``csrc/megastep_body.cuh``) for the kernel as built and for two variants
-compiled from the same source for this measurement only, whose outputs
-are wrong on purpose:
+``csrc/megastep_body.cuh``) for the kernel as built and for three
+variants compiled from the same source for this measurement only, the
+first two of whose outputs are wrong on purpose:
 
   * ``no_mma``  without the tensor-core products of each depth slice
     (the copies, barriers and epilogues remain);
   * ``no_copy`` without the copies of each slice (the products run on
-    whatever the ring holds).
+    whatever the ring holds);
+  * ``general`` with the general geometry's phases at this aligned one
+    (right: what their edge checks, padded attention and separate time
+    phase cost where no edge is met).
 
 A phase that keeps its time without the copies is bound by its products.
 Each run also prints the tick's bound (``bound_us``): its bytes over the
@@ -38,13 +41,14 @@ from . import kernel
 
 # (text removed, text put in its place) per variant
 _EDITS = {
-    "no_mma": [("      mma_slice<NORM, DUAL>(st, t, t.sl0 + i, bf16, inv0, "
+    "no_mma": [("      mma_slice<NORM, DUAL, G>(st, t, t.sl0 + i, bf16, inv0, "
                 "inv1, acc);\n", "")],
     "no_copy": [
-        ("      if (i < n_sl) load_slice<DUAL>(smem + i * kStageFloats, t, "
+        ("      if (i < n_sl) load_slice<DUAL, G>(smem + i * kStageFloats, t, "
          "t.sl0 + i);\n", ""),
-        ("        load_slice<DUAL>(smem + (nx % kStages) * kStageFloats, t, "
-         "t.sl0 + nx);\n", "        ;\n")],
+        ("        load_slice<DUAL, G>(smem + (nx % kStages) * kStageFloats, "
+         "t,\n                            t.sl0 + nx);\n", "        ;\n")],
+    "general": [("  p.general = !aligned(*w, seq);\n", "  p.general = 1;\n")],
 }
 PHASES = ("qkv", "attn", "wo", "mlp", "down")
 

@@ -28,12 +28,26 @@
 // rmsnorm body's (rms_inv_from_sumsq), the update the shared step body
 // (step_update.cuh).  There is no PRNG code: mega plans are deterministic.
 //
-// Geometry (the float32 domain of the TPU kernel): any seq_len S that is a
-// multiple of 64 (a 64-row product tile never straddles two samples, so a
-// tile's slot is m0 / S), head dim D in {16, 32, 64, 128} (a runtime value:
-// only the attention phase is instantiated per D, so the build stays at 8
-// kernels), and widths whose products the 64 x 32 tiles cut exactly
-// (widths_ok).  sqrt(D) and 1/sqrt(D) are the float32 values JAX's exact
+// Geometry (every one the TPU kernel admits): any seq_len S >= 1 whose
+// sample is a whole number of 256-wide tile rows, any d_model, d_ff,
+// latent and time_dim, and an even head dim D from 2 to 256 (widths_ok).
+// A 64-row product tile may straddle samples (S 32, 80, 200) and may end
+// past the batch's M = batch x S rows: every row of a tile finds its own
+// sample (m / S), rows past M are copied as zeros and never stored.  Tile
+// columns past a product's width and depth past its K are zero-filled the
+// same way (cp.async with source size 0 where rows are whole 16-byte
+// chunks, one element at a time where they are not), and a tile wholly
+// inside with 16-byte rows takes the plain copies.  Attention pads each
+// head to a width of 16, 32, 64, 96, 128 or 256 (columns past D are zero),
+// masks the K/V rows of a ragged last block (past S) to -1e30 and stores no
+// query row past S.  The aligned geometry (``aligned``: S a multiple of
+// 64, D 16, 32, 64 or 128, every product width a multiple of 32) runs its
+// own instantiation of each phase, with none of these checks: run there,
+// the general phases take 11% longer (bound_probe.py's ``general``
+// variant, a B4 tick on an H100 80GB HBM3 at 700 W).  Only the phases
+// are instantiated twice (and attention per width), so the build stays
+// at 8 kernels.
+// sqrt(D) and 1/sqrt(D) of the true D are the float32 values JAX's exact
 // and flash trunks use, computed by the launcher.
 //
 // bfloat16 (the TPU kernel's dtype rules, kernel.py:152-155, :171-174).
@@ -61,9 +75,9 @@
 // Bound on the H100: operations.  One step at smollm width (d 576, 9 / 3
 // heads of 64, d_ff 1536, 2 layers), batch 4, 64 tokens is ~3.7 GFLOP
 // (2 x 256 tokens x 7.11 M eps-path weights, plus attention), so an
-// 8-step launch is ~30 GFLOP, ~0.44 ms at 67 TFLOP/s float32; reading the
-// 29.3 MB of weights once takes ~9 us at 3.35 TB/s.  A scheduler tick is
-// one such step, ~56 us at 67 TFLOP/s.
+// 8-step launch is ~30 GFLOP, ~0.44 ms at the H100's 67 TFLOP/s float32
+// data-sheet rate; reading the 29.3 MB of weights once takes ~9 us at its
+// 3.35 TB/s.  A scheduler tick is one such step, ~56 us at 67 TFLOP/s.
 //
 // Grid, phases, barriers.  One persistent cooperative launch
 // (cudaLaunchKernelEx with cudaLaunchAttributeCooperative, which also
@@ -77,21 +91,25 @@
 // the block of rank i mod grid, ranks ordering blocks by (slot on their
 // SM, SM id) so that the first items of a phase land on distinct SMs:
 //   time  th = silu(temb @ time_w1) for every embedding of the launch (K
-//         for B3, one per slot for B4): once per launch
-//   w_in  h = x @ w_in + th @ time_w2: 64 x 32 output tiles; the block
-//         computes its 32 columns of th @ time_w2 itself
+//         for B3, one per slot for B4), once per launch; in the general
+//         geometry then tw = th @ time_w2 (a second barrier)
+//   w_in  h = x @ w_in + th[e] @ time_w2: 64 x 32 output tiles; e is the
+//         step, or B4's slot m / S.  An aligned tile lies in one sample and
+//         its block computes its 32 columns of th @ time_w2 itself; in the
+//         general geometry row m adds row e of tw
 //   per layer:
 //   qkv   [q k v] = rmsnorm(h) @ [wq wk wv] (one product, N = H*D +
-//         2 Hkv*D)
+//         2 Hkv*D; the tiles of q, k and v are counted apart, so none
+//         straddles two of them)
 //   attn  one item per (sample, q head, block of 32 query rows) on kv head
-//         h / G, looping over the sample's K/V blocks of 64 rows (32 at D =
-//         128, so that the tiles fit the product ring's shared memory and
-//         two blocks stay resident per SM); RoPE is applied to q and k as
-//         they are loaded, at their own positions.  'flash' runs the
-//         online-softmax recurrence over the blocks; 'exact' takes two
-//         passes, the rows' max and sum first, then p = exp(s - max) / sum
-//         and p v block by block (one pass where S is one block: then it is
-//         the plain row softmax)
+//         h / (H / Hkv), looping over the sample's K/V blocks of 64 rows
+//         (32 at width 128, 16 past it, so that the tiles fit the product
+//         ring's shared memory and two blocks stay resident per SM); RoPE
+//         is applied to q and k as they are loaded, at their own positions.
+//         'flash' runs the online-softmax recurrence over the blocks;
+//         'exact' takes two passes, the rows' max and sum first, then p =
+//         exp(s - max) / sum and p v block by block (one pass where S is
+//         one block: then it is the plain row softmax)
 //   wo    h += attn @ wo, split-K
 //   mlp   ff = silu(rmsnorm(h) @ w_gate) * (rmsnorm(h) @ w_up), both
 //         products in one item
@@ -101,11 +119,12 @@
 //         sample's state elements, so element i of sample b takes its
 //         coefficients (B4: row b * rows_per_slot + i / 256) and x in place
 // That is 2 + 5 n_layers grid barriers per step (12 at 2 layers), one more
-// per launch for the time MLP and one fewer after the last step.  A
-// normed product computes rmsnorm(h) @ W as inv[row] * ((h * scale) @ W):
-// the A fragments are multiplied by the norm's scale as they are read,
-// each row's sum of squares is taken from the A slices as they stream
-// through shared memory, and the epilogue multiplies by the inverse RMS
+// per launch for the time MLP (two in the general geometry) and one fewer
+// after the last step.  A normed product computes rmsnorm(h) @ W as
+// inv[row] * ((h * scale) @ W): the A fragments are multiplied by the
+// norm's scale as they are read, each row's sum of squares is taken from
+// the A slices as they stream through shared memory, and the epilogue
+// multiplies by the inverse RMS
 // (rms_inv_from_sumsq, rmsnorm_body.cuh), so no phase rereads h for its
 // norm.  Split-K partials (and, for normed products, partial sums of
 // squares) go to the workspace; the last item of a tile to arrive (an
@@ -182,6 +201,7 @@ namespace {
 
 namespace cg = cooperative_groups;
 using repro::cp_async16;
+using repro::cp_async16_zfill;
 using repro::cp_async_commit;
 using repro::cp_async_wait;
 using repro::kAttnThreads;
@@ -195,7 +215,7 @@ constexpr int kWeightCode = kBf16W ? 1 : 0;
 
 constexpr int kThreads = kAttnThreads;  // 256: 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kSeqMultiple = 64;        // seq_len granule (= kBM)
+constexpr int kMaxHeadDim = 256;
 constexpr int kBQ = 32;                 // query rows of an attention item
 constexpr int kBM = 64;                 // rows of a product tile
 constexpr int kBN = 32;                 // columns of a product tile
@@ -211,12 +231,14 @@ constexpr int kBSh = kBN + 8;
 static_assert(kBK * kBSh * 2 <= kBStage * 4, "bfloat16 B fits its area");
 constexpr int kStageFloats = kAStage + 2 * kBStage;  // A, B (and B2)
 constexpr int kGemmFloats = kStages * kStageFloats;
+constexpr int kWVec = 16 / static_cast<int>(sizeof(WT));  // weights a chunk
 
-// The attention tiles of head dim HD in the union area: sQ (kBQ, HD), sK
-// (BK, HD) with +1 pads, sP (kBQ, BK) +1, sV (BK, HD) 16-byte aligned.
+// The attention tiles of padded head width HD in the union area: sQ (kBQ,
+// HD), sK (BK, HD) with +1 pads, sP (kBQ, BK) +1, sV (BK, HD) 16-byte
+// aligned.
 template <int HD>
 struct AttnTiles {
-  static constexpr int BK = HD == 128 ? 32 : 64;  // K/V rows of a block
+  static constexpr int BK = HD > 128 ? 16 : HD == 128 ? 32 : 64;  // K/V rows
   static constexpr int QS = HD + 1, PS = BK + 1;
   static constexpr int kQ = 0, kK = kQ + kBQ * QS, kP = kK + BK * QS;
   static constexpr int kV = (kP + kBQ * PS + 3) / 4 * 4;
@@ -224,8 +246,9 @@ struct AttnTiles {
 };
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 constexpr int kAttnFloats =
-    cmax(cmax(AttnTiles<16>::kFloats, AttnTiles<32>::kFloats),
-         cmax(AttnTiles<64>::kFloats, AttnTiles<128>::kFloats));
+    cmax(cmax(cmax(AttnTiles<16>::kFloats, AttnTiles<32>::kFloats),
+              cmax(AttnTiles<64>::kFloats, AttnTiles<96>::kFloats)),
+         cmax(AttnTiles<128>::kFloats, AttnTiles<kMaxHeadDim>::kFloats));
 static_assert(kAttnFloats <= kGemmFloats,
               "the attention tiles must not grow shared memory past the "
               "product ring: two blocks per SM");
@@ -258,10 +281,12 @@ struct Params {
   const float* rope_sin;
   const float* coefs;
   int K, batch, seq, n_emb, n_cnt;
+  int general;     // not the aligned geometry: the phases' G instantiation
   float clip;
   float attn_div;  // sqrt(D) in float32: 'exact' divides the scores by it
   float q_scale;   // 1/sqrt(D) in float32: 'flash' multiplies q by it
   float *h, *qkv, *ao, *ff, *th, *part, *ssq;
+  float* tw;  // th @ time_w2, (n_emb, d_model)
   float* xs;  // a bfloat16 state widened to float32, updated every step
   int* cnt;
   int* sm_of;  // the SM of each block
@@ -274,10 +299,15 @@ struct Plan {
 };
 
 struct Layout {
-  long long h, qkv, ao, ff, th, part, ssq, xs, cnt, n_cnt, sm_of, total;
+  long long h, qkv, ao, ff, th, tw, part, ssq, xs, cnt, n_cnt, sm_of, total;
 };
 
 long long round4(long long n) { return (n + 3) / 4 * 4; }
+
+// Tiles (or depth slices) of width w: the last one may be partial.
+__host__ __device__ __forceinline__ int cdiv(int w, int t) {
+  return (w + t - 1) / t;
+}
 
 // Split-K for the phases with too few output tiles to occupy the grid
 // (the residual products wo, w_down and w_out), as far as the grid has
@@ -293,11 +323,13 @@ Plan make_plan(const ReproMegaWeights& w, int batch, int seq, int per_sm,
   Plan p;
   p.per_sm = per_sm;
   p.grid = per_sm * sms;
-  const int mt = batch * seq / kBM;
-  p.split_wo =
-      split_for(mt * w.d_model / kBN, w.n_heads * w.head_dim / kBK, p.grid);
-  p.split_dn = split_for(mt * w.d_model / kBN, w.d_ff / kBK, p.grid);
-  p.split_out = split_for(mt * w.latent / kBN, w.d_model / kBK, p.grid);
+  const int mt = cdiv(batch * seq, kBM);
+  p.split_wo = split_for(mt * cdiv(w.d_model, kBN),
+                         cdiv(w.n_heads * w.head_dim, kBK), p.grid);
+  p.split_dn =
+      split_for(mt * cdiv(w.d_model, kBN), cdiv(w.d_ff, kBK), p.grid);
+  p.split_out =
+      split_for(mt * cdiv(w.latent, kBN), cdiv(w.d_model, kBK), p.grid);
   return p;
 }
 
@@ -307,32 +339,38 @@ Layout layout(const ReproMegaWeights& w, int batch, int seq, int n_emb,
   const long long M = static_cast<long long>(batch) * seq,
                   d = w.d_model, hq = w.n_heads * w.head_dim,
                   hkv = w.n_kv_heads * w.head_dim, L = w.latent;
+  const long long mt = cdiv(batch * seq, kBM),
+                  nt = cdiv(w.d_model > w.latent ? w.d_model : w.latent, kBN);
   long long part = p.split_wo * M * d;
   if (p.split_dn * M * d > part) part = p.split_dn * M * d;
   if (p.split_out * M * L > part) part = p.split_out * M * L;
   Layout l;
   long long o = 0;
   l.h = o;
-  o += M * d;
+  o += round4(M * d);
   l.qkv = o;
-  o += M * (hq + 2 * hkv);
+  o += round4(M * (hq + 2 * hkv));
   l.ao = o;
-  o += M * hq;
+  o += round4(M * hq);
   l.ff = o;
-  o += M * w.d_ff;
+  o += round4(M * w.d_ff);
   l.th = o;
   o += round4(static_cast<long long>(n_emb) * w.time_dim);
   l.part = o;  // split-K partial tiles
-  o += part;
+  o += round4(part);
   l.ssq = o;  // row sums of squares of the split w_out items
-  o += p.split_out * (M / kBM) * (L / kBN) * kBM;
+  o += p.split_out * mt * cdiv(w.latent, kBN) * kBM;
   l.xs = o;  // the state in float32 (bfloat16 states)
-  o += M * L;
+  o += round4(M * L);
   l.cnt = o;  // arrival counters of split tiles
-  l.n_cnt = M / kBM * ((d > L ? d : L) / kBN);
+  l.n_cnt = mt * nt;
   o += round4(l.n_cnt);
   l.sm_of = o;
   o += round4(p.grid);
+  // th @ time_w2 of the general geometry, last: no offset of a buffer of
+  // the aligned geometry depends on it
+  l.tw = o;
+  o += round4(static_cast<long long>(n_emb) * d);
   l.total = o;
   return l;
 }
@@ -405,12 +443,17 @@ __device__ __noinline__ void compute_rank(const Params& p, float* smem) {
 // ---------------------------------------------------------- product tiles
 // One 64 x 32 output tile (two with DUAL: the same A against B0 and B1)
 // over depth slices [sl0, sl1) of 32.  A points at row m0, column 0 of a
-// row-major activation (lda); B0 / B1 at row 0, column n0 of a row-major
-// (K, N) weight (ldb).  NORM computes rmsnorm(A) @ B as
-// inv[row] * ((A * scale[k]) @ B): the fragments of A are multiplied by
-// the norm's scale as they are read, each row's sum of squares is taken
-// from the slices as they stream through shared memory, and the epilogue
-// multiplies by the inverse RMS (equal in exact arithmetic to scaling A).
+// row-major (M, kd) activation; B0 / B1 at row 0, column c of a row-major
+// (kd, ldb) weight.  Of the tile, ``rows`` rows and ``cols`` columns are
+// inside the product (the rest is copied as zeros and never stored), and
+// its column 0 is column ``n`` of the output buffer.  ``fast``: the tile
+// is whole, kd is a whole number of slices and every row of A and B is a
+// whole number of 16-byte chunks, so the plain copies serve.  NORM
+// computes rmsnorm(A) @ B as inv[row] * ((A * scale[k]) @ B): the
+// fragments of A are multiplied by the norm's scale as they are read, each
+// row's sum of squares is taken from the slices as they stream through
+// shared memory, and the epilogue multiplies by the inverse RMS (equal in
+// exact arithmetic to scaling A).
 // In a bfloat16 trunk NORM takes the norm's own op order instead: the
 // rows' inverse RMS first (row_inv_bf16), then each A element as
 // bfloat16(bfloat16(a * inv) * scale), and no epilogue factor.
@@ -418,22 +461,107 @@ struct Tile {
   const float* A;
   const WT* B0;
   const WT* B1;
-  int lda, ldb, sl0, sl1;
+  int ldb, n, cols;
   const WT* scale;
+  int kd, rows, sl0, sl1;
+  bool fast;
 };
+
+// A tile of B0 (and B1) at column c of a (kd, ldb) weight, whose column 0
+// lands on output column n; gemm_phase sets the rest.
+__device__ __forceinline__ Tile make_tile(const float* A, const WT* B0,
+                                          const WT* B1, int ldb, int c,
+                                          int n, const WT* scale) {
+  Tile t;
+  t.A = A;
+  t.B0 = B0 + c;
+  t.B1 = B1 == nullptr ? nullptr : B1 + c;
+  t.ldb = ldb;
+  t.n = n;
+  t.cols = ldb - c < kBN ? ldb - c : kBN;
+  t.scale = scale;
+  return t;
+}
+
+// The copies of slice sl of a tile that is not ``fast``: A rows past
+// ``rows``, B columns past ``cols`` and depth past kd zero.  Rows that are
+// whole 16-byte chunks take cp.async, a chunk past the product's edge
+// with source size 0; other rows are copied one element at a time (the
+// stores land before the ring's next barrier, as the copies do).
+template <bool DUAL>
+__device__ __noinline__ void load_slice_edge(float* st, const Tile& t,
+                                             int sl) {
+  const int tid = threadIdx.x, k = sl * kBK;
+  const int kn = t.kd - k < kBK ? t.kd - k : kBK;  // depth in the product
+  if ((t.kd & 3) == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // 64 rows x 8 chunks of 16 bytes
+      const int c = tid + i * kThreads, r = c >> 3, q = c & 7;
+      const bool ok = r < t.rows && 4 * q < kn;
+      cp_async16_zfill(
+          st + r * kAS + 4 * q,
+          ok ? t.A + static_cast<long long>(r) * t.kd + k + 4 * q : t.A,
+          ok ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < kBM * kBK; e += kThreads) {
+      const int r = e / kBK, c = e % kBK;
+      st[r * kAS + c] =
+          r < t.rows && c < kn
+              ? __ldcg(t.A + static_cast<long long>(r) * t.kd + k + c)
+              : 0.0f;
+    }
+  }
+  constexpr int nb = DUAL ? 2 : 1;
+  if (t.ldb % kWVec == 0) {
+    constexpr int per_row = kBN / kWVec;  // chunks of a B row
+    for (int c = tid; c < nb * kBK * per_row; c += kThreads) {
+      const int b = c / (kBK * per_row), r = c % (kBK * per_row) / per_row,
+                q = c % per_row;
+      const WT* B = b ? t.B1 : t.B0;
+      const bool ok = r < kn && kWVec * q < t.cols;
+      float* dst = st + kAStage + b * kBStage;
+      void* d = kBf16W ? static_cast<void*>(reinterpret_cast<uint16_t*>(dst) +
+                                            r * kBSh + kWVec * q)
+                       : static_cast<void*>(dst + r * kBS + kWVec * q);
+      cp_async16_zfill(
+          d, ok ? B + static_cast<long long>(k + r) * t.ldb + kWVec * q : B,
+          ok ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < nb * kBK * kBN; e += kThreads) {
+      const int b = e / (kBK * kBN), r = e % (kBK * kBN) / kBN, c = e % kBN;
+      const WT* B = b ? t.B1 : t.B0;
+      const bool ok = r < kn && c < t.cols;
+      float* dst = st + kAStage + b * kBStage;
+      const long long off = static_cast<long long>(k + r) * t.ldb + c;
+      if constexpr (kBf16W) {
+        reinterpret_cast<uint16_t*>(dst)[r * kBSh + c] =
+            ok ? __ldg(reinterpret_cast<const unsigned short*>(B) + off) : 0;
+      } else {
+        dst[r * kBS + c] = ok ? repro::to_f32(__ldg(B + off)) : 0.0f;
+      }
+    }
+  }
+}
 
 // The copies of slice sl into stage st by cp.async: A, and B as stored
 // (bfloat16 weights stay bfloat16 and are widened as the fragments are
-// read: the same ring, the same copies in flight).
-template <bool DUAL>
+// read: the same ring, the same copies in flight).  G: the general
+// geometry, whose tiles may not be ``fast``.
+template <bool DUAL, bool G>
 __device__ __forceinline__ void load_slice(float* st, const Tile& t,
                                            int sl) {
+  if (G && !t.fast) {
+    load_slice_edge<DUAL>(st, t, sl);
+    return;
+  }
   const int tid = threadIdx.x, k = sl * kBK;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {  // 64 rows x 8 chunks of 16 bytes
     const int c = tid + i * kThreads, r = c >> 3, q = c & 7;
     cp_async16(st + r * kAS + 4 * q,
-               t.A + static_cast<long long>(r) * t.lda + k + 4 * q);
+               t.A + static_cast<long long>(r) * t.kd + k + 4 * q);
   }
   if constexpr (kBf16W) {  // 32 rows x 4 chunks of 8 per B: B1 on tid 128+
     const int c = tid & 127, r = c >> 2, q = c & 3;
@@ -458,7 +586,7 @@ __device__ __forceinline__ void load_slice(float* st, const Tile& t,
 // one pass (big.big) is the product; NORM then normalises the fragments
 // by the rows' inverse RMS inv0 (row g) and inv1 (row g + 8).  bfloat16
 // weights have no remainder (the small.big pass of B is 0 and skipped).
-template <bool NORM, bool DUAL, bool BF16>
+template <bool NORM, bool DUAL, bool G, bool BF16>
 __device__ __forceinline__ void mma_slice_as(const float* st, const Tile& t,
                                              int sl, float inv0, float inv1,
                                              float (&acc)[DUAL ? 2 : 1][2][4]) {
@@ -470,9 +598,10 @@ __device__ __forceinline__ void mma_slice_as(const float* st, const Tile& t,
   for (int kk = 0; kk < kBK / 8; ++kk) {
     const int kc = kk * 8 + q;
     float a[4] = {sA[kc], sA[8 * kAS + kc], sA[kc + 4], sA[8 * kAS + kc + 4]};
-    if (NORM) {
-      const float s0 = wload(t.scale, sl * kBK + kc);
-      const float s1 = wload(t.scale, sl * kBK + kc + 4);
+    if (NORM) {  // depth past kd: A is 0 there, any scale element serves
+      const int k0 = sl * kBK + kc, kl = t.kd - 1;
+      const float s0 = wload(t.scale, !G || k0 < kl ? k0 : kl);
+      const float s1 = wload(t.scale, !G || k0 + 4 < kl ? k0 + 4 : kl);
       if (bf16) {  // bfloat16(bfloat16(a * inv) * scale), as rms_norm
         a[0] = bf16_round(__fmul_rn(bf16_round(__fmul_rn(a[0], inv0)), s0));
         a[1] = bf16_round(__fmul_rn(bf16_round(__fmul_rn(a[1], inv1)), s0));
@@ -529,36 +658,45 @@ __device__ __forceinline__ void mma_slice_as(const float* st, const Tile& t,
 
 // The slice's product, its loop specialised to the trunk's type (one
 // uniform branch per slice, none inside the unrolled loop).
-template <bool NORM, bool DUAL>
+template <bool NORM, bool DUAL, bool G>
 __device__ __forceinline__ void mma_slice(const float* st, const Tile& t,
                                           int sl, bool bf16, float inv0,
                                           float inv1,
                                           float (&acc)[DUAL ? 2 : 1][2][4]) {
   if constexpr (kBf16W)
     if (bf16) {
-      mma_slice_as<NORM, DUAL, true>(st, t, sl, inv0, inv1, acc);
+      mma_slice_as<NORM, DUAL, G, true>(st, t, sl, inv0, inv1, acc);
       return;
     }
-  mma_slice_as<NORM, DUAL, false>(st, t, sl, inv0, inv1, acc);
+  mma_slice_as<NORM, DUAL, G, false>(st, t, sl, inv0, inv1, acc);
 }
 
 // The inverse RMS of the tile's kBM rows of A (depth Kd) in a bfloat16
 // trunk, rounded to bfloat16 (rms_inv_from_sumsq), into inv[kBM]: four
-// threads per row sum its squares in float32.  Ends before a barrier the
+// threads per row sum its squares in float32 (in the general geometry, G,
+// rows past the product's edge sum nothing).  Ends before a barrier the
 // caller makes.
+template <bool G>
 __device__ __forceinline__ void row_inv_bf16(const Tile& t, int Kd, float eps,
                                              float* inv) {
   static_assert(kThreads == 4 * kBM, "row_inv_bf16: 4 threads per row");
   const int r = threadIdx.x >> 2, qq = threadIdx.x & 3;
-  const float* row = t.A + static_cast<long long>(r) * t.lda;
+  const float* row = t.A + static_cast<long long>(r) * Kd;
   float ss = 0.0f;
+  if (!G || (r < t.rows && (Kd & 3) == 0)) {
 #pragma unroll 8
-  for (int c = 4 * qq; c < Kd; c += 16) {
-    const float4 v = __ldcg(reinterpret_cast<const float4*>(row + c));
-    ss = __fadd_rn(ss, __fmul_rn(v.x, v.x));
-    ss = __fadd_rn(ss, __fmul_rn(v.y, v.y));
-    ss = __fadd_rn(ss, __fmul_rn(v.z, v.z));
-    ss = __fadd_rn(ss, __fmul_rn(v.w, v.w));
+    for (int c = 4 * qq; c < Kd; c += 16) {
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(row + c));
+      ss = __fadd_rn(ss, __fmul_rn(v.x, v.x));
+      ss = __fadd_rn(ss, __fmul_rn(v.y, v.y));
+      ss = __fadd_rn(ss, __fmul_rn(v.z, v.z));
+      ss = __fadd_rn(ss, __fmul_rn(v.w, v.w));
+    }
+  } else if (r < t.rows) {  // rows that are no whole 16-byte chunks
+    for (int c = qq; c < Kd; c += 4) {
+      const float v = __ldcg(row + c);
+      ss = __fadd_rn(ss, __fmul_rn(v, v));
+    }
   }
   ss = __fadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, 1));
   ss = __fadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, 2));
@@ -580,18 +718,51 @@ __device__ __forceinline__ void slice_sumsq(const float* st, float& ss) {
   }
 }
 
-// One product phase: M = batch x S rows by N columns, depth Kd, each
-// tile cut into ``split`` items along the depth.  tile_of(m0, n0) gives
-// the operands of a tile; pre(m0, n0) runs before its product (all
-// threads; the block synchronises after it); epi(m, n, v) takes output
-// pair (m, n), (m, n + 1) of the finished tile (v[nb] from B0 / B1).
-template <bool NORM, bool DUAL, typename TileOf, typename Pre, typename Epi>
+// Output elements (n, n + 1) of a row-major float32 buffer at a (only n
+// unless ``two``): one 8-byte access where ``vec`` (the buffer's row
+// stride is even, and n always is), else one access each.
+__device__ __forceinline__ void put2(float* a, float x, float y, bool two,
+                                     bool vec) {
+  if (two && vec) {
+    *reinterpret_cast<float2*>(a) = make_float2(x, y);
+  } else {
+    a[0] = x;
+    if (two) a[1] = y;
+  }
+}
+
+// get2cg reads such a pair through L2 (activations of this launch); the
+// element past the edge reads as 0.
+__device__ __forceinline__ float2 get2cg(const float* a, bool two, bool vec) {
+  if (two && vec) return __ldcg(reinterpret_cast<const float2*>(a));
+  return make_float2(__ldcg(a), two ? __ldcg(a + 1) : 0.0f);
+}
+
+// One product phase: M = batch x S rows in ceil(M / 64) row tiles by
+// ``n_nt`` column tiles, depth Kd, each tile cut into ``split`` items
+// along the depth.  tile_of(m0, nt) gives the operands of row tile m0,
+// column tile nt (make_tile); epi(m, n, v, two) takes output pair (m, n),
+// (m, n + 1) of the finished tile (v[nb] from B0 / B1; only (m, n) unless
+// ``two``), only inside the product; pre(m0, nt) runs before a tile's
+// product (all threads; the block synchronises after it) unless it is a
+// NoPre.  A split phase's tiles are those of one (M, N) output, nt * 32
+// its columns.  Without G (the aligned geometry: M, N and Kd whole tiles)
+// every tile is whole and ``fast``, and none of the edge checks is
+// compiled.
+struct NoPre {
+  __device__ __forceinline__ void operator()(int, int) const {}
+};
+
+template <bool NORM, bool DUAL, bool G, typename TileOf, typename Epi,
+          typename Pre = NoPre>
 __device__ __forceinline__ void gemm_phase(const Params& p, float* smem,
-                                           int N, int Kd, int split,
-                                           TileOf tile_of, Pre pre, Epi epi) {
+                                           int n_nt, int N, int Kd,
+                                           int split, TileOf tile_of,
+                                           Epi epi, Pre pre = NoPre{}) {
   static_assert(kThreads == 4 * kBM, "slice_sumsq: 4 threads per row");
-  const int M = p.batch * p.seq, n_nt = N / kBN, tiles = M / kBM * n_nt;
-  const int nsl = Kd / kBK;
+  const int M = p.batch * p.seq, tiles = cdiv(M, kBM) * n_nt;
+  const int nsl = cdiv(Kd, kBK);
+  const bool vec_part = !G || (N & 1) == 0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, q = lane & 3, wm = warp & 3, wn = warp >> 2;
   // the tile's row sums of squares (the inverse RMS in a bfloat16 trunk)
@@ -602,12 +773,18 @@ __device__ __forceinline__ void gemm_phase(const Params& p, float* smem,
   for (int item = block_rank(smem); item < tiles * split;
        item += gridDim.x) {
     const int tile = item % tiles, s = item / tiles;
-    const int m0 = tile / n_nt * kBM, n0 = tile % n_nt * kBN;
-    Tile t = tile_of(m0, n0);
+    const int m0 = tile / n_nt * kBM;
+    Tile t = tile_of(m0, tile % n_nt);
+    t.kd = Kd;
+    t.rows = !G || M - m0 >= kBM ? kBM : M - m0;
+    t.fast = !G || (t.rows == kBM && t.cols == kBN && Kd % kBK == 0 &&
+                    t.ldb % kWVec == 0);
     t.sl0 = s * nsl / split;
     t.sl1 = (s + 1) * nsl / split;
-    pre(m0, n0);
-    __syncthreads();
+    if constexpr (!std::is_same<Pre, NoPre>::value) {
+      pre(m0, tile % n_nt);
+      __syncthreads();
+    }
 
     float acc[DUAL ? 2 : 1][2][4];
 #pragma unroll
@@ -621,14 +798,14 @@ __device__ __forceinline__ void gemm_phase(const Params& p, float* smem,
     const int n_sl = t.sl1 - t.sl0;
 #pragma unroll
     for (int i = 0; i < kStages - 1; ++i) {
-      if (i < n_sl) load_slice<DUAL>(smem + i * kStageFloats, t, t.sl0 + i);
+      if (i < n_sl) load_slice<DUAL, G>(smem + i * kStageFloats, t, t.sl0 + i);
       cp_async_commit();
     }
     // a bfloat16 trunk's norm: the rows' inverse RMS, while the first
     // slices' copies are in flight
     float inv0 = 1.0f, inv1 = 1.0f;
     if (NORM && bf16) {
-      row_inv_bf16(t, Kd, p.w.norm_eps, sSS);
+      row_inv_bf16<G>(t, Kd, p.w.norm_eps, sSS);
       __syncthreads();
       inv0 = sSS[wm * 16 + g];
       inv1 = sSS[wm * 16 + g + 8];
@@ -638,11 +815,12 @@ __device__ __forceinline__ void gemm_phase(const Params& p, float* smem,
       __syncthreads();  // slice i landed; slice i - 1 is no longer read
       const int nx = i + kStages - 1;
       if (nx < n_sl)
-        load_slice<DUAL>(smem + (nx % kStages) * kStageFloats, t, t.sl0 + nx);
+        load_slice<DUAL, G>(smem + (nx % kStages) * kStageFloats, t,
+                            t.sl0 + nx);
       cp_async_commit();
       const float* st = smem + (i % kStages) * kStageFloats;
       if (stream_ss) slice_sumsq(st, ss);
-      mma_slice<NORM, DUAL>(st, t, t.sl0 + i, bf16, inv0, inv1, acc);
+      mma_slice<NORM, DUAL, G>(st, t, t.sl0 + i, bf16, inv0, inv1, acc);
     }
     cp_async_wait<0>();
     if (stream_ss) {  // the row's quarters, added pairwise: one per row
@@ -666,11 +844,11 @@ __device__ __forceinline__ void gemm_phase(const Params& p, float* smem,
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
-          const int m = m0 + wm * 16 + g + 8 * hr,
-                    n = n0 + wn * 16 + j * 8 + 2 * q;
-          *reinterpret_cast<float2*>(part + static_cast<long long>(m) * N +
-                                     n) =
-              make_float2(acc[0][j][2 * hr], acc[0][j][2 * hr + 1]);
+          const int r = wm * 16 + g + 8 * hr, c = wn * 16 + j * 8 + 2 * q;
+          if (!G || (r < t.rows && c < t.cols))
+            put2(part + static_cast<long long>(m0 + r) * N + t.n + c,
+                 acc[0][j][2 * hr], acc[0][j][2 * hr + 1],
+                 !G || c + 1 < t.cols, vec_part);
         }
       if (stream_ss && threadIdx.x < kBM)
         p.ssq[(static_cast<long long>(s) * tiles + tile) * kBM + threadIdx.x] =
@@ -689,13 +867,16 @@ __device__ __forceinline__ void gemm_phase(const Params& p, float* smem,
         for (int j = 0; j < 2; ++j)
 #pragma unroll
           for (int hr = 0; hr < 2; ++hr) {
+            const int r = wm * 16 + g + 8 * hr, c = wn * 16 + j * 8 + 2 * q;
+            if (G && (r >= t.rows || c >= t.cols)) continue;
+            const bool two = !G || c + 1 < t.cols;
             const long long off =
-                static_cast<long long>(m0 + wm * 16 + g + 8 * hr) * N + n0 +
-                wn * 16 + j * 8 + 2 * q;
-            float2 v = __ldcg(reinterpret_cast<const float2*>(p.part + off));
+                static_cast<long long>(m0 + r) * N + t.n + c;
+            float2 v = get2cg(p.part + off, two, vec_part);
             for (int s2 = 1; s2 < split; ++s2) {
-              const float2 u = __ldcg(reinterpret_cast<const float2*>(
-                  p.part + static_cast<long long>(s2) * M * N + off));
+              const float2 u = get2cg(
+                  p.part + static_cast<long long>(s2) * M * N + off, two,
+                  vec_part);
               v.x = __fadd_rn(v.x, u.x);
               v.y = __fadd_rn(v.y, u.y);
             }
@@ -726,6 +907,8 @@ __device__ __forceinline__ void gemm_phase(const Params& p, float* smem,
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
+          const int r = wm * 16 + g + 8 * hr, c = wn * 16 + j * 8 + 2 * q;
+          if (G && (r >= t.rows || c >= t.cols)) continue;
           float2 v[DUAL ? 2 : 1];
 #pragma unroll
           for (int nb = 0; nb < (DUAL ? 2 : 1); ++nb) {
@@ -735,7 +918,7 @@ __device__ __forceinline__ void gemm_phase(const Params& p, float* smem,
               v[nb].y = __fmul_rn(v[nb].y, inv[hr]);
             }
           }
-          epi(m0 + wm * 16 + g + 8 * hr, n0 + wn * 16 + j * 8 + 2 * q, v);
+          epi(m0 + r, t.n + c, v, !G || c + 1 < t.cols);
         }
     }
     __syncthreads();  // the ring and sSS are reused by the next item
@@ -754,8 +937,8 @@ __device__ __forceinline__ float block_row_dot(const float* in, int n_in,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c = c0 + lane;
   float a = 0.0f;
-  if (c < n_out)
-#pragma unroll 8
+  if (c < n_out)  // 32 loads in flight: the dot waits about one latency
+#pragma unroll 32
     for (int i = warp; i < n_in; i += kWarps)
       a = fmaf(__ldcg(in + i), wload(w, static_cast<long long>(i) * ldw + c),
                a);
@@ -783,7 +966,7 @@ __device__ __noinline__ void phase_time(const Params& p, float* smem) {
          i < n; i += static_cast<long long>(gridDim.x) * kThreads)
       p.xs[i] = __bfloat162float(__ldg(p.xb + i));
   }
-  const int T = p.w.time_dim, groups = (T + 31) / 32;
+  const int T = p.w.time_dim, groups = cdiv(T, 32);
   float* red = smem + kUnionFloats + kBM;
   for (int item = blockIdx.x; item < p.n_emb * groups; item += gridDim.x) {
     const int e = item / groups, c0 = item % groups * 32;
@@ -795,105 +978,146 @@ __device__ __noinline__ void phase_time(const Params& p, float* smem) {
   }
 }
 
+// tw[e] = th[e] @ time_w2, the embedding row w_in adds, for every
+// embedding of the launch (after the barrier that follows phase_time), in
+// the general geometry, whose w_in tiles may hold rows of several samples.
+__device__ __noinline__ void phase_time_out(const Params& p, float* smem) {
+  const int d = p.w.d_model, T = p.w.time_dim, groups = cdiv(d, 32);
+  float* red = smem + kUnionFloats + kBM;
+  for (int item = block_rank(smem); item < p.n_emb * groups;
+       item += gridDim.x) {
+    const int e = item / groups, c0 = item % groups * 32;
+    const float a = block_row_dot(p.th + static_cast<long long>(e) * T, T,
+                                  p.w.time_w2, d, c0, d, red);
+    if (threadIdx.x < 32 && c0 + threadIdx.x < d)
+      p.tw[static_cast<long long>(e) * d + c0 + threadIdx.x] = rt(p, a);
+  }
+}
+
 // h = state @ w_in + th[e] @ time_w2; e is the step (B3) or, with
-// per_slot, the tile's sample (B4).  The state is x at step 0, then out
-// (a bfloat16 state: always its float32 copy xs).
+// per_slot, the row's sample (B4).  The aligned geometry's tile lies in
+// one sample, so the block computes its 32 columns of th[e] @ time_w2
+// itself; in the general one (G) a tile may hold rows of several samples,
+// and each row adds its own row of tw (phase_time_out).  The state is x
+// at step 0, then out (a bfloat16 state: always its float32 copy xs).  G:
+// the general geometry (gemm_phase), here and in every product phase.
+template <bool G>
 __device__ __noinline__ void phase_w_in(const Params& p, float* smem,
                                         int step, bool per_slot) {
   const int d = p.w.d_model, L = p.w.latent, T = p.w.time_dim;
+  const bool vec = !G || (d & 1) == 0;
   const float* state = p.state_bf16 ? p.xs : step == 0 ? p.x : p.out;
   float* red = smem + kUnionFloats + kBM;
   float* tv = red + kWarps * 32;
-  gemm_phase<false, false>(
-      p, smem, d, L, 1,
-      [&](int m0, int n0) {
-        return Tile{state + static_cast<long long>(m0) * L, p.w.w_in + n0,
-                    nullptr, L, d, 0, 0, nullptr};
-      },
-      [&](int m0, int n0) {
-        const int e = per_slot ? m0 / p.seq : step;
-        const float a = block_row_dot(p.th + static_cast<long long>(e) * T,
-                                      T, p.w.time_w2, d, n0, d, red);
-        if (threadIdx.x < 32) tv[threadIdx.x] = rt(p, a);
-      },
-      [&](int m, int n, const float2 (&v)[1]) {
-        *reinterpret_cast<float2*>(p.h + static_cast<long long>(m) * d + n) =
-            make_float2(rt(p, __fadd_rn(rt(p, v[0].x), tv[n % kBN])),
-                        rt(p, __fadd_rn(rt(p, v[0].y), tv[n % kBN + 1])));
-      });
+  auto tile_of = [&](int m0, int nt) {
+    return make_tile(state + static_cast<long long>(m0) * L, p.w.w_in,
+                     nullptr, d, nt * kBN, nt * kBN, nullptr);
+  };
+  if constexpr (G) {
+    gemm_phase<false, false, true>(
+        p, smem, cdiv(d, kBN), d, L, 1, tile_of,
+        [&](int m, int n, const float2 (&v)[1], bool two) {
+          const int e = per_slot ? m / p.seq : step;
+          const float2 t2 =
+              get2cg(p.tw + static_cast<long long>(e) * d + n, two, vec);
+          put2(p.h + static_cast<long long>(m) * d + n,
+               rt(p, __fadd_rn(rt(p, v[0].x), t2.x)),
+               rt(p, __fadd_rn(rt(p, v[0].y), t2.y)), two, vec);
+        });
+  } else {
+    gemm_phase<false, false, false>(
+        p, smem, d / kBN, d, L, 1, tile_of,
+        [&](int m, int n, const float2 (&v)[1], bool) {
+          *reinterpret_cast<float2*>(p.h + static_cast<long long>(m) * d +
+                                     n) =
+              make_float2(rt(p, __fadd_rn(rt(p, v[0].x), tv[n % kBN])),
+                          rt(p, __fadd_rn(rt(p, v[0].y), tv[n % kBN + 1])));
+        },
+        [&](int m0, int nt) {
+          const int e = per_slot ? m0 / p.seq : step;
+          const float a = block_row_dot(p.th + static_cast<long long>(e) * T,
+                                        T, p.w.time_w2, d, nt * kBN, d, red);
+          if (threadIdx.x < 32) tv[threadIdx.x] = rt(p, a);
+        });
+  }
 }
 
-struct NoPre {
-  __device__ __forceinline__ void operator()(int, int) const {}
-};
-
 // [q k v] = rmsnorm(h, attn_norm) @ [wq wk wv] into the (M, H*D + 2
-// Hkv*D) qkv buffer.
+// Hkv*D) qkv buffer: the column tiles of q, then of k, then of v.
+template <bool G>
 __device__ __noinline__ void phase_qkv(const Params& p, float* smem,
                                        int layer) {
   const int d = p.w.d_model, hq = p.w.n_heads * p.w.head_dim,
             hkv = p.w.n_kv_heads * p.w.head_dim, nq = hq + 2 * hkv;
+  const int tq = cdiv(hq, kBN), tkv = cdiv(hkv, kBN);
   const long long dd = d;
   const WT* wq = p.w.wq + layer * dd * hq;
   const WT* wk = p.w.wk + layer * dd * hkv;
   const WT* wv = p.w.wv + layer * dd * hkv;
   const WT* scale = p.w.attn_norm + layer * dd;
-  gemm_phase<true, false>(
-      p, smem, nq, d, 1,
-      [&](int m0, int n0) {
+  const bool vec = !G || (nq & 1) == 0;
+  gemm_phase<true, false, G>(
+      p, smem, tq + 2 * tkv, nq, d, 1,
+      [&](int m0, int nt) {
         const float* A = p.h + static_cast<long long>(m0) * d;
-        if (n0 < hq) return Tile{A, wq + n0, nullptr, d, hq, 0, 0, scale};
-        if (n0 < hq + hkv)
-          return Tile{A, wk + (n0 - hq), nullptr, d, hkv, 0, 0, scale};
-        return Tile{A, wv + (n0 - hq - hkv), nullptr, d, hkv, 0, 0, scale};
+        if (nt < tq)
+          return make_tile(A, wq, nullptr, hq, nt * kBN, nt * kBN, scale);
+        nt -= tq;
+        if (nt < tkv)
+          return make_tile(A, wk, nullptr, hkv, nt * kBN, hq + nt * kBN,
+                           scale);
+        nt -= tkv;
+        return make_tile(A, wv, nullptr, hkv, nt * kBN, hq + hkv + nt * kBN,
+                         scale);
       },
-      NoPre{},
-      [&](int m, int n, const float2 (&v)[1]) {
-        *reinterpret_cast<float2*>(p.qkv + static_cast<long long>(m) * nq +
-                                   n) = make_float2(rt(p, v[0].x),
-                                                    rt(p, v[0].y));
+      [&](int m, int n, const float2 (&v)[1], bool two) {
+        put2(p.qkv + static_cast<long long>(m) * nq + n, rt(p, v[0].x),
+             rt(p, v[0].y), two, vec);
       });
 }
 
 // h += a @ w (a: (M, Kd) activations), split-K: the attention output
 // projection and the MLP's down projection.
+template <bool G>
 __device__ __forceinline__ void residual_phase(const Params& p, float* smem,
                                                const float* a, int Kd,
                                                const WT* w, int split) {
   const int d = p.w.d_model;
-  gemm_phase<false, false>(
-      p, smem, d, Kd, split,
-      [&](int m0, int n0) {
-        return Tile{a + static_cast<long long>(m0) * Kd, w + n0, nullptr, Kd,
-                    d, 0, 0, nullptr};
+  const bool vec = !G || (d & 1) == 0;
+  gemm_phase<false, false, G>(
+      p, smem, cdiv(d, kBN), d, Kd, split,
+      [&](int m0, int nt) {
+        return make_tile(a + static_cast<long long>(m0) * Kd, w, nullptr, d,
+                         nt * kBN, nt * kBN, nullptr);
       },
-      NoPre{},
-      [&](int m, int n, const float2 (&v)[1]) {
-        float2* hp =
-            reinterpret_cast<float2*>(p.h + static_cast<long long>(m) * d + n);
-        const float2 o = __ldcg(hp);
-        *hp = make_float2(rt(p, __fadd_rn(o.x, rt(p, v[0].x))),
-                          rt(p, __fadd_rn(o.y, rt(p, v[0].y))));
+      [&](int m, int n, const float2 (&v)[1], bool two) {
+        float* hp = p.h + static_cast<long long>(m) * d + n;
+        const float2 o = get2cg(hp, two, vec);
+        put2(hp, rt(p, __fadd_rn(o.x, rt(p, v[0].x))),
+             rt(p, __fadd_rn(o.y, rt(p, v[0].y))), two, vec);
       });
 }
 
+template <bool G>
 __device__ __noinline__ void phase_wo(const Params& p, float* smem,
                                       int layer) {
   const int hq = p.w.n_heads * p.w.head_dim;
-  residual_phase(p, smem, p.ao, hq,
+  residual_phase<G>(p, smem, p.ao, hq,
                  p.w.wo + layer * static_cast<long long>(hq) * p.w.d_model,
                  p.split_wo);
 }
 
+template <bool G>
 __device__ __noinline__ void phase_down(const Params& p, float* smem,
                                         int layer) {
   const int dff = p.w.d_ff;
-  residual_phase(p, smem, p.ff, dff,
+  residual_phase<G>(p, smem, p.ff, dff,
                  p.w.w_down + layer * static_cast<long long>(dff) * p.w.d_model,
                  p.split_dn);
 }
 
 // ff = silu(xn @ w_gate) * (xn @ w_up), xn = rmsnorm(h, mlp_norm).
+template <bool G>
 __device__ __noinline__ void phase_mlp(const Params& p, float* smem,
                                        int layer) {
   const int d = p.w.d_model, dff = p.w.d_ff;
@@ -901,73 +1125,134 @@ __device__ __noinline__ void phase_mlp(const Params& p, float* smem,
   const WT* wg = p.w.w_gate + layer * dd * dff;
   const WT* wu = p.w.w_up + layer * dd * dff;
   const WT* scale = p.w.mlp_norm + layer * dd;
-  gemm_phase<true, true>(
-      p, smem, dff, d, 1,
-      [&](int m0, int n0) {
-        return Tile{p.h + static_cast<long long>(m0) * d, wg + n0, wu + n0, d,
-                    dff, 0, 0, scale};
+  const bool vec = !G || (dff & 1) == 0;
+  gemm_phase<true, true, G>(
+      p, smem, cdiv(dff, kBN), dff, d, 1,
+      [&](int m0, int nt) {
+        return make_tile(p.h + static_cast<long long>(m0) * d, wg, wu, dff,
+                         nt * kBN, nt * kBN, scale);
       },
-      NoPre{},
-      [&](int m, int n, const float2 (&v)[2]) {
-        *reinterpret_cast<float2*>(p.ff + static_cast<long long>(m) * dff +
-                                   n) =
-            make_float2(
-                rt(p, __fmul_rn(rt(p, silu(rt(p, v[0].x))), rt(p, v[1].x))),
-                rt(p, __fmul_rn(rt(p, silu(rt(p, v[0].y))), rt(p, v[1].y))));
+      [&](int m, int n, const float2 (&v)[2], bool two) {
+        put2(p.ff + static_cast<long long>(m) * dff + n,
+             rt(p, __fmul_rn(rt(p, silu(rt(p, v[0].x))), rt(p, v[1].x))),
+             rt(p, __fmul_rn(rt(p, silu(rt(p, v[0].y))), rt(p, v[1].y))),
+             two, vec);
       });
 }
 
-// Rows [r0, r0 + n) of one head of the (M, nq) qkv buffer (src points at
-// row r0), RoPE applied with the table's rows r0.. (the head dim splits into
-// halves, [x1 c - x2 s, x2 c + x1 s], each product and sum rounded in a
-// bfloat16 trunk, whose tables the launcher rounds) and multiplied by
-// ``scale`` in float32, into dst with row stride HD + 1.
-template <int HD>
-__device__ __forceinline__ void load_roped(float* dst, const float* src,
-                                           int nq, const Params& p, int r0,
-                                           int n, float scale) {
-  constexpr int half = HD / 2, QS = HD + 1, C4 = half / 4;
-  for (int i = threadIdx.x; i < n * C4; i += kThreads) {
+// One RoPE pair of a head: d[0] = x1 c - x2 s, d[half] = x2 c + x1 s, each
+// product and sum rounded in a bfloat16 trunk (whose tables the launcher
+// rounds), times ``scale`` in float32.
+__device__ __forceinline__ void rope_pair(const Params& p, float* d, int half,
+                                          float x1, float x2, float cs,
+                                          float sn, float scale) {
+  d[0] = __fmul_rn(rt(p, __fsub_rn(rt(p, __fmul_rn(x1, cs)),
+                                   rt(p, __fmul_rn(x2, sn)))),
+                   scale);
+  d[half] = __fmul_rn(rt(p, __fadd_rn(rt(p, __fmul_rn(x2, cs)),
+                                      rt(p, __fmul_rn(x1, sn)))),
+                      scale);
+}
+
+// load_roped's 16-byte path (D a multiple of 8); FULL: D is the padded
+// width HD itself, so the chunk counts are constants; without G every row
+// is inside S.
+template <int HD, bool FULL, bool G>
+__device__ __forceinline__ void roped_chunks(float* dst, const float* src,
+                                             int nq, const Params& p, int r0,
+                                             int n, int nrows, float scale,
+                                             int D) {
+  constexpr int QS = HD + 1;
+  const int half = FULL ? HD / 2 : D / 2, C4 = half / 4;
+  for (int i = threadIdx.x; i < nrows * C4; i += kThreads) {
     const int r = i / C4, j = i % C4 * 4;
-    const float4 c4 = __ldg(reinterpret_cast<const float4*>(
-        p.rope_cos + (r0 + r) * half + j));
-    const float4 s4 = __ldg(reinterpret_cast<const float4*>(
-        p.rope_sin + (r0 + r) * half + j));
-    const float4 a = __ldcg(reinterpret_cast<const float4*>(src + r * nq + j));
-    const float4 b =
-        __ldcg(reinterpret_cast<const float4*>(src + r * nq + j + half));
-    const float cs[4] = {c4.x, c4.y, c4.z, c4.w},
-                sn[4] = {s4.x, s4.y, s4.z, s4.w};
-    const float x1[4] = {a.x, a.y, a.z, a.w}, x2[4] = {b.x, b.y, b.z, b.w};
+    float* d = dst + r * QS + j;
+    if (!G || r < n) {
+      const float4 c4 = __ldg(reinterpret_cast<const float4*>(
+          p.rope_cos + (r0 + r) * half + j));
+      const float4 s4 = __ldg(reinterpret_cast<const float4*>(
+          p.rope_sin + (r0 + r) * half + j));
+      const float4 a =
+          __ldcg(reinterpret_cast<const float4*>(src + r * nq + j));
+      const float4 b =
+          __ldcg(reinterpret_cast<const float4*>(src + r * nq + j + half));
+      rope_pair(p, d, half, a.x, b.x, c4.x, s4.x, scale);
+      rope_pair(p, d + 1, half, a.y, b.y, c4.y, s4.y, scale);
+      rope_pair(p, d + 2, half, a.z, b.z, c4.z, s4.z, scale);
+      rope_pair(p, d + 3, half, a.w, b.w, c4.w, s4.w, scale);
+    } else {
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      float* d = dst + r * QS + j + u;
-      d[0] = __fmul_rn(rt(p, __fsub_rn(rt(p, __fmul_rn(x1[u], cs[u])),
-                                       rt(p, __fmul_rn(x2[u], sn[u])))),
-                       scale);
-      d[half] = __fmul_rn(rt(p, __fadd_rn(rt(p, __fmul_rn(x2[u], cs[u])),
-                                          rt(p, __fmul_rn(x1[u], sn[u])))),
-                          scale);
+      for (int u = 0; u < 4; ++u) d[u] = d[u + half] = 0.0f;
     }
   }
 }
 
-// Rows [0, n) of one head's V (src at its first row) into dst, stride HD.
-template <int HD>
+// Rows [0, nrows) of one head into dst (row stride HD + 1), from rows r0..
+// of the (M, nq) qkv buffer (src points at row r0, the head's column 0):
+// the first n rows RoPE'd with the table's rows r0.. (the head dim D splits
+// into halves; the table's row stride is D / 2) and multiplied by
+// ``scale``; rows past n and columns past D zero.  16-byte loads where D
+// is a multiple of 8, else one element at a time.  Without G, D is HD and
+// n is nrows.
+template <int HD, bool G>
+__device__ __forceinline__ void load_roped(float* dst, const float* src,
+                                           int nq, const Params& p, int r0,
+                                           int n, int nrows, float scale,
+                                           int D) {
+  constexpr int QS = HD + 1;
+  if (!G || D == HD) {
+    roped_chunks<HD, true, G>(dst, src, nq, p, r0, n, nrows, scale, D);
+    return;
+  }
+  const int half = D / 2;
+  if (D % 8 == 0) {
+    roped_chunks<HD, false, G>(dst, src, nq, p, r0, n, nrows, scale, D);
+  } else {
+    for (int i = threadIdx.x; i < nrows * half; i += kThreads) {
+      const int r = i / half, j = i % half;
+      float* d = dst + r * QS + j;
+      if (r < n)
+        rope_pair(p, d, half, __ldcg(src + r * nq + j),
+                  __ldcg(src + r * nq + j + half),
+                  __ldg(p.rope_cos + (r0 + r) * half + j),
+                  __ldg(p.rope_sin + (r0 + r) * half + j), scale);
+      else
+        d[0] = d[half] = 0.0f;
+    }
+  }
+  for (int i = threadIdx.x; i < nrows * (HD - D); i += kThreads)
+    dst[i / (HD - D) * QS + D + i % (HD - D)] = 0.0f;
+}
+
+// Rows [0, nrows) of one head's V (src at its first row) into dst, stride
+// HD: the first n rows' D columns, the rest zero (without G, D is HD and n
+// is nrows).
+template <int HD, bool G>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int nq, int n) {
-  for (int i = threadIdx.x; i < n * HD / 4; i += kThreads) {
-    const int r = i / (HD / 4), c = i % (HD / 4) * 4;
-    *reinterpret_cast<float4*>(dst + r * HD + c) =
-        __ldcg(reinterpret_cast<const float4*>(src + r * nq + c));
+                                          int nq, int n, int nrows, int D) {
+  if (!G || D == HD) {
+    for (int i = threadIdx.x; i < nrows * HD / 4; i += kThreads) {
+      const int r = i / (HD / 4), c = i % (HD / 4) * 4;
+      *reinterpret_cast<float4*>(dst + r * HD + c) =
+          !G || r < n
+              ? __ldcg(reinterpret_cast<const float4*>(src + r * nq + c))
+              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  } else {
+    for (int i = threadIdx.x; i < nrows * HD; i += kThreads) {
+      const int r = i / HD, c = i % HD;
+      dst[i] = r < n && c < D ? __ldcg(src + r * nq + c) : 0.0f;
+    }
   }
 }
 
 // 'exact' scores of the thread's tile: q k^T / sqrt(D), as JAX divides them
-// (in a bfloat16 trunk the product and the quotient are rounded).
+// (in a bfloat16 trunk the product and the quotient are rounded); in a
+// ragged last block (kn < BK) the columns from kn on, K/V rows past S,
+// masked to -1e30.
 template <int HD, int BK>
 __device__ __forceinline__ void exact_scores(const Params& p, const float* sQ,
-                                             const float* sK,
+                                             const float* sK, int kn,
                                              float (&s)[kBQ / 16][BK / 16]) {
   repro::qk_scores<kBQ, BK, HD>(sQ, sK, s);
 #pragma unroll
@@ -975,6 +1260,14 @@ __device__ __forceinline__ void exact_scores(const Params& p, const float* sQ,
 #pragma unroll
     for (int j = 0; j < BK / 16; ++j)
       s[i][j] = rt(p, __fdiv_rn(rt(p, s[i][j]), p.attn_div));
+  if (kn < BK) {
+    const int tx = threadIdx.x & 15;
+#pragma unroll
+    for (int i = 0; i < kBQ / 16; ++i)
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j)
+        if (tx + 16 * j >= kn) s[i][j] = repro::kNegBig;
+  }
 }
 
 // acc[i][r] += sum_c sP[row i, c] sV[c, col r] for the thread's tile (the
@@ -1003,20 +1296,26 @@ __device__ __forceinline__ void pv_accumulate(const float* sP, const float* sV,
 }
 
 // One item per (sample, q head, kBQ query rows q0..): q head h reads kv
-// head h / G over the sample's S / BK K/V blocks; the result goes to
-// columns h*D of rows q0.. of the (M, H*D) buffer.  FLASH scales q by
+// head h / (H / Hkv) over the sample's ceil(S / BK) K/V blocks (the last
+// one's rows past S zero and masked); the result goes to columns h*D of
+// rows q0.. of the (M, H*D) buffer, rows past S not stored.  HD is the
+// padded width (D <= HD, the columns past D zero).  FLASH scales q by
 // 1/sqrt(D) after RoPE (streaming_attention_body) and runs the recurrence
 // over the blocks.  'exact' takes the rows' max m and sum l over the
 // blocks first (the recurrence's running pair: m the row max, l the sum of
 // exp(s - m)), then writes p = exp(s - m) / l block by block and
-// accumulates p v over the blocks; with one block (S = BK) that is the
-// plain row softmax and the K block is not reloaded.
-template <bool FLASH, int HD>
+// accumulates p v over the blocks; with one block (S <= BK) that is the
+// plain row softmax and the K block is not reloaded.  Without G (the
+// aligned geometry) D is HD and S a whole number of blocks, so nothing is
+// masked or padded.
+template <bool FLASH, int HD, bool G>
 __device__ __noinline__ void attention_items(const Params& p, float* smem) {
   using T = AttnTiles<HD>;
   constexpr int BK = T::BK, RQ = kBQ / 16, RK = BK / 16, RD = HD / 16;
-  const int H = p.w.n_heads, Hkv = p.w.n_kv_heads, G = H / Hkv, S = p.seq;
-  const int hq = H * HD, nq = hq + 2 * Hkv * HD, nqb = S / kBQ, nkb = S / BK;
+  const int H = p.w.n_heads, Hkv = p.w.n_kv_heads, grp = H / Hkv,
+            S = p.seq, D = G ? p.w.head_dim : HD;
+  const int hq = H * D, nq = hq + 2 * Hkv * D,
+            nqb = G ? cdiv(S, kBQ) : S / kBQ, nkb = G ? cdiv(S, BK) : S / BK;
   float* sQ = smem + T::kQ;
   float* sK = smem + T::kK;
   float* sP = smem + T::kP;
@@ -1025,28 +1324,30 @@ __device__ __noinline__ void attention_items(const Params& p, float* smem) {
   for (int item = block_rank(smem); item < p.batch * H * nqb;
        item += gridDim.x) {
     const int qb = item % nqb, bh = item / nqb, b = bh / H, hh = bh % H,
-              kvh = hh / G, q0 = qb * kBQ;
+              kvh = hh / grp, q0 = qb * kBQ;
+    const int qn = G && S - q0 < kBQ ? S - q0 : kBQ;  // query rows inside S
     const float* base = p.qkv + static_cast<long long>(b) * S * nq;
-    const float* k = base + hq + kvh * HD;
-    const float* v = base + hq + Hkv * HD + kvh * HD;
-    float* out = p.ao + (static_cast<long long>(b) * S + q0) * hq + hh * HD;
+    const float* k = base + hq + kvh * D;
+    const float* v = base + hq + Hkv * D + kvh * D;
+    float* out = p.ao + (static_cast<long long>(b) * S + q0) * hq + hh * D;
     auto store = [&](int row, int col, float val) {
-      out[row * hq + col] = rt(p, val);
+      if (!G || (row < qn && col < D)) out[row * hq + col] = rt(p, val);
     };
-    load_roped<HD>(sQ, base + static_cast<long long>(q0) * nq + hh * HD, nq,
-                   p, q0, kBQ, FLASH ? p.q_scale : 1.0f);
+    load_roped<HD, G>(sQ, base + static_cast<long long>(q0) * nq + hh * D,
+                      nq, p, q0, qn, kBQ, FLASH ? p.q_scale : 1.0f, D);
     if (FLASH) {
       repro::SoftmaxState<kBQ, HD> st;
       st.init();
       for (int kb = 0; kb < nkb; ++kb) {
-        const int k0 = kb * BK;
+        const int k0 = kb * BK, kn = G && S - k0 < BK ? S - k0 : BK;
         __syncthreads();  // the previous block is no longer read
-        load_roped<HD>(sK, k + static_cast<long long>(k0) * nq, nq, p, k0,
-                       BK, 1.0f);
-        load_rows<HD>(sV, v + static_cast<long long>(k0) * nq, nq, BK);
+        load_roped<HD, G>(sK, k + static_cast<long long>(k0) * nq, nq, p,
+                          k0, kn, BK, 1.0f, D);
+        load_rows<HD, G>(sV, v + static_cast<long long>(k0) * nq, nq, kn,
+                         BK, D);
         __syncthreads();
         repro::online_softmax_step<kBQ, BK, HD, false>(sQ, sK, sV, sP, st, q0,
-                                                       k0);
+                                                       k0, kn);
       }
       repro::softmax_finish<kBQ, HD>(st, store);
     } else {
@@ -1059,13 +1360,13 @@ __device__ __noinline__ void attention_items(const Params& p, float* smem) {
         for (int r = 0; r < RD; ++r) acc[i][r] = 0.0f;
       }
       for (int kb = 0; kb < nkb; ++kb) {  // pass 1: max and sum
-        const int k0 = kb * BK;
+        const int k0 = kb * BK, kn = G && S - k0 < BK ? S - k0 : BK;
         __syncthreads();
-        load_roped<HD>(sK, k + static_cast<long long>(k0) * nq, nq, p, k0,
-                       BK, 1.0f);
+        load_roped<HD, G>(sK, k + static_cast<long long>(k0) * nq, nq, p,
+                          k0, kn, BK, 1.0f, D);
         __syncthreads();
         float s[RQ][RK];
-        exact_scores<HD, BK>(p, sQ, sK, s);
+        exact_scores<HD, BK>(p, sQ, sK, kn, s);
 #pragma unroll
         for (int i = 0; i < RQ; ++i) {
           float mx = repro::kNegBig;
@@ -1080,15 +1381,16 @@ __device__ __noinline__ void attention_items(const Params& p, float* smem) {
         }
       }
       for (int kb = 0; kb < nkb; ++kb) {  // pass 2: p, then p v
-        const int k0 = kb * BK;
+        const int k0 = kb * BK, kn = G && S - k0 < BK ? S - k0 : BK;
         __syncthreads();
         if (nkb > 1)
-          load_roped<HD>(sK, k + static_cast<long long>(k0) * nq, nq, p, k0,
-                         BK, 1.0f);
-        load_rows<HD>(sV, v + static_cast<long long>(k0) * nq, nq, BK);
+          load_roped<HD, G>(sK, k + static_cast<long long>(k0) * nq, nq, p,
+                            k0, kn, BK, 1.0f, D);
+        load_rows<HD, G>(sV, v + static_cast<long long>(k0) * nq, nq, kn,
+                         BK, D);
         __syncthreads();
         float s[RQ][RK];
-        exact_scores<HD, BK>(p, sQ, sK, s);
+        exact_scores<HD, BK>(p, sQ, sK, kn, s);
 #pragma unroll
         for (int i = 0; i < RQ; ++i)
 #pragma unroll
@@ -1108,23 +1410,25 @@ __device__ __noinline__ void attention_items(const Params& p, float* smem) {
   }
 }
 
-// The attention phase at the trunk's head dim (widths_ok admits these).
-template <bool FLASH>
+// The attention phase at the trunk's head dim: the aligned geometry's
+// four widths as they are, or (G) padded to the next of six widths
+// (widths_ok admits D <= kMaxHeadDim).
+template <bool FLASH, bool G>
 __device__ __forceinline__ void phase_attention(const Params& p,
                                                 float* smem) {
-  switch (p.w.head_dim) {
-    case 16:
-      attention_items<FLASH, 16>(p, smem);
-      break;
-    case 32:
-      attention_items<FLASH, 32>(p, smem);
-      break;
-    case 64:
-      attention_items<FLASH, 64>(p, smem);
-      break;
-    default:
-      attention_items<FLASH, 128>(p, smem);
-  }
+  const int D = p.w.head_dim;
+  if (D <= 16)
+    attention_items<FLASH, 16, G>(p, smem);
+  else if (D <= 32)
+    attention_items<FLASH, 32, G>(p, smem);
+  else if (D <= 64)
+    attention_items<FLASH, 64, G>(p, smem);
+  else if (G && D <= 96)
+    attention_items<FLASH, 96, G>(p, smem);
+  else if (!G || D <= 128)
+    attention_items<FLASH, 128, G>(p, smem);
+  else
+    attention_items<FLASH, kMaxHeadDim, G>(p, smem);
 }
 
 // eps = rmsnorm(h, out_norm) @ w_out, split-K, then the update of the
@@ -1132,47 +1436,63 @@ __device__ __forceinline__ void phase_attention(const Params& p,
 // (batch, S, L) state.  B3 reads the step's coefficients, B4 (ROWS) the
 // (R, 8) row idx / 256.  A bfloat16 state is read from xs, and the update
 // (float32) is rounded to bfloat16 into out and xs.
-template <bool CLIP, bool ROWS>
+template <bool CLIP, bool ROWS, bool G>
 __device__ __noinline__ void phase_out(const Params& p, float* smem,
                                        int step) {
   const int d = p.w.d_model, L = p.w.latent;
+  const bool vec = !G || (L & 1) == 0;
   const float* prev = p.state_bf16 ? p.xs : step == 0 ? p.x : p.out;
   const bool from_input = step == 0 && !p.state_bf16;
-  gemm_phase<true, false>(
-      p, smem, L, d, p.split_out,
-      [&](int m0, int n0) {
-        return Tile{p.h + static_cast<long long>(m0) * d, p.w.w_out + n0,
-                    nullptr, d, L, 0, 0, p.w.out_norm};
+  gemm_phase<true, false, G>(
+      p, smem, cdiv(L, kBN), L, d, p.split_out,
+      [&](int m0, int nt) {
+        return make_tile(p.h + static_cast<long long>(m0) * d, p.w.w_out,
+                         nullptr, L, nt * kBN, nt * kBN, p.w.out_norm);
       },
-      NoPre{},
-      [&](int m, int n, const float2 (&v)[1]) {
+      [&](int m, int n, const float2 (&v)[1], bool two) {
         const long long idx = static_cast<long long>(m) * L + n;
-        const float* cr =
-            ROWS ? p.coefs + idx / kTileC * kRowCoefs : p.coefs + step * 5;
-        const repro::Coefs c{__ldg(cr), __ldg(cr + 1), __ldg(cr + 2),
-                             __ldg(cr + 3), __ldg(cr + 4)};
-        const float2 x = from_input
-                             ? __ldg(reinterpret_cast<const float2*>(prev + idx))
-                             : __ldcg(reinterpret_cast<const float2*>(prev + idx));
+        auto coefs = [&](long long i) {
+          const float* cr =
+              ROWS ? p.coefs + i / kTileC * kRowCoefs : p.coefs + step * 5;
+          return repro::Coefs{__ldg(cr), __ldg(cr + 1), __ldg(cr + 2),
+                              __ldg(cr + 3), __ldg(cr + 4)};
+        };
+        // an even L keeps idx even, so one 256-wide tile row holds the
+        // pair; with an odd L the pair may straddle two rows (two slots)
+        const repro::Coefs c = coefs(idx), c1 = vec ? c : coefs(idx + 1);
+        float2 x;
+        if (!from_input) {
+          x = get2cg(prev + idx, two, vec);
+        } else if (two && vec) {
+          x = __ldg(reinterpret_cast<const float2*>(prev + idx));
+        } else {
+          x = make_float2(__ldg(prev + idx), two ? __ldg(prev + idx + 1)
+                                                 : 0.0f);
+        }
         float x0;
         const float y0 =
             repro::update<CLIP, false>(x.x, rt(p, v[0].x), c, p.clip, &x0);
         const float y1 =
-            repro::update<CLIP, false>(x.y, rt(p, v[0].y), c, p.clip, &x0);
+            repro::update<CLIP, false>(x.y, rt(p, v[0].y), c1, p.clip, &x0);
         if (p.state_bf16) {
           const __nv_bfloat162 y = __floats2bfloat162_rn(y0, y1);
-          *reinterpret_cast<__nv_bfloat162*>(p.outb + idx) = y;
-          *reinterpret_cast<float2*>(p.xs + idx) = __bfloat1622float2(y);
+          if (two && vec) {
+            *reinterpret_cast<__nv_bfloat162*>(p.outb + idx) = y;
+          } else {
+            p.outb[idx] = y.x;
+            if (two) p.outb[idx + 1] = y.y;
+          }
+          put2(p.xs + idx, __low2float(y), __high2float(y), two, vec);
         } else {
-          *reinterpret_cast<float2*>(p.out + idx) = make_float2(y0, y1);
+          put2(p.out + idx, y0, y1, two, vec);
         }
       });
 }
 
 // Phase trace (off when p.trace is null): block 0 records %globaltimer
 // (ns) at the start and after every phase, barrier included, so stamp i+1
-// - stamp i is phase i as the grid saw it.  2 + steps (2 + 5 n_layers)
-// stamps.
+// - stamp i is phase i as the grid saw it (the first: the time MLP's two
+// phases).  2 + steps (2 + 5 n_layers) stamps.
 __device__ __forceinline__ void stamp(const Params& p, int& n) {
   if (p.trace != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
     unsigned long long t;
@@ -1182,7 +1502,41 @@ __device__ __forceinline__ void stamp(const Params& p, int& n) {
   ++n;
 }
 
-// ROWS is the scheduler tick (B4): one step (K = 1), slot b's tiles read
+// The steps of a launch (B3: K, B4: one), each phase in its G
+// instantiation, with a grid barrier and a trace stamp after each.
+template <bool CLIP, bool FLASH, bool ROWS, bool G>
+__device__ __forceinline__ void run_steps(const Params& p, float* smem,
+                                          int& n) {
+  cg::grid_group grid = cg::this_grid();
+  const int steps = ROWS ? 1 : p.K;
+  for (int step = 0; step < steps; ++step) {
+    phase_w_in<G>(p, smem, step, ROWS);
+    grid.sync();
+    stamp(p, n);
+    for (int layer = 0; layer < p.w.n_layers; ++layer) {
+      phase_qkv<G>(p, smem, layer);
+      grid.sync();
+      stamp(p, n);
+      phase_attention<FLASH, G>(p, smem);
+      grid.sync();
+      stamp(p, n);
+      phase_wo<G>(p, smem, layer);
+      grid.sync();
+      stamp(p, n);
+      phase_mlp<G>(p, smem, layer);
+      grid.sync();
+      stamp(p, n);
+      phase_down<G>(p, smem, layer);
+      grid.sync();
+      stamp(p, n);
+    }
+    phase_out<CLIP, ROWS, G>(p, smem, step);
+    if (step + 1 < steps) grid.sync();
+    stamp(p, n);
+  }
+}
+
+// ROWS is the scheduler tick (B4): one step (K = 1), slot b's rows read
 // its own embedding, and state element i of slot b takes coefficient row
 // b * rows_per_slot + i / 256 of the (R, 8) per-row block.
 template <bool CLIP, bool FLASH, bool ROWS>
@@ -1201,49 +1555,40 @@ megastep_kernel(const __grid_constant__ Params p) {
   phase_time(p, smem);
   grid.sync();
   compute_rank(p, smem);
-  stamp(p, n);
-  const int steps = ROWS ? 1 : p.K;
-  for (int step = 0; step < steps; ++step) {
-    phase_w_in(p, smem, step, ROWS);
+  if (p.general) {
+    phase_time_out(p, smem);
     grid.sync();
-    stamp(p, n);
-    for (int layer = 0; layer < p.w.n_layers; ++layer) {
-      phase_qkv(p, smem, layer);
-      grid.sync();
-      stamp(p, n);
-      phase_attention<FLASH>(p, smem);
-      grid.sync();
-      stamp(p, n);
-      phase_wo(p, smem, layer);
-      grid.sync();
-      stamp(p, n);
-      phase_mlp(p, smem, layer);
-      grid.sync();
-      stamp(p, n);
-      phase_down(p, smem, layer);
-      grid.sync();
-      stamp(p, n);
-    }
-    phase_out<CLIP, ROWS>(p, smem, step);
-    if (step + 1 < steps) grid.sync();
-    stamp(p, n);
   }
+  stamp(p, n);
+  if (p.general)
+    run_steps<CLIP, FLASH, ROWS, true>(p, smem, n);
+  else
+    run_steps<CLIP, FLASH, ROWS, false>(p, smem, n);
 }
 
-// The geometry the kernel takes (mirrored by kernel._shape_limits): S a
-// multiple of 64, D in {16, 32, 64, 128}, every product width a multiple
-// of the 32-wide tiles (the q, k and v column ranges of the qkv product
-// included), and a sample a whole number of 256-wide tile rows.
+// The geometry the kernel takes (mirrored by kernel._shape_limits): any
+// seq_len whose sample is a whole number of 256-wide tile rows (the slot
+// of a B4 coefficient row), an even head dim (RoPE's halves) up to
+// kMaxHeadDim (the widest attention tiles), GQA groups of whole heads,
+// and any other width: the product tiles cut them at any edge.
 bool widths_ok(const ReproMegaWeights& w, int seq) {
   const int D = w.head_dim;
   return w.n_layers >= 0 && w.n_heads > 0 && w.n_kv_heads > 0 &&
-         w.n_heads % w.n_kv_heads == 0 && seq >= kSeqMultiple &&
-         seq % kSeqMultiple == 0 &&
-         (D == 16 || D == 32 || D == 64 || D == 128) &&
-         (w.n_heads * D) % kBN == 0 && (w.n_kv_heads * D) % kBN == 0 &&
-         w.d_model % kBK == 0 && w.d_ff % kBK == 0 && w.latent % kBK == 0 &&
-         w.latent <= 128 && w.time_dim % 4 == 0 &&
+         w.n_heads % w.n_kv_heads == 0 && D >= 2 && D % 2 == 0 &&
+         D <= kMaxHeadDim && w.d_model > 0 && w.d_ff > 0 && w.latent > 0 &&
+         w.time_dim > 0 && seq >= 1 &&
          (static_cast<long long>(seq) * w.latent) % kTileC == 0;
+}
+
+// The aligned geometry, whose phases run without the edge checks: every
+// 64-row tile inside one sample, every product width and depth a whole
+// number of 32-wide tiles, and a head dim that is its own attention width
+// (so S is also a whole number of K/V and query blocks).
+bool aligned(const ReproMegaWeights& w, int seq) {
+  const int D = w.head_dim;
+  return seq % kBM == 0 && (D == 16 || D == 32 || D == 64 || D == 128) &&
+         (w.n_heads * D) % kBN == 0 && (w.n_kv_heads * D) % kBN == 0 &&
+         w.d_model % kBN == 0 && w.d_ff % kBN == 0 && w.latent % kBN == 0;
 }
 
 using Kernel = void (*)(Params);
@@ -1347,6 +1692,7 @@ int launch(const void* x, void* out, const ReproMegaWeights* w,
   p.seq = seq;
   p.n_emb = n_emb;
   p.n_cnt = static_cast<int>(l.n_cnt);
+  p.general = !aligned(*w, seq);
   p.clip = clip;
   // sqrtf is correctly rounded: jnp.sqrt(float32(D)) (in a bfloat16 trunk
   // the bfloat16 sqrt(D)); 1/sqrt(D) rounded from double, as the flash
@@ -1359,6 +1705,7 @@ int launch(const void* x, void* out, const ReproMegaWeights* w,
   p.ao = base + l.ao;
   p.ff = base + l.ff;
   p.th = base + l.th;
+  p.tw = base + l.tw;
   p.part = base + l.part;
   p.ssq = base + l.ssq;
   p.xs = base + l.xs;
@@ -1388,10 +1735,11 @@ int launch(const void* x, void* out, const ReproMegaWeights* w,
 
 extern "C" {
 
-// The launch plan of one instantiation on the current device, into out[8]:
+// The launch plan of one instantiation on the current device, into out[9]:
 // workspace floats (batch samples of seq tokens, n_emb embeddings), grid
 // blocks, blocks per SM, grid barriers per step, dynamic shared memory
-// bytes, and the split-K factors of wo, w_down and w_out.  Returns a
+// bytes, the split-K factors of wo, w_down and w_out, and whether the
+// geometry is the aligned one (its own phase instantiations).  Returns a
 // cudaError_t (0 on success; cudaErrorInvalidValue outside widths_ok).
 int repro_megastep_plan(const ReproMegaWeights* w, int batch, int seq,
                         int n_emb, int rows, int has_clip, int flash,
@@ -1408,6 +1756,7 @@ int repro_megastep_plan(const ReproMegaWeights* w, int batch, int seq,
   out[5] = plan.split_wo;
   out[6] = plan.split_dn;
   out[7] = plan.split_out;
+  out[8] = aligned(*w, seq);
   return 0;
 }
 

@@ -24,15 +24,16 @@ refused launch raises; nothing falls back.  On tensors that lie on the
 CPU it runs the plain version (``ref.py``) and counts nothing; on a CUDA
 tensor it launches or raises.
 
-The kernel takes the TPU kernel's domain at these widths: any seq_len
-that is a multiple of 64, head dim 16, 32, 64 or 128, widths the 64 x 32
-product tiles cut exactly, a float32 or bfloat16 state, and weights all
+The kernel takes every geometry of the TPU kernel: any seq_len, latent,
+time_dim, d_model and d_ff (the product tiles zero-fill past any edge),
+an even head dim up to 256 (attention pads it to one of six widths),
+GQA groups of whole heads, a float32 or bfloat16 state, and weights all
 float32 or all bfloat16 (a library each).  The trunk computes in the
 promotion of the two types, as JAX's does: bfloat16 only when both are.
 A float16 state and weights of mixed types, which JAX admits and no
-caller runs, are not ported.  ``kernel_limits`` states these limits;
-``ops.eligible`` applies them to states off the CPU, so such runs take
-the unfused path instead.
+caller runs, are not ported, nor head dims past 256.  ``kernel_limits``
+states these limits; ``ops.eligible`` applies them to states off the
+CPU, so such runs take the unfused path instead.
 """
 from __future__ import annotations
 
@@ -50,9 +51,7 @@ from repro_torch.models.common import rope_freqs, sinusoidal_time_embedding
 from . import ref
 
 ATTN_IMPLS = ("exact", "flash")
-KERNEL_SEQ_MULTIPLE = 64
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-TILE_WIDTH = 32          # the product tiles' columns and depth slices
+KERNEL_MAX_HEAD_DIM = 256  # kMaxHeadDim of csrc/megastep_body.cuh
 # state and weight types, by the code the library takes (0, 1), and the
 # library built for each weight type
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -65,9 +64,9 @@ _POINTERS = (("w_in",), ("time_w1",), ("time_w2",), ("out_norm",),
              ("layers", "attn", "wq"), ("layers", "attn", "wk"),
              ("layers", "attn", "wv"), ("layers", "attn", "wo"),
              ("layers", "w_gate"), ("layers", "w_up"), ("layers", "w_down"))
-# the fields of repro_megastep_plan's out[8], in order
+# the fields of repro_megastep_plan's out[9], in order
 _PLAN = ("workspace_floats", "grid", "blocks_per_sm", "barriers_per_step",
-         "smem_bytes", "split_wo", "split_down", "split_out")
+         "smem_bytes", "split_wo", "split_down", "split_out", "aligned")
 _WIDTHS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
            "time_dim", "latent", "head_dim")
 
@@ -112,41 +111,17 @@ def _lib(weight_dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
     return lib
 
 
-def _width_limits(cfg, seq_len: int) -> Optional[str]:
-    """Why the product tiles cannot take these widths (``widths_ok`` of
-    csrc/megastep_body.cuh, beyond seq_len and head dim), or None."""
-    a, L = cfg.arch, cfg.latent_dim
+def _shape_limits(cfg, state_dtype: torch.dtype) -> Optional[str]:
+    """Why the CUDA megakernel cannot take this trunk or state (``widths_ok``
+    of csrc/megastep_body.cuh, and the state's type), or None."""
+    a = cfg.arch
     if a.n_heads % a.n_kv_heads:
         return (f"the CUDA megakernel takes n_heads a multiple of "
                 f"n_kv_heads, got {a.n_heads} and {a.n_kv_heads}")
-    widths = {"d_model": a.d_model, "d_ff": a.d_ff, "latent_dim": L,
-              "n_heads * head_dim": a.n_heads * a.hd(),
-              "n_kv_heads * head_dim": a.n_kv_heads * a.hd()}
-    bad = [f"{k} {v}" for k, v in widths.items() if v % TILE_WIDTH]
-    if bad:
-        return (f"the CUDA megakernel's product tiles take widths that are "
-                f"multiples of {TILE_WIDTH}, got {', '.join(bad)}")
-    if L > 128 or cfg.time_dim % 4 or (seq_len * L) % TILE_C:
-        return (f"the CUDA megakernel takes latent_dim <= 128, time_dim a "
-                f"multiple of 4 and seq_len * latent_dim a multiple of "
-                f"{TILE_C}, got {L}, {cfg.time_dim} and {seq_len * L}")
-    return None
-
-
-def _shape_limits(cfg, seq_len: int, state_dtype: torch.dtype
-                  ) -> Optional[str]:
-    """Why the CUDA megakernel cannot take this geometry or state, or
-    None."""
-    if seq_len < KERNEL_SEQ_MULTIPLE or seq_len % KERNEL_SEQ_MULTIPLE:
-        return (f"the CUDA megakernel takes seq_len in multiples of "
-                f"{KERNEL_SEQ_MULTIPLE}, got seq_len {seq_len}")
-    if cfg.arch.hd() not in KERNEL_HEAD_DIMS:
-        return (f"the CUDA megakernel takes head_dim "
-                f"{', '.join(map(str, KERNEL_HEAD_DIMS))}, got head_dim "
-                f"{cfg.arch.hd()}")
-    why = _width_limits(cfg, seq_len)
-    if why:
-        return why
+    D = a.hd()
+    if D % 2 or not 2 <= D <= KERNEL_MAX_HEAD_DIM:
+        return (f"the CUDA megakernel takes an even head_dim up to "
+                f"{KERNEL_MAX_HEAD_DIM}, got head_dim {D}")
     if state_dtype not in KERNEL_DTYPES:
         return (f"the CUDA megakernel takes a float32 or bfloat16 state, "
                 f"got dtype {state_dtype}")
@@ -163,26 +138,25 @@ def _weight_limits(params: Dict) -> Optional[str]:
             f"bfloat16, got dtype {', '.join(dtypes)}")
 
 
-def kernel_limits(cfg, seq_len: int, state_dtype: torch.dtype,
+def kernel_limits(cfg, state_dtype: torch.dtype,
                   params: Dict) -> Tuple[bool, str]:
     """(ok, reason): does the CUDA megakernel take this trunk and state?
 
     Its own limits, beyond the eligibility rule it shares with the JAX
-    package: seq_len a multiple of ``KERNEL_SEQ_MULTIPLE``, head dim in
-    ``KERNEL_HEAD_DIMS``, widths the product tiles cut exactly
-    (``widths_ok`` of the source), a float32 or bfloat16 state, and
-    weights all float32 or all bfloat16.  The plain version (``ref.py``)
-    has none of them.  Needs no CUDA state: the weights may be meta
-    tensors.  The launcher refuses the same inputs
+    package: n_heads a multiple of n_kv_heads, an even head dim up to
+    ``KERNEL_MAX_HEAD_DIM`` (``widths_ok`` of the source), a float32 or
+    bfloat16 state, and weights all float32 or all bfloat16.  Every
+    seq_len and width of the tile-aware trunk passes.  The plain version
+    (``ref.py``) has none of these limits.  Needs no CUDA state: the
+    weights may be meta tensors.  The launcher refuses the same inputs
     (``_check_kernel_inputs``)."""
-    why = _shape_limits(cfg, seq_len, state_dtype) or _weight_limits(params)
+    why = _shape_limits(cfg, state_dtype) or _weight_limits(params)
     return (False, why) if why else (True, "ok")
 
 
-def _check_kernel_inputs(x2: torch.Tensor, params: Dict, cfg,
-                         seq_len: int) -> None:
+def _check_kernel_inputs(x2: torch.Tensor, params: Dict, cfg) -> None:
     pointed = {"/".join(p): _get(params, p) for p in _POINTERS}
-    why = _shape_limits(cfg, seq_len, x2.dtype) or _weight_limits(pointed)
+    why = _shape_limits(cfg, x2.dtype) or _weight_limits(pointed)
     if why:
         raise ValueError(why)
     if not x2.is_contiguous():
@@ -252,7 +226,7 @@ def _launch(wrapper, entry: str, x2: torch.Tensor, eps_params: Dict, cfg,
     The tables are float32 holding what JAX's trunk multiplies by: the
     sinusoid cast to the state's type (``eps_forward``), and in a
     bfloat16 trunk the RoPE cos / sin cast to bfloat16 (``apply_rope``)."""
-    _check_kernel_inputs(x2, eps_params, cfg, seq_len)
+    _check_kernel_inputs(x2, eps_params, cfg)
     dev = x2.device
     w_dtype = eps_params["w_in"].dtype
     trunk = torch.promote_types(x2.dtype, w_dtype)

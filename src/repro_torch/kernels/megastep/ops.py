@@ -107,10 +107,10 @@ def eligible(spec: Optional[MegaSpec], x_T: torch.Tensor,
 
     A state that is not on the CPU (a CUDA state, or a meta tensor that
     stands for one) must also meet the CUDA kernel's own limits
-    (``kernel.kernel_limits``: seq_len a multiple of 64, head dim 16 to
-    128, widths the product tiles take, a float32 or bfloat16 state,
-    weights all float32 or all bfloat16); the plain version the CPU runs
-    has none."""
+    (``kernel.kernel_limits``: an even head dim up to 256, n_heads a
+    multiple of n_kv_heads, a float32 or bfloat16 state, weights all
+    float32 or all bfloat16; every seq_len and width passes); the plain
+    version the CPU runs has none."""
     if spec is None:
         return False, ("eps model carries no mega_spec (not a fused-capable "
                        "tile-aware trunk)")
@@ -119,8 +119,7 @@ def eligible(spec: Optional[MegaSpec], x_T: torch.Tensor,
         return False, (f"state shape {tuple(x_T.shape)} != the spec's "
                        f"bound geometry {shape}")
     if x_T.device.type != "cpu":
-        ok, why = _k.kernel_limits(spec.cfg, spec.seq_len, x_T.dtype,
-                                   spec.params)
+        ok, why = _k.kernel_limits(spec.cfg, x_T.dtype, spec.params)
         if not ok:
             return False, why
     if not spec.fits(budget, x_T.dtype):

@@ -7,14 +7,19 @@ Each trunk is the JAX tests' diffusion-LM at 2 layers, latent 32, d_ff
 ``interop.dlm_params_from_jax``: d_model 64 with head dim 16 (4 / 2
 heads), 32 (2 / 1, GQA) and 64 (1 / 1), and d_model 128 with head dim
 128 (1 / 1).  Geometries: 128 tokens (batch 2) and 256 (batch 1 for B3,
-2 slots for B4).  States come from a numpy seed.
+2 slots for B4).  States come from a numpy seed.  ``one_torch_thread``
+runs a test module on one torch thread; ``jit_ref`` is JAX's reference
+under one jit.
 """
 import functools
 
 import jax
 import numpy as np
+import pytest
+import torch
 
 from repro import diffusion_lm as jdlm
+from repro.kernels.megastep import MegaSpec as JMegaSpec
 from repro.models.common import ArchConfig as JArch
 from repro_torch import interop
 from repro_torch.diffusion_lm import model as tdlm
@@ -46,6 +51,31 @@ def state(batch: int, seq: int, seed: int = 1) -> np.ndarray:
     """A (R, 256) float32 tile state of (batch, seq, LATENT)."""
     return np.random.RandomState(seed).randn(
         batch * seq * LATENT // 256, 256).astype(np.float32)
+
+
+def jit_ref(ref_fn, jcfg, batch: int, seq: int, attn_impl: str, **kw):
+    """JAX's ``ref_fn`` (``megastep_ref`` or ``megastep_rows_ref``, with
+    ``kw`` such as ``clip``) over the spec of (jcfg, batch, seq, attn_impl),
+    under one ``jax.jit``: called as f(x2, eps_weights, coefs, ts), it
+    compiles the trunk once instead of dispatching its ops one by one."""
+    def f(x2, w, coefs, ts):
+        return ref_fn(x2, JMegaSpec(params=w, cfg=jcfg, batch=batch,
+                                    seq_len=seq, attn_impl=attn_impl),
+                      coefs, ts, **kw)
+    return jax.jit(f)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for a module of these small trunks (import it into
+    the module: it is autouse).  Their ops are far too small to gain from
+    threads, and a worker of the parallel suite whose ops wait on eight
+    threads runs them tens of times slower than one thread does; the count
+    is restored for the worker's next module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def cast(tree, dtype):

@@ -7,8 +7,12 @@ JAX's interpret-mode megakernel (which drifts ~1e-4 from 'jnp' at K >= 2
 on this jax).
 
 Past the slice's geometry, the trunks of ``tests/_torch_mega.py``: 128
-and 256 tokens at head dims 16, 32, 64 and 128 (the CUDA megakernel's
-float32 domain).
+and 256 tokens at head dims 16, 32, 64 and 128; the geometries past those
+(ragged tiles, off-tile widths, head dims 2 to 256) are
+``test_torch_megastep_geometry.py``'s.  Off the CPU (meta tensors stand for
+the card) the kernel's limits admit every geometry JAX's megakernel does
+and refuse only a float16 state, weights of two types, head dims past 256
+and GQA groups of partial heads.
 
 Tolerances: 1e-4 of the largest state (float32 trunks whose products sum
 in another order, carried through the steps).  Port 'mega' with 'exact'
@@ -25,9 +29,9 @@ import pytest
 import torch
 
 import _torch_mega as mega_trunks
+from _torch_mega import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro import diffusion_lm as jdlm
 from repro.core import make_schedule as j_make_schedule
-from repro.kernels.megastep import MegaSpec as JMegaSpec
 from repro.kernels.megastep import ref as jmega_ref
 from repro.models.common import ArchConfig as JArch
 from repro.sampling import SamplerPlan as JPlan
@@ -84,10 +88,10 @@ def test_megastep_call_matches_jax_ref(attn_impl, clip, K):
                       tab["sqrt_a_t"], tab["sqrt_1m_a_t"]], 1)[:K]
     ts = np.array(tab["t"][:K], np.int32)
     x2 = x.reshape(-1, 256)
-    jspec = JMegaSpec(params={k: jp[k] for k in tdlm.EPS_PATH}, cfg=jcfg,
-                      batch=B, seq_len=SEQ, attn_impl=attn_impl)
-    want = jmega_ref.megastep_ref(jnp.asarray(x2), jspec, jnp.asarray(coefs),
-                                  jnp.asarray(ts), clip=clip)
+    want = mega_trunks.jit_ref(jmega_ref.megastep_ref, jcfg, B, SEQ,
+                               attn_impl, clip=clip)(
+        jnp.asarray(x2), {k: jp[k] for k in tdlm.EPS_PATH},
+        jnp.asarray(coefs), jnp.asarray(ts))
     got = tk.megastep_call(torch.from_numpy(x2.copy()), tp, tcfg, B, SEQ,
                            torch.from_numpy(coefs.copy()),
                            torch.from_numpy(ts), clip=clip,
@@ -114,10 +118,10 @@ def test_megastep_call_long_seq_head_dims_match_jax_ref(seq, hd, attn_impl):
     batch = 256 // seq
     coefs, ts = _plan_cols(4, 1)
     x2 = mega_trunks.state(batch, seq)
-    jspec = JMegaSpec(params={k: jp[k] for k in tdlm.EPS_PATH}, cfg=jcfg,
-                      batch=batch, seq_len=seq, attn_impl=attn_impl)
-    want = jmega_ref.megastep_ref(jnp.asarray(x2), jspec, jnp.asarray(coefs),
-                                  jnp.asarray(ts))
+    want = mega_trunks.jit_ref(jmega_ref.megastep_ref, jcfg, batch, seq,
+                               attn_impl)(
+        jnp.asarray(x2), {k: jp[k] for k in tdlm.EPS_PATH},
+        jnp.asarray(coefs), jnp.asarray(ts))
     got = tk.megastep_call(torch.from_numpy(x2.copy()), tp, tcfg, batch, seq,
                            torch.from_numpy(coefs.copy()),
                            torch.from_numpy(ts), attn_impl=attn_impl)
@@ -208,40 +212,60 @@ def test_eligibility_reasons():
         dataclasses.replace(spec, attn_impl="chunked")
 
 
-# The CUDA megakernel's own limits (kernel_limits): a seq_len that is not a
-# multiple of 64 (96 tokens of a latent-64 trunk, a whole number of tile
-# granules), a head dim outside 16, 32, 64, 128 (8), widths the product
-# tiles do not cut (head dim 16 with one kv head: 16 k and v columns), a
-# float16 state, or weights of two types (float32 and bfloat16: JAX admits
-# both, no caller runs them).  A state off the CPU (meta stands for the
-# card here) meets them or is not eligible; a CPU state keeps the JAX
-# rule.
+# The CUDA megakernel's own limits (kernel_limits): a float16 state or
+# weights of two types (float32 and bfloat16: JAX admits both, no caller
+# runs them), or a head dim past 256.  A state off the CPU (meta stands for
+# the card) meets them or is not eligible; a CPU state keeps the JAX rule.
 LIMIT_CASES = {
-    "seq_len": dict(cfg="latent64", batch=2, seq=96, what="seq_len 96"),
     "state_dtype": dict(state=torch.float16, what="dtype torch.float16"),
     "weight_dtype": dict(weights="mixed", what="weights all float32 or all "
                          "bfloat16, got dtype torch.bfloat16, torch.float32"),
-    "head_dim": dict(cfg=(8, 4), what="head_dim 8"),
-    "widths": dict(cfg=(4, 1), what="n_kv_heads * head_dim 16"),
+    "head_dim_264": dict(cfg=(1, 1, 64, 264), what="an even head_dim up to "
+                         "256, got head_dim 264"),
+}
+# Geometries past the limits the kernel had until it took every one JAX's
+# megakernel admits, each now admitted: seq_len 96 at latent 64 (a 64-row
+# tile straddles two samples), head dim 8, head dim 16 with one kv head (16
+# k and v columns: tiles cut mid-way), DLM_SMOLLM_MEGA at the main path's
+# latents and geometries (16 at 2 x 128, 64 at 4 x 32, 128 at 2 x 80 and
+# 256 at 1 x 200, which also passes the old latent <= 128), head dims 2 and
+# 256, d_model 72 with d_ff 100, odd widths (d_model 75, d_ff 101, head dim
+# 10, time_dim 31) and a latent of 3 (2,048 tokens: whole tile granules).
+ADMIT_CASES = {
+    "seq_len": dict(cfg="latent64", batch=2, seq=96),
+    "head_dim": dict(cfg=(8, 4)),
+    "widths": dict(cfg=(4, 1)),
+    "smollm-L16-2x128": dict(cfg="latent16", batch=2, seq=128),
+    "smollm-L64-4x32": dict(cfg="latent64", batch=4, seq=32),
+    "smollm-L128-2x80": dict(cfg="latent128", batch=2, seq=80),
+    "smollm-L256-1x200": dict(cfg="latent256", batch=1, seq=200),
+    "head_dim_2": dict(cfg=(2, 2, 64, 2)),
+    "head_dim_256": dict(cfg=(2, 1, 64, 256)),
+    "d72-ff100": dict(cfg=(3, 1, 72), d_ff=100),
+    "odd-widths": dict(cfg=(3, 3, 75, 10), d_ff=101, time_dim=31),
+    "latent3": dict(cfg=(1, 1), latent=3, batch=1, seq=2048),
 }
 
 
-def _small_cfg(n_heads, n_kv_heads, d_model=64):
+def _small_cfg(n_heads, n_kv_heads, d_model=64, head_dim=None, d_ff=128,
+               time_dim=32, latent=32):
     return tdlm.DiffusionLMConfig(arch=TArch(
         name="t", family="dense", n_layers=2, d_model=d_model,
-        n_heads=n_heads, n_kv_heads=n_kv_heads, d_ff=128, vocab=50),
-        time_dim=32)
+        n_heads=n_heads, n_kv_heads=n_kv_heads, d_ff=d_ff, vocab=50,
+        head_dim=head_dim), time_dim=time_dim, latent_dim=latent)
 
 
-def _limit_case(case):
-    c = LIMIT_CASES[case]
+def _limit_case(case, cases=LIMIT_CASES):
+    c = cases[case]
     cfg = c.get("cfg")
-    if cfg == "latent64":
-        cfg = dataclasses.replace(configs.DLM_SMOLLM_MEGA, latent_dim=64)
+    if isinstance(cfg, str):            # DLM_SMOLLM_MEGA at another latent
+        cfg = dataclasses.replace(configs.DLM_SMOLLM_MEGA,
+                                  latent_dim=int(cfg[len("latent"):]))
     elif cfg is None:
         cfg = configs.DLM_SMOLLM_MEGA
     else:
-        cfg = _small_cfg(*cfg)
+        cfg = _small_cfg(*cfg, **{k: c[k] for k in ("d_ff", "time_dim",
+                                                    "latent") if k in c})
     batch, seq = c.get("batch", 4 if cfg.arch.d_model > 64 else B), \
         c.get("seq", SEQ)
     spec = _meta_spec(cfg, batch, seq_len=seq)
@@ -253,7 +277,7 @@ def _limit_case(case):
 @pytest.mark.parametrize("case", list(LIMIT_CASES))
 def test_kernel_limits_name_the_limit(case):
     spec, shape, dtype = _limit_case(case)
-    ok, why = tk.kernel_limits(spec.cfg, spec.seq_len, dtype, spec.params)
+    ok, why = tk.kernel_limits(spec.cfg, dtype, spec.params)
     assert not ok and LIMIT_CASES[case]["what"] in why
     assert "CUDA megakernel" in why
     # off the CPU the eligibility rule takes the kernel's reason
@@ -264,16 +288,31 @@ def test_kernel_limits_name_the_limit(case):
         True, "ok")
 
 
+@pytest.mark.parametrize("case", list(ADMIT_CASES))
+def test_kernel_limits_admit_every_geometry_jax_admits(case):
+    """kernel_limits and eligible admit the geometry off the CPU, and the
+    launcher's checks pass it up to the device check (a meta state stands
+    for the card)."""
+    spec, shape, dtype = _limit_case(case, ADMIT_CASES)
+    assert tk.kernel_limits(spec.cfg, dtype, spec.params) == (True, "ok")
+    assert megastep.eligible(spec, torch.empty(shape, dtype=dtype,
+                                               device="meta")) == (True, "ok")
+    x2 = torch.empty(math.prod(shape) // 256, 256, dtype=dtype,
+                     device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tk._check_kernel_inputs(x2, spec.params, spec.cfg)
+
+
 @pytest.mark.parametrize("case", list(LIMIT_CASES))
 def test_kernel_launcher_refuses_what_kernel_limits_refuses(case):
     """The launcher's checks (a meta state stands for the card) raise the
     reason kernel_limits gives, before anything is built or launched."""
     spec, shape, dtype = _limit_case(case)
-    why = tk.kernel_limits(spec.cfg, spec.seq_len, dtype, spec.params)[1]
+    why = tk.kernel_limits(spec.cfg, dtype, spec.params)[1]
     x2 = torch.empty(math.prod(shape) // 256, 256, dtype=dtype,
                      device="meta")
     with pytest.raises(ValueError) as err:
-        tk._check_kernel_inputs(x2, spec.params, spec.cfg, spec.seq_len)
+        tk._check_kernel_inputs(x2, spec.params, spec.cfg)
     assert why in str(err.value)
 
 
@@ -301,7 +340,7 @@ def test_kernel_limits_admit_the_slice():
         for state, weights in ((f32, f32), (bf16, bf16), (bf16, f32),
                                (f32, bf16)):
             spec = _meta_spec(cfg, batch, seq_len=seq, dtype=weights)
-            assert tk.kernel_limits(spec.cfg, seq, state,
+            assert tk.kernel_limits(spec.cfg, state,
                                     spec.params) == (True, "ok")
             assert megastep.eligible(spec, torch.empty(
                 batch, seq, cfg.latent_dim, dtype=state,
@@ -312,7 +351,7 @@ def test_kernel_limits_admit_the_slice():
                                                               n_layers=4))
     for weights, fits in ((bf16, True), (f32, False)):
         spec = _meta_spec(deep, 4, seq_len=SEQ, dtype=weights)
-        assert tk.kernel_limits(deep, SEQ, bf16, spec.params) == (True, "ok")
+        assert tk.kernel_limits(deep, bf16, spec.params) == (True, "ok")
         ok, why = megastep.eligible(spec, torch.empty(
             4, SEQ, deep.latent_dim, dtype=bf16, device="meta"))
         assert ok == fits and (fits or "budget 39321600 B" in why)
@@ -320,7 +359,7 @@ def test_kernel_limits_admit_the_slice():
 
 def test_engine_off_the_cpu_takes_rows_for_the_kernel_limits():
     from repro_torch.serving import ContinuousBatchingEngine
-    spec, shape, _ = _limit_case("seq_len")
+    spec, shape, _ = _limit_case("head_dim_264")
 
     def eps(x2, t):
         raise AssertionError("never called")
@@ -332,11 +371,18 @@ def test_engine_off_the_cpu_takes_rows_for_the_kernel_limits():
         assert eng.use_mega == want
         assert eng.tick_variant == ("mega" if want else "rows")
     with pytest.raises(ValueError, match="use_mega=True but the CUDA "
-                       "megakernel takes seq_len in multiples of 64, got "
-                       "seq_len 96"):
+                       "megakernel takes an even head_dim up to 256, got "
+                       "head_dim 264"):
         ContinuousBatchingEngine(TSCH, eps, shape[1:], slots=shape[0],
                                  use_mega=True, device="meta")
-    # 2 slots of 128 tokens are in the kernel's domain: B4 off the CPU too
+    # 2 slots of 128 tokens and, at latent 64, 2 of 96 and 4 of 32 are in
+    # the kernel's domain: B4 off the CPU too
+    for case in ("seq_len", "smollm-L64-4x32"):
+        spec, shape, _ = _limit_case(case, ADMIT_CASES)
+        eps.mega_spec = spec
+        eng = ContinuousBatchingEngine(TSCH, eps, shape[1:], slots=shape[0],
+                                       device="meta")
+        assert eng.use_mega and eng.tick_variant == "mega"
     eps.mega_spec = _meta_spec(configs.DLM_SMOLLM_MEGA, 2, seq_len=128)
     eng = ContinuousBatchingEngine(
         TSCH, eps, (128, configs.DLM_SMOLLM_MEGA.latent_dim), slots=2,

@@ -30,6 +30,7 @@ import pytest
 import torch
 
 import _torch_mega as mega_trunks
+from _torch_mega import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro.core import make_schedule as j_make_schedule
 from repro.kernels.megastep import kernel as jk
 from repro.kernels.sampler_step import ops as jops
@@ -166,8 +167,8 @@ def test_kernel_takes_bfloat16_pairs_and_checks_their_inputs(state, weights):
     cfg = configs.DLM_SMOLLM_MEGA
     eps = _meta_eps(cfg, 4, 64, TDT[weights])
     spec = eps.mega_spec
-    assert tk.kernel_limits(cfg, 64, TDT[state], spec.params) == (True, "ok")
+    assert tk.kernel_limits(cfg, TDT[state], spec.params) == (True, "ok")
     x2 = torch.empty(4 * 64 * cfg.latent_dim // 256, 256, dtype=TDT[state],
                      device="meta")
     with pytest.raises(ValueError, match="CUDA tensors"):
-        tk._check_kernel_inputs(x2, spec.params, cfg, 64)
+        tk._check_kernel_inputs(x2, spec.params, cfg)

@@ -20,9 +20,9 @@ import pytest
 import torch
 
 import _torch_mega as mega_trunks
+from _torch_mega import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro import diffusion_lm as jdlm
 from repro.core import make_schedule as j_make_schedule
-from repro.kernels.megastep import MegaSpec as JMegaSpec
 from repro.kernels.megastep import ref as jmega_ref
 from repro.kernels.sampler_step import ops as jops
 from repro.models.common import ArchConfig as JArch
@@ -81,10 +81,10 @@ def test_megastep_rows_call_matches_jax_ref(attn_impl, clip):
     jrows = jops.expand_slot_coefs(jnp.asarray(slot_coefs), rps)
     trows = step_ops.expand_slot_coefs(torch.from_numpy(slot_coefs), rps)
     np.testing.assert_array_equal(trows.numpy(), np.asarray(jrows))
-    jspec = JMegaSpec(params={k: jp[k] for k in tdlm.EPS_PATH}, cfg=jcfg,
-                      batch=SLOTS, seq_len=SEQ, attn_impl=attn_impl)
-    want = jmega_ref.megastep_rows_ref(jnp.asarray(x2), jspec, jrows,
-                                       jnp.asarray(ts), clip=clip)
+    want = mega_trunks.jit_ref(jmega_ref.megastep_rows_ref, jcfg, SLOTS, SEQ,
+                               attn_impl, clip=clip)(
+        jnp.asarray(x2), {k: jp[k] for k in tdlm.EPS_PATH}, jrows,
+        jnp.asarray(ts))
     n0 = tk.megastep_rows_call.launches
     got = tk.megastep_rows_call(torch.from_numpy(x2.copy()), tp, tcfg, SLOTS,
                                 SEQ, trows, torch.from_numpy(ts), clip=clip,
@@ -111,10 +111,10 @@ def test_megastep_rows_call_long_seq_head_dims_match_jax_ref(seq, hd,
     rps = x2.shape[0] // slots
     jrows = jops.expand_slot_coefs(jnp.asarray(slot_coefs), rps)
     trows = step_ops.expand_slot_coefs(torch.from_numpy(slot_coefs), rps)
-    jspec = JMegaSpec(params={k: jp[k] for k in tdlm.EPS_PATH}, cfg=jcfg,
-                      batch=slots, seq_len=seq, attn_impl=attn_impl)
-    want = np.asarray(jmega_ref.megastep_rows_ref(
-        jnp.asarray(x2), jspec, jrows, jnp.asarray(ts)))
+    want = np.asarray(mega_trunks.jit_ref(
+        jmega_ref.megastep_rows_ref, jcfg, slots, seq, attn_impl)(
+        jnp.asarray(x2), {k: jp[k] for k in tdlm.EPS_PATH}, jrows,
+        jnp.asarray(ts)))
     got = tk.megastep_rows_call(torch.from_numpy(x2.copy()), tp, tcfg, slots,
                                 seq, trows, torch.from_numpy(ts),
                                 attn_impl=attn_impl)

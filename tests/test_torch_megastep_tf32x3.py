@@ -23,6 +23,7 @@ import pytest
 import torch
 from torch.overrides import TorchFunctionMode
 
+from _torch_mega import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro_torch import prng
 from repro_torch.core import make_schedule
 from repro_torch.diffusion_lm import model as tdlm
