@@ -384,9 +384,9 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               4-slot scheduler (B4 once per tick, every x_T bitwise the
               CPU's bfloat16 draw); a latent-64 trunk at seq_len 96 runs
               B3 3 times and B1 never (within 1e-3 of 'tile_resident'),
-              and a float16 state takes the refusal path ('mega' names
-              its dtype and the tile loop's B1 raises, as does the
-              launcher); B3 (8 steps) and
+              and so does a float16 state on it (B3 3 times, B1 never,
+              the state float16, within 1e-2 of 'tile_resident'); B3 (8
+              steps) and
               B4 (one tick) in bfloat16 timed beside the plain version and
               the bound (bfloat16 bytes; operations at the bfloat16 rate
               and on the products as built), with phase traces.
@@ -417,6 +417,30 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               unfused path, which each must beat.  --p20-probe runs only
               the build and this phase; --mega-probe SRC times B3 / B4 at
               4 x 64 for another checkout's src (JSON)
+ 21. float16 through the sampler and all seven kernels, run after phase
+              20: each kernel in float16 against its plain version (B1 / B2
+              on a float16 state with a float16 and a float32 eps, det /
+              stoch x clip, B2's x0 too; B7; B6 on both row paths and at d
+              16,384; B5 at every head width x KV split x causal; B3 (K=2)
+              and B4 for a float16 state over float16, float32 and
+              bfloat16 weights and a float32 state over float16 weights,
+              exact / flash, a second float16-trunk launch bitwise equal),
+              one float16 ulp of max|out| (B3 / B4: 4, 1e-4 for a float32
+              state); counted: DiffusionSampler(dtype=float16,
+              tile_resident=True) on the CIFAR10 U-Net (its eps on the
+              state promoted to float32), 16 samples det S=20 and 8 eta=1
+              S=10 (B1 S per batch) against the eager loop; its float16
+              scheduler (8 slots, stochastic, order 2, preview; B2 once per
+              tick) against lone eager runs; 'mega' on a float16 state
+              over each weight type at 4 x 64, S=20 (B3 3 times, B1
+              never) and a float16 mega tick over each (B4 once per tick)
+              against the unfused paths (1e-2 of max|x|); generate over
+              float16 weights (B3 3 times); rms_norm, gqa_flash (smollm,
+              zamba2, kimi-k2 widths) and ddim_step_2d in float16; then
+              each kernel's float16 time beside its float32 and bfloat16
+              times, the plain version, the bound (2 B an element) and
+              SDPA / F.rms_norm.  --p21-probe runs only the build and this
+              phase
 
 Every time is printed beside the card's name and power limit.  Any failure
 raises and the script exits nonzero with no result line.  On success the
@@ -581,7 +605,9 @@ def phase_card() -> str:
 
 
 FLASH_LIBS = ("flash_attention", "flash_attention_wide",
-              "flash_attention_bf16", "flash_attention_bf16_wide")
+              "flash_attention_bf16", "flash_attention_bf16_wide",
+              "flash_attention_f16", "flash_attention_f16_wide")
+MEGA_LIBS = ("megastep", "megastep_bf16", "megastep_f16")
 
 
 def phase_build():
@@ -590,8 +616,7 @@ def phase_build():
     libs = build.build_all()
     print(f"[build] {sorted(libs)} built/loaded in "
           f"{time.perf_counter() - t0:.2f} s into {build.BUILD_DIR}")
-    for name in ("megastep", "megastep_bf16", *FLASH_LIBS, "rmsnorm",
-                 "ddim_step"):
+    for name in (*MEGA_LIBS, *FLASH_LIBS, "rmsnorm", "ddim_step"):
         lines = [ln.strip() for ln in build.build_log(name).splitlines()
                  if "Used" in ln or "spill" in ln
                  or "Compiling entry" in ln]
@@ -599,8 +624,7 @@ def phase_build():
             r"(?<!\d)0 bytes spill stores, 0 bytes spill loads", ln)]
         print(f"[build] {name}: {len(lines)} ptxas lines, {len(spills)} "
               f"with spills")
-        full = name in ("megastep", "megastep_bf16", *FLASH_LIBS,
-                        "rmsnorm")
+        full = name in (*MEGA_LIBS, *FLASH_LIBS, "rmsnorm")
         for ln in (lines if full else spills)[:96]:
             print(f"[build]   {ln}")
     for name in FLASH_LIBS:
@@ -615,11 +639,12 @@ def _flash_ptxas(log: str):
     out, cur, spill = [], None, (0, 0)
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '\S*flash_mma_kernelI"
-                      r"(f|13__nv_bfloat16)Li(\d+)ELb([01])ELi(\d)ELb([01])E",
-                      ln)
+                      r"(f|13__nv_bfloat16|6__half)Li(\d+)ELb([01])ELi(\d)"
+                      r"ELb([01])E", ln)
         if m:
             t, w, c, p, qx = m.groups()
-            cur = (f"{'f32' if t == 'f' else 'bf16'} width {w} "
+            cur = (f"{dict(f='f32').get(t, 'f16' if 'half' in t else 'bf16')}"
+                   f" width {w} "
                    f"{'causal' if c == '1' else 'full'} P {p}"
                    f"{' exact q' if qx == '1' else ''}")
             continue
@@ -1940,13 +1965,14 @@ B5_DOMAIN = (
 
 def _check_b5_domain(errs, gen, dtype) -> None:
     """B5 at every head width x KV split x causal in ``dtype`` against
-    its plain version (2e-5 / 2e-2 of max|out|), float32 also against
-    attention in float64 (2e-5)."""
+    its plain version (2e-5 / 2e-2 / one float16 ulp of max|out| in
+    float32 / bfloat16 / float16), float32 also against attention in
+    float64 (2e-5)."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ref as fref
     dev = torch.device("cuda")
-    tag = "f32" if dtype == torch.float32 else "bf16"
-    rel = 2e-5 if dtype == torch.float32 else 2e-2
+    tag, rel = {torch.float32: ("f32", 2e-5), torch.bfloat16: ("bf16", 2e-2),
+                torch.float16: ("f16", 2.0 ** -10)}[dtype]
     variants = set()
     for D, shapes in B5_DOMAIN:
         for BH, S in shapes:
@@ -2157,10 +2183,11 @@ def phase_18_kernels(params2):
     return {k: max(v) for k, v in errs.items()}
 
 
-def _p18_mega_run(smi, label, cfg, params, batch, seq, state, impl="exact"):
+def _p18_mega_run(smi, label, cfg, params, batch, seq, state, impl="exact",
+                  tol=P18_RUN_TOL, tag="p18"):
     """plan.run 'mega' (S=20) on a state of dtype ``state``, counted: B3
     ceil(S / K) times, B1 never, the reason "ok"; against 'tile_resident'
-    on the same eps and x_T within P18_RUN_TOL of max|x|.  Returns the B3
+    on the same eps and x_T within ``tol`` of max|x|.  Returns the B3
     launches."""
     from repro_torch.core import SamplerConfig
     from repro_torch.core.schedules import make_schedule
@@ -2180,14 +2207,14 @@ def _p18_mega_run(smi, label, cfg, params, batch, seq, state, impl="exact"):
     want = plan.run(eps, x_T, backend="tile_resident")
     rel = float((got.float() - want.float()).abs().max()
                 / want.float().abs().max())
-    print(f"[p18] {smi} | plan.run mega {label} ({impl}, S={DLM_S}, batch "
-          f"{batch} x {seq}, state {state}, weights "
+    print(f"[{tag}] {smi} | plan.run mega {label} ({impl}, S={DLM_S}, "
+          f"batch {batch} x {seq}, state {state}, weights "
           f"{params['w_in'].dtype}): reason {why!r}; launches {counts}; vs "
-          f"tile_resident max|d|/max|x| = {rel:.3e} (tol {P18_RUN_TOL})")
+          f"tile_resident max|d|/max|x| = {rel:.3e} (tol {tol})")
     check(counts == {"B1": 0, "B2": 0, "B3": want_b3, "B4": 0}
           and why == "ok", f"{label} mega: launches {counts}, reason {why!r}")
     check(got.dtype == state and bool(torch.isfinite(got).all())
-          and rel <= P18_RUN_TOL, f"{label} mega vs tile_resident: {rel}")
+          and rel <= tol, f"{label} mega vs tile_resident: {rel}")
     return counts["B3"]
 
 
@@ -2244,16 +2271,15 @@ def _p18_refusal(smi):
     """A latent-64 trunk at seq_len 96 (eligible by the JAX rule; past the
     kernel's 64-token blocks until PR 30): 'mega' runs B3 ceil(S / K)
     times and B1 never, within P20_RUN_TOL of 'tile_resident'.  Then the
-    refusal path on a float16 state, which the megakernel does not take:
-    eligible names the dtype, the launcher raises it, and 'mega' takes
-    the tile loop, whose B1 raises too (no kernel takes float16).
-    Returns the B3 launches."""
+    same run on a float16 state, which the megakernel refused until it
+    took float16: 'mega' runs B3 ceil(S / K) times and B1 never, the
+    state stays float16, within P21_RUN_TOL of 'tile_resident' on the
+    same float16 state.  Returns the B3 launches."""
     from repro_torch import prng
     from repro_torch.configs import DLM_SMOLLM_MEGA
     from repro_torch.core import SamplerConfig
     from repro_torch.core.schedules import make_schedule
     from repro_torch.diffusion_lm import init_params, make_tile_eps_fn
-    from repro_torch.kernels.megastep import kernel as mk
     from repro_torch.sampling import backends
     cfg = dataclasses.replace(DLM_SMOLLM_MEGA, latent_dim=64)
     batch, seq = 2, 96
@@ -2280,29 +2306,22 @@ def _p18_refusal(smi):
     b3 = counts["B3"]
     x16 = x_T.half()
     _zero_counts()
-    raised = None
-    try:
-        plan.run(eps, x16, backend="mega")
-    except TypeError as e:
-        raised = e
+    got = plan.run(eps, x16, backend="mega")
+    torch.cuda.synchronize()
     counts, why = _counts(), backends.run_mega.last_reason
-    coefs, ts = _plan_rows(DLM_S)
-    try:
-        mk.megastep_call(x16.reshape(-1, 256), params, cfg, batch, seq,
-                         coefs[:1], ts[:1])
-        launcher = None
-    except ValueError as e:
-        launcher = e
+    want = plan.run(eps, x16, backend="tile_resident").float()
+    rel = float((got.float() - want).abs().max() / want.abs().max())
     print(f"[p18] {smi} | plan.run mega on a float16 state, latent 64 at "
-          f"{batch} x {seq}: reason {why!r}; launches {counts}; the tile "
-          f"loop raised {raised!r}; the launcher raised {launcher!r}")
-    check("dtype torch.float16" in why and counts["B3"] == 0
-          and counts["B1"] == 0 and raised is not None
-          and launcher is not None
-          and "dtype torch.float16" in str(launcher),
-          f"float16 refusal: reason {why!r}, launches {counts}, raised "
-          f"{raised!r}, launcher {launcher!r}")
-    return b3
+          f"{batch} x {seq}: reason {why!r}; launches {counts}; x0 "
+          f"{got.dtype}; vs tile_resident max|d|/max|x| = {rel:.3e} (tol "
+          f"{P21_RUN_TOL})")
+    check(counts == {"B1": 0, "B2": 0, "B3": math.ceil(DLM_S / DLM_K),
+                     "B4": 0} and why == "ok",
+          f"float16 state on mega: launches {counts}, reason {why!r}")
+    check(got.dtype == torch.float16 and bool(torch.isfinite(got).all())
+          and rel <= P21_RUN_TOL, f"float16 state on mega vs tile_resident:"
+          f" {rel} > {P21_RUN_TOL}")
+    return b3 + counts["B3"]
 
 
 def phase_18_times(smi, params2, deep):
@@ -2920,6 +2939,595 @@ def phase_20(smi):
                                                  seq, gen)
     print(f"[p20] phase 20: {time.perf_counter() - t0:.1f} s")
     return errs, {"megastep_call": b3, "megastep_rows_call": b4}, shapes
+
+
+# ------------------------------------------------------------------ phase 21
+# float16 through the sampler and all seven kernels.  Tolerances: B1 / B2 /
+# B5 / B6 / B7 against their plain versions, one float16 ulp (2^-10) of
+# max|out| (both compute in float32, or round as JAX does, and store once
+# in float16).  P21_STATE_TOL, 4 float16 ulps of max|x|, for a float16
+# state that more than one step or more than one trunk evaluation reaches
+# (a float32 difference of an ulp can flip a float16 rounding, which later
+# steps carry): B3 / B4 against their plain versions over a float32 trunk
+# and over the float16 one (cuBLAS float16 products with float32 sums,
+# per-op float16 roundings; an H100 80GB HBM3 at 700 W measured 2.8e-4 of
+# max|state| over a float32 trunk, and 5.7e-4 / 6.9e-4 for the float16
+# trunk's B3 at K = 2 / B4), and the float16 service and scheduler against
+# the eager loop of the same x_T (measured 0 and 1.4e-3); 1e-4 for a
+# float32 state over float16 weights (a float32 trunk).  P21_RUN_TOL for 20-step runs of 'mega', and
+# for float16 mega ticks, against the unfused path of the same types
+# (measured 1.0e-3 to 3.2e-3).
+F16 = torch.float16
+F16_ULP = 2.0 ** -10
+P21_DT = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+# (state, weights): the three a float16 state meets, and generate's float32
+# state over float16 weights
+P21_PAIRS = (("f16", "f16"), ("f16", "f32"), ("f16", "bf16"), ("f32", "f16"))
+P21_STATE_TOL = 4 * F16_ULP
+P21_RUN_TOL = 1e-2
+
+
+def _unet_eps_f32(model):
+    """The U-Net's eps on a state promoted to float32, the weights' type
+    (JAX promotes a float16 state over float32 weights so; its U-Net, as
+    the port's, refuses the two types in one convolution)."""
+    from repro_torch.models.unet import make_eps_fn
+    eps = make_eps_fn(model)
+
+    def eps32(x, t):
+        return eps(x.float(), t)
+    return eps32
+
+
+def phase_21_kernels(params2):
+    """Each kernel in float16 against its plain version on the card.
+    Returns the largest error of each kernel."""
+    from repro_torch.configs import DLM_SMOLLM_MEGA as cfg
+    from repro_torch.kernels.ddim_step import kernel as dk
+    from repro_torch.kernels.ddim_step import ref as dref
+    from repro_torch.kernels.megastep import kernel as mk
+    from repro_torch.kernels.megastep import ref as mref
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.rmsnorm import ops as rops
+    from repro_torch.kernels.rmsnorm import ref as rref
+    from repro_torch.kernels.sampler_step import kernel as sk
+    from repro_torch.kernels.sampler_step import ops as sops
+    from repro_torch.kernels.sampler_step import ref as sref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2121)
+    errs = {k: [] for k in ("sampler_step_2d", "sampler_step_rows_2d",
+                            "megastep_call", "megastep_rows_call",
+                            "flash_attention", "rms_norm_2d",
+                            "ddim_step_2d")}
+    # B1 / B2: a float16 state with a float16 eps and with a float32 one
+    # (a float32 model's), over the row counts of phase 3
+    coefs = torch.tensor([0.9, 0.3, 1.0, 0.6, 0.8])
+    for R in sorted({16, *main_rows(), 768}):
+        x = (torch.randn(R, 256, generator=gen, device=dev) * 2).to(F16)
+        e32 = torch.randn(R, 256, generator=gen, device=dev)
+        rc = torch.rand(R, 8, generator=gen, device=dev) * 0.9 + 0.1
+        rc[:, 2] = 1.0
+        seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (R,), generator=gen,
+                              device=dev, dtype=torch.int32)
+        for e in (e32.to(F16), e32):
+            for clip in (None, 1.0):
+                for stoch in (False, True):
+                    tag = (f"R={R} f16/{'f16' if e.dtype == F16 else 'f32'}"
+                           f" clip={clip} {'stoch' if stoch else 'det'}")
+                    got = sk.sampler_step_2d(x, e, coefs, -98765, clip=clip,
+                                             stochastic=stoch)
+                    want = sref.sampler_step_2d(x, e, coefs.to(dev), -98765,
+                                                clip=clip, stochastic=stoch)
+                    check(got.dtype == F16, f"B1 {tag}: dtype {got.dtype}")
+                    _check_rel(errs["sampler_step_2d"], f"B1 {tag}", got,
+                               want, F16_ULP)
+                    kw = dict(clip=clip, stochastic=stoch, want_x0=True)
+                    got = sk.sampler_step_rows_2d(x, e, rc, seeds, **kw)
+                    want = sref.sampler_step_rows_2d(x, e, rc, seeds, **kw)
+                    for i, what in enumerate(("", " [x0]")):
+                        _check_rel(errs["sampler_step_rows_2d"],
+                                   f"B2 {tag}{what}", got[i], want[i],
+                                   F16_ULP)
+    # B7 at phase 3's shapes
+    c7 = torch.tensor(B7_COEFS)
+    for R in (256, 1024):
+        x, e, z = (torch.randn(R, 256, generator=gen, device=dev).to(F16)
+                   for _ in range(3))
+        _check_rel(errs["ddim_step_2d"], f"B7 R={R} C=256 f16",
+                   dk.ddim_step_2d(x, e, z, c7),
+                   dref.ddim_step_body(x, e, z, c7.to(dev)), F16_ULP)
+    # B6: the vector path at smollm width and at d 16,384 (8 warps a row),
+    # the scalar one at d 190 and on an unaligned x
+    for R, d, vector in ((256, 576, True), (1000, 192, True),
+                         (256, 190, False), (8, 16384, True)):
+        x = torch.randn(R, d, generator=gen, device=dev).to(F16)
+        sc = (torch.rand(d, generator=gen, device=dev) + 0.5).to(F16)
+        _check_rel(errs["rms_norm_2d"], f"B6 ({R}, {d}) f16",
+                   rops.rms_norm(x, sc), rref.rms_norm_body(x, sc, 1e-5),
+                   F16_ULP)
+        _check_row_path(rk.rms_norm_2d.last_plan, vector)
+    xu = torch.randn(256 * 576 + 1, generator=gen, device=dev).to(F16)[1:]
+    xu, sc = xu.view(256, 576), torch.ones(576, device=dev, dtype=F16)
+    _check_rel(errs["rms_norm_2d"], "B6 (256, 576) f16 unaligned",
+               rk.rms_norm_2d(xu, sc), rref.rms_norm_body(xu, sc, 1e-5),
+               F16_ULP)
+    _check_row_path(rk.rms_norm_2d.last_plan, False)
+    # B5 at every head width x KV split x causal
+    _check_b5_domain(errs["flash_attention"], gen, F16)
+    # B3 (K=2) and B4 for every (state, weights) pair, exact and flash
+    coefs3, ts = _plan_rows(DLM_S)
+    weights = {w: _to_dtype(params2, P21_DT[w]) for w in ("f16", "bf16")}
+    weights["f32"] = params2
+    batch, seq = DLM_BATCH, DLM_SEQ
+    x32 = torch.randn(batch * seq * cfg.latent_dim // 256, 256,
+                      generator=gen, device=dev)
+    st, c = _p17_slot_rows(batch, None)
+    rows = sops.expand_slot_coefs(c, x32.shape[0] // batch)
+    for state, wt in P21_PAIRS:
+        x2, params = x32.to(P21_DT[state]), weights[wt]
+        tol = 1e-4 if state == "f32" else P21_STATE_TOL
+        for impl in ("exact", "flash"):
+            tag = f"{state}/{wt} {batch}x{seq} {impl}"
+            args = (x2, params, cfg, batch, seq, coefs3[:2], ts[:2])
+            got = mk.megastep_call(*args, attn_impl=impl)
+            _check_rel(errs["megastep_call"], f"B3 {tag} K=2", got,
+                       mref.megastep_ref(*args, attn_impl=impl), tol)
+            check(got.dtype == x2.dtype, f"B3 {tag}: dtype {got.dtype}")
+            if state == wt == "f16":
+                _check_repeat(f"B3 {tag} K=2", got,
+                              mk.megastep_call(*args, attn_impl=impl))
+            args = (x2, params, cfg, batch, seq, rows, st)
+            got = mk.megastep_rows_call(*args, attn_impl=impl)
+            _check_rel(errs["megastep_rows_call"], f"B4 {tag}", got,
+                       mref.megastep_rows_ref(*args, attn_impl=impl), tol)
+            check(got.dtype == x2.dtype, f"B4 {tag}: dtype {got.dtype}")
+    torch.cuda.synchronize()
+    return {k: max(v) for k, v in errs.items()}
+
+
+def _p21_serve(smi, model):
+    """DiffusionSampler(dtype=float16, tile_resident=True) at CIFAR10
+    width: 16 samples deterministic (S=20) and 8 at eta=1 (S=10), counted
+    (B1 S per batch, nothing else); one batch against the eager loop of
+    the same x_T.  Returns the B1 launches."""
+    from repro_torch import prng
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.sampling import SamplerPlan
+    from repro_torch.serving import DiffusionSampler
+    sch = make_schedule("linear", 1000)
+    eps = _unet_eps_f32(model)
+    svc = DiffusionSampler(sch, eps, CARD_SHAPE, batch_size=BATCH,
+                           dtype=F16, tile_resident=True)
+    det = SamplerPlan.build(sch, 20)
+    sto = SamplerPlan.build(sch, 10, sigma=1.0)
+    _zero_counts()
+    out_det, st_det = svc.serve(16, det, seed=21)
+    n_det = _counts()
+    _zero_counts()
+    out_sto, _ = svc.serve(8, sto, seed=22)
+    torch.cuda.synchronize()
+    n_sto = _counts()
+    k1, k2 = prng.split(prng.PRNGKey(23))
+    x_T = prng.normal(k1, (BATCH,) + CARD_SHAPE, dtype=F16)
+    a = det.run(eps, x_T, k2, backend="tile_resident")
+    b = det.run(eps, x_T, k2, backend="eager")
+    rel = float((a.float() - b.float()).abs().max() / b.float().abs().max())
+    print(f"[p21] {smi} | serve CIFAR10_UNET float16 (eps of the float32 "
+          f"U-Net): det S=20 16 samples launches {n_det}, eta=1 S=10 8 "
+          f"samples launches {n_sto}; outputs {out_det.dtype} / "
+          f"{out_sto.dtype}, max|x| {float(out_det.float().abs().max()):.4g};"
+          f" stats dtype {st_det['dtype']!r}; tile_resident vs eager, "
+          f"batch {BATCH}: max|d|/max|x| = {rel:.3e} (tol "
+          f"{P21_STATE_TOL:.3e})")
+    check(n_det == {"B1": 2 * det.S, "B2": 0, "B3": 0, "B4": 0}
+          and n_sto == {"B1": sto.S, "B2": 0, "B3": 0, "B4": 0},
+          f"float16 serve launches {n_det} / {n_sto}")
+    for out, n in ((out_det, 16), (out_sto, 8)):
+        check(out.dtype == F16 and out.shape == (n,) + CARD_SHAPE
+              and bool(torch.isfinite(out).all()), "float16 serve: bad out")
+    check(a.dtype == F16 and rel <= P21_STATE_TOL,
+          f"float16 tile_resident vs eager: {rel}")
+    return n_det["B1"] + n_sto["B1"]
+
+
+def _p21_sched(smi, model):
+    """svc.continuous on the CIFAR10 U-Net in float16: 8 slots,
+    stochastic, order 2, the x0 preview; 12 requests (S 10 / 20, eta 0
+    order 1 / 2, eta 1), counted (B2 once per tick, nothing else); every
+    eta=0 x0 against a lone eager run of the x_T the engine drew.
+    Returns the B2 launches."""
+    from repro_torch import prng
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.sampling import SamplerPlan
+    from repro_torch.sampling.specs import TauSpec
+    from repro_torch.serving import DiffusionSampler, SampleRequest
+    sch = make_schedule("linear", 1000)
+    eps = _unet_eps_f32(model)
+    svc = DiffusionSampler(sch, eps, CARD_SHAPE, batch_size=BATCH,
+                           dtype=F16, tile_resident=True)
+    eng = svc.continuous(slots=SCHED_SLOTS, stochastic=True, max_order=2,
+                         preview=True)
+    previews, reqs = [], []
+    for S in (10, 20):
+        for tau in ("uniform", "quadratic"):
+            for eta, order in ((0.0, 1), (0.0, 2), (1.0, 1)):
+                i = len(reqs)
+                reqs.append(SampleRequest(
+                    request_id=i, seed=2100 + i,
+                    plan=SamplerPlan.build(sch, TauSpec(kind=tau, S=S),
+                                           sigma=eta, order=order),
+                    preview_every=4 if i % 3 == 0 else 0,
+                    on_preview=lambda rid, k, x0: previews.append(
+                        (rid, x0.dtype, bool(torch.isfinite(x0).all())))))
+    _zero_counts()
+    res = {r.request_id: r for r in eng.serve(reqs)}
+    torch.cuda.synchronize()
+    counts, st = _counts(), eng.stats()
+    worst = 0.0
+    for r in reqs:
+        x0 = res[r.request_id].x0
+        check(x0.dtype == F16 and x0.shape == CARD_SHAPE
+              and bool(torch.isfinite(x0).all()), f"float16 request "
+              f"{r.request_id}: bad x0")
+        if r.plan.stochastic:
+            continue
+        x_T = prng.normal(prng.PRNGKey(r.seed), (1,) + CARD_SHAPE,
+                          dtype=F16)   # the engine's draw for the seed
+        lone = r.plan.run(eps, x_T, backend="eager")[0]
+        worst = max(worst, float((x0.float() - lone.float()).abs().max()
+                                 / lone.float().abs().max()))
+    print(f"[p21] {smi} | float16 scheduler CIFAR10_UNET, {SCHED_SLOTS} "
+          f"slots, stochastic, order 2, preview: {len(reqs)} requests, "
+          f"{st['ticks']} ticks, completed {st['completed']}, previews "
+          f"{st['previews_sent']} ({len(previews)} float16 "
+          f"{all(p[1] == F16 and p[2] for p in previews)}); launches "
+          f"{counts}; eta=0 x0 vs lone eager runs of the same x_T: worst "
+          f"max|d|/max|x| = {worst:.3e} (tol {P21_STATE_TOL:.3e})")
+    check(counts == {"B1": 0, "B2": st["ticks"], "B3": 0, "B4": 0}
+          and st["completed"] == len(reqs) and st["compiled_ticks"] == 1,
+          f"float16 scheduler launches {counts}, stats {st}")
+    check(len(previews) == st["previews_sent"] > 0
+          and all(p[1] == F16 and p[2] for p in previews),
+          "float16 previews missing, not float16 or non-finite")
+    check(worst <= P21_STATE_TOL, f"float16 scheduler vs eager: {worst}")
+    return counts["B2"]
+
+
+def _p21_mega(smi, params2):
+    """'mega' on a float16 state over float32, bfloat16 and float16
+    weights (S=20, 4 x 64; B3 3 times, B1 never) against 'tile_resident'
+    on the same types, generate over float16 weights (a float32 state:
+    B3 3 times), and a float16 4-slot scheduler over each weight type (B4
+    once per tick) against an unfused engine.  Returns (B3, B4)."""
+    from repro_torch import prng
+    from repro_torch.configs import DLM_SMOLLM_MEGA as cfg
+    from repro_torch.core import SamplerConfig
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.diffusion_lm import generate, make_tile_eps_fn
+    from repro_torch.sampling import backends
+    from repro_torch.serving import ContinuousBatchingEngine, SampleRequest
+    sch = make_schedule("linear", 1000)
+    b3 = b4 = 0
+    for wt in ("f16", "f32", "bf16"):
+        params = params2 if wt == "f32" else _to_dtype(params2, P21_DT[wt])
+        for impl in (("exact", "flash") if wt == "f16" else ("exact",)):
+            b3 += _p18_mega_run(smi, f"{cfg.arch.name} f16 state", cfg,
+                                params, DLM_BATCH, DLM_SEQ, F16, impl=impl,
+                                tol=P21_RUN_TOL, tag="p21")
+        eps = make_tile_eps_fn(params, cfg, DLM_BATCH, DLM_SEQ)
+        shape = (DLM_SEQ, cfg.latent_dim)
+        mega = ContinuousBatchingEngine(sch, eps, shape, slots=DLM_BATCH,
+                                        dtype=F16)
+        plain = ContinuousBatchingEngine(sch, eps, shape, slots=DLM_BATCH,
+                                         dtype=F16, use_mega=False)
+        check(mega.tick_variant == "mega" and plain.tick_variant == "rows",
+              f"float16 engines over {wt} weights pick {mega.tick_variant} "
+              f"/ {plain.tick_variant}")
+
+        def requests():
+            return [SampleRequest(request_id=i, S=DLM_SCHED_S[i % 2],
+                                  seed=2150 + i)
+                    for i in range(2 * DLM_BATCH)]
+        _zero_counts()
+        res_m = mega.serve(requests())
+        torch.cuda.synchronize()
+        counts, st = _counts(), mega.stats()
+        res_p = plain.serve(requests())
+        xm, xp = (torch.stack([r.x0 for r in sorted(
+            res, key=lambda r: r.request_id)]).float()
+            for res in (res_m, res_p))
+        rel = float((xm - xp).abs().max() / xp.abs().max())
+        print(f"[p21] {smi} | float16 scheduler {cfg.arch.name} over {wt} "
+              f"weights, {DLM_BATCH} slots x {DLM_SEQ}, {2 * DLM_BATCH} "
+              f"requests: {st['ticks']} ticks, completed "
+              f"{st['completed']}; launches {counts}; x0 "
+              f"{res_m[0].x0.dtype}; vs unfused max|d|/max|x| = {rel:.3e} "
+              f"(tol {P21_RUN_TOL})")
+        check(counts == {"B1": 0, "B2": 0, "B3": 0, "B4": st["ticks"]}
+              and st["completed"] == 2 * DLM_BATCH
+              and st["compiled_ticks"] == 1, f"float16 mega tick over {wt}"
+              f" weights: launches {counts}")
+        check(res_m[0].x0.dtype == F16 and rel <= P21_RUN_TOL,
+              f"float16 mega tick over {wt} weights vs unfused: {rel}")
+        b4 += counts["B4"]
+    p16 = _to_dtype(params2, F16)
+    _zero_counts()
+    tokens = generate(p16, cfg, sch, prng.PRNGKey(21), DLM_BATCH, DLM_SEQ,
+                      SamplerConfig(S=DLM_S), tile_resident=True)
+    torch.cuda.synchronize()
+    counts, why = _counts(), backends.run_mega.last_reason
+    print(f"[p21] {smi} | generate {cfg.arch.name} over float16 weights "
+          f"(float32 x_T, S={DLM_S}, {DLM_BATCH} x {DLM_SEQ}): reason "
+          f"{why!r}; launches {counts}; tokens {tuple(tokens.shape)}")
+    check(counts == {"B1": 0, "B2": 0, "B3": math.ceil(DLM_S / DLM_K),
+                     "B4": 0} and why == "ok", f"generate over float16 "
+          f"weights: launches {counts}, reason {why!r}")
+    check(tokens.shape == (DLM_BATCH, DLM_SEQ) and 0 <= int(tokens.min())
+          and int(tokens.max()) < cfg.arch.vocab, "generate: bad tokens")
+    return b3 + counts["B3"], b4
+
+
+def _p21_ops(smi):
+    """rms_norm, gqa_flash (causal, smollm / zamba2 / kimi-k2 widths) and
+    ddim_step_2d in float16, counted, against the plain float32 ops of the
+    same float16 inputs rounded to float16 (one float16 ulp of max|out|).
+    Returns {kernel: launches}."""
+    from repro_torch import configs
+    from repro_torch.configs import SMOLLM_135M as a
+    from repro_torch.kernels.ddim_step import kernel as dk
+    from repro_torch.kernels.ddim_step import ref as dref
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.rmsnorm import ops as rops
+    from repro_torch.models.attention import _grouped_attention
+    from repro_torch.models.common import causal_mask, rms_norm
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2122)
+    S, d = 2048, a.d_model
+    mask = torch.clamp(causal_mask(S, device=dev), min=-1e30)
+    fk.flash_attention.launches = rk.rms_norm_2d.launches = 0
+    dk.ddim_step_2d.launches = 0
+    h = torch.randn(1, S, d, generator=gen, device=dev).to(F16)
+    sc = (torch.rand(d, generator=gen, device=dev) + 0.5).to(F16)
+    xn = rops.rms_norm(h, sc)
+    e_n = float((xn.float() - rms_norm(h, sc).float()).abs().max()
+                / rms_norm(h, sc).float().abs().max())
+    worst = 0.0
+    for name, (H, Hkv, D) in (
+            ("smollm-135m", (a.n_heads, a.n_kv_heads, a.hd())),
+            *((n, (configs.get(n).n_heads, configs.get(n).n_kv_heads,
+                   configs.get(n).hd())) for n in OPS_ATTN_ARCHS)):
+        q = torch.randn(1, S, H, D, generator=gen, device=dev).to(F16)
+        k, v = (torch.randn(1, S, Hkv, D, generator=gen, device=dev).to(F16)
+                for _ in range(2))
+        out = fops.gqa_flash(q, k, v, causal=True)
+        want = _grouped_attention(q.float(), k.float(), v.float(), mask)
+        worst = max(worst, float((out.float() - want).abs().max()
+                                 / want.abs().max()))
+        check(out.dtype == F16, f"gqa_flash float16 at {name}: {out.dtype}")
+        del q, k, v, out, want
+    c7 = torch.tensor(B7_COEFS)
+    x, e, z = (torch.randn(1024, 256, generator=gen, device=dev).to(F16)
+               for _ in range(3))
+    y = dk.ddim_step_2d(x, e, z, c7)
+    e_7 = float((y.float() - dref.ddim_step_body(
+        x, e, z, c7.to(dev)).float()).abs().max() / y.float().abs().max())
+    torch.cuda.synchronize()
+    launches = {"flash_attention": fk.flash_attention.launches,
+                "rms_norm_2d": rk.rms_norm_2d.launches,
+                "ddim_step_2d": dk.ddim_step_2d.launches}
+    print(f"[p21] {smi} | float16 ops: rms_norm (1 x {S} x {d}) vs "
+          f"models.common.rms_norm {e_n:.3e}, gqa_flash causal at smollm, "
+          f"{', '.join(OPS_ATTN_ARCHS)} widths vs float32 attention of the "
+          f"same inputs worst {worst:.3e}, ddim_step_2d (1024, 256) vs its "
+          f"plain version {e_7:.3e} of max|out| (tol {F16_ULP:.3e}); "
+          f"launches {launches}")
+    check(launches == {"flash_attention": 3, "rms_norm_2d": 1,
+                       "ddim_step_2d": 1}, f"float16 ops launches {launches}")
+    check(max(e_n, worst, e_7) <= F16_ULP, "float16 ops disagree")
+    return launches
+
+
+def _p21_time_set(smi, label, fns, plain, bound, library=None):
+    """Time the float16 kernel at one shape beside the same kernel in
+    float32 and bfloat16 (``fns``: dtype -> call), its plain version and
+    the library call; returns the float16 record."""
+    t = {dt: graph_ms(fn) for dt, fn in fns.items()}
+    b_ms, b_by = bound
+    rec = dict(ms=t[F16], plain_ms=graph_ms(plain, iters=10),
+               library_ms=None if library is None else graph_ms(library),
+               bound_ms=b_ms, bound_by=b_by, shape=f"{label} f16",
+               f32_ms=t.get(torch.float32), bf16_ms=t.get(torch.bfloat16))
+    _time_line(smi, label + " float16", rec)
+    print(f"[times] {smi} | {label}: float16 {t[F16] * 1e3:.2f} us, "
+          + ", ".join(f"{str(dt).replace('torch.', '')} "
+                      f"{ms * 1e3:.2f} us" for dt, ms in t.items()
+                      if dt != F16))
+    return rec
+
+
+def phase_21_times(smi, params2):
+    """Each kernel in float16 at the shapes phase 5 times, beside its
+    float32 and bfloat16 times, its plain version, its bound (2 B an
+    element) and the library call (SDPA for B5, F.rms_norm for B6).
+    Returns {kernel: [records]}."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import DLM_SMOLLM_MEGA as cfg
+    from repro_torch.kernels.ddim_step import kernel as dk
+    from repro_torch.kernels.ddim_step import ref as dref
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.megastep import bound_probe
+    from repro_torch.kernels.megastep import kernel as mk
+    from repro_torch.kernels.megastep import ref as mref
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.rmsnorm import ref as rref
+    from repro_torch.kernels.sampler_step import kernel as sk
+    from repro_torch.kernels.sampler_step import ops as sops
+    from repro_torch.kernels.sampler_step import ref as sref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2123)
+    dts = (F16, torch.float32, torch.bfloat16)
+    shapes = {}
+    r1, r2 = main_rows()
+    coefs = torch.tensor([0.9, 0.3, 0.0, 0.6, 0.8])
+    cd = coefs.to(dev)
+    # B1 at the U-Net's R (a float32 eps) and B2 at the slots' R, det
+    for name, R in (("sampler_step_2d", r1), ("sampler_step_rows_2d", r2)):
+        x = {dt: torch.randn(R, 256, generator=gen, device=dev).to(dt)
+             for dt in dts}
+        e = torch.randn(R, 256, generator=gen, device=dev)
+        rc = torch.rand(R, 8, generator=gen, device=dev) + 0.1
+        n_bytes = R * 256 * (2 + 4 + 2) + (R * 32 if "rows" in name else 0)
+        if "rows" in name:
+            fns = {dt: (lambda v=v: sk.sampler_step_rows_2d(v, e, rc))
+                   for dt, v in x.items()}
+            plain = lambda: sref.sampler_step_rows_2d(x[F16], e, rc)  # noqa
+        else:
+            fns = {dt: (lambda v=v: sk.sampler_step_2d(v, e, coefs))
+                   for dt, v in x.items()}
+            plain = lambda: sref.sampler_step_2d(x[F16], e, cd)  # noqa
+        shapes[name] = [_p21_time_set(
+            smi, f"{'B2' if 'rows' in name else 'B1'} {name} R={R} det "
+            f"(float32 eps)", fns, plain, _bound(n_bytes, OPS_STEP * R * 256))]
+    # B7 at (1024, 256)
+    c7 = torch.tensor(B7_COEFS)
+    c7d = c7.to(dev)
+    xs = {dt: [torch.randn(1024, 256, generator=gen, device=dev).to(dt)
+               for _ in range(3)] for dt in dts}
+    shapes["ddim_step_2d"] = [_p21_time_set(
+        smi, "B7 ddim_step_2d (1024, 256)",
+        {dt: (lambda v=v: dk.ddim_step_2d(*v, c7)) for dt, v in xs.items()},
+        lambda: dref.ddim_step_body(*xs[F16], c7d),
+        _bound(4 * 1024 * 256 * 2, 5 * 1024 * 256))]
+    # B6 at (256 | 2048 | 16384, 576)
+    d = cfg.arch.d_model
+    shapes["rms_norm_2d"] = []
+    for R in (DLM_BATCH * DLM_SEQ, 2048, 16384):
+        xs = {dt: torch.randn(R, d, generator=gen, device=dev).to(dt)
+              for dt in dts}
+        scs = {dt: (torch.rand(d, generator=gen, device=dev) + 0.5).to(dt)
+               for dt in dts}
+        rec = _p21_time_set(
+            smi, f"B6 rms_norm_2d ({R}, {d})",
+            {dt: (lambda v=v, s=scs[dt]: rk.rms_norm_2d(v, s))
+             for dt, v in xs.items()},
+            lambda: rref.rms_norm_body(xs[F16], scs[F16], 1e-5),
+            _bound((2 * R * d + d) * 2, 4 * R * d),
+            library=lambda: F.rms_norm(xs[F16], (d,), scs[F16], 1e-5))
+        rec.update(_rn_plan(rk.rms_norm_2d))
+        shapes["rms_norm_2d"].append(rec)
+    # B5 at (9, 2048, 64) causal and zamba2's / kimi-k2's widths
+    shapes["flash_attention"] = []
+    for BH, S, D in ((9, 2048, 64), *B5_OPS_SHAPES):
+        qkv = {dt: [torch.randn(BH, S, D, generator=gen, device=dev).to(dt)
+                    for _ in range(3)] for dt in dts}
+        q16 = qkv[F16]
+        b_ms, b_by, _ = _b5_bound(BH, S, D, True, F16)
+        rec = _p21_time_set(
+            smi, f"B5 flash_attention ({BH}, {S}, {D}) causal",
+            {dt: (lambda v=v: fk.flash_attention(*v, causal=True))
+             for dt, v in qkv.items()},
+            lambda: fref.flash_attention_ref(*q16, causal=True),
+            (b_ms, b_by),
+            library=lambda: F.scaled_dot_product_attention(
+                *(t[None] for t in q16), is_causal=True))
+        fk.flash_attention(*q16, causal=True)
+        rec.update(_fa_plan(fk.flash_attention.last_plan))
+        shapes["flash_attention"].append(rec)
+        del qkv, q16
+    # B3 (8 steps) and B4 (one tick) at 4 x 64: the float16 trunk, exact
+    # and flash, beside the float32 and bfloat16 trunks (exact), and a
+    # float16 state over the float32 trunk, exact
+    coefs3, ts = _plan_rows(DLM_S)
+    n = DLM_BATCH * DLM_SEQ * cfg.latent_dim
+    x32 = torch.randn(n // 256, 256, generator=gen, device=dev)
+    st, c = _p17_slot_rows(DLM_BATCH, None)
+    rows = sops.expand_slot_coefs(c, x32.shape[0] // DLM_BATCH)
+    p16 = _to_dtype(params2, F16)
+    trunks = {"f16": p16, "f32": params2,
+              "bf16": _to_dtype(params2, torch.bfloat16)}
+    xs = {w: x32.to(dt) for w, dt in P21_DT.items()}
+    for name, K, extra in (("megastep_call", DLM_K, (coefs3[:DLM_K],
+                                                     ts[:DLM_K])),
+                           ("megastep_rows_call", 1, (rows, st))):
+        fn, ref = ((mk.megastep_call, mref.megastep_ref) if K > 1
+                   else (mk.megastep_rows_call, mref.megastep_rows_ref))
+        kname = "B3" if K > 1 else "B4"
+        timer, how = _mega_timer(lambda: fn(x32, params2, cfg, DLM_BATCH,
+                                            DLM_SEQ, *extra))
+        same = {w: timer(lambda w=w: fn(xs[w], trunks[w], cfg, DLM_BATCH,
+                                        DLM_SEQ, *extra), iters=3, reps=2)
+                for w in ("f32", "bf16")}
+        shapes[name] = []
+        for wname, impls in (("f16", ("exact", "flash")),
+                             ("f32", ("exact",))):
+            b = bound_probe.bound_us(cfg, DLM_BATCH, DLM_SEQ, K, F16,
+                                     P21_DT[wname], rows=K == 1)
+            args = (xs["f16"], trunks[wname], cfg, DLM_BATCH, DLM_SEQ,
+                    *extra)
+            for impl in impls:
+                rec = dict(
+                    ms=timer(lambda: fn(*args, attn_impl=impl), iters=3,
+                             reps=2),
+                    plain_ms=timer(lambda: ref(*args, attn_impl=impl),
+                                   iters=3, reps=2),
+                    library_ms=None, bound_ms=b["bound"] / 1e3,
+                    bound_by=b["by"],
+                    bound_built_ms=b["operations_built"] / 1e3,
+                    shape=f"{cfg.arch.name} {DLM_BATCH} x {DLM_SEQ}, "
+                          f"{'K=' + str(K) if K > 1 else 'one tick'}, "
+                          f"{impl}, float16 state, {wname} weights",
+                    timed_by=how, **_plan_keys(fn.last_plan))
+                if wname == "f16" and impl == "exact":
+                    rec.update(f32_ms=same["f32"], bf16_ms=same["bf16"])
+                _time_line(smi, f"{kname} {name} {rec['shape']}", rec)
+                shapes[name].append(rec)
+        print(f"[times] {smi} | {kname} {name} {cfg.arch.name} {DLM_BATCH} "
+              f"x {DLM_SEQ} exact, state and weights of one type: float16 "
+              f"{shapes[name][0]['ms'] * 1e3:.2f} us, float32 "
+              f"{same['f32'] * 1e3:.2f} us, bfloat16 "
+              f"{same['bf16'] * 1e3:.2f} us ({how})")
+    _phase_trace(smi, f"B3 megastep_call {cfg.arch.name} float16 trunk "
+                 f"{DLM_BATCH} x {DLM_SEQ} K={DLM_K} exact",
+                 mk.megastep_call, lambda: mk.megastep_call(
+                     xs["f16"], p16, cfg, DLM_BATCH, DLM_SEQ,
+                     coefs3[:DLM_K], ts[:DLM_K]), DLM_K, cfg.arch.n_layers)
+    return shapes
+
+
+def phase_21(smi, params2, model):
+    """Phase 21, float16 through the sampler and all seven kernels: the
+    kernel checks; counted, the float16 service and scheduler on the
+    CIFAR10 U-Net (B1 S per batch, B2 once per tick), 'mega' on a float16
+    state over each weight type, generate over float16 weights (B3 3
+    times, B1 never), the float16 mega ticks (B4 once per tick) and the
+    float16 ops (B5, B6, B7); then the times.  cuBLAS keeps float32 sums
+    in its float16 products (no reduced-precision reductions), as JAX's
+    float16 dot does.  Returns ({kernel: max error}, {kernel: launches},
+    {kernel: shapes})."""
+    t0 = time.perf_counter()
+    old = torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+    try:
+        errs = phase_21_kernels(params2)
+        print(f"[p21] kernel checks: largest max|d| " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items())
+            + f"; {time.perf_counter() - t0:.1f} s")
+        launches = {"sampler_step_2d": _p21_serve(smi, model),
+                    "sampler_step_rows_2d": _p21_sched(smi, model)}
+        launches["megastep_call"], launches["megastep_rows_call"] = \
+            _p21_mega(smi, params2)
+        launches.update(_p21_ops(smi))
+        print(f"[p21] launches on the float16 paths: {launches}")
+        shapes = phase_21_times(smi, params2)
+    finally:
+        torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = \
+            old
+    print(f"[p21] phase 21: {time.perf_counter() - t0:.1f} s")
+    return errs, launches, shapes
 
 
 def mega_probe(smi, src) -> None:
@@ -6632,6 +7240,10 @@ def main(argv=None) -> int:
                     help="only build the kernels and run phase 20 (B3 / B4 "
                          "over every geometry JAX's megakernel admits) on "
                          "this checkout")
+    ap.add_argument("--p21-probe", action="store_true",
+                    help="only build the kernels and run phase 21 (float16 "
+                         "through the sampler and all seven kernels) on "
+                         "this checkout")
     ap.add_argument("--mega-probe", metavar="SRC", type=Path,
                     help="only time B3 / B4 at 4 x 64 (float32 and "
                          "bfloat16, exact and flash) on SRC/repro_torch "
@@ -6716,6 +7328,10 @@ def main(argv=None) -> int:
         phase_20(smi)
         print(f"[done] {time.perf_counter() - t0:.1f} s")
         return 0
+    if args.p21_probe:
+        phase_21(smi, _dlm_params(DLM_SMOLLM_MEGA), _cifar10_model())
+        print(f"[done] {time.perf_counter() - t0:.1f} s")
+        return 0
     if args.p17_probe or args.p18_probe:
         params2 = _dlm_params(DLM_SMOLLM_MEGA)
         (phase_17 if args.p17_probe else phase_18)(smi, params2)
@@ -6746,16 +7362,18 @@ def main(argv=None) -> int:
                  "step_kernel")
     # Encode / decode / interpolation, phase 18 (B3 / B4 in bfloat16),
     # phase 17 (the megakernels at seq_len 128 / 256 and head dims 16 to
-    # 128) and phase 20 (every geometry JAX's megakernel admits) run after
-    # every rate above, so that those are timed from the state they were
-    # timed in before these paths existed.  B1 runs on three main paths:
-    # serve, decode and interpolation; B3 and B4 also on phase 18's, 17's
-    # and 20's.
+    # 128), phase 20 (every geometry JAX's megakernel admits) and phase 21
+    # (float16 through all seven kernels) run after every rate above, so
+    # that those are timed from the state they were timed in before these
+    # paths existed.  B1 runs on three main paths: serve, decode and
+    # interpolation; B3 and B4 also on phase 18's, 17's and 20's; every
+    # kernel on phase 21's float16 paths.
     next(r for r in b_kernels if r["name"] == "sampler_step_2d")[
         "launches"] += phase_main_ode(smi, model)
     errs18, launches18, shapes18 = phase_18(smi, params2)
     errs17, launches17, shapes17 = phase_17(smi, params2)
     errs20, launches20, shapes20 = phase_20(smi)
+    errs21, launches21, shapes21 = phase_21(smi, params2, model)
     z = det.encode(svc.eps_fn, torch.randn((BATCH,) + CARD_SHAPE,
                                            generator=gen, device="cuda"))
     profile_call(smi, f"one decode (encoded latent, S={det.S}, batch "
@@ -6828,6 +7446,11 @@ def main(argv=None) -> int:
                                         errs20[name])
         recs[name].setdefault("shapes", []).extend(
             shapes17[name] + shapes18[name] + shapes20[name])
+    # phase 21: the float16 paths of all seven kernels
+    for name, rec in recs.items():
+        rec["launches"] += launches21[name]
+        rec["max_abs_err"] = max(rec["max_abs_err"], errs21[name])
+        rec.setdefault("shapes", []).extend(shapes21[name])
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

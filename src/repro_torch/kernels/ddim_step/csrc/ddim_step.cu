@@ -9,18 +9,24 @@
 // wrapper passes them already cast).  The rounding is the XLA:CPU one the
 // plain version (../ref.py) documents: float32 contracts into
 // fma(c_noise, noise, fma(a, x, b * eps)) with b = fma(-a, sqrt_1m_a_t,
-// c_dir); bfloat16 rounds every op to bfloat16.  The explicit __f*_rn
-// intrinsics keep nvcc's -fmad from contracting anything else.
+// c_dir); bfloat16 rounds every op to bfloat16; float16 takes the same
+// contraction and rounds each contracted op once, straight to float16 (a =
+// f16(c_x0 / sqrt_a_t), b = f16(fma(-a, sqrt_1m_a_t, c_dir)), out =
+// f16(fma(c_noise, noise, f16(fma(a, x, f16(b * eps)))))): the fma in
+// float64, then float32 rounded to odd, then float16 (f16_once).  The
+// explicit __f*_rn intrinsics keep nvcc's -fmad from contracting anything
+// else.
 //
 // Bound on the H100: bytes.  Three reads and one write per element, a few
 // operations each: 16 bytes per float32 element (8 per bfloat16) over
-// 3.35 TB/s.
+// 3.35 TB/s (8 per float16 element).
 //
 // Design (the simple one): one element per thread per iteration of a
 // grid-stride loop, 256-thread blocks; neighbouring threads touch
 // neighbouring addresses, so every load and store is coalesced.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -66,12 +72,44 @@ ddim_step_bf16(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+__device__ __forceinline__ float to_f16(float v) {
+  return __half2float(__float2half_rn(v));
+}
+
+// a * b + c rounded once to float16: the float64 fma (exact for float16
+// operands within 2^30 of each other), float32 rounded to odd (truncated,
+// the last bit set where inexact: it keeps the bits float16 needs), then
+// float16 to nearest even.
+__device__ __forceinline__ __half f16_once(float a, float b, float c) {
+  const double r = __fma_rn(static_cast<double>(a), static_cast<double>(b),
+                            static_cast<double>(c));
+  float t = __double2float_rz(r);
+  if (static_cast<double>(t) != r) t = __uint_as_float(__float_as_uint(t) | 1u);
+  return __float2half_rn(t);
+}
+
+__global__ void __launch_bounds__(kThreads)
+ddim_step_f16(const __half* __restrict__ x, const __half* __restrict__ eps,
+              const __half* __restrict__ noise, __half* __restrict__ out,
+              long long n, float c_x0, float c_dir, float c_noise,
+              float sqrt_a_t, float sqrt_1m_a_t) {
+  const float a = to_f16(__fdiv_rn(c_x0, sqrt_a_t));
+  const float b = __half2float(f16_once(-a, sqrt_1m_a_t, c_dir));
+  for (long long i = blockIdx.x * static_cast<long long>(kThreads) +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * kThreads) {
+    const float be = to_f16(__fmul_rn(b, __half2float(eps[i])));
+    const float s = __half2float(f16_once(a, __half2float(x[i]), be));
+    out[i] = f16_once(c_noise, __half2float(noise[i]), s);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // x, eps, noise, out: n contiguous elements of one dtype (0 = float32,
-// 1 = bfloat16); the five coefficients already cast to that dtype.
+// 1 = bfloat16, 2 = float16); the five coefficients already cast to that dtype.
 // Returns the cudaError_t of the launch (0 on success).
 int repro_ddim_step_2d(const void* x, const void* eps, const void* noise,
                        void* out, int dtype, long long n, float c_x0,
@@ -93,6 +131,11 @@ int repro_ddim_step_2d(const void* x, const void* eps, const void* noise,
         static_cast<const __nv_bfloat16*>(noise),
         static_cast<__nv_bfloat16*>(out), n, c_x0, c_dir, c_noise, sqrt_a_t,
         sqrt_1m_a_t);
+  } else if (dtype == 2) {
+    ddim_step_f16<<<static_cast<int>(blocks), kThreads, 0, s>>>(
+        static_cast<const __half*>(x), static_cast<const __half*>(eps),
+        static_cast<const __half*>(noise), static_cast<__half*>(out), n, c_x0,
+        c_dir, c_noise, sqrt_a_t, sqrt_1m_a_t);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -26,7 +26,7 @@ from . import ref
 
 TILE_R = 256
 TILE_C = 256
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -58,8 +58,9 @@ def ddim_step_2d(x: torch.Tensor, eps: torch.Tensor, noise: torch.Tensor,
         return ref.ddim_step_body(x, eps, noise, coefs)
     if x.dtype not in _DTYPE_CODES or eps.dtype != x.dtype \
             or noise.dtype != x.dtype:
-        raise TypeError(f"x, eps and noise must share float32 or bfloat16, "
-                        f"got {x.dtype}, {eps.dtype} and {noise.dtype}")
+        raise TypeError(f"x, eps and noise must share float32, bfloat16 or "
+                        f"float16, got {x.dtype}, {eps.dtype} and "
+                        f"{noise.dtype}")
     if not (x.is_contiguous() and eps.is_contiguous()
             and noise.is_contiguous()):
         raise ValueError("x, eps and noise must be contiguous")

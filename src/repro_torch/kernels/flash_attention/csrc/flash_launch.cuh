@@ -1,15 +1,15 @@
 // Blockwise online-softmax attention for Hopper (sm_90a): the launcher
-// behind the plain-C entry ``repro_flash_attention`` of the four sources
+// behind the plain-C entry ``repro_flash_attention`` of the six sources
 // flash_attention.cu (float32, head widths 32, 64, 96, 128),
 // flash_attention_wide.cu (float32, 160, 192, 224, 256) and their
-// bfloat16 twins flash_attention_bf16.cu / flash_attention_bf16_wide.cu,
-// built as four libraries so that nvcc compiles them in parallel.
+// bfloat16 and float16 twins flash_attention_{bf16,f16}{,_wide}.cu, built
+// as six libraries so that nvcc compiles them in parallel.
 //
 // Replaces the Pallas TPU kernel ``flash_attention`` of
 // src/repro/kernels/flash_attention/kernel.py:118 (bodies ``_kernel`` and
-// ``online_softmax_step``): q, k, v (BH, S, d) in float32 or bfloat16,
-// float32 running max / denominator / accumulator, q scaled by 1/sqrt(d)
-// before the dot, causal KV blocks above the diagonal skipped, output
+// ``online_softmax_step``): q, k, v (BH, S, d) in float32, bfloat16 or
+// float16, float32 running max / denominator / accumulator, q scaled by
+// 1/sqrt(d) before the dot, causal KV blocks above the diagonal skipped, output
 // acc / max(l, 1e-20) in q's dtype.  Its domain: every S >= 1 and every
 // head dim d from 1 to 256.  A head dim runs at the least width D >= d of
 // 32, 64, 96, 128, 160, 192, 224, 256 (D - d < 32), zero-padded inside
@@ -26,9 +26,9 @@
 //
 // Design (flash_mma.cuh has the tile loop):
 //   * both products on the tensor cores (mma.sync: 3xTF32 for float32,
-//     bfloat16 with a hi + lo split of the float32 operand), scores,
-//     running max / sum and accumulator in registers, row reductions by
-//     quad shuffles;
+//     bfloat16 or float16 with a hi + lo split of the float32 operand),
+//     scores, running max / sum and accumulator in registers, row
+//     reductions by quad shuffles;
 //   * K and V tiles staged by 16-byte cp.async in a ring of three stages
 //     (two at widths 224 and 256, where q also lives in shared memory),
 //     one barrier per tile;
@@ -46,6 +46,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>

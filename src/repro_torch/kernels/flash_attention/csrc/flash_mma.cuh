@@ -36,14 +36,14 @@
 // of the products, one barrier per tile.  Rows of 16-byte multiples at
 // 16-byte aligned pointers go by 16-byte cp.async, the chunks past d or S
 // zero-filled by the same instruction (no branch); other rows (float32 at
-// d % 4 != 0, bfloat16 at d % 8 != 0) element by element through
+// d % 4 != 0, bfloat16 or float16 at d % 8 != 0) element by element through
 // registers: the stage being filled is the one every warp finished at the
 // barrier before, so the plain stores need no other ordering.
 //
 // q.  Up to width 128 each warp holds its 16 rows of q * scale as A
 // fragments in registers.  Past 128 those and the accumulator would not
 // fit (at 256 in float32, 128 + 128 registers a thread): the block stages
-// q * scale (float32) or its bfloat16 hi and lo once in shared memory
+// q * scale (float32) or its 16-bit hi and lo once in shared memory
 // beside the ring, and the warps read their fragments from there at every
 // KV tile.
 //
@@ -58,32 +58,38 @@
 // big.big (megastep/ref.py ``tf32x3_matmul`` is the CPU twin; the tensor
 // core truncates the remainder to TF32 where the twin rounds it, a
 // difference below 2^-21 of the product); one TF32 pass would not hold
-// the float32 tolerance.  bfloat16: mma.sync m16n8k16 with float32
-// accumulators; k and v are exact bfloat16, the float32 operands (q *
-// scale and p) are split into bfloat16 hi + lo, two passes (one for q k^T
+// the float32 tolerance.  bfloat16 and float16: mma.sync m16n8k16 with
+// float32 accumulators; k and v are exact in their type, the float32
+// operands (q * scale and p) are split into hi + lo of that type, two
+// passes (float16's lo is subnormal where |x| < 2^-3: an absolute error
+// under 2^-25, against an output tolerance of 2^-10), one for q k^T
 // in the instantiations QX, for d = D = 64 or 256: the scale is a power of
-// two there, so that q * scale is exact in bfloat16 and lo is zero).
+// two there, so that q * scale is exact in bfloat16 and lo is zero; in
+// float16 a product past the subnormal edge would not be, so float16
+// always takes both passes).
 //
 // Fragment layouts.  A thread (g, c) = (lane / 4, lane % 4) holds score
 // elements (g, 2c), (g, 2c + 1), (g + 8, 2c), (g + 8, 2c + 1) of each
 // 8-column n-tile.  For TF32 the k index inside an 8-wide k-step is
 // permuted (logical c -> 2c, c + 4 -> 2c + 1, in both operands), so the
 // score registers are the A fragment of p v with no shuffle, q and k are
-// read as pairs, and v's rows 2c, 2c + 1.  For bfloat16 the score
+// read as pairs, and v's rows 2c, 2c + 1.  For 16-bit types the score
 // registers of n-tiles 2i, 2i + 1 are exactly the A fragment of k-step i,
 // and v's B fragments come from ldmatrix.trans.
 //
 // Strides keep the fragment reads free of bank conflicts at every width
 // (a multiple of 32): float32 float2 k and q reads need KS = QS = 8 mod
-// 32, scalar v reads of rows 2c, 2c + 1 need VS = 4 mod 16; bfloat16
+// 32, scalar v reads of rows 2c, 2c + 1 need VS = 4 mod 16; 16-bit
 // 32-bit k and q reads and ldmatrix rows need a row of 4 mod 16 words.
 // Exponentials are __expf (ex2.approx; relative error ~2^-21, well inside
 // the float32 tolerance).
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "flash_attention/csrc/mma_helpers.cuh"
 
@@ -116,6 +122,28 @@ struct Tiles<__nv_bfloat16, D> {
   static constexpr int QS = D + 8;
   static constexpr int Q_ELEMS = 2 * 16 * kWarps * QS;  // hi, then lo
 };
+template <int D>
+struct Tiles<__half, D> : Tiles<__nv_bfloat16, D> {};
+
+// The 16-bit types' tensor-core product and float32 split (bfloat16 or
+// float16 operands, float32 accumulators).
+template <typename T>
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value)
+    mma_f16(d, a, b0, b1);
+  else
+    mma_bf16(d, a, b0, b1);
+}
+
+template <typename T>
+__device__ __forceinline__ void split16x2(float x0, float x1, uint32_t& hi,
+                                          uint32_t& lo) {
+  if constexpr (std::is_same<T, __half>::value)
+    split_f16x2(x0, x1, hi, lo);
+  else
+    split_bf16x2(x0, x1, hi, lo);
+}
 
 template <int D>
 __host__ __device__ constexpr bool q_in_smem() {
@@ -151,6 +179,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T zero();
@@ -161,6 +190,10 @@ __device__ __forceinline__ float zero<float>() {
 template <>
 __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
   return __float2bfloat16_rn(0.0f);
+}
+template <>
+__device__ __forceinline__ __half zero<__half>() {
+  return __float2half_rn(0.0f);
 }
 
 // Element (r, col) of the rows at q (d elements each), as float32: zero
@@ -191,6 +224,22 @@ __device__ __forceinline__ float2 q_pair(const __nv_bfloat16* q, int r,
       *reinterpret_cast<const __nv_bfloat162*>(q + r * d + col);
   return make_float2(__low2float(x), __high2float(x));
 }
+__device__ __forceinline__ float2 q_pair(const __half* q, int r, int col,
+                                         int rows, int d, bool vec) {
+  if (!vec)
+    return make_float2(q_at(q, r, col, rows, d), q_at(q, r, col + 1, rows, d));
+  if (r >= rows || col >= d) return make_float2(0.0f, 0.0f);
+  const __half2 x = *reinterpret_cast<const __half2*>(q + r * d + col);
+  return make_float2(__low2float(x), __high2float(x));
+}
+
+// v rounded to the 16-bit type T, as T.
+__device__ __forceinline__ void to16(__nv_bfloat16& o, float v) {
+  o = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void to16(__half& o, float v) {
+  o = __float2half_rn(v);
+}
 
 // ROWS shared rows of width D and stride STRIDE from the ``rows`` valid
 // rows of d elements at src: columns past d and rows past ``rows`` zero.
@@ -215,8 +264,9 @@ __device__ __forceinline__ void stage_tile(T* dst, const T* src, int rows,
 }
 
 // The block's ``nrows`` query rows from q (``rows`` of them valid), times
-// scale, into shared memory (widths past 128): float32 as it is, bfloat16
-// as hi = rn(x) and lo = rn(x - hi) in two arrays (lo left out where QX).
+// scale, into shared memory (widths past 128): float32 as it is, a 16-bit
+// type as hi = rn(x) and lo = rn(x - hi) in two arrays (lo left out where
+// QX).
 template <int D, bool QX>
 __device__ __forceinline__ void stage_q(float* sq, const float* q, int rows,
                                         int nrows, int d, float scale) {
@@ -226,20 +276,18 @@ __device__ __forceinline__ void stage_q(float* sq, const float* q, int rows,
         __fmul_rn(q_at(q, r, col, rows, d), scale);
   }
 }
-template <int D, bool QX>
-__device__ __forceinline__ void stage_q(__nv_bfloat16* sq,
-                                        const __nv_bfloat16* q, int rows,
+template <int D, bool QX, typename T>
+__device__ __forceinline__ void stage_q(T* sq, const T* q, int rows,
                                         int nrows, int d, float scale) {
-  constexpr int QS = Tiles<__nv_bfloat16, D>::QS;
-  __nv_bfloat16* lo = sq + 16 * kWarps * QS;
+  constexpr int QS = Tiles<T, D>::QS;
+  T* lo = sq + 16 * kWarps * QS;
   for (int i = threadIdx.x; i < nrows * D; i += kWarps * 32) {
     const int r = i / D, col = i % D;
     const float x = __fmul_rn(q_at(q, r, col, rows, d), scale);
-    const __nv_bfloat16 h = __float2bfloat16_rn(x);
+    T h;
+    to16(h, x);
     sq[r * QS + col] = h;
-    if constexpr (!QX)
-      lo[r * QS + col] =
-          __float2bfloat16_rn(__fsub_rn(x, __bfloat162float(h)));
+    if constexpr (!QX) to16(lo[r * QS + col], __fsub_rn(x, to_f32(h)));
   }
 }
 
@@ -374,9 +422,11 @@ struct Ops<float, D, NJ, QX> {
   }
 };
 
-template <int D, int NJ, bool QX>
-struct Ops<__nv_bfloat16, D, NJ, QX> {
-  using L = Tiles<__nv_bfloat16, D>;
+// bfloat16 and float16 (T): the same fragments, the type's mma.sync and
+// hi + lo split.
+template <typename T, int D, int NJ, bool QX>
+struct Ops16 {
+  using L = Tiles<T, D>;
   static_assert(NJ % 2 == 0, "p v takes k-steps of two score n-tiles");
   static constexpr bool kSmemQ = q_in_smem<D>();
   static constexpr int NO = D % 64 == 0 && D <= 128 ? 8 : 4;
@@ -384,9 +434,9 @@ struct Ops<__nv_bfloat16, D, NJ, QX> {
   // q * scale = hi + lo, A fragments (or the warp's rows of hi; lo at
   // 16 kWarps rows past them); lo is zero where QX and is left out
   uint32_t qh[NQ][4], ql[QX ? 1 : NQ][4];
-  const __nv_bfloat16* sq = nullptr;
+  const T* sq = nullptr;
 
-  __device__ __forceinline__ void load_q(const __nv_bfloat16* q, int rows,
+  __device__ __forceinline__ void load_q(const T* q, int rows,
                                          int d, float scale, bool vec,
                                          int g, int c) {
     if constexpr (!kSmemQ) {
@@ -398,7 +448,7 @@ struct Ops<__nv_bfloat16, D, NJ, QX> {
           const float2 x =
               q_pair(q, row, kk * 16 + 2 * c + 8 * (i >> 1), rows, d, vec);
           uint32_t lo;
-          split_bf16x2(__fmul_rn(x.x, scale), __fmul_rn(x.y, scale),
+          split16x2<T>(__fmul_rn(x.x, scale), __fmul_rn(x.y, scale),
                        qh[kk][i], lo);
           if constexpr (!QX) ql[kk][i] = lo;
         }
@@ -406,9 +456,8 @@ struct Ops<__nv_bfloat16, D, NJ, QX> {
     }
   }
 
-  __device__ __forceinline__ void scores(const __nv_bfloat16* sK,
-                                         float (&s)[NJ][4], int col0, int g,
-                                         int c) const {
+  __device__ __forceinline__ void scores(const T* sK, float (&s)[NJ][4],
+                                         int col0, int g, int c) const {
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
@@ -432,26 +481,24 @@ struct Ops<__nv_bfloat16, D, NJ, QX> {
       }
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        const __nv_bfloat16* kr =
-            sK + (col0 + j * 8 + g) * L::KS + kk * 16 + 2 * c;
+        const T* kr = sK + (col0 + j * 8 + g) * L::KS + kk * 16 + 2 * c;
         const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr);
         const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + 8);
-        if constexpr (!QX) mma_bf16(s[j], l, b0, b1);
-        mma_bf16(s[j], h, b0, b1);
+        if constexpr (!QX) mma16<T>(s[j], l, b0, b1);
+        mma16<T>(s[j], h, b0, b1);
       }
     }
   }
 
-  static __device__ __forceinline__ void pv(const __nv_bfloat16* sV,
+  static __device__ __forceinline__ void pv(const T* sV,
                                             const float (&p)[NJ][4],
                                             float (&acc)[D / 8][4],
                                             const float (&alpha)[2],
                                             int col0, int, int, int lane) {
     // lane i addresses row i % 8 of matrix i / 8: matrices (k rows 0-7,
     // 8-15) x (columns 0-7, 8-15) of a 16 x 16 block of v
-    const __nv_bfloat16* vr =
-        sV + (col0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * L::VS +
-        8 * (lane >> 4);
+    const T* vr = sV + (col0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * L::VS +
+                  8 * (lane >> 4);
 #pragma unroll
     for (int j0 = 0; j0 < D / 8; j0 += NO) {  // NO output n-tiles at a time
       float o[NO][4];
@@ -462,18 +509,18 @@ struct Ops<__nv_bfloat16, D, NJ, QX> {
 #pragma unroll
       for (int kk = 0; kk < NJ / 2; ++kk) {
         uint32_t ah[4], al[4];
-        split_bf16x2(p[2 * kk][0], p[2 * kk][1], ah[0], al[0]);
-        split_bf16x2(p[2 * kk][2], p[2 * kk][3], ah[1], al[1]);
-        split_bf16x2(p[2 * kk + 1][0], p[2 * kk + 1][1], ah[2], al[2]);
-        split_bf16x2(p[2 * kk + 1][2], p[2 * kk + 1][3], ah[3], al[3]);
+        split16x2<T>(p[2 * kk][0], p[2 * kk][1], ah[0], al[0]);
+        split16x2<T>(p[2 * kk][2], p[2 * kk][3], ah[1], al[1]);
+        split16x2<T>(p[2 * kk + 1][0], p[2 * kk + 1][1], ah[2], al[2]);
+        split16x2<T>(p[2 * kk + 1][2], p[2 * kk + 1][3], ah[3], al[3]);
 #pragma unroll
         for (int jj = 0; jj < NO / 2; ++jj) {
           uint32_t b[4];
           ldmatrix_x4_trans(b, vr + kk * 16 * L::VS + j0 * 8 + jj * 16);
-          mma_bf16(o[2 * jj], al, b[0], b[1]);
-          mma_bf16(o[2 * jj + 1], al, b[2], b[3]);
-          mma_bf16(o[2 * jj], ah, b[0], b[1]);
-          mma_bf16(o[2 * jj + 1], ah, b[2], b[3]);
+          mma16<T>(o[2 * jj], al, b[0], b[1]);
+          mma16<T>(o[2 * jj + 1], al, b[2], b[3]);
+          mma16<T>(o[2 * jj], ah, b[0], b[1]);
+          mma16<T>(o[2 * jj + 1], ah, b[2], b[3]);
         }
       }
 #pragma unroll
@@ -484,6 +531,11 @@ struct Ops<__nv_bfloat16, D, NJ, QX> {
     }
   }
 };
+
+template <int D, int NJ, bool QX>
+struct Ops<__nv_bfloat16, D, NJ, QX> : Ops16<__nv_bfloat16, D, NJ, QX> {};
+template <int D, int NJ, bool QX>
+struct Ops<__half, D, NJ, QX> : Ops16<__half, D, NJ, QX> {};
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -499,12 +551,18 @@ __device__ __forceinline__ void store_one(float* o, float a) { *o = a; }
 __device__ __forceinline__ void store_one(__nv_bfloat16* o, float a) {
   *o = __float2bfloat16_rn(a);
 }
+__device__ __forceinline__ void store_one(__half* o, float a) {
+  *o = __float2half_rn(a);
+}
 __device__ __forceinline__ void store_pair(float* o, float a, float b) {
   *reinterpret_cast<float2*>(o) = make_float2(a, b);
 }
 __device__ __forceinline__ void store_pair(__nv_bfloat16* o, float a,
                                            float b) {
   *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(__half* o, float a, float b) {
+  *reinterpret_cast<__half2*>(o) = __floats2half2_rn(a, b);
 }
 
 // Grid (BH, ceil(S / (64 / P))), kWarps * 32 threads, smem_bytes<T, D>()

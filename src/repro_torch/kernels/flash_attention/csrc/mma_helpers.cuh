@@ -6,10 +6,11 @@
 // mma_tf32, the one copy that both kernels include (CPU twin of the TF32
 // rounding: megastep/ref.py ``tf32_round`` / ``tf32x3_matmul``).  namespace repro::fa: the flash
 // kernel's own split_tf32_fast (the remainder left unrounded) and its
-// bfloat16 mma, ldmatrix and split helpers.
+// bfloat16 and float16 mma, ldmatrix and split helpers.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 #include <cstdint>
 
@@ -78,8 +79,17 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Four transposed 8 x 8 bfloat16 matrices from shared memory; lane i
-// gives the address of row i % 8 of matrix i / 8.
+// d += a b, float16 operands, float32 accumulators (m16n8k16).
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four transposed 8 x 8 16-bit (bfloat16 or float16) matrices from
+// shared memory; lane i gives the address of row i % 8 of matrix i / 8.
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
                                                   const void* row) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
@@ -98,6 +108,18 @@ __device__ __forceinline__ void split_bf16x2(float x0, float x1,
   const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
   const __nv_bfloat162 l = __floats2bfloat162_rn(
       __fsub_rn(x0, __low2float(h)), __fsub_rn(x1, __high2float(h)));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// The same split in float16 (hi = rn(x), lo = rn(x - hi)): 22 significant
+// bits, but lo is subnormal where |x| < 2^-3 (and hi where |x| < 2^-14),
+// which keeps the error of the pair under 2^-25 absolute there.
+__device__ __forceinline__ void split_f16x2(float x0, float x1, uint32_t& hi,
+                                            uint32_t& lo) {
+  const __half2 h = __floats2half2_rn(x0, x1);
+  const __half2 l = __floats2half2_rn(__fsub_rn(x0, __low2float(h)),
+                                      __fsub_rn(x1, __high2float(h)));
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }

@@ -13,8 +13,8 @@ CUDA tensor it launches or raises.  The kernel tiles for the card
 whatever blocks the caller passes.  It takes every S the block check
 admits and every head dim from 1 to 256, run at the least width of
 ``ref.HEAD_WIDTHS`` that holds it; the widths up to 128 and those past it
-are two libraries per dtype (``csrc/flash_attention*.cu``).  A head dim
-past 256 and float16 raise.
+are two libraries per dtype (``csrc/flash_attention*.cu``), float32,
+bfloat16 and float16.  A head dim past 256 raises.
 """
 from __future__ import annotations
 
@@ -34,11 +34,13 @@ DEFAULT_BLOCK_K = 128
 _PLAN = ("grid_x", "grid_y", "threads", "smem_bytes", "blocks_per_sm",
          "kv_tile", "kv_split", "head_width", "stages", "flags")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the library name's suffix by dtype
+_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16", torch.float16: "_f16"}
 
 
 def library_name(dtype: torch.dtype, width: int) -> str:
     """The library (``csrc/<name>.cu``) that holds ``width`` in ``dtype``."""
-    return ("flash_attention" + ("_bf16" if dtype == torch.bfloat16 else "")
+    return ("flash_attention" + _SUFFIX[dtype]
             + ("_wide" if width > 128 else ""))
 
 
@@ -67,11 +69,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        block_k=block_k)
-    if q.dtype not in (torch.float32, torch.bfloat16) \
-            or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("q, k, v must share float32 or bfloat16 (no caller "
-                        "passes float16, and the kernel has no float16 "
-                        "build)")
+    if q.dtype not in _SUFFIX or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share float32, bfloat16 or float16, "
+                        f"got {q.dtype}, {k.dtype} and {v.dtype}")
     if D > ref.MAX_HEAD_DIM:
         raise ValueError(f"the CUDA kernel takes head dims up to "
                          f"{ref.MAX_HEAD_DIM}: past that its float32 "

@@ -16,15 +16,16 @@ A phase that keeps its time without the copies is bound by its products.
 Each run also prints the tick's bound (``bound_us``): its bytes over the
 memory rate, and its operations (``operations``) over the peak rate of
 the trunk's type and over the rate of the products as built (3xTF32
-``mma.sync``: three TF32 passes in a float32 trunk, one in a bfloat16
-trunk, whose operands are exact in TF32).
+``mma.sync``: three TF32 passes in a float32 trunk, one in a bfloat16 or
+float16 trunk, whose operands are exact in TF32).
 
     python -m repro_torch.kernels.megastep.bound_probe [--dtype bfloat16]
 
 Needs one CUDA device and nvcc.  Runs at the slice's shape: the 2-layer
 smollm-width trunk (``configs.DLM_SMOLLM_MEGA``), 4 slots x 64 tokens,
-seeded random weights; ``--dtype bfloat16`` makes state and weights
-bfloat16 (the bfloat16 trunk, the ``megastep_bf16`` library).
+seeded random weights; ``--dtype bfloat16`` (or ``float16``) makes state
+and weights bfloat16 (float16): the 16-bit trunk, the ``megastep_bf16``
+(``megastep_f16``) library.
 """
 from __future__ import annotations
 
@@ -86,10 +87,10 @@ def bound_us(cfg, batch: int, seq: int, K: int, state_dtype: torch.dtype,
     read once at its type, the state read and written once at its type,
     the coefficient, sinusoid and RoPE tables read once) over
     ``roofline.HBM_BW``; ``operations`` over the peak rate of the trunk's
-    type (float32 CUDA cores, or bfloat16 tensor cores when state and
-    weights are bfloat16); ``operations_built`` over the rate of the
-    products as built (TF32 tensor cores, three passes a float32 product,
-    one a bfloat16 one).  ``bound`` is the larger of bytes and
+    type (float32 CUDA cores, or 16-bit tensor cores when state and
+    weights are both bfloat16 or both float16); ``operations_built`` over
+    the rate of the products as built (TF32 tensor cores, three passes a
+    float32 product, one a 16-bit one).  ``bound`` is the larger of bytes and
     operations, ``by`` which."""
     from repro_torch.diffusion_lm.model import EPS_PATH, param_shapes
     shapes = param_shapes(cfg)
@@ -101,11 +102,12 @@ def bound_us(cfg, batch: int, seq: int, K: int, state_dtype: torch.dtype,
                + (n // 256 * 8 if rows else K * 5) * 4
                + n_emb * (4 + cfg.time_dim * 4) + seq * cfg.arch.hd() * 4)
     ops = operations(cfg, batch, seq, K) + (3 * n if rows else 0)
-    bf16 = state_dtype == weight_dtype == torch.bfloat16
+    b16 = state_dtype == weight_dtype and state_dtype in (torch.bfloat16,
+                                                          torch.float16)
     out = {"bytes": n_bytes / roofline.HBM_BW * 1e6,
-           "operations": ops / (roofline.PEAK_FLOPS_BF16 if bf16
+           "operations": ops / (roofline.PEAK_FLOPS_BF16 if b16
                                 else roofline.PEAK_FLOPS_F32) * 1e6,
-           "operations_built": ops * (1 if bf16 else 3)
+           "operations_built": ops * (1 if b16 else 3)
            / roofline.PEAK_FLOPS_TF32 * 1e6,
            "n_bytes": n_bytes, "n_ops": ops}
     by = "bytes" if out["bytes"] >= out["operations"] else "operations"
@@ -116,8 +118,8 @@ def _variant_libs(weight_dtype: torch.dtype) -> Dict[str, ctypes.CDLL]:
     """Build the variants (in parallel) next to the kernels' libraries."""
     text = next(p for p in build.headers()
                 if p.name == "megastep_body.cuh").read_text()
-    weight = ("__nv_bfloat16" if weight_dtype == torch.bfloat16
-              else "float")
+    weight = {torch.bfloat16: "__nv_bfloat16",
+              torch.float16: "__half"}.get(weight_dtype, "float")
     procs = {}
     for name, edits in _EDITS.items():
         body = text
@@ -130,7 +132,8 @@ def _variant_libs(weight_dtype: torch.dtype) -> Dict[str, ctypes.CDLL]:
         lib = src.with_suffix(".so")
         build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         src.write_text(f"#define REPRO_MEGA_WEIGHT {weight}\n"
-                       f"#include <cuda_bf16.h>\n{body}")
+                       f"#include <cuda_bf16.h>\n#include <cuda_fp16.h>\n"
+                       f"{body}")
         procs[name] = (lib, subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib), str(src)],
             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
@@ -176,7 +179,7 @@ def main(argv=None) -> None:
     from repro_torch.kernels.sampler_step import ops as sops
     from repro_torch.sampling import SamplerPlan
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+    ap.add_argument("--dtype", choices=("float32", "bfloat16", "float16"),
                     default="float32",
                     help="the state's and the weights' type")
     dtype = getattr(torch, ap.parse_args(argv).dtype)

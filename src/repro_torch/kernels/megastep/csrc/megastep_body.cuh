@@ -4,14 +4,14 @@
 // scheduler tick, the trunk with a timestep per slot followed by the
 // per-row update (repro_megastep_rows).  Both are one kernel template.
 // This body is compiled once per weight type: megastep.cu (float32
-// weights) and megastep_bf16.cu (bfloat16 weights) define
-// REPRO_MEGA_WEIGHT and include it, so the two libraries build in
-// parallel, 8 kernels each.
+// weights), megastep_bf16.cu (bfloat16 weights) and megastep_f16.cu
+// (float16 weights) define REPRO_MEGA_WEIGHT and include it, so the three
+// libraries build in parallel, 8 kernels each.
 //
 // Replaces the Pallas TPU kernels ``megastep_call`` (B3) and
 // ``megastep_rows_call`` (B4) of src/repro/kernels/megastep/kernel.py:232
 // and :269 (bodies ``_mega_kernel`` / ``_mega_rows_kernel``, ``eps_exact``
-// / ``eps_flash``).  Per step and sample (float32 here; bfloat16 below):
+// / ``eps_flash``).  Per step and sample (float32 here; 16-bit below):
 //   temb = silu(sinusoid(t) @ time_w1) @ time_w2
 //   h    = x @ w_in + temb
 //   n_layers x [ xn = rmsnorm(h); q, k, v = xn @ wq, wk, wv; rope(q, k);
@@ -50,27 +50,32 @@
 // sqrt(D) and 1/sqrt(D) of the true D are the float32 values JAX's exact
 // and flash trunks use, computed by the launcher.
 //
-// bfloat16 (the TPU kernel's dtype rules, kernel.py:152-155, :171-174).
-// The state is float32 or bfloat16 (a runtime switch): a bfloat16 state is
-// widened into a float32 copy in the workspace as the launch starts, and
-// every step's update is rounded to bfloat16 before it is stored.  The
-// weights are all float32 or all bfloat16 (REPRO_MEGA_WEIGHT): bfloat16
-// weight slices are copied as they are (cp.async, half of each stage's B
-// area) and widened as the product reads its fragments (same ring, same
-// shared memory, same 2 blocks per SM).  The trunk computes in the
-// promotion of the two types, as jnp does: float32 unless both are
-// bfloat16.  Then (``round_trunk``) every value that JAX's op sequence
-// makes in bfloat16 is rounded there: each product's output (summed in
+// bfloat16 and float16 (the TPU kernel's dtype rules, kernel.py:152-155,
+// :171-174).  The state is float32, bfloat16 or float16 (a runtime
+// switch): a 16-bit state is widened into a float32 copy in the workspace
+// as the launch starts, and every step's update (float32) is rounded to
+// the state's type before it is stored.  The weights are all float32, all
+// bfloat16 or all float16 (REPRO_MEGA_WEIGHT): 16-bit weight slices are
+// copied as they are (cp.async, half of each stage's B area) and widened
+// as the product reads its fragments (same ring, same shared memory, same
+// 2 blocks per SM).  The trunk computes in the promotion of the two types,
+// as jnp does: float32 unless both are of one 16-bit type (float16 with
+// bfloat16 promotes to float32).  Then (``round_trunk``) every value that
+// JAX's op sequence makes in that type is rounded there, bfloat16 or
+// float16 alike: each product's output (summed in
 // float32), the norms' inverse RMS, x * inv and * scale (so the norm is
 // applied to the A fragments before the product, from a row sum of
 // squares taken first, and not in the epilogue), the time MLP's silu, the
-// RoPE products and sums (on bfloat16 cos / sin), exact attention's
-// scores and probabilities (divided by the bfloat16 sqrt(D)), the
+// RoPE products and sums (on cos / sin of the type), exact attention's
+// scores and probabilities (divided by sqrt(D) of the type), the
 // attention output, SwiGLU's silu and product, the residual adds and eps.
-// Every A operand then holds bfloat16 values and every B operand too,
-// which are exact in TF32: one mma.sync pass per product is exact, and
-// the two 3xTF32 correction passes are skipped (bfloat16 weights also
-// skip the pass of B's remainder, which is 0, under a float32 trunk).
+// Every A operand then holds values of the 16-bit type and every B
+// operand too, which are exact in TF32 (a float16 has 11 significant
+// bits and, subnormals included, lies inside TF32's exponent range): one
+// mma.sync pass per product is exact, and the two 3xTF32 correction
+// passes are skipped (16-bit weights also skip the pass of B's remainder,
+// which is 0, under a float32 trunk).  Nothing is clamped: where JAX's
+// float16 overflows to inf, the kernel's rounding does too.
 //
 // Bound on the H100: operations.  One step at smollm width (d 576, 9 / 3
 // heads of 64, d_ff 1536, 2 layers), batch 4, 64 tokens is ~3.7 GFLOP
@@ -155,6 +160,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -168,14 +174,14 @@
 #include "sampler_step/csrc/step_update.cuh"
 
 #ifndef REPRO_MEGA_WEIGHT
-#error "define REPRO_MEGA_WEIGHT (float or __nv_bfloat16) first"
+#error "define REPRO_MEGA_WEIGHT (float, __nv_bfloat16 or __half) first"
 #endif
 
 // Device pointers of the eps-path weights (stacked (n_layers, ...) leaves,
 // (in, out) layouts as the JAX pytree), all of this library's weight type,
 // and the trunk's widths.  The layout is mirrored by ctypes in
-// ../kernel.py; ``dtype`` names the weight type (0 float32, 1 bfloat16),
-// and a launch refuses weights of the other library's type.
+// ../kernel.py; ``dtype`` names the weight type (0 float32, 1 bfloat16, 2
+// float16), and a launch refuses weights of another library's type.
 struct ReproMegaWeights {
   const REPRO_MEGA_WEIGHT* w_in;       // (L, d)
   const REPRO_MEGA_WEIGHT* time_w1;    // (T, T)
@@ -209,9 +215,11 @@ using repro::mma_tf32;
 using repro::to_tf32;
 using WT = REPRO_MEGA_WEIGHT;  // the weights' type
 constexpr bool kBf16W = std::is_same<WT, __nv_bfloat16>::value;
-static_assert(kBf16W || std::is_same<WT, float>::value,
-              "weights are float32 or bfloat16");
-constexpr int kWeightCode = kBf16W ? 1 : 0;
+constexpr bool kF16W = std::is_same<WT, __half>::value;
+constexpr bool k16W = kBf16W || kF16W;  // 16-bit weights
+static_assert(k16W || std::is_same<WT, float>::value,
+              "weights are float32, bfloat16 or float16");
+constexpr int kWeightCode = kBf16W ? 1 : kF16W ? 2 : 0;
 
 constexpr int kThreads = kAttnThreads;  // 256: 8 warps
 constexpr int kWarps = kThreads / 32;
@@ -225,10 +233,10 @@ constexpr int kAS = kBK + 4;            // A slice row stride: conflict-free
 constexpr int kBS = kBN + 8;            // B slice row stride: conflict-free
 constexpr int kAStage = kBM * kAS;
 constexpr int kBStage = kBK * kBS;
-// bfloat16 weights stay bfloat16 in the ring, in the first half of each B
+// 16-bit weights stay 16-bit in the ring, in the first half of each B
 // area, rows of kBSh (conflict-free fragment reads, 16-byte rows)
 constexpr int kBSh = kBN + 8;
-static_assert(kBK * kBSh * 2 <= kBStage * 4, "bfloat16 B fits its area");
+static_assert(kBK * kBSh * 2 <= kBStage * 4, "16-bit B fits its area");
 constexpr int kStageFloats = kAStage + 2 * kBStage;  // A, B (and B2)
 constexpr int kGemmFloats = kStages * kStageFloats;
 constexpr int kWVec = 16 / static_cast<int>(sizeof(WT));  // weights a chunk
@@ -269,13 +277,15 @@ constexpr int kMaxDevices = 16;
 // the split-K factors of the plan.
 struct Params {
   ReproMegaWeights w;
-  const float* x;             // a float32 state (null for bfloat16)
+  const float* x;             // a float32 state (null for 16-bit)
   float* out;
-  const __nv_bfloat16* xb;    // a bfloat16 state (null for float32)
-  __nv_bfloat16* outb;
-  int state_bf16;             // the state is bfloat16
-  int round_trunk;            // the trunk is bfloat16 (bfloat16 state and
-                              // weights): round as JAX's ops do
+  const void* x16;            // a 16-bit state (null for float32)
+  void* out16;
+  int state16;                // a 16-bit state's type code (1 bfloat16,
+                              // 2 float16), else 0
+  int round_trunk;            // the trunk is the weights' 16-bit type (the
+                              // state of that type too): round as JAX's
+                              // ops do
   const float* temb;
   const float* rope_cos;
   const float* rope_sin;
@@ -287,7 +297,7 @@ struct Params {
   float q_scale;   // 1/sqrt(D) in float32: 'flash' multiplies q by it
   float *h, *qkv, *ao, *ff, *th, *part, *ssq;
   float* tw;  // th @ time_w2, (n_emb, d_model)
-  float* xs;  // a bfloat16 state widened to float32, updated every step
+  float* xs;  // a 16-bit state widened to float32, updated every step
   int* cnt;
   int* sm_of;  // the SM of each block
   int split_wo, split_dn, split_out;
@@ -360,7 +370,7 @@ Layout layout(const ReproMegaWeights& w, int batch, int seq, int n_emb,
   o += round4(part);
   l.ssq = o;  // row sums of squares of the split w_out items
   o += p.split_out * mt * cdiv(w.latent, kBN) * kBM;
-  l.xs = o;  // the state in float32 (bfloat16 states)
+  l.xs = o;  // the state in float32 (16-bit states)
   o += round4(M * L);
   l.cnt = o;  // arrival counters of split tiles
   l.n_cnt = mt * nt;
@@ -388,11 +398,31 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __uint_as_float((u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u);
 }
 
-// v as the trunk's type holds it: rounded to bfloat16 in a bfloat16 trunk
-// (only the bfloat16-weight library has one), else v.
+// v rounded to the nearest float16 (ties to even; past the largest
+// finite float16, inf), as a float32.
+__device__ __forceinline__ float f16_round(float v) {
+  return __half2float(__float2half_rn(v));
+}
+
+// v rounded to the weights' 16-bit type.
+__device__ __forceinline__ float r16(float v) {
+  if constexpr (kF16W) return f16_round(v);
+  return bf16_round(v);
+}
+
+// v as the trunk's type holds it: rounded to the weights' 16-bit type in
+// a 16-bit trunk (only the 16-bit-weight libraries have one), else v.
 __device__ __forceinline__ float rt(const Params& p, float v) {
-  if constexpr (kBf16W) return p.round_trunk ? bf16_round(v) : v;
+  if constexpr (k16W) return p.round_trunk ? r16(v) : v;
   return v;
+}
+
+// The float32 bits of a 16-bit weight's bits w: a bfloat16's are its
+// float32's top half; a float16 is converted (exactly).
+__device__ __forceinline__ uint32_t widen16(uint16_t w) {
+  if constexpr (kF16W)
+    return __float_as_uint(__half2float(__ushort_as_half(w)));
+  return static_cast<uint32_t>(w) << 16;
 }
 
 // Weight i, widened to float32.
@@ -454,9 +484,9 @@ __device__ __noinline__ void compute_rank(const Params& p, float* smem) {
 // row's sum of squares is taken from the slices as they stream through
 // shared memory, and the epilogue multiplies by the inverse RMS (equal in
 // exact arithmetic to scaling A).
-// In a bfloat16 trunk NORM takes the norm's own op order instead: the
-// rows' inverse RMS first (row_inv_bf16), then each A element as
-// bfloat16(bfloat16(a * inv) * scale), and no epilogue factor.
+// In a 16-bit trunk NORM takes the norm's own op order instead: the
+// rows' inverse RMS first (row_inv16), then each A element as
+// T(T(a * inv) * scale), T the trunk's type, and no epilogue factor.
 struct Tile {
   const float* A;
   const WT* B0;
@@ -521,7 +551,7 @@ __device__ __noinline__ void load_slice_edge(float* st, const Tile& t,
       const WT* B = b ? t.B1 : t.B0;
       const bool ok = r < kn && kWVec * q < t.cols;
       float* dst = st + kAStage + b * kBStage;
-      void* d = kBf16W ? static_cast<void*>(reinterpret_cast<uint16_t*>(dst) +
+      void* d = k16W ? static_cast<void*>(reinterpret_cast<uint16_t*>(dst) +
                                             r * kBSh + kWVec * q)
                        : static_cast<void*>(dst + r * kBS + kWVec * q);
       cp_async16_zfill(
@@ -535,7 +565,7 @@ __device__ __noinline__ void load_slice_edge(float* st, const Tile& t,
       const bool ok = r < kn && c < t.cols;
       float* dst = st + kAStage + b * kBStage;
       const long long off = static_cast<long long>(k + r) * t.ldb + c;
-      if constexpr (kBf16W) {
+      if constexpr (k16W) {
         reinterpret_cast<uint16_t*>(dst)[r * kBSh + c] =
             ok ? __ldg(reinterpret_cast<const unsigned short*>(B) + off) : 0;
       } else {
@@ -546,8 +576,8 @@ __device__ __noinline__ void load_slice_edge(float* st, const Tile& t,
 }
 
 // The copies of slice sl into stage st by cp.async: A, and B as stored
-// (bfloat16 weights stay bfloat16 and are widened as the fragments are
-// read: the same ring, the same copies in flight).  G: the general
+// (16-bit weights stay 16-bit and are widened as the fragments are read:
+// the same ring, the same copies in flight).  G: the general
 // geometry, whose tiles may not be ``fast``.
 template <bool DUAL, bool G>
 __device__ __forceinline__ void load_slice(float* st, const Tile& t,
@@ -563,7 +593,7 @@ __device__ __forceinline__ void load_slice(float* st, const Tile& t,
     cp_async16(st + r * kAS + 4 * q,
                t.A + static_cast<long long>(r) * t.kd + k + 4 * q);
   }
-  if constexpr (kBf16W) {  // 32 rows x 4 chunks of 8 per B: B1 on tid 128+
+  if constexpr (k16W) {  // 32 rows x 4 chunks of 8 per B: B1 on tid 128+
     const int c = tid & 127, r = c >> 2, q = c & 3;
     const bool second = DUAL && tid >= 128;
     if (DUAL || tid < 128)
@@ -582,10 +612,11 @@ __device__ __forceinline__ void load_slice(float* st, const Tile& t,
 
 // Warp (wm, wn) = (warp % 4, warp / 4) owns rows 16 wm + [0, 16) and
 // columns 16 wn + [0, 16): two m16n8 fragments per B.  ``bf16`` (a
-// bfloat16 trunk): every A and B value is a bfloat16, exact in TF32, so
-// one pass (big.big) is the product; NORM then normalises the fragments
-// by the rows' inverse RMS inv0 (row g) and inv1 (row g + 8).  bfloat16
-// weights have no remainder (the small.big pass of B is 0 and skipped).
+// 16-bit trunk, bfloat16 or float16): every A and B value is of the
+// 16-bit type, exact in TF32, so one pass (big.big) is the product; NORM
+// then normalises the fragments by the rows' inverse RMS inv0 (row g) and
+// inv1 (row g + 8).  16-bit weights have no remainder (the small.big pass
+// of B is 0 and skipped).
 template <bool NORM, bool DUAL, bool G, bool BF16>
 __device__ __forceinline__ void mma_slice_as(const float* st, const Tile& t,
                                              int sl, float inv0, float inv1,
@@ -602,11 +633,11 @@ __device__ __forceinline__ void mma_slice_as(const float* st, const Tile& t,
       const int k0 = sl * kBK + kc, kl = t.kd - 1;
       const float s0 = wload(t.scale, !G || k0 < kl ? k0 : kl);
       const float s1 = wload(t.scale, !G || k0 + 4 < kl ? k0 + 4 : kl);
-      if (bf16) {  // bfloat16(bfloat16(a * inv) * scale), as rms_norm
-        a[0] = bf16_round(__fmul_rn(bf16_round(__fmul_rn(a[0], inv0)), s0));
-        a[1] = bf16_round(__fmul_rn(bf16_round(__fmul_rn(a[1], inv1)), s0));
-        a[2] = bf16_round(__fmul_rn(bf16_round(__fmul_rn(a[2], inv0)), s1));
-        a[3] = bf16_round(__fmul_rn(bf16_round(__fmul_rn(a[3], inv1)), s1));
+      if (bf16) {  // T(T(a * inv) * scale), as rms_norm
+        a[0] = r16(__fmul_rn(r16(__fmul_rn(a[0], inv0)), s0));
+        a[1] = r16(__fmul_rn(r16(__fmul_rn(a[1], inv1)), s0));
+        a[2] = r16(__fmul_rn(r16(__fmul_rn(a[2], inv0)), s1));
+        a[3] = r16(__fmul_rn(r16(__fmul_rn(a[3], inv1)), s1));
       } else {
         a[0] = __fmul_rn(a[0], s0);
         a[1] = __fmul_rn(a[1], s0);
@@ -630,10 +661,10 @@ __device__ __forceinline__ void mma_slice_as(const float* st, const Tile& t,
     for (int f = 0; f < NF; ++f) {
       const float* sB = st + kAStage + (f / 2) * kBStage;
       const int n = wn * 16 + (f % 2) * 8 + g;
-      if constexpr (kBf16W) {  // a bfloat16's bits are its float32's top half
+      if constexpr (k16W) {
         const uint16_t* sBh = reinterpret_cast<const uint16_t*>(sB);
-        bb[f][0] = static_cast<uint32_t>(sBh[kc * kBSh + n]) << 16;
-        bb[f][1] = static_cast<uint32_t>(sBh[(kc + 4) * kBSh + n]) << 16;
+        bb[f][0] = widen16(sBh[kc * kBSh + n]);
+        bb[f][1] = widen16(sBh[(kc + 4) * kBSh + n]);
       } else {
         split_tf32(sB[kc * kBS + n], bb[f][0], bs[f][0]);
         split_tf32(sB[(kc + 4) * kBS + n], bb[f][1], bs[f][1]);
@@ -645,7 +676,7 @@ __device__ __forceinline__ void mma_slice_as(const float* st, const Tile& t,
       for (int f = 0; f < NF; ++f)
         mma_tf32(acc[f / 2][f % 2], as, bb[f][0], bb[f][1]);
     }
-    if constexpr (!kBf16W) {
+    if constexpr (!k16W) {
 #pragma unroll
       for (int f = 0; f < NF; ++f)
         mma_tf32(acc[f / 2][f % 2], ab, bs[f][0], bs[f][1]);
@@ -663,7 +694,7 @@ __device__ __forceinline__ void mma_slice(const float* st, const Tile& t,
                                           int sl, bool bf16, float inv0,
                                           float inv1,
                                           float (&acc)[DUAL ? 2 : 1][2][4]) {
-  if constexpr (kBf16W)
+  if constexpr (k16W)
     if (bf16) {
       mma_slice_as<NORM, DUAL, G, true>(st, t, sl, inv0, inv1, acc);
       return;
@@ -671,15 +702,15 @@ __device__ __forceinline__ void mma_slice(const float* st, const Tile& t,
   mma_slice_as<NORM, DUAL, G, false>(st, t, sl, inv0, inv1, acc);
 }
 
-// The inverse RMS of the tile's kBM rows of A (depth Kd) in a bfloat16
-// trunk, rounded to bfloat16 (rms_inv_from_sumsq), into inv[kBM]: four
+// The inverse RMS of the tile's kBM rows of A (depth Kd) in a 16-bit
+// trunk, rounded to its type (rms_inv_from_sumsq), into inv[kBM]: four
 // threads per row sum its squares in float32 (in the general geometry, G,
 // rows past the product's edge sum nothing).  Ends before a barrier the
 // caller makes.
 template <bool G>
-__device__ __forceinline__ void row_inv_bf16(const Tile& t, int Kd, float eps,
-                                             float* inv) {
-  static_assert(kThreads == 4 * kBM, "row_inv_bf16: 4 threads per row");
+__device__ __forceinline__ void row_inv16(const Tile& t, int Kd, float eps,
+                                          float* inv) {
+  static_assert(kThreads == 4 * kBM, "row_inv16: 4 threads per row");
   const int r = threadIdx.x >> 2, qq = threadIdx.x & 3;
   const float* row = t.A + static_cast<long long>(r) * Kd;
   float ss = 0.0f;
@@ -700,7 +731,7 @@ __device__ __forceinline__ void row_inv_bf16(const Tile& t, int Kd, float eps,
   }
   ss = __fadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, 1));
   ss = __fadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, 2));
-  if (qq == 0) inv[r] = repro::rms_inv_from_sumsq<__nv_bfloat16>(ss, Kd, eps);
+  if (qq == 0) inv[r] = repro::rms_inv_from_sumsq<WT>(ss, Kd, eps);
 }
 
 // ss += the squares of this thread's 8 elements of the slice's A tile:
@@ -738,6 +769,20 @@ __device__ __forceinline__ float2 get2cg(const float* a, bool two, bool vec) {
   return make_float2(__ldcg(a), two ? __ldcg(a + 1) : 0.0f);
 }
 
+// A 16-bit state's output pair y (only its first element unless ``two``)
+// at o, and its float32 value into the state's copy xs.
+template <typename T, typename T2>
+__device__ __forceinline__ void put2_16(T* o, T2 y, float* xs, bool two,
+                                        bool vec) {
+  if (two && vec) {
+    *reinterpret_cast<T2*>(o) = y;
+  } else {
+    o[0] = y.x;
+    if (two) o[1] = y.y;
+  }
+  put2(xs, __low2float(y), __high2float(y), two, vec);
+}
+
 // One product phase: M = batch x S rows in ceil(M / 64) row tiles by
 // ``n_nt`` column tiles, depth Kd, each tile cut into ``split`` items
 // along the depth.  tile_of(m0, nt) gives the operands of row tile m0,
@@ -765,9 +810,9 @@ __device__ __forceinline__ void gemm_phase(const Params& p, float* smem,
   const bool vec_part = !G || (N & 1) == 0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, q = lane & 3, wm = warp & 3, wn = warp >> 2;
-  // the tile's row sums of squares (the inverse RMS in a bfloat16 trunk)
+  // the tile's row sums of squares (the inverse RMS in a 16-bit trunk)
   float* sSS = smem + kUnionFloats;
-  const bool bf16 = kBf16W && p.round_trunk;
+  const bool bf16 = k16W && p.round_trunk;
   const bool stream_ss = NORM && !bf16;  // the norm folded into the epilogue
   __shared__ int s_last;
   for (int item = block_rank(smem); item < tiles * split;
@@ -801,11 +846,11 @@ __device__ __forceinline__ void gemm_phase(const Params& p, float* smem,
       if (i < n_sl) load_slice<DUAL, G>(smem + i * kStageFloats, t, t.sl0 + i);
       cp_async_commit();
     }
-    // a bfloat16 trunk's norm: the rows' inverse RMS, while the first
+    // a 16-bit trunk's norm: the rows' inverse RMS, while the first
     // slices' copies are in flight
     float inv0 = 1.0f, inv1 = 1.0f;
     if (NORM && bf16) {
-      row_inv_bf16<G>(t, Kd, p.w.norm_eps, sSS);
+      row_inv16<G>(t, Kd, p.w.norm_eps, sSS);
       __syncthreads();
       inv0 = sSS[wm * 16 + g];
       inv1 = sSS[wm * 16 + g + 8];
@@ -955,16 +1000,20 @@ __device__ __forceinline__ float block_row_dot(const float* in, int n_in,
 
 // ----------------------------------------------------------------- phases
 // th[e] = silu(temb[e] @ time_w1) for every embedding of the launch; also
-// clears the split-K counters and widens a bfloat16 state into xs.
+// clears the split-K counters and widens a 16-bit state into xs.
 __device__ __noinline__ void phase_time(const Params& p, float* smem) {
   if (blockIdx.x == 0)
     for (int i = threadIdx.x; i < p.n_cnt; i += kThreads) p.cnt[i] = 0;
-  if (p.state_bf16) {
+  if (p.state16) {
     const long long n = static_cast<long long>(p.batch) * p.seq * p.w.latent;
     for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
                        threadIdx.x;
          i < n; i += static_cast<long long>(gridDim.x) * kThreads)
-      p.xs[i] = __bfloat162float(__ldg(p.xb + i));
+      p.xs[i] =
+          p.state16 == 1
+              ? __bfloat162float(
+                    __ldg(static_cast<const __nv_bfloat16*>(p.x16) + i))
+              : __half2float(__ldg(static_cast<const __half*>(p.x16) + i));
   }
   const int T = p.w.time_dim, groups = cdiv(T, 32);
   float* red = smem + kUnionFloats + kBM;
@@ -999,14 +1048,14 @@ __device__ __noinline__ void phase_time_out(const Params& p, float* smem) {
 // one sample, so the block computes its 32 columns of th[e] @ time_w2
 // itself; in the general one (G) a tile may hold rows of several samples,
 // and each row adds its own row of tw (phase_time_out).  The state is x
-// at step 0, then out (a bfloat16 state: always its float32 copy xs).  G:
+// at step 0, then out (a 16-bit state: always its float32 copy xs).  G:
 // the general geometry (gemm_phase), here and in every product phase.
 template <bool G>
 __device__ __noinline__ void phase_w_in(const Params& p, float* smem,
                                         int step, bool per_slot) {
   const int d = p.w.d_model, L = p.w.latent, T = p.w.time_dim;
   const bool vec = !G || (d & 1) == 0;
-  const float* state = p.state_bf16 ? p.xs : step == 0 ? p.x : p.out;
+  const float* state = p.state16 ? p.xs : step == 0 ? p.x : p.out;
   float* red = smem + kUnionFloats + kBM;
   float* tv = red + kWarps * 32;
   auto tile_of = [&](int m0, int nt) {
@@ -1141,7 +1190,7 @@ __device__ __noinline__ void phase_mlp(const Params& p, float* smem,
 }
 
 // One RoPE pair of a head: d[0] = x1 c - x2 s, d[half] = x2 c + x1 s, each
-// product and sum rounded in a bfloat16 trunk (whose tables the launcher
+// product and sum rounded in a 16-bit trunk (whose tables the launcher
 // rounds), times ``scale`` in float32.
 __device__ __forceinline__ void rope_pair(const Params& p, float* d, int half,
                                           float x1, float x2, float cs,
@@ -1247,7 +1296,7 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
 }
 
 // 'exact' scores of the thread's tile: q k^T / sqrt(D), as JAX divides them
-// (in a bfloat16 trunk the product and the quotient are rounded); in a
+// (in a 16-bit trunk the product and the quotient are rounded); in a
 // ragged last block (kn < BK) the columns from kn on, K/V rows past S,
 // masked to -1e30.
 template <int HD, int BK>
@@ -1434,15 +1483,15 @@ __device__ __forceinline__ void phase_attention(const Params& p,
 // eps = rmsnorm(h, out_norm) @ w_out, split-K, then the update of the
 // state elements the tile covers: element idx = m * L + n of the flat
 // (batch, S, L) state.  B3 reads the step's coefficients, B4 (ROWS) the
-// (R, 8) row idx / 256.  A bfloat16 state is read from xs, and the update
-// (float32) is rounded to bfloat16 into out and xs.
+// (R, 8) row idx / 256.  A 16-bit state is read from xs, and the update
+// (float32) is rounded to the state's type into out and xs.
 template <bool CLIP, bool ROWS, bool G>
 __device__ __noinline__ void phase_out(const Params& p, float* smem,
                                        int step) {
   const int d = p.w.d_model, L = p.w.latent;
   const bool vec = !G || (L & 1) == 0;
-  const float* prev = p.state_bf16 ? p.xs : step == 0 ? p.x : p.out;
-  const bool from_input = step == 0 && !p.state_bf16;
+  const float* prev = p.state16 ? p.xs : step == 0 ? p.x : p.out;
+  const bool from_input = step == 0 && !p.state16;
   gemm_phase<true, false, G>(
       p, smem, cdiv(L, kBN), L, d, p.split_out,
       [&](int m0, int nt) {
@@ -1474,15 +1523,12 @@ __device__ __noinline__ void phase_out(const Params& p, float* smem,
             repro::update<CLIP, false>(x.x, rt(p, v[0].x), c, p.clip, &x0);
         const float y1 =
             repro::update<CLIP, false>(x.y, rt(p, v[0].y), c1, p.clip, &x0);
-        if (p.state_bf16) {
-          const __nv_bfloat162 y = __floats2bfloat162_rn(y0, y1);
-          if (two && vec) {
-            *reinterpret_cast<__nv_bfloat162*>(p.outb + idx) = y;
-          } else {
-            p.outb[idx] = y.x;
-            if (two) p.outb[idx + 1] = y.y;
-          }
-          put2(p.xs + idx, __low2float(y), __high2float(y), two, vec);
+        if (p.state16 == 1) {
+          put2_16(static_cast<__nv_bfloat16*>(p.out16) + idx,
+                  __floats2bfloat162_rn(y0, y1), p.xs + idx, two, vec);
+        } else if (p.state16 == 2) {
+          put2_16(static_cast<__half*>(p.out16) + idx,
+                  __floats2half2_rn(y0, y1), p.xs + idx, two, vec);
         } else {
           put2(p.out + idx, y0, y1, two, vec);
         }
@@ -1667,7 +1713,7 @@ int launch(const void* x, void* out, const ReproMegaWeights* w,
            const void* coefs, int K, int batch, int seq, int has_clip,
            float clip, int flash, int state_dtype, void* ws, void* trace,
            void* stream, bool rows) {
-  if (K < 1 || w->dtype != kWeightCode || state_dtype < 0 || state_dtype > 1)
+  if (K < 1 || w->dtype != kWeightCode || state_dtype < 0 || state_dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   Plan plan;
   cudaError_t err = plan_for(*w, batch, seq, has_clip, flash, rows, &plan);
@@ -1677,12 +1723,12 @@ int launch(const void* x, void* out, const ReproMegaWeights* w,
   float* base = static_cast<float*>(ws);
   Params p;
   p.w = *w;
-  p.state_bf16 = state_dtype == 1;
-  p.round_trunk = kBf16W && p.state_bf16;
-  p.x = p.state_bf16 ? nullptr : static_cast<const float*>(x);
-  p.out = p.state_bf16 ? nullptr : static_cast<float*>(out);
-  p.xb = p.state_bf16 ? static_cast<const __nv_bfloat16*>(x) : nullptr;
-  p.outb = p.state_bf16 ? static_cast<__nv_bfloat16*>(out) : nullptr;
+  p.state16 = state_dtype;
+  p.round_trunk = k16W && state_dtype == kWeightCode;
+  p.x = p.state16 ? nullptr : static_cast<const float*>(x);
+  p.out = p.state16 ? nullptr : static_cast<float*>(out);
+  p.x16 = p.state16 ? x : nullptr;
+  p.out16 = p.state16 ? out : nullptr;
   p.temb = static_cast<const float*>(temb);
   p.rope_cos = static_cast<const float*>(rope_cos);
   p.rope_sin = static_cast<const float*>(rope_sin);
@@ -1694,11 +1740,13 @@ int launch(const void* x, void* out, const ReproMegaWeights* w,
   p.n_cnt = static_cast<int>(l.n_cnt);
   p.general = !aligned(*w, seq);
   p.clip = clip;
-  // sqrtf is correctly rounded: jnp.sqrt(float32(D)) (in a bfloat16 trunk
-  // the bfloat16 sqrt(D)); 1/sqrt(D) rounded from double, as the flash
+  // sqrtf is correctly rounded: jnp.sqrt(float32(D)) (in a 16-bit trunk
+  // sqrt(D) in its type); 1/sqrt(D) rounded from double, as the flash
   // trunk's Python-float scale
   p.attn_div = sqrtf(static_cast<float>(w->head_dim));
-  if (p.round_trunk) p.attn_div = bf16_round_host(p.attn_div);
+  if (p.round_trunk)
+    p.attn_div = kF16W ? __half2float(__float2half_rn(p.attn_div))
+                       : bf16_round_host(p.attn_div);
   p.q_scale = static_cast<float>(1.0 / sqrt(static_cast<double>(w->head_dim)));
   p.h = base + l.h;
   p.qkv = base + l.qkv;
@@ -1761,16 +1809,16 @@ int repro_megastep_plan(const ReproMegaWeights* w, int batch, int seq,
 }
 
 // x, out: (batch * seq * latent / 256, 256) tile view, float32
-// (state_dtype 0) or bfloat16 (1), sample b at flat offset b * seq *
-// latent; w: weights of this library's type (w->dtype); temb: (K,
+// (state_dtype 0), bfloat16 (1) or float16 (2), sample b at flat offset b *
+// seq * latent; w: weights of this library's type (w->dtype); temb: (K,
 // time_dim) sinusoidal embeddings of the K timesteps, float32 holding
 // values of the state's type; rope_cos / rope_sin: (seq, head_dim / 2),
-// float32 (holding bfloat16 values in a bfloat16 trunk); coefs: (K, 5)
+// float32 (holding the trunk's values in a 16-bit trunk); coefs: (K, 5)
 // rows [c_x0, c_dir, c_noise, sqrt_a_t, sqrt_1m_a_t]; ws: the plan's
 // workspace floats (repro_megastep_plan with n_emb = K); trace: null, or 2
 // + K (2 + 5 n_layers) uint64 for the phase stamps.  All device pointers,
 // 16-byte aligned.  Returns the cudaError_t of the launch (0 on success;
-// cudaErrorInvalidValue for weights of the other library's type).
+// cudaErrorInvalidValue for weights of another library's type).
 int repro_megastep(const void* x, void* out, const ReproMegaWeights* w,
                    const void* temb, const void* rope_cos,
                    const void* rope_sin, const void* coefs, int K, int batch,

@@ -1,6 +1,6 @@
 """Wrappers of the CUDA megakernel (``csrc/megastep_body.cuh``, built as
-``csrc/megastep.cu`` for float32 weights and ``csrc/megastep_bf16.cu``
-for bfloat16 weights).
+``csrc/megastep.cu`` for float32 weights, ``csrc/megastep_bf16.cu`` for
+bfloat16 weights and ``csrc/megastep_f16.cu`` for float16 weights).
 
 Port of the two Pallas launchers in ``repro/kernels/megastep/kernel.py``:
 
@@ -27,11 +27,12 @@ tensor it launches or raises.
 The kernel takes every geometry of the TPU kernel: any seq_len, latent,
 time_dim, d_model and d_ff (the product tiles zero-fill past any edge),
 an even head dim up to 256 (attention pads it to one of six widths),
-GQA groups of whole heads, a float32 or bfloat16 state, and weights all
-float32 or all bfloat16 (a library each).  The trunk computes in the
-promotion of the two types, as JAX's does: bfloat16 only when both are.
-A float16 state and weights of mixed types, which JAX admits and no
-caller runs, are not ported, nor head dims past 256.  ``kernel_limits``
+GQA groups of whole heads, a float32, bfloat16 or float16 state, and
+weights all float32, all bfloat16 or all float16 (a library each).  The
+trunk computes in the promotion of the two types, as JAX's does: a 16-bit
+trunk only when both are of that type (float16 with bfloat16 promotes to
+float32).  Weights of mixed types, which JAX admits and no caller runs,
+are not ported, nor head dims past 256.  ``kernel_limits``
 states these limits; ``ops.eligible`` applies them to states off the
 CPU, so such runs take the unfused path instead.
 """
@@ -52,10 +53,11 @@ from . import ref
 
 ATTN_IMPLS = ("exact", "flash")
 KERNEL_MAX_HEAD_DIM = 256  # kMaxHeadDim of csrc/megastep_body.cuh
-# state and weight types, by the code the library takes (0, 1), and the
+# state and weight types, by the code the library takes (0, 1, 2), and the
 # library built for each weight type
-KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-_LIBRARY = {torch.float32: "megastep", torch.bfloat16: "megastep_bf16"}
+KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_LIBRARY = {torch.float32: "megastep", torch.bfloat16: "megastep_bf16",
+            torch.float16: "megastep_f16"}
 
 # the order of the pointer fields of ReproMegaWeights in
 # csrc/megastep_body.cuh
@@ -123,19 +125,19 @@ def _shape_limits(cfg, state_dtype: torch.dtype) -> Optional[str]:
         return (f"the CUDA megakernel takes an even head_dim up to "
                 f"{KERNEL_MAX_HEAD_DIM}, got head_dim {D}")
     if state_dtype not in KERNEL_DTYPES:
-        return (f"the CUDA megakernel takes a float32 or bfloat16 state, "
-                f"got dtype {state_dtype}")
+        return (f"the CUDA megakernel takes a float32, bfloat16 or float16 "
+                f"state, got dtype {state_dtype}")
     return None
 
 
 def _weight_limits(params: Dict) -> Optional[str]:
-    """Why the CUDA megakernel cannot take these weights (not all float32
-    or all bfloat16), or None."""
+    """Why the CUDA megakernel cannot take these weights (not all of one
+    type of float32, bfloat16 and float16), or None."""
     dtypes = sorted({str(t.dtype) for t in leaves(params)})
     if len(dtypes) == 1 and dtypes[0] in map(str, KERNEL_DTYPES):
         return None
-    return (f"the CUDA megakernel takes weights all float32 or all "
-            f"bfloat16, got dtype {', '.join(dtypes)}")
+    return (f"the CUDA megakernel takes weights all float32, all "
+            f"bfloat16 or all float16, got dtype {', '.join(dtypes)}")
 
 
 def kernel_limits(cfg, state_dtype: torch.dtype,
@@ -144,8 +146,8 @@ def kernel_limits(cfg, state_dtype: torch.dtype,
 
     Its own limits, beyond the eligibility rule it shares with the JAX
     package: n_heads a multiple of n_kv_heads, an even head dim up to
-    ``KERNEL_MAX_HEAD_DIM`` (``widths_ok`` of the source), a float32 or
-    bfloat16 state, and weights all float32 or all bfloat16.  Every
+    ``KERNEL_MAX_HEAD_DIM`` (``widths_ok`` of the source), a float32,
+    bfloat16 or float16 state, and weights all of one of those types.  Every
     seq_len and width of the tile-aware trunk passes.  The plain version
     (``ref.py``) has none of these limits.  Needs no CUDA state: the
     weights may be meta tensors.  The launcher refuses the same inputs
@@ -224,8 +226,8 @@ def _launch(wrapper, entry: str, x2: torch.Tensor, eps_params: Dict, cfg,
     pointer (K for B3).  Records the plan in ``wrapper.last_plan``.
 
     The tables are float32 holding what JAX's trunk multiplies by: the
-    sinusoid cast to the state's type (``eps_forward``), and in a
-    bfloat16 trunk the RoPE cos / sin cast to bfloat16 (``apply_rope``)."""
+    sinusoid cast to the state's type (``eps_forward``), and in a 16-bit
+    trunk the RoPE cos / sin cast to its type (``apply_rope``)."""
     _check_kernel_inputs(x2, eps_params, cfg)
     dev = x2.device
     w_dtype = eps_params["w_in"].dtype

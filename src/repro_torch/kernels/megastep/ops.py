@@ -9,8 +9,8 @@ the static config and the (batch, seq_len) geometry they are bound for.
 Eligibility (``eligible``; the plan-level half — deterministic, order 1 —
 is the backend's): the model carries a spec, the state has the spec's
 shape, a state off the CPU meets the CUDA kernel's own limits
-(``kernel.kernel_limits``: among them a float32 or bfloat16 state and
-weights all float32 or all bfloat16), and weights + activations + state
+(``kernel.kernel_limits``: among them a float32, bfloat16 or float16
+state and weights all of one of those types), and weights + activations + state
 fit ``MEGA_BUDGET`` under the JAX package's byte model (``vmem_bytes``,
 unchanged: a weight or state counts its own type's bytes).  Anything else
 runs the 'tile_resident' backend, or the scheduler's unfused tick.
@@ -39,10 +39,11 @@ between its phases; the port takes the same 75% share of it:
 2-layer float32 trunk at batch 4 x 64 tokens (35.5 MB exact, 36.1 MB
 flash), 2 x 128 (36.1 MB either way) and 1 x 256 (37.3 MB exact, 36.1 MB
 flash), and not batch 8 x 64 (41.6 / 42.8 MB), 1 x 320 exact (40.0 MB) or
-the full 30 layers (432 MB).  bfloat16 weights halve the weight bytes:
-the 2-layer trunk then fits at 8 x 64 (26.9 MB exact, 28.1 MB flash, a
-bfloat16 state) and a 4-layer one at 4 x 64 (34.9 / 35.5 MB), not at 8 x
-64 (41.1 / 42.3 MB); 6 layers do not fit at 4 x 64 (49.1 MB)."""
+the full 30 layers (432 MB).  bfloat16 (or float16) weights halve the
+weight bytes: the 2-layer trunk then fits at 8 x 64 (26.9 MB exact, 28.1
+MB flash, a 16-bit state) and a 4-layer one at 4 x 64 (34.9 / 35.5 MB),
+not at 8 x 64 (41.1 / 42.3 MB); 6 layers do not fit at 4 x 64 (49.1
+MB)."""
 
 DEFAULT_K_FUSE = 8
 
@@ -108,8 +109,8 @@ def eligible(spec: Optional[MegaSpec], x_T: torch.Tensor,
     A state that is not on the CPU (a CUDA state, or a meta tensor that
     stands for one) must also meet the CUDA kernel's own limits
     (``kernel.kernel_limits``: an even head dim up to 256, n_heads a
-    multiple of n_kv_heads, a float32 or bfloat16 state, weights all
-    float32 or all bfloat16; every seq_len and width passes); the plain
+    multiple of n_kv_heads, a float32, bfloat16 or float16 state, weights
+    all of one of those types; every seq_len and width passes); the plain
     version the CPU runs has none."""
     if spec is None:
         return False, ("eps model carries no mega_spec (not a fused-capable "

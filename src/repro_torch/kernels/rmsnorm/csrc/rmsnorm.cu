@@ -3,7 +3,7 @@
 // Replaces the Pallas TPU kernel ``rms_norm_2d`` of
 // src/repro/kernels/rmsnorm/kernel.py:38 (body ``rms_norm_body``, :19):
 // out[r] = (x[r] * T(rsqrt(mean(x[r]^2) + eps))) * scale, float32 sum of
-// squares, for float32 and bfloat16 rows.
+// squares, for float32, bfloat16 and float16 rows.
 //
 // Bound on the H100: one read of x and scale and one write of out, a few
 // operations per element, so bytes bound it: (2 R d + d) x dtype size over
@@ -19,15 +19,17 @@
 // time.  Rule for the grid: two rows (two warps) per 64-thread block, so
 // R = 256 runs 128 blocks and every row's loads are in flight together;
 // at large R an SM holds as many 64-thread blocks as its registers allow,
-// each with two rows of loads in flight.  Rows longer than a warp holds (d > 1,024 float32, 2,048
-// bfloat16) take up to 8 warps, one row per block, and add their warps'
-// partial sums in warp order through shared memory (so d <= 8,192
-// float32, 16,384 bfloat16).  Where d is not a multiple of the vector (4
-// float32, 8 bfloat16) or a pointer is not 16-byte aligned, the same
-// kernel runs its scalar row path: the same structure with one element
+// each with two rows of loads in flight.  Rows longer than a warp holds
+// (d > 1,024 float32, 2,048 bfloat16 or float16) take up to 8 warps, one
+// row per block, and add their warps' partial sums in warp order through
+// shared memory (so d <= 8,192 float32, 16,384 bfloat16 or float16).
+// Where d is not a multiple of the vector (4 float32, 8 bfloat16 or
+// float16) or a pointer is not 16-byte aligned, the same kernel runs its
+// scalar row path: the same structure with one element
 // per chunk and 32 chunks per thread (d <= 8,192).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -89,10 +91,10 @@ int with_path(const void* x, const void* scale, void* out, int R, int d,
 extern "C" {
 
 // x, out: (R, d) contiguous; scale: (d,), all of one dtype (0 = float32,
-// 1 = bfloat16).  plan (6 ints) receives blocks, threads per block, rows
-// per block, the vector path (1) or the scalar one (0), dynamic shared
-// bytes and blocks per SM (occupancy).  Returns the cudaError_t of the
-// launch (0 on success).
+// 1 = bfloat16, 2 = float16).  plan (6 ints) receives blocks, threads per
+// block, rows per block, the vector path (1) or the scalar one (0),
+// dynamic shared bytes and blocks per SM (occupancy).  Returns the
+// cudaError_t of the launch (0 on success).
 int repro_rms_norm_2d(const void* x, const void* scale, void* out, int dtype,
                       int R, int d, float eps, void* stream, int* plan) {
   if (R <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -101,6 +103,7 @@ int repro_rms_norm_2d(const void* x, const void* scale, void* out, int dtype,
     return with_path<float>(x, scale, out, R, d, eps, s, plan);
   if (dtype == 1)
     return with_path<__nv_bfloat16>(x, scale, out, R, d, eps, s, plan);
+  if (dtype == 2) return with_path<__half>(x, scale, out, R, d, eps, s, plan);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,9 +1,9 @@
 // One-pass row RMSNorm (the body of rmsnorm.cu's kernel).
 //
 // A row is read once: each of its threads loads up to 8 (or 32) chunks
-// (a 16-byte vector of 4 float32 or 8 bfloat16 on the vector path, one
-// element on the scalar path) into registers, all loads issued before
-// the first is used, and the row's scale beside them.  The float32 sum
+// (a 16-byte vector of 4 float32 or 8 bfloat16 or float16 on the vector
+// path, one element on the scalar path) into registers, all loads issued
+// before the first is used, and the row's scale beside them.  The float32 sum
 // of squares runs as four independent partial sums per thread, then a
 // warp shuffle (and, for rows longer than a warp holds, one partial per
 // warp through shared memory, summed in warp order).  The inverse RMS
@@ -13,6 +13,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 #include <cstdint>
 
@@ -54,6 +55,23 @@ struct Chunk<__nv_bfloat16, true> {
   }
   __device__ __forceinline__ void set(int e, float f) {
     const uint32_t b = __bfloat16_as_ushort(__float2bfloat16_rn(f));
+    uint32_t& w = (&v.x)[e >> 1];
+    w = (e & 1) ? ((w & 0xFFFFu) | (b << 16)) : ((w & 0xFFFF0000u) | b);
+  }
+};
+
+template <>
+struct Chunk<__half, true> {
+  using Raw = uint4;
+  static constexpr int N = 8;
+  Raw v;
+  __device__ __forceinline__ float get(int e) const {
+    const uint32_t w = (&v.x)[e >> 1];
+    return __half2float(__ushort_as_half(
+        static_cast<unsigned short>((e & 1) ? w >> 16 : w & 0xFFFFu)));
+  }
+  __device__ __forceinline__ void set(int e, float f) {
+    const uint32_t b = __half_as_ushort(__float2half_rn(f));
     uint32_t& w = (&v.x)[e >> 1];
     w = (e & 1) ? ((w & 0xFFFFu) | (b << 16)) : ((w & 0xFFFF0000u) | b);
   }

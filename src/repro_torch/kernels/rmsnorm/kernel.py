@@ -20,7 +20,7 @@ from repro_torch.kernels import build
 from . import ref
 
 TILE_R = 256
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the fields of repro_rms_norm_2d's plan[6], in order
 _PLAN = ("grid", "threads", "rows_per_block", "vector", "smem_bytes",
          "blocks_per_sm")
@@ -50,8 +50,8 @@ def rms_norm_2d(x: torch.Tensor, scale: torch.Tensor, *,
     if x.device.type == "cpu":
         return ref.rms_norm_body(x, scale, eps)
     if x.dtype not in _DTYPE_CODES or scale.dtype != x.dtype:
-        raise TypeError(f"x and scale must share float32 or bfloat16, got "
-                        f"{x.dtype} and {scale.dtype}")
+        raise TypeError(f"x and scale must share float32, bfloat16 or "
+                        f"float16, got {x.dtype} and {scale.dtype}")
     if not (x.is_contiguous() and scale.is_contiguous()):
         raise ValueError("x and scale must be contiguous")
     build.check_cuda(x, scale, aligned=False)  # unaligned: scalar path

@@ -7,7 +7,9 @@
 //   step_rows_kernel <- sampler_step_rows_2d  (_row_det_kernel /
 //                       _row_stoch_kernel, _row_update, sw_random_bits_rows)
 //
-// Per element, all math in float32:
+// x and eps are float32, bfloat16 or float16, each loaded with its own type
+// and widened (JAX's astype), the output stored in x's type.  Per element,
+// all math in float32:
 //   x0  = (x - sqrt(1-a_t) eps) / sqrt(a_t)       [clip / want_x0]
 //   x0  = clip(x0, +-clip); eps = (x - sqrt(a_t) x0) / sqrt(1-a_t)  [clip]
 //   out = c_x0 x0 + c_dir eps + c_noise z           (no clip: a x + b eps)
@@ -35,7 +37,7 @@
 // launch plus one round trip to memory, and the kernel keeps to that.
 //  * Deterministic steps: one thread per 4 consecutive elements of the
 //    (R, 256) tile layout, loaded and stored as one vector (16 bytes for
-//    float32, 8 for bfloat16), in 256-thread blocks.
+//    float32, 8 for bfloat16 or float16), in 256-thread blocks.
 //  * Stochastic steps: one thread per element (96 blocks of 256 at R = 96),
 //    so that each thread's dependent chain (2 fmix32 draws, the accurate
 //    logf / cosf / sqrtf) is one normal long instead of four; the noise is
@@ -46,6 +48,7 @@
 // still waits for the PyTorch op ahead of it on the main path.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,8 +78,8 @@ __host__ __device__ constexpr int elems_per_thread(bool stochastic) {
   return stochastic ? 1 : 4;
 }
 
-// V = 4: one 16-byte (float32) or 8-byte (bfloat16) vector; V = 1: one
-// element.  The bfloat16 roundings are the same either way.
+// V = 4: one 16-byte (float32) or 8-byte (bfloat16, float16) vector; V =
+// 1: one element.  The 16-bit roundings are the same either way.
 template <int V>
 __device__ __forceinline__ void load_v(const float* p, float v[V]) {
   if constexpr (V == 4) {
@@ -100,6 +103,18 @@ __device__ __forceinline__ void load_v(const __nv_bfloat16* p, float v[V]) {
 }
 
 template <int V>
+__device__ __forceinline__ void load_v(const __half* p, float v[V]) {
+  if constexpr (V == 4) {
+    const __half2* p2 = reinterpret_cast<const __half2*>(p);
+    const __half2 a = p2[0], b = p2[1];
+    v[0] = __low2float(a); v[1] = __high2float(a);
+    v[2] = __low2float(b); v[3] = __high2float(b);
+  } else {
+    v[0] = __half2float(*p);
+  }
+}
+
+template <int V>
 __device__ __forceinline__ void store_v(float* p, const float v[V]) {
   if constexpr (V == 4)
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
@@ -115,6 +130,18 @@ __device__ __forceinline__ void store_v(__nv_bfloat16* p, const float v[V]) {
     p2[1] = __floats2bfloat162_rn(v[2], v[3]);
   } else {
     *p = __float2bfloat16_rn(v[0]);
+  }
+}
+
+// float16 overflows to inf at the store, as JAX's astype does: no clamp.
+template <int V>
+__device__ __forceinline__ void store_v(__half* p, const float v[V]) {
+  if constexpr (V == 4) {
+    __half2* p2 = reinterpret_cast<__half2*>(p);
+    p2[0] = __floats2half2_rn(v[0], v[1]);
+    p2[1] = __floats2half2_rn(v[2], v[3]);
+  } else {
+    *p = __float2half_rn(v[0]);
   }
 }
 
@@ -232,16 +259,25 @@ struct Tag {
   using type = T;
 };
 
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16
+template <typename F>
+bool with_dtype(int code, F f) {
+  if (code == 0) f(Tag<float>{});
+  else if (code == 1) f(Tag<__nv_bfloat16>{});
+  else if (code == 2) f(Tag<__half>{});
+  else return false;
+  return true;
+}
+
+// f(tx, te) for x's and eps's types, each loaded with its own type (JAX's
+// astype of each input); cudaErrorInvalidValue for an unknown code.
 template <typename F>
 int with_dtypes(int x_dtype, int eps_dtype, F f) {
-  // dtype codes: 0 = float32, 1 = bfloat16
-  using F32 = Tag<float>;
-  using BF16 = Tag<__nv_bfloat16>;
-  if (x_dtype == 0 && eps_dtype == 0) f(F32{}, F32{});
-  else if (x_dtype == 0 && eps_dtype == 1) f(F32{}, BF16{});
-  else if (x_dtype == 1 && eps_dtype == 0) f(BF16{}, F32{});
-  else if (x_dtype == 1 && eps_dtype == 1) f(BF16{}, BF16{});
-  else return static_cast<int>(cudaErrorInvalidValue);
+  if (eps_dtype < 0 || eps_dtype > 2 ||
+      !with_dtype(x_dtype, [&](auto tx) {
+        with_dtype(eps_dtype, [&](auto te) { f(tx, te); });
+      }))
+    return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }
 

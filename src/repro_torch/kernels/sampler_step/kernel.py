@@ -27,7 +27,7 @@ from repro_torch.kernels import build
 from . import ref
 from .ref import COEF_COLS, TILE_C, tile_rows
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -64,8 +64,8 @@ def _check_state(x: torch.Tensor, eps: torch.Tensor) -> None:
     """Shape/dtype/device/contiguity contract of both kernels."""
     for name, t in (("x", x), ("eps", eps)):
         if t.dtype not in _DTYPE_CODES:
-            raise TypeError(f"{name} must be float32 or bfloat16, got "
-                            f"{t.dtype}")
+            raise TypeError(f"{name} must be float32, bfloat16 or float16, "
+                            f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if x.dim() != 2 or x.shape[1] != TILE_C:
@@ -88,7 +88,8 @@ def sampler_step_2d(x: torch.Tensor, eps: torch.Tensor, coefs,
     """One Eq. 12 step over the (R, 256) tile view, scalar coefficients.
 
     Args:
-      x, eps: (R, 256) contiguous float32/bfloat16, R % tile_rows(R) == 0.
+      x, eps: (R, 256) contiguous float32/bfloat16/float16, each of its own
+        type (widened as JAX's astype widens it), R % tile_rows(R) == 0.
       coefs: (5,) float32 host values [c_x0, c_dir, c_noise, sqrt_a_t,
         sqrt_1m_a_t] (numpy array, CPU tensor or sequence).  They are
         passed to the kernel by value, so no device copy is made per step.
@@ -132,7 +133,8 @@ def sampler_step_rows_2d(x: torch.Tensor, eps: torch.Tensor,
     """One Eq. 12 step where every ROW has its own coefficients and seed.
 
     Args:
-      x, eps: (R, 256) contiguous float32/bfloat16 (slot-tile layout).
+      x, eps: (R, 256) contiguous float32/bfloat16/float16 (slot-tile
+        layout), each of its own type.
       row_coefs: (R, 8) float32 on x's device: [c_x0, c_dir, c_noise,
         sqrt_a_t, sqrt_1m_a_t, pad...] (ops.expand_slot_coefs builds it).
       row_seeds: (R,) int32 on x's device; required iff stochastic.

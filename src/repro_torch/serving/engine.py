@@ -19,8 +19,9 @@ split into bucket-ladder chunks (``_chunk_plan``) instead of padding the
 whole remainder to the next rung.  With ``tile_resident=True`` each batch
 runs ``plan.run(backend='tile_resident')`` — the (R, 256) tile layout and
 one ``sampler_step_2d`` CUDA launch per step; otherwise the plain eager
-loop.  The state dtype may be bfloat16 while every coefficient stays
-float32 (the kernels compute in float32 and cast on store).
+loop.  The state dtype may be bfloat16 or float16 while every
+coefficient stays float32 (the kernels compute in float32 and cast on
+store).
 
 ``sample_batch`` / ``serve`` take a ``SamplerPlan``, a legacy
 ``SamplerConfig`` (compiled to its plan) or ``"auto"``: the quality end of
@@ -179,7 +180,7 @@ class DiffusionSampler:
 
         eps_fn: eps_theta(x, t) on ``device`` (e.g. models.make_eps_fn).
         sample_shape: one sample's shape, e.g. (32, 32, 3) NHWC.
-        dtype: state dtype (float32 or bfloat16).
+        dtype: state dtype (float32, bfloat16 or float16).
         tile_resident: run each batch in the tile layout through the
           sampler_step_2d kernel instead of the eager loop.
         bucket_sizes: ascending batch-size ladder for ragged loads;

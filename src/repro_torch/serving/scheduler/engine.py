@@ -188,7 +188,7 @@ class ContinuousBatchingEngine:
         the (R, 256) slot-tile view directly.
       sample_shape: per-request sample shape.
       slots: number of resident requests B advanced per tick.
-      dtype: state dtype (float32 or bfloat16).
+      dtype: state dtype (float32, bfloat16 or float16).
       stochastic: build the in-kernel-noise tick; a deterministic engine
         serves noise-free plans only and its tick has no PRNG code.
       clip_x0: engine-level |x0| clip (a kernel specialization); plan

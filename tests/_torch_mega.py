@@ -15,8 +15,6 @@ import functools
 
 import jax
 import numpy as np
-import pytest
-import torch
 
 from repro import diffusion_lm as jdlm
 from repro.kernels.megastep import MegaSpec as JMegaSpec
@@ -24,6 +22,8 @@ from repro.models.common import ArchConfig as JArch
 from repro_torch import interop
 from repro_torch.diffusion_lm import model as tdlm
 from repro_torch.models.common import ArchConfig as TArch
+
+from _torch_threads import one_torch_thread  # noqa: F401  (re-exported)
 
 LATENT = 32
 HEAD_DIMS = {16: (64, 4, 2), 32: (64, 2, 1), 64: (64, 1, 1),
@@ -63,19 +63,6 @@ def jit_ref(ref_fn, jcfg, batch: int, seq: int, attn_impl: str, **kw):
                                     seq_len=seq, attn_impl=attn_impl),
                       coefs, ts, **kw)
     return jax.jit(f)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One torch thread for a module of these small trunks (import it into
-    the module: it is autouse).  Their ops are far too small to gain from
-    threads, and a worker of the parallel suite whose ops wait on eight
-    threads runs them tens of times slower than one thread does; the count
-    is restored for the worker's next module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def cast(tree, dtype):

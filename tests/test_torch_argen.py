@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro.models import dense as jdense
 from repro.models.common import ArchConfig as JArch
 from repro.serving import ARGenerator as JGen

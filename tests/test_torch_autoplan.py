@@ -50,6 +50,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro import autoplan as jap
 from repro import eval as jeval
 from repro.autoplan import objective as jobj

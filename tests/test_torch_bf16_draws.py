@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import _torch_mega as mega_trunks
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro import core as jcore
 from repro.kernels.sampler_step import ops as jtile_ops
 from repro_torch import core as tcore

@@ -26,6 +26,7 @@ import torch
 
 import _torch_lm as lm
 import _torch_mega as mega_trunks
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro.diffusion_lm import model as jdlm
 from repro.models import registry as jregistry
 from repro_torch.diffusion_lm import model as tdlm

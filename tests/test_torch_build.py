@@ -9,8 +9,9 @@ from repro_torch.kernels import build
 
 SOURCES = ["sampler_step", "rmsnorm", "flash_attention",
            "flash_attention_wide", "flash_attention_bf16",
-           "flash_attention_bf16_wide", "megastep", "megastep_bf16",
-           "ddim_step"]
+           "flash_attention_bf16_wide", "flash_attention_f16",
+           "flash_attention_f16_wide", "megastep", "megastep_bf16",
+           "megastep_f16", "ddim_step"]
 
 
 def _tree(tmp_path):

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro import data as jdata
 from repro_torch import data as tdata
 from repro_torch import prng

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro import core as jcore
 from repro.kernels.ddim_step.ops import fused_ddim_step as jshim
 from repro_torch import core as tcore

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro.kernels.ddim_step.kernel import ddim_step_2d as j_ddim_step_2d
 from repro.kernels.ddim_step.ref import ddim_step_ref as j_ddim_step_ref
 from repro_torch.kernels.ddim_step import kernel as tk
@@ -24,8 +25,10 @@ from repro_torch.kernels.ddim_step import ref as tref
 
 F32_ULP = float(np.finfo(np.float32).eps)
 BF16_ULP = 2.0 ** -7
+F16_ULP = 2.0 ** -10
 DTYPES = {"f32": (jnp.float32, torch.float32),
-          "bf16": (jnp.bfloat16, torch.bfloat16)}
+          "bf16": (jnp.bfloat16, torch.bfloat16),
+          "f16": (jnp.float16, torch.float16)}
 COEFS = [np.array([0.93, 0.31, 0.27, 0.61, 0.79], np.float32),
          np.array([1.0, 0.0, 0.0, 1.0, 0.0], np.float32),
          np.array([0.999, 0.044, 0.0, 0.0316, 0.9995], np.float32)]
@@ -41,7 +44,7 @@ def _inputs(R, C, dtype, seed):
 
 @pytest.mark.parametrize("R", [256, 1024])
 @pytest.mark.parametrize("C", [256, 512])
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
 @pytest.mark.parametrize("ci", range(len(COEFS)))
 def test_plain_version_vs_pallas(R, C, dtype, ci):
     (jx, je, jz), (tx, te, tz) = _inputs(R, C, dtype, seed=R + C + ci)
@@ -51,13 +54,13 @@ def test_plain_version_vs_pallas(R, C, dtype, ci):
     got = tk.ddim_step_2d(tx, te, tz, torch.from_numpy(coefs))
     assert got.dtype == DTYPES[dtype][1] and got.shape == (R, C)
     got = got.float().numpy()
-    if dtype == "f32":
+    if dtype in ("f32", "f16"):
         np.testing.assert_array_equal(got, want)
     else:
         assert np.abs(got - want).max() <= BF16_ULP * np.abs(want).max()
 
 
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
 def test_plain_version_vs_oracle(dtype):
     (jx, je, jz), (tx, te, tz) = _inputs(256, 256, dtype, seed=7)
     coefs = COEFS[0]
@@ -67,7 +70,7 @@ def test_plain_version_vs_oracle(dtype):
     tref_out = tref.ddim_step_ref(tx, te, tz,
                                   *torch.from_numpy(coefs).to(tx.dtype))
     got = tk.ddim_step_2d(tx, te, tz, torch.from_numpy(coefs))
-    ulp = F32_ULP if dtype == "f32" else BF16_ULP
+    ulp = {"f32": F32_ULP, "bf16": BF16_ULP, "f16": F16_ULP}[dtype]
     scale = np.abs(want).max()
     assert np.abs(got.float().numpy() - want).max() <= 8 * ulp * scale
     # the port's oracle is the JAX oracle's op order

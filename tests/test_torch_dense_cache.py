@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro import configs as jconfigs
 from repro.models import attention as jattn
 from repro.models import dense as jdense

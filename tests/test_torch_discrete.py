@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro import core as jcore
 from repro.core import discrete as jdisc
 from repro_torch import core as tcore

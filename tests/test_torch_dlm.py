@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro import diffusion_lm as jdlm
 from repro.core import SamplerConfig as JSamplerConfig
 from repro.core import make_schedule as j_make_schedule

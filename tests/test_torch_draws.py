@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro import core as jcore
 from repro.autoplan import ObjectiveConfig as JObjCfg
 from repro.autoplan import build_objective as j_build_objective

@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro import configs as jconfigs
 from repro.launch import shapes as jshp
 from repro.models import get_api as jget_api

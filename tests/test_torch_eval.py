@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro import eval as jeval
 from repro.core import make_schedule as j_make_schedule
 from repro.eval import metrics as jmetrics

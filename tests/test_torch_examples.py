@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from _torch_examples import assert_same_lines, jax_example
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro_torch import prng
 from repro_torch.examples import (discrete_ddim, gateway_sse, interpolation,
                                   quickstart, reconstruction)

@@ -22,6 +22,7 @@ import re
 import pytest
 
 from _torch_examples import assert_same_lines, jax_example
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro_torch.examples import lm_diffusion
 
 QUICK = dict(steps=2, batch=4, eval_batch=2, seq=8, vocab=64, T=50)

@@ -16,6 +16,7 @@ import pytest
 import torch
 import jax.numpy as jnp
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro import core as jcore
 from repro.sampling import SamplerPlan as JPlan
 from repro.serving import DiffusionSampler as JSampler

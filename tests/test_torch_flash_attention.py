@@ -3,7 +3,8 @@ version on the CPU) against the JAX package's Pallas kernel (interpret
 mode) and the model's grouped attention, on the same numpy inputs.
 
 Tolerances as ``test_kernels.py:17`` holds the JAX kernel: float32 2e-5,
-bfloat16 2e-2 (absolute and relative).  The online-softmax recurrence runs
+bfloat16 2e-2 (absolute and relative); float16 1e-3, about one float16
+ulp (both compute in float32 and round once at the store).  The online-softmax recurrence runs
 over the same KV blocks on both sides; the sums inside the products are
 taken in another order.  The CUDA kernel's own tile arithmetic (its q and
 KV tiles, 3xTF32 products) is emulated by ``ref.flash_attention_tiles_ref``
@@ -22,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro.kernels import gqa_flash as j_gqa_flash
 from repro.kernels import mha_flash as j_mha_flash
 from repro.kernels.flash_attention.kernel import \
@@ -34,9 +36,11 @@ from repro_torch.kernels.flash_attention import ref as tref
 from repro_torch.models import attention as tattn
 from repro_torch.models import common as tcommon
 
-TOL = {"f32": dict(atol=2e-5, rtol=2e-5), "bf16": dict(atol=2e-2, rtol=2e-2)}
-DT = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16,
-                                                    torch.bfloat16)}
+TOL = {"f32": dict(atol=2e-5, rtol=2e-5), "bf16": dict(atol=2e-2, rtol=2e-2),
+       "f16": dict(atol=1e-3, rtol=1e-3)}
+DT = {"f32": (jnp.float32, torch.float32),
+      "bf16": (jnp.bfloat16, torch.bfloat16),
+      "f16": (jnp.float16, torch.float16)}
 
 
 def _qkv(shapes, dtype, seed=0):
@@ -220,14 +224,21 @@ def test_kernel_plan_model_covers_the_domain():
 
 
 def test_wrapper_refuses_past_the_domain_on_the_card():
-    """Meta tensors stand for the card: head dim 257 and float16 raise
-    with their reasons before any launch; the CPU takes both (plain)."""
+    """Meta tensors stand for the card: head dim 257 and float64 raise
+    with their reasons before any launch, and float16 passes the type
+    check to the device check (its libraries take it); the CPU takes all
+    of them (plain)."""
     q = torch.zeros(2, 64, 257, device="meta")
     with pytest.raises(ValueError, match="head dims up to 256"):
         tk.flash_attention(q, q, q)
+    w = torch.zeros(2, 64, 64, device="meta", dtype=torch.float64)
+    with pytest.raises(TypeError, match="float64"):
+        tk.flash_attention(w, w, w)
     h = torch.zeros(2, 64, 64, device="meta", dtype=torch.float16)
-    with pytest.raises(TypeError, match="float16"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         tk.flash_attention(h, h, h)
+    assert tk.library_name(torch.float16, 64) == "flash_attention_f16"
+    assert tk.library_name(torch.float16, 256) == "flash_attention_f16_wide"
     x = torch.randn(1, 16, 257)
     torch.testing.assert_close(tk.flash_attention(x, x, x),
                                tref.flash_attention_ref(x, x, x))

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro import obs as jobs
 from repro.autoplan import PlanBank as JBank
 from repro.core import make_schedule as j_make_schedule

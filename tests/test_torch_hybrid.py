@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro import configs as jconfigs
 from repro.models import hybrid as jhybrid
 from repro_torch import configs

@@ -11,8 +11,9 @@ and 256 tokens at head dims 16, 32, 64 and 128; the geometries past those
 (ragged tiles, off-tile widths, head dims 2 to 256) are
 ``test_torch_megastep_geometry.py``'s.  Off the CPU (meta tensors stand for
 the card) the kernel's limits admit every geometry JAX's megakernel does
-and refuse only a float16 state, weights of two types, head dims past 256
-and GQA groups of partial heads.
+and a float16 state, and refuse only a state of another type (float64),
+weights of two types, head dims past 256 and GQA groups of partial
+heads.
 
 Tolerances: 1e-4 of the largest state (float32 trunks whose products sum
 in another order, carried through the steps).  Port 'mega' with 'exact'
@@ -212,14 +213,16 @@ def test_eligibility_reasons():
         dataclasses.replace(spec, attn_impl="chunked")
 
 
-# The CUDA megakernel's own limits (kernel_limits): a float16 state or
-# weights of two types (float32 and bfloat16: JAX admits both, no caller
-# runs them), or a head dim past 256.  A state off the CPU (meta stands for
-# the card) meets them or is not eligible; a CPU state keeps the JAX rule.
+# The CUDA megakernel's own limits (kernel_limits): a state of a type it
+# has no code for (float64), weights of two types (float32 and bfloat16:
+# JAX admits both, no caller runs them), or a head dim past 256.  A state
+# off the CPU (meta stands for the card) meets them or is not eligible; a
+# CPU state keeps the JAX rule.
 LIMIT_CASES = {
-    "state_dtype": dict(state=torch.float16, what="dtype torch.float16"),
-    "weight_dtype": dict(weights="mixed", what="weights all float32 or all "
-                         "bfloat16, got dtype torch.bfloat16, torch.float32"),
+    "state_dtype": dict(state=torch.float64, what="dtype torch.float64"),
+    "weight_dtype": dict(weights="mixed", what="weights all float32, all "
+                         "bfloat16 or all float16, got dtype "
+                         "torch.bfloat16, torch.float32"),
     "head_dim_264": dict(cfg=(1, 1, 64, 264), what="an even head_dim up to "
                          "256, got head_dim 264"),
 }
@@ -230,8 +233,10 @@ LIMIT_CASES = {
 # latents and geometries (16 at 2 x 128, 64 at 4 x 32, 128 at 2 x 80 and
 # 256 at 1 x 200, which also passes the old latent <= 128), head dims 2 and
 # 256, d_model 72 with d_ff 100, odd widths (d_model 75, d_ff 101, head dim
-# 10, time_dim 31) and a latent of 3 (2,048 tokens: whole tile granules).
+# 10, time_dim 31), a latent of 3 (2,048 tokens: whole tile granules), and
+# a float16 state over float32 weights (a float32 trunk).
 ADMIT_CASES = {
+    "state_float16": dict(state=torch.float16),
     "seq_len": dict(cfg="latent64", batch=2, seq=96),
     "head_dim": dict(cfg=(8, 4)),
     "widths": dict(cfg=(4, 1)),

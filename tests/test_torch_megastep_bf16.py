@@ -1,12 +1,14 @@
-"""B3 / B4 on bfloat16 states and weights: the plain versions the CUDA
-megakernel is held against on the card, against JAX's megakernels.
+"""B3 / B4 on bfloat16 and float16 states and weights: the plain versions
+the CUDA megakernel is held against on the card, against JAX's
+megakernels.
 
 The plain versions (``megastep_ref`` / ``megastep_rows_ref``, 'exact' and
 'flash') against JAX's ``megastep_call`` / ``megastep_rows_call`` in
 interpret mode, at the smallest widths (2 layers, d_model 64, 2 x 64
-tokens, K = 2), for the three state / weights type pairs: bf16 / bf16 (a
+tokens, K = 2), for the state / weights type pairs: bf16 / bf16 (a
 bfloat16 trunk), bf16 / f32 and f32 / bf16 (float32 trunks, promoted as
-jnp promotes).  The trunk dtype follows JAX's rules, the sinusoid is cast
+jnp promotes), and f16 / f16 (a float16 trunk), f16 / f32 and f16 / bf16
+(float32 trunks: float16 with bfloat16 promotes to float32).  The trunk dtype follows JAX's rules, the sinusoid is cast
 to the state's type, the state is rounded to its type after every step.
 
 Tolerances, of max|state|: 2e-2 for a bfloat16 trunk (the repo's bfloat16
@@ -14,7 +16,9 @@ tolerance, ``tests/test_kernels.py``); 2e-2 for a bfloat16 state over a
 float32 trunk too (a few bfloat16 ulps: one trunk difference of 1e-7 can
 flip a rounding, and a flip is one ulp, 2^-8 of the value); 1e-4 where
 state and trunk are float32 (the float32 trunk tolerance of
-``test_torch_megastep.py``).
+``test_torch_megastep.py``); 4 float16 ulps (4 x 2^-10) with a float16
+state, over either trunk (both round the state to float16 after each
+step; the float16 trunk's roundings sit where JAX's are).
 
 Off the CPU the kernel's limits now admit those pairs (a meta tensor
 stands for the card): a bfloat16 engine over a bfloat16 trunk takes the
@@ -43,9 +47,10 @@ from repro_torch.kernels.megastep import kernel as tk
 from repro_torch.kernels.sampler_step import ops as step_ops
 from repro_torch.serving import ContinuousBatchingEngine
 
-JDT = {"bf16": jnp.bfloat16, "f32": jnp.float32}
-TDT = {"bf16": torch.bfloat16, "f32": torch.float32}
-COMBOS = [("bf16", "bf16"), ("bf16", "f32"), ("f32", "bf16")]
+JDT = {"bf16": jnp.bfloat16, "f16": jnp.float16, "f32": jnp.float32}
+TDT = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
+COMBOS = [("bf16", "bf16"), ("bf16", "f32"), ("f32", "bf16"),
+          ("f16", "f16"), ("f16", "f32"), ("f16", "bf16")]
 IDS = [f"{s}-{w}" for s, w in COMBOS]
 BATCH, SEQ, K = 2, 64, 2
 JSCH = j_make_schedule("linear", T=1000)
@@ -53,7 +58,7 @@ TSCH = make_schedule("linear", 1000)
 
 
 def _tol(state: str) -> float:
-    return 2e-2 if state == "bf16" else 1e-4
+    return {"bf16": 2e-2, "f16": 4 * 2.0 ** -10}.get(state, 1e-4)
 
 
 def _weights(weights: str):

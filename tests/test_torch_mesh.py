@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro import sharding as jsharding
 from repro.models import runtime_flags as jflags
 from repro.sharding import rules as jrules

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro.core import schedules as jsched
 from repro.core import solver as jsolver
 from repro.sampling import plan as jplan

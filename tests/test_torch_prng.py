@@ -32,6 +32,7 @@ import torch
 
 from jax import lax
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro_torch import prng
 
 SEEDS = [0, 1, 2 ** 31 - 1]

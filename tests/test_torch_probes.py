@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro import obs as jobs
 from repro.core import StepStates as JStepStates
 from repro.core import make_schedule as j_make_schedule

@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro.core import make_schedule as j_make_schedule
 from repro.kernels.sampler_step import ops as jops
 from repro.obs import ListSink as JListSink

@@ -4,13 +4,15 @@ on the same numpy inputs.
 
 Tolerances: float32 2e-6 absolute and relative, as ``test_kernels.py``
 holds the JAX kernel to the model norm (sums in another order); bfloat16
-one bf16 ulp of max|out| (the products are rounded to bfloat16 in both).
+and float16 one ulp of the type of max|out| (the products are rounded to
+the type in both).
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro.kernels import rms_norm_kernel
 from repro.models import common as jcommon
 from repro_torch.kernels.rmsnorm import kernel as tk
@@ -18,9 +20,10 @@ from repro_torch.kernels.rmsnorm import ops as tops
 from repro_torch.kernels.rmsnorm import ref as tref
 from repro_torch.models import common as tcommon
 
-BF16_ULP = 2.0 ** -7
+ULP = {"bf16": 2.0 ** -7, "f16": 2.0 ** -10}
 DTYPES = {"f32": (np.float32, jnp.float32, torch.float32),
-          "bf16": (np.float32, jnp.bfloat16, torch.bfloat16)}
+          "bf16": (np.float32, jnp.bfloat16, torch.bfloat16),
+          "f16": (np.float32, jnp.float16, torch.float16)}
 # the last two: the ops path's rows at smollm width, and a d that takes
 # the CUDA kernel's scalar row path (d % 4 != 0)
 SHAPES = [(4, 128), (3, 17, 96), (2, 5, 7, 64), (1000, 256), (1, 64),
@@ -42,7 +45,7 @@ def _assert_close(got, want, dtype):
     if dtype == "f32":
         np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-6)
     else:
-        tol = BF16_ULP * float(np.abs(want).max())
+        tol = ULP[dtype] * float(np.abs(want).max())
         assert float(np.abs(got - want).max()) <= tol
 
 

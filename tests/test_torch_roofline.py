@@ -39,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 import repro.launch.hlo_analysis as j_hlo
 import repro.launch.roofline as j_roofline
 from repro import configs as jconfigs

@@ -9,14 +9,15 @@ Tolerances:
   * Stochastic steps: 4 float32 ulps of max|out| — Box–Muller's log/cos
     are correctly rounded float64 libm values on the CPU, not XLA's float32
     ones (measured: at most 1 ulp of max|z| apart).
-  * bfloat16 state: 1 bfloat16 ulp of max|out| (a float32 difference of
-    an ulp can flip one rounding to bfloat16).
+  * bfloat16 or float16 state: 1 ulp of that type of max|out| (a float32
+    difference of an ulp can flip one rounding to the 16-bit type).
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro.kernels.sampler_step import kernel as jk
 from repro.kernels.sampler_step import ops as jops
 from repro_torch.kernels import build
@@ -26,9 +27,11 @@ from repro_torch.kernels.sampler_step import ref
 
 F32_ULP = float(np.finfo(np.float32).eps)
 BF16_ULP = 2.0 ** -7
+F16_ULP = 2.0 ** -10
 SEEDS = [0, 1, 123456789, -1, -2 ** 31, 2 ** 31 - 1, -987654321]
 DTYPES = {"f32": (jnp.float32, torch.float32),
-          "bf16": (jnp.bfloat16, torch.bfloat16)}
+          "bf16": (jnp.bfloat16, torch.bfloat16),
+          "f16": (jnp.float16, torch.float16)}
 
 
 def _u32(a) -> np.ndarray:
@@ -179,8 +182,8 @@ def _inputs(R, seed=0):
 def _assert_step_close(got, want, dtype_key, exact):
     got, want = _np(got), np.asarray(want, np.float32)
     scale = float(np.abs(want).max())
-    if dtype_key == "bf16":
-        tol = BF16_ULP * scale
+    if dtype_key in ("bf16", "f16"):
+        tol = (BF16_ULP if dtype_key == "bf16" else F16_ULP) * scale
     else:
         tol = 0.0 if exact else 4 * F32_ULP * scale
     err = float(np.abs(got - want).max())
@@ -188,7 +191,7 @@ def _assert_step_close(got, want, dtype_key, exact):
 
 
 @pytest.mark.parametrize("R", [16, 512])
-@pytest.mark.parametrize("dtype_key", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype_key", ["f32", "bf16", "f16"])
 @pytest.mark.parametrize("clip", [None, 1.0])
 @pytest.mark.parametrize("stochastic", [False, True])
 def test_scalar_step_vs_pallas(R, dtype_key, clip, stochastic):
@@ -217,8 +220,21 @@ def test_scalar_step_mixed_dtypes_vs_pallas():
     _assert_step_close(got, want, "bf16", exact=True)
 
 
+def test_scalar_step_float16_state_float32_eps_vs_pallas():
+    """A float16 state with a float32 eps (a float32 model's output under
+    JAX's promotion), each loaded with its own type."""
+    x, eps = _inputs(16, seed=5)
+    coefs = np.array([0.7, 0.5, 0.0, 0.4, 0.9], np.float32)
+    want = jk.sampler_step_2d(jnp.asarray(x, jnp.float16), jnp.asarray(eps),
+                              jnp.asarray(coefs))
+    got = tk.sampler_step_2d(torch.from_numpy(x).half(),
+                             torch.from_numpy(eps), coefs)
+    assert got.dtype == torch.float16
+    _assert_step_close(got, want, "f16", exact=True)
+
+
 @pytest.mark.parametrize("R", [16, 512])
-@pytest.mark.parametrize("dtype_key", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype_key", ["f32", "bf16", "f16"])
 @pytest.mark.parametrize("clip", [None, 1.0])
 @pytest.mark.parametrize("stochastic", [False, True])
 @pytest.mark.parametrize("want_x0", [False, True])
@@ -251,7 +267,7 @@ def test_step_checks_inputs():
     with pytest.raises(ValueError, match="seed"):
         tk.sampler_step_2d(torch.zeros(8, 256), torch.zeros(8, 256),
                            np.ones(5, np.float32), stochastic=True)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
         tk.sampler_step_2d(torch.zeros(8, 256, dtype=torch.float64),
                            torch.zeros(8, 256), np.ones(5, np.float32))
     with pytest.raises(ValueError, match="row_coefs"):

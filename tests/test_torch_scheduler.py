@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro.core import StepStates as JStepStates
 from repro.core import make_schedule as j_make_schedule
 from repro.core.sampler import sample_step as j_sample_step
@@ -350,21 +351,36 @@ ENGINE_CASES = {
         (2, 4, 0.0, "uniform", 1, None, 1),
         (3, 6, 1.0, "uniform", 1, None, 0),
     ]),
+    # a float16 engine: stochastic, order 2, with the x0 preview
+    "float16": (dict(preview=True, stochastic=True, max_order=2,
+                     dtype="float16"), 2, [
+        (0, 7, 0.0, "uniform", 2, None, 2),
+        (1, 9, 1.0, "quadratic", 1, None, 3),
+        (2, 4, 0.0, "uniform", 2, None, 1),
+        (3, 6, 1.0, "uniform", 1, None, 0),
+    ]),
 }
+# float16 x0: 4 float16 ulps of max(|x0|, |x_T|) (a float32 difference of
+# an ulp can flip a float16 rounding of the state, which later ticks carry)
+F16_TOL_OF_SCALE = 4 * 2.0 ** -10
 
 
 @pytest.mark.parametrize("case", list(ENGINE_CASES))
 def test_engine_matches_jax_engine(case):
     kw, slots, spec = ENGINE_CASES[case]
+    kw, dtype = dict(kw), kw.get("dtype", "float32")
+    jkw = dict(kw, dtype=getattr(jnp, dtype)) if "dtype" in kw else kw
+    tkw = dict(kw, dtype=getattr(torch, dtype)) if "dtype" in kw else kw
+    tol = ENGINE_TOL_OF_SCALE if dtype == "float32" else F16_TOL_OF_SCALE
     shape = (7, 23)
     jeps, teps = _eps_pair(slot_aware=False)
     jreqs, jprev = _requests(spec, shape, J=True)
     treqs, tprev = _requests(spec, shape, J=False)
     jobs, tobs = JObs(), Observability()
     jsink, tsink = jobs.add_sink(JListSink()), tobs.add_sink(ListSink())
-    jeng = JEngine(JSCH, jeps, shape, slots=slots, obs=jobs, **kw)
+    jeng = JEngine(JSCH, jeps, shape, slots=slots, obs=jobs, **jkw)
     teng = ContinuousBatchingEngine(TSCH, teps, shape, slots=slots,
-                                    device="cpu", obs=tobs, **kw)
+                                    device="cpu", obs=tobs, **tkw)
     first = len(spec) * 2 // 3
     jres, jresident = _drive(jeng, jreqs, first)
     tres, tresident = _drive(teng, treqs, first)
@@ -389,15 +405,16 @@ def test_engine_matches_jax_engine(case):
             assert t.x0 is None
             continue
         x_T, _ = _x_rows(shape, rid)
-        scale = max(np.abs(j.x0).max(), np.abs(x_T).max())
-        assert t.x0.shape == shape
-        assert np.abs(t.x0.numpy() - j.x0).max() <= ENGINE_TOL_OF_SCALE * scale
+        jx0 = np.asarray(j.x0).astype(np.float32)
+        scale = max(np.abs(jx0).max(), np.abs(x_T).max())
+        assert t.x0.shape == shape and str(t.x0.dtype) == f"torch.{dtype}"
+        assert np.abs(t.x0.float().numpy() - jx0).max() <= tol * scale
     # the same span events: kinds, clock, slots, waits, plan digests
     assert tsink.events == jsink.events and len(tsink.events) > 3 * len(spec)
     assert [p[:2] for p in tprev] == [p[:2] for p in jprev]
     for t, j in zip(tprev, jprev):
-        assert np.abs(t[2] - j[2]).max() <= ENGINE_TOL_OF_SCALE * max(
-            np.abs(j[2]).max(), 1.0)
+        tp, jp = (np.asarray(v[2]).astype(np.float32) for v in (t, j))
+        assert np.abs(tp - jp).max() <= tol * max(np.abs(jp).max(), 1.0)
     if case == "mixed":   # the case exercises what it claims to
         assert js["dropped"] >= 2 and js["queue_rejected"] >= 1
         assert any(r != ("rejected",) and r.dropped and r.deadline_missed

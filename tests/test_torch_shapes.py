@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro import configs as jconfigs
 from repro.launch import shapes as jshapes
 from repro.models import get_api as j_get_api

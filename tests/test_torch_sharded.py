@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro.core import make_schedule as j_make_schedule
 from repro.serving.fleet import make_trunk_params as j_make_trunk_params
 from repro.serving.fleet import make_unsharded_eps as j_make_unsharded_eps

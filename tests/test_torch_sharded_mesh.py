@@ -29,6 +29,7 @@ import pytest
 import torch
 from torch.func import functional_call
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro.core import make_schedule as j_make_schedule
 from repro.launch import mesh as jmesh
 from repro.serving import ContinuousBatchingEngine as JEngine

@@ -14,6 +14,11 @@ Tolerances:
     tiny gradient differences above into sign-sized steps, so params from
     the two backwards are not comparable;
   * keys and data: bitwise.
+
+JAX's side runs under ``jax.jit`` (its train steps, gradients and losses
+are jitted here, one compilation each, instead of dispatched op by op),
+and where the weights reach the port through ``interop`` its init is
+jitted too: the same functions, compiled.
 """
 import contextlib
 import io
@@ -25,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro import configs as jconfigs
 from repro import core as jcore
 from repro.diffusion_lm import model as jdlm
@@ -92,7 +98,8 @@ def unet_pair():
     """A small U-Net (two levels, attention at level 1) on both sides:
     the JAX init redrawn at fan-in scale, carried over by ``interop``."""
     jcfg, tcfg = junet.UNetConfig(**UCFG), tunet.UNetConfig(**UCFG)
-    tree = junet.init_params(jax.random.PRNGKey(0), jcfg)
+    tree = jax.jit(lambda k: junet.init_params(k, jcfg))(
+        jax.random.PRNGKey(0))
     rs = np.random.RandomState(0)
     tree = jax.tree.map(
         lambda a: (rs.randn(*np.shape(a)) / np.sqrt(np.prod(np.shape(a)[:-1]))
@@ -124,15 +131,15 @@ def test_diffusion_train_step_matches_jax(unet_pair):
     state = tsteps.init_train_state(params, prng.PRNGKey(1, "cpu"), opt)
     jstate = jsteps.init_train_state(tree, jax.random.PRNGKey(1), jopt_cfg)
     new, metrics = tsteps.make_diffusion_train_step(tloss, opt)(state, batch)
-    jnew, jmetrics = jsteps.make_diffusion_train_step(jloss, jopt_cfg)(
-        jstate, jnp.asarray(batch.numpy()))
+    jnew, jmetrics = jax.jit(jsteps.make_diffusion_train_step(
+        jloss, jopt_cfg))(jstate, jnp.asarray(batch.numpy()))
     np.testing.assert_array_equal(new.rng.numpy(), _u32(jnew.rng))
     assert _rel(metrics["loss"], jmetrics["loss"]) <= LOSS_RTOL
     assert _rel(metrics["grad_norm"], jmetrics["grad_norm"]) <= GNORM_RTOL
     assert int(new.opt.step) == 1
     # the gradients of the step's loss at the step's key
     _, sub = jax.random.split(jax.random.PRNGKey(1))
-    (jl, _), jg = jax.value_and_grad(jloss, has_aux=True)(
+    (jl, _), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
         tree, jnp.asarray(batch.numpy()), sub)
     (tl, _), tg = tsteps.value_and_grad(tloss, params, batch,
                                         torch.from_numpy(_u32(sub)))
@@ -168,7 +175,8 @@ def test_ema_weights_load_back_into_a_unet(unet_pair):
 def lm_pair():
     jcfg = jconfigs.get_smoke("smollm-135m")
     tcfg = tconfigs.get_smoke("smollm-135m")
-    jp = jdense.init_params(jax.random.PRNGKey(0), jcfg)
+    jp = jax.jit(lambda k: jdense.init_params(k, jcfg))(
+        jax.random.PRNGKey(0))
     tp = interop.lm_params_from_jax(_np(jp), tcfg)
     tokens = SyntheticTokens(vocab=tcfg.vocab).sample(
         prng.PRNGKey(2, "cpu"), 4, 24)
@@ -183,7 +191,8 @@ def test_lm_train_step_matches_jax(lm_pair, accum):
     jstate = jsteps.init_train_state(jp, jax.random.PRNGKey(1), jopt_cfg)
     new, m = tsteps.make_lm_train_step(tcfg, opt, accum_steps=accum)(
         state, {"tokens": tokens})
-    jnew, jm = jsteps.make_lm_train_step(jcfg, jopt_cfg, accum_steps=accum)(
+    jnew, jm = jax.jit(jsteps.make_lm_train_step(
+        jcfg, jopt_cfg, accum_steps=accum))(
         jstate, {"tokens": jnp.asarray(tokens.numpy())})
     np.testing.assert_array_equal(new.rng.numpy(), _u32(jnew.rng))
     assert _rel(m["loss"], jm["loss"]) <= LOSS_RTOL
@@ -194,10 +203,10 @@ def test_lm_train_step_matches_jax(lm_pair, accum):
             lambda p: tsteps.lm_loss_fn(api, tcfg, p, tokens, None), tp)
         from repro.models import get_api as jget_api
         japi = jget_api(jcfg)
-        (_, _), jg = jax.value_and_grad(
+        (_, _), jg = jax.jit(jax.value_and_grad(
             lambda p: jsteps.lm_loss_fn(japi, jcfg, p,
                                         jnp.asarray(tokens.numpy()), None),
-            has_aux=True)(jp)
+            has_aux=True))(jp)
         flat = lambda tree: {"/".join(p): v for p, v in  # noqa: E731
                              tckpt._flatten(tree)}
         _assert_grads_close(flat(tg), flat(_np(jg)))
@@ -214,13 +223,15 @@ def test_lm_train_step_other_families_match_jax(arch):
     """A moe step adds aux_weight * aux (MLA and GQA); a vlm or audio
     step trains on JAX's stub embeddings; the hybrid and ssm steps run
     autograd through the chunked SSD and the WKV loop; loss, aux and grad
-    norm as JAX's."""
+    norm as JAX's.  Both sides train JAX's (jitted) init, carried over by
+    ``interop`` (``test_torch_init.py`` holds the port's init bitwise to
+    JAX's)."""
     from repro.models import get_api as jget_api
     from repro_torch.models.vlm import stub_embeds
     jcfg, tcfg = jconfigs.get_smoke(arch), tconfigs.get_smoke(arch)
-    jp = jget_api(jcfg).init_params(jax.random.PRNGKey(0), jcfg)
-    tp = tsteps.get_api(tcfg).init_params(prng.PRNGKey(0, "cpu"), tcfg,
-                                          device="cpu")
+    jp = jax.jit(lambda k: jget_api(jcfg).init_params(k, jcfg))(
+        jax.random.PRNGKey(0))
+    tp = interop.lm_params_from_jax(_np(jp), tcfg)
     tokens = SyntheticTokens(vocab=tcfg.vocab).sample(
         prng.PRNGKey(2, "cpu"), 2, 16)
     batch, jbatch = {"tokens": tokens}, {"tokens": jnp.asarray(
@@ -236,7 +247,7 @@ def test_lm_train_step_other_families_match_jax(arch):
     opt, jopt_cfg = topt.AdamWConfig(lr=1e-3), jopt.AdamWConfig(lr=1e-3)
     _, m = tsteps.make_lm_train_step(tcfg, opt)(
         tsteps.init_train_state(tp, prng.PRNGKey(1, "cpu"), opt), batch)
-    _, jm = jsteps.make_lm_train_step(jcfg, jopt_cfg)(
+    _, jm = jax.jit(jsteps.make_lm_train_step(jcfg, jopt_cfg))(
         jsteps.init_train_state(jp, jax.random.PRNGKey(1), jopt_cfg),
         jbatch)
     assert _rel(m["loss"], jm["loss"]) <= LOSS_RTOL
@@ -281,12 +292,12 @@ def test_diffusion_lm_training_loss_matches_jax():
                                              **arch), time_dim=32)
     tcfg = tdlm.DiffusionLMConfig(arch=TArch(name="t", family="dense",
                                              **arch), time_dim=32)
-    jp = jdlm.init_params(jax.random.PRNGKey(0), jcfg)
+    jp = jax.jit(lambda k: jdlm.init_params(k, jcfg))(jax.random.PRNGKey(0))
     tp = interop.dlm_params_from_jax(_np(jp), tcfg)
     tokens = np.random.RandomState(1).randint(0, 50, (2, 16)).astype(
         np.int32)
-    jl, jaux = jdlm.training_loss(jp, jcfg, JSCH, jnp.asarray(tokens),
-                                  jax.random.PRNGKey(3))
+    jl, jaux = jax.jit(lambda p, t, k: jdlm.training_loss(
+        p, jcfg, JSCH, t, k))(jp, jnp.asarray(tokens), jax.random.PRNGKey(3))
     losses = []
     for remat in (True, False):
         (tl, taux), g = tsteps.value_and_grad(

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse fixture)
 from repro.models import unet as junet
 from repro_torch import interop, prng
 from repro_torch.configs import CIFAR10_UNET, TOY_UNET
