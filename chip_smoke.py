@@ -32,6 +32,12 @@ unsharded engines (the U-Net scheduler eta 0, eta 1 and order 2 with
 preview, probed; the diffusion-LM mega and unfused ticks), as one JSON
 line (the engine's state as a list of row blocks against the parent).
 
+    python3 chip_smoke.py --bits-probe OTHER/src
+
+hashes, for another checkout's ``src``, the uniform-type outputs of B3 -
+B7 at head dims up to 256 on seeded inputs and times them, as one JSON
+line: a change that keeps those kernels' bits prints the parent's hashes.
+
 It needs one CUDA device and ``nvcc`` (the kernels are built from the
 sources in the checkout into build/repro_torch_kernels/).  Phases:
 
@@ -441,6 +447,30 @@ sources in the checkout into build/repro_torch_kernels/).  Phases:
               times, the plain version, the bound (2 B an element) and
               SDPA / F.rms_norm.  --p21-probe runs only the build and this
               phase
+ 22. the kernels' last domain, run last: each kernel against its plain
+              version over what JAX's kernels take and the port's did not
+              before: B3 (K=2) and B4, exact / flash, on narrow 1-layer
+              trunks at head dims 258, 288, 320, 512 and 1,024 (2 x 80
+              tokens: ragged blocks) for a float32, bfloat16 and float16
+              state over weights of its type, and over seeded per-leaf
+              mixed trees at head dims 64 and 288 (the megastep_mixed
+              library); B5 at head dims 257 to 1,024 (the XL libraries,
+              ragged S, causal and full, three types; the plan against
+              the emulation's) and all 24 non-uniform q / k / v type
+              assignments; B6 at d 8,193 to 65,536 (the long-row kernel),
+              three types, and a float32 x over a bfloat16 or float16
+              scale; B7 on a float32 x over the 8 mixes of eps and noise,
+              bitwise; counted: DLM_SMOLLM_MEGA with (a) 2 heads of 288 over
+              one kv head, (b) one head of 576, (c) bfloat16 and (d)
+              float16 matrices over float32 norm scales, through generate
+              and 'mega' (B3 3 times, B1 never), a bfloat16 state over (a)
+              and (c), and a 4-slot scheduler (B4 once per tick); the ops
+              path (gqa_flash at head dim 512, rms_norm at d 20,000,
+              ddim_step_2d over bfloat16 eps / noise); then B3 / B4 at (a),
+              (b), (c), B5 at (16, 2048, 512) causal beside SDPA and the
+              widening's cost, B6 at (2048, 65,536) beside F.rms_norm and
+              B7 over bfloat16 eps / noise.  --p22-probe runs only the
+              build and this phase
 
 Every time is printed beside the card's name and power limit.  Any failure
 raises and the script exits nonzero with no result line.  On success the
@@ -606,8 +636,12 @@ def phase_card() -> str:
 
 FLASH_LIBS = ("flash_attention", "flash_attention_wide",
               "flash_attention_bf16", "flash_attention_bf16_wide",
-              "flash_attention_f16", "flash_attention_f16_wide")
-MEGA_LIBS = ("megastep", "megastep_bf16", "megastep_f16")
+              "flash_attention_f16", "flash_attention_f16_wide",
+              "flash_attention_xl", "flash_attention_bf16_xl",
+              "flash_attention_f16_xl")
+MEGA_LIBS = tuple(f"megastep{w}{a}{r}"
+                  for w in ("", "_bf16", "_f16", "_mixed")
+                  for a in ("", "_flash") for r in ("", "_rows"))
 
 
 def phase_build():
@@ -627,6 +661,14 @@ def phase_build():
         full = name in (*MEGA_LIBS, *FLASH_LIBS, "rmsnorm")
         for ln in (lines if full else spills)[:96]:
             print(f"[build]   {ln}")
+    for what in ("nvcc_seconds", "nvcc_cpu_seconds"):
+        secs = {name: re.findall(what + r" ([\d.]+)", build.build_log(name))
+                for name in build.sources()}
+        secs = {n: float(v[-1]) for n, v in secs.items() if v}
+        print(f"[build] {what.replace('_', ' ')}, longest first (sum "
+              f"{sum(secs.values()):.1f}): " + ", ".join(
+                  f"{n} {v:.1f}" for n, v in sorted(
+                      secs.items(), key=lambda kv: -kv[1])))
     for name in FLASH_LIBS:
         for kern, regs, spill in _flash_ptxas(build.build_log(name)):
             print(f"[build] B5 {kern}: {regs} registers, spill stores / "
@@ -638,6 +680,13 @@ def _flash_ptxas(log: str):
     kernel in a library's ptxas log."""
     out, cur, spill = [], None, (0, 0)
     for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*flash_xl_kernelI"
+                      r"(f|13__nv_bfloat16|6__half)Lb([01])E", ln)
+        if m:
+            t, c = m.groups()
+            cur = (f"{dict(f='f32').get(t, 'f16' if 'half' in t else 'bf16')}"
+                   f" XL (past 256) {'causal' if c == '1' else 'full'}")
+            continue
         m = re.search(r"Compiling entry function '\S*flash_mma_kernelI"
                       r"(f|13__nv_bfloat16|6__half)Li(\d+)ELb([01])ELi(\d)"
                       r"ELb([01])E", ln)
@@ -1907,9 +1956,13 @@ def _fa_plan(p):
     """B5's launch plan as the records keep it: grid, blocks per SM,
     dynamic shared bytes, threads per block, KV tile rows, the warps that
     share 16 query rows, the head width, the ring's stages and whether K /
-    V went by 16-byte copies."""
-    return {"grid": p["grid_x"] * p["grid_y"], "grid_xy": [p["grid_x"],
-            p["grid_y"]], "blocks_per_sm": p["blocks_per_sm"],
+    V went by 16-byte copies (and, past head dim 256, the output slices a
+    grid z)."""
+    slices = p.get("slices", 1)
+    return {"grid": p["grid_x"] * p["grid_y"] * slices,
+            "grid_xy": [p["grid_x"], p["grid_y"]] + (
+                [slices] if slices > 1 else []),
+            "blocks_per_sm": p["blocks_per_sm"],
             "smem_bytes": p["smem_bytes"], "threads": p["threads"],
             "kv_tile": p["kv_tile"], "kv_split": p["kv_split"],
             "head_width": p["head_width"], "stages": p["stages"],
@@ -2662,11 +2715,13 @@ def phase_17_main(smi, params2, bench):
     return b3, _p17_sched(smi, DLM_SMOLLM_MEGA, params2, *P17_SLOTS)
 
 
-def _time_b3(smi, cfg, params, batch, seq, gen, trace=False):
+def _time_b3(smi, cfg, params, batch, seq, gen, trace=False,
+             must_beat=True):
     """B3 (8 steps) at (batch, seq), exact and flash, beside the plain
     version, the operations bound and the unfused path of the same work,
-    which each must beat; with ``trace`` a phase trace of the exact launch.
-    Returns the two timed shapes."""
+    which each must beat (unless not ``must_beat``: then the ratio is only
+    printed); with ``trace`` a phase trace of the exact launch.  Returns
+    the two timed shapes."""
     from repro_torch.diffusion_lm import make_tile_eps_fn
     from repro_torch.kernels.megastep import kernel as mk
     from repro_torch.kernels.megastep import ref as mref
@@ -2709,7 +2764,7 @@ def _time_b3(smi, cfg, params, batch, seq, gen, trace=False):
         print(f"[times] {smi} | unfused tile_resident, the same "
               f"{DLM_K} steps: {tile_ms * 1e3:.2f} us ({how}); B3 / "
               f"unfused = {rec['ms'] / tile_ms:.3f}")
-        check(rec["ms"] < tile_ms, f"B3 {rec['shape']}: "
+        check(rec["ms"] < tile_ms or not must_beat, f"B3 {rec['shape']}: "
               f"{rec['ms'] * 1e3:.1f} us is not below the unfused "
               f"{tile_ms * 1e3:.1f} us")
         recs.append(rec)
@@ -2721,11 +2776,12 @@ def _time_b3(smi, cfg, params, batch, seq, gen, trace=False):
     return recs
 
 
-def _time_b4(smi, cfg, params, batch, seq, gen, trace=False):
+def _time_b4(smi, cfg, params, batch, seq, gen, trace=False,
+             must_beat=True):
     """B4 (one tick of ``batch`` slots of ``seq`` tokens), exact and flash,
     beside the plain version, the operations bound and the unfused rows
-    tick, which each must beat; with ``trace`` a phase trace of the exact
-    launch.  Returns the two timed shapes."""
+    tick, which each must beat (unless not ``must_beat``); with ``trace``
+    a phase trace of the exact launch.  Returns the two timed shapes."""
     from repro_torch.core import StepStates, slot_tile_step
     from repro_torch.diffusion_lm import make_tile_eps_fn
     from repro_torch.kernels.megastep import kernel as mk
@@ -2763,7 +2819,7 @@ def _time_b4(smi, cfg, params, batch, seq, gen, trace=False):
         print(f"[times] {smi} | unfused rows tick at the same shape: "
               f"{rows_ms * 1e3:.2f} us ({how}); B4 / unfused = "
               f"{rec['ms'] / rows_ms:.3f}")
-        check(rec["ms"] < rows_ms, f"B4 {rec['shape']}: "
+        check(rec["ms"] < rows_ms or not must_beat, f"B4 {rec['shape']}: "
               f"{rec['ms'] * 1e3:.1f} us is not below the unfused rows "
               f"tick {rows_ms * 1e3:.1f} us")
         recs.append(rec)
@@ -3530,9 +3586,599 @@ def phase_21(smi, params2, model):
     return errs, launches, shapes
 
 
+# ------------------------------------------------------------------ phase 22
+# The kernels' last domain: what JAX's kernels take and the port's took
+# not before.  B3 / B4 past head dim 256 (attention_wide) and over trees
+# of several leaf types (the megastep_mixed library), B5 past 256 (the XL
+# libraries) and over q / k / v of several types (widened to float32), B6
+# over any row width (the long-row kernel) and a float32 x over a 16-bit
+# scale, B7 over a float32 x with 16-bit eps / noise.  Tolerances: B3 / B4
+# against their plain versions as phases 18 and 21 hold them (1e-4 of
+# max|state| for a float32 state, 2e-2 for bfloat16, P21_STATE_TOL for
+# float16); 'mega' runs and mega ticks against the unfused path of the
+# same types P22_RUN_TOL (phase 18's 5e-2 with a bfloat16 state); B5 2e-5
+# of max|out| in float32 and one ulp of q's type otherwise; B6 4 float32
+# ulps, one ulp of a 16-bit type; B7 bitwise.
+P22_HEAD_DIMS = (258, 288, 320, 512, 1024)    # B3 / B4 narrow checks
+P22_NARROW = dict(n_layers=1, d_model=64, n_heads=2, n_kv_heads=1,
+                  d_ff=128, vocab=50)
+P22_GEOM = (2, 80)             # ragged 32-row query and K/V blocks
+P22_B5_DIMS = (257, 288, 320, 384, 512, 1024)
+P22_B5_SHAPES = ((2, 100), (3, 37))           # (BH, S), ragged S
+P22_B6_DIMS = (8193, 8196, 16388, 20000, 65536)
+P22_RUN_TOL = 1e-3
+P22_RUN_TOL_BF16 = 5e-2
+# the full-width trunks: DLM_SMOLLM_MEGA (2 layers) with (a) 2 heads of
+# 288 over one kv head, (b) one head of 576, (c) its own tree with every
+# matrix in bfloat16 and every norm scale in float32, (d) the same with
+# float16 matrices
+P22_TRUNKS = {"a": dict(n_heads=2, n_kv_heads=1, head_dim=288),
+              "b": dict(n_heads=1, n_kv_heads=1, head_dim=576),
+              "c": torch.bfloat16, "d": torch.float16}
+P22_BF16_STATE = ("a", "c")     # the trunks also run on a bfloat16 state
+
+
+def _p22_tol(dtype) -> float:
+    return {torch.bfloat16: 2e-2, F16: P21_STATE_TOL}.get(dtype, 1e-4)
+
+
+def _p22_matrices(tree, dtype, key=""):
+    """``tree`` with every matrix leaf cast to ``dtype`` and every norm
+    scale (a vector a layer) kept float32."""
+    if isinstance(tree, dict):
+        return {k: _p22_matrices(v, dtype, k) for k, v in tree.items()}
+    return tree if key.endswith("norm") else tree.to(dtype)
+
+
+def _p22_mixed(tree, seed):
+    """``tree`` with each eps-path leaf cast to a seeded one of float32,
+    bfloat16 and float16 (at least two of them)."""
+    from repro_torch.kernels.megastep import kernel as mk
+    g = torch.Generator().manual_seed(seed)
+    while True:
+        pick = [P21_DT[("f32", "bf16", "f16")[int(i)]]
+                for i in torch.randint(0, 3, (len(mk._POINTERS),),
+                                       generator=g)]
+        if len(set(pick)) > 1:
+            break
+    out = copy.copy(tree)
+    out["layers"] = dict(tree["layers"])
+    out["layers"]["attn"] = dict(tree["layers"]["attn"])
+    for path, dt in zip(mk._POINTERS, pick):
+        node = out
+        for k in path[:-1]:
+            node = node[k]
+        node[path[-1]] = node[path[-1]].to(dt)
+    return out
+
+
+def _p22_trunk(name):
+    """(cfg, eps-path params on the card) of trunk ``name`` of P22_TRUNKS."""
+    from repro_torch import prng
+    from repro_torch.configs import DLM_SMOLLM_MEGA
+    from repro_torch.diffusion_lm import init_params
+    spec = P22_TRUNKS[name]
+    if isinstance(spec, dict):
+        cfg = dataclasses.replace(DLM_SMOLLM_MEGA, arch=dataclasses.replace(
+            DLM_SMOLLM_MEGA.arch, **spec))
+        params = init_params(prng.PRNGKey(22), cfg)
+    else:
+        cfg = DLM_SMOLLM_MEGA
+        params = _p22_matrices(init_params(prng.PRNGKey(0), cfg), spec)
+    return cfg, params
+
+
+def _p22_narrow(D, seed):
+    from repro_torch import prng
+    from repro_torch.diffusion_lm import DiffusionLMConfig, init_params
+    from repro_torch.models.common import ArchConfig
+    cfg = DiffusionLMConfig(arch=ArchConfig(name=f"narrow-hd{D}",
+                                            family="dense", head_dim=D,
+                                            **P22_NARROW),
+                            time_dim=32, latent_dim=32)
+    return cfg, init_params(prng.PRNGKey(seed), cfg)
+
+
+def _p22_mega_pair(errs, tag, cfg, params, x2, batch, seq, coefs, ts,
+                   tol, repeat=False):
+    """B3 (K=2) and B4, exact and flash, on the card against their plain
+    versions."""
+    from repro_torch.kernels.megastep import kernel as mk
+    from repro_torch.kernels.megastep import ref as mref
+    from repro_torch.kernels.sampler_step import ops as sops
+    st, c = _p17_slot_rows(batch, None)
+    rows = sops.expand_slot_coefs(c, x2.shape[0] // batch)
+    for impl in ("exact", "flash"):
+        args = (x2, params, cfg, batch, seq, coefs[:2], ts[:2])
+        got = mk.megastep_call(*args, attn_impl=impl)
+        _check_rel(errs["megastep_call"], f"B3 {tag} {impl} K=2", got,
+                   mref.megastep_ref(*args, attn_impl=impl), tol)
+        check(got.dtype == x2.dtype, f"B3 {tag}: dtype {got.dtype}")
+        if repeat:
+            _check_repeat(f"B3 {tag} {impl} K=2", got,
+                          mk.megastep_call(*args, attn_impl=impl))
+        args = (x2, params, cfg, batch, seq, rows, st)
+        got = mk.megastep_rows_call(*args, attn_impl=impl)
+        _check_rel(errs["megastep_rows_call"], f"B4 {tag} {impl}", got,
+                   mref.megastep_rows_ref(*args, attn_impl=impl), tol)
+        check(got.dtype == x2.dtype, f"B4 {tag}: dtype {got.dtype}")
+
+
+def phase_22_kernels():
+    """Each kernel over its new domain against its plain version on the
+    card.  Returns the largest error of each kernel."""
+    from repro_torch.kernels.ddim_step import kernel as dk
+    from repro_torch.kernels.ddim_step import ref as dref
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.megastep import kernel as mk
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.rmsnorm import ref as rref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2222)
+    errs = {k: [] for k in ("megastep_call", "megastep_rows_call",
+                            "flash_attention", "rms_norm_2d",
+                            "ddim_step_2d")}
+    dts = (torch.float32, torch.bfloat16, F16)
+    # B3 / B4: narrow 1-layer trunks past head dim 256, each state type
+    # over weights of its type (the three uniform libraries), and over
+    # seeded per-leaf mixed trees (the mixed library), at head dims 64 and
+    # 288
+    coefs, ts = _plan_rows(DLM_S)
+    batch, seq = P22_GEOM
+    x32 = torch.randn(batch * seq * 32 // 256, 256, generator=gen,
+                      device=dev)
+    for i, D in enumerate(P22_HEAD_DIMS):
+        cfg, params = _p22_narrow(D, i)
+        for dt in dts:
+            x2 = x32.to(dt)
+            _p22_mega_pair(errs, f"D{D} {str(dt)[6:]} state and weights "
+                           f"{batch}x{seq}", cfg, _to_dtype(params, dt), x2,
+                           batch, seq, coefs, ts, _p22_tol(dt),
+                           repeat=dt == torch.float32 and D == 288)
+    # past kWideRowsMaxS (352) tokens the wide attention streams p v
+    cfg, params = _p22_narrow(288, 5)
+    x_long = torch.randn(400 * 32 // 256, 256, generator=gen, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        _p22_mega_pair(errs, f"D288 {str(dt)[6:]} state and weights 1x400",
+                       cfg, _to_dtype(params, dt), x_long.to(dt), 1, 400,
+                       coefs, ts, _p22_tol(dt))
+    for D in (64, 288):
+        cfg, params = _p22_narrow(D, 7)
+        for j, dt in enumerate(dts):
+            tree = _p22_mixed(params, 10 * D + j)
+            check(mk.weight_library(tree) == mk.MIXED, "a mixed tree")
+            _p22_mega_pair(errs, f"D{D} {str(dt)[6:]} state, mixed tree "
+                           f"{j}", cfg, tree, x32.to(dt), batch, seq, coefs,
+                           ts, _p22_tol(dt), repeat=j == 0)
+    # B5 past 256: ragged S, causal and full, three types; the XL plan
+    ulp = {torch.float32: 2e-5, torch.bfloat16: BF16_ULP, F16: F16_ULP}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for D in P22_B5_DIMS:
+        for BH, S in P22_B5_SHAPES:
+            for dt in dts:
+                q, k, v = (torch.randn(BH, S, D, generator=gen, device=dev)
+                           .to(dt) for _ in range(3))
+                for causal in (False, True):
+                    got = fk.flash_attention(q, k, v, causal=causal,
+                                             block_q=S, block_k=S)
+                    _check_rel(errs["flash_attention"],
+                               f"B5 ({BH}, {S}, {D}) {str(dt)[6:]} "
+                               f"{'causal' if causal else 'full'}", got,
+                               fref.flash_attention_ref(q, k, v,
+                                                        causal=causal,
+                                                        block_k=S), ulp[dt])
+                    plan = fk.flash_attention.last_plan
+                    want = (fref.kernel_head_width(D),
+                            fref.kernel_kv_tile(D, dt),
+                            fref.kernel_kv_split(BH, S, n_sm, D),
+                            fref.kernel_slices(D))
+                    got_p = (plan["head_width"], plan["kv_tile"],
+                             plan["kv_split"], plan["slices"])
+                    check(got_p == want, f"B5 ({BH}, {S}, {D}): plan "
+                          f"{got_p}, the emulation assumes {want}")
+        print(f"[kernels]   B5 D {D} plan {_fa_plan(plan)}")
+    # B5 over mixed q / k / v: all 24 non-uniform type assignments
+    BH, S, D = 4, 100, 64
+    base = [torch.randn(BH, S, D, generator=gen, device=dev)
+            for _ in range(3)]
+    n_mix = 0
+    for tq in dts:
+        for tk_ in dts:
+            for tv in dts:
+                if tq == tk_ == tv:
+                    continue
+                q, k, v = base[0].to(tq), base[1].to(tk_), base[2].to(tv)
+                got = fk.flash_attention(q, k, v, causal=True, block_q=S,
+                                         block_k=S)
+                check(got.dtype == tq and fk.flash_attention.last_plan[
+                    "widened"], f"B5 mixed q/k/v: dtype {got.dtype}")
+                _check_rel(errs["flash_attention"],
+                           f"B5 ({BH}, {S}, {D}) q/k/v {str(tq)[6:]}/"
+                           f"{str(tk_)[6:]}/{str(tv)[6:]} causal", got,
+                           fref.flash_attention_ref(q, k, v, causal=True,
+                                                    block_k=S), ulp[tq])
+                n_mix += 1
+    check(n_mix == 24, f"B5 ran {n_mix} type assignments, not 24")
+    # B6 over any row width (the long-row kernel), three types; a float32
+    # x over a 16-bit scale
+    ulp6 = {torch.float32: 4 * F32_ULP, torch.bfloat16: BF16_ULP,
+            F16: F16_ULP}
+    for d in P22_B6_DIMS:
+        x32 = torch.randn(64, d, generator=gen, device=dev)
+        s32 = torch.rand(d, generator=gen, device=dev) + 0.5
+        for dt in dts:
+            x, sc = x32.to(dt), s32.to(dt)
+            _check_rel(errs["rms_norm_2d"], f"B6 (64, {d}) {str(dt)[6:]}",
+                       rk.rms_norm_2d(x, sc), rref.rms_norm_body(x, sc, 1e-5),
+                       ulp6[dt])
+            check(rk.rms_norm_2d.last_plan["long_rows"] == 1,
+                  f"B6 d {d}: plan {rk.rms_norm_2d.last_plan}")
+        for dt in (torch.bfloat16, F16):
+            sc = s32.to(dt)
+            got = rk.rms_norm_2d(x32, sc)
+            check(got.dtype == torch.float32, "B6 float32 x: dtype")
+            _check_rel(errs["rms_norm_2d"], f"B6 (64, {d}) f32 over "
+                       f"{str(dt)[6:]} scale", got,
+                       rref.rms_norm_body(x32, sc, 1e-5), ulp6[torch.float32])
+    for d, dt in ((576, torch.bfloat16), (8192, F16)):  # one-pass kept
+        x, sc = (torch.randn(64, d, generator=gen, device=dev),
+                 torch.rand(d, generator=gen, device=dev).to(dt))
+        _check_rel(errs["rms_norm_2d"], f"B6 (64, {d}) f32 over "
+                   f"{str(dt)[6:]} scale", rk.rms_norm_2d(x, sc),
+                   rref.rms_norm_body(x, sc, 1e-5), ulp6[torch.float32])
+        check(rk.rms_norm_2d.last_plan["long_rows"] == 0,
+              f"B6 d {d}: plan {rk.rms_norm_2d.last_plan}")
+    print(f"[kernels]   B6 plan {rk.rms_norm_2d.last_plan}")
+    # B7: a float32 x over the 8 non-uniform (eps, noise) type pairs
+    c7 = torch.tensor(B7_COEFS)
+    x, e, z = (torch.randn(1024, 256, generator=gen, device=dev)
+               for _ in range(3))
+    for te in dts:
+        for tz in dts:
+            if te == tz == torch.float32:
+                continue
+            got = dk.ddim_step_2d(x, e.to(te), z.to(tz), c7)
+            want = dref.ddim_step_body(x, e.to(te), z.to(tz), c7.to(dev))
+            same = torch.equal(got, want)
+            print(f"[kernels] B7 (1024, 256) f32 over eps {str(te)[6:]}, "
+                  f"noise {str(tz)[6:]}: bitwise "
+                  f"{'ok' if same else 'FAIL'}")
+            check(same and got.dtype == torch.float32,
+                  f"B7 f32 over {te} / {tz} differs from its plain version")
+            errs["ddim_step_2d"].append(0.0)
+    torch.cuda.synchronize()
+    return {k: max(v) for k, v in errs.items()}
+
+
+def _p22_ops(smi):
+    """The ops path over the new domain, counted: gqa_flash at head dim 512
+    (float32 and bfloat16 q over float32 k / v), rms_norm at d 20,000 and a
+    float32 x over a bfloat16 scale, ddim_step_2d on a float32 x over
+    bfloat16 eps and noise, each against its plain version.  Returns
+    {kernel: launches}."""
+    from repro_torch.kernels.ddim_step import kernel as dk
+    from repro_torch.kernels.ddim_step import ref as dref
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.rmsnorm import ops as rops
+    from repro_torch.kernels.rmsnorm import ref as rref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2223)
+    fk.flash_attention.launches = rk.rms_norm_2d.launches = 0
+    dk.ddim_step_2d.launches = 0
+    worst = {}
+    S, H, Hkv, D = 512, 4, 2, 512
+    k, v = (torch.randn(1, S, Hkv, D, generator=gen, device=dev)
+            for _ in range(2))
+    for qt in (torch.float32, torch.bfloat16):
+        q = torch.randn(1, S, H, D, generator=gen, device=dev).to(qt)
+        out = fops.gqa_flash(q, k, v, causal=True)
+        kr, vr = (torch.repeat_interleave(t, H // Hkv, dim=2) for t in (k, v))
+        want = fref.flash_attention_ref(
+            *(t.transpose(1, 2).reshape(H, S, D) for t in (q, kr, vr)),
+            causal=True).reshape(1, H, S, D).transpose(1, 2)
+        worst[f"B5 {str(qt)[6:]}"] = float(
+            (out.float() - want.float()).abs().max() / want.float().abs().max())
+        check(out.dtype == qt, f"gqa_flash {qt}: {out.dtype}")
+    h = torch.randn(2, 8, 20000, generator=gen, device=dev)
+    for sc in (torch.rand(20000, generator=gen, device=dev) + 0.5,):
+        for st in (torch.float32, torch.bfloat16):
+            got = rops.rms_norm(h, sc.to(st))
+            want = rref.rms_norm_body(h, sc.to(st), 1e-5)
+            worst[f"B6 scale {str(st)[6:]}"] = float(
+                (got - want).abs().max() / want.abs().max())
+    x, e, z = (torch.randn(1024, 256, generator=gen, device=dev)
+               for _ in range(3))
+    c7 = torch.tensor(B7_COEFS)
+    y = dk.ddim_step_2d(x, e.bfloat16(), z.bfloat16(), c7)
+    worst["B7"] = float((y - dref.ddim_step_body(
+        x, e.bfloat16(), z.bfloat16(), c7.to(dev))).abs().max())
+    torch.cuda.synchronize()
+    launches = {"flash_attention": fk.flash_attention.launches,
+                "rms_norm_2d": rk.rms_norm_2d.launches,
+                "ddim_step_2d": dk.ddim_step_2d.launches}
+    print(f"[p22] {smi} | ops path: gqa_flash causal (1, {S}, {H}/{Hkv}, "
+          f"{D}) over float32 k / v, rms_norm (2, 8, 20000), ddim_step_2d "
+          f"float32 over bfloat16 eps / noise; max|d| / max|out| against "
+          f"the plain versions {worst}; launches {launches}")
+    check(launches == {"flash_attention": 2, "rms_norm_2d": 2,
+                       "ddim_step_2d": 1}, f"p22 ops launches {launches}")
+    check(worst["B5 float32"] <= 2e-5 and worst["B5 bfloat16"] <= BF16_ULP
+          and max(worst["B6 scale float32"], worst["B6 scale bfloat16"])
+          <= 4 * F32_ULP and worst["B7"] == 0.0, f"p22 ops path: {worst}")
+    return launches
+
+
+def _p22_sched(smi, cfg, params, state, label):
+    """A 4-slot scheduler over ``params`` on a state of ``state``: the mega
+    tick launches B4 once per tick, against an unfused engine.  Returns
+    the B4 launches."""
+    from repro_torch.core.schedules import make_schedule
+    from repro_torch.diffusion_lm import make_tile_eps_fn
+    from repro_torch.serving import ContinuousBatchingEngine, SampleRequest
+    sch = make_schedule("linear", 1000)
+    eps = make_tile_eps_fn(params, cfg, DLM_BATCH, DLM_SEQ)
+    shape = (DLM_SEQ, cfg.latent_dim)
+    mega = ContinuousBatchingEngine(sch, eps, shape, slots=DLM_BATCH,
+                                    dtype=state)
+    plain = ContinuousBatchingEngine(sch, eps, shape, slots=DLM_BATCH,
+                                     dtype=state, use_mega=False)
+    check(mega.tick_variant == "mega" and plain.tick_variant == "rows",
+          f"{label}: engines pick {mega.tick_variant} / "
+          f"{plain.tick_variant}")
+
+    def requests():
+        return [SampleRequest(request_id=i, S=DLM_SCHED_S[i % 2],
+                              seed=2250 + i) for i in range(2 * DLM_BATCH)]
+    _zero_counts()
+    res_m = mega.serve(requests())
+    torch.cuda.synchronize()
+    counts, st = _counts(), mega.stats()
+    res_p = plain.serve(requests())
+    xm, xp = (torch.stack([r.x0 for r in sorted(
+        res, key=lambda r: r.request_id)]).float() for res in (res_m, res_p))
+    rel = float((xm - xp).abs().max() / xp.abs().max())
+    tol = P22_RUN_TOL_BF16 if state == torch.bfloat16 else P22_RUN_TOL
+    print(f"[p22] {smi} | scheduler {label}, state {str(state)[6:]}, "
+          f"{DLM_BATCH} slots x {DLM_SEQ}, {2 * DLM_BATCH} requests: "
+          f"{st['ticks']} ticks, completed {st['completed']}; launches "
+          f"{counts}; vs unfused max|d|/max|x| = {rel:.3e} (tol {tol})")
+    check(counts == {"B1": 0, "B2": 0, "B3": 0, "B4": st["ticks"]}
+          and st["completed"] == 2 * DLM_BATCH
+          and st["compiled_ticks"] == 1, f"{label} mega tick: launches "
+          f"{counts}")
+    check(rel <= tol and bool(torch.isfinite(xm).all()),
+          f"{label} mega tick vs unfused: {rel}")
+    return counts["B4"]
+
+
+def phase_22_main(smi):
+    """The full-width trunks of P22_TRUNKS through the main paths, counted:
+    generate(tile_resident=True) on a float32 state (B3 3 times, B1
+    never), plan.run 'mega' exact and flash against 'tile_resident' (on a
+    float32 state, and a bfloat16 one over P22_BF16_STATE), a 4-slot
+    scheduler (B4 once per tick; float32, and bfloat16 over
+    P22_BF16_STATE).  Returns ((B3, B4) launches, {name: (cfg, params)})."""
+    from repro_torch.diffusion_lm.model import EPS_PATH
+    from repro_torch.kernels.megastep import kernel as mk
+    from repro_torch.kernels.megastep import ops as mops
+    b3 = b4 = 0
+    trunks = {}
+    for name in P22_TRUNKS:
+        cfg, params = _p22_trunk(name)
+        trunks[name] = (cfg, params)
+        eps_params = {k: params[k] for k in EPS_PATH}
+        label = (f"({name}) {cfg.arch.name} {cfg.arch.n_heads} x "
+                 f"{cfg.arch.hd()} over {cfg.arch.n_kv_heads} kv, "
+                 f"{mk.weight_library(eps_params)} weights")
+        spec = mops.MegaSpec(params=eps_params, cfg=cfg, batch=DLM_BATCH,
+                             seq_len=DLM_SEQ)
+        print(f"[p22] {smi} | trunk {label}: {spec.vmem_bytes()} B of "
+              f"MEGA_BUDGET {mops.MEGA_BUDGET} (exact, float32 state)")
+        b3 += _p17_generate(smi, cfg, params, DLM_BATCH, DLM_SEQ, tag="p22")
+        for state in ((torch.float32, torch.bfloat16)
+                      if name in P22_BF16_STATE else (torch.float32,)):
+            if state == torch.bfloat16:
+                for impl in ("exact", "flash"):
+                    b3 += _p18_mega_run(smi, label, cfg, params, DLM_BATCH,
+                                        DLM_SEQ, state, impl=impl,
+                                        tol=P22_RUN_TOL_BF16, tag="p22")
+            b4 += _p22_sched(smi, cfg, params, state, label)
+    return (b3, b4), trunks
+
+
+def phase_22_times(smi, trunks):
+    """B3 (8 steps) and B4 (one tick) at trunks (a), (b) and (c); B5 at
+    (16, 2048, 512) causal, float32 and bfloat16, beside SDPA, and the
+    widening of a bfloat16 q over float32 k / v; B6 at (2048, 65,536)
+    beside F.rms_norm; B7 on a float32 x over bfloat16 eps / noise.
+    Returns {kernel: [records]}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ddim_step import kernel as dk
+    from repro_torch.kernels.ddim_step import ref as dref
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.rmsnorm import ref as rref
+    gen = torch.Generator(device="cuda").manual_seed(2224)
+    shapes = {"megastep_call": [], "megastep_rows_call": []}
+    for name in ("a", "b", "c"):
+        cfg, params = trunks[name]
+        # past head dim 256 the ratio to the unfused path is printed, not
+        # checked (the wide attention's items are few and serial)
+        for rec in _time_b3(smi, cfg, params, DLM_BATCH, DLM_SEQ, gen,
+                            trace=True, must_beat=name == "c"):
+            rec["shape"] = f"({name}) {rec['shape']}"
+            shapes["megastep_call"].append(rec)
+        for rec in _time_b4(smi, cfg, params, DLM_BATCH, DLM_SEQ, gen,
+                            trace=True, must_beat=name == "c"):
+            rec["shape"] = f"({name}) {rec['shape']}"
+            shapes["megastep_rows_call"].append(rec)
+    shapes["flash_attention"] = [
+        _time_b5(smi, gen, 16, 2048, 512, 128, True, dt)
+        for dt in (torch.float32, torch.bfloat16)]
+    q = torch.randn(16, 2048, 512, generator=gen, device="cuda")
+    k, v = torch.randn_like(q), torch.randn_like(q)
+    qb = q.bfloat16()
+    wide_ms = graph_ms(lambda: fk.flash_attention(qb, k, v, causal=True))
+    f32_ms = graph_ms(lambda: fk.flash_attention(q, k, v, causal=True))
+    print(f"[times] {smi} | B5 (16, 2048, 512) causal, bfloat16 q over "
+          f"float32 k / v (widened to float32, output rounded to "
+          f"bfloat16): {wide_ms * 1e3:.2f} us; all float32 "
+          f"{f32_ms * 1e3:.2f} us: the widening costs "
+          f"{(wide_ms - f32_ms) * 1e3:.2f} us")
+    shapes["flash_attention"][0].update(mixed_qkv_ms=wide_ms)
+    R, d = 2048, 65536
+    x = torch.randn(R, d, generator=gen, device="cuda")
+    sc = torch.rand(d, generator=gen, device="cuda") + 0.5
+    b_ms, b_by = _bound((2 * R * d + d) * 4, 4 * R * d)
+    rec = dict(ms=graph_ms(lambda: rk.rms_norm_2d(x, sc), iters=10),
+               plain_ms=graph_ms(lambda: rref.rms_norm_body(x, sc, 1e-5),
+                                 iters=5),
+               library_ms=graph_ms(lambda: F.rms_norm(x, (d,), sc, 1e-5),
+                                   iters=10),
+               bound_ms=b_ms, bound_by=b_by, shape=f"({R}, {d}) f32",
+               **_rn_plan(rk.rms_norm_2d))
+    _time_line(smi, f"B6 rms_norm_2d {rec['shape']} (long rows)", rec)
+    scb = sc.bfloat16()
+    rec["scale_bf16_ms"] = graph_ms(lambda: rk.rms_norm_2d(x, scb), iters=10)
+    print(f"[times] {smi} | B6 ({R}, {d}) f32 x over a bfloat16 scale "
+          f"(widened): {rec['scale_bf16_ms'] * 1e3:.2f} us")
+    shapes["rms_norm_2d"] = [rec]
+    del x
+    c7 = torch.tensor(B7_COEFS)
+    c7d = c7.cuda()
+    x, e, z = (torch.randn(1024, 256, generator=gen, device="cuda")
+               for _ in range(3))
+    eb, zb = e.bfloat16(), z.bfloat16()
+    b_ms, b_by = _bound(1024 * 256 * (4 + 2 + 2 + 4), 5 * 1024 * 256)
+    rec = dict(ms=graph_ms(lambda: dk.ddim_step_2d(x, eb, zb, c7)),
+               plain_ms=graph_ms(lambda: dref.ddim_step_body(
+                   x, eb, zb, c7d)), library_ms=None, bound_ms=b_ms,
+               bound_by=b_by, shape="(1024, 256) f32 over bf16 eps / noise",
+               f32_ms=graph_ms(lambda: dk.ddim_step_2d(x, e, z, c7)))
+    _time_line(smi, f"B7 ddim_step_2d {rec['shape']}", rec)
+    shapes["ddim_step_2d"] = [rec]
+    return shapes
+
+
+def phase_22(smi):
+    """Phase 22, the kernels' last domain: the kernel checks; counted, the
+    full-width trunks through generate, 'mega' and the scheduler (B3 3
+    times a run, B4 once a tick, B1 never) and the ops path (B5, B6, B7);
+    then the times.  Returns ({kernel: max error}, {kernel: launches},
+    {kernel: shapes})."""
+    t0 = time.perf_counter()
+    errs = phase_22_kernels()
+    print(f"[p22] kernel checks: largest max|d| " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; {time.perf_counter() - t0:.1f} s")
+    (b3, b4), trunks = phase_22_main(smi)
+    launches = {"megastep_call": b3, "megastep_rows_call": b4}
+    launches.update(_p22_ops(smi))
+    print(f"[p22] launches on the phase-22 paths: {launches}")
+    shapes = phase_22_times(smi, trunks)
+    print(f"[p22] phase 22: {time.perf_counter() - t0:.1f} s")
+    return errs, launches, shapes
+
+
+def bits_probe(smi, src) -> None:
+    """--bits-probe SRC: the uniform-type outputs of B3 / B4 (the three
+    uniform libraries, exact and flash, at 4 x 64 and on a narrow trunk
+    at head dim 200, ragged), B5 (head dims 64, 80, 200 and 256, full and
+    causal, three types), B6 (the one-pass paths, three types) and B7 of
+    SRC/repro_torch on seeded inputs, as the sha256 of their bytes, and the
+    graph-replayed times of B3 / B4 at 4 x 64 (8 steps, one tick), B5 at
+    (9, 2048, 64) causal, B6 at (2048, 576) and B7 at (1024, 256), as one
+    JSON line.  Two trees whose kernels agree bit for bit on those inputs
+    print the same hashes."""
+    import hashlib
+
+    from repro_torch.configs import DLM_SMOLLM_MEGA as cfg
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ddim_step import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.megastep import kernel as mk
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    from repro_torch.kernels.sampler_step import ops as sops
+    build.build_all()
+    gen = torch.Generator(device="cuda").manual_seed(3232)
+    hashes, us = {}, {}
+
+    def digest(name, t):
+        torch.cuda.synchronize()
+        hashes[name] = hashlib.sha256(
+            t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+        ).hexdigest()[:16]
+
+    coefs, ts = _plan_rows(DLM_S)
+    narrow = _p20_narrow(dict(d_model=96, n_heads=2, n_kv_heads=1,
+                              d_ff=128, head_dim=200), 32, 32, 5)
+    for (c, params), batch, seq, tag in (
+            ((cfg, _dlm_params(cfg)), DLM_BATCH, DLM_SEQ, "4x64"),
+            (narrow, 2, 80, "D200 2x80")):
+        x32 = torch.randn(batch * seq * c.latent_dim // 256, 256,
+                          generator=gen, device="cuda")
+        st, cr = _p17_slot_rows(batch, None)
+        rows = sops.expand_slot_coefs(cr, x32.shape[0] // batch)
+        for dt in (torch.float32, torch.bfloat16, F16):
+            p, x2 = _to_dtype(params, dt), x32.to(dt)
+            for impl in ("exact", "flash"):
+                name = f"{tag} {str(dt)[6:]} {impl}"
+                k8 = (x2, p, c, batch, seq, coefs[:DLM_K], ts[:DLM_K])
+                digest(f"B3 {name}", mk.megastep_call(*k8, attn_impl=impl))
+                b4 = (x2, p, c, batch, seq, rows, st)
+                digest(f"B4 {name}", mk.megastep_rows_call(*b4,
+                                                           attn_impl=impl))
+                if tag == "4x64" and impl == "exact":
+                    us[f"B3 {name}"] = graph_ms(
+                        lambda: mk.megastep_call(*k8), iters=5) * 1e3
+                    us[f"B4 {name}"] = graph_ms(
+                        lambda: mk.megastep_rows_call(*b4), iters=10) * 1e3
+    for BH, S, D in ((9, 2048, 64), (36, 64, 64), (5, 100, 80),
+                     (3, 37, 200), (2, 130, 256)):
+        base = [torch.randn(BH, S, D, generator=gen, device="cuda")
+                for _ in range(3)]
+        for dt in (torch.float32, torch.bfloat16, F16):
+            q, k, v = (t.to(dt) for t in base)
+            for causal in (False, True):
+                blk = S if S % 64 else min(S, 128)
+                digest(f"B5 ({BH}, {S}, {D}) {str(dt)[6:]} "
+                       f"{'causal' if causal else 'full'}",
+                       fk.flash_attention(q, k, v, causal=causal,
+                                          block_q=blk, block_k=blk))
+            if S == 2048:
+                us[f"B5 ({BH}, {S}, {D}) {str(dt)[6:]} causal"] = graph_ms(
+                    lambda: fk.flash_attention(q, k, v, causal=True)) * 1e3
+    for R, d in ((2048, 576), (256, 190), (8, 8192), (8, 16384)):
+        x32 = torch.randn(R, d, generator=gen, device="cuda")
+        s32 = torch.rand(d, generator=gen, device="cuda") + 0.5
+        for dt in (torch.float32, torch.bfloat16, F16):
+            if d * torch.finfo(dt).bits > 8192 * 32:
+                continue           # past the one-pass path of that type
+            x, sc = x32.to(dt), s32.to(dt)
+            digest(f"B6 ({R}, {d}) {str(dt)[6:]}", rk.rms_norm_2d(x, sc))
+            if (R, d) == (2048, 576):
+                us[f"B6 ({R}, {d}) {str(dt)[6:]}"] = graph_ms(
+                    lambda: rk.rms_norm_2d(x, sc)) * 1e3
+    c7 = torch.tensor(B7_COEFS)
+    for dt in (torch.float32, torch.bfloat16, F16):
+        x, e, z = (torch.randn(1024, 256, generator=gen, device="cuda")
+                   .to(dt) for _ in range(3))
+        digest(f"B7 (1024, 256) {str(dt)[6:]}", dk.ddim_step_2d(x, e, z, c7))
+        us[f"B7 (1024, 256) {str(dt)[6:]}"] = graph_ms(
+            lambda: dk.ddim_step_2d(x, e, z, c7)) * 1e3
+    print(json.dumps({"src": str(src), "card": smi, "hashes": hashes,
+                      "us": us}))
+
+
 def mega_probe(smi, src) -> None:
     """--mega-probe SRC: B3 (8 steps) and B4 (one tick) of DLM_SMOLLM_MEGA
-    at 4 x 64, float32 and bfloat16 state and weights, exact and flash,
+    at 4 x 64, float32, bfloat16 and float16 state and weights, exact and
+    flash,
     graph-replayed for SRC/repro_torch, as one JSON line of us, so that
     alternated runs compare two trees with one timer; before it, the phase
     trace of each exact launch."""
@@ -3549,7 +4195,8 @@ def mega_probe(smi, src) -> None:
     st, c = _p17_slot_rows(DLM_BATCH, None)
     rows = sops.expand_slot_coefs(c, x32.shape[0] // DLM_BATCH)
     out = {"src": str(src), "card": smi}
-    for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+    for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16),
+                    ("f16", F16)):
         p, x2 = _to_dtype(params, dt), x32.to(dt)
         for impl in ("exact", "flash"):
             out[f"B3 {tag} {impl}"] = graph_ms(lambda: mk.megastep_call(
@@ -3676,7 +4323,8 @@ def _rn_plan(wrapper):
     return {"grid": p["grid"], "blocks_per_sm": p["blocks_per_sm"],
             "smem_bytes": p["smem_bytes"], "threads": p["threads"],
             "rows_per_block": p["rows_per_block"],
-            "vector": bool(p["vector"])}
+            "vector": bool(p["vector"]),
+            "long_rows": bool(p.get("long_rows", 0))}
 
 
 def _add_shape(recs, name, rec, primary: bool) -> None:
@@ -4197,7 +4845,7 @@ def _host_prep(smi, eng, label):
     w_dtype = params["w_in"].dtype
     w = mk._weights(params, cfg, w_dtype)
     plan = (ctypes.c_longlong * len(mk._PLAN))()
-    lib = mk._lib(w_dtype)
+    lib = mk._lib(w_dtype, spec.attn_impl == "flash", True)
     pieces = (
         ("engine _states", lambda: eng._states()),
         ("expand_slot_coefs", lambda: sops.expand_slot_coefs(
@@ -7244,9 +7892,20 @@ def main(argv=None) -> int:
                     help="only build the kernels and run phase 21 (float16 "
                          "through the sampler and all seven kernels) on "
                          "this checkout")
+    ap.add_argument("--p22-probe", action="store_true",
+                    help="only build the kernels and run phase 22 (the "
+                         "kernels' last domain: B3 / B4 past head dim 256 "
+                         "and over mixed trees, B5 past 256 and over mixed "
+                         "q / k / v, B6 over any row width, B7 over "
+                         "JAX's mixed types) on this checkout")
+    ap.add_argument("--bits-probe", metavar="SRC", type=Path,
+                    help="only hash the uniform-type outputs of B3 - B7 at "
+                         "head dims up to 256 on seeded inputs and time "
+                         "them, on SRC/repro_torch (another checkout's "
+                         "src), as one JSON line")
     ap.add_argument("--mega-probe", metavar="SRC", type=Path,
-                    help="only time B3 / B4 at 4 x 64 (float32 and "
-                         "bfloat16, exact and flash) on SRC/repro_torch "
+                    help="only time B3 / B4 at 4 x 64 (float32, bfloat16 "
+                         "and float16, exact and flash) on SRC/repro_torch "
                          "(another checkout's src), as one JSON line")
     ap.add_argument("--b5-probe", metavar="SRC", type=Path,
                     help="only time B5 at the main path's shapes on "
@@ -7267,7 +7926,7 @@ def main(argv=None) -> int:
         return 1
     src = (args.launch_probe or args.lm_probe or args.draw_probe
            or args.tick_probe or args.b5_probe or args.mega_probe
-           or SRC).resolve()
+           or args.bits_probe or SRC).resolve()
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke: {src / 'repro_torch'} not found; run it from a "
               "checkout of the repository", file=sys.stderr)
@@ -7291,6 +7950,9 @@ def main(argv=None) -> int:
         return 0
     if args.mega_probe:
         mega_probe(smi, src)
+        return 0
+    if args.bits_probe:
+        bits_probe(smi, src)
         return 0
     from repro_torch.configs import LLAMA3_2_3B, SMOLLM_135M
     if args.lm_probe:
@@ -7330,6 +7992,10 @@ def main(argv=None) -> int:
         return 0
     if args.p21_probe:
         phase_21(smi, _dlm_params(DLM_SMOLLM_MEGA), _cifar10_model())
+        print(f"[done] {time.perf_counter() - t0:.1f} s")
+        return 0
+    if args.p22_probe:
+        phase_22(smi)
         print(f"[done] {time.perf_counter() - t0:.1f} s")
         return 0
     if args.p17_probe or args.p18_probe:
@@ -7430,6 +8096,10 @@ def main(argv=None) -> int:
     # Phase 19 runs last, so that every rate above is timed as before.  B1
     # runs on the mixed-type moe, ssm and hybrid trunks.
     b1_p19 = phase_19(smi)
+    # Phase 22 runs last, so that every rate above is timed as before: B3
+    # / B4 on the full-width trunks past head dim 256 and over mixed trees,
+    # B5 / B6 / B7 on the ops path over their new domains.
+    errs22, launches22, shapes22 = phase_22(smi)
     recs = {r["name"]: r for r in kernels}
     recs["sampler_step_2d"]["launches"] += (b1_auto + b1_p11 + b1_p12
                                             + b1_p13 + b1_p14 + b1_p19)
@@ -7451,6 +8121,13 @@ def main(argv=None) -> int:
         rec["launches"] += launches21[name]
         rec["max_abs_err"] = max(rec["max_abs_err"], errs21[name])
         rec.setdefault("shapes", []).extend(shapes21[name])
+    # phase 22: the last domain of B3 - B7
+    for name, n in launches22.items():
+        recs[name]["launches"] += n
+    for name, err in errs22.items():
+        recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"], err)
+    for name, recs22 in shapes22.items():
+        recs[name].setdefault("shapes", []).extend(recs22)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

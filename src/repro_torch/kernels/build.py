@@ -8,7 +8,10 @@ kernel families (``#include "<family>/csrc/<name>.cuh"``, resolved by
 ``kernels/*/csrc/*.cuh`` of the package: an edited source or header is
 rebuilt, an unchanged one is loaded as built.  Missing libraries are built
 in parallel, one ``nvcc`` per source, each logging to ``<library>.log``
-(``-Xptxas -v``: registers, shared memory, spills).  A missing ``nvcc`` or
+(``-Xptxas -v``: registers, shared memory, spills; then the wall and CPU
+seconds the nvcc took, ``nvcc_seconds`` and ``nvcc_cpu_seconds``: with
+more sources than cores the build's time is their CPU seconds over the
+cores, not its longest source's).  A missing ``nvcc`` or
 a failed build raises; nothing is skipped.
 
 The sources include no PyTorch header (each exposes ``extern "C"``
@@ -23,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Iterable, List
 
@@ -76,6 +80,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
     missing = {name: v for name, v in todo.items() if not v[1].exists()}
     nvcc = nvcc_path() if missing else None
     procs = []
+    t0 = time.monotonic()
     for name, (src, lib) in missing.items():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
@@ -84,12 +89,26 @@ def build_all() -> Dict[str, ctypes.CDLL]:
             procs.append((name, lib, tmp, log, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
                 stdout=out, stderr=subprocess.STDOUT)))
+    seconds, cpu = {}, {}
+    while len(seconds) < len(procs):   # each nvcc's wall and CPU time
+        for name, _, _, _, proc in procs:
+            if name in seconds:
+                continue
+            pid, status, ru = os.wait4(proc.pid, os.WNOHANG)
+            if pid:
+                proc.returncode = os.waitstatus_to_exitcode(status)
+                seconds[name] = time.monotonic() - t0
+                cpu[name] = ru.ru_utime + ru.ru_stime
+        time.sleep(0.1)
     failed = []
     for name, lib, tmp, log, proc in procs:
-        if proc.wait() != 0:
+        if proc.returncode != 0:
             failed.append(f"nvcc failed for {name} (exit {proc.returncode})"
                           f":\n{log.read_text()}")
         else:
+            with open(log, "a") as out:
+                out.write(f"nvcc_seconds {seconds[name]:.1f}\n"
+                          f"nvcc_cpu_seconds {cpu[name]:.1f}\n")
             os.replace(tmp, lib)
     if failed:
         raise RuntimeError("\n".join(failed))

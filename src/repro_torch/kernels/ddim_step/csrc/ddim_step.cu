@@ -17,6 +17,10 @@
 // explicit __f*_rn intrinsics keep nvcc's -fmad from contracting anything
 // else.
 //
+// A float32 x also takes eps and noise of any of the three types (JAX
+// promotes them to float32): ddim_step_f32 reads each operand at its own
+// type and widens it exactly, then runs the float32 arithmetic above.
+//
 // Bound on the H100: bytes.  Three reads and one write per element, a few
 // operations each: 16 bytes per float32 element (8 per bfloat16) over
 // 3.35 TB/s (8 per float16 element).
@@ -39,9 +43,17 @@ __device__ __forceinline__ float to_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+__device__ __forceinline__ float wide(float v) { return v; }
+__device__ __forceinline__ float wide(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float wide(__half v) { return __half2float(v); }
+
+// A float32 x; eps of type TE and noise of type TN, each widened exactly.
+template <typename TE, typename TN>
 __global__ void __launch_bounds__(kThreads)
-ddim_step_f32(const float* __restrict__ x, const float* __restrict__ eps,
-              const float* __restrict__ noise, float* __restrict__ out,
+ddim_step_f32(const float* __restrict__ x, const TE* __restrict__ eps,
+              const TN* __restrict__ noise, float* __restrict__ out,
               long long n, float c_x0, float c_dir, float c_noise,
               float sqrt_a_t, float sqrt_1m_a_t) {
   const float a = __fdiv_rn(c_x0, sqrt_a_t);
@@ -49,8 +61,37 @@ ddim_step_f32(const float* __restrict__ x, const float* __restrict__ eps,
   for (long long i = blockIdx.x * static_cast<long long>(kThreads) +
                      threadIdx.x;
        i < n; i += static_cast<long long>(gridDim.x) * kThreads)
-    out[i] = __fmaf_rn(c_noise, noise[i],
-                       __fmaf_rn(a, x[i], __fmul_rn(b, eps[i])));
+    out[i] = __fmaf_rn(c_noise, wide(noise[i]),
+                       __fmaf_rn(a, x[i], __fmul_rn(b, wide(eps[i]))));
+}
+
+template <typename TE, typename TN>
+void launch_f32(int blocks, cudaStream_t s, const void* x, const void* eps,
+                const void* noise, void* out, long long n, float c_x0,
+                float c_dir, float c_noise, float sqrt_a_t,
+                float sqrt_1m_a_t) {
+  ddim_step_f32<TE, TN><<<blocks, kThreads, 0, s>>>(
+      static_cast<const float*>(x), static_cast<const TE*>(eps),
+      static_cast<const TN*>(noise), static_cast<float*>(out), n, c_x0,
+      c_dir, c_noise, sqrt_a_t, sqrt_1m_a_t);
+}
+
+// The float32 launch over eps of type code ce and noise of type code cn
+// (0 float32, 1 bfloat16, 2 float16).
+template <typename TE>
+void launch_f32_noise(int cn, int blocks, cudaStream_t s, const void* x,
+                      const void* eps, const void* noise, void* out,
+                      long long n, float c_x0, float c_dir, float c_noise,
+                      float sqrt_a_t, float sqrt_1m_a_t) {
+  if (cn == 0)
+    launch_f32<TE, float>(blocks, s, x, eps, noise, out, n, c_x0, c_dir,
+                          c_noise, sqrt_a_t, sqrt_1m_a_t);
+  else if (cn == 1)
+    launch_f32<TE, __nv_bfloat16>(blocks, s, x, eps, noise, out, n, c_x0,
+                                  c_dir, c_noise, sqrt_a_t, sqrt_1m_a_t);
+  else
+    launch_f32<TE, __half>(blocks, s, x, eps, noise, out, n, c_x0, c_dir,
+                           c_noise, sqrt_a_t, sqrt_1m_a_t);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -108,22 +149,34 @@ ddim_step_f16(const __half* __restrict__ x, const __half* __restrict__ eps,
 
 extern "C" {
 
-// x, eps, noise, out: n contiguous elements of one dtype (0 = float32,
-// 1 = bfloat16, 2 = float16); the five coefficients already cast to that dtype.
-// Returns the cudaError_t of the launch (0 on success).
+// x, out: n contiguous elements of type code dtype (0 = float32, 1 =
+// bfloat16, 2 = float16); eps and noise: n elements of type codes
+// eps_dtype and noise_dtype, each equal to dtype unless x is float32; the
+// five coefficients already cast to x's type.  Returns the cudaError_t of
+// the launch (0 on success).
 int repro_ddim_step_2d(const void* x, const void* eps, const void* noise,
-                       void* out, int dtype, long long n, float c_x0,
-                       float c_dir, float c_noise, float sqrt_a_t,
-                       float sqrt_1m_a_t, void* stream) {
-  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+                       void* out, int dtype, int eps_dtype, int noise_dtype,
+                       long long n, float c_x0, float c_dir, float c_noise,
+                       float sqrt_a_t, float sqrt_1m_a_t, void* stream) {
+  if (n < 1 || eps_dtype < 0 || eps_dtype > 2 || noise_dtype < 0 ||
+      noise_dtype > 2 ||
+      (dtype != 0 && (eps_dtype != dtype || noise_dtype != dtype)))
+    return static_cast<int>(cudaErrorInvalidValue);
   long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  const int nb = static_cast<int>(blocks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    ddim_step_f32<<<static_cast<int>(blocks), kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(eps),
-        static_cast<const float*>(noise), static_cast<float*>(out), n, c_x0,
-        c_dir, c_noise, sqrt_a_t, sqrt_1m_a_t);
+    if (eps_dtype == 0)
+      launch_f32_noise<float>(noise_dtype, nb, s, x, eps, noise, out, n, c_x0,
+                              c_dir, c_noise, sqrt_a_t, sqrt_1m_a_t);
+    else if (eps_dtype == 1)
+      launch_f32_noise<__nv_bfloat16>(noise_dtype, nb, s, x, eps, noise, out,
+                                      n, c_x0, c_dir, c_noise, sqrt_a_t,
+                                      sqrt_1m_a_t);
+    else
+      launch_f32_noise<__half>(noise_dtype, nb, s, x, eps, noise, out, n,
+                               c_x0, c_dir, c_noise, sqrt_a_t, sqrt_1m_a_t);
   } else if (dtype == 1) {
     ddim_step_bf16<<<static_cast<int>(blocks), kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x),

@@ -20,7 +20,9 @@ its ``kernel.py``).
         a = f16(c_x0 / sqrt_a_t);  b = f16(fma(-a, sqrt_1m_a_t, c_dir))
         out = f16(fma(c_noise, noise, f16(fma(a, x, f16(b * eps)))))
     ``_round_f16`` rounds the float64 fma once: PyTorch's float64 to
-    float16 cast goes through float32 and rounds twice.
+    float16 cast goes through float32 and rounds twice.  A float32 x over
+    bfloat16 or float16 eps / noise widens them first (JAX promotes them
+    to float32; the widening is exact), then takes the float32 form.
 """
 from __future__ import annotations
 
@@ -53,6 +55,7 @@ def ddim_step_body(x: torch.Tensor, eps: torch.Tensor, noise: torch.Tensor,
     c = coefs.to(device=x.device, dtype=x.dtype)
     a = c[0] / c[3]
     if x.dtype == torch.float32:
+        eps, noise = eps.float(), noise.float()
         b = _fma(-a, c[4], c[1])
         return _fma(c[2], noise, _fma(a, x, b * eps))
     if x.dtype == torch.float16:

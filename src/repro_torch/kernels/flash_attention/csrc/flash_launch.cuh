@@ -11,7 +11,8 @@
 // float16, float32 running max / denominator / accumulator, q scaled by
 // 1/sqrt(d) before the dot, causal KV blocks above the diagonal skipped, output
 // acc / max(l, 1e-20) in q's dtype.  Its domain: every S >= 1 and every
-// head dim d from 1 to 256.  A head dim runs at the least width D >= d of
+// head dim d from 1 to 256 (past 256, flash_xl.cuh).  A head dim runs at
+// the least width D >= d of
 // 32, 64, 96, 128, 160, 192, 224, 256 (D - d < 32), zero-padded inside
 // the kernel; rows that are not whole 16-byte chunks at 16-byte aligned
 // pointers are staged element by element.

@@ -11,10 +11,15 @@ stages and the staging flags).  On tensors that lie on the CPU it runs
 the plain version (``ref.flash_attention_ref``) and counts nothing; on a
 CUDA tensor it launches or raises.  The kernel tiles for the card
 whatever blocks the caller passes.  It takes every S the block check
-admits and every head dim from 1 to 256, run at the least width of
-``ref.HEAD_WIDTHS`` that holds it; the widths up to 128 and those past it
-are two libraries per dtype (``csrc/flash_attention*.cu``), float32,
-bfloat16 and float16.  A head dim past 256 raises.
+admits and every head dim: up to 256 at the least width of
+``ref.HEAD_WIDTHS`` that holds it (the widths up to 128 and those past it
+are two libraries per dtype, ``csrc/flash_attention{,_bf16,_f16}{,_wide}
+.cu``), past 256 in the XL kernel (``csrc/flash_xl.cuh``, a library per
+dtype, ``*_xl.cu``), which streams the scores over the depth and writes
+the output in slices of 256 columns.  q, k and v of different float types
+(JAX casts every operand to float32 and the output to q's type) are
+widened to float32, exactly, for the float32 library, and its output is
+rounded once to q's type; ``last_plan["widened"]`` says so.
 """
 from __future__ import annotations
 
@@ -30,7 +35,8 @@ from . import ref
 
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 128
-# the fields of repro_flash_attention's plan[10], in order
+# the fields of repro_flash_attention's plan[10], in order (last_plan adds
+# "slices", the XL kernel's output slices, and "widened")
 _PLAN = ("grid_x", "grid_y", "threads", "smem_bytes", "blocks_per_sm",
          "kv_tile", "kv_split", "head_width", "stages", "flags")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -41,7 +47,8 @@ _SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16", torch.float16: "_f16"}
 def library_name(dtype: torch.dtype, width: int) -> str:
     """The library (``csrc/<name>.cu``) that holds ``width`` in ``dtype``."""
     return ("flash_attention" + _SUFFIX[dtype]
-            + ("_wide" if width > 128 else ""))
+            + ("_xl" if width > ref.MAX_HEAD_DIM
+               else "_wide" if width > 128 else ""))
 
 
 @functools.cache
@@ -69,17 +76,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal,
                                        block_k=block_k)
-    if q.dtype not in _SUFFIX or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q, k, v must share float32, bfloat16 or float16, "
+    if any(t.dtype not in _SUFFIX for t in (q, k, v)):
+        raise TypeError(f"q, k, v must be float32, bfloat16 or float16, "
                         f"got {q.dtype}, {k.dtype} and {v.dtype}")
-    if D > ref.MAX_HEAD_DIM:
-        raise ValueError(f"the CUDA kernel takes head dims up to "
-                         f"{ref.MAX_HEAD_DIM}: past that its float32 "
-                         f"accumulator of D / 2 registers a thread does not "
-                         f"fit; got D={D}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")
     build.check_cuda(q, k, v, aligned=False)
+    out_dtype = q.dtype
+    widened = not q.dtype == k.dtype == v.dtype
+    if widened:   # as JAX: every operand in float32, the output in q's type
+        q, k, v = (t.float() for t in (q, k, v))
     out = torch.empty_like(q)
     plan = (ctypes.c_int * len(_PLAN))()
     lib = _lib(library_name(q.dtype, ref.kernel_head_width(D)))
@@ -90,8 +96,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             torch.cuda.current_stream(q.device).cuda_stream, plan)
     build.raise_on(err, "flash_attention")
     flash_attention.launches += 1
-    flash_attention.last_plan = dict(zip(_PLAN, plan))
-    return out
+    flash_attention.last_plan = dict(zip(_PLAN, plan),
+                                     slices=ref.kernel_slices(D),
+                                     widened=widened)
+    return out.to(out_dtype) if widened else out
 
 
 flash_attention.launches = 0

@@ -15,7 +15,9 @@
   * ``flash_attention_tiles_ref``: the CUDA kernel's float32 tile
     arithmetic (64-row q tiles, its KV tiles in ascending order, 3xTF32
     products, the head dim zero-padded to the kernel's width, a ragged
-    last tile), for the CPU tests to hold against the JAX kernel.
+    last tile), for the CPU tests to hold against the JAX kernel; past
+    head dim 256 the XL kernel's (its output slices take the same scores,
+    so the arithmetic of an output element is that of one slice).
 """
 from __future__ import annotations
 
@@ -41,35 +43,52 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 Q_TILE = 64   # query rows of the CUDA kernel's largest block
-# The head widths the CUDA kernel is built at (``csrc/*.cu``): a head dim
-# d runs at the least width >= d, zero-padded (width - d < 32).
+# The head widths the one-pass CUDA kernel is built at (``csrc/*.cu`` but
+# ``*_xl.cu``): a head dim d up to 256 runs at the least width >= d,
+# zero-padded (width - d < 32).
 HEAD_WIDTHS = (32, 64, 96, 128, 160, 192, 224, 256)
 MAX_HEAD_DIM = HEAD_WIDTHS[-1]
+# Past 256 the XL kernel (``csrc/flash_xl.cuh``) streams the scores over
+# the depth in chunks of XL_DEPTH (d zero-padded to whole chunks) and
+# writes the output in slices of XL_SLICE columns, one block each.
+XL_DEPTH = 64
+XL_SLICE = 256
 
 
 def kernel_head_width(d: int) -> int:
-    """The width the CUDA kernel runs head dim ``d`` at (``D`` of
-    ``flash_mma_kernel``)."""
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"the CUDA kernel takes head dims 1 to "
-                         f"{MAX_HEAD_DIM}, got {d}")
-    return next(w for w in HEAD_WIDTHS if w >= d)
+    """The width the CUDA kernel runs head dim ``d`` at: ``D`` of
+    ``flash_mma_kernel`` up to 256, past it the XL kernel's depth padded
+    to whole chunks."""
+    if d < 1:
+        raise ValueError(f"the CUDA kernel takes head dims from 1, got {d}")
+    if d <= MAX_HEAD_DIM:
+        return next(w for w in HEAD_WIDTHS if w >= d)
+    return -(-d // XL_DEPTH) * XL_DEPTH
+
+
+def kernel_slices(d: int) -> int:
+    """Output slices (grid z) of the CUDA kernel at head dim ``d``: one up
+    to 256, else ceil(d / XL_SLICE), each recomputing the scores."""
+    return 1 if d <= MAX_HEAD_DIM else -(-d // XL_SLICE)
 
 
 def kernel_kv_tile(d: int, dtype: torch.dtype) -> int:
     """KV rows per stage of the CUDA kernel (``Tiles<T, D>::BK`` in
-    ``csrc/flash_mma.cuh``) at head dim ``d``: 64, or 32 for float32 past
-    width 64."""
+    ``csrc/flash_mma.cuh``; the XL kernel's are those of width 256) at
+    head dim ``d``: 64, or 32 for float32 past width 64."""
     if dtype == torch.float32 and kernel_head_width(d) > 64:
         return 32
     return 64
 
 
-def kernel_kv_split(bh: int, s: int, n_sm: int) -> int:
+def kernel_kv_split(bh: int, s: int, n_sm: int, d: int = 1) -> int:
     """The warps P that split the KV columns of 16 query rows
     (``with_split`` in ``csrc/flash_launch.cuh``): 1 while the 64-row q
     tiles (the last one ragged) are at least the SMs, else 2 while twice
-    as many are, else 4."""
+    as many are, else 4.  The XL kernel (head dim ``d`` past 256) never
+    splits."""
+    if d > MAX_HEAD_DIM:
+        return 1
     tiles = bh * -(-s // Q_TILE)
     return 1 if tiles >= n_sm else 2 if 2 * tiles >= n_sm else 4
 

@@ -49,7 +49,8 @@ _EDITS = {
          "t.sl0 + i);\n", ""),
         ("        load_slice<DUAL, G>(smem + (nx % kStages) * kStageFloats, "
          "t,\n                            t.sl0 + nx);\n", "        ;\n")],
-    "general": [("  p.general = !aligned(*w, seq);\n", "  p.general = 1;\n")],
+    "general": [("  p.general = kMixed || !aligned(*w, seq);\n",
+                 "  p.general = 1;\n")],
 }
 PHASES = ("qkv", "attn", "wo", "mlp", "down")
 
@@ -81,10 +82,12 @@ def _size(dtype: torch.dtype) -> int:
 
 
 def bound_us(cfg, batch: int, seq: int, K: int, state_dtype: torch.dtype,
-             weight_dtype: torch.dtype, rows: bool = False) -> Dict:
+             weight_dtype, rows: bool = False) -> Dict:
     """The least time of one launch (B3 with K steps, or with ``rows`` one
     B4 tick, K = 1) on the card, in µs: ``bytes`` (each eps-path weight
-    read once at its type, the state read and written once at its type,
+    read once at its type (``weight_dtype``: one type for every leaf, or
+    the eps-path tree itself, whose leaves may differ; a tree's trunk is
+    counted at the float32 rates), the state read and written once at its type,
     the coefficient, sinusoid and RoPE tables read once) over
     ``roofline.HBM_BW``; ``operations`` over the peak rate of the trunk's
     type (float32 CUDA cores, or 16-bit tensor cores when state and
@@ -93,12 +96,17 @@ def bound_us(cfg, batch: int, seq: int, K: int, state_dtype: torch.dtype,
     float32 product, one a 16-bit one).  ``bound`` is the larger of bytes and
     operations, ``by`` which."""
     from repro_torch.diffusion_lm.model import EPS_PATH, param_shapes
-    shapes = param_shapes(cfg)
-    n_w = sum(torch.Size(s).numel() for k in EPS_PATH
-              for s in kernel.leaves(shapes[k]))
+    if isinstance(weight_dtype, dict):
+        w_bytes = sum(t.numel() * t.element_size() for k in EPS_PATH
+                      for t in kernel.leaves(weight_dtype[k]))
+        weight_dtype = None
+    else:
+        shapes = param_shapes(cfg)
+        w_bytes = sum(torch.Size(s).numel() for k in EPS_PATH
+                      for s in kernel.leaves(shapes[k])) * _size(weight_dtype)
     n = batch * seq * cfg.latent_dim
     n_emb = batch if rows else K
-    n_bytes = (n_w * _size(weight_dtype) + 2 * n * _size(state_dtype)
+    n_bytes = (w_bytes + 2 * n * _size(state_dtype)
                + (n // 256 * 8 if rows else K * 5) * 4
                + n_emb * (4 + cfg.time_dim * 4) + seq * cfg.arch.hd() * 4)
     ops = operations(cfg, batch, seq, K) + (3 * n if rows else 0)
@@ -215,7 +223,7 @@ def main(argv=None) -> None:
     real = kernel._lib
     for name, lib in runs.items():
         if lib is not None:
-            kernel._lib = lambda weight_dtype=None, lib=lib: lib
+            kernel._lib = lambda *a, lib=lib, **k: lib
         try:
             times = phase_times(tick, cfg.arch.n_layers)
         finally:

@@ -1,0 +1,6 @@
+// B4, the scheduler tick, with 'flash' attention: megastep_bf16.cu's twin.
+#define REPRO_MEGA_FLASH 1
+#define REPRO_MEGA_ROWS 1
+#define REPRO_MEGA_WEIGHT __nv_bfloat16
+#include <cuda_bf16.h>
+#include "megastep/csrc/megastep_body.cuh"

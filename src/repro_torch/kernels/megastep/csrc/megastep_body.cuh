@@ -5,8 +5,12 @@
 // per-row update (repro_megastep_rows).  Both are one kernel template.
 // This body is compiled once per weight type: megastep.cu (float32
 // weights), megastep_bf16.cu (bfloat16 weights) and megastep_f16.cu
-// (float16 weights) define REPRO_MEGA_WEIGHT and include it, so the three
-// libraries build in parallel, 8 kernels each.
+// (float16 weights) define REPRO_MEGA_WEIGHT and include it, and
+// megastep_mixed.cu (REPRO_MEGA_MIXED: trees whose leaves are of more than
+// one type) builds it once more; each of the four with 'exact' attention
+// and the lockstep kernels (B3) only, beside its *_flash.cu, *_rows.cu and
+// *_flash_rows.cu twins, so that the sixteen libraries build in parallel,
+// 2 kernels each.
 //
 // Replaces the Pallas TPU kernels ``megastep_call`` (B3) and
 // ``megastep_rows_call`` (B4) of src/repro/kernels/megastep/kernel.py:232
@@ -30,7 +34,7 @@
 //
 // Geometry (every one the TPU kernel admits): any seq_len S >= 1 whose
 // sample is a whole number of 256-wide tile rows, any d_model, d_ff,
-// latent and time_dim, and an even head dim D from 2 to 256 (widths_ok).
+// latent and time_dim, and any even head dim D (widths_ok).
 // A 64-row product tile may straddle samples (S 32, 80, 200) and may end
 // past the batch's M = batch x S rows: every row of a tile finds its own
 // sample (m / S), rows past M are copied as zeros and never stored.  Tile
@@ -40,7 +44,10 @@
 // inside with 16-byte rows takes the plain copies.  Attention pads each
 // head to a width of 16, 32, 64, 96, 128 or 256 (columns past D are zero),
 // masks the K/V rows of a ragged last block (past S) to -1e30 and stores no
-// query row past S.  The aligned geometry (``aligned``: S a multiple of
+// query row past S.  Past 256 (attention_wide) it streams q k^T over the
+// head in chunks of 64 columns and p v in output chunks of 64 (the score
+// rows in shared memory up to kWideRowsMaxS tokens, else the running sums
+// in the item's own rows of the attention output buffer).  The aligned geometry (``aligned``: S a multiple of
 // 64, D 16, 32, 64 or 128, every product width a multiple of 32) runs its
 // own instantiation of each phase, with none of these checks: run there,
 // the general phases take 11% longer (bound_probe.py's ``general``
@@ -60,7 +67,13 @@
 // as the product reads its fragments (same ring, same shared memory, same
 // 2 blocks per SM).  The trunk computes in the promotion of the two types,
 // as jnp does: float32 unless both are of one 16-bit type (float16 with
-// bfloat16 promotes to float32).  Then (``round_trunk``) every value that
+// bfloat16 promotes to float32).  The mixed library reads each leaf at its
+// own type (a type code per pointer, ReproMegaWeights::leaf) and rounds
+// every value at the type JAX's promotion gives it, site by site
+// (ReproMegaWeights::site: the wrapper replays the promotion on the leaf
+// types); it runs the three 3xTF32 passes of every product (those of a
+// 16-bit operand add zeros: its TF32 remainder is 0) and only the general
+// phases.  Then (``round_trunk``) every value that
 // JAX's op sequence makes in that type is rounded there, bfloat16 or
 // float16 alike: each product's output (summed in
 // float32), the norms' inverse RMS, x * inv and * scale (so the norm is
@@ -176,12 +189,67 @@
 #ifndef REPRO_MEGA_WEIGHT
 #error "define REPRO_MEGA_WEIGHT (float, __nv_bfloat16 or __half) first"
 #endif
+#ifndef REPRO_MEGA_MIXED
+#define REPRO_MEGA_MIXED 0
+#endif
+// REPRO_MEGA_FLASH 0 builds the 'exact' kernels only, 1 the 'flash' ones
+// only, and REPRO_MEGA_ROWS 0 the lockstep kernels (B3) only, 1 the
+// scheduler tick's (B4) only: each library is built as four sources
+// (megastep*{,_flash}{,_rows}.cu, two kernels each), so that the build,
+// whose time is its CPU seconds over the cores, spreads evenly over them.
+// Left undefined, both.
+#ifndef REPRO_MEGA_FLASH
+#define REPRO_MEGA_FLASH -1
+#endif
+#ifndef REPRO_MEGA_ROWS
+#define REPRO_MEGA_ROWS -1
+#endif
+
+// The rounding sites of a mixed tree (ReproMegaWeights::site): the type
+// JAX gives each value, as a code (0 float32: none, 1 bfloat16, 2
+// float16).  Seven for the launch, then two rows of kLayerSites (layer 0,
+// and every later layer: a layer that turns h into float32 leaves it
+// there).  Mirrored by ../kernel.py (_GLOBAL_SITES, _LAYER_SITES).
+enum ReproMegaSite {
+  kSiteT1,   // temb @ time_w1 and its silu
+  kSiteT2,   // th @ time_w2
+  kSiteIn,   // state @ w_in
+  kSiteH0,   // h = state @ w_in + time embedding
+  kSiteHL,   // h entering the out norm
+  kSiteXO,   // rmsnorm(h, out_norm)
+  kSiteEps,  // eps = xo @ w_out
+  kGlobalSites
+};
+enum ReproMegaLayerSite {
+  kSiteH,    // h entering the layer
+  kSiteXA,   // rmsnorm(h, attn_norm)
+  kSiteQ,    // q (and its RoPE, and exact attention's probabilities)
+  kSiteK,    // k (and its RoPE)
+  kSiteV,    // v
+  kSiteQK,   // exact attention's scores
+  kSitePV,   // exact attention's output
+  kSiteWO,   // attention output @ wo
+  kSiteH1,   // h after the attention residual
+  kSiteXM,   // rmsnorm(h, mlp_norm)
+  kSiteG,    // xm @ w_gate and its silu
+  kSiteU,    // xm @ w_up
+  kSiteGU,   // silu(g) * u
+  kSiteD,    // gu @ w_down
+  kSiteH2,   // h after the MLP residual
+  kLayerSites
+};
+constexpr int kMegaLeaves = 14;
+constexpr int kMegaSites = kGlobalSites + 2 * kLayerSites;
 
 // Device pointers of the eps-path weights (stacked (n_layers, ...) leaves,
 // (in, out) layouts as the JAX pytree), all of this library's weight type,
 // and the trunk's widths.  The layout is mirrored by ctypes in
 // ../kernel.py; ``dtype`` names the weight type (0 float32, 1 bfloat16, 2
-// float16), and a launch refuses weights of another library's type.
+// float16, 3 mixed), and a launch refuses weights of another library's
+// type.  The mixed library reads ``leaf`` (each pointer's type code, in
+// pointer order), ``site`` (ReproMegaSite) and ``attn_div`` (sqrt(D) as
+// exact attention divides by it: in q's type, layer 0 and later); the
+// uniform libraries ignore them.
 struct ReproMegaWeights {
   const REPRO_MEGA_WEIGHT* w_in;       // (L, d)
   const REPRO_MEGA_WEIGHT* time_w1;    // (T, T)
@@ -201,6 +269,9 @@ struct ReproMegaWeights {
       head_dim;
   float norm_eps;
   int dtype;
+  int leaf[kMegaLeaves];
+  int site[kMegaSites];
+  float attn_div[2];
 };
 
 namespace {
@@ -217,13 +288,16 @@ using WT = REPRO_MEGA_WEIGHT;  // the weights' type
 constexpr bool kBf16W = std::is_same<WT, __nv_bfloat16>::value;
 constexpr bool kF16W = std::is_same<WT, __half>::value;
 constexpr bool k16W = kBf16W || kF16W;  // 16-bit weights
+constexpr bool kMixed = REPRO_MEGA_MIXED;  // leaves of any of the types
 static_assert(k16W || std::is_same<WT, float>::value,
               "weights are float32, bfloat16 or float16");
-constexpr int kWeightCode = kBf16W ? 1 : kF16W ? 2 : 0;
+static_assert(!kMixed || std::is_same<WT, float>::value,
+              "the mixed library stages weights as float32 does");
+constexpr int kWeightCode = kMixed ? 3 : kBf16W ? 1 : kF16W ? 2 : 0;
 
 constexpr int kThreads = kAttnThreads;  // 256: 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxHeadDim = 256;
+constexpr int kMaxHeadDim = 256;      // the widest one-pass attention tile
 constexpr int kBQ = 32;                 // query rows of an attention item
 constexpr int kBM = 64;                 // rows of a product tile
 constexpr int kBN = 32;                 // columns of a product tile
@@ -260,6 +334,27 @@ constexpr int kAttnFloats =
 static_assert(kAttnFloats <= kGemmFloats,
               "the attention tiles must not grow shared memory past the "
               "product ring: two blocks per SM");
+// attention_wide's tiles (head dims past kMaxHeadDim): a depth chunk of q
+// (kBQ, kWideDepth) and of K (kWideBK, kWideDepth) with +1 pads, sP
+// (kBQ, kWideBK) +1, and an output chunk of V (kWideBK, kWideOut).
+constexpr int kWideBK = 32, kWideDepth = 64, kWideOut = 64;
+struct WideTiles {
+  static constexpr int QS = kWideDepth + 1, PS = kWideBK + 1;
+  static constexpr int kQ = 0, kK = kQ + kBQ * QS, kP = kK + kWideBK * QS;
+  static constexpr int kV = (kP + kBQ * PS + 3) / 4 * 4;
+  static constexpr int kFloats = kV + kWideBK * kWideOut;
+};
+static_assert(WideTiles::kFloats <= kGemmFloats,
+              "attention_wide's tiles fit the product ring's area");
+// Up to kWideRowsMaxS tokens a sample (a whole number of K/V blocks),
+// attention_wide keeps an item's score rows (kBQ, +1 pad) beside those
+// tiles.
+constexpr int kWideRowsMaxS =
+    ((kGemmFloats - WideTiles::kFloats) / kBQ - 1) / kWideBK * kWideBK;
+static_assert(kWideRowsMaxS >= 64 &&
+                  WideTiles::kFloats + kBQ * (kWideRowsMaxS + 1) <=
+                      kGemmFloats,
+              "the score rows of a 64-token sample fit");
 constexpr int kUnionFloats =
     kGemmFloats > kAttnFloats ? kGemmFloats : kAttnFloats;
 // + the tile's row sums of squares, the partial dots of a 32-column row,
@@ -425,9 +520,64 @@ __device__ __forceinline__ uint32_t widen16(uint16_t w) {
   return static_cast<uint32_t>(w) << 16;
 }
 
-// Weight i, widened to float32.
-__device__ __forceinline__ float wload(const WT* w, long long i) {
+// A weight leaf: the typed pointer, or in the mixed library the address
+// and the leaf's type code (0 float32, 1 bfloat16, 2 float16).  wadd(w,
+// n) is n elements on, wload(w, i) weight i widened to float32, WLEAF the
+// leaf of a ReproMegaWeights pointer field and WNONE no leaf.
+#if REPRO_MEGA_MIXED
+struct WPtr {
+  const char* a;
+  int code;
+};
+__device__ __forceinline__ WPtr wadd(WPtr w, long long n) {
+  return WPtr{w.a + (w.code ? 2 * n : 4 * n), w.code};
+}
+__device__ __forceinline__ float wload(WPtr w, long long i) {
+  if (w.code == 0) return __ldg(reinterpret_cast<const float*>(w.a) + i);
+  const unsigned short h =
+      __ldg(reinterpret_cast<const unsigned short*>(w.a) + i);
+  return w.code == 1 ? __uint_as_float(static_cast<uint32_t>(h) << 16)
+                     : __half2float(__ushort_as_half(h));
+}
+#define WLEAF(p, field, i) \
+  (WPtr{reinterpret_cast<const char*>((p).w.field), (p).w.leaf[i]})
+#define WNONE (WPtr{nullptr, 0})
+#else
+using WPtr = const WT*;
+__device__ __forceinline__ WPtr wadd(WPtr w, long long n) { return w + n; }
+__device__ __forceinline__ float wload(WPtr w, long long i) {
   return repro::to_f32(__ldg(w + i));
+}
+#define WLEAF(p, field, i) ((p).w.field)
+#define WNONE nullptr
+#endif
+// The leaves' indices in pointer order (kernel.py _POINTERS).
+enum {
+  kLeafWIn, kLeafTimeW1, kLeafTimeW2, kLeafOutNorm, kLeafWOut,
+  kLeafAttnNorm, kLeafMlpNorm, kLeafWq, kLeafWk, kLeafWv, kLeafWo,
+  kLeafWGate, kLeafWUp, kLeafWDown
+};
+
+// v rounded to the type of code (0: as it is).
+__device__ __forceinline__ float round_code(int code, float v) {
+  return code == 1 ? bf16_round(v) : code == 2 ? f16_round(v) : v;
+}
+
+// v as JAX's trunk holds the value of a site: in the mixed library rounded
+// to the site's type (``code``, ReproMegaWeights::site); in the uniform
+// ones rt(p, v), whatever the code.
+__device__ __forceinline__ float rc(const Params& p, int code, float v) {
+  if constexpr (kMixed) return round_code(code, v);
+  return rt(p, v);
+}
+
+// The code of a launch site, and of a layer's (layer 0's row, or the row
+// of every later layer).
+__device__ __forceinline__ int gsite(const Params& p, int site) {
+  return p.w.site[site];
+}
+__device__ __forceinline__ int lsite(const Params& p, int layer, int site) {
+  return p.w.site[kGlobalSites + (layer > 0 ? kLayerSites : 0) + site];
 }
 
 // x = big + small, both TF32: big = rna(x), small = rna(x - big).
@@ -487,30 +637,99 @@ __device__ __noinline__ void compute_rank(const Params& p, float* smem) {
 // In a 16-bit trunk NORM takes the norm's own op order instead: the
 // rows' inverse RMS first (row_inv16), then each A element as
 // T(T(a * inv) * scale), T the trunk's type, and no epilogue factor.
+// In the mixed library a NORM tile also carries the codes of h's type
+// (nh: the inverse RMS and x * inv are rounded to it; 0 folds the norm
+// into the epilogue, as a float32 trunk does) and of the normed value's
+// (nx: * scale is rounded to it).
 struct Tile {
   const float* A;
-  const WT* B0;
-  const WT* B1;
+  WPtr B0;
+  WPtr B1;
   int ldb, n, cols;
-  const WT* scale;
+  WPtr scale;
   int kd, rows, sl0, sl1;
   bool fast;
+#if REPRO_MEGA_MIXED
+  int nh, nx;
+#endif
 };
 
 // A tile of B0 (and B1) at column c of a (kd, ldb) weight, whose column 0
 // lands on output column n; gemm_phase sets the rest.
-__device__ __forceinline__ Tile make_tile(const float* A, const WT* B0,
-                                          const WT* B1, int ldb, int c,
-                                          int n, const WT* scale) {
+__device__ __forceinline__ Tile make_tile(const float* A, WPtr B0, WPtr B1,
+                                          int ldb, int c, int n,
+                                          WPtr scale) {
   Tile t;
   t.A = A;
-  t.B0 = B0 + c;
+  t.B0 = wadd(B0, c);
+#if REPRO_MEGA_MIXED
+  t.B1 = wadd(B1, c);
+#else
   t.B1 = B1 == nullptr ? nullptr : B1 + c;
+#endif
   t.ldb = ldb;
   t.n = n;
   t.cols = ldb - c < kBN ? ldb - c : kBN;
   t.scale = scale;
   return t;
+}
+
+// The mixed library's B copies (of nb weights: B0, B1) of slice depth k
+// (kn rows inside the product), each at its leaf's type: a float32 leaf
+// as the float32 library stages it, a 16-bit one as the 16-bit libraries
+// do (in the first half of its B area, rows of kBSh), to be widened as
+// the fragments are read (bfrag).  16-byte chunks where the leaf's rows
+// are whole chunks, else one element at a time.
+#if REPRO_MEGA_MIXED
+template <int nb>
+__device__ __forceinline__ void load_b_edge_mixed(float* st, const Tile& t,
+                                                  int k, int kn) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int b = 0; b < nb; ++b) {
+    const WPtr B = b ? t.B1 : t.B0;
+    float* dst = st + kAStage + b * kBStage;
+    const int vw = B.code ? 8 : 4;  // elements of a 16-byte chunk
+    if (t.ldb % vw == 0) {
+      const int per_row = kBN / vw;
+      for (int c = tid; c < kBK * per_row; c += kThreads) {
+        const int r = c / per_row, q = c % per_row;
+        const bool ok = r < kn && vw * q < t.cols;
+        void* d = B.code ? static_cast<void*>(reinterpret_cast<uint16_t*>(dst) +
+                                              r * kBSh + vw * q)
+                         : static_cast<void*>(dst + r * kBS + vw * q);
+        cp_async16_zfill(
+            d, ok ? wadd(B, static_cast<long long>(k + r) * t.ldb + vw * q).a
+                  : B.a,
+            ok ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < kBK * kBN; e += kThreads) {
+        const int r = e / kBN, c = e % kBN;
+        const bool ok = r < kn && c < t.cols;
+        const long long off = static_cast<long long>(k + r) * t.ldb + c;
+        if (B.code)
+          reinterpret_cast<uint16_t*>(dst)[r * kBSh + c] =
+              ok ? __ldg(reinterpret_cast<const unsigned short*>(B.a) + off)
+                 : 0;
+        else
+          dst[r * kBS + c] =
+              ok ? __ldg(reinterpret_cast<const float*>(B.a) + off) : 0.0f;
+      }
+    }
+  }
+}
+#endif
+
+// Elements of a 16-byte chunk of the tile's weights: the library's type,
+// or in the mixed library the narrowest leaf's (a tile is ``fast`` only
+// where every weight row is whole chunks of its own type).
+__device__ __forceinline__ int bvec(const Tile& t) {
+#if REPRO_MEGA_MIXED
+  return (t.B0.code | t.B1.code) ? 8 : 4;
+#else
+  return kWVec;
+#endif
 }
 
 // The copies of slice sl of a tile that is not ``fast``: A rows past
@@ -543,12 +762,15 @@ __device__ __noinline__ void load_slice_edge(float* st, const Tile& t,
     }
   }
   constexpr int nb = DUAL ? 2 : 1;
+#if REPRO_MEGA_MIXED
+  load_b_edge_mixed<nb>(st, t, k, kn);
+#else
   if (t.ldb % kWVec == 0) {
     constexpr int per_row = kBN / kWVec;  // chunks of a B row
     for (int c = tid; c < nb * kBK * per_row; c += kThreads) {
       const int b = c / (kBK * per_row), r = c % (kBK * per_row) / per_row,
                 q = c % per_row;
-      const WT* B = b ? t.B1 : t.B0;
+      const WPtr B = b ? t.B1 : t.B0;
       const bool ok = r < kn && kWVec * q < t.cols;
       float* dst = st + kAStage + b * kBStage;
       void* d = k16W ? static_cast<void*>(reinterpret_cast<uint16_t*>(dst) +
@@ -561,7 +783,7 @@ __device__ __noinline__ void load_slice_edge(float* st, const Tile& t,
   } else {
     for (int e = tid; e < nb * kBK * kBN; e += kThreads) {
       const int b = e / (kBK * kBN), r = e % (kBK * kBN) / kBN, c = e % kBN;
-      const WT* B = b ? t.B1 : t.B0;
+      const WPtr B = b ? t.B1 : t.B0;
       const bool ok = r < kn && c < t.cols;
       float* dst = st + kAStage + b * kBStage;
       const long long off = static_cast<long long>(k + r) * t.ldb + c;
@@ -573,6 +795,7 @@ __device__ __noinline__ void load_slice_edge(float* st, const Tile& t,
       }
     }
   }
+#endif
 }
 
 // The copies of slice sl into stage st by cp.async: A, and B as stored
@@ -593,6 +816,24 @@ __device__ __forceinline__ void load_slice(float* st, const Tile& t,
     cp_async16(st + r * kAS + 4 * q,
                t.A + static_cast<long long>(r) * t.kd + k + 4 * q);
   }
+#if REPRO_MEGA_MIXED
+  {  // each B as its leaf's library stages it
+#pragma unroll
+    for (int b = 0; b < (DUAL ? 2 : 1); ++b) {
+      const WPtr B = b ? t.B1 : t.B0;
+      float* dst = st + kAStage + b * kBStage;
+      if (B.code == 0) {
+        const int r = tid >> 3, q = tid & 7;  // 32 rows x 8 chunks
+        cp_async16(dst + r * kBS + 4 * q,
+                   wadd(B, static_cast<long long>(k + r) * t.ldb + 4 * q).a);
+      } else if (tid < 128) {  // 32 rows x 4 chunks of 8
+        const int r = tid >> 2, q = tid & 3;
+        cp_async16(reinterpret_cast<uint16_t*>(dst) + r * kBSh + 8 * q,
+                   wadd(B, static_cast<long long>(k + r) * t.ldb + 8 * q).a);
+      }
+    }
+  }
+#else
   if constexpr (k16W) {  // 32 rows x 4 chunks of 8 per B: B1 on tid 128+
     const int c = tid & 127, r = c >> 2, q = c & 3;
     const bool second = DUAL && tid >= 128;
@@ -608,7 +849,20 @@ __device__ __forceinline__ void load_slice(float* st, const Tile& t,
     cp_async16(st + kAStage + r * kBS + 4 * q, t.B0 + off);
     if (DUAL) cp_async16(st + kAStage + kBStage + r * kBS + 4 * q, t.B1 + off);
   }
+#endif
 }
+
+#if REPRO_MEGA_MIXED
+// Element (k, n) of a staged B slice of the leaf type ``code``, as float32
+// (a 16-bit leaf's, staged as it is, widened exactly).
+__device__ __forceinline__ float bfrag(const float* sB, int code, int k,
+                                       int n) {
+  if (code == 0) return sB[k * kBS + n];
+  const uint16_t h = reinterpret_cast<const uint16_t*>(sB)[k * kBSh + n];
+  return code == 1 ? __uint_as_float(static_cast<uint32_t>(h) << 16)
+                   : __half2float(__ushort_as_half(h));
+}
+#endif
 
 // Warp (wm, wn) = (warp % 4, warp / 4) owns rows 16 wm + [0, 16) and
 // columns 16 wn + [0, 16): two m16n8 fragments per B.  ``bf16`` (a
@@ -633,6 +887,19 @@ __device__ __forceinline__ void mma_slice_as(const float* st, const Tile& t,
       const int k0 = sl * kBK + kc, kl = t.kd - 1;
       const float s0 = wload(t.scale, !G || k0 < kl ? k0 : kl);
       const float s1 = wload(t.scale, !G || k0 + 4 < kl ? k0 + 4 : kl);
+#if REPRO_MEGA_MIXED
+      if (t.nh) {  // X(H(a * inv) * scale), H h's type, X the normed one's
+        a[0] = round_code(t.nx, __fmul_rn(round_code(t.nh, __fmul_rn(a[0], inv0)), s0));
+        a[1] = round_code(t.nx, __fmul_rn(round_code(t.nh, __fmul_rn(a[1], inv1)), s0));
+        a[2] = round_code(t.nx, __fmul_rn(round_code(t.nh, __fmul_rn(a[2], inv0)), s1));
+        a[3] = round_code(t.nx, __fmul_rn(round_code(t.nh, __fmul_rn(a[3], inv1)), s1));
+      } else {
+        a[0] = __fmul_rn(a[0], s0);
+        a[1] = __fmul_rn(a[1], s0);
+        a[2] = __fmul_rn(a[2], s1);
+        a[3] = __fmul_rn(a[3], s1);
+      }
+#else
       if (bf16) {  // T(T(a * inv) * scale), as rms_norm
         a[0] = r16(__fmul_rn(r16(__fmul_rn(a[0], inv0)), s0));
         a[1] = r16(__fmul_rn(r16(__fmul_rn(a[1], inv1)), s0));
@@ -644,6 +911,7 @@ __device__ __forceinline__ void mma_slice_as(const float* st, const Tile& t,
         a[2] = __fmul_rn(a[2], s1);
         a[3] = __fmul_rn(a[3], s1);
       }
+#endif
     }
     uint32_t ab[4], as[4];
 #pragma unroll
@@ -661,6 +929,11 @@ __device__ __forceinline__ void mma_slice_as(const float* st, const Tile& t,
     for (int f = 0; f < NF; ++f) {
       const float* sB = st + kAStage + (f / 2) * kBStage;
       const int n = wn * 16 + (f % 2) * 8 + g;
+#if REPRO_MEGA_MIXED
+      const int code = f / 2 ? t.B1.code : t.B0.code;
+      split_tf32(bfrag(sB, code, kc, n), bb[f][0], bs[f][0]);
+      split_tf32(bfrag(sB, code, kc + 4, n), bb[f][1], bs[f][1]);
+#else
       if constexpr (k16W) {
         const uint16_t* sBh = reinterpret_cast<const uint16_t*>(sB);
         bb[f][0] = widen16(sBh[kc * kBSh + n]);
@@ -669,6 +942,7 @@ __device__ __forceinline__ void mma_slice_as(const float* st, const Tile& t,
         split_tf32(sB[kc * kBS + n], bb[f][0], bs[f][0]);
         split_tf32(sB[(kc + 4) * kBS + n], bb[f][1], bs[f][1]);
       }
+#endif
     }
     // pass-major: consecutive mma.sync go to independent accumulators
     if (!bf16) {
@@ -710,6 +984,7 @@ __device__ __forceinline__ void mma_slice(const float* st, const Tile& t,
 template <bool G>
 __device__ __forceinline__ void row_inv16(const Tile& t, int Kd, float eps,
                                           float* inv) {
+  // (the mixed library rounds the inverse RMS to h's type, t.nh)
   static_assert(kThreads == 4 * kBM, "row_inv16: 4 threads per row");
   const int r = threadIdx.x >> 2, qq = threadIdx.x & 3;
   const float* row = t.A + static_cast<long long>(r) * Kd;
@@ -731,7 +1006,12 @@ __device__ __forceinline__ void row_inv16(const Tile& t, int Kd, float eps,
   }
   ss = __fadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, 1));
   ss = __fadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, 2));
+#if REPRO_MEGA_MIXED
+  if (qq == 0)
+    inv[r] = round_code(t.nh, repro::rms_inv_from_sumsq<float>(ss, Kd, eps));
+#else
   if (qq == 0) inv[r] = repro::rms_inv_from_sumsq<WT>(ss, Kd, eps);
+#endif
 }
 
 // ss += the squares of this thread's 8 elements of the slice's A tile:
@@ -793,7 +1073,8 @@ __device__ __forceinline__ void put2_16(T* o, T2 y, float* xs, bool two,
 // NoPre.  A split phase's tiles are those of one (M, N) output, nt * 32
 // its columns.  Without G (the aligned geometry: M, N and Kd whole tiles)
 // every tile is whole and ``fast``, and none of the edge checks is
-// compiled.
+// compiled.  nh, nx: the mixed library's NORM codes (Tile); the uniform
+// libraries ignore them.
 struct NoPre {
   __device__ __forceinline__ void operator()(int, int) const {}
 };
@@ -802,8 +1083,9 @@ template <bool NORM, bool DUAL, bool G, typename TileOf, typename Epi,
           typename Pre = NoPre>
 __device__ __forceinline__ void gemm_phase(const Params& p, float* smem,
                                            int n_nt, int N, int Kd,
-                                           int split, TileOf tile_of,
-                                           Epi epi, Pre pre = NoPre{}) {
+                                           int split, int nh, int nx,
+                                           TileOf tile_of, Epi epi,
+                                           Pre pre = NoPre{}) {
   static_assert(kThreads == 4 * kBM, "slice_sumsq: 4 threads per row");
   const int M = p.batch * p.seq, tiles = cdiv(M, kBM) * n_nt;
   const int nsl = cdiv(Kd, kBK);
@@ -812,18 +1094,28 @@ __device__ __forceinline__ void gemm_phase(const Params& p, float* smem,
   const int g = lane >> 2, q = lane & 3, wm = warp & 3, wn = warp >> 2;
   // the tile's row sums of squares (the inverse RMS in a 16-bit trunk)
   float* sSS = smem + kUnionFloats;
+#if REPRO_MEGA_MIXED
+  const bool bf16 = false;             // every product takes three passes
+  const bool nrm16 = NORM && nh != 0;  // the norm in JAX's op order
+#else
   const bool bf16 = k16W && p.round_trunk;
-  const bool stream_ss = NORM && !bf16;  // the norm folded into the epilogue
+  const bool nrm16 = NORM && bf16;
+#endif
+  const bool stream_ss = NORM && !nrm16;  // the norm folded into the epilogue
   __shared__ int s_last;
   for (int item = block_rank(smem); item < tiles * split;
        item += gridDim.x) {
     const int tile = item % tiles, s = item / tiles;
     const int m0 = tile / n_nt * kBM;
     Tile t = tile_of(m0, tile % n_nt);
+#if REPRO_MEGA_MIXED
+    t.nh = nh;
+    t.nx = nx;
+#endif
     t.kd = Kd;
     t.rows = !G || M - m0 >= kBM ? kBM : M - m0;
     t.fast = !G || (t.rows == kBM && t.cols == kBN && Kd % kBK == 0 &&
-                    t.ldb % kWVec == 0);
+                    t.ldb % bvec(t) == 0);
     t.sl0 = s * nsl / split;
     t.sl1 = (s + 1) * nsl / split;
     if constexpr (!std::is_same<Pre, NoPre>::value) {
@@ -849,7 +1141,7 @@ __device__ __forceinline__ void gemm_phase(const Params& p, float* smem,
     // a 16-bit trunk's norm: the rows' inverse RMS, while the first
     // slices' copies are in flight
     float inv0 = 1.0f, inv1 = 1.0f;
-    if (NORM && bf16) {
+    if (nrm16) {
       row_inv16<G>(t, Kd, p.w.norm_eps, sSS);
       __syncthreads();
       inv0 = sSS[wm * 16 + g];
@@ -976,7 +1268,7 @@ __device__ __forceinline__ void gemm_phase(const Params& p, float* smem,
 // lane), 0 elsewhere; ends with a block barrier.  ``in`` is read through
 // L2 (it may be an activation of this launch).
 __device__ __forceinline__ float block_row_dot(const float* in, int n_in,
-                                               const WT* __restrict__ w,
+                                               WPtr w,
                                                int ldw, int c0, int n_out,
                                                float* red) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -1020,10 +1312,12 @@ __device__ __noinline__ void phase_time(const Params& p, float* smem) {
   for (int item = blockIdx.x; item < p.n_emb * groups; item += gridDim.x) {
     const int e = item / groups, c0 = item % groups * 32;
     const float a = block_row_dot(p.temb + static_cast<long long>(e) * T, T,
-                                  p.w.time_w1, T, c0, T, red);
+                                  WLEAF(p, time_w1, kLeafTimeW1), T, c0, T,
+                                  red);
+    const int c1 = gsite(p, kSiteT1);
     if (threadIdx.x < 32 && c0 + threadIdx.x < T)
       p.th[static_cast<long long>(e) * T + c0 + threadIdx.x] =
-          rt(p, silu(rt(p, a)));
+          rc(p, c1, silu(rc(p, c1, a)));
   }
 }
 
@@ -1037,9 +1331,11 @@ __device__ __noinline__ void phase_time_out(const Params& p, float* smem) {
        item += gridDim.x) {
     const int e = item / groups, c0 = item % groups * 32;
     const float a = block_row_dot(p.th + static_cast<long long>(e) * T, T,
-                                  p.w.time_w2, d, c0, d, red);
+                                  WLEAF(p, time_w2, kLeafTimeW2), d, c0, d,
+                                  red);
     if (threadIdx.x < 32 && c0 + threadIdx.x < d)
-      p.tw[static_cast<long long>(e) * d + c0 + threadIdx.x] = rt(p, a);
+      p.tw[static_cast<long long>(e) * d + c0 + threadIdx.x] =
+          rc(p, gsite(p, kSiteT2), a);
   }
 }
 
@@ -1058,35 +1354,39 @@ __device__ __noinline__ void phase_w_in(const Params& p, float* smem,
   const float* state = p.state16 ? p.xs : step == 0 ? p.x : p.out;
   float* red = smem + kUnionFloats + kBM;
   float* tv = red + kWarps * 32;
+  const int ci = gsite(p, kSiteIn), ch = gsite(p, kSiteH0);
   auto tile_of = [&](int m0, int nt) {
-    return make_tile(state + static_cast<long long>(m0) * L, p.w.w_in,
-                     nullptr, d, nt * kBN, nt * kBN, nullptr);
+    return make_tile(state + static_cast<long long>(m0) * L,
+                     WLEAF(p, w_in, kLeafWIn), WNONE, d, nt * kBN, nt * kBN,
+                     WNONE);
   };
   if constexpr (G) {
     gemm_phase<false, false, true>(
-        p, smem, cdiv(d, kBN), d, L, 1, tile_of,
+        p, smem, cdiv(d, kBN), d, L, 1, 0, 0, tile_of,
         [&](int m, int n, const float2 (&v)[1], bool two) {
           const int e = per_slot ? m / p.seq : step;
           const float2 t2 =
               get2cg(p.tw + static_cast<long long>(e) * d + n, two, vec);
           put2(p.h + static_cast<long long>(m) * d + n,
-               rt(p, __fadd_rn(rt(p, v[0].x), t2.x)),
-               rt(p, __fadd_rn(rt(p, v[0].y), t2.y)), two, vec);
+               rc(p, ch, __fadd_rn(rc(p, ci, v[0].x), t2.x)),
+               rc(p, ch, __fadd_rn(rc(p, ci, v[0].y), t2.y)), two, vec);
         });
   } else {
     gemm_phase<false, false, false>(
-        p, smem, d / kBN, d, L, 1, tile_of,
+        p, smem, d / kBN, d, L, 1, 0, 0, tile_of,
         [&](int m, int n, const float2 (&v)[1], bool) {
           *reinterpret_cast<float2*>(p.h + static_cast<long long>(m) * d +
                                      n) =
-              make_float2(rt(p, __fadd_rn(rt(p, v[0].x), tv[n % kBN])),
-                          rt(p, __fadd_rn(rt(p, v[0].y), tv[n % kBN + 1])));
+              make_float2(rc(p, ch, __fadd_rn(rc(p, ci, v[0].x), tv[n % kBN])),
+                          rc(p, ch, __fadd_rn(rc(p, ci, v[0].y),
+                                              tv[n % kBN + 1])));
         },
         [&](int m0, int nt) {
           const int e = per_slot ? m0 / p.seq : step;
           const float a = block_row_dot(p.th + static_cast<long long>(e) * T,
-                                        T, p.w.time_w2, d, nt * kBN, d, red);
-          if (threadIdx.x < 32) tv[threadIdx.x] = rt(p, a);
+                                        T, WLEAF(p, time_w2, kLeafTimeW2), d,
+                                        nt * kBN, d, red);
+          if (threadIdx.x < 32) tv[threadIdx.x] = rc(p, gsite(p, kSiteT2), a);
         });
   }
 }
@@ -1100,50 +1400,57 @@ __device__ __noinline__ void phase_qkv(const Params& p, float* smem,
             hkv = p.w.n_kv_heads * p.w.head_dim, nq = hq + 2 * hkv;
   const int tq = cdiv(hq, kBN), tkv = cdiv(hkv, kBN);
   const long long dd = d;
-  const WT* wq = p.w.wq + layer * dd * hq;
-  const WT* wk = p.w.wk + layer * dd * hkv;
-  const WT* wv = p.w.wv + layer * dd * hkv;
-  const WT* scale = p.w.attn_norm + layer * dd;
+  const WPtr wq = wadd(WLEAF(p, wq, kLeafWq), layer * dd * hq);
+  const WPtr wk = wadd(WLEAF(p, wk, kLeafWk), layer * dd * hkv);
+  const WPtr wv = wadd(WLEAF(p, wv, kLeafWv), layer * dd * hkv);
+  const WPtr scale = wadd(WLEAF(p, attn_norm, kLeafAttnNorm), layer * dd);
+  const int cq = lsite(p, layer, kSiteQ), ck = lsite(p, layer, kSiteK),
+            cv = lsite(p, layer, kSiteV);
   const bool vec = !G || (nq & 1) == 0;
   gemm_phase<true, false, G>(
-      p, smem, tq + 2 * tkv, nq, d, 1,
+      p, smem, tq + 2 * tkv, nq, d, 1, lsite(p, layer, kSiteH),
+      lsite(p, layer, kSiteXA),
       [&](int m0, int nt) {
         const float* A = p.h + static_cast<long long>(m0) * d;
         if (nt < tq)
-          return make_tile(A, wq, nullptr, hq, nt * kBN, nt * kBN, scale);
+          return make_tile(A, wq, WNONE, hq, nt * kBN, nt * kBN, scale);
         nt -= tq;
         if (nt < tkv)
-          return make_tile(A, wk, nullptr, hkv, nt * kBN, hq + nt * kBN,
+          return make_tile(A, wk, WNONE, hkv, nt * kBN, hq + nt * kBN,
                            scale);
         nt -= tkv;
-        return make_tile(A, wv, nullptr, hkv, nt * kBN, hq + hkv + nt * kBN,
+        return make_tile(A, wv, WNONE, hkv, nt * kBN, hq + hkv + nt * kBN,
                          scale);
       },
       [&](int m, int n, const float2 (&v)[1], bool two) {
-        put2(p.qkv + static_cast<long long>(m) * nq + n, rt(p, v[0].x),
-             rt(p, v[0].y), two, vec);
+        // the tiles never straddle q, k and v, so n + 1 is of n's part
+        const int c = n < hq ? cq : n < hq + hkv ? ck : cv;
+        put2(p.qkv + static_cast<long long>(m) * nq + n, rc(p, c, v[0].x),
+             rc(p, c, v[0].y), two, vec);
       });
 }
 
 // h += a @ w (a: (M, Kd) activations), split-K: the attention output
-// projection and the MLP's down projection.
+// projection and the MLP's down projection; cw and ch are the mixed
+// library's sites of the product and of the sum.
 template <bool G>
 __device__ __forceinline__ void residual_phase(const Params& p, float* smem,
                                                const float* a, int Kd,
-                                               const WT* w, int split) {
+                                               WPtr w, int split, int cw,
+                                               int ch) {
   const int d = p.w.d_model;
   const bool vec = !G || (d & 1) == 0;
   gemm_phase<false, false, G>(
-      p, smem, cdiv(d, kBN), d, Kd, split,
+      p, smem, cdiv(d, kBN), d, Kd, split, 0, 0,
       [&](int m0, int nt) {
-        return make_tile(a + static_cast<long long>(m0) * Kd, w, nullptr, d,
-                         nt * kBN, nt * kBN, nullptr);
+        return make_tile(a + static_cast<long long>(m0) * Kd, w, WNONE, d,
+                         nt * kBN, nt * kBN, WNONE);
       },
       [&](int m, int n, const float2 (&v)[1], bool two) {
         float* hp = p.h + static_cast<long long>(m) * d + n;
         const float2 o = get2cg(hp, two, vec);
-        put2(hp, rt(p, __fadd_rn(o.x, rt(p, v[0].x))),
-             rt(p, __fadd_rn(o.y, rt(p, v[0].y))), two, vec);
+        put2(hp, rc(p, ch, __fadd_rn(o.x, rc(p, cw, v[0].x))),
+             rc(p, ch, __fadd_rn(o.y, rc(p, cw, v[0].y))), two, vec);
       });
 }
 
@@ -1152,8 +1459,10 @@ __device__ __noinline__ void phase_wo(const Params& p, float* smem,
                                       int layer) {
   const int hq = p.w.n_heads * p.w.head_dim;
   residual_phase<G>(p, smem, p.ao, hq,
-                 p.w.wo + layer * static_cast<long long>(hq) * p.w.d_model,
-                 p.split_wo);
+                 wadd(WLEAF(p, wo, kLeafWo),
+                      layer * static_cast<long long>(hq) * p.w.d_model),
+                 p.split_wo, lsite(p, layer, kSiteWO),
+                 lsite(p, layer, kSiteH1));
 }
 
 template <bool G>
@@ -1161,8 +1470,10 @@ __device__ __noinline__ void phase_down(const Params& p, float* smem,
                                         int layer) {
   const int dff = p.w.d_ff;
   residual_phase<G>(p, smem, p.ff, dff,
-                 p.w.w_down + layer * static_cast<long long>(dff) * p.w.d_model,
-                 p.split_dn);
+                 wadd(WLEAF(p, w_down, kLeafWDown),
+                      layer * static_cast<long long>(dff) * p.w.d_model),
+                 p.split_dn, lsite(p, layer, kSiteD),
+                 lsite(p, layer, kSiteH2));
 }
 
 // ff = silu(xn @ w_gate) * (xn @ w_up), xn = rmsnorm(h, mlp_norm).
@@ -1171,35 +1482,45 @@ __device__ __noinline__ void phase_mlp(const Params& p, float* smem,
                                        int layer) {
   const int d = p.w.d_model, dff = p.w.d_ff;
   const long long dd = d;
-  const WT* wg = p.w.w_gate + layer * dd * dff;
-  const WT* wu = p.w.w_up + layer * dd * dff;
-  const WT* scale = p.w.mlp_norm + layer * dd;
+  const WPtr wg = wadd(WLEAF(p, w_gate, kLeafWGate), layer * dd * dff);
+  const WPtr wu = wadd(WLEAF(p, w_up, kLeafWUp), layer * dd * dff);
+  const WPtr scale = wadd(WLEAF(p, mlp_norm, kLeafMlpNorm), layer * dd);
+  const int cg_ = lsite(p, layer, kSiteG), cu = lsite(p, layer, kSiteU),
+            cgu = lsite(p, layer, kSiteGU);
   const bool vec = !G || (dff & 1) == 0;
   gemm_phase<true, true, G>(
-      p, smem, cdiv(dff, kBN), dff, d, 1,
+      p, smem, cdiv(dff, kBN), dff, d, 1, lsite(p, layer, kSiteH1),
+      lsite(p, layer, kSiteXM),
       [&](int m0, int nt) {
         return make_tile(p.h + static_cast<long long>(m0) * d, wg, wu, dff,
                          nt * kBN, nt * kBN, scale);
       },
       [&](int m, int n, const float2 (&v)[2], bool two) {
         put2(p.ff + static_cast<long long>(m) * dff + n,
-             rt(p, __fmul_rn(rt(p, silu(rt(p, v[0].x))), rt(p, v[1].x))),
-             rt(p, __fmul_rn(rt(p, silu(rt(p, v[0].y))), rt(p, v[1].y))),
+             rc(p, cgu, __fmul_rn(rc(p, cg_, silu(rc(p, cg_, v[0].x))),
+                                  rc(p, cu, v[1].x))),
+             rc(p, cgu, __fmul_rn(rc(p, cg_, silu(rc(p, cg_, v[0].y))),
+                                  rc(p, cu, v[1].y))),
              two, vec);
       });
 }
 
 // One RoPE pair of a head: d[0] = x1 c - x2 s, d[half] = x2 c + x1 s, each
 // product and sum rounded in a 16-bit trunk (whose tables the launcher
-// rounds), times ``scale`` in float32.
+// rounds), times ``scale`` in float32.  The mixed library rounds the
+// tables and the pair to the head's type itself (``code``: q's or k's).
 __device__ __forceinline__ void rope_pair(const Params& p, float* d, int half,
                                           float x1, float x2, float cs,
-                                          float sn, float scale) {
-  d[0] = __fmul_rn(rt(p, __fsub_rn(rt(p, __fmul_rn(x1, cs)),
-                                   rt(p, __fmul_rn(x2, sn)))),
+                                          float sn, float scale, int code) {
+  if constexpr (kMixed) {
+    cs = round_code(code, cs);
+    sn = round_code(code, sn);
+  }
+  d[0] = __fmul_rn(rc(p, code, __fsub_rn(rc(p, code, __fmul_rn(x1, cs)),
+                                         rc(p, code, __fmul_rn(x2, sn)))),
                    scale);
-  d[half] = __fmul_rn(rt(p, __fadd_rn(rt(p, __fmul_rn(x2, cs)),
-                                      rt(p, __fmul_rn(x1, sn)))),
+  d[half] = __fmul_rn(rc(p, code, __fadd_rn(rc(p, code, __fmul_rn(x2, cs)),
+                                            rc(p, code, __fmul_rn(x1, sn)))),
                       scale);
 }
 
@@ -1210,7 +1531,7 @@ template <int HD, bool FULL, bool G>
 __device__ __forceinline__ void roped_chunks(float* dst, const float* src,
                                              int nq, const Params& p, int r0,
                                              int n, int nrows, float scale,
-                                             int D) {
+                                             int D, int code) {
   constexpr int QS = HD + 1;
   const int half = FULL ? HD / 2 : D / 2, C4 = half / 4;
   for (int i = threadIdx.x; i < nrows * C4; i += kThreads) {
@@ -1225,10 +1546,10 @@ __device__ __forceinline__ void roped_chunks(float* dst, const float* src,
           __ldcg(reinterpret_cast<const float4*>(src + r * nq + j));
       const float4 b =
           __ldcg(reinterpret_cast<const float4*>(src + r * nq + j + half));
-      rope_pair(p, d, half, a.x, b.x, c4.x, s4.x, scale);
-      rope_pair(p, d + 1, half, a.y, b.y, c4.y, s4.y, scale);
-      rope_pair(p, d + 2, half, a.z, b.z, c4.z, s4.z, scale);
-      rope_pair(p, d + 3, half, a.w, b.w, c4.w, s4.w, scale);
+      rope_pair(p, d, half, a.x, b.x, c4.x, s4.x, scale, code);
+      rope_pair(p, d + 1, half, a.y, b.y, c4.y, s4.y, scale, code);
+      rope_pair(p, d + 2, half, a.z, b.z, c4.z, s4.z, scale, code);
+      rope_pair(p, d + 3, half, a.w, b.w, c4.w, s4.w, scale, code);
     } else {
 #pragma unroll
       for (int u = 0; u < 4; ++u) d[u] = d[u + half] = 0.0f;
@@ -1242,20 +1563,21 @@ __device__ __forceinline__ void roped_chunks(float* dst, const float* src,
 // into halves; the table's row stride is D / 2) and multiplied by
 // ``scale``; rows past n and columns past D zero.  16-byte loads where D
 // is a multiple of 8, else one element at a time.  Without G, D is HD and
-// n is nrows.
+// n is nrows.  ``code``: the mixed library's site of the head (q or k).
 template <int HD, bool G>
 __device__ __forceinline__ void load_roped(float* dst, const float* src,
                                            int nq, const Params& p, int r0,
                                            int n, int nrows, float scale,
-                                           int D) {
+                                           int D, int code) {
   constexpr int QS = HD + 1;
   if (!G || D == HD) {
-    roped_chunks<HD, true, G>(dst, src, nq, p, r0, n, nrows, scale, D);
+    roped_chunks<HD, true, G>(dst, src, nq, p, r0, n, nrows, scale, D, code);
     return;
   }
   const int half = D / 2;
   if (D % 8 == 0) {
-    roped_chunks<HD, false, G>(dst, src, nq, p, r0, n, nrows, scale, D);
+    roped_chunks<HD, false, G>(dst, src, nq, p, r0, n, nrows, scale, D,
+                               code);
   } else {
     for (int i = threadIdx.x; i < nrows * half; i += kThreads) {
       const int r = i / half, j = i % half;
@@ -1264,7 +1586,7 @@ __device__ __forceinline__ void load_roped(float* dst, const float* src,
         rope_pair(p, d, half, __ldcg(src + r * nq + j),
                   __ldcg(src + r * nq + j + half),
                   __ldg(p.rope_cos + (r0 + r) * half + j),
-                  __ldg(p.rope_sin + (r0 + r) * half + j), scale);
+                  __ldg(p.rope_sin + (r0 + r) * half + j), scale, code);
       else
         d[0] = d[half] = 0.0f;
     }
@@ -1302,13 +1624,14 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
 template <int HD, int BK>
 __device__ __forceinline__ void exact_scores(const Params& p, const float* sQ,
                                              const float* sK, int kn,
-                                             float (&s)[kBQ / 16][BK / 16]) {
+                                             float (&s)[kBQ / 16][BK / 16],
+                                             int cqk, float div) {
   repro::qk_scores<kBQ, BK, HD>(sQ, sK, s);
 #pragma unroll
   for (int i = 0; i < kBQ / 16; ++i)
 #pragma unroll
     for (int j = 0; j < BK / 16; ++j)
-      s[i][j] = rt(p, __fdiv_rn(rt(p, s[i][j]), p.attn_div));
+      s[i][j] = rc(p, cqk, __fdiv_rn(rc(p, cqk, s[i][j]), div));
   if (kn < BK) {
     const int tx = threadIdx.x & 15;
 #pragma unroll
@@ -1358,7 +1681,8 @@ __device__ __forceinline__ void pv_accumulate(const float* sP, const float* sV,
 // aligned geometry) D is HD and S a whole number of blocks, so nothing is
 // masked or padded.
 template <bool FLASH, int HD, bool G>
-__device__ __noinline__ void attention_items(const Params& p, float* smem) {
+__device__ __noinline__ void attention_items(const Params& p, float* smem,
+                                             int layer) {
   using T = AttnTiles<HD>;
   constexpr int BK = T::BK, RQ = kBQ / 16, RK = BK / 16, RD = HD / 16;
   const int H = p.w.n_heads, Hkv = p.w.n_kv_heads, grp = H / Hkv,
@@ -1370,6 +1694,10 @@ __device__ __noinline__ void attention_items(const Params& p, float* smem) {
   float* sP = smem + T::kP;
   float* sV = smem + T::kV;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int cq = lsite(p, layer, kSiteQ), ck = lsite(p, layer, kSiteK),
+            cqk = lsite(p, layer, kSiteQK),
+            co = lsite(p, layer, FLASH ? kSiteH : kSitePV);
+  const float div = kMixed ? p.w.attn_div[layer > 0] : p.attn_div;
   for (int item = block_rank(smem); item < p.batch * H * nqb;
        item += gridDim.x) {
     const int qb = item % nqb, bh = item / nqb, b = bh / H, hh = bh % H,
@@ -1380,10 +1708,10 @@ __device__ __noinline__ void attention_items(const Params& p, float* smem) {
     const float* v = base + hq + Hkv * D + kvh * D;
     float* out = p.ao + (static_cast<long long>(b) * S + q0) * hq + hh * D;
     auto store = [&](int row, int col, float val) {
-      if (!G || (row < qn && col < D)) out[row * hq + col] = rt(p, val);
+      if (!G || (row < qn && col < D)) out[row * hq + col] = rc(p, co, val);
     };
     load_roped<HD, G>(sQ, base + static_cast<long long>(q0) * nq + hh * D,
-                      nq, p, q0, qn, kBQ, FLASH ? p.q_scale : 1.0f, D);
+                      nq, p, q0, qn, kBQ, FLASH ? p.q_scale : 1.0f, D, cq);
     if (FLASH) {
       repro::SoftmaxState<kBQ, HD> st;
       st.init();
@@ -1391,7 +1719,7 @@ __device__ __noinline__ void attention_items(const Params& p, float* smem) {
         const int k0 = kb * BK, kn = G && S - k0 < BK ? S - k0 : BK;
         __syncthreads();  // the previous block is no longer read
         load_roped<HD, G>(sK, k + static_cast<long long>(k0) * nq, nq, p,
-                          k0, kn, BK, 1.0f, D);
+                          k0, kn, BK, 1.0f, D, ck);
         load_rows<HD, G>(sV, v + static_cast<long long>(k0) * nq, nq, kn,
                          BK, D);
         __syncthreads();
@@ -1412,10 +1740,10 @@ __device__ __noinline__ void attention_items(const Params& p, float* smem) {
         const int k0 = kb * BK, kn = G && S - k0 < BK ? S - k0 : BK;
         __syncthreads();
         load_roped<HD, G>(sK, k + static_cast<long long>(k0) * nq, nq, p,
-                          k0, kn, BK, 1.0f, D);
+                          k0, kn, BK, 1.0f, D, ck);
         __syncthreads();
         float s[RQ][RK];
-        exact_scores<HD, BK>(p, sQ, sK, kn, s);
+        exact_scores<HD, BK>(p, sQ, sK, kn, s, cqk, div);
 #pragma unroll
         for (int i = 0; i < RQ; ++i) {
           float mx = repro::kNegBig;
@@ -1434,18 +1762,18 @@ __device__ __noinline__ void attention_items(const Params& p, float* smem) {
         __syncthreads();
         if (nkb > 1)
           load_roped<HD, G>(sK, k + static_cast<long long>(k0) * nq, nq, p,
-                            k0, kn, BK, 1.0f, D);
+                            k0, kn, BK, 1.0f, D, ck);
         load_rows<HD, G>(sV, v + static_cast<long long>(k0) * nq, nq, kn,
                          BK, D);
         __syncthreads();
         float s[RQ][RK];
-        exact_scores<HD, BK>(p, sQ, sK, kn, s);
+        exact_scores<HD, BK>(p, sQ, sK, kn, s, cqk, div);
 #pragma unroll
         for (int i = 0; i < RQ; ++i)
 #pragma unroll
           for (int j = 0; j < RK; ++j)
             sP[(ty * RQ + i) * T::PS + tx + 16 * j] =
-                rt(p, __fdiv_rn(expf(s[i][j] - m[i]), l[i]));
+                rc(p, cq, __fdiv_rn(expf(s[i][j] - m[i]), l[i]));
         __syncwarp();  // a half-warp reads back only the P rows it wrote
         pv_accumulate<BK, HD>(sP, sV, acc);
       }
@@ -1459,25 +1787,373 @@ __device__ __noinline__ void attention_items(const Params& p, float* smem) {
   }
 }
 
+// Columns [c0, c0 + kWideDepth) of rows [0, NROWS) of one head, from rows
+// r0.. of the qkv buffer (src at row r0, the head's column 0), RoPE'd
+// (rope_pair's first output for a column of the lower half, its second
+// for the upper one) and times ``scale``; rows past n and columns past D
+// zero.  gather() loads a thread's operands into registers, store() writes
+// its elements to dst (row stride kWideDepth + 1): a q chunk and a K chunk
+// are gathered before either is stored, so all their loads are in flight
+// together.
+template <int NROWS>
+struct RopeChunk {
+  static constexpr int PER = NROWS * kWideDepth / kThreads;
+  static_assert(PER * kThreads == NROWS * kWideDepth, "whole rounds");
+  float x1[PER], x2[PER], cs[PER], sn[PER];
+  int n, D, c0;
+
+  __device__ __forceinline__ void gather(const float* src, int nq,
+                                         const Params& p, int r0, int n_,
+                                         int D_, int c0_) {
+    n = n_;
+    D = D_;
+    c0 = c0_;
+    const int half = D / 2;
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int i = threadIdx.x + u * kThreads, r = i / kWideDepth,
+                col = c0 + i % kWideDepth, j = col < half ? col : col - half;
+      x1[u] = x2[u] = cs[u] = sn[u] = 0.0f;
+      if (r < n && col < D) {
+        const float* row = src + static_cast<long long>(r) * nq;
+        x1[u] = __ldcg(row + j);
+        x2[u] = __ldcg(row + j + half);
+        cs[u] = __ldg(p.rope_cos + (r0 + r) * half + j);
+        sn[u] = __ldg(p.rope_sin + (r0 + r) * half + j);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(const Params& p, float* dst,
+                                        float scale, int code) const {
+    const int half = D / 2;
+#pragma unroll
+    for (int u = 0; u < PER; ++u) {
+      const int i = threadIdx.x + u * kThreads, r = i / kWideDepth,
+                jj = i % kWideDepth, col = c0 + jj;
+      float d[2];
+      rope_pair(p, d, 1, x1[u], x2[u], cs[u], sn[u], scale, code);
+      dst[r * (kWideDepth + 1) + jj] =
+          r < n && col < D ? d[col < half ? 0 : 1] : 0.0f;
+    }
+  }
+};
+
+// Attention past head dim kMaxHeadDim (any even D): one item per (sample,
+// q head, kBQ query rows), as attention_items, whose tiles would not fit
+// shared memory nor its accumulator the registers.  For every K/V block
+// of kWideBK rows the scores stream over the head in chunks of kWideDepth
+// columns (q and K RoPE'd as they are loaded), summing in registers in
+// the depth order qk_scores takes.
+// Up to kWideRowsMaxS tokens (the main path's) the item's score rows stay
+// in shared memory: one pass over the blocks writes them, each half-warp
+// turns its rows into p with their max m and sum l ('exact': exp(s - m) /
+// l at q's type; 'flash': exp(s - m), divided by max(l, 1e-20) at the end:
+// the recurrence's result in one step), then p v runs over the blocks, in
+// registers, for one output chunk of kWideOut columns: there an item is
+// (sample, q head, kBQ query rows, output chunk).
+// Past that, p v runs in output chunks inside each block, each thread's
+// running sums kept in its own elements of the item's rows of the
+// attention output buffer (raw float32 between blocks, read back by the
+// thread that wrote them; the last block stores the result at its site's
+// type): 'flash' runs the recurrence, acc = acc alpha + p v; 'exact' the
+// two passes of attention_items, its p v one FMA chain per element across
+// the blocks.
+template <bool FLASH>
+__device__ __noinline__ void attention_wide(const Params& p, float* smem,
+                                            int layer) {
+  using T = WideTiles;
+  constexpr int BK = kWideBK, RQ = kBQ / 16, RK = BK / 16,
+                RO = kWideOut / 16;
+  const int H = p.w.n_heads, Hkv = p.w.n_kv_heads, grp = H / Hkv, S = p.seq,
+            D = p.w.head_dim;
+  const int hq = H * D, nq = hq + 2 * Hkv * D, nqb = cdiv(S, kBQ),
+            nkb = cdiv(S, BK), ndc = cdiv(D, kWideDepth),
+            noc = cdiv(D, kWideOut);
+  float* sQ = smem + T::kQ;
+  float* sK = smem + T::kK;
+  float* sP = smem + T::kP;
+  float* sV = smem + T::kV;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int cq = lsite(p, layer, kSiteQ), ck = lsite(p, layer, kSiteK),
+            cqk = lsite(p, layer, kSiteQK),
+            co = lsite(p, layer, FLASH ? kSiteH : kSitePV);
+  const float div = kMixed ? p.w.attn_div[layer > 0] : p.attn_div;
+  // with the score rows in shared memory an item is also one output chunk
+  // (every chunk's item recomputes the scores: more items, each of fewer
+  // serial stages, on a grid that the (sample, head, query block) items
+  // alone leave mostly idle)
+  const bool rows_mode = S <= kWideRowsMaxS;
+  const int ngrp = rows_mode ? noc : 1;
+  for (int item = block_rank(smem); item < p.batch * H * nqb * ngrp;
+       item += gridDim.x) {
+    const int oc_item = item % ngrp, rest = item / ngrp;
+    const int qb = rest % nqb, bh = rest / nqb, b = bh / H, hh = bh % H,
+              kvh = hh / grp, q0 = qb * kBQ;
+    const int qn = S - q0 < kBQ ? S - q0 : kBQ;  // query rows inside S
+    const float* base = p.qkv + static_cast<long long>(b) * S * nq;
+    const float* qs = base + static_cast<long long>(q0) * nq + hh * D;
+    const float* k = base + hq + kvh * D;
+    const float* v = base + hq + Hkv * D + kvh * D;
+    float* out = p.ao + (static_cast<long long>(b) * S + q0) * hq + hh * D;
+    // s = q k^T of block k0 (kn rows inside S) over every depth chunk;
+    // 'exact' divides as exact_scores does; columns from kn on masked
+    auto scores = [&](int k0, int kn, float (&s)[RQ][RK]) {
+#pragma unroll
+      for (int i = 0; i < RQ; ++i)
+#pragma unroll
+        for (int j = 0; j < RK; ++j) s[i][j] = 0.0f;
+      for (int dc = 0; dc < ndc; ++dc) {
+        RopeChunk<kBQ> qc;
+        RopeChunk<BK> kc;
+        qc.gather(qs, nq, p, q0, qn, D, dc * kWideDepth);
+        kc.gather(k + static_cast<long long>(k0) * nq, nq, p, k0, kn, D,
+                  dc * kWideDepth);
+        __syncthreads();  // the previous chunk is no longer read
+        qc.store(p, sQ, FLASH ? p.q_scale : 1.0f, cq);
+        kc.store(p, sK, 1.0f, ck);
+        __syncthreads();
+#pragma unroll 4
+        for (int c = 0; c < kWideDepth; ++c) {
+          float a[RQ], bb[RK];
+#pragma unroll
+          for (int i = 0; i < RQ; ++i) a[i] = sQ[(ty * RQ + i) * T::QS + c];
+#pragma unroll
+          for (int j = 0; j < RK; ++j) bb[j] = sK[(tx + 16 * j) * T::QS + c];
+#pragma unroll
+          for (int i = 0; i < RQ; ++i)
+#pragma unroll
+            for (int j = 0; j < RK; ++j) s[i][j] = fmaf(a[i], bb[j], s[i][j]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RQ; ++i)
+#pragma unroll
+        for (int j = 0; j < RK; ++j) {
+          if (!FLASH) s[i][j] = rc(p, cqk, __fdiv_rn(rc(p, cqk, s[i][j]), div));
+          if (tx + 16 * j >= kn) s[i][j] = repro::kNegBig;
+        }
+    };
+    float m[RQ], l[RQ];
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) {
+      m[i] = repro::kNegBig;
+      l[i] = 0.0f;
+    }
+    if (rows_mode) {  // the item's score rows in shared memory
+      const int SS = nkb * BK + 1;
+      float* sS = smem + T::kFloats;
+      for (int kb = 0; kb < nkb; ++kb) {
+        const int k0 = kb * BK, kn = S - k0 < BK ? S - k0 : BK;
+        float s[RQ][RK];
+        scores(k0, kn, s);
+#pragma unroll
+        for (int i = 0; i < RQ; ++i)
+#pragma unroll
+          for (int j = 0; j < RK; ++j)
+            sS[(ty * RQ + i) * SS + k0 + tx + 16 * j] = s[i][j];
+      }
+      __syncwarp();  // a half-warp reads back only the rows it wrote
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) {
+        float* row = sS + (ty * RQ + i) * SS;
+        float mx = repro::kNegBig;
+        for (int c = tx; c < nkb * BK; c += 16) mx = fmaxf(mx, row[c]);
+        m[i] = repro::half_warp_max(mx);
+        float sum = 0.0f;
+        for (int c = tx; c < nkb * BK; c += 16) sum += expf(row[c] - m[i]);
+        l[i] = repro::half_warp_sum(sum);
+        for (int c = tx; c < nkb * BK; c += 16)
+          row[c] = FLASH ? expf(row[c] - m[i])
+                         : rc(p, cq, __fdiv_rn(expf(row[c] - m[i]), l[i]));
+      }
+      {
+        const int o0 = oc_item * kWideOut;  // the item's output chunk
+        float acc[RQ][RO];
+#pragma unroll
+        for (int i = 0; i < RQ; ++i)
+#pragma unroll
+          for (int r = 0; r < RO; ++r) acc[i][r] = 0.0f;
+        for (int kb = 0; kb < nkb; ++kb) {
+          const int k0 = kb * BK, kn = S - k0 < BK ? S - k0 : BK;
+          constexpr int PV = BK * kWideOut / kThreads;
+          float vv[PV];
+#pragma unroll
+          for (int u = 0; u < PV; ++u) {
+            const int i = threadIdx.x + u * kThreads, r = i / kWideOut,
+                      c = i % kWideOut;
+            vv[u] = r < kn && o0 + c < D
+                        ? __ldcg(v + static_cast<long long>(k0 + r) * nq +
+                                 o0 + c)
+                        : 0.0f;
+          }
+          __syncthreads();  // sV is no longer read; every p is written
+#pragma unroll
+          for (int u = 0; u < PV; ++u) sV[threadIdx.x + u * kThreads] = vv[u];
+          __syncthreads();
+#pragma unroll
+          for (int i = 0; i < RQ; ++i) {
+            const float* prow = sS + (ty * RQ + i) * SS + k0;
+#pragma unroll 4
+            for (int c = 0; c < BK; ++c) {
+              const float pc = prow[c];
+#pragma unroll
+              for (int r = 0; r < RO; ++r)
+                acc[i][r] = fmaf(pc, sV[c * kWideOut + tx + 16 * r],
+                                 acc[i][r]);
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < RQ; ++i) {
+          const int row = ty * RQ + i;
+          const float den = FLASH ? fmaxf(l[i], 1e-20f) : 1.0f;
+#pragma unroll
+          for (int r = 0; r < RO; ++r) {
+            const int col = o0 + tx + 16 * r;
+            if (row < qn && col < D)
+              out[static_cast<long long>(row) * hq + col] =
+                  rc(p, co, FLASH ? __fdiv_rn(acc[i][r], den) : acc[i][r]);
+          }
+        }
+      }
+      __syncthreads();  // shared memory is reused by the next item
+      continue;
+    }
+    if (!FLASH) {  // pass 1: the rows' max and sum
+      for (int kb = 0; kb < nkb; ++kb) {
+        const int k0 = kb * BK, kn = S - k0 < BK ? S - k0 : BK;
+        float s[RQ][RK];
+        scores(k0, kn, s);
+#pragma unroll
+        for (int i = 0; i < RQ; ++i) {
+          float mx = repro::kNegBig;
+#pragma unroll
+          for (int j = 0; j < RK; ++j) mx = fmaxf(mx, s[i][j]);
+          const float m_new = fmaxf(m[i], repro::half_warp_max(mx));
+          float sum = 0.0f;
+#pragma unroll
+          for (int j = 0; j < RK; ++j) sum += expf(s[i][j] - m_new);
+          l[i] = expf(m[i] - m_new) * l[i] + repro::half_warp_sum(sum);
+          m[i] = m_new;
+        }
+      }
+    }
+    for (int kb = 0; kb < nkb; ++kb) {  // p, then p v by output chunks
+      const int k0 = kb * BK, kn = S - k0 < BK ? S - k0 : BK;
+      float s[RQ][RK], alpha[RQ];
+      scores(k0, kn, s);
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) {
+        const int row = ty * RQ + i;
+        if (FLASH) {
+          float mx = repro::kNegBig;
+#pragma unroll
+          for (int j = 0; j < RK; ++j) mx = fmaxf(mx, s[i][j]);
+          const float m_new = fmaxf(m[i], repro::half_warp_max(mx));
+          float sum = 0.0f;
+#pragma unroll
+          for (int j = 0; j < RK; ++j) {
+            const float pr = expf(s[i][j] - m_new);
+            sP[row * T::PS + tx + 16 * j] = pr;
+            sum += pr;
+          }
+          alpha[i] = expf(m[i] - m_new);
+          l[i] = alpha[i] * l[i] + repro::half_warp_sum(sum);
+          m[i] = m_new;
+        } else {
+#pragma unroll
+          for (int j = 0; j < RK; ++j)
+            sP[row * T::PS + tx + 16 * j] =
+                rc(p, cq, __fdiv_rn(expf(s[i][j] - m[i]), l[i]));
+        }
+      }
+      const bool last = kb == nkb - 1;
+      for (int oc = 0; oc < noc; ++oc) {
+        const int o0 = oc * kWideOut;
+        constexpr int PV = BK * kWideOut / kThreads;  // V elements a thread
+        float vv[PV];
+#pragma unroll
+        for (int u = 0; u < PV; ++u) {  // gathered before the barrier
+          const int i = threadIdx.x + u * kThreads, r = i / kWideOut,
+                    c = i % kWideOut;
+          vv[u] = r < kn && o0 + c < D
+                      ? __ldcg(v + static_cast<long long>(k0 + r) * nq + o0 +
+                               c)
+                      : 0.0f;
+        }
+        __syncthreads();  // sV is no longer read; sP is written
+#pragma unroll
+        for (int u = 0; u < PV; ++u) sV[threadIdx.x + u * kThreads] = vv[u];
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < RQ; ++i) {
+          const int row = ty * RQ + i;
+          float acc[RO];
+#pragma unroll
+          for (int r = 0; r < RO; ++r) {
+            const int col = o0 + tx + 16 * r;
+            acc[r] = kb > 0 && row < qn && col < D
+                         ? __ldcg(out + static_cast<long long>(row) * hq + col)
+                         : 0.0f;
+          }
+          if (FLASH) {
+            float pv[RO] = {};
+#pragma unroll 4
+            for (int c = 0; c < BK; ++c) {
+              const float pc = sP[row * T::PS + c];
+#pragma unroll
+              for (int r = 0; r < RO; ++r)
+                pv[r] = fmaf(pc, sV[c * kWideOut + tx + 16 * r], pv[r]);
+            }
+#pragma unroll
+            for (int r = 0; r < RO; ++r) acc[r] = acc[r] * alpha[i] + pv[r];
+          } else {
+#pragma unroll 4
+            for (int c = 0; c < BK; ++c) {
+              const float pc = sP[row * T::PS + c];
+#pragma unroll
+              for (int r = 0; r < RO; ++r)
+                acc[r] = fmaf(pc, sV[c * kWideOut + tx + 16 * r], acc[r]);
+            }
+          }
+          const float den = FLASH ? fmaxf(l[i], 1e-20f) : 1.0f;
+#pragma unroll
+          for (int r = 0; r < RO; ++r) {
+            const int col = o0 + tx + 16 * r;
+            if (row >= qn || col >= D) continue;
+            out[static_cast<long long>(row) * hq + col] =
+                !last ? acc[r]
+                      : rc(p, co, FLASH ? __fdiv_rn(acc[r], den) : acc[r]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // shared memory is reused by the next item
+  }
+}
+
 // The attention phase at the trunk's head dim: the aligned geometry's
-// four widths as they are, or (G) padded to the next of six widths
-// (widths_ok admits D <= kMaxHeadDim).
+// four widths as they are, or (G) padded to the next of six widths, or
+// past kMaxHeadDim streamed over the head (attention_wide).
 template <bool FLASH, bool G>
 __device__ __forceinline__ void phase_attention(const Params& p,
-                                                float* smem) {
+                                                float* smem, int layer) {
   const int D = p.w.head_dim;
   if (D <= 16)
-    attention_items<FLASH, 16, G>(p, smem);
+    attention_items<FLASH, 16, G>(p, smem, layer);
   else if (D <= 32)
-    attention_items<FLASH, 32, G>(p, smem);
+    attention_items<FLASH, 32, G>(p, smem, layer);
   else if (D <= 64)
-    attention_items<FLASH, 64, G>(p, smem);
+    attention_items<FLASH, 64, G>(p, smem, layer);
   else if (G && D <= 96)
-    attention_items<FLASH, 96, G>(p, smem);
+    attention_items<FLASH, 96, G>(p, smem, layer);
   else if (!G || D <= 128)
-    attention_items<FLASH, 128, G>(p, smem);
-  else
-    attention_items<FLASH, kMaxHeadDim, G>(p, smem);
+    attention_items<FLASH, 128, G>(p, smem, layer);
+  else if (!G || D <= kMaxHeadDim)
+    attention_items<FLASH, kMaxHeadDim, G>(p, smem, layer);
+  else if constexpr (G)
+    attention_wide<FLASH>(p, smem, layer);
 }
 
 // eps = rmsnorm(h, out_norm) @ w_out, split-K, then the update of the
@@ -1492,11 +2168,14 @@ __device__ __noinline__ void phase_out(const Params& p, float* smem,
   const bool vec = !G || (L & 1) == 0;
   const float* prev = p.state16 ? p.xs : step == 0 ? p.x : p.out;
   const bool from_input = step == 0 && !p.state16;
+  const int ce = gsite(p, kSiteEps);
   gemm_phase<true, false, G>(
-      p, smem, cdiv(L, kBN), L, d, p.split_out,
+      p, smem, cdiv(L, kBN), L, d, p.split_out, gsite(p, kSiteHL),
+      gsite(p, kSiteXO),
       [&](int m0, int nt) {
-        return make_tile(p.h + static_cast<long long>(m0) * d, p.w.w_out,
-                         nullptr, L, nt * kBN, nt * kBN, p.w.out_norm);
+        return make_tile(p.h + static_cast<long long>(m0) * d,
+                         WLEAF(p, w_out, kLeafWOut), WNONE, L, nt * kBN,
+                         nt * kBN, WLEAF(p, out_norm, kLeafOutNorm));
       },
       [&](int m, int n, const float2 (&v)[1], bool two) {
         const long long idx = static_cast<long long>(m) * L + n;
@@ -1520,9 +2199,10 @@ __device__ __noinline__ void phase_out(const Params& p, float* smem,
         }
         float x0;
         const float y0 =
-            repro::update<CLIP, false>(x.x, rt(p, v[0].x), c, p.clip, &x0);
+            repro::update<CLIP, false>(x.x, rc(p, ce, v[0].x), c, p.clip, &x0);
         const float y1 =
-            repro::update<CLIP, false>(x.y, rt(p, v[0].y), c1, p.clip, &x0);
+            repro::update<CLIP, false>(x.y, rc(p, ce, v[0].y), c1, p.clip,
+                                       &x0);
         if (p.state16 == 1) {
           put2_16(static_cast<__nv_bfloat16*>(p.out16) + idx,
                   __floats2bfloat162_rn(y0, y1), p.xs + idx, two, vec);
@@ -1563,7 +2243,7 @@ __device__ __forceinline__ void run_steps(const Params& p, float* smem,
       phase_qkv<G>(p, smem, layer);
       grid.sync();
       stamp(p, n);
-      phase_attention<FLASH, G>(p, smem);
+      phase_attention<FLASH, G>(p, smem, layer);
       grid.sync();
       stamp(p, n);
       phase_wo<G>(p, smem, layer);
@@ -1606,22 +2286,26 @@ megastep_kernel(const __grid_constant__ Params p) {
     grid.sync();
   }
   stamp(p, n);
-  if (p.general)
+  if constexpr (kMixed) {  // the mixed library runs the general phases
     run_steps<CLIP, FLASH, ROWS, true>(p, smem, n);
-  else
-    run_steps<CLIP, FLASH, ROWS, false>(p, smem, n);
+  } else {
+    if (p.general)
+      run_steps<CLIP, FLASH, ROWS, true>(p, smem, n);
+    else
+      run_steps<CLIP, FLASH, ROWS, false>(p, smem, n);
+  }
 }
 
 // The geometry the kernel takes (mirrored by kernel._shape_limits): any
 // seq_len whose sample is a whole number of 256-wide tile rows (the slot
-// of a B4 coefficient row), an even head dim (RoPE's halves) up to
-// kMaxHeadDim (the widest attention tiles), GQA groups of whole heads,
-// and any other width: the product tiles cut them at any edge.
+// of a B4 coefficient row), an even head dim (RoPE's halves; past
+// kMaxHeadDim attention_wide streams it), GQA groups of whole heads, and
+// any other width: the product tiles cut them at any edge.
 bool widths_ok(const ReproMegaWeights& w, int seq) {
   const int D = w.head_dim;
   return w.n_layers >= 0 && w.n_heads > 0 && w.n_kv_heads > 0 &&
          w.n_heads % w.n_kv_heads == 0 && D >= 2 && D % 2 == 0 &&
-         D <= kMaxHeadDim && w.d_model > 0 && w.d_ff > 0 && w.latent > 0 &&
+         w.d_model > 0 && w.d_ff > 0 && w.latent > 0 &&
          w.time_dim > 0 && seq >= 1 &&
          (static_cast<long long>(seq) * w.latent) % kTileC == 0;
 }
@@ -1639,19 +2323,33 @@ bool aligned(const ReproMegaWeights& w, int seq) {
 
 using Kernel = void (*)(Params);
 
+template <bool FLASH, bool ROWS>
+Kernel pick_one(bool clip) {
+  return clip ? megastep_kernel<true, FLASH, ROWS>
+              : megastep_kernel<false, FLASH, ROWS>;
+}
+
+// The library's instantiation, or null for one that REPRO_MEGA_FLASH /
+// REPRO_MEGA_ROWS left out of this library (the preprocessor keeps those
+// from being compiled at all).
 Kernel pick(bool clip, bool flash, bool rows) {
-  if (rows) {
-    if (clip)
-      return flash ? megastep_kernel<true, true, true>
-                   : megastep_kernel<true, false, true>;
-    return flash ? megastep_kernel<false, true, true>
-                 : megastep_kernel<false, false, true>;
-  }
-  if (clip)
-    return flash ? megastep_kernel<true, true, false>
-                 : megastep_kernel<true, false, false>;
-  return flash ? megastep_kernel<false, true, false>
-               : megastep_kernel<false, false, false>;
+#if REPRO_MEGA_FLASH != 1
+#if REPRO_MEGA_ROWS != 1
+  if (!flash && !rows) return pick_one<false, false>(clip);
+#endif
+#if REPRO_MEGA_ROWS != 0
+  if (!flash && rows) return pick_one<false, true>(clip);
+#endif
+#endif
+#if REPRO_MEGA_FLASH != 0
+#if REPRO_MEGA_ROWS != 1
+  if (flash && !rows) return pick_one<true, false>(clip);
+#endif
+#if REPRO_MEGA_ROWS != 0
+  if (flash && rows) return pick_one<true, true>(clip);
+#endif
+#endif
+  return nullptr;
 }
 
 // Blocks per SM and SM count of one instantiation on the current device:
@@ -1673,6 +2371,7 @@ cudaError_t residency(bool clip, bool flash, bool rows, int* per_sm,
     err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
     const Kernel k = pick(clip, flash, rows);
+    if (k == nullptr) return cudaErrorInvalidValue;
     err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmemBytes);
     if (err != cudaSuccess) return err;
@@ -1738,15 +2437,19 @@ int launch(const void* x, void* out, const ReproMegaWeights* w,
   p.seq = seq;
   p.n_emb = n_emb;
   p.n_cnt = static_cast<int>(l.n_cnt);
-  p.general = !aligned(*w, seq);
+  p.general = kMixed || !aligned(*w, seq);
   p.clip = clip;
   // sqrtf is correctly rounded: jnp.sqrt(float32(D)) (in a 16-bit trunk
-  // sqrt(D) in its type); 1/sqrt(D) rounded from double, as the flash
-  // trunk's Python-float scale
+  // sqrt(D) of D in its type, in its type: past 256 a bfloat16 D rounds);
+  // 1/sqrt(D) rounded from double, as the flash trunk's Python-float
+  // scale.  (The mixed library takes sqrt(D) per layer from w->attn_div.)
   p.attn_div = sqrtf(static_cast<float>(w->head_dim));
-  if (p.round_trunk)
-    p.attn_div = kF16W ? __half2float(__float2half_rn(p.attn_div))
-                       : bf16_round_host(p.attn_div);
+  if (p.round_trunk) {
+    const float D = static_cast<float>(w->head_dim);
+    p.attn_div = kF16W ? __half2float(__float2half_rn(
+                             sqrtf(__half2float(__float2half_rn(D)))))
+                       : bf16_round_host(sqrtf(bf16_round_host(D)));
+  }
   p.q_scale = static_cast<float>(1.0 / sqrt(static_cast<double>(w->head_dim)));
   p.h = base + l.h;
   p.qkv = base + l.qkv;

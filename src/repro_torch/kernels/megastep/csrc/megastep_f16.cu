@@ -1,8 +1,10 @@
-// B3 / B4, the sampler megakernels, for float16 weights (the state
+// B3, K lockstep steps, with 'exact' attention, for float16 weights (the state
 // float32, bfloat16 or float16; both float16 make a float16 trunk).  The
-// kernels are megastep_body.cuh, built here as a library of its own beside
-// megastep.cu (float32 weights) and megastep_bf16.cu (bfloat16 weights),
-// so the three compile in parallel.
+// kernels are megastep_body.cuh, built as four libraries a weight type
+// (megastep_f16{,_flash}{,_rows}.cu, two kernels each) so that the sixteen
+// compile in parallel.
+#define REPRO_MEGA_FLASH 0
+#define REPRO_MEGA_ROWS 0
 #define REPRO_MEGA_WEIGHT __half
 #include <cuda_fp16.h>
 #include "megastep/csrc/megastep_body.cuh"

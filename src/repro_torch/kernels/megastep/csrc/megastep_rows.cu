@@ -1,0 +1,5 @@
+// B4, the scheduler tick, with 'exact' attention: megastep.cu's twin.
+#define REPRO_MEGA_FLASH 0
+#define REPRO_MEGA_ROWS 1
+#define REPRO_MEGA_WEIGHT float
+#include "megastep/csrc/megastep_body.cuh"

@@ -1,6 +1,9 @@
 """Wrappers of the CUDA megakernel (``csrc/megastep_body.cuh``, built as
 ``csrc/megastep.cu`` for float32 weights, ``csrc/megastep_bf16.cu`` for
-bfloat16 weights and ``csrc/megastep_f16.cu`` for float16 weights).
+bfloat16 weights, ``csrc/megastep_f16.cu`` for float16 weights and
+``csrc/megastep_mixed.cu`` for trees of several leaf types, each the
+lockstep kernels with 'exact' attention, and their ``*_flash.cu``,
+``*_rows.cu`` and ``*_flash_rows.cu`` twins: sixteen libraries).
 
 Port of the two Pallas launchers in ``repro/kernels/megastep/kernel.py``:
 
@@ -24,17 +27,22 @@ refused launch raises; nothing falls back.  On tensors that lie on the
 CPU it runs the plain version (``ref.py``) and counts nothing; on a CUDA
 tensor it launches or raises.
 
-The kernel takes every geometry of the TPU kernel: any seq_len, latent,
-time_dim, d_model and d_ff (the product tiles zero-fill past any edge),
-an even head dim up to 256 (attention pads it to one of six widths),
-GQA groups of whole heads, a float32, bfloat16 or float16 state, and
-weights all float32, all bfloat16 or all float16 (a library each).  The
-trunk computes in the promotion of the two types, as JAX's does: a 16-bit
-trunk only when both are of that type (float16 with bfloat16 promotes to
-float32).  Weights of mixed types, which JAX admits and no caller runs,
-are not ported, nor head dims past 256.  ``kernel_limits``
-states these limits; ``ops.eligible`` applies them to states off the
-CPU, so such runs take the unfused path instead.
+The kernel takes every input the TPU kernel computes: any seq_len,
+latent, time_dim, d_model and d_ff (the product tiles zero-fill past any
+edge), any even head dim (attention pads it to one of six widths up to
+256, and past 256 streams it in chunks), GQA groups of whole heads, a
+float32, bfloat16 or float16 state, and weights of those types: all of
+one type (a library each: ``megastep``, ``megastep_bf16``,
+``megastep_f16``) or of several (``megastep_mixed``).  The trunk computes
+in JAX's promotion of the types: in a uniform tree a 16-bit trunk only
+when state and weights are both of that type (float16 with bfloat16
+promotes to float32); in a mixed tree each value at the type JAX's
+promotion gives it (``trunk_types``, replayed on the leaf types: a
+float32 norm scale over a bfloat16 row makes the normed row float32).
+``kernel_limits`` states what stays refused, what JAX's own kernel
+raises on: an odd head dim, n_heads not a multiple of n_kv_heads, a state
+(or a leaf) of another type; ``ops.eligible`` applies it to states off
+the CPU.
 """
 from __future__ import annotations
 
@@ -52,12 +60,13 @@ from repro_torch.models.common import rope_freqs, sinusoidal_time_embedding
 from . import ref
 
 ATTN_IMPLS = ("exact", "flash")
-KERNEL_MAX_HEAD_DIM = 256  # kMaxHeadDim of csrc/megastep_body.cuh
 # state and weight types, by the code the library takes (0, 1, 2), and the
-# library built for each weight type
+# library built for each weight type; MIXED names trees of several (code
+# 3, the megastep_mixed library)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+MIXED = "mixed"
 _LIBRARY = {torch.float32: "megastep", torch.bfloat16: "megastep_bf16",
-            torch.float16: "megastep_f16"}
+            torch.float16: "megastep_f16", MIXED: "megastep_mixed"}
 
 # the order of the pointer fields of ReproMegaWeights in
 # csrc/megastep_body.cuh
@@ -71,14 +80,26 @@ _PLAN = ("workspace_floats", "grid", "blocks_per_sm", "barriers_per_step",
          "smem_bytes", "split_wo", "split_down", "split_out", "aligned")
 _WIDTHS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
            "time_dim", "latent", "head_dim")
+# the rounding sites of a mixed tree (ReproMegaSite / ReproMegaLayerSite
+# of csrc/megastep_body.cuh): the launch's, then a row for layer 0 and one
+# for every later layer
+_GLOBAL_SITES = ("t1", "t2", "in", "h0", "hl", "xo", "eps")
+_LAYER_SITES = ("h", "xa", "q", "k", "v", "qk", "pv", "wo", "h1", "xm", "g",
+                "u", "gu", "d", "h2")
+_N_SITES = len(_GLOBAL_SITES) + 2 * len(_LAYER_SITES)
 
 
 class _Weights(ctypes.Structure):
-    """ReproMegaWeights: the weights' device pointers (of the library's
-    weight type), the widths, and ``dtype``, the weights' type code."""
+    """ReproMegaWeights: the weights' device pointers, the widths,
+    ``dtype`` (the weights' type code, 3 for a mixed tree) and, read by the
+    mixed library only, each pointer's type code, the rounding sites'
+    codes and exact attention's sqrt(D) (layer 0, later layers)."""
     _fields_ = ([(p[-1], ctypes.c_void_p) for p in _POINTERS]
                 + [(n, ctypes.c_int) for n in _WIDTHS]
-                + [("norm_eps", ctypes.c_float), ("dtype", ctypes.c_int)])
+                + [("norm_eps", ctypes.c_float), ("dtype", ctypes.c_int),
+                   ("leaf", ctypes.c_int * len(_POINTERS)),
+                   ("site", ctypes.c_int * _N_SITES),
+                   ("attn_div", ctypes.c_float * 2)])
 
 
 def leaves(tree) -> Iterator[torch.Tensor]:
@@ -97,9 +118,13 @@ def _get(tree, path):
 
 
 @functools.cache
-def _lib(weight_dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
-    """The library built for weights of ``weight_dtype``."""
-    lib = build.load(_LIBRARY[weight_dtype])
+def _lib(weight_dtype=torch.float32, flash: bool = False,
+         rows: bool = False) -> ctypes.CDLL:
+    """The library built for weights of ``weight_dtype`` (or MIXED), with
+    'flash' attention or 'exact', of the scheduler tick (``rows``, B4) or
+    the lockstep steps (B3)."""
+    lib = build.load(_LIBRARY[weight_dtype] + ("_flash" if flash else "")
+                     + ("_rows" if rows else ""))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.repro_megastep_plan.argtypes = [ctypes.POINTER(_Weights), I, I, I, I,
                                         I, I, ctypes.POINTER(ctypes.c_longlong)]
@@ -121,9 +146,9 @@ def _shape_limits(cfg, state_dtype: torch.dtype) -> Optional[str]:
         return (f"the CUDA megakernel takes n_heads a multiple of "
                 f"n_kv_heads, got {a.n_heads} and {a.n_kv_heads}")
     D = a.hd()
-    if D % 2 or not 2 <= D <= KERNEL_MAX_HEAD_DIM:
-        return (f"the CUDA megakernel takes an even head_dim up to "
-                f"{KERNEL_MAX_HEAD_DIM}, got head_dim {D}")
+    if D % 2 or D < 2:
+        return (f"the CUDA megakernel takes an even head_dim (RoPE's "
+                f"halves), got head_dim {D}")
     if state_dtype not in KERNEL_DTYPES:
         return (f"the CUDA megakernel takes a float32, bfloat16 or float16 "
                 f"state, got dtype {state_dtype}")
@@ -131,26 +156,84 @@ def _shape_limits(cfg, state_dtype: torch.dtype) -> Optional[str]:
 
 
 def _weight_limits(params: Dict) -> Optional[str]:
-    """Why the CUDA megakernel cannot take these weights (not all of one
-    type of float32, bfloat16 and float16), or None."""
-    dtypes = sorted({str(t.dtype) for t in leaves(params)})
-    if len(dtypes) == 1 and dtypes[0] in map(str, KERNEL_DTYPES):
+    """Why the CUDA megakernel cannot read these weights (a leaf of none of
+    float32, bfloat16 and float16), or None."""
+    bad = sorted({str(t.dtype) for t in leaves(params)
+                  if t.dtype not in KERNEL_DTYPES})
+    if not bad:
         return None
-    return (f"the CUDA megakernel takes weights all float32, all "
-            f"bfloat16 or all float16, got dtype {', '.join(dtypes)}")
+    return (f"the CUDA megakernel takes weights of float32, bfloat16 or "
+            f"float16, got dtype {', '.join(bad)}")
+
+
+def weight_library(params: Dict):
+    """The weight type whose library runs these eps-path weights: their
+    one dtype, or MIXED for leaves of several."""
+    dtypes = {t.dtype for t in leaves(params)}
+    return dtypes.pop() if len(dtypes) == 1 else MIXED
+
+
+def trunk_types(params: Dict, cfg, state_dtype: torch.dtype,
+                attn_impl: str = "exact") -> Dict:
+    """The type JAX's eps trunk gives each value, replaying its promotion
+    (``jnp.matmul`` / elementwise ops of two types) on the leaf types:
+    ``{"launch": {site: dtype}, "layers": [layer 0's, later layers'],
+    "attn_div": [sqrt(D) as exact attention divides by it, per row]}``.
+    A layer's types follow from the type of h entering it; a layer that
+    makes h float32 leaves it so, so every layer past the first has the
+    second row's types.  Exact attention divides q k^T by sqrt(D) computed
+    in q's type; its probabilities are q's type and its output q's and v's
+    promotion; 'flash' returns the attention in h's type."""
+    P = torch.promote_types
+
+    def t(*path):
+        return _get(params, path).dtype
+
+    a = cfg.arch
+    t1 = P(state_dtype, t("time_w1"))
+    t2 = P(t1, t("time_w2"))
+    t_in = P(state_dtype, t("w_in"))
+
+    def layer(h):
+        xa = P(h, t("layers", "attn_norm"))
+        q, k, v = (P(xa, t("layers", "attn", n)) for n in ("wq", "wk", "wv"))
+        pv = P(q, v)
+        wo = P(h if attn_impl == "flash" else pv, t("layers", "attn", "wo"))
+        h1 = P(h, wo)
+        xm = P(h1, t("layers", "mlp_norm"))
+        g, u = P(xm, t("layers", "w_gate")), P(xm, t("layers", "w_up"))
+        gu = P(g, u)
+        d = P(gu, t("layers", "w_down"))
+        return dict(h=h, xa=xa, q=q, k=k, v=v, qk=P(q, k), pv=pv, wo=wo,
+                    h1=h1, xm=xm, g=g, u=u, gu=gu, d=d, h2=P(h1, d))
+
+    h0 = P(t_in, t2)
+    rows = [layer(h0)]
+    rows.append(layer(rows[0]["h2"]))
+    h = h0
+    for i in range(a.n_layers):
+        h = rows[min(i, 1)]["h2"]
+    xo = P(h, t("out_norm"))
+    D = a.hd()
+    divs = [float(torch.tensor(float(D), dtype=r["q"]).sqrt().float())
+            for r in rows]
+    return {"launch": dict(t1=t1, t2=t2, **{"in": t_in}, h0=h0, hl=h, xo=xo,
+                           eps=P(xo, t("w_out"))),
+            "layers": rows, "attn_div": divs}
 
 
 def kernel_limits(cfg, state_dtype: torch.dtype,
                   params: Dict) -> Tuple[bool, str]:
     """(ok, reason): does the CUDA megakernel take this trunk and state?
 
-    Its own limits, beyond the eligibility rule it shares with the JAX
-    package: n_heads a multiple of n_kv_heads, an even head dim up to
-    ``KERNEL_MAX_HEAD_DIM`` (``widths_ok`` of the source), a float32,
-    bfloat16 or float16 state, and weights all of one of those types.  Every
-    seq_len and width of the tile-aware trunk passes.  The plain version
-    (``ref.py``) has none of these limits.  Needs no CUDA state: the
-    weights may be meta tensors.  The launcher refuses the same inputs
+    It computes every input JAX's megakernel does, and refuses what JAX
+    raises on: n_heads not a multiple of n_kv_heads, an odd head dim
+    (``widths_ok`` of the source), a state of none of float32, bfloat16
+    and float16, and (which JAX cannot hold) a leaf of another type.
+    Every seq_len, width and head dim of the tile-aware trunk passes, and
+    weights of one type or of several.  The plain version (``ref.py``)
+    has none of these limits.  Needs no CUDA state: the weights may be
+    meta tensors.  The launcher refuses the same inputs
     (``_check_kernel_inputs``)."""
     why = _shape_limits(cfg, state_dtype) or _weight_limits(params)
     return (False, why) if why else (True, "ok")
@@ -176,12 +259,29 @@ def _check_kernel_inputs(x2: torch.Tensor, params: Dict, cfg) -> None:
     build.check_cuda(x2, *(_get(params, p) for p in _POINTERS))
 
 
-def _weights(params: Dict, cfg, dtype: torch.dtype) -> _Weights:
+def _code(dtype: torch.dtype) -> int:
+    return KERNEL_DTYPES.index(dtype)
+
+
+def _weights(params: Dict, cfg, dtype, state_dtype=torch.float32,
+             attn_impl: str = "exact") -> _Weights:
+    """ReproMegaWeights of the eps-path weights for the library of
+    ``dtype`` (a weight type, or MIXED: then with the leaf codes, the
+    sites of ``trunk_types`` for a state of ``state_dtype`` and the
+    divisors)."""
     a = cfg.arch
-    return _Weights(*(_get(params, p).data_ptr() for p in _POINTERS),
-                    a.n_layers, a.d_model, a.n_heads, a.n_kv_heads, a.d_ff,
-                    cfg.time_dim, cfg.latent_dim, a.hd(), a.norm_eps,
-                    KERNEL_DTYPES.index(dtype))
+    w = _Weights(*(_get(params, p).data_ptr() for p in _POINTERS),
+                 a.n_layers, a.d_model, a.n_heads, a.n_kv_heads, a.d_ff,
+                 cfg.time_dim, cfg.latent_dim, a.hd(), a.norm_eps,
+                 3 if dtype == MIXED else _code(dtype))
+    if dtype == MIXED:
+        ty = trunk_types(params, cfg, state_dtype, attn_impl)
+        w.leaf[:] = [_code(_get(params, p).dtype) for p in _POINTERS]
+        w.site[:] = ([_code(ty["launch"][n]) for n in _GLOBAL_SITES]
+                     + [_code(r[n]) for r in ty["layers"]
+                        for n in _LAYER_SITES])
+        w.attn_div[:] = ty["attn_div"]
+    return w
 
 
 def _check_state(x2: torch.Tensor, params: Dict, cfg, batch: int,
@@ -227,21 +327,23 @@ def _launch(wrapper, entry: str, x2: torch.Tensor, eps_params: Dict, cfg,
 
     The tables are float32 holding what JAX's trunk multiplies by: the
     sinusoid cast to the state's type (``eps_forward``), and in a 16-bit
-    trunk the RoPE cos / sin cast to its type (``apply_rope``)."""
+    trunk the RoPE cos / sin cast to its type (``apply_rope``; the mixed
+    library rounds them to q's or k's type itself)."""
     _check_kernel_inputs(x2, eps_params, cfg)
     dev = x2.device
-    w_dtype = eps_params["w_in"].dtype
-    trunk = torch.promote_types(x2.dtype, w_dtype)
+    w_dtype = weight_library(eps_params)
+    trunk = (torch.float32 if w_dtype == MIXED
+             else torch.promote_types(x2.dtype, w_dtype))
     temb = sinusoidal_time_embedding(ts.to(dev), cfg.time_dim).to(
         x2.dtype).float().contiguous()
     cos, sin = rope_freqs(torch.arange(seq_len, device=dev),
                           cfg.arch.hd(), cfg.arch.rope_theta)
     cos, sin = (z.to(trunk).float().contiguous() for z in (cos, sin))
     c32 = coefs.to(device=dev, dtype=torch.float32).contiguous()
-    w = _weights(eps_params, cfg, w_dtype)
-    lib = _lib(w_dtype)
+    w = _weights(eps_params, cfg, w_dtype, x2.dtype, attn_impl)
     rows = entry == "repro_megastep_rows"
     flash = attn_impl == "flash"
+    lib = _lib(w_dtype, flash, rows)
     plan = (ctypes.c_longlong * len(_PLAN))()
     with torch.cuda.device(dev):
         build.raise_on(lib.repro_megastep_plan(

@@ -9,11 +9,13 @@ the static config and the (batch, seq_len) geometry they are bound for.
 Eligibility (``eligible``; the plan-level half — deterministic, order 1 —
 is the backend's): the model carries a spec, the state has the spec's
 shape, a state off the CPU meets the CUDA kernel's own limits
-(``kernel.kernel_limits``: among them a float32, bfloat16 or float16
-state and weights all of one of those types), and weights + activations + state
-fit ``MEGA_BUDGET`` under the JAX package's byte model (``vmem_bytes``,
-unchanged: a weight or state counts its own type's bytes).  Anything else
-runs the 'tile_resident' backend, or the scheduler's unfused tick.
+(``kernel.kernel_limits``, which refuses only what JAX's kernel raises
+on: an odd head dim, n_heads not a multiple of n_kv_heads, a state or
+leaf of none of float32, bfloat16 and float16), and weights + activations
++ state fit ``MEGA_BUDGET`` under the JAX package's byte model
+(``vmem_bytes``, unchanged: a weight or state counts its own type's
+bytes, so a tree of mixed types counts each leaf at its size).  Anything
+else runs the 'tile_resident' backend, or the scheduler's unfused tick.
 """
 from __future__ import annotations
 
@@ -108,10 +110,13 @@ def eligible(spec: Optional[MegaSpec], x_T: torch.Tensor,
 
     A state that is not on the CPU (a CUDA state, or a meta tensor that
     stands for one) must also meet the CUDA kernel's own limits
-    (``kernel.kernel_limits``: an even head dim up to 256, n_heads a
-    multiple of n_kv_heads, a float32, bfloat16 or float16 state, weights
-    all of one of those types; every seq_len and width passes); the plain
-    version the CPU runs has none."""
+    (``kernel.kernel_limits``), which refuse only what JAX's kernel raises
+    on: an odd head dim, n_heads not a multiple of n_kv_heads, a state of
+    none of float32, bfloat16 and float16 (and a leaf of another type,
+    which JAX cannot hold).  Every seq_len, width and head dim passes, and
+    weights of one type or of several; so on every input JAX's kernel
+    computes this gives JAX's answer.  The plain version the CPU runs has
+    no limits."""
     if spec is None:
         return False, ("eps model carries no mega_spec (not a fused-capable "
                        "tile-aware trunk)")

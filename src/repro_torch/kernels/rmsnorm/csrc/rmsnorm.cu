@@ -27,6 +27,15 @@
 // float16) or a pointer is not 16-byte aligned, the same kernel runs its
 // scalar row path: the same structure with one element
 // per chunk and 32 chunks per thread (d <= 8,192).
+//
+// Any longer row (JAX's kernel takes every d) runs the long-row kernel
+// (rmsnorm_rows.cuh): 32 warps a row, a chunk loop for the sum of squares,
+// then a second read of the row, from L2, to scale it.  That reads x twice
+// where the one-pass path reads it once, so the bound above is met only
+// as far as L2 serves the second read: the grid keeps at most
+// kL2RowBytes of rows in flight (at least one row per SM).  A float32 x
+// over a 16-bit scale (JAX promotes the product) reaches the kernel with
+// the scale widened to float32 by the wrapper.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -39,12 +48,51 @@
 namespace {
 
 using repro::rn::chunks_per_thread;
+using repro::rn::kLongThreads;
 using repro::rn::kMaxThreads;
 using repro::rn::kRowsPerBlock;
+using repro::rn::rms_norm_long_kernel;
 using repro::rn::rms_norm_rows_kernel;
+
+// Bytes of rows the long-row grid keeps in flight: half the H100's 50 MB
+// L2, so that the second read of each row hits it.
+constexpr long long kL2RowBytes = 24LL << 20;
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// Rows past the one-pass path: rms_norm_long_kernel, kLongThreads a row,
+// as many rows in flight as fit kL2RowBytes (at least one per SM), up to
+// the occupancy the kernel reaches.
+template <typename T, bool VEC>
+int launch_long(const void* x, const void* scale, void* out, int R, int d,
+                float eps, cudaStream_t s, int* plan) {
+  auto kern = rms_norm_long_kernel<T, VEC>;
+  int dev = 0, n_sm = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        kLongThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  long long fit = kL2RowBytes / (static_cast<long long>(d) * sizeof(T));
+  if (fit < n_sm) fit = n_sm;
+  long long blocks = static_cast<long long>(n_sm) * per_sm;
+  if (blocks > fit) blocks = fit;
+  if (blocks > R) blocks = R;
+  plan[0] = static_cast<int>(blocks);
+  plan[1] = kLongThreads;
+  plan[2] = 1;
+  plan[3] = VEC ? 1 : 0;
+  plan[4] = 0;
+  plan[5] = per_sm;
+  plan[6] = 1;
+  kern<<<static_cast<int>(blocks), kLongThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(scale),
+      static_cast<T*>(out), R, d, eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, bool VEC>
@@ -54,7 +102,8 @@ int launch(const void* x, const void* scale, void* out, int R, int d,
   const int nc = d / N;
   constexpr int per_warp = 32 * chunks_per_thread<VEC>();
   const int wpr = (nc + per_warp - 1) / per_warp;
-  if (32 * wpr > kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
+  if (32 * wpr > kMaxThreads)
+    return launch_long<T, VEC>(x, scale, out, R, d, eps, s, plan);
   const int rpb = wpr == 1 ? kRowsPerBlock : 1;
   const int threads = 32 * wpr * rpb;
   const int blocks = (R + rpb - 1) / rpb;
@@ -70,6 +119,7 @@ int launch(const void* x, const void* scale, void* out, int R, int d,
   plan[3] = VEC ? 1 : 0;
   plan[4] = bytes;
   plan[5] = per_sm;
+  plan[6] = 0;
   kern<<<blocks, threads, bytes, s>>>(static_cast<const T*>(x),
                                       static_cast<const T*>(scale),
                                       static_cast<T*>(out), R, d, eps, wpr);
@@ -91,9 +141,10 @@ int with_path(const void* x, const void* scale, void* out, int R, int d,
 extern "C" {
 
 // x, out: (R, d) contiguous; scale: (d,), all of one dtype (0 = float32,
-// 1 = bfloat16, 2 = float16).  plan (6 ints) receives blocks, threads per
-// block, rows per block, the vector path (1) or the scalar one (0),
-// dynamic shared bytes and blocks per SM (occupancy).  Returns the
+// 1 = bfloat16, 2 = float16); any d >= 1.  plan (7 ints) receives
+// blocks, threads per block, rows per block, the vector path (1) or the
+// scalar one (0), dynamic shared bytes, blocks per SM (occupancy) and the
+// long-row kernel (1) or the one-pass one (0).  Returns the
 // cudaError_t of the launch (0 on success).
 int repro_rms_norm_2d(const void* x, const void* scale, void* out, int dtype,
                       int R, int d, float eps, void* stream, int* plan) {

@@ -24,6 +24,7 @@ namespace rn {
 
 constexpr int kRowsPerBlock = 2;  // rows of a block when a warp holds a row
 constexpr int kMaxThreads = 256;  // so a row of 8 warps, at most
+constexpr int kLongThreads = 1024;  // a row of the long-row kernel
 
 // Chunks of its row one thread holds: 8 vectors (32 registers), or 32
 // single elements.
@@ -154,6 +155,79 @@ rms_norm_rows_kernel(const T* __restrict__ x, const T* __restrict__ scale,
       }
       orow[ci] = o.v;
     }
+  }
+}
+
+// Rows longer than 8 warps' registers hold (d > 8,192 float32, 16,384
+// bfloat16 or float16 on the vector path, d > 8,192 on the scalar one):
+// one block of kLongThreads per row, the grid striding over the rows.  A
+// row is read twice: its sum of squares first, four chunks a thread in
+// flight (64 KB a block on the vector path, enough to keep HBM busy with
+// one row per SM) and four independent partial sums a thread (then a warp
+// shuffle and the warps' partials in warp order through shared memory),
+// then again, from L2 where it still is, to scale and store.  The
+// launcher keeps the rows in flight within kL2RowBytes.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kLongThreads)
+rms_norm_long_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+                     T* __restrict__ out, int R, int d, float eps) {
+  using C = Chunk<T, VEC>;
+  using Raw = typename C::Raw;
+  constexpr int kW = kLongThreads / 32;
+  __shared__ float s_part[kW];
+  const int t = threadIdx.x, nc = d / C::N;
+  const Raw* sr = reinterpret_cast<const Raw*>(scale);
+  for (int row = blockIdx.x; row < R; row += gridDim.x) {
+    const long long off = static_cast<long long>(row) * d;
+    const Raw* xr = reinterpret_cast<const Raw*>(x + off);
+    Raw* orow = reinterpret_cast<Raw*>(out + off);
+    float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    int ci = t;
+    for (; ci + 3 * kLongThreads < nc; ci += 4 * kLongThreads) {
+      C v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u].v = xr[ci + u * kLongThreads];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int e = 0; e < C::N; ++e) {
+          const float f = v[u].get(e);
+          float& p = part[(u * C::N + e) & 3];
+          p = __fadd_rn(p, __fmul_rn(f, f));
+        }
+    }
+    for (; ci < nc; ci += kLongThreads) {
+      C v;
+      v.v = xr[ci];
+#pragma unroll
+      for (int e = 0; e < C::N; ++e) {
+        const float f = v.get(e);
+        part[e & 3] = __fadd_rn(part[e & 3], __fmul_rn(f, f));
+      }
+    }
+    float ss =
+        __fadd_rn(__fadd_rn(part[0], part[1]), __fadd_rn(part[2], part[3]));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      ss = __fadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, o));
+    if ((t & 31) == 0) s_part[t >> 5] = ss;
+    __syncthreads();
+    ss = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kW; ++w) ss = __fadd_rn(ss, s_part[w]);
+    const float inv = rms_inv_from_sumsq<T>(ss, d, eps);
+    for (ci = t; ci < nc; ci += kLongThreads) {
+      C xv, sv, o{};
+      xv.v = xr[ci];
+      sv.v = sr[ci];
+#pragma unroll
+      for (int e = 0; e < C::N; ++e) {
+        const float xi = to_f32(from_f32<T>(__fmul_rn(xv.get(e), inv)));
+        o.set(e, __fmul_rn(xi, sv.get(e)));
+      }
+      orow[ci] = o.v;
+    }
+    __syncthreads();  // s_part is rewritten for the next row
   }
 }
 

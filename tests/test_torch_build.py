@@ -10,8 +10,11 @@ from repro_torch.kernels import build
 SOURCES = ["sampler_step", "rmsnorm", "flash_attention",
            "flash_attention_wide", "flash_attention_bf16",
            "flash_attention_bf16_wide", "flash_attention_f16",
-           "flash_attention_f16_wide", "megastep", "megastep_bf16",
-           "megastep_f16", "ddim_step"]
+           "flash_attention_f16_wide", "flash_attention_xl",
+           "flash_attention_bf16_xl", "flash_attention_f16_xl",
+           *(f"megastep{w}{a}{r}" for w in ("", "_bf16", "_f16", "_mixed")
+             for a in ("", "_flash") for r in ("", "_rows")),
+           "ddim_step"]
 
 
 def _tree(tmp_path):
@@ -45,7 +48,7 @@ def test_headers_are_hashed_for_every_source():
     names = {p.name for p in build.headers()}
     assert {"step_update.cuh", "rmsnorm_body.cuh", "online_softmax.cuh",
             "megastep_body.cuh", "mma_helpers.cuh",
-            "flash_launch.cuh"} <= names
+            "flash_launch.cuh", "flash_xl.cuh"} <= names
     assert set(build.sources()) == set(SOURCES)
 
 

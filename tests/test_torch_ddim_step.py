@@ -60,6 +60,39 @@ def test_plain_version_vs_pallas(R, C, dtype, ci):
         assert np.abs(got - want).max() <= BF16_ULP * np.abs(want).max()
 
 
+# a float32 x over each non-uniform (eps, noise) type pair JAX admits
+MIXES = [(e, z) for e in DTYPES for z in DTYPES if (e, z) != ("f32", "f32")]
+
+
+@pytest.mark.parametrize("eps_t,noise_t", MIXES)
+def test_plain_version_vs_pallas_mixed(eps_t, noise_t):
+    """A float32 x over 16-bit eps and / or noise: JAX promotes them to
+    float32, and the plain version widens them first; bitwise."""
+    rs = np.random.RandomState(len(eps_t) * 3 + len(noise_t))
+    x, e, z = (rs.randn(256, 512).astype(np.float32) * s
+               for s in (3.0, 1.0, 1.0))
+    coefs = COEFS[0]
+    jx = jnp.asarray(x)
+    je, jz = (jnp.asarray(v, DTYPES[t][0]) for v, t in ((e, eps_t),
+                                                         (z, noise_t)))
+    tx = torch.from_numpy(x)
+    te, tz = (torch.from_numpy(v).to(DTYPES[t][1]) for v, t in
+              ((e, eps_t), (z, noise_t)))
+    want = np.asarray(j_ddim_step_2d(jx, je, jz, jnp.asarray(coefs)))
+    assert want.dtype == np.float32
+    got = tk.ddim_step_2d(tx, te, tz, torch.from_numpy(coefs))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_wrapper_refuses_a_16bit_x_over_other_types():
+    """JAX raises on a 16-bit x over operands of another type; off the
+    CPU (a meta tensor stands for the card) the wrapper refuses them."""
+    x = torch.empty(256, 256, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(TypeError, match="float32 over"):
+        tk.ddim_step_2d(x, x.float(), x, torch.ones(5))
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
 def test_plain_version_vs_oracle(dtype):
     (jx, je, jz), (tx, te, tz) = _inputs(256, 256, dtype, seed=7)

@@ -11,12 +11,14 @@ KV tiles, 3xTF32 products) is emulated by ``ref.flash_attention_tiles_ref``
 and held to the JAX kernel at the same float32 tolerance.
 
 The kernel's whole domain (any S the block check admits, head dims 1 to
-256 at the widths of ``ref.HEAD_WIDTHS``, zero-padded, the last KV and q
-tiles ragged): pairs of head dim and S that together take every head dim
-of {32, 80, 112, 33, 192, 256} and every S of {1, 15, 37, 100, 128}, S 160
-with blocks (32, 32), and JAX's own sweep shape (2, 1, 512, 32) and GQA
-shape (2, 128, 8, 32); JAX's interpret grids stay at 25 programs per BH
-or fewer.
+256 at the widths of ``ref.HEAD_WIDTHS``, zero-padded, past 256 the XL
+kernel's chunked depth, the last KV and q tiles ragged): pairs of head dim
+and S that together take every head dim of {32, 80, 112, 33, 192, 256,
+320, 512} and every S of {1, 15, 37, 64, 100, 128}, S 160 with blocks (32,
+32), and JAX's own sweep shape (2, 1, 512, 32) and GQA shape (2, 128, 8,
+32); JAX's interpret grids stay at 25 programs per BH or fewer.  q, k and
+v of different types: JAX casts each to float32 and the output to q's
+type, and so does the port (tolerance of q's type).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -132,7 +134,7 @@ def test_flash_attention_checks_blocks_and_counts_nothing_on_cpu():
 
 # (D, S): every head dim and every S of the domain's test set at least once
 DOMAIN = [(32, 1), (80, 15), (112, 37), (33, 100), (192, 128), (256, 15),
-          (256, 100)]
+          (256, 100), (320, 37), (512, 64)]
 
 
 def _tiles_vs_jax(tq, tk_, tv, want, causal, splits=(1, 2, 4)):
@@ -155,7 +157,32 @@ def test_domain_matches_jax_kernel(D, S, causal):
                                        seed=D + S)
     want = j_mha_flash(jq, jk, jv, causal=causal)
     _close(tops.mha_flash(tq, tk_, tv, causal=causal), want, "f32")
-    _tiles_vs_jax(tq, tk_, tv, want, causal)
+    # past 256 the kernel never splits the KV columns
+    _tiles_vs_jax(tq, tk_, tv, want, causal,
+                  splits=(1, 2, 4) if D <= tref.MAX_HEAD_DIM else (1,))
+
+
+# q, k, v types (q's is the output's): a 16-bit q over float32 k and v,
+# float32 q over 16-bit operands, and three-type mixes
+MIXES = [("bf16", "f32", "f32"), ("f16", "f32", "f32"),
+         ("f32", "bf16", "f16"), ("bf16", "f16", "f32"),
+         ("f16", "bf16", "bf16"), ("f32", "f32", "bf16")]
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("qt,kt,vt", MIXES, ids="-".join)
+def test_mixed_qkv_types_match_jax_kernel(qt, kt, vt, causal):
+    """JAX's flash_attention takes q, k and v of different types: every
+    operand in float32, the output in q's type.  The port's plain version
+    does the same (and the CUDA wrapper widens to the float32 library)."""
+    rs = np.random.RandomState(len(qt + kt + vt))
+    arrs = [rs.randn(2, 64, 64).astype(np.float32) for _ in range(3)]
+    j = [jnp.asarray(a, DT[t][0]) for a, t in zip(arrs, (qt, kt, vt))]
+    t = [torch.from_numpy(a).to(DT[u][1]) for a, u in zip(arrs, (qt, kt, vt))]
+    want = j_flash_attention(*j, causal=causal)
+    got = tk.flash_attention(*t, causal=causal)
+    assert got.dtype == DT[qt][1] and want.dtype == DT[qt][0]
+    _close(got, want, qt)
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
@@ -219,26 +246,42 @@ def test_kernel_plan_model_covers_the_domain():
     assert tref.kernel_kv_split(2, 100, 4) == 1     # 2 x 2 ragged q tiles
     assert tref.kernel_kv_split(2, 37, 4) == 2
     assert tref.kernel_kv_split(1, 1, 132) == 4
-    with pytest.raises(ValueError, match="1 to 256"):
-        tref.kernel_head_width(257)
+    # past 256: the XL kernel's depth in chunks of 64, output slices of
+    # 256, no KV split, the KV tiles of width 256
+    assert [tref.kernel_head_width(d) for d in (257, 288, 320, 512, 1000)] \
+        == [320, 320, 320, 512, 1024]
+    assert [tref.kernel_slices(d) for d in (256, 257, 512, 513, 1024)] == \
+        [1, 2, 2, 3, 4]
+    assert tref.kernel_kv_split(1, 1, 132, d=512) == 1
+    assert tref.kernel_kv_tile(512, torch.float32) == 32
+    assert tref.kernel_kv_tile(512, torch.float16) == 64
+    with pytest.raises(ValueError, match="from 1"):
+        tref.kernel_head_width(0)
 
 
 def test_wrapper_refuses_past_the_domain_on_the_card():
-    """Meta tensors stand for the card: head dim 257 and float64 raise
-    with their reasons before any launch, and float16 passes the type
-    check to the device check (its libraries take it); the CPU takes all
-    of them (plain)."""
+    """Meta tensors stand for the card: float64 raises with its reason
+    before any launch, and head dim 257 (the XL libraries), float16 and q,
+    k, v of three types pass to the device check; the CPU takes all of
+    them (plain)."""
     q = torch.zeros(2, 64, 257, device="meta")
-    with pytest.raises(ValueError, match="head dims up to 256"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         tk.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tk.flash_attention(q.half(), q.bfloat16(), q)
     w = torch.zeros(2, 64, 64, device="meta", dtype=torch.float64)
     with pytest.raises(TypeError, match="float64"):
         tk.flash_attention(w, w, w)
+    with pytest.raises(TypeError, match="float64"):
+        tk.flash_attention(q, q, torch.zeros(2, 64, 257, device="meta",
+                                             dtype=torch.float64))
     h = torch.zeros(2, 64, 64, device="meta", dtype=torch.float16)
     with pytest.raises(ValueError, match="CUDA tensors"):
         tk.flash_attention(h, h, h)
     assert tk.library_name(torch.float16, 64) == "flash_attention_f16"
     assert tk.library_name(torch.float16, 256) == "flash_attention_f16_wide"
+    assert tk.library_name(torch.float16, 320) == "flash_attention_f16_xl"
+    assert tk.library_name(torch.float32, 512) == "flash_attention_xl"
     x = torch.randn(1, 16, 257)
     torch.testing.assert_close(tk.flash_attention(x, x, x),
                                tref.flash_attention_ref(x, x, x))

@@ -10,10 +10,14 @@ Past the slice's geometry, the trunks of ``tests/_torch_mega.py``: 128
 and 256 tokens at head dims 16, 32, 64 and 128; the geometries past those
 (ragged tiles, off-tile widths, head dims 2 to 256) are
 ``test_torch_megastep_geometry.py``'s.  Off the CPU (meta tensors stand for
-the card) the kernel's limits admit every geometry JAX's megakernel does
-and a float16 state, and refuse only a state of another type (float64),
-weights of two types, head dims past 256 and GQA groups of partial
-heads.
+the card) the kernel's limits admit every input JAX's megakernel computes,
+head dims past 256 and weights of several types among them, and
+``eligible`` then gives JAX's answer; they refuse only what JAX raises on:
+a state of another type (float64), an odd head dim and GQA groups of
+partial heads.  Head dim 288 (1 layer) and a tree of bfloat16 matrices
+over float32 vectors run 'mega' against JAX's 'jnp' (float32 and
+bfloat16 states; 2e-2 of the largest state in bfloat16, as
+``test_torch_megastep_bf16.py``).
 
 Tolerances: 1e-4 of the largest state (float32 trunks whose products sum
 in another order, carried through the steps).  Port 'mega' with 'exact'
@@ -146,6 +150,58 @@ def test_plan_run_mega_matches_jax_jnp(attn_impl, k_fuse):
     assert _rel(got, want) <= TOL_OF_SCALE
 
 
+def _wide_or_mixed(case):
+    """(JAX cfg, port cfg, JAX params, port params) of the cases past the
+    kernel's old limits: 'hd288', a 1-layer trunk of two heads of 288 over
+    one kv head (d_model 64); 'mixed', the 2-layer trunk of ``_models``
+    with every matrix in bfloat16 but w_in, and its vectors (the norm
+    scales) in float32.  (w_in stays float32 so that a bfloat16 state's h
+    enters the layers as float32: JAX scans the layers and refuses a
+    layer that changes h's type.)"""
+    if case == "hd288":
+        arch = dict(n_layers=1, d_model=64, n_heads=2, n_kv_heads=1,
+                    d_ff=128, vocab=50, head_dim=288)
+        jcfg = jdlm.DiffusionLMConfig(arch=JArch(name="t", family="dense",
+                                                 **arch), time_dim=32)
+        tcfg = tdlm.DiffusionLMConfig(arch=TArch(name="t", family="dense",
+                                                 **arch), time_dim=32)
+        jp = jdlm.init_params(jax.random.PRNGKey(0), jcfg)
+        return jcfg, tcfg, jp, interop.dlm_params_from_jax(
+            jax.tree.map(np.asarray, jp), tcfg)
+    jcfg, tcfg, jp, tp, _ = _models()
+
+    def cast(path, leaf):
+        keys = [getattr(k, "key", "") for k in path]
+        keep = keys[-1].endswith("norm") or keys[-1] == "w_in"
+        return leaf if keep else leaf.astype(jnp.bfloat16)
+    jp = jax.tree_util.tree_map_with_path(cast, jp)
+    tp = {k: (_matrices_to(v, torch.bfloat16, k) if k != "w_in" else v)
+          for k, v in tp.items()}
+    return jcfg, tcfg, jp, tp
+
+
+@pytest.mark.parametrize("state", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["hd288", "mixed"])
+def test_plan_run_mega_past_the_old_limits_matches_jax_jnp(case, state):
+    """'mega' on a trunk the kernel took only from this slice on (head dim
+    288; weights of two types) against JAX's 'jnp', float32 and bfloat16
+    states; off the CPU the same trunks are eligible."""
+    jcfg, tcfg, jp, tp = _wide_or_mixed(case)
+    jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[state]
+    x = np.random.RandomState(1).randn(B, SEQ, LATENT).astype(np.float32)
+    want = JPlan.build(JSCH, tau=4).run(jdlm.make_eps_fn(jp, jcfg),
+                                        jnp.asarray(x, jdt), backend="jnp")
+    eps = tdlm.make_tile_eps_fn(tp, tcfg, B, SEQ)
+    xT = torch.from_numpy(x).to(tdt)
+    got = SamplerPlan.build(TSCH, 4).run(eps, xT, backend="mega", k_fuse=2)
+    assert tback.run_mega.last_reason == "ok" and got.dtype == tdt
+    tol = 1e-4 if state == "f32" else 2e-2
+    assert _rel(got.float(), np.asarray(want, np.float32)) <= tol
+    assert megastep.eligible(eps.mega_spec, torch.empty(
+        xT.shape, dtype=tdt, device="meta")) == (True, "ok")
+
+
 @pytest.mark.parametrize("k_fuse,clip,heads", [
     (1, None, (2, 2)), (3, None, (2, 2)), (8, None, (2, 2)),
     (3, 1.5, (4, 2))], ids=["K1", "K3", "K8", "K3-clip-gqa"])
@@ -213,18 +269,17 @@ def test_eligibility_reasons():
         dataclasses.replace(spec, attn_impl="chunked")
 
 
-# The CUDA megakernel's own limits (kernel_limits): a state of a type it
-# has no code for (float64), weights of two types (float32 and bfloat16:
-# JAX admits both, no caller runs them), or a head dim past 256.  A state
-# off the CPU (meta stands for the card) meets them or is not eligible; a
-# CPU state keeps the JAX rule.
+# The CUDA megakernel's own limits (kernel_limits), which are what JAX's
+# kernel raises on: a state of a type it has no code for (float64), an
+# odd head dim (RoPE's halves: JAX's array split fails) and n_heads no
+# multiple of n_kv_heads.  A state off the CPU (meta stands for the card)
+# meets them or is not eligible; a CPU state keeps the JAX rule.
 LIMIT_CASES = {
     "state_dtype": dict(state=torch.float64, what="dtype torch.float64"),
-    "weight_dtype": dict(weights="mixed", what="weights all float32, all "
-                         "bfloat16 or all float16, got dtype "
-                         "torch.bfloat16, torch.float32"),
-    "head_dim_264": dict(cfg=(1, 1, 64, 264), what="an even head_dim up to "
-                         "256, got head_dim 264"),
+    "head_dim_9": dict(cfg=(1, 1, 64, 9), what="an even head_dim (RoPE's "
+                       "halves), got head_dim 9"),
+    "heads_3_over_2": dict(cfg=(3, 2, 64, 16), what="n_heads a multiple of "
+                           "n_kv_heads, got 3 and 2"),
 }
 # Geometries past the limits the kernel had until it took every one JAX's
 # megakernel admits, each now admitted: seq_len 96 at latent 64 (a 64-row
@@ -234,8 +289,17 @@ LIMIT_CASES = {
 # 256 at 1 x 200, which also passes the old latent <= 128), head dims 2 and
 # 256, d_model 72 with d_ff 100, odd widths (d_model 75, d_ff 101, head dim
 # 10, time_dim 31), a latent of 3 (2,048 tokens: whole tile granules), and
-# a float16 state over float32 weights (a float32 trunk).
+# a float16 state over float32 weights (a float32 trunk).  Past the limits
+# the kernel had until it took JAX's whole domain: weights of two types
+# (one bfloat16 leaf among float32, and bfloat16 matrices over float32
+# vectors), and head dims 264, 288, 576 and 1,024.
 ADMIT_CASES = {
+    "weight_dtype": dict(weights="mixed"),
+    "matrices_bf16": dict(weights="matrices"),
+    "head_dim_264": dict(cfg=(1, 1, 64, 264)),
+    "head_dim_288": dict(cfg=(2, 1, 64, 288)),
+    "head_dim_576": dict(cfg=(1, 1, 64, 576)),
+    "head_dim_1024": dict(cfg=(1, 1, 64, 1024)),
     "state_float16": dict(state=torch.float16),
     "seq_len": dict(cfg="latent64", batch=2, seq=96),
     "head_dim": dict(cfg=(8, 4)),
@@ -276,7 +340,17 @@ def _limit_case(case, cases=LIMIT_CASES):
     spec = _meta_spec(cfg, batch, seq_len=seq)
     if c.get("weights") == "mixed":     # one bfloat16 leaf among float32
         spec.params["w_out"] = spec.params["w_out"].to(torch.bfloat16)
+    elif c.get("weights") == "matrices":  # bfloat16 matrices, float32 rest
+        spec.params = _matrices_to(spec.params, torch.bfloat16)
     return spec, (batch, seq, cfg.latent_dim), c.get("state", torch.float32)
+
+
+def _matrices_to(tree, dtype, key=""):
+    """A tree with every matrix leaf cast to ``dtype`` and every vector
+    leaf (the norm scales, stacked or not) kept."""
+    if isinstance(tree, dict):
+        return {k: _matrices_to(v, dtype, k) for k, v in tree.items()}
+    return tree if key.endswith("norm") else tree.to(dtype)
 
 
 @pytest.mark.parametrize("case", list(LIMIT_CASES))
@@ -319,6 +393,43 @@ def test_kernel_launcher_refuses_what_kernel_limits_refuses(case):
     with pytest.raises(ValueError) as err:
         tk._check_kernel_inputs(x2, spec.params, spec.cfg)
     assert why in str(err.value)
+
+
+def _jax_spec(spec):
+    """JAX's MegaSpec of the same trunk, geometry and leaf types, its leaves
+    shape / dtype stand-ins (JAX's eligibility reads only those)."""
+    from repro.kernels.megastep import MegaSpec as JMegaSpec
+    a = spec.cfg.arch
+    jcfg = jdlm.DiffusionLMConfig(
+        arch=JArch(**{f.name: getattr(a, f.name)
+                      for f in dataclasses.fields(JArch)}),
+        time_dim=spec.cfg.time_dim, latent_dim=spec.cfg.latent_dim)
+    jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
+           torch.float16: jnp.float16}
+
+    def stand_in(tree):
+        if isinstance(tree, dict):
+            return {k: stand_in(v) for k, v in tree.items()}
+        return jax.ShapeDtypeStruct(tuple(tree.shape), jdt[tree.dtype])
+    return JMegaSpec(params=stand_in(spec.params), cfg=jcfg,
+                     batch=spec.batch, seq_len=spec.seq_len,
+                     attn_impl=spec.attn_impl), jdt
+
+
+@pytest.mark.parametrize("case", list(ADMIT_CASES))
+def test_eligible_off_the_cpu_equals_jax_eligible(case):
+    """On every input JAX's megakernel computes, the port's eligibility of
+    a state off the CPU is JAX's (at the port's budget, which both take:
+    JAX's own is a TPU's VMEM share)."""
+    from repro.kernels.megastep import eligible as j_eligible
+    spec, shape, dtype = _limit_case(case, ADMIT_CASES)
+    jspec, jdt = _jax_spec(spec)
+    want = j_eligible(jspec, jax.ShapeDtypeStruct(shape, jdt[dtype]),
+                      budget=megastep.MEGA_BUDGET)
+    assert want == (True, "ok")
+    assert megastep.eligible(spec, torch.empty(shape, dtype=dtype,
+                                               device="meta"),
+                             budget=megastep.MEGA_BUDGET) == want
 
 
 def _bench_mega_cfg():
@@ -364,7 +475,7 @@ def test_kernel_limits_admit_the_slice():
 
 def test_engine_off_the_cpu_takes_rows_for_the_kernel_limits():
     from repro_torch.serving import ContinuousBatchingEngine
-    spec, shape, _ = _limit_case("head_dim_264")
+    spec, shape, _ = _limit_case("head_dim_9")
 
     def eps(x2, t):
         raise AssertionError("never called")
@@ -376,8 +487,8 @@ def test_engine_off_the_cpu_takes_rows_for_the_kernel_limits():
         assert eng.use_mega == want
         assert eng.tick_variant == ("mega" if want else "rows")
     with pytest.raises(ValueError, match="use_mega=True but the CUDA "
-                       "megakernel takes an even head_dim up to 256, got "
-                       "head_dim 264"):
+                       "megakernel takes an even head_dim \\(RoPE's "
+                       "halves\\), got head_dim 9"):
         ContinuousBatchingEngine(TSCH, eps, shape[1:], slots=shape[0],
                                  use_mega=True, device="meta")
     # 2 slots of 128 tokens and, at latent 64, 2 of 96 and 4 of 32 are in

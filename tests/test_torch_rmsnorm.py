@@ -24,10 +24,11 @@ ULP = {"bf16": 2.0 ** -7, "f16": 2.0 ** -10}
 DTYPES = {"f32": (np.float32, jnp.float32, torch.float32),
           "bf16": (np.float32, jnp.bfloat16, torch.bfloat16),
           "f16": (np.float32, jnp.float16, torch.float16)}
-# the last two: the ops path's rows at smollm width, and a d that takes
-# the CUDA kernel's scalar row path (d % 4 != 0)
+# then: the ops path's rows at smollm width, a d that takes the CUDA
+# kernel's scalar row path (d % 4 != 0), and a row past what the one-pass
+# path holds (the long-row kernel on the card)
 SHAPES = [(4, 128), (3, 17, 96), (2, 5, 7, 64), (1000, 256), (1, 64),
-          (2048, 576), (256, 190)]
+          (2048, 576), (256, 190), (2, 20000)]
 
 
 def _inputs(shape, dtype, seed=0):
@@ -54,6 +55,27 @@ def _assert_close(got, want, dtype):
 def test_rms_norm_matches_jax_kernel(shape, dtype):
     (jx, js), (tx, ts) = _inputs(shape, dtype)
     _assert_close(tops.rms_norm(tx, ts), rms_norm_kernel(jx, js), dtype)
+
+
+@pytest.mark.parametrize("scale_t", ["bf16", "f16"])
+def test_float32_x_over_a_16bit_scale(scale_t):
+    """JAX's kernel promotes (x * inv) * scale to float32 over a 16-bit
+    scale; the port matches within the float32 tolerance."""
+    (jx, _), (tx, _) = _inputs((64, 576), "f32", seed=3)
+    (_, js), (_, ts) = _inputs((64, 576), scale_t, seed=4)
+    want = rms_norm_kernel(jx, js)
+    assert want.dtype == jnp.float32
+    got = tops.rms_norm(tx, ts)
+    assert got.dtype == torch.float32
+    _assert_close(got, want, "f32")
+
+
+def test_rms_norm_2d_refuses_a_16bit_x_over_another_scale():
+    """JAX raises on a 16-bit x over a scale of another type; off the
+    CPU (a meta tensor stands for the card) the wrapper refuses it."""
+    x = torch.empty(256, 64, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(TypeError, match="float32 over"):
+        tk.rms_norm_2d(x, torch.empty(64, device="meta"))
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
